@@ -1,0 +1,1 @@
+"""models layer of the PyTorch/CUDA port (see the package docstring)."""

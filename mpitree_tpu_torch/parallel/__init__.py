@@ -1,0 +1,1 @@
+"""parallel layer of the PyTorch/CUDA port (see the package docstring)."""

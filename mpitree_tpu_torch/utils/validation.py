@@ -1,0 +1,188 @@
+"""Input validation for the estimator, without sklearn.
+
+Counterpart of the subset of ``mpitree_tpu/utils/validation.py`` the
+classifier uses. The JAX package validates with sklearn's ``check_X_y``/
+``check_array``; the port runs where sklearn is not installed, so the
+checks it needs are written here: numeric 2-D X with at least one row and
+one feature, finite values, 1-D y of matching length with discrete labels,
+encoded against ``classes_`` (for ``0..C-1`` integer labels the encoding is
+the identity, as in the reference).
+"""
+
+from __future__ import annotations
+
+import numbers
+
+import numpy as np
+
+
+def _as_float_matrix(X, what: str = "X") -> np.ndarray:
+    arr = np.asarray(X)
+    if arr.dtype == object or arr.dtype.kind in "USV":
+        try:
+            arr = arr.astype(np.float64)
+        except (TypeError, ValueError) as e:
+            raise ValueError(
+                f"{what} must be numeric; got dtype {arr.dtype} ({e})"
+            ) from e
+    elif arr.dtype.kind not in "biuf":
+        raise ValueError(f"{what} must be numeric; got dtype {arr.dtype}")
+    if arr.ndim != 2:
+        raise ValueError(
+            f"Expected 2D array, got {arr.ndim}D array instead: {what} has "
+            f"shape {arr.shape}"
+        )
+    if arr.shape[0] < 1:
+        raise ValueError(
+            f"Found array with 0 sample(s) (shape={arr.shape}) while a "
+            "minimum of 1 is required."
+        )
+    if arr.shape[1] < 1:
+        raise ValueError(
+            f"Found array with 0 feature(s) (shape={arr.shape}) while a "
+            "minimum of 1 is required."
+        )
+    if not np.isfinite(arr).all():
+        raise ValueError(f"Input {what} contains NaN or infinity.")
+    return np.ascontiguousarray(arr, dtype=np.float32)
+
+
+def validate_fit_data(X, y):
+    """Returns (X float32 (N, F), y encoded int32 (N,), classes_)."""
+    X = _as_float_matrix(X)
+    y = np.asarray(y)
+    if y.ndim == 2 and y.shape[1] == 1:
+        y = y[:, 0]
+    if y.ndim != 1:
+        raise ValueError(f"y must be 1-D, got shape {y.shape}")
+    if y.shape[0] != X.shape[0]:
+        raise ValueError(
+            "Found input variables with inconsistent numbers of samples: "
+            f"[{X.shape[0]}, {y.shape[0]}]"
+        )
+    if y.dtype.kind == "f":
+        if not np.isfinite(y).all():
+            raise ValueError("Input y contains NaN or infinity.")
+        if not np.array_equal(y, np.round(y)):
+            raise ValueError(
+                "Unknown label type: continuous. Classification targets "
+                "must be discrete"
+            )
+    classes, y_enc = np.unique(y, return_inverse=True)
+    return X, y_enc.astype(np.int32), classes
+
+
+def validate_sample_weight(sample_weight, n_samples: int):
+    if sample_weight is None:
+        return None
+    w = np.asarray(sample_weight, dtype=np.float32)
+    if w.shape != (n_samples,):
+        raise ValueError(
+            f"sample_weight has shape {w.shape}, expected ({n_samples},)"
+        )
+    if (w < 0).any() or not np.isfinite(w).all():
+        raise ValueError("sample_weight must be finite and non-negative")
+    if n_samples and not (w > 0).any():
+        raise ValueError("sample_weight is all zero: nothing to fit")
+    return w
+
+
+def resolve_min_samples_leaf(min_samples_leaf, n_samples: int) -> int:
+    """sklearn's ``min_samples_leaf`` grammar -> a row count (int >= 1)."""
+    if isinstance(min_samples_leaf, numbers.Real) and not isinstance(
+        min_samples_leaf, numbers.Integral
+    ):
+        if not 0.0 < min_samples_leaf < 1.0:
+            raise ValueError(
+                f"float min_samples_leaf must be in (0, 1), "
+                f"got {min_samples_leaf!r}"
+            )
+        return int(np.ceil(min_samples_leaf * n_samples))
+    msl = int(min_samples_leaf)
+    if msl != min_samples_leaf or msl < 1:
+        raise ValueError(
+            f"int min_samples_leaf must be a positive integer, "
+            f"got {min_samples_leaf!r}"
+        )
+    return msl
+
+
+def min_child_weight(min_weight_fraction_leaf, sample_weight, n_samples,
+                     min_samples_leaf=1):
+    """sklearn's leaf floors -> one absolute per-child weight floor (the
+    max of the fraction of total fit weight and the sample count)."""
+    frac = float(min_weight_fraction_leaf)
+    if not 0.0 <= frac <= 0.5:
+        raise ValueError(
+            f"min_weight_fraction_leaf must be in [0, 0.5], got {frac!r}"
+        )
+    msl = resolve_min_samples_leaf(min_samples_leaf, n_samples)
+    floor = 0.0 if msl == 1 else float(msl)
+    if frac > 0.0:
+        total = float(n_samples) if sample_weight is None else float(
+            np.sum(sample_weight)
+        )
+        floor = max(floor, frac * total)
+    return floor
+
+
+def min_decrease_scaled(min_impurity_decrease, sample_weight, n_samples):
+    """sklearn's ``min_impurity_decrease`` pre-scaled by the total fit
+    weight: the builder compares ``n_t * (imp_t - cost_t)`` against it."""
+    d = float(min_impurity_decrease)
+    if d < 0.0:
+        raise ValueError(
+            f"min_impurity_decrease must be >= 0, got {min_impurity_decrease!r}"
+        )
+    if d == 0.0:
+        return 0.0
+    total = (
+        float(n_samples) if sample_weight is None
+        else float(np.sum(sample_weight))
+    )
+    return d * total
+
+
+def validate_predict_data(X, estimator):
+    """Numeric finite (N, F) float32 with the fitted feature count."""
+    X = _as_float_matrix(X)
+    n_features = estimator.n_features_
+    if X.shape[1] != n_features:
+        raise ValueError(
+            f"X has {X.shape[1]} features, but {type(estimator).__name__} "
+            f"is expecting {n_features} features as input."
+        )
+    return X
+
+
+def validate_refine_depth(refine_depth):
+    """None, ``"auto"``, or an exact int >= 0."""
+    if refine_depth is None:
+        return None
+    if isinstance(refine_depth, str):
+        if refine_depth == "auto":
+            return "auto"
+        raise ValueError(
+            f"refine_depth must be None, 'auto', or a non-negative "
+            f"integer, got {refine_depth!r}"
+        )
+    rd = int(refine_depth)
+    if rd != refine_depth or rd < 0:
+        raise ValueError(
+            f"refine_depth must be None, 'auto', or a non-negative "
+            f"integer, got {refine_depth!r}"
+        )
+    return rd
+
+
+def resolve_refine(max_depth, refine_depth, *, n_rows=None, quantized=True):
+    """``(rd, refine, crown_max_depth)`` as ``mpitree_tpu/utils/
+    validation.py:292`` decides it when its native C++ tail is absent:
+    ``"auto"`` resolves to no refine (the port has no refine tail yet), so
+    the whole depth is one device build. An explicit integer is returned
+    as is; the estimator refuses it."""
+    rd = validate_refine_depth(refine_depth)
+    if rd == "auto":
+        rd = None
+    refine = rd is not None and (max_depth is None or max_depth > rd)
+    return rd, refine, (rd if refine else max_depth)
