@@ -5,12 +5,15 @@ Run from the root of a checkout, on a machine with a CUDA card and the CUDA
 toolkit (``nvcc``)::
 
     python3 chip_smoke.py              # the whole check, one card
-    python3 chip_smoke.py --profile    # also profile one fit (torch.profiler)
+    python3 chip_smoke.py --profile DIR    # also profile a tree fit, a
+                                           # forest fit and serving
+                                           # (torch.profiler; tables in DIR)
 
 Phases, in order; any failure raises and exits non-zero:
 
-1. build: compile ``mpitree_tpu_torch/csrc/histogram.cu`` with ``nvcc``
-   for ``sm_90a`` into ``build/``.
+1. build: compile every ``mpitree_tpu_torch/csrc/*.cu`` (``histogram.cu``,
+   ``traverse.cu``) with ``nvcc`` for ``sm_90a`` into ``build/``, one
+   ``nvcc`` per source, started together.
 2. kernels: bin ``covtype_like(581_012, seed=0)`` (256 bins) on the card;
    for S in {1, 8, 64, 128, 512, K} (K the fit's chunk width) spread the
    rows over S slots (some slots empty, some rows at -1) with class
@@ -28,10 +31,30 @@ Phases, in order; any failure raises and exits non-zero:
    identical field for field, or differ first at a node whose two
    candidate float64 costs are within 1e-12 relative (an exact-tie
    residual: CUDA's and glibc's fp64 ``log`` may differ by an ulp).
+5. forest: ``RandomForestClassifier(n_estimators=50, max_depth=12,
+   max_bins=256, random_state=0)`` on the first 200,000 rows, twice; the
+   histogram launch counters are set to 0 just before the second fit and
+   read just after it. Held-out accuracy on ``covtype_like(50_000,
+   seed=1)``. Then a 4-tree, depth-8 forest on ``covtype_like(20_000,
+   seed=4)`` on the card and with ``device="cpu"``: identical trees.
+6. serve kernels: on that forest's flat table, the traversal kernel K4 in
+   ``norm`` (counts), ``sum`` and ``percls`` (non-integer float64
+   channels) and the quantized kernel K5 in ``sum`` are held
+   ``torch.equal`` to their plain versions at 4,096 and 500,000 rows of
+   ``covtype_like(500_000, seed=3)``, and timed beside their bound.
+7. serve: ``ModelRegistry().publish("rf", forest)`` and
+   ``publish("rf8", forest, quantize="int8")``, each answering 300
+   one-row, 150 64-row and 30 4,096-row requests (p50/p99 per bucket),
+   then one 500,000-row batch (rows/s); the traversal launch counters are
+   set to 0 just before the publishes and read after the batch. ``rf``
+   must equal ``forest.predict_proba`` bit for bit on 4,096 held-out rows,
+   and ``rf8`` must stay within its own exactness report on its
+   calibration batch.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``;
-the card's name and power limit, one JSON line of per-shape kernel
-timings (``kernel_shapes``) and one ``kernels`` line come before it.
+the card's name and power limit, JSON lines of per-shape kernel timings
+(``kernel_shapes``, ``serve_kernel_shapes``), of the serving measurements
+(``serving``) and one ``kernels`` line come before it.
 Without CUDA the script exits 1 and prints no result.
 """
 
@@ -52,13 +75,15 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 SLOT_TIERS = (1, 8, 64, 128, 512)
+DEV = torch.device("cuda")
 ROWS, DEPTH = 581_012, 20  # covtype's rows; the BASELINE fit's depth
 # One shape per variant for the "kernels" line: small's one width (the
 # root level) and wide at S=K, the width of the deep levels.
 REPRESENTATIVE = {"small": 1, "wide": None}
-# Device kernels of a profiled fit, grouped by what they serve (first match).
+# Device kernels of a profiled run, grouped by what they serve (first match).
 PROFILE_KINDS = (
     ("histogram kernels", ("hist_small_kernel", "hist_wide_kernel")),
+    ("traversal kernels", ("traverse_kernel",)),
     ("copies", ("Memcpy", "memcpy", "Memset")),
     ("binning sort/search", ("sort", "Sort", "radix", "searchsorted")),
     ("float64 sweep", ("double",)),
@@ -67,6 +92,14 @@ REPLACES = {
     "small": "mpitree_tpu/ops/pallas_hist.py:77",
     "wide": "mpitree_tpu/ops/wide_hist.py:252",
 }
+# BASELINE config 5, bench.py's FOREST_SHAPES["tpu"]; not cut.
+FOREST = dict(n_estimators=50, max_depth=12, max_bins=256, random_state=0)
+FOREST_ROWS = 200_000
+SERVE_SHAPES = (4_096, 500_000)
+# (bucket rows, requests), as bench_tpu.py's serving section sends them
+REQUESTS = ((1, 300), (64, 150), (4_096, 30))
+# the serving kernels' kernels-line entries: launch counter -> mode shown
+SERVE_LINE = {"traverse": "norm", "traverse_q": "sum"}
 
 
 def log(msg: str) -> None:
@@ -103,9 +136,9 @@ def phase_build() -> None:
     from mpitree_tpu_torch import _build
 
     t0 = time.perf_counter()
-    _build.load("histogram")
-    log(f"build: csrc/histogram.cu in {time.perf_counter() - t0:.3f} s "
-        f"(nvcc {_build.nvcc_path()})")
+    names = _build.build_all()
+    log(f"build: csrc/{{{','.join(names)}}}.cu in "
+        f"{time.perf_counter() - t0:.3f} s (nvcc {_build.nvcc_path()})")
 
 
 def _slots(rng, N: int, S: int) -> np.ndarray:
@@ -326,19 +359,255 @@ def phase_parity(depth: int = 10) -> None:
         )
 
 
-def phase_profile(X, y, depth: int, out_dir: Path) -> None:
-    """One more depth-``depth`` fit under torch.profiler: device time by
-    kernel and the device's busy share of the wall-clock."""
+def phase_forest(X, y, Xh, yh):
+    from mpitree_tpu_torch.ops import hist_kernel
+    from mpitree_tpu_torch.tree import RandomForestClassifier
+
+    Xf, yf = X[:FOREST_ROWS], y[:FOREST_ROWS]
+    forest = RandomForestClassifier(**FOREST)
+    t0 = time.perf_counter()
+    forest.fit(Xf, yf)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+
+    for k in hist_kernel.launches:
+        hist_kernel.launches[k] = 0
+    t0 = time.perf_counter()
+    forest.fit(Xf, yf)
+    torch.cuda.synchronize()
+    second = time.perf_counter() - t0
+    launches = dict(hist_kernel.launches)
+
+    t0 = time.perf_counter()
+    proba = forest.predict_proba(Xh)
+    predict_s = time.perf_counter() - t0
+    test_acc = float(np.mean(forest.classes_[proba.argmax(axis=1)] == yh))
+    nodes = np.array([t.n_nodes for t in forest.trees_])
+    depth = max(t.max_depth for t in forest.trees_)
+    if not (len(nodes) == FOREST["n_estimators"] and nodes.min() > 1
+            and depth <= FOREST["max_depth"] and np.isfinite(proba).all()
+            and np.allclose(proba.sum(axis=1), 1.0, rtol=0, atol=1e-12)
+            and test_acc > 0.5):
+        raise AssertionError(
+            f"implausible forest: {len(nodes)} trees, nodes {nodes.min()}.."
+            f"{nodes.max()}, depth {depth}, held-out {test_acc}"
+        )
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"forest fit never launched {missing}")
+    log(f"forest: {len(Xf)} x {Xf.shape[1]}, {len(nodes)} trees, depth "
+        f"{depth}: first {first:.3f} s, second {second:.3f} s; nodes total "
+        f"{int(nodes.sum())}, mean {float(nodes.mean())}; held-out acc "
+        f"{test_acc:.6f} ({len(Xh)} rows, predict_proba {predict_s:.3f} s); "
+        f"launches {launches}")
+    return forest, second
+
+
+def phase_forest_parity() -> None:
+    """A small forest fitted on the card and with ``device="cpu"`` (the
+    plain versions): the trees must be identical field for field."""
+    from mpitree_tpu_torch.tree import RandomForestClassifier
+    from mpitree_tpu_torch.utils.datasets import covtype_like
+
+    X, y = covtype_like(20_000, seed=4)
+    kw = dict(FOREST, n_estimators=4, max_depth=8)
+    gpu = RandomForestClassifier(device="cuda", **kw).fit(X, y).trees_
+    cpu = RandomForestClassifier(device="cpu", **kw).fit(X, y).trees_
+    fields = ("feature", "threshold", "left", "right", "count",
+              "n_node_samples")
+    for i, (a, b) in enumerate(zip(gpu, cpu, strict=True)):
+        if a.n_nodes != b.n_nodes or not all(
+                np.array_equal(getattr(a, k), getattr(b, k), equal_nan=True)
+                for k in fields):
+            raise AssertionError(f"forest tree {i}: cuda tree != cpu tree")
+    log(f"forest parity: {len(X)} rows, {len(gpu)} trees depth "
+        f"{kw['max_depth']}: cuda trees == cpu trees "
+        f"({sum(t.n_nodes for t in gpu)} nodes)")
+
+
+def _touched(table, cols, X) -> tuple:
+    """(distinct nodes on the descent paths of ``X``, distinct leaves
+    reached): what a traversal of ``X`` must read of the table."""
+    from mpitree_tpu_torch.serving import traversal
+
+    node = traversal.descend(X, *cols, table.n_steps)
+    ids = torch.unique(node).cpu().numpy()
+    n_leaves = len(ids)
+    parent = np.full(table.n_nodes, -1, np.int64)
+    inner = np.flatnonzero(table.feature >= 0)
+    parent[table.left[inner]] = inner
+    parent[table.right[inner]] = inner
+    seen = np.zeros(table.n_nodes, bool)
+    while ids.size:
+        seen[ids] = True
+        ids = np.unique(parent[ids])
+        ids = ids[ids >= 0]
+    return int(seen.sum()), n_leaves
+
+
+def phase_serve_kernels(forest, Xbig) -> list:
+    from mpitree_tpu_torch.serving import quantize, serve_kernel
+    from mpitree_tpu_torch.serving.tables import tables_for
+
+    dev = DEV
+    [table] = tables_for(forest.trees_, group_bytes=None)
+    cols = table.dev_arrays(dev)[:5]
+    T, M, C = table.n_trees, table.n_nodes, len(forest.classes_)
+    counts = np.concatenate([t.count for t in forest.trees_])
+    counts = counts[table.scatter_order()]
+    rng = np.random.default_rng(0)
+    channels = {  # mode -> (M, K) float64 values on the card
+        "norm": counts.astype(np.float64),
+        "sum": rng.standard_normal((M, C)),
+        "percls": rng.standard_normal((M, 1)),
+    }
+    channels = {k: torch.from_numpy(v).to(dev) for k, v in channels.items()}
+    state = quantize.build_state(
+        table, quantize.prepare_channel("forest_proba", counts),
+        kind="forest_proba", scale=T, n_steps=table.n_steps, tol=1.0,
+        device=dev, n_features=Xbig.shape[1],
+    )
+    qcols = (state.feature, state.threshold, state.left, state.right,
+             state.root)
+    rows = []
+    for N in SERVE_SHAPES:
+        X = torch.from_numpy(np.ascontiguousarray(Xbig[:N])).to(dev)
+        visited, leaves = _touched(table, cols, X)
+        reps = 7 if N <= 4_096 else 3
+        cases = [("traverse", agg, cols, channels[agg], 4 + 4 + 4 + 4, 8)
+                 for agg in ("norm", "sum", "percls")]
+        cases.append(("traverse_q", "sum", qcols, state.qvals,
+                      2 + 2 + 4 + 4, 4))
+        for form, agg, tcols, values, node_bytes, acc_bytes in cases:
+            kw = dict(n_steps=table.n_steps, agg=agg, n_out=C)
+            if form == "traverse":
+                ref = serve_kernel.traverse_reference
+                run = serve_kernel.traverse
+            else:
+                ref = serve_kernel.traverse_q_reference
+                run = serve_kernel.traverse_q
+            want = ref(X, *tcols, values, **kw)
+            got = run(X, *tcols, values, n_features=X.shape[1], **kw)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max().item())
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"{form}[{agg}] != plain version at N={N} (max |diff| "
+                    f"{err})"
+                )
+            del got, want
+            ms = cuda_ms(lambda: run(X, *tcols, values,
+                                     n_features=X.shape[1], **kw))
+            plain_ms = cuda_ms(lambda: ref(X, *tcols, values, **kw),
+                               reps=reps)
+            # each input read once, the output written once; of the table
+            # only the nodes on this batch's paths and the leaves it reaches
+            n_bytes = (X.numel() * 4 + visited * node_bytes + T * 4
+                       + leaves * values.shape[1] * values.element_size()
+                       + N * C * acc_bytes)
+            rows.append(dict(
+                kernel=form, agg=agg, rows=N, ms=ms, plain_ms=plain_ms,
+                bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                bytes=n_bytes, visited_nodes=visited, leaves=leaves,
+                table_nodes=M, max_abs_err=err,
+            ))
+            log(f"serve kernels: {form}[{agg}] N={N}: kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms, bound {rows[-1]['bound_ms']:.6f} "
+                f"ms (bytes; {visited} of {M} nodes, {leaves} leaves); "
+                f"equal to plain")
+        del X
+    return rows
+
+
+def phase_serve(forest, Xh, Xbig) -> tuple:
+    from mpitree_tpu_torch.serving import ModelRegistry, quantize
+    from mpitree_tpu_torch.serving import serve_kernel
+    from mpitree_tpu_torch.serving.tables import tables_for
+
+    rng = np.random.default_rng(0)
+    for k in serve_kernel.launches:
+        serve_kernel.launches[k] = 0
+    reg = ModelRegistry()
+    stats = {}
+    for name, kw in (("rf", {}), ("rf8", {"quantize": "int8"})):
+        t0 = time.perf_counter()
+        reg.publish(name, forest, **kw)
+        publish_s = time.perf_counter() - t0
+        lat = {}
+        for b, count in REQUESTS:
+            times = []
+            for _ in range(count):
+                lo = int(rng.integers(0, len(Xh) - b + 1))
+                t0 = time.perf_counter()
+                reg.predict_proba(name, Xh[lo:lo + b])
+                times.append(time.perf_counter() - t0)
+            ms = np.asarray(times) * 1e3
+            lat[b] = dict(p50_ms=float(np.percentile(ms, 50)),
+                          p99_ms=float(np.percentile(ms, 99)),
+                          requests=count)
+        t0 = time.perf_counter()
+        out = reg.raw(name, Xbig)
+        batch_s = time.perf_counter() - t0
+        if out.shape != (len(Xbig), len(forest.classes_)):
+            raise AssertionError(f"{name}: batch answer shape {out.shape}")
+        stats[name] = dict(publish_s=publish_s, latency=lat,
+                           batch_rows=len(Xbig), batch_s=batch_s,
+                           rows_per_s=len(Xbig) / batch_s,
+                           dispatch=reg.get(name).serve_report_["dispatch"])
+        log(f"serve: {name} ({stats[name]['dispatch']}): publish "
+            f"{publish_s:.3f} s; " + "; ".join(
+                f"bucket {b}: p50 {v['p50_ms']:.4f} ms p99 "
+                f"{v['p99_ms']:.4f} ms" for b, v in lat.items())
+            + f"; {len(Xbig)} rows in {batch_s:.3f} s = "
+            f"{stats[name]['rows_per_s']:.1f} rows/s")
+    launches = dict(serve_kernel.launches)
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"serving never launched {missing}")
+
+    Xc = Xh[:4_096]
+    want = forest.predict_proba(Xc)
+    got = reg.predict_proba("rf", Xc)
+    if not np.array_equal(got, want):
+        raise AssertionError(
+            f"served rf != forest.predict_proba (max |diff| "
+            f"{np.abs(got - want).max()})"
+        )
+    rep = reg.get("rf8").serve_report_["quantization"]
+    [table] = tables_for(forest.trees_, group_bytes=None)
+    cal = quantize.synthesize_calibration(table, Xh.shape[1])
+    cal_delta = float(np.abs(reg.raw("rf8", cal) - reg.raw("rf", cal)).max())
+    # the report compares float32 sums on the host; the served int32 lattice
+    # sum and the float64 answer differ from those by float32 rounding
+    if not (rep["ok"] and cal_delta <= rep["max_abs_delta"] + 1e-6):
+        raise AssertionError(
+            f"rf8 outside its exactness report: delta {cal_delta} on the "
+            f"calibration batch, report {rep}"
+        )
+    q = reg.predict_proba("rf8", Xc)
+    held_delta = float(np.abs(q - want).max())
+    agree = float(np.mean(q.argmax(axis=1) == want.argmax(axis=1)))
+    log(f"serve: rf == forest.predict_proba bit for bit on {len(Xc)} "
+        f"held-out rows; rf8 calibration delta {cal_delta} <= report "
+        f"max_abs_delta {rep['max_abs_delta']} (tolerance "
+        f"{rep['tolerance']}); rf8 on held-out rows: max |delta| "
+        f"{held_delta}, argmax agreement {agree}; launches {launches}")
+    stats["rf8"].update(quantization=rep, calibration_delta=cal_delta,
+                        heldout_max_delta=held_delta,
+                        heldout_argmax_agreement=agree)
+    return stats, launches
+
+
+def phase_profile(name: str, work, out_dir: Path) -> None:
+    """Run ``work()`` once more under torch.profiler: device time by kernel
+    and the device's busy share of the wall-clock; the table goes to
+    ``out_dir/profile_<name>.txt``."""
     from torch.profiler import ProfilerActivity, profile
 
-    from mpitree_tpu_torch.tree import DecisionTreeClassifier
-
-    clf = DecisionTreeClassifier(criterion="entropy", max_depth=depth,
-                                 max_bins=256)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        clf.fit(X, y)
+        work()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = [e for e in prof.events() if e.device_type.name == "CUDA"]
@@ -346,7 +615,7 @@ def phase_profile(X, y, depth: int, out_dir: Path) -> None:
     table = prof.key_averages().table(sort_by="cuda_time_total",
                                       row_limit=25)
     out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / "profile_fit.txt").write_text(table)
+    (out_dir / f"profile_{name}.txt").write_text(table)
     by_name: dict = {}
     by_kind: dict = {}
     for e in events:
@@ -355,7 +624,7 @@ def phase_profile(X, y, depth: int, out_dir: Path) -> None:
             s in e.name for s in keys)), "other")
         by_kind[kind] = by_kind.get(kind, 0.0) + e.device_time_total
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    log("profile: " + json.dumps({
+    log(f"profile {name}: " + json.dumps({
         "wall_s": wall, "device_busy_s": busy_us / 1e6,
         "device_busy_share": busy_us / 1e6 / wall if wall else None,
         "device_kernels": len(events),
@@ -364,10 +633,35 @@ def phase_profile(X, y, depth: int, out_dir: Path) -> None:
     }))
 
 
+def profile_all(X, y, forest, Xh, out_dir: Path) -> None:
+    """``--profile``: one more depth-20 fit, one more forest fit, and 300
+    one-row requests to a freshly published forest, each profiled."""
+    from mpitree_tpu_torch.serving import ModelRegistry
+    from mpitree_tpu_torch.tree import (
+        DecisionTreeClassifier,
+        RandomForestClassifier,
+    )
+
+    phase_profile("fit", lambda: DecisionTreeClassifier(
+        criterion="entropy", max_depth=DEPTH, max_bins=256).fit(X, y),
+        out_dir)
+    phase_profile("forest", lambda: RandomForestClassifier(**FOREST).fit(
+        X[:FOREST_ROWS], y[:FOREST_ROWS]), out_dir)
+    reg = ModelRegistry()
+    reg.publish("rf", forest)
+
+    def requests():
+        for i in range(REQUESTS[0][1]):
+            reg.predict_proba("rf", Xh[i:i + 1])
+
+    phase_profile("serve_b1", requests, out_dir)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--profile", action="store_true",
-                    help="profile one extra fit; table in chiprun_out/")
+    ap.add_argument("--profile", metavar="DIR", type=Path,
+                    help="profile one more tree fit, forest fit and 300 "
+                    "one-row requests; tables go to DIR")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -378,6 +672,7 @@ def main() -> int:
     from mpitree_tpu_torch.core.builder import BuildConfig, _chunk_size
     from mpitree_tpu_torch.ops import hist_kernel
     from mpitree_tpu_torch.ops.binning import bin_dataset_torch
+    from mpitree_tpu_torch.serving import serve_kernel
     from mpitree_tpu_torch.utils.datasets import covtype_like
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -407,8 +702,13 @@ def main() -> int:
 
     _, launches, _ = phase_fit(X, y, Xh, yh, DEPTH)
     phase_parity()
+    forest, _ = phase_forest(X, y, Xh, yh)
+    phase_forest_parity()
+    Xbig, _ = covtype_like(SERVE_SHAPES[-1], seed=3)
+    serve_shapes = phase_serve_kernels(forest, Xbig)
+    serving, serve_launches = phase_serve(forest, Xh, Xbig)
     if args.profile:
-        phase_profile(X, y, DEPTH, Path("chiprun_out"))
+        profile_all(X, y, forest, Xh, args.profile)
 
     kernels = []
     for variant, S in REPRESENTATIVE.items():
@@ -422,10 +722,27 @@ def main() -> int:
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
         ))
-    if set(hist_kernel.launches) != set(REPRESENTATIVE):
-        raise AssertionError("kernels line does not cover every variant")
+    for form, agg in SERVE_LINE.items():
+        row = next(r for r in serve_shapes if r["kernel"] == form
+                   and r["agg"] == agg and r["rows"] == SERVE_SHAPES[0])
+        kernels.append(dict(
+            name=f"serve_{form}[agg={agg}]", route="cuda",
+            source="mpitree_tpu_torch/csrc/traverse.cu",
+            replaces="mpitree_tpu/serving/pallas_serve.py:49",
+            launches=serve_launches[form], max_abs_err=row["max_abs_err"],
+            ms=row["ms"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=None,
+            library="none: no single PyTorch call computes an ensemble "
+                    "traversal",
+        ))
+    if (set(hist_kernel.launches) != set(REPRESENTATIVE)
+            or set(serve_kernel.launches) != set(SERVE_LINE)):
+        raise AssertionError("kernels line does not cover every kernel")
     log(f"total: {time.perf_counter() - t_start:.3f} s")
     log(json.dumps({"kernel_shapes": shapes}))
+    log(json.dumps({"serve_kernel_shapes": serve_shapes}))
+    log(json.dumps({"serving": serving}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,16 +2,26 @@
 
 A second package beside the JAX one, mirroring its module paths. It
 imports torch and numpy only: never jax, never ``mpitree_tpu`` and never
-sklearn. The hot op, the (slot, feature, class, bin) histogram, is a
-hand-written CUDA kernel family (``csrc/histogram.cu``, bound through
-``ops/hist_kernel.py``) built with ``nvcc`` at first use. Entry points run
-on the GPU (``device=None`` means ``"cuda"`` and raises without CUDA);
+sklearn. Its hot ops are hand-written CUDA kernels built with ``nvcc`` at
+first use: the (slot, feature, class, bin) histogram of every fit
+(``csrc/histogram.cu``, bound through ``ops/hist_kernel.py``) and the
+ensemble traversal of the serving path (``csrc/traverse.cu``, bound
+through ``serving/serve_kernel.py``). Entry points run on the GPU
+(``device=None`` means ``"cuda"`` and raises without CUDA);
 ``device="cpu"`` runs the kernels' plain PyTorch versions.
 
-This slice ports the levelwise ``DecisionTreeClassifier`` fit and its
-``predict``; ``ROADMAP.md`` lists what comes next.
+Ported so far: the levelwise ``DecisionTreeClassifier``, the bagged
+``RandomForestClassifier``, and serving (``compile_model``,
+``ModelRegistry``); ``ROADMAP.md`` lists what comes next.
 """
 
 from mpitree_tpu_torch.models.classifier import DecisionTreeClassifier
+from mpitree_tpu_torch.models.forest import RandomForestClassifier
+from mpitree_tpu_torch.serving import ModelRegistry, compile_model
 
-__all__ = ["DecisionTreeClassifier"]
+__all__ = [
+    "DecisionTreeClassifier",
+    "ModelRegistry",
+    "RandomForestClassifier",
+    "compile_model",
+]

@@ -6,7 +6,8 @@ interface (no PyTorch headers), compiled for Hopper (``sm_90a``) into
 loaded with ``ctypes``. The library name carries a hash of the source
 and the flags, so an edited source rebuilds and a stale library is never
 loaded. Nothing here runs at import time: the first launch on a CUDA
-tensor triggers the build.
+tensor triggers the build of its source, and :func:`build_all` builds
+every source at once, one ``nvcc`` process each, in parallel.
 """
 
 from __future__ import annotations
@@ -47,29 +48,59 @@ def nvcc_path() -> str:
     )
 
 
-def _compile(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library is built; returns
-    the library's path."""
+def _library_path(name: str) -> Path:
     src = CSRC_DIR / f"{name}.cu"
     digest = hashlib.sha256(
         src.read_bytes() + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{name}-{digest}.so"
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def _start(name: str):
+    """Start ``nvcc`` for ``csrc/<name>.cu`` unless its library is built;
+    returns ``(library path, process or None)``."""
+    out = _library_path(name)
     if out.exists():
-        return out
+        return out, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+    proc = subprocess.Popen(
+        [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+         str(CSRC_DIR / f"{name}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
     )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed for csrc/{name}.cu (exit {proc.returncode}):\n"
-            f"{proc.stdout}"
-        )
-    os.replace(tmp, out)
+    return out, proc
+
+
+def _finish(name: str, out: Path, proc) -> Path:
+    """Wait for a build :func:`_start` began and move its library into
+    place; raises with nvcc's output when it failed."""
+    if proc is not None:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed for csrc/{name}.cu (exit {proc.returncode}):"
+                f"\n{log}"
+            )
+        os.replace(out.with_suffix(f".{os.getpid()}.tmp"), out)
     return out
+
+
+def build_all() -> list:
+    """Build every ``csrc/*.cu`` that is not built yet, one ``nvcc`` per
+    source, all started together; returns the source names."""
+    names = sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
+    errors = []
+    with _lock:
+        started = [(name, *_start(name)) for name in names]
+        for name, out, proc in started:  # wait for every one
+            try:
+                _finish(name, out, proc)
+            except RuntimeError as e:
+                errors.append(str(e))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return names
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -77,5 +108,6 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = _libs[name] = ctypes.CDLL(str(_compile(name)))
+            path = _finish(name, *_start(name))
+            lib = _libs[name] = ctypes.CDLL(str(path))
         return lib

@@ -59,7 +59,73 @@ _LATER = (
 )
 
 
-class DecisionTreeClassifier:
+def refuse_later(est, later) -> None:
+    """Raise ``NotImplementedError`` naming the ROADMAP item for the first
+    ``(parameter, supported value, item)`` of ``later`` that ``est`` sets
+    to anything else (``None`` supported means "must be None")."""
+    for name, supported, item in later:
+        value = getattr(est, name)
+        if (value is not None) if supported is None else (
+                value != supported):
+            raise NotImplementedError(
+                f"{name}={value!r} is not ported yet (ROADMAP.md {item})"
+            )
+    if est.n_devices not in (None, 1):
+        raise NotImplementedError(
+            f"n_devices={est.n_devices!r} is not ported yet "
+            "(ROADMAP.md Queue 1 item 14, multi-GPU)"
+        )
+
+
+class ClassifierBase:
+    """The classifiers' shared surface without sklearn: ``get_params`` and
+    ``set_params`` read the ``__init__`` signature; ``score`` is the
+    (weighted) mean accuracy of ``predict``."""
+
+    @classmethod
+    def _param_names(cls) -> list:
+        sig = inspect.signature(cls.__init__)
+        return sorted(p.name for p in sig.parameters.values()
+                      if p.name != "self")
+
+    def get_params(self, deep=True) -> dict:
+        return {k: getattr(self, k) for k in self._param_names()}
+
+    def set_params(self, **params):
+        valid = set(self._param_names())
+        for k, v in params.items():
+            if k not in valid:
+                raise ValueError(
+                    f"Invalid parameter {k!r} for estimator "
+                    f"{type(self).__name__}. Valid parameters are: "
+                    f"{sorted(valid)!r}."
+                )
+            setattr(self, k, v)
+        return self
+
+    def score(self, X, y, sample_weight=None) -> float:
+        """Mean accuracy (weighted by ``sample_weight`` when given)."""
+        hit = (self.predict(X) == np.asarray(y)).astype(np.float64)
+        if sample_weight is None:
+            return float(hit.mean())
+        return float(np.average(hit, weights=np.asarray(sample_weight)))
+
+    def _set_fitted(self, classes, n_features: int) -> None:
+        self.classes_ = np.asarray(classes)
+        self.n_classes_ = len(self.classes_)
+        self.n_features_ = int(n_features)
+        self.n_features_in_ = int(n_features)
+        self.n_outputs_ = 1
+
+    def _not_fitted(self):
+        return NotFittedError(
+            f"This {type(self).__name__} instance is not fitted yet. "
+            "Call 'fit' with appropriate arguments before using this "
+            "estimator."
+        )
+
+
+class DecisionTreeClassifier(ClassifierBase):
     """Decision-tree classifier (entropy or Gini) built on the GPU.
 
     Parameters are those of ``mpitree_tpu.tree.DecisionTreeClassifier``,
@@ -98,42 +164,8 @@ class DecisionTreeClassifier:
         self.monotonic_cst = monotonic_cst
         self.device = device
 
-    # -- parameters --------------------------------------------------------
-    @classmethod
-    def _param_names(cls) -> list:
-        sig = inspect.signature(cls.__init__)
-        return sorted(p.name for p in sig.parameters.values()
-                      if p.name != "self")
-
-    def get_params(self, deep=True) -> dict:
-        return {k: getattr(self, k) for k in self._param_names()}
-
-    def set_params(self, **params):
-        valid = set(self._param_names())
-        for k, v in params.items():
-            if k not in valid:
-                raise ValueError(
-                    f"Invalid parameter {k!r} for estimator "
-                    f"{type(self).__name__}. Valid parameters are: "
-                    f"{sorted(valid)!r}."
-                )
-            setattr(self, k, v)
-        return self
-
     def _check_slice(self) -> None:
-        for name, supported, item in _LATER:
-            value = getattr(self, name)
-            if (value is not None) if supported is None else (
-                    value != supported):
-                raise NotImplementedError(
-                    f"{name}={value!r} is not ported yet "
-                    f"(ROADMAP.md {item})"
-                )
-        if self.n_devices not in (None, 1):
-            raise NotImplementedError(
-                f"n_devices={self.n_devices!r} is not ported yet "
-                "(ROADMAP.md Queue 1 item 14, multi-GPU)"
-            )
+        refuse_later(self, _LATER)
         if self.criterion not in ("entropy", "gini"):
             raise ValueError(
                 f"unknown classification criterion: {self.criterion!r}"
@@ -176,13 +208,6 @@ class DecisionTreeClassifier:
         self._set_fitted(classes, X.shape[1])
         return self
 
-    def _set_fitted(self, classes, n_features: int) -> None:
-        self.classes_ = np.asarray(classes)
-        self.n_classes_ = len(self.classes_)
-        self.n_features_ = int(n_features)
-        self.n_features_in_ = int(n_features)
-        self.n_outputs_ = 1
-
     @classmethod
     def from_reference(cls, arrays, classes, n_features: int, **params):
         """A fitted estimator from the JAX package's fitted tree:
@@ -197,11 +222,7 @@ class DecisionTreeClassifier:
     # -- inference ---------------------------------------------------------
     def _check_fitted(self) -> None:
         if not isinstance(getattr(self, "tree_", None), TreeArrays):
-            raise NotFittedError(
-                f"This {type(self).__name__} instance is not fitted yet. "
-                "Call 'fit' with appropriate arguments before using this "
-                "estimator."
-            )
+            raise self._not_fitted()
 
     def _leaf_ids(self, X) -> np.ndarray:
         self._check_fitted()
@@ -220,13 +241,6 @@ class DecisionTreeClassifier:
     def predict(self, X):
         idx = self.predict_proba(X).argmax(axis=1)
         return self.classes_[idx]
-
-    def score(self, X, y, sample_weight=None) -> float:
-        """Mean accuracy (weighted by ``sample_weight`` when given)."""
-        hit = (self.predict(X) == np.asarray(y)).astype(np.float64)
-        if sample_weight is None:
-            return float(hit.mean())
-        return float(np.average(hit, weights=np.asarray(sample_weight)))
 
     # -- introspection -----------------------------------------------------
     def export_text(self, *, feature_names=None, class_names=None,

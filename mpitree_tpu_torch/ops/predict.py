@@ -5,6 +5,8 @@ loop of ``n_steps`` (the tree's depth) gathers over the struct-of-arrays
 tree. Rows parked on a leaf keep their node id, so ``n_steps`` steps land
 every row on its leaf. Comparisons stay in float32 (``x <= threshold``
 with float32 raw values and float32 thresholds), as in the reference.
+Ensembles descend all their trees at once over the flat serving table
+(:func:`stacked_leaf_ids`).
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ import numpy as np
 import torch
 
 from mpitree_tpu_torch.core.tree_struct import TreeArrays
+from mpitree_tpu_torch.serving.tables import tables_for
+from mpitree_tpu_torch.serving.traversal import flat_leaf_ids
 
 
 def descend(X: torch.Tensor, feature: torch.Tensor, threshold: torch.Tensor,
@@ -46,3 +50,25 @@ def predict_leaf_ids(X: np.ndarray, tree: TreeArrays,
         n_steps=max(tree.max_depth, 1),
     )
     return ids.cpu().numpy()
+
+
+def stacked_leaf_ids(trees, X: np.ndarray,
+                     device: torch.device) -> np.ndarray:
+    """(T, N) int32 per-tree leaf ids for an ensemble: one descent over the
+    depth-packed flat table (``serving.traversal.flat_leaf_ids``) instead
+    of a loop over trees. Counterpart of ``mpitree_tpu/ops/predict.py:169``.
+    A single-table ensemble keeps its device copy on the table, so a warm
+    predict uploads only ``X``; an ensemble past the tables' byte budget
+    (``serving.tables.TABLE_GROUP_BYTES``) splits into several tables,
+    uploaded one at a time."""
+    tables = tables_for(trees)
+    X_d = torch.from_numpy(np.ascontiguousarray(X, np.float32)).to(device)
+    ids = np.empty((len(trees), X.shape[0]), np.int32)
+    t0 = 0
+    for tb in tables:
+        rel = flat_leaf_ids(X_d, *tb.dev_arrays(device,
+                                                 cache=len(tables) == 1),
+                            n_steps=tb.n_steps)
+        ids[t0:t0 + tb.n_trees] = rel.T.cpu().numpy()
+        t0 += tb.n_trees
+    return ids

@@ -1,0 +1,246 @@
+"""CompiledModel: a fitted estimator flattened for the request path.
+
+Counterpart of ``mpitree_tpu/serving/model.py``. ``compile_model(est)``
+turns a fitted ``DecisionTreeClassifier`` or ``RandomForestClassifier``
+into a serving handle:
+
+- the depth-packed node table and its leaf-value channel are on the
+  model's device from compile time (``serving/tables.py``), so a request
+  uploads only its query batch;
+- a batch pads to the smallest covering bucket (default 1/64/4096) and
+  an oversize batch is served in chunks of the largest bucket;
+- a forest (kind ``forest_proba``) is served by the traversal kernel K4
+  on CUDA (``serve_kernel.traverse``, float64, equal bit for bit to the
+  estimator's ``predict_proba``), or with ``quantize="int8"`` by K5
+  (``quantize.q_traverse_accumulate``); on the CPU by their plain
+  versions. A single tree (kind ``gather_counts``) is a plain int32
+  gather on every device, as in the JAX package.
+
+``serve_report_`` is a plain dict: kind, exactness, the dispatch, the
+quantization report, buckets, and requests and rows served. Metrics,
+the retry rung, chaos seams and fingerprints are not ported
+(``ROADMAP.md`` Queue 1 items 17-18).
+"""
+
+from __future__ import annotations
+
+import threading
+
+import numpy as np
+import torch
+
+from mpitree_tpu_torch._device import resolve_device
+from mpitree_tpu_torch.serving import quantize as quantize_lib
+from mpitree_tpu_torch.serving import serve_kernel, traversal
+from mpitree_tpu_torch.serving.tables import table_notes, tables_for
+
+DEFAULT_BUCKETS = (1, 64, 4096)
+
+
+def _pad_rows(X: np.ndarray, b: int) -> np.ndarray:
+    """Zero-pad ``X`` up to ``b`` rows (identity at the exact bucket)."""
+    k = X.shape[0]
+    if k == b:
+        return X
+    return np.concatenate([X, np.zeros((b - k, X.shape[1]), np.float32)])
+
+
+def _channel(trees, per_tree, table, dtype) -> np.ndarray:
+    """Concatenate a per-tree leaf channel and depth-pack it."""
+    flat = np.concatenate(
+        [np.asarray(per_tree(t)).reshape(t.n_nodes, -1) for t in trees],
+        axis=0,
+    )
+    return np.ascontiguousarray(flat[table.scatter_order()], dtype=dtype)
+
+
+class CompiledModel:
+    """One published model: flat table on the device + buckets."""
+
+    def __init__(self, trees, *, kind, n_features, n_out, values_fn,
+                 device, classes=None, scale=1.0, buckets=DEFAULT_BUCKETS,
+                 value_dtype=np.float64, quantize=None, quantize_tol=None,
+                 calibration=None):
+        self._lock = threading.Lock()
+        self.trees = list(trees)
+        self.kind = kind
+        self.n_features = int(n_features)
+        self.n_out = int(n_out)
+        self.classes = classes
+        self.device = device
+        self.buckets = tuple(sorted(int(b) for b in buckets))
+        self.scale = torch.tensor(float(scale), dtype=torch.float64,
+                                  device=device)
+        self._counts = {"requests": 0, "rows": 0}
+        int_channel = np.dtype(value_dtype).kind in "iu"
+        qmode = quantize_lib.resolve_quantize(quantize)
+        # An integer channel (single-tree counts) is exact and minimal
+        # already: an int8 affine could only add error.
+        if int_channel:
+            qmode = None
+        self.quantize = qmode
+        self.exact = qmode is None
+        # The table cache lives on the caller's container (a forest's
+        # TreeList), so predict and serving share one table.
+        [self.table] = tables_for(trees, group_bytes=None)
+        self._dev_table = self.table.dev_arrays(device)[:5]
+        self._quant = None
+        self._values = None
+        if qmode is not None:
+            flat = _channel(self.trees, values_fn, self.table, np.float64)
+            self._quant = quantize_lib.build_state(
+                self.table, quantize_lib.prepare_channel(kind, flat),
+                kind=kind, scale=scale, n_steps=self.table.n_steps,
+                tol=(quantize_lib.DEFAULT_TOLERANCE if quantize_tol is None
+                     else float(quantize_tol)),
+                device=device, calibration=calibration,
+                n_features=self.n_features,
+            )
+        else:
+            self._values = self.table.dev_values(
+                f"serve:{kind}", lambda tb: _channel(
+                    self.trees, values_fn, tb, value_dtype
+                ), dtype=value_dtype, device=device,
+            )
+        kernel = "traverse_q" if qmode else "traverse"
+        if kind in traversal.GATHER_KINDS:
+            self.dispatch = "plain gather"
+        elif device.type == "cuda":
+            self.dispatch = f"kernel {kernel}"
+        else:
+            self.dispatch = f"plain version of {kernel}"
+
+    # -- dispatch ----------------------------------------------------------
+    def _bucket(self, n: int) -> int:
+        for b in self.buckets:
+            if n <= b:
+                return b
+        return self.buckets[-1]
+
+    def _dispatch(self, Xp: np.ndarray) -> torch.Tensor:
+        """One bucket-shaped dispatch; the result stays on the device."""
+        X = torch.from_numpy(Xp).to(self.device)
+        n_steps = self.table.n_steps
+        if self.kind in traversal.GATHER_KINDS:
+            return traversal.traverse_gather(
+                X, *self._dev_table, self._values, kind=self.kind,
+                n_steps=n_steps,
+            )
+        if self._quant is not None:
+            return quantize_lib.q_traverse_accumulate(
+                X, self._quant, kind=self.kind, n_steps=n_steps,
+                n_features=self.n_features, scale=self.scale,
+            )
+        out = serve_kernel.traverse(
+            X, *self._dev_table, self._values, n_steps=n_steps,
+            agg=traversal.ACC_AGG[self.kind], n_out=self.n_out,
+            n_features=self.n_features,
+        )
+        return traversal.finish(out, self.kind, self.scale)
+
+    def raw_async(self, X) -> tuple:
+        """Dispatch without waiting: (device result or list of (chunk
+        result, rows), true row count)."""
+        X = np.ascontiguousarray(np.asarray(X, np.float32))
+        if X.ndim != 2 or X.shape[1] != self.n_features:
+            raise ValueError(
+                f"expected (n, {self.n_features}) query batch, got "
+                f"{X.shape}"
+            )
+        n = X.shape[0]
+        with self._lock:
+            self._counts["requests"] += 1
+            self._counts["rows"] += n
+        b = self._bucket(n)
+        if n <= b:
+            return self._dispatch(_pad_rows(X, b)), n
+        return [
+            (self._dispatch(_pad_rows(X[lo:lo + b], b)), min(b, n - lo))
+            for lo in range(0, n, b)
+        ], n
+
+    def finalize(self, out, n: int) -> np.ndarray:
+        """A ``raw_async`` result as the estimator-shaped host array."""
+        if isinstance(out, list):
+            return np.concatenate(
+                [o[:k].cpu().numpy() for o, k in out], axis=0
+            )
+        return out[:n].cpu().numpy()
+
+    def raw(self, X) -> np.ndarray:
+        """Probabilities for a forest, raw leaf counts for a single
+        classification tree, as a host array."""
+        return self.finalize(*self.raw_async(X))
+
+    def warmup(self, buckets=None) -> None:
+        """Run every bucket shape once off the request path: uploads what
+        is not on the device yet and, on CUDA, builds and loads the
+        kernel."""
+        for b in buckets or self.buckets:
+            self.raw(np.zeros((int(b), self.n_features), np.float32))
+
+    # -- estimator-equivalent surface -------------------------------------
+    def predict(self, X):
+        return self.classes[self.raw(X).argmax(axis=1)]
+
+    def predict_proba(self, X):
+        out = self.raw(X)
+        if self.kind == "gather_counts":
+            return out.astype(np.int64)  # the reference quirk: raw counts
+        return out
+
+    @property
+    def serve_report_(self) -> dict:
+        with self._lock:
+            counts = dict(self._counts)
+        return {
+            "kind": self.kind,
+            "exact": bool(self.exact),
+            "device": str(self.device),
+            "dispatch": self.dispatch,
+            "quantization": (dict(self._quant.report)
+                             if self._quant is not None else {"mode": "off"}),
+            "buckets": self.buckets,
+            **counts,
+            **table_notes(self.trees),
+        }
+
+
+def compile_model(estimator, *, buckets=DEFAULT_BUCKETS, quantize=None,
+                  quantize_tol=None, calibration=None) -> CompiledModel:
+    """Flatten a fitted estimator into a :class:`CompiledModel` on the
+    estimator's ``device`` (``None`` = ``"cuda"``, raising without CUDA;
+    ``"cpu"`` serves by the plain versions). ``quantize="int8"`` serves
+    compressed tables, refusing past ``quantize_tol`` (default 1e-2) on the
+    ``calibration`` batch (synthesized from the table's thresholds when
+    omitted)."""
+    from mpitree_tpu_torch.models.classifier import DecisionTreeClassifier
+    from mpitree_tpu_torch.models.forest import RandomForestClassifier
+
+    if not isinstance(estimator,
+                      (RandomForestClassifier, DecisionTreeClassifier)):
+        raise TypeError(
+            f"compile_model: unsupported estimator {type(estimator).__name__}"
+        )
+    estimator._check_fitted()
+    kw = dict(buckets=buckets, quantize=quantize, quantize_tol=quantize_tol,
+              calibration=calibration,
+              device=resolve_device(estimator.device))
+    if isinstance(estimator, RandomForestClassifier):
+        return CompiledModel(
+            estimator.trees_, kind="forest_proba",
+            n_features=estimator.n_features_,
+            n_out=len(estimator.classes_),
+            values_fn=lambda t: np.asarray(t.count, np.float64),
+            classes=estimator.classes_, scale=float(len(estimator.trees_)),
+            **kw,
+        )
+    counts = np.asarray(estimator.tree_.count)
+    if counts.max(initial=0) >= 2**31:
+        raise OverflowError("leaf counts exceed int32 on the serving table")
+    return CompiledModel(
+        [estimator.tree_], kind="gather_counts",
+        n_features=estimator.n_features_, n_out=len(estimator.classes_),
+        values_fn=lambda t: np.asarray(t.count, np.int32),
+        classes=estimator.classes_, value_dtype=np.int32, **kw,
+    )

@@ -1,9 +1,10 @@
-"""State carried across from the JAX package: a fitted tree's arrays.
+"""State carried across from the JAX package: fitted trees' arrays.
 
 A fitted decision tree's "weights" are its ``TreeArrays`` fields. The JAX
 package's tree (``mpitree_tpu.core.tree_struct.TreeArrays``) carries over
 as plain numpy: ``dataclasses.asdict(jax_clf.tree_)`` or the ``.npz`` that
-``TreeArrays.save`` writes. Nothing here imports the JAX package.
+``TreeArrays.save`` writes; a forest carries over as the list of its
+trees' arrays. Nothing here imports the JAX package.
 """
 
 from __future__ import annotations
@@ -56,3 +57,14 @@ def tree_from_reference(arrays) -> TreeArrays:
     if bad:
         raise ValueError(f"ragged reference tree: {n} nodes but {bad}")
     return TreeArrays(**fields)
+
+
+def forest_from_reference(trees) -> list:
+    """A fitted forest's trees, in member order: each element of
+    ``trees`` as :func:`tree_from_reference` takes it (for a JAX forest,
+    ``[dataclasses.asdict(t) for t in jax_forest.trees_]``). Raises
+    ``ValueError`` on an empty forest."""
+    out = [tree_from_reference(a) for a in trees]
+    if not out:
+        raise ValueError("reference forest has no trees")
+    return out

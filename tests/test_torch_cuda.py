@@ -1,9 +1,11 @@
-"""The Hopper histogram kernels against their plain version, on the card.
+"""The Hopper kernels against their plain versions, on the card.
 
 These tests need a CUDA card and ``nvcc``; elsewhere they skip. Run them
-on the machine with the card with ``python -m pytest -m cuda
+on the machine with the card with ``python -m pytest --noconftest -m cuda
 tests/test_torch_cuda.py``. Integer-valued payloads sum exactly in float32
-in any order, so the kernels must equal the plain version bit for bit.
+in any order, so the histogram kernels must equal the plain version bit
+for bit; the traversal kernels reduce in member order with correctly
+rounded float64 (K4) or integer (K5) adds, so they must too.
 """
 
 from __future__ import annotations
@@ -72,3 +74,120 @@ def test_fractional_weights_refused_on_the_card(cuda):
     DecisionTreeClassifier(max_depth=3, device="cuda").fit(
         X, y, sample_weight=2 * w
     )
+
+
+# ---------------------------------------------------------------------------
+# serving traversal kernels (K4 traverse, K5 traverse_q)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def forest_on_card():
+    """A small forest fitted on the card, its flat table and query rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from mpitree_tpu_torch.serving.tables import tables_for
+    from mpitree_tpu_torch.tree import RandomForestClassifier
+    from mpitree_tpu_torch.utils.datasets import covtype_like
+
+    X, y = covtype_like(20_000, seed=0)
+    forest = RandomForestClassifier(n_estimators=6, max_depth=8,
+                                    random_state=0, device="cuda").fit(X, y)
+    [table] = tables_for(forest.trees_, group_bytes=None)
+    Xq = covtype_like(3_000, seed=1)[0]
+    return forest, table, Xq
+
+
+@pytest.mark.parametrize("agg,n_chan,n_out", [
+    ("norm", 7, 7), ("sum", 7, 7), ("sum", 12, 12), ("percls", 1, 3),
+    ("percls", 1, 10),
+], ids=["norm", "sum", "sum-two-blocks", "percls", "percls-two-blocks"])
+def test_traverse_kernel_equals_plain_version(forest_on_card, agg, n_chan,
+                                             n_out):
+    from mpitree_tpu_torch.serving import serve_kernel
+
+    forest, table, Xq = forest_on_card
+    dev = torch.device("cuda")
+    cols = table.dev_arrays(dev)[:5]
+    rng = np.random.default_rng(n_chan + n_out)
+    if agg == "norm":
+        vals = np.concatenate([t.count for t in forest.trees_])
+        vals = vals[table.scatter_order()].astype(np.float64)
+    else:  # non-integer values: the reduction order is what is tested
+        vals = rng.standard_normal((table.n_nodes, n_chan))
+    values = torch.from_numpy(np.ascontiguousarray(vals)).to(dev)
+    X = torch.from_numpy(Xq).to(dev)
+    kw = dict(n_steps=table.n_steps, agg=agg, n_out=n_out)
+    before = serve_kernel.launches["traverse"]
+    got = serve_kernel.traverse(X, *cols, values, n_features=X.shape[1],
+                                **kw)
+    torch.cuda.synchronize()
+    assert serve_kernel.launches["traverse"] == before + (n_out + 7) // 8
+    want = serve_kernel.traverse_reference(X, *cols, values, **kw)
+    assert got.dtype == torch.float64 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("agg,n_out", [("sum", 7), ("percls", 3)])
+def test_quantized_kernel_equals_plain_version(forest_on_card, agg, n_out):
+    from mpitree_tpu_torch.serving import quantize, serve_kernel
+
+    forest, table, Xq = forest_on_card
+    dev = torch.device("cuda")
+    counts = np.concatenate([t.count for t in forest.trees_])
+    prepared = quantize.prepare_channel(
+        "forest_proba", counts[table.scatter_order()])
+    state = quantize.build_state(
+        table, prepared, kind="forest_proba", scale=len(forest.trees_),
+        n_steps=table.n_steps, tol=1.0, device=dev, n_features=54)
+    X = torch.from_numpy(Xq).to(dev)
+    cols = (state.feature, state.threshold, state.left, state.right,
+            state.root)
+    kw = dict(n_steps=table.n_steps, agg=agg, n_out=n_out)
+    before = serve_kernel.launches["traverse_q"]
+    got = serve_kernel.traverse_q(X, *cols, state.qvals, n_features=54,
+                                  **kw)
+    torch.cuda.synchronize()
+    assert serve_kernel.launches["traverse_q"] == before + 1
+    want = serve_kernel.traverse_q_reference(X, *cols, state.qvals, **kw)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+def test_traverse_wrapper_refuses_what_the_kernels_do_not_take(
+        forest_on_card):
+    from mpitree_tpu_torch.serving import serve_kernel
+
+    _, table, Xq = forest_on_card
+    dev = torch.device("cuda")
+    cols = table.dev_arrays(dev)[:5]
+    values = torch.ones((table.n_nodes, 7), dtype=torch.float64, device=dev)
+    X = torch.from_numpy(Xq).to(dev)
+    kw = dict(n_steps=table.n_steps, agg="sum", n_out=7)
+    with pytest.raises(ValueError, match="float64"):
+        serve_kernel.traverse(X, *cols, values.float(), n_features=54, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        serve_kernel.traverse(X.t().contiguous().t(), *cols, values,
+                              n_features=54, **kw)
+    with pytest.raises(ValueError, match="features"):
+        serve_kernel.traverse(X[:, :50].contiguous(), *cols, values,
+                              n_features=54, **kw)
+
+
+def test_compiled_forest_serves_through_the_kernels_only(forest_on_card,
+                                                         monkeypatch):
+    from mpitree_tpu_torch.serving import compile_model, serve_kernel
+
+    forest, _, Xq = forest_on_card
+
+    def plain(*a, **k):
+        raise AssertionError("the plain tier ran on the card")
+
+    monkeypatch.setattr(serve_kernel, "traverse_reference", plain)
+    monkeypatch.setattr(serve_kernel, "traverse_q_reference", plain)
+    for quantize, counter in ((None, "traverse"), ("int8", "traverse_q")):
+        cm = compile_model(forest, quantize=quantize, quantize_tol=1.0)
+        assert cm.serve_report_["dispatch"] == f"kernel {counter}"
+        before = serve_kernel.launches[counter]
+        got = cm.raw(Xq)
+        assert serve_kernel.launches[counter] > before
+        if quantize is None:
+            assert cm.exact
+            np.testing.assert_array_equal(got, forest.predict_proba(Xq))
