@@ -38,10 +38,17 @@ Phases, in order; any failure raises and exits non-zero:
    seed=1)``. Then a 4-tree, depth-8 forest on ``covtype_like(20_000,
    seed=4)`` on the card and with ``device="cpu"``: identical trees.
 6. serve kernels: on that forest's flat table, the traversal kernel K4 in
-   ``norm`` (counts), ``sum`` and ``percls`` (non-integer float64
-   channels) and the quantized kernel K5 in ``sum`` are held
-   ``torch.equal`` to their plain versions at 4,096 and 500,000 rows of
-   ``covtype_like(500_000, seed=3)``, and timed beside their bound.
+   ``sum`` over the served channel (per-leaf normalized counts), ``norm``
+   (counts), ``sum`` (7 and 12 non-integer float64 channels) and
+   ``percls`` (7 and 3 columns; 3 does not divide the 50 trees), and the
+   quantized kernel K5 in ``sum`` and ``percls`` are held ``torch.equal``
+   to their plain versions at 1, 64, 4,096 and 500,000 rows of
+   ``covtype_like(500_000, seed=3)``, and timed beside their bound and
+   their plain version. A kernel's launches are queued behind a
+   device-side hold, so the events bracket device time only (the one-row
+   and 64-row shapes average 50 launches per event pair). The served
+   channel's K4 and K5 are also run, checked and timed at every forced
+   tiling (rows per block), beside the planner's.
 7. serve: ``ModelRegistry().publish("rf", forest)`` and
    ``publish("rf8", forest, quantize="int8")``, each answering 300
    one-row, 150 64-row and 30 4,096-row requests (p50/p99 per bucket),
@@ -95,31 +102,44 @@ REPLACES = {
 # BASELINE config 5, bench.py's FOREST_SHAPES["tpu"]; not cut.
 FOREST = dict(n_estimators=50, max_depth=12, max_bins=256, random_state=0)
 FOREST_ROWS = 200_000
-SERVE_SHAPES = (4_096, 500_000)
+SERVE_SHAPES = (1, 64, 4_096, 500_000)  # the buckets, then a batch
+SERVE_TILINGS = (1, 2, 4, 8, 16, 32, 64)  # rows per block, beside plan's
+# launches averaged per event pair, by rows: a one-row launch is a few us
+SERVE_INNER = {1: 50, 64: 50, 4_096: 20, 500_000: 2}
+# device-side hold (clock cycles, about 4 ms) while a pair's launches are
+# queued: several times the host's time to queue 50 of them
+HOLD_CYCLES = 8_000_000
 # (bucket rows, requests), as bench_tpu.py's serving section sends them
 REQUESTS = ((1, 300), (64, 150), (4_096, 30))
-# the serving kernels' kernels-line entries: launch counter -> mode shown
-SERVE_LINE = {"traverse": "norm", "traverse_q": "sum"}
+# the serving kernels' kernels-line entries: launch counter -> (mode,
+# channel) the served path runs, at the 4,096-row bucket
+SERVE_LINE = {"traverse": ("sum", "proba"), "traverse_q": ("sum", "qproba")}
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps: int = 7) -> float:
-    """Median device time of ``fn`` over ``reps`` runs (CUDA events), after
-    one warm-up run."""
+def cuda_ms(fn, reps: int = 7, inner: int = 1, hold: bool = False) -> float:
+    """Median device time of one ``fn`` over ``reps`` event pairs (CUDA
+    events), each around ``inner`` runs, after one warm-up run. ``hold``
+    queues the runs behind a device-side sleep, so the first event fires
+    only when all of them are queued and the pair brackets device time, not
+    the host's time to launch."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if hold:
+            torch.cuda._sleep(HOLD_CYCLES)
         a.record()
-        fn()
+        for _ in range(inner):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / inner)
     return statistics.median(times)
 
 
@@ -446,22 +466,26 @@ def _touched(table, cols, X) -> tuple:
 
 
 def phase_serve_kernels(forest, Xbig) -> list:
-    from mpitree_tpu_torch.serving import quantize, serve_kernel
+    from mpitree_tpu_torch._device import sm_count
+    from mpitree_tpu_torch.serving import quantize, serve_kernel, traversal
     from mpitree_tpu_torch.serving.tables import tables_for
 
     dev = DEV
     [table] = tables_for(forest.trees_, group_bytes=None)
     cols = table.dev_arrays(dev)[:5]
+    record = table.dev_record(dev)
     T, M, C = table.n_trees, table.n_nodes, len(forest.classes_)
     counts = np.concatenate([t.count for t in forest.trees_])
-    counts = counts[table.scatter_order()]
+    counts = counts[table.scatter_order()].astype(np.float64)
     rng = np.random.default_rng(0)
-    channels = {  # mode -> (M, K) float64 values on the card
-        "norm": counts.astype(np.float64),
-        "sum": rng.standard_normal((M, C)),
-        "percls": rng.standard_normal((M, 1)),
+    channels = {  # name -> (M, K) float64 values on the card
+        "counts": counts,
+        "normal": rng.standard_normal((M, C)),
+        "normal12": rng.standard_normal((M, 12)),
+        "normal1": rng.standard_normal((M, 1)),
     }
     channels = {k: torch.from_numpy(v).to(dev) for k, v in channels.items()}
+    channels["proba"] = traversal.normalize_rows(channels["counts"])
     state = quantize.build_state(
         table, quantize.prepare_channel("forest_proba", counts),
         kind="forest_proba", scale=T, n_steps=table.n_steps, tol=1.0,
@@ -469,17 +493,26 @@ def phase_serve_kernels(forest, Xbig) -> list:
     )
     qcols = (state.feature, state.threshold, state.left, state.right,
              state.root)
+    k4 = (cols, record, 4 + 4 + 4 + 4, 8)
+    k5 = (qcols, state.record, 2 + 2 + 4 + 4, 4)
+    cases = [  # (form, agg, channel, n_out)
+        ("traverse", "sum", "proba", C), ("traverse", "norm", "counts", C),
+        ("traverse", "sum", "normal", C), ("traverse", "sum", "normal12", 12),
+        ("traverse", "percls", "normal1", C),
+        ("traverse", "percls", "normal1", 3),
+        ("traverse_q", "sum", "qproba", C),
+        ("traverse_q", "percls", "qproba", 3),
+    ]
     rows = []
     for N in SERVE_SHAPES:
         X = torch.from_numpy(np.ascontiguousarray(Xbig[:N])).to(dev)
         visited, leaves = _touched(table, cols, X)
-        reps = 7 if N <= 4_096 else 3
-        cases = [("traverse", agg, cols, channels[agg], 4 + 4 + 4 + 4, 8)
-                 for agg in ("norm", "sum", "percls")]
-        cases.append(("traverse_q", "sum", qcols, state.qvals,
-                      2 + 2 + 4 + 4, 4))
-        for form, agg, tcols, values, node_bytes, acc_bytes in cases:
-            kw = dict(n_steps=table.n_steps, agg=agg, n_out=C)
+        inner = SERVE_INNER[N]
+        for form, agg, chan, n_out in cases:
+            tcols, rec, node_bytes, acc_bytes = k4 if form == "traverse" \
+                else k5
+            values = state.qvals if chan == "qproba" else channels[chan]
+            kw = dict(n_steps=table.n_steps, agg=agg, n_out=n_out)
             if form == "traverse":
                 ref = serve_kernel.traverse_reference
                 run = serve_kernel.traverse
@@ -487,34 +520,62 @@ def phase_serve_kernels(forest, Xbig) -> list:
                 ref = serve_kernel.traverse_q_reference
                 run = serve_kernel.traverse_q
             want = ref(X, *tcols, values, **kw)
-            got = run(X, *tcols, values, n_features=X.shape[1], **kw)
+            got = run(X, *tcols, values, n_features=X.shape[1], record=rec,
+                      **kw)
             torch.cuda.synchronize()
             err = float((got - want).abs().max().item())
             if not torch.equal(got, want):
                 raise AssertionError(
-                    f"{form}[{agg}] != plain version at N={N} (max |diff| "
-                    f"{err})"
+                    f"{form}[{agg}, {chan}] != plain version at N={N} (max "
+                    f"|diff| {err})"
                 )
-            del got, want
-            ms = cuda_ms(lambda: run(X, *tcols, values,
-                                     n_features=X.shape[1], **kw))
+            del got
+            ms = cuda_ms(lambda: run(X, *tcols, values, n_features=X.shape[1],
+                                     record=rec, **kw),
+                         reps=5, inner=inner, hold=True)
             plain_ms = cuda_ms(lambda: ref(X, *tcols, values, **kw),
-                               reps=reps)
+                               reps=3 if N > 4_096 else 5)
+            p = serve_kernel.plan(form, N, T, n_out, n_features=X.shape[1],
+                                  agg=agg, n_sms=sm_count(dev))
+            tiling_ms = {}
+            if chan in ("proba", "qproba"):  # the served path
+                # every forced tiling equal to plain, and timed
+                for R in SERVE_TILINGS:
+                    def forced(R=R):
+                        return serve_kernel._launch(
+                            form, X, tcols, values, rec, **kw,
+                            _rows_per_block=R)
+                    if not torch.equal(forced(), want):
+                        raise AssertionError(
+                            f"{form}[{chan}] at {R} rows per block != plain "
+                            f"version at N={N}"
+                        )
+                    tiling_ms[R] = cuda_ms(forced, reps=5, inner=inner,
+                                           hold=True)
+            del want
             # each input read once, the output written once; of the table
             # only the nodes on this batch's paths and the leaves it reaches
+            read = 1 if agg == "percls" else values.shape[1]
             n_bytes = (X.numel() * 4 + visited * node_bytes + T * 4
-                       + leaves * values.shape[1] * values.element_size()
-                       + N * C * acc_bytes)
+                       + leaves * read * values.element_size()
+                       + N * n_out * acc_bytes)
             rows.append(dict(
-                kernel=form, agg=agg, rows=N, ms=ms, plain_ms=plain_ms,
+                kernel=form, agg=agg, channel=chan, n_out=n_out, rows=N,
+                ms=ms, plain_ms=plain_ms,
                 bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
                 bytes=n_bytes, visited_nodes=visited, leaves=leaves,
-                table_nodes=M, max_abs_err=err,
+                table_nodes=M, max_abs_err=err, launches_timed=inner,
+                plan={k: p[k] for k in ("rows_per_block", "trees_per_chunk",
+                                        "threads", "blocks", "smem")},
+                tiling_ms=tiling_ms,
             ))
-            log(f"serve kernels: {form}[{agg}] N={N}: kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms, bound {rows[-1]['bound_ms']:.6f} "
-                f"ms (bytes; {visited} of {M} nodes, {leaves} leaves); "
-                f"equal to plain")
+            log(f"serve kernels: {form}[{agg}, {chan}, n_out={n_out}] N={N}: "
+                f"kernel {ms:.6f} ms, plain {plain_ms:.4f} ms, bound "
+                f"{rows[-1]['bound_ms']:.6f} ms (bytes; {visited} of {M} "
+                f"nodes, {leaves} leaves); R={p['rows_per_block']} "
+                f"Tc={p['trees_per_chunk']} blocks={p['blocks']}; equal to "
+                f"plain" + (f"; rows per block -> ms {tiling_ms}"
+                            if tiling_ms else ""))
         del X
     return rows
 
@@ -635,7 +696,8 @@ def phase_profile(name: str, work, out_dir: Path) -> None:
 
 def profile_all(X, y, forest, Xh, out_dir: Path) -> None:
     """``--profile``: one more depth-20 fit, one more forest fit, and 300
-    one-row requests to a freshly published forest, each profiled."""
+    one-row requests to each of a freshly published ``rf`` and ``rf8``,
+    each profiled."""
     from mpitree_tpu_torch.serving import ModelRegistry
     from mpitree_tpu_torch.tree import (
         DecisionTreeClassifier,
@@ -649,19 +711,21 @@ def profile_all(X, y, forest, Xh, out_dir: Path) -> None:
         X[:FOREST_ROWS], y[:FOREST_ROWS]), out_dir)
     reg = ModelRegistry()
     reg.publish("rf", forest)
+    reg.publish("rf8", forest, quantize="int8")
 
-    def requests():
-        for i in range(REQUESTS[0][1]):
-            reg.predict_proba("rf", Xh[i:i + 1])
+    for name in ("rf", "rf8"):
+        def requests(name=name):
+            for i in range(REQUESTS[0][1]):
+                reg.predict_proba(name, Xh[i:i + 1])
 
-    phase_profile("serve_b1", requests, out_dir)
+        phase_profile(f"serve_b1_{name}", requests, out_dir)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", type=Path,
                     help="profile one more tree fit, forest fit and 300 "
-                    "one-row requests; tables go to DIR")
+                    "one-row requests to rf and to rf8; tables go to DIR")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -722,9 +786,10 @@ def main() -> int:
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
         ))
-    for form, agg in SERVE_LINE.items():
+    for form, (agg, chan) in SERVE_LINE.items():
         row = next(r for r in serve_shapes if r["kernel"] == form
-                   and r["agg"] == agg and r["rows"] == SERVE_SHAPES[0])
+                   and r["agg"] == agg and r["channel"] == chan
+                   and r["rows"] == 4_096)
         kernels.append(dict(
             name=f"serve_{form}[agg={agg}]", route="cuda",
             source="mpitree_tpu_torch/csrc/traverse.cu",
@@ -735,6 +800,10 @@ def main() -> int:
             library_ms=None,
             library="none: no single PyTorch call computes an ensemble "
                     "traversal",
+            by_rows={r["rows"]: {k: r[k] for k in (
+                "ms", "plain_ms", "bound_ms", "max_abs_err")}
+                for r in serve_shapes if r["kernel"] == form
+                and r["agg"] == agg and r["channel"] == chan},
         ))
     if (set(hist_kernel.launches) != set(REPRESENTATIVE)
             or set(serve_kernel.launches) != set(SERVE_LINE)):

@@ -28,3 +28,17 @@ def resolve_device(device=None) -> torch.device:
             "explicitly to run the plain CPU path"
         )
     return dev
+
+
+_sm_count: dict = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA ``device`` (read once per card);
+    the kernel planners size their grids by it."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _sm_count:
+        _sm_count[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _sm_count[idx]

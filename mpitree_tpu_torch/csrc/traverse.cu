@@ -14,53 +14,71 @@
 // (_traverse_kernel). That kernel turns each node lookup into a one-hot
 // matmul over a stacked (T, 8, Mp) per-tree table because Mosaic has no
 // vector gather; here every lookup is a direct load from the flat
-// depth-packed NodeTable columns the plain version reads too, so a model
-// holds one device copy of its table.
+// depth-packed node table.
 //
 // Two instantiations of one kernel body:
-//   traverse    (K4): int32 feature, float32 threshold, float64 values,
-//                     float64 accumulator;
-//   traverse_q  (K5): int16 feature, bfloat16 threshold (raw bits, upcast
-//                     exactly to float32 for the compare), int8 values,
-//                     int32 accumulator (the integer lattice sum; the
-//                     caller applies the affine dequantization once).
+//   traverse    (K4): float64 leaf values, float64 accumulator;
+//   traverse_q  (K5): int8 leaf values, int32 accumulator (the integer
+//                     lattice sum; the caller applies the affine
+//                     dequantization once).
+// Both descend the same node record, one 16-byte int4 per node: (feature,
+// threshold as float32 bits, left, right), packed once when a model is
+// compiled (serving/serve_kernel.pack_nodes). K5's int16 feature ids and
+// bfloat16 thresholds are widened exactly (a bfloat16 is the top half of a
+// float32), so the compare is the plain version's `x <= thr` in float32.
 //
-// Design: one thread per row, a loop over the trees, every table load
-// through the read-only path (__ldg). At serving sizes the flat table is a
-// few MB and stays in the 50 MB L2. What bounds it: each step is a chain
-// of dependent loads (feature, then X and threshold, then a child id), so
-// a thread waits on L2 latency; enough rows in flight hide it, a
-// one-row request does not (PERF.md).
+// What bounds it: each descent step is a dependent L2 load (the record of
+// the next node), so a single chain waits on L2 latency, and a one-row
+// request has only T chains. The design therefore spreads the work as wide
+// as the data allows:
+//   - a block takes R rows (staged in shared memory with coalesced loads)
+//     and walks the trees in chunks of Tc; in each chunk one thread
+//     descends one (row, tree) pair (one 16-byte load per step) and writes
+//     the leaf id to shared memory: T independent chains for one row, R*T
+//     per block;
+//   - then one thread per (row, output column) adds the chunk's leaf terms
+//     in member order to its accumulator, which carries over the chunks in
+//     chunk order (in shared memory), and the last chunk writes `out`.
+// One block owns all trees of its rows, so every output element is reduced
+// by one thread, tree by tree, in member order: never split across threads
+// or combined by atomics. All output columns are written by one launch.
+// The host-side planner (serve_kernel.plan) picks R and Tc per shape.
 //
-// Exactness: the accumulator lives in registers in blocks of kBlockOut
-// output columns (the wrapper launches once per block; c0 is the block's
-// first column), starts at zero and is written to `out` once at the end,
-// so `out` need not be initialised. Float64 adds and divides use
-// __dadd_rn/__ddiv_rn, which nvcc never contracts into an FMA: each result
-// is the correctly rounded IEEE operation the plain version performs, in
-// the same order, so the kernel equals it bit for bit. norm's row sum is taken in channel
-// order; it is exact for the integer-valued count channels norm serves.
+// Exactness: float64 adds and divides use __dadd_rn/__ddiv_rn, which nvcc
+// never contracts into an FMA: each result is the correctly rounded IEEE
+// operation the plain version performs, in the same order, so K4 equals it
+// bit for bit. norm's row sum is taken in channel order, once per (row,
+// tree); it is exact for the integer-valued count channels norm serves.
+// K5's int32 sum is exact in any order.
 //
-// The launch functions return cudaGetLastError() after the launch and
-// allocate nothing; the caller passes the stream.
+// Shared memory (dynamic; the planner's byte count must match
+// smem_bytes): acc [R*n_out] | norm only: denom [R*Tc] double | leaf
+// [R*Tc] int32 | stage_x only: X rows [R*F] float32, each rounded up to 16
+// bytes. The launch functions return cudaGetLastError() after the launch
+// and allocate nothing; the caller passes the stream.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kBlockOut = 8;  // BLOCK_OUT in serving/serve_kernel.py
 enum Agg { kSum = 0, kNorm = 1, kPercls = 2 };
+constexpr size_t kStaticSmem = 48 * 1024;  // above it, opt in per kernel
 
-__device__ __forceinline__ float load_threshold(const float* t, int i)
+__host__ __device__ __forceinline__ size_t align16(size_t b)
 {
-    return __ldg(t + i);
+    return (b + 15) & ~size_t(15);
 }
 
-// bfloat16 is the top half of a float32: the upcast is exact.
-__device__ __forceinline__ float load_threshold(const uint16_t* t, int i)
+// Keep in step with serve_kernel._smem_bytes.
+__host__ __device__ __forceinline__ size_t smem_bytes(
+    int rows, int chunk, int n_out, int n_feat, int acc_bytes, int agg,
+    int stage_x)
 {
-    return __uint_as_float((uint32_t)__ldg(t + i) << 16);
+    return align16((size_t)rows * n_out * acc_bytes)
+           + (agg == kNorm ? align16((size_t)rows * chunk * 8) : 0)
+           + align16((size_t)rows * chunk * 4)
+           + (stage_x ? align16((size_t)rows * n_feat * 4) : 0);
 }
 
 __device__ __forceinline__ double add_rn(double a, double b)
@@ -73,104 +91,157 @@ __device__ __forceinline__ int32_t add_rn(int32_t a, int32_t b)
     return a + b;
 }
 
-template <typename Feat, typename Thr, typename Val, typename Acc>
+template <typename Val, typename Acc>
 __global__ void traverse_kernel(const float* __restrict__ X,
-                                const Feat* __restrict__ feature,
-                                const Thr* __restrict__ threshold,
-                                const int32_t* __restrict__ left,
-                                const int32_t* __restrict__ right,
+                                const int4* __restrict__ nodes,
                                 const int32_t* __restrict__ root,
                                 const Val* __restrict__ values,
                                 Acc* __restrict__ out,
                                 int n_rows, int n_feat, int n_trees,
-                                int n_steps, int n_chan, int n_out, int c0,
-                                int agg)
+                                int n_steps, int n_chan, int n_out, int agg,
+                                int rows_per_block, int trees_per_chunk,
+                                int stage_x)
 {
-    const int row = blockIdx.x * blockDim.x + threadIdx.x;
-    if (row >= n_rows) return;
-    const int nb = min(kBlockOut, n_out - c0);
-    const float* x = X + (int64_t)row * n_feat;
-    Acc* o = out + (int64_t)row * n_out + c0;
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int R = rows_per_block;
+    const int Tc = trees_per_chunk;
+    Acc* acc = reinterpret_cast<Acc*>(smem);
+    size_t off = align16((size_t)R * n_out * sizeof(Acc));
+    double* denom = reinterpret_cast<double*>(smem + off);
+    if (agg == kNorm) off += align16((size_t)R * Tc * 8);
+    int32_t* leaf = reinterpret_cast<int32_t*>(smem + off);
+    off += align16((size_t)R * Tc * 4);
+    float* xs = reinterpret_cast<float*>(smem + off);
 
-    Acc acc[kBlockOut];
-#pragma unroll
-    for (int j = 0; j < kBlockOut; ++j) acc[j] = Acc(0);
-
-    for (int t = 0; t < n_trees; ++t) {
-        int node = __ldg(root + t);
-        for (int s = 0; s < n_steps; ++s) {
-            const int f = (int)__ldg(feature + node);
-            if (f < 0) break;  // a leaf holds
-            node = __ldg(x + f) <= load_threshold(threshold, node)
-                       ? __ldg(left + node) : __ldg(right + node);
-        }
-        const Val* v = values + (int64_t)node * n_chan;
-        if (agg == kPercls) {
-            const Acc a = (Acc)__ldg(v);
-            const int col = t % n_out - c0;
-#pragma unroll
-            for (int j = 0; j < kBlockOut; ++j)
-                if (j == col) acc[j] = add_rn(acc[j], a);
-        } else if (agg == kNorm) {
-            if constexpr (sizeof(Acc) == sizeof(double)) {
-                double rowsum = 0.0;
-                for (int k = 0; k < n_chan; ++k)
-                    rowsum = __dadd_rn(rowsum, (double)__ldg(v + k));
-                const double denom = fmax(rowsum, 1.0);
-#pragma unroll
-                for (int j = 0; j < kBlockOut; ++j)
-                    if (j < nb)
-                        acc[j] = __dadd_rn(
-                            acc[j], __ddiv_rn((double)__ldg(v + c0 + j),
-                                              denom));
-            }
-        } else {
-#pragma unroll
-            for (int j = 0; j < kBlockOut; ++j)
-                if (j < nb) acc[j] = add_rn(acc[j], (Acc)__ldg(v + c0 + j));
-        }
+    const int64_t row0 = (int64_t)blockIdx.x * R;
+    const int64_t rows_left = (int64_t)n_rows - row0;
+    const int rows = rows_left < R ? (int)rows_left : R;
+    if (stage_x) {
+        const float* src = X + row0 * n_feat;
+        for (int i = threadIdx.x; i < rows * n_feat; i += blockDim.x)
+            xs[i] = __ldg(src + i);
+        __syncthreads();
     }
-#pragma unroll
-    for (int j = 0; j < kBlockOut; ++j)
-        if (j < nb) o[j] = acc[j];
+    // This thread's descent pair in every chunk: row r, chunk tree tl.
+    const int r = threadIdx.x % R;
+    const int tl = threadIdx.x / R;
+    const float* x = stage_x ? xs + r * n_feat : X + (row0 + r) * n_feat;
+
+    for (int t0 = 0; t0 < n_trees; t0 += Tc) {
+        const int tc = min(Tc, n_trees - t0);
+        if (tl < tc && r < rows) {
+            int node = __ldg(root + t0 + tl);
+            for (int s = 0; s < n_steps; ++s) {
+                const int4 rec = __ldg(nodes + node);
+                if (rec.x < 0) break;  // a leaf holds
+                node = x[rec.x] <= __int_as_float(rec.y) ? rec.z : rec.w;
+            }
+            leaf[threadIdx.x] = node;
+            if constexpr (sizeof(Acc) == sizeof(double)) {
+                if (agg == kNorm) {
+                    const Val* v = values + (int64_t)node * n_chan;
+                    double rowsum = 0.0;
+                    for (int k = 0; k < n_chan; ++k)
+                        rowsum = __dadd_rn(rowsum, (double)__ldg(v + k));
+                    denom[threadIdx.x] = fmax(rowsum, 1.0);
+                }
+            }
+        }
+        __syncthreads();
+
+        // The ordered reduction: thread p owns out[row0 + p / n_out,
+        // p % n_out] in every chunk, so its accumulator carries over.
+        const bool last = t0 + tc >= n_trees;
+        for (int p = threadIdx.x; p < rows * n_out; p += blockDim.x) {
+            const int rr = p / n_out;
+            const int c = p % n_out;
+            Acc a = t0 == 0 ? Acc(0) : acc[p];
+            if (agg == kPercls) {
+                // chunk trees t0 + j with (t0 + j) mod n_out == c
+                for (int j = ((c - t0) % n_out + n_out) % n_out; j < tc;
+                     j += n_out)
+                    a = add_rn(a, (Acc)__ldg(
+                        values + (int64_t)leaf[j * R + rr] * n_chan));
+            } else if (agg == kNorm) {
+                if constexpr (sizeof(Acc) == sizeof(double)) {
+#pragma unroll 4
+                    for (int j = 0; j < tc; ++j)
+                        a = __dadd_rn(a, __ddiv_rn(
+                            (double)__ldg(values + (int64_t)leaf[j * R + rr]
+                                          * n_chan + c),
+                            denom[j * R + rr]));
+                }
+            } else {
+#pragma unroll 4
+                for (int j = 0; j < tc; ++j)
+                    a = add_rn(a, (Acc)__ldg(
+                        values + (int64_t)leaf[j * R + rr] * n_chan + c));
+            }
+            if (last)
+                out[row0 * n_out + p] = a;
+            else
+                acc[p] = a;
+        }
+        if (!last) __syncthreads();  // the next chunk rewrites leaf/denom
+    }
+}
+
+template <typename Val, typename Acc>
+int launch(const void* X, const void* nodes, const void* root,
+           const void* values, void* out, int n_rows, int n_feat,
+           int n_trees, int n_steps, int n_chan, int n_out, int agg,
+           int rows_per_block, int trees_per_chunk, int stage_x,
+           int threads, int smem, void* stream)
+{
+    if (rows_per_block < 1 || trees_per_chunk < 1
+        || threads < rows_per_block
+                         * (trees_per_chunk < n_trees ? trees_per_chunk
+                                                      : n_trees)
+        || (size_t)smem < smem_bytes(rows_per_block, trees_per_chunk, n_out,
+                                     n_feat, (int)sizeof(Acc), agg, stage_x))
+        return (int)cudaErrorInvalidValue;
+    if ((size_t)smem > kStaticSmem) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            traverse_kernel<Val, Acc>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (e != cudaSuccess) return (int)e;
+    }
+    const int blocks = (int)(((int64_t)n_rows + rows_per_block - 1)
+                             / rows_per_block);
+    traverse_kernel<Val, Acc><<<blocks, threads, smem,
+                                (cudaStream_t)stream>>>(
+        (const float*)X, (const int4*)nodes, (const int32_t*)root,
+        (const Val*)values, (Acc*)out, n_rows, n_feat, n_trees, n_steps,
+        n_chan, n_out, agg, rows_per_block, trees_per_chunk, stage_x);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-int mpt_traverse(const void* X, const void* feature, const void* threshold,
-                 const void* left, const void* right, const void* root,
+int mpt_traverse(const void* X, const void* nodes, const void* root,
                  const void* values, void* out, int n_rows, int n_feat,
-                 int n_trees, int n_steps, int n_chan, int n_out, int c0,
-                 int agg, int threads, void* stream)
+                 int n_trees, int n_steps, int n_chan, int n_out, int agg,
+                 int rows_per_block, int trees_per_chunk, int stage_x,
+                 int threads, int smem, void* stream)
 {
-    const int blocks = (n_rows + threads - 1) / threads;
-    traverse_kernel<int32_t, float, double, double>
-        <<<blocks, threads, 0, (cudaStream_t)stream>>>(
-            (const float*)X, (const int32_t*)feature,
-            (const float*)threshold, (const int32_t*)left,
-            (const int32_t*)right, (const int32_t*)root,
-            (const double*)values, (double*)out, n_rows, n_feat, n_trees,
-            n_steps, n_chan, n_out, c0, agg);
-    return (int)cudaGetLastError();
+    return launch<double, double>(
+        X, nodes, root, values, out, n_rows, n_feat, n_trees, n_steps,
+        n_chan, n_out, agg, rows_per_block, trees_per_chunk, stage_x,
+        threads, smem, stream);
 }
 
-int mpt_traverse_q(const void* X, const void* feature, const void* threshold,
-                   const void* left, const void* right, const void* root,
+int mpt_traverse_q(const void* X, const void* nodes, const void* root,
                    const void* values, void* out, int n_rows, int n_feat,
-                   int n_trees, int n_steps, int n_chan, int n_out, int c0,
-                   int agg, int threads, void* stream)
+                   int n_trees, int n_steps, int n_chan, int n_out, int agg,
+                   int rows_per_block, int trees_per_chunk, int stage_x,
+                   int threads, int smem, void* stream)
 {
-    const int blocks = (n_rows + threads - 1) / threads;
-    traverse_kernel<int16_t, uint16_t, int8_t, int32_t>
-        <<<blocks, threads, 0, (cudaStream_t)stream>>>(
-            (const float*)X, (const int16_t*)feature,
-            (const uint16_t*)threshold, (const int32_t*)left,
-            (const int32_t*)right, (const int32_t*)root,
-            (const int8_t*)values, (int32_t*)out, n_rows, n_feat, n_trees,
-            n_steps, n_chan, n_out, c0, agg);
-    return (int)cudaGetLastError();
+    return launch<int8_t, int32_t>(
+        X, nodes, root, values, out, n_rows, n_feat, n_trees, n_steps,
+        n_chan, n_out, agg, rows_per_block, trees_per_chunk, stage_x,
+        threads, smem, stream);
 }
 
 const char* mpt_traverse_error_string(int code)

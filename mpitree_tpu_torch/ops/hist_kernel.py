@@ -58,6 +58,8 @@ import math
 
 import torch
 
+from mpitree_tpu_torch._device import sm_count
+
 # Dynamic shared memory one block may use on Hopper (227 KB), and what one
 # SM holds for all its resident blocks (228 KB, 1 KB of it reserved per block).
 SMEM_BYTES = 232_448
@@ -132,7 +134,6 @@ _SIGNATURES = {
     + [ctypes.c_void_p],
 }
 _lib = None
-_sm_count: dict = {}
 
 
 def _library():
@@ -155,15 +156,6 @@ def _check(code: int, what: str) -> None:
     if code != 0:
         msg = _library().mpt_error_string(code).decode()
         raise RuntimeError(f"{what} launch failed: CUDA error {code} ({msg})")
-
-
-def _sms(device: torch.device) -> int:
-    idx = device.index if device.index is not None else \
-        torch.cuda.current_device()
-    if idx not in _sm_count:
-        _sm_count[idx] = torch.cuda.get_device_properties(
-            idx).multi_processor_count
-    return _sm_count[idx]
 
 
 def histogram_cuda(x_binned: torch.Tensor, payload: torch.Tensor,
@@ -213,7 +205,7 @@ def histogram_cuda(x_binned: torch.Tensor, payload: torch.Tensor,
             out.data_ptr())
     with torch.cuda.device(dev):
         if p["variant"] == "wide":
-            blocks = min(math.ceil(N * F / WIDE_THREADS), _sms(dev) * 32)
+            blocks = min(math.ceil(N * F / WIDE_THREADS), sm_count(dev) * 32)
             _check(lib.mpt_hist_wide(
                 *ptrs, N, F, C, n_bins, n_slots, blocks, WIDE_THREADS,
                 stream,
@@ -222,7 +214,7 @@ def histogram_cuda(x_binned: torch.Tensor, payload: torch.Tensor,
             resident = max(1, min(2048 // SMALL_THREADS,
                                   SMEM_PER_SM // (p["smem"] + 1024)))
             n_rblocks = max(1, min(
-                math.ceil(resident * _sms(dev) / p["n_fgroups"]),
+                math.ceil(resident * sm_count(dev) / p["n_fgroups"]),
                 math.ceil(N / SMALL_THREADS), 65535,
             ))
             _check(lib.mpt_hist_small(

@@ -11,7 +11,10 @@ into a serving handle:
   an oversize batch is served in chunks of the largest bucket;
 - a forest (kind ``forest_proba``) is served by the traversal kernel K4
   on CUDA (``serve_kernel.traverse``, float64, equal bit for bit to the
-  estimator's ``predict_proba``), or with ``quantize="int8"`` by K5
+  estimator's ``predict_proba``) in ``sum`` mode over a leaf channel
+  normalized once when the model is compiled (``traversal.normalize_rows``,
+  the same IEEE quotients ``norm`` mode takes per row and request), or
+  with ``quantize="int8"`` by K5
   (``quantize.q_traverse_accumulate``); on the CPU by their plain
   versions. A single tree (kind ``gather_counts``) is a plain int32
   gather on every device, as in the JAX package.
@@ -86,6 +89,8 @@ class CompiledModel:
         self._dev_table = self.table.dev_arrays(device)[:5]
         self._quant = None
         self._values = None
+        self._record = None
+        self._agg = traversal.ACC_AGG.get(kind)
         if qmode is not None:
             flat = _channel(self.trees, values_fn, self.table, np.float64)
             self._quant = quantize_lib.build_state(
@@ -97,11 +102,19 @@ class CompiledModel:
                 n_features=self.n_features,
             )
         else:
+            # norm's per-tree row division, taken once per leaf here: the
+            # kernel then only adds (sum mode), to the same bits.
+            normalize = self._agg == "norm"
             self._values = self.table.dev_values(
-                f"serve:{kind}", lambda tb: _channel(
-                    self.trees, values_fn, tb, value_dtype
-                ), dtype=value_dtype, device=device,
+                f"serve:{kind}:normalized" if normalize else f"serve:{kind}",
+                lambda tb: _channel(self.trees, values_fn, tb, value_dtype),
+                dtype=value_dtype, device=device,
+                prepare=traversal.normalize_rows if normalize else None,
             )
+            if normalize:
+                self._agg = "sum"
+            if device.type == "cuda" and self._agg is not None:
+                self._record = self.table.dev_record(device)
         kernel = "traverse_q" if qmode else "traverse"
         if kind in traversal.GATHER_KINDS:
             self.dispatch = "plain gather"
@@ -133,8 +146,8 @@ class CompiledModel:
             )
         out = serve_kernel.traverse(
             X, *self._dev_table, self._values, n_steps=n_steps,
-            agg=traversal.ACC_AGG[self.kind], n_out=self.n_out,
-            n_features=self.n_features,
+            agg=self._agg, n_out=self.n_out, n_features=self.n_features,
+            record=self._record,
         )
         return traversal.finish(out, self.kind, self.scale)
 

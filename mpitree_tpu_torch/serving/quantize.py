@@ -133,6 +133,7 @@ class QuantizedState:
     left: torch.Tensor       # (M,) int32 (the table's own device copy)
     right: torch.Tensor      # (M,) int32
     root: torch.Tensor       # (T,) int32
+    record: torch.Tensor     # (M, 4) int32: serve_kernel.pack_nodes
     qvals: torch.Tensor      # (M, K) int8
     qscale: torch.Tensor     # (K,) float32: the affine's scale
     qbase: torch.Tensor      # (K,) float32: T x the affine's base
@@ -167,10 +168,12 @@ def build_state(table, prepared: np.ndarray, *, kind: str, scale,
             report=rep,
         )
     _f, _t, left, right, root, _o = table.dev_arrays(device)
+    feature = torch.from_numpy(table.feature.astype(np.int16)).to(device)
+    threshold = quantize_thresholds(table.threshold).to(device)
     return QuantizedState(
-        feature=torch.from_numpy(table.feature.astype(np.int16)).to(device),
-        threshold=quantize_thresholds(table.threshold).to(device),
-        left=left, right=right, root=root,
+        feature=feature, threshold=threshold, left=left, right=right,
+        root=root,
+        record=serve_kernel.pack_nodes(feature, threshold, left, right),
         qvals=torch.from_numpy(np.ascontiguousarray(q)).to(device),
         qscale=torch.from_numpy(vscale).to(device),
         qbase=torch.from_numpy(
@@ -193,6 +196,7 @@ def q_traverse_accumulate(X: torch.Tensor, state: QuantizedState, *,
         X, state.feature, state.threshold, state.left, state.right,
         state.root, state.qvals, n_steps=n_steps, agg="sum",
         n_out=state.qvals.shape[1], n_features=n_features,
+        record=state.record,
     )
     deq = out.to(torch.float32) * state.qscale + state.qbase
     return deq / torch.as_tensor(scale, dtype=torch.float32,

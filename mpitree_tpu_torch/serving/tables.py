@@ -11,10 +11,11 @@ node)`` so each depth level is one contiguous slab (``level_off``).
 Host arrays are numpy and are built once per ensemble: a forest's
 ``trees_`` is a :class:`TreeList`, which carries its tables. Device
 copies are torch tensors, made once per device and kept on the table
-(:meth:`NodeTable.dev_arrays`, :meth:`NodeTable.dev_values`), so the
-request path uploads nothing but the query batch. The kernels
-(``serving/serve_kernel.py``) read these same device copies, so a
-published model holds one copy of its table on the card.
+(:meth:`NodeTable.dev_arrays`, :meth:`NodeTable.dev_values`,
+:meth:`NodeTable.dev_record`), so the request path uploads nothing but the
+query batch. The kernels (``serving/serve_kernel.py``) descend the packed
+node records (16 bytes a node), the plain versions the columns; a
+published model holds one copy of each on the card.
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from mpitree_tpu_torch.serving.serve_kernel import pack_nodes
 
 # Device-memory ceiling for one table's structural columns plus value
 # headroom, as in the JAX package: ensembles past it split into several
@@ -72,6 +75,7 @@ class NodeTable:
     def __post_init__(self):
         self._dev: dict = {}
         self._dev_values: dict = {}
+        self._dev_record: dict = {}
 
     @property
     def n_nodes(self) -> int:
@@ -99,15 +103,28 @@ class NodeTable:
                 self._dev[key] = dev
         return dev
 
+    def dev_record(self, device: torch.device) -> torch.Tensor:
+        """The (M, 4) int32 node records the traversal kernels descend
+        (``serve_kernel.pack_nodes`` of :meth:`dev_arrays`; 16 bytes a
+        node), packed on ``device`` once and kept beside the columns."""
+        key = str(device)
+        rec = self._dev_record.get(key)
+        if rec is None:
+            rec = self._dev_record[key] = pack_nodes(
+                *self.dev_arrays(device)[:4])
+        return rec
+
     def dev_values(self, channel: str, build, *, dtype: np.dtype,
-                   device: torch.device) -> torch.Tensor:
+                   device: torch.device, prepare=None) -> torch.Tensor:
         """Value channel ``channel`` (host array ``build(self)``) on
-        ``device`` at ``dtype``, built and uploaded once."""
+        ``device`` at ``dtype``, built and uploaded once; ``prepare``, if
+        given, maps the uploaded tensor on the device before it is kept."""
         key = (channel, np.dtype(dtype).str, str(device))
         d = self._dev_values.get(key)
         if d is None:
             host = np.ascontiguousarray(build(self), dtype=dtype)
-            d = self._dev_values[key] = torch.from_numpy(host).to(device)
+            d = torch.from_numpy(host).to(device)
+            self._dev_values[key] = d = prepare(d) if prepare else d
         return d
 
     def scatter_order(self) -> np.ndarray:

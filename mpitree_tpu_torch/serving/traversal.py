@@ -79,6 +79,11 @@ def traverse_gather(X, feature, threshold, left, right, root, values, *,
     raise ValueError(f"unknown serving gather kind {kind!r}")
 
 
+def normalize_rows(v: torch.Tensor) -> torch.Tensor:
+    """Each row over ``max(rowsum, 1)``: the per-tree term of ``norm``."""
+    return v / torch.clamp(v.sum(dim=1, keepdim=True), min=1)
+
+
 def accumulate(node: torch.Tensor, values: torch.Tensor, *, agg: str,
                n_out: int, baseline: torch.Tensor | None = None
                ) -> torch.Tensor:
@@ -101,7 +106,7 @@ def accumulate(node: torch.Tensor, values: torch.Tensor, *, agg: str,
         if agg == "sum":
             acc = acc + v
         elif agg == "norm":
-            acc = acc + v / torch.clamp(v.sum(dim=1, keepdim=True), min=1)
+            acc = acc + normalize_rows(v)
         elif agg == "percls":
             c = t % n_out
             acc[:, c] = acc[:, c] + v[:, 0]

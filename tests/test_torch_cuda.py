@@ -97,58 +97,104 @@ def forest_on_card():
     return forest, table, Xq
 
 
+def _members(forest_on_card, n_trees):
+    """(trees, flat table) of the forest's first ``n_trees`` members."""
+    from mpitree_tpu_torch.serving.tables import tables_for
+
+    forest, table, _ = forest_on_card
+    if n_trees == len(forest.trees_):
+        return list(forest.trees_), table
+    trees = list(forest.trees_)[:n_trees]
+    [sub] = tables_for(trees, group_bytes=None)
+    return trees, sub
+
+
+ROWS = [1, 63, 64, 3_000]
+
+
+@pytest.mark.parametrize("N", ROWS)
+@pytest.mark.parametrize("n_trees", [1, 6])
 @pytest.mark.parametrize("agg,n_chan,n_out", [
     ("norm", 7, 7), ("sum", 7, 7), ("sum", 12, 12), ("percls", 1, 3),
     ("percls", 1, 10),
-], ids=["norm", "sum", "sum-two-blocks", "percls", "percls-two-blocks"])
+], ids=["norm", "sum", "sum-12", "percls", "percls-10"])
 def test_traverse_kernel_equals_plain_version(forest_on_card, agg, n_chan,
-                                             n_out):
+                                             n_out, n_trees, N):
     from mpitree_tpu_torch.serving import serve_kernel
 
-    forest, table, Xq = forest_on_card
+    trees, table = _members(forest_on_card, n_trees)
     dev = torch.device("cuda")
     cols = table.dev_arrays(dev)[:5]
     rng = np.random.default_rng(n_chan + n_out)
     if agg == "norm":
-        vals = np.concatenate([t.count for t in forest.trees_])
+        vals = np.concatenate([t.count for t in trees])
         vals = vals[table.scatter_order()].astype(np.float64)
     else:  # non-integer values: the reduction order is what is tested
         vals = rng.standard_normal((table.n_nodes, n_chan))
     values = torch.from_numpy(np.ascontiguousarray(vals)).to(dev)
-    X = torch.from_numpy(Xq).to(dev)
+    X = torch.from_numpy(forest_on_card[2][:N]).to(dev)
     kw = dict(n_steps=table.n_steps, agg=agg, n_out=n_out)
     before = serve_kernel.launches["traverse"]
     got = serve_kernel.traverse(X, *cols, values, n_features=X.shape[1],
-                                **kw)
+                                record=table.dev_record(dev), **kw)
     torch.cuda.synchronize()
-    assert serve_kernel.launches["traverse"] == before + (n_out + 7) // 8
+    assert serve_kernel.launches["traverse"] == before + 1
     want = serve_kernel.traverse_reference(X, *cols, values, **kw)
     assert got.dtype == torch.float64 and torch.equal(got, want)
+    # without a record the call packs the columns itself: same bits
+    assert torch.equal(serve_kernel.traverse(
+        X, *cols, values, n_features=X.shape[1], **kw), want)
 
 
+@pytest.mark.parametrize("N", ROWS)
+@pytest.mark.parametrize("n_trees", [1, 6])
 @pytest.mark.parametrize("agg,n_out", [("sum", 7), ("percls", 3)])
-def test_quantized_kernel_equals_plain_version(forest_on_card, agg, n_out):
+def test_quantized_kernel_equals_plain_version(forest_on_card, agg, n_out,
+                                               n_trees, N):
     from mpitree_tpu_torch.serving import quantize, serve_kernel
 
-    forest, table, Xq = forest_on_card
+    trees, table = _members(forest_on_card, n_trees)
     dev = torch.device("cuda")
-    counts = np.concatenate([t.count for t in forest.trees_])
+    counts = np.concatenate([t.count for t in trees])
     prepared = quantize.prepare_channel(
         "forest_proba", counts[table.scatter_order()])
     state = quantize.build_state(
-        table, prepared, kind="forest_proba", scale=len(forest.trees_),
+        table, prepared, kind="forest_proba", scale=len(trees),
         n_steps=table.n_steps, tol=1.0, device=dev, n_features=54)
-    X = torch.from_numpy(Xq).to(dev)
+    X = torch.from_numpy(forest_on_card[2][:N]).to(dev)
     cols = (state.feature, state.threshold, state.left, state.right,
             state.root)
     kw = dict(n_steps=table.n_steps, agg=agg, n_out=n_out)
     before = serve_kernel.launches["traverse_q"]
     got = serve_kernel.traverse_q(X, *cols, state.qvals, n_features=54,
-                                  **kw)
+                                  record=state.record, **kw)
     torch.cuda.synchronize()
     assert serve_kernel.launches["traverse_q"] == before + 1
     want = serve_kernel.traverse_q_reference(X, *cols, state.qvals, **kw)
     assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+def test_traverse_kernel_reads_rows_too_wide_to_stage(forest_on_card):
+    """Rows wider than a block's shared memory are read from global memory
+    (the plan's ``stage_x`` off): the table only splits on the first 54
+    columns, the other columns are padding."""
+    from mpitree_tpu_torch.serving import serve_kernel
+
+    _, table, Xq = forest_on_card
+    dev = torch.device("cuda")
+    F = 60_000
+    X = torch.zeros((64, F), dtype=torch.float32, device=dev)
+    X[:, :Xq.shape[1]] = torch.from_numpy(Xq[:64]).to(dev)
+    assert not serve_kernel.plan("traverse", 64, table.n_trees, 7,
+                                 n_features=F)["stage_x"]
+    cols = table.dev_arrays(dev)[:5]
+    values = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (table.n_nodes, 7))).to(dev)
+    kw = dict(n_steps=table.n_steps, agg="sum", n_out=7)
+    got = serve_kernel.traverse(X, *cols, values, n_features=F,
+                                record=table.dev_record(dev), **kw)
+    want = serve_kernel.traverse_reference(X, *cols, values, **kw)
+    assert torch.equal(got, want)
 
 
 def test_traverse_wrapper_refuses_what_the_kernels_do_not_take(
