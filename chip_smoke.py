@@ -17,15 +17,18 @@ Phases, in order; any failure raises and exits non-zero:
 2. kernels: bin ``covtype_like(581_012, seed=0)`` (256 bins) on the card;
    for S in {1, 8, 64, 128, 512, K} (K the fit's chunk width) spread the
    rows over S slots (some slots empty, some rows at -1) with class
-   payloads, hold every histogram kernel variant whose tile fits that
-   width ``torch.equal`` to the plain version and time it, and time the
-   plain version and one library call (``index_put_(...,
-   accumulate=True)`` over prebuilt flat ids) beside the least time the
-   card could take.
+   payloads, hold every histogram route whose tile fits that width, with
+   int32 and with byte-wide bins, ``torch.equal`` to the plain version and
+   time it behind a device-side hold (a sorted route as a whole, its sort
+   included, and its kernel alone on rows ordered beforehand; the sort
+   alone too), and time the plain version and one library call
+   (``index_put_(..., accumulate=True)`` over prebuilt flat ids) beside
+   the least time the card could take for the bytes the planned route
+   reads (and, as ``bound_int32_ms``, for 4-byte bins).
 3. fit: ``DecisionTreeClassifier(criterion="entropy", max_depth=20,
    max_bins=256)`` on the full matrix, twice; the launch counters are set
    to 0 just before the second fit and read just after it, and every
-   variant must have launched.
+   route must have launched.
 4. parity: ``covtype_like(50_000, seed=2)`` at ``max_depth=10`` on the
    card and with ``device="cpu"`` (the plain versions): the trees must be
    identical field for field, or differ first at a node whose two
@@ -84,20 +87,21 @@ FP32_FLOPS = 67e12
 SLOT_TIERS = (1, 8, 64, 128, 512)
 DEV = torch.device("cuda")
 ROWS, DEPTH = 581_012, 20  # covtype's rows; the BASELINE fit's depth
-# One shape per variant for the "kernels" line: small's one width (the
-# root level) and wide at S=K, the width of the deep levels.
-REPRESENTATIVE = {"small": 1, "wide": None}
+# One shape per route for the "kernels" line: stream's one width (the
+# root level) and sorted at S=K, the width of the deep levels.
+REPRESENTATIVE = {"stream": 1, "sorted": None}
 # Device kernels of a profiled run, grouped by what they serve (first match).
 PROFILE_KINDS = (
-    ("histogram kernels", ("hist_small_kernel", "hist_wide_kernel")),
+    ("histogram kernels", ("hist_tile_kernel", "hist_zero_split_kernel")),
     ("traversal kernels", ("traverse_kernel",)),
     ("copies", ("Memcpy", "memcpy", "Memset")),
-    ("binning sort/search", ("sort", "Sort", "radix", "searchsorted")),
+    ("sort/search (binning, level order)",
+     ("sort", "Sort", "radix", "Radix", "searchsorted")),
     ("float64 sweep", ("double",)),
 )
 REPLACES = {
-    "small": "mpitree_tpu/ops/pallas_hist.py:77",
-    "wide": "mpitree_tpu/ops/wide_hist.py:252",
+    "stream": "mpitree_tpu/ops/pallas_hist.py:77",
+    "sorted": "mpitree_tpu/ops/wide_hist.py:252",
 }
 # BASELINE config 5, bench.py's FOREST_SHAPES["tpu"]; not cut.
 FOREST = dict(n_estimators=50, max_depth=12, max_bins=256, random_state=0)
@@ -170,46 +174,62 @@ def _slots(rng, N: int, S: int) -> np.ndarray:
     return slot
 
 
-def phase_kernels(xb, y_d, B: int, K: int) -> list:
+def phase_kernels(xb, y_d, B: int, K: int, feat_bins: list) -> list:
     from mpitree_tpu_torch.ops import hist_kernel
     from mpitree_tpu_torch.ops.histogram import class_payload
 
     N, F = xb.shape
     C = 7
     payload = class_payload(y_d, None, C).contiguous()
+    packed = hist_kernel.pack_bins(xb, B)
     rng = np.random.default_rng(0)
     feat = torch.arange(F, device=xb.device, dtype=torch.int64)
     rows = []
     for S in sorted(set(SLOT_TIERS + (K,))):
         slot = torch.from_numpy(_slots(rng, N, S)).to(xb.device)
-        variant = hist_kernel.plan(S, F, C, B)["variant"]
+        planned = hist_kernel.plan(S, F, C, B, feat_bins=feat_bins,
+                                   n_rows=N)["route"]
         want = hist_kernel.histogram_reference(xb, payload, slot,
                                                n_slots=S, n_bins=B)
+        order, seg = hist_kernel.slot_segments(slot, S)
         torch.cuda.synchronize()
-        # Every variant whose tile fits this width, the planned one first:
-        # each is held equal to the plain version and timed, so the plan's
-        # choice is checked against the others on every run.
-        alt_ms = {}
-        others = [v for v in hist_kernel.launches if v != variant]
-        for v in [variant] + others:
+        sort_ms = cuda_ms(lambda: hist_kernel.slot_segments(slot, S),
+                          hold=True)
+
+        # Every route whose tile fits this width, with int32 and with
+        # byte-wide bins: each is held equal to the plain version and
+        # timed (a sorted route as a whole, its sort included, and its
+        # kernel alone on rows ordered beforehand), so the plan's choice
+        # is checked against the others on every run.
+        route_ms = {}
+        for route in hist_kernel.ROUTES:
             try:
-                hist_kernel.plan(S, F, C, B, v)
+                hist_kernel.plan(S, F, C, B, route, feat_bins=feat_bins)
             except ValueError:
                 continue
-            got = hist_kernel.histogram_cuda(xb, payload, slot, n_slots=S,
-                                             n_bins=B, _variant=v)
-            torch.cuda.synchronize()
-            diff = float((got - want).abs().max().item())
-            if not torch.equal(got, want):
-                raise AssertionError(
-                    f"{v} kernel != plain version at S={S} (max |diff| "
-                    f"{diff})"
-                )
-            if v == variant:
-                err = diff
-            del got
-            alt_ms[v] = cuda_ms(lambda v=v: hist_kernel.histogram_cuda(
-                xb, payload, slot, n_slots=S, n_bins=B, _variant=v))
+            for bins, pk in (("int32", None), ("uint8", packed)):
+                cases = {f"{route}/{bins}": {}}
+                if route == "sorted":
+                    cases[f"{route}/{bins}/presorted"] = dict(
+                        order=order, seg_start=seg)
+                for name, pre in cases.items():
+                    def run(route=route, pk=pk, pre=pre):
+                        return hist_kernel.histogram_cuda(
+                            xb, payload, slot, n_slots=S, n_bins=B,
+                            packed=pk, feat_bins=feat_bins, _variant=route,
+                            **pre)
+                    got = run()
+                    torch.cuda.synchronize()
+                    diff = float((got - want).abs().max().item())
+                    if name == f"{planned}/uint8":
+                        err = diff
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            f"{name} kernel != plain version at S={S} (max "
+                            f"|diff| {diff})"
+                        )
+                    del got
+                    route_ms[name] = cuda_ms(run, hold=True)
         del want
 
         # library yardstick: one index_put_ over prebuilt flat cell ids
@@ -227,26 +247,42 @@ def phase_kernels(xb, y_d, B: int, K: int) -> list:
             out.index_put_((ids,), vals, accumulate=True)
             return out
 
-        ms = alt_ms[variant]
         plain_ms = cuda_ms(lambda: hist_kernel.histogram_reference(
             xb, payload, slot, n_slots=S, n_bins=B), reps=5)
         library_ms = cuda_ms(library, reps=5)
         del ids, vals, r, cls
 
-        n_bytes = N * 4 + n_in * (F * 4 + C * 4) + S * F * C * B * 4
+        # Bytes the planned route must move: the slot vector (the sort
+        # reads it, or the stream kernel), a padded byte row of bins and
+        # the payload of every row in range, the sorted route's order and
+        # segment offsets, and the output once. bound_int32 is the same
+        # with 4-byte bins and no order: the earlier designs' bound.
+        out_bytes = S * F * C * B * 4
+        n_bytes = N * 4 + n_in * (packed.shape[1] + C * 4) + out_bytes
+        if planned == "sorted":
+            n_bytes += n_in * 4 + (S + 1) * 4
+        int32_bytes = N * 4 + n_in * (F * 4 + C * 4) + out_bytes
         n_ops = n_in * F  # one add per (row, feature): one nonzero channel
         t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_FLOPS
+        ms = route_ms[f"{planned}/uint8"]
+        best = min(v for k, v in route_ms.items()
+                   if not k.endswith("/presorted"))
         rows.append(dict(
-            S=S, variant=variant, rows_in_range=n_in, ms=ms,
+            S=S, route=planned, rows_in_range=n_in, ms=ms,
+            kernel_ms=route_ms.get(f"{planned}/uint8/presorted", ms),
+            sort_ms=sort_ms if planned == "sorted" else 0.0,
             plain_ms=plain_ms, library_ms=library_ms,
             bound_ms=max(t_bytes, t_ops) * 1e3,
             bound_by="bytes" if t_bytes >= t_ops else "operations",
-            max_abs_err=err, variant_ms=alt_ms,
+            bound_int32_ms=max(int32_bytes / HBM_BYTES_PER_S, t_ops) * 1e3,
+            max_abs_err=err, route_ms=route_ms, plan_vs_best=ms / best,
         ))
-        log(f"kernels: S={S} {variant}: kernel {ms:.4f} ms, plain "
+        log(f"kernels: S={S} {planned}: route {ms:.4f} ms (kernel "
+            f"{rows[-1]['kernel_ms']:.4f}, sort {sort_ms:.4f}), plain "
             f"{plain_ms:.4f} ms, index_put_ {library_ms:.4f} ms, bound "
-            f"{rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']}); "
-            f"every variant equal to plain, ms {alt_ms}")
+            f"{rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']}; int32 "
+            f"bins {rows[-1]['bound_int32_ms']:.4f}); {ms / best:.3f}x the "
+            f"best route; every route equal to plain, ms {route_ms}")
     return rows
 
 
@@ -290,9 +326,9 @@ def phase_fit(X, y, Xh, yh, depth: int):
             f"implausible fit: depth {clf.get_depth()}, nodes "
             f"{tree.n_nodes}, train {train_acc}, held-out {test_acc}"
         )
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in hist_kernel.ROUTES if launches[k] == 0]
     if missing:
-        raise AssertionError(f"fit never launched kernel variants {missing}")
+        raise AssertionError(f"fit never launched kernel routes {missing}")
     log(f"fit: {len(X)} x {X.shape[1]} depth {depth}: first {first:.3f} s, "
         f"second {second:.3f} s; train acc {train_acc:.6f}, held-out acc "
         f"{test_acc:.6f} ({len(Xh)} rows, predict {predict_s:.3f} s); "
@@ -412,7 +448,7 @@ def phase_forest(X, y, Xh, yh):
             f"implausible forest: {len(nodes)} trees, nodes {nodes.min()}.."
             f"{nodes.max()}, depth {depth}, held-out {test_acc}"
         )
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in hist_kernel.ROUTES if launches[k] == 0]
     if missing:
         raise AssertionError(f"forest fit never launched {missing}")
     log(f"forest: {len(Xf)} x {Xf.shape[1]}, {len(nodes)} trees, depth "
@@ -420,7 +456,7 @@ def phase_forest(X, y, Xh, yh):
         f"{int(nodes.sum())}, mean {float(nodes.mean())}; held-out acc "
         f"{test_acc:.6f} ({len(Xh)} rows, predict_proba {predict_s:.3f} s); "
         f"launches {launches}")
-    return forest, second
+    return forest, launches, second
 
 
 def phase_forest_parity() -> None:
@@ -689,6 +725,8 @@ def phase_profile(name: str, work, out_dir: Path) -> None:
         "wall_s": wall, "device_busy_s": busy_us / 1e6,
         "device_busy_share": busy_us / 1e6 / wall if wall else None,
         "device_kernels": len(events),
+        "hist_launches": sum("hist_tile_kernel" in e.name for e in events),
+        "d2h_copies": sum("DtoH" in e.name for e in events),
         "device_ms_by_kind": {k: v / 1e3 for k, v in by_kind.items()},
         "top_device_ms": {k[:90]: v / 1e3 for k, v in top},
     }))
@@ -760,13 +798,14 @@ def main() -> int:
     K = _chunk_size(ROWS, X.shape[1], binned.n_bins, 7,
                     BuildConfig(max_depth=DEPTH))
     y_d = torch.from_numpy(y).to(dev)
-    shapes = phase_kernels(binned.x_binned, y_d, binned.n_bins, K)
+    shapes = phase_kernels(binned.x_binned, y_d, binned.n_bins, K,
+                           [int(v) + 1 for v in binned.n_cand])
     del binned, y_d
     torch.cuda.empty_cache()
 
     _, launches, _ = phase_fit(X, y, Xh, yh, DEPTH)
     phase_parity()
-    forest, _ = phase_forest(X, y, Xh, yh)
+    forest, forest_launches, _ = phase_forest(X, y, Xh, yh)
     phase_forest_parity()
     Xbig, _ = covtype_like(SERVE_SHAPES[-1], seed=3)
     serve_shapes = phase_serve_kernels(forest, Xbig)
@@ -775,16 +814,19 @@ def main() -> int:
         profile_all(X, y, forest, Xh, args.profile)
 
     kernels = []
-    for variant, S in REPRESENTATIVE.items():
+    for route, S in REPRESENTATIVE.items():
         row = next(r for r in shapes
-                   if r["variant"] == variant and r["S"] == (S or K))
+                   if r["route"] == route and r["S"] == (S or K))
         kernels.append(dict(
-            name=f"hist_{variant}[S={row['S']}]", route="cuda",
+            name=f"hist_{route}[S={row['S']}]", route="cuda",
             source="mpitree_tpu_torch/csrc/histogram.cu",
-            replaces=REPLACES[variant], launches=launches[variant],
+            replaces=REPLACES[route], launches=launches[route],
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
+            kernel_ms=row["kernel_ms"], sort_ms=row["sort_ms"],
+            bound_int32_ms=row["bound_int32_ms"],
+            forest_launches=forest_launches[route],
         ))
     for form, (agg, chan) in SERVE_LINE.items():
         row = next(r for r in serve_shapes if r["kernel"] == form
@@ -805,7 +847,7 @@ def main() -> int:
                 for r in serve_shapes if r["kernel"] == form
                 and r["agg"] == agg and r["channel"] == chan},
         ))
-    if (set(hist_kernel.launches) != set(REPRESENTATIVE)
+    if (set(hist_kernel.ROUTES) != set(REPRESENTATIVE)
             or set(serve_kernel.launches) != set(SERVE_LINE)):
         raise AssertionError("kernels line does not cover every kernel")
     log(f"total: {time.perf_counter() - t_start:.3f} s")

@@ -4,10 +4,12 @@ Counterpart of the levelwise engine of ``mpitree_tpu/core/builder.py``
 (``build_tree``, ``:703``; its loop from ``:980``). Each level of the tree
 is grown with a few device steps and one host round trip:
 
-1. for every frontier chunk, :func:`collective.split_step` builds the
-   ``(S, F, C, B)`` class histogram (the Hopper kernel family on CUDA) and
-   picks the best split per node; the packed decisions of all chunks come
-   to the host in one copy;
+1. the rows are ordered by node once (``hist_kernel.slot_segments``), and
+   for every frontier chunk :func:`collective.split_step` builds the
+   ``(S, F, C, B)`` class histogram (the Hopper kernel family on CUDA, which
+   reads each chunk's rows through that order and the fit's byte-wide copy
+   of the bins) and picks the best split per node; the packed decisions of
+   all chunks come to the host in one copy;
 2. the host applies the stopping rules to the O(frontier) decision vectors
    and appends node records (struct-of-arrays, contiguous ids per level,
    which is what makes ``slot = node_id - chunk_lo`` work);
@@ -35,6 +37,7 @@ import numpy as np
 import torch
 
 from mpitree_tpu_torch.core.tree_struct import TreeArrays
+from mpitree_tpu_torch.ops import hist_kernel
 from mpitree_tpu_torch.ops.binning import BinnedData
 from mpitree_tpu_torch.ops.histogram import class_payload
 from mpitree_tpu_torch.parallel import collective
@@ -60,8 +63,8 @@ MAX_FRONTIER_CHUNK = 4096
 MAX_TABLE_SLOTS = 1 << 17  # width of per-level update/counts tables
 # Histogram widths narrower than the chunk: a frontier that fits tier S
 # runs an S-slot histogram and sweep instead of the K-slot one. Tier 1 is
-# the root, the one width where the shared-memory histogram variant is
-# faster (ops/hist_kernel.py).
+# the root, the one width the histogram's unsorted route serves
+# (ops/hist_kernel.py).
 FRONTIER_TIERS = (1, 8, 64, 128, 512)
 
 
@@ -191,13 +194,23 @@ class _TreeBuffer:
         )
 
 
+def pack_for_fit(binned: BinnedData) -> torch.Tensor | None:
+    """The byte-wide copy of the binned matrix the histogram kernels read
+    (``hist_kernel.pack_bins``), or None when the bins need more than a
+    byte. A forest makes it once and hands it to every tree's build."""
+    if binned.n_bins > 256:
+        return None
+    return hist_kernel.pack_bins(binned.x_binned, binned.n_bins)
+
+
 def build_tree(binned: BinnedData, y: np.ndarray, *, config: BuildConfig,
-               n_classes: int, sample_weight: np.ndarray | None = None
-               ) -> TreeArrays:
+               n_classes: int, sample_weight: np.ndarray | None = None,
+               packed: torch.Tensor | None = None) -> TreeArrays:
     """Grow one classification tree level by level on the device that
     holds ``binned.x_binned``; returns the host struct-of-arrays tree.
 
-    ``y`` (N,) int class indices, ``sample_weight`` (N,) float32 or None.
+    ``y`` (N,) int class indices, ``sample_weight`` (N,) float32 or None,
+    ``packed`` :func:`pack_for_fit` of ``binned`` (made here when absent).
     """
     cfg = config
     if cfg.criterion not in ("entropy", "gini"):
@@ -210,6 +223,9 @@ def build_tree(binned: BinnedData, y: np.ndarray, *, config: BuildConfig,
     xb = xb.to(torch.int32).contiguous()
     N, F = xb.shape
     B = binned.n_bins
+    if packed is None:
+        packed = pack_for_fit(binned)
+    feat_bins = [int(v) + 1 for v in binned.n_cand]
     C = int(n_classes)
     total_w = float(N) if sample_weight is None else float(np.sum(sample_weight))
     if total_w >= 2**24:
@@ -255,15 +271,24 @@ def build_tree(binned: BinnedData, y: np.ndarray, *, config: BuildConfig,
             dec = {"counts": counts.cpu().numpy()}
         else:
             S = next((s for s in tiers if frontier_size <= s), K)
-            packed = torch.cat([
+            order = seg = None
+            if S > hist_kernel.STREAM_MAX_SLOTS:
+                # one sort a level, shared by its chunks; rows parked in
+                # finished leaves fall outside every segment
+                order, seg = hist_kernel.slot_segments(
+                    nid - frontier_lo, math.ceil(frontier_size / S) * S)
+            decisions = torch.cat([
                 collective.split_step(
                     xb, payload, nid, cand_mask, lo, n_slots=S, n_bins=B,
                     criterion=cfg.criterion,
-                    min_child_weight=cfg.min_child_weight,
+                    min_child_weight=cfg.min_child_weight, packed=packed,
+                    order=order, feat_bins=feat_bins,
+                    seg_start=None if seg is None else seg[
+                        lo - frontier_lo: lo - frontier_lo + S + 1],
                 )[: min(S, hi - lo)]
                 for lo in range(frontier_lo, hi, S)
             ])
-            dec = collective.unpack_decision(packed.cpu().numpy())
+            dec = collective.unpack_decision(decisions.cpu().numpy())
 
         ids = frontier_lo + np.arange(frontier_size)
         counts = dec["counts"]  # (frontier, C) integer-valued f32

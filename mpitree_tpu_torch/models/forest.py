@@ -4,7 +4,8 @@ Counterpart of ``RandomForestClassifier`` in ``mpitree_tpu/models/
 forest.py`` on its per-tree device route (``_fit_forest``, ``:272-765``;
 ``build_one_device``, ``:533-576``), bagging only:
 
-- the matrix is binned once (``ops/binning.bin_for_engine``) and every
+- the matrix is binned once (``ops/binning.bin_for_engine``), its
+  byte-wide copy for the histogram kernels is made once, and every
   tree is built by the levelwise engine (``core/builder.build_tree``) on
   that one device-resident binned matrix;
 - the bootstrap draws are the JAX package's, in the same order:
@@ -36,7 +37,11 @@ import dataclasses
 import numpy as np
 
 from mpitree_tpu_torch._device import resolve_device
-from mpitree_tpu_torch.core.builder import BuildConfig, build_tree
+from mpitree_tpu_torch.core.builder import (
+    BuildConfig,
+    build_tree,
+    pack_for_fit,
+)
 from mpitree_tpu_torch.models.classifier import ClassifierBase, refuse_later
 from mpitree_tpu_torch.ops.binning import bin_for_engine
 from mpitree_tpu_torch.ops.predict import stacked_leaf_ids
@@ -181,9 +186,11 @@ class RandomForestClassifier(ClassifierBase):
                 w = boot if w is None else boot * w
             tree_w.append(w)
 
+        packed = pack_for_fit(binned)  # once, next to the one binning
         self.trees_ = TreeList(
             build_tree(binned, y_enc, config=tree_cfg(w),
-                       n_classes=len(classes), sample_weight=w)
+                       n_classes=len(classes), sample_weight=w,
+                       packed=packed)
             for w in tree_w
         )
         self._set_fitted(classes, X.shape[1])

@@ -4,41 +4,37 @@ Replaces the three TPU kernels of the JAX package, which all compute one
 function — ``hist[s, f, c, b] = sum_r payload[r, c] * [slot[r] == s] *
 [xb[r, f] == b]``, rows with ``slot`` outside ``[0, S)`` adding nothing:
 
-- K1 ``mpitree_tpu/ops/pallas_hist.py:77`` ``_hist_kernel`` (one block, S <= ~8)
-  -> variant ``"small"`` where it is faster, else ``"wide"``;
+- K1 ``mpitree_tpu/ops/pallas_hist.py:77`` ``_hist_kernel`` (one block, tiny S)
+  -> route ``"stream"``;
 - K2 ``mpitree_tpu/ops/pallas_hist.py:103`` ``_hist_kernel_fgrid`` (S = 64..128)
-  -> variant ``"wide"``;
+  -> route ``"sorted"``;
 - K3 ``mpitree_tpu/ops/wide_hist.py:252`` ``_wide_kernel`` (S >= 256)
-  -> variant ``"wide"``.
+  -> route ``"sorted"``.
 
 The TPU kernels turn the scatter into one-hot matrix products because the
-TPU has no fast scatter. Hopper has native float atomics in shared and
-device memory, so the kernels here (``csrc/histogram.cu``) scatter: the
-small variant privatizes a (slots x features x C x B) tile in shared
-memory and flushes it with global atomics, the wide variant adds straight
-into the output. One thread takes one (row, feature) element, so a warp
-reads a row's bin ids coalesced and spreads its atomics over features.
+TPU has no fast scatter. Hopper has atomics in shared memory (native for
+32-bit integers, which is what integer-valued payloads are added as), so
+``csrc/histogram.cu`` scatters into a shared-memory tile that one block owns
+and flushes once (the design and what bounds it are in that file's header):
 
-Which variant serves which width is measured, not reasoned:
-``chip_smoke.py`` times every variant whose tile fits at each width on
-the card (``PERF.md``). The shared tile pays off only at S = 1, where
-every row lands in one slot; from S = 8 up the global atomics of ``wide``
-are faster. So ``small`` takes ``S <= SMALL_MAX_SLOTS`` and ``wide`` the
-rest.
+- ``stream`` (S = 1): rows in storage order, cut into pieces; every piece
+  adds its nonzero tile cells into the zeroed output with global atomics;
+- ``sorted`` (S >= 2): the rows are first ordered by slot
+  (:func:`slot_segments`, plain PyTorch: the counterpart of K3's
+  ``_sort_and_pack``, which the JAX package also runs outside its kernel), so
+  a block reads one slot's rows only, and a slot that one block owns is
+  written with plain stores into an output that is never zeroed. The level
+  loop sorts once per level and hands ``order``/``seg_start`` to every chunk
+  of that level; without them the wrapper sorts per call.
 
-What bounds them on an H100: memory traffic. A pass must read the slot
-vector (``N*4`` bytes), and for the rows inside the slot range their bins
-and payload (``F*4 + C*4`` bytes each), and write the ``S*F*C*B*4``-byte
-output once (the wrapper zeroes it first, which is part of the call),
-against 3.35 TB/s; the adds (one per row and feature for a class payload)
-are far below the card's atomic rate when they spread over many
-addresses. What the design does about it: rows outside the slot range
-read only their slot (deep levels walk many chunks, each a sparse pass),
-zero payload channels issue no atomic, and the flush touches the output
-only where a cell is nonzero. Contention is the known weakness: the 44
-one-hot covtype columns have two bins, so at a narrow frontier many rows
-add into one cell per (feature, class). Measured times beside the bound
-are in ``PERF.md`` (``chip_smoke.py``).
+Byte-wide bins: with ``n_bins <= 256`` a fit keeps a ``uint8`` copy of the
+binned matrix, rows padded to a multiple of 16 bytes (:func:`pack_bins`), and
+passes it as ``packed=``; a thread's one 16-byte load then holds 16 features.
+The tile is ragged: ``feat_bins[f]`` bins for feature ``f`` (the fit knows
+them from the binning), so covtype's 54 columns fit one 74 KB tile.
+
+Which route serves which width is measured, not reasoned: ``chip_smoke.py``
+times every route that fits at each width on the card (``PERF.md``).
 
 Exactness: integer-valued payloads with sums below 2**24 are exact in
 float32 in any order, so the kernels are bit-identical (``torch.equal``) to
@@ -48,12 +44,13 @@ weights are refused on CUDA (``core/builder.refuse_inexact_weights``).
 
 On a CPU tensor :func:`histogram` uses :func:`histogram_reference`; on a
 CUDA tensor it launches a kernel or raises. ``launches`` counts the kernel
-launches per variant, and nothing else.
+launches per route, and nothing else.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -64,58 +61,251 @@ from mpitree_tpu_torch._device import sm_count
 # SM holds for all its resident blocks (228 KB, 1 KB of it reserved per block).
 SMEM_BYTES = 232_448
 SMEM_PER_SM = 233_472
-# Widest frontier the small variant serves; measured faster than wide at
-# S = 1 and slower at S = 8 (PERF.md, chip_smoke.py).
-SMALL_MAX_SLOTS = 1
-SMALL_THREADS = 1024  # kSmallThreads in csrc/histogram.cu
-WIDE_THREADS = 256
+N_SMS = 132  # an H100's; plan() takes the card's own count from the wrapper
+# Widest frontier the stream route serves (measured: PERF.md, chip_smoke.py).
+STREAM_MAX_SLOTS = 1
+LANE_FEATURES = 16  # kLaneFeat in csrc/histogram.cu: features per thread
+MAX_THREADS = 512  # kMaxThreads in csrc/histogram.cu
+MIN_PIECE_ROWS = 256
+MAX_PIECE_ROWS = 4096  # 8 bytes of shared memory a row; keeps int sums small
+# 512 threads of 60 registers: the register file holds two blocks
+MAX_BLOCKS_PER_SM = 2
+MAX_GROUP_FEATURES = 256  # a row's lanes (16 features each) within a warp
+ROUTES = ("stream", "sorted")
 
-launches = {"small": 0, "wide": 0}
+launches = dict.fromkeys(ROUTES, 0)
+
+
+def pack_bins(x_binned: torch.Tensor, n_bins: int) -> torch.Tensor:
+    """``(N, F)`` integer bin ids -> ``(N, ceil(F / 16) * 16)`` uint8, the
+    pad columns zero. Refuses ``n_bins > 256`` and ids outside
+    ``[0, n_bins)``, which a byte could not tell from a real bin (one
+    device-to-host check; a fit packs once)."""
+    if n_bins > 256:
+        raise ValueError(f"byte-wide bins need n_bins <= 256, got {n_bins}")
+    if x_binned.dim() != 2:
+        raise ValueError("x_binned must be 2-D")
+    if bool(((x_binned < 0) | (x_binned >= n_bins)).any()):
+        raise ValueError(f"bin ids outside [0, {n_bins}) cannot be packed")
+    N, F = x_binned.shape
+    width = -(-F // LANE_FEATURES) * LANE_FEATURES
+    packed = torch.zeros((N, width), dtype=torch.uint8, device=x_binned.device)
+    packed[:, :F] = x_binned.to(torch.uint8)
+    return packed
+
+
+def slot_segments(slot: torch.Tensor, n_slots: int) -> tuple:
+    """Rows ordered by slot: ``(order, seg_start)``, both int32.
+
+    ``order`` (N,) holds the row ids by ascending slot, the rows below the
+    slot range first and those above it last; ``seg_start`` (n_slots + 1,)
+    holds each slot's first position in ``order``, so slot ``s`` owns
+    ``order[seg_start[s]:seg_start[s + 1]]`` and nothing before
+    ``seg_start[0]`` or from ``seg_start[n_slots]`` on is ever read. Plain
+    PyTorch on the tensor's device, no host synchronisation."""
+    key = slot.clamp(-1, n_slots)
+    if n_slots < 2**15:
+        key = key.to(torch.int16)  # fewer radix passes on the card
+    skey, order = torch.sort(key)
+    bounds = torch.arange(n_slots + 1, device=slot.device, dtype=skey.dtype)
+    seg_start = torch.searchsorted(skey, bounds)
+    return order.to(torch.int32), seg_start.to(torch.int32)
+
+
+def block_pieces(seg_start, n_slots: int, piece_rows: int,
+                 n_rows: int) -> list:
+    """The sorted route's grid as the kernel decodes it, on the host:
+    ``[(slot, a, b, owned), ...]`` in block order, blocks that take nothing
+    left out. Block ``v < S`` takes the first ``piece_rows`` rows of slot
+    ``v`` and owns the slot (stores it whole) when it has no more; block
+    ``S + e`` looks at position ``seg_start[0] + e * piece_rows`` and takes
+    the further piece of the slot there that starts within ``piece_rows``
+    after it, if there is one. Mirrors ``hist_tile_kernel``; the CPU tests
+    replay it against the plain version."""
+    seg = [int(v) for v in seg_start]
+    P = piece_rows
+    out = []
+    for s in range(n_slots):
+        owned = seg[s + 1] - seg[s] <= P
+        out.append((s, seg[s], seg[s + 1] if owned else seg[s] + P, owned))
+    for e in range(-(-n_rows // P)):
+        pos = seg[0] + e * P
+        if pos >= seg[n_slots]:
+            break
+        s = max(i for i in range(n_slots) if seg[i] <= pos)
+        k = -(-(pos - seg[s]) // P)
+        a = seg[s] + k * P
+        if k == 0 or a >= seg[s + 1]:
+            continue
+        out.append((s, a, min(a + P, seg[s + 1]), False))
+    return out
+
+
+def _feature_groups(cells: list, budget: int) -> list:
+    """Consecutive feature groups whose tile cells fit ``budget`` (and
+    that hold at most ``MAX_GROUP_FEATURES`` features), as few as a greedy
+    cut needs and then as even as that count allows."""
+    def cut(cap):
+        groups, f0, used = [], 0, 0
+        for f, n in enumerate(cells):
+            if n > cap:
+                return None
+            if used + n > cap or f - f0 >= MAX_GROUP_FEATURES:
+                groups.append((f0, f))
+                f0, used = f, 0
+            used += n
+        groups.append((f0, len(cells)))
+        return groups
+
+    groups = cut(budget)
+    if groups is None:
+        return None
+    lo, hi = max(cells), budget  # smallest cap that keeps the group count
+    while lo < hi:
+        mid = (lo + hi) // 2
+        got = cut(mid)
+        if got is not None and len(got) <= len(groups):
+            hi = mid
+        else:
+            lo = mid + 1
+    return cut(lo)
+
+
+def _feat_bytes(n: int) -> int:
+    """feat_bytes() of csrc/histogram.cu: the (offset, bin count) table of
+    ``n`` features, rounded to 16 bytes."""
+    return (n * 8 + 15) & ~15
+
+
+def _smem_bytes(groups, cells, tile_slots: int, piece_rows: int) -> int:
+    """Largest group's dynamic shared memory: the feature table, one
+    8-byte code per row of a piece, and the tile rounded to 16 bytes."""
+    return max(
+        _feat_bytes(f1 - f0) + 8 * piece_rows
+        + -(-tile_slots * sum(cells[f0:f1]) // 4) * 16 for f0, f1 in groups
+    )
+
+
+def _piece_rows(n_rows: int, resident: int) -> int:
+    """Rows per piece: the rows spread evenly over as few whole waves of
+    ``resident`` blocks as keep a piece within ``MAX_PIECE_ROWS``."""
+    waves = max(1, -(-n_rows // (resident * MAX_PIECE_ROWS)))
+    rows = max(MIN_PIECE_ROWS, -(-n_rows // (resident * waves)))
+    return min(-(-rows // 32) * 32, MAX_PIECE_ROWS)
 
 
 def plan(n_slots: int, n_features: int, n_channels: int, n_bins: int,
-         variant: str | None = None) -> dict:
-    """Variant and tiling for one launch (host arithmetic, no device).
+         variant: str | None = None, *, feat_bins=None,
+         n_rows: int = 1 << 20, n_sms: int = N_SMS,
+         smem_bytes: int = SMEM_BYTES,
+         piece_rows: int | None = None) -> dict:
+    """Route and tiling for one launch (host arithmetic, no device).
 
-    ``small``: all slots in one shared-memory tile, as many features per
-    block as fit (balanced over feature groups). ``wide``: global atomics,
-    no tile. ``variant=None`` picks ``small`` up to ``SMALL_MAX_SLOTS``
-    slots and ``wide`` beyond; a named variant gets its tiling, or
-    ``ValueError`` when its tile cannot fit.
-    """
-    # one (slot, feature) tile in bytes, each channel's row padded by one
-    # float against shared-memory bank conflicts (csrc/histogram.cu)
-    per_cell = n_channels * (n_bins + 1) * 4
-    fits = n_slots * per_cell <= SMEM_BYTES
+    ``feat_bins[f]`` is feature ``f``'s bin count (default ``n_bins``
+    each); feature ``f`` takes ``feat_bins[f] | 1`` floats in each of the
+    ``n_channels`` rows of a slot's tile, at ``feat_offset[f]``. ``stream`` keeps all ``n_slots`` slots of a feature
+    group in one tile, ``sorted`` one slot. Two blocks share an SM when
+    that adds no feature group; the rows are cut into pieces that fill
+    whole waves of the resident blocks (:func:`_piece_rows`), unless
+    ``piece_rows`` names the size. ``smem_bytes`` is the shared memory one
+    block may use. ``variant=None`` picks ``stream`` up to
+    ``STREAM_MAX_SLOTS`` slots and ``sorted`` beyond; a named route gets
+    its tiling, or ``ValueError`` when its tile cannot fit. Plans are
+    remembered: a fit asks for the same few on every level."""
+    return _plan(n_slots, n_features, n_channels, n_bins, variant,
+                 None if feat_bins is None else tuple(
+                     int(v) for v in feat_bins),
+                 n_rows, n_sms, smem_bytes, piece_rows)
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(n_slots, n_features, n_channels, n_bins, variant, feat_bins,
+          n_rows, n_sms, smem_bytes, piece_rows) -> dict:
     if variant is None:
-        variant = "small" if n_slots <= SMALL_MAX_SLOTS and fits else "wide"
-    if variant == "wide":
-        return dict(variant="wide")
-    if variant == "small" and fits:
-        fc_max = min(n_features, SMEM_BYTES // (n_slots * per_cell))
-        n_fgroups = math.ceil(n_features / fc_max)
-        fc = math.ceil(n_features / n_fgroups)
-        return dict(variant="small", feat_per_block=fc, n_fgroups=n_fgroups,
-                    smem=n_slots * fc * per_cell)
-    raise ValueError(
-        f"variant {variant!r} does not fit S={n_slots} C={n_channels} "
-        f"B={n_bins} in {SMEM_BYTES} bytes of shared memory"
+        variant = "stream" if n_slots <= STREAM_MAX_SLOTS else "sorted"
+    if variant not in ROUTES:
+        raise ValueError(f"unknown route {variant!r}; one of {ROUTES}")
+    nb = [n_bins] * n_features if feat_bins is None else [
+        max(1, min(int(v), n_bins)) for v in feat_bins]
+    if len(nb) != n_features:
+        raise ValueError(
+            f"feat_bins has {len(nb)} entries for {n_features} features")
+    cells = [n_channels * (v | 1) for v in nb]
+    tile_slots = n_slots if variant == "stream" else 1
+
+    def tiling(blocks_per_sm):
+        """(groups, piece rows) with as few groups as fit, or None."""
+        room = min(smem_bytes, SMEM_PER_SM // blocks_per_sm - 1024)
+        for n_groups in range(1, n_features + 1):
+            rows = piece_rows or _piece_rows(
+                n_rows, max(1, n_sms * blocks_per_sm // n_groups))
+            budget = (room - _feat_bytes(n_features) - 8 * rows) \
+                // (4 * tile_slots)
+            groups = _feature_groups(cells, budget)
+            if groups and len(groups) <= n_groups and _smem_bytes(
+                    groups, cells, tile_slots, rows) <= room:
+                return groups, rows
+        return None
+
+    best = tiling(1)
+    if best is None:
+        raise ValueError(
+            f"route {variant!r} does not fit S={n_slots} C={n_channels} "
+            f"B={n_bins} in {smem_bytes} bytes of shared memory"
+        )
+    blocks_per_sm = 1
+    two = tiling(MAX_BLOCKS_PER_SM)
+    if two is not None and len(two[0]) == len(best[0]):
+        best, blocks_per_sm = two, MAX_BLOCKS_PER_SM
+    groups, rows = best
+    foff, group_cells = [], []  # channel-major: C rows of a group's bins
+    for f0, f1 in groups:
+        off = 0
+        for f in range(f0, f1):
+            foff.append(off)
+            off += nb[f] | 1
+        group_cells.append(n_channels * off)
+    return dict(
+        route=variant, groups=groups, group_cells=group_cells,
+        feat_bins=nb, feat_offset=foff, tile_slots=tile_slots,
+        # as the kernel reads it: group starts, cells per group, then
+        # (offset in a channel row, bin count) per feature
+        layout=tuple([g[0] for g in groups] + [n_features] + group_cells
+                     + [v for pair in zip(foff, nb) for v in pair]),
+        smem=_smem_bytes(groups, cells, tile_slots, rows),
+        blocks_per_sm=blocks_per_sm, threads=MAX_THREADS, piece_rows=rows,
     )
 
 
 def histogram_reference(x_binned: torch.Tensor, payload: torch.Tensor,
-                        slot: torch.Tensor, *, n_slots: int,
-                        n_bins: int) -> torch.Tensor:
+                        slot: torch.Tensor, *, n_slots: int, n_bins: int,
+                        packed: torch.Tensor | None = None,
+                        order: torch.Tensor | None = None,
+                        seg_start: torch.Tensor | None = None
+                        ) -> torch.Tensor:
     """Plain PyTorch version: one ``index_add_`` per channel over the
     flat ``((slot*F + f)*C + c)*B + bin`` cell ids of the rows that fall
     in ``[0, S)`` with a nonzero payload in that channel (bins outside
-    ``[0, B)`` masked the same way as in the kernels)."""
+    ``[0, B)`` masked the same way as in the kernels), rows in storage
+    order. Given ``packed`` it reads the bins from there, and given
+    ``order``/``seg_start`` it takes each row's slot from its segment
+    instead of from ``slot``, as the kernels do."""
     N, F = x_binned.shape
     C = payload.shape[1]
+    dev = x_binned.device
+    if packed is not None:
+        x_binned = packed[:, :F]
+    if order is not None:
+        seg = seg_start.to(torch.int64)
+        pos = torch.arange(N, device=dev)
+        s_of_pos = torch.searchsorted(seg, pos, right=True) - 1
+        live = (pos >= seg[0]) & (pos < seg[n_slots])
+        slot = torch.full((N,), -1, dtype=torch.int64, device=dev)
+        slot[order[live].to(torch.int64)] = s_of_pos[live]
     out = torch.zeros(n_slots * F * C * n_bins, dtype=torch.float32,
-                      device=x_binned.device)
+                      device=dev)
     in_range = (slot >= 0) & (slot < n_slots)
-    feat = torch.arange(F, device=x_binned.device, dtype=torch.int64)
+    feat = torch.arange(F, device=dev, dtype=torch.int64)
     for c in range(C):
         rows = torch.nonzero(in_range & (payload[:, c] != 0)).squeeze(1)
         xb = x_binned[rows].to(torch.int64)
@@ -127,13 +317,12 @@ def histogram_reference(x_binned: torch.Tensor, payload: torch.Tensor,
     return out.view(n_slots, F, C, n_bins)
 
 
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "mpt_hist_small": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
-    + [ctypes.c_void_p],
-    "mpt_hist_wide": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-    + [ctypes.c_void_p],
+    "mpt_hist_tile": [_PTR] * 7 + [_INT] * 13 + [_PTR],
 }
 _lib = None
+_layouts: dict = {}
 
 
 def _library():
@@ -158,15 +347,35 @@ def _check(code: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {code} ({msg})")
 
 
+def _layout(p: dict, dev: torch.device) -> torch.Tensor:
+    """The plan's tile layout on ``dev`` (int32), uploaded once per
+    distinct layout and device."""
+    key = (dev, p["layout"])
+    if key not in _layouts:
+        _layouts[key] = torch.tensor(p["layout"], dtype=torch.int32,
+                                     device=dev)
+    return _layouts[key]
+
+
 def histogram_cuda(x_binned: torch.Tensor, payload: torch.Tensor,
                    slot: torch.Tensor, *, n_slots: int, n_bins: int,
-                   _variant: str | None = None) -> torch.Tensor:
-    """Launch the kernel variant :func:`plan` picks; returns the
-    ``(S, F, C, B)`` float32 histogram. Allocates the zeroed output with
-    ``torch.zeros`` and launches on the current stream without
+                   packed: torch.Tensor | None = None,
+                   order: torch.Tensor | None = None,
+                   seg_start: torch.Tensor | None = None,
+                   feat_bins=None, _variant: str | None = None,
+                   _tune: dict | None = None) -> torch.Tensor:
+    """Launch the route :func:`plan` picks; returns the ``(S, F, C, B)``
+    float32 histogram. Launches on the current stream without
     synchronising. Raises on anything the kernels do not take.
-    ``_variant`` forces a variant; only ``chip_smoke.py`` passes it, to
-    time the variants against each other at one width."""
+
+    ``packed`` is :func:`pack_bins` of ``x_binned`` (read instead of it),
+    ``order``/``seg_start`` are :func:`slot_segments` of ``slot`` (made here
+    when the sorted route runs without them), ``feat_bins`` the per-feature
+    bin counts: a bin id at or above its feature's count adds nothing.
+    ``_variant`` forces a route and ``_tune`` names :func:`plan`'s
+    ``piece_rows``; only ``chip_smoke.py`` and the card tests pass them, to
+    time the routes against each other at one width and to drive small
+    pieces."""
     if not (x_binned.is_cuda and payload.is_cuda and slot.is_cuda):
         raise ValueError("histogram_cuda needs CUDA tensors")
     if not (x_binned.device == payload.device == slot.device):
@@ -194,45 +403,80 @@ def histogram_cuda(x_binned: torch.Tensor, payload: torch.Tensor,
     if N * F >= 2**31:
         raise ValueError(f"N*F = {N * F} exceeds the kernels' 32-bit row ids")
     dev = x_binned.device
-    out = torch.zeros((n_slots, F, C, n_bins), dtype=torch.float32,
-                      device=dev)
+    if packed is not None:
+        if n_bins > 256:
+            raise ValueError(
+                f"packed (byte-wide) bins need n_bins <= 256, got {n_bins}")
+        if (packed.dtype != torch.uint8 or packed.dim() != 2
+                or packed.shape[0] != N or packed.shape[1] < F
+                or packed.shape[1] % LANE_FEATURES):
+            raise ValueError(
+                f"packed must be (N, width) uint8 with width >= F a "
+                f"multiple of {LANE_FEATURES} (pack_bins), got "
+                f"{tuple(packed.shape)} {packed.dtype}")
+        if (packed.device != dev or not packed.is_contiguous()
+                or packed.data_ptr() % 16):
+            raise ValueError(
+                "packed must be contiguous, 16-byte aligned and on the "
+                "device of x_binned")
+    if (order is None) != (seg_start is None):
+        raise ValueError("order and seg_start come together")
+    if order is not None:
+        if (order.dtype != torch.int32 or order.shape != (N,)
+                or seg_start.dtype != torch.int32
+                or seg_start.shape != (n_slots + 1,)):
+            raise ValueError(
+                f"order must be ({N},) int32 and seg_start ({n_slots + 1},) "
+                f"int32 (slot_segments), got {tuple(order.shape)} "
+                f"{order.dtype} and {tuple(seg_start.shape)} "
+                f"{seg_start.dtype}")
+        if not (order.device == seg_start.device == dev
+                and order.is_contiguous() and seg_start.is_contiguous()):
+            raise ValueError(
+                "order and seg_start must be contiguous and on the device "
+                "of x_binned")
+    p = plan(n_slots, F, C, n_bins, _variant, feat_bins=feat_bins,
+             n_rows=max(N, 1), n_sms=sm_count(dev), **(_tune or {}))
+    route = p["route"]
+    alloc = torch.empty if route == "sorted" and N else torch.zeros
+    out = alloc((n_slots, F, C, n_bins), dtype=torch.float32, device=dev)
     if N == 0:
         return out
-    p = plan(n_slots, F, C, n_bins, _variant)
     lib = _library()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    ptrs = (x_binned.data_ptr(), payload.data_ptr(), slot.data_ptr(),
-            out.data_ptr())
+    is_sorted = route == "sorted"
+    if is_sorted and order is None:
+        order, seg_start = slot_segments(slot, n_slots)
+    bins = x_binned if packed is None else packed
+    n_pieces = math.ceil(N / p["piece_rows"])
     with torch.cuda.device(dev):
-        if p["variant"] == "wide":
-            blocks = min(math.ceil(N * F / WIDE_THREADS), sm_count(dev) * 32)
-            _check(lib.mpt_hist_wide(
-                *ptrs, N, F, C, n_bins, n_slots, blocks, WIDE_THREADS,
-                stream,
-            ), "hist_wide")
-        else:
-            resident = max(1, min(2048 // SMALL_THREADS,
-                                  SMEM_PER_SM // (p["smem"] + 1024)))
-            n_rblocks = max(1, min(
-                math.ceil(resident * sm_count(dev) / p["n_fgroups"]),
-                math.ceil(N / SMALL_THREADS), 65535,
-            ))
-            _check(lib.mpt_hist_small(
-                *ptrs, N, F, C, n_bins, n_slots, p["feat_per_block"],
-                p["n_fgroups"], n_rblocks, math.ceil(N / n_rblocks),
-                p["smem"], stream,
-            ), "hist_small")
-    launches[p["variant"]] += 1
+        _check(lib.mpt_hist_tile(
+            bins.data_ptr(), payload.data_ptr(), slot.data_ptr(),
+            order.data_ptr() if is_sorted else None,
+            seg_start.data_ptr() if is_sorted else None,
+            _layout(p, dev).data_ptr(), out.data_ptr(), N,
+            bins.shape[1], F, C, n_bins, n_slots, len(p["groups"]),
+            p["piece_rows"], n_pieces + (n_slots if is_sorted else 0),
+            p["threads"], p["smem"], bins.element_size(),
+            int(is_sorted), stream,
+        ), f"hist_tile[{route}]")
+    launches[route] += 1
     return out
 
 
 def histogram(x_binned: torch.Tensor, payload: torch.Tensor,
-              slot: torch.Tensor, *, n_slots: int,
-              n_bins: int) -> torch.Tensor:
+              slot: torch.Tensor, *, n_slots: int, n_bins: int,
+              packed: torch.Tensor | None = None,
+              order: torch.Tensor | None = None,
+              seg_start: torch.Tensor | None = None,
+              feat_bins=None) -> torch.Tensor:
     """``(S, F, C, B)`` payload histogram: the kernel on CUDA tensors,
-    the plain version on CPU tensors."""
+    the plain version on CPU tensors. The optional arguments are those of
+    :func:`histogram_cuda`."""
     if x_binned.is_cuda:
         return histogram_cuda(x_binned, payload, slot, n_slots=n_slots,
-                              n_bins=n_bins)
+                              n_bins=n_bins, packed=packed, order=order,
+                              seg_start=seg_start, feat_bins=feat_bins)
     return histogram_reference(x_binned, payload, slot, n_slots=n_slots,
-                               n_bins=n_bins)
+                               n_bins=n_bins, packed=packed, order=order,
+                               seg_start=seg_start)

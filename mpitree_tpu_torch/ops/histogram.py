@@ -9,7 +9,10 @@ nothing. The public layout is the JAX package's ``(S, F, C, B)`` float32.
 Both functions run the Hopper kernels on CUDA tensors and their plain
 version on CPU tensors (``ops/hist_kernel.py``). Counts and integer weights
 are integer-valued float32 below 2**24, so sums are exact and
-order-independent.
+order-independent. The optional ``packed`` (byte-wide bins), ``order`` /
+``seg_start`` (rows ordered by slot) and ``feat_bins`` arguments are
+``hist_kernel.histogram``'s: what a fit prepares once and hands to every
+call.
 """
 
 from __future__ import annotations
@@ -32,8 +35,8 @@ def class_payload(y: torch.Tensor, w: torch.Tensor | None,
 def class_histogram(x_binned: torch.Tensor, y: torch.Tensor,
                     node_id: torch.Tensor, chunk_lo: int, *, n_slots: int,
                     n_bins: int, n_classes: int,
-                    sample_weight: torch.Tensor | None = None
-                    ) -> torch.Tensor:
+                    sample_weight: torch.Tensor | None = None,
+                    **prepared) -> torch.Tensor:
     """Class counts (weighted by ``sample_weight``) into an
     (n_slots, F, n_classes, n_bins) histogram; signature of
     ``mpitree_tpu.ops.histogram.class_histogram``."""
@@ -41,5 +44,5 @@ def class_histogram(x_binned: torch.Tensor, y: torch.Tensor,
     return histogram(
         x_binned.to(torch.int32).contiguous(),
         class_payload(y, sample_weight, n_classes).contiguous(), slot,
-        n_slots=n_slots, n_bins=n_bins,
+        n_slots=n_slots, n_bins=n_bins, **prepared,
     )

@@ -60,16 +60,24 @@ def unpack_decision(packed: np.ndarray) -> dict:
 def split_step(x_binned: torch.Tensor, payload: torch.Tensor,
                node_id: torch.Tensor, cand_mask: torch.Tensor,
                chunk_lo: int, *, n_slots: int, n_bins: int, criterion: str,
-               min_child_weight: float) -> torch.Tensor:
+               min_child_weight: float, packed: torch.Tensor | None = None,
+               order: torch.Tensor | None = None,
+               seg_start: torch.Tensor | None = None,
+               feat_bins=None) -> torch.Tensor:
     """Histogram + split sweep for the frontier chunk of ``n_slots`` nodes
     starting at node id ``chunk_lo``; returns the packed decision buffer.
 
     ``x_binned`` (N, F) int32, ``payload`` (N, C) float32 ``w * onehot(y)``,
     ``node_id`` (N,) int32, ``cand_mask`` (F, B) bool, all on one device.
+    ``packed`` (the fit's byte-wide copy of the bins), ``order`` and
+    ``seg_start`` (the level's rows ordered by node, and this chunk's
+    ``n_slots + 1`` segment offsets into that order) and ``feat_bins`` go
+    to the histogram as they are (``ops/hist_kernel.histogram``).
     """
     slot = (node_id - chunk_lo).to(torch.int32)
     hist = hist_ops.histogram(x_binned, payload, slot, n_slots=n_slots,
-                              n_bins=n_bins)
+                              n_bins=n_bins, packed=packed, order=order,
+                              seg_start=seg_start, feat_bins=feat_bins)
     dec = imp_ops.best_split_classification(
         hist, cand_mask, criterion=criterion,
         min_child_weight=min_child_weight,

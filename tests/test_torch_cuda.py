@@ -26,26 +26,115 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("S", [1, 8, 40, 64, 128, 512, 2048])
-def test_kernel_variants_equal_plain_version(cuda, S):
-    rng = np.random.default_rng(S)
-    N, F, C, B = 20_000, 54, 7, 256
-    xb = torch.from_numpy(
-        rng.integers(0, B, size=(N, F)).astype(np.int32)).to(cuda)
-    xb[:, 10:] = xb[:, 10:] % 2  # one-hot-like two-bin columns
+def _hist_inputs(cuda, seed, S, *, N=20_000, skew=False):
+    """covtype-shaped bins (10 wide columns, 44 two-bin ones), an integer
+    class payload with zero weights, slots from -2 to S + 1; with ``skew``
+    one slot holds 60% of the rows and every fourth slot is empty."""
+    rng = np.random.default_rng(seed)
+    F, C, B = 54, 7, 256
+    xb = rng.integers(0, B, size=(N, F)).astype(np.int32)
+    xb[:, 10:] %= 2
     y = torch.from_numpy(rng.integers(0, C, size=N)).to(cuda)
     w = torch.from_numpy(rng.integers(0, 4, size=N).astype(np.float32)).to(cuda)
     payload = (torch.nn.functional.one_hot(y, C).float() * w[:, None]).contiguous()
-    slot = torch.from_numpy(
-        rng.integers(-2, S + 2, size=N).astype(np.int32)).to(cuda)
-    before = dict(hist_kernel.launches)
-    got = hist_kernel.histogram(xb, payload, slot, n_slots=S, n_bins=B)
-    torch.cuda.synchronize()
-    variant = hist_kernel.plan(S, F, C, B)["variant"]
-    assert hist_kernel.launches[variant] == before[variant] + 1
+    slot = rng.integers(-2, S + 2, size=N).astype(np.int32)
+    if skew:
+        live = np.array([s for s in range(S) if s % 4 != 3])
+        slot = live[rng.integers(0, len(live), N)].astype(np.int32)
+        slot[rng.random(N) < 0.6] = live[len(live) // 2]
+        slot[rng.random(N) < 0.05] = -1
+    return (torch.from_numpy(xb).to(cuda), payload,
+            torch.from_numpy(slot).to(cuda), [B] * 10 + [2] * 44)
+
+
+def _every_route_equals_plain(xb, payload, slot, feat_bins, S):
+    B = 256
+    F, C = xb.shape[1], payload.shape[1]
     want = hist_kernel.histogram_reference(xb, payload, slot, n_slots=S,
                                            n_bins=B)
+    packed = hist_kernel.pack_bins(xb, B)
+    order, seg = hist_kernel.slot_segments(slot, S)
+    ran = []
+    for route in hist_kernel.ROUTES:
+        for fb in (feat_bins, None):  # ragged tile, and B bins a feature
+            try:
+                hist_kernel.plan(S, F, C, B, route, feat_bins=fb)
+            except ValueError:
+                continue
+            for pk in (None, packed):
+                for pre in ({}, dict(order=order, seg_start=seg)):
+                    before = hist_kernel.launches[route]
+                    got = hist_kernel.histogram_cuda(
+                        xb, payload, slot, n_slots=S, n_bins=B, packed=pk,
+                        feat_bins=fb, _variant=route, **pre)
+                    torch.cuda.synchronize()
+                    assert hist_kernel.launches[route] == before + 1
+                    assert torch.equal(got, want), (route, fb is None,
+                                                    pk is None, bool(pre))
+            ran.append(route)
+    return ran
+
+
+@pytest.mark.parametrize("S", [1, 8, 40, 64, 128, 512, 2048])
+def test_kernel_variants_equal_plain_version(cuda, S):
+    xb, payload, slot, feat_bins = _hist_inputs(cuda, S, S)
+    ran = _every_route_equals_plain(xb, payload, slot, feat_bins, S)
+    assert "sorted" in ran and ("stream" in ran) == (S <= 31)
+    # the planned route, through the public wrapper
+    route = hist_kernel.plan(S, 54, 7, 256)["route"]
+    before = hist_kernel.launches[route]
+    got = hist_kernel.histogram(xb, payload, slot, n_slots=S, n_bins=256)
+    assert hist_kernel.launches[route] == before + 1
+    assert torch.equal(got, hist_kernel.histogram_reference(
+        xb, payload, slot, n_slots=S, n_bins=256))
+
+
+@pytest.mark.parametrize("S", [12, 300])
+def test_kernel_variants_with_a_skewed_frontier(cuda, S):
+    """One slot holds 60% of the rows (split into pieces that combine with
+    global atomics), a quarter of the slots are empty (zeros stored by the
+    block that owns them); also through small pieces, and as a chunk whose
+    segments start inside a wider level's order."""
+    xb, payload, slot, feat_bins = _hist_inputs(cuda, S, S, N=60_000,
+                                                skew=True)
+    _every_route_equals_plain(xb, payload, slot, feat_bins, S)
+    want = hist_kernel.histogram_reference(xb, payload, slot, n_slots=S,
+                                           n_bins=256)
+    for piece_rows in (32, 4_096):
+        got = hist_kernel.histogram_cuda(
+            xb, payload, slot, n_slots=S, n_bins=256, feat_bins=feat_bins,
+            _variant="sorted", _tune=dict(piece_rows=piece_rows))
+        assert torch.equal(got, want)
+    order, seg = hist_kernel.slot_segments(slot + 5, S + 9)
+    got = hist_kernel.histogram_cuda(
+        xb, payload, slot, n_slots=S, n_bins=256,
+        packed=hist_kernel.pack_bins(xb, 256), order=order,
+        seg_start=seg[5:5 + S + 1].contiguous(), _variant="sorted")
     assert torch.equal(got, want)
+
+
+def test_general_payload_and_odd_shapes(cuda):
+    """Rows with several nonzero channels take the general loop; a bin
+    count that is no multiple of 4 takes the scalar flush; more than 256
+    bins keep int32 bins."""
+    rng = np.random.default_rng(11)
+    for N, F, C, B, S in ((5_000, 5, 3, 9, 6), (4_000, 20, 2, 300, 3),
+                          (3_000, 33, 4, 64, 1)):
+        xb = torch.from_numpy(
+            rng.integers(0, B, size=(N, F)).astype(np.int32)).to(cuda)
+        payload = torch.from_numpy(
+            rng.integers(-3, 4, size=(N, C)).astype(np.float32)).to(cuda)
+        slot = torch.from_numpy(
+            rng.integers(-1, S + 1, size=N).astype(np.int32)).to(cuda)
+        want = hist_kernel.histogram_reference(xb, payload, slot, n_slots=S,
+                                               n_bins=B)
+        packed = hist_kernel.pack_bins(xb, B) if B <= 256 else None
+        for route in ("stream", "sorted"):
+            for pk in {None, packed}:
+                got = hist_kernel.histogram_cuda(
+                    xb, payload, slot, n_slots=S, n_bins=B, packed=pk,
+                    _variant=route)
+                assert torch.equal(got, want), (route, B, pk is None)
 
 
 def test_wrapper_refuses_what_the_kernels_do_not_take(cuda):
@@ -59,6 +148,20 @@ def test_wrapper_refuses_what_the_kernels_do_not_take(cuda):
                               n_slots=1, n_bins=2)
     with pytest.raises(ValueError, match="row counts"):
         hist_kernel.histogram(xb, payload[:4], slot, n_slots=1, n_bins=2)
+    order, seg = hist_kernel.slot_segments(slot, 1)
+    with pytest.raises(ValueError, match="order must be"):
+        hist_kernel.histogram(xb, payload, slot, n_slots=1, n_bins=2,
+                              order=order.long(), seg_start=seg)
+    with pytest.raises(ValueError, match="come together"):
+        hist_kernel.histogram(xb, payload, slot, n_slots=1, n_bins=2,
+                              order=order)
+    packed = hist_kernel.pack_bins(xb, 2)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        hist_kernel.histogram(xb, payload, slot, n_slots=1, n_bins=2,
+                              packed=packed[:, :8].contiguous())
+    with pytest.raises(ValueError, match="n_bins <= 256"):
+        hist_kernel.histogram(xb, payload, slot, n_slots=1, n_bins=300,
+                              packed=packed)
 
 
 def test_fractional_weights_refused_on_the_card(cuda):

@@ -7,7 +7,9 @@ through three JAX references: the Pallas kernels K1/K2
 (``pallas_hist.histogram_small`` in modes ``single`` and ``fgrid``) and K3
 (``wide_hist.histogram_wide_pallas``), all in interpret mode as the JAX
 package's own tests run them, plus the XLA scatter
-``ops/histogram.class_histogram``.
+``ops/histogram.class_histogram``. The port is called twice, plainly and
+through the arguments a fit prepares (byte-wide bins, rows ordered by
+slot); both must give the same bits.
 
 Tolerances: integer-valued payloads (class counts times integer weights)
 sum exactly in float32 in any order, so those comparisons are exact
@@ -60,6 +62,17 @@ def _port(xb, y, slot, w, *, C, B, S):
         sample_weight=torch.from_numpy(w),
     )
     assert got.dtype == torch.float32 and got.shape == (S, xb.shape[1], C, B)
+    # the same call through the arguments a fit prepares: byte-wide bins
+    # and the rows ordered by slot
+    order, seg = hist_kernel.slot_segments(torch.from_numpy(slot), S)
+    prepared = port_hist.class_histogram(
+        torch.from_numpy(xb), torch.from_numpy(y.astype(np.int64)),
+        torch.from_numpy(slot), 0, n_slots=S, n_bins=B, n_classes=C,
+        sample_weight=torch.from_numpy(w),
+        packed=hist_kernel.pack_bins(torch.from_numpy(xb), B),
+        order=order, seg_start=seg,
+    )
+    assert torch.equal(prepared, got)
     return got.numpy()
 
 
@@ -137,30 +150,65 @@ def test_generic_histogram_general_payload():
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("S,variant", [
-    (1, "small"), (8, "wide"), (64, "wide"), (128, "wide"), (512, "wide"),
-    (2048, "wide"),
+COVTYPE_BINS = [256] * 10 + [2] * 44  # bins per column of the main path
+
+
+@pytest.mark.parametrize("S,route", [
+    (1, "stream"), (8, "sorted"), (64, "sorted"), (128, "sorted"),
+    (512, "sorted"), (2048, "sorted"),
 ])
-def test_plan_variant_and_shared_memory_budget(S, variant):
-    """The launch plan at covtype width (F=54, C=7, B=256): which variant
-    serves each frontier width, and the shared-memory tile within the
-    227 KB a Hopper block may use."""
-    p = hist_kernel.plan(S, 54, 7, 256)
-    assert p["variant"] == variant
-    if variant == "small":
-        assert p["smem"] <= hist_kernel.SMEM_BYTES
-        assert p["feat_per_block"] * p["n_fgroups"] >= 54
-        assert p["feat_per_block"] * (p["n_fgroups"] - 1) < 54
+def test_plan_variant_and_shared_memory_budget(S, route):
+    """The launch plan at covtype width (F=54, C=7, B=256): which route
+    serves each frontier width, its feature groups, and the shared-memory
+    tile within the 227 KB a Hopper block may use."""
+    N = 581_012
+    for feat_bins, n_groups, per_sm in ((COVTYPE_BINS, 1, 2), (None, 2, 1)):
+        p = hist_kernel.plan(S, 54, 7, 256, feat_bins=feat_bins, n_rows=N)
+        assert p["route"] == route
+        assert p["smem"] <= hist_kernel.SMEM_BYTES and p["smem"] % 16 == 0
+        assert p["blocks_per_sm"] * (p["smem"] + 1024) <= \
+            hist_kernel.SMEM_PER_SM
+        # consecutive groups cover every feature once; ragged tile offsets
+        assert len(p["groups"]) == n_groups and p["blocks_per_sm"] == per_sm
+        assert p["groups"][0][0] == 0 and p["groups"][-1][1] == 54
+        assert all(a[1] == b[0] for a, b in zip(p["groups"], p["groups"][1:]))
+        for (f0, f1), cells in zip(p["groups"], p["group_cells"]):
+            assert p["feat_offset"][f0] == 0
+            assert p["feat_offset"][f0 + 1] == p["feat_bins"][f0] | 1
+            assert cells == sum(7 * (v | 1) for v in p["feat_bins"][f0:f1])
+        # whole waves of the resident blocks cover the rows
+        resident = hist_kernel.N_SMS * per_sm // n_groups
+        assert p["piece_rows"] == hist_kernel._piece_rows(N, resident)
+        assert p["piece_rows"] == {1: 2208, 2: 2944}[n_groups]
+        assert p["piece_rows"] <= hist_kernel.MAX_PIECE_ROWS
+        assert p["piece_rows"] % 32 == 0 and p["threads"] % 32 == 0
+        assert p["threads"] <= hist_kernel.MAX_THREADS
+    balanced = hist_kernel.plan(S, 54, 7, 256)["groups"]
+    assert balanced == [(0, 27), (27, 54)]
 
 
-def test_plan_forced_variant():
-    """A named variant gets its own tiling, or ValueError where its tile
-    cannot fit (``chip_smoke.py`` times the variants against each other)."""
-    assert hist_kernel.plan(1, 54, 7, 256, "wide") == {"variant": "wide"}
-    p = hist_kernel.plan(32, 54, 7, 256, "small")
-    assert p["feat_per_block"] == 1 and p["smem"] <= hist_kernel.SMEM_BYTES
-    with pytest.raises(ValueError, match="does not fit"):
-        hist_kernel.plan(64, 54, 7, 256, "small")
+@pytest.mark.parametrize("S,route,fits", [
+    (1, "sorted", True), (3, "stream", True), (16, "stream", True),
+    (64, "stream", False), (2048, "stream", False), (2048, "sorted", True),
+])
+def test_plan_forced_variant(S, route, fits):
+    """A named route gets its own tiling, or ValueError where its tile
+    cannot fit (``chip_smoke.py`` times the routes against each other)."""
+    if not fits:
+        with pytest.raises(ValueError, match="does not fit"):
+            hist_kernel.plan(S, 54, 7, 256, route)
+        return
+    p = hist_kernel.plan(S, 54, 7, 256, route, feat_bins=COVTYPE_BINS)
+    assert p["route"] == route
+    assert p["tile_slots"] == (S if route == "stream" else 1)
+    assert p["smem"] <= hist_kernel.SMEM_BYTES
+
+
+def test_plan_refuses_unknown_route_and_wrong_feat_bins():
+    with pytest.raises(ValueError, match="unknown route"):
+        hist_kernel.plan(1, 54, 7, 256, "small")
+    with pytest.raises(ValueError, match="feat_bins"):
+        hist_kernel.plan(1, 54, 7, 256, feat_bins=[2] * 10)
 
 
 def test_ctypes_signatures_match_the_c_source():
