@@ -9,11 +9,17 @@ toolkit (``nvcc``)::
                                            # forest fit and serving
                                            # (torch.profiler; tables in DIR)
 
-Phases, in order; any failure raises and exits non-zero:
+Phases, in order; any failure raises and exits non-zero. Phases 3–7 run
+the device engine alone (``refine_depth=None``), as they did before the
+refine tail was ported, so their numbers compare with earlier runs;
+phases 8–11 run the default fit, whose crown is built on the card and whose
+deep tail the native C++ sweep finishes on the host's cores:
 
 1. build: compile every ``mpitree_tpu_torch/csrc/*.cu`` (``histogram.cu``,
    ``traverse.cu``) with ``nvcc`` for ``sm_90a`` into ``build/``, one
-   ``nvcc`` per source, started together.
+   ``nvcc`` per source, started together; then the native split sweep
+   (``mpitree_tpu_torch/native/split_kernel.cpp``) with ``g++`` into
+   ``build/native/``.
 2. kernels: bin ``covtype_like(581_012, seed=0)`` (256 bins) on the card;
    for S in {1, 8, 64, 128, 512, K} (K the fit's chunk width) spread the
    rows over S slots (some slots empty, some rows at -1) with class
@@ -60,11 +66,28 @@ Phases, in order; any failure raises and exits non-zero:
    must equal ``forest.predict_proba`` bit for bit on 4,096 held-out rows,
    and ``rf8`` must stay within its own exactness report on its
    calibration batch.
+8. hybrid fit: the default ``DecisionTreeClassifier(criterion="entropy",
+   max_depth=20, max_bins=256)`` on the full matrix, twice: the crown to
+   ``round(log2(581_012 / 2048)) = 8`` on the card, one copy of the leaf
+   ids, the refine tail on the host. The launch counters are set to 0 just
+   before the second fit and read just after; both histogram routes must
+   have launched, refine must have engaged at crown depth 8 and added
+   nodes. Crown and tail seconds, held-out accuracy beside phase 3's.
+9. hybrid parity: ``covtype_like(50_000, seed=2)`` at ``max_depth=20``,
+   defaults, on the card and with ``device="cpu"``: identical trees, under
+   phase 4's exact-tie rule for a crown node (the tail is the same host
+   code on the same rows).
+10. default forest: BASELINE config 5 (phase 5's forest) at defaults, once:
+    per-tree crowns to depth 7 on the card, tails on the host; wall and
+    held-out accuracy.
+11. hybrid forest parity: phase 5's 4-tree forest at defaults, so the tail
+    engages, on the card and with ``device="cpu"``: identical trees.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the card's name and power limit, JSON lines of per-shape kernel timings
 (``kernel_shapes``, ``serve_kernel_shapes``), of the serving measurements
-(``serving``) and one ``kernels`` line come before it.
+(``serving``), of the hybrid fits (``hybrid``) and one ``kernels`` line
+come before it.
 Without CUDA the script exits 1 and prints no result.
 """
 
@@ -72,6 +95,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -103,9 +127,12 @@ REPLACES = {
     "stream": "mpitree_tpu/ops/pallas_hist.py:77",
     "sorted": "mpitree_tpu/ops/wide_hist.py:252",
 }
-# BASELINE config 5, bench.py's FOREST_SHAPES["tpu"]; not cut.
+# BASELINE config 5, bench.py's FOREST_SHAPES["tpu"]; not cut. Phases 3-7
+# pin the device engine alone (DEVICE_ONLY); phases 8-11 run the defaults.
 FOREST = dict(n_estimators=50, max_depth=12, max_bins=256, random_state=0)
 FOREST_ROWS = 200_000
+DEVICE_ONLY = dict(refine_depth=None)
+HYBRID_CROWN = 8  # round(log2(ROWS / 2048)), the JAX package's "auto"
 SERVE_SHAPES = (1, 64, 4_096, 500_000)  # the buckets, then a batch
 SERVE_TILINGS = (1, 2, 4, 8, 16, 32, 64)  # rows per block, beside plan's
 # launches averaged per event pair, by rows: a one-row launch is a few us
@@ -157,12 +184,20 @@ def card_line() -> str:
 
 
 def phase_build() -> None:
-    from mpitree_tpu_torch import _build
+    from mpitree_tpu_torch import _build, native
 
     t0 = time.perf_counter()
     names = _build.build_all()
-    log(f"build: csrc/{{{','.join(names)}}}.cu in "
-        f"{time.perf_counter() - t0:.3f} s (nvcc {_build.nvcc_path()})")
+    t1 = time.perf_counter()
+    if native.lib() is None:
+        raise AssertionError(
+            "the native split sweep is absent (no g++ on PATH, or "
+            "MPITREE_TPU_NO_NATIVE set): the default fit's refine tail "
+            "needs it")
+    log(f"build: csrc/{{{','.join(names)}}}.cu in {t1 - t0:.3f} s (nvcc "
+        f"{_build.nvcc_path()}); native split sweep in "
+        f"{time.perf_counter() - t1:.3f} s ({shutil.which('g++')}), loaded "
+        f"{native.library_path()}")
 
 
 def _slots(rng, N: int, S: int) -> np.ndarray:
@@ -286,14 +321,14 @@ def phase_kernels(xb, y_d, B: int, K: int, feat_bins: list) -> list:
     return rows
 
 
-def phase_fit(X, y, Xh, yh, depth: int):
+def _fit_twice(est, X, y):
+    """Fit twice; the launch counters are set to 0 just before the second
+    fit and read just after it. Returns (first s, second s, launches,
+    peak device GiB of the second fit)."""
     from mpitree_tpu_torch.ops import hist_kernel
-    from mpitree_tpu_torch.tree import DecisionTreeClassifier
 
-    clf = DecisionTreeClassifier(criterion="entropy", max_depth=depth,
-                                 max_bins=256)
     t0 = time.perf_counter()
-    clf.fit(X, y)
+    est.fit(X, y)
     torch.cuda.synchronize()
     first = time.perf_counter() - t0
 
@@ -301,12 +336,21 @@ def phase_fit(X, y, Xh, yh, depth: int):
     for k in hist_kernel.launches:
         hist_kernel.launches[k] = 0
     t0 = time.perf_counter()
-    clf.fit(X, y)
+    est.fit(X, y)
     torch.cuda.synchronize()
     second = time.perf_counter() - t0
     launches = dict(hist_kernel.launches)
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    missing = [k for k in hist_kernel.ROUTES if launches[k] == 0]
+    if missing:
+        raise AssertionError(
+            f"{type(est).__name__} fit never launched kernel routes "
+            f"{missing}")
+    return first, second, launches, torch.cuda.max_memory_allocated() / 2**30
 
+
+def _check_fit(clf, X, y, Xh, yh, depth: int):
+    """Raw-count predict_proba and a plausible tree; returns (train acc,
+    held-out acc, predict seconds)."""
     t0 = time.perf_counter()
     proba = clf.predict_proba(Xh)
     predict_s = time.perf_counter() - t0
@@ -318,24 +362,72 @@ def phase_fit(X, y, Xh, yh, depth: int):
             and (proba.sum(axis=1) == tree.n_node_samples[leaves]).all()
             and (tree.feature[leaves] < 0).all()):
         raise AssertionError("predict_proba is not the leaves' raw counts")
+    inner = np.flatnonzero(tree.feature >= 0)
     if not (0 < clf.get_depth() <= depth and tree.n_nodes > 1
             and np.isfinite(tree.impurity).all()
-            and tree.n_node_samples[0] == len(X) and train_acc > 0.5
-            and test_acc > 0.5):
+            and tree.n_node_samples[0] == len(X)
+            and (tree.left[inner] > inner).all()
+            and (tree.n_node_samples[tree.left[inner]]
+                 + tree.n_node_samples[tree.right[inner]]
+                 == tree.n_node_samples[inner]).all()
+            and train_acc > 0.5 and test_acc > 0.5):
         raise AssertionError(
             f"implausible fit: depth {clf.get_depth()}, nodes "
             f"{tree.n_nodes}, train {train_acc}, held-out {test_acc}"
         )
-    missing = [k for k in hist_kernel.ROUTES if launches[k] == 0]
-    if missing:
-        raise AssertionError(f"fit never launched kernel routes {missing}")
+    return train_acc, test_acc, predict_s
+
+
+def phase_fit(X, y, Xh, yh, depth: int):
+    from mpitree_tpu_torch.tree import DecisionTreeClassifier
+
+    clf = DecisionTreeClassifier(criterion="entropy", max_depth=depth,
+                                 max_bins=256, **DEVICE_ONLY)
+    first, second, launches, peak_gib = _fit_twice(clf, X, y)
+    train_acc, test_acc, predict_s = _check_fit(clf, X, y, Xh, yh, depth)
     log(f"fit: {len(X)} x {X.shape[1]} depth {depth}: first {first:.3f} s, "
         f"second {second:.3f} s; train acc {train_acc:.6f}, held-out acc "
         f"{test_acc:.6f} ({len(Xh)} rows, predict {predict_s:.3f} s); "
-        f"n_nodes {tree.n_nodes}, depth {clf.get_depth()}, leaves "
+        f"n_nodes {clf.tree_.n_nodes}, depth {clf.get_depth()}, leaves "
         f"{clf.get_n_leaves()}; peak device memory {peak_gib:.3f} GiB; "
         f"launches {launches}")
-    return clf, launches, second
+    return launches, second, test_acc
+
+
+def phase_hybrid(X, y, Xh, yh, depth: int, device_acc: float) -> dict:
+    """The default fit: crown on the card, refine tail on the host."""
+    from mpitree_tpu_torch import native
+    from mpitree_tpu_torch.tree import DecisionTreeClassifier
+
+    clf = DecisionTreeClassifier(criterion="entropy", max_depth=depth,
+                                 max_bins=256)
+    first, second, launches, peak_gib = _fit_twice(clf, X, y)
+    st = dict(clf.fit_stats_)
+    if not (st.get("crown_depth") == HYBRID_CROWN
+            and st.get("refine_engine") == "batched-native"
+            and st.get("refine_nodes_added", 0) > 0):
+        raise AssertionError(f"refine tail did not engage as expected: {st}")
+    train_acc, test_acc, predict_s = _check_fit(clf, X, y, Xh, yh, depth)
+    out = dict(first_s=first, second_s=second, **st, n_nodes=clf.tree_.n_nodes,
+               depth=clf.get_depth(), leaves=clf.get_n_leaves(),
+               train_acc=train_acc, heldout_acc=test_acc,
+               device_only_heldout_acc=device_acc, predict_s=predict_s,
+               peak_gib=peak_gib, launches=launches,
+               native_library=str(native.library_path()))
+    log(f"hybrid: {len(X)} x {X.shape[1]} depth {depth} at defaults: first "
+        f"{first:.3f} s, second {second:.3f} s (binning "
+        f"{st['bin_seconds']:.3f} s, crown to depth {st['crown_depth']} "
+        f"{st['crown_seconds']:.3f} s, tail {st['tail_seconds']:.3f} s, of "
+        f"which exact per-root binning {st['tail_bin_seconds']:.3f} s and "
+        f"C++ sweeps {st['tail_sweep_seconds']:.3f} s: "
+        f"{st['refine_candidates']} candidate leaves, "
+        f"{st['refine_nodes_added']} nodes added); n_nodes "
+        f"{clf.tree_.n_nodes}, depth {clf.get_depth()}; train acc "
+        f"{train_acc:.6f}, held-out acc {test_acc:.6f} (device engine "
+        f"alone, phase 3: {device_acc:.6f}); peak device memory "
+        f"{peak_gib:.3f} GiB; launches {launches}; native library "
+        f"{native.library_path()}")
+    return out
 
 
 def _node_rows(tree, X: np.ndarray, node: int) -> np.ndarray:
@@ -350,19 +442,15 @@ def _node_rows(tree, X: np.ndarray, node: int) -> np.ndarray:
     return (ids == node).numpy()
 
 
-def phase_parity(depth: int = 10) -> None:
+def _check_parity(gpu, cpu, X, y, what: str, tie_depth: int) -> None:
+    """The card's tree must equal the CPU's field for field, or differ
+    first at a node above depth ``tie_depth`` (a split the device engine
+    chose on the global bins) whose two candidate float64 costs are within
+    1e-12 relative: an exact-tie residual (CUDA's and glibc's fp64 ``log``
+    may differ by an ulp)."""
     from mpitree_tpu_torch.ops import histogram, impurity
     from mpitree_tpu_torch.ops.binning import bin_dataset
-    from mpitree_tpu_torch.tree import DecisionTreeClassifier
-    from mpitree_tpu_torch.utils.datasets import covtype_like
 
-    X, y = covtype_like(50_000, seed=2)
-    kw = dict(criterion="entropy", max_depth=depth, max_bins=256)
-    t0 = time.perf_counter()
-    gpu = DecisionTreeClassifier(device="cuda", **kw).fit(X, y).tree_
-    t1 = time.perf_counter()
-    cpu = DecisionTreeClassifier(device="cpu", **kw).fit(X, y).tree_
-    t2 = time.perf_counter()
     fields = ("feature", "threshold", "left", "right", "count",
               "n_node_samples")
     same = gpu.n_nodes == cpu.n_nodes and all(
@@ -370,18 +458,18 @@ def phase_parity(depth: int = 10) -> None:
         for k in fields
     )
     if same:
-        log(f"parity: {len(X)} rows depth {depth}: cuda tree == cpu tree "
-            f"({gpu.n_nodes} nodes; cuda {t1 - t0:.3f} s, cpu "
-            f"{t2 - t1:.3f} s)")
+        log(f"{what}: cuda tree == cpu tree ({gpu.n_nodes} nodes)")
         return
     n = min(gpu.n_nodes, cpu.n_nodes)
     diff = [i for i in range(n) if not all(
         np.array_equal(getattr(gpu, k)[i], getattr(cpu, k)[i],
                        equal_nan=True) for k in fields)]
     node = diff[0] if diff else n
-    fa, fb = int(gpu.feature[node]), int(cpu.feature[node])
-    if node >= n or fa < 0 or fb < 0:
-        raise AssertionError(f"trees differ structurally at node {node}")
+    fa = int(gpu.feature[node]) if node < n else -1
+    fb = int(cpu.feature[node]) if node < n else -1
+    if fa < 0 or fb < 0 or int(cpu.depth[node]) >= tie_depth:
+        raise AssertionError(f"{what}: trees differ structurally at node "
+                             f"{node}")
     binned = bin_dataset(X, max_bins=256)
     rows = _node_rows(cpu, X, node)
     hist = histogram.class_histogram(
@@ -397,50 +485,62 @@ def phase_parity(depth: int = 10) -> None:
         b = np.flatnonzero(binned.thresholds[f] == tree.threshold[node])
         if len(b) != 1:
             raise AssertionError(
-                f"node {node}: threshold {tree.threshold[node]!r} is not a "
-                f"candidate of feature {f}"
+                f"{what}: node {node}: threshold {tree.threshold[node]!r} "
+                f"is not a candidate of feature {f}"
             )
         return float(cost[0, f, int(b[0])])
 
     ca, cb = cand(gpu, fa), cand(cpu, fb)
     gap = abs(ca - cb) / max(abs(ca), abs(cb), 1e-300)
-    log(f"parity: first difference at node {node} (depth "
+    log(f"{what}: first difference at node {node} (depth "
         f"{int(cpu.depth[node])}, {int(rows.sum())} rows): cuda picks "
         f"feature {fa} at f64 cost {ca!r}, cpu picks feature {fb} at "
         f"{cb!r}; relative gap {gap:.3e}")
     if gap >= 1e-12:
         raise AssertionError(
-            f"cuda and cpu trees differ beyond an exact-tie residual "
-            f"(relative cost gap {gap:.3e} at node {node})"
+            f"{what}: cuda and cpu trees differ beyond an exact-tie "
+            f"residual (relative cost gap {gap:.3e} at node {node})"
         )
 
 
-def phase_forest(X, y, Xh, yh):
-    from mpitree_tpu_torch.ops import hist_kernel
-    from mpitree_tpu_torch.tree import RandomForestClassifier
+def phase_parity(depth: int = 10, hybrid: bool = False) -> None:
+    """``covtype_like(50_000, seed=2)`` on the card and with
+    ``device="cpu"``: the device engine alone at ``depth``, or (``hybrid``)
+    the default fit, whose tail starts below the crown."""
+    from mpitree_tpu_torch.tree import DecisionTreeClassifier
+    from mpitree_tpu_torch.utils.datasets import covtype_like
 
-    Xf, yf = X[:FOREST_ROWS], y[:FOREST_ROWS]
-    forest = RandomForestClassifier(**FOREST)
+    X, y = covtype_like(50_000, seed=2)
+    kw = dict(criterion="entropy", max_depth=depth, max_bins=256,
+              **({} if hybrid else DEVICE_ONLY))
     t0 = time.perf_counter()
-    forest.fit(Xf, yf)
-    torch.cuda.synchronize()
-    first = time.perf_counter() - t0
+    gpu = DecisionTreeClassifier(device="cuda", **kw).fit(X, y)
+    t1 = time.perf_counter()
+    cpu = DecisionTreeClassifier(device="cpu", **kw).fit(X, y)
+    t2 = time.perf_counter()
+    crown = cpu.fit_stats_.get("crown_depth", depth)
+    if hybrid and not (crown == gpu.fit_stats_.get("crown_depth") == 5
+                       and cpu.fit_stats_["refine_nodes_added"] > 0):
+        raise AssertionError(f"hybrid parity: refine did not engage: "
+                             f"{gpu.fit_stats_} / {cpu.fit_stats_}")
+    _check_parity(
+        gpu.tree_, cpu.tree_, X, y, tie_depth=crown,
+        what=f"{'hybrid parity' if hybrid else 'parity'}: {len(X)} rows "
+        f"depth {depth}" + (f" (crown {crown})" if hybrid else "")
+        + f", cuda {t1 - t0:.3f} s, cpu {t2 - t1:.3f} s",
+    )
 
-    for k in hist_kernel.launches:
-        hist_kernel.launches[k] = 0
-    t0 = time.perf_counter()
-    forest.fit(Xf, yf)
-    torch.cuda.synchronize()
-    second = time.perf_counter() - t0
-    launches = dict(hist_kernel.launches)
 
+def _check_forest(forest, n_trees: int, Xh, yh):
+    """A plausible forest; returns (held-out acc, predict_proba s, nodes
+    per tree, deepest tree)."""
     t0 = time.perf_counter()
     proba = forest.predict_proba(Xh)
     predict_s = time.perf_counter() - t0
     test_acc = float(np.mean(forest.classes_[proba.argmax(axis=1)] == yh))
     nodes = np.array([t.n_nodes for t in forest.trees_])
     depth = max(t.max_depth for t in forest.trees_)
-    if not (len(nodes) == FOREST["n_estimators"] and nodes.min() > 1
+    if not (len(nodes) == n_trees and nodes.min() > 1
             and depth <= FOREST["max_depth"] and np.isfinite(proba).all()
             and np.allclose(proba.sum(axis=1), 1.0, rtol=0, atol=1e-12)
             and test_acc > 0.5):
@@ -448,37 +548,91 @@ def phase_forest(X, y, Xh, yh):
             f"implausible forest: {len(nodes)} trees, nodes {nodes.min()}.."
             f"{nodes.max()}, depth {depth}, held-out {test_acc}"
         )
-    missing = [k for k in hist_kernel.ROUTES if launches[k] == 0]
-    if missing:
-        raise AssertionError(f"forest fit never launched {missing}")
+    return test_acc, predict_s, nodes, depth
+
+
+def phase_forest(X, y, Xh, yh):
+    from mpitree_tpu_torch.tree import RandomForestClassifier
+
+    Xf, yf = X[:FOREST_ROWS], y[:FOREST_ROWS]
+    forest = RandomForestClassifier(**FOREST, **DEVICE_ONLY)
+    first, second, launches, _ = _fit_twice(forest, Xf, yf)
+    test_acc, predict_s, nodes, depth = _check_forest(
+        forest, FOREST["n_estimators"], Xh, yh)
     log(f"forest: {len(Xf)} x {Xf.shape[1]}, {len(nodes)} trees, depth "
         f"{depth}: first {first:.3f} s, second {second:.3f} s; nodes total "
         f"{int(nodes.sum())}, mean {float(nodes.mean())}; held-out acc "
         f"{test_acc:.6f} ({len(Xh)} rows, predict_proba {predict_s:.3f} s); "
         f"launches {launches}")
-    return forest, launches, second
+    return forest, launches, test_acc
 
 
-def phase_forest_parity() -> None:
+def phase_default_forest(X, y, Xh, yh, device_acc: float) -> dict:
+    """Config 5 at defaults, fitted once: each tree's crown on the card,
+    its tail on the host. The launch counters are set to 0 just before."""
+    from mpitree_tpu_torch.ops import hist_kernel
+    from mpitree_tpu_torch.tree import RandomForestClassifier
+
+    Xf, yf = X[:FOREST_ROWS], y[:FOREST_ROWS]
+    n_trees = FOREST["n_estimators"]
+    forest = RandomForestClassifier(**FOREST)
+    for k in hist_kernel.launches:
+        hist_kernel.launches[k] = 0
+    t0 = time.perf_counter()
+    forest.fit(Xf, yf)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(hist_kernel.launches)
+    missing = [k for k in hist_kernel.ROUTES if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"default forest never launched {missing}")
+    st = dict(forest.fit_stats_)
+    if not (st.get("crown_depth") == 7 and st["refine_nodes_added"] > 0):
+        raise AssertionError(f"default forest: refine did not engage: {st}")
+    test_acc, predict_s, nodes, depth = _check_forest(forest, n_trees, Xh,
+                                                      yh)
+    log(f"default forest: {len(Xf)} x {Xf.shape[1]}, {n_trees} trees, "
+        f"depth {depth}, fitted once: {wall:.3f} s (binning "
+        f"{st['bin_seconds']:.3f} s, crowns to depth {st['crown_depth']} "
+        f"{st['crown_seconds']:.3f} s, tails {st['tail_seconds']:.3f} s, of "
+        f"which exact per-root binning {st['tail_bin_seconds']:.3f} s and "
+        f"C++ sweeps {st['tail_sweep_seconds']:.3f} s: "
+        f"{st['refine_candidates']} candidate leaves, "
+        f"{st['refine_nodes_added']} nodes added); nodes total "
+        f"{int(nodes.sum())}; held-out acc {test_acc:.6f} (device engine "
+        f"alone, phase 5: {device_acc:.6f}; predict_proba {predict_s:.3f} "
+        f"s); launches {launches}")
+    return dict(wall_s=wall, **st,
+                nodes_total=int(nodes.sum()), heldout_acc=test_acc,
+                device_only_heldout_acc=device_acc, launches=launches)
+
+
+def phase_forest_parity(hybrid: bool = False) -> None:
     """A small forest fitted on the card and with ``device="cpu"`` (the
-    plain versions): the trees must be identical field for field."""
+    plain versions): the trees must be identical field for field. With
+    ``hybrid`` at defaults, so each tree's tail engages."""
     from mpitree_tpu_torch.tree import RandomForestClassifier
     from mpitree_tpu_torch.utils.datasets import covtype_like
 
     X, y = covtype_like(20_000, seed=4)
-    kw = dict(FOREST, n_estimators=4, max_depth=8)
-    gpu = RandomForestClassifier(device="cuda", **kw).fit(X, y).trees_
-    cpu = RandomForestClassifier(device="cpu", **kw).fit(X, y).trees_
+    kw = dict(FOREST, n_estimators=4, max_depth=8,
+              **({} if hybrid else DEVICE_ONLY))
+    gpu = RandomForestClassifier(device="cuda", **kw).fit(X, y)
+    cpu = RandomForestClassifier(device="cpu", **kw).fit(X, y)
+    if hybrid and not (gpu.fit_stats_.get("crown_depth") == 3
+                       and gpu.fit_stats_["refine_nodes_added"] > 0):
+        raise AssertionError(f"hybrid forest parity: refine did not "
+                             f"engage: {gpu.fit_stats_}")
     fields = ("feature", "threshold", "left", "right", "count",
               "n_node_samples")
-    for i, (a, b) in enumerate(zip(gpu, cpu, strict=True)):
+    for i, (a, b) in enumerate(zip(gpu.trees_, cpu.trees_, strict=True)):
         if a.n_nodes != b.n_nodes or not all(
                 np.array_equal(getattr(a, k), getattr(b, k), equal_nan=True)
                 for k in fields):
             raise AssertionError(f"forest tree {i}: cuda tree != cpu tree")
-    log(f"forest parity: {len(X)} rows, {len(gpu)} trees depth "
-        f"{kw['max_depth']}: cuda trees == cpu trees "
-        f"({sum(t.n_nodes for t in gpu)} nodes)")
+    log(f"{'hybrid forest' if hybrid else 'forest'} parity: {len(X)} rows, "
+        f"{len(gpu.trees_)} trees depth {kw['max_depth']}: cuda trees == cpu "
+        f"trees ({sum(t.n_nodes for t in gpu.trees_)} nodes)")
 
 
 def _touched(table, cols, X) -> tuple:
@@ -733,9 +887,10 @@ def phase_profile(name: str, work, out_dir: Path) -> None:
 
 
 def profile_all(X, y, forest, Xh, out_dir: Path) -> None:
-    """``--profile``: one more depth-20 fit, one more forest fit, and 300
-    one-row requests to each of a freshly published ``rf`` and ``rf8``,
-    each profiled."""
+    """``--profile``: one more depth-20 fit and forest fit (device engine
+    alone), one more default (hybrid) depth-20 fit, and 300 one-row
+    requests to each of a freshly published ``rf`` and ``rf8``, each
+    profiled."""
     from mpitree_tpu_torch.serving import ModelRegistry
     from mpitree_tpu_torch.tree import (
         DecisionTreeClassifier,
@@ -743,10 +898,14 @@ def profile_all(X, y, forest, Xh, out_dir: Path) -> None:
     )
 
     phase_profile("fit", lambda: DecisionTreeClassifier(
+        criterion="entropy", max_depth=DEPTH, max_bins=256,
+        **DEVICE_ONLY).fit(X, y), out_dir)
+    phase_profile("forest", lambda: RandomForestClassifier(
+        **FOREST, **DEVICE_ONLY).fit(X[:FOREST_ROWS], y[:FOREST_ROWS]),
+        out_dir)
+    phase_profile("hybrid_fit", lambda: DecisionTreeClassifier(
         criterion="entropy", max_depth=DEPTH, max_bins=256).fit(X, y),
         out_dir)
-    phase_profile("forest", lambda: RandomForestClassifier(**FOREST).fit(
-        X[:FOREST_ROWS], y[:FOREST_ROWS]), out_dir)
     reg = ModelRegistry()
     reg.publish("rf", forest)
     reg.publish("rf8", forest, quantize="int8")
@@ -803,13 +962,18 @@ def main() -> int:
     del binned, y_d
     torch.cuda.empty_cache()
 
-    _, launches, _ = phase_fit(X, y, Xh, yh, DEPTH)
+    launches, _, fit_acc = phase_fit(X, y, Xh, yh, DEPTH)
     phase_parity()
-    forest, forest_launches, _ = phase_forest(X, y, Xh, yh)
+    forest, forest_launches, forest_acc = phase_forest(X, y, Xh, yh)
     phase_forest_parity()
     Xbig, _ = covtype_like(SERVE_SHAPES[-1], seed=3)
     serve_shapes = phase_serve_kernels(forest, Xbig)
     serving, serve_launches = phase_serve(forest, Xh, Xbig)
+    del Xbig
+    hybrid = {"fit": phase_hybrid(X, y, Xh, yh, DEPTH, fit_acc)}
+    phase_parity(DEPTH, hybrid=True)
+    hybrid["forest"] = phase_default_forest(X, y, Xh, yh, forest_acc)
+    phase_forest_parity(hybrid=True)
     if args.profile:
         profile_all(X, y, forest, Xh, args.profile)
 
@@ -854,6 +1018,7 @@ def main() -> int:
     log(json.dumps({"kernel_shapes": shapes}))
     log(json.dumps({"serve_kernel_shapes": serve_shapes}))
     log(json.dumps({"serving": serving}))
+    log(json.dumps({"hybrid": hybrid}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -205,12 +205,17 @@ def pack_for_fit(binned: BinnedData) -> torch.Tensor | None:
 
 def build_tree(binned: BinnedData, y: np.ndarray, *, config: BuildConfig,
                n_classes: int, sample_weight: np.ndarray | None = None,
-               packed: torch.Tensor | None = None) -> TreeArrays:
+               packed: torch.Tensor | None = None,
+               return_leaf_ids: bool = False):
     """Grow one classification tree level by level on the device that
     holds ``binned.x_binned``; returns the host struct-of-arrays tree.
 
     ``y`` (N,) int class indices, ``sample_weight`` (N,) float32 or None,
     ``packed`` :func:`pack_for_fit` of ``binned`` (made here when absent).
+    With ``return_leaf_ids`` returns ``(tree, leaf_ids)``: every row's
+    final node as an (N,) int32 numpy array, one copy from the device
+    (rows of leaves that stopped early stay parked at their node), which
+    the hybrid refine tail reads instead of descending the crown again.
     """
     cfg = config
     if cfg.criterion not in ("entropy", "gini"):
@@ -358,4 +363,6 @@ def build_tree(binned: BinnedData, y: np.ndarray, *, config: BuildConfig,
         frontier_size = 2 * len(split_ids)
         depth += 1
 
+    if return_leaf_ids:
+        return tree.finalize(), nid.cpu().numpy()
     return tree.finalize()

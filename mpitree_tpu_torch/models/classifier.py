@@ -5,34 +5,56 @@ parameters (``:161-190``) plus ``device``, and the same fitted attributes
 (``n_features_``, ``classes_``, ``tree_``). ``predict_proba`` returns the
 reference's **raw class counts** (``:398-403``), ``predict`` their argmax.
 
-Every fit runs the device engine (``core/builder.py``) on ``device``:
-``None`` means ``"cuda"`` and raises when CUDA is missing; only an explicit
-``device="cpu"`` runs the plain CPU path. sklearn is not a dependency:
-``get_params``/``set_params`` read the ``__init__`` signature and ``score``
-is the (weighted) mean accuracy.
+A fit follows the JAX package's order (``:226-367``): binning, the refine
+decision (``utils/validation.resolve_refine``), the build to the crown
+depth, the hybrid refine tail (``core/hybrid_builder.apply_refine``) and
+``ccp_alpha`` pruning (``utils/pruning.ccp_prune``).
 
-Options that live off this slice's path raise ``NotImplementedError``
+- ``backend=None`` runs the device engine (``core/builder.py``) on
+  ``device``: ``None`` means ``"cuda"`` and raises when CUDA is missing;
+  only an explicit ``device="cpu"`` runs the plain CPU path. Unlike the JAX
+  package, a small fit is not routed to the host tier: the card builds
+  every ``backend=None`` fit, and the trees are the same either way.
+- ``backend="host"`` runs the host tier (host binning, then
+  ``core/host_builder.build_tree_host``); ``"cpu"`` and ``"tpu"`` raise
+  and point to ``device=``.
+- ``refine_depth="auto"`` engages the refine tail as the JAX package does:
+  when quantile binning capped a feature and the native C++ sweep builds
+  (``native.lib()``), at a crown depth of ``round(log2(n_rows / 2048))``.
+  An integer sets the crown depth; ``None`` builds the whole depth in one
+  engine.
+
+sklearn is not a dependency: ``get_params``/``set_params`` read the
+``__init__`` signature and ``score`` is the (weighted) mean accuracy.
+``fit_stats_`` holds the fit's phase seconds (``bin_seconds``,
+``crown_seconds``, ``tail_seconds``, ``prune_seconds``, each ending when
+the card is idle) and, when the tail ran, its ``crown_depth``,
+``refine_candidates``, ``refine_engine`` and ``refine_nodes_added``.
+
+Options that live off the ported path raise ``NotImplementedError``
 naming their ``ROADMAP.md`` item: ``max_leaf_nodes`` (leaf-wise growth),
 ``splitter="random"``/``max_features`` (sampling), ``class_weight``,
-``ccp_alpha`` (pruning), ``monotonic_cst``, multi-device ``n_devices``,
-``backend``, and an integer ``refine_depth`` (the hybrid refine tail).
-``refine_depth="auto"`` resolves to a single device build, as the JAX
-package does when its native tail is absent.
+``monotonic_cst`` and multi-device ``n_devices``.
 """
 
 from __future__ import annotations
 
 import inspect
+import time
 
 import numpy as np
+import torch
 
 from mpitree_tpu_torch._device import resolve_device
 from mpitree_tpu_torch.core.builder import BuildConfig, build_tree
+from mpitree_tpu_torch.core.host_builder import build_tree_host
+from mpitree_tpu_torch.core.hybrid_builder import apply_refine
 from mpitree_tpu_torch.core.tree_struct import TreeArrays
-from mpitree_tpu_torch.ops.binning import bin_for_engine
+from mpitree_tpu_torch.ops.binning import bin_dataset, bin_for_engine
 from mpitree_tpu_torch.ops.predict import predict_leaf_ids
 from mpitree_tpu_torch.utils.carry import tree_from_reference
 from mpitree_tpu_torch.utils.export import export_tree_text
+from mpitree_tpu_torch.utils.pruning import ccp_prune, pruning_path_for
 from mpitree_tpu_torch.utils.validation import (
     min_child_weight,
     min_decrease_scaled,
@@ -53,10 +75,68 @@ _LATER = (
     ("splitter", "best", "Queue 1 item 10 (ops/sampling.py)"),
     ("max_features", None, "Queue 1 item 10 (ops/sampling.py)"),
     ("class_weight", None, "Queue 1 item 9 (utils/validation.py class_weight)"),
-    ("ccp_alpha", 0.0, "Queue 1 item 9 (utils/pruning.py)"),
     ("monotonic_cst", None, "Queue 1 item 10 (utils/monotonic.py)"),
-    ("backend", None, "Queue 1 item 9 (host small-fit tier)"),
 )
+
+
+def host_tier(backend) -> bool:
+    """True for ``backend="host"`` (the host tier), False for ``None``
+    (the device engine on ``device``); the JAX package's platform names
+    ``"cpu"``/``"tpu"`` raise and point to ``device=``."""
+    if backend is None or backend == "host":
+        return backend == "host"
+    if backend in ("cpu", "tpu"):
+        raise ValueError(
+            f"backend={backend!r} is a JAX platform: the port runs its "
+            "device engine where device= says ('cuda' or 'cpu'); "
+            "backend='host' is the host tier"
+        )
+    raise ValueError(f"backend must be None or 'host', got {backend!r}")
+
+
+def grow_tree(binned, X, y, *, host: bool, cfg: BuildConfig, max_depth, rd,
+              refine: bool, n_classes: int, sample_weight, ccp_alpha,
+              clock, stats: dict, packed=None) -> TreeArrays:
+    """One tree in the JAX package's order: the build to the crown depth
+    ``cfg.max_depth`` (the host tier when ``host``, else the device engine
+    on ``binned``'s device), the refine tail down to ``max_depth`` when
+    ``refine``, then ``ccp_alpha`` pruning. Adds the phase seconds and the
+    tail's counts to ``stats``."""
+    kw = dict(config=cfg, n_classes=n_classes, sample_weight=sample_weight,
+              return_leaf_ids=refine)
+    res = (build_tree_host(binned, y, **kw) if host
+           else build_tree(binned, y, packed=packed, **kw))
+    tree, leaf_ids = res if refine else (res, None)
+    stats["crown_seconds"] = stats.get("crown_seconds", 0.0) + clock.lap()
+    if refine:
+        tail = {}
+        tree = apply_refine(
+            tree, leaf_ids, X, y, cfg=cfg, max_depth=max_depth, rd=rd,
+            n_classes=n_classes, sample_weight=sample_weight, stats=tail,
+        )
+        tail["tail_seconds"] = clock.lap()
+        stats["crown_depth"] = rd
+        for k, v in tail.items():
+            stats[k] = v if isinstance(v, str) else stats.get(k, 0) + v
+    if ccp_alpha:
+        tree = ccp_prune(tree, ccp_alpha)
+        stats["prune_seconds"] = stats.get("prune_seconds", 0.0) + clock.lap()
+    return tree
+
+
+class FitClock:
+    """Seconds per phase of a fit, each ending when ``device`` is idle."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.t = time.perf_counter()
+
+    def lap(self) -> float:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        dt, self.t = now - self.t, now
+        return dt
 
 
 def refuse_later(est, later) -> None:
@@ -174,20 +254,22 @@ class DecisionTreeClassifier(ClassifierBase):
     # -- fitting -----------------------------------------------------------
     def fit(self, X, y, sample_weight=None):
         self._check_slice()
+        host = host_tier(self.backend)
         device = resolve_device(self.device)
         X, y_enc, classes = validate_fit_data(X, y)
         sw = validate_sample_weight(sample_weight, X.shape[0])
-        rd, _refine, crown_depth = resolve_refine(
-            self.max_depth, self.refine_depth, n_rows=X.shape[0],
-        )
-        if rd is not None:
-            raise NotImplementedError(
-                f"refine_depth={self.refine_depth!r}: the hybrid refine "
-                "tail is not ported yet (ROADMAP.md Queue 1, the refine "
-                "tail); use refine_depth='auto' or None"
+        clock = FitClock(device)
+        binned = (
+            bin_dataset(X, max_bins=self.max_bins, binning=self.binning)
+            if host else bin_for_engine(
+                X, max_bins=self.max_bins, binning=self.binning,
+                device=device,
             )
-        binned = bin_for_engine(
-            X, max_bins=self.max_bins, binning=self.binning, device=device
+        )
+        stats = {"bin_seconds": clock.lap()}
+        rd, refine, crown_depth = resolve_refine(
+            self.max_depth, self.refine_depth,
+            n_rows=X.shape[0], quantized=binned.quantized,
         )
         cfg = BuildConfig(
             criterion=self.criterion,
@@ -201,12 +283,20 @@ class DecisionTreeClassifier(ClassifierBase):
                 self.min_impurity_decrease, sw, X.shape[0]
             ),
         )
-        self.tree_ = build_tree(
-            binned, y_enc, config=cfg, n_classes=len(classes),
-            sample_weight=sw,
+        self.tree_ = grow_tree(
+            binned, X, y_enc, host=host, cfg=cfg, max_depth=self.max_depth,
+            rd=rd, refine=refine, n_classes=len(classes), sample_weight=sw,
+            ccp_alpha=self.ccp_alpha, clock=clock, stats=stats,
         )
+        self.fit_stats_ = stats
         self._set_fitted(classes, X.shape[1])
         return self
+
+    def cost_complexity_pruning_path(self, X, y, sample_weight=None):
+        """sklearn's diagnostic: the effective alphas and total leaf
+        impurities along the minimal cost-complexity pruning path of an
+        unpruned fit (``utils/pruning.py``)."""
+        return pruning_path_for(self, X, y, sample_weight=sample_weight)
 
     @classmethod
     def from_reference(cls, arrays, classes, n_features: int, **params):

@@ -15,6 +15,11 @@ forest.py`` on its per-tree device route (``_fit_forest``, ``:272-765``;
   so the card's histograms sum them exactly;
 - each tree's leaf floors read its own composed weights (``tree_cfg``,
   ``:388-405``);
+- each tree is finished as the JAX package's ``finish`` does it
+  (``:495-515``): the refine tail with that tree's composed weights when
+  ``resolve_refine`` engages it (``:358-361``), then ``ccp_alpha``
+  pruning; ``backend="host"`` builds every tree on the host tier from one
+  host binning (``host_raw``, ``:519-528``);
 - ``predict_proba`` descends all trees at once over the flat serving table
   (``ops/predict.stacked_leaf_ids``) and then runs the JAX package's host
   float64 loop, ``acc += counts / max(rowsum, 1)`` in tree order, ``/ T``
@@ -23,11 +28,13 @@ forest.py`` on its per-tree device route (``_fit_forest``, ``:272-765``;
 ``trees_`` is a :class:`~mpitree_tpu_torch.serving.tables.TreeList`,
 which carries the flat table that predict and ``compile_model`` share.
 
+``fit_stats_`` sums the phase seconds and tail counts over the trees (see
+``models/classifier.py``).
+
 Options off this path raise ``NotImplementedError`` naming their
 ``ROADMAP.md`` item: ``max_features`` other than ``None``,
 ``splitter="random"``, ``oob_score``, ``class_weight``, ``checkpoint``,
-``warm_start``, ``monotonic_cst``, ``ccp_alpha``, ``backend``,
-``n_devices > 1``, an integer ``refine_depth`` and ``dataset=``.
+``warm_start``, ``monotonic_cst``, ``n_devices > 1`` and ``dataset=``.
 """
 
 from __future__ import annotations
@@ -37,13 +44,15 @@ import dataclasses
 import numpy as np
 
 from mpitree_tpu_torch._device import resolve_device
-from mpitree_tpu_torch.core.builder import (
-    BuildConfig,
-    build_tree,
-    pack_for_fit,
+from mpitree_tpu_torch.core.builder import BuildConfig, pack_for_fit
+from mpitree_tpu_torch.models.classifier import (
+    ClassifierBase,
+    FitClock,
+    grow_tree,
+    host_tier,
+    refuse_later,
 )
-from mpitree_tpu_torch.models.classifier import ClassifierBase, refuse_later
-from mpitree_tpu_torch.ops.binning import bin_for_engine
+from mpitree_tpu_torch.ops.binning import bin_dataset, bin_for_engine
 from mpitree_tpu_torch.ops.predict import stacked_leaf_ids
 from mpitree_tpu_torch.serving.tables import TreeList
 from mpitree_tpu_torch.utils.carry import forest_from_reference
@@ -67,8 +76,6 @@ _LATER = (
      "Queue 1 item 17 (resilience/checkpoint.py)"),
     ("warm_start", False, "Queue 1 item 11 (forest warm_start)"),
     ("monotonic_cst", None, "Queue 1 item 10 (utils/monotonic.py)"),
-    ("ccp_alpha", 0.0, "Queue 1 item 9 (utils/pruning.py)"),
-    ("backend", None, "Queue 1 item 9 (host small-fit tier)"),
 )
 
 
@@ -142,21 +149,24 @@ class RandomForestClassifier(ClassifierBase):
                 "item 16, streaming)"
             )
         self._check_slice()
+        host = host_tier(self.backend)
         device = resolve_device(self.device)
         X, y_enc, classes = validate_fit_data(X, y)
         n = X.shape[0]
         sample_weight = validate_sample_weight(sample_weight, n)
-        rd, _refine, crown_depth = resolve_refine(
-            self.max_depth, self.refine_depth, n_rows=n,
-        )
-        if rd is not None:
-            raise NotImplementedError(
-                f"refine_depth={self.refine_depth!r}: the hybrid refine "
-                "tail is not ported yet (ROADMAP.md Queue 1 item 8); use "
-                "refine_depth='auto' or None"
-            )
-        binned = bin_for_engine(
-            X, max_bins=self.max_bins, binning=self.binning, device=device
+        clock = FitClock(device)
+        if host:
+            binned = bin_dataset(X, max_bins=self.max_bins,
+                                 binning=self.binning)
+            packed = None
+        else:
+            binned = bin_for_engine(X, max_bins=self.max_bins,
+                                    binning=self.binning, device=device)
+            packed = pack_for_fit(binned)  # once, next to the one binning
+        stats = {"bin_seconds": clock.lap()}
+        rd, refine, crown_depth = resolve_refine(
+            self.max_depth, self.refine_depth,
+            n_rows=n, quantized=binned.quantized,
         )
         cfg = BuildConfig(criterion=self.criterion, max_depth=crown_depth,
                           min_samples_split=self.min_samples_split)
@@ -186,13 +196,17 @@ class RandomForestClassifier(ClassifierBase):
                 w = boot if w is None else boot * w
             tree_w.append(w)
 
-        packed = pack_for_fit(binned)  # once, next to the one binning
         self.trees_ = TreeList(
-            build_tree(binned, y_enc, config=tree_cfg(w),
-                       n_classes=len(classes), sample_weight=w,
-                       packed=packed)
+            grow_tree(
+                binned, X, y_enc, host=host, cfg=tree_cfg(w),
+                max_depth=self.max_depth, rd=rd, refine=refine,
+                n_classes=len(classes), sample_weight=w,
+                ccp_alpha=self.ccp_alpha, clock=clock, stats=stats,
+                packed=packed,
+            )
             for w in tree_w
         )
+        self.fit_stats_ = stats
         self._set_fitted(classes, X.shape[1])
         return self
 

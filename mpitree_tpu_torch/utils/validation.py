@@ -15,6 +15,8 @@ import numbers
 
 import numpy as np
 
+from mpitree_tpu_torch import native
+
 
 def _as_float_matrix(X, what: str = "X") -> np.ndarray:
     arr = np.asarray(X)
@@ -175,14 +177,32 @@ def validate_refine_depth(refine_depth):
     return rd
 
 
+# Crown leaves of about this many rows are where the hybrid crossover
+# pays: small enough for exact local candidates on the host, large enough
+# that the card still amortizes the levels above.
+_AUTO_REFINE_LEAF_ROWS = 2048
+
+
 def resolve_refine(max_depth, refine_depth, *, n_rows=None, quantized=True):
     """``(rd, refine, crown_max_depth)`` as ``mpitree_tpu/utils/
-    validation.py:292`` decides it when its native C++ tail is absent:
-    ``"auto"`` resolves to no refine (the port has no refine tail yet), so
-    the whole depth is one device build. An explicit integer is returned
-    as is; the estimator refuses it."""
+    validation.py:292`` decides it: the crossover depth, whether the refine
+    tail runs (it needs room below the crown) and the crown build's depth.
+
+    ``refine_depth="auto"`` engages the tail only when quantile binning
+    capped some feature (``quantized``; exact global candidates already are
+    the reference's) and the native C++ sweep is loaded
+    (``native.lib()``), at the crown depth whose average leaf holds about
+    2,048 rows: ``max(1, round(log2(n_rows / 2048)))``. Without the
+    library ``"auto"`` means no refine; an explicit integer still runs the
+    per-subtree numpy tail.
+    """
     rd = validate_refine_depth(refine_depth)
     if rd == "auto":
-        rd = None
+        if not quantized or not n_rows or native.lib() is None:
+            rd = None
+        else:
+            rd = max(
+                1, round(np.log2(max(n_rows, 2) / _AUTO_REFINE_LEAF_ROWS))
+            )
     refine = rd is not None and (max_depth is None or max_depth > rd)
     return rd, refine, (rd if refine else max_depth)

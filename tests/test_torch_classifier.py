@@ -2,10 +2,11 @@
 
 (a) iris, ``max_depth=3, binning="exact"``: ``export_text`` is byte-identical
     to the reference golden ``tests/test_classifier.py::GOLDEN_IRIS_DEPTH3``.
-(b) ``covtype_like(20_000, seed=0)`` at ``max_depth=8``: the port's tree
-    equals the JAX CPU device engine's (``backend="cpu", refine_depth=None``)
-    field for field. Integer-valued class histograms are exact in any
-    order and both sweeps rank float64 costs, so no tolerance applies.
+(b) ``covtype_like(20_000, seed=0)`` at ``max_depth=8``: the port's
+    device engine (``refine_depth=None``) equals the JAX CPU device
+    engine's (``backend="cpu", refine_depth=None``) field for field.
+    Integer-valued class histograms are exact in any order and both sweeps
+    rank float64 costs, so no tolerance applies.
 (c) ``tree_from_reference`` on that JAX tree: the port's predict,
     predict_proba and apply equal JAX's on held-out rows.
 (d) ``device=None`` raises ``RuntimeError`` when CUDA is missing: there is
@@ -47,7 +48,8 @@ def covtype_pair():
 
     X, y = covtype_like(20_000, seed=0)
     jax_clf = JaxTree(max_depth=8, backend="cpu", refine_depth=None).fit(X, y)
-    port = DecisionTreeClassifier(max_depth=8, device="cpu").fit(X, y)
+    port = DecisionTreeClassifier(max_depth=8, device="cpu",
+                                  refine_depth=None).fit(X, y)
     return X, y, jax_clf, port
 
 
@@ -108,9 +110,8 @@ def test_options_identical_to_jax(params):
     jax_clf = JaxTree(backend="cpu", refine_depth=None, **params).fit(
         X, y, sample_weight=w
     )
-    port = DecisionTreeClassifier(device="cpu", **params).fit(
-        X, y, sample_weight=w
-    )
+    port = DecisionTreeClassifier(device="cpu", refine_depth=None,
+                                  **params).fit(X, y, sample_weight=w)
     _assert_same_tree(port.tree_, jax_clf.tree_)
 
 
@@ -148,10 +149,9 @@ def test_estimator_surface():
 
 
 @pytest.mark.parametrize("param,value", [
-    ("refine_depth", 3), ("max_leaf_nodes", 8), ("splitter", "random"),
+    ("max_leaf_nodes", 8), ("splitter", "random"),
     ("max_features", "sqrt"), ("class_weight", "balanced"),
-    ("ccp_alpha", 0.01), ("monotonic_cst", [1] * 54), ("n_devices", 2),
-    ("backend", "host"),
+    ("monotonic_cst", [1] * 54), ("n_devices", 2),
 ])
 def test_options_off_this_slice_raise(param, value):
     X, y = covtype_like(100, seed=0)

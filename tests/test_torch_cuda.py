@@ -179,6 +179,41 @@ def test_fractional_weights_refused_on_the_card(cuda):
     )
 
 
+def test_crown_leaf_ids_and_default_fit_on_the_card(cuda):
+    """The crown's leaf ids come from the card in one copy and equal the
+    CPU's; the default fit (crown on the card, refine tail on the host)
+    equals the CPU's tree, integer bootstrap-like weights with zeros
+    included."""
+    from mpitree_tpu_torch.core.builder import BuildConfig, build_tree
+    from mpitree_tpu_torch.ops.binning import bin_for_engine
+    from mpitree_tpu_torch.tree import DecisionTreeClassifier
+    from mpitree_tpu_torch.utils.datasets import covtype_like
+
+    X, y = covtype_like(30_000, seed=5)
+    w = np.random.default_rng(1).integers(0, 3, len(y)).astype(np.float32)
+    cfg = BuildConfig(max_depth=4)
+    (tg, ig), (tc, ic) = [
+        build_tree(bin_for_engine(X, max_bins=256, binning="auto",
+                                  device=dev),
+                   y, config=cfg, n_classes=7, sample_weight=w,
+                   return_leaf_ids=True)
+        for dev in (cuda, torch.device("cpu"))
+    ]
+    assert ig.dtype == np.int32 and ig.shape == (len(y),)
+    np.testing.assert_array_equal(ig, ic)
+    np.testing.assert_array_equal(tg.feature, tc.feature)
+    assert (tg.feature[ig] < 0).all()
+
+    fits = [DecisionTreeClassifier(max_depth=14, device=d).fit(
+        X, y, sample_weight=w) for d in ("cuda", "cpu")]
+    assert fits[0].fit_stats_["crown_depth"] == 4
+    assert fits[0].fit_stats_["refine_nodes_added"] > 0
+    for k in ("feature", "threshold", "left", "right", "count",
+              "n_node_samples", "impurity"):
+        np.testing.assert_array_equal(getattr(fits[0].tree_, k),
+                                      getattr(fits[1].tree_, k), err_msg=k)
+
+
 # ---------------------------------------------------------------------------
 # serving traversal kernels (K4 traverse, K5 traverse_q)
 # ---------------------------------------------------------------------------

@@ -1,9 +1,11 @@
 """The port's ``RandomForestClassifier`` on the CPU against the JAX package.
 
 ``covtype_like(20_000, seed=0)``, ``n_estimators=4, max_depth=6,
-random_state=0``. The reference is the JAX forest on its CPU device engine
-(``backend="cpu", refine_depth=None``), whose batched and per-tree builds
-grow identical trees (``tests/test_forest.py``). Both packages draw the
+random_state=0``, the port's device engine alone (``refine_depth=None``;
+``tests/test_torch_hybrid.py`` holds the refine tail). The reference is the
+JAX forest on its CPU device engine (``backend="cpu", refine_depth=None``),
+whose batched and per-tree builds grow identical trees
+(``tests/test_forest.py``). Both packages draw the
 same multinomial bootstrap weights from one numpy generator, the
 histograms of integer weights are exact in any order and both sweeps rank
 float64 costs, so every tree must be equal field for field and
@@ -35,7 +37,8 @@ def forests():
 
     X, y = covtype_like(20_000, seed=0)
     jax_f = JaxForest(backend="cpu", refine_depth=None, **PARAMS).fit(X, y)
-    port = RandomForestClassifier(device="cpu", **PARAMS).fit(X, y)
+    port = RandomForestClassifier(device="cpu", refine_depth=None,
+                                  **PARAMS).fit(X, y)
     Xh, _ = covtype_like(3_000, seed=1)
     return X, y, Xh, jax_f, port
 
@@ -107,8 +110,8 @@ def test_options_identical_to_jax(params):
         np.float32)
     jax_f = JaxForest(backend="cpu", refine_depth=None, **params).fit(
         X, y, sample_weight=w)
-    port = RandomForestClassifier(device="cpu", **params).fit(
-        X, y, sample_weight=w)
+    port = RandomForestClassifier(device="cpu", refine_depth=None,
+                                  **params).fit(X, y, sample_weight=w)
     for got, want in zip(port.trees_, jax_f.trees_, strict=True):
         for k in FIELDS:
             np.testing.assert_array_equal(getattr(got, k), getattr(want, k),
@@ -147,8 +150,7 @@ def test_estimator_surface():
     ("max_features", "sqrt"), ("splitter", "random"), ("oob_score", True),
     ("class_weight", "balanced"), ("checkpoint", "ck"),
     ("checkpoint_compact_every", 4), ("warm_start", True),
-    ("monotonic_cst", [1] * 54), ("ccp_alpha", 0.01), ("backend", "host"),
-    ("n_devices", 2), ("refine_depth", 3),
+    ("monotonic_cst", [1] * 54), ("n_devices", 2),
 ])
 def test_options_off_this_slice_raise(param, value):
     X, y = covtype_like(100, seed=0)
