@@ -83,10 +83,34 @@ deep tail the native C++ sweep finishes on the host's cores:
 11. hybrid forest parity: phase 5's 4-tree forest at defaults, so the tail
     engages, on the card and with ``device="cpu"``: identical trees.
 
+Phases 12-15 drive the histogram's fixed-point route, which every
+non-integer payload takes (int64 sums, exact and order-independent):
+
+12. fixed-point kernels: three payloads, the moments of
+    ``california_like(581_012, seed=0)`` (8 features, 256 bins), the class
+    payload of the covtype matrix with weights ``default_rng(2).uniform(
+    0.5, 2)``, and a GBDT ``(count, g, h)`` payload; at S in {1, 8, 64,
+    128, 512, K} every route that fits, int32 and byte-wide bins: two
+    launches ``torch.equal`` to each other and to the plain version; timed
+    beside the plain version, one float32 ``index_put_`` and the bound.
+13. regression fit: ``DecisionTreeRegressor(max_depth=20, max_bins=256)``
+    on that matrix, device engine alone and then at the defaults (crown to
+    depth 8 on the card, tail on the host), twice each: identical fits,
+    held-out R^2 on ``california_like(50_000, seed=1)``; the launch
+    counters around the second fit, both fixed-point routes launched.
+14. regression parity, card vs ``device="cpu"``, field for field:
+    ``california_like(50_000, seed=2)`` at depth 10, and BASELINE config 4
+    as published (``california_like(20_640, seed=0)``, defaults).
+15. weights: phase 3's fit with the phase 12 weights, twice (identical, on
+    the device engine, fixed-point routes only); card vs CPU at
+    ``covtype_like(50_000, seed=2)``, depth 10, same draw (phase 4's tie
+    rule); one default ``class_weight="balanced"`` fit.
+
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the card's name and power limit, JSON lines of per-shape kernel timings
-(``kernel_shapes``, ``serve_kernel_shapes``), of the serving measurements
-(``serving``), of the hybrid fits (``hybrid``) and one ``kernels`` line
+(``kernel_shapes``, ``serve_kernel_shapes``, ``fixed_kernel_shapes``), of
+the serving measurements (``serving``), of the hybrid fits (``hybrid``),
+of phases 13 and 15 (``regression``, ``weights``) and one ``kernels`` line
 come before it.
 Without CUDA the script exits 1 and prints no result.
 """
@@ -145,6 +169,17 @@ REQUESTS = ((1, 300), (64, 150), (4_096, 30))
 # the serving kernels' kernels-line entries: launch counter -> (mode,
 # channel) the served path runs, at the 4,096-row bucket
 SERVE_LINE = {"traverse": ("sum", "proba"), "traverse_q": ("sum", "qproba")}
+PARITY_FIELDS = ("feature", "threshold", "left", "right", "count",
+                 "n_node_samples")
+# Phases 12-15: BASELINE config 4's regressor on California-shaped data at
+# covtype's row count (20,640 rows, the published size, would give the
+# card no real work; phase 14 runs that size too), and phase 3's fit with
+# fractional weights. The fixed-point route's "kernels" line shows the
+# regression fit's payload: stream at S=1, sorted at S=K.
+FIXED_PAYLOADS = ("moments", "class", "gbdt")
+FIXED_LINE = {"stream_fixed": 1, "sorted_fixed": None}
+CAL_ROWS = 581_012
+WEIGHT_LOW, WEIGHT_HIGH = 0.5, 2.0  # default_rng(2).uniform, float32
 
 
 def log(msg: str) -> None:
@@ -183,11 +218,52 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def sass_atomics() -> dict:
+    """Shared- and global-memory atomics in the built histogram library's
+    SASS (``cuobjdump -sass``), per ``hist_tile_kernel`` instantiation
+    ``<bins>/<sorted>/<fixed>``. The fixed-point tiles must add with native
+    ``ATOMS.ADD`` and no compare-and-swap loop."""
+    import collections
+    import re
+
+    from mpitree_tpu_torch import _build
+
+    tool = Path(_build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run(
+        [str(tool), "-sass", str(_build._library_path("histogram"))],
+        capture_output=True, text=True, timeout=300, check=True).stdout
+    out, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : \S*hist_tile_kernelI(\w)Lb([01])ELb([01])E",
+                      line)
+        if m or "Function :" in line:
+            cur = None
+            if m:
+                cur = "/".join((
+                    "uint8" if m.group(1) == "h" else "int32",
+                    "sorted" if m.group(2) == "1" else "stream",
+                    "fixed" if m.group(3) == "1" else "float"))
+                out[cur] = collections.Counter()
+            continue
+        m = re.search(r"\s((?:ATOMS|ATOMG|ATOM|REDG|RED)\.[A-Z0-9.]+)", line)
+        if m and cur:
+            out[cur][m.group(1)] += 1
+    fixed = {k: v for k, v in out.items() if k.endswith("/fixed")}
+    if len(fixed) != 4 or any(
+            any(op.startswith("ATOMS.CAS") for op in v)
+            or not any(op.startswith("ATOMS.ADD") for op in v)
+            for v in fixed.values()):
+        raise AssertionError(f"fixed-point tiles do not add with native "
+                             f"shared atomics: {out}")
+    return {k: dict(v) for k, v in out.items()}
+
+
 def phase_build() -> None:
     from mpitree_tpu_torch import _build, native
 
     t0 = time.perf_counter()
     names = _build.build_all()
+    log(f"sass atomics: {json.dumps(sass_atomics())}")
     t1 = time.perf_counter()
     if native.lib() is None:
         raise AssertionError(
@@ -321,31 +397,37 @@ def phase_kernels(xb, y_d, B: int, K: int, feat_bins: list) -> list:
     return rows
 
 
-def _fit_twice(est, X, y):
+def _fit_twice(est, X, y, *, sample_weight=None, routes=None,
+               first: list | None = None):
     """Fit twice; the launch counters are set to 0 just before the second
-    fit and read just after it. Returns (first s, second s, launches,
-    peak device GiB of the second fit)."""
+    fit and read just after it, and every route of ``routes`` (default
+    the integer routes) must have launched. ``first`` (a list) receives
+    the first fit's tree. Returns (first s, second s, launches, peak device
+    GiB of the second fit)."""
     from mpitree_tpu_torch.ops import hist_kernel
 
     t0 = time.perf_counter()
-    est.fit(X, y)
+    est.fit(X, y, sample_weight=sample_weight)
     torch.cuda.synchronize()
-    first = time.perf_counter() - t0
+    first_s = time.perf_counter() - t0
+    if first is not None:
+        first.append(est.tree_)
 
     torch.cuda.reset_peak_memory_stats()
     for k in hist_kernel.launches:
         hist_kernel.launches[k] = 0
     t0 = time.perf_counter()
-    est.fit(X, y)
+    est.fit(X, y, sample_weight=sample_weight)
     torch.cuda.synchronize()
     second = time.perf_counter() - t0
     launches = dict(hist_kernel.launches)
-    missing = [k for k in hist_kernel.ROUTES if launches[k] == 0]
+    missing = [k for k in routes or hist_kernel.ROUTES if launches[k] == 0]
     if missing:
         raise AssertionError(
             f"{type(est).__name__} fit never launched kernel routes "
             f"{missing}")
-    return first, second, launches, torch.cuda.max_memory_allocated() / 2**30
+    return (first_s, second, launches,
+            torch.cuda.max_memory_allocated() / 2**30)
 
 
 def _check_fit(clf, X, y, Xh, yh, depth: int):
@@ -442,22 +524,25 @@ def _node_rows(tree, X: np.ndarray, node: int) -> np.ndarray:
     return (ids == node).numpy()
 
 
-def _check_parity(gpu, cpu, X, y, what: str, tie_depth: int) -> None:
+def _same_fields(a, b, fields=PARITY_FIELDS) -> bool:
+    return a.n_nodes == b.n_nodes and all(
+        np.array_equal(getattr(a, k), getattr(b, k), equal_nan=True)
+        for k in fields)
+
+
+def _check_parity(gpu, cpu, X, y, what: str, tie_depth: int,
+                  sample_weight=None) -> None:
     """The card's tree must equal the CPU's field for field, or differ
     first at a node above depth ``tie_depth`` (a split the device engine
     chose on the global bins) whose two candidate float64 costs are within
     1e-12 relative: an exact-tie residual (CUDA's and glibc's fp64 ``log``
-    may differ by an ulp)."""
-    from mpitree_tpu_torch.ops import histogram, impurity
+    may differ by an ulp). With ``sample_weight`` the costs come from the
+    fixed-point route's exact counts, as the fit's did."""
+    from mpitree_tpu_torch.ops import hist_kernel, histogram, impurity
     from mpitree_tpu_torch.ops.binning import bin_dataset
 
-    fields = ("feature", "threshold", "left", "right", "count",
-              "n_node_samples")
-    same = gpu.n_nodes == cpu.n_nodes and all(
-        np.array_equal(getattr(gpu, k), getattr(cpu, k), equal_nan=True)
-        for k in fields
-    )
-    if same:
+    fields = PARITY_FIELDS
+    if _same_fields(gpu, cpu):
         log(f"{what}: cuda tree == cpu tree ({gpu.n_nodes} nodes)")
         return
     n = min(gpu.n_nodes, cpu.n_nodes)
@@ -472,13 +557,16 @@ def _check_parity(gpu, cpu, X, y, what: str, tie_depth: int) -> None:
                              f"{node}")
     binned = bin_dataset(X, max_bins=256)
     rows = _node_rows(cpu, X, node)
-    hist = histogram.class_histogram(
-        torch.from_numpy(binned.x_binned[rows]),
-        torch.from_numpy(y[rows].astype(np.int64)),
-        torch.zeros(int(rows.sum()), dtype=torch.int32), 0, n_slots=1,
-        n_bins=binned.n_bins, n_classes=7,
-    )
-    hi, lo, _, _ = impurity.cost_sweep_f64(hist, "entropy")
+    w = None if sample_weight is None else torch.from_numpy(
+        sample_weight[rows])
+    payload = histogram.class_payload(
+        torch.from_numpy(y[rows].astype(np.int64)), w, 7).contiguous()
+    se = histogram.payload_scale(payload)
+    hist = hist_kernel.histogram_reference(
+        torch.from_numpy(binned.x_binned[rows].astype(np.int32)), payload,
+        torch.zeros(int(rows.sum()), dtype=torch.int32), n_slots=1,
+        n_bins=binned.n_bins, scale_exp=se)
+    hi, lo, _, _ = impurity.cost_sweep_f64(hist, "entropy", se)
     cost = hi.double() + lo.double()
 
     def cand(tree, f):
@@ -849,6 +937,295 @@ def phase_serve(forest, Xh, Xbig) -> tuple:
     return stats, launches
 
 
+def weights(n: int) -> np.ndarray:
+    """Phases 12 and 15's fractional weights: ``default_rng(2)`` uniform
+    on [0.5, 2), float32."""
+    return np.random.default_rng(2).uniform(
+        WEIGHT_LOW, WEIGHT_HIGH, n).astype(np.float32)
+
+
+def phase_fixed_kernels(cov_binned, y_cov, cal_binned, y_cal) -> list:
+    """Phase 12: the fixed-point route at every width, for three payloads:
+    regression moments (California-shaped, 8 features), fractional class
+    weights (covtype, 54 features) and GBDT ``(count, g, h)`` (8 features,
+    a fifth of the rows out of the round's sample). Every route whose tile
+    fits, with int32 and byte-wide bins: two launches ``torch.equal`` to
+    each other and to the plain version; timed as phase 2 times the
+    integer routes, beside the plain version, one ``index_put_(...,
+    accumulate=True)`` in float32 and the byte bound."""
+    from mpitree_tpu_torch.core.builder import BuildConfig, _chunk_size
+    from mpitree_tpu_torch.ops import hist_kernel
+    from mpitree_tpu_torch.ops import histogram as ph
+
+    rng = np.random.default_rng(12)
+    n_cov = y_cov.shape[0]
+    cases = {
+        "moments": (cal_binned, ph.moment_payload(
+            y_cal, torch.ones_like(y_cal))),
+        "class": (cov_binned, ph.class_payload(y_cov, torch.from_numpy(
+            weights(n_cov)).to(DEV), 7)),
+        "gbdt": (cal_binned, ph.gbdt_payload(
+            torch.from_numpy(rng.standard_normal(
+                y_cal.shape[0]).astype(np.float32)).to(DEV),
+            torch.from_numpy(np.where(
+                rng.random(y_cal.shape[0]) < 0.2, 0.0,
+                rng.uniform(0.05, 0.25, y_cal.shape[0])).astype(
+                np.float32)).to(DEV))),
+    }
+    rows = []
+    for name in FIXED_PAYLOADS:
+        binned, payload = cases[name]
+        payload = payload.contiguous()
+        xb = binned.x_binned
+        N, F = xb.shape
+        B, C = binned.n_bins, payload.shape[1]
+        feat_bins = [int(v) + 1 for v in binned.n_cand]
+        se = hist_kernel.fixed_point_exponents(payload)
+        packed = hist_kernel.pack_bins(xb, B)
+        K = _chunk_size(N, F, B, C, BuildConfig(max_depth=DEPTH),
+                        cell_bytes=8)
+        feat = torch.arange(F, device=DEV, dtype=torch.int64)
+        for S in sorted(set(SLOT_TIERS + (K,))):
+            slot = torch.from_numpy(_slots(rng, N, S)).to(DEV)
+            planned = hist_kernel.plan(S, F, C, B, feat_bins=feat_bins,
+                                       n_rows=N, fixed=True)["route"]
+            want = hist_kernel.histogram_reference(
+                xb, payload, slot, n_slots=S, n_bins=B, scale_exp=se)
+            order, seg = hist_kernel.slot_segments(slot, S)
+            torch.cuda.synchronize()
+            sort_ms = cuda_ms(lambda: hist_kernel.slot_segments(slot, S),
+                              hold=True)
+            route_ms = {}
+            for route in hist_kernel.ROUTES:
+                try:
+                    hist_kernel.plan(S, F, C, B, route, feat_bins=feat_bins,
+                                     fixed=True)
+                except ValueError:
+                    continue
+                for bins, pk in (("int32", None), ("uint8", packed)):
+                    variants = {f"{route}/{bins}": {}}
+                    if route == "sorted":
+                        variants[f"{route}/{bins}/presorted"] = dict(
+                            order=order, seg_start=seg)
+                    for vname, pre in variants.items():
+                        def run(route=route, pk=pk, pre=pre):
+                            return hist_kernel.histogram_cuda(
+                                xb, payload, slot, n_slots=S, n_bins=B,
+                                packed=pk, feat_bins=feat_bins,
+                                scale_exp=se, _variant=route, **pre)
+                        got, again = run(), run()
+                        torch.cuda.synchronize()
+                        diff = int((got - want).abs().max())
+                        if vname == f"{planned}/uint8":
+                            err = float(diff)
+                        if not (torch.equal(got, want)
+                                and torch.equal(again, got)):
+                            raise AssertionError(
+                                f"fixed {name} {vname} at S={S}: kernel != "
+                                f"plain version or != its own second "
+                                f"launch (max |diff| {diff})")
+                        del got, again
+                        route_ms[vname] = cuda_ms(run, hold=True)
+
+            # library yardstick: one float32 index_put_ over prebuilt flat
+            # ids of every nonzero (row, channel), F cells each
+            live = ((slot >= 0) & (slot < S))[:, None] & (payload != 0)
+            r, c = torch.nonzero(live, as_tuple=True)
+            ids = (((slot[r].to(torch.int64)[:, None] * F + feat) * C
+                    + c[:, None]) * B + xb[r].to(torch.int64)).reshape(-1)
+            vals = payload[r, c][:, None].expand(-1, F).reshape(-1)
+            n_in = int(((slot >= 0) & (slot < S)).sum())
+            n_nonzero = int(r.numel())
+
+            def library():
+                out = torch.zeros(S * F * C * B, dtype=torch.float32,
+                                  device=DEV)
+                out.index_put_((ids,), vals, accumulate=True)
+                return out
+
+            plain_ms = cuda_ms(lambda: hist_kernel.histogram_reference(
+                xb, payload, slot, n_slots=S, n_bins=B, scale_exp=se),
+                reps=3)
+            library_ms = cuda_ms(library, reps=3)
+            del ids, vals, r, c, want
+
+            # bytes the planned route must move: the slot vector, a padded
+            # byte row of bins and the payload of every row in range, the
+            # sorted route's order and segment offsets, the int64 output
+            # once; operations: one add per (nonzero value, feature)
+            n_bytes = (N * 4 + n_in * (packed.shape[1] + C * 4)
+                       + S * F * C * B * 8)
+            if planned == "sorted":
+                n_bytes += n_in * 4 + (S + 1) * 4
+            t_bytes = n_bytes / HBM_BYTES_PER_S
+            t_ops = n_nonzero * F / FP32_FLOPS
+            ms = route_ms[f"{planned}/uint8"]
+            rows.append(dict(
+                payload=name, S=S, K=K, route=planned, scale_exp=list(se),
+                rows_in_range=n_in, ms=ms,
+                kernel_ms=route_ms.get(f"{planned}/uint8/presorted", ms),
+                sort_ms=sort_ms if planned == "sorted" else 0.0,
+                plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                max_abs_err=err, route_ms=route_ms,
+            ))
+            log(f"fixed kernels: {name} S={S} {planned}: route {ms:.4f} ms "
+                f"(kernel {rows[-1]['kernel_ms']:.4f}, sort {sort_ms:.4f}), "
+                f"plain {plain_ms:.4f} ms, index_put_ {library_ms:.4f} ms, "
+                f"bound {rows[-1]['bound_ms']:.4f} ms "
+                f"({rows[-1]['bound_by']}); every route equal to plain and "
+                f"to its second launch, ms {route_ms}")
+        del packed
+    return rows
+
+
+def _r2(y, pred) -> float:
+    return 1.0 - float(np.sum((y - pred) ** 2)) / float(
+        np.sum((y - y.mean()) ** 2))
+
+
+def phase_regression(Xc, yc, Xch, ych) -> dict:
+    """Phase 13: ``DecisionTreeRegressor(max_depth=20, max_bins=256)`` on
+    the California-shaped matrix, device engine alone and then at the
+    defaults (crown on the card, tail on the host), twice each: the two
+    fits identical field for field; the fixed-point routes must launch in
+    the second device-only fit."""
+    from mpitree_tpu_torch.ops import hist_kernel
+    from mpitree_tpu_torch.tree import DecisionTreeRegressor
+
+    out = {}
+    for mode, kw in (("device", DEVICE_ONLY), ("default", {})):
+        reg = DecisionTreeRegressor(max_depth=DEPTH, max_bins=256, **kw)
+        first = []
+        f1, f2, launches, peak = _fit_twice(
+            reg, Xc, yc, first=first,
+            routes=hist_kernel.FIXED_ROUTES)
+        if not _same_fields(first[0], reg.tree_, PARITY_FIELDS + (
+                "value", "impurity")):
+            raise AssertionError(f"regression ({mode}): two fits differ")
+        t0 = time.perf_counter()
+        pred = reg.predict(Xch)
+        predict_s = time.perf_counter() - t0
+        r2, train_r2 = _r2(ych, pred), reg.score(Xc, yc)
+        st = dict(reg.fit_stats_)
+        tree = reg.tree_
+        if not (st["engine"] == "device" and np.isfinite(pred).all()
+                and pred.shape == ych.shape
+                and tree.n_node_samples[0] == len(Xc)
+                and 0 < reg.get_depth() <= DEPTH and r2 > 0.5
+                and train_r2 > r2):
+            raise AssertionError(f"implausible regression fit ({mode}): "
+                                 f"R2 {r2}, train {train_r2}, {st}")
+        if mode == "default" and not (st.get("crown_depth") == HYBRID_CROWN
+                                      and st["refine_nodes_added"] > 0):
+            raise AssertionError(f"regression tail did not engage: {st}")
+        out[mode] = dict(first_s=f1, second_s=f2, heldout_r2=r2,
+                         train_r2=train_r2, n_nodes=tree.n_nodes,
+                         depth=reg.get_depth(), leaves=reg.get_n_leaves(),
+                         predict_s=predict_s, peak_gib=peak,
+                         launches=launches, **st)
+        log(f"regression ({mode}): {len(Xc)} x {Xc.shape[1]} depth {DEPTH}: "
+            f"first {f1:.3f} s, second {f2:.3f} s (" + ", ".join(
+                f"{k} {v:.3f} s" for k, v in st.items()
+                if k.endswith("_seconds")) + f"); two fits identical; "
+            f"held-out R2 {r2:.6f} ({len(Xch)} rows), train R2 "
+            f"{train_r2:.6f}; n_nodes {tree.n_nodes}, depth "
+            f"{reg.get_depth()}; peak device memory {peak:.3f} GiB; "
+            f"launches {launches}")
+    return out
+
+
+def phase_regression_parity() -> None:
+    """Phase 14: regression trees on the card and with ``device="cpu"``,
+    field for field: ``california_like(50_000, seed=2)`` at depth 10
+    (device engine alone), and BASELINE config 4 as published,
+    ``california_like(20_640, seed=0)`` at the defaults."""
+    from mpitree_tpu_torch.tree import DecisionTreeRegressor
+    from mpitree_tpu_torch.utils.datasets import california_like
+
+    for n, seed, kw in ((50_000, 2, dict(max_depth=10, **DEVICE_ONLY)),
+                        (20_640, 0, {})):
+        X, y = california_like(n, seed=seed)
+        t0 = time.perf_counter()
+        gpu = DecisionTreeRegressor(device="cuda", **kw).fit(X, y)
+        t1 = time.perf_counter()
+        cpu = DecisionTreeRegressor(device="cpu", **kw).fit(X, y)
+        t2 = time.perf_counter()
+        if not _same_fields(gpu.tree_, cpu.tree_, PARITY_FIELDS + (
+                "value", "impurity", "parent", "depth")):
+            raise AssertionError(
+                f"regression parity: {n} rows {kw}: cuda tree != cpu tree")
+        log(f"regression parity: california_like({n}, seed={seed}) {kw}: "
+            f"cuda tree == cpu tree ({gpu.tree_.n_nodes} nodes, depth "
+            f"{gpu.get_depth()}); cuda {t1 - t0:.3f} s, cpu "
+            f"{t2 - t1:.3f} s; {gpu.fit_stats_}")
+
+
+def phase_weights(X, y, Xh, yh, device_acc: float) -> dict:
+    """Phase 15: phase 3's fit with fractional weights (device engine),
+    twice: identical, on the device engine, the fixed-point routes
+    launched; card vs CPU at 50,000 rows and depth 10 with the same draw
+    (phase 4's tie rule); one default ``class_weight="balanced"`` fit."""
+    from mpitree_tpu_torch.ops import hist_kernel
+    from mpitree_tpu_torch.tree import DecisionTreeClassifier
+    from mpitree_tpu_torch.utils.datasets import covtype_like
+
+    w = weights(len(y))
+    clf = DecisionTreeClassifier(criterion="entropy", max_depth=DEPTH,
+                                 max_bins=256, **DEVICE_ONLY)
+    first = []
+    f1, f2, launches, peak = _fit_twice(clf, X, y, sample_weight=w,
+                                        first=first,
+                                        routes=hist_kernel.FIXED_ROUTES)
+    if not _same_fields(first[0], clf.tree_, PARITY_FIELDS + ("impurity",)):
+        raise AssertionError("weighted fit: two fits differ")
+    if clf.fit_stats_["engine"] != "device" or any(
+            launches[k] for k in hist_kernel.ROUTES):
+        raise AssertionError(f"weighted fit left the fixed-point route: "
+                             f"{clf.fit_stats_}, {launches}")
+    acc = float(np.mean(clf.predict(Xh) == yh))
+    out = dict(first_s=f1, second_s=f2, heldout_acc=acc,
+               n_nodes=clf.tree_.n_nodes, peak_gib=peak, launches=launches,
+               device_only_unweighted_heldout_acc=device_acc)
+    log(f"weights: {len(X)} x {X.shape[1]} depth {DEPTH}, weights uniform "
+        f"on [{WEIGHT_LOW}, {WEIGHT_HIGH}): first {f1:.3f} s, second "
+        f"{f2:.3f} s; two fits identical; engine device; held-out acc "
+        f"{acc:.6f} (unweighted, phase 3: {device_acc:.6f}); n_nodes "
+        f"{clf.tree_.n_nodes}; peak {peak:.3f} GiB; launches {launches}")
+
+    Xp, yp = covtype_like(50_000, seed=2)
+    wp = weights(len(yp))
+    kw = dict(criterion="entropy", max_depth=10, max_bins=256,
+              **DEVICE_ONLY)
+    t0 = time.perf_counter()
+    gpu = DecisionTreeClassifier(device="cuda", **kw).fit(Xp, yp, wp)
+    t1 = time.perf_counter()
+    cpu = DecisionTreeClassifier(device="cpu", **kw).fit(Xp, yp, wp)
+    t2 = time.perf_counter()
+    _check_parity(gpu.tree_, cpu.tree_, Xp, yp, tie_depth=10,
+                  sample_weight=wp,
+                  what=f"weighted parity: {len(Xp)} rows depth 10, cuda "
+                  f"{t1 - t0:.3f} s, cpu {t2 - t1:.3f} s")
+
+    bal = DecisionTreeClassifier(criterion="entropy", max_depth=DEPTH,
+                                 max_bins=256, class_weight="balanced")
+    t0 = time.perf_counter()
+    bal.fit(X, y)
+    torch.cuda.synchronize()
+    bal_s = time.perf_counter() - t0
+    bal_acc = float(np.mean(bal.predict(Xh) == yh))
+    per_class = {int(c): float(np.mean(bal.predict(Xh[yh == c]) == c))
+                 for c in np.unique(yh)}
+    out.update(balanced_s=bal_s, balanced_heldout_acc=bal_acc,
+               balanced_per_class_recall=per_class,
+               balanced_stats=dict(bal.fit_stats_))
+    log(f"weights: class_weight='balanced' at defaults: {bal_s:.3f} s, "
+        f"held-out acc {bal_acc:.6f}, per-class recall {per_class}; "
+        f"{bal.fit_stats_}")
+    return out
+
+
 def phase_profile(name: str, work, out_dir: Path) -> None:
     """Run ``work()`` once more under torch.profiler: device time by kernel
     and the device's busy share of the wall-clock; the table goes to
@@ -888,14 +1265,17 @@ def phase_profile(name: str, work, out_dir: Path) -> None:
 
 def profile_all(X, y, forest, Xh, out_dir: Path) -> None:
     """``--profile``: one more depth-20 fit and forest fit (device engine
-    alone), one more default (hybrid) depth-20 fit, and 300 one-row
-    requests to each of a freshly published ``rf`` and ``rf8``, each
-    profiled."""
+    alone), one more default (hybrid) depth-20 fit, one device-engine
+    regression fit (phase 13's) and weighted fit (phase 15's), and 300
+    one-row requests to each of a freshly published ``rf`` and ``rf8``,
+    each profiled."""
     from mpitree_tpu_torch.serving import ModelRegistry
     from mpitree_tpu_torch.tree import (
         DecisionTreeClassifier,
+        DecisionTreeRegressor,
         RandomForestClassifier,
     )
+    from mpitree_tpu_torch.utils.datasets import california_like
 
     phase_profile("fit", lambda: DecisionTreeClassifier(
         criterion="entropy", max_depth=DEPTH, max_bins=256,
@@ -906,6 +1286,12 @@ def profile_all(X, y, forest, Xh, out_dir: Path) -> None:
     phase_profile("hybrid_fit", lambda: DecisionTreeClassifier(
         criterion="entropy", max_depth=DEPTH, max_bins=256).fit(X, y),
         out_dir)
+    Xc, yc = california_like(CAL_ROWS, seed=0)
+    phase_profile("regression_fit", lambda: DecisionTreeRegressor(
+        max_depth=DEPTH, max_bins=256, **DEVICE_ONLY).fit(Xc, yc), out_dir)
+    phase_profile("weighted_fit", lambda: DecisionTreeClassifier(
+        criterion="entropy", max_depth=DEPTH, max_bins=256,
+        **DEVICE_ONLY).fit(X, y, sample_weight=weights(len(y))), out_dir)
     reg = ModelRegistry()
     reg.publish("rf", forest)
     reg.publish("rf8", forest, quantize="int8")
@@ -934,7 +1320,7 @@ def main() -> int:
     from mpitree_tpu_torch.ops import hist_kernel
     from mpitree_tpu_torch.ops.binning import bin_dataset_torch
     from mpitree_tpu_torch.serving import serve_kernel
-    from mpitree_tpu_torch.utils.datasets import covtype_like
+    from mpitree_tpu_torch.utils.datasets import california_like, covtype_like
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -974,6 +1360,25 @@ def main() -> int:
     phase_parity(DEPTH, hybrid=True)
     hybrid["forest"] = phase_default_forest(X, y, Xh, yh, forest_acc)
     phase_forest_parity(hybrid=True)
+
+    Xc, yc = california_like(CAL_ROWS, seed=0)
+    Xch, ych = california_like(50_000, seed=1)
+    t0 = time.perf_counter()
+    cov_binned = bin_dataset_torch(X, max_bins=256, binning="auto",
+                                   device=dev)
+    cal_binned = bin_dataset_torch(Xc, max_bins=256, binning="auto",
+                                   device=dev)
+    torch.cuda.synchronize()
+    log(f"binning: {CAL_ROWS} x {Xc.shape[1]} and covtype again on the "
+        f"card in {time.perf_counter() - t0:.3f} s")
+    y_cal = torch.from_numpy((yc - yc.mean()).astype(np.float32)).to(dev)
+    fixed_shapes = phase_fixed_kernels(
+        cov_binned, torch.from_numpy(y).to(dev), cal_binned, y_cal)
+    del cov_binned, cal_binned, y_cal
+    torch.cuda.empty_cache()
+    regression = phase_regression(Xc, yc, Xch, ych)
+    phase_regression_parity()
+    weighted = phase_weights(X, y, Xh, yh, fit_acc)
     if args.profile:
         profile_all(X, y, forest, Xh, args.profile)
 
@@ -1011,7 +1416,24 @@ def main() -> int:
                 for r in serve_shapes if r["kernel"] == form
                 and r["agg"] == agg and r["channel"] == chan},
         ))
-    if (set(hist_kernel.ROUTES) != set(REPRESENTATIVE)
+    for key, S in FIXED_LINE.items():
+        route = key[:-len("_fixed")]
+        row = next(r for r in fixed_shapes if r["payload"] == "moments"
+                   and r["route"] == route and r["S"] == (S or r["K"]))
+        kernels.append(dict(
+            name=f"hist_{key}[S={row['S']}]", route="cuda",
+            source="mpitree_tpu_torch/csrc/histogram.cu",
+            replaces=REPLACES[route],
+            payloads="mpitree_tpu/ops/pallas_hist.py:245-266",
+            launches=regression["device"]["launches"][key],
+            max_abs_err=row["max_abs_err"], ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=row["library_ms"],
+            kernel_ms=row["kernel_ms"], sort_ms=row["sort_ms"],
+            payload="moments (regression fit, phase 13)",
+            weighted_fit_launches=weighted["launches"][key],
+        ))
+    if (set(hist_kernel.launches) != set(REPRESENTATIVE) | set(FIXED_LINE)
             or set(serve_kernel.launches) != set(SERVE_LINE)):
         raise AssertionError("kernels line does not cover every kernel")
     log(f"total: {time.perf_counter() - t_start:.3f} s")
@@ -1019,6 +1441,9 @@ def main() -> int:
     log(json.dumps({"serve_kernel_shapes": serve_shapes}))
     log(json.dumps({"serving": serving}))
     log(json.dumps({"hybrid": hybrid}))
+    log(json.dumps({"fixed_kernel_shapes": fixed_shapes}))
+    log(json.dumps({"regression": regression}))
+    log(json.dumps({"weights": weighted}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

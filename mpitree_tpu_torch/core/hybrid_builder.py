@@ -26,9 +26,12 @@ on its own rows):
 - **per-subtree** (no native library): ``build_tree_host`` once per
   candidate leaf, on that leaf's rows binned with ``binning="exact"``.
 
+A regression tail sweeps the moments with the C++ regression sweep and
+refits its subtrees' values exactly from their rows
+(``core/builder.refit_regression_values``), as the JAX package does.
+
 Not here (``ROADMAP.md``): the streamed row gather (item 16), feature
-sampling (item 10), the regression refit (item 10) and fingerprints
-(item 18).
+sampling (item 10) and fingerprints (item 18).
 """
 
 from __future__ import annotations
@@ -39,7 +42,10 @@ import time
 import numpy as np
 
 from mpitree_tpu_torch import native
-from mpitree_tpu_torch.core.builder import _TreeBuffer, integer_weights
+from mpitree_tpu_torch.core.builder import (
+    new_tree_buffer,
+    refit_regression_values,
+)
 from mpitree_tpu_torch.core.host_builder import (
     _leaf_stats,
     _native_level_decisions,
@@ -143,7 +149,8 @@ def _bin_per_root(Xr: np.ndarray, starts: np.ndarray, ends: np.ndarray):
 
 def _refine_batched(top: TreeArrays, X, y_enc, candidates, rows_per, *,
                     cfg_sub, max_depth_total, root_depth, n_classes,
-                    sample_weight, stats: dict) -> TreeArrays:
+                    sample_weight, stats: dict,
+                    refit_targets=None) -> TreeArrays:
     """Grow every deep subtree together in one multi-root host frontier.
 
     ``root_depth[i]`` is candidate ``i``'s depth in the crown: candidates
@@ -169,15 +176,18 @@ def _refine_batched(top: TreeArrays, X, y_enc, candidates, rows_per, *,
     n_bins = int(ncand.max(initial=0)) + 1
 
     Nr = len(rows_all)
-    y_r = np.ascontiguousarray(y_enc[rows_all], np.int32)
-    C = int(n_classes)
+    task = cfg_sub.task
+    regression = task == "regression"
+    y_r = np.ascontiguousarray(y_enc[rows_all],
+                               np.float32 if regression else np.int32)
+    C = 3 if regression else int(n_classes)
     w = None if sample_weight is None else np.ascontiguousarray(
         sample_weight[rows_all], np.float64
     )
     w_dense = np.ones(Nr) if w is None else w
 
     # the crown's dtype rule: the graft's count.astype(...) never truncates
-    buf = _TreeBuffer(C, np.int64 if integer_weights(w) else np.float64)
+    buf = new_tree_buffer(task, C, w)
     buf.ensure(R)
     buf.n = R
     root_of = np.arange(R, dtype=np.int32)
@@ -201,6 +211,7 @@ def _refine_batched(top: TreeArrays, X, y_enc, candidates, rows_per, *,
             # every surviving root is depth-exhausted: leaf stats only
             counts, n, value, node_imp = _leaf_stats(
                 slot, live, y_r, w_dense, S, C, criterion=cfg_sub.criterion,
+                task=task,
             )
             _record_level(buf, ids, S, True, None, None, value, n, counts,
                           node_imp)
@@ -213,12 +224,19 @@ def _refine_batched(top: TreeArrays, X, y_enc, candidates, rows_per, *,
             exhausted = rem[slot_roots] <= depth
             ncand_slot[exhausted] = 0
         t0 = time.perf_counter()
-        nat = native.best_splits_classification(
-            xb, y_r, nid, w, n_bins=n_bins, n_classes=C,
-            frontier_lo=frontier_lo, n_slots=S, n_cand=ncand_slot,
-            n_cand_per_slot=True, criterion=cfg_sub.criterion,
-            min_child_weight=cfg_sub.min_child_weight,
-        )
+        if regression:
+            nat = native.best_splits_regression(
+                xb, y_r, nid, w, n_bins=n_bins, frontier_lo=frontier_lo,
+                n_slots=S, n_cand=ncand_slot, n_cand_per_slot=True,
+                min_child_weight=cfg_sub.min_child_weight,
+            )
+        else:
+            nat = native.best_splits_classification(
+                xb, y_r, nid, w, n_bins=n_bins, n_classes=C,
+                frontier_lo=frontier_lo, n_slots=S, n_cand=ncand_slot,
+                n_cand_per_slot=True, criterion=cfg_sub.criterion,
+                min_child_weight=cfg_sub.min_child_weight,
+            )
         sweep_s += time.perf_counter() - t0
         counts, n, value, node_imp, feat_best, bin_best, stop = (
             _native_level_decisions(nat, cfg=cfg_sub)
@@ -242,6 +260,10 @@ def _refine_batched(top: TreeArrays, X, y_enc, candidates, rows_per, *,
 
     stats["tail_sweep_seconds"] = sweep_s
     bt = buf.finalize()
+    if regression and refit_targets is not None:
+        refit_regression_values(
+            bt, nid, w_dense, np.asarray(refit_targets, np.float64)[rows_all]
+        )
     return _graft_batched(top, bt, candidates, root_depth[root_of])
 
 
@@ -287,9 +309,11 @@ def _graft_batched(top: TreeArrays, bt: TreeArrays, attach,
 
 def refine_deep_subtrees(tree: TreeArrays, X: np.ndarray, y_enc: np.ndarray,
                          leaf_ids: np.ndarray, *, config, refine_depth: int,
-                         n_classes: int,
+                         n_classes: int | None = None,
                          sample_weight: np.ndarray | None = None,
-                         stats: dict | None = None) -> TreeArrays:
+                         stats: dict | None = None,
+                         refit_targets: np.ndarray | None = None
+                         ) -> TreeArrays:
     """Host-finish every still-splittable leaf of the crown.
 
     ``tree`` is the crown (grown to ``refine_depth``), ``leaf_ids`` the
@@ -299,7 +323,9 @@ def refine_deep_subtrees(tree: TreeArrays, X: np.ndarray, y_enc: np.ndarray,
     weight 0 (a bootstrap's undrawn rows) stay with their leaf: they add to
     no count but their values are among its exact candidates, as in the
     JAX package. ``stats`` (a dict) receives ``refine_candidates``,
-    ``refine_engine`` and, from the batched engine, its seconds.
+    ``refine_engine`` and, from the batched engine, its seconds. A
+    regression tail (``config.task``) takes ``y_enc`` as the float32
+    centred targets and ``refit_targets`` as the float64 ones.
     """
     cfg = config
     if cfg.max_depth is not None and int(cfg.max_depth) <= refine_depth:
@@ -335,6 +361,7 @@ def refine_deep_subtrees(tree: TreeArrays, X: np.ndarray, y_enc: np.ndarray,
             cfg_sub=cfg, max_depth_total=cfg.max_depth,
             root_depth=tree.depth[candidates], n_classes=n_classes,
             sample_weight=sample_weight, stats=stats,
+            refit_targets=refit_targets,
         )
 
     subtrees, attach = [], []
@@ -352,6 +379,8 @@ def refine_deep_subtrees(tree: TreeArrays, X: np.ndarray, y_enc: np.ndarray,
             n_classes=n_classes,
             sample_weight=None if sample_weight is None
             else sample_weight[rows],
+            refit_targets=None if refit_targets is None
+            else refit_targets[rows],
         )
         if st.n_nodes > 1:  # else immediately stopped: keep the leaf
             subtrees.append(st)
@@ -361,8 +390,9 @@ def refine_deep_subtrees(tree: TreeArrays, X: np.ndarray, y_enc: np.ndarray,
     return _concat_trees(tree, subtrees, attach)
 
 
-def apply_refine(tree, leaf_ids, X, y, *, cfg, max_depth, rd, n_classes,
-                 sample_weight=None, stats: dict | None = None):
+def apply_refine(tree, leaf_ids, X, y, *, cfg, max_depth, rd,
+                 n_classes=None, sample_weight=None,
+                 stats: dict | None = None, refit_targets=None):
     """The estimators' entry: the refine tail of a crown built with
     ``cfg`` (whose ``max_depth`` is the crown depth ``rd``) down to
     ``max_depth``. ``stats`` also receives ``refine_nodes_added``."""
@@ -370,7 +400,7 @@ def apply_refine(tree, leaf_ids, X, y, *, cfg, max_depth, rd, n_classes,
         tree, X, y, leaf_ids,
         config=dataclasses.replace(cfg, max_depth=max_depth),
         refine_depth=rd, n_classes=n_classes, sample_weight=sample_weight,
-        stats=stats,
+        stats=stats, refit_targets=refit_targets,
     )
     if stats is not None:
         stats["refine_nodes_added"] = int(out.n_nodes - tree.n_nodes)

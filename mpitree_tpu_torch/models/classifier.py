@@ -14,7 +14,13 @@ depth, the hybrid refine tail (``core/hybrid_builder.apply_refine``) and
   ``device``: ``None`` means ``"cuda"`` and raises when CUDA is missing;
   only an explicit ``device="cpu"`` runs the plain CPU path. Unlike the JAX
   package, a small fit is not routed to the host tier: the card builds
-  every ``backend=None`` fit, and the trees are the same either way.
+  every ``backend=None`` fit. The trees agree with the JAX package's
+  default either way: integer weights sum exactly on both tiers, and a
+  fractionally weighted fit (``sample_weight``, ``class_weight``) takes
+  the histogram's fixed-point route, whose counts are the exact float64
+  sums the JAX host tier computes (the two differ only where two candidate
+  costs tie within 1e-12 relative: the host's C++ sweep keeps the first of
+  such near-ties, the device engine the smaller).
 - ``backend="host"`` runs the host tier (host binning, then
   ``core/host_builder.build_tree_host``); ``"cpu"`` and ``"tpu"`` raise
   and point to ``device=``.
@@ -26,15 +32,19 @@ depth, the hybrid refine tail (``core/hybrid_builder.apply_refine``) and
 
 sklearn is not a dependency: ``get_params``/``set_params`` read the
 ``__init__`` signature and ``score`` is the (weighted) mean accuracy.
-``fit_stats_`` holds the fit's phase seconds (``bin_seconds``,
-``crown_seconds``, ``tail_seconds``, ``prune_seconds``, each ending when
-the card is idle) and, when the tail ran, its ``crown_depth``,
-``refine_candidates``, ``refine_engine`` and ``refine_nodes_added``.
+``class_weight`` (``"balanced"`` or a dict) multiplies ``sample_weight``
+as the JAX package's ``apply_class_weight`` does (``:239-240``).
+
+``fit_stats_`` holds the fit's ``engine`` (``"device"`` or ``"host"``),
+its phase seconds (``bin_seconds``, ``crown_seconds``, ``tail_seconds``,
+``prune_seconds``, each ending when the card is idle) and, when the tail
+ran, its ``crown_depth``, ``refine_candidates``, ``refine_engine`` and
+``refine_nodes_added``.
 
 Options that live off the ported path raise ``NotImplementedError``
 naming their ``ROADMAP.md`` item: ``max_leaf_nodes`` (leaf-wise growth),
-``splitter="random"``/``max_features`` (sampling), ``class_weight``,
-``monotonic_cst`` and multi-device ``n_devices``.
+``splitter="random"``/``max_features`` (sampling), ``monotonic_cst`` and
+multi-device ``n_devices``.
 """
 
 from __future__ import annotations
@@ -56,6 +66,7 @@ from mpitree_tpu_torch.utils.carry import tree_from_reference
 from mpitree_tpu_torch.utils.export import export_tree_text
 from mpitree_tpu_torch.utils.pruning import ccp_prune, pruning_path_for
 from mpitree_tpu_torch.utils.validation import (
+    apply_class_weight,
     min_child_weight,
     min_decrease_scaled,
     resolve_refine,
@@ -74,7 +85,6 @@ _LATER = (
     ("max_leaf_nodes", None, "Queue 1 item 13 (leaf-wise growth)"),
     ("splitter", "best", "Queue 1 item 10 (ops/sampling.py)"),
     ("max_features", None, "Queue 1 item 10 (ops/sampling.py)"),
-    ("class_weight", None, "Queue 1 item 9 (utils/validation.py class_weight)"),
     ("monotonic_cst", None, "Queue 1 item 10 (utils/monotonic.py)"),
 )
 
@@ -95,31 +105,36 @@ def host_tier(backend) -> bool:
 
 
 def grow_tree(binned, X, y, *, host: bool, cfg: BuildConfig, max_depth, rd,
-              refine: bool, n_classes: int, sample_weight, ccp_alpha,
-              clock, stats: dict, packed=None) -> TreeArrays:
+              refine: bool, n_classes, sample_weight, ccp_alpha,
+              clock, stats: dict, packed=None,
+              refit_targets=None) -> TreeArrays:
     """One tree in the JAX package's order: the build to the crown depth
     ``cfg.max_depth`` (the host tier when ``host``, else the device engine
     on ``binned``'s device), the refine tail down to ``max_depth`` when
-    ``refine``, then ``ccp_alpha`` pruning. Adds the phase seconds and the
-    tail's counts to ``stats``."""
+    ``refine``, then ``ccp_alpha`` pruning. ``y`` is what the builders
+    take (class indices, or regression's float32 centred targets, whose
+    float64 ``refit_targets`` give the leaf values). Adds the engine, the
+    phase seconds and the tail's counts to ``stats``."""
     kw = dict(config=cfg, n_classes=n_classes, sample_weight=sample_weight,
-              return_leaf_ids=refine)
+              return_leaf_ids=refine, refit_targets=refit_targets)
     res = (build_tree_host(binned, y, **kw) if host
            else build_tree(binned, y, packed=packed, **kw))
     tree, leaf_ids = res if refine else (res, None)
+    stats["engine"] = "host" if host else "device"
     stats["crown_seconds"] = stats.get("crown_seconds", 0.0) + clock.lap()
     if refine:
         tail = {}
         tree = apply_refine(
             tree, leaf_ids, X, y, cfg=cfg, max_depth=max_depth, rd=rd,
             n_classes=n_classes, sample_weight=sample_weight, stats=tail,
+            refit_targets=refit_targets,
         )
         tail["tail_seconds"] = clock.lap()
         stats["crown_depth"] = rd
         for k, v in tail.items():
             stats[k] = v if isinstance(v, str) else stats.get(k, 0) + v
     if ccp_alpha:
-        tree = ccp_prune(tree, ccp_alpha)
+        tree = ccp_prune(tree, ccp_alpha, task=cfg.task)
         stats["prune_seconds"] = stats.get("prune_seconds", 0.0) + clock.lap()
     return tree
 
@@ -157,10 +172,9 @@ def refuse_later(est, later) -> None:
         )
 
 
-class ClassifierBase:
-    """The classifiers' shared surface without sklearn: ``get_params`` and
-    ``set_params`` read the ``__init__`` signature; ``score`` is the
-    (weighted) mean accuracy of ``predict``."""
+class EstimatorBase:
+    """The estimators' shared surface without sklearn: ``get_params`` and
+    ``set_params`` read the ``__init__`` signature."""
 
     @classmethod
     def _param_names(cls) -> list:
@@ -183,6 +197,20 @@ class ClassifierBase:
             setattr(self, k, v)
         return self
 
+    def _not_fitted(self):
+        return NotFittedError(
+            f"This {type(self).__name__} instance is not fitted yet. "
+            "Call 'fit' with appropriate arguments before using this "
+            "estimator."
+        )
+
+
+class ClassifierBase(EstimatorBase):
+    """The classifiers' shared surface: ``score`` is the (weighted) mean
+    accuracy of ``predict``."""
+
+    _task = "classification"
+
     def score(self, X, y, sample_weight=None) -> float:
         """Mean accuracy (weighted by ``sample_weight`` when given)."""
         hit = (self.predict(X) == np.asarray(y)).astype(np.float64)
@@ -196,13 +224,6 @@ class ClassifierBase:
         self.n_features_ = int(n_features)
         self.n_features_in_ = int(n_features)
         self.n_outputs_ = 1
-
-    def _not_fitted(self):
-        return NotFittedError(
-            f"This {type(self).__name__} instance is not fitted yet. "
-            "Call 'fit' with appropriate arguments before using this "
-            "estimator."
-        )
 
 
 class DecisionTreeClassifier(ClassifierBase):
@@ -258,6 +279,7 @@ class DecisionTreeClassifier(ClassifierBase):
         device = resolve_device(self.device)
         X, y_enc, classes = validate_fit_data(X, y)
         sw = validate_sample_weight(sample_weight, X.shape[0])
+        sw = apply_class_weight(self.class_weight, y_enc, classes, sw)
         clock = FitClock(device)
         binned = (
             bin_dataset(X, max_bins=self.max_bins, binning=self.binning)

@@ -28,8 +28,10 @@ forest.py`` on its per-tree device route (``_fit_forest``, ``:272-765``;
 ``trees_`` is a :class:`~mpitree_tpu_torch.serving.tables.TreeList`,
 which carries the flat table that predict and ``compile_model`` share.
 
-``fit_stats_`` sums the phase seconds and tail counts over the trees (see
-``models/classifier.py``).
+``fit_stats_`` sums the phase seconds and tail counts over the trees and
+names the ``engine`` (see ``models/classifier.py``). A fractional
+``sample_weight`` composes into fractional tree weights, which the card
+sums on the histogram's fixed-point route.
 
 Options off this path raise ``NotImplementedError`` naming their
 ``ROADMAP.md`` item: ``max_features`` other than ``None``,
@@ -70,7 +72,7 @@ _LATER = (
     ("max_features", None, "Queue 1 item 10 (ops/sampling.py)"),
     ("splitter", "best", "Queue 1 item 10 (ops/sampling.py)"),
     ("oob_score", False, "Queue 1 item 11 (forest oob_score)"),
-    ("class_weight", None, "Queue 1 item 9 (utils/validation.py class_weight)"),
+    ("class_weight", None, "Queue 1 item 11 (forest class_weight)"),
     ("checkpoint", None, "Queue 1 item 17 (resilience/checkpoint.py)"),
     ("checkpoint_compact_every", None,
      "Queue 1 item 17 (resilience/checkpoint.py)"),

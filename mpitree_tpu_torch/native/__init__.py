@@ -2,8 +2,9 @@
 first use and bound with ``ctypes``.
 
 Counterpart of ``mpitree_tpu/native/__init__.py``; ``split_kernel.cpp`` is a
-byte-identical copy of the JAX package's. It is the C++ sweep of the host
-builder (``core/host_builder.py``) and of the hybrid refine tail
+byte-identical copy of the JAX package's. It is the C++ sweep, for
+classification and regression, of the host builder
+(``core/host_builder.py``) and of the hybrid refine tail
 (``core/hybrid_builder.py``), which runs on the host's cores after the
 crown is grown on the card. Its threads split frontier slots
 (``MPITREE_TPU_NATIVE_THREADS``) and never change a tree.
@@ -43,6 +44,7 @@ _LOCK = threading.Lock()
 _LIB: list = []  # [] = not loaded yet, [CDLL] = loaded
 
 _i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+_f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
 _f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
 _u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
 
@@ -123,6 +125,15 @@ def lib():
             ctypes.c_void_p, ctypes.c_void_p,
         ]
         cdll.best_splits_classification.restype = None
+        cdll.best_splits_regression.argtypes = [
+            _i32p, _f32p, _i32p, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+            ctypes.c_int32, _i32p, ctypes.c_int32, ctypes.c_double,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            _i32p, _i32p, _f64p, _f64p, _u8p, _f64p, _f64p,
+            ctypes.c_void_p, ctypes.c_void_p,
+        ]
+        cdll.best_splits_regression.restype = None
         _LIB.append(cdll)
         return cdll
 
@@ -177,4 +188,56 @@ def best_splits_classification(
     return {
         "feature": out_feat, "bin": out_bin, "cost": out_cost,
         "counts": out_counts, "constant": out_constant.astype(bool),
+    }
+
+
+def best_splits_regression(
+    xb, yv, node_id, w, *, n_bins, frontier_lo, n_slots, n_cand,
+    n_cand_per_slot=False, min_child_weight=0.0,
+):
+    """One level's best squared-error split per frontier slot (``None``
+    without the library), ``best_splits_regression``
+    (``mpitree_tpu/native/__init__.py:193``): a dict of per-slot
+    ``feature``, ``bin``, ``cost``, ``counts`` (float64 moments ``(w,
+    w*y, w*y^2)``), ``constant`` and ``ymin``/``ymax`` over rows of
+    positive weight. ``yv`` (N,) float32 targets; the other arguments are
+    :func:`best_splits_classification`'s."""
+    cdll = lib()
+    if cdll is None:
+        return None
+    xb = np.ascontiguousarray(xb, np.int32)
+    n_rows, n_feat = xb.shape
+    yv = np.ascontiguousarray(yv, np.float32)
+    node_id = np.ascontiguousarray(node_id, np.int32)
+    n_cand = np.ascontiguousarray(n_cand, np.int32)
+    want = (n_slots, n_feat) if n_cand_per_slot else (n_feat,)
+    if yv.shape != (n_rows,) or node_id.shape != (n_rows,) \
+            or n_cand.shape != want:
+        raise ValueError(
+            f"best_splits_regression: xb {xb.shape}, y {yv.shape}, "
+            f"node_id {node_id.shape}, n_cand {n_cand.shape} (want {want})"
+        )
+    w64 = None if w is None else np.ascontiguousarray(w, np.float64)
+    if w64 is not None and w64.shape != (n_rows,):
+        raise ValueError(f"w has shape {w64.shape}, want ({n_rows},)")
+    out_feat = np.empty(n_slots, np.int32)
+    out_bin = np.empty(n_slots, np.int32)
+    out_cost = np.empty(n_slots, np.float64)
+    out_counts = np.zeros((n_slots, 3), np.float64)
+    out_constant = np.empty(n_slots, np.uint8)
+    out_ymin = np.empty(n_slots, np.float64)
+    out_ymax = np.empty(n_slots, np.float64)
+    cdll.best_splits_regression(
+        xb, yv, node_id,
+        None if w64 is None else w64.ctypes.data_as(ctypes.c_void_p),
+        n_rows, n_feat, n_bins, frontier_lo, n_slots, n_cand,
+        1 if n_cand_per_slot else 0, float(min_child_weight),
+        None, None, None,
+        out_feat, out_bin, out_cost, out_counts, out_constant,
+        out_ymin, out_ymax, None, None,
+    )
+    return {
+        "feature": out_feat, "bin": out_bin, "cost": out_cost,
+        "counts": out_counts, "constant": out_constant.astype(bool),
+        "ymin": out_ymin, "ymax": out_ymax,
     }

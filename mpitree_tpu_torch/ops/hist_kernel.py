@@ -39,12 +39,28 @@ times every route that fits at each width on the card (``PERF.md``).
 Exactness: integer-valued payloads with sums below 2**24 are exact in
 float32 in any order, so the kernels are bit-identical (``torch.equal``) to
 :func:`histogram_reference` despite the unordered atomics — the contract
-``mpitree_tpu/ops/histogram.py`` states for the XLA scatter. Fractional
-weights are refused on CUDA (``core/builder.refuse_inexact_weights``).
+``mpitree_tpu/ops/histogram.py`` states for the XLA scatter. The float32
+route takes no other payload: :func:`histogram_cuda` refuses one that
+:func:`float32_exact` rejects.
+
+Non-integer payloads (fractional weights, the regression moments
+``(w, w*y, w*y^2)``, GBDT's ``(count, g, h)``: the payloads
+``mpitree_tpu/ops/pallas_hist.py:245-266`` hands the same TPU kernels, and
+which the JAX package's XLA scatter serves at ``hist_kernel="auto"``) take
+the **fixed-point** route: given ``scale_exp`` (one exponent ``k[c]`` per
+channel, :func:`fixed_point_exponents`, fixed once per fit), every value
+becomes the int64 ``round_half_even(v * 2**k[c])`` and the histogram is
+their int64 sum. Integer addition does not depend on the order, so the
+kernels (routes ``stream_fixed`` and ``sorted_fixed``: the same tile
+machinery with 8-byte cells) equal the plain version bit for bit, and a
+fit on the card equals the same fit on the CPU. The sums are exact where
+every value is a multiple of ``2**-k[c]`` (csrc/histogram.cu says where
+they stop being).
 
 On a CPU tensor :func:`histogram` uses :func:`histogram_reference`; on a
 CUDA tensor it launches a kernel or raises. ``launches`` counts the kernel
-launches per route, and nothing else.
+launches per route (``stream``, ``sorted``, ``stream_fixed``,
+``sorted_fixed``), and nothing else.
 """
 
 from __future__ import annotations
@@ -52,7 +68,9 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import weakref
 
+import numpy as np
 import torch
 
 from mpitree_tpu_torch._device import sm_count
@@ -72,8 +90,87 @@ MAX_PIECE_ROWS = 4096  # 8 bytes of shared memory a row; keeps int sums small
 MAX_BLOCKS_PER_SM = 2
 MAX_GROUP_FEATURES = 256  # a row's lanes (16 features each) within a warp
 ROUTES = ("stream", "sorted")
+FIXED_ROUTES = tuple(f"{r}_fixed" for r in ROUTES)
+# Bits a fixed-point histogram cell may use: no partial sum of N values,
+# each below 2**(FIXED_POINT_BITS - ceil(log2 N)) in magnitude, reaches
+# 2**63. The exponent is capped so that 2**-k stays a normal float32.
+FIXED_POINT_BITS = 62
+MAX_SCALE_EXP = 100
 
-launches = dict.fromkeys(ROUTES, 0)
+# Largest float32 sum the integer route keeps exact in any order.
+FLOAT32_EXACT = 2.0 ** 24
+
+launches = dict.fromkeys(ROUTES + FIXED_ROUTES, 0)
+# id -> (weak reference, version) of the payloads float32_exact accepted
+_exact_payloads: dict = {}
+
+
+def float32_exact(payload: torch.Tensor) -> bool:
+    """True when every value of the ``(N, C)`` payload is an integer and
+    every channel's sum of ``|v|`` stays below 2**24: the float32 route
+    then sums it exactly, in any order. One device-to-host copy, made once
+    per payload tensor: an accepted tensor is remembered until it changes
+    in place or is freed, so a fit's launches do not check it again."""
+    seen = _exact_payloads.get(id(payload))
+    if seen is not None and seen[0]() is payload \
+            and seen[1] == payload._version:
+        return True
+    integral = bool(torch.equal(payload, torch.round(payload)))
+    if not (integral and float(payload.abs().sum(dim=0).amax())
+            < FLOAT32_EXACT):
+        return False
+    for key in [k for k, (ref, _) in _exact_payloads.items()
+                if ref() is None]:
+        del _exact_payloads[key]
+    _exact_payloads[id(payload)] = (weakref.ref(payload), payload._version)
+    return True
+
+
+def fixed_point_exponents(payload: torch.Tensor, n_rows: int | None = None
+                          ) -> tuple:
+    """One exponent ``k[c]`` per channel of an ``(N, C)`` float32 payload:
+    ``FIXED_POINT_BITS - ceil(log2 N) - ceil(log2 max|v_c|)``, capped at
+    ``MAX_SCALE_EXP``, and 0 for a channel that is all zeros. ``n_rows``
+    (default ``N``) is the most rows one sum can take. A fit computes it
+    once (one device-to-host copy) and passes it to every histogram.
+    Raises ``ValueError`` on a non-finite value, before any launch."""
+    if payload.dim() != 2:
+        raise ValueError("payload must be 2-D")
+    n = max(int(payload.shape[0] if n_rows is None else n_rows), 1)
+    top = payload.abs().amax(dim=0) if payload.shape[0] else \
+        torch.zeros(payload.shape[1])
+    top = top.double().cpu().numpy()
+    if not np.isfinite(top).all():
+        raise ValueError("payload holds NaN or infinity: the fixed-point "
+                         "histogram takes finite values only")
+    row_bits = math.ceil(math.log2(n))
+    return tuple(
+        0 if v == 0.0 else min(
+            MAX_SCALE_EXP,
+            FIXED_POINT_BITS - row_bits - math.ceil(math.log2(float(v))))
+        for v in top
+    )
+
+
+def quantize(payload: torch.Tensor, scale_exp) -> torch.Tensor:
+    """``(N, C)`` float32 -> int64 ``round_half_even(v * 2**k[c])``, the
+    values the fixed-point route adds (``torch.round`` rounds half to
+    even, as the kernels' ``__double2ll_rn``)."""
+    scale = torch.tensor([2.0 ** k for k in scale_exp], dtype=torch.float64,
+                         device=payload.device)
+    return torch.round(payload.to(torch.float64) * scale).to(torch.int64)
+
+
+def dequantize(q: torch.Tensor, scale_exp, dim: int,
+               dtype=torch.float64) -> torch.Tensor:
+    """int64 fixed-point sums -> ``dtype``, channel ``c`` (along ``dim``)
+    times ``2**-k[c]``: one rounding of the int64 to ``dtype``, then an
+    exact power-of-two scale."""
+    shape = [1] * q.dim()
+    shape[dim] = len(scale_exp)
+    inv = torch.tensor([2.0 ** -k for k in scale_exp], dtype=dtype,
+                       device=q.device).view(shape)
+    return q.to(dtype) * inv
 
 
 def pack_bins(x_binned: torch.Tensor, n_bins: int) -> torch.Tensor:
@@ -177,12 +274,15 @@ def _feat_bytes(n: int) -> int:
     return (n * 8 + 15) & ~15
 
 
-def _smem_bytes(groups, cells, tile_slots: int, piece_rows: int) -> int:
+def _smem_bytes(groups, cells, tile_slots: int, piece_rows: int,
+                cell_bytes: int = 4) -> int:
     """Largest group's dynamic shared memory: the feature table, one
-    8-byte code per row of a piece, and the tile rounded to 16 bytes."""
+    8-byte code per row of a piece, and the tile of ``cell_bytes`` cells
+    rounded to 16 bytes."""
     return max(
         _feat_bytes(f1 - f0) + 8 * piece_rows
-        + -(-tile_slots * sum(cells[f0:f1]) // 4) * 16 for f0, f1 in groups
+        + -(-tile_slots * sum(cells[f0:f1]) * cell_bytes // 16) * 16
+        for f0, f1 in groups
     )
 
 
@@ -198,29 +298,31 @@ def plan(n_slots: int, n_features: int, n_channels: int, n_bins: int,
          variant: str | None = None, *, feat_bins=None,
          n_rows: int = 1 << 20, n_sms: int = N_SMS,
          smem_bytes: int = SMEM_BYTES,
-         piece_rows: int | None = None) -> dict:
+         piece_rows: int | None = None, fixed: bool = False) -> dict:
     """Route and tiling for one launch (host arithmetic, no device).
 
     ``feat_bins[f]`` is feature ``f``'s bin count (default ``n_bins``
-    each); feature ``f`` takes ``feat_bins[f] | 1`` floats in each of the
-    ``n_channels`` rows of a slot's tile, at ``feat_offset[f]``. ``stream`` keeps all ``n_slots`` slots of a feature
-    group in one tile, ``sorted`` one slot. Two blocks share an SM when
+    each); feature ``f`` takes ``feat_bins[f] | 1`` cells in each of the
+    ``n_channels`` rows of a slot's tile, at ``feat_offset[f]``.
+    ``stream`` keeps all ``n_slots`` slots of a feature group in one tile,
+    ``sorted`` one slot. Two blocks share an SM when
     that adds no feature group; the rows are cut into pieces that fill
     whole waves of the resident blocks (:func:`_piece_rows`), unless
     ``piece_rows`` names the size. ``smem_bytes`` is the shared memory one
     block may use. ``variant=None`` picks ``stream`` up to
     ``STREAM_MAX_SLOTS`` slots and ``sorted`` beyond; a named route gets
-    its tiling, or ``ValueError`` when its tile cannot fit. Plans are
-    remembered: a fit asks for the same few on every level."""
+    its tiling, or ``ValueError`` when its tile cannot fit. ``fixed``
+    prices the fixed-point route's 8-byte cells. Plans are remembered: a
+    fit asks for the same few on every level."""
     return _plan(n_slots, n_features, n_channels, n_bins, variant,
                  None if feat_bins is None else tuple(
                      int(v) for v in feat_bins),
-                 n_rows, n_sms, smem_bytes, piece_rows)
+                 n_rows, n_sms, smem_bytes, piece_rows, bool(fixed))
 
 
 @functools.lru_cache(maxsize=256)
 def _plan(n_slots, n_features, n_channels, n_bins, variant, feat_bins,
-          n_rows, n_sms, smem_bytes, piece_rows) -> dict:
+          n_rows, n_sms, smem_bytes, piece_rows, fixed) -> dict:
     if variant is None:
         variant = "stream" if n_slots <= STREAM_MAX_SLOTS else "sorted"
     if variant not in ROUTES:
@@ -232,6 +334,7 @@ def _plan(n_slots, n_features, n_channels, n_bins, variant, feat_bins,
             f"feat_bins has {len(nb)} entries for {n_features} features")
     cells = [n_channels * (v | 1) for v in nb]
     tile_slots = n_slots if variant == "stream" else 1
+    cell_bytes = 8 if fixed else 4
 
     def tiling(blocks_per_sm):
         """(groups, piece rows) with as few groups as fit, or None."""
@@ -240,10 +343,10 @@ def _plan(n_slots, n_features, n_channels, n_bins, variant, feat_bins,
             rows = piece_rows or _piece_rows(
                 n_rows, max(1, n_sms * blocks_per_sm // n_groups))
             budget = (room - _feat_bytes(n_features) - 8 * rows) \
-                // (4 * tile_slots)
+                // (cell_bytes * tile_slots)
             groups = _feature_groups(cells, budget)
             if groups and len(groups) <= n_groups and _smem_bytes(
-                    groups, cells, tile_slots, rows) <= room:
+                    groups, cells, tile_slots, rows, cell_bytes) <= room:
                 return groups, rows
         return None
 
@@ -251,7 +354,8 @@ def _plan(n_slots, n_features, n_channels, n_bins, variant, feat_bins,
     if best is None:
         raise ValueError(
             f"route {variant!r} does not fit S={n_slots} C={n_channels} "
-            f"B={n_bins} in {smem_bytes} bytes of shared memory"
+            f"B={n_bins} ({cell_bytes}-byte cells) in {smem_bytes} bytes "
+            f"of shared memory"
         )
     blocks_per_sm = 1
     two = tiling(MAX_BLOCKS_PER_SM)
@@ -272,8 +376,9 @@ def _plan(n_slots, n_features, n_channels, n_bins, variant, feat_bins,
         # (offset in a channel row, bin count) per feature
         layout=tuple([g[0] for g in groups] + [n_features] + group_cells
                      + [v for pair in zip(foff, nb) for v in pair]),
-        smem=_smem_bytes(groups, cells, tile_slots, rows),
+        smem=_smem_bytes(groups, cells, tile_slots, rows, cell_bytes),
         blocks_per_sm=blocks_per_sm, threads=MAX_THREADS, piece_rows=rows,
+        cell_bytes=cell_bytes,
     )
 
 
@@ -281,15 +386,17 @@ def histogram_reference(x_binned: torch.Tensor, payload: torch.Tensor,
                         slot: torch.Tensor, *, n_slots: int, n_bins: int,
                         packed: torch.Tensor | None = None,
                         order: torch.Tensor | None = None,
-                        seg_start: torch.Tensor | None = None
-                        ) -> torch.Tensor:
+                        seg_start: torch.Tensor | None = None,
+                        scale_exp=None) -> torch.Tensor:
     """Plain PyTorch version: one ``index_add_`` per channel over the
     flat ``((slot*F + f)*C + c)*B + bin`` cell ids of the rows that fall
     in ``[0, S)`` with a nonzero payload in that channel (bins outside
     ``[0, B)`` masked the same way as in the kernels), rows in storage
     order. Given ``packed`` it reads the bins from there, and given
     ``order``/``seg_start`` it takes each row's slot from its segment
-    instead of from ``slot``, as the kernels do."""
+    instead of from ``slot``, as the kernels do. Given ``scale_exp`` it is
+    the fixed-point route: it adds :func:`quantize` of the payload into an
+    int64 histogram (an exact sum, so its order does not matter)."""
     N, F = x_binned.shape
     C = payload.shape[1]
     dev = x_binned.device
@@ -302,8 +409,11 @@ def histogram_reference(x_binned: torch.Tensor, payload: torch.Tensor,
         live = (pos >= seg[0]) & (pos < seg[n_slots])
         slot = torch.full((N,), -1, dtype=torch.int64, device=dev)
         slot[order[live].to(torch.int64)] = s_of_pos[live]
-    out = torch.zeros(n_slots * F * C * n_bins, dtype=torch.float32,
-                      device=dev)
+    if scale_exp is not None:
+        payload = quantize(payload, scale_exp)
+    out = torch.zeros(n_slots * F * C * n_bins, device=dev,
+                      dtype=torch.float32 if scale_exp is None
+                      else torch.int64)
     in_range = (slot >= 0) & (slot < n_slots)
     feat = torch.arange(F, device=dev, dtype=torch.int64)
     for c in range(C):
@@ -319,10 +429,11 @@ def histogram_reference(x_binned: torch.Tensor, payload: torch.Tensor,
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "mpt_hist_tile": [_PTR] * 7 + [_INT] * 13 + [_PTR],
+    "mpt_hist_tile": [_PTR] * 8 + [_INT] * 14 + [_PTR],
 }
 _lib = None
 _layouts: dict = {}
+_scales: dict = {}
 
 
 def _library():
@@ -357,16 +468,36 @@ def _layout(p: dict, dev: torch.device) -> torch.Tensor:
     return _layouts[key]
 
 
+def _scale(scale_exp, n_chan: int, dev: torch.device) -> torch.Tensor:
+    """The fixed-point scales ``2**k[c]`` on ``dev`` (float64), uploaded
+    once per distinct exponent tuple and device."""
+    key = (dev, tuple(int(k) for k in scale_exp))
+    if len(key[1]) != n_chan:
+        raise ValueError(
+            f"scale_exp must hold {n_chan} exponents "
+            f"(fixed_point_exponents), got {scale_exp!r}")
+    if key not in _scales:
+        _scales[key] = torch.tensor([2.0 ** k for k in key[1]],
+                                    dtype=torch.float64, device=dev)
+    return _scales[key]
+
+
 def histogram_cuda(x_binned: torch.Tensor, payload: torch.Tensor,
                    slot: torch.Tensor, *, n_slots: int, n_bins: int,
                    packed: torch.Tensor | None = None,
                    order: torch.Tensor | None = None,
                    seg_start: torch.Tensor | None = None,
-                   feat_bins=None, _variant: str | None = None,
+                   feat_bins=None, scale_exp=None,
+                   _variant: str | None = None,
                    _tune: dict | None = None) -> torch.Tensor:
     """Launch the route :func:`plan` picks; returns the ``(S, F, C, B)``
-    float32 histogram. Launches on the current stream without
-    synchronising. Raises on anything the kernels do not take.
+    float32 histogram, or with ``scale_exp`` the int64 fixed-point one
+    (routes ``stream_fixed``/``sorted_fixed``; ``scale_exp`` must come from
+    :func:`fixed_point_exponents` of this payload, which also refused
+    non-finite values). Without ``scale_exp`` the payload must pass
+    :func:`float32_exact`. Launches on the current stream without
+    synchronising, apart from that check's first sight of a payload.
+    Raises on anything the kernels do not take.
 
     ``packed`` is :func:`pack_bins` of ``x_binned`` (read instead of it),
     ``order``/``seg_start`` are :func:`slot_segments` of ``slot`` (made here
@@ -435,11 +566,19 @@ def histogram_cuda(x_binned: torch.Tensor, payload: torch.Tensor,
             raise ValueError(
                 "order and seg_start must be contiguous and on the device "
                 "of x_binned")
+    fixed = scale_exp is not None
+    if not fixed and not float32_exact(payload):
+        raise ValueError(
+            "the float32 route sums integer payloads below 2**24 only; pass "
+            "scale_exp (fixed_point_exponents) for this payload")
+    scale = _scale(scale_exp, C, dev) if fixed else None
     p = plan(n_slots, F, C, n_bins, _variant, feat_bins=feat_bins,
-             n_rows=max(N, 1), n_sms=sm_count(dev), **(_tune or {}))
+             n_rows=max(N, 1), n_sms=sm_count(dev), fixed=fixed,
+             **(_tune or {}))
     route = p["route"]
     alloc = torch.empty if route == "sorted" and N else torch.zeros
-    out = alloc((n_slots, F, C, n_bins), dtype=torch.float32, device=dev)
+    out = alloc((n_slots, F, C, n_bins), device=dev,
+                dtype=torch.int64 if fixed else torch.float32)
     if N == 0:
         return out
     lib = _library()
@@ -454,13 +593,14 @@ def histogram_cuda(x_binned: torch.Tensor, payload: torch.Tensor,
             bins.data_ptr(), payload.data_ptr(), slot.data_ptr(),
             order.data_ptr() if is_sorted else None,
             seg_start.data_ptr() if is_sorted else None,
-            _layout(p, dev).data_ptr(), out.data_ptr(), N,
+            _layout(p, dev).data_ptr(),
+            scale.data_ptr() if fixed else None, out.data_ptr(), N,
             bins.shape[1], F, C, n_bins, n_slots, len(p["groups"]),
             p["piece_rows"], n_pieces + (n_slots if is_sorted else 0),
             p["threads"], p["smem"], bins.element_size(),
-            int(is_sorted), stream,
-        ), f"hist_tile[{route}]")
-    launches[route] += 1
+            int(is_sorted), int(fixed), stream,
+        ), f"hist_tile[{route}{'_fixed' if fixed else ''}]")
+    launches[f"{route}_fixed" if fixed else route] += 1
     return out
 
 
@@ -469,14 +609,16 @@ def histogram(x_binned: torch.Tensor, payload: torch.Tensor,
               packed: torch.Tensor | None = None,
               order: torch.Tensor | None = None,
               seg_start: torch.Tensor | None = None,
-              feat_bins=None) -> torch.Tensor:
+              feat_bins=None, scale_exp=None) -> torch.Tensor:
     """``(S, F, C, B)`` payload histogram: the kernel on CUDA tensors,
-    the plain version on CPU tensors. The optional arguments are those of
+    the plain version on CPU tensors; float32, or int64 fixed-point sums
+    given ``scale_exp``. The optional arguments are those of
     :func:`histogram_cuda`."""
     if x_binned.is_cuda:
         return histogram_cuda(x_binned, payload, slot, n_slots=n_slots,
                               n_bins=n_bins, packed=packed, order=order,
-                              seg_start=seg_start, feat_bins=feat_bins)
+                              seg_start=seg_start, feat_bins=feat_bins,
+                              scale_exp=scale_exp)
     return histogram_reference(x_binned, payload, slot, n_slots=n_slots,
                                n_bins=n_bins, packed=packed, order=order,
-                               seg_start=seg_start)
+                               seg_start=seg_start, scale_exp=scale_exp)

@@ -1,7 +1,8 @@
-"""Split evaluation from class histograms: entropy / Gini costs and argmin.
+"""Split evaluation from histograms: entropy / Gini / MSE costs and argmin.
 
-Counterpart of the classification half of ``mpitree_tpu/ops/impurity.py``
-(``:39-335``, ``_lex_argmin`` ``:384``), with the same selection rules:
+Counterpart of the classification and regression halves of
+``mpitree_tpu/ops/impurity.py`` (``:39-335``, ``_lex_argmin`` ``:384``,
+``best_split_regression`` ``:533``), with the same selection rules:
 
 - the cost of candidate ``(f, b)`` is the weighted child impurity
   ``(n_l * H(left) + n_r * H(right)) / n``;
@@ -17,6 +18,14 @@ only on TPUs, which lack one. Candidates are ranked by the JAX package's
 compared lexicographically, so first-min tie-breaks resolve in the same
 order as the reference. ``exact_ties=False`` keeps the float32 sweep.
 
+Fixed-point histograms (int64, ``ops/hist_kernel.py``): the sweeps take
+their cumulative sums over bins **in int64**, which is exact and the same on
+every device (a float32 ``torch.cumsum`` associates differently on CUDA and
+on the CPU), and convert only then: to float64 for the classification
+sweep, whose counts then equal the exact float64 sums of the JAX package's
+host tier; to float32 for the regression sweep, which then runs the JAX
+package's float32 formula op for op.
+
 The sweep and the argmin are plain PyTorch operations: in the JAX package
 they are XLA code outside any Pallas kernel. ``log2`` is written
 ``log(x) * (1/ln 2)``, which is the form XLA compiles ``jnp.log2`` to.
@@ -30,7 +39,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from mpitree_tpu_torch.ops.hist_kernel import dequantize
+
 _INV_LN2_F64 = 1.0 / math.log(2.0)
+_EMPTY_SIDE = 1e-300
 _INV_LN2_F32 = float(np.float32(1.0) / np.float32(np.log(np.float32(2.0))))
 
 
@@ -40,9 +52,11 @@ class SplitDecision(NamedTuple):
     ``feature``/``bin`` name the winner; ``cost`` is its weighted child
     impurity as float32 (``+inf`` when no candidate is valid; under the
     float64 sweep the ``hi`` half); ``impurity``/``n`` describe the parent;
-    ``counts`` is its (K, C) class-count vector; ``constant`` is True when
-    every feature has at most one occupied bin; ``n_left`` is the winner's
-    left-side weight.
+    ``counts`` is its (K, C) class-count vector (regression: the (K, 3)
+    moments); ``constant`` is True when every feature has at most one
+    occupied bin; ``n_left`` is the winner's left-side weight; ``y_range``
+    (regression only, else None) is the node's ``max(y) - min(y)`` over
+    rows of positive weight, its purity signal.
     """
 
     feature: torch.Tensor
@@ -53,6 +67,7 @@ class SplitDecision(NamedTuple):
     counts: torch.Tensor
     constant: torch.Tensor
     n_left: torch.Tensor
+    y_range: torch.Tensor | None = None
 
 
 def _log2(x: torch.Tensor) -> torch.Tensor:
@@ -85,7 +100,8 @@ def class_impurity(counts: torch.Tensor, n: torch.Tensor,
     raise ValueError(f"unknown classification criterion: {criterion!r}")
 
 
-def cost_sweep_f64(hist: torch.Tensor, criterion: str):
+def cost_sweep_f64(hist: torch.Tensor, criterion: str, scale_exp=None,
+                   *, f64_out: bool = False):
     """(K, F, C, B) histogram -> (cost_hi, cost_lo, n_l, n_r) float32.
 
     Op for op the JAX package's ``_cost_sweep_f64`` (``ops/impurity.py:97``):
@@ -94,11 +110,24 @@ def cost_sweep_f64(hist: torch.Tensor, criterion: str):
     ``p * log2(max(p, 1e-300))``, and only (K, F, B)-sized float64
     accumulators alive at once (the per-class cumsums are transient). The
     float64 cost leaves as the two-float ``(hi, lo)`` pair the ranking uses.
+    One difference, inert for integer weights: the side weights divide
+    unclamped where JAX clamps them at 1, so that a fractionally weighted
+    fit ranks as the JAX package's host tier (its C++ sweep) and sklearn
+    do.
+
+    An int64 fixed-point ``hist`` (with its ``scale_exp``) is cumsummed in
+    int64 and converted to float64 after the sum. ``f64_out`` returns
+    ``(cost, None, n_l, n_r)`` in float64 instead.
     """
     C = hist.shape[2]
 
-    def l_of(c):
-        return torch.cumsum(hist[:, :, c, :].to(torch.float64), dim=2)
+    if scale_exp is None:
+        def l_of(c):
+            return torch.cumsum(hist[:, :, c, :].to(torch.float64), dim=2)
+    else:
+        def l_of(c):
+            return dequantize(torch.cumsum(hist[:, :, c, :], dim=2),
+                              scale_exp[c:c + 1], dim=0)
 
     n_l = l_of(0)
     for c in range(1, C):
@@ -106,8 +135,15 @@ def cost_sweep_f64(hist: torch.Tensor, criterion: str):
     n_tot = n_l[:, :, -1:]
     n_r = n_tot - n_l
 
-    div_l = torch.clamp(n_l, min=1.0)
-    div_r = torch.clamp(n_r, min=1.0)
+    # A side's weight divides as it is (n * H(side) = n log2 n - sum c
+    # log2 c, the C++ sweep's and sklearn's form); the JAX package's
+    # max(n, 1) equals it whenever weights are integers and only differs
+    # for a side lighter than one unit of weight. The floor only keeps an
+    # empty side (whose terms are masked) finite: no positive weight sum
+    # of float32 values lies below it.
+    div_l = torch.clamp(n_l, min=_EMPTY_SIDE)
+    div_r = torch.clamp(n_r, min=_EMPTY_SIDE)
+    div_t = torch.clamp(n_tot, min=_EMPTY_SIDE)
     acc_l = acc_r = None
     for c in range(C):
         l_c = l_of(c)
@@ -130,7 +166,9 @@ def cost_sweep_f64(hist: torch.Tensor, criterion: str):
         h_l = torch.where(n_l > 0, 1.0 - acc_l, torch.zeros_like(acc_l))
         h_r = torch.where(n_r > 0, 1.0 - acc_r, torch.zeros_like(acc_r))
 
-    cost = (n_l * h_l + n_r * h_r) / torch.clamp(n_tot, min=1.0)
+    cost = (n_l * h_l + n_r * h_r) / div_t
+    if f64_out:
+        return cost, None, n_l, n_r
     hi = cost.to(torch.float32)
     lo = (cost - hi.to(torch.float64)).to(torch.float32)
     return hi, lo, n_l.to(torch.float32), n_r.to(torch.float32)
@@ -194,17 +232,28 @@ def _winner(a: torch.Tensor, best_feature: torch.Tensor,
 def best_split_classification(
     hist: torch.Tensor, cand_mask: torch.Tensor, *,
     criterion: str = "entropy", min_child_weight: float | None = None,
-    exact_ties: bool = True,
+    exact_ties: bool = True, scale_exp=None,
 ) -> SplitDecision:
     """Pick the best (feature, bin) per frontier slot.
 
-    ``hist`` (K, F, C, B) float32 from :func:`histogram.class_histogram`;
-    ``cand_mask`` (F, B) bool valid candidate bins.
+    ``hist`` (K, F, C, B) float32 from :func:`histogram.class_histogram`,
+    or its int64 fixed-point form with ``scale_exp``; ``cand_mask`` (F, B)
+    bool valid candidate bins. A fixed-point ``hist`` keeps the node's
+    statistics in float64: ``counts``, ``n``, ``n_left``, the parent
+    ``impurity`` and the winner's ``cost`` (the exact float64 sums the
+    JAX package's host tier keeps), and checks ``min_child_weight``
+    against float64 side weights.
     """
     if criterion not in ("entropy", "gini"):
         raise ValueError(f"unknown classification criterion: {criterion!r}")
-    hist_sum = hist.sum(dim=2)  # (K, F, B)
-    if exact_ties:
+    fixed = scale_exp is not None
+    hist_sum = hist.sum(dim=2)  # (K, F, B); exact either way
+    if fixed:
+        cost64, _, n_l, n_r = cost_sweep_f64(hist, criterion, scale_exp,
+                                             f64_out=True)
+        cost = cost64.to(torch.float32)
+        cost_lo = (cost64 - cost.to(torch.float64)).to(torch.float32)
+    elif exact_ties:
         cost, cost_lo, n_l, n_r = cost_sweep_f64(hist, criterion)
     else:
         cost, n_l, n_r = _cost_sweep_f32(hist, hist_sum, criterion)
@@ -222,11 +271,23 @@ def best_split_classification(
     best_feature = lex_argmin(best_cost_f, best_lo_f, dim=1)  # (K,)
     best_bin = torch.gather(best_bin_f, 1, best_feature[:, None])[:, 0]
     best_cost = torch.gather(best_cost_f, 1, best_feature[:, None])[:, 0]
-
-    parent_counts = hist[:, 0, :, :].sum(dim=-1)  # (K, C)
-    parent_n = parent_counts.sum(dim=-1)
-    parent_impurity = class_impurity(parent_counts, parent_n, criterion)
     constant = ((hist_sum > 0).sum(dim=2) <= 1).all(dim=1)
+
+    if fixed:
+        parent_counts = dequantize(hist[:, 0, :, :].sum(dim=-1), scale_exp,
+                                   dim=1)  # (K, C) float64
+        parent_n = parent_counts.sum(dim=-1)
+        best_cost = torch.where(
+            torch.isinf(best_cost), best_cost.to(torch.float64),
+            _winner(cost64, best_feature, best_bin))
+        n_left = _winner(n_l, best_feature, best_bin)
+    else:
+        parent_counts = hist[:, 0, :, :].sum(dim=-1)  # (K, C)
+        parent_n = parent_counts.sum(dim=-1)
+        # float32 cumsum of the integer counts (exact), as the reference
+        n_left = _winner(torch.cumsum(hist_sum, dim=2), best_feature,
+                         best_bin)
+    parent_impurity = class_impurity(parent_counts, parent_n, criterion)
 
     return SplitDecision(
         feature=best_feature.to(torch.int32),
@@ -236,6 +297,73 @@ def best_split_classification(
         n=parent_n,
         counts=parent_counts,
         constant=constant,
-        # float32 cumsum of the integer counts (exact), as the reference
-        n_left=_winner(torch.cumsum(hist_sum, dim=2), best_feature, best_bin),
+        n_left=n_left,
+    )
+
+
+def best_split_regression(
+    hist: torch.Tensor, cand_mask: torch.Tensor, *, scale_exp,
+    min_child_weight: float | None = None,
+) -> SplitDecision:
+    """Pick the best squared-error split per frontier slot from an int64
+    fixed-point ``(w, w*y, w*y^2)`` moment histogram (K, F, 3, B).
+
+    ``best_split_regression`` (``mpitree_tpu/ops/impurity.py:533``): the
+    cost of a candidate is ``(SSE_left + SSE_right) / max(w_total, 1)``,
+    ``SSE = max(q - s*s / max(w, 1), 0)``, all in float32 as the JAX
+    package computes it, with first-min tie-breaks (lowest threshold, then
+    lowest feature). The left and right sums are taken in int64 (exact)
+    and rounded to float32 once; the float32 formula then runs op for op.
+    ``counts`` is the parent's (K, 3) moments in float64, exact sums of
+    the fixed-point values; ``impurity`` the parent's variance in float32.
+    ``y_range`` is left to the caller (``collective.split_step``).
+    """
+    w_l, s_l, q_l = (torch.cumsum(hist[:, :, c, :], dim=2)
+                     for c in range(3))
+    tot = [a[:, :, -1:] for a in (w_l, s_l, q_l)]
+    w_r, s_r, q_r = (t - a for t, a in zip(tot, (w_l, s_l, q_l)))
+
+    def f32(a, c):
+        return dequantize(a, scale_exp[c:c + 1], dim=0, dtype=torch.float32)
+
+    w_l, s_l, q_l = f32(w_l, 0), f32(s_l, 1), f32(q_l, 2)
+    w_r, s_r, q_r = f32(w_r, 0), f32(s_r, 1), f32(q_r, 2)
+    w_t = f32(tot[0], 0)
+    one = torch.ones((), dtype=torch.float32, device=hist.device)
+    zero = torch.zeros((), dtype=torch.float32, device=hist.device)
+
+    def sse(w, s, q):
+        return torch.maximum(q - s * s / torch.maximum(w, one), zero)
+
+    cost = (sse(w_l, s_l, q_l) + sse(w_r, s_r, q_r)) / torch.maximum(w_t,
+                                                                      one)
+    valid = cand_mask[None, :, :] & (w_l > 0) & (w_r > 0)
+    if min_child_weight is not None:
+        valid = valid & (w_l >= min_child_weight) & (w_r >= min_child_weight)
+    cost = torch.where(valid, cost, torch.full_like(cost, math.inf))
+
+    no_lo = torch.zeros_like(cost)
+    best_bin_f = lex_argmin(cost, no_lo, dim=2)  # first min: lowest bin
+    best_cost_f = torch.gather(cost, 2, best_bin_f[:, :, None])[:, :, 0]
+    best_feature = lex_argmin(best_cost_f, torch.zeros_like(best_cost_f),
+                              dim=1)
+    best_bin = torch.gather(best_bin_f, 1, best_feature[:, None])[:, 0]
+    best_cost = torch.gather(best_cost_f, 1, best_feature[:, None])[:, 0]
+
+    parent_q = hist[:, 0, :, :].sum(dim=-1)  # (K, 3) int64
+    parent = dequantize(parent_q, scale_exp, dim=1)
+    p32 = dequantize(parent_q, scale_exp, dim=1, dtype=torch.float32)
+    parent_impurity = sse(p32[:, 0], p32[:, 1], p32[:, 2]) / torch.maximum(
+        p32[:, 0], one)
+    constant = ((hist[:, :, 0, :] > 0).sum(dim=2) <= 1).all(dim=1)
+
+    return SplitDecision(
+        feature=best_feature.to(torch.int32),
+        bin=best_bin.to(torch.int32),
+        cost=best_cost,
+        impurity=parent_impurity,
+        n=parent[:, 0],
+        counts=parent,
+        constant=constant,
+        n_left=_winner(w_l, best_feature, best_bin),
     )

@@ -28,14 +28,19 @@ _DTYPES = {
 }
 
 
-def tree_from_reference(arrays) -> TreeArrays:
+def tree_from_reference(arrays, *, task: str = "classification"
+                        ) -> TreeArrays:
     """A mapping of ``TreeArrays`` field names to arrays (or a path to a
     ``TreeArrays.save`` ``.npz``) -> the port's :class:`TreeArrays`.
 
-    Fields are cast to the struct's dtypes; ``count`` stays int64 when it
-    is integral and float64 otherwise; a missing ``impurity`` loads as
+    Fields are cast to the struct's dtypes; for classification ``count``
+    stays int64 when it is integral and float64 otherwise; a regression
+    tree (``task="regression"``) keeps ``value`` float32 (the node means)
+    and ``count`` float64 of shape (n, 1). A missing ``impurity`` loads as
     zeros. Raises ``ValueError`` on a missing field or ragged lengths.
     """
+    if task not in ("classification", "regression"):
+        raise ValueError(f"unknown task {task!r}")
     if isinstance(arrays, (str, os.PathLike)):
         with np.load(arrays) as z:
             arrays = {k: z[k] for k in z.files}
@@ -43,15 +48,22 @@ def tree_from_reference(arrays) -> TreeArrays:
                if k not in arrays and k != "impurity"]
     if missing:
         raise ValueError(f"reference tree lacks fields {missing}")
+    dtypes = dict(_DTYPES)
+    if task == "regression":
+        dtypes["value"] = np.float32
     fields = {
         k: np.ascontiguousarray(np.asarray(arrays[k]), dtype=dt)
-        for k, dt in _DTYPES.items() if k in arrays
+        for k, dt in dtypes.items() if k in arrays
     }
     count = np.asarray(arrays["count"])
-    fields["count"] = np.ascontiguousarray(
-        count, dtype=np.int64 if np.array_equal(count, np.round(count))
-        else np.float64,
-    )
+    if task == "regression":
+        fields["count"] = np.ascontiguousarray(
+            count, dtype=np.float64).reshape(-1, 1)
+    else:
+        fields["count"] = np.ascontiguousarray(
+            count, dtype=np.int64 if np.array_equal(count, np.round(count))
+            else np.float64,
+        )
     n = fields["feature"].shape[0]
     bad = {k: v.shape[0] for k, v in fields.items() if v.shape[0] != n}
     if bad:

@@ -1,11 +1,14 @@
-"""The covtype-shaped benchmark generator.
+"""The benchmark generators: covtype-shaped and California-shaped data.
 
-A copy of ``covtype_like`` (``mpitree_tpu/utils/datasets.py:19``): 581,012
+Copies of ``covtype_like`` (``mpitree_tpu/utils/datasets.py:19``): 581,012
 x 54 by default, 10 continuous columns with covtype's heterogeneous scales,
 4 wilderness + 40 soil one-hot columns from latent categories, and 7
-imbalanced classes from noisy axis-aligned rules. Same seed, same arrays as
-the JAX package's generator. The machine with the card has no network, so
-this is the full-size data there.
+imbalanced classes from noisy axis-aligned rules; and ``california_like``
+(``:70``): 20,640 x 8 by default, California housing's eight quantitative
+columns and a smooth noisy target (``BASELINE.json`` config 4,
+``DecisionTreeRegressor``). Same seed, same arrays as the JAX package's
+generators. Both are synthetic: the machine with the card has no network,
+so this is the full-size data there.
 """
 
 from __future__ import annotations
@@ -57,3 +60,31 @@ def covtype_like(n_samples: int = 581012, seed: int = 0):
     edges = np.quantile(score, [0.365, 0.852, 0.913, 0.918, 0.934, 0.966])
     y = np.searchsorted(edges, score).astype(np.int64)
     return X, y
+
+
+def california_like(n_samples: int = 20640, seed: int = 0):
+    """Deterministic stand-in for California housing (n x 8, f64 target)."""
+    rng = np.random.default_rng(seed)
+    n = n_samples
+    med_inc = rng.gamma(2.5, 1.55, n)                 # median income
+    house_age = rng.uniform(1, 52, n)
+    ave_rooms = np.clip(rng.normal(5.4, 2.3, n), 1, None)
+    ave_bedrms = np.clip(ave_rooms / 5 + rng.normal(0, 0.2, n), 0.3, None)
+    population = rng.gamma(1.8, 790.0, n)
+    ave_occup = np.clip(rng.normal(3.0, 1.6, n), 0.7, None)
+    latitude = rng.uniform(32.5, 42.0, n)
+    longitude = rng.uniform(-124.3, -114.3, n)
+    X = np.column_stack(
+        [med_inc, house_age, ave_rooms, ave_bedrms, population, ave_occup,
+         latitude, longitude]
+    ).astype(np.float32)
+    coast = np.hypot(latitude - 34.0, longitude + 118.2)  # LA-ish anchor
+    y = (
+        0.45 * med_inc
+        + 0.7 * np.exp(-coast / 3.0)
+        + 0.004 * house_age
+        + 0.08 * np.log1p(ave_rooms)
+        - 0.12 * np.log1p(ave_occup)
+        + rng.normal(0, 0.35, n)
+    )
+    return X, np.clip(y, 0.15, 5.0).astype(np.float64)

@@ -22,12 +22,16 @@ def export_tree_text(
     feature_names=None,
     class_names=None,
     precision: int = 2,
+    task: str = "classification",
 ) -> str:
-    """Render a classification ``tree`` as the reference's ``export_text``."""
+    """Render ``tree`` as the reference's ``export_text``; a regression
+    leaf reads ``value: <mean>`` at ``precision`` decimals."""
     lines: list[str] = []
 
     def label(i: int) -> str:
         if tree.feature[i] < 0:
+            if task == "regression":
+                return f"value: {float(tree.value[i]):.{precision}f}"
             v = int(tree.value[i])
             return class_names[v] if class_names is not None else f"class: {v}"
         f = int(tree.feature[i])

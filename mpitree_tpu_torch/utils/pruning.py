@@ -1,9 +1,10 @@
 """Minimal cost-complexity pruning (sklearn's ``ccp_alpha``) on a finished
 tree, host numpy, whatever engine built it.
 
-Counterpart of ``mpitree_tpu/utils/pruning.py`` (classification: the node
-weight is its class mass; regression comes with ``ROADMAP.md`` item 10).
-sklearn's weakest-link algorithm: with node risk
+Counterpart of ``mpitree_tpu/utils/pruning.py``: the node weight is its
+class mass (classification) or its training row count (regression, as the
+JAX package keeps it: per-node sample weights are not stored). sklearn's
+weakest-link algorithm: with node risk
 ``R(t) = (w_t / w_root) * impurity(t)`` and subtree risk ``R(T_t)`` (the sum
 of leaf risks below ``t``), an interior node's effective alpha is
 ``(R(t) - R(T_t)) / (|leaves(T_t)| - 1)``; nodes collapse weakest first
@@ -29,8 +30,13 @@ class Bunch(dict):
             raise AttributeError(key) from e
 
 
-def _node_risk(tree: TreeArrays) -> np.ndarray:
-    w = tree.count.sum(axis=1).astype(np.float64)
+def _node_risk(tree: TreeArrays, task: str) -> np.ndarray:
+    if task == "classification":
+        w = tree.count.sum(axis=1).astype(np.float64)
+    elif task == "regression":
+        w = tree.n_node_samples.astype(np.float64)
+    else:
+        raise ValueError(f"unknown task {task!r}")
     return (w / max(w[0], 1e-300)) * np.asarray(tree.impurity, np.float64)
 
 
@@ -59,17 +65,18 @@ def _descendants(tree: TreeArrays, t: int) -> list:
     return out
 
 
-def ccp_prune(tree: TreeArrays, ccp_alpha: float) -> TreeArrays:
+def ccp_prune(tree: TreeArrays, ccp_alpha: float, *,
+              task: str = "classification") -> TreeArrays:
     """The minimal cost-complexity pruning of ``tree`` at ``ccp_alpha``
     (``tree`` itself when ``ccp_alpha == 0`` or it is a single leaf)."""
     if ccp_alpha < 0:
         raise ValueError(f"ccp_alpha must be >= 0, got {ccp_alpha!r}")
     if ccp_alpha == 0 or tree.n_nodes <= 1:
         return tree
-    return _prune_impl(tree, ccp_alpha)
+    return _prune_impl(tree, ccp_alpha, task)
 
 
-def _prune_impl(tree: TreeArrays, ccp_alpha: float,
+def _prune_impl(tree: TreeArrays, ccp_alpha: float, task: str,
                 path_out: list | None = None) -> TreeArrays:
     """Weakest-link pruning at ``ccp_alpha`` without the zero
     short-circuit: collapses every node whose effective alpha is
@@ -78,7 +85,7 @@ def _prune_impl(tree: TreeArrays, ccp_alpha: float,
     ``(effective_alpha, total_leaf_risk_after)`` per collapse, in
     ascending alpha, so one sweep at ``inf`` yields the whole path."""
     n = tree.n_nodes
-    r = _node_risk(tree)
+    r = _node_risk(tree, task)
     r_sub, leaves = _subtree_stats(tree, r)
     removed = np.zeros(n, bool)    # inside a cut
     collapsed = np.zeros(n, bool)  # interior node turned leaf
@@ -151,16 +158,16 @@ def _prune_impl(tree: TreeArrays, ccp_alpha: float,
     )
 
 
-def pruning_path(tree: TreeArrays):
+def pruning_path(tree: TreeArrays, *, task: str = "classification"):
     """``(ccp_alphas, impurities)``, sklearn's
     ``cost_complexity_pruning_path``: the effective alphas at which the tree
     collapses and the total leaf impurity after each. One weakest-link
     sweep; collapses at an equal alpha merge into one step that keeps the
     last impurity."""
-    r_sub, _ = _subtree_stats(tree, _node_risk(tree))
+    r_sub, _ = _subtree_stats(tree, _node_risk(tree, task))
     alphas, impurities = [0.0], [float(r_sub[0])]
     steps: list = []
-    _prune_impl(tree, np.inf, path_out=steps)
+    _prune_impl(tree, np.inf, task, path_out=steps)
     for a, imp in steps:
         if abs(a - alphas[-1]) <= 1e-300:
             impurities[-1] = imp  # simultaneous collapse at equal alpha
@@ -177,5 +184,5 @@ def pruning_path_for(estimator, X, y, sample_weight=None) -> Bunch:
     est = type(estimator)(**estimator.get_params())
     est.ccp_alpha = 0.0
     est.fit(X, y, sample_weight=sample_weight)
-    alphas, impurities = pruning_path(est.tree_)
+    alphas, impurities = pruning_path(est.tree_, task=estimator._task)
     return Bunch(ccp_alphas=alphas, impurities=impurities)

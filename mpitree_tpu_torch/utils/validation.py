@@ -1,12 +1,14 @@
-"""Input validation for the estimator, without sklearn.
+"""Input validation for the estimators, without sklearn.
 
 Counterpart of the subset of ``mpitree_tpu/utils/validation.py`` the
-classifier uses. The JAX package validates with sklearn's ``check_X_y``/
-``check_array``; the port runs where sklearn is not installed, so the
-checks it needs are written here: numeric 2-D X with at least one row and
+estimators use. The JAX package validates with sklearn's ``check_X_y``/
+``check_array`` and weighs classes with sklearn's
+``compute_sample_weight``; the port runs where sklearn is not installed, so
+what it needs is written here: numeric 2-D X with at least one row and
 one feature, finite values, 1-D y of matching length with discrete labels,
 encoded against ``classes_`` (for ``0..C-1`` integer labels the encoding is
-the identity, as in the reference).
+the identity, as in the reference), or finite float64 regression targets;
+``class_weight`` as sklearn computes it.
 """
 
 from __future__ import annotations
@@ -49,8 +51,9 @@ def _as_float_matrix(X, what: str = "X") -> np.ndarray:
     return np.ascontiguousarray(arr, dtype=np.float32)
 
 
-def validate_fit_data(X, y):
-    """Returns (X float32 (N, F), y encoded int32 (N,), classes_)."""
+def validate_fit_data(X, y, *, task: str = "classification"):
+    """Returns (X float32 (N, F), y, classes_): y encoded int32 (N,) and
+    the classes, or for ``task="regression"`` float64 targets and None."""
     X = _as_float_matrix(X)
     y = np.asarray(y)
     if y.ndim == 2 and y.shape[1] == 1:
@@ -62,6 +65,17 @@ def validate_fit_data(X, y):
             "Found input variables with inconsistent numbers of samples: "
             f"[{X.shape[0]}, {y.shape[0]}]"
         )
+    if task == "regression":
+        # float64 on the host: the estimator centres in float64 and casts
+        # to float32 only for the moments; leaves are refit in float64
+        try:
+            y64 = np.ascontiguousarray(y, dtype=np.float64)
+        except (TypeError, ValueError) as e:
+            raise ValueError(f"regression targets must be numeric ({e})") \
+                from e
+        if not np.isfinite(y64).all():
+            raise ValueError("regression targets must be finite")
+        return X, y64, None
     if y.dtype.kind == "f":
         if not np.isfinite(y).all():
             raise ValueError("Input y contains NaN or infinity.")
@@ -87,6 +101,62 @@ def validate_sample_weight(sample_weight, n_samples: int):
     if n_samples and not (w > 0).any():
         raise ValueError("sample_weight is all zero: nothing to fit")
     return w
+
+
+def compute_sample_weight(class_weight, y) -> np.ndarray:
+    """sklearn's ``compute_sample_weight(class_weight, y)`` for one output,
+    in float64: ``"balanced"`` weighs class ``c`` by ``n / (n_classes *
+    count_c)``; a dict maps original labels to weights, labels it does not
+    name weigh 1, and a key that names no class raises; None weighs every
+    row 1. As in sklearn, a label is looked up as ``int(label)`` wherever
+    ``int()`` takes it (strings of digits and non-integral floats
+    included), else as ``str(label)``."""
+    y = np.asarray(y)
+    classes = np.unique(y)
+    if class_weight is None or (isinstance(class_weight, dict)
+                                and not class_weight):
+        weight = np.ones(len(classes))
+    elif isinstance(class_weight, str) and class_weight == "balanced":
+        counts = np.bincount(np.searchsorted(classes, y),
+                             minlength=len(classes)).astype(np.float64)
+        weight = counts.sum() / (len(classes) * counts)
+    elif isinstance(class_weight, dict):
+        weight = np.ones(len(classes))
+        unweighted = []
+        for i, c in enumerate(classes):
+            try:
+                key = int(c)
+            except ValueError:  # string labels
+                key = str(c)
+            if key in class_weight:
+                weight[i] = class_weight[key]
+            else:
+                unweighted.append(key)
+        if unweighted and len(classes) - len(unweighted) != len(
+                class_weight):
+            raise ValueError(
+                f"The classes, {unweighted}, are not in class_weight")
+    else:
+        raise ValueError(
+            "class_weight must be 'balanced', a dict or None, got "
+            f"{class_weight!r}")
+    return weight[np.searchsorted(classes, y)]
+
+
+def apply_class_weight(class_weight, y_enc, classes, sample_weight):
+    """``class_weight`` composed into per-sample weights, as
+    ``apply_class_weight`` (``mpitree_tpu/utils/validation.py:187``) does
+    it: float32 :func:`compute_sample_weight` over the original labels,
+    times ``sample_weight`` when given; ``sample_weight`` unchanged when
+    ``class_weight`` is None."""
+    if class_weight is None:
+        return sample_weight
+    try:
+        cw = compute_sample_weight(
+            class_weight, np.asarray(classes)[y_enc]).astype(np.float32)
+    except (ValueError, TypeError) as e:
+        raise ValueError(f"invalid class_weight: {e}") from e
+    return cw if sample_weight is None else cw * sample_weight
 
 
 def resolve_min_samples_leaf(min_samples_leaf, n_samples: int) -> int:

@@ -12,7 +12,8 @@ REPO = Path(__file__).resolve().parents[1]
 _PROBE = """
 import sys
 import mpitree_tpu_torch
-from mpitree_tpu_torch.tree import DecisionTreeClassifier
+from mpitree_tpu_torch.tree import (
+    DecisionTreeClassifier, DecisionTreeRegressor, RandomForestClassifier)
 {extra}
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))

@@ -11,9 +11,9 @@
     predict_proba and apply equal JAX's on held-out rows.
 (d) ``device=None`` raises ``RuntimeError`` when CUDA is missing: there is
     no silent CPU fallback.
-(e) fractional ``sample_weight`` is refused on CUDA (the kernels' float32
-    atomics are order-independent only for integer weights) and fits on
-    the CPU.
+
+Fractional ``sample_weight`` and ``class_weight`` are held against the JAX
+package in ``tests/test_torch_weights.py``.
 """
 
 from __future__ import annotations
@@ -150,28 +150,10 @@ def test_estimator_surface():
 
 @pytest.mark.parametrize("param,value", [
     ("max_leaf_nodes", 8), ("splitter", "random"),
-    ("max_features", "sqrt"), ("class_weight", "balanced"),
+    ("max_features", "sqrt"),
     ("monotonic_cst", [1] * 54), ("n_devices", 2),
 ])
 def test_options_off_this_slice_raise(param, value):
     X, y = covtype_like(100, seed=0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DecisionTreeClassifier(device="cpu", **{param: value}).fit(X, y)
-
-
-def test_fractional_weights_refused_on_cuda_only():
-    from mpitree_tpu_torch.core.builder import refuse_inexact_weights
-
-    cuda, cpu = torch.device("cuda"), torch.device("cpu")
-    frac = np.array([1.0, 0.5, 2.0], np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        refuse_inexact_weights(frac, cuda)
-    for w in (None, np.array([1.0, 3.0, 0.0], np.float32)):
-        refuse_inexact_weights(w, cuda)
-    refuse_inexact_weights(frac, cpu)
-    X, y = covtype_like(300, seed=4)
-    w = np.random.default_rng(1).random(len(y)).astype(np.float32) + 0.25
-    clf = DecisionTreeClassifier(max_depth=3, device="cpu").fit(
-        X, y, sample_weight=w
-    )
-    assert clf.tree_.count.dtype == np.float64 and clf.get_depth() <= 3

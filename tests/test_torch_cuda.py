@@ -3,9 +3,10 @@
 These tests need a CUDA card and ``nvcc``; elsewhere they skip. Run them
 on the machine with the card with ``python -m pytest --noconftest -m cuda
 tests/test_torch_cuda.py``. Integer-valued payloads sum exactly in float32
-in any order, so the histogram kernels must equal the plain version bit
-for bit; the traversal kernels reduce in member order with correctly
-rounded float64 (K4) or integer (K5) adds, so they must too.
+in any order, and every other payload takes the fixed-point route, whose
+int64 sums are exact in any order, so the histogram kernels must equal the
+plain version bit for bit; the traversal kernels reduce in member order
+with correctly rounded float64 (K4) or integer (K5) adds, so they must too.
 """
 
 from __future__ import annotations
@@ -164,19 +165,121 @@ def test_wrapper_refuses_what_the_kernels_do_not_take(cuda):
                               packed=packed)
 
 
-def test_fractional_weights_refused_on_the_card(cuda):
-    from mpitree_tpu_torch.tree import DecisionTreeClassifier
-    from mpitree_tpu_torch.utils.datasets import covtype_like
+def _fixed_payloads(cuda, N, rng):
+    """A fractional class payload, regression moments and a GBDT payload
+    with out-of-sample rows (h = 0)."""
+    from mpitree_tpu_torch.ops import histogram as ph
 
-    X, y = covtype_like(500, seed=0)
-    w = np.full(len(y), 0.5, np.float32)
-    with pytest.raises(NotImplementedError, match="fractional"):
-        DecisionTreeClassifier(max_depth=3, device="cuda").fit(
-            X, y, sample_weight=w
-        )
-    DecisionTreeClassifier(max_depth=3, device="cuda").fit(
-        X, y, sample_weight=2 * w
+    y = torch.from_numpy(rng.integers(0, 7, size=N)).to(cuda)
+    w = torch.from_numpy(rng.uniform(0.5, 2, N).astype(np.float32)).to(cuda)
+    t = torch.from_numpy(rng.normal(0, 1.3, N).astype(np.float32)).to(cuda)
+    h = torch.from_numpy(np.where(rng.random(N) < 0.3, 0.0, rng.uniform(
+        0.05, 0.25, N)).astype(np.float32)).to(cuda)
+    return {"class": ph.class_payload(y, w, 7).contiguous(),
+            "moments": ph.moment_payload(t, w).contiguous(),
+            "gbdt": ph.gbdt_payload(t, h).contiguous()}
+
+
+@pytest.mark.parametrize("S", [1, 8, 64, 512, 2048])
+def test_fixed_point_route_equals_plain_version(cuda, S):
+    """Every route whose tile fits, int32 and byte-wide bins, with and
+    without the level's slot order: bit for bit the plain version's int64
+    sums, and two launches bit for bit each other."""
+    xb, _, slot, feat_bins = _hist_inputs(cuda, S, S)
+    packed = hist_kernel.pack_bins(xb, 256)
+    order, seg = hist_kernel.slot_segments(slot, S)
+    rng = np.random.default_rng(S)
+    for name, payload in _fixed_payloads(cuda, xb.shape[0], rng).items():
+        se = hist_kernel.fixed_point_exponents(payload)
+        want = hist_kernel.histogram_reference(xb, payload, slot, n_slots=S,
+                                               n_bins=256, scale_exp=se)
+        ran = []
+        for route in hist_kernel.ROUTES:
+            try:
+                hist_kernel.plan(S, 54, payload.shape[1], 256, route,
+                                 feat_bins=feat_bins, fixed=True)
+            except ValueError:
+                continue
+            for pk in (None, packed):
+                for pre in ({}, dict(order=order, seg_start=seg)):
+                    key = f"{route}_fixed"
+                    before = hist_kernel.launches[key]
+                    runs = [hist_kernel.histogram_cuda(
+                        xb, payload, slot, n_slots=S, n_bins=256, packed=pk,
+                        feat_bins=feat_bins, scale_exp=se, _variant=route,
+                        **pre) for _ in range(2)]
+                    torch.cuda.synchronize()
+                    assert hist_kernel.launches[key] == before + 2
+                    assert runs[0].dtype == torch.int64
+                    assert torch.equal(runs[0], want), (name, route)
+                    assert torch.equal(runs[1], runs[0]), (name, route)
+            ran.append(route)
+        assert "sorted" in ran and (S > 1 or "stream" in ran), (name, ran)
+
+
+def test_fixed_point_route_with_a_skewed_frontier_and_small_pieces(cuda):
+    """Slots split into pieces combine with global 64-bit atomics into a
+    zeroed int64 output; empty slots are stored as zeros."""
+    S = 300
+    xb, _, slot, feat_bins = _hist_inputs(cuda, S, S, N=60_000, skew=True)
+    rng = np.random.default_rng(4)
+    for name, payload in _fixed_payloads(cuda, xb.shape[0], rng).items():
+        se = hist_kernel.fixed_point_exponents(payload)
+        want = hist_kernel.histogram_reference(xb, payload, slot, n_slots=S,
+                                               n_bins=256, scale_exp=se)
+        for piece_rows in (32, 4_096):
+            got = hist_kernel.histogram_cuda(
+                xb, payload, slot, n_slots=S, n_bins=256,
+                feat_bins=feat_bins, scale_exp=se, _variant="sorted",
+                _tune=dict(piece_rows=piece_rows))
+            assert torch.equal(got, want), (name, piece_rows)
+
+
+def test_float32_route_refuses_an_inexact_payload(cuda):
+    """Without scale_exp the kernel adds float32 in an unordered way, so a
+    payload whose sums would depend on that order is refused before the
+    launch: a fraction, or an integer sum at 2**24."""
+    xb, payload, slot, _ = _hist_inputs(cuda, 0, 8)
+    for bad in (payload * 0.5, payload + 2.0 ** 24):
+        before = dict(hist_kernel.launches)
+        with pytest.raises(ValueError, match="scale_exp"):
+            hist_kernel.histogram_cuda(xb, bad.contiguous(), slot, n_slots=8,
+                                       n_bins=256)
+        assert hist_kernel.launches == before
+
+
+def test_fractional_weight_and_regression_fits_on_the_card(cuda):
+    """The card's trees equal the CPU's field for field: a fractionally
+    weighted classifier (device engine and default) and a regressor, both
+    through the fixed-point route."""
+    from mpitree_tpu_torch.tree import (
+        DecisionTreeClassifier,
+        DecisionTreeRegressor,
     )
+    from mpitree_tpu_torch.utils.datasets import california_like, covtype_like
+
+    fields = ("feature", "threshold", "left", "right", "count", "value",
+              "n_node_samples", "impurity")
+    X, y = covtype_like(20_000, seed=6)
+    w = np.random.default_rng(2).uniform(0.5, 2, len(y)).astype(np.float32)
+    Xr, yr = california_like(20_000, seed=6)
+    for est, data in (
+            (lambda d: DecisionTreeClassifier(max_depth=10,
+                                              refine_depth=None, device=d),
+             (X, y, w)),
+            (lambda d: DecisionTreeClassifier(max_depth=14, device=d),
+             (X, y, w)),
+            (lambda d: DecisionTreeRegressor(max_depth=12, device=d),
+             (Xr, yr, None))):
+        before = dict(hist_kernel.launches)
+        gpu = est("cuda").fit(*data[:2], sample_weight=data[2])
+        assert hist_kernel.launches["sorted_fixed"] > before["sorted_fixed"]
+        assert hist_kernel.launches["stream_fixed"] > before["stream_fixed"]
+        cpu = est("cpu").fit(*data[:2], sample_weight=data[2])
+        assert gpu.fit_stats_["engine"] == "device"
+        for k in fields:
+            np.testing.assert_array_equal(getattr(gpu.tree_, k),
+                                          getattr(cpu.tree_, k), err_msg=k)
 
 
 def test_crown_leaf_ids_and_default_fit_on_the_card(cuda):
