@@ -106,12 +106,35 @@ non-integer payload takes (int64 sums, exact and order-independent):
     ``covtype_like(50_000, seed=2)``, depth 10, same draw (phase 4's tie
     rule); one default ``class_weight="balanced"`` fit.
 
+Phases 16-18 drive per-node feature sampling, random splits and the
+regression forests:
+
+16. subspace forests: phase 5's forest with ``max_features="sqrt"``, and
+    ``ExtraTreesClassifier`` (random splits, no bootstrap, ``"sqrt"``), on
+    the device engine alone, twice each (identical; the launch counters
+    around the second fit, both integer routes launched); held-out
+    accuracy; then 4 trees of depth 8 on ``covtype_like(20_000, seed=4)``
+    on the card and with ``device="cpu"``: identical.
+17. regression forests: ``RandomForestRegressor(n_estimators=20,
+    max_depth=12, oob_score=True)`` and ``ExtraTreesRegressor(
+    n_estimators=20, max_depth=12)`` on phase 13's matrix, device engine
+    alone, twice each (identical; the fixed-point routes only); held-out
+    R^2 and ``oob_score_``; 4 trees of depth 8 on ``california_like(
+    20_000, seed=6)`` on the card and on the CPU: identical.
+18. serving a regression forest: ``compile_model`` of phase 17's random
+    forest through K4 (``sum`` over float64 leaf means) at 1, 64 and
+    4,096 rows equals ``predict`` bit for bit, and through K5
+    (``quantize="int8"``) stays within its exactness report; both kernels
+    alone at 4,096 rows equal their plain versions, timed beside their
+    bound.
+
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the card's name and power limit, JSON lines of per-shape kernel timings
 (``kernel_shapes``, ``serve_kernel_shapes``, ``fixed_kernel_shapes``), of
 the serving measurements (``serving``), of the hybrid fits (``hybrid``),
-of phases 13 and 15 (``regression``, ``weights``) and one ``kernels`` line
-come before it.
+of phases 13 and 15 (``regression``, ``weights``), of phases 16-18
+(``subspace_forests``, ``regression_forests``, ``regression_serving``)
+and one ``kernels`` line come before it.
 Without CUDA the script exits 1 and prints no result.
 """
 
@@ -180,6 +203,9 @@ FIXED_PAYLOADS = ("moments", "class", "gbdt")
 FIXED_LINE = {"stream_fixed": 1, "sorted_fixed": None}
 CAL_ROWS = 581_012
 WEIGHT_LOW, WEIGHT_HIGH = 0.5, 2.0  # default_rng(2).uniform, float32
+# Phase 17's regression forests on phase 13's matrix
+REG_FOREST = dict(n_estimators=20, max_depth=12, max_bins=256,
+                  random_state=0)
 
 
 def log(msg: str) -> None:
@@ -402,8 +428,8 @@ def _fit_twice(est, X, y, *, sample_weight=None, routes=None,
     """Fit twice; the launch counters are set to 0 just before the second
     fit and read just after it, and every route of ``routes`` (default
     the integer routes) must have launched. ``first`` (a list) receives
-    the first fit's tree. Returns (first s, second s, launches, peak device
-    GiB of the second fit)."""
+    the first fit's tree (a forest's ``trees_``). Returns (first s,
+    second s, launches, peak device GiB of the second fit)."""
     from mpitree_tpu_torch.ops import hist_kernel
 
     t0 = time.perf_counter()
@@ -411,7 +437,7 @@ def _fit_twice(est, X, y, *, sample_weight=None, routes=None,
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     if first is not None:
-        first.append(est.tree_)
+        first.append(est.trees_ if hasattr(est, "trees_") else est.tree_)
 
     torch.cuda.reset_peak_memory_stats()
     for k in hist_kernel.launches:
@@ -1226,6 +1252,205 @@ def phase_weights(X, y, Xh, yh, device_acc: float) -> dict:
     return out
 
 
+def _forest_parity(cls, X, y, kw: dict, what: str) -> int:
+    """A forest fitted on the card and with ``device="cpu"``: every tree
+    identical field for field. Returns the node count."""
+    gpu = cls(device="cuda", **kw).fit(X, y)
+    cpu = cls(device="cpu", **kw).fit(X, y)
+    fields = PARITY_FIELDS + ("value", "impurity", "parent", "depth")
+    for i, (a, b) in enumerate(zip(gpu.trees_, cpu.trees_, strict=True)):
+        if not _same_fields(a, b, fields):
+            raise AssertionError(f"{what}: tree {i}: cuda tree != cpu tree")
+    nodes = sum(t.n_nodes for t in gpu.trees_)
+    log(f"{what}: {len(X)} rows, {len(gpu.trees_)} trees depth "
+        f"{kw['max_depth']}: cuda trees == cpu trees ({nodes} nodes)")
+    return nodes
+
+
+def _same_forests(a, b) -> bool:
+    return len(a) == len(b) and all(
+        _same_fields(s, t, PARITY_FIELDS + ("value", "impurity"))
+        for s, t in zip(a, b))
+
+
+def phase_subspace_forests(X, y, Xh, yh, bagged_acc: float) -> dict:
+    """Phase 16: config 5's forest with ``max_features="sqrt"``, and
+    ``ExtraTreesClassifier`` at its defaults, on the device engine alone,
+    twice each (the launch counters around the second fit; both integer
+    routes launched; the two fits identical); then 4 trees of depth 8 on
+    the card and on the CPU: identical."""
+    from mpitree_tpu_torch.tree import (
+        ExtraTreesClassifier,
+        RandomForestClassifier,
+    )
+    from mpitree_tpu_torch.utils.datasets import covtype_like
+
+    Xf, yf = X[:FOREST_ROWS], y[:FOREST_ROWS]
+    Xp, yp = covtype_like(20_000, seed=4)
+    out = {}
+    for name, cls, kw in (
+            ("rf_sqrt", RandomForestClassifier, dict(max_features="sqrt")),
+            ("extra_trees", ExtraTreesClassifier, {})):
+        forest = cls(**FOREST, **DEVICE_ONLY, **kw)
+        first = []
+        f1, f2, launches, peak = _fit_twice(forest, Xf, yf, first=first)
+        if not _same_forests(first[0], forest.trees_):
+            raise AssertionError(f"{name}: two fits differ")
+        test_acc, predict_s, nodes, depth = _check_forest(
+            forest, FOREST["n_estimators"], Xh, yh)
+        parity_nodes = _forest_parity(
+            cls, Xp, yp, dict(FOREST, n_estimators=4, max_depth=8,
+                              **DEVICE_ONLY, **kw),
+            what=f"{name} parity")
+        out[name] = dict(first_s=f1, second_s=f2, heldout_acc=test_acc,
+                         nodes_total=int(nodes.sum()), depth=depth,
+                         predict_s=predict_s, peak_gib=peak,
+                         launches=launches, parity_nodes=parity_nodes,
+                         bagged_heldout_acc=bagged_acc)
+        log(f"{name}: {len(Xf)} x {Xf.shape[1]}, {len(nodes)} trees, depth "
+            f"{depth}: first {f1:.3f} s, second {f2:.3f} s; two fits "
+            f"identical; nodes total {int(nodes.sum())}; held-out acc "
+            f"{test_acc:.6f} (bagging alone, phase 5: {bagged_acc:.6f}); "
+            f"peak {peak:.3f} GiB; launches {launches}")
+    return out
+
+
+def phase_regression_forests(Xc, yc, Xch, ych) -> tuple:
+    """Phase 17: ``RandomForestRegressor`` (20 trees, depth 12, OOB) and
+    ``ExtraTreesRegressor`` (20 trees, depth 12) on phase 13's matrix, on
+    the device engine alone, twice each: the two fits identical, the
+    fixed-point routes launched (counters around the second fit); held-out
+    R^2; then 4 trees of depth 8 at 20,000 rows on the card and on the
+    CPU: identical. Returns the stats and the fitted random forest."""
+    from mpitree_tpu_torch.ops import hist_kernel
+    from mpitree_tpu_torch.tree import (
+        ExtraTreesRegressor,
+        RandomForestRegressor,
+    )
+    from mpitree_tpu_torch.utils.datasets import california_like
+
+    Xp, yp = california_like(20_000, seed=6)
+    kw = dict(REG_FOREST, **DEVICE_ONLY)
+    out, rf = {}, None
+    for name, cls, extra in (
+            ("random_forest", RandomForestRegressor, dict(oob_score=True)),
+            ("extra_trees", ExtraTreesRegressor, {})):
+        forest = cls(**kw, **extra)
+        first = []
+        f1, f2, launches, peak = _fit_twice(
+            forest, Xc, yc, first=first, routes=hist_kernel.FIXED_ROUTES)
+        if not _same_forests(first[0], forest.trees_):
+            raise AssertionError(f"regression {name}: two fits differ")
+        if any(launches[k] for k in hist_kernel.ROUTES):
+            raise AssertionError(f"regression {name} left the fixed-point "
+                                 f"route: {launches}")
+        t0 = time.perf_counter()
+        pred = forest.predict(Xch)
+        predict_s = time.perf_counter() - t0
+        r2 = _r2(ych, pred)
+        nodes = np.array([t.n_nodes for t in forest.trees_])
+        oob = getattr(forest, "oob_score_", None)
+        if not (len(nodes) == kw["n_estimators"] and nodes.min() > 1
+                and np.isfinite(pred).all() and r2 > 0.5
+                and (oob is None or 0.5 < oob < 1.0)):
+            raise AssertionError(f"implausible regression forest {name}: "
+                                 f"R2 {r2}, oob {oob}, nodes {nodes}")
+        parity_nodes = _forest_parity(
+            cls, Xp, yp, dict(kw, n_estimators=4, max_depth=8, **extra),
+            what=f"regression {name} parity")
+        out[name] = dict(first_s=f1, second_s=f2, heldout_r2=r2,
+                         oob_score=oob, nodes_total=int(nodes.sum()),
+                         predict_s=predict_s, peak_gib=peak,
+                         launches=launches, parity_nodes=parity_nodes)
+        log(f"regression {name}: {len(Xc)} x {Xc.shape[1]}, "
+            f"{len(nodes)} trees depth {kw['max_depth']}: first {f1:.3f} s, "
+            f"second {f2:.3f} s; two fits identical; held-out R2 {r2:.6f} "
+            f"({len(Xch)} rows, predict {predict_s:.3f} s)"
+            + ("" if oob is None else f"; oob_score_ {oob:.6f}")
+            + f"; nodes total {int(nodes.sum())}; peak {peak:.3f} GiB; "
+            f"launches {launches}")
+        if rf is None:
+            rf = forest
+    return out, rf
+
+
+def phase_serve_regression(forest, Xq) -> dict:
+    """Phase 18: ``compile_model`` of the phase 17 random forest, served
+    through K4 (``sum`` over the trees' float64 leaf means) at 1, 64 and
+    4,096 rows, equal to ``forest.predict`` bit for bit, and through K5
+    (``quantize="int8"``) within its exactness report; the traversal
+    counters are set to 0 just before and both kernels must launch. Then
+    both kernels alone at 4,096 rows: equal to their plain versions,
+    timed beside their bound."""
+    from mpitree_tpu_torch.serving import compile_model, quantize, serve_kernel
+
+    for k in serve_kernel.launches:
+        serve_kernel.launches[k] = 0
+    cm = compile_model(forest)
+    cm8 = compile_model(forest, quantize="int8", quantize_tol=1.0)
+    served = {}
+    for n in SERVE_SHAPES[:3]:
+        t0 = time.perf_counter()
+        got = cm.raw(Xq[:n])
+        served[n] = (time.perf_counter() - t0) * 1e3
+        if not np.array_equal(got, forest.predict(Xq[:n])):
+            raise AssertionError(f"served regression forest != predict at "
+                                 f"{n} rows")
+        cm8.raw(Xq[:n])
+    rep = cm8.serve_report_["quantization"]
+    cal = quantize.synthesize_calibration(cm8.table, Xq.shape[1])
+    cal_delta = float(np.abs(cm8.raw(cal) - cm.raw(cal)).max())
+    launches = dict(serve_kernel.launches)
+    if not (launches["traverse"] and launches["traverse_q"]):
+        raise AssertionError(f"regression serving never launched: "
+                             f"{launches}")
+    if not (rep["ok"] and cal_delta <= rep["max_abs_delta"] + 1e-6):
+        raise AssertionError(f"int8 regression forest outside its report: "
+                             f"delta {cal_delta}, report {rep}")
+
+    N = SERVE_SHAPES[2]
+    table = cm.table
+    X = torch.from_numpy(np.ascontiguousarray(Xq[:N])).to(DEV)
+    cols = table.dev_arrays(DEV)[:5]
+    visited, leaves = _touched(table, cols, X)
+    T = table.n_trees
+    rows = {}
+    for form, tcols, values, rec, node_bytes, acc_bytes in (
+            ("traverse", cols, cm._values, table.dev_record(DEV),
+             16, 8),
+            ("traverse_q", (cm8._quant.feature, cm8._quant.threshold,
+                            cm8._quant.left, cm8._quant.right,
+                            cm8._quant.root), cm8._quant.qvals,
+             cm8._quant.record, 12, 4)):
+        kw = dict(n_steps=table.n_steps, agg="sum", n_out=1)
+        run = getattr(serve_kernel, form)
+        ref = getattr(serve_kernel, f"{form}_reference")
+        want = ref(X, *tcols, values, **kw)
+        got = run(X, *tcols, values, n_features=X.shape[1], record=rec, **kw)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{form}[sum, regression] != plain version")
+        ms = cuda_ms(lambda: run(X, *tcols, values, n_features=X.shape[1],
+                                 record=rec, **kw),
+                     reps=5, inner=SERVE_INNER[N], hold=True)
+        plain_ms = cuda_ms(lambda: ref(X, *tcols, values, **kw), reps=5)
+        n_bytes = (X.numel() * 4 + visited * node_bytes + T * 4
+                   + leaves * values.element_size() + N * acc_bytes)
+        rows[form] = dict(rows=N, ms=ms, plain_ms=plain_ms,
+                          bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3,
+                          bound_by="bytes", bytes=n_bytes,
+                          max_abs_err=float((got - want).abs().max().item()))
+        log(f"serve regression: {form}[sum, n_out=1] N={N}: kernel "
+            f"{ms:.6f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{rows[form]['bound_ms']:.6f} ms; equal to plain")
+    out = dict(served_ms=served, launches=launches, kernels=rows,
+               quantization=rep, calibration_delta=cal_delta, trees=T)
+    log(f"serve regression: {T} trees, exact answers == predict at "
+        f"{list(served)} rows (host ms {served}); int8 within its report "
+        f"(delta {cal_delta:.6g} <= {rep['max_abs_delta']:.6g}); launches "
+        f"{launches}")
+    return out
+
+
 def phase_profile(name: str, work, out_dir: Path) -> None:
     """Run ``work()`` once more under torch.profiler: device time by kernel
     and the device's busy share of the wall-clock; the table goes to
@@ -1379,6 +1604,10 @@ def main() -> int:
     regression = phase_regression(Xc, yc, Xch, ych)
     phase_regression_parity()
     weighted = phase_weights(X, y, Xh, yh, fit_acc)
+    subspace = phase_subspace_forests(X, y, Xh, yh, forest_acc)
+    reg_forests, reg_forest = phase_regression_forests(Xc, yc, Xch, ych)
+    reg_serving = phase_serve_regression(reg_forest, Xch)
+    del reg_forest
     if args.profile:
         profile_all(X, y, forest, Xh, args.profile)
 
@@ -1396,6 +1625,8 @@ def main() -> int:
             kernel_ms=row["kernel_ms"], sort_ms=row["sort_ms"],
             bound_int32_ms=row["bound_int32_ms"],
             forest_launches=forest_launches[route],
+            subspace_forest_launches={
+                k: v["launches"][route] for k, v in subspace.items()},
         ))
     for form, (agg, chan) in SERVE_LINE.items():
         row = next(r for r in serve_shapes if r["kernel"] == form
@@ -1415,6 +1646,8 @@ def main() -> int:
                 "ms", "plain_ms", "bound_ms", "max_abs_err")}
                 for r in serve_shapes if r["kernel"] == form
                 and r["agg"] == agg and r["channel"] == chan},
+            regression_serve_launches=reg_serving["launches"][form],
+            regression_forest_mean=reg_serving["kernels"][form],
         ))
     for key, S in FIXED_LINE.items():
         route = key[:-len("_fixed")]
@@ -1432,6 +1665,8 @@ def main() -> int:
             kernel_ms=row["kernel_ms"], sort_ms=row["sort_ms"],
             payload="moments (regression fit, phase 13)",
             weighted_fit_launches=weighted["launches"][key],
+            regression_forest_launches={
+                k: v["launches"][key] for k, v in reg_forests.items()},
         ))
     if (set(hist_kernel.launches) != set(REPRESENTATIVE) | set(FIXED_LINE)
             or set(serve_kernel.launches) != set(SERVE_LINE)):
@@ -1444,6 +1679,9 @@ def main() -> int:
     log(json.dumps({"fixed_kernel_shapes": fixed_shapes}))
     log(json.dumps({"regression": regression}))
     log(json.dumps({"weights": weighted}))
+    log(json.dumps({"subspace_forests": subspace}))
+    log(json.dumps({"regression_forests": reg_forests}))
+    log(json.dumps({"regression_serving": reg_serving}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -33,9 +33,17 @@ exact and order-independent, so the card's tree equals the CPU's and, for
 fractional weights, the exact float64 counts of the JAX package's host
 tier.
 
+Per-node feature sampling and ``splitter="random"`` (``feature_sampler``,
+``ops/sampling.py``): the node keys live on the host in a ``KeyStore``
+beside the level's host decision, as in the JAX levelwise engine; each
+chunk's (S, F) feature masks and bin draws go to the card with the chunk.
+``feature_mask`` (a forest tree's fixed subspace) removes features from
+the candidates but not from the histogram, so the ``constant`` stop sees
+them as the JAX package's does.
+
 Not in this engine (see ``ROADMAP.md``): sibling subtraction, the fused
-single-program engine, sampling, monotonic constraints, gbdt rounds, the
-resilience snapshot and the observability layer.
+single-program engine, monotonic constraints, gbdt rounds, the resilience
+snapshot and the observability layer.
 """
 
 from __future__ import annotations
@@ -262,7 +270,9 @@ def build_tree(binned: BinnedData, y: np.ndarray, *, config: BuildConfig,
                sample_weight: np.ndarray | None = None,
                packed: torch.Tensor | None = None,
                return_leaf_ids: bool = False,
-               refit_targets: np.ndarray | None = None):
+               refit_targets: np.ndarray | None = None,
+               feature_sampler=None,
+               feature_mask: np.ndarray | None = None):
     """Grow one tree level by level on the device that holds
     ``binned.x_binned``; returns the host struct-of-arrays tree.
 
@@ -275,6 +285,9 @@ def build_tree(binned: BinnedData, y: np.ndarray, *, config: BuildConfig,
     final node as an (N,) int32 numpy array, one copy from the device
     (rows of leaves that stopped early stay parked at their node), which
     the hybrid refine tail reads instead of descending the crown again.
+    ``feature_sampler`` (``ops/sampling.NodeFeatureSampler``) samples
+    features per node and draws random splits; ``feature_mask`` (F,) bool
+    keeps a tree's subspace.
     """
     cfg = config
     check_task(cfg)
@@ -312,7 +325,12 @@ def build_tree(binned: BinnedData, y: np.ndarray, *, config: BuildConfig,
     sum_exp = scale_exp if fixed else (0,) * C
     q = None
     nid = torch.zeros(N, dtype=torch.int32, device=dev)
-    cand_mask = torch.from_numpy(binned.candidate_mask()).to(dev)
+    cand = binned.candidate_mask()
+    if feature_mask is not None:
+        cand = cand & np.asarray(feature_mask, bool)[:, None]
+    cand_mask = torch.from_numpy(cand).to(dev)
+    sampling = feature_sampler is not None and feature_sampler.active
+    keys = feature_sampler.key_store() if sampling else None
 
     K = _chunk_size(N, F, B, C, cfg, cell_bytes=8 if fixed else 4)
     U = _table_slots(N, cfg)
@@ -323,6 +341,21 @@ def build_tree(binned: BinnedData, y: np.ndarray, *, config: BuildConfig,
 
     def to_dev(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(dev)
+
+    def sample_args(lo: int, take: int, S: int) -> dict:
+        """The node masks and draws of the S-slot chunk at ``lo`` holding
+        ``take`` nodes (padded slots: every feature, draw 0), as
+        ``mpitree_tpu/core/builder.py:1155-1166``."""
+        if not sampling:
+            return {}
+        nmask = np.ones((S, F), bool)
+        nmask[:take] = keys.masks(lo, lo + take)
+        out = {"node_mask": to_dev(nmask)}
+        if feature_sampler.random_split:
+            draws = np.zeros((S, F), np.int64)
+            draws[:take] = keys.draws(lo, lo + take)
+            out["draws"] = to_dev(draws)
+        return out
 
     frontier_lo, frontier_size, depth = 0, 1, 0
     while frontier_size > 0:
@@ -354,6 +387,7 @@ def build_tree(binned: BinnedData, y: np.ndarray, *, config: BuildConfig,
                     seg_start=None if seg is None else seg[
                         lo - frontier_lo: lo - frontier_lo + S + 1],
                     scale_exp=scale_exp, task=cfg.task, y=y_d,
+                    **sample_args(lo, min(S, hi - lo), S),
                 )[: min(S, hi - lo)]
                 for lo in range(frontier_lo, hi, S)
             ])
@@ -416,6 +450,8 @@ def build_tree(binned: BinnedData, y: np.ndarray, *, config: BuildConfig,
             )
             tree.left[split_ids] = lefts
             tree.right[split_ids] = rights
+            if sampling:
+                keys.assign_children(split_ids, lefts, rights, tree.n)
 
             # Reroute: one full-row pass per U-slot table (normally one).
             is_split_full = ~stop

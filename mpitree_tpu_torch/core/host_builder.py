@@ -2,7 +2,7 @@
 by level in numpy and the native C++ sweep, on the host's cores.
 
 Counterpart of ``build_tree_host`` (``mpitree_tpu/core/host_builder.py:242``)
-without its sampling and monotonic halves. It grows the same levelwise
+without its monotonic half. It grows the same levelwise
 histogram tree as the device engine (``core/builder.py``): the same bins,
 stopping rules and first-min tie-breaks, the same struct-of-arrays result.
 The estimators run it for ``backend="host"``; the hybrid refine tail
@@ -15,17 +15,26 @@ dense ``(S, F, C, B)`` histogram: float64 class counts, or float32 moments
 with the JAX package's float32 cost (``_child_cost_mse``). A regression
 tree ends with the exact float64 refit of its values
 (``core/builder.refit_regression_values``).
+
+Feature sampling (``feature_sampler``, ``ops/sampling.py``) threads the
+same path-derived node keys as the device engine: a node's sampled
+features reach the C++ sweep as per-slot candidate counts (0 for a masked
+feature, whose bins still count for the ``constant`` stop), and
+``splitter="random"`` runs the numpy sweep with drawn bins, as the JAX
+package does (the C++ sweep has no drawn-bin mode). ``feature_mask``
+keeps a forest tree's fixed subspace.
 The C++ sweep accepts a new minimum only when it beats the incumbent by
 more than 1e-12 relative, the numpy sweep takes the strict first minimum:
 two genuinely distinct costs closer than that could resolve differently,
 as in the JAX package.
 
-Not here (``ROADMAP.md``): feature sampling and ``splitter="random"``
-(item 10), monotonic bounds (item 10), the build fingerprints and phase
-timer (item 18).
+Not here (``ROADMAP.md``): monotonic bounds (item 10), the build
+fingerprints and phase timer (item 18).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 
@@ -81,18 +90,23 @@ def _child_cost_mse(hist):
 
 
 def _native_splits(xb, y, nid, sample_weight, binned, cfg, *, frontier_lo,
-                   n_slots, n_classes):
-    """One level of the C++ sweep; ``None`` when the library is absent."""
+                   n_slots, n_classes, node_mask=None):
+    """One level of the C++ sweep; ``None`` when the library is absent.
+    ``node_mask`` (n_slots, F) bool becomes per-slot candidate counts."""
+    per_slot = node_mask is not None
+    n_cand = (np.where(node_mask, binned.n_cand[None, :], 0) if per_slot
+              else binned.n_cand)
     if cfg.task == "regression":
         return native.best_splits_regression(
             xb, np.asarray(y, np.float32), nid, sample_weight,
             n_bins=binned.n_bins, frontier_lo=frontier_lo, n_slots=n_slots,
-            n_cand=binned.n_cand, min_child_weight=cfg.min_child_weight,
+            n_cand=n_cand, n_cand_per_slot=per_slot,
+            min_child_weight=cfg.min_child_weight,
         )
     return native.best_splits_classification(
         xb, y, nid, sample_weight, n_bins=binned.n_bins,
         n_classes=n_classes, frontier_lo=frontier_lo, n_slots=n_slots,
-        n_cand=binned.n_cand, criterion=cfg.criterion,
+        n_cand=n_cand, n_cand_per_slot=per_slot, criterion=cfg.criterion,
         min_child_weight=cfg.min_child_weight,
     )
 
@@ -211,10 +225,13 @@ def _split_and_advance(tree, binned, xb, nid, ids, stop, feat_best, bin_best,
     return nid, frontier_lo + S, 2 * len(split_ids), depth + 1
 
 
-def _numpy_level(xb, y, w, slot, live, cand, S, C, B, cfg):
+def _numpy_level(xb, y, w, slot, live, cand, S, C, B, cfg, nmask=None,
+                 draws=None):
     """One non-terminal level of the numpy sweep: node stats, the dense
     ``(S, F, C, B)`` histogram (float32 moments for regression), the best
-    split per node and its stop."""
+    split per node and its stop. ``nmask`` (S, F) bool limits each node to
+    its sampled features; ``draws`` (S, F) uint32 picks each feature's bin
+    among its valid ones (``splitter="random"``)."""
     F = xb.shape[1]
     li = np.flatnonzero(live)
     sl = slot[li][:, None]
@@ -259,8 +276,15 @@ def _numpy_level(xb, y, w, slot, live, cand, S, C, B, cfg):
     valid = cand[None, :, :] & (n_l > 0) & (n_r > 0)
     if cfg.min_child_weight > 0.0:
         valid &= (n_l >= cfg.min_child_weight) & (n_r >= cfg.min_child_weight)
+    if nmask is not None:
+        valid &= nmask[:, :, None]
     cost = np.where(valid, cost, np.inf)
-    bin_f = cost.argmin(axis=2)  # first-min = lowest threshold
+    if draws is None:
+        bin_f = cost.argmin(axis=2)  # first-min = lowest threshold
+    else:  # ops/impurity._drawn_bins, in uint32 as the JAX host tier
+        j = draws % np.maximum(valid.sum(axis=2), 1).astype(np.uint32)
+        bin_f = (np.cumsum(valid, axis=2) > j[:, :, None].astype(np.int64)
+                 ).argmax(axis=2)
     cost_f = np.take_along_axis(cost, bin_f[:, :, None], axis=2)[:, :, 0]
     feat_best = cost_f.argmin(axis=1).astype(np.int32)  # lowest feature
     bin_best = np.take_along_axis(
@@ -284,15 +308,25 @@ def build_tree_host(binned, y: np.ndarray, *, config,
                     n_classes: int | None = None,
                     sample_weight: np.ndarray | None = None,
                     return_leaf_ids: bool = False,
-                    refit_targets: np.ndarray | None = None):
+                    refit_targets: np.ndarray | None = None,
+                    feature_sampler=None,
+                    feature_mask: np.ndarray | None = None):
     """Grow one tree on the host; the contract of ``core.builder.build_tree``
     on a host ``BinnedData`` (numpy ``x_binned``): ``y`` class indices, or
     float32 centred targets with ``config.task == "regression"``, whose
     ``refit_targets`` (float64) give the exact leaf values. With
     ``return_leaf_ids`` returns ``(tree, leaf_ids)``, ``leaf_ids`` every
-    row's final node as an (N,) int32 array."""
+    row's final node as an (N,) int32 array. ``feature_sampler`` and
+    ``feature_mask`` as in ``build_tree``."""
     cfg = config
     check_task(cfg)
+    if feature_mask is not None:
+        binned = dataclasses.replace(binned, n_cand=np.where(
+            np.asarray(feature_mask, bool), binned.n_cand, 0).astype(
+                np.int32))
+    sampling = feature_sampler is not None and feature_sampler.active
+    rand_split = sampling and feature_sampler.random_split
+    keys = feature_sampler.key_store() if sampling else None
     regression = cfg.task == "regression"
     xb = np.ascontiguousarray(binned.x_binned, np.int32)
     y = np.ascontiguousarray(y, np.float32 if regression else np.int32)
@@ -321,9 +355,11 @@ def build_tree_host(binned, y: np.ndarray, *, config,
             _record_level(tree, ids, S, True, None, None, value, n, counts,
                           node_imp)
             break
-        nat = _native_splits(
+        nmask = keys.masks(frontier_lo, frontier_lo + S) if sampling \
+            else None
+        nat = None if rand_split else _native_splits(
             xb, y, nid, sample_weight, binned, cfg,
-            frontier_lo=frontier_lo, n_slots=S, n_classes=C,
+            frontier_lo=frontier_lo, n_slots=S, n_classes=C, node_mask=nmask,
         )
         if nat is not None:
             counts, n, value, node_imp, feat_best, bin_best, stop = (
@@ -331,7 +367,10 @@ def build_tree_host(binned, y: np.ndarray, *, config,
             )
         else:
             counts, n, value, node_imp, feat_best, bin_best, stop = (
-                _numpy_level(xb, y, w, slot, live, cand, S, C, B, cfg)
+                _numpy_level(
+                    xb, y, w, slot, live, cand, S, C, B, cfg, nmask=nmask,
+                    draws=(keys.draws(frontier_lo, frontier_lo + S)
+                           if rand_split else None))
             )
         _record_level(tree, ids, S, False, stop, feat_best, value, n, counts,
                       node_imp)
@@ -339,6 +378,10 @@ def build_tree_host(binned, y: np.ndarray, *, config,
             tree, binned, xb, nid, ids, stop, feat_best, bin_best,
             slot, live, S, frontier_lo, depth,
         )
+        split_ids = ids[~stop]
+        if sampling and len(split_ids):
+            keys.assign_children(split_ids, tree.left[split_ids],
+                                 tree.right[split_ids], tree.n)
 
     out = tree.finalize()
     if regression and refit_targets is not None:

@@ -23,15 +23,22 @@ on its own rows):
 - **batched** (the native C++ sweep is loaded): all subtrees grow together
   in one multi-root levelwise frontier, one sweep call per level, with
   per-(node, feature) candidate counts;
-- **per-subtree** (no native library): ``build_tree_host`` once per
+- **per-subtree** (no native library, or ``splitter="random"``, whose
+  drawn bins the C++ sweep cannot take): ``build_tree_host`` once per
   candidate leaf, on that leaf's rows binned with ``binning="exact"``.
+
+Feature sampling continues below the crown: each subtree root starts from
+its crown leaf's path-derived key (``NodeFeatureSampler.keys_for_tree``),
+so the tail draws what a single engine growing the whole tree would. A
+forest tree's fixed subspace (``feature_mask``) zeroes the other features'
+candidates; their bins still count for the ``constant`` stop.
 
 A regression tail sweeps the moments with the C++ regression sweep and
 refits its subtrees' values exactly from their rows
 (``core/builder.refit_regression_values``), as the JAX package does.
 
-Not here (``ROADMAP.md``): the streamed row gather (item 16), feature
-sampling (item 10) and fingerprints (item 18).
+Not here (``ROADMAP.md``): the streamed row gather (item 16) and
+fingerprints (item 18).
 """
 
 from __future__ import annotations
@@ -150,14 +157,16 @@ def _bin_per_root(Xr: np.ndarray, starts: np.ndarray, ends: np.ndarray):
 def _refine_batched(top: TreeArrays, X, y_enc, candidates, rows_per, *,
                     cfg_sub, max_depth_total, root_depth, n_classes,
                     sample_weight, stats: dict,
-                    refit_targets=None) -> TreeArrays:
+                    refit_targets=None, feature_mask=None,
+                    feature_sampler=None, root_keys=None) -> TreeArrays:
     """Grow every deep subtree together in one multi-root host frontier.
 
     ``root_depth[i]`` is candidate ``i``'s depth in the crown: candidates
     need not share a depth, so each root has its own budget of
     ``max_depth_total - root_depth[i]`` further levels. ``stats`` receives
     the seconds of the exact per-root binning (``tail_bin_seconds``) and
-    of the C++ sweeps (``tail_sweep_seconds``).
+    of the C++ sweeps (``tail_sweep_seconds``). ``root_keys`` are the
+    candidates' sampling keys when ``feature_sampler`` is active.
     """
     R = len(candidates)
     sizes = np.array([len(r) for r in rows_per], np.int64)
@@ -173,7 +182,11 @@ def _refine_batched(top: TreeArrays, X, y_enc, candidates, rows_per, *,
     del Xr
     stats["tail_bin_seconds"] = time.perf_counter() - t0
     sweep_s = 0.0
+    # sized before the subspace mask zeroes candidates: masked features'
+    # bins still reach the sweep (JAX hybrid_builder.py:212-217)
     n_bins = int(ncand.max(initial=0)) + 1
+    if feature_mask is not None:
+        ncand[:, ~np.asarray(feature_mask, bool)] = 0
 
     Nr = len(rows_all)
     task = cfg_sub.task
@@ -191,6 +204,8 @@ def _refine_batched(top: TreeArrays, X, y_enc, candidates, rows_per, *,
     buf.ensure(R)
     buf.n = R
     root_of = np.arange(R, dtype=np.int32)
+    sampling = feature_sampler is not None and feature_sampler.active
+    keys = feature_sampler.key_store(root_keys) if sampling else None
     root_depth = np.asarray(root_depth, np.int32)
     rem = (
         None if max_depth_total is None
@@ -218,6 +233,9 @@ def _refine_batched(top: TreeArrays, X, y_enc, candidates, rows_per, *,
             break
 
         ncand_slot = np.ascontiguousarray(ncand[slot_roots])
+        if sampling:  # a node's unsampled features cannot win
+            ncand_slot = np.where(keys.masks(frontier_lo, frontier_lo + S),
+                                  ncand_slot, 0).astype(np.int32)
         if rem is not None:
             # Budget-exhausted roots' nodes become leaves this level: zero
             # their candidates so the kernel only counts them.
@@ -257,6 +275,10 @@ def _refine_batched(top: TreeArrays, X, y_enc, candidates, rows_per, *,
             root_of = np.concatenate(
                 [root_of, np.repeat(slot_roots[~stop], 2)]
             )
+            if sampling:
+                split_ids = ids[~stop]
+                keys.assign_children(split_ids, buf.left[split_ids],
+                                     buf.right[split_ids], buf.n)
 
     stats["tail_sweep_seconds"] = sweep_s
     bt = buf.finalize()
@@ -312,8 +334,9 @@ def refine_deep_subtrees(tree: TreeArrays, X: np.ndarray, y_enc: np.ndarray,
                          n_classes: int | None = None,
                          sample_weight: np.ndarray | None = None,
                          stats: dict | None = None,
-                         refit_targets: np.ndarray | None = None
-                         ) -> TreeArrays:
+                         refit_targets: np.ndarray | None = None,
+                         feature_mask: np.ndarray | None = None,
+                         feature_sampler=None) -> TreeArrays:
     """Host-finish every still-splittable leaf of the crown.
 
     ``tree`` is the crown (grown to ``refine_depth``), ``leaf_ids`` the
@@ -326,6 +349,8 @@ def refine_deep_subtrees(tree: TreeArrays, X: np.ndarray, y_enc: np.ndarray,
     ``refine_engine`` and, from the batched engine, its seconds. A
     regression tail (``config.task``) takes ``y_enc`` as the float32
     centred targets and ``refit_targets`` as the float64 ones.
+    ``feature_mask`` (F,) bool keeps a forest tree's subspace;
+    ``feature_sampler`` continues the crown's per-node sampling.
     """
     cfg = config
     if cfg.max_depth is not None and int(cfg.max_depth) <= refine_depth:
@@ -349,7 +374,11 @@ def refine_deep_subtrees(tree: TreeArrays, X: np.ndarray, y_enc: np.ndarray,
     if not keep.any():
         return tree
     candidates, starts, ends = candidates[keep], starts[keep], ends[keep]
-    batched = native.lib() is not None
+    sampling = feature_sampler is not None and feature_sampler.active
+    batched = native.lib() is not None and not (
+        feature_sampler is not None and feature_sampler.random_split)
+    root_keys = (feature_sampler.keys_for_tree(tree)[candidates]
+                 if sampling else None)
     stats = {} if stats is None else stats
     stats["refine_candidates"] = len(candidates)
     stats["refine_engine"] = "batched-native" if batched else "per-subtree"
@@ -361,11 +390,12 @@ def refine_deep_subtrees(tree: TreeArrays, X: np.ndarray, y_enc: np.ndarray,
             cfg_sub=cfg, max_depth_total=cfg.max_depth,
             root_depth=tree.depth[candidates], n_classes=n_classes,
             sample_weight=sample_weight, stats=stats,
-            refit_targets=refit_targets,
+            refit_targets=refit_targets, feature_mask=feature_mask,
+            feature_sampler=feature_sampler, root_keys=root_keys,
         )
 
     subtrees, attach = [], []
-    for leaf, s, e in zip(candidates, starts, ends):
+    for idx, (leaf, s, e) in enumerate(zip(candidates, starts, ends)):
         rows = order[s:e]
         # min_samples_split is a weighted rule: the subtree build applies
         # it itself (a single node means it stopped)
@@ -381,6 +411,10 @@ def refine_deep_subtrees(tree: TreeArrays, X: np.ndarray, y_enc: np.ndarray,
             else sample_weight[rows],
             refit_targets=None if refit_targets is None
             else refit_targets[rows],
+            feature_mask=feature_mask,
+            feature_sampler=dataclasses.replace(
+                feature_sampler, root_key_value=int(root_keys[idx]),
+            ) if sampling else None,
         )
         if st.n_nodes > 1:  # else immediately stopped: keep the leaf
             subtrees.append(st)
@@ -392,7 +426,8 @@ def refine_deep_subtrees(tree: TreeArrays, X: np.ndarray, y_enc: np.ndarray,
 
 def apply_refine(tree, leaf_ids, X, y, *, cfg, max_depth, rd,
                  n_classes=None, sample_weight=None,
-                 stats: dict | None = None, refit_targets=None):
+                 stats: dict | None = None, refit_targets=None,
+                 feature_mask=None, feature_sampler=None):
     """The estimators' entry: the refine tail of a crown built with
     ``cfg`` (whose ``max_depth`` is the crown depth ``rd``) down to
     ``max_depth``. ``stats`` also receives ``refine_nodes_added``."""
@@ -400,7 +435,8 @@ def apply_refine(tree, leaf_ids, X, y, *, cfg, max_depth, rd,
         tree, X, y, leaf_ids,
         config=dataclasses.replace(cfg, max_depth=max_depth),
         refine_depth=rd, n_classes=n_classes, sample_weight=sample_weight,
-        stats=stats, refit_targets=refit_targets,
+        stats=stats, refit_targets=refit_targets, feature_mask=feature_mask,
+        feature_sampler=feature_sampler,
     )
     if stats is not None:
         stats["refine_nodes_added"] = int(out.n_nodes - tree.n_nodes)

@@ -41,10 +41,16 @@ its phase seconds (``bin_seconds``, ``crown_seconds``, ``tail_seconds``,
 ran, its ``crown_depth``, ``refine_candidates``, ``refine_engine`` and
 ``refine_nodes_added``.
 
+``max_features`` samples a fresh feature subset at every node and
+``splitter="random"`` draws each feature's split bin among its valid ones
+(``ops/sampling.sampler_for``, the JAX package's ``:273-278``), on both
+tiers and in the tail; a node whose sampled features cannot split becomes
+a leaf. ``feature_importances_`` is sklearn's normalized total impurity
+decrease (``utils/importances.feature_importances``).
+
 Options that live off the ported path raise ``NotImplementedError``
 naming their ``ROADMAP.md`` item: ``max_leaf_nodes`` (leaf-wise growth),
-``splitter="random"``/``max_features`` (sampling), ``monotonic_cst`` and
-multi-device ``n_devices``.
+``monotonic_cst`` and multi-device ``n_devices``.
 """
 
 from __future__ import annotations
@@ -62,8 +68,10 @@ from mpitree_tpu_torch.core.hybrid_builder import apply_refine
 from mpitree_tpu_torch.core.tree_struct import TreeArrays
 from mpitree_tpu_torch.ops.binning import bin_dataset, bin_for_engine
 from mpitree_tpu_torch.ops.predict import predict_leaf_ids
+from mpitree_tpu_torch.ops.sampling import sampler_for
 from mpitree_tpu_torch.utils.carry import tree_from_reference
 from mpitree_tpu_torch.utils.export import export_tree_text
+from mpitree_tpu_torch.utils.importances import feature_importances
 from mpitree_tpu_torch.utils.pruning import ccp_prune, pruning_path_for
 from mpitree_tpu_torch.utils.validation import (
     apply_class_weight,
@@ -83,8 +91,6 @@ class NotFittedError(ValueError, AttributeError):
 # (parameter, value the slice supports, ROADMAP.md item that ports it)
 _LATER = (
     ("max_leaf_nodes", None, "Queue 1 item 13 (leaf-wise growth)"),
-    ("splitter", "best", "Queue 1 item 10 (ops/sampling.py)"),
-    ("max_features", None, "Queue 1 item 10 (ops/sampling.py)"),
     ("monotonic_cst", None, "Queue 1 item 10 (utils/monotonic.py)"),
 )
 
@@ -107,16 +113,20 @@ def host_tier(backend) -> bool:
 def grow_tree(binned, X, y, *, host: bool, cfg: BuildConfig, max_depth, rd,
               refine: bool, n_classes, sample_weight, ccp_alpha,
               clock, stats: dict, packed=None,
-              refit_targets=None) -> TreeArrays:
+              refit_targets=None, feature_sampler=None,
+              feature_mask=None) -> TreeArrays:
     """One tree in the JAX package's order: the build to the crown depth
     ``cfg.max_depth`` (the host tier when ``host``, else the device engine
     on ``binned``'s device), the refine tail down to ``max_depth`` when
     ``refine``, then ``ccp_alpha`` pruning. ``y`` is what the builders
     take (class indices, or regression's float32 centred targets, whose
     float64 ``refit_targets`` give the leaf values). Adds the engine, the
-    phase seconds and the tail's counts to ``stats``."""
+    phase seconds and the tail's counts to ``stats``. ``feature_sampler``
+    (``ops/sampling.py``) and ``feature_mask`` (a forest tree's subspace)
+    go to both tiers and to the tail."""
     kw = dict(config=cfg, n_classes=n_classes, sample_weight=sample_weight,
-              return_leaf_ids=refine, refit_targets=refit_targets)
+              return_leaf_ids=refine, refit_targets=refit_targets,
+              feature_sampler=feature_sampler, feature_mask=feature_mask)
     res = (build_tree_host(binned, y, **kw) if host
            else build_tree(binned, y, packed=packed, **kw))
     tree, leaf_ids = res if refine else (res, None)
@@ -127,7 +137,8 @@ def grow_tree(binned, X, y, *, host: bool, cfg: BuildConfig, max_depth, rd,
         tree = apply_refine(
             tree, leaf_ids, X, y, cfg=cfg, max_depth=max_depth, rd=rd,
             n_classes=n_classes, sample_weight=sample_weight, stats=tail,
-            refit_targets=refit_targets,
+            refit_targets=refit_targets, feature_mask=feature_mask,
+            feature_sampler=feature_sampler,
         )
         tail["tail_seconds"] = clock.lap()
         stats["crown_depth"] = rd
@@ -309,6 +320,8 @@ class DecisionTreeClassifier(ClassifierBase):
             binned, X, y_enc, host=host, cfg=cfg, max_depth=self.max_depth,
             rd=rd, refine=refine, n_classes=len(classes), sample_weight=sw,
             ccp_alpha=self.ccp_alpha, clock=clock, stats=stats,
+            feature_sampler=sampler_for(self.max_features, self.random_state,
+                                        X.shape[1], splitter=self.splitter),
         )
         self.fit_stats_ = stats
         self._set_fitted(classes, X.shape[1])
@@ -362,6 +375,13 @@ class DecisionTreeClassifier(ClassifierBase):
             self.tree_, feature_names=feature_names, class_names=class_names,
             precision=precision,
         )
+
+    @property
+    def feature_importances_(self) -> np.ndarray:
+        """Normalized total impurity decrease per feature (sklearn's)."""
+        self._check_fitted()
+        return feature_importances(self.tree_, self.n_features_,
+                                   criterion=self.criterion, task=self._task)
 
     def get_depth(self) -> int:
         self._check_fitted()

@@ -1,47 +1,57 @@
-"""Bagged random forest classifier, built tree by tree on the GPU.
+"""Random forests and extremely randomized trees, built tree by tree.
 
-Counterpart of ``RandomForestClassifier`` in ``mpitree_tpu/models/
-forest.py`` on its per-tree device route (``_fit_forest``, ``:272-765``;
-``build_one_device``, ``:533-576``), bagging only:
+Counterpart of ``mpitree_tpu/models/forest.py`` on its per-tree route
+(``_fit_forest``, ``:272-765``; ``build_one_device``, ``:533-576``):
+``RandomForestClassifier``, ``RandomForestRegressor``,
+``ExtraTreesClassifier`` and ``ExtraTreesRegressor``.
 
 - the matrix is binned once (``ops/binning.bin_for_engine``), its
-  byte-wide copy for the histogram kernels is made once, and every
-  tree is built by the levelwise engine (``core/builder.build_tree``) on
-  that one device-resident binned matrix;
-- the bootstrap draws are the JAX package's, in the same order:
-  ``rng = np.random.default_rng(random_state)``, then per tree
-  ``rng.multinomial(n, np.full(n, 1/n))`` as float32 multiplicities
-  (``:309, 445-458``), times any user ``sample_weight``. They are integers,
-  so the card's histograms sum them exactly;
+  byte-wide copy for the histogram kernels is made once, and every tree is
+  built by the levelwise engine (``core/builder.build_tree``) on that one
+  device-resident binned matrix; ``backend="host"`` builds every tree on
+  the host tier from one host binning (``host_raw``, ``:519-528``);
+- phase A draws every per-tree random number up front, in the JAX
+  package's order (``:437-492``): ``rng = np.random.default_rng(
+  random_state)``, then per tree the multinomial bootstrap
+  ``rng.multinomial(n, np.full(n, 1/n))`` as float32 multiplicities (when
+  ``bootstrap``), the tree's sampler seed ``int(rng.integers(2**32))``
+  (when sampling per node or ``splitter="random"``), and the tree's
+  subspace ``np.sort(rng.choice(F, k, replace=False))`` (when
+  ``max_features_mode="tree"``); one draw out of order would change every
+  later tree. The multiplicities multiply any user ``sample_weight``
+  (which ``class_weight`` scales first). Integer weights sum exactly on
+  the card; fractional ones take the histogram's fixed-point route;
 - each tree's leaf floors read its own composed weights (``tree_cfg``,
-  ``:388-405``);
-- each tree is finished as the JAX package's ``finish`` does it
-  (``:495-515``): the refine tail with that tree's composed weights when
-  ``resolve_refine`` engages it (``:358-361``), then ``ccp_alpha``
-  pruning; ``backend="host"`` builds every tree on the host tier from one
-  host binning (``host_raw``, ``:519-528``);
-- ``predict_proba`` descends all trees at once over the flat serving table
-  (``ops/predict.stacked_leaf_ids``) and then runs the JAX package's host
+  ``:388-405``), and each tree is finished as ``finish`` does it
+  (``:495-517``): the refine tail with that tree's weights, subspace and
+  sampler when ``resolve_refine`` engages it, then ``ccp_alpha`` pruning;
+- ``predict_proba`` descends all trees at once over the flat serving
+  table (``ops/predict.stacked_leaf_ids``) and runs the JAX package's host
   float64 loop, ``acc += counts / max(rowsum, 1)`` in tree order, ``/ T``
-  (``:924-962``); ``predict`` is its argmax.
+  (``:924-962``); the regression forest's ``predict`` is the float64 mean
+  of the trees' exact leaf means (``:1048-1055``);
+- ``oob_score`` scores each training row by the trees whose bootstrap left
+  it out (``oob_score_``, with ``oob_decision_function_`` or
+  ``oob_prediction_``), warning when some rows, or all, have no such tree
+  (``:896-922``, ``:1028-1046``); ``warm_start`` keeps the fitted trees
+  and, with an integer ``random_state``, replays phase A so the new trees
+  draw what an uninterrupted fit would (``:158-204``).
 
 ``trees_`` is a :class:`~mpitree_tpu_torch.serving.tables.TreeList`,
 which carries the flat table that predict and ``compile_model`` share.
-
 ``fit_stats_`` sums the phase seconds and tail counts over the trees and
-names the ``engine`` (see ``models/classifier.py``). A fractional
-``sample_weight`` composes into fractional tree weights, which the card
-sums on the histogram's fixed-point route.
+names the ``engine`` (see ``models/classifier.py``).
 
 Options off this path raise ``NotImplementedError`` naming their
-``ROADMAP.md`` item: ``max_features`` other than ``None``,
-``splitter="random"``, ``oob_score``, ``class_weight``, ``checkpoint``,
-``warm_start``, ``monotonic_cst``, ``n_devices > 1`` and ``dataset=``.
+``ROADMAP.md`` item: ``checkpoint``, ``checkpoint_compact_every``,
+``monotonic_cst``, ``n_devices > 1`` and ``dataset=``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import numbers
+import warnings
 
 import numpy as np
 
@@ -49,16 +59,24 @@ from mpitree_tpu_torch._device import resolve_device
 from mpitree_tpu_torch.core.builder import BuildConfig, pack_for_fit
 from mpitree_tpu_torch.models.classifier import (
     ClassifierBase,
+    EstimatorBase,
     FitClock,
     grow_tree,
     host_tier,
     refuse_later,
 )
+from mpitree_tpu_torch.models.regressor import RegressorBase
 from mpitree_tpu_torch.ops.binning import bin_dataset, bin_for_engine
 from mpitree_tpu_torch.ops.predict import stacked_leaf_ids
+from mpitree_tpu_torch.ops.sampling import (
+    NodeFeatureSampler,
+    n_subspace_features,
+)
 from mpitree_tpu_torch.serving.tables import TreeList
 from mpitree_tpu_torch.utils.carry import forest_from_reference
+from mpitree_tpu_torch.utils.importances import feature_importances
 from mpitree_tpu_torch.utils.validation import (
+    apply_class_weight,
     min_child_weight,
     min_decrease_scaled,
     resolve_refine,
@@ -69,26 +87,207 @@ from mpitree_tpu_torch.utils.validation import (
 
 # (parameter, value the slice supports, ROADMAP.md item that ports it)
 _LATER = (
-    ("max_features", None, "Queue 1 item 10 (ops/sampling.py)"),
-    ("splitter", "best", "Queue 1 item 10 (ops/sampling.py)"),
-    ("oob_score", False, "Queue 1 item 11 (forest oob_score)"),
-    ("class_weight", None, "Queue 1 item 11 (forest class_weight)"),
     ("checkpoint", None, "Queue 1 item 17 (resilience/checkpoint.py)"),
     ("checkpoint_compact_every", None,
      "Queue 1 item 17 (resilience/checkpoint.py)"),
-    ("warm_start", False, "Queue 1 item 11 (forest warm_start)"),
     ("monotonic_cst", None, "Queue 1 item 10 (utils/monotonic.py)"),
 )
 
 
-class RandomForestClassifier(ClassifierBase):
+class _BaseForest(EstimatorBase):
+    """The forests' shared fit: parameter checks, phase A's draws, the
+    per-tree builds, warm start and the OOB masks."""
+
+    def _check_slice(self, dataset) -> None:
+        if dataset is not None:
+            raise NotImplementedError(
+                "fit(dataset=...) is not ported yet (ROADMAP.md Queue 1 "
+                "item 16, streaming)"
+            )
+        refuse_later(self, _LATER)
+        if self.max_features_mode not in ("node", "tree"):
+            raise ValueError(
+                f"max_features_mode must be 'node' or 'tree', "
+                f"got {self.max_features_mode!r}"
+            )
+        if self.splitter not in ("best", "random"):
+            raise ValueError(
+                f"splitter must be 'best' or 'random', got {self.splitter!r}"
+            )
+        if int(self.n_estimators) < 1:
+            raise ValueError(
+                f"n_estimators must be >= 1, got {self.n_estimators!r}"
+            )
+        if self.oob_score and not self.bootstrap:
+            raise ValueError("oob_score=True requires bootstrap=True")
+
+    def _warm_start_trees(self):
+        """The fitted trees a ``warm_start`` fit keeps, or None."""
+        if not self.warm_start or not isinstance(
+                getattr(self, "trees_", None), TreeList):
+            return None
+        if not isinstance(self.random_state, numbers.Integral):
+            raise ValueError(
+                "warm_start requires a fixed integer random_state so the "
+                "continued fit replays the prior trees' bootstrap/feature "
+                "draws before drawing new ones"
+            )
+        prev = list(self.trees_)
+        if self.n_estimators < len(prev):
+            raise ValueError(
+                f"n_estimators={self.n_estimators} must be larger or "
+                f"equal to len(trees_)={len(prev)} when warm_start==True"
+            )
+        if self.n_estimators == len(prev):
+            warnings.warn(
+                "Warm-start fitting without increasing n_estimators does "
+                "not fit new trees.",
+                stacklevel=4,
+            )
+        return prev
+
+    def _fit_forest(self, X, y, *, task, criterion, n_classes=None,
+                    refit_targets=None, sample_weight=None) -> TreeList:
+        """Grow the forest; sets ``fit_stats_`` and, with ``oob_score``,
+        the per-tree out-of-bag masks that :meth:`_pop_oob_masks` takes."""
+        prev = self._warm_start_trees()
+        host = host_tier(self.backend)
+        device = resolve_device(self.device)
+        n, F = X.shape
+        clock = FitClock(device)
+        if host:
+            binned = bin_dataset(X, max_bins=self.max_bins,
+                                 binning=self.binning)
+            packed = None
+        else:
+            binned = bin_for_engine(X, max_bins=self.max_bins,
+                                    binning=self.binning, device=device)
+            packed = pack_for_fit(binned)  # once, next to the one binning
+        stats = {"bin_seconds": clock.lap()}
+        rd, refine, crown_depth = resolve_refine(
+            self.max_depth, self.refine_depth,
+            n_rows=n, quantized=binned.quantized,
+        )
+        cfg = BuildConfig(task=task, criterion=criterion,
+                          max_depth=crown_depth,
+                          min_samples_split=self.min_samples_split)
+
+        def tree_cfg(w):
+            """Per-tree leaf floors from the tree's composed bootstrap x
+            user weights (multinomial totals are exactly n)."""
+            return dataclasses.replace(
+                cfg,
+                min_child_weight=min_child_weight(
+                    self.min_weight_fraction_leaf, w, n,
+                    self.min_samples_leaf,
+                ),
+                min_decrease_scaled=min_decrease_scaled(
+                    self.min_impurity_decrease, w, n
+                ),
+            )
+
+        # Phase A: every per-tree draw up front, in the JAX package's order.
+        k = n_subspace_features(self.max_features, F)
+        rand_split = self.splitter == "random"
+        node_sampling = self.max_features_mode == "node" and k < F
+        rng = np.random.default_rng(self.random_state)
+        tree_w, tree_mask, tree_sampler = [], [], []
+        self._oob_masks = [] if self.oob_score else None
+        for _ in range(int(self.n_estimators)):
+            w = sample_weight
+            if self.bootstrap:
+                boot = rng.multinomial(n, np.full(n, 1.0 / n)).astype(
+                    np.float32)
+                if self._oob_masks is not None:
+                    self._oob_masks.append(boot == 0)
+                w = boot if w is None else boot * w
+            sampler = fmask = None
+            if node_sampling or rand_split:
+                # tree mode keeps its subspace below; the sampler then
+                # only carries the bin draws
+                sampler = NodeFeatureSampler(
+                    k=k if node_sampling else F, n_features=F,
+                    seed=int(rng.integers(2**32)), random_split=rand_split,
+                )
+            if not node_sampling and k < F:
+                fmask = np.zeros(F, bool)
+                fmask[np.sort(rng.choice(F, size=k, replace=False))] = True
+            tree_w.append(w)
+            tree_mask.append(fmask)
+            tree_sampler.append(sampler)
+
+        start = 0 if prev is None else len(prev)
+        self.fit_stats_ = stats
+        return TreeList((prev or []) + [
+            grow_tree(
+                binned, X, y, host=host, cfg=tree_cfg(tree_w[i]),
+                max_depth=self.max_depth, rd=rd, refine=refine,
+                n_classes=n_classes, sample_weight=tree_w[i],
+                ccp_alpha=self.ccp_alpha, clock=clock, stats=stats,
+                packed=packed, refit_targets=refit_targets,
+                feature_sampler=tree_sampler[i], feature_mask=tree_mask[i],
+            )
+            for i in range(start, int(self.n_estimators))
+        ])
+
+    def _pop_oob_masks(self) -> list:
+        """The fit's out-of-bag masks, dropped from the model (they would
+        pin T x n booleans on it)."""
+        masks = self._oob_masks
+        del self._oob_masks
+        return masks
+
+    @staticmethod
+    def _warn_partial_oob(seen) -> None:
+        if not seen.all():
+            warnings.warn(
+                "Some inputs do not have OOB scores (too few trees); their "
+                "OOB estimates are NaN",
+                stacklevel=3,
+            )
+
+    @staticmethod
+    def _warn_no_oob() -> float:
+        warnings.warn(
+            "no out-of-bag rows (too few trees); oob_score_ is nan",
+            stacklevel=3,
+        )
+        return float("nan")
+
+    # -- inference ---------------------------------------------------------
+    def _check_fitted(self) -> None:
+        if not isinstance(getattr(self, "trees_", None), TreeList):
+            raise self._not_fitted()
+
+    def _leaf_ids(self, X) -> np.ndarray:
+        """(T, N) per-tree leaf ids of validated rows."""
+        return stacked_leaf_ids(self.trees_, X, resolve_device(self.device))
+
+    @property
+    def feature_importances_(self) -> np.ndarray:
+        """Mean of the trees' normalized importances, renormalized to 1
+        (``:793-808``)."""
+        self._check_fitted()
+        acc = np.zeros(self.n_features_)
+        for t in self.trees_:
+            acc += feature_importances(
+                t, self.n_features_, task=self._task,
+                criterion=getattr(self, "criterion", "entropy"),
+            )
+        s = acc.sum()
+        return acc / s if s > 0 else acc
+
+
+class RandomForestClassifier(ClassifierBase, _BaseForest):
     """Bagged classification forest (soft voting over per-tree class
     distributions).
 
     Parameters are those of ``mpitree_tpu.tree.RandomForestClassifier``,
     plus ``device`` (``None`` = ``"cuda"``; ``"cpu"`` runs the plain
-    versions of the kernels). See the module docstring for the options
-    this slice refuses.
+    versions of the kernels). ``max_features`` samples a fresh subset at
+    every node (``max_features_mode="node"``) or one per tree
+    (``"tree"``). See the module docstring for the options this slice
+    refuses.
     """
 
     def __init__(self, *, n_estimators=10, criterion="entropy",
@@ -127,90 +326,47 @@ class RandomForestClassifier(ClassifierBase):
         self.warm_start = warm_start
         self.device = device
 
-    def _check_slice(self) -> None:
-        refuse_later(self, _LATER)
+    # -- fitting -----------------------------------------------------------
+    def fit(self, X, y, sample_weight=None, *, dataset=None):
+        self._check_slice(dataset)
         if self.criterion not in ("entropy", "gini"):
             raise ValueError(
                 f"unknown classification criterion: {self.criterion!r}"
             )
-        if self.max_features_mode not in ("node", "tree"):
-            raise ValueError(
-                f"max_features_mode must be 'node' or 'tree', "
-                f"got {self.max_features_mode!r}"
-            )
-        if int(self.n_estimators) < 1:
-            raise ValueError(
-                f"n_estimators must be >= 1, got {self.n_estimators!r}"
-            )
-
-    # -- fitting -----------------------------------------------------------
-    def fit(self, X, y, sample_weight=None, *, dataset=None):
-        if dataset is not None:
-            raise NotImplementedError(
-                "fit(dataset=...) is not ported yet (ROADMAP.md Queue 1 "
-                "item 16, streaming)"
-            )
-        self._check_slice()
-        host = host_tier(self.backend)
-        device = resolve_device(self.device)
         X, y_enc, classes = validate_fit_data(X, y)
-        n = X.shape[0]
-        sample_weight = validate_sample_weight(sample_weight, n)
-        clock = FitClock(device)
-        if host:
-            binned = bin_dataset(X, max_bins=self.max_bins,
-                                 binning=self.binning)
-            packed = None
-        else:
-            binned = bin_for_engine(X, max_bins=self.max_bins,
-                                    binning=self.binning, device=device)
-            packed = pack_for_fit(binned)  # once, next to the one binning
-        stats = {"bin_seconds": clock.lap()}
-        rd, refine, crown_depth = resolve_refine(
-            self.max_depth, self.refine_depth,
-            n_rows=n, quantized=binned.quantized,
+        sw = apply_class_weight(
+            self.class_weight, y_enc, classes,
+            validate_sample_weight(sample_weight, X.shape[0]),
         )
-        cfg = BuildConfig(criterion=self.criterion, max_depth=crown_depth,
-                          min_samples_split=self.min_samples_split)
-
-        def tree_cfg(w):
-            """Per-tree leaf floors from the tree's composed bootstrap x
-            user weights (multinomial totals are exactly n)."""
-            return dataclasses.replace(
-                cfg,
-                min_child_weight=min_child_weight(
-                    self.min_weight_fraction_leaf, w, n,
-                    self.min_samples_leaf,
-                ),
-                min_decrease_scaled=min_decrease_scaled(
-                    self.min_impurity_decrease, w, n
-                ),
-            )
-
-        # Every draw up front, in the JAX package's order.
-        rng = np.random.default_rng(self.random_state)
-        tree_w = []
-        for _ in range(int(self.n_estimators)):
-            w = sample_weight
-            if self.bootstrap:
-                boot = rng.multinomial(n, np.full(n, 1.0 / n)).astype(
-                    np.float32)
-                w = boot if w is None else boot * w
-            tree_w.append(w)
-
-        self.trees_ = TreeList(
-            grow_tree(
-                binned, X, y_enc, host=host, cfg=tree_cfg(w),
-                max_depth=self.max_depth, rd=rd, refine=refine,
-                n_classes=len(classes), sample_weight=w,
-                ccp_alpha=self.ccp_alpha, clock=clock, stats=stats,
-                packed=packed,
-            )
-            for w in tree_w
+        self.trees_ = self._fit_forest(
+            X, y_enc, task="classification", criterion=self.criterion,
+            n_classes=len(classes), sample_weight=sw,
         )
-        self.fit_stats_ = stats
         self._set_fitted(classes, X.shape[1])
+        if self.oob_score:
+            self._oob(X, y_enc, len(classes))
         return self
+
+    def _oob(self, X, y_enc, C: int) -> None:
+        """Each row scored by the trees whose bootstrap left it out."""
+        votes = np.zeros((len(X), C))
+        seen = np.zeros(len(X), bool)
+        for t, ids, oob in zip(self.trees_, self._leaf_ids(X),
+                               self._pop_oob_masks()):
+            counts = t.count[ids[oob]].astype(np.float64)
+            votes[oob] += counts / np.maximum(
+                counts.sum(axis=1, keepdims=True), 1.0)
+            seen |= oob
+        if not seen.any():
+            self.oob_score_ = self._warn_no_oob()
+            self.oob_decision_function_ = np.full((len(X), C), np.nan)
+            return
+        self._warn_partial_oob(seen)
+        df = votes / np.maximum(votes.sum(axis=1, keepdims=True), 1e-300)
+        df[~seen] = np.nan  # sklearn marks uncovered rows NaN
+        self.oob_decision_function_ = df
+        self.oob_score_ = float(
+            (votes[seen].argmax(axis=1) == y_enc[seen]).mean())
 
     @classmethod
     def from_reference(cls, trees, classes, n_features: int, **params):
@@ -225,17 +381,12 @@ class RandomForestClassifier(ClassifierBase):
         return est
 
     # -- inference ---------------------------------------------------------
-    def _check_fitted(self) -> None:
-        if not isinstance(getattr(self, "trees_", None), TreeList):
-            raise self._not_fitted()
-
     def predict_proba(self, X):
         """Mean of the per-tree leaf class distributions (float64)."""
         self._check_fitted()
         X = validate_predict_data(X, self)
-        ids = stacked_leaf_ids(self.trees_, X, resolve_device(self.device))
         acc = np.zeros((X.shape[0], len(self.classes_)))
-        for t, leaf in zip(self.trees_, ids):
+        for t, leaf in zip(self.trees_, self._leaf_ids(X)):
             counts = t.count[leaf].astype(np.float64)
             acc += counts / np.maximum(counts.sum(axis=1, keepdims=True), 1.0)
         return acc / len(self.trees_)
@@ -243,3 +394,156 @@ class RandomForestClassifier(ClassifierBase):
     def predict(self, X):
         idx = self.predict_proba(X).argmax(axis=1)
         return self.classes_[idx]
+
+
+class RandomForestRegressor(RegressorBase, _BaseForest):
+    """Bagged regression forest: the mean of the trees' exact leaf means.
+
+    Parameters are those of ``mpitree_tpu.tree.RandomForestRegressor``,
+    plus ``device``. The targets are centred on their float64 mean and
+    cast to float32 for the moment histograms (the fixed-point route on
+    the card); each tree's values are refit exactly in float64 from the
+    float64 targets (``:1017-1027``).
+    """
+
+    def __init__(self, *, n_estimators=10, max_depth=None,
+                 min_samples_split=2, max_bins=256, binning="auto",
+                 bootstrap=True, max_features=None, max_features_mode="node",
+                 oob_score=False, min_weight_fraction_leaf=0.0,
+                 min_samples_leaf=1, random_state=None, n_devices=None,
+                 backend=None, refine_depth="auto", checkpoint=None,
+                 checkpoint_compact_every=None, ccp_alpha=0.0,
+                 min_impurity_decrease=0.0, splitter="best",
+                 monotonic_cst=None, warm_start=False, device=None):
+        self.n_estimators = n_estimators
+        self.max_depth = max_depth
+        self.min_samples_split = min_samples_split
+        self.max_bins = max_bins
+        self.binning = binning
+        self.bootstrap = bootstrap
+        self.max_features = max_features
+        self.max_features_mode = max_features_mode
+        self.oob_score = oob_score
+        self.min_weight_fraction_leaf = min_weight_fraction_leaf
+        self.min_samples_leaf = min_samples_leaf
+        self.random_state = random_state
+        self.n_devices = n_devices
+        self.backend = backend
+        self.refine_depth = refine_depth
+        self.checkpoint = checkpoint
+        self.checkpoint_compact_every = checkpoint_compact_every
+        self.ccp_alpha = ccp_alpha
+        self.min_impurity_decrease = min_impurity_decrease
+        self.splitter = splitter
+        self.monotonic_cst = monotonic_cst
+        self.warm_start = warm_start
+        self.device = device
+
+    def fit(self, X, y, sample_weight=None, *, dataset=None):
+        self._check_slice(dataset)
+        X, y64, _ = validate_fit_data(X, y, task="regression")
+        sw = validate_sample_weight(sample_weight, X.shape[0])
+        self._y_mean = float(y64.mean()) if len(y64) else 0.0
+        self.trees_ = self._fit_forest(
+            X, (y64 - self._y_mean).astype(np.float32), task="regression",
+            criterion="mse", refit_targets=y64, sample_weight=sw,
+        )
+        self._set_fitted(X.shape[1])
+        if self.oob_score:
+            self._oob(X, y64)
+        return self
+
+    def _oob(self, X, y64) -> None:
+        """Each row predicted by the trees whose bootstrap left it out."""
+        pred = np.zeros(len(X))
+        cnt = np.zeros(len(X))
+        for t, ids, oob in zip(self.trees_, self._leaf_ids(X),
+                               self._pop_oob_masks()):
+            pred[oob] += t.count[ids[oob], 0]
+            cnt[oob] += 1
+        seen = cnt > 0
+        if not seen.any():
+            self.oob_score_ = self._warn_no_oob()
+            self.oob_prediction_ = np.full(len(X), np.nan)
+            return
+        self._warn_partial_oob(seen)
+        self.oob_prediction_ = np.where(seen, pred / np.maximum(cnt, 1),
+                                        np.nan)
+        resid = y64[seen] - self.oob_prediction_[seen]
+        tot = y64[seen] - y64[seen].mean()
+        self.oob_score_ = float(
+            1.0 - (resid @ resid) / max(tot @ tot, 1e-300))
+
+    def predict(self, X):
+        """The float64 mean over the trees of each row's leaf mean."""
+        self._check_fitted()
+        X = validate_predict_data(X, self)
+        acc = np.zeros(X.shape[0])
+        for t, leaf in zip(self.trees_, self._leaf_ids(X)):
+            acc += t.count[leaf, 0]
+        return acc / len(self.trees_)
+
+
+class ExtraTreesClassifier(RandomForestClassifier):
+    """Extremely randomized classification forest (sklearn's ExtraTrees,
+    ``:1057-1094``): ``splitter="random"`` (one keyed uniform pick among a
+    node's valid bins per feature), ``bootstrap=False`` and
+    ``max_features="sqrt"`` by default."""
+
+    def __init__(self, *, n_estimators=10, criterion="entropy",
+                 max_depth=None, min_samples_split=2, max_bins=256,
+                 binning="auto", bootstrap=False, max_features="sqrt",
+                 max_features_mode="node", oob_score=False, class_weight=None,
+                 min_weight_fraction_leaf=0.0, min_samples_leaf=1,
+                 random_state=None, n_devices=None, backend=None,
+                 refine_depth="auto", checkpoint=None,
+                 checkpoint_compact_every=None, ccp_alpha=0.0,
+                 min_impurity_decrease=0.0, monotonic_cst=None,
+                 warm_start=False, device=None):
+        super().__init__(
+            n_estimators=n_estimators, criterion=criterion,
+            max_depth=max_depth, min_samples_split=min_samples_split,
+            max_bins=max_bins, binning=binning, bootstrap=bootstrap,
+            max_features=max_features, max_features_mode=max_features_mode,
+            oob_score=oob_score, class_weight=class_weight,
+            min_weight_fraction_leaf=min_weight_fraction_leaf,
+            min_samples_leaf=min_samples_leaf, random_state=random_state,
+            n_devices=n_devices, backend=backend, refine_depth=refine_depth,
+            checkpoint=checkpoint,
+            checkpoint_compact_every=checkpoint_compact_every,
+            ccp_alpha=ccp_alpha,
+            min_impurity_decrease=min_impurity_decrease, splitter="random",
+            monotonic_cst=monotonic_cst, warm_start=warm_start,
+            device=device,
+        )
+
+
+class ExtraTreesRegressor(RandomForestRegressor):
+    """Extremely randomized regression forest (``:1096-1122``):
+    ``splitter="random"``, ``bootstrap=False`` and ``max_features=1.0``
+    by default."""
+
+    def __init__(self, *, n_estimators=10, max_depth=None,
+                 min_samples_split=2, max_bins=256, binning="auto",
+                 bootstrap=False, max_features=1.0, max_features_mode="node",
+                 oob_score=False, min_weight_fraction_leaf=0.0,
+                 min_samples_leaf=1, random_state=None, n_devices=None,
+                 backend=None, refine_depth="auto", checkpoint=None,
+                 checkpoint_compact_every=None, ccp_alpha=0.0,
+                 min_impurity_decrease=0.0, monotonic_cst=None,
+                 warm_start=False, device=None):
+        super().__init__(
+            n_estimators=n_estimators, max_depth=max_depth,
+            min_samples_split=min_samples_split, max_bins=max_bins,
+            binning=binning, bootstrap=bootstrap, max_features=max_features,
+            max_features_mode=max_features_mode, oob_score=oob_score,
+            min_weight_fraction_leaf=min_weight_fraction_leaf,
+            min_samples_leaf=min_samples_leaf, random_state=random_state,
+            n_devices=n_devices, backend=backend, refine_depth=refine_depth,
+            checkpoint=checkpoint,
+            checkpoint_compact_every=checkpoint_compact_every,
+            ccp_alpha=ccp_alpha,
+            min_impurity_decrease=min_impurity_decrease, splitter="random",
+            monotonic_cst=monotonic_cst, warm_start=warm_start,
+            device=device,
+        )

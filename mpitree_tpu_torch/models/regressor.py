@@ -18,9 +18,12 @@ from the rows' final nodes, so ``predict`` returns exact leaf means
 - ``backend="host"`` runs the host tier (the C++ regression sweep, else
   numpy), as the JAX package's ``backend="host"``.
 
+``max_features`` and ``splitter="random"`` sample per node as in the
+classifier (``ops/sampling.sampler_for``, the JAX package's ``:178-183``).
+
 Options off the ported path raise ``NotImplementedError`` naming their
-``ROADMAP.md`` item: ``splitter="random"``, ``max_features``,
-``monotonic_cst``, ``max_leaf_nodes`` and multi-device ``n_devices``.
+``ROADMAP.md`` item: ``monotonic_cst``, ``max_leaf_nodes`` and
+multi-device ``n_devices``.
 """
 
 from __future__ import annotations
@@ -39,8 +42,10 @@ from mpitree_tpu_torch.models.classifier import (
 )
 from mpitree_tpu_torch.ops.binning import bin_dataset, bin_for_engine
 from mpitree_tpu_torch.ops.predict import predict_leaf_ids
+from mpitree_tpu_torch.ops.sampling import sampler_for
 from mpitree_tpu_torch.utils.carry import tree_from_reference
 from mpitree_tpu_torch.utils.export import export_tree_text
+from mpitree_tpu_torch.utils.importances import feature_importances
 from mpitree_tpu_torch.utils.pruning import pruning_path_for
 from mpitree_tpu_torch.utils.validation import (
     min_child_weight,
@@ -54,13 +59,36 @@ from mpitree_tpu_torch.utils.validation import (
 # (parameter, value the slice supports, ROADMAP.md item that ports it)
 _LATER = (
     ("max_leaf_nodes", None, "Queue 1 item 13 (leaf-wise growth)"),
-    ("splitter", "best", "Queue 1 item 10 (ops/sampling.py)"),
-    ("max_features", None, "Queue 1 item 10 (ops/sampling.py)"),
     ("monotonic_cst", None, "Queue 1 item 10 (utils/monotonic.py)"),
 )
 
 
-class DecisionTreeRegressor(EstimatorBase):
+class RegressorBase(EstimatorBase):
+    """The regressors' shared surface: ``score`` is the (weighted) R^2 of
+    ``predict``."""
+
+    _task = "regression"
+
+    def score(self, X, y, sample_weight=None) -> float:
+        """R^2 of ``predict`` (weighted by ``sample_weight`` when given),
+        sklearn's ``r2_score``: 1.0 for a perfect fit, and for a constant
+        ``y`` 1.0 when predicted exactly, else 0.0."""
+        y = np.asarray(y, np.float64).ravel()
+        w = (np.ones_like(y) if sample_weight is None
+             else np.asarray(sample_weight, np.float64))
+        resid = float(np.sum(w * (y - self.predict(X)) ** 2))
+        total = float(np.sum(w * (y - np.average(y, weights=w)) ** 2))
+        if total == 0.0:
+            return 1.0 if resid == 0.0 else 0.0
+        return 1.0 - resid / total
+
+    def _set_fitted(self, n_features: int) -> None:
+        self.n_features_ = int(n_features)
+        self.n_features_in_ = int(n_features)
+        self.n_outputs_ = 1
+
+
+class DecisionTreeRegressor(RegressorBase):
     """Regression tree (squared-error criterion) built on the GPU.
 
     Parameters are those of ``mpitree_tpu.tree.DecisionTreeRegressor``
@@ -69,8 +97,6 @@ class DecisionTreeRegressor(EstimatorBase):
     kernels). See the module docstring for the options this slice
     refuses.
     """
-
-    _task = "regression"
 
     def __init__(self, *, max_depth=None, max_leaf_nodes=None,
                  min_samples_split=2,
@@ -143,15 +169,12 @@ class DecisionTreeRegressor(EstimatorBase):
             rd=rd, refine=refine, n_classes=None, sample_weight=sw,
             ccp_alpha=self.ccp_alpha, clock=clock, stats=stats,
             refit_targets=y64,
+            feature_sampler=sampler_for(self.max_features, self.random_state,
+                                        X.shape[1], splitter=self.splitter),
         )
         self.fit_stats_ = stats
         self._set_fitted(X.shape[1])
         return self
-
-    def _set_fitted(self, n_features: int) -> None:
-        self.n_features_ = int(n_features)
-        self.n_features_in_ = int(n_features)
-        self.n_outputs_ = 1
 
     def cost_complexity_pruning_path(self, X, y, sample_weight=None):
         """sklearn's diagnostic: the effective alphas and total leaf
@@ -190,19 +213,6 @@ class DecisionTreeRegressor(EstimatorBase):
         """The leaf index each sample lands in (int64)."""
         return self._leaf_ids(X).astype(np.int64)
 
-    def score(self, X, y, sample_weight=None) -> float:
-        """R^2 of ``predict`` (weighted by ``sample_weight`` when given),
-        sklearn's ``r2_score``: 1.0 for a perfect fit, and for a constant
-        ``y`` 1.0 when predicted exactly, else 0.0."""
-        y = np.asarray(y, np.float64).ravel()
-        w = (np.ones_like(y) if sample_weight is None
-             else np.asarray(sample_weight, np.float64))
-        resid = float(np.sum(w * (y - self.predict(X)) ** 2))
-        total = float(np.sum(w * (y - np.average(y, weights=w)) ** 2))
-        if total == 0.0:
-            return 1.0 if resid == 0.0 else 0.0
-        return 1.0 - resid / total
-
     # -- introspection -----------------------------------------------------
     def export_text(self, *, feature_names=None, precision=2):
         self._check_fitted()
@@ -210,6 +220,13 @@ class DecisionTreeRegressor(EstimatorBase):
             self.tree_, feature_names=feature_names, precision=precision,
             task="regression",
         )
+
+    @property
+    def feature_importances_(self) -> np.ndarray:
+        """Normalized total variance decrease per feature (sklearn's)."""
+        self._check_fitted()
+        return feature_importances(self.tree_, self.n_features_,
+                                   task="regression")
 
     def get_depth(self) -> int:
         self._check_fitted()

@@ -8,8 +8,13 @@ Counterpart of the classification and regression halves of
   ``(n_l * H(left) + n_r * H(right)) / n``;
 - per feature the lowest-cost bin wins, ties to the lowest threshold; across
   features the lowest cost wins, ties to the lowest feature index;
-- candidates with an empty side, outside ``cand_mask`` or under
-  ``min_child_weight`` cost ``+inf``.
+- candidates with an empty side, outside ``cand_mask``, under
+  ``min_child_weight`` or on a feature outside the node's sampled subset
+  (``node_mask``, ``ops/sampling.py``) cost ``+inf``; a masked feature
+  still counts for the ``constant`` stop;
+- with ``forced_draw`` (``splitter="random"``) each feature's bin is not
+  its best but one drawn among its valid bins (:func:`_drawn_bins`), and
+  the features then compete on the cost at their drawn bins.
 
 The default sweep runs in float64 (:func:`cost_sweep_f64`), on every
 device: the H100 has an fp64 unit, and the JAX package ranks in float32
@@ -229,10 +234,29 @@ def _winner(a: torch.Tensor, best_feature: torch.Tensor,
     return torch.gather(a_f[:, :, 0], 1, best_feature[:, None])[:, 0]
 
 
+def _drawn_bins(valid: torch.Tensor, draw: torch.Tensor) -> torch.Tensor:
+    """``splitter="random"``: per (slot, feature), the valid bin that
+    ``draw`` picks (``_drawn_bins``, ``mpitree_tpu/ops/impurity.py:436``):
+    ``j = draw % max(count of valid bins, 1)``, then the first bin whose
+    running count of valid bins exceeds ``j``; a feature with no valid bin
+    falls to bin 0, whose cost is already ``+inf``. ``valid`` (K, F, B)
+    bool, ``draw`` (K, F) int64 holding the uint32 draws, so the modulo
+    is exact."""
+    cnt = valid.sum(dim=2)
+    j = draw % torch.clamp(cnt, min=1)
+    hit = torch.cumsum(valid.to(torch.int64), dim=2) > j[:, :, None]
+    B = valid.shape[2]
+    iota = torch.arange(B, device=valid.device).view(1, 1, B)
+    first = torch.where(hit, iota, B).amin(dim=2)
+    return torch.where(first < B, first, 0)
+
+
 def best_split_classification(
     hist: torch.Tensor, cand_mask: torch.Tensor, *,
     criterion: str = "entropy", min_child_weight: float | None = None,
     exact_ties: bool = True, scale_exp=None,
+    node_mask: torch.Tensor | None = None,
+    forced_draw: torch.Tensor | None = None,
 ) -> SplitDecision:
     """Pick the best (feature, bin) per frontier slot.
 
@@ -242,7 +266,9 @@ def best_split_classification(
     statistics in float64: ``counts``, ``n``, ``n_left``, the parent
     ``impurity`` and the winner's ``cost`` (the exact float64 sums the
     JAX package's host tier keeps), and checks ``min_child_weight``
-    against float64 side weights.
+    against float64 side weights. ``node_mask`` (K, F) bool restricts
+    each slot to its sampled features; ``forced_draw`` (K, F) int64 picks
+    each feature's bin among its valid ones (``splitter="random"``).
     """
     if criterion not in ("entropy", "gini"):
         raise ValueError(f"unknown classification criterion: {criterion!r}")
@@ -262,10 +288,13 @@ def best_split_classification(
     valid = cand_mask[None, :, :] & (n_l > 0) & (n_r > 0)
     if min_child_weight is not None:
         valid = valid & (n_l >= min_child_weight) & (n_r >= min_child_weight)
+    if node_mask is not None:
+        valid = valid & node_mask[:, :, None]
     cost = torch.where(valid, cost, torch.full_like(cost, math.inf))
     cost_lo = torch.where(valid, cost_lo, torch.zeros_like(cost_lo))
 
-    best_bin_f = lex_argmin(cost, cost_lo, dim=2)  # (K, F)
+    best_bin_f = (lex_argmin(cost, cost_lo, dim=2) if forced_draw is None
+                  else _drawn_bins(valid, forced_draw))  # (K, F)
     best_cost_f = torch.gather(cost, 2, best_bin_f[:, :, None])[:, :, 0]
     best_lo_f = torch.gather(cost_lo, 2, best_bin_f[:, :, None])[:, :, 0]
     best_feature = lex_argmin(best_cost_f, best_lo_f, dim=1)  # (K,)
@@ -304,6 +333,8 @@ def best_split_classification(
 def best_split_regression(
     hist: torch.Tensor, cand_mask: torch.Tensor, *, scale_exp,
     min_child_weight: float | None = None,
+    node_mask: torch.Tensor | None = None,
+    forced_draw: torch.Tensor | None = None,
 ) -> SplitDecision:
     """Pick the best squared-error split per frontier slot from an int64
     fixed-point ``(w, w*y, w*y^2)`` moment histogram (K, F, 3, B).
@@ -317,6 +348,8 @@ def best_split_regression(
     ``counts`` is the parent's (K, 3) moments in float64, exact sums of
     the fixed-point values; ``impurity`` the parent's variance in float32.
     ``y_range`` is left to the caller (``collective.split_step``).
+    ``node_mask`` and ``forced_draw`` as in
+    :func:`best_split_classification`.
     """
     w_l, s_l, q_l = (torch.cumsum(hist[:, :, c, :], dim=2)
                      for c in range(3))
@@ -340,10 +373,13 @@ def best_split_regression(
     valid = cand_mask[None, :, :] & (w_l > 0) & (w_r > 0)
     if min_child_weight is not None:
         valid = valid & (w_l >= min_child_weight) & (w_r >= min_child_weight)
+    if node_mask is not None:
+        valid = valid & node_mask[:, :, None]
     cost = torch.where(valid, cost, torch.full_like(cost, math.inf))
 
-    no_lo = torch.zeros_like(cost)
-    best_bin_f = lex_argmin(cost, no_lo, dim=2)  # first min: lowest bin
+    best_bin_f = (  # first min: lowest bin
+        lex_argmin(cost, torch.zeros_like(cost), dim=2)
+        if forced_draw is None else _drawn_bins(valid, forced_draw))
     best_cost_f = torch.gather(cost, 2, best_bin_f[:, :, None])[:, :, 0]
     best_feature = lex_argmin(best_cost_f, torch.zeros_like(best_cost_f),
                               dim=1)

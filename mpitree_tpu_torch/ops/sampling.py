@@ -1,0 +1,223 @@
+"""Per-node random feature subsets and random-split draws (host numpy).
+
+Counterpart of the host half of ``mpitree_tpu/ops/sampling.py``
+(``seed_from`` ``:39``, ``sampler_for`` ``:60``, ``n_subspace_features``
+``:80``, ``pcg_hash`` ``:129``, ``NodeFeatureSampler`` ``:366``,
+``KeyStore`` ``:458``), with the same uint32 arithmetic bit for bit:
+
+- every node carries a uint32 **key**: the root key hashes the tree seed,
+  children hash the parent key with side-distinct salts, so keys follow the
+  node's *path* and every engine that grows the same tree draws the same;
+- a node's feature subset is the first ``k`` entries of a stable argsort
+  of per-(node, feature) hash scores;
+- ``splitter="random"`` draws one uint32 per (node, feature) under its own
+  salt; the split sweep takes it modulo the node's count of valid
+  candidate bins (``ops/impurity._drawn_bins``).
+
+A node whose ``k`` features admit no valid split becomes a leaf; there is
+no redraw (LightGBM's ``feature_fraction_bynode`` rule, as in the JAX
+package). The keys stay on the host beside the level's host decision, as
+the JAX levelwise engine keeps them; the builders ship masks and draws to
+the device once per chunk, the draws as int64 so ``draw % count`` is exact.
+
+Not here (``ROADMAP.md``): the ``*_jnp`` twins of the fused engine
+(item 7), the boosting round masks ``row_subsample_mask`` and
+``feature_subsample_mask`` (item 12), and the keyed forest draws
+``bootstrap_weights``, ``tree_seed`` and ``feature_subset`` (item 16).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import numbers
+
+import numpy as np
+
+
+def seed_from(random_state) -> int:
+    """sklearn's ``random_state`` idioms: None (seed 0: fits are never
+    nondeterministic), an int, a numpy Generator or RandomState."""
+    if random_state is None:
+        return 0
+    if isinstance(random_state, np.random.Generator):
+        return int(random_state.integers(2**32))
+    if isinstance(random_state, np.random.RandomState):
+        return int(random_state.randint(2**32))
+    try:
+        return int(random_state)
+    except (TypeError, ValueError):
+        raise ValueError(
+            f"random_state must be None, an int, or a numpy "
+            f"Generator/RandomState, got {random_state!r}"
+        ) from None
+
+
+def sampler_for(max_features, random_state, n_features: int,
+                splitter: str = "best"):
+    """The estimators' sampler for their parameters, or None when every
+    node sees every feature and splits at its best bin."""
+    if splitter not in ("best", "random"):
+        raise ValueError(
+            f"splitter must be 'best' or 'random', got {splitter!r}"
+        )
+    k = n_subspace_features(max_features, n_features)
+    if k >= n_features and splitter == "best":
+        return None
+    return NodeFeatureSampler(
+        k=min(k, n_features), n_features=n_features,
+        seed=seed_from(random_state), random_split=(splitter == "random"),
+    )
+
+
+def n_subspace_features(max_features, n_features: int) -> int:
+    """sklearn's ``max_features`` grammar -> the subset size k; invalid
+    values raise."""
+    if max_features is None:
+        return n_features
+    if isinstance(max_features, str):
+        if max_features == "sqrt":
+            return max(1, int(math.sqrt(n_features)))
+        if max_features == "log2":
+            return max(1, int(math.log2(n_features)))
+        raise ValueError(
+            f"max_features must be 'sqrt', 'log2', an int, a float in "
+            f"(0, 1], or None, got {max_features!r}"
+        )
+    if isinstance(max_features, numbers.Real) and not isinstance(
+            max_features, numbers.Integral):
+        if not 0.0 < max_features <= 1.0:
+            raise ValueError(
+                f"float max_features must be in (0, 1], got {max_features!r}"
+            )
+        return max(1, int(max_features * n_features))
+    k = int(max_features)
+    if not 0 < k <= n_features:
+        raise ValueError(
+            f"int max_features must be in [1, n_features={n_features}], "
+            f"got {max_features!r}"
+        )
+    return k
+
+
+_MULT = np.uint32(747796405)
+_INC = np.uint32(2891336453)
+_FIN = np.uint32(277803737)
+_LEFT_SALT = np.uint32(0x9E3779B9)
+_RIGHT_SALT = np.uint32(0xC2B2AE35)
+_FEAT_SALT = np.uint32(0x85EBCA6B)
+_DRAW_SALT = np.uint32(0x27D4EB2F)  # random-split bin draws (ExtraTrees)
+
+
+def pcg_hash(x: np.ndarray) -> np.ndarray:
+    """The PCG-XSH-RR style uint32 -> uint32 hash, wrapping arithmetic."""
+    with np.errstate(over="ignore"):
+        x = (x.astype(np.uint32) * _MULT + _INC).astype(np.uint32)
+        shift = ((x >> np.uint32(28)) + np.uint32(4)).astype(np.uint32)
+        word = (((x >> shift) ^ x) * _FIN).astype(np.uint32)
+        return ((word >> np.uint32(22)) ^ word).astype(np.uint32)
+
+
+def _salted(keys: np.ndarray, n_features: int, salt) -> np.ndarray:
+    """(S,) keys -> (S, F) uint32 ``pcg_hash(key ^ (f + 1) * salt)``."""
+    f = np.arange(n_features, dtype=np.uint32)
+    with np.errstate(over="ignore"):
+        return pcg_hash(
+            keys.astype(np.uint32)[:, None]
+            ^ ((f[None, :] + np.uint32(1)) * salt).astype(np.uint32)
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class NodeFeatureSampler:
+    """Per-node feature subsets of size ``k`` out of ``n_features`` and,
+    with ``random_split``, the per-(node, feature) bin draws, all derived
+    from ``seed`` (a forest draws one per tree) or, for a subtree grown
+    below a crown leaf, from that leaf's key ``root_key_value``."""
+
+    k: int
+    n_features: int
+    seed: int
+    root_key_value: int | None = None
+    random_split: bool = False
+
+    @property
+    def active(self) -> bool:
+        return self.k < self.n_features or self.random_split
+
+    def root_key(self) -> np.uint32:
+        if self.root_key_value is not None:
+            return np.uint32(self.root_key_value)
+        return pcg_hash(np.uint32(self.seed & 0xFFFFFFFF))
+
+    def child_keys(self, parent_keys: np.ndarray):
+        """(left keys, right keys) of an array of parent keys."""
+        p = parent_keys.astype(np.uint32)
+        return pcg_hash(p ^ _LEFT_SALT), pcg_hash(p ^ _RIGHT_SALT)
+
+    def node_masks(self, keys: np.ndarray) -> np.ndarray:
+        """(S,) keys -> (S, F) bool, True on each node's k features: the
+        first k of a stable ascending argsort of the node's feature
+        scores (hash collisions go to the lower feature index)."""
+        if self.k >= self.n_features:
+            return np.ones((len(keys), self.n_features), bool)
+        order = np.argsort(_salted(keys, self.n_features, _FEAT_SALT),
+                           axis=1, kind="stable")
+        mask = np.zeros((len(keys), self.n_features), bool)
+        np.put_along_axis(mask, order[:, : self.k], True, axis=1)
+        return mask
+
+    def node_draws(self, keys: np.ndarray) -> np.ndarray:
+        """(S,) keys -> (S, F) uint32 draws of ``splitter="random"``."""
+        return _salted(keys, self.n_features, _DRAW_SALT)
+
+    def key_store(self, root_keys=None) -> KeyStore:
+        return KeyStore(self, root_keys)
+
+    def keys_for_tree(self, tree) -> np.ndarray:
+        """Every node's key recomputed from the tree's structure, a depth
+        level at a time (parents precede children): the refine tail seeds
+        its subtree roots with the crown leaves' keys."""
+        keys = np.zeros(tree.n_nodes, np.uint32)
+        keys[0] = self.root_key()
+        for d in range(int(tree.depth.max(initial=0)) + 1):
+            parents = np.flatnonzero((tree.depth == d) & (tree.left >= 0))
+            if not len(parents):
+                continue
+            lk, rk = self.child_keys(keys[parents])
+            keys[tree.left[parents]] = lk
+            keys[tree.right[parents]] = rk
+        return keys
+
+
+class KeyStore:
+    """The growable per-node key array every level loop threads (device
+    engine, host tier, batched tail), so no engine keeps its own copy of
+    the bookkeeping."""
+
+    def __init__(self, sampler: NodeFeatureSampler, root_keys=None):
+        self._sampler = sampler
+        if root_keys is None:
+            self.keys = np.zeros(256, np.uint32)
+            self.keys[0] = sampler.root_key()
+        else:
+            self.keys = np.asarray(root_keys, np.uint32).copy()
+
+    def slice(self, lo: int, hi: int) -> np.ndarray:
+        return self.keys[lo:hi]
+
+    def masks(self, lo: int, hi: int) -> np.ndarray:
+        return self._sampler.node_masks(self.keys[lo:hi])
+
+    def draws(self, lo: int, hi: int) -> np.ndarray:
+        return self._sampler.node_draws(self.keys[lo:hi])
+
+    def assign_children(self, parent_ids, left_ids, right_ids, n_total: int):
+        """Hand children their path-derived keys (growing the store)."""
+        if n_total > len(self.keys):
+            grown = np.zeros(max(n_total, 2 * len(self.keys)), np.uint32)
+            grown[: len(self.keys)] = self.keys
+            self.keys = grown
+        lk, rk = self._sampler.child_keys(self.keys[parent_ids])
+        self.keys[left_ids] = lk
+        self.keys[right_ids] = rk

@@ -79,7 +79,9 @@ def split_step(x_binned: torch.Tensor, payload: torch.Tensor,
                order: torch.Tensor | None = None,
                seg_start: torch.Tensor | None = None,
                feat_bins=None, scale_exp=None, task: str = "classification",
-               y: torch.Tensor | None = None) -> torch.Tensor:
+               y: torch.Tensor | None = None,
+               node_mask: torch.Tensor | None = None,
+               draws: torch.Tensor | None = None) -> torch.Tensor:
     """Histogram + split sweep for the frontier chunk of ``n_slots`` nodes
     starting at node id ``chunk_lo``; returns the packed decision buffer.
 
@@ -92,6 +94,9 @@ def split_step(x_binned: torch.Tensor, payload: torch.Tensor,
     and ``seg_start`` (the level's rows ordered by node, and this chunk's
     ``n_slots + 1`` segment offsets into that order) and ``feat_bins`` go
     to the histogram as they are (``ops/hist_kernel.histogram``).
+    ``node_mask`` ((n_slots, F) bool, the slots' sampled features) and
+    ``draws`` ((n_slots, F) int64, ``splitter="random"``) go to the sweep
+    (``mpitree_tpu/parallel/collective.py:416``, ``:494``).
     """
     slot = (node_id - chunk_lo).to(torch.int32)
     hist = hist_ops.histogram(x_binned, payload, slot, n_slots=n_slots,
@@ -101,7 +106,8 @@ def split_step(x_binned: torch.Tensor, payload: torch.Tensor,
     if task == "regression":
         dec = imp_ops.best_split_regression(
             hist, cand_mask, scale_exp=scale_exp,
-            min_child_weight=min_child_weight,
+            min_child_weight=min_child_weight, node_mask=node_mask,
+            forced_draw=draws,
         )
         dec = dec._replace(y_range=y_range(
             y, node_id, payload[:, 0], chunk_lo, n_slots=n_slots))
@@ -109,6 +115,7 @@ def split_step(x_binned: torch.Tensor, payload: torch.Tensor,
         dec = imp_ops.best_split_classification(
             hist, cand_mask, criterion=criterion,
             min_child_weight=min_child_weight, scale_exp=scale_exp,
+            node_mask=node_mask, forced_draw=draws,
         )
     return pack_decision(
         dec, torch.float32 if scale_exp is None else torch.float64)

@@ -1,8 +1,10 @@
 """CompiledModel: a fitted estimator flattened for the request path.
 
 Counterpart of ``mpitree_tpu/serving/model.py``. ``compile_model(est)``
-turns a fitted ``DecisionTreeClassifier`` or ``RandomForestClassifier``
-into a serving handle:
+turns a fitted tree or forest (``DecisionTreeClassifier``,
+``DecisionTreeRegressor``, ``RandomForestClassifier``,
+``RandomForestRegressor``, ``ExtraTreesClassifier``,
+``ExtraTreesRegressor``) into a serving handle:
 
 - the depth-packed node table and its leaf-value channel are on the
   model's device from compile time (``serving/tables.py``), so a request
@@ -16,8 +18,12 @@ into a serving handle:
   the same IEEE quotients ``norm`` mode takes per row and request), or
   with ``quantize="int8"`` by K5
   (``quantize.q_traverse_accumulate``); on the CPU by their plain
-  versions. A single tree (kind ``gather_counts``) is a plain int32
-  gather on every device, as in the JAX package.
+  versions. A regression forest (kind ``forest_mean``) is K4 in ``sum``
+  mode over the trees' float64 leaf means, ``/ T``: the estimator's
+  ``predict`` bit for bit. A single classification tree (kind
+  ``gather_counts``, int32 counts) or regression tree (``gather_value``,
+  float64 leaf means) is a plain gather on every device, as in the JAX
+  package.
 
 ``serve_report_`` is a plain dict: kind, exactness, the dispatch, the
 quantization report, buckets, and requests and rows served. Metrics,
@@ -173,16 +179,20 @@ class CompiledModel:
         ], n
 
     def finalize(self, out, n: int) -> np.ndarray:
-        """A ``raw_async`` result as the estimator-shaped host array."""
+        """A ``raw_async`` result as the estimator-shaped host array (a
+        regression forest's (N, 1) accumulator as its (N,) column)."""
         if isinstance(out, list):
-            return np.concatenate(
+            host = np.concatenate(
                 [o[:k].cpu().numpy() for o, k in out], axis=0
             )
-        return out[:n].cpu().numpy()
+        else:
+            host = out[:n].cpu().numpy()
+        return host[:, 0] if self.kind == "forest_mean" else host
 
     def raw(self, X) -> np.ndarray:
-        """Probabilities for a forest, raw leaf counts for a single
-        classification tree, as a host array."""
+        """Probabilities for a classification forest, raw leaf counts for
+        a single classification tree, values for a regressor, as a host
+        array."""
         return self.finalize(*self.raw_async(X))
 
     def warmup(self, buckets=None) -> None:
@@ -194,7 +204,10 @@ class CompiledModel:
 
     # -- estimator-equivalent surface -------------------------------------
     def predict(self, X):
-        return self.classes[self.raw(X).argmax(axis=1)]
+        out = self.raw(X)
+        if self.classes is None:  # regressors: the values themselves
+            return out
+        return self.classes[out.argmax(axis=1)]
 
     def predict_proba(self, X):
         out = self.raw(X)
@@ -228,10 +241,15 @@ def compile_model(estimator, *, buckets=DEFAULT_BUCKETS, quantize=None,
     ``calibration`` batch (synthesized from the table's thresholds when
     omitted)."""
     from mpitree_tpu_torch.models.classifier import DecisionTreeClassifier
-    from mpitree_tpu_torch.models.forest import RandomForestClassifier
+    from mpitree_tpu_torch.models.forest import (
+        RandomForestClassifier,
+        RandomForestRegressor,
+    )
+    from mpitree_tpu_torch.models.regressor import DecisionTreeRegressor
 
-    if not isinstance(estimator,
-                      (RandomForestClassifier, DecisionTreeClassifier)):
+    if not isinstance(estimator, (
+            RandomForestClassifier, RandomForestRegressor,
+            DecisionTreeClassifier, DecisionTreeRegressor)):
         raise TypeError(
             f"compile_model: unsupported estimator {type(estimator).__name__}"
         )
@@ -239,7 +257,24 @@ def compile_model(estimator, *, buckets=DEFAULT_BUCKETS, quantize=None,
     kw = dict(buckets=buckets, quantize=quantize, quantize_tol=quantize_tol,
               calibration=calibration,
               device=resolve_device(estimator.device))
-    if isinstance(estimator, RandomForestClassifier):
+    if isinstance(estimator, RandomForestRegressor):  # and ExtraTrees
+        return CompiledModel(
+            estimator.trees_, kind="forest_mean",
+            n_features=estimator.n_features_, n_out=1,
+            values_fn=lambda t: np.asarray(t.count[:, 0], np.float64),
+            scale=float(len(estimator.trees_)), **kw,
+        )
+    if isinstance(estimator, DecisionTreeRegressor):
+        if quantize is not None:
+            raise NotImplementedError(
+                "quantize= for a single regression tree is not ported yet "
+                "(ROADMAP.md Queue 1 item 15)")
+        return CompiledModel(
+            [estimator.tree_], kind="gather_value",
+            n_features=estimator.n_features_, n_out=1,
+            values_fn=lambda t: np.asarray(t.count[:, 0], np.float64), **kw,
+        )
+    if isinstance(estimator, RandomForestClassifier):  # and ExtraTrees
         return CompiledModel(
             estimator.trees_, kind="forest_proba",
             n_features=estimator.n_features_,

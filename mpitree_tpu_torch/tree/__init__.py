@@ -1,12 +1,19 @@
 """Public import boundary, as in ``mpitree_tpu.tree``.
 
 ``from mpitree_tpu_torch.tree import DecisionTreeClassifier,
-DecisionTreeRegressor, RandomForestClassifier``.
+DecisionTreeRegressor, RandomForestClassifier, RandomForestRegressor,
+ExtraTreesClassifier, ExtraTreesRegressor``.
 """
 
 from mpitree_tpu_torch.models.classifier import DecisionTreeClassifier
-from mpitree_tpu_torch.models.forest import RandomForestClassifier
+from mpitree_tpu_torch.models.forest import (
+    ExtraTreesClassifier,
+    ExtraTreesRegressor,
+    RandomForestClassifier,
+    RandomForestRegressor,
+)
 from mpitree_tpu_torch.models.regressor import DecisionTreeRegressor
 
 __all__ = ["DecisionTreeClassifier", "DecisionTreeRegressor",
-           "RandomForestClassifier"]
+           "ExtraTreesClassifier", "ExtraTreesRegressor",
+           "RandomForestClassifier", "RandomForestRegressor"]

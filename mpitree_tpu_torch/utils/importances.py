@@ -1,8 +1,11 @@
-"""Per-node impurity from class counts or regression moments (host numpy).
+"""Per-node impurity and feature importances (host numpy).
 
-Copies of ``class_node_impurity`` and ``moment_node_impurity``
-(``mpitree_tpu/utils/importances.py:24,36``): the f64 values the builders
-store in ``TreeArrays.impurity``.
+Copies of ``class_node_impurity``, ``moment_node_impurity`` and
+``feature_importances`` (``mpitree_tpu/utils/importances.py:24,36,48``):
+the f64 values the builders store in ``TreeArrays.impurity``, and the
+estimators' ``feature_importances_``. The JAX package's fallback for
+regression trees saved without per-node impurity is not copied: every
+tree of the port carries it.
 """
 
 from __future__ import annotations
@@ -31,3 +34,28 @@ def moment_node_impurity(moments: np.ndarray) -> np.ndarray:
     w = np.maximum(m[:, 0], 1e-300)
     mean = m[:, 1] / w
     return np.maximum(m[:, 2] / w - mean * mean, 0.0)
+
+
+def feature_importances(tree, n_features: int, *, criterion: str = "entropy",
+                        task: str = "classification") -> np.ndarray:
+    """Normalized mean-decrease-in-impurity importances, (n_features,):
+    per split node ``n * imp - n_l * imp_l - n_r * imp_r`` over the root's
+    weight, floored at 0, summed by feature and normalized to 1 (all
+    zeros for a single leaf)."""
+    imp = np.zeros(n_features, np.float64)
+    interior = np.flatnonzero(tree.feature >= 0)
+    if len(interior) == 0:
+        return imp
+    n = tree.n_node_samples.astype(np.float64)
+    total = max(n[0], 1.0)
+    node_imp = (class_node_impurity(tree.count, criterion)
+                if task == "classification" else tree.impurity)
+    left, right = tree.left[interior], tree.right[interior]
+    decrease = (
+        n[interior] * node_imp[interior]
+        - n[left] * node_imp[left]
+        - n[right] * node_imp[right]
+    ) / total
+    np.add.at(imp, tree.feature[interior], np.maximum(decrease, 0.0))
+    s = imp.sum()
+    return imp / s if s > 0 else imp

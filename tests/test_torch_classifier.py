@@ -149,9 +149,25 @@ def test_estimator_surface():
 
 
 @pytest.mark.parametrize("param,value", [
-    ("max_leaf_nodes", 8), ("splitter", "random"),
-    ("max_features", "sqrt"),
-    ("monotonic_cst", [1] * 54), ("n_devices", 2),
+    ("splitter", "random"), ("max_features", "sqrt"),
+])
+def test_options_now_ported_equal_jax(param, value):
+    """Once refused, now fitted: the tree equals the JAX default's."""
+    from mpitree_tpu.tree import DecisionTreeClassifier as JaxTree
+
+    X, y = covtype_like(1_500, seed=0)
+    kw = dict(max_depth=5, random_state=2, **{param: value})
+    ref = JaxTree(**kw).fit(X, y)
+    est = DecisionTreeClassifier(device="cpu", **kw).fit(X, y)
+    assert est.tree_.n_nodes == ref.tree_.n_nodes > 1
+    for k in ("feature", "threshold", "left", "right", "count",
+              "n_node_samples", "impurity"):
+        np.testing.assert_array_equal(getattr(est.tree_, k),
+                                      getattr(ref.tree_, k), err_msg=k)
+
+
+@pytest.mark.parametrize("param,value", [
+    ("max_leaf_nodes", 8), ("monotonic_cst", [1] * 54), ("n_devices", 2),
 ])
 def test_options_off_this_slice_raise(param, value):
     X, y = covtype_like(100, seed=0)

@@ -317,6 +317,47 @@ def test_crown_leaf_ids_and_default_fit_on_the_card(cuda):
                                       getattr(fits[1].tree_, k), err_msg=k)
 
 
+def _same_forests(gpu, cpu):
+    for i, (a, b) in enumerate(zip(gpu.trees_, cpu.trees_, strict=True)):
+        assert a.n_nodes == b.n_nodes, i
+        for k in ("feature", "threshold", "left", "right", "count",
+                  "value", "n_node_samples", "impurity"):
+            np.testing.assert_array_equal(getattr(a, k), getattr(b, k),
+                                          err_msg=f"tree {i} {k}")
+
+
+@pytest.mark.parametrize("mode", ["node", "tree"])
+def test_sampled_forest_on_the_card_equals_cpu(cuda, mode):
+    """Per-node (or per-tree) feature subsets, the node masks shipped to
+    the card once per chunk: the card's trees equal the CPU's."""
+    from mpitree_tpu_torch.tree import RandomForestClassifier
+    from mpitree_tpu_torch.utils.datasets import covtype_like
+
+    X, y = covtype_like(20_000, seed=4)
+    kw = dict(n_estimators=3, max_depth=8, random_state=0,
+              max_features="sqrt", max_features_mode=mode,
+              refine_depth=None)
+    before = dict(hist_kernel.launches)
+    gpu = RandomForestClassifier(device="cuda", **kw).fit(X, y)
+    assert hist_kernel.launches["sorted"] > before["sorted"]
+    _same_forests(gpu, RandomForestClassifier(device="cpu", **kw).fit(X, y))
+
+
+def test_extra_trees_regressor_on_the_card_equals_cpu(cuda):
+    """Random splits (draws shipped as int64) on the fixed-point route."""
+    from mpitree_tpu_torch.tree import ExtraTreesRegressor
+    from mpitree_tpu_torch.utils.datasets import california_like
+
+    X, y = california_like(20_000, seed=6)
+    kw = dict(n_estimators=3, max_depth=8, random_state=0)
+    for extra in (dict(refine_depth=None), {}):
+        before = dict(hist_kernel.launches)
+        gpu = ExtraTreesRegressor(device="cuda", **kw, **extra).fit(X, y)
+        assert hist_kernel.launches["sorted_fixed"] > before["sorted_fixed"]
+        _same_forests(gpu, ExtraTreesRegressor(device="cpu", **kw,
+                                               **extra).fit(X, y))
+
+
 # ---------------------------------------------------------------------------
 # serving traversal kernels (K4 traverse, K5 traverse_q)
 # ---------------------------------------------------------------------------
@@ -478,3 +519,23 @@ def test_compiled_forest_serves_through_the_kernels_only(forest_on_card,
         if quantize is None:
             assert cm.exact
             np.testing.assert_array_equal(got, forest.predict_proba(Xq))
+
+
+def test_compiled_regression_forest_serves_predict_on_the_card(cuda):
+    """``forest_mean`` through K4 in ``sum`` mode: the regression forest's
+    ``predict`` bit for bit."""
+    from mpitree_tpu_torch.serving import compile_model, serve_kernel
+    from mpitree_tpu_torch.tree import RandomForestRegressor
+    from mpitree_tpu_torch.utils.datasets import california_like
+
+    X, y = california_like(20_000, seed=0)
+    Xq, _ = california_like(5_000, seed=1)
+    forest = RandomForestRegressor(n_estimators=6, max_depth=10,
+                                   random_state=0, device="cuda").fit(X, y)
+    cm = compile_model(forest)
+    before = serve_kernel.launches["traverse"]
+    for n in (1, 64, 5_000):
+        got = cm.raw(Xq[:n])
+        assert got.dtype == np.float64
+        np.testing.assert_array_equal(got, forest.predict(Xq[:n]))
+    assert serve_kernel.launches["traverse"] > before

@@ -148,8 +148,35 @@ def test_estimator_surface():
 
 @pytest.mark.parametrize("param,value", [
     ("max_features", "sqrt"), ("splitter", "random"), ("oob_score", True),
-    ("class_weight", "balanced"), ("checkpoint", "ck"),
-    ("checkpoint_compact_every", 4), ("warm_start", True),
+    ("class_weight", "balanced"), ("warm_start", True),
+])
+def test_options_now_ported_equal_jax(param, value):
+    """Once refused, now fitted: every tree equals the JAX default's (its
+    host tier at this size), and so do the OOB scores; a warm start grows
+    one tree onto one."""
+    from mpitree_tpu.tree import RandomForestClassifier as JaxForest
+
+    X, y = covtype_like(1_500, seed=0)
+    kw = dict(n_estimators=2, max_depth=4, random_state=3, **{param: value})
+    ests = [JaxForest(**kw), RandomForestClassifier(device="cpu", **kw)]
+    for est in ests:
+        if param == "warm_start":
+            est.set_params(n_estimators=1).fit(X, y)
+            est.set_params(n_estimators=2)
+        est.fit(X, y)
+    ref, port = ests
+    for got, want in zip(port.trees_, ref.trees_, strict=True):
+        for k in FIELDS:
+            np.testing.assert_array_equal(getattr(got, k), getattr(want, k),
+                                          err_msg=k)
+    if param == "oob_score":
+        assert port.oob_score_ == ref.oob_score_
+        np.testing.assert_array_equal(port.oob_decision_function_,
+                                      ref.oob_decision_function_)
+
+
+@pytest.mark.parametrize("param,value", [
+    ("checkpoint", "ck"), ("checkpoint_compact_every", 4),
     ("monotonic_cst", [1] * 54), ("n_devices", 2),
 ])
 def test_options_off_this_slice_raise(param, value):

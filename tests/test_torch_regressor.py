@@ -16,8 +16,9 @@
   sizes the port's default (crown on the device engine, tail on the host)
   equals the JAX default (the host tier) field for field;
 - ``ccp_alpha``, ``cost_complexity_pruning_path``, ``export_text``,
-  ``apply``, ``score``, ``from_reference``, fractional weights and the
-  refusals.
+  ``apply``, ``score``, ``from_reference``, fractional weights, the
+  sampling options (``tests/test_torch_sampling.py`` holds them in
+  depth) and the refusals.
 """
 
 from __future__ import annotations
@@ -159,8 +160,19 @@ def test_surface_apply_score_and_reference_carry(data):
 
 
 @pytest.mark.parametrize("param,value", [
-    ("max_leaf_nodes", 8), ("splitter", "random"), ("max_features", "sqrt"),
-    ("monotonic_cst", [1] * 8), ("n_devices", 2),
+    ("splitter", "random"), ("max_features", "sqrt"),
+])
+def test_options_now_ported_equal_jax(data, param, value):
+    """Once refused, now fitted: the tree equals the JAX default's."""
+    X, y, _ = data
+    kw = dict(max_depth=6, random_state=2, **{param: value})
+    ref = _jax(**kw).fit(X, y)
+    est = DecisionTreeRegressor(device="cpu", **kw).fit(X, y)
+    _same_tree(est.tree_, ref.tree_)
+
+
+@pytest.mark.parametrize("param,value", [
+    ("max_leaf_nodes", 8), ("monotonic_cst", [1] * 8), ("n_devices", 2),
 ])
 def test_options_off_this_slice_raise(param, value):
     X, y = california_like(100, seed=0)
