@@ -128,13 +128,35 @@ regression forests:
     alone at 4,096 rows equal their plain versions, timed beside their
     bound.
 
+Phases 19-20 drive ``monotonic_cst`` and the model files:
+
+19. constrained fits: covtype made binary (the most frequent class
+    against the rest, as LIBSVM's ``covtype.binary``) with
+    ``monotonic_cst`` +1 on elevation and -1 on the distance to
+    roadways, and the California-shaped regressor with +1 on MedInc,
+    depth 20, twice each (the launch counters around the second fit);
+    held-out accuracy beside an
+    unconstrained fit's (R^2 beside phase 13's); ``predict`` monotone
+    along each constrained column on 8 anchor rows x 256 points; card vs
+    CPU at 50,000 rows, depth 10, field for field with ``value``. Config
+    5's forest with the constraint, once (counters around it), served as
+    ``forest_values`` through K4 ``sum`` (bit for bit as
+    ``predict_proba``) and K5 (int8, within its report) at 1, 64 and
+    4,096 rows; both kernels alone at 4,096 rows equal their plain
+    versions, timed beside their bound.
+20. persistence: ``save_model``/``load_model`` of phase 5's forest and
+    phase 19's classifier (into ``build/chip_smoke_models/``):
+    ``predict`` and ``predict_proba`` bit for bit; the loaded forest
+    served equals the original's served answers; file sizes and seconds.
+
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the card's name and power limit, JSON lines of per-shape kernel timings
 (``kernel_shapes``, ``serve_kernel_shapes``, ``fixed_kernel_shapes``), of
 the serving measurements (``serving``), of the hybrid fits (``hybrid``),
 of phases 13 and 15 (``regression``, ``weights``), of phases 16-18
-(``subspace_forests``, ``regression_forests``, ``regression_serving``)
-and one ``kernels`` line come before it.
+(``subspace_forests``, ``regression_forests``, ``regression_serving``),
+of phases 19-20 (``constrained``, ``persistence``) and one ``kernels``
+line come before it.
 Without CUDA the script exits 1 and prints no result.
 """
 
@@ -206,6 +228,7 @@ WEIGHT_LOW, WEIGHT_HIGH = 0.5, 2.0  # default_rng(2).uniform, float32
 # Phase 17's regression forests on phase 13's matrix
 REG_FOREST = dict(n_estimators=20, max_depth=12, max_bins=256,
                   random_state=0)
+GRID = 256  # phase 19's points along a constrained column per anchor row
 
 
 def log(msg: str) -> None:
@@ -557,8 +580,8 @@ def _same_fields(a, b, fields=PARITY_FIELDS) -> bool:
 
 
 def _check_parity(gpu, cpu, X, y, what: str, tie_depth: int,
-                  sample_weight=None) -> None:
-    """The card's tree must equal the CPU's field for field, or differ
+                  sample_weight=None, fields=PARITY_FIELDS) -> None:
+    """The card's tree must equal the CPU's in ``fields``, or differ
     first at a node above depth ``tie_depth`` (a split the device engine
     chose on the global bins) whose two candidate float64 costs are within
     1e-12 relative: an exact-tie residual (CUDA's and glibc's fp64 ``log``
@@ -567,8 +590,7 @@ def _check_parity(gpu, cpu, X, y, what: str, tie_depth: int,
     from mpitree_tpu_torch.ops import hist_kernel, histogram, impurity
     from mpitree_tpu_torch.ops.binning import bin_dataset
 
-    fields = PARITY_FIELDS
-    if _same_fields(gpu, cpu):
+    if _same_fields(gpu, cpu, fields):
         log(f"{what}: cuda tree == cpu tree ({gpu.n_nodes} nodes)")
         return
     n = min(gpu.n_nodes, cpu.n_nodes)
@@ -586,7 +608,8 @@ def _check_parity(gpu, cpu, X, y, what: str, tie_depth: int,
     w = None if sample_weight is None else torch.from_numpy(
         sample_weight[rows])
     payload = histogram.class_payload(
-        torch.from_numpy(y[rows].astype(np.int64)), w, 7).contiguous()
+        torch.from_numpy(y[rows].astype(np.int64)), w,
+        gpu.count.shape[1]).contiguous()
     se = histogram.payload_scale(payload)
     hist = hist_kernel.histogram_reference(
         torch.from_numpy(binned.x_binned[rows].astype(np.int32)), payload,
@@ -1374,6 +1397,51 @@ def phase_regression_forests(Xc, yc, Xch, ych) -> tuple:
     return out, rf
 
 
+def _served_kernel_rows(cm, cm8, Xq, what: str) -> dict:
+    """K4 (``cm``'s float64 channel) and K5 (``cm8``'s int8 one) in
+    ``sum`` mode at 4,096 rows of ``Xq``, each equal to its plain version,
+    timed beside its bound and its plain version."""
+    from mpitree_tpu_torch.serving import serve_kernel
+
+    N = SERVE_SHAPES[2]
+    table = cm.table
+    X = torch.from_numpy(np.ascontiguousarray(Xq[:N])).to(DEV)
+    cols = table.dev_arrays(DEV)[:5]
+    visited, leaves = _touched(table, cols, X)
+    T = table.n_trees
+    rows = {}
+    for form, tcols, values, rec, node_bytes, acc_bytes in (
+            ("traverse", cols, cm._values, table.dev_record(DEV),
+             16, 8),
+            ("traverse_q", (cm8._quant.feature, cm8._quant.threshold,
+                            cm8._quant.left, cm8._quant.right,
+                            cm8._quant.root), cm8._quant.qvals,
+             cm8._quant.record, 12, 4)):
+        n_out = values.shape[1]
+        kw = dict(n_steps=table.n_steps, agg="sum", n_out=n_out)
+        run = getattr(serve_kernel, form)
+        ref = getattr(serve_kernel, f"{form}_reference")
+        want = ref(X, *tcols, values, **kw)
+        got = run(X, *tcols, values, n_features=X.shape[1], record=rec, **kw)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{form}[sum, {what}] != plain version")
+        ms = cuda_ms(lambda: run(X, *tcols, values, n_features=X.shape[1],
+                                 record=rec, **kw),
+                     reps=5, inner=SERVE_INNER[N], hold=True)
+        plain_ms = cuda_ms(lambda: ref(X, *tcols, values, **kw), reps=5)
+        n_bytes = (X.numel() * 4 + visited * node_bytes + T * 4
+                   + leaves * n_out * values.element_size()
+                   + N * n_out * acc_bytes)
+        rows[form] = dict(rows=N, n_out=n_out, ms=ms, plain_ms=plain_ms,
+                          bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3,
+                          bound_by="bytes", bytes=n_bytes,
+                          max_abs_err=float((got - want).abs().max().item()))
+        log(f"serve {what}: {form}[sum, n_out={n_out}] N={N}: kernel "
+            f"{ms:.6f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{rows[form]['bound_ms']:.6f} ms; equal to plain")
+    return rows
+
+
 def phase_serve_regression(forest, Xq) -> dict:
     """Phase 18: ``compile_model`` of the phase 17 random forest, served
     through K4 (``sum`` over the trees' float64 leaf means) at 1, 64 and
@@ -1408,46 +1476,232 @@ def phase_serve_regression(forest, Xq) -> dict:
         raise AssertionError(f"int8 regression forest outside its report: "
                              f"delta {cal_delta}, report {rep}")
 
-    N = SERVE_SHAPES[2]
-    table = cm.table
-    X = torch.from_numpy(np.ascontiguousarray(Xq[:N])).to(DEV)
-    cols = table.dev_arrays(DEV)[:5]
-    visited, leaves = _touched(table, cols, X)
-    T = table.n_trees
-    rows = {}
-    for form, tcols, values, rec, node_bytes, acc_bytes in (
-            ("traverse", cols, cm._values, table.dev_record(DEV),
-             16, 8),
-            ("traverse_q", (cm8._quant.feature, cm8._quant.threshold,
-                            cm8._quant.left, cm8._quant.right,
-                            cm8._quant.root), cm8._quant.qvals,
-             cm8._quant.record, 12, 4)):
-        kw = dict(n_steps=table.n_steps, agg="sum", n_out=1)
-        run = getattr(serve_kernel, form)
-        ref = getattr(serve_kernel, f"{form}_reference")
-        want = ref(X, *tcols, values, **kw)
-        got = run(X, *tcols, values, n_features=X.shape[1], record=rec, **kw)
-        if not torch.equal(got, want):
-            raise AssertionError(f"{form}[sum, regression] != plain version")
-        ms = cuda_ms(lambda: run(X, *tcols, values, n_features=X.shape[1],
-                                 record=rec, **kw),
-                     reps=5, inner=SERVE_INNER[N], hold=True)
-        plain_ms = cuda_ms(lambda: ref(X, *tcols, values, **kw), reps=5)
-        n_bytes = (X.numel() * 4 + visited * node_bytes + T * 4
-                   + leaves * values.element_size() + N * acc_bytes)
-        rows[form] = dict(rows=N, ms=ms, plain_ms=plain_ms,
-                          bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3,
-                          bound_by="bytes", bytes=n_bytes,
-                          max_abs_err=float((got - want).abs().max().item()))
-        log(f"serve regression: {form}[sum, n_out=1] N={N}: kernel "
-            f"{ms:.6f} ms, plain {plain_ms:.4f} ms, bound "
-            f"{rows[form]['bound_ms']:.6f} ms; equal to plain")
+    rows = _served_kernel_rows(cm, cm8, Xq, "regression")
+    T = cm.table.n_trees
     out = dict(served_ms=served, launches=launches, kernels=rows,
                quantization=rep, calibration_delta=cal_delta, trees=T)
     log(f"serve regression: {T} trees, exact answers == predict at "
         f"{list(served)} rows (host ms {served}); int8 within its report "
         f"(delta {cal_delta:.6g} <= {rep['max_abs_delta']:.6g}); launches "
         f"{launches}")
+    return out
+
+
+def binary(y: np.ndarray, top: int) -> np.ndarray:
+    """LIBSVM's ``covtype.binary``: the most frequent class against the
+    rest."""
+    return (y == top).astype(np.int64)
+
+
+def _monotone(est, X, anchors, col: int, sign: int, what: str) -> None:
+    """``predict`` along ``GRID`` points of column ``col`` (its range in
+    ``X``), the other columns those of each anchor row, must move only in
+    the direction of ``sign`` (to 1e-6 of the largest answer: the clip
+    bounds are float32, the regressor's exact means float64)."""
+    grid = np.linspace(X[:, col].min(), X[:, col].max(),
+                       GRID).astype(np.float32)
+    rows = np.repeat(anchors, GRID, axis=0)
+    rows[:, col] = np.tile(grid, len(anchors))
+    pred = np.asarray(est.predict(rows), np.float64).reshape(len(anchors),
+                                                             GRID)
+    tol = 1e-6 * max(1.0, float(np.abs(pred).max()))
+    if not (sign * np.diff(pred, axis=1) >= -tol).all():
+        raise AssertionError(f"{what}: predict is not monotone "
+                             f"({'+' if sign > 0 else '-'}) along column "
+                             f"{col}")
+
+
+def _constrained_parity(make, X, y, what: str, fields) -> int:
+    """A constrained tree on the card and with ``device="cpu"``: equal in
+    ``fields`` (phase 4's exact-tie rule for a classifier)."""
+    t0 = time.perf_counter()
+    gpu = make("cuda").fit(X, y)
+    t1 = time.perf_counter()
+    cpu = make("cpu").fit(X, y)
+    t2 = time.perf_counter()
+    if gpu.fit_stats_["engine"] != "device" or "crown_depth" in gpu.fit_stats_:
+        raise AssertionError(f"{what}: not one device-engine build: "
+                             f"{gpu.fit_stats_}")
+    if hasattr(gpu, "classes_"):
+        _check_parity(gpu.tree_, cpu.tree_, X, y, tie_depth=DEPTH,
+                      fields=fields,
+                      what=f"{what}, cuda {t1 - t0:.3f} s, cpu "
+                      f"{t2 - t1:.3f} s")
+    elif not _same_fields(gpu.tree_, cpu.tree_, fields):
+        raise AssertionError(f"{what}: cuda tree != cpu tree")
+    else:
+        log(f"{what}: cuda tree == cpu tree ({gpu.tree_.n_nodes} nodes); "
+            f"cuda {t1 - t0:.3f} s, cpu {t2 - t1:.3f} s")
+    return gpu.tree_.n_nodes
+
+
+def phase_constrained(X, y, Xh, yh, Xc, yc, Xch, ych, reg_r2: float):
+    """Phase 19: ``monotonic_cst`` at full width. A binary covtype
+    classifier (+1 on elevation, -1 on the distance to roadways) and a
+    California-shaped regressor (+1 on MedInc), depth 20, twice each on
+    the card (the launch counters around the second fit); the monotone
+    property along each constrained column on 8 anchor rows x ``GRID``
+    points; card vs CPU at 50,000 rows, depth 10, field for field with
+    ``value``. Then config 5's forest with the constraint, served as
+    ``forest_values`` through K4 (bit for bit as ``predict_proba``) and K5
+    (int8, within its report). Returns (stats, the classifier, the
+    forest)."""
+    from mpitree_tpu_torch.ops import hist_kernel
+    from mpitree_tpu_torch.serving import compile_model, quantize, serve_kernel
+    from mpitree_tpu_torch.tree import (
+        DecisionTreeClassifier,
+        DecisionTreeRegressor,
+        RandomForestClassifier,
+    )
+    from mpitree_tpu_torch.utils.datasets import california_like, covtype_like
+
+    top = int(np.bincount(y).argmax())
+    yb, yhb = binary(y, top), binary(yh, top)
+    cst = np.zeros(X.shape[1], np.int64)
+    cst[0], cst[5] = 1, -1
+    out = {}
+    clf = DecisionTreeClassifier(max_depth=DEPTH, max_bins=256,
+                                 monotonic_cst=cst)
+    f1, f2, launches, peak = _fit_twice(clf, X, yb)
+    acc = float(np.mean(clf.predict(Xh) == yhb))
+    plain = DecisionTreeClassifier(max_depth=DEPTH, max_bins=256,
+                                   **DEVICE_ONLY).fit(X, yb)
+    plain_acc = float(np.mean(plain.predict(Xh) == yhb))
+    for col, sign in ((0, 1), (5, -1)):
+        _monotone(clf, X, Xh[:8], col, sign, "constrained classifier")
+    Xp, yp = covtype_like(50_000, seed=2)
+    parity = _constrained_parity(
+        lambda d: DecisionTreeClassifier(max_depth=10, max_bins=256,
+                                         monotonic_cst=cst, device=d),
+        Xp, binary(yp, top), "constrained classifier parity: 50000 rows "
+        "depth 10", PARITY_FIELDS + ("value", "impurity"))
+    out["classifier"] = dict(
+        first_s=f1, second_s=f2, n_nodes=clf.tree_.n_nodes,
+        depth=clf.get_depth(), heldout_acc=acc, unconstrained_heldout_acc=
+        plain_acc, unconstrained_n_nodes=plain.tree_.n_nodes,
+        peak_gib=peak, launches=launches, monotone_anchors=8,
+        monotone_grid=GRID, parity_nodes=parity, **clf.fit_stats_)
+    log(f"constrained classifier: {len(X)} x {X.shape[1]} (class {top} vs "
+        f"rest), monotonic_cst +1 on column 0, -1 on column 5, depth "
+        f"{DEPTH}: first {f1:.3f} s, second {f2:.3f} s; n_nodes "
+        f"{clf.tree_.n_nodes}; held-out acc {acc:.6f} (unconstrained, "
+        f"device engine: {plain_acc:.6f}, {plain.tree_.n_nodes} nodes); "
+        f"monotone on both columns (8 anchors x {GRID}); peak "
+        f"{peak:.3f} GiB; launches {launches}")
+
+    reg = DecisionTreeRegressor(max_depth=DEPTH, max_bins=256,
+                                monotonic_cst=[1] + [0] * (Xc.shape[1] - 1))
+    f1, f2, rlaunches, peak = _fit_twice(reg, Xc, yc,
+                                         routes=hist_kernel.FIXED_ROUTES)
+    r2 = _r2(ych, reg.predict(Xch))
+    _monotone(reg, Xc, Xch[:8], 0, 1, "constrained regressor")
+    Xp, yp = california_like(50_000, seed=2)
+    parity = _constrained_parity(
+        lambda d: DecisionTreeRegressor(
+            max_depth=10, max_bins=256,
+            monotonic_cst=[1] + [0] * (Xc.shape[1] - 1), device=d),
+        Xp, yp, "constrained regressor parity: 50000 rows depth 10",
+        PARITY_FIELDS + ("value", "impurity", "parent", "depth"))
+    out["regressor"] = dict(
+        first_s=f1, second_s=f2, n_nodes=reg.tree_.n_nodes,
+        depth=reg.get_depth(), heldout_r2=r2, unconstrained_heldout_r2=reg_r2,
+        peak_gib=peak, launches=rlaunches, parity_nodes=parity,
+        **reg.fit_stats_)
+    log(f"constrained regressor: {len(Xc)} x {Xc.shape[1]}, monotonic_cst "
+        f"+1 on MedInc, depth {DEPTH}: first {f1:.3f} s, second {f2:.3f} s; "
+        f"n_nodes {reg.tree_.n_nodes}; held-out R2 {r2:.6f} (unconstrained, "
+        f"phase 13: {reg_r2:.6f}); monotone (8 anchors x {GRID}); peak "
+        f"{peak:.3f} GiB; launches {rlaunches}")
+
+    Xf, yf = X[:FOREST_ROWS], yb[:FOREST_ROWS]
+    forest = RandomForestClassifier(**FOREST, monotonic_cst=cst)
+    for k in hist_kernel.launches:
+        hist_kernel.launches[k] = 0
+    t0 = time.perf_counter()
+    forest.fit(Xf, yf)
+    torch.cuda.synchronize()
+    fs = time.perf_counter() - t0
+    flaunches = dict(hist_kernel.launches)
+    if not all(flaunches[k] for k in hist_kernel.ROUTES):
+        raise AssertionError(f"constrained forest launches {flaunches}")
+    proba = forest.predict_proba(Xh)
+    facc = float(np.mean(forest.classes_[proba.argmax(axis=1)] == yhb))
+    nodes = int(sum(t.n_nodes for t in forest.trees_))
+
+    for k in serve_kernel.launches:
+        serve_kernel.launches[k] = 0
+    cm = compile_model(forest)
+    cm8 = compile_model(forest, quantize="int8", quantize_tol=1.0)
+    if cm.kind != "forest_values" or cm8.kind != "forest_values":
+        raise AssertionError(f"constrained forest compiled to {cm.kind}")
+    served = {}
+    for n in SERVE_SHAPES[:3]:
+        t0 = time.perf_counter()
+        got = cm.raw(Xh[:n])
+        served[n] = (time.perf_counter() - t0) * 1e3
+        if not np.array_equal(got, forest.predict_proba(Xh[:n])):
+            raise AssertionError(f"served constrained forest != "
+                                 f"predict_proba at {n} rows")
+        cm8.raw(Xh[:n])
+    rep = cm8.serve_report_["quantization"]
+    cal = quantize.synthesize_calibration(cm8.table, Xh.shape[1])
+    cal_delta = float(np.abs(cm8.raw(cal) - cm.raw(cal)).max())
+    slaunches = dict(serve_kernel.launches)
+    if not (slaunches["traverse"] and slaunches["traverse_q"]):
+        raise AssertionError(f"constrained serving launches {slaunches}")
+    if not (rep["ok"] and cal_delta <= rep["max_abs_delta"] + 1e-6):
+        raise AssertionError(f"int8 constrained forest outside its report: "
+                             f"delta {cal_delta}, report {rep}")
+    rows = _served_kernel_rows(cm, cm8, Xh, "forest_values")
+    out["forest"] = dict(
+        fit_s=fs, heldout_acc=facc, nodes_total=nodes, launches=flaunches,
+        served_ms=served, serve_launches=slaunches, kernels=rows,
+        quantization=rep, calibration_delta=cal_delta)
+    log(f"constrained forest: {len(Xf)} x {Xf.shape[1]}, "
+        f"{FOREST['n_estimators']} trees depth {FOREST['max_depth']}: fit "
+        f"{fs:.3f} s, {nodes} nodes, held-out acc {facc:.6f}; launches "
+        f"{flaunches}; served forest_values == predict_proba at "
+        f"{list(served)} rows (host ms {served}); int8 within its report "
+        f"(delta {cal_delta:.6g} <= {rep['max_abs_delta']:.6g}); serve "
+        f"launches {slaunches}")
+    return out, clf, forest
+
+
+def phase_persistence(forest, clf, Xh) -> dict:
+    """Phase 20: ``save_model`` of phase 5's forest and phase 19's
+    constrained classifier, ``load_model`` of both: ``predict`` and
+    ``predict_proba`` bit for bit as the originals; the loaded forest
+    compiled and served equals the original's served answers."""
+    from mpitree_tpu_torch import load_model, save_model
+    from mpitree_tpu_torch.serving import compile_model
+
+    out_dir = Path("build") / "chip_smoke_models"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    out = {}
+    for name, est in (("forest", forest), ("constrained_classifier", clf)):
+        path = out_dir / f"{name}.npz"
+        t0 = time.perf_counter()
+        save_model(est, path)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = load_model(path)
+        load_s = time.perf_counter() - t0
+        for meth in ("predict", "predict_proba"):
+            a, b = getattr(back, meth)(Xh), getattr(est, meth)(Xh)
+            if a.dtype != b.dtype or not np.array_equal(a, b):
+                raise AssertionError(f"loaded {name}: {meth} differs")
+        out[name] = dict(bytes=path.stat().st_size, save_s=save_s,
+                         load_s=load_s)
+        if name == "forest":
+            Xq = Xh[:SERVE_SHAPES[2]]
+            if not np.array_equal(compile_model(back).raw(Xq),
+                                  compile_model(est).raw(Xq)):
+                raise AssertionError("loaded forest serves other answers")
+        log(f"persistence: {name}: {out[name]['bytes']} bytes, save "
+            f"{save_s:.3f} s, load {load_s:.3f} s; predict and "
+            f"predict_proba bit for bit" + (
+                "; served answers equal the original's"
+                if name == "forest" else ""))
     return out
 
 
@@ -1608,6 +1862,10 @@ def main() -> int:
     reg_forests, reg_forest = phase_regression_forests(Xc, yc, Xch, ych)
     reg_serving = phase_serve_regression(reg_forest, Xch)
     del reg_forest
+    constrained, mono_clf, mono_forest = phase_constrained(
+        X, y, Xh, yh, Xc, yc, Xch, ych, regression["device"]["heldout_r2"])
+    persistence = phase_persistence(forest, mono_clf, Xh)
+    del mono_clf, mono_forest
     if args.profile:
         profile_all(X, y, forest, Xh, args.profile)
 
@@ -1627,6 +1885,10 @@ def main() -> int:
             forest_launches=forest_launches[route],
             subspace_forest_launches={
                 k: v["launches"][route] for k, v in subspace.items()},
+            constrained_fit_launches=constrained["classifier"]["launches"][
+                route],
+            constrained_forest_launches=constrained["forest"]["launches"][
+                route],
         ))
     for form, (agg, chan) in SERVE_LINE.items():
         row = next(r for r in serve_shapes if r["kernel"] == form
@@ -1648,6 +1910,9 @@ def main() -> int:
                 and r["agg"] == agg and r["channel"] == chan},
             regression_serve_launches=reg_serving["launches"][form],
             regression_forest_mean=reg_serving["kernels"][form],
+            constrained_serve_launches=constrained["forest"][
+                "serve_launches"][form],
+            constrained_forest_values=constrained["forest"]["kernels"][form],
         ))
     for key, S in FIXED_LINE.items():
         route = key[:-len("_fixed")]
@@ -1667,6 +1932,8 @@ def main() -> int:
             weighted_fit_launches=weighted["launches"][key],
             regression_forest_launches={
                 k: v["launches"][key] for k, v in reg_forests.items()},
+            constrained_fit_launches=constrained["regressor"]["launches"][
+                key],
         ))
     if (set(hist_kernel.launches) != set(REPRESENTATIVE) | set(FIXED_LINE)
             or set(serve_kernel.launches) != set(SERVE_LINE)):
@@ -1682,6 +1949,8 @@ def main() -> int:
     log(json.dumps({"subspace_forests": subspace}))
     log(json.dumps({"regression_forests": reg_forests}))
     log(json.dumps({"regression_serving": reg_serving}))
+    log(json.dumps({"constrained": constrained}))
+    log(json.dumps({"persistence": persistence}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -11,21 +11,37 @@ through ``serving/serve_kernel.py``). Entry points run on the GPU
 (``device=None`` means ``"cuda"`` and raises without CUDA);
 ``device="cpu"`` runs the kernels' plain PyTorch versions.
 
-Ported so far: the levelwise ``DecisionTreeClassifier`` (with
-``sample_weight`` and ``class_weight``), ``DecisionTreeRegressor``, the
-bagged ``RandomForestClassifier``, and serving (``compile_model``,
+Ported so far: ``DecisionTreeClassifier`` and ``DecisionTreeRegressor``
+(levelwise device engine, host tier, refine tail, ``ccp_alpha``,
+``sample_weight``/``class_weight``, ``max_features``/``splitter``,
+``monotonic_cst``, ``decision_path``, ``export_text``/``export_dot``,
+``nodes_``), ``RandomForestClassifier``, ``RandomForestRegressor``,
+``ExtraTreesClassifier`` and ``ExtraTreesRegressor`` (with OOB scores,
+warm start and ``monotonic_cst``), ``save_model``/``load_model`` in the
+JAX package's file format, and serving (``compile_model``,
 ``ModelRegistry``); ``ROADMAP.md`` lists what comes next.
 """
 
 from mpitree_tpu_torch.models.classifier import DecisionTreeClassifier
-from mpitree_tpu_torch.models.forest import RandomForestClassifier
+from mpitree_tpu_torch.models.forest import (
+    ExtraTreesClassifier,
+    ExtraTreesRegressor,
+    RandomForestClassifier,
+    RandomForestRegressor,
+)
 from mpitree_tpu_torch.models.regressor import DecisionTreeRegressor
 from mpitree_tpu_torch.serving import ModelRegistry, compile_model
+from mpitree_tpu_torch.utils.serialize import load_model, save_model
 
 __all__ = [
     "DecisionTreeClassifier",
     "DecisionTreeRegressor",
+    "ExtraTreesClassifier",
+    "ExtraTreesRegressor",
     "ModelRegistry",
     "RandomForestClassifier",
+    "RandomForestRegressor",
     "compile_model",
+    "load_model",
+    "save_model",
 ]

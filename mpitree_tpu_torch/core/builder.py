@@ -41,9 +41,15 @@ chunk's (S, F) feature masks and bin draws go to the card with the chunk.
 the candidates but not from the histogram, so the ``constant`` stop sees
 them as the JAX package's does.
 
+Monotonic constraints (``mono_cst``, ``utils/monotonic.py``): the node
+bounds live on the host in a ``BoundsStore`` beside the level's decision,
+as in the JAX levelwise engine (``:1028-1036``); each chunk's bound
+windows go to the card with the chunk, and the winners' child values come
+back in the decision buffer to bound the children (``:1551-1554``).
+
 Not in this engine (see ``ROADMAP.md``): sibling subtraction, the fused
-single-program engine, monotonic constraints, gbdt rounds, the resilience
-snapshot and the observability layer.
+single-program engine, gbdt rounds, the resilience snapshot and the
+observability layer.
 """
 
 from __future__ import annotations
@@ -68,6 +74,7 @@ from mpitree_tpu_torch.utils.importances import (
     class_node_impurity,
     moment_node_impurity,
 )
+from mpitree_tpu_torch.utils.monotonic import BoundsStore
 
 TASKS = ("classification", "regression")
 
@@ -272,7 +279,8 @@ def build_tree(binned: BinnedData, y: np.ndarray, *, config: BuildConfig,
                return_leaf_ids: bool = False,
                refit_targets: np.ndarray | None = None,
                feature_sampler=None,
-               feature_mask: np.ndarray | None = None):
+               feature_mask: np.ndarray | None = None,
+               mono_cst: np.ndarray | None = None):
     """Grow one tree level by level on the device that holds
     ``binned.x_binned``; returns the host struct-of-arrays tree.
 
@@ -287,7 +295,9 @@ def build_tree(binned: BinnedData, y: np.ndarray, *, config: BuildConfig,
     the hybrid refine tail reads instead of descending the crown again.
     ``feature_sampler`` (``ops/sampling.NodeFeatureSampler``) samples
     features per node and draws random splits; ``feature_mask`` (F,) bool
-    keeps a tree's subspace.
+    keeps a tree's subspace. ``mono_cst`` (F,) internal monotonicity signs
+    (``utils/monotonic.validate_monotonic_cst``; all zero or None means
+    unconstrained) gates every split on its child values.
     """
     cfg = config
     check_task(cfg)
@@ -331,6 +341,11 @@ def build_tree(binned: BinnedData, y: np.ndarray, *, config: BuildConfig,
     cand_mask = torch.from_numpy(cand).to(dev)
     sampling = feature_sampler is not None and feature_sampler.active
     keys = feature_sampler.key_store() if sampling else None
+    mono = mono_cst is not None and bool(np.any(np.asarray(mono_cst) != 0))
+    if mono:
+        cst32 = np.ascontiguousarray(mono_cst, np.int32)
+        cst_d = torch.from_numpy(cst32).to(dev)
+        bounds = BoundsStore()
 
     K = _chunk_size(N, F, B, C, cfg, cell_bytes=8 if fixed else 4)
     U = _table_slots(N, cfg)
@@ -356,6 +371,15 @@ def build_tree(binned: BinnedData, y: np.ndarray, *, config: BuildConfig,
             draws[:take] = keys.draws(lo, lo + take)
             out["draws"] = to_dev(draws)
         return out
+
+    def mono_args(lo: int, take: int, S: int) -> dict:
+        """The signs and the S-slot chunk's bound windows (padded slots
+        unbounded), as ``mpitree_tpu/core/builder.py:1167-1168``."""
+        if not mono:
+            return {}
+        lo_w, hi_w = bounds.window(lo, take, S)
+        return {"mono_cst": cst_d, "mono_lo": to_dev(lo_w),
+                "mono_hi": to_dev(hi_w)}
 
     frontier_lo, frontier_size, depth = 0, 1, 0
     while frontier_size > 0:
@@ -388,11 +412,13 @@ def build_tree(binned: BinnedData, y: np.ndarray, *, config: BuildConfig,
                         lo - frontier_lo: lo - frontier_lo + S + 1],
                     scale_exp=scale_exp, task=cfg.task, y=y_d,
                     **sample_args(lo, min(S, hi - lo), S),
+                    **mono_args(lo, min(S, hi - lo), S),
                 )[: min(S, hi - lo)]
                 for lo in range(frontier_lo, hi, S)
             ])
-            dec = collective.unpack_decision(decisions.cpu().numpy(),
-                                             n_counts=C)
+            dec = collective.unpack_decision(
+                decisions.cpu().numpy(), n_counts=C, y_range=regression,
+                mono=mono)
 
         ids = frontier_lo + np.arange(frontier_size)
         # (frontier, C) class counts, integer-valued f32 from the integer
@@ -452,6 +478,10 @@ def build_tree(binned: BinnedData, y: np.ndarray, *, config: BuildConfig,
             tree.right[split_ids] = rights
             if sampling:
                 keys.assign_children(split_ids, lefts, rights, tree.n)
+            if mono:
+                bounds.assign_children(
+                    split_ids, lefts, rights, dec["v_left"][~stop],
+                    dec["v_right"][~stop], cst32[feat], tree.n)
 
             # Reroute: one full-row pass per U-slot table (normally one).
             is_split_full = ~stop

@@ -1,8 +1,8 @@
 """The host builder tier: one classification or regression tree grown level
 by level in numpy and the native C++ sweep, on the host's cores.
 
-Counterpart of ``build_tree_host`` (``mpitree_tpu/core/host_builder.py:242``)
-without its monotonic half. It grows the same levelwise
+Counterpart of ``build_tree_host`` (``mpitree_tpu/core/host_builder.py:242``).
+It grows the same levelwise
 histogram tree as the device engine (``core/builder.py``): the same bins,
 stopping rules and first-min tie-breaks, the same struct-of-arrays result.
 The estimators run it for ``backend="host"``; the hybrid refine tail
@@ -28,8 +28,21 @@ more than 1e-12 relative, the numpy sweep takes the strict first minimum:
 two genuinely distinct costs closer than that could resolve differently,
 as in the JAX package.
 
-Not here (``ROADMAP.md``): monotonic bounds (item 10), the build
-fingerprints and phase timer (item 18).
+Monotonic constraints (``mono_cst``, ``utils/monotonic.py``) are routed
+as the JAX host tier routes them (``:370-383``): integer-weight
+classification takes the C++ sweep's gate, whose float32 child values are
+exact there; fractional weights and ``splitter="random"`` take the numpy
+sweep with the gate in the float32 reciprocal-multiply form
+(``:465-497``). Constrained regression takes the device engine's
+regression sweep on the host's CPU (:class:`_FixedRegressionSweep`: the
+fixed-point moment histogram's plain version, then
+``ops/impurity.best_split_regression``), so its child means, and with
+them its trees, are the device engine's bit for bit; the JAX package's
+float32 moment sums equal them wherever they are exact. A ``BoundsStore``
+carries the node bounds from level to level.
+
+Not here (``ROADMAP.md``): the build fingerprints and phase timer
+(item 18).
 """
 
 from __future__ import annotations
@@ -37,17 +50,23 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from mpitree_tpu_torch import native
 from mpitree_tpu_torch.core.builder import (
     check_task,
+    integer_weights,
     new_tree_buffer,
     refit_regression_values,
 )
+from mpitree_tpu_torch.ops import hist_kernel
+from mpitree_tpu_torch.ops.histogram import moment_payload
+from mpitree_tpu_torch.ops.impurity import best_split_regression
 from mpitree_tpu_torch.utils.importances import (
     class_node_impurity,
     moment_node_impurity,
 )
+from mpitree_tpu_torch.utils.monotonic import BoundsStore
 
 
 def _child_impurity_class(hist, criterion: str):
@@ -90,9 +109,12 @@ def _child_cost_mse(hist):
 
 
 def _native_splits(xb, y, nid, sample_weight, binned, cfg, *, frontier_lo,
-                   n_slots, n_classes, node_mask=None):
+                   n_slots, n_classes, node_mask=None, mono=None):
     """One level of the C++ sweep; ``None`` when the library is absent.
-    ``node_mask`` (n_slots, F) bool becomes per-slot candidate counts."""
+    ``node_mask`` (n_slots, F) bool becomes per-slot candidate counts.
+    ``mono`` ``(signs, lo, hi)`` (classification only) engages the
+    kernel's monotonic gate over the frontier's bound windows; the result
+    then carries the winners' ``v_left``/``v_right``."""
     per_slot = node_mask is not None
     n_cand = (np.where(node_mask, binned.n_cand[None, :], 0) if per_slot
               else binned.n_cand)
@@ -108,7 +130,49 @@ def _native_splits(xb, y, nid, sample_weight, binned, cfg, *, frontier_lo,
         n_classes=n_classes, frontier_lo=frontier_lo, n_slots=n_slots,
         n_cand=n_cand, n_cand_per_slot=per_slot, criterion=cfg.criterion,
         min_child_weight=cfg.min_child_weight,
+        **({} if mono is None else dict(
+            mono_cst=mono[0], mono_lo=mono[1], mono_hi=mono[2])),
     )
+
+
+class _FixedRegressionSweep:
+    """The device engine's regression split sweep, run on the host's CPU
+    for constrained fits: the fixed-point ``(w, w*y, w*y^2)`` histogram's
+    plain version (``hist_kernel.histogram_reference``, exponents fixed
+    once per fit from the whole payload, as ``core/builder.build_tree``
+    fixes them) and ``ops/impurity.best_split_regression`` with its
+    monotonic gate. Its child means, costs and stops are the device
+    engine's, so the two tiers grow the same constrained tree."""
+
+    def __init__(self, xb, y, w, cand):
+        self.xb = torch.from_numpy(xb)
+        self.payload = moment_payload(
+            torch.from_numpy(y), torch.from_numpy(np.asarray(w, np.float32))
+        ).contiguous()
+        self.scale_exp = hist_kernel.fixed_point_exponents(self.payload)
+        self.cand = torch.from_numpy(cand)
+
+    def __call__(self, slot, S, B, cfg, nmask, draws, mono):
+        """(feature, bin, cost, constant, impurity, v_left, v_right) per
+        slot; ``mono`` as in :func:`_numpy_level`."""
+        hist = hist_kernel.histogram_reference(
+            self.xb, self.payload, torch.from_numpy(slot.astype(np.int32)),
+            n_slots=S, n_bins=B, scale_exp=self.scale_exp)
+        kw = {}
+        if nmask is not None:
+            kw["node_mask"] = torch.from_numpy(nmask)
+        if draws is not None:
+            kw["forced_draw"] = torch.from_numpy(draws.astype(np.int64))
+        if mono is not None:
+            kw.update(mono_cst=torch.from_numpy(mono[0]),
+                      mono_lo=torch.from_numpy(mono[1]),
+                      mono_hi=torch.from_numpy(mono[2]))
+        dec = best_split_regression(
+            hist, self.cand, scale_exp=self.scale_exp,
+            min_child_weight=cfg.min_child_weight, **kw)
+        return tuple(None if t is None else t.numpy() for t in (
+            dec.feature, dec.bin, dec.cost, dec.constant, dec.impurity,
+            dec.v_left, dec.v_right))
 
 
 def _native_level_decisions(nat, *, cfg):
@@ -226,12 +290,16 @@ def _split_and_advance(tree, binned, xb, nid, ids, stop, feat_best, bin_best,
 
 
 def _numpy_level(xb, y, w, slot, live, cand, S, C, B, cfg, nmask=None,
-                 draws=None):
+                 draws=None, mono=None, fixed=None):
     """One non-terminal level of the numpy sweep: node stats, the dense
     ``(S, F, C, B)`` histogram (float32 moments for regression), the best
     split per node and its stop. ``nmask`` (S, F) bool limits each node to
     its sampled features; ``draws`` (S, F) uint32 picks each feature's bin
-    among its valid ones (``splitter="random"``)."""
+    among its valid ones (``splitter="random"``). ``mono`` ``(signs, lo,
+    hi)`` ((F,) int32, (S,) float32 bounds) gates the candidates, and the
+    result's last item is then the winners' ``(v_left, v_right)`` (else
+    None); regression takes ``fixed`` (:class:`_FixedRegressionSweep`)
+    for its sweep then."""
     F = xb.shape[1]
     li = np.flatnonzero(live)
     sl = slot[li][:, None]
@@ -247,6 +315,18 @@ def _numpy_level(xb, y, w, slot, live, cand, S, C, B, cfg, nmask=None,
         np.minimum.at(ymin, slot[live_w].astype(np.intp), y[live_w])
         np.maximum.at(ymax, slot[live_w].astype(np.intp), y[live_w])
         pure = ~(ymax > ymin)
+        if fixed is not None:
+            feat_best, bin_best, best_cost, constant, imp32, vl, vr = fixed(
+                slot, S, B, cfg, nmask, draws, mono)
+            stop = (pure | constant | (n < cfg.min_samples_split)
+                    | np.isinf(best_cost))
+            if cfg.min_decrease_scaled > 0.0:
+                # the device engine's float64 test on its float32 stats
+                with np.errstate(invalid="ignore"):
+                    stop |= n * (imp32.astype(np.float64) - best_cost.astype(
+                        np.float64)) < cfg.min_decrease_scaled
+            return (counts, n, value, node_imp, feat_best, bin_best, stop,
+                    (vl, vr))
         w32 = w.astype(np.float32)
         hist = np.zeros((S, F, 3, B), np.float32)
         base = (sl * F + rows_feat) * 3 * B + xbl
@@ -278,6 +358,23 @@ def _numpy_level(xb, y, w, slot, live, cand, S, C, B, cfg, nmask=None,
         valid &= (n_l >= cfg.min_child_weight) & (n_r >= cfg.min_child_weight)
     if nmask is not None:
         valid &= nmask[:, :, None]
+    if mono is not None:
+        # sklearn's gate in the device engine's float32 reciprocal-multiply
+        # form (mpitree_tpu/core/host_builder.py:475-497): class-0 mass
+        # over weight, from the exact float64 sums cast to float32
+        f1 = np.float32(1.0)
+        m_l = hist[:, :, 0, :].cumsum(axis=2)
+        vl_all = m_l.astype(np.float32) * (
+            f1 / np.maximum(n_l.astype(np.float32), f1))
+        vr_all = (m_l[:, :, -1:] - m_l).astype(np.float32) * (
+            f1 / np.maximum(n_r.astype(np.float32), f1))
+        sgn = mono[0][None, :, None].astype(np.float32)
+        b_lo = mono[1][:, None, None]
+        b_hi = mono[2][:, None, None]
+        ok = (((vl_all - vr_all) * sgn <= 0)
+              & (vl_all >= b_lo) & (vl_all <= b_hi)
+              & (vr_all >= b_lo) & (vr_all <= b_hi))
+        valid &= (sgn == 0) | ok
     cost = np.where(valid, cost, np.inf)
     if draws is None:
         bin_f = cost.argmin(axis=2)  # first-min = lowest threshold
@@ -301,7 +398,12 @@ def _numpy_level(xb, y, w, slot, live, cand, S, C, B, cfg, nmask=None,
     if cfg.min_decrease_scaled > 0.0:
         with np.errstate(invalid="ignore"):
             stop |= n * (node_imp - best_cost) < cfg.min_decrease_scaled
-    return counts, n, value, node_imp, feat_best, bin_best, stop
+    values = None
+    if mono is not None:
+        sel = np.arange(S)
+        values = (vl_all[sel, feat_best, bin_best],
+                  vr_all[sel, feat_best, bin_best])
+    return counts, n, value, node_imp, feat_best, bin_best, stop, values
 
 
 def build_tree_host(binned, y: np.ndarray, *, config,
@@ -310,14 +412,15 @@ def build_tree_host(binned, y: np.ndarray, *, config,
                     return_leaf_ids: bool = False,
                     refit_targets: np.ndarray | None = None,
                     feature_sampler=None,
-                    feature_mask: np.ndarray | None = None):
+                    feature_mask: np.ndarray | None = None,
+                    mono_cst: np.ndarray | None = None):
     """Grow one tree on the host; the contract of ``core.builder.build_tree``
     on a host ``BinnedData`` (numpy ``x_binned``): ``y`` class indices, or
     float32 centred targets with ``config.task == "regression"``, whose
     ``refit_targets`` (float64) give the exact leaf values. With
     ``return_leaf_ids`` returns ``(tree, leaf_ids)``, ``leaf_ids`` every
-    row's final node as an (N,) int32 array. ``feature_sampler`` and
-    ``feature_mask`` as in ``build_tree``."""
+    row's final node as an (N,) int32 array. ``feature_sampler``,
+    ``feature_mask`` and ``mono_cst`` as in ``build_tree``."""
     cfg = config
     check_task(cfg)
     if feature_mask is not None:
@@ -338,6 +441,15 @@ def build_tree_host(binned, y: np.ndarray, *, config,
     tree = new_tree_buffer(cfg.task, C, sample_weight)
     tree.ensure(1)
     tree.n = 1
+    mono = mono_cst is not None and bool(np.any(np.asarray(mono_cst) != 0))
+    fixed = None
+    if mono:
+        cst32 = np.ascontiguousarray(mono_cst, np.int32)
+        bounds = BoundsStore()
+        if regression:
+            fixed = _FixedRegressionSweep(xb, y, w, cand)
+    # the C++ gate only where its float32 child values are exact
+    mono_native = mono and not regression and integer_weights(sample_weight)
 
     nid = np.zeros(N, np.int32)
     frontier_lo, frontier_size, depth = 0, 1, 0
@@ -357,21 +469,27 @@ def build_tree_host(binned, y: np.ndarray, *, config,
             break
         nmask = keys.masks(frontier_lo, frontier_lo + S) if sampling \
             else None
-        nat = None if rand_split else _native_splits(
-            xb, y, nid, sample_weight, binned, cfg,
-            frontier_lo=frontier_lo, n_slots=S, n_classes=C, node_mask=nmask,
-        )
+        mono_w = None
+        if mono:
+            bounds.ensure(frontier_lo + S)
+            mono_w = (cst32, *bounds.window(frontier_lo, S, S))
+        nat = None if rand_split or (mono and not mono_native) \
+            else _native_splits(
+                xb, y, nid, sample_weight, binned, cfg,
+                frontier_lo=frontier_lo, n_slots=S, n_classes=C,
+                node_mask=nmask, mono=mono_w)
         if nat is not None:
             counts, n, value, node_imp, feat_best, bin_best, stop = (
                 _native_level_decisions(nat, cfg=cfg)
             )
+            values = (nat["v_left"], nat["v_right"]) if mono else None
         else:
-            counts, n, value, node_imp, feat_best, bin_best, stop = (
-                _numpy_level(
-                    xb, y, w, slot, live, cand, S, C, B, cfg, nmask=nmask,
-                    draws=(keys.draws(frontier_lo, frontier_lo + S)
-                           if rand_split else None))
-            )
+            (counts, n, value, node_imp, feat_best, bin_best, stop,
+             values) = _numpy_level(
+                xb, y, w, slot, live, cand, S, C, B, cfg, nmask=nmask,
+                draws=(keys.draws(frontier_lo, frontier_lo + S)
+                       if rand_split else None),
+                mono=mono_w, fixed=fixed)
         _record_level(tree, ids, S, False, stop, feat_best, value, n, counts,
                       node_imp)
         nid, frontier_lo, frontier_size, depth = _split_and_advance(
@@ -382,6 +500,13 @@ def build_tree_host(binned, y: np.ndarray, *, config,
         if sampling and len(split_ids):
             keys.assign_children(split_ids, tree.left[split_ids],
                                  tree.right[split_ids], tree.n)
+        if mono and len(split_ids):
+            # children of a constrained split are pinned by the winner's
+            # mid value (utils/monotonic.BoundsStore)
+            bounds.assign_children(
+                split_ids, tree.left[split_ids], tree.right[split_ids],
+                values[0][~stop], values[1][~stop],
+                cst32[feat_best[~stop]], tree.n)
 
     out = tree.finalize()
     if regression and refit_targets is not None:

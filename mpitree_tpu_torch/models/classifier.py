@@ -48,9 +48,20 @@ tiers and in the tail; a node whose sampled features cannot split becomes
 a leaf. ``feature_importances_`` is sklearn's normalized total impurity
 decrease (``utils/importances.feature_importances``).
 
+``monotonic_cst`` (sklearn's, binary classification only;
+``utils/monotonic.py``) gates every split on its child class fractions and
+builds the whole depth in one engine, with no refine tail (``:244-250``);
+the finished tree's ``value`` holds the bound-clipped labels, which
+``predict`` reads, while ``predict_proba`` stays on the raw counts
+(``:369-371``, ``:423-433``).
+
+``decision_path``, ``export_dot``, ``export_text`` and ``nodes_`` render
+or walk the fitted tree as the JAX package's do (``utils/export.py``,
+``core/tree_struct.py``).
+
 Options that live off the ported path raise ``NotImplementedError``
-naming their ``ROADMAP.md`` item: ``max_leaf_nodes`` (leaf-wise growth),
-``monotonic_cst`` and multi-device ``n_devices``.
+naming their ``ROADMAP.md`` item: ``max_leaf_nodes`` (leaf-wise growth)
+and multi-device ``n_devices``.
 """
 
 from __future__ import annotations
@@ -70,8 +81,16 @@ from mpitree_tpu_torch.ops.binning import bin_dataset, bin_for_engine
 from mpitree_tpu_torch.ops.predict import predict_leaf_ids
 from mpitree_tpu_torch.ops.sampling import sampler_for
 from mpitree_tpu_torch.utils.carry import tree_from_reference
-from mpitree_tpu_torch.utils.export import export_tree_text
+from mpitree_tpu_torch.utils.export import (
+    export_tree_dot,
+    export_tree_text,
+    tree_decision_path,
+)
 from mpitree_tpu_torch.utils.importances import feature_importances
+from mpitree_tpu_torch.utils.monotonic import (
+    clip_tree_values,
+    validate_monotonic_cst,
+)
 from mpitree_tpu_torch.utils.pruning import ccp_prune, pruning_path_for
 from mpitree_tpu_torch.utils.validation import (
     apply_class_weight,
@@ -91,7 +110,6 @@ class NotFittedError(ValueError, AttributeError):
 # (parameter, value the slice supports, ROADMAP.md item that ports it)
 _LATER = (
     ("max_leaf_nodes", None, "Queue 1 item 13 (leaf-wise growth)"),
-    ("monotonic_cst", None, "Queue 1 item 10 (utils/monotonic.py)"),
 )
 
 
@@ -114,7 +132,7 @@ def grow_tree(binned, X, y, *, host: bool, cfg: BuildConfig, max_depth, rd,
               refine: bool, n_classes, sample_weight, ccp_alpha,
               clock, stats: dict, packed=None,
               refit_targets=None, feature_sampler=None,
-              feature_mask=None) -> TreeArrays:
+              feature_mask=None, mono_cst=None) -> TreeArrays:
     """One tree in the JAX package's order: the build to the crown depth
     ``cfg.max_depth`` (the host tier when ``host``, else the device engine
     on ``binned``'s device), the refine tail down to ``max_depth`` when
@@ -123,10 +141,15 @@ def grow_tree(binned, X, y, *, host: bool, cfg: BuildConfig, max_depth, rd,
     float64 ``refit_targets`` give the leaf values). Adds the engine, the
     phase seconds and the tail's counts to ``stats``. ``feature_sampler``
     (``ops/sampling.py``) and ``feature_mask`` (a forest tree's subspace)
-    go to both tiers and to the tail."""
+    go to both tiers and to the tail. ``mono_cst`` (the validated internal
+    signs, or None) goes to both tiers, which then grow the whole depth
+    (the caller passes ``refine=False``), and clips the pruned tree's
+    values (``clip_tree_values``), as the JAX package's ``finish``
+    (``mpitree_tpu/models/forest.py:495-517``)."""
     kw = dict(config=cfg, n_classes=n_classes, sample_weight=sample_weight,
               return_leaf_ids=refine, refit_targets=refit_targets,
-              feature_sampler=feature_sampler, feature_mask=feature_mask)
+              feature_sampler=feature_sampler, feature_mask=feature_mask,
+              mono_cst=mono_cst)
     res = (build_tree_host(binned, y, **kw) if host
            else build_tree(binned, y, packed=packed, **kw))
     tree, leaf_ids = res if refine else (res, None)
@@ -147,6 +170,8 @@ def grow_tree(binned, X, y, *, host: bool, cfg: BuildConfig, max_depth, rd,
     if ccp_alpha:
         tree = ccp_prune(tree, ccp_alpha, task=cfg.task)
         stats["prune_seconds"] = stats.get("prune_seconds", 0.0) + clock.lap()
+    if mono_cst is not None:
+        clip_tree_values(tree, mono_cst, cfg.task)
     return tree
 
 
@@ -289,6 +314,9 @@ class DecisionTreeClassifier(ClassifierBase):
         host = host_tier(self.backend)
         device = resolve_device(self.device)
         X, y_enc, classes = validate_fit_data(X, y)
+        mono = validate_monotonic_cst(
+            self.monotonic_cst, X.shape[1], task="classification",
+            n_classes=len(classes))
         sw = validate_sample_weight(sample_weight, X.shape[0])
         sw = apply_class_weight(self.class_weight, y_enc, classes, sw)
         clock = FitClock(device)
@@ -304,6 +332,8 @@ class DecisionTreeClassifier(ClassifierBase):
             self.max_depth, self.refine_depth,
             n_rows=X.shape[0], quantized=binned.quantized,
         )
+        if mono is not None:  # one engine for the whole depth
+            rd, refine, crown_depth = None, False, self.max_depth
         cfg = BuildConfig(
             criterion=self.criterion,
             max_depth=crown_depth,
@@ -322,6 +352,7 @@ class DecisionTreeClassifier(ClassifierBase):
             ccp_alpha=self.ccp_alpha, clock=clock, stats=stats,
             feature_sampler=sampler_for(self.max_features, self.random_state,
                                         X.shape[1], splitter=self.splitter),
+            mono_cst=mono,
         )
         self.fit_stats_ = stats
         self._set_fitted(classes, X.shape[1])
@@ -363,7 +394,16 @@ class DecisionTreeClassifier(ClassifierBase):
         """The leaf index each sample lands in (int64)."""
         return self._leaf_ids(X).astype(np.int64)
 
+    def decision_path(self, X):
+        """sklearn's ``decision_path``: the (n_samples, n_nodes) CSR
+        indicator of the nodes each sample passes (``scipy.sparse``)."""
+        return tree_decision_path(self.tree_, self._leaf_ids(X))
+
     def predict(self, X):
+        if self.monotonic_cst is not None:
+            # the bound-clipped leaf labels clip_tree_values wrote: the
+            # raw counts' argmax would ignore the clip where a bound binds
+            return self.classes_[self.tree_.value[self._leaf_ids(X)]]
         idx = self.predict_proba(X).argmax(axis=1)
         return self.classes_[idx]
 
@@ -375,6 +415,23 @@ class DecisionTreeClassifier(ClassifierBase):
             self.tree_, feature_names=feature_names, class_names=class_names,
             precision=precision,
         )
+
+    def export_dot(self, *, feature_names=None, class_names=None,
+                   precision=2):
+        """Graphviz source of the fitted tree (``utils/export.py``)."""
+        self._check_fitted()
+        return export_tree_dot(
+            self.tree_, feature_names=feature_names,
+            class_names=class_names, precision=precision,
+            task="classification", n_features=self.n_features_,
+        )
+
+    @property
+    def nodes_(self):
+        """The reference's linked ``Node`` view of the fitted tree (its
+        root; ``TreeArrays.to_nodes``)."""
+        self._check_fitted()
+        return self.tree_.to_nodes()
 
     @property
     def feature_importances_(self) -> np.ndarray:

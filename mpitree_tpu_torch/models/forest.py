@@ -37,6 +37,13 @@ Counterpart of ``mpitree_tpu/models/forest.py`` on its per-tree route
   and, with an integer ``random_state``, replays phase A so the new trees
   draw what an uninterrupted fit would (``:158-204``).
 
+``monotonic_cst`` (``:362-370``) gates every tree's splits, builds each
+tree to its full depth in one engine, clips each tree's values
+(``clip_tree_values``, ``:513-516``); a constrained classification
+forest's ``predict_proba`` averages its trees' bound-clipped class-0
+fractions ``[p0, 1 - p0]`` (``clipped_class0``, ``:924-960``), cached per
+fit, which is what makes the average monotone.
+
 ``trees_`` is a :class:`~mpitree_tpu_torch.serving.tables.TreeList`,
 which carries the flat table that predict and ``compile_model`` share.
 ``fit_stats_`` sums the phase seconds and tail counts over the trees and
@@ -44,7 +51,7 @@ names the ``engine`` (see ``models/classifier.py``).
 
 Options off this path raise ``NotImplementedError`` naming their
 ``ROADMAP.md`` item: ``checkpoint``, ``checkpoint_compact_every``,
-``monotonic_cst``, ``n_devices > 1`` and ``dataset=``.
+``n_devices > 1`` and ``dataset=``.
 """
 
 from __future__ import annotations
@@ -75,6 +82,10 @@ from mpitree_tpu_torch.ops.sampling import (
 from mpitree_tpu_torch.serving.tables import TreeList
 from mpitree_tpu_torch.utils.carry import forest_from_reference
 from mpitree_tpu_torch.utils.importances import feature_importances
+from mpitree_tpu_torch.utils.monotonic import (
+    clipped_class0,
+    validate_monotonic_cst,
+)
 from mpitree_tpu_torch.utils.validation import (
     apply_class_weight,
     min_child_weight,
@@ -90,7 +101,6 @@ _LATER = (
     ("checkpoint", None, "Queue 1 item 17 (resilience/checkpoint.py)"),
     ("checkpoint_compact_every", None,
      "Queue 1 item 17 (resilience/checkpoint.py)"),
-    ("monotonic_cst", None, "Queue 1 item 10 (utils/monotonic.py)"),
 )
 
 
@@ -168,6 +178,10 @@ class _BaseForest(EstimatorBase):
             self.max_depth, self.refine_depth,
             n_rows=n, quantized=binned.quantized,
         )
+        mono = validate_monotonic_cst(self.monotonic_cst, F, task=task,
+                                      n_classes=n_classes)
+        if mono is not None:  # one engine for each tree's whole depth
+            rd, refine, crown_depth = None, False, self.max_depth
         cfg = BuildConfig(task=task, criterion=criterion,
                           max_depth=crown_depth,
                           min_samples_split=self.min_samples_split)
@@ -226,6 +240,7 @@ class _BaseForest(EstimatorBase):
                 ccp_alpha=self.ccp_alpha, clock=clock, stats=stats,
                 packed=packed, refit_targets=refit_targets,
                 feature_sampler=tree_sampler[i], feature_mask=tree_mask[i],
+                mono_cst=mono,
             )
             for i in range(start, int(self.n_estimators))
         ])
@@ -342,6 +357,7 @@ class RandomForestClassifier(ClassifierBase, _BaseForest):
             X, y_enc, task="classification", criterion=self.criterion,
             n_classes=len(classes), sample_weight=sw,
         )
+        self._mono_p0 = None  # predict_proba's clipped-fraction cache
         self._set_fitted(classes, X.shape[1])
         if self.oob_score:
             self._oob(X, y_enc, len(classes))
@@ -381,14 +397,39 @@ class RandomForestClassifier(ClassifierBase, _BaseForest):
         return est
 
     # -- inference ---------------------------------------------------------
+    def mono_signs(self):
+        """The internal monotonicity signs of ``monotonic_cst``, or None."""
+        return validate_monotonic_cst(
+            self.monotonic_cst, self.n_features_, task="classification",
+            n_classes=len(self.classes_))
+
+    def _clipped_p0(self) -> list:
+        """Per tree, the (n_nodes,) float64 bound-clipped class-0
+        fractions of a constrained forest, computed once per fit."""
+        cache = getattr(self, "_mono_p0", None)
+        if cache is None or len(cache) != len(self.trees_):
+            mono = self.mono_signs()
+            cache = [clipped_class0(t, mono).astype(np.float64)
+                     for t in self.trees_]
+            self._mono_p0 = cache
+        return cache
+
     def predict_proba(self, X):
-        """Mean of the per-tree leaf class distributions (float64)."""
+        """Mean of the per-tree leaf class distributions (float64): the
+        normalized counts, or under ``monotonic_cst`` each tree's clipped
+        ``[p0, 1 - p0]``."""
         self._check_fitted()
         X = validate_predict_data(X, self)
+        p0 = self._clipped_p0() if self.mono_signs() is not None else None
         acc = np.zeros((X.shape[0], len(self.classes_)))
-        for t, leaf in zip(self.trees_, self._leaf_ids(X)):
-            counts = t.count[leaf].astype(np.float64)
-            acc += counts / np.maximum(counts.sum(axis=1, keepdims=True), 1.0)
+        for i, (t, leaf) in enumerate(zip(self.trees_, self._leaf_ids(X))):
+            if p0 is not None:
+                p = p0[i][leaf]
+                acc += np.stack([p, 1.0 - p], axis=1)
+            else:
+                counts = t.count[leaf].astype(np.float64)
+                acc += counts / np.maximum(
+                    counts.sum(axis=1, keepdims=True), 1.0)
         return acc / len(self.trees_)
 
     def predict(self, X):

@@ -20,10 +20,14 @@ from the rows' final nodes, so ``predict`` returns exact leaf means
 
 ``max_features`` and ``splitter="random"`` sample per node as in the
 classifier (``ops/sampling.sampler_for``, the JAX package's ``:178-183``).
+``monotonic_cst`` gates every split on its child means, builds the whole
+depth in one engine (``:149-153``) and clips the exact leaf means in
+``count[:, 0]`` into their bounds (``:269-272``), which ``predict``
+returns. ``decision_path``, ``export_dot`` and ``nodes_`` as in the
+classifier.
 
 Options off the ported path raise ``NotImplementedError`` naming their
-``ROADMAP.md`` item: ``monotonic_cst``, ``max_leaf_nodes`` and
-multi-device ``n_devices``.
+``ROADMAP.md`` item: ``max_leaf_nodes`` and multi-device ``n_devices``.
 """
 
 from __future__ import annotations
@@ -44,8 +48,13 @@ from mpitree_tpu_torch.ops.binning import bin_dataset, bin_for_engine
 from mpitree_tpu_torch.ops.predict import predict_leaf_ids
 from mpitree_tpu_torch.ops.sampling import sampler_for
 from mpitree_tpu_torch.utils.carry import tree_from_reference
-from mpitree_tpu_torch.utils.export import export_tree_text
+from mpitree_tpu_torch.utils.export import (
+    export_tree_dot,
+    export_tree_text,
+    tree_decision_path,
+)
 from mpitree_tpu_torch.utils.importances import feature_importances
+from mpitree_tpu_torch.utils.monotonic import validate_monotonic_cst
 from mpitree_tpu_torch.utils.pruning import pruning_path_for
 from mpitree_tpu_torch.utils.validation import (
     min_child_weight,
@@ -59,7 +68,6 @@ from mpitree_tpu_torch.utils.validation import (
 # (parameter, value the slice supports, ROADMAP.md item that ports it)
 _LATER = (
     ("max_leaf_nodes", None, "Queue 1 item 13 (leaf-wise growth)"),
-    ("monotonic_cst", None, "Queue 1 item 10 (utils/monotonic.py)"),
 )
 
 
@@ -135,6 +143,8 @@ class DecisionTreeRegressor(RegressorBase):
         host = host_tier(self.backend)
         device = resolve_device(self.device)
         X, y64, _ = validate_fit_data(X, y, task="regression")
+        mono = validate_monotonic_cst(self.monotonic_cst, X.shape[1],
+                                      task="regression")
         sw = validate_sample_weight(sample_weight, X.shape[0])
         self._y_mean = float(y64.mean())
         clock = FitClock(device)
@@ -150,6 +160,8 @@ class DecisionTreeRegressor(RegressorBase):
             self.max_depth, self.refine_depth,
             n_rows=X.shape[0], quantized=binned.quantized,
         )
+        if mono is not None:  # one engine for the whole depth
+            rd, refine, crown_depth = None, False, self.max_depth
         cfg = BuildConfig(
             task="regression",
             criterion="mse",
@@ -171,6 +183,7 @@ class DecisionTreeRegressor(RegressorBase):
             refit_targets=y64,
             feature_sampler=sampler_for(self.max_features, self.random_state,
                                         X.shape[1], splitter=self.splitter),
+            mono_cst=mono,
         )
         self.fit_stats_ = stats
         self._set_fitted(X.shape[1])
@@ -213,6 +226,11 @@ class DecisionTreeRegressor(RegressorBase):
         """The leaf index each sample lands in (int64)."""
         return self._leaf_ids(X).astype(np.int64)
 
+    def decision_path(self, X):
+        """sklearn's ``decision_path``: the (n_samples, n_nodes) CSR
+        indicator of the nodes each sample passes (``scipy.sparse``)."""
+        return tree_decision_path(self.tree_, self._leaf_ids(X))
+
     # -- introspection -----------------------------------------------------
     def export_text(self, *, feature_names=None, precision=2):
         self._check_fitted()
@@ -220,6 +238,21 @@ class DecisionTreeRegressor(RegressorBase):
             self.tree_, feature_names=feature_names, precision=precision,
             task="regression",
         )
+
+    def export_dot(self, *, feature_names=None, precision=2):
+        """Graphviz source of the fitted tree (``utils/export.py``)."""
+        self._check_fitted()
+        return export_tree_dot(
+            self.tree_, feature_names=feature_names, precision=precision,
+            task="regression", n_features=self.n_features_,
+        )
+
+    @property
+    def nodes_(self):
+        """The reference's linked ``Node`` view of the fitted tree (its
+        root; ``TreeArrays.to_nodes``)."""
+        self._check_fitted()
+        return self.tree_.to_nodes()
 
     @property
     def feature_importances_(self) -> np.ndarray:

@@ -138,9 +138,39 @@ def lib():
         return cdll
 
 
+def _mono_args(mono_cst, mono_lo, mono_hi, n_slots):
+    """(cst, lo, hi, out_vl, out_vr) pointers and arrays for the kernel's
+    monotonic gate (``_mono_args``, ``mpitree_tpu/native/__init__.py:126``):
+    all ``None`` when ``mono_cst`` is None (the unconstrained sweep),
+    otherwise int8 signs, the (n_slots,) float32 bound windows and two
+    (n_slots,) float32 outputs for the winners' child values."""
+    if mono_cst is None:
+        return None, None, None, None, None
+    cst8 = np.ascontiguousarray(mono_cst, np.int8)
+    lo32 = np.ascontiguousarray(mono_lo, np.float32)
+    hi32 = np.ascontiguousarray(mono_hi, np.float32)
+    if lo32.shape != (n_slots,) or hi32.shape != (n_slots,):
+        raise ValueError(f"mono_lo {lo32.shape}, mono_hi {hi32.shape} "
+                         f"(want ({n_slots},))")
+    return (cst8, lo32, hi32, np.zeros(n_slots, np.float32),
+            np.zeros(n_slots, np.float32))
+
+
+def _ptr(a):
+    return None if a is None else a.ctypes.data_as(ctypes.c_void_p)
+
+
+def _with_values(out: dict, out_vl, out_vr) -> dict:
+    if out_vl is not None:
+        out["v_left"] = out_vl
+        out["v_right"] = out_vr
+    return out
+
+
 def best_splits_classification(
     xb, y, node_id, w, *, n_bins, n_classes, frontier_lo, n_slots, n_cand,
     criterion, n_cand_per_slot=False, min_child_weight=0.0,
+    mono_cst=None, mono_lo=None, mono_hi=None,
 ):
     """One level's best split per frontier slot (``None`` without the
     library): a dict of per-slot ``feature``, ``bin``, ``cost``,
@@ -151,8 +181,11 @@ def best_splits_classification(
     ignored), ``w`` (N,) weights or None. ``n_cand_per_slot=True`` marks
     ``n_cand`` as (n_slots, F): one candidate count per frontier node, for
     the refine tail's multi-root frontiers where every root has its own
-    exact local bins. The kernel's monotonic gate is not used (monotonic
-    constraints are not ported).
+    exact local bins. ``mono_cst`` ((F,) internal signs) with the
+    frontier's ``mono_lo``/``mono_hi`` ((n_slots,) float32 bounds)
+    engages the kernel's monotonic gate, whose child values are exact for
+    integer weights; the result then carries the winners' ``v_left`` and
+    ``v_right`` (float32).
     """
     cdll = lib()
     if cdll is None:
@@ -177,23 +210,26 @@ def best_splits_classification(
     out_cost = np.empty(n_slots, np.float64)
     out_counts = np.zeros((n_slots, n_classes), np.float64)
     out_constant = np.empty(n_slots, np.uint8)
+    cst, lo, hi, out_vl, out_vr = _mono_args(mono_cst, mono_lo, mono_hi,
+                                             n_slots)
     cdll.best_splits_classification(
-        xb, y, node_id,
-        None if w64 is None else w64.ctypes.data_as(ctypes.c_void_p),
+        xb, y, node_id, _ptr(w64),
         n_rows, n_feat, n_bins, n_classes, frontier_lo, n_slots, n_cand,
         1 if n_cand_per_slot else 0, 0 if criterion == "entropy" else 1,
-        float(min_child_weight), None, None, None,
-        out_feat, out_bin, out_cost, out_counts, out_constant, None, None,
+        float(min_child_weight), _ptr(cst), _ptr(lo), _ptr(hi),
+        out_feat, out_bin, out_cost, out_counts, out_constant,
+        _ptr(out_vl), _ptr(out_vr),
     )
-    return {
+    return _with_values({
         "feature": out_feat, "bin": out_bin, "cost": out_cost,
         "counts": out_counts, "constant": out_constant.astype(bool),
-    }
+    }, out_vl, out_vr)
 
 
 def best_splits_regression(
     xb, yv, node_id, w, *, n_bins, frontier_lo, n_slots, n_cand,
     n_cand_per_slot=False, min_child_weight=0.0,
+    mono_cst=None, mono_lo=None, mono_hi=None,
 ):
     """One level's best squared-error split per frontier slot (``None``
     without the library), ``best_splits_regression``
@@ -201,7 +237,11 @@ def best_splits_regression(
     ``feature``, ``bin``, ``cost``, ``counts`` (float64 moments ``(w,
     w*y, w*y^2)``), ``constant`` and ``ymin``/``ymax`` over rows of
     positive weight. ``yv`` (N,) float32 targets; the other arguments are
-    :func:`best_splits_classification`'s."""
+    :func:`best_splits_classification`'s. The kernel's regression gate
+    reads child means cast from its float64 sums, which are not the
+    device engine's values, so the host tier runs constrained regression
+    on its numpy sweep and never passes ``mono_cst`` here, as the JAX
+    package's host tier does."""
     cdll = lib()
     if cdll is None:
         return None
@@ -227,17 +267,18 @@ def best_splits_regression(
     out_constant = np.empty(n_slots, np.uint8)
     out_ymin = np.empty(n_slots, np.float64)
     out_ymax = np.empty(n_slots, np.float64)
+    cst, lo, hi, out_vl, out_vr = _mono_args(mono_cst, mono_lo, mono_hi,
+                                             n_slots)
     cdll.best_splits_regression(
-        xb, yv, node_id,
-        None if w64 is None else w64.ctypes.data_as(ctypes.c_void_p),
+        xb, yv, node_id, _ptr(w64),
         n_rows, n_feat, n_bins, frontier_lo, n_slots, n_cand,
         1 if n_cand_per_slot else 0, float(min_child_weight),
-        None, None, None,
+        _ptr(cst), _ptr(lo), _ptr(hi),
         out_feat, out_bin, out_cost, out_counts, out_constant,
-        out_ymin, out_ymax, None, None,
+        out_ymin, out_ymax, _ptr(out_vl), _ptr(out_vr),
     )
-    return {
+    return _with_values({
         "feature": out_feat, "bin": out_bin, "cost": out_cost,
         "counts": out_counts, "constant": out_constant.astype(bool),
         "ymin": out_ymin, "ymax": out_ymax,
-    }
+    }, out_vl, out_vr)

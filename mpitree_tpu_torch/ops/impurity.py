@@ -14,7 +14,11 @@ Counterpart of the classification and regression halves of
   still counts for the ``constant`` stop;
 - with ``forced_draw`` (``splitter="random"``) each feature's bin is not
   its best but one drawn among its valid bins (:func:`_drawn_bins`), and
-  the features then compete on the cost at their drawn bins.
+  the features then compete on the cost at their drawn bins;
+- with ``mono_cst`` (sklearn's ``monotonic_cst``, ``utils/monotonic.py``)
+  a candidate on a constrained feature is valid only when its float32
+  child values keep the sign and lie in the node's bounds
+  (:func:`_monotonic_ok`); the cost and the argmin are untouched.
 
 The default sweep runs in float64 (:func:`cost_sweep_f64`), on every
 device: the H100 has an fp64 unit, and the JAX package ranks in float32
@@ -61,7 +65,9 @@ class SplitDecision(NamedTuple):
     moments); ``constant`` is True when every feature has at most one
     occupied bin; ``n_left`` is the winner's left-side weight; ``y_range``
     (regression only, else None) is the node's ``max(y) - min(y)`` over
-    rows of positive weight, its purity signal.
+    rows of positive weight, its purity signal. ``v_left``/``v_right``
+    (float32, only under ``mono_cst``, else None) are the winner's child
+    values, from which the builder bounds the children.
     """
 
     feature: torch.Tensor
@@ -73,6 +79,8 @@ class SplitDecision(NamedTuple):
     constant: torch.Tensor
     n_left: torch.Tensor
     y_range: torch.Tensor | None = None
+    v_left: torch.Tensor | None = None
+    v_right: torch.Tensor | None = None
 
 
 def _log2(x: torch.Tensor) -> torch.Tensor:
@@ -106,7 +114,7 @@ def class_impurity(counts: torch.Tensor, n: torch.Tensor,
 
 
 def cost_sweep_f64(hist: torch.Tensor, criterion: str, scale_exp=None,
-                   *, f64_out: bool = False):
+                   *, f64_out: bool = False, side_floor: float = _EMPTY_SIDE):
     """(K, F, C, B) histogram -> (cost_hi, cost_lo, n_l, n_r) float32.
 
     Op for op the JAX package's ``_cost_sweep_f64`` (``ops/impurity.py:97``):
@@ -122,7 +130,10 @@ def cost_sweep_f64(hist: torch.Tensor, criterion: str, scale_exp=None,
 
     An int64 fixed-point ``hist`` (with its ``scale_exp``) is cumsummed in
     int64 and converted to float64 after the sum. ``f64_out`` returns
-    ``(cost, None, n_l, n_r)`` in float64 instead.
+    ``(cost, None, n_l, n_r)`` in float64 instead. ``side_floor=1.0``
+    divides by ``max(n, 1)`` instead: the JAX host tier's numpy sweep
+    (``_child_impurity_class``), which it runs for constrained fits with
+    fractional weights.
     """
     C = hist.shape[2]
 
@@ -146,9 +157,9 @@ def cost_sweep_f64(hist: torch.Tensor, criterion: str, scale_exp=None,
     # for a side lighter than one unit of weight. The floor only keeps an
     # empty side (whose terms are masked) finite: no positive weight sum
     # of float32 values lies below it.
-    div_l = torch.clamp(n_l, min=_EMPTY_SIDE)
-    div_r = torch.clamp(n_r, min=_EMPTY_SIDE)
-    div_t = torch.clamp(n_tot, min=_EMPTY_SIDE)
+    div_l = torch.clamp(n_l, min=side_floor)
+    div_r = torch.clamp(n_r, min=side_floor)
+    div_t = torch.clamp(n_tot, min=side_floor)
     acc_l = acc_r = None
     for c in range(C):
         l_c = l_of(c)
@@ -234,6 +245,32 @@ def _winner(a: torch.Tensor, best_feature: torch.Tensor,
     return torch.gather(a_f[:, :, 0], 1, best_feature[:, None])[:, 0]
 
 
+def _monotonic_ok(v_l: torch.Tensor, v_r: torch.Tensor,
+                  mono_cst: torch.Tensor, mono_lo: torch.Tensor,
+                  mono_hi: torch.Tensor) -> torch.Tensor:
+    """sklearn's per-candidate monotonicity gate (``_monotonic_ok``,
+    ``mpitree_tpu/ops/impurity.py:403``): ``v_l``/``v_r`` (K, F, B)
+    float32 child values, ``mono_cst`` (F,) internal signs,
+    ``mono_lo``/``mono_hi`` (K,) float32 node bounds. A feature of sign 0
+    passes unconditionally, bounds included."""
+    cst = mono_cst.to(v_l.dtype)[None, :, None]
+    lo = mono_lo[:, None, None]
+    hi = mono_hi[:, None, None]
+    ok = (((v_l - v_r) * cst <= 0)
+          & (v_l >= lo) & (v_l <= hi) & (v_r >= lo) & (v_r <= hi))
+    return (cst == 0) | ok
+
+
+def _child_values(m_l: torch.Tensor, m_r: torch.Tensor, n_l: torch.Tensor,
+                  n_r: torch.Tensor):
+    """Child values in the float32 reciprocal-multiply form every engine
+    computes: ``f32(mass) * (1 / max(f32(n), 1))`` per side."""
+    def side(m, n):
+        n32 = n.to(torch.float32)
+        return m.to(torch.float32) * (1.0 / torch.clamp(n32, min=1.0))
+    return side(m_l, n_l), side(m_r, n_r)
+
+
 def _drawn_bins(valid: torch.Tensor, draw: torch.Tensor) -> torch.Tensor:
     """``splitter="random"``: per (slot, feature), the valid bin that
     ``draw`` picks (``_drawn_bins``, ``mpitree_tpu/ops/impurity.py:436``):
@@ -257,6 +294,9 @@ def best_split_classification(
     exact_ties: bool = True, scale_exp=None,
     node_mask: torch.Tensor | None = None,
     forced_draw: torch.Tensor | None = None,
+    mono_cst: torch.Tensor | None = None,
+    mono_lo: torch.Tensor | None = None,
+    mono_hi: torch.Tensor | None = None,
 ) -> SplitDecision:
     """Pick the best (feature, bin) per frontier slot.
 
@@ -269,14 +309,24 @@ def best_split_classification(
     against float64 side weights. ``node_mask`` (K, F) bool restricts
     each slot to its sampled features; ``forced_draw`` (K, F) int64 picks
     each feature's bin among its valid ones (``splitter="random"``).
+    ``mono_cst`` (F,) int32 internal signs (binary classification) with
+    ``mono_lo``/``mono_hi`` (K,) float32 bounds engage the monotonic gate
+    on the class-0 fraction of each side: from the float32 cumsums of the
+    integer route's counts (exact, the JAX device engine's form), or from
+    the fixed-point route's exact sums cast to float32 (the JAX host
+    tier's form, ``mpitree_tpu/core/host_builder.py:475-497``); there the
+    cost divides each side by ``max(n, 1)``, as that tier's numpy sweep,
+    which it runs for constrained fits, does.
     """
     if criterion not in ("entropy", "gini"):
         raise ValueError(f"unknown classification criterion: {criterion!r}")
     fixed = scale_exp is not None
     hist_sum = hist.sum(dim=2)  # (K, F, B); exact either way
     if fixed:
-        cost64, _, n_l, n_r = cost_sweep_f64(hist, criterion, scale_exp,
-                                             f64_out=True)
+        # constrained: the JAX host tier's numpy sweep, as it routes them
+        cost64, _, n_l, n_r = cost_sweep_f64(
+            hist, criterion, scale_exp, f64_out=True,
+            side_floor=_EMPTY_SIDE if mono_cst is None else 1.0)
         cost = cost64.to(torch.float32)
         cost_lo = (cost64 - cost.to(torch.float64)).to(torch.float32)
     elif exact_ties:
@@ -290,6 +340,21 @@ def best_split_classification(
         valid = valid & (n_l >= min_child_weight) & (n_r >= min_child_weight)
     if node_mask is not None:
         valid = valid & node_mask[:, :, None]
+    v_l_all = v_r_all = None
+    if mono_cst is not None:
+        if fixed:  # right side in int64, then one rounding
+            l0 = torch.cumsum(hist[:, :, 0, :], dim=2)
+            v_l_all, v_r_all = _child_values(
+                dequantize(l0, scale_exp[0:1], dim=0),
+                dequantize(l0[:, :, -1:] - l0, scale_exp[0:1], dim=0),
+                n_l, n_r)
+        else:
+            n32 = torch.cumsum(hist_sum, dim=2)
+            l0 = torch.cumsum(hist[:, :, 0, :], dim=2)
+            v_l_all, v_r_all = _child_values(
+                l0, l0[:, :, -1:] - l0, n32, n32[:, :, -1:] - n32)
+        valid = valid & _monotonic_ok(v_l_all, v_r_all, mono_cst, mono_lo,
+                                      mono_hi)
     cost = torch.where(valid, cost, torch.full_like(cost, math.inf))
     cost_lo = torch.where(valid, cost_lo, torch.zeros_like(cost_lo))
 
@@ -327,7 +392,17 @@ def best_split_classification(
         counts=parent_counts,
         constant=constant,
         n_left=n_left,
+        **_winner_values(v_l_all, v_r_all, best_feature, best_bin),
     )
+
+
+def _winner_values(v_l_all, v_r_all, best_feature, best_bin) -> dict:
+    """The winner's ``v_left``/``v_right`` when the gate ran, else nothing
+    (``_winner_values``, ``mpitree_tpu/ops/impurity.py:421``)."""
+    if v_l_all is None:
+        return {}
+    return {"v_left": _winner(v_l_all, best_feature, best_bin),
+            "v_right": _winner(v_r_all, best_feature, best_bin)}
 
 
 def best_split_regression(
@@ -335,6 +410,9 @@ def best_split_regression(
     min_child_weight: float | None = None,
     node_mask: torch.Tensor | None = None,
     forced_draw: torch.Tensor | None = None,
+    mono_cst: torch.Tensor | None = None,
+    mono_lo: torch.Tensor | None = None,
+    mono_hi: torch.Tensor | None = None,
 ) -> SplitDecision:
     """Pick the best squared-error split per frontier slot from an int64
     fixed-point ``(w, w*y, w*y^2)`` moment histogram (K, F, 3, B).
@@ -348,8 +426,11 @@ def best_split_regression(
     ``counts`` is the parent's (K, 3) moments in float64, exact sums of
     the fixed-point values; ``impurity`` the parent's variance in float32.
     ``y_range`` is left to the caller (``collective.split_step``).
-    ``node_mask`` and ``forced_draw`` as in
-    :func:`best_split_classification`.
+    ``node_mask``, ``forced_draw`` and the ``mono_*`` gate as in
+    :func:`best_split_classification`; the child means it gates are the
+    exact int64 sums cast to float32, ``f32(s) * (1 / max(f32(w), 1))``,
+    which equal the JAX package's float32 cumsums wherever those are
+    exact.
     """
     w_l, s_l, q_l = (torch.cumsum(hist[:, :, c, :], dim=2)
                      for c in range(3))
@@ -375,6 +456,11 @@ def best_split_regression(
         valid = valid & (w_l >= min_child_weight) & (w_r >= min_child_weight)
     if node_mask is not None:
         valid = valid & node_mask[:, :, None]
+    v_l_all = v_r_all = None
+    if mono_cst is not None:
+        v_l_all, v_r_all = _child_values(s_l, s_r, w_l, w_r)
+        valid = valid & _monotonic_ok(v_l_all, v_r_all, mono_cst, mono_lo,
+                                      mono_hi)
     cost = torch.where(valid, cost, torch.full_like(cost, math.inf))
 
     best_bin_f = (  # first min: lowest bin
@@ -402,4 +488,5 @@ def best_split_regression(
         counts=parent,
         constant=constant,
         n_left=_winner(w_l, best_feature, best_bin),
+        **_winner_values(v_l_all, v_r_all, best_feature, best_bin),
     )

@@ -40,23 +40,31 @@ def pack_decision(dec: imp_ops.SplitDecision,
                   dtype=torch.float32) -> torch.Tensor:
     """SplitDecision -> one (K, 7 + C) buffer (feature, bin, cost,
     impurity, n, constant, n_left, counts...), the columns of the JAX
-    package's ``_pack_decision``; with a ``y_range`` (regression) it
-    follows ``n_left``. float32 on the integer route: feature/bin/constant
-    are exact below 2**24, as are the integer-valued counts. float64 on the
-    fixed-point route, whose float64 node statistics it keeps whole."""
+    package's ``_pack_decision``; a ``y_range`` (regression) follows
+    ``n_left``, then ``v_left``, ``v_right`` under monotonic constraints.
+    float32 on the integer route: feature/bin/constant are exact below
+    2**24, as are the integer-valued counts, and the float32 child values
+    are exact in either buffer. float64 on the fixed-point route, whose
+    float64 node statistics it keeps whole."""
     cols = [dec.feature, dec.bin, dec.cost, dec.impurity, dec.n,
             dec.constant, dec.n_left]
     if dec.y_range is not None:
         cols.append(dec.y_range)
+    if dec.v_left is not None:
+        cols += [dec.v_left, dec.v_right]
     head = torch.stack([c.to(dtype) for c in cols], dim=1)
     return torch.cat([head, dec.counts.to(dtype)], dim=1)
 
 
-def unpack_decision(packed: np.ndarray, n_counts: int) -> dict:
+def unpack_decision(packed: np.ndarray, n_counts: int, *,
+                    y_range: bool = False, mono: bool = False) -> dict:
     """Host-side inverse of :func:`pack_decision` (numpy dict); columns
-    keep the buffer's dtype. ``n_counts`` is the counts' width; a head
-    wider than 7 columns holds ``y_range``."""
+    keep the buffer's dtype, but for ``v_left``/``v_right`` (float32).
+    ``n_counts`` is the counts' width; ``y_range`` and ``mono`` say which
+    optional head columns the buffer holds."""
     n_head = packed.shape[1] - n_counts
+    if n_head != 7 + y_range + 2 * mono:
+        raise ValueError(f"decision buffer has {n_head} head columns")
     out = {
         "feature": packed[:, 0].astype(np.int32),
         "bin": packed[:, 1].astype(np.int32),
@@ -67,8 +75,11 @@ def unpack_decision(packed: np.ndarray, n_counts: int) -> dict:
         "n_left": packed[:, 6],
         "counts": packed[:, n_head:],
     }
-    if n_head > 7:
+    if y_range:
         out["y_range"] = packed[:, 7]
+    if mono:
+        out["v_left"] = packed[:, n_head - 2].astype(np.float32)
+        out["v_right"] = packed[:, n_head - 1].astype(np.float32)
     return out
 
 
@@ -81,7 +92,10 @@ def split_step(x_binned: torch.Tensor, payload: torch.Tensor,
                feat_bins=None, scale_exp=None, task: str = "classification",
                y: torch.Tensor | None = None,
                node_mask: torch.Tensor | None = None,
-               draws: torch.Tensor | None = None) -> torch.Tensor:
+               draws: torch.Tensor | None = None,
+               mono_cst: torch.Tensor | None = None,
+               mono_lo: torch.Tensor | None = None,
+               mono_hi: torch.Tensor | None = None) -> torch.Tensor:
     """Histogram + split sweep for the frontier chunk of ``n_slots`` nodes
     starting at node id ``chunk_lo``; returns the packed decision buffer.
 
@@ -96,7 +110,10 @@ def split_step(x_binned: torch.Tensor, payload: torch.Tensor,
     to the histogram as they are (``ops/hist_kernel.histogram``).
     ``node_mask`` ((n_slots, F) bool, the slots' sampled features) and
     ``draws`` ((n_slots, F) int64, ``splitter="random"``) go to the sweep
-    (``mpitree_tpu/parallel/collective.py:416``, ``:494``).
+    (``mpitree_tpu/parallel/collective.py:416``, ``:494``), as do
+    ``mono_cst`` ((F,) int32 internal signs) and the chunk's bounds
+    ``mono_lo``/``mono_hi`` ((n_slots,) float32), whose winners' child
+    values then ride in the buffer (``:372-375``).
     """
     slot = (node_id - chunk_lo).to(torch.int32)
     hist = hist_ops.histogram(x_binned, payload, slot, n_slots=n_slots,
@@ -107,7 +124,8 @@ def split_step(x_binned: torch.Tensor, payload: torch.Tensor,
         dec = imp_ops.best_split_regression(
             hist, cand_mask, scale_exp=scale_exp,
             min_child_weight=min_child_weight, node_mask=node_mask,
-            forced_draw=draws,
+            forced_draw=draws, mono_cst=mono_cst, mono_lo=mono_lo,
+            mono_hi=mono_hi,
         )
         dec = dec._replace(y_range=y_range(
             y, node_id, payload[:, 0], chunk_lo, n_slots=n_slots))
@@ -115,7 +133,8 @@ def split_step(x_binned: torch.Tensor, payload: torch.Tensor,
         dec = imp_ops.best_split_classification(
             hist, cand_mask, criterion=criterion,
             min_child_weight=min_child_weight, scale_exp=scale_exp,
-            node_mask=node_mask, forced_draw=draws,
+            node_mask=node_mask, forced_draw=draws, mono_cst=mono_cst,
+            mono_lo=mono_lo, mono_hi=mono_hi,
         )
     return pack_decision(
         dec, torch.float32 if scale_exp is None else torch.float64)

@@ -20,9 +20,15 @@ turns a fitted tree or forest (``DecisionTreeClassifier``,
   (``quantize.q_traverse_accumulate``); on the CPU by their plain
   versions. A regression forest (kind ``forest_mean``) is K4 in ``sum``
   mode over the trees' float64 leaf means, ``/ T``: the estimator's
-  ``predict`` bit for bit. A single classification tree (kind
-  ``gather_counts``, int32 counts) or regression tree (``gather_value``,
-  float64 leaf means) is a plain gather on every device, as in the JAX
+  ``predict`` bit for bit. A classification forest with
+  ``monotonic_cst`` (kind ``forest_values``) is K4 (or K5) in ``sum``
+  mode over each tree's rows ``[p0, 1 - p0]`` of bound-clipped class-0
+  fractions, ``/ T``: its ``predict_proba`` bit for bit (the JAX
+  package's ``:665-696``). A single classification tree (kind
+  ``gather_counts``, int32 counts; with ``monotonic_cst``
+  ``gather_value`` over its int32 clipped labels, ``:710-720``) or
+  regression tree (``gather_value``, float64 leaf means, already clipped
+  under constraints) is a plain gather on every device, as in the JAX
   package.
 
 ``serve_report_`` is a plain dict: kind, exactness, the dispatch, the
@@ -42,6 +48,7 @@ from mpitree_tpu_torch._device import resolve_device
 from mpitree_tpu_torch.serving import quantize as quantize_lib
 from mpitree_tpu_torch.serving import serve_kernel, traversal
 from mpitree_tpu_torch.serving.tables import table_notes, tables_for
+from mpitree_tpu_torch.utils.monotonic import clipped_class0
 
 DEFAULT_BUCKETS = (1, 64, 4096)
 
@@ -69,7 +76,7 @@ class CompiledModel:
     def __init__(self, trees, *, kind, n_features, n_out, values_fn,
                  device, classes=None, scale=1.0, buckets=DEFAULT_BUCKETS,
                  value_dtype=np.float64, quantize=None, quantize_tol=None,
-                 calibration=None):
+                 calibration=None, channel_salt=""):
         self._lock = threading.Lock()
         self.trees = list(trees)
         self.kind = kind
@@ -111,8 +118,10 @@ class CompiledModel:
             # norm's per-tree row division, taken once per leaf here: the
             # kernel then only adds (sum mode), to the same bits.
             normalize = self._agg == "norm"
+            # the salt keys channels the tree arrays alone do not fix
             self._values = self.table.dev_values(
-                f"serve:{kind}:normalized" if normalize else f"serve:{kind}",
+                f"serve:{kind}:normalized" if normalize
+                else f"serve:{kind}{channel_salt}",
                 lambda tb: _channel(self.trees, values_fn, tb, value_dtype),
                 dtype=value_dtype, device=device,
                 prepare=traversal.normalize_rows if normalize else None,
@@ -207,9 +216,15 @@ class CompiledModel:
         out = self.raw(X)
         if self.classes is None:  # regressors: the values themselves
             return out
+        if self.kind == "gather_value":  # a constrained tree's labels
+            return self.classes[out.astype(np.int64)]
         return self.classes[out.argmax(axis=1)]
 
     def predict_proba(self, X):
+        if self.kind == "gather_value" and self.classes is not None:
+            raise AttributeError(
+                "predict_proba is undefined for a constrained tree's "
+                "serving kind 'gather_value' (its labels)")
         out = self.raw(X)
         if self.kind == "gather_counts":
             return out.astype(np.int64)  # the reference quirk: raw counts
@@ -239,7 +254,8 @@ def compile_model(estimator, *, buckets=DEFAULT_BUCKETS, quantize=None,
     ``"cpu"`` serves by the plain versions). ``quantize="int8"`` serves
     compressed tables, refusing past ``quantize_tol`` (default 1e-2) on the
     ``calibration`` batch (synthesized from the table's thresholds when
-    omitted)."""
+    omitted). A fitted estimator from ``load_model`` compiles as a fitted
+    one does."""
     from mpitree_tpu_torch.models.classifier import DecisionTreeClassifier
     from mpitree_tpu_torch.models.forest import (
         RandomForestClassifier,
@@ -275,6 +291,22 @@ def compile_model(estimator, *, buckets=DEFAULT_BUCKETS, quantize=None,
             values_fn=lambda t: np.asarray(t.count[:, 0], np.float64), **kw,
         )
     if isinstance(estimator, RandomForestClassifier):  # and ExtraTrees
+        cst = estimator.mono_signs()
+        if cst is not None:
+            # each tree's clipped fractions, final per node, ride the
+            # pure-add kind; salted: the clip depends on the signs
+            def rows(t):
+                p0 = clipped_class0(t, cst).astype(np.float64)
+                return np.stack([p0, 1.0 - p0], axis=1)
+
+            return CompiledModel(
+                estimator.trees_, kind="forest_values",
+                n_features=estimator.n_features_,
+                n_out=len(estimator.classes_), values_fn=rows,
+                channel_salt=f":cst={np.asarray(cst).tolist()!r}",
+                classes=estimator.classes_,
+                scale=float(len(estimator.trees_)), **kw,
+            )
         return CompiledModel(
             estimator.trees_, kind="forest_proba",
             n_features=estimator.n_features_,
@@ -282,6 +314,14 @@ def compile_model(estimator, *, buckets=DEFAULT_BUCKETS, quantize=None,
             values_fn=lambda t: np.asarray(t.count, np.float64),
             classes=estimator.classes_, scale=float(len(estimator.trees_)),
             **kw,
+        )
+    if estimator.monotonic_cst is not None:
+        # the bound-clipped labels predict reads
+        return CompiledModel(
+            [estimator.tree_], kind="gather_value",
+            n_features=estimator.n_features_, n_out=1,
+            values_fn=lambda t: np.asarray(t.value, np.int32),
+            classes=estimator.classes_, value_dtype=np.int32, **kw,
         )
     counts = np.asarray(estimator.tree_.count)
     if counts.max(initial=0) >= 2**31:

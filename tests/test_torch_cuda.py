@@ -539,3 +539,120 @@ def test_compiled_regression_forest_serves_predict_on_the_card(cuda):
         assert got.dtype == np.float64
         np.testing.assert_array_equal(got, forest.predict(Xq[:n]))
     assert serve_kernel.launches["traverse"] > before
+
+
+@pytest.mark.parametrize("payload_kind", ["class", "weighted", "moments"])
+@pytest.mark.parametrize("S", [1, 64])
+def test_constrained_split_step_on_the_card_equals_cpu(cuda, payload_kind,
+                                                       S):
+    """``collective.split_step`` with the monotonic gate and bound windows:
+    the card's decisions (the histogram kernel, then the sweep with its
+    gate) equal the CPU's plain path on the integer route, the fixed route
+    of fractional weights and the regression moments: winners, node
+    statistics and the winners' child values bit for bit; the cost and
+    the parent impurity to 1e-6 relative, as CUDA's ``log`` may differ
+    from glibc's by an ulp (phase 4's exact-tie rule)."""
+    from mpitree_tpu_torch.ops.histogram import (
+        class_payload,
+        moment_payload,
+        payload_scale,
+    )
+    from mpitree_tpu_torch.parallel import collective
+
+    rng = np.random.default_rng(S)
+    N, F, B = 20_000, 6, 64
+    xb = rng.integers(0, B, size=(N, F)).astype(np.int32)
+    nid = rng.integers(-1, S, size=N).astype(np.int32)
+    yc = rng.integers(0, 2, size=N)
+    yr = (xb[:, 0] * 0.1 - xb[:, 2] * 0.05
+          + rng.normal(size=N)).astype(np.float32)
+    w = (rng.uniform(0.5, 2.0, N) if payload_kind == "weighted"
+         else np.ones(N)).astype(np.float32)
+    cst = np.array([1, 0, -1, 0, 1, 0], np.int32)
+    lo = np.full(S, -np.inf, np.float32)
+    hi = np.full(S, np.inf, np.float32)
+    lo[1::2] = 0.3 if payload_kind != "moments" else -0.5
+    hi[::3] = 0.7 if payload_kind != "moments" else 0.5
+    cand = rng.random((F, B)) < 0.95
+
+    def run(dev):
+        t = {k: torch.from_numpy(v).to(dev) for k, v in dict(
+            xb=xb, nid=nid, yc=yc, yr=yr, w=w, cst=cst, lo=lo, hi=hi,
+            cand=cand).items()}
+        if payload_kind == "moments":
+            payload = moment_payload(t["yr"], t["w"]).contiguous()
+            se = hist_kernel.fixed_point_exponents(payload)
+        else:
+            payload = class_payload(t["yc"], None if payload_kind == "class"
+                                    else t["w"], 2).contiguous()
+            se = payload_scale(payload)
+        order = seg = None
+        if S > hist_kernel.STREAM_MAX_SLOTS:
+            order, seg = hist_kernel.slot_segments(t["nid"], S)
+        return collective.split_step(
+            t["xb"], payload, t["nid"], t["cand"], 0, n_slots=S, n_bins=B,
+            criterion="entropy", min_child_weight=1.0,
+            packed=(hist_kernel.pack_bins(t["xb"], B) if dev.type == "cuda"
+                    else None),
+            order=order, seg_start=seg, scale_exp=se,
+            task="regression" if payload_kind == "moments"
+            else "classification", y=t["yr"], mono_cst=t["cst"],
+            mono_lo=t["lo"], mono_hi=t["hi"]).cpu()
+
+    before = dict(hist_kernel.launches)
+    kw = dict(n_counts=3 if payload_kind == "moments" else 2,
+              y_range=payload_kind == "moments", mono=True)
+    got = collective.unpack_decision(run(cuda).numpy(), **kw)
+    assert hist_kernel.launches != before
+    want = collective.unpack_decision(run(torch.device("cpu")).numpy(), **kw)
+    assert got.keys() == want.keys()
+    for k in want:
+        if k in ("cost", "impurity"):
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-6, atol=0,
+                                       err_msg=k)
+        else:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert np.isfinite(want["v_left"][np.isfinite(want["cost"])]).all()
+
+
+def test_constrained_fits_and_forest_serving_on_the_card(cuda):
+    """Constrained trees on the card equal the CPU's field for field (a
+    binary classifier, integer route; a regressor, fixed-point route); a
+    constrained forest serves ``forest_values`` through K4 ``sum`` bit for
+    bit as its ``predict_proba``."""
+    from mpitree_tpu_torch.serving import compile_model, serve_kernel
+    from mpitree_tpu_torch.tree import (
+        DecisionTreeClassifier,
+        DecisionTreeRegressor,
+        RandomForestClassifier,
+    )
+    from mpitree_tpu_torch.utils.datasets import california_like, covtype_like
+
+    X, y = covtype_like(20_000, seed=6)
+    y = (y == np.bincount(y).argmax()).astype(np.int64)
+    cst = np.zeros(X.shape[1], np.int64)
+    cst[0], cst[5] = 1, -1
+    Xr, yr = california_like(20_000, seed=6)
+    fields = ("feature", "threshold", "left", "right", "count", "value",
+              "n_node_samples", "impurity")
+    for make, data in (
+            (lambda d: DecisionTreeClassifier(max_depth=10,
+                                              monotonic_cst=cst, device=d),
+             (X, y)),
+            (lambda d: DecisionTreeRegressor(
+                max_depth=12, monotonic_cst=[1] + [0] * 7, device=d),
+             (Xr, yr))):
+        gpu, cpu = make("cuda").fit(*data), make("cpu").fit(*data)
+        for k in fields:
+            np.testing.assert_array_equal(getattr(gpu.tree_, k),
+                                          getattr(cpu.tree_, k), err_msg=k)
+    forest = RandomForestClassifier(n_estimators=6, max_depth=8,
+                                    random_state=0, monotonic_cst=cst,
+                                    device="cuda").fit(X, y)
+    cm = compile_model(forest)
+    assert cm.kind == "forest_values"
+    before = serve_kernel.launches["traverse"]
+    for n in (1, 64, 4_096):
+        np.testing.assert_array_equal(cm.raw(X[:n]),
+                                      forest.predict_proba(X[:n]))
+    assert serve_kernel.launches["traverse"] > before

@@ -177,7 +177,7 @@ def test_options_now_ported_equal_jax(param, value):
 
 @pytest.mark.parametrize("param,value", [
     ("checkpoint", "ck"), ("checkpoint_compact_every", 4),
-    ("monotonic_cst", [1] * 54), ("n_devices", 2),
+    ("n_devices", 2),
 ])
 def test_options_off_this_slice_raise(param, value):
     X, y = covtype_like(100, seed=0)
