@@ -149,14 +149,37 @@ Phases 19-20 drive ``monotonic_cst`` and the model files:
     ``predict`` and ``predict_proba`` bit for bit; the loaded forest
     served equals the original's served answers; file sizes and seconds.
 
+Phases 21-23 drive gradient boosting (the host round loop; every round's
+trees on the card through the fixed-point routes) and its serving:
+
+21. boosting: ``GradientBoostingClassifier()`` at the JAX package's
+    defaults (100 rounds, depth 6, learning rate 0.1,
+    ``min_samples_leaf=20``, 256 bins) on the full covtype matrix (7
+    classes: 700 trees) and ``GradientBoostingRegressor()`` on phase 13's
+    matrix, each after a 2-round warm-up fit, the histogram counters set
+    to 0 just before the measured fit (fixed-point routes launched, the
+    integer routes not); wall, ``fit_stats_`` laps, held-out accuracy on
+    phase 3's held-out rows and R^2 on phase 13's, peak device memory.
+22. boosting parity: 10 rounds at depth 6 with ``subsample=0.8`` and
+    ``colsample_bytree=0.5`` on ``covtype_like(20_000, seed=4)`` (7
+    classes, and made binary as phase 19 does) and ``california_like(
+    20_000, seed=4)``: two card fits and one ``device="cpu"`` fit,
+    identical trees and bit-for-bit margins.
+23. boosted serving and files: ``compile_model`` of phase 21's two models
+    (kind ``margin``): K4 ``percls`` from the baseline row equals
+    ``decision_function`` / ``predict`` bit for bit at 1, 64 and 4,096
+    rows, K5 (``quantize="int8"``) within its report; both kernels alone
+    at 4,096 rows equal their plain versions, timed beside their bound;
+    ``save_model``/``load_model`` of both, answers bit for bit.
+
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the card's name and power limit, JSON lines of per-shape kernel timings
 (``kernel_shapes``, ``serve_kernel_shapes``, ``fixed_kernel_shapes``), of
 the serving measurements (``serving``), of the hybrid fits (``hybrid``),
 of phases 13 and 15 (``regression``, ``weights``), of phases 16-18
 (``subspace_forests``, ``regression_forests``, ``regression_serving``),
-of phases 19-20 (``constrained``, ``persistence``) and one ``kernels``
-line come before it.
+of phases 19-20 (``constrained``, ``persistence``), of phases 21-23
+(``boosting``) and one ``kernels`` line come before it.
 Without CUDA the script exits 1 and prints no result.
 """
 
@@ -164,6 +187,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import shutil
 import statistics
 import subprocess
@@ -229,6 +253,14 @@ WEIGHT_LOW, WEIGHT_HIGH = 0.5, 2.0  # default_rng(2).uniform, float32
 REG_FOREST = dict(n_estimators=20, max_depth=12, max_bins=256,
                   random_state=0)
 GRID = 256  # phase 19's points along a constrained column per anchor row
+# Phase 21 fits at the JAX package's defaults (max_iter=100, max_depth=6,
+# learning_rate=0.1, min_samples_leaf=20, max_bins=256); phase 22's parity
+# fits are cut to 10 rounds on 20,000 rows.
+BOOST_ROUNDS = 100
+BOOST_PARITY = dict(max_iter=10, max_depth=6, subsample=0.8,
+                    colsample_bytree=0.5, random_state=0)
+BOOST_FIELDS = ("feature", "threshold", "left", "right", "count", "value",
+                "n_node_samples", "impurity")
 
 
 def log(msg: str) -> None:
@@ -1397,10 +1429,11 @@ def phase_regression_forests(Xc, yc, Xch, ych) -> tuple:
     return out, rf
 
 
-def _served_kernel_rows(cm, cm8, Xq, what: str) -> dict:
+def _served_kernel_rows(cm, cm8, Xq, what: str, agg: str = "sum") -> dict:
     """K4 (``cm``'s float64 channel) and K5 (``cm8``'s int8 one) in
-    ``sum`` mode at 4,096 rows of ``Xq``, each equal to its plain version,
-    timed beside its bound and its plain version."""
+    ``agg`` mode (``sum``; ``percls`` for a boosted model's margins, K4
+    from its baseline row) at 4,096 rows of ``Xq``, each equal to its
+    plain version, timed beside its bound and its plain version."""
     from mpitree_tpu_torch.serving import serve_kernel
 
     N = SERVE_SHAPES[2]
@@ -1417,26 +1450,29 @@ def _served_kernel_rows(cm, cm8, Xq, what: str) -> dict:
                             cm8._quant.left, cm8._quant.right,
                             cm8._quant.root), cm8._quant.qvals,
              cm8._quant.record, 12, 4)):
-        n_out = values.shape[1]
-        kw = dict(n_steps=table.n_steps, agg="sum", n_out=n_out)
+        n_out = cm.n_out if agg == "percls" else values.shape[1]
+        kw = dict(n_steps=table.n_steps, agg=agg, n_out=n_out)
+        if form == "traverse" and cm._baseline is not None:
+            kw["baseline"] = cm._baseline
         run = getattr(serve_kernel, form)
         ref = getattr(serve_kernel, f"{form}_reference")
         want = ref(X, *tcols, values, **kw)
         got = run(X, *tcols, values, n_features=X.shape[1], record=rec, **kw)
         if not torch.equal(got, want):
-            raise AssertionError(f"{form}[sum, {what}] != plain version")
+            raise AssertionError(f"{form}[{agg}, {what}] != plain version")
         ms = cuda_ms(lambda: run(X, *tcols, values, n_features=X.shape[1],
                                  record=rec, **kw),
                      reps=5, inner=SERVE_INNER[N], hold=True)
         plain_ms = cuda_ms(lambda: ref(X, *tcols, values, **kw), reps=5)
         n_bytes = (X.numel() * 4 + visited * node_bytes + T * 4
-                   + leaves * n_out * values.element_size()
+                   + leaves * values.shape[1] * values.element_size()
                    + N * n_out * acc_bytes)
-        rows[form] = dict(rows=N, n_out=n_out, ms=ms, plain_ms=plain_ms,
+        rows[form] = dict(rows=N, n_out=n_out, agg=agg, ms=ms,
+                          plain_ms=plain_ms,
                           bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3,
                           bound_by="bytes", bytes=n_bytes,
                           max_abs_err=float((got - want).abs().max().item()))
-        log(f"serve {what}: {form}[sum, n_out={n_out}] N={N}: kernel "
+        log(f"serve {what}: {form}[{agg}, n_out={n_out}] N={N}: kernel "
             f"{ms:.6f} ms, plain {plain_ms:.4f} ms, bound "
             f"{rows[form]['bound_ms']:.6f} ms; equal to plain")
     return rows
@@ -1705,6 +1741,206 @@ def phase_persistence(forest, clf, Xh) -> dict:
     return out
 
 
+def _boosted_fit(cls, X, y, Xh, yh, what: str, kw: dict) -> tuple:
+    """One warm-up fit (``max_iter=2``), then the measured fit with the
+    histogram counters set to 0 just before it and read just after: the
+    fixed-point routes must have launched and the integer routes not."""
+    from mpitree_tpu_torch.ops import hist_kernel
+
+    cls(**{**kw, "max_iter": 2}).fit(X, y)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in hist_kernel.launches:
+        hist_kernel.launches[k] = 0
+    t0 = time.perf_counter()
+    est = cls(**kw).fit(X, y)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(hist_kernel.launches)
+    if not (launches["stream_fixed"] and launches["sorted_fixed"]) or (
+            launches["stream"] or launches["sorted"]):
+        raise AssertionError(f"{what}: histogram launches {launches}")
+    t0 = time.perf_counter()
+    pred = est.predict(Xh)
+    predict_s = time.perf_counter() - t0
+    score = (float((pred == yh).mean()) if hasattr(est, "classes_")
+             else _r2(yh, pred))
+    nodes = sum(t.n_nodes for t in est.trees_)
+    if not np.isfinite(est.train_score_).all() or not (
+            est.train_score_[-1] > est.train_score_[0]):
+        raise AssertionError(f"{what}: training loss did not fall: "
+                             f"{est.train_score_[[0, -1]]}")
+    out = dict(wall_s=wall, fit_stats=est.fit_stats_, launches=launches,
+               trees=len(est.trees_), nodes_total=nodes,
+               heldout=score, predict_s=predict_s,
+               train_loss=[-float(est.train_score_[0]),
+                           -float(est.train_score_[-1])],
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               params={k: kw.get(k, v) for k, v in (
+                   ("max_iter", 100), ("max_depth", 6),
+                   ("learning_rate", 0.1), ("min_samples_leaf", 20),
+                   ("max_bins", 256))})
+    st = est.fit_stats_
+    log(f"boosting {what}: {len(X)} x {X.shape[1]}, {len(est.trees_)} "
+        f"trees ({nodes} nodes): fit {wall:.3f} s = bin "
+        f"{st['bin_seconds']:.3f} + loss {st['loss_seconds']:.3f} + build "
+        f"{st['build_seconds']:.3f} + refit {st['refit_seconds']:.3f}; "
+        f"held-out {'accuracy' if hasattr(est, 'classes_') else 'R^2'} "
+        f"{score:.6f}; predict {predict_s:.3f} s; launches {launches}; "
+        f"peak device memory {out['peak_gib']:.3f} GiB")
+    return est, out
+
+
+def phase_boosting(X, y, Xh, yh, Xc, yc, Xch, ych) -> tuple:
+    """Phase 21: ``GradientBoostingClassifier()`` at the JAX package's
+    defaults on the full covtype matrix (7 classes: 7 trees a round) and
+    ``GradientBoostingRegressor()`` on phase 13's matrix, each after a
+    2-round warm-up fit; wall, laps, held-out accuracy / R^2, the
+    fixed-point launches of the measured fit, peak device memory."""
+    from mpitree_tpu_torch.tree import (
+        GradientBoostingClassifier,
+        GradientBoostingRegressor,
+    )
+
+    kw = dict(max_iter=BOOST_ROUNDS)
+    clf, c = _boosted_fit(GradientBoostingClassifier, X, y, Xh, yh,
+                          "classifier", kw)
+    reg, r = _boosted_fit(GradientBoostingRegressor, Xc, yc, Xch, ych,
+                          "regressor", kw)
+    return clf, reg, {"classifier": c, "regressor": r}
+
+
+def _same_ensembles(a, b) -> bool:
+    return len(a.trees_) == len(b.trees_) and all(
+        _same_fields(s, t, BOOST_FIELDS) for s, t in zip(a.trees_, b.trees_))
+
+
+def phase_boosting_parity() -> dict:
+    """Phase 22: 10 rounds at depth 6 with ``subsample=0.8`` and
+    ``colsample_bytree=0.5`` on ``covtype_like(20_000, seed=4)`` (7
+    classes, and made binary as phase 19 makes it) and
+    ``california_like(20_000, seed=4)``: two fits on the card and one with
+    ``device="cpu"``, identical trees and bit-for-bit margins."""
+    from mpitree_tpu_torch.tree import (
+        GradientBoostingClassifier,
+        GradientBoostingRegressor,
+    )
+    from mpitree_tpu_torch.utils.datasets import california_like, covtype_like
+
+    X, y = covtype_like(20_000, seed=4)
+    Xr, yr = california_like(20_000, seed=4)
+    out = {}
+    for what, cls, Xd, yd in (
+            ("multiclass", GradientBoostingClassifier, X, y),
+            ("binary", GradientBoostingClassifier, X,
+             binary(y, int(np.bincount(y).argmax()))),
+            ("regression", GradientBoostingRegressor, Xr, yr)):
+        a = cls(**BOOST_PARITY, device="cuda").fit(Xd, yd)
+        b = cls(**BOOST_PARITY, device="cuda").fit(Xd, yd)
+        t0 = time.perf_counter()
+        c = cls(**BOOST_PARITY, device="cpu").fit(Xd, yd)
+        cpu_s = time.perf_counter() - t0
+
+        def margins(m):
+            return (m.decision_function(Xd) if hasattr(m, "classes_")
+                    else m.predict(Xd))
+
+        if not (_same_ensembles(a, b) and _same_ensembles(a, c)):
+            raise AssertionError(f"boosting parity {what}: trees differ")
+        ma = margins(a)
+        if not (np.array_equal(ma, margins(b))
+                and np.array_equal(ma, margins(c))):
+            raise AssertionError(f"boosting parity {what}: margins differ")
+        out[what] = dict(trees=len(a.trees_),
+                         nodes=sum(t.n_nodes for t in a.trees_),
+                         cpu_fit_s=cpu_s)
+        log(f"boosting parity {what}: {len(a.trees_)} trees, "
+            f"{out[what]['nodes']} nodes: two card fits and the CPU's "
+            f"identical, margins bit for bit (CPU fit {cpu_s:.3f} s)")
+    return out
+
+
+def phase_boosting_serving(clf, reg, Xh, Xch) -> dict:
+    """Phase 23: ``compile_model`` of phase 21's classifier and regressor
+    (kind ``margin``): K4 ``percls`` from the baseline row equals
+    ``decision_function`` / ``predict`` bit for bit at 1, 64 and 4,096
+    rows, K5 (``quantize="int8"``) stays within its report on its
+    calibration batch; the traversal counters are set to 0 just before
+    and both kernels must launch; both kernels alone at 4,096 rows equal
+    their plain versions, timed beside their bound. Then
+    ``save_model``/``load_model`` of both: answers bit for bit."""
+    from mpitree_tpu_torch import load_model, save_model
+    from mpitree_tpu_torch.serving import compile_model, quantize, serve_kernel
+
+    out = {}
+    for what, est, Xq in (("classifier", clf, Xh), ("regressor", reg, Xch)):
+        def answer(m, X):
+            return (m.decision_function(X) if what == "classifier"
+                    else m.predict(X))
+
+        for k in serve_kernel.launches:
+            serve_kernel.launches[k] = 0
+        t0 = time.perf_counter()
+        cm = compile_model(est)
+        # no refusal threshold: one int8 affine over 700 trees' margins
+        # refuses at the default tolerance (PERF.md, phase 23); the report
+        # says how far the int8 tables are, and K5 is held to it
+        cm8 = compile_model(est, quantize="int8", quantize_tol=math.inf)
+        compile_s = time.perf_counter() - t0
+        served = {}
+        for n in SERVE_SHAPES[:3]:
+            t0 = time.perf_counter()
+            got = answer(cm, Xq[:n])
+            served[n] = (time.perf_counter() - t0) * 1e3
+            if not np.array_equal(got, answer(est, Xq[:n])):
+                raise AssertionError(f"served boosted {what} != estimator "
+                                     f"at {n} rows")
+            cm8.raw(Xq[:n])
+        rep = cm8.serve_report_["quantization"]
+        cal = quantize.synthesize_calibration(cm8.table, Xq.shape[1])
+        cal_delta = float(np.abs(cm8.raw(cal) - cm.raw(cal)).max())
+        launches = dict(serve_kernel.launches)
+        if not (launches["traverse"] and launches["traverse_q"]):
+            raise AssertionError(f"boosted {what} serving launches "
+                                 f"{launches}")
+        if not (rep["ok"] and cal_delta <= rep["max_abs_delta"] + 1e-6):
+            raise AssertionError(f"int8 boosted {what} outside its report: "
+                                 f"delta {cal_delta}, report {rep}")
+        rows = _served_kernel_rows(cm, cm8, Xq, f"margin {what}",
+                                   agg="percls")
+        out_dir = Path("build") / "chip_smoke_models"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        path = out_dir / f"boosted_{what}.npz"
+        t0 = time.perf_counter()
+        save_model(est, path)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = load_model(path)
+        load_s = time.perf_counter() - t0
+        meths = (("decision_function", "predict_proba", "predict")
+                 if what == "classifier" else ("predict",))
+        for meth in meths:
+            a, b = getattr(back, meth)(Xq), getattr(est, meth)(Xq)
+            if a.dtype != b.dtype or not np.array_equal(a, b):
+                raise AssertionError(f"loaded boosted {what}: {meth} "
+                                     "differs")
+        out[what] = dict(trees=cm.table.n_trees, n_out=cm.n_out,
+                         compile_s=compile_s, served_ms=served,
+                         launches=launches, kernels=rows, quantization=rep,
+                         calibration_delta=cal_delta,
+                         file=dict(bytes=path.stat().st_size, save_s=save_s,
+                                   load_s=load_s))
+        log(f"boosted serving {what}: {cm.table.n_trees} trees into "
+            f"{cm.n_out} columns, compiled in {compile_s:.3f} s; K4 margins "
+            f"== estimator at {list(served)} rows (host ms {served}); int8 "
+            f"within its report (delta {cal_delta:.6g} <= "
+            f"{rep['max_abs_delta']:.6g}, relative "
+            f"{rep['max_rel_delta']:.6g}); launches {launches}; file "
+            f"{path.stat().st_size} bytes, save {save_s:.3f} s, load "
+            f"{load_s:.3f} s, answers bit for bit")
+    return out
+
+
 def phase_profile(name: str, work, out_dir: Path) -> None:
     """Run ``work()`` once more under torch.profiler: device time by kernel
     and the device's busy share of the wall-clock; the table goes to
@@ -1745,13 +1981,14 @@ def phase_profile(name: str, work, out_dir: Path) -> None:
 def profile_all(X, y, forest, Xh, out_dir: Path) -> None:
     """``--profile``: one more depth-20 fit and forest fit (device engine
     alone), one more default (hybrid) depth-20 fit, one device-engine
-    regression fit (phase 13's) and weighted fit (phase 15's), and 300
-    one-row requests to each of a freshly published ``rf`` and ``rf8``,
-    each profiled."""
+    regression fit (phase 13's) and weighted fit (phase 15's), five rounds
+    of phase 21's classifier, and 300 one-row requests to each of a
+    freshly published ``rf`` and ``rf8``, each profiled."""
     from mpitree_tpu_torch.serving import ModelRegistry
     from mpitree_tpu_torch.tree import (
         DecisionTreeClassifier,
         DecisionTreeRegressor,
+        GradientBoostingClassifier,
         RandomForestClassifier,
     )
     from mpitree_tpu_torch.utils.datasets import california_like
@@ -1771,6 +2008,8 @@ def profile_all(X, y, forest, Xh, out_dir: Path) -> None:
     phase_profile("weighted_fit", lambda: DecisionTreeClassifier(
         criterion="entropy", max_depth=DEPTH, max_bins=256,
         **DEVICE_ONLY).fit(X, y, sample_weight=weights(len(y))), out_dir)
+    phase_profile("boosting_rounds", lambda: GradientBoostingClassifier(
+        max_iter=5).fit(X, y), out_dir)
     reg = ModelRegistry()
     reg.publish("rf", forest)
     reg.publish("rf8", forest, quantize="int8")
@@ -1866,6 +2105,12 @@ def main() -> int:
         X, y, Xh, yh, Xc, yc, Xch, ych, regression["device"]["heldout_r2"])
     persistence = phase_persistence(forest, mono_clf, Xh)
     del mono_clf, mono_forest
+    boost_clf, boost_reg, boosting = phase_boosting(
+        X, y, Xh, yh, Xc, yc, Xch, ych)
+    boosting["parity"] = phase_boosting_parity()
+    boosting["serving"] = phase_boosting_serving(boost_clf, boost_reg, Xh,
+                                                 Xch)
+    del boost_clf, boost_reg
     if args.profile:
         profile_all(X, y, forest, Xh, args.profile)
 
@@ -1934,7 +2179,27 @@ def main() -> int:
                 k: v["launches"][key] for k, v in reg_forests.items()},
             constrained_fit_launches=constrained["regressor"]["launches"][
                 key],
+            boosted_classifier_launches=boosting["classifier"]["launches"][
+                key],
+            boosted_regressor_launches=boosting["regressor"]["launches"][
+                key],
         ))
+    for form in SERVE_LINE:
+        for what in ("classifier", "regressor"):
+            sv = boosting["serving"][what]
+            row = sv["kernels"][form]
+            kernels.append(dict(
+                name=f"serve_{form}[agg=percls, margin, {what}]",
+                route="cuda", source="mpitree_tpu_torch/csrc/traverse.cu",
+                replaces="mpitree_tpu/serving/pallas_serve.py:49",
+                launches=sv["launches"][form],
+                max_abs_err=row["max_abs_err"], ms=row["ms"],
+                plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                bound_by=row["bound_by"], library_ms=None,
+                library="none: no single PyTorch call computes an "
+                        "ensemble traversal",
+                rows=row["rows"], n_out=row["n_out"], trees=sv["trees"],
+            ))
     if (set(hist_kernel.launches) != set(REPRESENTATIVE) | set(FIXED_LINE)
             or set(serve_kernel.launches) != set(SERVE_LINE)):
         raise AssertionError("kernels line does not cover every kernel")
@@ -1951,6 +2216,7 @@ def main() -> int:
     log(json.dumps({"regression_serving": reg_serving}))
     log(json.dumps({"constrained": constrained}))
     log(json.dumps({"persistence": persistence}))
+    log(json.dumps({"boosting": boosting}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -17,11 +17,18 @@ Ported so far: ``DecisionTreeClassifier`` and ``DecisionTreeRegressor``
 ``monotonic_cst``, ``decision_path``, ``export_text``/``export_dot``,
 ``nodes_``), ``RandomForestClassifier``, ``RandomForestRegressor``,
 ``ExtraTreesClassifier`` and ``ExtraTreesRegressor`` (with OOB scores,
-warm start and ``monotonic_cst``), ``save_model``/``load_model`` in the
-JAX package's file format, and serving (``compile_model``,
-``ModelRegistry``); ``ROADMAP.md`` lists what comes next.
+warm start and ``monotonic_cst``), ``GradientBoostingClassifier`` and
+``GradientBoostingRegressor`` (the host round loop over Newton trees
+built on the card), ``save_model``/``load_model`` in the JAX package's
+file format, and serving (``compile_model``, ``ModelRegistry``; boosted
+margins through the traversal kernel); ``ROADMAP.md`` lists what comes
+next.
 """
 
+from mpitree_tpu_torch.boosting import (
+    GradientBoostingClassifier,
+    GradientBoostingRegressor,
+)
 from mpitree_tpu_torch.models.classifier import DecisionTreeClassifier
 from mpitree_tpu_torch.models.forest import (
     ExtraTreesClassifier,
@@ -38,6 +45,8 @@ __all__ = [
     "DecisionTreeRegressor",
     "ExtraTreesClassifier",
     "ExtraTreesRegressor",
+    "GradientBoostingClassifier",
+    "GradientBoostingRegressor",
     "ModelRegistry",
     "RandomForestClassifier",
     "RandomForestRegressor",

@@ -1,0 +1,13 @@
+"""Histogram gradient-boosted trees on the levelwise device engine.
+
+Counterpart of ``mpitree_tpu/boosting``: the host round loop of
+``gradient_boosting.py`` over the losses of ``losses.py``; every round's
+tree is built on the card through ``core/builder.build_tree(task="gbdt")``.
+"""
+
+from mpitree_tpu_torch.boosting.gradient_boosting import (
+    GradientBoostingClassifier,
+    GradientBoostingRegressor,
+)
+
+__all__ = ["GradientBoostingClassifier", "GradientBoostingRegressor"]

@@ -22,16 +22,20 @@ scatter. A level's histogram width ``S`` is the narrowest of
 that :func:`_chunk_size` sizes from the histogram memory budget; wider
 frontiers walk several K-slot chunks, each a full pass over the rows.
 
-Two tasks (``BuildConfig.task``): classification (class counts) and
+Three tasks (``BuildConfig.task``): classification (class counts),
 regression (the moments ``(w, w*y, w*y^2)`` of targets the estimator
 centred in float32, then the exact float64 leaf means of
-:func:`refit_regression_values`). The payload picks the histogram's route
-once per fit (``ops/histogram.payload_scale``): class counts with integer
-weights take the float32 integer route, every other payload (fractional
-weights, every regression) the int64 fixed-point route, whose sums are
-exact and order-independent, so the card's tree equals the CPU's and, for
-fractional weights, the exact float64 counts of the JAX package's host
-tier.
+:func:`refit_regression_values`) and ``"gbdt"``, one Newton boosting
+round (``y`` carries the rows' float32 gradients, ``sample_weight`` their
+hessians; the ``(count, g, h)`` payload, the Newton sweep, the stopping
+rules of ``mpitree_tpu/core/builder.py:1465-1517``; the boosting loop
+refits every node's value in float64). The payload picks the histogram's
+route once per fit (``ops/histogram.payload_scale``): class counts with
+integer weights take the float32 integer route, every other payload
+(fractional weights, every regression, every boosting round) the int64
+fixed-point route, whose sums are exact and order-independent, so the
+card's tree equals the CPU's and, for fractional weights, the exact
+float64 counts of the JAX package's host tier.
 
 Per-node feature sampling and ``splitter="random"`` (``feature_sampler``,
 ``ops/sampling.py``): the node keys live on the host in a ``KeyStore``
@@ -48,8 +52,8 @@ windows go to the card with the chunk, and the winners' child values come
 back in the decision buffer to bound the children (``:1551-1554``).
 
 Not in this engine (see ``ROADMAP.md``): sibling subtraction, the fused
-single-program engine, gbdt rounds, the resilience snapshot and the
-observability layer.
+single-program engine (and with it the fused boosting rounds), the
+resilience snapshot and the observability layer.
 """
 
 from __future__ import annotations
@@ -66,6 +70,7 @@ from mpitree_tpu_torch.ops.binning import BinnedData
 from mpitree_tpu_torch.ops.hist_kernel import fixed_point_exponents
 from mpitree_tpu_torch.ops.histogram import (
     class_payload,
+    gbdt_payload,
     moment_payload,
     payload_scale,
 )
@@ -76,19 +81,27 @@ from mpitree_tpu_torch.utils.importances import (
 )
 from mpitree_tpu_torch.utils.monotonic import BoundsStore
 
-TASKS = ("classification", "regression")
+TASKS = ("classification", "regression", "gbdt")
 
 
 @dataclasses.dataclass(frozen=True)
 class BuildConfig:
-    task: str = "classification"  # classification | regression
-    # entropy | gini (classification); mse (regression)
+    # classification | regression | gbdt (one Newton boosting round)
+    task: str = "classification"
+    # entropy | gini (classification); mse (regression); unused by gbdt
     criterion: str = "entropy"
     max_depth: int | None = None
     min_samples_split: int = 2
+    # gbdt only: L2 leaf regularization (XGBoost's lambda), the least
+    # Newton gain a split must clear, and the least subsampled row count
+    # per child.
+    reg_lambda: float = 0.0
+    min_split_gain: float = 0.0
+    min_leaf_rows: float = 0.0
     # Absolute weight floor for each side of a split (sklearn's
     # min_weight_fraction_leaf / min_samples_leaf, resolved by the
-    # estimator); 0.0 = unconstrained.
+    # estimator); 0.0 = unconstrained. For gbdt the per-child HESSIAN
+    # floor (XGBoost's min_child_weight), not a weight or row floor.
     min_child_weight: float = 0.0
     # sklearn's min_impurity_decrease pre-scaled by the total fit weight:
     # a split stops when n_t * (imp_t - cost_t) < this value.
@@ -254,8 +267,9 @@ def new_tree_buffer(task: str, n_classes: int | None,
                     sample_weight) -> _TreeBuffer:
     """The node store of one build, with the JAX package's dtypes: class
     counts int64 (float64 under fractional weights) and int32 majority
-    values; regression float32 means and one float64 count column."""
-    if task == "regression":
+    values; regression (and a boosting round) float32 values and one
+    float64 count column."""
+    if task in ("regression", "gbdt"):
         return _TreeBuffer(1, np.float64, np.float32)
     return _TreeBuffer(
         int(n_classes),
@@ -266,6 +280,8 @@ def new_tree_buffer(task: str, n_classes: int | None,
 def check_task(cfg: BuildConfig) -> None:
     if cfg.task not in TASKS:
         raise ValueError(f"unknown task {cfg.task!r}; one of {TASKS}")
+    if cfg.task == "gbdt":
+        return
     ok = ("entropy", "gini") if cfg.task == "classification" else (
         "mse", "squared_error")
     if cfg.criterion not in ok:
@@ -284,8 +300,10 @@ def build_tree(binned: BinnedData, y: np.ndarray, *, config: BuildConfig,
     """Grow one tree level by level on the device that holds
     ``binned.x_binned``; returns the host struct-of-arrays tree.
 
-    ``y`` (N,) int class indices (classification) or float32 centred
-    targets (regression), ``sample_weight`` (N,) float32 or None,
+    ``y`` (N,) int class indices (classification), float32 centred
+    targets (regression) or float32 gradients (gbdt, whose
+    ``sample_weight`` holds the hessians, 0 outside the round's
+    subsample), ``sample_weight`` (N,) float32 or None,
     ``packed`` :func:`pack_for_fit` of ``binned`` (made here when absent).
     ``refit_targets`` (regression): the (N,) float64 targets whose exact
     means :func:`refit_regression_values` writes into the finished tree.
@@ -302,6 +320,7 @@ def build_tree(binned: BinnedData, y: np.ndarray, *, config: BuildConfig,
     cfg = config
     check_task(cfg)
     regression = cfg.task == "regression"
+    gbdt = cfg.task == "gbdt"
     xb = binned.x_binned
     if not isinstance(xb, torch.Tensor):
         raise TypeError("build_tree needs BinnedData with a tensor x_binned")
@@ -316,7 +335,11 @@ def build_tree(binned: BinnedData, y: np.ndarray, *, config: BuildConfig,
     w_d = (torch.ones(N, dtype=torch.float32, device=dev)
            if sample_weight is None
            else torch.from_numpy(np.asarray(sample_weight, np.float32)).to(dev))
-    if regression:
+    if gbdt:
+        C = 3
+        y_d = torch.from_numpy(np.asarray(y, np.float32)).to(dev)
+        payload = gbdt_payload(y_d, w_d).contiguous()
+    elif regression:
         C = 3
         y_d = torch.from_numpy(np.asarray(y, np.float32)).to(dev)
         payload = moment_payload(y_d, w_d).contiguous()
@@ -327,7 +350,8 @@ def build_tree(binned: BinnedData, y: np.ndarray, *, config: BuildConfig,
             y_d, None if sample_weight is None else w_d, C
         ).contiguous()
     # the histogram's route, once per fit: None = the float32 integer route
-    scale_exp = (fixed_point_exponents(payload) if regression
+    # (one device-to-host copy; a boosting round's g/h change every tree)
+    scale_exp = (fixed_point_exponents(payload) if regression or gbdt
                  else payload_scale(payload))
     fixed = scale_exp is not None
     # the terminal sums' int64 payload, made for the first terminal level;
@@ -411,6 +435,8 @@ def build_tree(binned: BinnedData, y: np.ndarray, *, config: BuildConfig,
                     seg_start=None if seg is None else seg[
                         lo - frontier_lo: lo - frontier_lo + S + 1],
                     scale_exp=scale_exp, task=cfg.task, y=y_d,
+                    reg_lambda=cfg.reg_lambda,
+                    min_leaf_rows=cfg.min_leaf_rows,
                     **sample_args(lo, min(S, hi - lo), S),
                     **mono_args(lo, min(S, hi - lo), S),
                 )[: min(S, hi - lo)]
@@ -423,9 +449,16 @@ def build_tree(binned: BinnedData, y: np.ndarray, *, config: BuildConfig,
         ids = frontier_lo + np.arange(frontier_size)
         # (frontier, C) class counts, integer-valued f32 from the integer
         # route's sweep, float64 from the fixed-point sweep and from every
-        # terminal level; regression's moments
+        # terminal level; regression's moments; gbdt's (count, G, H)
         counts = dec["counts"]
-        if regression:
+        if gbdt:
+            n = counts[:, 0]
+            # the raw Newton value and structure score; the boosting loop
+            # refits both in float64 from the rows' final nodes
+            denom = np.maximum(counts[:, 2] + cfg.reg_lambda, 1e-12)
+            value = (-counts[:, 1] / denom).astype(np.float32)
+            node_imp = 0.5 * counts[:, 1] * counts[:, 1] / denom
+        elif regression:
             n = counts[:, 0]
             value = (counts[:, 1] / np.maximum(counts[:, 0], 1.0)).astype(
                 np.float32)
@@ -437,8 +470,14 @@ def build_tree(binned: BinnedData, y: np.ndarray, *, config: BuildConfig,
         if terminal:
             stop = np.ones(frontier_size, bool)
         else:
-            pure = (dec["y_range"] <= 0.0 if regression
-                    else (counts > 0).sum(axis=1) <= 1)
+            if gbdt:
+                # no purity for gradients: a node with no gain stops at
+                # the min_split_gain gate (or constant / inf cost)
+                pure = np.zeros(frontier_size, bool)
+            elif regression:
+                pure = dec["y_range"] <= 0.0
+            else:
+                pure = (counts > 0).sum(axis=1) <= 1
             stop = (
                 pure | dec["constant"] | (n < cfg.min_samples_split)
                 | np.isinf(dec["cost"])
@@ -447,20 +486,28 @@ def build_tree(binned: BinnedData, y: np.ndarray, *, config: BuildConfig,
                 # the fixed-point route's float64 cost against the host
                 # tier's node impurity, as the JAX package's host tier
                 # compares them; the integer route as its device engine
-                imp = node_imp if fixed and not regression \
+                imp = node_imp if fixed and cfg.task == "classification" \
                     else dec["impurity"]
                 with np.errstate(invalid="ignore"):
                     stop |= (
                         n * (imp - dec["cost"]) < cfg.min_decrease_scaled
                     )
+            if gbdt and cfg.min_split_gain > 0.0:
+                # impurity - cost is the Newton gain, in float32 as the
+                # JAX package's float32 decision buffer holds both
+                gain = (dec["impurity"].astype(np.float32)
+                        - dec["cost"].astype(np.float32))
+                with np.errstate(invalid="ignore"):
+                    stop |= gain < np.float32(cfg.min_split_gain)
         tree.feature[ids] = (
             -1 if terminal
             else np.where(stop, -1, dec["feature"]).astype(np.int32)
         )
         tree.value[ids] = value
         tree.n_node_samples[ids] = n.astype(np.int64)
-        # regression's float32-accuracy stats: the refit overwrites them
-        if regression:
+        # regression's and gbdt's float32-accuracy stats: the refit
+        # overwrites them
+        if regression or gbdt:
             tree.count[ids, 0] = value
         else:
             tree.count[ids] = counts.astype(tree.count.dtype)

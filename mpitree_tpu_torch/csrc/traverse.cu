@@ -6,6 +6,7 @@
 //     node = root[t]; up to n_steps times: stop at a leaf (feature < 0),
 //       else node = X[r, feature[node]] <= threshold[node] ? left : right
 //     v = values[node, :]
+//     out[r, :] starts at init[:] (a boosting baseline), else 0
 //     sum:    out[r, c] += v[c]
 //     norm:   out[r, c] += v[c] / max(sum_k v[k], 1)     (float64 only)
 //     percls: out[r, t mod n_out] += v[0]
@@ -41,7 +42,9 @@
 //     chunk order (in shared memory), and the last chunk writes `out`.
 // One block owns all trees of its rows, so every output element is reduced
 // by one thread, tree by tree, in member order: never split across threads
-// or combined by atomics. All output columns are written by one launch.
+// or combined by atomics. A non-null `init` (n_out values) is where each
+// row's accumulator starts: a boosted model's baseline margins, added
+// first as the estimator's host loop adds them. All output columns are written by one launch.
 // The host-side planner (serve_kernel.plan) picks R and Tc per shape.
 //
 // Exactness: float64 adds and divides use __dadd_rn/__ddiv_rn, which nvcc
@@ -96,6 +99,7 @@ __global__ void traverse_kernel(const float* __restrict__ X,
                                 const int4* __restrict__ nodes,
                                 const int32_t* __restrict__ root,
                                 const Val* __restrict__ values,
+                                const Acc* __restrict__ init,
                                 Acc* __restrict__ out,
                                 int n_rows, int n_feat, int n_trees,
                                 int n_steps, int n_chan, int n_out, int agg,
@@ -155,7 +159,7 @@ __global__ void traverse_kernel(const float* __restrict__ X,
         for (int p = threadIdx.x; p < rows * n_out; p += blockDim.x) {
             const int rr = p / n_out;
             const int c = p % n_out;
-            Acc a = t0 == 0 ? Acc(0) : acc[p];
+            Acc a = t0 != 0 ? acc[p] : init != nullptr ? init[c] : Acc(0);
             if (agg == kPercls) {
                 // chunk trees t0 + j with (t0 + j) mod n_out == c
                 for (int j = ((c - t0) % n_out + n_out) % n_out; j < tc;
@@ -188,7 +192,8 @@ __global__ void traverse_kernel(const float* __restrict__ X,
 
 template <typename Val, typename Acc>
 int launch(const void* X, const void* nodes, const void* root,
-           const void* values, void* out, int n_rows, int n_feat,
+           const void* values, const void* init, void* out, int n_rows,
+           int n_feat,
            int n_trees, int n_steps, int n_chan, int n_out, int agg,
            int rows_per_block, int trees_per_chunk, int stage_x,
            int threads, int smem, void* stream)
@@ -211,8 +216,9 @@ int launch(const void* X, const void* nodes, const void* root,
     traverse_kernel<Val, Acc><<<blocks, threads, smem,
                                 (cudaStream_t)stream>>>(
         (const float*)X, (const int4*)nodes, (const int32_t*)root,
-        (const Val*)values, (Acc*)out, n_rows, n_feat, n_trees, n_steps,
-        n_chan, n_out, agg, rows_per_block, trees_per_chunk, stage_x);
+        (const Val*)values, (const Acc*)init, (Acc*)out, n_rows, n_feat,
+        n_trees, n_steps, n_chan, n_out, agg, rows_per_block,
+        trees_per_chunk, stage_x);
     return (int)cudaGetLastError();
 }
 
@@ -221,27 +227,29 @@ int launch(const void* X, const void* nodes, const void* root,
 extern "C" {
 
 int mpt_traverse(const void* X, const void* nodes, const void* root,
-                 const void* values, void* out, int n_rows, int n_feat,
-                 int n_trees, int n_steps, int n_chan, int n_out, int agg,
-                 int rows_per_block, int trees_per_chunk, int stage_x,
-                 int threads, int smem, void* stream)
+                 const void* values, const void* init, void* out,
+                 int n_rows, int n_feat, int n_trees, int n_steps,
+                 int n_chan, int n_out, int agg, int rows_per_block,
+                 int trees_per_chunk, int stage_x, int threads, int smem,
+                 void* stream)
 {
     return launch<double, double>(
-        X, nodes, root, values, out, n_rows, n_feat, n_trees, n_steps,
-        n_chan, n_out, agg, rows_per_block, trees_per_chunk, stage_x,
-        threads, smem, stream);
+        X, nodes, root, values, init, out, n_rows, n_feat, n_trees,
+        n_steps, n_chan, n_out, agg, rows_per_block, trees_per_chunk,
+        stage_x, threads, smem, stream);
 }
 
 int mpt_traverse_q(const void* X, const void* nodes, const void* root,
-                   const void* values, void* out, int n_rows, int n_feat,
-                   int n_trees, int n_steps, int n_chan, int n_out, int agg,
-                   int rows_per_block, int trees_per_chunk, int stage_x,
-                   int threads, int smem, void* stream)
+                   const void* values, const void* init, void* out,
+                   int n_rows, int n_feat, int n_trees, int n_steps,
+                   int n_chan, int n_out, int agg, int rows_per_block,
+                   int trees_per_chunk, int stage_x, int threads, int smem,
+                   void* stream)
 {
     return launch<int8_t, int32_t>(
-        X, nodes, root, values, out, n_rows, n_feat, n_trees, n_steps,
-        n_chan, n_out, agg, rows_per_block, trees_per_chunk, stage_x,
-        threads, smem, stream);
+        X, nodes, root, values, init, out, n_rows, n_feat, n_trees,
+        n_steps, n_chan, n_out, agg, rows_per_block, trees_per_chunk,
+        stage_x, threads, smem, stream);
 }
 
 const char* mpt_traverse_error_string(int code)

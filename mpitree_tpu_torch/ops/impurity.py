@@ -1,8 +1,10 @@
-"""Split evaluation from histograms: entropy / Gini / MSE costs and argmin.
+"""Split evaluation from histograms: entropy / Gini / MSE / Newton costs
+and argmin.
 
-Counterpart of the classification and regression halves of
-``mpitree_tpu/ops/impurity.py`` (``:39-335``, ``_lex_argmin`` ``:384``,
-``best_split_regression`` ``:533``), with the same selection rules:
+Counterpart of ``mpitree_tpu/ops/impurity.py``: its classification and
+regression halves (``:39-335``, ``_lex_argmin`` ``:384``,
+``best_split_regression`` ``:533``) and boosting's Newton sweep
+(``best_split_newton`` ``:449``), with the same selection rules:
 
 - the cost of candidate ``(f, b)`` is the weighted child impurity
   ``(n_l * H(left) + n_r * H(right)) / n``;
@@ -32,8 +34,8 @@ their cumulative sums over bins **in int64**, which is exact and the same on
 every device (a float32 ``torch.cumsum`` associates differently on CUDA and
 on the CPU), and convert only then: to float64 for the classification
 sweep, whose counts then equal the exact float64 sums of the JAX package's
-host tier; to float32 for the regression sweep, which then runs the JAX
-package's float32 formula op for op.
+host tier; to float32 for the regression and Newton sweeps, which then run
+the JAX package's float32 formulas op for op.
 
 The sweep and the argmin are plain PyTorch operations: in the JAX package
 they are XLA code outside any Pallas kernel. ``log2`` is written
@@ -489,4 +491,81 @@ def best_split_regression(
         constant=constant,
         n_left=_winner(w_l, best_feature, best_bin),
         **_winner_values(v_l_all, v_r_all, best_feature, best_bin),
+    )
+
+
+def best_split_newton(
+    hist: torch.Tensor, cand_mask: torch.Tensor, *, scale_exp,
+    reg_lambda: float, min_child_weight: float | None = None,
+    min_samples_leaf: float | None = None,
+) -> SplitDecision:
+    """Pick the best Newton-gain split per frontier slot (boosting rounds)
+    from an int64 fixed-point ``(count, g, h)`` histogram (K, F, 3, B).
+
+    ``best_split_newton`` (``mpitree_tpu/ops/impurity.py:449``): a side's
+    structure score is ``G^2 / max(H + lambda, 1e-12)``; a candidate costs
+    ``-1/2 (score_l + score_r)`` and the parent's ``impurity`` is ``-1/2
+    score_parent``, so ``impurity - cost`` is the Newton gain the
+    builder's ``min_split_gain`` gate reads. A candidate needs rows on
+    both sides, ``h >= min_child_weight`` (the hessian floor) and ``count
+    >= min_samples_leaf`` on each; the argmin takes the first minimum
+    (lowest threshold, then lowest feature). The left and right sums are
+    taken in int64 (exact) and rounded to float32 once; the float32
+    formula then runs as the JAX package's does (which takes float32
+    cumulative sums instead: the two differ only where two candidates'
+    costs lie within float32 rounding). ``counts`` is the parent's (K, 3)
+    ``(count, G, H)`` in float64; ``n_left`` the winner's left row count.
+    """
+    c_l, g_l, h_l = (torch.cumsum(hist[:, :, c, :], dim=2)
+                     for c in range(3))
+    tot = [a[:, :, -1:] for a in (c_l, g_l, h_l)]
+    c_r, g_r, h_r = (t - a for t, a in zip(tot, (c_l, g_l, h_l)))
+
+    def f32(a, c):
+        return dequantize(a, scale_exp[c:c + 1], dim=0, dtype=torch.float32)
+
+    c_l, g_l, h_l = f32(c_l, 0), f32(g_l, 1), f32(h_l, 2)
+    c_r, g_r, h_r = f32(c_r, 0), f32(g_r, 1), f32(h_r, 2)
+
+    def f32_scalar(v):
+        return torch.tensor(np.float32(v), device=hist.device)
+
+    lam = f32_scalar(reg_lambda)
+    eps = f32_scalar(1e-12)
+
+    def score(g, h):
+        return g * g / torch.maximum(h + lam, eps)
+
+    cost = -0.5 * (score(g_l, h_l) + score(g_r, h_r))
+    valid = cand_mask[None, :, :] & (c_l > 0) & (c_r > 0)
+    if min_child_weight is not None:
+        mcw = f32_scalar(min_child_weight)
+        valid = valid & (h_l >= mcw) & (h_r >= mcw)
+    if min_samples_leaf is not None:
+        msl = f32_scalar(min_samples_leaf)
+        valid = valid & (c_l >= msl) & (c_r >= msl)
+    cost = torch.where(valid, cost, torch.full_like(cost, math.inf))
+
+    best_bin_f = lex_argmin(cost, torch.zeros_like(cost), dim=2)
+    best_cost_f = torch.gather(cost, 2, best_bin_f[:, :, None])[:, :, 0]
+    best_feature = lex_argmin(best_cost_f, torch.zeros_like(best_cost_f),
+                              dim=1)
+    best_bin = torch.gather(best_bin_f, 1, best_feature[:, None])[:, 0]
+    best_cost = torch.gather(best_cost_f, 1, best_feature[:, None])[:, 0]
+
+    parent_q = hist[:, 0, :, :].sum(dim=-1)  # (K, 3) int64
+    parent = dequantize(parent_q, scale_exp, dim=1)
+    p32 = dequantize(parent_q, scale_exp, dim=1, dtype=torch.float32)
+    parent_impurity = -0.5 * score(p32[:, 1], p32[:, 2])
+    constant = ((hist[:, :, 0, :] > 0).sum(dim=2) <= 1).all(dim=1)
+
+    return SplitDecision(
+        feature=best_feature.to(torch.int32),
+        bin=best_bin.to(torch.int32),
+        cost=best_cost,
+        impurity=parent_impurity,
+        n=parent[:, 0],
+        counts=parent,
+        constant=constant,
+        n_left=_winner(c_l, best_feature, best_bin),
     )

@@ -20,10 +20,15 @@ package). The keys stay on the host beside the level's host decision, as
 the JAX levelwise engine keeps them; the builders ship masks and draws to
 the device once per chunk, the draws as int64 so ``draw % count`` is exact.
 
+Boosting's round masks (``row_subsample_mask`` ``:138``,
+``feature_subsample_mask`` ``:163``, ``subsample_threshold_u32`` ``:278``)
+are keyed the same way, by (seed, round, row or feature), so a refit
+draws the same subsample.
+
 Not here (``ROADMAP.md``): the ``*_jnp`` twins of the fused engine
-(item 7), the boosting round masks ``row_subsample_mask`` and
-``feature_subsample_mask`` (item 12), and the keyed forest draws
-``bootstrap_weights``, ``tree_seed`` and ``feature_subset`` (item 16).
+(item 7) and of the fused boosting rounds (item 12 step 3), and the keyed
+forest draws ``bootstrap_weights``, ``tree_seed`` and ``feature_subset``
+(item 16).
 """
 
 from __future__ import annotations
@@ -107,6 +112,8 @@ _LEFT_SALT = np.uint32(0x9E3779B9)
 _RIGHT_SALT = np.uint32(0xC2B2AE35)
 _FEAT_SALT = np.uint32(0x85EBCA6B)
 _DRAW_SALT = np.uint32(0x27D4EB2F)  # random-split bin draws (ExtraTrees)
+_ROW_SALT = np.uint32(0x51ED270B)  # per-round row subsampling (boosting)
+_COL_SALT = np.uint32(0x6C62272E)  # per-round feature subsampling (boosting)
 
 
 def pcg_hash(x: np.ndarray) -> np.ndarray:
@@ -116,6 +123,59 @@ def pcg_hash(x: np.ndarray) -> np.ndarray:
         shift = ((x >> np.uint32(28)) + np.uint32(4)).astype(np.uint32)
         word = (((x >> shift) ^ x) * _FIN).astype(np.uint32)
         return ((word >> np.uint32(22)) ^ word).astype(np.uint32)
+
+
+def _round_base(seed: int, round_idx: int, salt) -> np.uint32:
+    """The uint32 key of one boosting round's draws."""
+    with np.errstate(over="ignore"):
+        return np.uint32(
+            pcg_hash(np.uint32(seed))
+            ^ pcg_hash((np.uint32(round_idx) + salt).astype(np.uint32))
+        )
+
+
+def row_subsample_mask(seed: int, round_idx: int, n_rows: int,
+                       fraction: float) -> np.ndarray:
+    """(n_rows,) bool: the rows of one boosting round's subsample, each
+    row in when ``pcg_hash(base(seed, round) + row)`` lies below
+    :func:`subsample_threshold_u32` (Bernoulli(fraction) per row, without
+    replacement; ``mpitree_tpu/ops/sampling.py:138``)."""
+    if not 0.0 < fraction <= 1.0:
+        raise ValueError(
+            f"subsample fraction must be in (0, 1], got {fraction!r}")
+    if fraction >= 1.0:
+        return np.ones(n_rows, bool)
+    base = _round_base(seed, round_idx, _ROW_SALT)
+    with np.errstate(over="ignore"):
+        keys = pcg_hash(base + np.arange(n_rows, dtype=np.uint32))
+    return keys < subsample_threshold_u32(fraction)
+
+
+def feature_subsample_mask(seed: int, round_idx: int, n_features: int,
+                           fraction: float) -> np.ndarray:
+    """(n_features,) bool: exactly ``max(1, floor(fraction * F))``
+    features of one boosting round (``colsample_bytree``), the first of a
+    stable argsort of per-(round, feature) hash scores
+    (``mpitree_tpu/ops/sampling.py:163``)."""
+    if not 0.0 < fraction <= 1.0:
+        raise ValueError(
+            f"colsample fraction must be in (0, 1], got {fraction!r}")
+    if fraction >= 1.0:
+        return np.ones(n_features, bool)
+    k = max(1, int(fraction * n_features))
+    base = _round_base(seed, round_idx, _COL_SALT)
+    with np.errstate(over="ignore"):
+        f = np.arange(n_features, dtype=np.uint32)
+        scores = pcg_hash(base + (f + np.uint32(1)) * _COL_SALT)
+    mask = np.zeros(n_features, bool)
+    mask[np.argsort(scores, kind="stable")[:k]] = True
+    return mask
+
+
+def subsample_threshold_u32(fraction: float) -> np.uint32:
+    """The uint32 threshold :func:`row_subsample_mask` compares against;
+    callers take ``fraction < 1`` (1.0 would wrap)."""
+    return np.uint32(int(fraction * 4294967296.0))
 
 
 def _salted(keys: np.ndarray, n_features: int, salt) -> np.ndarray:

@@ -6,13 +6,15 @@ no mesh code is ported; each step is a plain function on tensors that live
 on the fit's device:
 
 - :func:`split_step` (``make_split_fn``, ``:268``; regression
-  ``:470-502``): the frontier chunk's ``(S, F, C, B)`` histogram (the
-  Hopper kernel on CUDA tensors, ``ops/hist_kernel.py``) followed by the
-  split sweep, packed into one buffer so a level costs one device-to-host
-  copy: float32 on the integer route, float64 on the fixed-point route,
-  whose node statistics are exact sums;
+  ``:470-502``; boosting's Newton rounds ``:419-469``): the frontier
+  chunk's ``(S, F, C, B)`` histogram (the Hopper kernel on CUDA tensors,
+  ``ops/hist_kernel.py``) followed by the split sweep, packed into one
+  buffer so a level costs one device-to-host copy: float32 on the integer
+  route, float64 on the fixed-point route, whose node statistics are
+  exact sums;
 - :func:`node_sums` (``node_counts_local``, ``:81``): per-slot payload
-  sums (class counts or regression moments) for terminal levels, an O(N)
+  sums (class counts, regression moments or boosting's ``(count, G, H)``)
+  for terminal levels, an O(N)
   scatter instead of the O(N*F) histogram, exact in int64 on both routes;
 - :func:`y_range` (``regression_y_range``, ``:117``): the per-slot
   ``max(y) - min(y)`` that regression's purity stop reads;
@@ -95,7 +97,9 @@ def split_step(x_binned: torch.Tensor, payload: torch.Tensor,
                draws: torch.Tensor | None = None,
                mono_cst: torch.Tensor | None = None,
                mono_lo: torch.Tensor | None = None,
-               mono_hi: torch.Tensor | None = None) -> torch.Tensor:
+               mono_hi: torch.Tensor | None = None,
+               reg_lambda: float = 0.0,
+               min_leaf_rows: float = 0.0) -> torch.Tensor:
     """Histogram + split sweep for the frontier chunk of ``n_slots`` nodes
     starting at node id ``chunk_lo``; returns the packed decision buffer.
 
@@ -113,14 +117,25 @@ def split_step(x_binned: torch.Tensor, payload: torch.Tensor,
     (``mpitree_tpu/parallel/collective.py:416``, ``:494``), as do
     ``mono_cst`` ((F,) int32 internal signs) and the chunk's bounds
     ``mono_lo``/``mono_hi`` ((n_slots,) float32), whose winners' child
-    values then ride in the buffer (``:372-375``).
+    values then ride in the buffer (``:372-375``). ``task="gbdt"``
+    takes the fixed-point ``(count, g, h)`` payload
+    (``histogram.gbdt_payload``) and runs the Newton sweep with
+    ``reg_lambda``, ``min_child_weight`` as the hessian floor and
+    ``min_leaf_rows`` as the row floor (``:419-421``); its buffer carries
+    ``(count, G, H)`` as the counts.
     """
     slot = (node_id - chunk_lo).to(torch.int32)
     hist = hist_ops.histogram(x_binned, payload, slot, n_slots=n_slots,
                               n_bins=n_bins, packed=packed, order=order,
                               seg_start=seg_start, feat_bins=feat_bins,
                               scale_exp=scale_exp)
-    if task == "regression":
+    if task == "gbdt":
+        dec = imp_ops.best_split_newton(
+            hist, cand_mask, scale_exp=scale_exp, reg_lambda=reg_lambda,
+            min_child_weight=min_child_weight,
+            min_samples_leaf=min_leaf_rows,
+        )
+    elif task == "regression":
         dec = imp_ops.best_split_regression(
             hist, cand_mask, scale_exp=scale_exp,
             min_child_weight=min_child_weight, node_mask=node_mask,

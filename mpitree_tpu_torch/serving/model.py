@@ -1,10 +1,12 @@
 """CompiledModel: a fitted estimator flattened for the request path.
 
 Counterpart of ``mpitree_tpu/serving/model.py``. ``compile_model(est)``
-turns a fitted tree or forest (``DecisionTreeClassifier``,
-``DecisionTreeRegressor``, ``RandomForestClassifier``,
-``RandomForestRegressor``, ``ExtraTreesClassifier``,
-``ExtraTreesRegressor``) into a serving handle:
+turns a fitted tree, forest or boosted ensemble
+(``DecisionTreeClassifier``, ``DecisionTreeRegressor``,
+``RandomForestClassifier``, ``RandomForestRegressor``,
+``ExtraTreesClassifier``, ``ExtraTreesRegressor``,
+``GradientBoostingClassifier``, ``GradientBoostingRegressor``) into a
+serving handle:
 
 - the depth-packed node table and its leaf-value channel are on the
   model's device from compile time (``serving/tables.py``), so a request
@@ -24,7 +26,13 @@ turns a fitted tree or forest (``DecisionTreeClassifier``,
   ``monotonic_cst`` (kind ``forest_values``) is K4 (or K5) in ``sum``
   mode over each tree's rows ``[p0, 1 - p0]`` of bound-clipped class-0
   fractions, ``/ T``: its ``predict_proba`` bit for bit (the JAX
-  package's ``:665-696``). A single classification tree (kind
+  package's ``:665-696``). A boosted ensemble (kind ``margin``,
+  ``:645-662``) is K4 in ``percls`` mode over its leaf values pre-scaled
+  by the learning rate in host float64, tree ``t`` into class column ``t
+  mod K``, each row's accumulator starting at the baseline margins: the
+  estimator's ``decision_function`` (``predict`` for a regressor) bit for
+  bit; ``quantize="int8"`` serves it by K5 in ``percls`` mode. A single
+  classification tree (kind
   ``gather_counts``, int32 counts; with ``monotonic_cst``
   ``gather_value`` over its int32 clipped labels, ``:710-720``) or
   regression tree (``gather_value``, float64 leaf means, already clipped
@@ -76,7 +84,8 @@ class CompiledModel:
     def __init__(self, trees, *, kind, n_features, n_out, values_fn,
                  device, classes=None, scale=1.0, buckets=DEFAULT_BUCKETS,
                  value_dtype=np.float64, quantize=None, quantize_tol=None,
-                 calibration=None, channel_salt=""):
+                 calibration=None, channel_salt="", loss=None,
+                 baseline=None):
         self._lock = threading.Lock()
         self.trees = list(trees)
         self.kind = kind
@@ -87,6 +96,11 @@ class CompiledModel:
         self.buckets = tuple(sorted(int(b) for b in buckets))
         self.scale = torch.tensor(float(scale), dtype=torch.float64,
                                   device=device)
+        # a boosted model's loss (class probabilities) and baseline row
+        self._loss = loss
+        self._baseline = (None if baseline is None else torch.from_numpy(
+            np.ascontiguousarray(baseline, np.float64).reshape(-1)).to(
+                device))
         self._counts = {"requests": 0, "rows": 0}
         int_channel = np.dtype(value_dtype).kind in "iu"
         qmode = quantize_lib.resolve_quantize(quantize)
@@ -113,6 +127,7 @@ class CompiledModel:
                      else float(quantize_tol)),
                 device=device, calibration=calibration,
                 n_features=self.n_features,
+                n_out=self.n_out if kind == "margin" else None,
             )
         else:
             # norm's per-tree row division, taken once per leaf here: the
@@ -158,11 +173,12 @@ class CompiledModel:
             return quantize_lib.q_traverse_accumulate(
                 X, self._quant, kind=self.kind, n_steps=n_steps,
                 n_features=self.n_features, scale=self.scale,
+                baseline=self._baseline,
             )
         out = serve_kernel.traverse(
             X, *self._dev_table, self._values, n_steps=n_steps,
             agg=self._agg, n_out=self.n_out, n_features=self.n_features,
-            record=self._record,
+            record=self._record, baseline=self._baseline,
         )
         return traversal.finish(out, self.kind, self.scale)
 
@@ -200,8 +216,8 @@ class CompiledModel:
 
     def raw(self, X) -> np.ndarray:
         """Probabilities for a classification forest, raw leaf counts for
-        a single classification tree, values for a regressor, as a host
-        array."""
+        a single classification tree, values for a regressor, (N, K)
+        margins for a boosted ensemble, as a host array."""
         return self.finalize(*self.raw_async(X))
 
     def warmup(self, buckets=None) -> None:
@@ -214,6 +230,11 @@ class CompiledModel:
     # -- estimator-equivalent surface -------------------------------------
     def predict(self, X):
         out = self.raw(X)
+        if self.kind == "margin":
+            if self.classes is None:
+                return out[:, 0]
+            return self.classes[
+                self._loss.proba(out.astype(np.float64)).argmax(axis=1)]
         if self.classes is None:  # regressors: the values themselves
             return out
         if self.kind == "gather_value":  # a constrained tree's labels
@@ -225,10 +246,24 @@ class CompiledModel:
             raise AttributeError(
                 "predict_proba is undefined for a constrained tree's "
                 "serving kind 'gather_value' (its labels)")
+        if self.kind == "margin":
+            if self.classes is None:
+                raise AttributeError(
+                    "predict_proba is undefined for a boosted regressor")
+            return self._loss.proba(self.raw(X).astype(np.float64))
         out = self.raw(X)
         if self.kind == "gather_counts":
             return out.astype(np.int64)  # the reference quirk: raw counts
         return out
+
+    def decision_function(self, X):
+        """A boosted classifier's margins, shaped as its
+        ``decision_function``: (N,) for two classes, else (N, K)."""
+        if self.kind != "margin" or self.classes is None:
+            raise AttributeError(
+                "decision_function is a boosting-classifier surface")
+        raw = self.raw(X)
+        return raw[:, 0] if raw.shape[1] == 1 else raw
 
     @property
     def serve_report_(self) -> dict:
@@ -256,6 +291,9 @@ def compile_model(estimator, *, buckets=DEFAULT_BUCKETS, quantize=None,
     ``calibration`` batch (synthesized from the table's thresholds when
     omitted). A fitted estimator from ``load_model`` compiles as a fitted
     one does."""
+    from mpitree_tpu_torch.boosting.gradient_boosting import (
+        _BaseGradientBoosting,
+    )
     from mpitree_tpu_torch.models.classifier import DecisionTreeClassifier
     from mpitree_tpu_torch.models.forest import (
         RandomForestClassifier,
@@ -265,7 +303,8 @@ def compile_model(estimator, *, buckets=DEFAULT_BUCKETS, quantize=None,
 
     if not isinstance(estimator, (
             RandomForestClassifier, RandomForestRegressor,
-            DecisionTreeClassifier, DecisionTreeRegressor)):
+            DecisionTreeClassifier, DecisionTreeRegressor,
+            _BaseGradientBoosting)):
         raise TypeError(
             f"compile_model: unsupported estimator {type(estimator).__name__}"
         )
@@ -273,6 +312,20 @@ def compile_model(estimator, *, buckets=DEFAULT_BUCKETS, quantize=None,
     kw = dict(buckets=buckets, quantize=quantize, quantize_tol=quantize_tol,
               calibration=calibration,
               device=resolve_device(estimator.device))
+    if isinstance(estimator, _BaseGradientBoosting):
+        classes = getattr(estimator, "classes_", None)
+        lr = float(estimator.learning_rate)
+        # leaf values pre-scaled by the learning rate in host float64, the
+        # estimator's own product, so each round is one add
+        return CompiledModel(
+            estimator.trees_, kind="margin",
+            n_features=estimator.n_features_in_,
+            n_out=int(estimator.n_trees_per_iteration_),
+            values_fn=lambda t: lr * np.asarray(t.count[:, 0], np.float64),
+            channel_salt=f":lr={lr!r}", classes=classes,
+            loss=estimator._loss() if classes is not None else None,
+            baseline=np.asarray(estimator._baseline_raw, np.float64), **kw,
+        )
     if isinstance(estimator, RandomForestRegressor):  # and ExtraTrees
         return CompiledModel(
             estimator.trees_, kind="forest_mean",

@@ -25,6 +25,21 @@ and the division by the tree count in float32 (:func:`q_traverse_accumulate`),
 as the JAX package's kernel tier does (``serving/model.py:343-412``). The
 bfloat16 rounding uses ``torch.bfloat16`` and its bit pattern, which give
 the same bits as the JAX package's ``ml_dtypes`` path.
+
+A boosted model's margins (kind ``margin``) take K5's ``percls`` mode and
+differ from the JAX package's float32 tier in two ways, both so that the
+report measures what is served:
+
+- the affine runs once per column (``T / K`` trees each) in float64, then
+  the float64 baseline: margins sum a hundred or more trees of values
+  near 1, where a float32 epilogue and a float32 report would each carry
+  a few ulps of their own, more than the report's 1e-6 slack;
+- the report accumulates in float64 too, with the quantized side summed
+  as the served one is, and over ``n_out = K`` columns round by round:
+  the JAX package's report applies a margin channel over all ``T`` trees
+  into one column (``mpitree_tpu/serving/quantize.py:340``, ``n_out``
+  read from the one-channel rows), which for more than one class mixes
+  the classes' trees.
 """
 
 from __future__ import annotations
@@ -136,17 +151,21 @@ class QuantizedState:
     record: torch.Tensor     # (M, 4) int32: serve_kernel.pack_nodes
     qvals: torch.Tensor      # (M, K) int8
     qscale: torch.Tensor     # (K,) float32: the affine's scale
-    qbase: torch.Tensor      # (K,) float32: T x the affine's base
+    # (K,) trees per column x the affine's base: float32, float64 for a
+    # margin
+    qbase: torch.Tensor
     report: dict             # the exactness report (serve_report_)
 
 
 def build_state(table, prepared: np.ndarray, *, kind: str, scale,
                 n_steps: int, tol: float, device: torch.device,
-                calibration=None, n_features: int | None = None
-                ) -> QuantizedState:
+                calibration=None, n_features: int | None = None,
+                n_out: int | None = None) -> QuantizedState:
     """Quantize one flat table + prepared channel onto ``device``; raise
     :class:`QuantizationError` when the calibration delta exceeds
-    ``tol``."""
+    ``tol``. ``n_out`` is a margin's class count K (its trees lie
+    round-major, class-minor); other kinds serve one column per
+    channel."""
     if n_features is None:
         n_features = int(table.feature.max(initial=0)) + 1
     if n_features > np.iinfo(np.int16).max:
@@ -158,7 +177,7 @@ def build_state(table, prepared: np.ndarray, *, kind: str, scale,
     rep = exactness_report(
         table, prepared, (q, vscale, vbase), kind=kind, scale=scale,
         n_steps=n_steps, tol=tol, calibration=calibration,
-        n_features=n_features,
+        n_features=n_features, n_out=n_out,
     )
     if not rep["ok"]:
         raise QuantizationError(
@@ -177,27 +196,38 @@ def build_state(table, prepared: np.ndarray, *, kind: str, scale,
         qvals=torch.from_numpy(np.ascontiguousarray(q)).to(device),
         qscale=torch.from_numpy(vscale).to(device),
         qbase=torch.from_numpy(
-            (table.n_trees * vbase).astype(np.float32)).to(device),
+            (table.n_trees // int(n_out)) * vbase.astype(np.float64)
+            if kind == "margin"
+            else (table.n_trees * vbase).astype(np.float32)).to(device),
         report=rep,
     )
 
 
 def q_traverse_accumulate(X: torch.Tensor, state: QuantizedState, *,
                           kind: str, n_steps: int, n_features: int,
-                          scale) -> torch.Tensor:
-    """The quantized serving tier for the forest kinds: K5's int32
-    lattice sum (``sum`` mode), then ``out * qscale + qbase`` and the
-    division by ``scale`` (a number or a 0-d tensor) in float32. The
-    affine is linear across the ensemble sum, so this serves the
-    int8-affine values the exactness report covers."""
-    if kind not in ("forest_proba", "forest_mean", "forest_values"):
+                          scale, baseline: torch.Tensor | None = None
+                          ) -> torch.Tensor:
+    """The quantized serving tier: K5's int32 lattice sum (``sum`` mode
+    for the forest kinds, then ``out * qscale + qbase`` and the division
+    by ``scale`` (a number or a 0-d tensor) in float32; for ``margin``,
+    ``percls`` into ``len(baseline)`` columns, the affine in float64 and
+    the float64 ``baseline``). The affine is linear across the ensemble
+    sum, so this serves the int8-affine values the exactness report
+    covers."""
+    margin = kind == "margin"
+    if not margin and kind not in ("forest_proba", "forest_mean",
+                                   "forest_values"):
         raise ValueError(f"unknown quantized accumulate kind {kind!r}")
     out = serve_kernel.traverse_q(
         X, state.feature, state.threshold, state.left, state.right,
-        state.root, state.qvals, n_steps=n_steps, agg="sum",
-        n_out=state.qvals.shape[1], n_features=n_features,
-        record=state.record,
+        state.root, state.qvals, n_steps=n_steps,
+        agg="percls" if margin else "sum",
+        n_out=baseline.shape[0] if margin else state.qvals.shape[1],
+        n_features=n_features, record=state.record,
     )
+    if margin:
+        return (out.to(torch.float64) * state.qscale.to(torch.float64)
+                + state.qbase + baseline)
     deq = out.to(torch.float32) * state.qscale + state.qbase
     return deq / torch.as_tensor(scale, dtype=torch.float32,
                                  device=deq.device)
@@ -222,18 +252,23 @@ def _host_descend(X, feature, threshold, left, right, root,
     return node
 
 
+def _margin_apply(node: np.ndarray, rows: np.ndarray, K: int
+                  ) -> np.ndarray:
+    """(N, K) float64 sums of a margin channel (float64 values, or the
+    int8 codes summed exactly in int64) at leaf ids, round by round;
+    baseline-free (the baseline is the same on both sides)."""
+    N, T = node.shape
+    acc = np.zeros((N, K), rows.dtype if rows.dtype.kind == "i"
+                   else np.float64)
+    for r in range(T // K):
+        acc = acc + rows[node[:, r * K:(r + 1) * K], 0]
+    return acc.astype(np.float64)
+
+
 def _host_apply(kind: str, node: np.ndarray, rows: np.ndarray,
                 scale: float, n_out: int) -> np.ndarray:
-    """Apply a prepared float32 channel at leaf ids, per serving kind
-    (baseline-free for margins: it cancels in the delta)."""
+    """Apply a prepared float32 channel at leaf ids, per serving kind."""
     N, T = node.shape
-    if kind == "margin":
-        K = int(n_out)
-        acc = np.zeros((N, K), np.float32)
-        for r in range(T // K):
-            ids = node[:, r * K:(r + 1) * K]
-            acc = acc + rows[ids, 0]
-        return acc
     if kind == "gather_value":
         return rows[node[:, 0], 0:1]
     acc = np.zeros((N, rows.shape[1]), np.float32)
@@ -267,10 +302,12 @@ def synthesize_calibration(table, n_features: int, rows: int = 256,
 
 def exactness_report(table, prepared: np.ndarray, quant, *, kind: str,
                      scale, n_steps: int, tol: float, calibration=None,
-                     n_features: int | None = None) -> dict:
+                     n_features: int | None = None,
+                     n_out: int | None = None) -> dict:
     """Largest prediction delta of the quantized tables against the
     float32 tables on a calibration batch (numpy on both sides: same
-    descent, same value application, so the delta isolates quantization)."""
+    descent, same value application, so the delta isolates quantization;
+    a margin in float64, as it is served)."""
     q, vscale, vbase = quant
     if n_features is None:
         n_features = int(table.feature.max(initial=0)) + 1
@@ -281,7 +318,8 @@ def exactness_report(table, prepared: np.ndarray, quant, *, kind: str,
     rows_q = dequantize(q, np.asarray(vscale), np.asarray(vbase))
     thr_ref = np.nan_to_num(np.asarray(table.threshold, np.float32), nan=0.0)
     thr_q = quantize_thresholds(table.threshold).to(torch.float32).numpy()
-    n_out = rows_ref.shape[1]
+    if n_out is None:
+        n_out = rows_ref.shape[1]
     ids_ref = _host_descend(
         X, table.feature, thr_ref, table.left, table.right, table.root,
         n_steps,
@@ -290,8 +328,15 @@ def exactness_report(table, prepared: np.ndarray, quant, *, kind: str,
         X, table.feature, thr_q, table.left, table.right, table.root,
         n_steps,
     )
-    ref = _host_apply(kind, ids_ref, rows_ref, float(scale), n_out)
-    got = _host_apply(kind, ids_q, rows_q, float(scale), n_out)
+    if kind == "margin":  # float64, the codes summed as K5 sums them
+        K = int(n_out)
+        ref = _margin_apply(ids_ref, np.asarray(prepared, np.float64), K)
+        got = (_margin_apply(ids_q, q.astype(np.int64), K)
+               * np.float64(vscale[0])
+               + (len(table.root) // K) * np.float64(vbase[0]))
+    else:
+        ref = _host_apply(kind, ids_ref, rows_ref, float(scale), n_out)
+        got = _host_apply(kind, ids_q, rows_q, float(scale), n_out)
     max_abs = float(np.max(np.abs(ref - got))) if len(X) else 0.0
     denom = float(np.max(np.abs(ref))) if len(X) else 0.0
     return {

@@ -7,7 +7,8 @@ Replaces the Pallas kernel ``mpitree_tpu/serving/pallas_serve.py:49``
 - K4, :func:`traverse` (``launches["traverse"]``): float32 thresholds,
   float64 leaf values, a float64 reduction in one of three modes —
   ``sum``, ``norm`` (per-tree row over ``max(rowsum, 1)``) and ``percls``
-  (tree ``t`` into column ``t mod n_out``);
+  (tree ``t`` into column ``t mod n_out``) — from zeros or, given
+  ``baseline``, from a boosted model's baseline margins;
 - K5, :func:`traverse_q` (``launches["traverse_q"]``): the quantized
   tables of ``serving/quantize.py`` — int16 feature ids, bfloat16
   thresholds, int8 leaf values summed as an exact int32 lattice sum in
@@ -71,7 +72,7 @@ def _library():
         lib = _build.load("traverse")
         for name in ("mpt_traverse", "mpt_traverse_q"):
             fn = getattr(lib, name)
-            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 12
+            fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 12
                            + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
         lib.mpt_traverse_error_string.argtypes = [ctypes.c_int]
@@ -164,9 +165,9 @@ def pack_nodes(feature, threshold, left, right) -> torch.Tensor:
 
 
 def _check_inputs(form: str, X, table, values, *, agg: str, n_out: int,
-                  n_features: int, record=None) -> None:
+                  n_features: int, record=None, baseline=None) -> None:
     """Raise on anything the kernels do not take (both devices)."""
-    _, feat_t, thr_t, val_t, _ = _FORMS[form]
+    _, feat_t, thr_t, val_t, acc_t = _FORMS[form]
     feature, threshold, left, right, root = table
     if agg not in _AGG_CODE or (form == "traverse_q" and agg == "norm"):
         raise ValueError(f"{form}: unknown or unsupported mode {agg!r}")
@@ -179,6 +180,13 @@ def _check_inputs(form: str, X, table, values, *, agg: str, n_out: int,
             (root, torch.int32, 1, "root"), (values, val_t, 2, "values"))
     if record is not None:
         want += ((record, torch.int32, 2, "record"),)
+    if baseline is not None:
+        want += ((baseline, acc_t, 1, "baseline"),)
+        if baseline.shape[0] != n_out or baseline.device != X.device:
+            raise ValueError(
+                f"{form}: baseline must hold n_out={n_out} values on X's "
+                f"device, got {tuple(baseline.shape)} on {baseline.device}"
+            )
     for t, dtype, dim, name in want:
         if t.dtype != dtype or t.dim() != dim:
             raise ValueError(
@@ -211,7 +219,8 @@ def _check_inputs(form: str, X, table, values, *, agg: str, n_out: int,
 
 
 def _launch(form: str, X, table, values, record, *, n_steps: int, agg: str,
-            n_out: int, _rows_per_block: int | None = None) -> torch.Tensor:
+            n_out: int, baseline=None,
+            _rows_per_block: int | None = None) -> torch.Tensor:
     """Allocate the (N, n_out) output and launch the kernel once on the
     current stream, without synchronising. ``_rows_per_block`` forces the
     tiling's R; only ``chip_smoke.py`` passes it, to time tilings against
@@ -221,7 +230,8 @@ def _launch(form: str, X, table, values, record, *, n_steps: int, agg: str,
     feature, threshold, left, right, root = table
     T = root.shape[0]
     if N == 0 or T == 0:
-        return torch.zeros((N, n_out), dtype=acc_t, device=X.device)
+        out = torch.zeros((N, n_out), dtype=acc_t, device=X.device)
+        return out if baseline is None else out + baseline
     if record is None:
         record = pack_nodes(feature, threshold, left, right)
     p = plan(form, N, T, n_out, n_features=F, agg=agg,
@@ -231,7 +241,9 @@ def _launch(form: str, X, table, values, record, *, n_steps: int, agg: str,
     with torch.cuda.device(X.device):
         code = getattr(lib, name)(
             X.data_ptr(), record.data_ptr(), root.data_ptr(),
-            values.data_ptr(), out.data_ptr(), N, F, T, n_steps,
+            values.data_ptr(),
+            None if baseline is None else baseline.data_ptr(),
+            out.data_ptr(), N, F, T, n_steps,
             values.shape[1], n_out, _AGG_CODE[agg], p["rows_per_block"],
             p["trees_per_chunk"], int(p["stage_x"]), p["threads"],
             p["smem"], torch.cuda.current_stream(X.device).cuda_stream,
@@ -244,11 +256,13 @@ def _launch(form: str, X, table, values, record, *, n_steps: int, agg: str,
 
 
 def traverse_reference(X, feature, threshold, left, right, root, values, *,
-                       n_steps: int, agg: str, n_out: int) -> torch.Tensor:
+                       n_steps: int, agg: str, n_out: int,
+                       baseline=None) -> torch.Tensor:
     """K4's plain version: ``traversal.descend`` + ``traversal.accumulate``."""
     node = traversal.descend(X, feature, threshold, left, right, root,
                              n_steps)
-    return traversal.accumulate(node, values, agg=agg, n_out=n_out)
+    return traversal.accumulate(node, values, agg=agg, n_out=n_out,
+                                baseline=baseline)
 
 
 def traverse_q_reference(X, feature, threshold, left, right, root, qvals, *,
@@ -264,20 +278,24 @@ def traverse_q_reference(X, feature, threshold, left, right, root, qvals, *,
 
 def traverse(X, feature, threshold, left, right, root, values, *,
              n_steps: int, agg: str, n_out: int, n_features: int,
-             record: torch.Tensor | None = None) -> torch.Tensor:
+             record: torch.Tensor | None = None,
+             baseline: torch.Tensor | None = None) -> torch.Tensor:
     """K4: (N, n_out) float64 ensemble reduction (no division by the tree
     count: the caller owns the per-kind tail). The kernel on CUDA tensors,
     :func:`traverse_reference` on CPU tensors. ``record`` is the columns'
     :func:`pack_nodes`, kept by the caller; without it the kernel's call
-    packs them first."""
+    packs them first. ``baseline`` ((n_out,) float64 on X's device, a
+    boosted model's baseline margins) is where every row's accumulator
+    starts, so the trees add to it in the estimator's order."""
     table = (feature, threshold, left, right, root)
     _check_inputs("traverse", X, table, values, agg=agg, n_out=n_out,
-                  n_features=n_features, record=record)
+                  n_features=n_features, record=record, baseline=baseline)
     if X.is_cuda:
         return _launch("traverse", X, table, values, record,
-                       n_steps=n_steps, agg=agg, n_out=n_out)
+                       n_steps=n_steps, agg=agg, n_out=n_out,
+                       baseline=baseline)
     return traverse_reference(X, *table, values, n_steps=n_steps, agg=agg,
-                              n_out=n_out)
+                              n_out=n_out, baseline=baseline)
 
 
 def traverse_q(X, feature, threshold, left, right, root, qvals, *,

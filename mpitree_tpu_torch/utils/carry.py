@@ -4,7 +4,8 @@ A fitted decision tree's "weights" are its ``TreeArrays`` fields. The JAX
 package's tree (``mpitree_tpu.core.tree_struct.TreeArrays``) carries over
 as plain numpy: ``dataclasses.asdict(jax_clf.tree_)`` or the ``.npz`` that
 ``TreeArrays.save`` writes; a forest carries over as the list of its
-trees' arrays. Nothing here imports the JAX package.
+trees' arrays, a gradient-boosted ensemble as its trees' arrays and its
+baseline margins. Nothing here imports the JAX package.
 """
 
 from __future__ import annotations
@@ -80,3 +81,42 @@ def forest_from_reference(trees) -> list:
     if not out:
         raise ValueError("reference forest has no trees")
     return out
+
+
+def boosting_from_reference(trees, baseline_raw, *, n_features: int,
+                            classes=None, params: dict | None = None):
+    """A fitted gradient-boosted ensemble from the JAX package's: its
+    trees in round-major, class-minor order (each as
+    :func:`tree_from_reference` takes it, with ``value`` float32 and
+    ``count`` the (n, 1) float64 Newton values), its ``_baseline_raw``
+    (K,) float64, its ``classes_`` (None for a regressor) and its
+    ``n_features_in_``; ``params`` go to the constructor (the JAX
+    estimator's ``get_params()``, plus ``device``). Returns the port's
+    ``GradientBoostingClassifier`` or ``GradientBoostingRegressor``, which
+    then predicts and serves the same numbers. Raises ``ValueError`` when
+    the trees are not whole rounds of ``len(baseline_raw)`` trees."""
+    from mpitree_tpu_torch.boosting.gradient_boosting import (
+        GradientBoostingClassifier,
+        GradientBoostingRegressor,
+    )
+    from mpitree_tpu_torch.serving.tables import TreeList
+
+    base = np.ascontiguousarray(baseline_raw, dtype=np.float64).reshape(-1)
+    K = base.shape[0]
+    out = [tree_from_reference(a, task="regression") for a in trees]
+    if not out or K < 1 or len(out) % K:
+        raise ValueError(
+            f"{len(out)} reference trees are not whole rounds of {K}")
+    cls = (GradientBoostingRegressor if classes is None
+           else GradientBoostingClassifier)
+    est = cls(**(params or {}))
+    est.trees_ = TreeList(out)
+    est._baseline_raw = base
+    est.n_trees_per_iteration_ = K
+    est.n_iter_ = len(out) // K
+    est.n_features_ = est.n_features_in_ = int(n_features)
+    est.n_outputs_ = 1
+    if classes is not None:
+        est.classes_ = np.asarray(classes)
+        est.n_classes_ = len(est.classes_)
+    return est

@@ -1,11 +1,13 @@
-"""Model files: a fitted tree or forest in one ``.npz``, in the JAX
-package's format.
+"""Model files: a fitted tree, forest or boosted ensemble in one ``.npz``,
+in the JAX package's format.
 
 Counterpart of ``mpitree_tpu/utils/serialize.py``, writing and reading the
 same file: a JSON ``__header__`` (``"format": "mpitree_tpu-model"``,
 ``"version": 1``, the class name, the constructor parameters, the scalar
 fitted attributes of ``_SCALAR_ATTRS`` and ``n_trees``), the arrays
-``tree{i}/<field>`` of every ``TreeArrays`` field, and ``classes_``. A file
+``tree{i}/<field>`` of every ``TreeArrays`` field, ``classes_`` and, for a
+gradient-boosted ensemble, its baseline margins ``_baseline_raw``
+(``:121-122``). A file
 that either package writes loads in the other and predicts the same. No
 pickle: arrays come from ``np.load(..., allow_pickle=False)`` and the
 header is JSON.
@@ -21,9 +23,8 @@ Two differences, both about parameters:
   ``checkpoint``) are kept as they are: the loaded trees predict and
   serve, and ``fit`` refuses them, naming their ``ROADMAP.md`` items.
 
-Files of the JAX package's gradient-boosted models and of
-``ParallelDecisionTreeClassifier`` raise ``NotImplementedError`` naming
-the items that port them.
+Files of the JAX package's ``ParallelDecisionTreeClassifier`` raise
+``NotImplementedError`` naming the items that port it.
 """
 
 from __future__ import annotations
@@ -48,10 +49,12 @@ _PORTED = (
     "RandomForestRegressor",
     "ExtraTreesClassifier",
     "ExtraTreesRegressor",
+    "GradientBoostingClassifier",
+    "GradientBoostingRegressor",
 )
+# Classes whose fitted trees live in ``trees_`` (``:41``).
+_ENSEMBLE_PREFIXES = ("RandomForest", "ExtraTrees", "GradientBoosting")
 _LATER = {
-    "GradientBoostingClassifier": "Queue 1 item 12 (boosting)",
-    "GradientBoostingRegressor": "Queue 1 item 12 (boosting)",
     "ParallelDecisionTreeClassifier":
         "A5 (ParallelDecisionTreeClassifier, with multi-GPU item 14)",
 }
@@ -100,8 +103,9 @@ def _classes() -> dict:
 
 
 def save_model(estimator, path) -> None:
-    """Write a fitted tree or forest to ``path`` (``.npz`` appended when
-    missing) in the JAX package's format, without its ``device``."""
+    """Write a fitted tree, forest or boosted ensemble to ``path``
+    (``.npz`` appended when missing) in the JAX package's format, without
+    its ``device``."""
     name = type(estimator).__name__
     if name not in _PORTED:
         raise ValueError(f"cannot serialize {name!r}")
@@ -118,6 +122,8 @@ def save_model(estimator, path) -> None:
     arrays: dict = {}
     if hasattr(estimator, "classes_"):
         arrays["classes_"] = np.asarray(estimator.classes_)
+    if hasattr(estimator, "_baseline_raw"):  # boosting: (K,) float64
+        arrays["_baseline_raw"] = np.asarray(estimator._baseline_raw)
     if hasattr(estimator, "trees_"):
         trees = list(estimator.trees_)
     elif hasattr(estimator, "tree_"):
@@ -135,8 +141,9 @@ def save_model(estimator, path) -> None:
 def load_model(path, *, device=None):
     """The fitted estimator a model file holds, from either package, with
     ``device`` (``None`` = ``"cuda"``, as the estimators take it) for its
-    predict and serving. Trees keep the file's arrays and dtypes; a
-    forest's trees come as the ``TreeList`` a fit leaves in ``trees_``."""
+    predict and serving. Trees keep the file's arrays and dtypes; an
+    ensemble's trees come as the ``TreeList`` a fit leaves in
+    ``trees_``."""
     from mpitree_tpu_torch.serving.tables import TreeList
 
     with np.load(_npz_path(path), allow_pickle=False) as z:
@@ -174,12 +181,14 @@ def load_model(path, *, device=None):
                                                dtype=object)
         if "classes_" in z.files:
             est.classes_ = z["classes_"]
+        if "_baseline_raw" in z.files:
+            est._baseline_raw = z["_baseline_raw"]
         trees = [
             TreeArrays(**{k: z[f"tree{i}/{k}"] for k in _TREE_FIELDS
                           if f"tree{i}/{k}" in z.files})
             for i in range(header["n_trees"])
         ]
-    if hasattr(cls, "_fit_forest"):
+    if name.startswith(_ENSEMBLE_PREFIXES):
         est.trees_ = TreeList(trees)
     else:
         est.tree_ = trees[0]

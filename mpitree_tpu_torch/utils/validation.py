@@ -58,13 +58,24 @@ def validate_fit_data(X, y, *, task: str = "classification"):
     y = np.asarray(y)
     if y.ndim == 2 and y.shape[1] == 1:
         y = y[:, 0]
-    if y.ndim != 1:
-        raise ValueError(f"y must be 1-D, got shape {y.shape}")
-    if y.shape[0] != X.shape[0]:
+    if y.ndim == 1 and y.shape[0] != X.shape[0]:
         raise ValueError(
             "Found input variables with inconsistent numbers of samples: "
             f"[{X.shape[0]}, {y.shape[0]}]"
         )
+    y_enc, classes = validate_fit_targets(y, task=task)
+    return X, y_enc, classes
+
+
+def validate_fit_targets(y, *, task: str = "classification"):
+    """(y_encoded, classes_ or None), the target half of
+    :func:`validate_fit_data` (``validate_fit_targets``,
+    ``mpitree_tpu/utils/validation.py:52``): 1-D discrete labels encoded
+    against their sorted classes, or finite float64 regression targets.
+    Callers that need two classes (boosting) check ``len(classes_)``."""
+    y = np.asarray(y)
+    if y.ndim != 1:
+        raise ValueError(f"y must be 1-D, got shape {y.shape}")
     if task == "regression":
         # float64 on the host: the estimator centres in float64 and casts
         # to float32 only for the moments; leaves are refit in float64
@@ -75,7 +86,7 @@ def validate_fit_data(X, y, *, task: str = "classification"):
                 from e
         if not np.isfinite(y64).all():
             raise ValueError("regression targets must be finite")
-        return X, y64, None
+        return y64, None
     if y.dtype.kind == "f":
         if not np.isfinite(y).all():
             raise ValueError("Input y contains NaN or infinity.")
@@ -85,7 +96,27 @@ def validate_fit_data(X, y, *, task: str = "classification"):
                 "must be discrete"
             )
     classes, y_enc = np.unique(y, return_inverse=True)
-    return X, y_enc.astype(np.int32), classes
+    return y_enc.astype(np.int32), classes
+
+
+def validate_max_leaf_nodes(est):
+    """An estimator's ``max_leaf_nodes`` -> an int budget or None
+    (``mpitree_tpu/utils/validation.py:327``): sklearn's grammar (None or
+    an int > 1); ``backend="host"`` cannot grow best-first and raises."""
+    mln = getattr(est, "max_leaf_nodes", None)
+    if mln is None:
+        return None
+    mln = int(mln)
+    if mln < 2:
+        raise ValueError(
+            f"max_leaf_nodes {mln} must be either None or larger than 1"
+        )
+    if getattr(est, "backend", None) == "host":
+        raise ValueError(
+            "max_leaf_nodes requires a device engine (the host tier grows "
+            "level-wise only); drop backend='host'"
+        )
+    return mln
 
 
 def validate_sample_weight(sample_weight, n_samples: int):

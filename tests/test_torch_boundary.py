@@ -44,3 +44,9 @@ def test_public_import_pulls_no_jax_jax_package_or_sklearn():
 
 def test_every_port_module_imports_without_them():
     assert _probe(_EVERY_MODULE) == ""
+
+
+def test_boosting_import_pulls_none_of_them():
+    assert _probe("from mpitree_tpu_torch import ("
+                  "GradientBoostingClassifier, GradientBoostingRegressor)"
+                  ) == ""

@@ -656,3 +656,103 @@ def test_constrained_fits_and_forest_serving_on_the_card(cuda):
         np.testing.assert_array_equal(cm.raw(X[:n]),
                                       forest.predict_proba(X[:n]))
     assert serve_kernel.launches["traverse"] > before
+
+
+@pytest.mark.parametrize("S", [1, 64])
+def test_newton_split_step_on_the_card_equals_cpu(cuda, S):
+    """``collective.split_step(task="gbdt")``: the fixed-point histogram of
+    a ``(count, g, h)`` payload with subsampled-out rows (``h == 0``) and
+    the Newton sweep on the card equal the CPU's plain path bit for bit,
+    every field: the sums are exact int64 and the sweep's float32 formula
+    has no transcendental."""
+    from mpitree_tpu_torch.ops.histogram import gbdt_payload
+    from mpitree_tpu_torch.parallel import collective
+
+    rng = np.random.default_rng(S + 3)
+    N, F, B = 20_000, 6, 64
+    xb = rng.integers(0, B, size=(N, F)).astype(np.int32)
+    nid = rng.integers(-1, S, size=N).astype(np.int32)
+    g = rng.normal(size=N).astype(np.float32)
+    h = rng.uniform(0.01, 0.25, size=N).astype(np.float32)
+    h[rng.random(N) < 0.2] = 0.0
+    cand = rng.random((F, B)) < 0.95
+
+    def run(dev):
+        t = {k: torch.from_numpy(v).to(dev) for k, v in dict(
+            xb=xb, nid=nid, g=g, h=h, cand=cand).items()}
+        payload = gbdt_payload(t["g"], t["h"]).contiguous()
+        se = hist_kernel.fixed_point_exponents(payload)
+        order = seg = None
+        if S > hist_kernel.STREAM_MAX_SLOTS:
+            order, seg = hist_kernel.slot_segments(t["nid"], S)
+        return collective.split_step(
+            t["xb"], payload, t["nid"], t["cand"], 0, n_slots=S, n_bins=B,
+            criterion="entropy", min_child_weight=0.5,
+            packed=(hist_kernel.pack_bins(t["xb"], B) if dev.type == "cuda"
+                    else None),
+            order=order, seg_start=seg, scale_exp=se, task="gbdt",
+            reg_lambda=0.7, min_leaf_rows=20.0).cpu()
+
+    before = dict(hist_kernel.launches)
+    got = run(cuda)
+    assert hist_kernel.launches != before
+    want = run(torch.device("cpu"))
+    assert got.dtype == want.dtype == torch.float64
+    assert torch.equal(got, want)
+
+
+def test_boosted_fits_and_margins_on_the_card(cuda):
+    """Boosted ensembles on the card (multiclass with row and column
+    subsampling, and a regressor) equal the CPU's tree for tree and margin
+    for margin, through the fixed-point routes only; compiled, their
+    margins through K4 ``percls`` equal ``decision_function`` /
+    ``predict`` bit for bit, and K5's equal its plain version."""
+    from mpitree_tpu_torch.serving import compile_model, serve_kernel
+    from mpitree_tpu_torch.tree import (
+        GradientBoostingClassifier,
+        GradientBoostingRegressor,
+    )
+    from mpitree_tpu_torch.utils.datasets import california_like, covtype_like
+
+    X, y = covtype_like(20_000, seed=4)
+    Xr, yr = california_like(20_000, seed=4)
+    kw = dict(max_iter=4, max_depth=5, subsample=0.8, colsample_bytree=0.5,
+              random_state=0)
+    fields = ("feature", "threshold", "left", "right", "count", "value",
+              "n_node_samples", "impurity")
+    for cls, (Xd, yd) in ((GradientBoostingClassifier, (X, y)),
+                          (GradientBoostingRegressor, (Xr, yr))):
+        before = dict(hist_kernel.launches)
+        gpu = cls(**kw, device="cuda").fit(Xd, yd)
+        ran = {k: v - before[k] for k, v in hist_kernel.launches.items()}
+        assert ran["stream_fixed"] and ran["sorted_fixed"], ran
+        assert not (ran["stream"] or ran["sorted"]), ran
+        cpu = cls(**kw, device="cpu").fit(Xd, yd)
+        assert len(gpu.trees_) == len(cpu.trees_)
+        for a, b in zip(gpu.trees_, cpu.trees_):
+            for k in fields:
+                np.testing.assert_array_equal(getattr(a, k), getattr(b, k),
+                                              err_msg=k)
+        margins = (gpu.decision_function if hasattr(gpu, "decision_function")
+                   else gpu.predict)
+        np.testing.assert_array_equal(margins(Xd), (
+            cpu.decision_function if hasattr(cpu, "decision_function")
+            else cpu.predict)(Xd))
+        cm = compile_model(gpu)
+        assert cm.kind == "margin" and cm.dispatch == "kernel traverse"
+        served = cm.decision_function if hasattr(gpu, "decision_function") \
+            else cm.predict
+        before = dict(serve_kernel.launches)
+        for n in (1, 64, 4_096):
+            np.testing.assert_array_equal(served(Xd[:n]), margins(Xd[:n]))
+        assert serve_kernel.launches["traverse"] > before["traverse"]
+        cm8 = compile_model(gpu, quantize="int8", quantize_tol=1.0)
+        q = cm8._quant
+        Xq = torch.from_numpy(Xd[:4_096]).to(cuda)
+        cols = (q.feature, q.threshold, q.left, q.right, q.root)
+        args = dict(n_steps=cm8.table.n_steps, agg="percls",
+                    n_out=cm8.n_out)
+        assert torch.equal(
+            serve_kernel.traverse_q(Xq, *cols, q.qvals, record=q.record,
+                                    n_features=Xd.shape[1], **args),
+            serve_kernel.traverse_q_reference(Xq, *cols, q.qvals, **args))

@@ -5,8 +5,9 @@ A file that ``mpitree_tpu.save_model`` writes loads with
 ``mpitree_tpu_torch.load_model`` and predicts bit for bit as the JAX
 estimator, and a file the port writes loads in the JAX package and
 predicts bit for bit as the port's estimator, for the six tree and forest
-classes; a loaded forest compiles and serves. Gradient-boosted and
-``ParallelDecisionTreeClassifier`` files are refused, naming their items.
+classes; a loaded forest compiles and serves. ``ParallelDecisionTreeClassifier``
+files are refused, naming their item (gradient-boosted files cross both
+ways: ``tests/test_torch_boosting_serve.py``).
 The JAX fits run its host tier (``backend="host"``) on 300 rows, so no
 XLA program is compiled for them.
 """
@@ -164,8 +165,6 @@ def _retagged(tmp_path, data, cls_name, params=None):
 
 
 @pytest.mark.parametrize("cls_name,item", [
-    ("GradientBoostingClassifier", "item 12"),
-    ("GradientBoostingRegressor", "item 12"),
     ("ParallelDecisionTreeClassifier", "A5"),
 ])
 def test_later_estimator_files_are_refused(tmp_path, data, cls_name, item):
