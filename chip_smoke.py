@@ -11,9 +11,11 @@ toolkit (``nvcc``)::
 
 Phases, in order; any failure raises and exits non-zero. Phases 3–7 run
 the device engine alone (``refine_depth=None``), as they did before the
-refine tail was ported, so their numbers compare with earlier runs;
-phases 8–11 run the default fit, whose crown is built on the card and whose
-deep tail the native C++ sweep finishes on the host's cores:
+refine tail was ported; phases 8–11 run the default fit, whose crown is
+built on the card and whose deep tail the native C++ sweep finishes on the
+host's cores. Every phase runs the default engine, which is the fused one
+(``core/fused_builder.py``) for trees and forests and the levelwise one
+for boosting; phase 24 runs the levelwise engine beside it:
 
 1. build: compile every ``mpitree_tpu_torch/csrc/*.cu`` (``histogram.cu``,
    ``traverse.cu``) with ``nvcc`` for ``sm_90a`` into ``build/``, one
@@ -172,6 +174,22 @@ trees on the card through the fixed-point routes) and its serving:
     at 4,096 rows equal their plain versions, timed beside their bound;
     ``save_model``/``load_model`` of both, answers bit for bit.
 
+Phase 24 compares the engines:
+
+24. engines: phase 3's tree, the first 10 trees of phase 5's forest (a
+    10-tree forest draws them alike) and phase 13's regressor (device
+    engine alone) under ``MPITREE_TPU_ENGINE=levelwise``, and for the
+    tree also with ``MPITREE_TPU_HIST_SUBTRACTION=on`` in both engines,
+    twice each (the counters around the second fit; the fused tree and
+    regressor without subtraction are phases 3 and 13): every tree equal
+    to the fused one field for field; the second fit's wall and launches
+    per route; one more tree and regressor fit per engine under
+    torch.profiler for its device-to-host copies and the card's busy
+    share; the fused engine's frontier reads (at most one a level); the
+    fused builds of phases 3 and 13 with those reads and with the
+    frontier sizes given (what the reads cost). Phase 4 is the fused
+    engine's card-vs-CPU parity at 50,000 rows.
+
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the card's name and power limit, JSON lines of per-shape kernel timings
 (``kernel_shapes``, ``serve_kernel_shapes``, ``fixed_kernel_shapes``), of
@@ -179,7 +197,8 @@ the serving measurements (``serving``), of the hybrid fits (``hybrid``),
 of phases 13 and 15 (``regression``, ``weights``), of phases 16-18
 (``subspace_forests``, ``regression_forests``, ``regression_serving``),
 of phases 19-20 (``constrained``, ``persistence``), of phases 21-23
-(``boosting``) and one ``kernels`` line come before it.
+(``boosting``), of phase 24 (``engines``) and one ``kernels`` line (with
+each route's launches per engine) come before it.
 Without CUDA the script exits 1 and prints no result.
 """
 
@@ -188,6 +207,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -259,6 +279,12 @@ GRID = 256  # phase 19's points along a constrained column per anchor row
 BOOST_ROUNDS = 100
 BOOST_PARITY = dict(max_iter=10, max_depth=6, subsample=0.8,
                     colsample_bytree=0.5, random_state=0)
+# Phase 24's runs: (MPITREE_TPU_ENGINE, MPITREE_TPU_HIST_SUBTRACTION), and
+# its forest: phase 5's first 10 trees (cut from 50 to keep the script
+# within about 300 s; the first trees draw alike in any forest size)
+ENGINE_RUNS = (("fused", "off"), ("fused", "on"), ("levelwise", "off"),
+               ("levelwise", "on"))
+ENGINE_TREES = 10
 BOOST_FIELDS = ("feature", "threshold", "left", "right", "count", "value",
                 "n_node_samples", "impurity")
 
@@ -553,8 +579,8 @@ def phase_fit(X, y, Xh, yh, depth: int):
         f"{test_acc:.6f} ({len(Xh)} rows, predict {predict_s:.3f} s); "
         f"n_nodes {clf.tree_.n_nodes}, depth {clf.get_depth()}, leaves "
         f"{clf.get_n_leaves()}; peak device memory {peak_gib:.3f} GiB; "
-        f"launches {launches}")
-    return launches, second, test_acc
+        f"launches {launches}; engine {clf.fit_stats_['engine']}")
+    return launches, second, test_acc, clf.tree_
 
 
 def phase_hybrid(X, y, Xh, yh, depth: int, device_acc: float) -> dict:
@@ -732,8 +758,8 @@ def phase_forest(X, y, Xh, yh):
         f"{depth}: first {first:.3f} s, second {second:.3f} s; nodes total "
         f"{int(nodes.sum())}, mean {float(nodes.mean())}; held-out acc "
         f"{test_acc:.6f} ({len(Xh)} rows, predict_proba {predict_s:.3f} s); "
-        f"launches {launches}")
-    return forest, launches, test_acc
+        f"launches {launches}; {forest.fit_stats_['ensemble_path']}")
+    return forest, launches, test_acc, second
 
 
 def phase_default_forest(X, y, Xh, yh, device_acc: float) -> dict:
@@ -1176,6 +1202,7 @@ def phase_regression(Xc, yc, Xch, ych) -> dict:
     from mpitree_tpu_torch.tree import DecisionTreeRegressor
 
     out = {}
+    trees = {}
     for mode, kw in (("device", DEVICE_ONLY), ("default", {})):
         reg = DecisionTreeRegressor(max_depth=DEPTH, max_bins=256, **kw)
         first = []
@@ -1191,7 +1218,7 @@ def phase_regression(Xc, yc, Xch, ych) -> dict:
         r2, train_r2 = _r2(ych, pred), reg.score(Xc, yc)
         st = dict(reg.fit_stats_)
         tree = reg.tree_
-        if not (st["engine"] == "device" and np.isfinite(pred).all()
+        if not (st["engine"] == "fused" and np.isfinite(pred).all()
                 and pred.shape == ych.shape
                 and tree.n_node_samples[0] == len(Xc)
                 and 0 < reg.get_depth() <= DEPTH and r2 > 0.5
@@ -1201,6 +1228,8 @@ def phase_regression(Xc, yc, Xch, ych) -> dict:
         if mode == "default" and not (st.get("crown_depth") == HYBRID_CROWN
                                       and st["refine_nodes_added"] > 0):
             raise AssertionError(f"regression tail did not engage: {st}")
+        if mode == "device":
+            trees["regressor"] = tree
         out[mode] = dict(first_s=f1, second_s=f2, heldout_r2=r2,
                          train_r2=train_r2, n_nodes=tree.n_nodes,
                          depth=reg.get_depth(), leaves=reg.get_n_leaves(),
@@ -1214,7 +1243,7 @@ def phase_regression(Xc, yc, Xch, ych) -> dict:
             f"{train_r2:.6f}; n_nodes {tree.n_nodes}, depth "
             f"{reg.get_depth()}; peak device memory {peak:.3f} GiB; "
             f"launches {launches}")
-    return out
+    return out, trees["regressor"]
 
 
 def phase_regression_parity() -> None:
@@ -1261,7 +1290,7 @@ def phase_weights(X, y, Xh, yh, device_acc: float) -> dict:
                                         routes=hist_kernel.FIXED_ROUTES)
     if not _same_fields(first[0], clf.tree_, PARITY_FIELDS + ("impurity",)):
         raise AssertionError("weighted fit: two fits differ")
-    if clf.fit_stats_["engine"] != "device" or any(
+    if clf.fit_stats_["engine"] != "fused" or any(
             launches[k] for k in hist_kernel.ROUTES):
         raise AssertionError(f"weighted fit left the fixed-point route: "
                              f"{clf.fit_stats_}, {launches}")
@@ -1271,7 +1300,7 @@ def phase_weights(X, y, Xh, yh, device_acc: float) -> dict:
                device_only_unweighted_heldout_acc=device_acc)
     log(f"weights: {len(X)} x {X.shape[1]} depth {DEPTH}, weights uniform "
         f"on [{WEIGHT_LOW}, {WEIGHT_HIGH}): first {f1:.3f} s, second "
-        f"{f2:.3f} s; two fits identical; engine device; held-out acc "
+        f"{f2:.3f} s; two fits identical; engine fused; held-out acc "
         f"{acc:.6f} (unweighted, phase 3: {device_acc:.6f}); n_nodes "
         f"{clf.tree_.n_nodes}; peak {peak:.3f} GiB; launches {launches}")
 
@@ -1555,7 +1584,7 @@ def _constrained_parity(make, X, y, what: str, fields) -> int:
     t1 = time.perf_counter()
     cpu = make("cpu").fit(X, y)
     t2 = time.perf_counter()
-    if gpu.fit_stats_["engine"] != "device" or "crown_depth" in gpu.fit_stats_:
+    if gpu.fit_stats_["engine"] != "fused" or "crown_depth" in gpu.fit_stats_:
         raise AssertionError(f"{what}: not one device-engine build: "
                              f"{gpu.fit_stats_}")
     if hasattr(gpu, "classes_"):
@@ -1941,6 +1970,169 @@ def phase_boosting_serving(clf, reg, Xh, Xch) -> dict:
     return out
 
 
+def _set_engine(engine: str, subtraction: str) -> None:
+    """Steer the ``"auto"`` engine and subtraction of the fits that follow
+    (``core/builder.ENGINE_ENV``, ``SUBTRACTION_ENV``)."""
+    os.environ["MPITREE_TPU_ENGINE"] = engine
+    os.environ["MPITREE_TPU_HIST_SUBTRACTION"] = subtraction
+
+
+def _d2h_copies(work) -> tuple:
+    """``work()`` once under torch.profiler, tracing the card only:
+    (device-to-host copies, wall s, device busy share)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        work()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    busy = sum(e.device_time_total for e in events) / 1e6
+    return sum("DtoH" in e.name for e in events), wall, busy / wall
+
+
+def _frontier_read_cost(X, y, Xc, yc) -> dict:
+    """What the fused engine's one read a level costs: phase 3's and phase
+    13's builds (``fused_builder._grow``, binning and finalizing left out)
+    with the reads, and with the frontier sizes of an earlier build given
+    (no synchronisation in the level loop), in turns: read, given, given,
+    read. The builds must be the same tree."""
+    from mpitree_tpu_torch.core import fused_builder
+    from mpitree_tpu_torch.core.builder import BuildConfig, FitInputs
+    from mpitree_tpu_torch.ops.binning import bin_for_engine
+
+    out = {}
+    for what, Xa, ya, cfg, kw in (
+            ("tree", X, y, BuildConfig(max_depth=DEPTH), dict(n_classes=7)),
+            ("regressor", Xc, (yc - yc.mean()).astype(np.float32),
+             BuildConfig(task="regression", criterion="mse",
+                         max_depth=DEPTH), {})):
+        binned = bin_for_engine(Xa, max_bins=256, binning="auto", device=DEV)
+        fit = FitInputs(binned, ya, cfg, **kw)
+        ref = fused_builder._grow(fit, cfg, use_sub=False)
+        sizes = [s for _, s in ref.levels]
+        walls = {"read": [], "given": []}
+        for mode in ("read", "given", "given", "read"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g = fused_builder._grow(fit, cfg, use_sub=False,
+                                    sizes=sizes if mode == "given" else None)
+            torch.cuda.synchronize()
+            walls[mode].append(time.perf_counter() - t0)
+            if not (torch.equal(g.ints, ref.ints)
+                    and torch.equal(g.counts, ref.counts)):
+                raise AssertionError(f"engines: {what} build with given "
+                                     f"frontier sizes differs")
+        out[what] = dict(levels=len(sizes), **walls)
+        del binned, fit, ref, g
+        torch.cuda.empty_cache()
+    log(f"engines: fused build with its reads vs with given frontier "
+        f"sizes: {json.dumps(out)}")
+    return out
+
+
+def _trees_of(est) -> list:
+    return list(est.trees_) if hasattr(est, "trees_") else [est.tree_]
+
+
+def phase_engines(X, y, Xc, yc, fused: dict) -> dict:
+    """Phase 24: phase 3's tree, phase 5's forest (its first
+    ``ENGINE_TREES`` trees, which a forest of that size draws alike) and
+    phase 13's regressor under each engine (``MPITREE_TPU_ENGINE``) and,
+    for the tree, with sibling subtraction on and off in both
+    (``MPITREE_TPU_HIST_SUBTRACTION``), twice each; phases 3 and 13 ran the
+    fused tree and regressor without subtraction (``fused``: their walls,
+    launches and trees). Every tree must equal the fused one field for
+    field. One more fit of the tree and the regressor per engine under
+    torch.profiler counts its device-to-host copies; the fused engine's
+    frontier reads are counted by the engine (at most one a level). Then
+    the cost of those reads (:func:`_frontier_read_cost`)."""
+    from mpitree_tpu_torch.core import fused_builder
+    from mpitree_tpu_torch.ops import hist_kernel
+    from mpitree_tpu_torch.tree import (
+        DecisionTreeClassifier,
+        DecisionTreeRegressor,
+        RandomForestClassifier,
+    )
+
+    t0 = time.perf_counter()
+    Xf, yf = X[:FOREST_ROWS], y[:FOREST_ROWS]
+    forest_kw = dict(FOREST, n_estimators=ENGINE_TREES, **DEVICE_ONLY)
+    work = {
+        "tree": (lambda: DecisionTreeClassifier(
+            criterion="entropy", max_depth=DEPTH, max_bins=256,
+            **DEVICE_ONLY), X, y, ENGINE_RUNS[1:], hist_kernel.ROUTES),
+        "forest": (lambda: RandomForestClassifier(**forest_kw), Xf, yf,
+                   ENGINE_RUNS[::2], hist_kernel.ROUTES),
+        "regressor": (lambda: DecisionTreeRegressor(
+            max_depth=DEPTH, max_bins=256, **DEVICE_ONLY), Xc, yc,
+            ENGINE_RUNS[2:3], hist_kernel.FIXED_ROUTES),
+    }
+    out, seconds = {}, {}
+    try:
+        for what, (make, Xa, ya, runs, routes) in work.items():
+            t1 = time.perf_counter()
+            ref = fused[what]
+            want = ref["trees"][:ENGINE_TREES]
+            res = {} if what == "forest" else {"fused/off": dict(
+                second_s=ref["second_s"], launches=ref["launches"],
+                source="phases 3, 13")}
+            for engine, sub in runs:
+                _set_engine(engine, sub)
+                est = make()
+                reads0 = fused_builder.frontier_reads
+                f1, f2, launches, _ = _fit_twice(est, Xa, ya, routes=routes)
+                got = _trees_of(est)
+                if len(got) != len(want) or not all(
+                        _same_fields(a, b, PARITY_FIELDS + (
+                            "parent", "depth", "value", "impurity"))
+                        for a, b in zip(got, want)):
+                    raise AssertionError(
+                        f"engines: {what} {engine}/{sub} differs from the "
+                        f"fused build")
+                res[f"{engine}/{sub}"] = dict(
+                    first_s=f1, second_s=f2, launches=launches,
+                    frontier_reads=(fused_builder.frontier_reads
+                                    - reads0) // 2,
+                    engine=est.fit_stats_["engine"])
+            levels = sum(int(t.depth.max()) + 1 for t in want)
+            if what != "forest":
+                for engine in ("fused", "levelwise"):
+                    _set_engine(engine, "off")
+                    reads0 = fused_builder.frontier_reads
+                    copies, wall, busy = _d2h_copies(
+                        lambda: make().fit(Xa, ya))
+                    res[f"{engine}/off"].update(
+                        profiled_d2h_copies=copies, profiled_wall_s=wall,
+                        profiled_busy_share=busy,
+                        frontier_reads=fused_builder.frontier_reads - reads0)
+            for key, r in res.items():
+                if key.startswith("fused") and r["frontier_reads"] > levels:
+                    raise AssertionError(
+                        f"engines: {what} {key} read the frontier size "
+                        f"{r['frontier_reads']} times in {levels} levels")
+            res["levels"] = levels
+            res["nodes"] = int(sum(t.n_nodes for t in want))
+            out[what] = res
+            seconds[what] = time.perf_counter() - t1
+            log(f"engines: {what}: identical trees in every run; "
+                + json.dumps(res))
+        t1 = time.perf_counter()
+        out["frontier_read_cost"] = _frontier_read_cost(X, y, Xc, yc)
+        seconds["frontier_read_cost"] = time.perf_counter() - t1
+    finally:
+        _set_engine("auto", "auto")
+    sub_gain = {k: out["tree"][f"{k}/off"]["second_s"]
+                / out["tree"][f"{k}/on"]["second_s"]
+                for k in ("levelwise", "fused")}
+    out["tree_subtraction_speedup"] = sub_gain
+    out["seconds"] = dict(seconds, total=time.perf_counter() - t0)
+    log(f"engines: tree wall off/on {sub_gain} (>1: subtraction faster); "
+        f"phase seconds {json.dumps(out['seconds'])}")
+    return out
+
+
 def phase_profile(name: str, work, out_dir: Path) -> None:
     """Run ``work()`` once more under torch.profiler: device time by kernel
     and the device's busy share of the wall-clock; the table goes to
@@ -2043,6 +2235,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    clock = {}
+
+    def mark(phase: str) -> None:
+        """Seconds since the start when ``phase`` ended."""
+        clock[phase] = round(time.perf_counter() - t_start, 3)
+
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     log(f"card: {kind} | torch {torch.__version__} cuda "
@@ -2050,6 +2248,7 @@ def main() -> int:
 
     phase_build()
 
+    mark("1 build")
     X, y = covtype_like(ROWS, seed=0)
     Xh, yh = covtype_like(50_000, seed=1)
     dev = torch.device("cuda")
@@ -2066,19 +2265,31 @@ def main() -> int:
     del binned, y_d
     torch.cuda.empty_cache()
 
-    launches, _, fit_acc = phase_fit(X, y, Xh, yh, DEPTH)
+    mark("2 kernels")
+    launches, fit_s, fit_acc, fit_tree = phase_fit(X, y, Xh, yh, DEPTH)
+    mark("3 fit")
     phase_parity()
-    forest, forest_launches, forest_acc = phase_forest(X, y, Xh, yh)
+    mark("4 parity")
+    forest, forest_launches, forest_acc, forest_s = phase_forest(
+        X, y, Xh, yh)
+    mark("5 forest")
     phase_forest_parity()
+    mark("5 forest parity")
     Xbig, _ = covtype_like(SERVE_SHAPES[-1], seed=3)
     serve_shapes = phase_serve_kernels(forest, Xbig)
+    mark("6 serve kernels")
     serving, serve_launches = phase_serve(forest, Xh, Xbig)
+    mark("7 serve")
     del Xbig
     hybrid = {"fit": phase_hybrid(X, y, Xh, yh, DEPTH, fit_acc)}
+    mark("8 hybrid")
     phase_parity(DEPTH, hybrid=True)
+    mark("9 hybrid parity")
     hybrid["forest"] = phase_default_forest(X, y, Xh, yh, forest_acc)
+    mark("10 default forest")
     phase_forest_parity(hybrid=True)
 
+    mark("11 hybrid forest parity")
     Xc, yc = california_like(CAL_ROWS, seed=0)
     Xch, ych = california_like(50_000, seed=1)
     t0 = time.perf_counter()
@@ -2094,23 +2305,44 @@ def main() -> int:
         cov_binned, torch.from_numpy(y).to(dev), cal_binned, y_cal)
     del cov_binned, cal_binned, y_cal
     torch.cuda.empty_cache()
-    regression = phase_regression(Xc, yc, Xch, ych)
+    mark("12 fixed kernels")
+    regression, reg_tree = phase_regression(Xc, yc, Xch, ych)
+    mark("13 regression")
     phase_regression_parity()
+    mark("14 regression parity")
     weighted = phase_weights(X, y, Xh, yh, fit_acc)
+    mark("15 weights")
     subspace = phase_subspace_forests(X, y, Xh, yh, forest_acc)
+    mark("16 subspace forests")
     reg_forests, reg_forest = phase_regression_forests(Xc, yc, Xch, ych)
+    mark("17 regression forests")
     reg_serving = phase_serve_regression(reg_forest, Xch)
+    mark("18 serve regression")
     del reg_forest
     constrained, mono_clf, mono_forest = phase_constrained(
         X, y, Xh, yh, Xc, yc, Xch, ych, regression["device"]["heldout_r2"])
+    mark("19 constrained")
     persistence = phase_persistence(forest, mono_clf, Xh)
+    mark("20 persistence")
     del mono_clf, mono_forest
     boost_clf, boost_reg, boosting = phase_boosting(
         X, y, Xh, yh, Xc, yc, Xch, ych)
+    mark("21 boosting")
     boosting["parity"] = phase_boosting_parity()
+    mark("22 boosting parity")
     boosting["serving"] = phase_boosting_serving(boost_clf, boost_reg, Xh,
                                                  Xch)
+    mark("23 boosted serving")
     del boost_clf, boost_reg
+    engines = phase_engines(X, y, Xc, yc, {
+        "tree": dict(second_s=fit_s, launches=launches, trees=[fit_tree]),
+        "forest": dict(second_s=forest_s, launches=forest_launches,
+                       trees=list(forest.trees_)),
+        "regressor": dict(second_s=regression["device"]["second_s"],
+                          launches=regression["device"]["launches"],
+                          trees=[reg_tree]),
+    })
+    mark("24 engines")
     if args.profile:
         profile_all(X, y, forest, Xh, args.profile)
 
@@ -2134,6 +2366,11 @@ def main() -> int:
                 route],
             constrained_forest_launches=constrained["forest"]["launches"][
                 route],
+            engine_launches={
+                what: {k: v["launches"][route] for k, v in r.items()
+                       if isinstance(v, dict) and "launches" in v}
+                for what, r in engines.items() if what != "regressor"
+                and isinstance(r, dict) and "levels" in r},
         ))
     for form, (agg, chan) in SERVE_LINE.items():
         row = next(r for r in serve_shapes if r["kernel"] == form
@@ -2183,6 +2420,9 @@ def main() -> int:
                 key],
             boosted_regressor_launches=boosting["regressor"]["launches"][
                 key],
+            engine_launches={k: v["launches"][key] for k, v in
+                             engines["regressor"].items()
+                             if isinstance(v, dict) and "launches" in v},
         ))
     for form in SERVE_LINE:
         for what in ("classifier", "regressor"):
@@ -2217,6 +2457,8 @@ def main() -> int:
     log(json.dumps({"constrained": constrained}))
     log(json.dumps({"persistence": persistence}))
     log(json.dumps({"boosting": boosting}))
+    log(json.dumps({"engines": engines}))
+    log(json.dumps({"phase_end_s": clock}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

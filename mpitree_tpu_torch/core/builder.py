@@ -1,15 +1,19 @@
 """Breadth-first, level-synchronous tree construction on one device.
 
-Counterpart of the levelwise engine of ``mpitree_tpu/core/builder.py``
-(``build_tree``, ``:703``; its loop from ``:980``). Each level of the tree
-is grown with a few device steps and one host round trip:
+Counterpart of ``mpitree_tpu/core/builder.py`` (``build_tree``, ``:703``).
+:func:`build_tree` runs one of two engines (:func:`resolve_engine`,
+``:808-990`` without the advisor and the leaf-wise reroute): the fused
+engine (``core/fused_builder.py``), which keeps the tree on the device,
+or the levelwise engine below (its loop from ``:980``), which grows each
+level with a few device steps and one host round trip:
 
-1. the rows are ordered by node once (``hist_kernel.slot_segments``), and
-   for every frontier chunk :func:`collective.split_step` builds the
+1. the rows are ordered by node once (:class:`FrontierHistograms`), and
+   for every frontier chunk :func:`collective.split_hist` builds the
    ``(S, F, C, B)`` histogram (the Hopper kernel family on CUDA, which
    reads each chunk's rows through that order and the fit's byte-wide copy
-   of the bins) and picks the best split per node; the packed decisions of
-   all chunks come to the host in one copy;
+   of the bins) and :func:`collective.split_sweep` picks the best split
+   per node; the packed decisions of all chunks come to the host in one
+   copy;
 2. the host applies the stopping rules to the O(frontier) decision vectors
    and appends node records (struct-of-arrays, contiguous ids per level,
    which is what makes ``slot = node_id - chunk_lo`` work);
@@ -51,15 +55,23 @@ as in the JAX levelwise engine (``:1028-1036``); each chunk's bound
 windows go to the card with the chunk, and the winners' child values come
 back in the decision buffer to bound the children (``:1551-1554``).
 
-Not in this engine (see ``ROADMAP.md``): sibling subtraction, the fused
-single-program engine (and with it the fused boosting rounds), the
-resilience snapshot and the observability layer.
+Sibling subtraction (``hist_subtraction``, :func:`resolve_hist_subtraction`)
+serves both engines through :class:`FrontierHistograms`: a level keeps its
+histograms (one buffer per chunk, while they fit ``hist_budget_bytes``,
+``:1185-1264``) and the next accumulates only the smaller child of each
+pair, rebuilding the larger as ``parent - small`` (``:1636-1655``). Both
+histogram routes subtract exactly, so it never changes a tree.
+
+Not here (see ``ROADMAP.md``): the fused boosting rounds, the leaf-wise
+engines, the resilience snapshot and the observability layer.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -73,6 +85,8 @@ from mpitree_tpu_torch.ops.histogram import (
     gbdt_payload,
     moment_payload,
     payload_scale,
+    sibling_accumulate_slots,
+    sibling_reconstruct,
 )
 from mpitree_tpu_torch.parallel import collective
 from mpitree_tpu_torch.utils.importances import (
@@ -82,6 +96,25 @@ from mpitree_tpu_torch.utils.importances import (
 from mpitree_tpu_torch.utils.monotonic import BoundsStore
 
 TASKS = ("classification", "regression", "gbdt")
+
+
+HIST_BUDGET_BYTES = 4 << 30  # device memory for one histogram chunk
+MAX_FRONTIER_CHUNK = 4096
+MAX_TABLE_SLOTS = 1 << 17  # width of per-level update/counts tables
+# Histogram widths narrower than the chunk: a frontier that fits tier S
+# runs an S-slot histogram and sweep instead of the K-slot one. Tier 1 is
+# the root, the one width the histogram's unsorted route serves
+# (ops/hist_kernel.py).
+FRONTIER_TIERS = (1, 8, 64, 128, 512)
+ENGINES = ("auto", "fused", "levelwise")
+SUBTRACTION_FLAGS = ("auto", "on", "off")
+# Environment knobs that steer the "auto" settings only, read at call time
+# (mpitree_tpu/config/knobs.py:68-87).
+ENGINE_ENV = "MPITREE_TPU_ENGINE"
+SUBTRACTION_ENV = "MPITREE_TPU_HIST_SUBTRACTION"
+# What hist_subtraction="auto" resolves to, per device type: on only where
+# chip_smoke.py phase 24 measured subtraction faster end to end (PERF.md).
+SUBTRACTION_AUTO = {"cuda": False, "cpu": False}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,16 +139,21 @@ class BuildConfig:
     # sklearn's min_impurity_decrease pre-scaled by the total fit weight:
     # a split stops when n_t * (imp_t - cost_t) < this value.
     min_decrease_scaled: float = 0.0
-
-
-HIST_BUDGET_BYTES = 4 << 30  # device memory for one histogram chunk
-MAX_FRONTIER_CHUNK = 4096
-MAX_TABLE_SLOTS = 1 << 17  # width of per-level update/counts tables
-# Histogram widths narrower than the chunk: a frontier that fits tier S
-# runs an S-slot histogram and sweep instead of the K-slot one. Tier 1 is
-# the root, the one width the histogram's unsorted route serves
-# (ops/hist_kernel.py).
-FRONTIER_TIERS = (1, 8, 64, 128, 512)
+    # Device memory for one histogram chunk (the subtraction carry keeps a
+    # level's histograms while they fit it too), the chunk's slot cap, and
+    # the width of the per-level reroute and terminal-count tables.
+    hist_budget_bytes: int = HIST_BUDGET_BYTES
+    max_frontier_chunk: int = MAX_FRONTIER_CHUNK
+    max_table_slots: int = MAX_TABLE_SLOTS
+    frontier_tiers: tuple = FRONTIER_TIERS
+    # "fused" keeps the tree on the device and reads one frontier size a
+    # level (core/fused_builder.py); "levelwise" decides each level on the
+    # host; "auto" is fused, but levelwise for gbdt. MPITREE_TPU_ENGINE
+    # steers "auto".
+    engine: str = "auto"
+    # Sibling subtraction in both engines: "on", "off", or "auto"
+    # (SUBTRACTION_AUTO; MPITREE_TPU_HIST_SUBTRACTION steers it).
+    hist_subtraction: str = "auto"
 
 
 def chunk_bytes_per_slot(n_feat: int, n_bins: int, n_chan: int,
@@ -139,8 +177,8 @@ def _chunk_size(n_samples: int, n_feat: int, n_bins: int, n_chan: int,
     build: bounded by the histogram budget, the widest possible frontier
     (``2**max_depth``, or ``n_samples`` when unbounded) and a hard cap."""
     per_node = chunk_bytes_per_slot(n_feat, n_bins, n_chan, cell_bytes)
-    cap = max(1, HIST_BUDGET_BYTES // max(per_node, 1))
-    cap = min(cap, MAX_FRONTIER_CHUNK)
+    cap = max(1, cfg.hist_budget_bytes // max(per_node, 1))
+    cap = min(cap, cfg.max_frontier_chunk)
     widest = _widest_frontier(n_samples, cfg)
     want = 1 << max(0, math.ceil(math.log2(max(widest, 1))))
     return min(want, 1 << int(math.log2(cap)))
@@ -148,8 +186,8 @@ def _chunk_size(n_samples: int, n_feat: int, n_bins: int, n_chan: int,
 
 def _table_slots(n_samples: int, cfg: BuildConfig) -> int:
     """Per-level table width for the reroute and the terminal counts: one
-    table serves a whole level in one row pass up to ``MAX_TABLE_SLOTS``."""
-    widest = min(_widest_frontier(n_samples, cfg), MAX_TABLE_SLOTS)
+    table serves a whole level in one row pass up to ``max_table_slots``."""
+    widest = min(_widest_frontier(n_samples, cfg), cfg.max_table_slots)
     return 1 << max(0, math.ceil(math.log2(widest)))
 
 
@@ -163,6 +201,235 @@ def integer_weights(sample_weight) -> bool:
     return sample_weight is None or np.array_equal(
         sample_weight, np.round(sample_weight)
     )
+
+
+def _env_flag(name: str, choices: tuple) -> str:
+    """An "auto"-steering environment knob, read at call time."""
+    value = os.environ.get(name, "auto").strip().lower() or "auto"
+    if value not in choices:
+        raise ValueError(f"{name}={value!r}; one of {choices}")
+    return value
+
+
+def resolve_engine(cfg: BuildConfig) -> str:
+    """``"fused"`` or ``"levelwise"``, as ``mpitree_tpu/core/builder.py``
+    resolves it (``:808-990``, without the advisor and the leaf-wise
+    reroute): an explicit ``cfg.engine`` wins, ``MPITREE_TPU_ENGINE``
+    steers ``"auto"``, and ``"auto"`` is fused. ``task="gbdt"`` runs
+    levelwise; asking for the fused engine there raises."""
+    engine = cfg.engine
+    if engine not in ENGINES:
+        raise ValueError(f"unknown build engine {engine!r}")
+    if engine == "auto":
+        engine = _env_flag(ENGINE_ENV, ENGINES)
+    if cfg.task == "gbdt":
+        if cfg.engine == "fused":
+            raise ValueError(
+                "the fused engine does not implement task='gbdt'; use "
+                "engine='auto' or 'levelwise'"
+            )
+        return "levelwise"
+    return "levelwise" if engine == "levelwise" else "fused"
+
+
+def resolve_hist_subtraction(cfg: BuildConfig, device: torch.device) -> bool:
+    """Whether both engines build the larger sibling's histogram as
+    ``parent - small``. An explicit ``cfg.hist_subtraction`` wins,
+    ``MPITREE_TPU_HIST_SUBTRACTION`` steers ``"auto"``, and ``"auto"`` is
+    :data:`SUBTRACTION_AUTO` for the device type. Unlike the JAX package's
+    resolution (``:419-506``) exactness needs no check: both histogram
+    routes subtract exactly (``ops/histogram.py``), so every task and
+    every weight may take it."""
+    flag = cfg.hist_subtraction
+    if flag not in SUBTRACTION_FLAGS:
+        raise ValueError(f"unknown hist_subtraction {flag!r}")
+    if flag == "auto":
+        flag = _env_flag(SUBTRACTION_ENV, SUBTRACTION_FLAGS)
+    if flag == "auto":
+        return SUBTRACTION_AUTO.get(torch.device(device).type, False)
+    return flag == "on"
+
+
+class SubtractionCarry(NamedTuple):
+    """What a level hands the next for sibling subtraction: its resident
+    histograms ``hist`` ((n_chunks * S, F, C, B), raw route sums, slot 0 =
+    its first frontier node) and, per node of the next frontier, whether
+    it is the smaller sibling (``small``, ties go left) and its parent's
+    slot in ``hist`` (``pslot``)."""
+
+    hist: torch.Tensor
+    small: torch.Tensor
+    pslot: torch.Tensor
+
+
+def child_carry(hist, n_left, n, parent_rel) -> SubtractionCarry:
+    """The carry to the children of the splitting nodes whose winners'
+    left weights are ``n_left`` out of ``n`` (tensors in the decision
+    buffer's dtype) and whose slots in ``hist`` are ``parent_rel``:
+    children come left/right interleaved, the left child the smaller when
+    ``n_left * 2 <= n`` (``mpitree_tpu/core/builder.py:1636-1655``)."""
+    left_small = n_left * 2.0 <= n
+    small = torch.stack([left_small, ~left_small], dim=1).reshape(-1)
+    return SubtractionCarry(hist, small,
+                            parent_rel.to(torch.int64).repeat_interleave(2))
+
+
+class FrontierHistograms:
+    """One level's chunk histograms, for either engine: rows ordered by
+    slot once a level, then each chunk's ``(S, F, C, B)`` histogram read
+    directly or, given a ``carry``, accumulated for the smaller siblings
+    only into a compact ``S/2``-slot histogram and rebuilt as ``parent -
+    small`` (``histogram.sibling_reconstruct``). With ``keep`` the level's
+    histograms stay resident in ``kept`` for the next level's carry."""
+
+    def __init__(self, fit, nid: torch.Tensor, flo: int, fsz: int, S: int,
+                 *, carry: SubtractionCarry | None, keep: bool):
+        self.fit, self.S = fit, S
+        self.n_chunks = -(-fsz // S)
+        width = self.n_chunks * S
+        dev = nid.device
+        self.carry = carry if carry is not None and S % 2 == 0 else None
+        if self.carry is not None:
+            self.acc = S // 2
+            self.small = torch.ones(width, dtype=torch.bool, device=dev)
+            self.small[:fsz] = carry.small
+            self.pslot = torch.zeros(width, dtype=torch.int64, device=dev)
+            self.pslot[:fsz] = carry.pslot
+            # (rel >> 1) = chunk * S/2 + (slot >> 1): one key for the level
+            self.key = sibling_accumulate_slots(nid, flo, self.small,
+                                                n_slots=width)
+        else:
+            self.acc = S
+            self.key = (nid - flo).to(torch.int32)
+        self.order = self.seg = None
+        if self.acc > hist_kernel.STREAM_MAX_SLOTS:
+            # rows of finished leaves and of large siblings (-1) fall
+            # outside every segment
+            self.order, self.seg = hist_kernel.slot_segments(
+                self.key, self.n_chunks * self.acc)
+        self.kept = None
+        if keep and self.n_chunks > 1:
+            self.kept = torch.empty(
+                (width, fit.F, fit.C, fit.B), device=dev,
+                dtype=torch.int64 if fit.fixed else torch.float32)
+        self.keep = keep
+
+    def chunk(self, c: int) -> torch.Tensor:
+        fit, S, a = self.fit, self.S, self.acc
+        h = collective.split_hist(
+            fit.xb, fit.payload, None, 0, n_slots=a, n_bins=fit.B,
+            packed=fit.packed, order=self.order, feat_bins=fit.feat_bins,
+            seg_start=None if self.seg is None
+            else self.seg[c * a: c * a + a + 1],
+            scale_exp=fit.scale_exp, slot=self.key - c * a)
+        if self.carry is not None:
+            sl = slice(c * S, (c + 1) * S)
+            h = sibling_reconstruct(h, self.carry.hist, self.pslot[sl],
+                                    self.small[sl])
+        if self.keep:
+            if self.kept is None:
+                self.kept = h
+            else:
+                self.kept[c * S:(c + 1) * S].copy_(h)
+        return h
+
+
+def keep_level(fit, cfg: BuildConfig, use_sub: bool, S: int,
+               n_chunks: int) -> bool:
+    """Whether a level keeps its histograms for the next level's
+    subtraction: on, a width that holds sibling pairs, and every chunk's
+    histogram within ``cfg.hist_budget_bytes``
+    (``mpitree_tpu/core/builder.py:1185-1264``)."""
+    cell = 8 if fit.fixed else 4
+    return (use_sub and S >= 2 and S % 2 == 0
+            and n_chunks * S * fit.F * fit.C * fit.B * cell
+            <= cfg.hist_budget_bytes)
+
+
+class FitInputs:
+    """What both engines prepare once per tree on the fit's device: the
+    bins (int32 and the byte-wide copy), the payload and its route, the
+    candidate mask, the chunk width ``K``, the table width ``U`` and the
+    tiers. A forest passes each tree's ``sample_weight`` as a tensor on
+    the device, its ``scale_exp`` (the route, decided for every tree at
+    once) and its ``candidate_mask``."""
+
+    def __init__(self, binned: BinnedData, y, cfg: BuildConfig, *,
+                 n_classes=None, sample_weight=None, packed=None,
+                 feature_mask=None, scale_exp="auto", candidate_mask=None):
+        xb = binned.x_binned
+        if not isinstance(xb, torch.Tensor):
+            raise TypeError(
+                "build_tree needs BinnedData with a tensor x_binned")
+        self.dev = dev = xb.device
+        self.xb = xb.to(torch.int32).contiguous()
+        self.N, self.F = self.xb.shape
+        self.B = binned.n_bins
+        self.packed = pack_for_fit(binned) if packed is None else packed
+        self.feat_bins = [int(v) + 1 for v in binned.n_cand]
+        task = cfg.task
+        if sample_weight is None:
+            w_d = torch.ones(self.N, dtype=torch.float32, device=dev)
+        elif isinstance(sample_weight, torch.Tensor):
+            w_d = sample_weight.to(torch.float32)
+        else:
+            w_d = torch.as_tensor(np.asarray(sample_weight, np.float32),
+                                  device=dev)
+        if task == "gbdt":
+            self.C = 3
+            self.y = torch.as_tensor(np.asarray(y, np.float32), device=dev)
+            self.payload = gbdt_payload(self.y, w_d).contiguous()
+        elif task == "regression":
+            self.C = 3
+            self.y = torch.as_tensor(np.asarray(y, np.float32), device=dev)
+            self.payload = moment_payload(self.y, w_d).contiguous()
+        else:
+            self.C = int(n_classes)
+            self.y = torch.as_tensor(np.asarray(y, np.int64), device=dev)
+            self.payload = class_payload(
+                self.y, None if sample_weight is None else w_d, self.C
+            ).contiguous()
+        # the histogram's route, once per fit: None = the float32 integer
+        # route (one device-to-host copy; a boosting round's g/h change
+        # every tree); a forest decides every tree's at once
+        if isinstance(scale_exp, str):
+            scale_exp = (fixed_point_exponents(self.payload)
+                         if task in ("regression", "gbdt")
+                         else payload_scale(self.payload))
+        self.scale_exp = scale_exp
+        self.fixed = scale_exp is not None
+        # the terminal sums' int64 payload, made for the first terminal
+        # level; exponents 0 on the integer route, whose values are
+        # integers already
+        self.sum_exp = scale_exp if self.fixed else (0,) * self.C
+        self._q = None
+        if candidate_mask is None:
+            cand = binned.candidate_mask()
+            if feature_mask is not None:
+                cand = cand & np.asarray(feature_mask, bool)[:, None]
+            candidate_mask = torch.from_numpy(cand).to(dev)
+        self.cand_mask = candidate_mask
+        self.K = _chunk_size(self.N, self.F, self.B, self.C, cfg,
+                             cell_bytes=8 if self.fixed else 4)
+        self.U = _table_slots(self.N, cfg)
+        self.tiers = valid_tiers(cfg.frontier_tiers, self.K)
+
+    def width(self, frontier_size: int) -> int:
+        """The level's histogram width: the narrowest tier that holds the
+        frontier, else the chunk width ``K``."""
+        return next((s for s in self.tiers if frontier_size <= s), self.K)
+
+    def node_sums(self, nid: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+        """(hi - lo, C) float64 payload sums of frontier nodes [lo, hi)
+        for a terminal level, one U-slot table at a time."""
+        if self._q is None:
+            self._q = hist_kernel.quantize(self.payload, self.sum_exp)
+        U = self.U
+        return torch.cat([
+            collective.node_sums(self._q, nid, a, n_slots=U,
+                                 scale_exp=self.sum_exp)[: min(U, hi - a)]
+            for a in range(lo, hi, U)
+        ])
 
 
 def refit_regression_values(tree: TreeArrays, nid_host: np.ndarray,
@@ -297,8 +564,11 @@ def build_tree(binned: BinnedData, y: np.ndarray, *, config: BuildConfig,
                feature_sampler=None,
                feature_mask: np.ndarray | None = None,
                mono_cst: np.ndarray | None = None):
-    """Grow one tree level by level on the device that holds
-    ``binned.x_binned``; returns the host struct-of-arrays tree.
+    """Grow one tree on the device that holds ``binned.x_binned``; returns
+    the host struct-of-arrays tree. The engine comes from
+    :func:`resolve_engine`: the fused engine
+    (``core/fused_builder.build_tree_fused``, same contract) or the
+    levelwise loop below.
 
     ``y`` (N,) int class indices (classification), float32 centred
     targets (regression) or float32 gradients (gbdt, whose
@@ -319,50 +589,31 @@ def build_tree(binned: BinnedData, y: np.ndarray, *, config: BuildConfig,
     """
     cfg = config
     check_task(cfg)
+    kw = dict(config=cfg, n_classes=n_classes, sample_weight=sample_weight,
+              packed=packed, return_leaf_ids=return_leaf_ids,
+              refit_targets=refit_targets, feature_sampler=feature_sampler,
+              feature_mask=feature_mask, mono_cst=mono_cst)
+    if resolve_engine(cfg) == "fused":
+        from mpitree_tpu_torch.core.fused_builder import build_tree_fused
+
+        return build_tree_fused(binned, y, **kw)
+    return _build_levelwise(binned, y, **kw)
+
+
+def _build_levelwise(binned: BinnedData, y: np.ndarray, *,
+                     config: BuildConfig, n_classes, sample_weight, packed,
+                     return_leaf_ids, refit_targets, feature_sampler,
+                     feature_mask, mono_cst):
+    """The levelwise engine: one host round trip a level."""
+    cfg = config
     regression = cfg.task == "regression"
     gbdt = cfg.task == "gbdt"
-    xb = binned.x_binned
-    if not isinstance(xb, torch.Tensor):
-        raise TypeError("build_tree needs BinnedData with a tensor x_binned")
-    dev = xb.device
-    xb = xb.to(torch.int32).contiguous()
-    N, F = xb.shape
-    B = binned.n_bins
-    if packed is None:
-        packed = pack_for_fit(binned)
-    feat_bins = [int(v) + 1 for v in binned.n_cand]
-
-    w_d = (torch.ones(N, dtype=torch.float32, device=dev)
-           if sample_weight is None
-           else torch.from_numpy(np.asarray(sample_weight, np.float32)).to(dev))
-    if gbdt:
-        C = 3
-        y_d = torch.from_numpy(np.asarray(y, np.float32)).to(dev)
-        payload = gbdt_payload(y_d, w_d).contiguous()
-    elif regression:
-        C = 3
-        y_d = torch.from_numpy(np.asarray(y, np.float32)).to(dev)
-        payload = moment_payload(y_d, w_d).contiguous()
-    else:
-        C = int(n_classes)
-        y_d = torch.from_numpy(np.asarray(y, np.int64)).to(dev)
-        payload = class_payload(
-            y_d, None if sample_weight is None else w_d, C
-        ).contiguous()
-    # the histogram's route, once per fit: None = the float32 integer route
-    # (one device-to-host copy; a boosting round's g/h change every tree)
-    scale_exp = (fixed_point_exponents(payload) if regression or gbdt
-                 else payload_scale(payload))
-    fixed = scale_exp is not None
-    # the terminal sums' int64 payload, made for the first terminal level;
-    # exponents 0 on the integer route, whose values are integers already
-    sum_exp = scale_exp if fixed else (0,) * C
-    q = None
+    fit = FitInputs(binned, y, cfg, n_classes=n_classes,
+                    sample_weight=sample_weight, packed=packed,
+                    feature_mask=feature_mask)
+    xb, dev, N, F, C = fit.xb, fit.dev, fit.N, fit.F, fit.C
+    fixed, scale_exp, U = fit.fixed, fit.scale_exp, fit.U
     nid = torch.zeros(N, dtype=torch.int32, device=dev)
-    cand = binned.candidate_mask()
-    if feature_mask is not None:
-        cand = cand & np.asarray(feature_mask, bool)[:, None]
-    cand_mask = torch.from_numpy(cand).to(dev)
     sampling = feature_sampler is not None and feature_sampler.active
     keys = feature_sampler.key_store() if sampling else None
     mono = mono_cst is not None and bool(np.any(np.asarray(mono_cst) != 0))
@@ -370,10 +621,8 @@ def build_tree(binned: BinnedData, y: np.ndarray, *, config: BuildConfig,
         cst32 = np.ascontiguousarray(mono_cst, np.int32)
         cst_d = torch.from_numpy(cst32).to(dev)
         bounds = BoundsStore()
-
-    K = _chunk_size(N, F, B, C, cfg, cell_bytes=8 if fixed else 4)
-    U = _table_slots(N, cfg)
-    tiers = valid_tiers(FRONTIER_TIERS, K)
+    use_sub = resolve_hist_subtraction(cfg, dev)
+    carry = None
     tree = new_tree_buffer(cfg.task, C, sample_weight)
     tree.ensure(1)
     tree.n = 1
@@ -409,38 +658,27 @@ def build_tree(binned: BinnedData, y: np.ndarray, *, config: BuildConfig,
     while frontier_size > 0:
         terminal = cfg.max_depth is not None and depth == cfg.max_depth
         hi = frontier_lo + frontier_size
+        carry_in, carry = carry, None
         if terminal:
-            if q is None:
-                q = hist_kernel.quantize(payload, sum_exp)
-            parts = [collective.node_sums(
-                q, nid, lo, n_slots=U, scale_exp=sum_exp)
-                for lo in range(frontier_lo, hi, U)]
-            counts = torch.cat([p[: min(U, hi - lo)] for p, lo in zip(
-                parts, range(frontier_lo, hi, U))])
-            dec = {"counts": counts.cpu().numpy()}
+            dec = {"counts": fit.node_sums(nid, frontier_lo, hi).cpu().numpy()}
         else:
-            S = next((s for s in tiers if frontier_size <= s), K)
-            order = seg = None
-            if S > hist_kernel.STREAM_MAX_SLOTS:
-                # one sort a level, shared by its chunks; rows parked in
-                # finished leaves fall outside every segment
-                order, seg = hist_kernel.slot_segments(
-                    nid - frontier_lo, math.ceil(frontier_size / S) * S)
+            S = fit.width(frontier_size)
+            n_chunks = -(-frontier_size // S)
+            keep = keep_level(fit, cfg, use_sub, S, n_chunks)
+            level = FrontierHistograms(fit, nid, frontier_lo, frontier_size,
+                                       S, carry=carry_in, keep=keep)
             decisions = torch.cat([
-                collective.split_step(
-                    xb, payload, nid, cand_mask, lo, n_slots=S, n_bins=B,
+                collective.split_sweep(
+                    level.chunk(c), fit.cand_mask, nid, lo,
                     criterion=cfg.criterion,
-                    min_child_weight=cfg.min_child_weight, packed=packed,
-                    order=order, feat_bins=feat_bins,
-                    seg_start=None if seg is None else seg[
-                        lo - frontier_lo: lo - frontier_lo + S + 1],
-                    scale_exp=scale_exp, task=cfg.task, y=y_d,
-                    reg_lambda=cfg.reg_lambda,
+                    min_child_weight=cfg.min_child_weight,
+                    scale_exp=scale_exp, task=cfg.task, y=fit.y,
+                    payload=fit.payload, reg_lambda=cfg.reg_lambda,
                     min_leaf_rows=cfg.min_leaf_rows,
                     **sample_args(lo, min(S, hi - lo), S),
                     **mono_args(lo, min(S, hi - lo), S),
                 )[: min(S, hi - lo)]
-                for lo in range(frontier_lo, hi, S)
+                for c, lo in enumerate(range(frontier_lo, hi, S))
             ])
             dec = collective.unpack_decision(
                 decisions.cpu().numpy(), n_counts=C, y_range=regression,
@@ -529,6 +767,10 @@ def build_tree(binned: BinnedData, y: np.ndarray, *, config: BuildConfig,
                 bounds.assign_children(
                     split_ids, lefts, rights, dec["v_left"][~stop],
                     dec["v_right"][~stop], cst32[feat], tree.n)
+            if not terminal and keep:
+                carry = child_carry(
+                    level.kept, to_dev(dec["n_left"][~stop]),
+                    to_dev(n[~stop]), to_dev(split_ids - frontier_lo))
 
             # Reroute: one full-row pass per U-slot table (normally one).
             is_split_full = ~stop

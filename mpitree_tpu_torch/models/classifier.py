@@ -10,9 +10,11 @@ decision (``utils/validation.resolve_refine``), the build to the crown
 depth, the hybrid refine tail (``core/hybrid_builder.apply_refine``) and
 ``ccp_alpha`` pruning (``utils/pruning.ccp_prune``).
 
-- ``backend=None`` runs the device engine (``core/builder.py``) on
-  ``device``: ``None`` means ``"cuda"`` and raises when CUDA is missing;
-  only an explicit ``device="cpu"`` runs the plain CPU path. Unlike the JAX
+- ``backend=None`` runs the device engine on ``device``: the fused engine
+  (``core/fused_builder.py``), or the levelwise one (``core/builder.py``)
+  under ``MPITREE_TPU_ENGINE=levelwise``, growing the same tree.
+  ``device=None`` means ``"cuda"`` and raises when CUDA is missing; only
+  an explicit ``device="cpu"`` runs the plain CPU path. Unlike the JAX
   package, a small fit is not routed to the host tier: the card builds
   every ``backend=None`` fit. The trees agree with the JAX package's
   default either way: integer weights sum exactly on both tiers, and a
@@ -35,7 +37,8 @@ sklearn is not a dependency: ``get_params``/``set_params`` read the
 ``class_weight`` (``"balanced"`` or a dict) multiplies ``sample_weight``
 as the JAX package's ``apply_class_weight`` does (``:239-240``).
 
-``fit_stats_`` holds the fit's ``engine`` (``"device"`` or ``"host"``),
+``fit_stats_`` holds the fit's ``engine`` (``"fused"`` or ``"levelwise"``
+on the device, as ``core/builder.resolve_engine`` picks it, or ``"host"``),
 its phase seconds (``bin_seconds``, ``crown_seconds``, ``tail_seconds``,
 ``prune_seconds``, each ending when the card is idle) and, when the tail
 ran, its ``crown_depth``, ``refine_candidates``, ``refine_engine`` and
@@ -73,7 +76,11 @@ import numpy as np
 import torch
 
 from mpitree_tpu_torch._device import resolve_device
-from mpitree_tpu_torch.core.builder import BuildConfig, build_tree
+from mpitree_tpu_torch.core.builder import (
+    BuildConfig,
+    build_tree,
+    resolve_engine,
+)
 from mpitree_tpu_torch.core.host_builder import build_tree_host
 from mpitree_tpu_torch.core.hybrid_builder import apply_refine
 from mpitree_tpu_torch.core.tree_struct import TreeArrays
@@ -135,17 +142,16 @@ def grow_tree(binned, X, y, *, host: bool, cfg: BuildConfig, max_depth, rd,
               feature_mask=None, mono_cst=None) -> TreeArrays:
     """One tree in the JAX package's order: the build to the crown depth
     ``cfg.max_depth`` (the host tier when ``host``, else the device engine
-    on ``binned``'s device), the refine tail down to ``max_depth`` when
-    ``refine``, then ``ccp_alpha`` pruning. ``y`` is what the builders
-    take (class indices, or regression's float32 centred targets, whose
-    float64 ``refit_targets`` give the leaf values). Adds the engine, the
-    phase seconds and the tail's counts to ``stats``. ``feature_sampler``
+    on ``binned``'s device, fused or levelwise as ``resolve_engine``
+    says), then :func:`finish_tree`. ``y`` is what the builders take
+    (class indices, or regression's float32 centred targets, whose float64
+    ``refit_targets`` give the leaf values). Adds the engine that ran
+    (``"fused"``, ``"levelwise"`` or ``"host"``), the phase seconds and
+    the tail's counts to ``stats``. ``feature_sampler``
     (``ops/sampling.py``) and ``feature_mask`` (a forest tree's subspace)
     go to both tiers and to the tail. ``mono_cst`` (the validated internal
     signs, or None) goes to both tiers, which then grow the whole depth
-    (the caller passes ``refine=False``), and clips the pruned tree's
-    values (``clip_tree_values``), as the JAX package's ``finish``
-    (``mpitree_tpu/models/forest.py:495-517``)."""
+    (the caller passes ``refine=False``)."""
     kw = dict(config=cfg, n_classes=n_classes, sample_weight=sample_weight,
               return_leaf_ids=refine, refit_targets=refit_targets,
               feature_sampler=feature_sampler, feature_mask=feature_mask,
@@ -153,8 +159,25 @@ def grow_tree(binned, X, y, *, host: bool, cfg: BuildConfig, max_depth, rd,
     res = (build_tree_host(binned, y, **kw) if host
            else build_tree(binned, y, packed=packed, **kw))
     tree, leaf_ids = res if refine else (res, None)
-    stats["engine"] = "host" if host else "device"
+    stats["engine"] = "host" if host else resolve_engine(cfg)
     stats["crown_seconds"] = stats.get("crown_seconds", 0.0) + clock.lap()
+    return finish_tree(
+        tree, leaf_ids, X, y, cfg=cfg, max_depth=max_depth, rd=rd,
+        refine=refine, n_classes=n_classes, sample_weight=sample_weight,
+        ccp_alpha=ccp_alpha, clock=clock, stats=stats,
+        refit_targets=refit_targets, feature_sampler=feature_sampler,
+        feature_mask=feature_mask, mono_cst=mono_cst)
+
+
+def finish_tree(tree, leaf_ids, X, y, *, cfg: BuildConfig, max_depth, rd,
+                refine: bool, n_classes, sample_weight, ccp_alpha, clock,
+                stats: dict, refit_targets=None, feature_sampler=None,
+                feature_mask=None, mono_cst=None) -> TreeArrays:
+    """A built crown finished as the JAX package's ``finish`` does it
+    (``mpitree_tpu/models/forest.py:495-517``): the refine tail down to
+    ``max_depth`` from the rows' ``leaf_ids`` when ``refine``, then
+    ``ccp_alpha`` pruning, then the clipped values of a constrained tree
+    (``clip_tree_values``)."""
     if refine:
         tail = {}
         tree = apply_refine(

@@ -7,9 +7,14 @@ Counterpart of ``mpitree_tpu/models/forest.py`` on its per-tree route
 
 - the matrix is binned once (``ops/binning.bin_for_engine``), its
   byte-wide copy for the histogram kernels is made once, and every tree is
-  built by the levelwise engine (``core/builder.build_tree``) on that one
-  device-resident binned matrix; ``backend="host"`` builds every tree on
-  the host tier from one host binning (``host_raw``, ``:519-528``);
+  built on that one device-resident binned matrix: by default all of them
+  in one call of the fused engine (``core/fused_builder.build_forest_fused``,
+  the JAX package's batched path, ``:578-620``, ``:696-775``), under
+  ``MPITREE_TPU_ENGINE=levelwise`` one levelwise build a tree
+  (``core/builder.build_tree``); ``fit_stats_["ensemble_path"]`` says
+  which (``"batched-fused"``, ``"per-tree"`` or ``"host"``), and the trees
+  are the same; ``backend="host"`` builds every tree on the host tier
+  from one host binning (``host_raw``, ``:519-528``);
 - phase A draws every per-tree random number up front, in the JAX
   package's order (``:437-492``): ``rng = np.random.default_rng(
   random_state)``, then per tree the multinomial bootstrap
@@ -63,11 +68,17 @@ import warnings
 import numpy as np
 
 from mpitree_tpu_torch._device import resolve_device
-from mpitree_tpu_torch.core.builder import BuildConfig, pack_for_fit
+from mpitree_tpu_torch.core.builder import (
+    BuildConfig,
+    pack_for_fit,
+    resolve_engine,
+)
+from mpitree_tpu_torch.core.fused_builder import build_forest_fused
 from mpitree_tpu_torch.models.classifier import (
     ClassifierBase,
     EstimatorBase,
     FitClock,
+    finish_tree,
     grow_tree,
     host_tier,
     refuse_later,
@@ -232,17 +243,54 @@ class _BaseForest(EstimatorBase):
 
         start = 0 if prev is None else len(prev)
         self.fit_stats_ = stats
+        idxs = range(start, int(self.n_estimators))
+        batched = not host and resolve_engine(cfg) == "fused"
+        stats["ensemble_path"] = ("host" if host else
+                                  "batched-fused" if batched else "per-tree")
+        if not batched or not idxs:
+            return TreeList((prev or []) + [
+                grow_tree(
+                    binned, X, y, host=host, cfg=tree_cfg(tree_w[i]),
+                    max_depth=self.max_depth, rd=rd, refine=refine,
+                    n_classes=n_classes, sample_weight=tree_w[i],
+                    ccp_alpha=self.ccp_alpha, clock=clock, stats=stats,
+                    packed=packed, refit_targets=refit_targets,
+                    feature_sampler=tree_sampler[i],
+                    feature_mask=tree_mask[i], mono_cst=mono,
+                )
+                for i in idxs
+            ])
+        # one call grows every tree on the card (build_group, :578-620)
+        cand = binned.candidate_mask()
+        cfgs = [tree_cfg(tree_w[i]) for i in idxs]
+        res = build_forest_fused(
+            binned, y, config=cfg, n_classes=n_classes,
+            weights=np.stack([np.ones(n, np.float32) if tree_w[i] is None
+                              else np.asarray(tree_w[i], np.float32)
+                              for i in idxs]),
+            cand_masks=np.stack([
+                cand if tree_mask[i] is None
+                else cand & tree_mask[i][:, None] for i in idxs]),
+            refit_targets=refit_targets, packed=packed,
+            return_leaf_ids=refine,
+            min_child_weights=[c.min_child_weight for c in cfgs],
+            min_decrease_scaleds=[c.min_decrease_scaled for c in cfgs],
+            samplers=[tree_sampler[i] for i in idxs], mono_cst=mono,
+        )
+        trees, leaf_ids = res if refine else (res, [None] * len(cfgs))
+        stats["engine"] = "fused"
+        stats["crown_seconds"] = stats.get("crown_seconds", 0.0) \
+            + clock.lap()
         return TreeList((prev or []) + [
-            grow_tree(
-                binned, X, y, host=host, cfg=tree_cfg(tree_w[i]),
-                max_depth=self.max_depth, rd=rd, refine=refine,
-                n_classes=n_classes, sample_weight=tree_w[i],
+            finish_tree(
+                t, ids, X, y, cfg=c, max_depth=self.max_depth, rd=rd,
+                refine=refine, n_classes=n_classes, sample_weight=tree_w[i],
                 ccp_alpha=self.ccp_alpha, clock=clock, stats=stats,
-                packed=packed, refit_targets=refit_targets,
+                refit_targets=refit_targets,
                 feature_sampler=tree_sampler[i], feature_mask=tree_mask[i],
                 mono_cst=mono,
             )
-            for i in range(start, int(self.n_estimators))
+            for i, t, ids, c in zip(idxs, trees, leaf_ids, cfgs)
         ])
 
     def _pop_oob_masks(self) -> list:

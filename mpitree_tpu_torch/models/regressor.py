@@ -10,8 +10,9 @@ histograms (``:177``); every node's value is then refit exactly in float64
 from the rows' final nodes, so ``predict`` returns exact leaf means
 (``count[leaf, 0]``).
 
-- ``backend=None`` runs the device engine (``core/builder.py``, task
-  ``"regression"``) on ``device`` (``None`` means ``"cuda"``; only an
+- ``backend=None`` runs the device engine (task ``"regression"``; fused,
+  or levelwise under ``MPITREE_TPU_ENGINE=levelwise``: the same tree) on
+  ``device`` (``None`` means ``"cuda"``; only an
   explicit ``device="cpu"`` runs the plain CPU path). Its moment
   histograms take the fixed-point route (``ops/hist_kernel.py``): exact,
   order-independent int64 sums, so the card's tree equals the CPU's.

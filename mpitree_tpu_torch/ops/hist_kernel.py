@@ -136,20 +136,29 @@ def fixed_point_exponents(payload: torch.Tensor, n_rows: int | None = None
     Raises ``ValueError`` on a non-finite value, before any launch."""
     if payload.dim() != 2:
         raise ValueError("payload must be 2-D")
-    n = max(int(payload.shape[0] if n_rows is None else n_rows), 1)
     top = payload.abs().amax(dim=0) if payload.shape[0] else \
         torch.zeros(payload.shape[1])
-    top = top.double().cpu().numpy()
+    return exponents_from_top(
+        top.double().cpu().numpy()[None],
+        payload.shape[0] if n_rows is None else n_rows)[0]
+
+
+def exponents_from_top(top: np.ndarray, n_rows: int) -> list:
+    """:func:`fixed_point_exponents` of payloads whose channel maxima
+    ``max|v_c|`` are the rows of ``top`` (P, C): a forest decides every
+    tree's exponents from one copy. Raises on a non-finite maximum."""
     if not np.isfinite(top).all():
         raise ValueError("payload holds NaN or infinity: the fixed-point "
                          "histogram takes finite values only")
-    row_bits = math.ceil(math.log2(n))
-    return tuple(
-        0 if v == 0.0 else min(
-            MAX_SCALE_EXP,
-            FIXED_POINT_BITS - row_bits - math.ceil(math.log2(float(v))))
-        for v in top
-    )
+    row_bits = math.ceil(math.log2(max(int(n_rows), 1)))
+    return [
+        tuple(
+            0 if v == 0.0 else min(
+                MAX_SCALE_EXP,
+                FIXED_POINT_BITS - row_bits - math.ceil(math.log2(float(v))))
+            for v in row)
+        for row in np.asarray(top, np.float64)
+    ]
 
 
 def quantize(payload: torch.Tensor, scale_exp) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Per-node random feature subsets and random-split draws (host numpy).
+"""Per-node random feature subsets and random-split draws.
 
 Counterpart of the host half of ``mpitree_tpu/ops/sampling.py``
 (``seed_from`` ``:39``, ``sampler_for`` ``:60``, ``n_subspace_features``
@@ -16,19 +16,25 @@ Counterpart of the host half of ``mpitree_tpu/ops/sampling.py``
 
 A node whose ``k`` features admit no valid split becomes a leaf; there is
 no redraw (LightGBM's ``feature_fraction_bynode`` rule, as in the JAX
-package). The keys stay on the host beside the level's host decision, as
-the JAX levelwise engine keeps them; the builders ship masks and draws to
-the device once per chunk, the draws as int64 so ``draw % count`` is exact.
+package). The levelwise engine keeps the keys on the host beside the
+level's host decision, as the JAX levelwise engine does, and ships masks
+and draws to the device once per chunk, the draws as int64 so ``draw %
+count`` is exact. The fused engine keeps them on the device: the torch
+twins :func:`pcg_hash_dev`, :func:`node_masks_dev`, :func:`node_draws_dev`
+and :func:`child_keys_dev` (``pcg_hash_jnp`` ``:305``, ``node_masks_jnp``
+``:320``, ``node_draws_jnp`` ``:344``, ``child_keys_jnp`` ``:355``)
+compute the same bits. torch has no uint32 shifts on the CPU, so they
+carry each key in int64 and mask to 32 bits after every multiply and add.
 
 Boosting's round masks (``row_subsample_mask`` ``:138``,
 ``feature_subsample_mask`` ``:163``, ``subsample_threshold_u32`` ``:278``)
 are keyed the same way, by (seed, round, row or feature), so a refit
 draws the same subsample.
 
-Not here (``ROADMAP.md``): the ``*_jnp`` twins of the fused engine
-(item 7) and of the fused boosting rounds (item 12 step 3), and the keyed
-forest draws ``bootstrap_weights``, ``tree_seed`` and ``feature_subset``
-(item 16).
+Not here (``ROADMAP.md``): the ``*_jnp`` twins of the round masks
+(``row_subsample_mask_jnp``, for the fused boosting rounds, item 12 step
+3), and the keyed forest draws ``bootstrap_weights``, ``tree_seed`` and
+``feature_subset`` (item 16).
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ import math
 import numbers
 
 import numpy as np
+import torch
 
 
 def seed_from(random_state) -> int:
@@ -123,6 +130,53 @@ def pcg_hash(x: np.ndarray) -> np.ndarray:
         shift = ((x >> np.uint32(28)) + np.uint32(4)).astype(np.uint32)
         word = (((x >> shift) ^ x) * _FIN).astype(np.uint32)
         return ((word >> np.uint32(22)) ^ word).astype(np.uint32)
+
+
+_U32 = 0xFFFFFFFF
+
+
+def pcg_hash_dev(x: torch.Tensor) -> torch.Tensor:
+    """:func:`pcg_hash` on a tensor of uint32 values held in int64, bit
+    for bit; returns int64 in ``[0, 2**32)``. Every product stays below
+    2**63 (a 32-bit value times a constant below 2**30)."""
+    x = (x.to(torch.int64) & _U32) * int(_MULT) + int(_INC) & _U32
+    shift = (x >> 28) + 4
+    word = ((x >> shift) ^ x) * int(_FIN) & _U32
+    return (word >> 22) ^ word
+
+
+def _salted_dev(keys: torch.Tensor, n_features: int, salt) -> torch.Tensor:
+    f = torch.arange(1, n_features + 1, dtype=torch.int64,
+                     device=keys.device)
+    return pcg_hash_dev(keys.to(torch.int64)[:, None]
+                        ^ (f[None, :] * int(salt) & _U32))
+
+
+def node_masks_dev(keys: torch.Tensor, k: int,
+                   n_features: int) -> torch.Tensor:
+    """:meth:`NodeFeatureSampler.node_masks` on the keys' device: (S,)
+    int64 keys -> (S, F) bool, the first ``k`` of a stable argsort."""
+    S = keys.shape[0]
+    if k >= n_features:
+        return torch.ones((S, n_features), dtype=torch.bool,
+                          device=keys.device)
+    order = torch.argsort(_salted_dev(keys, n_features, _FEAT_SALT), dim=1,
+                          stable=True)
+    mask = torch.zeros((S, n_features), dtype=torch.bool, device=keys.device)
+    return mask.scatter_(1, order[:, :k], True)
+
+
+def node_draws_dev(keys: torch.Tensor, n_features: int) -> torch.Tensor:
+    """:meth:`NodeFeatureSampler.node_draws` on the keys' device: (S, F)
+    int64 draws in ``[0, 2**32)``."""
+    return _salted_dev(keys, n_features, _DRAW_SALT)
+
+
+def child_keys_dev(keys: torch.Tensor):
+    """:meth:`NodeFeatureSampler.child_keys` on the keys' device."""
+    p = keys.to(torch.int64)
+    return pcg_hash_dev(p ^ int(_LEFT_SALT)), pcg_hash_dev(
+        p ^ int(_RIGHT_SALT))
 
 
 def _round_base(seed: int, round_idx: int, salt) -> np.uint32:

@@ -11,7 +11,10 @@ on the fit's device:
   ``ops/hist_kernel.py``) followed by the split sweep, packed into one
   buffer so a level costs one device-to-host copy: float32 on the integer
   route, float64 on the fixed-point route, whose node statistics are
-  exact sums;
+  exact sums. Its two stages, :func:`split_hist` and :func:`split_sweep`,
+  are public so that sibling subtraction can rebuild the histogram
+  between them (the JAX fused engine's ``chunk_stats``,
+  ``mpitree_tpu/core/fused_builder.py:302-360``);
 - :func:`node_sums` (``node_counts_local``, ``:81``): per-slot payload
   sums (class counts, regression moments or boosting's ``(count, G, H)``)
   for terminal levels, an O(N)
@@ -85,50 +88,43 @@ def unpack_decision(packed: np.ndarray, n_counts: int, *,
     return out
 
 
-def split_step(x_binned: torch.Tensor, payload: torch.Tensor,
-               node_id: torch.Tensor, cand_mask: torch.Tensor,
-               chunk_lo: int, *, n_slots: int, n_bins: int, criterion: str,
-               min_child_weight: float, packed: torch.Tensor | None = None,
+def split_hist(x_binned: torch.Tensor, payload: torch.Tensor,
+               node_id: torch.Tensor, chunk_lo: int, *, n_slots: int,
+               n_bins: int, packed: torch.Tensor | None = None,
                order: torch.Tensor | None = None,
                seg_start: torch.Tensor | None = None,
-               feat_bins=None, scale_exp=None, task: str = "classification",
-               y: torch.Tensor | None = None,
-               node_mask: torch.Tensor | None = None,
-               draws: torch.Tensor | None = None,
-               mono_cst: torch.Tensor | None = None,
-               mono_lo: torch.Tensor | None = None,
-               mono_hi: torch.Tensor | None = None,
-               reg_lambda: float = 0.0,
-               min_leaf_rows: float = 0.0) -> torch.Tensor:
-    """Histogram + split sweep for the frontier chunk of ``n_slots`` nodes
-    starting at node id ``chunk_lo``; returns the packed decision buffer.
-
-    ``x_binned`` (N, F) int32, ``payload`` (N, C) float32 (``w *
-    onehot(y)``, or regression's ``(w, w*y, w*y^2)``), ``node_id`` (N,)
-    int32, ``cand_mask`` (F, B) bool, all on one device. ``scale_exp``
-    selects the fixed-point route (always taken for ``task="regression"``,
-    which also needs ``y``, the (N,) float32 targets, for the purity
-    signal). ``packed`` (the fit's byte-wide copy of the bins), ``order``
-    and ``seg_start`` (the level's rows ordered by node, and this chunk's
-    ``n_slots + 1`` segment offsets into that order) and ``feat_bins`` go
-    to the histogram as they are (``ops/hist_kernel.histogram``).
-    ``node_mask`` ((n_slots, F) bool, the slots' sampled features) and
-    ``draws`` ((n_slots, F) int64, ``splitter="random"``) go to the sweep
-    (``mpitree_tpu/parallel/collective.py:416``, ``:494``), as do
-    ``mono_cst`` ((F,) int32 internal signs) and the chunk's bounds
-    ``mono_lo``/``mono_hi`` ((n_slots,) float32), whose winners' child
-    values then ride in the buffer (``:372-375``). ``task="gbdt"``
-    takes the fixed-point ``(count, g, h)`` payload
-    (``histogram.gbdt_payload``) and runs the Newton sweep with
-    ``reg_lambda``, ``min_child_weight`` as the hessian floor and
-    ``min_leaf_rows`` as the row floor (``:419-421``); its buffer carries
-    ``(count, G, H)`` as the counts.
-    """
-    slot = (node_id - chunk_lo).to(torch.int32)
-    hist = hist_ops.histogram(x_binned, payload, slot, n_slots=n_slots,
+               feat_bins=None, scale_exp=None,
+               slot: torch.Tensor | None = None) -> torch.Tensor:
+    """The histogram stage of :func:`split_step`: the frontier chunk's
+    ``(S, F, C, B)`` histogram, float32 or (``scale_exp``) int64. ``slot``
+    replaces ``node_id - chunk_lo`` (sibling subtraction's compact slots,
+    ``histogram.sibling_accumulate_slots``); ``order``/``seg_start`` must
+    then order those slots."""
+    if slot is None:
+        slot = (node_id - chunk_lo).to(torch.int32)
+    return hist_ops.histogram(x_binned, payload, slot, n_slots=n_slots,
                               n_bins=n_bins, packed=packed, order=order,
                               seg_start=seg_start, feat_bins=feat_bins,
                               scale_exp=scale_exp)
+
+
+def split_sweep(hist: torch.Tensor, cand_mask: torch.Tensor,
+                node_id: torch.Tensor, chunk_lo: int, *, criterion: str,
+                min_child_weight: float, scale_exp=None,
+                task: str = "classification",
+                y: torch.Tensor | None = None,
+                payload: torch.Tensor | None = None,
+                node_mask: torch.Tensor | None = None,
+                draws: torch.Tensor | None = None,
+                mono_cst: torch.Tensor | None = None,
+                mono_lo: torch.Tensor | None = None,
+                mono_hi: torch.Tensor | None = None,
+                reg_lambda: float = 0.0,
+                min_leaf_rows: float = 0.0) -> torch.Tensor:
+    """The sweep stage of :func:`split_step`: the packed decision buffer
+    of the chunk whose histogram is ``hist``. Regression also reads
+    ``y``, ``payload`` and ``node_id`` for its purity signal."""
+    n_slots = hist.shape[0]
     if task == "gbdt":
         dec = imp_ops.best_split_newton(
             hist, cand_mask, scale_exp=scale_exp, reg_lambda=reg_lambda,
@@ -153,6 +149,58 @@ def split_step(x_binned: torch.Tensor, payload: torch.Tensor,
         )
     return pack_decision(
         dec, torch.float32 if scale_exp is None else torch.float64)
+
+
+def split_step(x_binned: torch.Tensor, payload: torch.Tensor,
+               node_id: torch.Tensor, cand_mask: torch.Tensor,
+               chunk_lo: int, *, n_slots: int, n_bins: int, criterion: str,
+               min_child_weight: float, packed: torch.Tensor | None = None,
+               order: torch.Tensor | None = None,
+               seg_start: torch.Tensor | None = None,
+               feat_bins=None, scale_exp=None, task: str = "classification",
+               y: torch.Tensor | None = None,
+               node_mask: torch.Tensor | None = None,
+               draws: torch.Tensor | None = None,
+               mono_cst: torch.Tensor | None = None,
+               mono_lo: torch.Tensor | None = None,
+               mono_hi: torch.Tensor | None = None,
+               reg_lambda: float = 0.0,
+               min_leaf_rows: float = 0.0) -> torch.Tensor:
+    """Histogram + split sweep for the frontier chunk of ``n_slots`` nodes
+    starting at node id ``chunk_lo``; returns the packed decision buffer:
+    :func:`split_hist`, then :func:`split_sweep`.
+
+    ``x_binned`` (N, F) int32, ``payload`` (N, C) float32 (``w *
+    onehot(y)``, or regression's ``(w, w*y, w*y^2)``), ``node_id`` (N,)
+    int32, ``cand_mask`` (F, B) bool, all on one device. ``scale_exp``
+    selects the fixed-point route (always taken for ``task="regression"``,
+    which also needs ``y``, the (N,) float32 targets, for the purity
+    signal). ``packed`` (the fit's byte-wide copy of the bins), ``order``
+    and ``seg_start`` (the level's rows ordered by node, and this chunk's
+    ``n_slots + 1`` segment offsets into that order) and ``feat_bins`` go
+    to the histogram as they are (``ops/hist_kernel.histogram``).
+    ``node_mask`` ((n_slots, F) bool, the slots' sampled features) and
+    ``draws`` ((n_slots, F) int64, ``splitter="random"``) go to the sweep
+    (``mpitree_tpu/parallel/collective.py:416``, ``:494``), as do
+    ``mono_cst`` ((F,) int32 internal signs) and the chunk's bounds
+    ``mono_lo``/``mono_hi`` ((n_slots,) float32), whose winners' child
+    values then ride in the buffer (``:372-375``). ``task="gbdt"``
+    takes the fixed-point ``(count, g, h)`` payload
+    (``histogram.gbdt_payload``) and runs the Newton sweep with
+    ``reg_lambda``, ``min_child_weight`` as the hessian floor and
+    ``min_leaf_rows`` as the row floor (``:419-421``); its buffer carries
+    ``(count, G, H)`` as the counts.
+    """
+    hist = split_hist(x_binned, payload, node_id, chunk_lo, n_slots=n_slots,
+                      n_bins=n_bins, packed=packed, order=order,
+                      seg_start=seg_start, feat_bins=feat_bins,
+                      scale_exp=scale_exp)
+    return split_sweep(
+        hist, cand_mask, node_id, chunk_lo, criterion=criterion,
+        min_child_weight=min_child_weight, scale_exp=scale_exp, task=task,
+        y=y, payload=payload, node_mask=node_mask, draws=draws,
+        mono_cst=mono_cst, mono_lo=mono_lo, mono_hi=mono_hi,
+        reg_lambda=reg_lambda, min_leaf_rows=min_leaf_rows)
 
 
 def node_sums(q: torch.Tensor, node_id: torch.Tensor, chunk_lo: int, *,
@@ -181,12 +229,15 @@ def y_range(y: torch.Tensor, node_id: torch.Tensor, w: torch.Tensor,
     reads this instead. min and max do not depend on the order."""
     slot = node_id.to(torch.int64) - chunk_lo
     valid = (slot >= 0) & (slot < n_slots) & (w > 0)
-    s = slot[valid]
-    yv = y[valid].to(torch.float32)
-    lo = torch.full((n_slots,), math.inf, dtype=torch.float32,
+    # rows outside go to a spare slot, dropped: no boolean indexing, so
+    # no device-to-host synchronisation
+    s = torch.where(valid, slot, n_slots)
+    yv = y.to(torch.float32)
+    lo = torch.full((n_slots + 1,), math.inf, dtype=torch.float32,
                     device=y.device).scatter_reduce(0, s, yv, "amin")
-    hi = torch.full((n_slots,), -math.inf, dtype=torch.float32,
+    hi = torch.full((n_slots + 1,), -math.inf, dtype=torch.float32,
                     device=y.device).scatter_reduce(0, s, yv, "amax")
+    lo, hi = lo[:n_slots], hi[:n_slots]
     return torch.where(hi >= lo, hi - lo, torch.zeros_like(hi))
 
 

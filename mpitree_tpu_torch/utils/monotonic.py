@@ -20,6 +20,11 @@ user-facing signs (which constrain the positive class) so the internal
 arithmetic matches regression. All value arithmetic is float32
 reciprocal-multiply (``f32(mass) * f32(1/n)``) on every engine.
 
+The fused engine (``core/fused_builder.py``) keeps the bounds on the
+device and propagates them with :func:`child_bounds_dev`, the torch twin
+of :meth:`BoundsStore.assign_children` (the JAX fused engine's
+``mpitree_tpu/core/fused_builder.py:591-602``).
+
 Bounds are a pure function of the finished tree (each split's child values
 are its children's own aggregates), so clipping recomputes them here
 instead of threading build-time state out of every engine.
@@ -28,6 +33,7 @@ instead of threading build-time state out of every engine.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def validate_monotonic_cst(monotonic_cst, n_features: int, *, task: str,
@@ -106,6 +112,18 @@ class BoundsStore:
         self.hi[lefts] = np.where(sign == 1, mid, phi)
         self.lo[rights] = np.where(sign == 1, mid, plo)
         self.hi[rights] = np.where(sign == -1, mid, phi)
+
+
+def child_bounds_dev(plo, phi, v_left, v_right, sign):
+    """:meth:`BoundsStore.assign_children` on tensors: the parents'
+    float32 bounds ``plo``/``phi``, the winners' child values and the
+    split features' signs -> ``(left_lo, left_hi, right_lo, right_hi)``;
+    the float32 ``mid`` pins the children of a constrained split."""
+    mid = (v_left.float() + v_right.float()) * 0.5
+    return (
+        torch.where(sign == -1, mid, plo), torch.where(sign == 1, mid, phi),
+        torch.where(sign == 1, mid, plo), torch.where(sign == -1, mid, phi),
+    )
 
 
 def _node_values_f32(tree, task: str) -> np.ndarray:

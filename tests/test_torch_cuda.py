@@ -276,7 +276,7 @@ def test_fractional_weight_and_regression_fits_on_the_card(cuda):
         assert hist_kernel.launches["sorted_fixed"] > before["sorted_fixed"]
         assert hist_kernel.launches["stream_fixed"] > before["stream_fixed"]
         cpu = est("cpu").fit(*data[:2], sample_weight=data[2])
-        assert gpu.fit_stats_["engine"] == "device"
+        assert gpu.fit_stats_["engine"] == "fused"
         for k in fields:
             np.testing.assert_array_equal(getattr(gpu.tree_, k),
                                           getattr(cpu.tree_, k), err_msg=k)
@@ -756,3 +756,103 @@ def test_boosted_fits_and_margins_on_the_card(cuda):
             serve_kernel.traverse_q(Xq, *cols, q.qvals, record=q.record,
                                     n_features=Xd.shape[1], **args),
             serve_kernel.traverse_q_reference(Xq, *cols, q.qvals, **args))
+
+
+_TREE_FIELDS = ("feature", "threshold", "left", "right", "parent", "depth",
+                "count", "value", "n_node_samples", "impurity")
+
+
+def _same_trees(a, b, msg=""):
+    assert a.n_nodes == b.n_nodes, msg
+    for k in _TREE_FIELDS:
+        np.testing.assert_array_equal(getattr(a, k), getattr(b, k),
+                                      err_msg=f"{msg} {k}")
+
+
+@pytest.mark.parametrize("task", ["classification", "weighted",
+                                  "regression"])
+def test_fused_and_levelwise_with_subtraction_on_the_card(cuda, task):
+    """Both engines, subtraction on and off, on the card and with
+    device="cpu": one tree, field for field (multi-chunk frontiers and the
+    per-chunk carry included), and the fused engine reads the frontier
+    size at most once a level."""
+    import dataclasses
+
+    from mpitree_tpu_torch.core import fused_builder
+    from mpitree_tpu_torch.core.builder import BuildConfig, build_tree
+    from mpitree_tpu_torch.ops.binning import bin_for_engine
+    from mpitree_tpu_torch.utils.datasets import california_like, covtype_like
+
+    if task == "regression":
+        X, y64 = california_like(20_000, seed=3)
+        y, kw = (y64 - y64.mean()).astype(np.float32), dict(
+            refit_targets=y64)
+        base = BuildConfig(task="regression", criterion="mse", max_depth=12,
+                           max_frontier_chunk=64)
+    else:
+        X, y = covtype_like(20_000, seed=3)
+        w = None if task == "classification" else np.random.default_rng(
+            3).uniform(0.5, 2, len(y)).astype(np.float32)
+        kw = dict(n_classes=7, sample_weight=w)
+        base = BuildConfig(max_depth=12, max_frontier_chunk=64)
+    trees = {}
+    for dev in ("cuda", "cpu"):
+        binned = bin_for_engine(X, max_bins=256, binning="auto",
+                                device=torch.device(dev))
+        for engine in ("fused", "levelwise"):
+            for sub in ("off", "on"):
+                cfg = dataclasses.replace(base, engine=engine,
+                                          hist_subtraction=sub)
+                before = fused_builder.frontier_reads
+                tree = build_tree(binned, y, config=cfg, **kw)
+                reads = fused_builder.frontier_reads - before
+                assert reads <= (tree.depth.max() + 1 if engine == "fused"
+                                 else 0)
+                trees[(dev, engine, sub)] = tree
+    ref = trees[("cpu", "levelwise", "off")]
+    assert ref.n_nodes > 4 * 64  # frontiers wider than the 64-slot chunk
+    for key, tree in trees.items():
+        _same_trees(tree, ref, str(key))
+
+
+def test_fused_forest_on_the_card_equals_cpu(cuda):
+    """The batched forest (sampling, random splits and a subspace) on the
+    card equals the CPU's and the card's per-tree levelwise forest."""
+    import os
+
+    from mpitree_tpu_torch.tree import ExtraTreesClassifier
+    from mpitree_tpu_torch.utils.datasets import covtype_like
+
+    X, y = covtype_like(20_000, seed=4)
+    kw = dict(n_estimators=4, max_depth=10, max_features=0.3,
+              random_state=1, refine_depth=None)
+    gpu = ExtraTreesClassifier(device="cuda", **kw).fit(X, y)
+    cpu = ExtraTreesClassifier(device="cpu", **kw).fit(X, y)
+    os.environ["MPITREE_TPU_ENGINE"] = "levelwise"
+    try:
+        lw = ExtraTreesClassifier(device="cuda", **kw).fit(X, y)
+    finally:
+        del os.environ["MPITREE_TPU_ENGINE"]
+    assert gpu.fit_stats_["ensemble_path"] == "batched-fused"
+    assert lw.fit_stats_["ensemble_path"] == "per-tree"
+    for i, (a, b, c) in enumerate(zip(gpu.trees_, cpu.trees_, lw.trees_)):
+        _same_trees(a, b, f"tree {i} cpu")
+        _same_trees(a, c, f"tree {i} levelwise")
+
+
+def test_sampling_twins_on_the_card_equal_the_host_hash(cuda):
+    from mpitree_tpu_torch.ops import sampling
+
+    keys = np.random.default_rng(0).integers(
+        0, 2**32, size=4_099, dtype=np.uint64).astype(np.uint32)
+    kd = torch.from_numpy(keys.astype(np.int64)).to(cuda)
+    np.testing.assert_array_equal(sampling.pcg_hash_dev(kd).cpu().numpy(),
+                                  sampling.pcg_hash(keys).astype(np.int64))
+    s = sampling.NodeFeatureSampler(k=7, n_features=54, seed=3)
+    np.testing.assert_array_equal(
+        sampling.node_masks_dev(kd, 7, 54).cpu().numpy(), s.node_masks(keys))
+    np.testing.assert_array_equal(
+        sampling.node_draws_dev(kd, 54).cpu().numpy(),
+        s.node_draws(keys).astype(np.int64))
+    for a, b in zip(sampling.child_keys_dev(kd), s.child_keys(keys)):
+        np.testing.assert_array_equal(a.cpu().numpy(), b.astype(np.int64))

@@ -28,6 +28,7 @@ import contextlib
 
 import numpy as np
 import pytest
+import torch
 
 pytest.importorskip("jax")
 
@@ -38,6 +39,17 @@ from mpitree_tpu_torch.tree import (  # noqa: E402
     RandomForestRegressor,
 )
 from mpitree_tpu_torch.utils.datasets import california_like  # noqa: E402
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread for this module's fits: under pytest-xdist's
+    parallel workers, torch's intra-op threads oversubscribe the cores;
+    the trees do not depend on the thread count (exact sums)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 FIELDS = ("feature", "threshold", "left", "right", "parent", "depth",
           "value", "count", "n_node_samples", "impurity")
@@ -84,7 +96,7 @@ def defaults(request, data):
 def test_defaults_equal_jax_field_for_field(defaults, data):
     name, ref, port = defaults
     *_, Xh, yh = data
-    assert port.fit_stats_["engine"] == "device"
+    assert port.fit_stats_["engine"] == "fused"
     assert port.fit_stats_["refine_nodes_added"] > 0
     _same_forest(port, ref)
     got = port.predict(Xh)

@@ -30,6 +30,17 @@ from mpitree_tpu_torch.tree import (  # noqa: E402
 from mpitree_tpu_torch.utils.datasets import covtype_like  # noqa: E402
 from mpitree_tpu_torch.utils.validation import resolve_refine  # noqa: E402
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread for this module's fits: under pytest-xdist's
+    parallel workers, torch's intra-op threads oversubscribe the cores;
+    the trees do not depend on the thread count (exact sums)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 FIELDS = ("feature", "threshold", "left", "right", "parent", "depth",
           "value", "count", "n_node_samples", "impurity")
 

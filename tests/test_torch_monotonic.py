@@ -42,6 +42,17 @@ from mpitree_tpu_torch.utils import monotonic as pmono  # noqa: E402
 from mpitree_tpu_torch.utils.carry import tree_from_reference  # noqa: E402
 from mpitree_tpu_torch.utils.datasets import covtype_like  # noqa: E402
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread for this module's fits: under pytest-xdist's
+    parallel workers, torch's intra-op threads oversubscribe the cores;
+    the trees do not depend on the thread count (exact sums)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 FIELDS = ("feature", "threshold", "left", "right", "parent", "depth",
           "value", "count", "n_node_samples", "impurity")
 CST4 = [1, 0, -1, 0]
@@ -323,7 +334,7 @@ def test_classifier_equals_jax_field_for_field(jax_clf_trees, data,
     included; ``predict`` reads them, ``predict_proba`` the raw counts."""
     X, y, kw, ref = jax_clf_trees[data]
     est = DecisionTreeClassifier(device="cpu", backend=backend, **kw).fit(X, y)
-    assert est.fit_stats_["engine"] == ("host" if backend else "device")
+    assert est.fit_stats_["engine"] == ("host" if backend else "fused")
     assert "crown_depth" not in est.fit_stats_  # no refine tail
     _same_tree(est.tree_, ref.tree_, msg=f"{data}/{backend}")
     np.testing.assert_array_equal(est.predict(X), ref.predict(X))

@@ -68,7 +68,7 @@ def test_device_engine_against_jax_device_engine(data, weighted):
     ref = _jax(backend="cpu", **kw).fit(X, y, sample_weight=sw)
     est = DecisionTreeRegressor(device="cpu", **kw).fit(X, y,
                                                         sample_weight=sw)
-    assert est.fit_stats_["engine"] == "device"
+    assert est.fit_stats_["engine"] == "fused"
     assert est.tree_.n_nodes == ref.tree_.n_nodes
     agree = np.mean(est.tree_.feature == ref.tree_.feature)
     assert agree >= 0.9, f"only {agree:.0%} of nodes agree"
@@ -109,7 +109,7 @@ def test_default_equals_jax_default(data):
     X, y, _ = data
     ref = _jax().fit(X, y)
     est = DecisionTreeRegressor(device="cpu").fit(X, y)
-    assert est.fit_stats_["engine"] == "device"
+    assert est.fit_stats_["engine"] == "fused"
     assert est.fit_stats_["refine_nodes_added"] > 0
     _same_tree(est.tree_, ref.tree_)
     # unbounded, the tree memorizes; a leaf may keep several rows of the

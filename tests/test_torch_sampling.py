@@ -325,7 +325,7 @@ def test_device_engine_sampled_tree_equals_jax_host_tier(cls_data):
                   random_state=5, refine_depth=None)
     ref = JaxTree(backend="host", **params).fit(X, y)
     est = DecisionTreeClassifier(device="cpu", **params).fit(X, y)
-    assert est.fit_stats_["engine"] == "device"
+    assert est.fit_stats_["engine"] == "fused"
     _same_tree(est.tree_, ref.tree_)
 
 

@@ -50,6 +50,17 @@ from mpitree_tpu_torch.utils.validation import (  # noqa: E402
     compute_sample_weight,
 )
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread for this module's fits: under pytest-xdist's
+    parallel workers, torch's intra-op threads oversubscribe the cores;
+    the trees do not depend on the thread count (exact sums)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 FIELDS = ("feature", "threshold", "left", "right", "parent", "depth",
           "value", "count", "n_node_samples", "impurity")
 STRUCTURE = ("feature", "threshold", "left", "right", "parent", "depth")
@@ -126,7 +137,7 @@ def test_f1_port_default_equals_jax_default(f1_data, refine_depth):
     ref = JaxTree(**kw).fit(X, y, sample_weight=w).tree_
     est = DecisionTreeClassifier(device="cpu", **kw).fit(X, y,
                                                          sample_weight=w)
-    assert est.fit_stats_["engine"] == "device"
+    assert est.fit_stats_["engine"] == "fused"
     port = est.tree_
     assert port.count.dtype == ref.count.dtype == np.float64
     _assert_same_or_tie(X, y, w, port, ref)
@@ -252,5 +263,5 @@ def test_balanced_class_weight_fit_against_jax(f2_data):
     kw = dict(max_depth=14, class_weight="balanced")
     ref = JaxTree(backend="cpu", **kw).fit(X, y).tree_
     est = DecisionTreeClassifier(device="cpu", **kw).fit(X, y)
-    assert est.fit_stats_["engine"] == "device"
+    assert est.fit_stats_["engine"] == "fused"
     _assert_f2(est.tree_, ref)
