@@ -23,7 +23,8 @@ for boosting; phase 24 runs the levelwise engine beside it:
    (``mpitree_tpu_torch/native/split_kernel.cpp``) with ``g++`` into
    ``build/native/``.
 2. kernels: bin ``covtype_like(581_012, seed=0)`` (256 bins) on the card;
-   for S in {1, 8, 64, 128, 512, K} (K the fit's chunk width) spread the
+   for S in {1, 2, 8, 64, 128, 512, K} (K the fit's chunk width; 2 the
+   leaf-wise frontier's sibling pair) spread the
    rows over S slots (some slots empty, some rows at -1) with class
    payloads, hold every histogram route whose tile fits that width, with
    int32 and with byte-wide bins, ``torch.equal`` to the plain version and
@@ -91,7 +92,7 @@ non-integer payload takes (int64 sums, exact and order-independent):
 12. fixed-point kernels: three payloads, the moments of
     ``california_like(581_012, seed=0)`` (8 features, 256 bins), the class
     payload of the covtype matrix with weights ``default_rng(2).uniform(
-    0.5, 2)``, and a GBDT ``(count, g, h)`` payload; at S in {1, 8, 64,
+    0.5, 2)``, and a GBDT ``(count, g, h)`` payload; at S in {1, 2, 8, 64,
     128, 512, K} every route that fits, int32 and byte-wide bins: two
     launches ``torch.equal`` to each other and to the plain version; timed
     beside the plain version, one float32 ``index_put_`` and the bound.
@@ -157,8 +158,9 @@ trees on the card through the fixed-point routes) and its serving:
 21. boosting: ``GradientBoostingClassifier()`` at the JAX package's
     defaults (100 rounds, depth 6, learning rate 0.1,
     ``min_samples_leaf=20``, 256 bins) on the full covtype matrix (7
-    classes: 700 trees) and ``GradientBoostingRegressor()`` on phase 13's
-    matrix, each after a 2-round warm-up fit, the histogram counters set
+    classes: 700 trees, the host round loop) and
+    ``GradientBoostingRegressor()`` on phase 13's matrix (whose defaults
+    engage the fused rounds on the card, K = 8), each after a 2-round warm-up fit, the histogram counters set
     to 0 just before the measured fit (fixed-point routes launched, the
     integer routes not); wall, ``fit_stats_`` laps, held-out accuracy on
     phase 3's held-out rows and R^2 on phase 13's, peak device memory.
@@ -180,15 +182,41 @@ Phase 24 compares the engines:
     10-tree forest draws them alike) and phase 13's regressor (device
     engine alone) under ``MPITREE_TPU_ENGINE=levelwise``, and for the
     tree also with ``MPITREE_TPU_HIST_SUBTRACTION=on`` in both engines,
-    twice each (the counters around the second fit; the fused tree and
+    once each (the counters around the fit; the fused tree and
     regressor without subtraction are phases 3 and 13): every tree equal
-    to the fused one field for field; the second fit's wall and launches
-    per route; one more tree and regressor fit per engine under
-    torch.profiler for its device-to-host copies and the card's busy
-    share; the fused engine's frontier reads (at most one a level); the
+    to the fused one field for field; the fit's wall and launches per
+    route; the fused engine's frontier reads (at most one a level); the
     fused builds of phases 3 and 13 with those reads and with the
     frontier sizes given (what the reads cost). Phase 4 is the fused
     engine's card-vs-CPU parity at 50,000 rows.
+
+Phases 25-26 drive best-first growth (``max_leaf_nodes``) and the fused
+boosting rounds:
+
+25. leafwise: (a) ``DecisionTreeClassifier(max_depth=12,
+    max_leaf_nodes=4096)`` equals the unbudgeted depth-12 tree field for
+    field in both leaf-wise engines (fused and host-stepped), and its
+    fused build reading the 1-byte ``active`` flag every 16 expansions
+    against the fixed trip count of 4,095; (b) ``max_leaf_nodes=255``
+    (LightGBM's published ``num_leaves``) unbounded in depth, twice with
+    subtraction off and on (the same tree; the counters around the second
+    fit; the device-to-host copies of one more fit, profiled), held-out
+    accuracy, and its build with flag reads, the fixed trip count and
+    subtraction in turns; (c) ``DecisionTreeRegressor(max_leaf_nodes=255)``
+    on phase 13's matrix, twice; (d) card vs CPU
+    at 50,000 rows, budget 255 (phase 4's tie rule); (e) (b)'s tree
+    through ``compile_model`` and its count channel through K4 ``sum``,
+    equal to ``predict_proba`` bit for bit.
+26. fused rounds: ``GradientBoostingRegressor()`` on phase 13's matrix
+    and ``GradientBoostingClassifier(max_leaf_nodes=31)`` on phase 19's
+    binary covtype, each at ``rounds_per_dispatch`` 1 and 8 after a
+    2-round warm-up: wall, launches, copies per dispatch (and the
+    regressor's one 8-round dispatch profiled), held-out R^2 / accuracy;
+    the margins of
+    K = 8 within 2e-4 of K = 1's, or else the first divergent node a
+    near tie of the host loop's own Newton costs (2**-18 relative) with
+    the margins before it within 2e-4; the K = 8 ensembles served as
+    ``margin`` through K4 (bit for bit) and K5 (within its report).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the card's name and power limit, JSON lines of per-shape kernel timings
@@ -197,8 +225,10 @@ the serving measurements (``serving``), of the hybrid fits (``hybrid``),
 of phases 13 and 15 (``regression``, ``weights``), of phases 16-18
 (``subspace_forests``, ``regression_forests``, ``regression_serving``),
 of phases 19-20 (``constrained``, ``persistence``), of phases 21-23
-(``boosting``), of phase 24 (``engines``) and one ``kernels`` line (with
-each route's launches per engine) come before it.
+(``boosting``), of phase 24 (``engines``), of phases 25-26
+(``leafwise``, ``fused_rounds``) and one ``kernels`` line (with each
+route's launches per engine, and the stream routes at S = 2 of the
+leaf-wise pair) come before it.
 Without CUDA the script exits 1 and prints no result.
 """
 
@@ -221,7 +251,7 @@ import torch
 # NVIDIA H100 SXM peaks (data sheet; 700 W): HBM bytes/s and non-tensor fp32.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
-SLOT_TIERS = (1, 8, 64, 128, 512)
+SLOT_TIERS = (1, 2, 8, 64, 128, 512)
 DEV = torch.device("cuda")
 ROWS, DEPTH = 581_012, 20  # covtype's rows; the BASELINE fit's depth
 # One shape per route for the "kernels" line: stream's one width (the
@@ -278,7 +308,8 @@ GRID = 256  # phase 19's points along a constrained column per anchor row
 # fits are cut to 10 rounds on 20,000 rows.
 BOOST_ROUNDS = 100
 BOOST_PARITY = dict(max_iter=10, max_depth=6, subsample=0.8,
-                    colsample_bytree=0.5, random_state=0)
+                    colsample_bytree=0.5, random_state=0,
+                    rounds_per_dispatch=1)
 # Phase 24's runs: (MPITREE_TPU_ENGINE, MPITREE_TPU_HIST_SUBTRACTION), and
 # its forest: phase 5's first 10 trees (cut from 50 to keep the script
 # within about 300 s; the first trees draw alike in any forest size)
@@ -287,6 +318,18 @@ ENGINE_RUNS = (("fused", "off"), ("fused", "on"), ("levelwise", "off"),
 ENGINE_TREES = 10
 BOOST_FIELDS = ("feature", "threshold", "left", "right", "count", "value",
                 "n_node_samples", "impurity")
+# Phase 25: LightGBM's published experiments grow num_leaves=255
+# (docs/Experiments.rst); the identity pin's budget is 2**12 at depth 12.
+# Phase 26's boosted classifier takes LightGBM's default num_leaves=31
+# (sklearn's HistGradientBoosting* max_leaf_nodes), K = 8 the JAX
+# package's DEFAULT_ROUNDS_PER_DISPATCH.
+LEAF_BUDGET = 255
+# Two Newton costs closer than this (relative) are a near tie: float32
+# rounding may order them either way (tests/test_torch_boosting.py)
+NEAR_TIE = 2.0 ** -18
+LEAF_IDENTITY = dict(max_depth=12, max_leaf_nodes=4096)
+BOOST_LEAVES = 31
+FUSED_K = 8
 
 
 def log(msg: str) -> None:
@@ -535,6 +578,28 @@ def _fit_twice(est, X, y, *, sample_weight=None, routes=None,
             f"{missing}")
     return (first_s, second, launches,
             torch.cuda.max_memory_allocated() / 2**30)
+
+
+def _fit_once(est, X, y, *, routes=None):
+    """One fit with the launch counters set to 0 just before it and read
+    just after; every route of ``routes`` (default the integer routes)
+    must have launched. Returns (wall s, launches)."""
+    from mpitree_tpu_torch.ops import hist_kernel
+
+    for k in hist_kernel.launches:
+        hist_kernel.launches[k] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    est.fit(X, y)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(hist_kernel.launches)
+    missing = [k for k in routes or hist_kernel.ROUTES if launches[k] == 0]
+    if missing:
+        raise AssertionError(
+            f"{type(est).__name__} fit never launched kernel routes "
+            f"{missing}")
+    return wall, launches
 
 
 def _check_fit(clf, X, y, Xh, yh, depth: int):
@@ -1773,7 +1838,9 @@ def phase_persistence(forest, clf, Xh) -> dict:
 def _boosted_fit(cls, X, y, Xh, yh, what: str, kw: dict) -> tuple:
     """One warm-up fit (``max_iter=2``), then the measured fit with the
     histogram counters set to 0 just before it and read just after: the
-    fixed-point routes must have launched and the integer routes not."""
+    fixed-point routes must have launched (``sorted_fixed`` only on the
+    host round loop: the fused rounds' leaf-wise trees launch the stream
+    route) and the integer routes not."""
     from mpitree_tpu_torch.ops import hist_kernel
 
     cls(**{**kw, "max_iter": 2}).fit(X, y)
@@ -1786,7 +1853,9 @@ def _boosted_fit(cls, X, y, Xh, yh, what: str, kw: dict) -> tuple:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(hist_kernel.launches)
-    if not (launches["stream_fixed"] and launches["sorted_fixed"]) or (
+    host_loop = est.fit_stats_["rounds_per_dispatch"]["value"] == 1
+    if not (launches["stream_fixed"] and (launches["sorted_fixed"]
+                                          or not host_loop)) or (
             launches["stream"] or launches["sorted"]):
         raise AssertionError(f"{what}: histogram launches {launches}")
     t0 = time.perf_counter()
@@ -1996,8 +2065,8 @@ def _frontier_read_cost(X, y, Xc, yc) -> dict:
     """What the fused engine's one read a level costs: phase 3's and phase
     13's builds (``fused_builder._grow``, binning and finalizing left out)
     with the reads, and with the frontier sizes of an earlier build given
-    (no synchronisation in the level loop), in turns: read, given, given,
-    read. The builds must be the same tree."""
+    (no synchronisation in the level loop): read, then given. The builds
+    must be the same tree."""
     from mpitree_tpu_torch.core import fused_builder
     from mpitree_tpu_torch.core.builder import BuildConfig, FitInputs
     from mpitree_tpu_torch.ops.binning import bin_for_engine
@@ -2013,7 +2082,7 @@ def _frontier_read_cost(X, y, Xc, yc) -> dict:
         ref = fused_builder._grow(fit, cfg, use_sub=False)
         sizes = [s for _, s in ref.levels]
         walls = {"read": [], "given": []}
-        for mode in ("read", "given", "given", "read"):
+        for mode in ("read", "given"):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             g = fused_builder._grow(fit, cfg, use_sub=False,
@@ -2041,13 +2110,12 @@ def phase_engines(X, y, Xc, yc, fused: dict) -> dict:
     ``ENGINE_TREES`` trees, which a forest of that size draws alike) and
     phase 13's regressor under each engine (``MPITREE_TPU_ENGINE``) and,
     for the tree, with sibling subtraction on and off in both
-    (``MPITREE_TPU_HIST_SUBTRACTION``), twice each; phases 3 and 13 ran the
+    (``MPITREE_TPU_HIST_SUBTRACTION``), once each; phases 3 and 13 ran the
     fused tree and regressor without subtraction (``fused``: their walls,
     launches and trees). Every tree must equal the fused one field for
-    field. One more fit of the tree and the regressor per engine under
-    torch.profiler counts its device-to-host copies; the fused engine's
-    frontier reads are counted by the engine (at most one a level). Then
-    the cost of those reads (:func:`_frontier_read_cost`)."""
+    field. The fused engine's frontier reads are counted by the engine (at
+    most one a level). Then the cost of those reads
+    (:func:`_frontier_read_cost`)."""
     from mpitree_tpu_torch.core import fused_builder
     from mpitree_tpu_torch.ops import hist_kernel
     from mpitree_tpu_torch.tree import (
@@ -2076,13 +2144,13 @@ def phase_engines(X, y, Xc, yc, fused: dict) -> dict:
             ref = fused[what]
             want = ref["trees"][:ENGINE_TREES]
             res = {} if what == "forest" else {"fused/off": dict(
-                second_s=ref["second_s"], launches=ref["launches"],
+                wall_s=ref["second_s"], launches=ref["launches"],
                 source="phases 3, 13")}
             for engine, sub in runs:
                 _set_engine(engine, sub)
                 est = make()
                 reads0 = fused_builder.frontier_reads
-                f1, f2, launches, _ = _fit_twice(est, Xa, ya, routes=routes)
+                wall, launches = _fit_once(est, Xa, ya, routes=routes)
                 got = _trees_of(est)
                 if len(got) != len(want) or not all(
                         _same_fields(a, b, PARITY_FIELDS + (
@@ -2092,23 +2160,13 @@ def phase_engines(X, y, Xc, yc, fused: dict) -> dict:
                         f"engines: {what} {engine}/{sub} differs from the "
                         f"fused build")
                 res[f"{engine}/{sub}"] = dict(
-                    first_s=f1, second_s=f2, launches=launches,
-                    frontier_reads=(fused_builder.frontier_reads
-                                    - reads0) // 2,
+                    wall_s=wall, launches=launches,
+                    frontier_reads=fused_builder.frontier_reads - reads0,
                     engine=est.fit_stats_["engine"])
             levels = sum(int(t.depth.max()) + 1 for t in want)
-            if what != "forest":
-                for engine in ("fused", "levelwise"):
-                    _set_engine(engine, "off")
-                    reads0 = fused_builder.frontier_reads
-                    copies, wall, busy = _d2h_copies(
-                        lambda: make().fit(Xa, ya))
-                    res[f"{engine}/off"].update(
-                        profiled_d2h_copies=copies, profiled_wall_s=wall,
-                        profiled_busy_share=busy,
-                        frontier_reads=fused_builder.frontier_reads - reads0)
             for key, r in res.items():
-                if key.startswith("fused") and r["frontier_reads"] > levels:
+                if key.startswith("fused") and r.get(
+                        "frontier_reads", 0) > levels:
                     raise AssertionError(
                         f"engines: {what} {key} read the frontier size "
                         f"{r['frontier_reads']} times in {levels} levels")
@@ -2123,13 +2181,401 @@ def phase_engines(X, y, Xc, yc, fused: dict) -> dict:
         seconds["frontier_read_cost"] = time.perf_counter() - t1
     finally:
         _set_engine("auto", "auto")
-    sub_gain = {k: out["tree"][f"{k}/off"]["second_s"]
-                / out["tree"][f"{k}/on"]["second_s"]
+    sub_gain = {k: out["tree"][f"{k}/off"]["wall_s"]
+                / out["tree"][f"{k}/on"]["wall_s"]
                 for k in ("levelwise", "fused")}
     out["tree_subtraction_speedup"] = sub_gain
     out["seconds"] = dict(seconds, total=time.perf_counter() - t0)
     log(f"engines: tree wall off/on {sub_gain} (>1: subtraction faster); "
         f"phase seconds {json.dumps(out['seconds'])}")
+    return out
+
+
+def _leafwise_build_cost(binned, y, cfg_kw: dict, what: str, modes,
+                         n_classes=None) -> dict:
+    """The fused leaf-wise build (``leafwise_builder._LeafLoop``,
+    binning and finalizing left out) in the turns ``modes``: ``"read"``
+    reads its 1-byte ``active`` flag every ``CHECK_EVERY`` expansions,
+    ``"fixed"`` runs the fixed trip count of ``P - 1`` expansions (both
+    without subtraction), ``"sub"`` reads as ``"read"`` with sibling
+    subtraction. Walls per mode, the flag reads, and the same tree in
+    every turn."""
+    from mpitree_tpu_torch.core import leafwise_builder as lw
+    from mpitree_tpu_torch.core.builder import BuildConfig, FitInputs
+
+    cfg = BuildConfig(**cfg_kw)
+    fit = FitInputs(binned, y, cfg, n_classes=n_classes)
+    pool = lw._pool_capacity(cfg.max_leaf_nodes, cfg.max_depth, fit.N)
+    walls = {m: [] for m in modes}
+    reads, ref = {}, None
+    for mode in modes:
+        reads0 = lw.done_reads
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g = lw._LeafLoop(fit, cfg, pool=pool, use_sub=mode == "sub").grow(
+            None if mode == "fixed" else lw.CHECK_EVERY)
+        n_nodes = int(g.n_nodes)
+        torch.cuda.synchronize()
+        walls[mode].append(time.perf_counter() - t0)
+        reads[mode] = lw.done_reads - reads0
+        got = (n_nodes, g.ints[:, :n_nodes].cpu(), g.counts[:n_nodes].cpu())
+        if ref is None:
+            ref = got
+        elif not (got[0] == ref[0] and torch.equal(got[1], ref[1])
+                  and torch.equal(got[2], ref[2])):
+            raise AssertionError(f"leafwise {what}: the builds of "
+                                 f"{modes} grew different trees")
+    out = dict(pool=pool, expansions=(ref[0] - 1) // 2,
+               check_every=lw.CHECK_EVERY, flag_reads=reads.get("read"),
+               **walls)
+    log(f"leafwise {what}: builds: " + json.dumps(out))
+    return out
+
+
+def phase_leafwise(X, y, Xh, yh, Xc, yc, Xch, ych) -> dict:
+    """Phase 25: best-first growth (``max_leaf_nodes``) at covtype's full
+    width. (a) ``max_leaf_nodes=4096`` at depth 12 equals the unbudgeted
+    depth-12 fused tree field for field, in both leaf-wise engines; its
+    build with flag reads against the fixed trip count. (b)
+    ``max_leaf_nodes=255`` unbounded in depth, twice with subtraction off
+    and on (the counters around the second fit; the same tree); wall,
+    expansions, profiled device-to-host copies (off), flag reads,
+    held-out accuracy; the build with flag reads, the fixed trip count
+    and subtraction in turns. (c) ``DecisionTreeRegressor(
+    max_leaf_nodes=255)`` on phase 13's matrix. (d) card vs CPU at 50,000
+    rows, budget 255 (phase 4's tie rule). (e) (b)'s tree through
+    ``compile_model`` (equal to ``predict_proba``) and its count channel
+    through K4 (``sum``), bit for bit."""
+    from mpitree_tpu_torch.core import leafwise_builder as lw
+    from mpitree_tpu_torch.ops.binning import bin_for_engine
+    from mpitree_tpu_torch.serving import compile_model, serve_kernel
+    from mpitree_tpu_torch.tree import (
+        DecisionTreeClassifier,
+        DecisionTreeRegressor,
+    )
+    from mpitree_tpu_torch.utils.datasets import covtype_like
+
+    out, seconds = {}, {}
+    fields = PARITY_FIELDS + ("parent", "depth", "value", "impurity")
+    t0 = time.perf_counter()
+    try:
+        base = DecisionTreeClassifier(
+            max_depth=LEAF_IDENTITY["max_depth"], max_bins=256,
+            **DEVICE_ONLY)
+        t1 = time.perf_counter()
+        depth12 = base.fit(X, y).tree_
+        torch.cuda.synchronize()
+        ident = dict(nodes=int(depth12.n_nodes),
+                     levelwise_fused_s=time.perf_counter() - t1)
+        for engine in ("fused", "levelwise"):
+            _set_engine(engine, "off")
+            reads0 = lw.done_reads
+            est = DecisionTreeClassifier(max_bins=256, **LEAF_IDENTITY)
+            t1 = time.perf_counter()
+            est.fit(X, y)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            if not _same_fields(est.tree_, depth12, fields):
+                raise AssertionError(
+                    f"leafwise identity: {engine} engine at budget "
+                    f"{LEAF_IDENTITY['max_leaf_nodes']} != the depth-"
+                    f"{LEAF_IDENTITY['max_depth']} level-wise tree")
+            ident[engine] = dict(wall_s=wall,
+                                 expansions=est.fit_stats_["expansions"],
+                                 flag_reads=lw.done_reads - reads0,
+                                 engine=est.fit_stats_["engine"])
+        _set_engine("auto", "off")
+        binned = bin_for_engine(X, max_bins=256, binning="auto",
+                                device=DEV)
+        ident["trip_cost"] = _leafwise_build_cost(
+            binned, y, dict(max_depth=LEAF_IDENTITY["max_depth"],
+                       max_leaf_nodes=LEAF_IDENTITY["max_leaf_nodes"]),
+            "identity build", ("read", "fixed"), n_classes=7)
+        out["identity"] = ident
+        log(f"leafwise identity: both engines == the depth-"
+            f"{LEAF_IDENTITY['max_depth']} tree: " + json.dumps(ident))
+        seconds["identity"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        budget = {}
+        trees = {}
+        for sub in ("off", "on"):
+            _set_engine("auto", sub)
+            est = DecisionTreeClassifier(max_leaf_nodes=LEAF_BUDGET,
+                                         max_bins=256)
+            reads0 = lw.done_reads
+            f1, f2, launches, peak = _fit_twice(est, X, y,
+                                                routes=("stream",))
+            reads = (lw.done_reads - reads0) // 2
+            trees[sub] = est.tree_
+            acc = float(np.mean(est.predict(Xh) == yh))
+            budget[sub] = dict(
+                first_s=f1, second_s=f2, launches=launches, peak_gib=peak,
+                expansions=est.fit_stats_["expansions"],
+                leaves=est.get_n_leaves(), depth=est.get_depth(),
+                flag_reads=reads, heldout_acc=acc, fit_stats=est.fit_stats_)
+            if sub == "off":
+                copies, pwall, busy = _d2h_copies(
+                    lambda: DecisionTreeClassifier(
+                        max_leaf_nodes=LEAF_BUDGET, max_bins=256).fit(X, y))
+                budget[sub].update(profiled_d2h_copies=copies,
+                                   profiled_wall_s=pwall,
+                                   profiled_busy_share=busy)
+            # the root and every expansion, masked ones past the end
+            # (at most CHECK_EVERY - 1) included
+            n_exp = budget[sub]["expansions"]
+            if launches["sorted"] or not (
+                    n_exp + 1 <= launches["stream"] < n_exp + 1
+                    + lw.CHECK_EVERY):
+                raise AssertionError(f"leafwise budget {sub}: launches "
+                                     f"{launches}")
+        _set_engine("auto", "auto")
+        if not _same_fields(trees["off"], trees["on"], fields):
+            raise AssertionError("leafwise budget: subtraction changed the "
+                                 "tree")
+        budget["subtraction_speedup"] = (budget["off"]["second_s"]
+                                         / budget["on"]["second_s"])
+        budget["builds"] = _leafwise_build_cost(
+            binned, y, dict(max_leaf_nodes=LEAF_BUDGET),
+            f"budget {LEAF_BUDGET}",
+            ("read", "fixed", "sub", "sub", "fixed", "read"), n_classes=7)
+        out["budget"] = budget
+        clf = est
+        log(f"leafwise budget {LEAF_BUDGET}: identical with subtraction off "
+            f"and on; " + json.dumps(budget))
+        seconds["budget"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        reg = DecisionTreeRegressor(max_leaf_nodes=LEAF_BUDGET, max_bins=256)
+        f1, f2, launches, peak = _fit_twice(reg, Xc, yc,
+                                            routes=("stream_fixed",))
+        r2 = _r2(ych, reg.predict(Xch))
+        out["regressor"] = dict(
+            first_s=f1, second_s=f2, launches=launches, peak_gib=peak,
+            heldout_r2=r2, expansions=reg.fit_stats_["expansions"],
+            leaves=reg.get_n_leaves())
+        log(f"leafwise regressor: " + json.dumps(out["regressor"]))
+        seconds["regressor"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        Xp, yp = covtype_like(50_000, seed=2)
+        kw = dict(max_leaf_nodes=LEAF_BUDGET, max_bins=256)
+        t1 = time.perf_counter()
+        gpu = DecisionTreeClassifier(device="cuda", **kw).fit(Xp, yp)
+        t2 = time.perf_counter()
+        cpu = DecisionTreeClassifier(device="cpu", **kw).fit(Xp, yp)
+        t3 = time.perf_counter()
+        _check_parity(gpu.tree_, cpu.tree_, Xp, yp, tie_depth=64,
+                      what=f"leafwise parity: 50000 rows budget "
+                      f"{LEAF_BUDGET}, cuda {t2 - t1:.3f} s, cpu "
+                      f"{t3 - t2:.3f} s")
+        out["parity"] = dict(nodes=int(gpu.tree_.n_nodes), cuda_s=t2 - t1,
+                             cpu_s=t3 - t2)
+        seconds["parity"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        for k in serve_kernel.launches:
+            serve_kernel.launches[k] = 0
+        cm = compile_model(clf)
+        Xq = Xh[:SERVE_SHAPES[2]]
+        want = clf.predict_proba(Xq)
+        if not np.array_equal(cm.predict_proba(Xq), want):
+            raise AssertionError("leafwise serve: compile_model != "
+                                 "predict_proba")
+        table = cm.table
+        cols = table.dev_arrays(DEV)[:5]
+        values = cm._values.to(torch.float64)
+        Xd = torch.from_numpy(np.ascontiguousarray(Xq)).to(DEV)
+        kw = dict(n_steps=table.n_steps, agg="sum", n_out=7)
+        got = serve_kernel.traverse(Xd, *cols, values,
+                                    n_features=Xq.shape[1], **kw)
+        ref = serve_kernel.traverse_reference(Xd, *cols, values, **kw)
+        if not (torch.equal(got, ref) and np.array_equal(
+                got.cpu().numpy(), want.astype(np.float64))):
+            raise AssertionError("leafwise serve: K4 != predict_proba")
+        ms = cuda_ms(lambda: serve_kernel.traverse(
+            Xd, *cols, values, n_features=Xq.shape[1], **kw), reps=5,
+            inner=SERVE_INNER[SERVE_SHAPES[2]], hold=True)
+        out["serve"] = dict(rows=len(Xq), k4_ms=ms, dispatch=cm.dispatch,
+                            launches=dict(serve_kernel.launches),
+                            nodes=int(clf.tree_.n_nodes))
+        log(f"leafwise serve: compile_model ({cm.dispatch}) == predict_proba"
+            f" and K4 sum == predict_proba at {len(Xq)} rows, bit for bit; "
+            + json.dumps(out["serve"]))
+        seconds["serve"] = time.perf_counter() - t0
+    finally:
+        _set_engine("auto", "auto")
+    out["seconds"] = seconds
+    return out
+
+
+def _margins(est, X, what: str) -> np.ndarray:
+    return (est.decision_function(X) if what == "classifier"
+            else est.predict(X))
+
+
+def _boost_divergence(fused, host, X, y, what: str) -> dict:
+    """Where a fused-rounds ensemble first leaves the host loop's, and why.
+
+    The fused rounds carry float32 margins, the host loop float64 ones;
+    the gradients then differ in their last float32 bits, which moves a
+    split only where two candidates' Newton costs lie that close. So the
+    trees must be equal up to the first divergent node, both trees must
+    split it, and there the two chosen candidates' float64 costs on the
+    host loop's own float32 (g, h) of that round (its margins from the
+    rounds before) lie within ``NEAR_TIE`` relative; the margins of the
+    rounds before it must agree within 2e-4 (the JAX package's bound).
+    Returns the round, node, cost gap and margin delta."""
+    for t, (a, b) in enumerate(zip(fused.trees_, host.trees_)):
+        if _same_fields(a, b, ("feature", "threshold", "left", "right")):
+            continue
+        n = min(a.n_nodes, b.n_nodes)
+        node = next((i for i in range(n) if not (
+            a.feature[i] == b.feature[i] and a.left[i] == b.left[i]
+            and (a.feature[i] < 0 or a.threshold[i] == b.threshold[i]))),
+            n)
+        raw_f = raw_h = None
+        for i, (rf, rh) in enumerate(zip(fused._staged_raw(X),
+                                         host._staged_raw(X))):
+            if i + 1 == t:
+                raw_f, raw_h = rf[:, 0].copy(), rh[:, 0].copy()
+                break
+        if raw_h is None:  # the first round: both start at the baseline
+            raw_h = np.full(len(X), float(host._baseline_raw[0]))
+            raw_f = raw_h
+        before = float(np.abs(raw_f - raw_h).max())
+        if node >= n or a.feature[node] < 0 or b.feature[node] < 0:
+            raise AssertionError(
+                f"fused rounds {what}: tree {t} node {node}: one ensemble "
+                "splits a node the other leaves")
+        g, h = host._loss().grad_hess(raw_h[:, None], y)
+        g32 = g[:, 0].astype(np.float32).astype(np.float64)
+        h32 = h[:, 0].astype(np.float32).astype(np.float64)
+        rows = _node_rows(b, X, node)
+
+        def cost(f, thr):
+            left = rows & (X[:, f] <= thr)
+            right = rows & ~(X[:, f] <= thr)
+            return -0.5 * sum(g32[m].sum() ** 2 / max(h32[m].sum(), 1e-12)
+                              for m in (left, right))
+
+        ca = cost(int(a.feature[node]), a.threshold[node])
+        cb = cost(int(b.feature[node]), b.threshold[node])
+        gap = abs(ca - cb) / max(abs(ca), abs(cb), 1e-300)
+        out = dict(tree=t, node=node, depth=int(b.depth[node]),
+                   rows=int(rows.sum()), cost_gap=gap,
+                   margin_delta_before=before)
+        log(f"fused rounds {what}: first divergence " + json.dumps(out))
+        if gap > NEAR_TIE or before > 2e-4:
+            raise AssertionError(f"fused rounds {what}: divergence beyond "
+                                 f"a near tie: {out}")
+        return out
+    return {}
+
+
+def phase_fused_rounds(X, y, Xh, yh, Xc, yc, Xch, ych) -> dict:
+    """Phase 26: ``GradientBoostingRegressor()`` on phase 13's matrix and
+    ``GradientBoostingClassifier(max_leaf_nodes=31)`` on phase 19's binary
+    covtype, each at ``rounds_per_dispatch`` 1 (the host loop) and 8 (the
+    fused rounds), after a 2-round warm-up: wall, launches, copies per
+    dispatch (counted by ``fused_rounds.copies``, and profiled on the
+    regressor's one 8-round dispatch), the largest |margin K=8 - margin
+    K=1| on held-out rows (within 2e-4, or else
+    :func:`_boost_divergence`), held-out R^2 / accuracy. The K=8
+    ensembles are served as ``margin`` through K4 (bit for bit) and K5
+    (within its report)."""
+    from mpitree_tpu_torch.boosting import fused_rounds
+    from mpitree_tpu_torch.ops import hist_kernel
+    from mpitree_tpu_torch.serving import compile_model, quantize, serve_kernel
+    from mpitree_tpu_torch.tree import (
+        GradientBoostingClassifier,
+        GradientBoostingRegressor,
+    )
+
+    top = int(np.bincount(y).argmax())
+    out = {}
+    for what, cls, kw, Xd, yd, Xq, yq in (
+            ("regressor", GradientBoostingRegressor, {}, Xc, yc, Xch, ych),
+            ("classifier", GradientBoostingClassifier,
+             dict(max_leaf_nodes=BOOST_LEAVES), X, binary(y, top), Xh,
+             binary(yh, top))):
+        res, ests = {}, {}
+        for K in (1, FUSED_K):
+            kk = dict(kw, rounds_per_dispatch=K, max_iter=BOOST_ROUNDS)
+            cls(**{**kk, "max_iter": 2}).fit(Xd, yd)
+            torch.cuda.synchronize()
+            for k in hist_kernel.launches:
+                hist_kernel.launches[k] = 0
+            copies0 = fused_rounds.copies
+            t0 = time.perf_counter()
+            est = cls(**kk).fit(Xd, yd)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            st = est.fit_stats_
+            if not hist_kernel.launches["stream_fixed"]:
+                raise AssertionError(f"fused rounds {what} K={K}: no "
+                                     "stream_fixed launch")
+            if st["rounds_per_dispatch"]["value"] != K:
+                raise AssertionError(f"fused rounds {what}: K {K} not taken:"
+                                     f" {st['rounds_per_dispatch']}")
+            pred = est.predict(Xq)
+            score = (float(np.mean(pred == yq)) if what == "classifier"
+                     else _r2(yq, pred))
+            res[K] = dict(wall_s=wall, launches=dict(hist_kernel.launches),
+                          heldout=score, fit_stats=st,
+                          nodes=int(sum(t.n_nodes for t in est.trees_)))
+            if K > 1:
+                res[K]["copies"] = fused_rounds.copies - copies0
+                res[K]["copies_per_dispatch"] = (res[K]["copies"]
+                                                 / st["dispatches"])
+            ests[K] = est
+        delta = float(np.abs(_margins(ests[FUSED_K], Xq, what)
+                             - _margins(ests[1], Xq, what)).max())
+        if delta > 2e-4:
+            # a split moved by the float32 margins: it must be a near tie
+            res["divergence"] = _boost_divergence(ests[FUSED_K], ests[1],
+                                                  Xd, yd, what)
+        if what == "regressor":  # the most copies: its residual read
+            copies, pwall, busy = _d2h_copies(lambda: cls(**dict(
+                kw, rounds_per_dispatch=FUSED_K, max_iter=FUSED_K)).fit(
+                    Xd, yd))
+            res["one_dispatch_profiled"] = dict(
+                d2h_copies=copies, wall_s=pwall, busy_share=busy)
+        res["max_margin_delta"] = delta
+        res["speedup_k8"] = res[1]["wall_s"] / res[FUSED_K]["wall_s"]
+
+        est = ests[FUSED_K]
+        for k in serve_kernel.launches:
+            serve_kernel.launches[k] = 0
+        cm = compile_model(est)
+        cm8 = compile_model(est, quantize="int8", quantize_tol=math.inf)
+        for n in SERVE_SHAPES[:3]:
+            if not np.array_equal(_margins(cm, Xq[:n], what),
+                                  _margins(est, Xq[:n], what)):
+                raise AssertionError(f"fused rounds {what}: served margins "
+                                     f"!= estimator at {n} rows")
+            cm8.raw(Xq[:n])
+        rep = cm8.serve_report_["quantization"]
+        cal = quantize.synthesize_calibration(cm8.table, Xq.shape[1])
+        cal_delta = float(np.abs(cm8.raw(cal) - cm.raw(cal)).max())
+        launches = dict(serve_kernel.launches)
+        if not (launches["traverse"] and launches["traverse_q"]):
+            raise AssertionError(f"fused rounds {what}: serving launches "
+                                 f"{launches}")
+        if not (rep["ok"] and cal_delta <= rep["max_abs_delta"] + 1e-6):
+            raise AssertionError(f"fused rounds {what}: int8 outside its "
+                                 f"report: delta {cal_delta}, report {rep}")
+        res["serving"] = dict(
+            launches=launches, quantization=rep, calibration_delta=cal_delta,
+            kernels=_served_kernel_rows(cm, cm8, Xq, f"fused {what}",
+                                        agg="percls"))
+        out[what] = res
+        log(f"fused rounds {what}: K=1 {res[1]['wall_s']:.3f} s, K="
+            f"{FUSED_K} {res[FUSED_K]['wall_s']:.3f} s (x"
+            f"{res['speedup_k8']:.3f}); max |margin delta| {delta:.3e}; "
+            f"held-out {res[1]['heldout']:.6f} / "
+            f"{res[FUSED_K]['heldout']:.6f}; " + json.dumps(
+                {k: v for k, v in res.items() if k != "serving"}))
     return out
 
 
@@ -2343,6 +2789,10 @@ def main() -> int:
                           trees=[reg_tree]),
     })
     mark("24 engines")
+    leafwise = phase_leafwise(X, y, Xh, yh, Xc, yc, Xch, ych)
+    mark("25 leafwise")
+    fused = phase_fused_rounds(X, y, Xh, yh, Xc, yc, Xch, ych)
+    mark("26 fused rounds")
     if args.profile:
         profile_all(X, y, forest, Xh, args.profile)
 
@@ -2371,6 +2821,9 @@ def main() -> int:
                        if isinstance(v, dict) and "launches" in v}
                 for what, r in engines.items() if what != "regressor"
                 and isinstance(r, dict) and "levels" in r},
+            leafwise_launches={
+                sub: leafwise["budget"][sub]["launches"][route]
+                for sub in ("off", "on")},
         ))
     for form, (agg, chan) in SERVE_LINE.items():
         row = next(r for r in serve_shapes if r["kernel"] == form
@@ -2423,6 +2876,12 @@ def main() -> int:
             engine_launches={k: v["launches"][key] for k, v in
                              engines["regressor"].items()
                              if isinstance(v, dict) and "launches" in v},
+            leafwise_regressor_launches=leafwise["regressor"]["launches"][
+                key],
+            fused_rounds_launches={
+                f"{what} K={K}": fused[what][K]["launches"][key]
+                for what in ("regressor", "classifier")
+                for K in (1, FUSED_K)},
         ))
     for form in SERVE_LINE:
         for what in ("classifier", "regressor"):
@@ -2440,6 +2899,26 @@ def main() -> int:
                         "ensemble traversal",
                 rows=row["rows"], n_out=row["n_out"], trees=sv["trees"],
             ))
+    # the leaf-wise frontier's sibling pair: the stream routes at S = 2
+    for key, payload in (("stream", None), ("stream_fixed", "moments")):
+        route = key.split("_")[0]
+        row = next(r for r in (shapes if payload is None else fixed_shapes)
+                   if r["S"] == 2 and r.get("payload") == payload)
+        if row["route"] != route:
+            raise AssertionError(f"S=2 planned {row['route']}, not {route}")
+        kernels.append(dict(
+            name=f"hist_{key}[S=2, leaf-wise pair]", route="cuda",
+            source="mpitree_tpu_torch/csrc/histogram.cu",
+            replaces=REPLACES[route], launches=(
+                leafwise["budget"]["off"]["launches"][key]
+                if payload is None else
+                leafwise["regressor"]["launches"][key]),
+            launches_of=("phase 25 (b), subtraction off" if payload is None
+                         else "phase 25 (c)"),
+            max_abs_err=row["max_abs_err"], ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=row["library_ms"],
+            payload=payload or "class counts"))
     if (set(hist_kernel.launches) != set(REPRESENTATIVE) | set(FIXED_LINE)
             or set(serve_kernel.launches) != set(SERVE_LINE)):
         raise AssertionError("kernels line does not cover every kernel")
@@ -2458,6 +2937,8 @@ def main() -> int:
     log(json.dumps({"persistence": persistence}))
     log(json.dumps({"boosting": boosting}))
     log(json.dumps({"engines": engines}))
+    log(json.dumps({"leafwise": leafwise}))
+    log(json.dumps({"fused_rounds": fused}))
     log(json.dumps({"phase_end_s": clock}))
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -34,19 +34,29 @@ answers equal the CPU's and the JAX package's bit for bit wherever the
 trees are the same. ``compile_model`` serves the margins through the
 traversal kernel K4 (``serving/model.py``, kind ``margin``).
 
+``max_leaf_nodes`` grows every round's tree best-first
+(``core/leafwise_builder.py``). ``rounds_per_dispatch`` (resolved by
+``boosting/fused_rounds.resolve_rounds_per_dispatch``, as the JAX
+package's ``:524-590``) runs K > 1 rounds per dispatch on the device
+(``fused_rounds.run_fused_rounds``: float32 margins, best-first trees, no
+copy inside a dispatch) for binary logistic and squared error without
+early stopping or ``colsample_bytree``; ``"auto"`` engages it where
+measured faster (K = 8 on the card, the host loop on the CPU), an
+explicit K raises on a blocker.
+
 ``fit_stats_`` holds the phase seconds, each ending when the card is idle
 (``bin_seconds``; ``loss_seconds``, the host's masks, (g, h), guards and
-losses; ``build_seconds``, the tree builds; ``refit_seconds``, the leaf
-refits and margin updates), ``n_rounds``, and the ``rounds_per_dispatch``
-decision with its reason.
+losses; ``build_seconds``, the tree builds, or the fused dispatches;
+``refit_seconds``, the leaf refits and margin updates), ``n_rounds``, the
+``rounds_per_dispatch`` decision with its reason, and for fused rounds
+``dispatches``, ``pool`` and ``hist_subtraction``; a leaf-wise round
+adds its ``engine``, ``frontier`` and ``expansions``.
 
 Options off this path raise ``NotImplementedError`` naming their
-``ROADMAP.md`` item: ``max_leaf_nodes`` (leaf-wise growth, item 13), an
-integer ``rounds_per_dispatch > 1`` (the fused rounds, item 12 step 3;
-``"auto"`` and ``1`` run the host loop), ``checkpoint`` (item 17),
-``fit(dataset=...)`` (item 16) and ``n_devices > 1`` (item 14).
-``backend="host"`` raises ``ValueError``: boosting rounds run the device
-engine only, as in the JAX package.
+``ROADMAP.md`` item: ``checkpoint`` (item 17), ``fit(dataset=...)``
+(item 16) and ``n_devices > 1`` (item 14). ``backend="host"`` raises
+``ValueError``: boosting rounds run the device engine only, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -57,6 +67,7 @@ import numpy as np
 import torch
 
 from mpitree_tpu_torch._device import resolve_device
+from mpitree_tpu_torch.boosting import fused_rounds
 from mpitree_tpu_torch.boosting.losses import loss_for
 from mpitree_tpu_torch.core.builder import BuildConfig, build_tree, pack_for_fit
 from mpitree_tpu_torch.models.classifier import (
@@ -86,12 +97,7 @@ from mpitree_tpu_torch.utils.validation import (
 
 # (parameter, value the slice supports, ROADMAP.md item that ports it)
 _LATER = (
-    ("max_leaf_nodes", None, "Queue 1 item 13 (leaf-wise growth)"),
     ("checkpoint", None, "Queue 1 item 17 (resilience/checkpoint.py)"),
-)
-_HOST_LOOP_REASON = (
-    "host round loop: the fused multi-round dispatch is not ported yet "
-    "(ROADMAP.md Queue 1 item 12 step 3)"
 )
 
 
@@ -237,7 +243,6 @@ class _BaseGradientBoosting(EstimatorBase):
                 "checkpoint_compact_every must be >= 2 shards or None, "
                 f"got {cce!r}"
             )
-        validate_max_leaf_nodes(self)
         if host_tier(self.backend):
             raise ValueError(
                 "backend='host': boosting rounds run the device engine "
@@ -251,12 +256,6 @@ class _BaseGradientBoosting(EstimatorBase):
                     "rounds_per_dispatch must be an integer >= 1 or "
                     f"'auto', got {rpd!r}"
                 )
-            if int(rpd) > 1:
-                raise NotImplementedError(
-                    f"rounds_per_dispatch={rpd!r} is not ported yet "
-                    "(ROADMAP.md Queue 1 item 12 step 3, the fused "
-                    "rounds); 'auto' and 1 run the host round loop"
-                )
         if dataset is not None:
             raise NotImplementedError(
                 "fit(dataset=...) is not ported yet (ROADMAP.md Queue 1 "
@@ -266,6 +265,7 @@ class _BaseGradientBoosting(EstimatorBase):
 
     def _fit(self, X, y, sample_weight, *, task, dataset=None):
         self._validate_params_(dataset)
+        mln = validate_max_leaf_nodes(self)
         device = resolve_device(self.device)
         X, y_t, classes = validate_fit_data(X, y, task=task)
         sw = validate_sample_weight(sample_weight, X.shape[0])
@@ -314,12 +314,11 @@ class _BaseGradientBoosting(EstimatorBase):
         packed = pack_for_fit(binned)
         stats = {"bin_seconds": clock.lap(),
                  "loss_seconds": 0.0, "build_seconds": 0.0,
-                 "refit_seconds": 0.0,
-                 "rounds_per_dispatch": {"value": 1,
-                                         "reason": _HOST_LOOP_REASON}}
+                 "refit_seconds": 0.0}
         cfg = BuildConfig(
             task="gbdt",
             max_depth=self.max_depth,
+            max_leaf_nodes=mln,
             min_samples_split=int(self.min_samples_split),
             min_child_weight=float(self.min_child_weight),
             reg_lambda=float(self.reg_lambda),
@@ -345,8 +344,30 @@ class _BaseGradientBoosting(EstimatorBase):
         stale = 0
         n_iter = 0
         stopped_early = False
+        # K rounds per dispatch on the card (boosting/fused_rounds.py),
+        # resolved as the JAX package's :524-590: "auto" where measured
+        # faster, an explicit K forces it or raises on a blocker; K == 1
+        # is the host round loop below
+        k_dispatch, reason = fused_rounds.resolve_rounds_per_dispatch(
+            self.rounds_per_dispatch, device_type=device.type,
+            loss_kind=loss.kind, loss_K=K,
+            early_stopping=bool(self.early_stopping), colsample=colsample,
+            max_depth=self.max_depth, max_leaf_nodes=mln,
+            n_samples=binned.n_samples, n_features=binned.n_features,
+            n_bins=binned.n_bins, hist_budget_bytes=cfg.hist_budget_bytes)
+        stats["rounds_per_dispatch"] = {"value": int(k_dispatch),
+                                        "reason": reason}
         stats["loss_seconds"] += clock.lap()
-        for r in range(int(self.max_iter)):
+        if k_dispatch > 1:
+            stats.update(fused_rounds.run_fused_rounds(
+                binned=binned, packed=packed, y_tr=y_tr, sw_tr=sw_tr,
+                raw_tr=raw_tr, trees=trees, train_scores=train_scores,
+                max_iter=int(self.max_iter), cfg=cfg, seed=seed, lr=lr,
+                loss_kind=loss.kind, rounds_per_dispatch=int(k_dispatch),
+                subsample=subsample, verbose=bool(self.verbose)))
+            n_iter = int(self.max_iter)
+            stats["build_seconds"] += clock.lap()
+        for r in range(n_iter, int(self.max_iter)):
             mask = row_subsample_mask(seed, r, n_tr, subsample)
             if colsample < 1.0:
                 kept = np.flatnonzero(feature_subsample_mask(
@@ -381,7 +402,7 @@ class _BaseGradientBoosting(EstimatorBase):
                     binned_r, np.ascontiguousarray(g[:, k], np.float32),
                     config=cfg,
                     sample_weight=np.ascontiguousarray(h[:, k], np.float32),
-                    packed=packed_r, return_leaf_ids=True,
+                    packed=packed_r, return_leaf_ids=True, stats=stats,
                 )
                 stats["build_seconds"] += clock.lap()
                 if kept is not None:

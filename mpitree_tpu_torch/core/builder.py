@@ -62,8 +62,9 @@ histograms (one buffer per chunk, while they fit ``hist_budget_bytes``,
 pair, rebuilding the larger as ``parent - small`` (``:1636-1655``). Both
 histogram routes subtract exactly, so it never changes a tree.
 
-Not here (see ``ROADMAP.md``): the fused boosting rounds, the leaf-wise
-engines, the resilience snapshot and the observability layer.
+A ``max_leaf_nodes`` budget sends :func:`build_tree` to the leaf-wise
+engines (``core/leafwise_builder.py``). Not here (see ``ROADMAP.md``): the
+resilience snapshot and the observability layer.
 """
 
 from __future__ import annotations
@@ -112,8 +113,9 @@ SUBTRACTION_FLAGS = ("auto", "on", "off")
 # (mpitree_tpu/config/knobs.py:68-87).
 ENGINE_ENV = "MPITREE_TPU_ENGINE"
 SUBTRACTION_ENV = "MPITREE_TPU_HIST_SUBTRACTION"
-# What hist_subtraction="auto" resolves to, per device type: on only where
-# chip_smoke.py phase 24 measured subtraction faster end to end (PERF.md).
+# What hist_subtraction="auto" resolves to, per device type, in every
+# engine: on only where chip_smoke.py measured subtraction faster end to
+# end (phase 24 level by level, phase 25 leaf-wise; PERF.md).
 SUBTRACTION_AUTO = {"cuda": False, "cpu": False}
 
 
@@ -154,6 +156,9 @@ class BuildConfig:
     # Sibling subtraction in both engines: "on", "off", or "auto"
     # (SUBTRACTION_AUTO; MPITREE_TPU_HIST_SUBTRACTION steers it).
     hist_subtraction: str = "auto"
+    # A leaf budget grows the tree best-first (core/leafwise_builder.py);
+    # None grows it level by level.
+    max_leaf_nodes: int | None = None
 
 
 def chunk_bytes_per_slot(n_feat: int, n_bins: int, n_chan: int,
@@ -214,15 +219,18 @@ def _env_flag(name: str, choices: tuple) -> str:
 def resolve_engine(cfg: BuildConfig) -> str:
     """``"fused"`` or ``"levelwise"``, as ``mpitree_tpu/core/builder.py``
     resolves it (``:808-990``, without the advisor and the leaf-wise
-    reroute): an explicit ``cfg.engine`` wins, ``MPITREE_TPU_ENGINE``
-    steers ``"auto"``, and ``"auto"`` is fused. ``task="gbdt"`` runs
-    levelwise; asking for the fused engine there raises."""
+    reroute) and ``mpitree_tpu/core/leafwise_builder.py:527-545`` for a
+    ``max_leaf_nodes`` budget: an explicit ``cfg.engine`` wins,
+    ``MPITREE_TPU_ENGINE`` steers ``"auto"``, and ``"auto"`` is fused. A
+    level-by-level ``task="gbdt"`` build runs levelwise, and asking for
+    the fused engine there raises; the leaf-wise engines take every
+    task."""
     engine = cfg.engine
     if engine not in ENGINES:
         raise ValueError(f"unknown build engine {engine!r}")
     if engine == "auto":
         engine = _env_flag(ENGINE_ENV, ENGINES)
-    if cfg.task == "gbdt":
+    if cfg.task == "gbdt" and cfg.max_leaf_nodes is None:
         if cfg.engine == "fused":
             raise ValueError(
                 "the fused engine does not implement task='gbdt'; use "
@@ -233,7 +241,7 @@ def resolve_engine(cfg: BuildConfig) -> str:
 
 
 def resolve_hist_subtraction(cfg: BuildConfig, device: torch.device) -> bool:
-    """Whether both engines build the larger sibling's histogram as
+    """Whether the engines build the larger sibling's histogram as
     ``parent - small``. An explicit ``cfg.hist_subtraction`` wins,
     ``MPITREE_TPU_HIST_SUBTRACTION`` steers ``"auto"``, and ``"auto"`` is
     :data:`SUBTRACTION_AUTO` for the device type. Unlike the JAX package's
@@ -346,6 +354,15 @@ def keep_level(fit, cfg: BuildConfig, use_sub: bool, S: int,
             <= cfg.hist_budget_bytes)
 
 
+def _on_device(a, dtype, dev) -> torch.Tensor:
+    """``a`` (numpy, or a tensor already on the card: the fused boosting
+    rounds' gradients) as a ``dtype`` tensor on ``dev``."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device=dev, dtype=dtype)
+    np_dtype = np.float32 if dtype == torch.float32 else np.int64
+    return torch.as_tensor(np.asarray(a, np_dtype), device=dev)
+
+
 class FitInputs:
     """What both engines prepare once per tree on the fit's device: the
     bins (int32 and the byte-wide copy), the payload and its route, the
@@ -377,15 +394,15 @@ class FitInputs:
                                   device=dev)
         if task == "gbdt":
             self.C = 3
-            self.y = torch.as_tensor(np.asarray(y, np.float32), device=dev)
+            self.y = _on_device(y, torch.float32, dev)
             self.payload = gbdt_payload(self.y, w_d).contiguous()
         elif task == "regression":
             self.C = 3
-            self.y = torch.as_tensor(np.asarray(y, np.float32), device=dev)
+            self.y = _on_device(y, torch.float32, dev)
             self.payload = moment_payload(self.y, w_d).contiguous()
         else:
             self.C = int(n_classes)
-            self.y = torch.as_tensor(np.asarray(y, np.int64), device=dev)
+            self.y = _on_device(y, torch.int64, dev)
             self.payload = class_payload(
                 self.y, None if sample_weight is None else w_d, self.C
             ).contiguous()
@@ -563,7 +580,8 @@ def build_tree(binned: BinnedData, y: np.ndarray, *, config: BuildConfig,
                refit_targets: np.ndarray | None = None,
                feature_sampler=None,
                feature_mask: np.ndarray | None = None,
-               mono_cst: np.ndarray | None = None):
+               mono_cst: np.ndarray | None = None,
+               stats: dict | None = None):
     """Grow one tree on the device that holds ``binned.x_binned``; returns
     the host struct-of-arrays tree. The engine comes from
     :func:`resolve_engine`: the fused engine
@@ -586,9 +604,29 @@ def build_tree(binned: BinnedData, y: np.ndarray, *, config: BuildConfig,
     keeps a tree's subspace. ``mono_cst`` (F,) internal monotonicity signs
     (``utils/monotonic.validate_monotonic_cst``; all zero or None means
     unconstrained) gates every split on its child values.
+
+    A ``cfg.max_leaf_nodes`` budget (at least 2) grows the tree best-first
+    instead (``core/leafwise_builder.build_tree_leafwise``, the dispatch of
+    ``mpitree_tpu/core/builder.py:757-780``), which records its engine,
+    frontier and expansions in ``stats``.
     """
     cfg = config
     check_task(cfg)
+    if cfg.max_leaf_nodes is not None:
+        if int(cfg.max_leaf_nodes) < 2:
+            raise ValueError(
+                f"max_leaf_nodes must be >= 2 or None, got "
+                f"{cfg.max_leaf_nodes!r}")
+        from mpitree_tpu_torch.core.leafwise_builder import (
+            build_tree_leafwise,
+        )
+
+        return build_tree_leafwise(
+            binned, y, config=cfg, n_classes=n_classes,
+            sample_weight=sample_weight, packed=packed,
+            return_leaf_ids=return_leaf_ids, refit_targets=refit_targets,
+            feature_sampler=feature_sampler, feature_mask=feature_mask,
+            mono_cst=mono_cst, stats=stats)
     kw = dict(config=cfg, n_classes=n_classes, sample_weight=sample_weight,
               packed=packed, return_leaf_ids=return_leaf_ids,
               refit_targets=refit_targets, feature_sampler=feature_sampler,

@@ -38,8 +38,9 @@ A level (``level_body``, ``:385-653``):
 call on one device from stacked (T, N) weights and (T, F, B) candidate
 masks, decides every tree's histogram route with one copy, and copies the
 finished trees to the host once. Not here (``ROADMAP.md``): the JAX
-package's ``(tree, data)`` mesh (item 14) and the fused boosting rounds
-(item 12 step 3); ``task="gbdt"`` runs the levelwise engine.
+package's ``(tree, data)`` mesh (item 14); ``task="gbdt"`` runs the
+levelwise engine (the fused boosting rounds grow best-first trees,
+``boosting/fused_rounds.py``).
 """
 
 from __future__ import annotations
@@ -301,20 +302,24 @@ def _grow(fit: FitInputs, cfg: BuildConfig, *, use_sub: bool,
 
 
 def _finalize_tree(binned, task: str, criterion: str, n_nodes: int,
-                   ints: np.ndarray, counts: np.ndarray, levels: list,
-                   count_dtype) -> TreeArrays:
+                   ints: np.ndarray, counts: np.ndarray, levels: list | None,
+                   count_dtype, depth: np.ndarray | None = None
+                   ) -> TreeArrays:
     """Device build arrays (host copies) -> the TreeArrays the levelwise
     engine's node store finalizes (``:1041``): the same dtypes, values
-    and impurities from the same counts."""
+    and impurities from the same counts. Node depths come from the
+    ``levels`` (first node, size) of a level-by-level build, or as
+    ``depth`` (the leaf-wise engines)."""
     feature, bins, left, parent = (a[:n_nodes] for a in ints)
     counts = counts[:n_nodes]
     threshold = np.full(n_nodes, np.nan, np.float32)
     interior = feature >= 0
     threshold[interior] = binned.thresholds[feature[interior],
                                             bins[interior]]
-    depth = np.zeros(n_nodes, np.int32)
-    for d, (lo, size) in enumerate(levels):
-        depth[lo:lo + size] = d
+    if depth is None:
+        depth = np.zeros(n_nodes, np.int32)
+        for d, (lo, size) in enumerate(levels):
+            depth[lo:lo + size] = d
     if task == "classification":
         n = counts.sum(axis=1)
         value = counts.argmax(axis=1).astype(np.int32)
@@ -332,7 +337,7 @@ def _finalize_tree(binned, task: str, criterion: str, n_nodes: int,
         left=left.astype(np.int32),
         right=np.where(left >= 0, left + 1, -1).astype(np.int32),
         parent=parent.astype(np.int32),
-        depth=depth,
+        depth=np.asarray(depth[:n_nodes], np.int32),
         value=value,
         count=count,
         n_node_samples=n.astype(np.int64),

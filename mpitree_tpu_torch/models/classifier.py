@@ -62,9 +62,14 @@ the finished tree's ``value`` holds the bound-clipped labels, which
 or walk the fitted tree as the JAX package's do (``utils/export.py``,
 ``core/tree_struct.py``).
 
-Options that live off the ported path raise ``NotImplementedError``
-naming their ``ROADMAP.md`` item: ``max_leaf_nodes`` (leaf-wise growth)
-and multi-device ``n_devices``.
+``max_leaf_nodes`` grows the tree best-first on the device engine
+(``core/leafwise_builder.py``), the whole depth in one engine with no
+refine tail (``:249-252``); ``backend="host"`` refuses it, as the JAX
+package does. ``fit_stats_`` then also holds ``frontier`` (``"leafwise"``)
+and ``expansions``.
+
+Multi-device ``n_devices`` lives off the ported path and raises
+``NotImplementedError`` naming its ``ROADMAP.md`` item.
 """
 
 from __future__ import annotations
@@ -105,6 +110,7 @@ from mpitree_tpu_torch.utils.validation import (
     min_decrease_scaled,
     resolve_refine,
     validate_fit_data,
+    validate_max_leaf_nodes,
     validate_predict_data,
     validate_sample_weight,
 )
@@ -112,12 +118,6 @@ from mpitree_tpu_torch.utils.validation import (
 
 class NotFittedError(ValueError, AttributeError):
     """Raised by predict-time methods before ``fit`` (sklearn's contract)."""
-
-
-# (parameter, value the slice supports, ROADMAP.md item that ports it)
-_LATER = (
-    ("max_leaf_nodes", None, "Queue 1 item 13 (leaf-wise growth)"),
-)
 
 
 def host_tier(backend) -> bool:
@@ -157,7 +157,7 @@ def grow_tree(binned, X, y, *, host: bool, cfg: BuildConfig, max_depth, rd,
               feature_sampler=feature_sampler, feature_mask=feature_mask,
               mono_cst=mono_cst)
     res = (build_tree_host(binned, y, **kw) if host
-           else build_tree(binned, y, packed=packed, **kw))
+           else build_tree(binned, y, packed=packed, stats=stats, **kw))
     tree, leaf_ids = res if refine else (res, None)
     stats["engine"] = "host" if host else resolve_engine(cfg)
     stats["crown_seconds"] = stats.get("crown_seconds", 0.0) + clock.lap()
@@ -325,7 +325,7 @@ class DecisionTreeClassifier(ClassifierBase):
         self.device = device
 
     def _check_slice(self) -> None:
-        refuse_later(self, _LATER)
+        refuse_later(self, ())
         if self.criterion not in ("entropy", "gini"):
             raise ValueError(
                 f"unknown classification criterion: {self.criterion!r}"
@@ -340,6 +340,7 @@ class DecisionTreeClassifier(ClassifierBase):
         mono = validate_monotonic_cst(
             self.monotonic_cst, X.shape[1], task="classification",
             n_classes=len(classes))
+        mln = validate_max_leaf_nodes(self)
         sw = validate_sample_weight(sample_weight, X.shape[0])
         sw = apply_class_weight(self.class_weight, y_enc, classes, sw)
         clock = FitClock(device)
@@ -355,11 +356,14 @@ class DecisionTreeClassifier(ClassifierBase):
             self.max_depth, self.refine_depth,
             n_rows=X.shape[0], quantized=binned.quantized,
         )
-        if mono is not None:  # one engine for the whole depth
+        if mono is not None or mln is not None:
+            # one engine for the whole depth: a tail would grow past the
+            # leaf budget
             rd, refine, crown_depth = None, False, self.max_depth
         cfg = BuildConfig(
             criterion=self.criterion,
             max_depth=crown_depth,
+            max_leaf_nodes=mln,
             min_samples_split=self.min_samples_split,
             min_child_weight=min_child_weight(
                 self.min_weight_fraction_leaf, sw, X.shape[0],

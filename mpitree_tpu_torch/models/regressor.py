@@ -27,8 +27,10 @@ depth in one engine (``:149-153``) and clips the exact leaf means in
 returns. ``decision_path``, ``export_dot`` and ``nodes_`` as in the
 classifier.
 
-Options off the ported path raise ``NotImplementedError`` naming their
-``ROADMAP.md`` item: ``max_leaf_nodes`` and multi-device ``n_devices``.
+``max_leaf_nodes`` grows the tree best-first (``core/leafwise_builder.py``)
+in one engine with no refine tail; ``backend="host"`` refuses it.
+Multi-device ``n_devices`` raises ``NotImplementedError`` naming its
+``ROADMAP.md`` item.
 """
 
 from __future__ import annotations
@@ -62,13 +64,9 @@ from mpitree_tpu_torch.utils.validation import (
     min_decrease_scaled,
     resolve_refine,
     validate_fit_data,
+    validate_max_leaf_nodes,
     validate_predict_data,
     validate_sample_weight,
-)
-
-# (parameter, value the slice supports, ROADMAP.md item that ports it)
-_LATER = (
-    ("max_leaf_nodes", None, "Queue 1 item 13 (leaf-wise growth)"),
 )
 
 
@@ -140,12 +138,13 @@ class DecisionTreeRegressor(RegressorBase):
         if self.criterion not in ("squared_error", "mse"):
             raise ValueError(
                 f"unknown regression criterion: {self.criterion!r}")
-        refuse_later(self, _LATER)
+        refuse_later(self, ())
         host = host_tier(self.backend)
         device = resolve_device(self.device)
         X, y64, _ = validate_fit_data(X, y, task="regression")
         mono = validate_monotonic_cst(self.monotonic_cst, X.shape[1],
                                       task="regression")
+        mln = validate_max_leaf_nodes(self)
         sw = validate_sample_weight(sample_weight, X.shape[0])
         self._y_mean = float(y64.mean())
         clock = FitClock(device)
@@ -161,12 +160,14 @@ class DecisionTreeRegressor(RegressorBase):
             self.max_depth, self.refine_depth,
             n_rows=X.shape[0], quantized=binned.quantized,
         )
-        if mono is not None:  # one engine for the whole depth
+        if mono is not None or mln is not None:
+            # one engine for the whole depth (no tail past the leaf budget)
             rd, refine, crown_depth = None, False, self.max_depth
         cfg = BuildConfig(
             task="regression",
             criterion="mse",
             max_depth=crown_depth,
+            max_leaf_nodes=mln,
             min_samples_split=self.min_samples_split,
             min_child_weight=min_child_weight(
                 self.min_weight_fraction_leaf, sw, X.shape[0],

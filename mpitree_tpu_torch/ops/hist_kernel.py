@@ -17,9 +17,10 @@ TPU has no fast scatter. Hopper has atomics in shared memory (native for
 ``csrc/histogram.cu`` scatters into a shared-memory tile that one block owns
 and flushes once (the design and what bounds it are in that file's header):
 
-- ``stream`` (S = 1): rows in storage order, cut into pieces; every piece
-  adds its nonzero tile cells into the zeroed output with global atomics;
-- ``sorted`` (S >= 2): the rows are first ordered by slot
+- ``stream`` (S <= 2: the root, and a leaf-wise expansion's sibling
+  pair): rows in storage order, cut into pieces; every piece adds its
+  nonzero tile cells into the zeroed output with global atomics;
+- ``sorted`` (S > 2): the rows are first ordered by slot
   (:func:`slot_segments`, plain PyTorch: the counterpart of K3's
   ``_sort_and_pack``, which the JAX package also runs outside its kernel), so
   a block reads one slot's rows only, and a slot that one block owns is
@@ -81,7 +82,7 @@ SMEM_BYTES = 232_448
 SMEM_PER_SM = 233_472
 N_SMS = 132  # an H100's; plan() takes the card's own count from the wrapper
 # Widest frontier the stream route serves (measured: PERF.md, chip_smoke.py).
-STREAM_MAX_SLOTS = 1
+STREAM_MAX_SLOTS = 2  # the root, and the leaf-wise frontier's sibling pair
 LANE_FEATURES = 16  # kLaneFeat in csrc/histogram.cu: features per thread
 MAX_THREADS = 512  # kMaxThreads in csrc/histogram.cu
 MIN_PIECE_ROWS = 256
@@ -161,12 +162,25 @@ def exponents_from_top(top: np.ndarray, n_rows: int) -> list:
     ]
 
 
+_powers_cache: dict = {}
+
+
+def _powers(exps, sign: int, dtype, dev: torch.device) -> torch.Tensor:
+    """``2**(sign * k)`` for each exponent, on ``dev``, made once per
+    distinct (exponents, sign, dtype, device): a fit's launches then copy
+    nothing to the card (and a captured CUDA graph may reuse them)."""
+    key = (dev, dtype, sign, tuple(int(k) for k in exps))
+    if key not in _powers_cache:
+        _powers_cache[key] = torch.tensor(
+            [2.0 ** (sign * k) for k in key[3]], dtype=dtype, device=dev)
+    return _powers_cache[key]
+
+
 def quantize(payload: torch.Tensor, scale_exp) -> torch.Tensor:
     """``(N, C)`` float32 -> int64 ``round_half_even(v * 2**k[c])``, the
     values the fixed-point route adds (``torch.round`` rounds half to
     even, as the kernels' ``__double2ll_rn``)."""
-    scale = torch.tensor([2.0 ** k for k in scale_exp], dtype=torch.float64,
-                         device=payload.device)
+    scale = _powers(scale_exp, 1, torch.float64, payload.device)
     return torch.round(payload.to(torch.float64) * scale).to(torch.int64)
 
 
@@ -177,8 +191,7 @@ def dequantize(q: torch.Tensor, scale_exp, dim: int,
     exact power-of-two scale."""
     shape = [1] * q.dim()
     shape[dim] = len(scale_exp)
-    inv = torch.tensor([2.0 ** -k for k in scale_exp], dtype=dtype,
-                       device=q.device).view(shape)
+    inv = _powers(scale_exp, -1, dtype, q.device).view(shape)
     return q.to(dtype) * inv
 
 

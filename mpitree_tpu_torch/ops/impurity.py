@@ -57,6 +57,19 @@ _EMPTY_SIDE = 1e-300
 _INV_LN2_F32 = float(np.float32(1.0) / np.float32(np.log(np.float32(2.0))))
 
 
+_f32_consts: dict = {}
+
+
+def _f32_const(v: float, dev: torch.device) -> torch.Tensor:
+    """``float32(v)`` as a 0-d tensor on ``dev``, made once per (value,
+    device): a sweep copies nothing to the card (and a captured CUDA
+    graph may reuse it)."""
+    key = (dev, float(np.float32(v)))
+    if key not in _f32_consts:
+        _f32_consts[key] = torch.tensor(np.float32(v), device=dev)
+    return _f32_consts[key]
+
+
 class SplitDecision(NamedTuple):
     """Per-frontier-slot split search result, shapes (K,) unless noted.
 
@@ -527,11 +540,8 @@ def best_split_newton(
     c_l, g_l, h_l = f32(c_l, 0), f32(g_l, 1), f32(h_l, 2)
     c_r, g_r, h_r = f32(c_r, 0), f32(g_r, 1), f32(h_r, 2)
 
-    def f32_scalar(v):
-        return torch.tensor(np.float32(v), device=hist.device)
-
-    lam = f32_scalar(reg_lambda)
-    eps = f32_scalar(1e-12)
+    lam = _f32_const(reg_lambda, hist.device)
+    eps = _f32_const(1e-12, hist.device)
 
     def score(g, h):
         return g * g / torch.maximum(h + lam, eps)
@@ -539,10 +549,10 @@ def best_split_newton(
     cost = -0.5 * (score(g_l, h_l) + score(g_r, h_r))
     valid = cand_mask[None, :, :] & (c_l > 0) & (c_r > 0)
     if min_child_weight is not None:
-        mcw = f32_scalar(min_child_weight)
+        mcw = _f32_const(min_child_weight, hist.device)
         valid = valid & (h_l >= mcw) & (h_r >= mcw)
     if min_samples_leaf is not None:
-        msl = f32_scalar(min_samples_leaf)
+        msl = _f32_const(min_samples_leaf, hist.device)
         valid = valid & (c_l >= msl) & (c_r >= msl)
     cost = torch.where(valid, cost, torch.full_like(cost, math.inf))
 
@@ -569,3 +579,36 @@ def best_split_newton(
         constant=constant,
         n_left=_winner(c_l, best_feature, best_bin),
     )
+
+
+def leaf_gain(n, impurity, cost, *, task: str):
+    """Best-first expansion priority of an open leaf (numpy or torch):
+    ``leaf_gain`` (``mpitree_tpu/ops/impurity.py:337``). Classification
+    and regression rank by the weighted impurity decrease ``n *
+    (impurity - cost)``, gbdt by the Newton gain ``impurity - cost``. The
+    leaf-wise engines pass float32 decision fields, so one subtract and
+    one multiply rank the same on the host, the card and the CPU."""
+    gain = impurity - cost
+    if task != "gbdt":
+        gain = n * gain
+    return gain
+
+
+def best_leaf_slot(gain: torch.Tensor, node_id: torch.Tensor) -> torch.Tensor:
+    """Pool slot of the best open leaf, as a 0-d int64 tensor on the
+    pool's device (``best_leaf_slot``, ``:357``): the largest ``gain``,
+    ties to the lowest node id (ids are unique, so the pick does not
+    depend on the pool's layout). No host read: ``torch.max`` and a masked
+    ``argmin``."""
+    eligible = gain == torch.max(gain)
+    return torch.argmin(torch.where(
+        eligible, node_id.to(torch.int64),
+        torch.full_like(node_id, 2**31 - 1, dtype=torch.int64)))
+
+
+def best_leaf_slot_np(gain: np.ndarray, node_id: np.ndarray) -> int:
+    """numpy twin of :func:`best_leaf_slot` for the host-stepped loop
+    (``best_leaf_slot_np``, ``:376``)."""
+    top = np.max(gain)
+    return int(np.argmin(np.where(gain == top, node_id,
+                                  np.int64(2**31 - 1))))

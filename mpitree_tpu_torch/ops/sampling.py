@@ -29,12 +29,12 @@ carry each key in int64 and mask to 32 bits after every multiply and add.
 Boosting's round masks (``row_subsample_mask`` ``:138``,
 ``feature_subsample_mask`` ``:163``, ``subsample_threshold_u32`` ``:278``)
 are keyed the same way, by (seed, round, row or feature), so a refit
-draws the same subsample.
+draws the same subsample; :func:`row_subsample_mask_dev` draws the row
+mask on the card for the fused boosting rounds (``row_subsample_mask_jnp``
+``:286``).
 
-Not here (``ROADMAP.md``): the ``*_jnp`` twins of the round masks
-(``row_subsample_mask_jnp``, for the fused boosting rounds, item 12 step
-3), and the keyed forest draws ``bootstrap_weights``, ``tree_seed`` and
-``feature_subset`` (item 16).
+Not here (``ROADMAP.md`` item 16): the keyed forest draws
+``bootstrap_weights``, ``tree_seed`` and ``feature_subset``.
 """
 
 from __future__ import annotations
@@ -203,6 +203,26 @@ def row_subsample_mask(seed: int, round_idx: int, n_rows: int,
     with np.errstate(over="ignore"):
         keys = pcg_hash(base + np.arange(n_rows, dtype=np.uint32))
     return keys < subsample_threshold_u32(fraction)
+
+
+def row_subsample_mask_dev(seed: int, round_idx: int, n_rows: int,
+                           fraction: float,
+                           device: torch.device) -> torch.Tensor:
+    """:func:`row_subsample_mask` made on ``device`` (``(n_rows,)`` bool),
+    bit for bit: the fused boosting rounds draw every round's subsample
+    on the card (``row_subsample_mask_jnp``,
+    ``mpitree_tpu/ops/sampling.py:286``). The round's base key is host
+    arithmetic; the rows' hashes run in int64 masked to 32 bits
+    (:func:`pcg_hash_dev`)."""
+    if not 0.0 < fraction <= 1.0:
+        raise ValueError(
+            f"subsample fraction must be in (0, 1], got {fraction!r}")
+    if fraction >= 1.0:
+        return torch.ones(n_rows, dtype=torch.bool, device=device)
+    base = int(_round_base(seed, round_idx, _ROW_SALT))
+    rows = torch.arange(n_rows, dtype=torch.int64, device=device)
+    keys = pcg_hash_dev((rows + base) & _U32)
+    return keys < int(subsample_threshold_u32(fraction))
 
 
 def feature_subsample_mask(seed: int, round_idx: int, n_features: int,

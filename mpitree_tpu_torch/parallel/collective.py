@@ -23,7 +23,13 @@ on the fit's device:
   ``max(y) - min(y)`` that regression's purity stop reads;
 - :func:`update_node_id` (``make_update_fn``, ``:752``): rows of splitting
   nodes move to a child by ``bin(x[:, feat]) <= bin`` (left) or not
-  (right); every other row keeps its node id.
+  (right); every other row keeps its node id;
+- the leaf-wise frontier's unit of work (``core/leafwise_builder.py``):
+  :func:`reroute_leaf` moves the rows of the one leaf being expanded, and
+  :func:`pair_split_stats` (``:555``) builds and sweeps the histogram of
+  the new sibling pair; :func:`expand_step` (``make_expand_fn``,
+  ``:653``) is the two together. The node ids and the split come as
+  tensors on the device, so an expansion needs no host integer.
 
 The reroute and the counts are XLA code outside any Pallas kernel in the
 JAX package, and stay plain torch operations here.
@@ -262,3 +268,77 @@ def update_node_id(node_id: torch.Tensor, x_binned: torch.Tensor,
     go_left = xf <= bin_[s]
     nxt = torch.where(go_left, left_id[s], right_id[s])
     return torch.where(active, nxt, node_id)
+
+
+def reroute_leaf(node_id: torch.Tensor, x_binned: torch.Tensor,
+                 e_node: torch.Tensor, feat: torch.Tensor, bin_: torch.Tensor,
+                 left_id: torch.Tensor) -> torch.Tensor:
+    """The rows of leaf ``e_node`` go to ``left_id`` where
+    ``x_binned[:, feat] <= bin_`` and to ``left_id + 1`` otherwise; every
+    other row keeps its node. All four are 0-d tensors on the rows'
+    device (an ``e_node`` no row carries, such as -2, moves nothing)."""
+    col = x_binned.index_select(
+        1, feat.clamp(min=0).to(torch.int64).view(1))[:, 0]
+    child = torch.where(col <= bin_, left_id, left_id + 1).to(torch.int32)
+    return torch.where(node_id == e_node, child, node_id)
+
+
+def pair_split_stats(x_binned: torch.Tensor, payload: torch.Tensor,
+                     node_id: torch.Tensor, cand_mask: torch.Tensor,
+                     left_id: torch.Tensor, is_small: torch.Tensor,
+                     parent_hist: torch.Tensor | None, *, n_bins: int,
+                     criterion: str, min_child_weight: float, scale_exp,
+                     task: str, y: torch.Tensor,
+                     packed: torch.Tensor | None = None, feat_bins=None,
+                     reg_lambda: float = 0.0, min_leaf_rows: float = 0.0,
+                     subtraction: bool = False) -> tuple:
+    """Histogram and sweep of ONE sibling pair, nodes ``(left_id,
+    left_id + 1)`` (``pair_split_stats``,
+    ``mpitree_tpu/parallel/collective.py:555``): returns ``(decisions,
+    keep)``, the packed (2, ...) decision buffer of :func:`split_sweep`
+    and, under ``subtraction``, the pair's histogram for the leaf pool
+    (else None). ``left_id`` is a 0-d tensor on the device; the root
+    rides the same call with ``left_id == 0`` while every row still sits
+    at node 0 (slot 1 empty).
+
+    Without subtraction both slots accumulate (S = 2). With it only the
+    smaller child (``is_small`` (2,) bool) accumulates, into one compact
+    slot (``histogram.sibling_accumulate_slots`` with ``n_slots=2``), and
+    the larger is ``parent_hist - small`` from the expanded leaf's
+    resident (1, F, C, B) histogram (``histogram.sibling_reconstruct_pair``):
+    exact on both routes, so the pair is the same. Regression's purity
+    reads :func:`y_range` over the pair (``regression_y_range(...,
+    n_slots=2)``)."""
+    if subtraction:
+        slot = hist_ops.sibling_accumulate_slots(node_id, left_id, is_small,
+                                                 n_slots=2)
+        n_acc = 1
+    else:
+        slot = (node_id - left_id).to(torch.int32)
+        n_acc = 2
+    hist = split_hist(x_binned, payload, None, 0, n_slots=n_acc,
+                      n_bins=n_bins, packed=packed, feat_bins=feat_bins,
+                      scale_exp=scale_exp, slot=slot.contiguous())
+    if subtraction:
+        hist = hist_ops.sibling_reconstruct_pair(hist, parent_hist, is_small)
+    dec = split_sweep(hist, cand_mask, node_id, left_id, criterion=criterion,
+                      min_child_weight=min_child_weight, scale_exp=scale_exp,
+                      task=task, y=y, payload=payload, reg_lambda=reg_lambda,
+                      min_leaf_rows=min_leaf_rows)
+    return dec, (hist if subtraction else None)
+
+
+def expand_step(x_binned: torch.Tensor, payload: torch.Tensor,
+                node_id: torch.Tensor, cand_mask: torch.Tensor,
+                e_node: torch.Tensor, feat: torch.Tensor, bin_: torch.Tensor,
+                left_id: torch.Tensor, is_small: torch.Tensor,
+                parent_hist: torch.Tensor | None, **kw) -> tuple:
+    """One best-first expansion (``make_expand_fn``, ``:653``): reroute the
+    rows of leaf ``e_node`` through its split ``(feat, bin_)`` into
+    ``(left_id, left_id + 1)`` (:func:`reroute_leaf`), then
+    :func:`pair_split_stats` of the new pair (``kw`` its keywords).
+    Returns ``(node_id, decisions, keep)``."""
+    node_id = reroute_leaf(node_id, x_binned, e_node, feat, bin_, left_id)
+    dec, keep = pair_split_stats(x_binned, payload, node_id, cand_mask,
+                                 left_id, is_small, parent_hist, **kw)
+    return node_id, dec, keep

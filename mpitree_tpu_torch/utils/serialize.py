@@ -18,10 +18,11 @@ Two differences, both about parameters:
   not: :func:`save_model` leaves it out of the file, and
   :func:`load_model` takes it as an argument;
 - a file's parameter the port's constructor does not know raises
-  ``ValueError`` naming it; none is dropped. Parameters the port knows but
-  does not fit yet (``max_leaf_nodes``, ``n_devices > 1``,
-  ``checkpoint``) are kept as they are: the loaded trees predict and
-  serve, and ``fit`` refuses them, naming their ``ROADMAP.md`` items.
+  ``ValueError`` naming it; none is dropped. Parameters the port knows
+  are kept as they are (``max_leaf_nodes`` included: a loaded estimator
+  refits with its budget); those it does not fit yet (``n_devices > 1``,
+  ``checkpoint``) load all the same: the loaded trees predict and serve,
+  and ``fit`` refuses them, naming their ``ROADMAP.md`` items.
 
 Files of the JAX package's ``ParallelDecisionTreeClassifier`` raise
 ``NotImplementedError`` naming the items that port it.

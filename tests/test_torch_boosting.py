@@ -412,8 +412,10 @@ def test_fit_stats_staged_surfaces_and_params(fits):
               "refit_seconds"):
         assert st[k] >= 0.0, k
     assert st["n_rounds"] == p.n_iter_ == MULTI["max_iter"]
+    # a multiclass loss blocks the fused rounds: "auto" stays on the host
+    # loop and says why
     assert st["rounds_per_dispatch"]["value"] == 1
-    assert "item 12 step 3" in st["rounds_per_dispatch"]["reason"]
+    assert "multiclass" in st["rounds_per_dispatch"]["reason"]
     stages = list(p.staged_predict_proba(X))
     assert len(stages) == p.n_iter_
     np.testing.assert_array_equal(stages[-1], p.predict_proba(X))
@@ -433,9 +435,11 @@ def test_fit_stats_staged_surfaces_and_params(fits):
 
 
 @pytest.mark.parametrize("kw,err,match", [
-    (dict(max_leaf_nodes=8), NotImplementedError, "item 13"),
+    (dict(max_leaf_nodes=8, rounds_per_dispatch=4, early_stopping=True),
+     ValueError, "cannot apply"),
     (dict(max_leaf_nodes=1), ValueError, "larger than 1"),
-    (dict(rounds_per_dispatch=4), NotImplementedError, "item 12 step 3"),
+    (dict(rounds_per_dispatch=4, colsample_bytree=0.5), ValueError,
+     "cannot apply"),
     (dict(rounds_per_dispatch=0), ValueError, "rounds_per_dispatch"),
     (dict(rounds_per_dispatch=2.0), ValueError, "rounds_per_dispatch"),
     (dict(checkpoint="ck"), NotImplementedError, "item 17"),

@@ -50,3 +50,8 @@ def test_boosting_import_pulls_none_of_them():
     assert _probe("from mpitree_tpu_torch import ("
                   "GradientBoostingClassifier, GradientBoostingRegressor)"
                   ) == ""
+
+
+def test_leafwise_and_fused_rounds_import_pulls_none_of_them():
+    assert _probe("from mpitree_tpu_torch.core import leafwise_builder\n"
+                  "from mpitree_tpu_torch.boosting import fused_rounds") == ""

@@ -856,3 +856,91 @@ def test_sampling_twins_on_the_card_equal_the_host_hash(cuda):
         s.node_draws(keys).astype(np.int64))
     for a, b in zip(sampling.child_keys_dev(kd), s.child_keys(keys)):
         np.testing.assert_array_equal(a.cpu().numpy(), b.astype(np.int64))
+
+
+@pytest.mark.parametrize("task", ["classification", "weighted",
+                                  "regression"])
+def test_leafwise_engines_on_the_card_equal_cpu(cuda, task):
+    """Both leaf-wise engines, subtraction on and off, on the card (the
+    fused engine replaying its captured expansion) and with
+    device="cpu": one tree, field for field, budget binding."""
+    import dataclasses
+
+    from mpitree_tpu_torch.core import leafwise_builder
+    from mpitree_tpu_torch.core.builder import BuildConfig, build_tree
+    from mpitree_tpu_torch.ops.binning import bin_for_engine
+    from mpitree_tpu_torch.utils.datasets import california_like, covtype_like
+
+    if task == "regression":
+        X, y64 = california_like(20_000, seed=5)
+        y, kw = (y64 - y64.mean()).astype(np.float32), dict(
+            refit_targets=y64)
+        base = BuildConfig(task="regression", criterion="mse",
+                           max_leaf_nodes=63)
+    else:
+        X, y = covtype_like(20_000, seed=5)
+        w = None if task == "classification" else np.random.default_rng(
+            5).uniform(0.5, 2, len(y)).astype(np.float32)
+        kw = dict(n_classes=7, sample_weight=w)
+        base = BuildConfig(max_leaf_nodes=63)
+    trees = {}
+    for dev in ("cuda", "cpu"):
+        binned = bin_for_engine(X, max_bins=256, binning="auto",
+                                device=torch.device(dev))
+        for engine in ("fused", "levelwise"):
+            for sub in ("off", "on"):
+                cfg = dataclasses.replace(base, engine=engine,
+                                          hist_subtraction=sub)
+                before = leafwise_builder.done_reads
+                tree = build_tree(binned, y, config=cfg, **kw)
+                reads = leafwise_builder.done_reads - before
+                assert reads <= (62 // leafwise_builder.CHECK_EVERY
+                                 if engine == "fused" else 0)
+                trees[(dev, engine, sub)] = tree
+    ref = trees[("cpu", "levelwise", "off")]
+    assert int((ref.left < 0).sum()) == 63
+    for key, tree in trees.items():
+        _same_trees(tree, ref, str(key))
+
+
+def test_row_subsample_mask_on_the_card_equals_the_host(cuda):
+    from mpitree_tpu_torch.ops import sampling
+
+    for seed, r, fraction in ((0, 0, 0.5), (7, 13, 0.8), (2**32 - 1, 99,
+                                                         0.999)):
+        want = sampling.row_subsample_mask(seed, r, 100_003, fraction)
+        got = sampling.row_subsample_mask_dev(seed, r, 100_003, fraction,
+                                              cuda)
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("what", ["regressor", "classifier"])
+def test_fused_rounds_on_the_card_equal_cpu(cuda, what):
+    """K = 4 fused rounds on the card against the same fit with
+    device="cpu" (margins within 2e-4: the card's float32 tanh may differ
+    from the CPU's in its last bit) and against the card's host loop."""
+    from mpitree_tpu_torch.tree import (
+        GradientBoostingClassifier,
+        GradientBoostingRegressor,
+    )
+    from mpitree_tpu_torch.utils.datasets import california_like, covtype_like
+
+    if what == "regressor":
+        X, y = california_like(10_000, seed=6)
+        cls, kw = GradientBoostingRegressor, dict(subsample=0.8)
+    else:
+        X, y = covtype_like(10_000, seed=6)
+        y = (y == np.bincount(y).argmax()).astype(np.int64)
+        cls, kw = GradientBoostingClassifier, dict(max_leaf_nodes=15)
+    kw.update(max_iter=9, learning_rate=0.3, random_state=0)
+    fits = {(dev, K): cls(rounds_per_dispatch=K, device=dev, **kw).fit(X, y)
+            for dev in ("cuda", "cpu") for K in (4, 1)}
+
+    def margins(m):
+        return m.predict(X) if what == "regressor" else m.decision_function(X)
+
+    ref = margins(fits[("cpu", 4)])
+    for key, m in fits.items():
+        np.testing.assert_allclose(margins(m), ref, rtol=2e-4, atol=2e-4,
+                                   err_msg=str(key))
+    assert fits[("cuda", 4)].fit_stats_["dispatches"] == 3

@@ -14,6 +14,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 pytest.importorskip("jax")
 
@@ -31,6 +32,17 @@ from mpitree_tpu_torch.utils.pruning import (  # noqa: E402
 
 FIELDS = ("feature", "threshold", "left", "right", "parent", "depth",
           "value", "count", "n_node_samples", "impurity")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread for this module: under pytest-xdist's parallel
+    workers torch's intra-op threads oversubscribe the cores; the trees do
+    not depend on the thread count (exact sums)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def assert_same_tree(got, want):

@@ -172,7 +172,7 @@ def test_options_now_ported_equal_jax(data, param, value):
 
 
 @pytest.mark.parametrize("param,value", [
-    ("max_leaf_nodes", 8), ("n_devices", 2),
+    ("n_devices", 2),
 ])
 def test_options_off_this_slice_raise(param, value):
     X, y = california_like(100, seed=0)
