@@ -64,8 +64,9 @@ for boosting; phase 24 runs the levelwise engine beside it:
 7. serve: ``ModelRegistry().publish("rf", forest)`` and
    ``publish("rf8", forest, quantize="int8")``, each answering 300
    one-row, 150 64-row and 30 4,096-row requests (p50/p99 per bucket),
-   then one 500,000-row batch (rows/s); the traversal launch counters are
-   set to 0 just before the publishes and read after the batch. ``rf``
+   then one 500,000-row batch (rows/s; and the same batch three times
+   more, the pinned slots then in place); the traversal launch counters
+   are set to 0 just before the publishes and read after the batch. ``rf``
    must equal ``forest.predict_proba`` bit for bit on 4,096 held-out rows,
    and ``rf8`` must stay within its own exactness report on its
    calibration batch.
@@ -217,6 +218,25 @@ boosting rounds:
     near tie of the host loop's own Newton costs (2**-18 relative) with
     the margins before it within 2e-4; the K = 8 ensembles served as
     ``margin`` through K4 (bit for bit) and K5 (within its report).
+27. serve tier: (a) phase 5's forest as ``rf`` and ``rf8``; phase 7's
+    500,000 rows in 4,096-row batches through ``StreamStage`` at depths
+    1, 2 and 4 and a loop of synchronous ``raw`` (wall, rows/s): ``rf``
+    equal to ``predict_proba`` bit for bit, ``rf8`` to its own ``raw``,
+    and within its report on the calibration batch; (b) with
+    ``--profile``, one depth-2 pass traced: the seconds in which a
+    host-to-device copy on the copy stream overlaps a traversal kernel;
+    (c) ``Scheduler(registry)`` at the default QoS, single-row requests
+    (80% ``interactive``) from 4 threads: a closed loop for the sustained
+    rate, open loops at 50% and 90% of it (per-class p50/p99, sheds,
+    misses, dispatches, mean batch), ``rf8`` too, every answer equal to
+    its row's direct ``raw``; a burst of 2 x ``shed_depth`` submissions
+    behind a held first dispatch sheds ``queue_full`` and answers every
+    admitted one; (d) phase 13's regressor with ``quantize="int8"``
+    (report, calibration and held-out deltas, table bytes). The launch
+    counters are set to 0 after the reference answers are taken, just
+    before each stage pass, the first scheduler run and (d), and read
+    after each: the stage, the ``raw`` loop and the scheduler count only
+    their own launches.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the card's name and power limit, JSON lines of per-shape kernel timings
@@ -226,7 +246,8 @@ of phases 13 and 15 (``regression``, ``weights``), of phases 16-18
 (``subspace_forests``, ``regression_forests``, ``regression_serving``),
 of phases 19-20 (``constrained``, ``persistence``), of phases 21-23
 (``boosting``), of phase 24 (``engines``), of phases 25-26
-(``leafwise``, ``fused_rounds``) and one ``kernels`` line (with each
+(``leafwise``, ``fused_rounds``), of phase 27 (``serve_tier``) and one
+``kernels`` line (with each
 route's launches per engine, and the stream routes at S = 2 of the
 leaf-wise pair) come before it.
 Without CUDA the script exits 1 and prints no result.
@@ -242,6 +263,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -330,6 +352,20 @@ NEAR_TIE = 2.0 ** -18
 LEAF_IDENTITY = dict(max_depth=12, max_leaf_nodes=4096)
 BOOST_LEAVES = 31
 FUSED_K = 8
+# Phase 27: phase 7's 500,000 rows in the 4,096-row bucket's batches
+# through StreamStage; the scheduler's traffic: single-row requests, 80%
+# interactive, from 4 submitter threads, each keeping 32 in flight in the
+# closed loop that finds the sustained rate; open loops at 50% and 90% of
+# it.
+STAGE_BATCH = 4_096
+STAGE_DEPTHS = (1, 2, 4)
+STAGE_REPS = 3
+SCHED_THREADS = 4
+SCHED_MIX = 0.8
+CLOSED_WINDOW = 32
+SCHED_CLOSED = 10_000
+SCHED_OPEN = 20_000
+SCHED_LOADS = (0.5, 0.9)
 
 
 def log(msg: str) -> None:
@@ -1061,16 +1097,28 @@ def phase_serve(forest, Xh, Xbig) -> tuple:
         batch_s = time.perf_counter() - t0
         if out.shape != (len(Xbig), len(forest.classes_)):
             raise AssertionError(f"{name}: batch answer shape {out.shape}")
+        # the same batch three more times: the first call also pins the
+        # model's slots for 123 chunks
+        again = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            if not np.array_equal(reg.raw(name, Xbig), out):
+                raise AssertionError(f"{name}: a repeated batch differs")
+            again.append(time.perf_counter() - t0)
         stats[name] = dict(publish_s=publish_s, latency=lat,
                            batch_rows=len(Xbig), batch_s=batch_s,
                            rows_per_s=len(Xbig) / batch_s,
+                           repeat_batch_s=again,
+                           repeat_rows_per_s=len(Xbig) / statistics.median(
+                               again),
                            dispatch=reg.get(name).serve_report_["dispatch"])
         log(f"serve: {name} ({stats[name]['dispatch']}): publish "
             f"{publish_s:.3f} s; " + "; ".join(
                 f"bucket {b}: p50 {v['p50_ms']:.4f} ms p99 "
                 f"{v['p99_ms']:.4f} ms" for b, v in lat.items())
             + f"; {len(Xbig)} rows in {batch_s:.3f} s = "
-            f"{stats[name]['rows_per_s']:.1f} rows/s")
+            f"{stats[name]['rows_per_s']:.1f} rows/s (repeated: "
+            f"{stats[name]['repeat_rows_per_s']:.1f} rows/s)")
     launches = dict(serve_kernel.launches)
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
@@ -2579,6 +2627,440 @@ def phase_fused_rounds(X, y, Xh, yh, Xc, yc, Xch, ych) -> dict:
     return out
 
 
+class _HeldModel:
+    """A published model whose ``raw`` waits on a gate: phase 27's burst
+    arrives while the scheduler's worker is held in its first dispatch."""
+
+    def __init__(self, model, gate, entered):
+        self.model, self.gate, self.entered = model, gate, entered
+
+    def __getattr__(self, name):
+        return getattr(self.model, name)
+
+    def raw(self, X):
+        self.entered.set()
+        if not self.gate.wait(60):
+            raise AssertionError("burst: the held dispatch was never freed")
+        return self.model.raw(X)
+
+
+class _HeldRegistry:
+    """A ``ModelRegistry`` whose models are :class:`_HeldModel`s."""
+
+    def __init__(self, reg):
+        self.reg = reg
+        self.gate = threading.Event()
+        self.entered = threading.Event()
+
+    def get(self, name):
+        return _HeldModel(self.reg.get(name), self.gate, self.entered)
+
+    def metrics_families(self):
+        return self.reg.metrics_families()
+
+
+def _require_launches(what: str, launches: dict) -> dict:
+    """``launches`` (a copy of the traversal counters) if both kernels
+    launched, else raise."""
+    if not all(launches.values()):
+        raise AssertionError(f"{what} launched {launches}")
+    return launches
+
+
+def _stage_pass(cm, X, depth: int) -> tuple:
+    """``X`` in ``STAGE_BATCH``-row batches through ``StreamStage(cm,
+    depth)`` (depth 0: a loop of synchronous ``raw``): (wall s, the
+    answers in order)."""
+    from mpitree_tpu_torch.serving import StreamStage
+
+    t0 = time.perf_counter()
+    if depth == 0:
+        outs = [(i, cm.raw(X[lo:lo + STAGE_BATCH]))
+                for i, lo in enumerate(range(0, len(X), STAGE_BATCH))]
+    else:
+        stage = StreamStage(cm, depth=depth)
+        outs = []
+        for lo in range(0, len(X), STAGE_BATCH):
+            outs += stage.submit(X[lo:lo + STAGE_BATCH])
+        outs += stage.drain()
+    wall = time.perf_counter() - t0
+    if [t for t, _ in outs] != list(range(len(outs))):
+        raise AssertionError(f"stage depth {depth}: tickets out of order")
+    return wall, np.concatenate([o for _, o in outs])
+
+
+def _copy_overlap(trace_path: Path) -> dict:
+    """From a Chrome trace of one depth-2 pass: seconds in which a
+    host-to-device copy on a stream other than the traversal kernels'
+    overlaps a traversal kernel, beside both totals."""
+    events = json.loads(trace_path.read_text())["traceEvents"]
+
+    def spans(pred):
+        return sorted((e["ts"], e["ts"] + e["dur"], e.get("args", {}).get(
+            "stream")) for e in events if e.get("ph") == "X" and pred(e))
+
+    kernels = spans(lambda e: e.get("cat") == "kernel"
+                    and "traverse_kernel" in e.get("name", ""))
+    streams = {s for *_, s in kernels}
+    copies = spans(lambda e: e.get("cat") == "gpu_memcpy"
+                   and "HtoD" in e.get("name", ""))
+    side = [c for c in copies if c[2] not in streams]
+    overlap, j = 0.0, 0
+    for a0, a1, _ in side:  # both lists sorted, each disjoint in itself
+        while j < len(kernels) and kernels[j][1] <= a0:
+            j += 1
+        k = j
+        while k < len(kernels) and kernels[k][0] < a1:
+            overlap += min(a1, kernels[k][1]) - max(a0, kernels[k][0])
+            k += 1
+    return dict(overlap_s=overlap / 1e6,
+                h2d_copy_stream_s=sum(b - a for a, b, _ in side) / 1e6,
+                h2d_copy_stream_copies=len(side),
+                h2d_other_copies=len(copies) - len(side),
+                traverse_kernel_s=sum(b - a for a, b, _ in kernels) / 1e6,
+                traverse_kernels=len(kernels), kernel_streams=sorted(
+                    str(s) for s in streams))
+
+
+def _sched_run(sched, rows: np.ndarray, want: dict, *, n: int, seed: int,
+               model: str = "rf", rate: float | None = None,
+               window: int = CLOSED_WINDOW, qos: str | None = None) -> dict:
+    """``n`` single-row requests to ``model`` from ``SCHED_THREADS``
+    submitter threads, ``SCHED_MIX`` of them ``interactive`` and the rest
+    ``batch`` (or all ``qos``): closed loop (each thread keeps ``window``
+    in flight) or, given ``rate`` (requests/s in all), open loop, each
+    request sent at its own time. Each answer and its exact latency are
+    stored when its future resolves (so a thread holds only what its loop
+    needs); every answer must equal the direct ``raw`` of its row
+    (``want[model]``); sheds are counted by reason."""
+    from collections import deque
+
+    from mpitree_tpu_torch.serving import RejectedRequest
+
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, len(rows), n)
+    cls = np.where(rng.random(n) < SCHED_MIX, "interactive", "batch")
+    if qos is not None:
+        cls[:] = qos
+    lat = np.full(n, np.nan)
+    got = np.full((n,) + want[model].shape[1:], np.nan)
+    sheds: dict = {}
+    lock = threading.Lock()
+    start = threading.Barrier(SCHED_THREADS + 1)
+    last_sent = [0.0] * SCHED_THREADS
+
+    finished = threading.Semaphore(0)
+
+    def done(f, i, sent):
+        lat[i] = time.perf_counter() - sent
+        got[i] = f.result()
+        finished.release()
+
+    def worker(t):
+        inflight = deque()
+        start.wait()
+        t0 = time.perf_counter()
+        for k, i in enumerate(range(t, n, SCHED_THREADS)):
+            if rate is not None:
+                delay = t0 + (k * SCHED_THREADS + t) / rate \
+                    - time.perf_counter()
+                if delay > 0:
+                    time.sleep(delay)
+            elif len(inflight) >= window:
+                inflight.popleft().result(timeout=120)
+            sent = time.perf_counter()
+            try:
+                fut = sched.submit(model, rows[idx[i]], qos=str(cls[i]))
+            except RejectedRequest as e:
+                with lock:
+                    sheds[e.reason] = sheds.get(e.reason, 0) + 1
+                continue
+            fut.add_done_callback(
+                lambda f, i=i, sent=sent: done(f, i, sent))
+            if rate is None:
+                inflight.append(fut)
+        last_sent[t] = time.perf_counter()
+        while inflight:
+            inflight.popleft().result(timeout=120)
+
+    threads = [threading.Thread(target=worker, args=(t,))
+               for t in range(SCHED_THREADS)]
+    for th in threads:
+        th.start()
+    start.wait()
+    t0 = time.perf_counter()
+    for th in threads:
+        th.join(timeout=600)
+    if any(th.is_alive() for th in threads) or not sched.drain(60):
+        raise AssertionError("scheduler run did not finish")
+    for _ in range(n - sum(sheds.values())):  # every admitted one resolved
+        if not finished.acquire(timeout=120):
+            raise AssertionError("scheduler: an admitted request was never "
+                                 "answered")
+    wall = time.perf_counter() - t0
+    st = sched.stats()
+    ok = np.isfinite(lat)
+    answered = int(ok.sum())
+    if answered + sum(sheds.values()) != n or not np.array_equal(
+            got[ok], want[model][idx[ok]]):
+        raise AssertionError(f"scheduler: {answered} answered and "
+                             f"{sheds} shed of {n}, or an answer differs "
+                             f"from the direct raw of its row")
+    per_class = {}
+    for c in ("interactive", "batch"):
+        ms = lat[(cls == c) & np.isfinite(lat)] * 1e3
+        if ms.size:
+            per_class[c] = dict(requests=int(ms.size),
+                                p50_ms=float(np.percentile(ms, 50)),
+                                p99_ms=float(np.percentile(ms, 99)),
+                                max_ms=float(ms.max()))
+    if sheds != st["shed"]:
+        raise AssertionError(f"sheds seen {sheds} != scheduler's "
+                             f"{st['shed']}")
+    sent_s = max(last_sent) - t0
+    return dict(requests=n, answered=answered, wall_s=wall,
+                rate_per_s=answered / wall, offered_per_s=rate,
+                sent_s=sent_s, sent_per_s=n / sent_s,
+                latency_exact=per_class,
+                latency_histogram=st["class_latency_ms"], shed=sheds,
+                deadline_misses=st["deadline_misses"],
+                dispatches=st["dispatches"], requeues=st["requeues"],
+                mean_batch=answered / max(st["dispatches"], 1))
+
+
+def phase_serve_tier(forest, reg_tree, Xbig, Xh, Xch,
+                     profile_dir: Path | None) -> dict:
+    """Phase 27: the host-side serving tier. (a) phase 5's forest as
+    ``rf`` and ``rf8``; phase 7's 500,000 rows in 4,096-row batches
+    through ``StreamStage`` at depths 1, 2 and 4 and a loop of synchronous
+    ``raw``, three timed passes each after one warm pass: ``rf`` equal to
+    ``forest.predict_proba`` bit for bit, ``rf8`` to its own direct
+    ``raw``, and the calibration batch through the stage within the
+    report. (b) under ``--profile``, one depth-2 pass traced: the seconds
+    in which a host-to-device copy on the copy stream overlaps a
+    traversal kernel. (c) ``Scheduler(registry)`` at the default QoS:
+    single-row requests, 80% ``interactive``, from 4 submitter threads;
+    a closed loop finds the sustained rate, then open loops at 50% and
+    90% of it, 20,000 requests each; ``rf8`` in a closed loop; every
+    answer equal to its row's direct ``raw``; then 2 x
+    ``shed_depth`` ``batch`` submissions at once behind a held first
+    dispatch: exactly ``shed_depth`` admitted and answered, the rest shed
+    ``queue_full``.
+    (d) phase 13's regressor with ``quantize="int8"``: its report, the
+    calibration delta within it, the held-out delta, table bytes. The
+    reference answers are taken first; the traversal launch counters are
+    set to 0 just before each stage pass and each ``raw`` loop (summed
+    apart), before the first scheduler run and before (d), and read just
+    after, so each path counts only its own launches."""
+    import dataclasses
+
+    from mpitree_tpu_torch.serving import (
+        ModelRegistry,
+        RejectedRequest,
+        Scheduler,
+        compile_model,
+        quantize,
+        serve_kernel,
+    )
+    from mpitree_tpu_torch.serving.tables import tables_for
+    from mpitree_tpu_torch.tree import DecisionTreeRegressor
+
+    def zero():
+        for k in serve_kernel.launches:
+            serve_kernel.launches[k] = 0
+
+    def counted(tally: dict, work, *args):
+        """``work(*args)`` with the launch counters set to 0 just before
+        it, its launches added to ``tally``."""
+        zero()
+        res = work(*args)
+        for k, v in serve_kernel.launches.items():
+            tally[k] = tally.get(k, 0) + v
+        return res
+
+    out: dict = {"launches": {}}
+    reg = ModelRegistry()
+    reg.publish("rf", forest)
+    reg.publish("rf8", forest, quantize="int8")
+    # the references, before any count is taken
+    [table] = tables_for(forest.trees_, group_bytes=None)
+    cal = quantize.synthesize_calibration(table, Xbig.shape[1])
+    want_big = {"rf": forest.predict_proba(Xbig),
+                "rf8": reg.raw("rf8", Xbig)}
+    want_cal = reg.raw("rf", cal)
+
+    # (a) the stage
+    tally: dict = {"stage": {}, "raw loop": {}}
+    stage = {}
+    for name in ("rf", "rf8"):
+        cm = reg.get(name)
+        stage[name] = {}
+        for depth in (0, *STAGE_DEPTHS):
+            walls = []
+            for rep in range(1 + STAGE_REPS):
+                wall, got = counted(tally["stage" if depth else "raw loop"],
+                                    _stage_pass, cm, Xbig, depth)
+                if not np.array_equal(got, want_big[name]):
+                    raise AssertionError(
+                        f"stage {name} depth {depth}: answers differ (max "
+                        f"|diff| {np.abs(got - want_big[name]).max()})")
+                if rep:
+                    walls.append(wall)
+            key = "raw loop" if depth == 0 else f"depth {depth}"
+            med = statistics.median(walls)
+            stage[name][key] = dict(walls_s=walls, wall_s=med,
+                                    rows_per_s=len(Xbig) / med)
+        stage[name]["pinned_slots"] = dict(made=cm._slots.allocated,
+                                           kept=cm._slots.kept)
+    rep8 = reg.get("rf8").serve_report_["quantization"]
+    _, cal8 = counted(tally["stage"], _stage_pass, reg.get("rf8"), cal, 2)
+    cal_delta = float(np.abs(cal8 - want_cal).max())
+    if not (rep8["ok"] and cal_delta <= rep8["max_abs_delta"] + 1e-6):
+        raise AssertionError(f"stage rf8 outside its report: delta "
+                             f"{cal_delta}, report {rep8}")
+    for key, t in tally.items():
+        out["launches"][key] = _require_launches(f"serve tier (a) {key}", t)
+    out["stage"] = dict(batch_rows=STAGE_BATCH, rows=len(Xbig),
+                        calibration_delta_rf8=cal_delta, **stage)
+    log(f"serve tier (a) stage, {len(Xbig)} rows in {STAGE_BATCH}-row "
+        "batches: " + "; ".join(
+        f"{name} " + ", ".join(f"{k} {v['wall_s']:.4f} s = "
+                               f"{v['rows_per_s']:.1f} rows/s"
+                               for k, v in stage[name].items()
+                               if k != "pinned_slots")
+        for name in stage) + f"; rf == predict_proba, rf8 == its raw, "
+        f"calibration delta {cal_delta} <= report "
+        f"{rep8['max_abs_delta']}; launches {out['launches']}")
+
+    # (b) the copy overlap, profiled
+    if profile_dir is not None:
+        from torch.profiler import ProfilerActivity, profile
+
+        cm = reg.get("rf")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall, _ = _stage_pass(cm, Xbig, 2)
+            torch.cuda.synchronize()
+        profile_dir.mkdir(parents=True, exist_ok=True)
+        path = profile_dir / "trace_serve_tier_depth2.json"
+        prof.export_chrome_trace(str(path))
+        out["copy_overlap"] = dict(wall_s=wall, **_copy_overlap(path))
+        log(f"serve tier (b) depth-2 pass profiled: "
+            f"{json.dumps(out['copy_overlap'])}")
+
+    # (c) the scheduler; K4 only from `rf`'s runs, K5 only from `rf8`'s
+    want = {name: reg.raw(name, Xh) for name in ("rf", "rf8")}
+    zero()
+    sched: dict = {}
+    with Scheduler(reg) as s:
+        _sched_run(s, Xh, want, n=2_000, seed=0)  # warm the path
+    with Scheduler(reg) as s:
+        sched["closed"] = _sched_run(s, Xh, want, n=SCHED_CLOSED, seed=1)
+    rate = sched["closed"]["rate_per_s"]
+
+    def open_loop(share):
+        with Scheduler(reg) as s:
+            return _sched_run(s, Xh, want, n=SCHED_OPEN, seed=2,
+                              rate=share * rate)
+
+    for share in SCHED_LOADS:
+        sched[f"open {share}"] = open_loop(share)
+    with Scheduler(reg) as s:
+        sched["closed rf8"] = _sched_run(s, Xh, want, n=SCHED_CLOSED // 2,
+                                         seed=3, model="rf8")
+    held = _HeldRegistry(reg)
+    with Scheduler(held) as s:
+        held.gate.clear()
+        first = s.submit("rf", Xh[0], qos="batch")
+        if not held.entered.wait(30):
+            raise AssertionError("burst: the worker never dispatched")
+        futs, sheds = [], {}
+        start = threading.Barrier(SCHED_THREADS)
+        lock = threading.Lock()
+        rows = np.random.default_rng(4).integers(0, len(Xh),
+                                                 2 * s.shed_depth)
+
+        def burst_worker(t):
+            start.wait()
+            for i in range(t, len(rows), SCHED_THREADS):
+                try:
+                    f = s.submit("rf", Xh[rows[i]], qos="batch")
+                    with lock:
+                        futs.append((i, f))
+                except RejectedRequest as e:
+                    with lock:
+                        sheds[e.reason] = sheds.get(e.reason, 0) + 1
+
+        threads = [threading.Thread(target=burst_worker, args=(t,))
+                   for t in range(SCHED_THREADS)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+        submit_s = time.perf_counter() - t0
+        held.gate.set()
+        first.result(timeout=60)
+        for i, f in futs:
+            if not np.array_equal(f.result(timeout=120),
+                                  want["rf"][rows[i]]):
+                raise AssertionError("burst: an admitted answer differs")
+        answered_s = time.perf_counter() - t0
+        st = s.stats()
+    if not (len(futs) == s.shed_depth
+            and sheds == {"queue_full": s.shed_depth} == st["shed"]):
+        raise AssertionError(f"burst: admitted {len(futs)}, shed {sheds}, "
+                             f"scheduler {st['shed']}")
+    sched["burst"] = dict(submitted=len(rows), admitted=len(futs),
+                          shed=sheds, submit_s=submit_s,
+                          all_answered_s=answered_s,
+                          dispatches=st["dispatches"],
+                          deadline_misses=st["deadline_misses"])
+    out["launches"]["scheduler"] = _require_launches(
+        "serve tier (c)", dict(serve_kernel.launches))
+    out["scheduler"] = dict(qos=[dataclasses.asdict(c) for c in s.qos],
+                            shed_depth=s.shed_depth,
+                            margin_ms=s.margin_s * 1e3,
+                            wait_ms=s.wait_s * 1e3, **sched)
+    for key, r in sched.items():
+        log(f"serve tier (c) scheduler {key}: " + json.dumps(r))
+
+    # (d) the quantized regression tree
+    zero()
+    est = DecisionTreeRegressor.from_reference(
+        dataclasses.asdict(reg_tree), Xch.shape[1], device=DEV.type)
+    cm = compile_model(est)
+    cm8 = compile_model(est, quantize="int8")
+    rep = cm8.serve_report_["quantization"]
+    cal = quantize.synthesize_calibration(cm8.table, Xch.shape[1])
+    cal_delta = float(np.abs(cm8.raw(cal) - cm.raw(cal)).max())
+    t0 = time.perf_counter()
+    held_out = cm8.raw(Xch)
+    q_s = time.perf_counter() - t0
+    exact = cm.raw(Xch)
+    if not (np.array_equal(exact, est.predict(Xch)) and rep["ok"]
+            and cal_delta <= rep["max_abs_delta"] + 1e-6
+            and held_out.dtype == np.float32
+            and np.isfinite(held_out).all()):
+        raise AssertionError(f"quantized regression tree: calibration "
+                             f"delta {cal_delta}, report {rep}")
+    q = cm8._quant
+    int8_bytes = sum(t.numel() * t.element_size() for t in (
+        q.feature, q.threshold, q.left, q.right, q.root, q.qvals))
+    f64_bytes = sum(t.numel() * t.element_size()
+                    for t in (*cm._dev_table, cm._values))
+    out["launches"]["quantized_tree"] = dict(serve_kernel.launches)
+    out["quantized_tree"] = dict(
+        n_nodes=cm8.table.n_nodes, quantization=rep,
+        calibration_delta=cal_delta,
+        heldout_max_delta=float(np.abs(held_out - exact).max()),
+        heldout_rows=len(Xch), heldout_s=q_s, table_bytes_int8=int8_bytes,
+        table_bytes_float64=f64_bytes, dispatch=cm8.dispatch)
+    log(f"serve tier (d) quantized regression tree: "
+        + json.dumps(out["quantized_tree"]))
+    return out
+
+
 def phase_profile(name: str, work, out_dir: Path) -> None:
     """Run ``work()`` once more under torch.profiler: device time by kernel
     and the device's busy share of the wall-clock; the table goes to
@@ -2664,7 +3146,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", type=Path,
                     help="profile one more tree fit, forest fit and 300 "
-                    "one-row requests to rf and to rf8; tables go to DIR")
+                    "one-row requests to rf and to rf8, and trace one "
+                    "depth-2 stage pass; tables and the trace go to DIR")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2726,7 +3209,6 @@ def main() -> int:
     mark("6 serve kernels")
     serving, serve_launches = phase_serve(forest, Xh, Xbig)
     mark("7 serve")
-    del Xbig
     hybrid = {"fit": phase_hybrid(X, y, Xh, yh, DEPTH, fit_acc)}
     mark("8 hybrid")
     phase_parity(DEPTH, hybrid=True)
@@ -2793,6 +3275,9 @@ def main() -> int:
     mark("25 leafwise")
     fused = phase_fused_rounds(X, y, Xh, yh, Xc, yc, Xch, ych)
     mark("26 fused rounds")
+    tier = phase_serve_tier(forest, reg_tree, Xbig, Xh, Xch, args.profile)
+    mark("27 serve tier")
+    del Xbig
     if args.profile:
         profile_all(X, y, forest, Xh, args.profile)
 
@@ -2848,6 +3333,8 @@ def main() -> int:
             constrained_serve_launches=constrained["forest"][
                 "serve_launches"][form],
             constrained_forest_values=constrained["forest"]["kernels"][form],
+            serve_tier_launches={k: v[form]
+                                 for k, v in tier["launches"].items()},
         ))
     for key, S in FIXED_LINE.items():
         route = key[:-len("_fixed")]
@@ -2939,6 +3426,7 @@ def main() -> int:
     log(json.dumps({"engines": engines}))
     log(json.dumps({"leafwise": leafwise}))
     log(json.dumps({"fused_rounds": fused}))
+    log(json.dumps({"serve_tier": tier}))
     log(json.dumps({"phase_end_s": clock}))
     log(card)
     log(json.dumps({"kernels": kernels}))

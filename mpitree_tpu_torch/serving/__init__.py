@@ -1,9 +1,13 @@
-"""Serving: flat node tables, the traversal kernels, compiled models and
-a registry of published models (counterpart of ``mpitree_tpu.serving``).
+"""Serving: flat node tables, the traversal kernels, compiled models, a
+registry of published models, the streaming stage and the EDF scheduler
+(counterpart of ``mpitree_tpu.serving``).
 
 ``ModelRegistry().publish("rf", forest)`` compiles and warms a fitted
 forest, then ``registry.predict_proba("rf", X)`` answers through the
-Hopper traversal kernel on the card (``serve_kernel.py``).
+Hopper traversal kernel on the card (``serve_kernel.py``);
+``StreamStage(model, depth=2)`` keeps batches in flight so one batch's
+copy overlaps another's kernel, and ``Scheduler(registry)`` coalesces
+single requests into bucket batches by deadline, with QoS admission.
 """
 
 from mpitree_tpu_torch.serving.model import (
@@ -13,11 +17,25 @@ from mpitree_tpu_torch.serving.model import (
 )
 from mpitree_tpu_torch.serving.quantize import QuantizationError
 from mpitree_tpu_torch.serving.registry import ModelRegistry
+from mpitree_tpu_torch.serving.scheduler import (
+    REJECT_REASONS,
+    QoSClass,
+    RejectedRequest,
+    Scheduler,
+    parse_qos,
+)
+from mpitree_tpu_torch.serving.staging import StreamStage
 
 __all__ = [
     "DEFAULT_BUCKETS",
+    "REJECT_REASONS",
     "CompiledModel",
     "ModelRegistry",
+    "QoSClass",
     "QuantizationError",
+    "RejectedRequest",
+    "Scheduler",
+    "StreamStage",
     "compile_model",
+    "parse_qos",
 ]

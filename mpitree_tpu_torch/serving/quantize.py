@@ -19,10 +19,13 @@ batch (:func:`exactness_report`, a numpy oracle) and raises
 :class:`QuantizationError` past the tolerance, so a model that quantizes
 badly fails when it is compiled, not under traffic.
 
-The serving path is one quantized kernel (K5, ``serve_kernel.traverse_q``)
-that sums the raw int8 lattice in int32 over the trees, then one affine
-and the division by the tree count in float32 (:func:`q_traverse_accumulate`),
-as the JAX package's kernel tier does (``serving/model.py:343-412``). The
+A single regression tree (kind ``gather_value``) is served by
+:func:`q_traverse_gather`, plain PyTorch on every device (the JAX
+package's is XLA, not Pallas). Every other kind takes one quantized
+kernel (K5, ``serve_kernel.traverse_q``) that sums the raw int8 lattice
+in int32 over the trees, then one affine and the division by the tree
+count in float32 (:func:`q_traverse_accumulate`), as the JAX package's
+kernel tier does (``serving/model.py:343-412``). The
 bfloat16 rounding uses ``torch.bfloat16`` and its bit pattern, which give
 the same bits as the JAX package's ``ml_dtypes`` path.
 
@@ -49,7 +52,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from mpitree_tpu_torch.serving import serve_kernel
+from mpitree_tpu_torch.serving import serve_kernel, traversal
 
 # int8 delta grid: 254 steps across the channel span, symmetric around 0
 # (the -128 code is unused so dequantization never needs a clamp).
@@ -57,7 +60,6 @@ _Q_STEPS = 254.0
 _Q_LO = -127
 
 QUANTIZE_MODES = ("int8",)
-DEFAULT_TOLERANCE = 1e-2
 
 
 class QuantizationError(ValueError):
@@ -231,6 +233,22 @@ def q_traverse_accumulate(X: torch.Tensor, state: QuantizedState, *,
     deq = out.to(torch.float32) * state.qscale + state.qbase
     return deq / torch.as_tensor(scale, dtype=torch.float32,
                                  device=deq.device)
+
+
+def q_traverse_gather(X: torch.Tensor, feature, threshold, left, right,
+                      root, qvals, vscale, vbase, *, n_steps: int
+                      ) -> torch.Tensor:
+    """A single tree's float channel, quantized: the descent over the
+    compressed columns (int16 ids and bfloat16 thresholds, both upcasts
+    exact), the int8 code gathered at each row's leaf and dequantized in
+    float32 as ``vbase[0] + g * vscale[0]`` (two roundings: no fused
+    multiply-add), (N,) float32 (the JAX package's
+    ``mpitree_tpu/serving/quantize.py:439-444``)."""
+    node = traversal.descend(X, feature.to(torch.int32),
+                             threshold.to(torch.float32), left, right, root,
+                             n_steps)[:, 0]
+    g = qvals[node, 0].to(torch.float32)
+    return vbase[0] + g * vscale[0]
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,10 @@ Counterpart of ``mpitree_tpu/serving/registry.py``. ``publish`` compiles
 slot under a lock, so requests racing a publish keep hitting the old
 model; a quantization refusal (``QuantizationError``) raises before the
 flip and leaves the old model serving. The dispatch itself runs outside
-the lock. Metrics and the scheduler are not ported (``ROADMAP.md``).
+the lock. ``metrics_text`` is one Prometheus exposition of the registry's
+publish metrics and every published model's families, each stamped
+``model=<slot>``, under one ``# TYPE`` line per family; the scheduler
+(``serving/scheduler.py``) merges its own families into the same text.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from __future__ import annotations
 import threading
 import time
 
+from mpitree_tpu_torch.obs.metrics import MetricsRegistry, render_text
 from mpitree_tpu_torch.serving.model import (
     DEFAULT_BUCKETS,
     CompiledModel,
@@ -28,11 +32,14 @@ class ModelRegistry:
         self._slots: dict[str, CompiledModel] = {}
         self._meta: dict[str, dict] = {}
         self._lock = threading.Lock()
+        # the registry's own metrics: publish counts and warm seconds
+        self.metrics = MetricsRegistry()
 
     def publish(self, name: str, estimator, *, quantize=None,
                 quantize_tol=None, calibration=None) -> CompiledModel:
-        """Compile (``compile_model``) and warm a fitted estimator, then
-        swap it into slot ``name``."""
+        """Compile (``compile_model``; ``quantize=None`` follows the
+        ``MPITREE_TPU_SERVING_QUANTIZE`` knob) and warm a fitted
+        estimator, then swap it into slot ``name``."""
         model = compile_model(
             estimator, buckets=self.buckets, quantize=quantize,
             quantize_tol=quantize_tol, calibration=calibration,
@@ -40,6 +47,10 @@ class ModelRegistry:
         t0 = time.perf_counter()
         model.warmup()
         warm_s = time.perf_counter() - t0
+        self.metrics.counter(
+            "mpitree_registry_publish_total", model=name).inc()
+        self.metrics.histogram(
+            "mpitree_registry_warm_seconds", model=name).observe(warm_s)
         with self._lock:
             generation = self._meta.get(name, {}).get("generation", 0) + 1
             self._slots[name] = model
@@ -70,6 +81,22 @@ class ModelRegistry:
         """Snapshot of slot metadata (generation, warm time, buckets)."""
         with self._lock:
             return {k: dict(v) for k, v in self._meta.items()}
+
+    def metrics_families(self) -> list:
+        """The family maps of the registry's own metrics and of every
+        published model, stamped ``model=<slot>``: what ``metrics_text``
+        renders and the scheduler merges with its own."""
+        with self._lock:
+            slots = dict(self._slots)
+        maps = [self.metrics.render_families()]
+        for name in sorted(slots):
+            maps.append(slots[name].metrics_families({"model": name}))
+        return maps
+
+    def metrics_text(self) -> str:
+        """One Prometheus exposition for the whole registry, one ``# TYPE``
+        line per family."""
+        return render_text(self.metrics_families())
 
     def predict(self, name: str, X):
         return self.get(name).predict(X)

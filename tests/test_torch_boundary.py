@@ -55,3 +55,26 @@ def test_boosting_import_pulls_none_of_them():
 def test_leafwise_and_fused_rounds_import_pulls_none_of_them():
     assert _probe("from mpitree_tpu_torch.core import leafwise_builder\n"
                   "from mpitree_tpu_torch.boosting import fused_rounds") == ""
+
+
+_BLOCKED = """
+import sys
+for name in ("jax", "jaxlib", "mpitree_tpu", "sklearn"):
+    sys.modules[name] = None  # any import of them raises ImportError
+from mpitree_tpu_torch.config import knobs
+from mpitree_tpu_torch.obs import metrics
+from mpitree_tpu_torch.serving import (
+    Scheduler, StreamStage, parse_qos, scheduler, staging)
+print(knobs.value("MPITREE_TPU_SERVING_SHED_DEPTH"),
+      metrics.metrics_text() == "", len(parse_qos(
+          knobs.value("MPITREE_TPU_SERVING_QOS"))))
+"""
+
+
+def test_serving_tier_imports_with_jax_blocked():
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKED], cwd=REPO, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["4096", "True", "2"]

@@ -944,3 +944,139 @@ def test_fused_rounds_on_the_card_equal_cpu(cuda, what):
         np.testing.assert_allclose(margins(m), ref, rtol=2e-4, atol=2e-4,
                                    err_msg=str(key))
     assert fits[("cuda", 4)].fit_stats_["dispatches"] == 3
+
+
+# ---------------------------------------------------------------------------
+# the serving tier on the card: pinned, overlapped staging, the stream
+# stage, the scheduler, the quantized regression tree
+# ---------------------------------------------------------------------------
+
+def _on(est, device: str):
+    """A shallow copy of a fitted estimator that serves on ``device``."""
+    import copy
+
+    out = copy.copy(est)
+    out.device = device
+    return out
+
+
+@pytest.mark.parametrize("quant", [None, "int8"])
+def test_pinned_staging_on_the_card_equals_the_cpu_path(forest_on_card,
+                                                        quant):
+    """Every bucket and an oversize batch (six chunks) through the card's
+    pinned slots and copy stream: K4 equal to the CPU path bit for bit,
+    K5 too (its lattice sum is exact, its float32 affine the same two
+    roundings) and within its report of ``predict_proba``."""
+    from mpitree_tpu_torch.serving import compile_model, serve_kernel
+
+    forest, _, Xq = forest_on_card
+    kw = dict(buckets=(1, 64, 512), quantize=quant, quantize_tol=1.0)
+    card = compile_model(forest, **kw)
+    cpu = compile_model(_on(forest, "cpu"), **kw)
+    counter = "traverse_q" if quant else "traverse"
+    before = serve_kernel.launches[counter]
+    for n in (1, 37, 64, 512, 3_000):
+        got = card.raw(Xq[:n])
+        np.testing.assert_array_equal(got, cpu.raw(Xq[:n]))
+        if quant is None:
+            np.testing.assert_array_equal(got, forest.predict_proba(Xq[:n]))
+    assert serve_kernel.launches[counter] - before == 4 + 6
+    assert 0 < card._slots.allocated <= 2 * (6 + 3)
+    rep = card.serve_report_["quantization"]
+    if quant:
+        from mpitree_tpu_torch.serving import quantize
+
+        cal = quantize.synthesize_calibration(card.table, Xq.shape[1])
+        delta = np.abs(card.raw(cal) - forest.predict_proba(cal)).max()
+        assert delta <= rep["max_abs_delta"] + 1e-6
+
+
+@pytest.mark.parametrize("quant", [None, "int8"])
+def test_eight_threads_through_one_model_equal_serial_answers(
+        forest_on_card, quant):
+    """The slot-reuse race probe: 8 threads, each its own rows and batch
+    sizes (one chunked), through one model on the card, many times over;
+    every answer equals the serial one."""
+    import sys
+    import threading
+
+    from mpitree_tpu_torch.serving import compile_model
+
+    forest, _, Xq = forest_on_card
+    cm = compile_model(forest, buckets=(1, 64, 512), quantize=quant,
+                       quantize_tol=1.0)
+    jobs = [Xq[i * 300:i * 300 + n] for i, n in
+            enumerate((1, 5, 64, 100, 300, 2, 63, 1))]
+    jobs[4] = Xq[1_200:2_900]  # 1,700 rows: four chunks
+    want = [cm.raw(X) for X in jobs]
+    errors = []
+
+    def worker(i):
+        try:
+            for _ in range(25):
+                if not np.array_equal(cm.raw(jobs[i]), want[i]):
+                    errors.append(f"thread {i}: wrong answer")
+        except Exception as e:  # noqa: BLE001 — reported by the assert
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(8)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert errors == []
+
+
+def test_stream_stage_on_the_card_equals_raw(forest_on_card):
+    from mpitree_tpu_torch.serving import StreamStage, compile_model
+
+    forest, _, Xq = forest_on_card
+    cm = compile_model(forest, buckets=(1, 64, 512))
+    for depth in (1, 2, 4):
+        stage = StreamStage(cm, depth=depth)
+        done = []
+        for lo in range(0, 3_000, 250):
+            done += stage.submit(Xq[lo:lo + 250])
+        done += stage.drain()
+        assert [t for t, _ in done] == list(range(12))
+        got = np.concatenate([o for _, o in done])
+        np.testing.assert_array_equal(got, forest.predict_proba(Xq))
+
+
+@pytest.mark.parametrize("quant", [None, "int8"])
+def test_scheduler_on_the_card_equals_direct_raw(forest_on_card, quant):
+    from mpitree_tpu_torch.serving import ModelRegistry, Scheduler
+
+    forest, _, Xq = forest_on_card
+    reg = ModelRegistry(buckets=(1, 64, 512))
+    cm = reg.publish("rf", forest, quantize=quant, quantize_tol=1.0)
+    with Scheduler(reg, qos="interactive:10000:512;batch:60000:512",
+                   shed_depth=1024, margin_ms=5, wait_ms=2) as s:
+        futs = [s.submit("rf", Xq[i], qos="batch" if i % 5 else
+                         "interactive") for i in range(200)]
+        got = np.stack([f.result(timeout=60) for f in futs])
+    np.testing.assert_array_equal(got, cm.raw(Xq[:200]))
+
+
+def test_quantized_regression_tree_on_the_card_equals_cpu(cuda):
+    from mpitree_tpu_torch.serving import compile_model
+    from mpitree_tpu_torch.tree import DecisionTreeRegressor
+    from mpitree_tpu_torch.utils.datasets import california_like
+
+    X, y = california_like(20_000, seed=0)
+    Xq, _ = california_like(5_000, seed=1)
+    est = DecisionTreeRegressor(max_depth=10, device="cuda").fit(X, y)
+    card = compile_model(est, quantize="int8")
+    cpu = compile_model(_on(est, "cpu"), quantize="int8")
+    assert card.serve_report_["quantization"] == \
+        cpu.serve_report_["quantization"]
+    for n in (1, 64, 5_000):
+        got = card.raw(Xq[:n])
+        assert got.dtype == np.float32
+        np.testing.assert_array_equal(got, cpu.raw(Xq[:n]))

@@ -164,5 +164,11 @@ def test_compiled_regression_tree_gathers_its_values(data):
     assert cm.kind == "gather_value" and cm.dispatch == "plain gather"
     np.testing.assert_array_equal(cm.raw(Xh), est.predict(Xh))
     np.testing.assert_array_equal(cm.predict(Xh[:5]), est.predict(Xh[:5]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        compile_model(est, quantize="int8")
+    # int8 tables serve the plain quantized gather within their report
+    q = compile_model(est, quantize="int8")
+    rep = q.serve_report_["quantization"]
+    assert q.kind == "gather_value" and rep["mode"] == "int8" and rep["ok"]
+    cal = quantize.synthesize_calibration(q.table, Xh.shape[1])
+    got = q.raw(cal)
+    assert got.shape == (len(cal),) and got.dtype == np.float32
+    assert np.abs(got - est.predict(cal)).max() <= rep["max_abs_delta"] + 1e-6
