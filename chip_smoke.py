@@ -238,6 +238,27 @@ boosting rounds:
     after each: the stage, the ``raw`` loop and the scheduler count only
     their own launches.
 
+Phase 28 drives the data mesh (``parallel/``) through
+``ParallelDecisionTreeClassifier``, on phase 3's full matrix:
+
+28. mesh: (a) in process, ``n_devices="all"`` on the card (one card: one
+    shard, through the mesh code), phase 3's configuration: the tree
+    equal to phase 3's field for field; (b) two processes joined by
+    gloo, both on ``cuda:0`` (290,506 rows each), the same fit with the
+    replication check on (``MPITREE_TPU_DEBUG=1``): both trees equal to
+    phase 3's; wall, reductions (calls, bytes, seconds) and each rank's
+    launches. Two processes on one card, staged through host memory by
+    gloo: this measures invariance, not scaling; (c) one NCCL process
+    (``distributed.initialize(backend="nccl")``, world size 1), then
+    (a) again: the same tree; (d) two gloo processes at defaults (phase
+    8's configuration: crown on the card, tail on the host of each
+    process from the gathered leaf ids): both trees equal to phase 8's;
+    (e) (a)'s model predicting with its rows sharded: ``predict`` and
+    ``predict_proba`` equal to phase 3's bit for bit. The workers of (b)
+    and (d) are this script (``--mesh-worker``), which loads the kernels
+    phase 1 built and refuses to build them. The launch counters are set
+    to 0 before each fit and read after it, in each process.
+
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the card's name and power limit, JSON lines of per-shape kernel timings
 (``kernel_shapes``, ``serve_kernel_shapes``, ``fixed_kernel_shapes``), of
@@ -246,8 +267,8 @@ of phases 13 and 15 (``regression``, ``weights``), of phases 16-18
 (``subspace_forests``, ``regression_forests``, ``regression_serving``),
 of phases 19-20 (``constrained``, ``persistence``), of phases 21-23
 (``boosting``), of phase 24 (``engines``), of phases 25-26
-(``leafwise``, ``fused_rounds``), of phase 27 (``serve_tier``) and one
-``kernels`` line (with each
+(``leafwise``, ``fused_rounds``), of phase 27 (``serve_tier``), of phase
+28 (``mesh``) and one ``kernels`` line (with each
 route's launches per engine, and the stream routes at S = 2 of the
 leaf-wise pair) come before it.
 Without CUDA the script exits 1 and prints no result.
@@ -366,6 +387,13 @@ CLOSED_WINDOW = 32
 SCHED_CLOSED = 10_000
 SCHED_OPEN = 20_000
 SCHED_LOADS = (0.5, 0.9)
+# Phase 28: two processes on the one card; (b)'s depth, cut here (never
+# its width) if its gloo run outgrows its share of the time limit
+MESH_RANKS = 2
+MESH_DEPTH = DEPTH
+MESH_WORKER_TIMEOUT = 420
+TREE_FIELDS = ("feature", "threshold", "left", "right", "parent", "depth",
+               "value", "count", "n_node_samples", "impurity")
 
 
 def log(msg: str) -> None:
@@ -717,7 +745,7 @@ def phase_hybrid(X, y, Xh, yh, depth: int, device_acc: float) -> dict:
         f"alone, phase 3: {device_acc:.6f}); peak device memory "
         f"{peak_gib:.3f} GiB; launches {launches}; native library "
         f"{native.library_path()}")
-    return out
+    return out, clf.tree_
 
 
 def _node_rows(tree, X: np.ndarray, node: int) -> np.ndarray:
@@ -3061,6 +3089,218 @@ def phase_serve_tier(forest, reg_tree, Xbig, Xh, Xch,
     return out
 
 
+def _differing(tree, want) -> list:
+    """The ``TREE_FIELDS`` in which ``tree`` (a TreeArrays or a dict of
+    arrays) and ``want`` differ: dtype, shape or any value (NaN
+    thresholds equal)."""
+    out = []
+    for k in TREE_FIELDS:
+        a = tree[k] if isinstance(tree, dict) else getattr(tree, k)
+        b = getattr(want, k)
+        if a.dtype != b.dtype or a.shape != b.shape or not np.array_equal(
+                a, b, equal_nan=a.dtype.kind == "f"):
+            out.append(k)
+    return out
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+MESH_STATS = ("n_shards", "allreduce_calls", "allreduce_bytes",
+              "allreduce_seconds", "replication_checks")
+
+
+def _mesh_fit_kw(what: str) -> dict:
+    """Phase 28's estimator parameters: phase 3's device-engine fit
+    (``"tree"``, at ``MESH_DEPTH`` in the two-process run) or phase 8's
+    default one (``"default"``)."""
+    if what == "default":
+        return dict(criterion="entropy", max_depth=DEPTH, max_bins=256)
+    return dict(criterion="entropy", max_depth=DEPTH, max_bins=256,
+                **DEVICE_ONLY)
+
+
+def mesh_worker(rank: int, port: int, what: str, out: str) -> int:
+    """One process of phase 28 (b) or (d): join the gloo group of
+    ``MESH_RANKS`` processes at ``localhost:port``, fit phase 3's matrix
+    on ``cuda:0`` with ``n_devices="all"`` (this process's shard of the
+    rows), and write the tree (``out.npz``) and the fit's wall, stats and
+    launches (``out.json``). Loads the kernels phase 1 built; a missing
+    library raises instead of building."""
+    from mpitree_tpu_torch import _build, native
+    from mpitree_tpu_torch.ops import hist_kernel
+    from mpitree_tpu_torch.parallel import distributed
+    from mpitree_tpu_torch.tree import ParallelDecisionTreeClassifier
+    from mpitree_tpu_torch.utils.datasets import covtype_like
+
+    built = [_build._library_path(n) for n in ("histogram", "traverse")]
+    built.append(native.library_path())
+    missing = [str(p) for p in built if not p.exists()]
+    if missing:
+        raise RuntimeError(f"mesh worker: phase 1's libraries are missing "
+                           f"({missing}); it does not build them")
+    distributed.initialize(f"localhost:{port}", MESH_RANKS, rank,
+                           backend="gloo", timeout=MESH_WORKER_TIMEOUT)
+    try:
+        X, y = covtype_like(ROWS, seed=0)
+        kw = _mesh_fit_kw(what)
+        if what == "tree":
+            kw["max_depth"] = MESH_DEPTH
+        clf = ParallelDecisionTreeClassifier(**kw)
+        for k in hist_kernel.launches:
+            hist_kernel.launches[k] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        clf.fit(X, y)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(hist_kernel.launches)
+        np.savez(out + ".npz",
+                 **{k: getattr(clf.tree_, k) for k in TREE_FIELDS})
+        st = clf.fit_stats_
+        Path(out + ".json").write_text(json.dumps(dict(
+            rank=rank, wall_s=wall, launches=launches,
+            shard_rows=-(-ROWS // st["n_shards"]),
+            **{k: st[k] for k in MESH_STATS + (
+                "bin_seconds", "crown_seconds") if k in st},
+            **{k: st[k] for k in ("crown_depth", "tail_seconds",
+                                  "refine_nodes_added") if k in st})))
+    finally:
+        distributed.shutdown()
+    return 0
+
+
+def _mesh_pair(what: str, want) -> dict:
+    """Phase 28 (b) or (d): ``MESH_RANKS`` worker processes
+    (:func:`mesh_worker`) on this card; every rank's tree must equal
+    ``want``. Returns the processes' wall (start to last exit) and each
+    rank's record. Every worker is stopped before this returns."""
+    out_dir = Path("build") / "chip_smoke_mesh"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    port = _free_port()
+    env = dict(os.environ, MPITREE_TPU_DEBUG="1", GLOO_SOCKET_IFNAME="lo")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--mesh-worker",
+         str(r), str(port), what, str(out_dir / f"{what}{r}")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env) for r in range(MESH_RANKS)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=MESH_WORKER_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"mesh ({what}) rank {r} failed (exit "
+                                 f"{p.returncode}):\n{text[-4000:]}")
+    ranks = []
+    for r in range(MESH_RANKS):
+        with np.load(out_dir / f"{what}{r}.npz") as z:
+            bad = _differing({k: z[k] for k in TREE_FIELDS}, want)
+        if bad:
+            raise AssertionError(f"mesh ({what}) rank {r}: tree differs "
+                                 f"in {bad}")
+        rec = json.loads((out_dir / f"{what}{r}.json").read_text())
+        if rec["replication_checks"] == 0 or rec["allreduce_calls"] == 0 \
+                or not all(rec["launches"][k] for k in ("stream",
+                                                        "sorted")):
+            raise AssertionError(f"mesh ({what}) rank {r} did not reduce, "
+                                 f"check or launch: {rec}")
+        ranks.append(rec)
+    return dict(processes_wall_s=wall, ranks=ranks)
+
+
+def phase_mesh(X, y, Xh, yh, fit_tree, hybrid_tree) -> dict:
+    """Phase 28: (b) and (d) in worker pairs, then (a), (e) and (c) in
+    this process (the NCCL group last; left before returning)."""
+    import copy
+
+    from mpitree_tpu_torch.parallel import distributed
+    from mpitree_tpu_torch.tree import ParallelDecisionTreeClassifier
+
+    want_b = fit_tree
+    if MESH_DEPTH != DEPTH:  # the cut run's one-process twin
+        from mpitree_tpu_torch.tree import DecisionTreeClassifier
+
+        want_b = DecisionTreeClassifier(**dict(
+            _mesh_fit_kw("tree"), max_depth=MESH_DEPTH)).fit(X, y).tree_
+    out = {"b": _mesh_pair("tree", want_b),
+           "d": _mesh_pair("default", hybrid_tree)}
+    out["b"]["depth"] = MESH_DEPTH
+
+    def in_process(what: str):
+        par = ParallelDecisionTreeClassifier(**_mesh_fit_kw("tree"))
+        wall, launches = _fit_once(par, X, y)
+        bad = _differing(par.tree_, fit_tree)
+        if bad:
+            raise AssertionError(f"mesh ({what}): tree differs from phase "
+                                 f"3's in {bad}")
+        st = par.fit_stats_
+        if st["n_shards"] != torch.cuda.device_count():
+            raise AssertionError(f"mesh ({what}): {st['n_shards']} shards")
+        return par, dict(wall_s=wall, launches=launches,
+                         **{k: st[k] for k in MESH_STATS})
+
+    par, out["a"] = in_process("a")
+    one = copy.copy(par)
+    one.n_devices = None
+    one.tree_ = fit_tree
+    preds = {}
+    for name, est in (("sharded", par), ("one_device", one)):
+        t0 = time.perf_counter()
+        preds[name] = (est.predict_proba(X), est.predict(Xh))
+        preds[name + "_s"] = time.perf_counter() - t0
+    if not (np.array_equal(preds["sharded"][0], preds["one_device"][0])
+            and np.array_equal(preds["sharded"][1],
+                               preds["one_device"][1])):
+        raise AssertionError("mesh (e): sharded predict differs")
+    out["e"] = dict(rows=len(X) + len(Xh), sharded_s=preds["sharded_s"],
+                    one_device_s=preds["one_device_s"])
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    distributed.initialize(f"localhost:{_free_port()}", 1, 0,
+                           backend="nccl", timeout=300)
+    try:
+        import torch.distributed as dist
+
+        backend = dist.get_backend()
+        _, out["c"] = in_process("c")
+    finally:
+        distributed.shutdown()
+    if backend != "nccl" or out["c"]["allreduce_calls"] == 0:
+        raise AssertionError(f"mesh (c): {backend} group, {out['c']}")
+    b = out["b"]["ranks"]
+    log(f"mesh: (a) one process, {out['a']['n_shards']} shard: "
+        f"{out['a']['wall_s']:.3f} s, launches {out['a']['launches']}; (b) "
+        f"{MESH_RANKS} gloo processes on one card (invariance, not "
+        f"scaling: host-staged), depth {MESH_DEPTH}: processes "
+        f"{out['b']['processes_wall_s']:.3f} s, fits "
+        f"{[round(r['wall_s'], 3) for r in b]} s, all-reduce "
+        f"{b[0]['allreduce_calls']} calls, {b[0]['allreduce_bytes']} "
+        f"bytes, {[round(r['allreduce_seconds'], 3) for r in b]} s, "
+        f"{b[0]['replication_checks']} replication checks, launches "
+        f"{[r['launches'] for r in b]}; (c) NCCL, world 1: "
+        f"{out['c']['wall_s']:.3f} s, {out['c']['allreduce_calls']} "
+        f"all-reduces; (d) defaults in {MESH_RANKS} processes: "
+        f"{out['d']['processes_wall_s']:.3f} s, fits "
+        f"{[round(r['wall_s'], 3) for r in out['d']['ranks']]} s; (e) "
+        f"sharded predict of {out['e']['rows']} rows "
+        f"{out['e']['sharded_s']:.3f} s, one device "
+        f"{out['e']['one_device_s']:.3f} s; every tree equal to phase "
+        f"3's (phase 8's for (d))")
+    return out
+
+
 def phase_profile(name: str, work, out_dir: Path) -> None:
     """Run ``work()`` once more under torch.profiler: device time by kernel
     and the device's busy share of the wall-clock; the table goes to
@@ -3148,12 +3388,18 @@ def main() -> int:
                     help="profile one more tree fit, forest fit and 300 "
                     "one-row requests to rf and to rf8, and trace one "
                     "depth-2 stage pass; tables and the trace go to DIR")
+    ap.add_argument("--mesh-worker", nargs=4,
+                    metavar=("RANK", "PORT", "WHAT", "OUT"),
+                    help=argparse.SUPPRESS)  # phase 28's worker processes
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
               "needs a CUDA card", file=sys.stderr)
         return 1
+    if args.mesh_worker:
+        rank, port, what, out = args.mesh_worker
+        return mesh_worker(int(rank), int(port), what, out)
     import mpitree_tpu_torch  # noqa: F401  (fails outside a checkout)
     from mpitree_tpu_torch.core.builder import BuildConfig, _chunk_size
     from mpitree_tpu_torch.ops import hist_kernel
@@ -3209,7 +3455,8 @@ def main() -> int:
     mark("6 serve kernels")
     serving, serve_launches = phase_serve(forest, Xh, Xbig)
     mark("7 serve")
-    hybrid = {"fit": phase_hybrid(X, y, Xh, yh, DEPTH, fit_acc)}
+    hybrid_fit, hybrid_tree = phase_hybrid(X, y, Xh, yh, DEPTH, fit_acc)
+    hybrid = {"fit": hybrid_fit}
     mark("8 hybrid")
     phase_parity(DEPTH, hybrid=True)
     mark("9 hybrid parity")
@@ -3278,6 +3525,8 @@ def main() -> int:
     tier = phase_serve_tier(forest, reg_tree, Xbig, Xh, Xch, args.profile)
     mark("27 serve tier")
     del Xbig
+    mesh = phase_mesh(X, y, Xh, yh, fit_tree, hybrid_tree)
+    mark("28 mesh")
     if args.profile:
         profile_all(X, y, forest, Xh, args.profile)
 
@@ -3309,6 +3558,11 @@ def main() -> int:
             leafwise_launches={
                 sub: leafwise["budget"][sub]["launches"][route]
                 for sub in ("off", "on")},
+            mesh_launches={
+                part: mesh[part]["launches"][route] if "launches" in
+                mesh[part] else [r["launches"][route]
+                                 for r in mesh[part]["ranks"]]
+                for part in ("a", "b", "c", "d")},
         ))
     for form, (agg, chan) in SERVE_LINE.items():
         row = next(r for r in serve_shapes if r["kernel"] == form
@@ -3427,6 +3681,7 @@ def main() -> int:
     log(json.dumps({"leafwise": leafwise}))
     log(json.dumps({"fused_rounds": fused}))
     log(json.dumps({"serve_tier": tier}))
+    log(json.dumps({"mesh": mesh}))
     log(json.dumps({"phase_end_s": clock}))
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -15,7 +15,8 @@ Ported so far: ``DecisionTreeClassifier`` and ``DecisionTreeRegressor``
 (levelwise device engine, host tier, refine tail, ``ccp_alpha``,
 ``sample_weight``/``class_weight``, ``max_features``/``splitter``,
 ``monotonic_cst``, ``decision_path``, ``export_text``/``export_dot``,
-``nodes_``), ``RandomForestClassifier``, ``RandomForestRegressor``,
+``nodes_``, ``n_devices`` on a data mesh over devices and processes),
+``ParallelDecisionTreeClassifier``, ``RandomForestClassifier``, ``RandomForestRegressor``,
 ``ExtraTreesClassifier`` and ``ExtraTreesRegressor`` (with OOB scores,
 warm start and ``monotonic_cst``), ``GradientBoostingClassifier`` and
 ``GradientBoostingRegressor`` (the host round loop over Newton trees
@@ -29,7 +30,10 @@ from mpitree_tpu_torch.boosting import (
     GradientBoostingClassifier,
     GradientBoostingRegressor,
 )
-from mpitree_tpu_torch.models.classifier import DecisionTreeClassifier
+from mpitree_tpu_torch.models.classifier import (
+    DecisionTreeClassifier,
+    ParallelDecisionTreeClassifier,
+)
 from mpitree_tpu_torch.models.forest import (
     ExtraTreesClassifier,
     ExtraTreesRegressor,
@@ -48,6 +52,7 @@ __all__ = [
     "GradientBoostingClassifier",
     "GradientBoostingRegressor",
     "ModelRegistry",
+    "ParallelDecisionTreeClassifier",
     "RandomForestClassifier",
     "RandomForestRegressor",
     "compile_model",

@@ -54,7 +54,7 @@ adds its ``engine``, ``frontier`` and ``expansions``.
 
 Options off this path raise ``NotImplementedError`` naming their
 ``ROADMAP.md`` item: ``checkpoint`` (item 17), ``fit(dataset=...)``
-(item 16) and ``n_devices > 1`` (item 14). ``backend="host"`` raises
+(item 16) and ``n_devices > 1`` (item 14c). ``backend="host"`` raises
 ``ValueError``: boosting rounds run the device engine only, as in the
 JAX package.
 """
@@ -98,6 +98,7 @@ from mpitree_tpu_torch.utils.validation import (
 # (parameter, value the slice supports, ROADMAP.md item that ports it)
 _LATER = (
     ("checkpoint", None, "Queue 1 item 17 (resilience/checkpoint.py)"),
+    ("n_devices", 1, "Queue 1 item 14c, boosting on a data mesh"),
 )
 
 

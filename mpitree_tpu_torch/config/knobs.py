@@ -7,8 +7,8 @@ parse rule and choices. Only the knobs of the serving tier are registered
 so far: table quantization, the scheduler's QoS classes and window, and
 the metrics exemplar ring. The rest, and the README table generator,
 come with ``ROADMAP.md`` Queue 1 item 18; the port's other env reads
-(``core/builder.py``, ``boosting/fused_rounds.py``) stay where they are
-until then.
+(``core/builder.py``, ``boosting/fused_rounds.py``,
+``utils/profiling.py``) stay where they are until then.
 
 Two read paths:
 

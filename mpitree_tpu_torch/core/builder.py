@@ -1,4 +1,5 @@
-"""Breadth-first, level-synchronous tree construction on one device.
+"""Breadth-first, level-synchronous tree construction on one device or a
+data mesh.
 
 Counterpart of ``mpitree_tpu/core/builder.py`` (``build_tree``, ``:703``).
 :func:`build_tree` runs one of two engines (:func:`resolve_engine`,
@@ -34,7 +35,7 @@ round (``y`` carries the rows' float32 gradients, ``sample_weight`` their
 hessians; the ``(count, g, h)`` payload, the Newton sweep, the stopping
 rules of ``mpitree_tpu/core/builder.py:1465-1517``; the boosting loop
 refits every node's value in float64). The payload picks the histogram's
-route once per fit (``ops/histogram.payload_scale``): class counts with
+route once per fit (``parallel/collective.payload_scale``): class counts with
 integer weights take the float32 integer route, every other payload
 (fractional weights, every regression, every boosting round) the int64
 fixed-point route, whose sums are exact and order-independent, so the
@@ -65,6 +66,20 @@ histogram routes subtract exactly, so it never changes a tree.
 A ``max_leaf_nodes`` budget sends :func:`build_tree` to the leaf-wise
 engines (``core/leafwise_builder.py``). Not here (see ``ROADMAP.md``): the
 resilience snapshot and the observability layer.
+
+On a data mesh (``mesh=``, ``parallel/mesh.py``; the JAX package's
+``shard_map`` over ``DATA_AXIS``) both engines keep the tree state, the
+sweep, the stop rules and the allocation on the lead shard, once per
+process, and the rows on their shards: :class:`FitInputs` shards them,
+:class:`FrontierHistograms` reduces each chunk's histogram over every
+shard and process before the sweep (and before a sibling subtraction's
+rebuild), the terminal sums and regression's range reduce likewise, and
+the split tables go to every shard for the reroute. Every process sweeps
+its own copy of the reduced histograms; ``BuildConfig.debug`` holds their
+decisions to the same bits every level (``utils/profiling``). The
+port's ``backend=None`` is always the device engine, so a multi-device
+mesh needs no rule of its own to force it
+(``mpitree_tpu/core/builder.py:179-191``).
 """
 
 from __future__ import annotations
@@ -80,12 +95,10 @@ import torch
 from mpitree_tpu_torch.core.tree_struct import TreeArrays
 from mpitree_tpu_torch.ops import hist_kernel
 from mpitree_tpu_torch.ops.binning import BinnedData
-from mpitree_tpu_torch.ops.hist_kernel import fixed_point_exponents
 from mpitree_tpu_torch.ops.histogram import (
     class_payload,
     gbdt_payload,
     moment_payload,
-    payload_scale,
     sibling_accumulate_slots,
     sibling_reconstruct,
 )
@@ -95,6 +108,7 @@ from mpitree_tpu_torch.utils.importances import (
     moment_node_impurity,
 )
 from mpitree_tpu_torch.utils.monotonic import BoundsStore
+from mpitree_tpu_torch.utils.profiling import assert_replicated
 
 TASKS = ("classification", "regression", "gbdt")
 
@@ -159,6 +173,9 @@ class BuildConfig:
     # A leaf budget grows the tree best-first (core/leafwise_builder.py);
     # None grows it level by level.
     max_leaf_nodes: int | None = None
+    # On a mesh of several processes, hold every level's decisions to the
+    # same bits on every process (utils/profiling.assert_replicated).
+    debug: bool = False
 
 
 def chunk_bytes_per_slot(n_feat: int, n_bins: int, n_chan: int,
@@ -283,19 +300,24 @@ def child_carry(hist, n_left, n, parent_rel) -> SubtractionCarry:
 
 
 class FrontierHistograms:
-    """One level's chunk histograms, for either engine: rows ordered by
-    slot once a level, then each chunk's ``(S, F, C, B)`` histogram read
-    directly or, given a ``carry``, accumulated for the smaller siblings
-    only into a compact ``S/2``-slot histogram and rebuilt as ``parent -
-    small`` (``histogram.sibling_reconstruct``). With ``keep`` the level's
-    histograms stay resident in ``kept`` for the next level's carry."""
+    """One level's chunk histograms, for either engine: each shard's rows
+    ordered by slot once a level, then each chunk's ``(S, F, C, B)``
+    histogram built on every shard and reduced over the mesh
+    (``collective.psum``, the JAX package's ``lax.psum``) onto the lead
+    shard; given a ``carry``, the shards accumulate the smaller siblings
+    only into a compact ``S/2``-slot histogram, which is reduced first and
+    then rebuilt as ``parent - small`` against the reduced carry
+    (``histogram.sibling_reconstruct``; JAX's ``reconstruct(lax.psum(h))``,
+    ``mpitree_tpu/parallel/collective.py:412``). With ``keep`` the level's
+    histograms stay resident on the lead in ``kept`` for the next level's
+    carry. ``nids`` holds every shard's node ids."""
 
-    def __init__(self, fit, nid: torch.Tensor, flo: int, fsz: int, S: int,
+    def __init__(self, fit, nids: list, flo: int, fsz: int, S: int,
                  *, carry: SubtractionCarry | None, keep: bool):
         self.fit, self.S = fit, S
         self.n_chunks = -(-fsz // S)
         width = self.n_chunks * S
-        dev = nid.device
+        dev = fit.dev
         self.carry = carry if carry is not None and S % 2 == 0 else None
         if self.carry is not None:
             self.acc = S // 2
@@ -304,17 +326,20 @@ class FrontierHistograms:
             self.pslot = torch.zeros(width, dtype=torch.int64, device=dev)
             self.pslot[:fsz] = carry.pslot
             # (rel >> 1) = chunk * S/2 + (slot >> 1): one key for the level
-            self.key = sibling_accumulate_slots(nid, flo, self.small,
-                                                n_slots=width)
+            self.keys = [sibling_accumulate_slots(nid, flo, small,
+                                                  n_slots=width)
+                         for nid, small in zip(nids, fit.to_shards(
+                             self.small))]
         else:
             self.acc = S
-            self.key = (nid - flo).to(torch.int32)
-        self.order = self.seg = None
+            self.keys = [(nid - flo).to(torch.int32) for nid in nids]
+        self.orders = self.segs = [None] * len(nids)
         if self.acc > hist_kernel.STREAM_MAX_SLOTS:
             # rows of finished leaves and of large siblings (-1) fall
             # outside every segment
-            self.order, self.seg = hist_kernel.slot_segments(
-                self.key, self.n_chunks * self.acc)
+            self.orders, self.segs = zip(*(
+                hist_kernel.slot_segments(key, self.n_chunks * self.acc)
+                for key in self.keys))
         self.kept = None
         if keep and self.n_chunks > 1:
             self.kept = torch.empty(
@@ -324,12 +349,15 @@ class FrontierHistograms:
 
     def chunk(self, c: int) -> torch.Tensor:
         fit, S, a = self.fit, self.S, self.acc
-        h = collective.split_hist(
-            fit.xb, fit.payload, None, 0, n_slots=a, n_bins=fit.B,
-            packed=fit.packed, order=self.order, feat_bins=fit.feat_bins,
-            seg_start=None if self.seg is None
-            else self.seg[c * a: c * a + a + 1],
-            scale_exp=fit.scale_exp, slot=self.key - c * a)
+        h = collective.psum([
+            collective.split_hist(
+                sh.xb, sh.payload, None, 0, n_slots=a, n_bins=fit.B,
+                packed=sh.packed, order=order, feat_bins=fit.feat_bins,
+                seg_start=None if seg is None else seg[c * a: c * a + a + 1],
+                scale_exp=fit.scale_exp, slot=key - c * a)
+            for sh, key, order, seg in zip(fit.shards, self.keys,
+                                           self.orders, self.segs)],
+            fit.mesh)
         if self.carry is not None:
             sl = slice(c * S, (c + 1) * S)
             h = sibling_reconstruct(h, self.carry.hist, self.pslot[sl],
@@ -363,56 +391,107 @@ def _on_device(a, dtype, dev) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a, np_dtype), device=dev)
 
 
+class _Shard(NamedTuple):
+    """One shard's rows of a fit: on its device, the bins (int32 and the
+    byte-wide copy), the targets and the payload (0 on padding rows)."""
+
+    dev: torch.device
+    xb: torch.Tensor
+    packed: torch.Tensor | None
+    y: torch.Tensor
+    payload: torch.Tensor
+
+
+def _task_payload(task: str, y, w_d: torch.Tensor, n_classes,
+                  dev: torch.device) -> tuple:
+    """``(y, payload)`` of one shard's rows on ``dev``: the targets as the
+    sweep reads them and the (n, C) histogram payload of ``task``."""
+    if task == "gbdt":
+        y_d = _on_device(y, torch.float32, dev)
+        return y_d, gbdt_payload(y_d, w_d).contiguous()
+    if task == "regression":
+        y_d = _on_device(y, torch.float32, dev)
+        return y_d, moment_payload(y_d, w_d).contiguous()
+    y_d = _on_device(y, torch.int64, dev)
+    return y_d, class_payload(y_d, w_d, int(n_classes)).contiguous()
+
+
 class FitInputs:
-    """What both engines prepare once per tree on the fit's device: the
-    bins (int32 and the byte-wide copy), the payload and its route, the
-    candidate mask, the chunk width ``K``, the table width ``U`` and the
-    tiers. A forest passes each tree's ``sample_weight`` as a tensor on
-    the device, its ``scale_exp`` (the route, decided for every tree at
-    once) and its ``candidate_mask``."""
+    """What both engines prepare once per tree: the bins (int32 and the
+    byte-wide copy), the payload and its route, the candidate mask, the
+    chunk width ``K``, the table width ``U`` and the tiers. A forest
+    passes each tree's ``sample_weight`` as a tensor on the device, its
+    ``scale_exp`` (the route, decided for every tree at once) and its
+    ``candidate_mask``.
+
+    On a ``mesh`` (``parallel/mesh.Mesh``) the rows are sharded
+    (``mesh.shard_build_inputs``; ``binned.x_binned`` is the whole matrix
+    on the lead shard, ``y`` and ``sample_weight`` every row's) into
+    ``shards``, one per local shard, and the route comes from every
+    shard's payload (``collective.payload_scale``); ``N``, ``K`` and
+    ``U`` are the global row count's, so every shard and process chunks
+    alike. Without one, ``shards`` holds the one device's rows. The
+    attributes ``xb``, ``packed``, ``y``, ``payload`` and ``dev`` are the
+    first (lead) shard's."""
 
     def __init__(self, binned: BinnedData, y, cfg: BuildConfig, *,
                  n_classes=None, sample_weight=None, packed=None,
-                 feature_mask=None, scale_exp="auto", candidate_mask=None):
+                 feature_mask=None, scale_exp="auto", candidate_mask=None,
+                 mesh=None):
         xb = binned.x_binned
         if not isinstance(xb, torch.Tensor):
             raise TypeError(
                 "build_tree needs BinnedData with a tensor x_binned")
-        self.dev = dev = xb.device
-        self.xb = xb.to(torch.int32).contiguous()
-        self.N, self.F = self.xb.shape
-        self.B = binned.n_bins
-        self.packed = pack_for_fit(binned) if packed is None else packed
-        self.feat_bins = [int(v) + 1 for v in binned.n_cand]
         task = cfg.task
-        if sample_weight is None:
-            w_d = torch.ones(self.N, dtype=torch.float32, device=dev)
-        elif isinstance(sample_weight, torch.Tensor):
-            w_d = sample_weight.to(torch.float32)
+        self.mesh = mesh
+        self.N, self.F = int(xb.shape[0]), int(xb.shape[1])
+        self.B = binned.n_bins
+        self.feat_bins = [int(v) + 1 for v in binned.n_cand]
+        self.C = 3 if task in ("regression", "gbdt") else int(n_classes)
+        if mesh is None:
+            dev = xb.device
+            xb = xb.to(torch.int32).contiguous()
+            if sample_weight is None:
+                w_d = torch.ones(self.N, dtype=torch.float32, device=dev)
+            elif isinstance(sample_weight, torch.Tensor):
+                w_d = sample_weight.to(torch.float32)
+            else:
+                w_d = torch.as_tensor(
+                    np.asarray(sample_weight, np.float32), device=dev)
+            y_d, payload = _task_payload(task, y, w_d, n_classes, dev)
+            self.shards = [_Shard(
+                dev, xb, pack_for_fit(binned) if packed is None else packed,
+                y_d, payload)]
+            self._nid0 = [torch.zeros(self.N, dtype=torch.int32,
+                                      device=dev)]
         else:
-            w_d = torch.as_tensor(np.asarray(sample_weight, np.float32),
-                                  device=dev)
-        if task == "gbdt":
-            self.C = 3
-            self.y = _on_device(y, torch.float32, dev)
-            self.payload = gbdt_payload(self.y, w_d).contiguous()
-        elif task == "regression":
-            self.C = 3
-            self.y = _on_device(y, torch.float32, dev)
-            self.payload = moment_payload(self.y, w_d).contiguous()
-        else:
-            self.C = int(n_classes)
-            self.y = _on_device(y, torch.int64, dev)
-            self.payload = class_payload(
-                self.y, None if sample_weight is None else w_d, self.C
-            ).contiguous()
+            from mpitree_tpu_torch.parallel.mesh import shard_build_inputs
+
+            self.shards, self._nid0 = [], []
+            for part, dev in zip(shard_build_inputs(
+                    mesh, xb, y, sample_weight), mesh.devices):
+                x_i = part["x_binned"].to(torch.int32).contiguous()
+                # weighted by the padded weights (1, or 0 on padding rows,
+                # which then add to nothing, not even the route's stats)
+                y_d, payload = _task_payload(
+                    task, part["y"], torch.as_tensor(part["weight"],
+                                                     device=dev),
+                    n_classes, dev)
+                self.shards.append(_Shard(
+                    dev, x_i, hist_kernel.pack_bins(x_i, self.B)
+                    if self.B <= 256 else None, y_d, payload))
+                self._nid0.append(torch.as_tensor(part["node_id"],
+                                                  device=dev))
+        lead = self.shards[0]
+        self.dev, self.xb, self.packed = lead.dev, lead.xb, lead.packed
+        self.y, self.payload = lead.y, lead.payload
         # the histogram's route, once per fit: None = the float32 integer
         # route (one device-to-host copy; a boosting round's g/h change
         # every tree); a forest decides every tree's at once
         if isinstance(scale_exp, str):
-            scale_exp = (fixed_point_exponents(self.payload)
-                         if task in ("regression", "gbdt")
-                         else payload_scale(self.payload))
+            scale_exp = collective.payload_scale(
+                [sh.payload for sh in self.shards], mesh,
+                fixed=task in ("regression", "gbdt"), n_rows=self.N)
         self.scale_exp = scale_exp
         self.fixed = scale_exp is not None
         # the terminal sums' int64 payload, made for the first terminal
@@ -424,7 +503,7 @@ class FitInputs:
             cand = binned.candidate_mask()
             if feature_mask is not None:
                 cand = cand & np.asarray(feature_mask, bool)[:, None]
-            candidate_mask = torch.from_numpy(cand).to(dev)
+            candidate_mask = torch.from_numpy(cand).to(self.dev)
         self.cand_mask = candidate_mask
         self.K = _chunk_size(self.N, self.F, self.B, self.C, cfg,
                              cell_bytes=8 if self.fixed else 4)
@@ -436,17 +515,60 @@ class FitInputs:
         frontier, else the chunk width ``K``."""
         return next((s for s in self.tiers if frontier_size <= s), self.K)
 
-    def node_sums(self, nid: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    def root_nids(self) -> list:
+        """Every shard's rows at the root: node 0, padding rows at -1
+        (the engines never write node ids in place)."""
+        return list(self._nid0)
+
+    def to_shards(self, t: torch.Tensor) -> list:
+        """A table on the lead shard, on every shard (``collective.to_shards``)."""
+        return collective.to_shards(t, self.mesh)
+
+    def node_sums(self, nids, lo: int, hi: int) -> torch.Tensor:
         """(hi - lo, C) float64 payload sums of frontier nodes [lo, hi)
-        for a terminal level, one U-slot table at a time."""
+        for a terminal level, one U-slot table at a time, reduced over the
+        mesh; ``nids`` every shard's node ids (a tensor for one shard)."""
         if self._q is None:
-            self._q = hist_kernel.quantize(self.payload, self.sum_exp)
+            self._q = [hist_kernel.quantize(sh.payload, self.sum_exp)
+                       for sh in self.shards]
         U = self.U
         return torch.cat([
-            collective.node_sums(self._q, nid, a, n_slots=U,
-                                 scale_exp=self.sum_exp)[: min(U, hi - a)]
+            collective.node_sums(self._q, nids, a, n_slots=U,
+                                 scale_exp=self.sum_exp,
+                                 mesh=self.mesh)[: min(U, hi - a)]
             for a in range(lo, hi, U)
         ])
+
+    def y_range(self, nids: list, lo: int, n_slots: int) -> torch.Tensor:
+        """Regression's purity signal of the ``n_slots`` nodes from ``lo``
+        over every shard's rows (``collective.y_range``), on the lead."""
+        return collective.y_range(
+            [sh.y for sh in self.shards], nids,
+            [sh.payload[:, 0] for sh in self.shards], lo, n_slots=n_slots,
+            mesh=self.mesh)
+
+    def reroute(self, nids: list, lo: int, *tables) -> list:
+        """Every shard's rows through one level's split tables (on the
+        lead shard, copied to each shard): ``collective.update_node_id``."""
+        per = [self.to_shards(t) for t in tables]
+        return [collective.update_node_id(nid, sh.xb, lo,
+                                          *(p[i] for p in per))
+                for i, (nid, sh) in enumerate(zip(nids, self.shards))]
+
+    def leaf_ids(self, nids: list) -> np.ndarray:
+        """Every row's node as an (N,) int32 numpy array in the caller's
+        row order: the local shards' ids in shard order, padding dropped;
+        across processes one all-reduce of an N-row vector in which each
+        process fills its own rows."""
+        local = torch.cat([n.to(self.dev) for n in nids])
+        mesh = self.mesh
+        if mesh is None or mesh.group is None:
+            return local[:self.N].cpu().numpy()
+        full = torch.zeros(mesh.n_procs * local.shape[0],
+                           dtype=torch.int32, device=self.dev)
+        a = mesh.rank * local.shape[0]
+        full[a:a + local.shape[0]] = local
+        return collective.psum([full], mesh)[:self.N].cpu().numpy()
 
 
 def refit_regression_values(tree: TreeArrays, nid_host: np.ndarray,
@@ -581,9 +703,10 @@ def build_tree(binned: BinnedData, y: np.ndarray, *, config: BuildConfig,
                feature_sampler=None,
                feature_mask: np.ndarray | None = None,
                mono_cst: np.ndarray | None = None,
-               stats: dict | None = None):
-    """Grow one tree on the device that holds ``binned.x_binned``; returns
-    the host struct-of-arrays tree. The engine comes from
+               stats: dict | None = None, mesh=None):
+    """Grow one tree on the device that holds ``binned.x_binned``, or on
+    the data ``mesh`` (``parallel/mesh.Mesh``) whose lead shard holds it;
+    returns the host struct-of-arrays tree. The engine comes from
     :func:`resolve_engine`: the fused engine
     (``core/fused_builder.build_tree_fused``, same contract) or the
     levelwise loop below.
@@ -609,6 +732,13 @@ def build_tree(binned: BinnedData, y: np.ndarray, *, config: BuildConfig,
     instead (``core/leafwise_builder.build_tree_leafwise``, the dispatch of
     ``mpitree_tpu/core/builder.py:757-780``), which records its engine,
     frontier and expansions in ``stats``.
+
+    On a ``mesh`` the rows shard over its shards and processes
+    (``FitInputs``), each level's histograms reduce over them, and the
+    tree is the one-device tree field for field; ``return_leaf_ids``
+    then gives every row's node in the caller's row order. Every process
+    of the mesh passes the same ``binned``, ``y`` and weights. Leaf-wise
+    growth on a mesh is ``ROADMAP.md`` item 14c.
     """
     cfg = config
     check_task(cfg)
@@ -617,6 +747,10 @@ def build_tree(binned: BinnedData, y: np.ndarray, *, config: BuildConfig,
             raise ValueError(
                 f"max_leaf_nodes must be >= 2 or None, got "
                 f"{cfg.max_leaf_nodes!r}")
+        if mesh is not None:
+            raise NotImplementedError(
+                "max_leaf_nodes on a data mesh is not ported yet "
+                "(ROADMAP.md Queue 1 item 14c)")
         from mpitree_tpu_torch.core.leafwise_builder import (
             build_tree_leafwise,
         )
@@ -630,7 +764,7 @@ def build_tree(binned: BinnedData, y: np.ndarray, *, config: BuildConfig,
     kw = dict(config=cfg, n_classes=n_classes, sample_weight=sample_weight,
               packed=packed, return_leaf_ids=return_leaf_ids,
               refit_targets=refit_targets, feature_sampler=feature_sampler,
-              feature_mask=feature_mask, mono_cst=mono_cst)
+              feature_mask=feature_mask, mono_cst=mono_cst, mesh=mesh)
     if resolve_engine(cfg) == "fused":
         from mpitree_tpu_torch.core.fused_builder import build_tree_fused
 
@@ -641,17 +775,17 @@ def build_tree(binned: BinnedData, y: np.ndarray, *, config: BuildConfig,
 def _build_levelwise(binned: BinnedData, y: np.ndarray, *,
                      config: BuildConfig, n_classes, sample_weight, packed,
                      return_leaf_ids, refit_targets, feature_sampler,
-                     feature_mask, mono_cst):
+                     feature_mask, mono_cst, mesh=None):
     """The levelwise engine: one host round trip a level."""
     cfg = config
     regression = cfg.task == "regression"
     gbdt = cfg.task == "gbdt"
     fit = FitInputs(binned, y, cfg, n_classes=n_classes,
                     sample_weight=sample_weight, packed=packed,
-                    feature_mask=feature_mask)
-    xb, dev, N, F, C = fit.xb, fit.dev, fit.N, fit.F, fit.C
+                    feature_mask=feature_mask, mesh=mesh)
+    dev, N, F, C = fit.dev, fit.N, fit.F, fit.C
     fixed, scale_exp, U = fit.fixed, fit.scale_exp, fit.U
-    nid = torch.zeros(N, dtype=torch.int32, device=dev)
+    nids = fit.root_nids()
     sampling = feature_sampler is not None and feature_sampler.active
     keys = feature_sampler.key_store() if sampling else None
     mono = mono_cst is not None and bool(np.any(np.asarray(mono_cst) != 0))
@@ -698,26 +832,29 @@ def _build_levelwise(binned: BinnedData, y: np.ndarray, *,
         hi = frontier_lo + frontier_size
         carry_in, carry = carry, None
         if terminal:
-            dec = {"counts": fit.node_sums(nid, frontier_lo, hi).cpu().numpy()}
+            dec = {"counts": fit.node_sums(nids, frontier_lo, hi).cpu().numpy()}
         else:
             S = fit.width(frontier_size)
             n_chunks = -(-frontier_size // S)
             keep = keep_level(fit, cfg, use_sub, S, n_chunks)
-            level = FrontierHistograms(fit, nid, frontier_lo, frontier_size,
+            level = FrontierHistograms(fit, nids, frontier_lo, frontier_size,
                                        S, carry=carry_in, keep=keep)
             decisions = torch.cat([
                 collective.split_sweep(
-                    level.chunk(c), fit.cand_mask, nid, lo,
+                    level.chunk(c), fit.cand_mask, None, lo,
                     criterion=cfg.criterion,
                     min_child_weight=cfg.min_child_weight,
-                    scale_exp=scale_exp, task=cfg.task, y=fit.y,
-                    payload=fit.payload, reg_lambda=cfg.reg_lambda,
+                    scale_exp=scale_exp, task=cfg.task,
+                    reg_lambda=cfg.reg_lambda,
                     min_leaf_rows=cfg.min_leaf_rows,
+                    yr=fit.y_range(nids, lo, S) if regression else None,
                     **sample_args(lo, min(S, hi - lo), S),
                     **mono_args(lo, min(S, hi - lo), S),
                 )[: min(S, hi - lo)]
                 for c, lo in enumerate(range(frontier_lo, hi, S))
             ])
+            if cfg.debug:
+                assert_replicated(decisions, fit.mesh, what=f"depth {depth}")
             dec = collective.unpack_decision(
                 decisions.cpu().numpy(), n_counts=C, y_range=regression,
                 mono=mono)
@@ -832,8 +969,8 @@ def _build_levelwise(binned: BinnedData, y: np.ndarray, *,
                 bin_t[:take] = np.where(is_split_full[sl], dec["bin"][sl], 0)
                 left_t[:take] = lr[sl]
                 right_t[:take] = rr[sl]
-                nid = collective.update_node_id(
-                    nid, xb, lo, to_dev(is_split), to_dev(feat_t),
+                nids = fit.reroute(
+                    nids, lo, to_dev(is_split), to_dev(feat_t),
                     to_dev(bin_t), to_dev(left_t), to_dev(right_t),
                 )
 
@@ -844,11 +981,11 @@ def _build_levelwise(binned: BinnedData, y: np.ndarray, *,
     out = tree.finalize()
     leaf_ids = None
     if regression and refit_targets is not None:
-        leaf_ids = nid.cpu().numpy()
+        leaf_ids = fit.leaf_ids(nids)
         w64 = (np.ones(N) if sample_weight is None
                else np.asarray(sample_weight)).astype(np.float64)
         refit_regression_values(out, leaf_ids, w64,
                                 np.asarray(refit_targets, np.float64))
     if return_leaf_ids:
-        return out, nid.cpu().numpy() if leaf_ids is None else leaf_ids
+        return out, fit.leaf_ids(nids) if leaf_ids is None else leaf_ids
     return out

@@ -37,10 +37,15 @@ A level (``level_body``, ``:385-653``):
 :func:`build_forest_fused` (``:1094``) grows T trees in sequence in one
 call on one device from stacked (T, N) weights and (T, F, B) candidate
 masks, decides every tree's histogram route with one copy, and copies the
-finished trees to the host once. Not here (``ROADMAP.md``): the JAX
-package's ``(tree, data)`` mesh (item 14); ``task="gbdt"`` runs the
-levelwise engine (the fused boosting rounds grow best-first trees,
-``boosting/fused_rounds.py``).
+finished trees to the host once. :func:`build_tree_fused` also grows a
+tree on a data mesh (``_make_fused_fn`` with ``psum_axis=DATA_AXIS``,
+``:699-756``): the tree state stays on the lead shard, each shard keeps
+its rows' node ids, every chunk's histogram reduces over the mesh
+(``core/builder.FrontierHistograms``) and the reroute's split tables are
+copied to the shards; still one frontier read a level in each process.
+Not here (``ROADMAP.md``): the JAX package's ``(tree, data)`` mesh for
+forests (item 14b); ``task="gbdt"`` runs the levelwise engine (the fused
+boosting rounds grow best-first trees, ``boosting/fused_rounds.py``).
 """
 
 from __future__ import annotations
@@ -77,6 +82,7 @@ from mpitree_tpu_torch.utils.importances import (
     moment_node_impurity,
 )
 from mpitree_tpu_torch.utils.monotonic import child_bounds_dev
+from mpitree_tpu_torch.utils.profiling import assert_replicated
 
 # One per level of every fused build: the host's reads of the frontier
 # size, the engine's only device-to-host copies before its results.
@@ -160,7 +166,7 @@ class _Grown(NamedTuple):
     levels: list  # (first node, frontier size) per depth
     ints: torch.Tensor  # (4, n_nodes) int32: feature, bin, left, parent
     counts: torch.Tensor  # (n_nodes, C) float64
-    nid: torch.Tensor  # (N,) int32 final node of every row
+    nids: list  # every shard's (n,) int32 final node of each row
 
 
 def _grow(fit: FitInputs, cfg: BuildConfig, *, use_sub: bool,
@@ -202,18 +208,18 @@ def _grow(fit: FitInputs, cfg: BuildConfig, *, use_sub: bool,
     if use_sub:
         small_a = full(True, torch.bool)
     n_head = 7 + int(regression) + 2 * int(mono)
-    nid = torch.zeros(N, dtype=torch.int32, device=dev)
+    nids = fit.root_nids()
     flo, fsz, depth, levels, carry = 0, 1, 0, [], None
     while fsz > 0:
         hi = flo + fsz
         levels.append((flo, fsz))
         if cfg.max_depth is not None and depth == cfg.max_depth:
-            counts_a[flo:hi] = fit.node_sums(nid, flo, hi)
+            counts_a[flo:hi] = fit.node_sums(nids, flo, hi)
             flo = hi
             break
         S = fit.width(fsz)
         keep = keep_level(fit, cfg, use_sub, S, -(-fsz // S))
-        level = FrontierHistograms(fit, nid, flo, fsz, S, carry=carry,
+        level = FrontierHistograms(fit, nids, flo, fsz, S, carry=carry,
                                    keep=keep)
         bufs = []
         for c, lo in enumerate(range(flo, hi, S)):
@@ -229,13 +235,16 @@ def _grow(fit: FitInputs, cfg: BuildConfig, *, use_sub: bool,
                 extra.update(mono_cst=cst_d, mono_lo=lo_a[lo:lo + S],
                              mono_hi=hi_a[lo:lo + S])
             bufs.append(collective.split_sweep(
-                level.chunk(c), fit.cand_mask, nid, lo,
+                level.chunk(c), fit.cand_mask, None, lo,
                 criterion=cfg.criterion,
                 min_child_weight=cfg.min_child_weight,
-                scale_exp=fit.scale_exp, task=cfg.task, y=fit.y,
-                payload=fit.payload, **extra,
+                scale_exp=fit.scale_exp, task=cfg.task,
+                yr=fit.y_range(nids, lo, S) if regression else None,
+                **extra,
             )[: min(S, hi - lo)])
         buf = torch.cat(bufs)
+        if cfg.debug:
+            assert_replicated(buf, fit.mesh, what=f"depth {depth}")
 
         # the stop rules, in the buffer's dtype as the levelwise engine's
         counts = buf[:, n_head:]
@@ -281,9 +290,9 @@ def _grow(fit: FitInputs, cfg: BuildConfig, *, use_sub: bool,
             left_small = buf[:, 6] * 2.0 <= n  # ties go left
             small_a[scat] = left_small
             small_a[scat + 1] = ~left_small
-        nid = collective.update_node_id(
-            nid, fit.xb, flo, split, feat_k.clamp(min=0).to(torch.int64),
-            bin_k, lids.to(torch.int32), (lids + 1).to(torch.int32))
+        nids = fit.reroute(
+            nids, flo, split, feat_k.clamp(min=0).to(torch.int64), bin_k,
+            lids.to(torch.int32), (lids + 1).to(torch.int32))
 
         if sizes is None:
             # the level's one read: 4 bytes
@@ -298,7 +307,7 @@ def _grow(fit: FitInputs, cfg: BuildConfig, *, use_sub: bool,
         flo, fsz, depth = hi, 2 * n_split, depth + 1
     ints = torch.stack([feat_a[:flo], bin_a[:flo], left_a[:flo],
                         parent_a[:flo]])
-    return _Grown(flo, levels, ints, counts_a[:flo], nid)
+    return _Grown(flo, levels, ints, counts_a[:flo], nids)
 
 
 def _finalize_tree(binned, task: str, criterion: str, n_nodes: int,
@@ -366,16 +375,20 @@ def build_tree_fused(binned, y: np.ndarray, *, config: BuildConfig,
                      refit_targets: np.ndarray | None = None,
                      feature_sampler=None,
                      feature_mask: np.ndarray | None = None,
-                     mono_cst: np.ndarray | None = None):
+                     mono_cst: np.ndarray | None = None, mesh=None):
     """``core/builder.build_tree``'s contract on the fused engine
     (``mpitree_tpu/core/fused_builder.py:862``): the same tree as the
     levelwise engine, with one frontier-size read a level. With
-    ``return_leaf_ids`` (the hybrid crown) also every row's final node."""
+    ``return_leaf_ids`` (the hybrid crown) also every row's final node.
+    On a data ``mesh`` (``_make_fused_fn`` with ``psum_axis=DATA_AXIS``,
+    ``:699-756``) the tree state stays on the lead shard and the rows'
+    node ids on their shards; still one frontier read a level in each
+    process."""
     cfg = config
     _check_fused(cfg)
     fit = FitInputs(binned, y, cfg, n_classes=n_classes,
                     sample_weight=sample_weight, packed=packed,
-                    feature_mask=feature_mask)
+                    feature_mask=feature_mask, mesh=mesh)
     g = _grow(fit, cfg, use_sub=resolve_hist_subtraction(cfg, fit.dev),
               sampler=feature_sampler, mono_cst=mono_cst)
     tree = _finalize_tree(binned, cfg.task, cfg.criterion, g.n_nodes,
@@ -383,13 +396,13 @@ def build_tree_fused(binned, y: np.ndarray, *, config: BuildConfig,
                           g.levels, _count_dtype(cfg.task, sample_weight))
     leaf_ids = None
     if cfg.task == "regression" and refit_targets is not None:
-        leaf_ids = g.nid.cpu().numpy()
+        leaf_ids = fit.leaf_ids(g.nids)
         w64 = (np.ones(fit.N) if sample_weight is None
                else np.asarray(sample_weight)).astype(np.float64)
         refit_regression_values(tree, leaf_ids, w64,
                                 np.asarray(refit_targets, np.float64))
     if return_leaf_ids:
-        return tree, g.nid.cpu().numpy() if leaf_ids is None else leaf_ids
+        return tree, fit.leaf_ids(g.nids) if leaf_ids is None else leaf_ids
     return tree
 
 
@@ -472,7 +485,7 @@ def build_forest_fused(binned, y: np.ndarray, *, config: BuildConfig,
                            mono_cst=mono_cst))
     ints = torch.cat([g.ints for g in grown], dim=1).cpu().numpy()
     counts = torch.cat([g.counts for g in grown]).cpu().numpy()
-    nids = (torch.stack([g.nid for g in grown]).cpu().numpy()
+    nids = (torch.stack([g.nids[0] for g in grown]).cpu().numpy()
             if return_leaf_ids or (task == "regression"
                                    and refit_targets is not None) else None)
     trees, at = [], 0

@@ -7,7 +7,12 @@ of each feature, and few of the 256 global edges fall inside it. The
 hybrid splits the build:
 
 1. the device engine (``core/builder.py``) grows the tree to the crown
-   depth and hands back every row's leaf id (one copy);
+   depth and hands back every row's leaf id (one copy; after a crown on
+   a data mesh, ``core/builder.FitInputs.leaf_ids`` gathers them from the
+   shards in the caller's row order, padding dropped, and across
+   processes by one all-reduce of an N-row int32 vector each process
+   fills with its own rows, so every process runs the same tail on the
+   same inputs);
 2. every still-splittable crown leaf (impure, enough samples, at or above
    the crown depth, including leaves the crown stopped as "constant" under
    the global bins) becomes the root of a host subtree grown with **exact

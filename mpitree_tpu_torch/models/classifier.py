@@ -68,8 +68,19 @@ refine tail (``:249-252``); ``backend="host"`` refuses it, as the JAX
 package does. ``fit_stats_`` then also holds ``frontier`` (``"leafwise"``)
 and ``expansions``.
 
-Multi-device ``n_devices`` lives off the ported path and raises
-``NotImplementedError`` naming its ``ROADMAP.md`` item.
+``n_devices`` (None or 1: one device) builds on a data mesh
+(``parallel/mesh.resolve_mesh``: ``"all"``, -1 or an int; across the
+processes that ``parallel/distributed.initialize`` joined): the rows
+shard over the devices, every level's histograms reduce over them, and
+the tree equals the one-device tree field for field; ``predict`` shards
+its rows over this process's devices. ``fit_stats_`` then also holds
+``n_shards`` and the reductions' ``allreduce_calls``,
+``allreduce_bytes``, ``allreduce_seconds`` and ``replication_checks``.
+:class:`ParallelDecisionTreeClassifier` is the reference's MPI class,
+``n_devices="all"`` by default. ``max_leaf_nodes`` on a mesh (item 14c)
+and a 2-D ``(dr, df)`` mesh (item 14d) raise ``NotImplementedError``
+naming their ``ROADMAP.md`` items; ``backend="host"`` ignores
+``n_devices``, as the JAX package's host tier does.
 """
 
 from __future__ import annotations
@@ -92,6 +103,8 @@ from mpitree_tpu_torch.core.tree_struct import TreeArrays
 from mpitree_tpu_torch.ops.binning import bin_dataset, bin_for_engine
 from mpitree_tpu_torch.ops.predict import predict_leaf_ids
 from mpitree_tpu_torch.ops.sampling import sampler_for
+from mpitree_tpu_torch.parallel.distributed import process_info
+from mpitree_tpu_torch.parallel.mesh import resolve_mesh
 from mpitree_tpu_torch.utils.carry import tree_from_reference
 from mpitree_tpu_torch.utils.export import (
     export_tree_dot,
@@ -103,6 +116,7 @@ from mpitree_tpu_torch.utils.monotonic import (
     clip_tree_values,
     validate_monotonic_cst,
 )
+from mpitree_tpu_torch.utils.profiling import debug_checks_enabled
 from mpitree_tpu_torch.utils.pruning import ccp_prune, pruning_path_for
 from mpitree_tpu_torch.utils.validation import (
     apply_class_weight,
@@ -139,7 +153,7 @@ def grow_tree(binned, X, y, *, host: bool, cfg: BuildConfig, max_depth, rd,
               refine: bool, n_classes, sample_weight, ccp_alpha,
               clock, stats: dict, packed=None,
               refit_targets=None, feature_sampler=None,
-              feature_mask=None, mono_cst=None) -> TreeArrays:
+              feature_mask=None, mono_cst=None, mesh=None) -> TreeArrays:
     """One tree in the JAX package's order: the build to the crown depth
     ``cfg.max_depth`` (the host tier when ``host``, else the device engine
     on ``binned``'s device, fused or levelwise as ``resolve_engine``
@@ -151,13 +165,18 @@ def grow_tree(binned, X, y, *, host: bool, cfg: BuildConfig, max_depth, rd,
     (``ops/sampling.py``) and ``feature_mask`` (a forest tree's subspace)
     go to both tiers and to the tail. ``mono_cst`` (the validated internal
     signs, or None) goes to both tiers, which then grow the whole depth
-    (the caller passes ``refine=False``)."""
+    (the caller passes ``refine=False``). A data ``mesh`` goes to the
+    device engine, whose leaf ids then hold every row, so every process
+    runs the same tail; its reductions are added to ``stats``."""
     kw = dict(config=cfg, n_classes=n_classes, sample_weight=sample_weight,
               return_leaf_ids=refine, refit_targets=refit_targets,
               feature_sampler=feature_sampler, feature_mask=feature_mask,
               mono_cst=mono_cst)
     res = (build_tree_host(binned, y, **kw) if host
-           else build_tree(binned, y, packed=packed, stats=stats, **kw))
+           else build_tree(binned, y, packed=packed, stats=stats, mesh=mesh,
+                           **kw))
+    if mesh is not None:
+        stats.update(n_shards=mesh.size, **mesh.stats)
     tree, leaf_ids = res if refine else (res, None)
     stats["engine"] = "host" if host else resolve_engine(cfg)
     stats["crown_seconds"] = stats.get("crown_seconds", 0.0) + clock.lap()
@@ -216,19 +235,42 @@ class FitClock:
 def refuse_later(est, later) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item for the first
     ``(parameter, supported value, item)`` of ``later`` that ``est`` sets
-    to anything else (``None`` supported means "must be None")."""
+    to anything else (``None`` supported means "must be None"; ``1`` for
+    ``n_devices`` also takes None, one device)."""
     for name, supported, item in later:
         value = getattr(est, name)
+        if name == "n_devices" and value in (None, 1):
+            continue
         if (value is not None) if supported is None else (
                 value != supported):
             raise NotImplementedError(
                 f"{name}={value!r} is not ported yet (ROADMAP.md {item})"
             )
-    if est.n_devices not in (None, 1):
+
+
+def fit_mesh(est, host: bool):
+    """The data mesh of a tree fit (``parallel/mesh.resolve_mesh``), or
+    None for one device and for the host tier, which ignores
+    ``n_devices`` as the JAX package's does. Leaf-wise growth on a mesh
+    raises (``ROADMAP.md`` item 14c)."""
+    if host or est.n_devices in (None, 1):
+        return None
+    if est.max_leaf_nodes is not None:
         raise NotImplementedError(
-            f"n_devices={est.n_devices!r} is not ported yet "
-            "(ROADMAP.md Queue 1 item 14, multi-GPU)"
-        )
+            f"max_leaf_nodes with n_devices={est.n_devices!r} is not ported "
+            "yet (ROADMAP.md Queue 1 item 14c, leaf-wise growth on a mesh)")
+    return resolve_mesh(device=est.device, n_devices=est.n_devices)
+
+
+def predict_mesh(est):
+    """The local shards a fitted tree predicts on: None for one device,
+    else the mesh of ``n_devices`` (this process's devices only; no
+    collective). Raises where that mesh cannot be resolved: predict never
+    drops to one device on its own (unlike the JAX package's
+    ``predict_mesh``, ``mpitree_tpu/ops/predict.py:109-118``)."""
+    if est.n_devices in (None, 1):
+        return None
+    return resolve_mesh(device=est.device, n_devices=est.n_devices)
 
 
 class EstimatorBase:
@@ -335,7 +377,8 @@ class DecisionTreeClassifier(ClassifierBase):
     def fit(self, X, y, sample_weight=None):
         self._check_slice()
         host = host_tier(self.backend)
-        device = resolve_device(self.device)
+        mesh = fit_mesh(self, host)
+        device = resolve_device(self.device) if mesh is None else mesh.lead
         X, y_enc, classes = validate_fit_data(X, y)
         mono = validate_monotonic_cst(
             self.monotonic_cst, X.shape[1], task="classification",
@@ -372,6 +415,7 @@ class DecisionTreeClassifier(ClassifierBase):
             min_decrease_scaled=min_decrease_scaled(
                 self.min_impurity_decrease, sw, X.shape[0]
             ),
+            debug=debug_checks_enabled(),
         )
         self.tree_ = grow_tree(
             binned, X, y_enc, host=host, cfg=cfg, max_depth=self.max_depth,
@@ -379,7 +423,7 @@ class DecisionTreeClassifier(ClassifierBase):
             ccp_alpha=self.ccp_alpha, clock=clock, stats=stats,
             feature_sampler=sampler_for(self.max_features, self.random_state,
                                         X.shape[1], splitter=self.splitter),
-            mono_cst=mono,
+            mono_cst=mono, mesh=mesh,
         )
         self.fit_stats_ = stats
         self._set_fitted(classes, X.shape[1])
@@ -410,7 +454,10 @@ class DecisionTreeClassifier(ClassifierBase):
     def _leaf_ids(self, X) -> np.ndarray:
         self._check_fitted()
         X = validate_predict_data(X, self)
-        return predict_leaf_ids(X, self.tree_, resolve_device(self.device))
+        mesh = predict_mesh(self)
+        return predict_leaf_ids(
+            X, self.tree_, resolve_device(self.device) if mesh is None
+            else mesh.lead, mesh=mesh)
 
     def predict_proba(self, X):
         """Raw per-class leaf counts — the reference's quirk."""
@@ -474,3 +521,61 @@ class DecisionTreeClassifier(ClassifierBase):
     def get_n_leaves(self) -> int:
         self._check_fitted()
         return self.tree_.n_leaves
+
+
+class _ClassProperty:
+    """A read-only property of the class itself (``WORLD_RANK``)."""
+
+    def __init__(self, fget):
+        self.fget = fget
+
+    def __get__(self, obj, owner):
+        return self.fget(owner)
+
+
+class ParallelDecisionTreeClassifier(DecisionTreeClassifier):
+    """The reference's MPI class on a data mesh
+    (``mpitree_tpu/models/classifier.py:485-531``): ``n_devices="all"``
+    by default, so the rows shard over every device of this process and
+    of every process ``parallel/distributed.initialize`` joined, and each
+    level's histograms reduce over them. The fitted tree is the
+    one-device tree field for field (the integer route's float32 sums and
+    the fixed-point route's int64 sums do not depend on the order), the
+    reference's every-rank-holds-the-same-tree contract.
+
+    ``WORLD_RANK`` is this process's index and ``WORLD_SIZE`` the global
+    shard count ``n_devices="all"`` gives (``len(jax.devices())`` in the
+    JAX package): the CUDA devices of a process times the processes, or,
+    without CUDA, the CPU shard count (``parallel/mesh.cpu_shards``) times
+    the processes. Both are counts only."""
+
+    def __init__(self, *, max_depth=None, max_leaf_nodes=None,
+                 min_samples_split=2,
+                 criterion="entropy", splitter="best", max_bins=256,
+                 binning="auto",
+                 max_features=None, class_weight=None,
+                 min_weight_fraction_leaf=0.0, min_samples_leaf=1,
+                 random_state=None,
+                 n_devices="all", backend=None, refine_depth="auto",
+                 ccp_alpha=0.0, min_impurity_decrease=0.0,
+                 monotonic_cst=None, device=None):
+        super().__init__(
+            max_depth=max_depth, max_leaf_nodes=max_leaf_nodes,
+            min_samples_split=min_samples_split,
+            criterion=criterion, splitter=splitter, max_bins=max_bins,
+            binning=binning,
+            max_features=max_features, class_weight=class_weight,
+            min_weight_fraction_leaf=min_weight_fraction_leaf,
+            min_samples_leaf=min_samples_leaf, random_state=random_state,
+            n_devices=n_devices, backend=backend, refine_depth=refine_depth,
+            ccp_alpha=ccp_alpha, min_impurity_decrease=min_impurity_decrease,
+            monotonic_cst=monotonic_cst, device=device,
+        )
+
+    @_ClassProperty
+    def WORLD_RANK(cls) -> int:
+        return process_info()["process_index"]
+
+    @_ClassProperty
+    def WORLD_SIZE(cls) -> int:
+        return process_info()["global_devices"]

@@ -112,6 +112,8 @@ _LATER = (
     ("checkpoint", None, "Queue 1 item 17 (resilience/checkpoint.py)"),
     ("checkpoint_compact_every", None,
      "Queue 1 item 17 (resilience/checkpoint.py)"),
+    ("n_devices", 1,
+     "Queue 1 item 14b, the forests' tree and (tree, data) meshes"),
 )
 
 

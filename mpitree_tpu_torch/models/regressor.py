@@ -29,8 +29,10 @@ classifier.
 
 ``max_leaf_nodes`` grows the tree best-first (``core/leafwise_builder.py``)
 in one engine with no refine tail; ``backend="host"`` refuses it.
-Multi-device ``n_devices`` raises ``NotImplementedError`` naming its
-``ROADMAP.md`` item.
+``n_devices`` builds on a data mesh as in the classifier: the moments
+take the fixed-point route with exponents from every shard's payload and
+the global row count, so the int64 sums add across shards and processes
+and the tree equals the one-device tree field for field.
 """
 
 from __future__ import annotations
@@ -43,9 +45,10 @@ from mpitree_tpu_torch.core.tree_struct import TreeArrays
 from mpitree_tpu_torch.models.classifier import (
     EstimatorBase,
     FitClock,
+    fit_mesh,
     grow_tree,
     host_tier,
-    refuse_later,
+    predict_mesh,
 )
 from mpitree_tpu_torch.ops.binning import bin_dataset, bin_for_engine
 from mpitree_tpu_torch.ops.predict import predict_leaf_ids
@@ -58,6 +61,7 @@ from mpitree_tpu_torch.utils.export import (
 )
 from mpitree_tpu_torch.utils.importances import feature_importances
 from mpitree_tpu_torch.utils.monotonic import validate_monotonic_cst
+from mpitree_tpu_torch.utils.profiling import debug_checks_enabled
 from mpitree_tpu_torch.utils.pruning import pruning_path_for
 from mpitree_tpu_torch.utils.validation import (
     min_child_weight,
@@ -138,9 +142,9 @@ class DecisionTreeRegressor(RegressorBase):
         if self.criterion not in ("squared_error", "mse"):
             raise ValueError(
                 f"unknown regression criterion: {self.criterion!r}")
-        refuse_later(self, ())
         host = host_tier(self.backend)
-        device = resolve_device(self.device)
+        mesh = fit_mesh(self, host)
+        device = resolve_device(self.device) if mesh is None else mesh.lead
         X, y64, _ = validate_fit_data(X, y, task="regression")
         mono = validate_monotonic_cst(self.monotonic_cst, X.shape[1],
                                       task="regression")
@@ -176,6 +180,7 @@ class DecisionTreeRegressor(RegressorBase):
             min_decrease_scaled=min_decrease_scaled(
                 self.min_impurity_decrease, sw, X.shape[0]
             ),
+            debug=debug_checks_enabled(),
         )
         y_c = (y64 - self._y_mean).astype(np.float32)
         self.tree_ = grow_tree(
@@ -185,7 +190,7 @@ class DecisionTreeRegressor(RegressorBase):
             refit_targets=y64,
             feature_sampler=sampler_for(self.max_features, self.random_state,
                                         X.shape[1], splitter=self.splitter),
-            mono_cst=mono,
+            mono_cst=mono, mesh=mesh,
         )
         self.fit_stats_ = stats
         self._set_fitted(X.shape[1])
@@ -217,7 +222,10 @@ class DecisionTreeRegressor(RegressorBase):
     def _leaf_ids(self, X) -> np.ndarray:
         self._check_fitted()
         X = validate_predict_data(X, self)
-        return predict_leaf_ids(X, self.tree_, resolve_device(self.device))
+        mesh = predict_mesh(self)
+        return predict_leaf_ids(
+            X, self.tree_, resolve_device(self.device) if mesh is None
+            else mesh.lead, mesh=mesh)
 
     def predict(self, X):
         """The exact float64 mean of each row's leaf (``count[:, 0]``)."""

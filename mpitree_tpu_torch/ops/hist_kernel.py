@@ -58,6 +58,12 @@ fit on the card equals the same fit on the CPU. The sums are exact where
 every value is a multiple of ``2**-k[c]`` (csrc/histogram.cu says where
 they stop being).
 
+On a data mesh every shard must add on one scale: the route and the
+exponents come from every shard's :func:`payload_stats` reduced over the
+mesh (``parallel/collective.payload_scale``) and the global row count,
+never from one shard's rows, so the shards' int64 sums add and the tree
+equals the one-shard tree.
+
 On a CPU tensor :func:`histogram` uses :func:`histogram_reference`; on a
 CUDA tensor it launches a kernel or raises. ``launches`` counts the kernel
 launches per route (``stream``, ``sorted``, ``stream_fixed``,
@@ -142,6 +148,38 @@ def fixed_point_exponents(payload: torch.Tensor, n_rows: int | None = None
     return exponents_from_top(
         top.double().cpu().numpy()[None],
         payload.shape[0] if n_rows is None else n_rows)[0]
+
+
+def payload_stats(payload: torch.Tensor) -> torch.Tensor:
+    """(3, C) float64 per channel of an ``(n, C)`` payload: 1.0 where every
+    value is an integer (else 0.0), the sum of ``|v|`` (exact for integer
+    values) and ``max |v|``: what :func:`float32_exact` and
+    :func:`fixed_point_exponents` read, in a form that reduces over the
+    shards of a mesh (MIN, SUM, MAX; ``parallel/collective.payload_scale``)."""
+    if payload.dim() != 2:
+        raise ValueError("payload must be 2-D")
+    p = payload.to(torch.float64)
+    if payload.shape[0] == 0:
+        return torch.stack([torch.ones(payload.shape[1], dtype=p.dtype,
+                                       device=p.device),
+                            p.sum(dim=0), p.sum(dim=0)])
+    a = p.abs()
+    return torch.stack([(p == torch.round(p)).all(dim=0).to(p.dtype),
+                        a.sum(dim=0), a.amax(dim=0)])
+
+
+def scale_from_stats(integral: bool, sums: np.ndarray, tops: np.ndarray, *,
+                     n_rows: int, fixed: bool):
+    """The route of reduced :func:`payload_stats`: None (the float32
+    integer route) when ``integral`` and every channel's ``sums`` stays
+    below 2**24 and the payload is not ``fixed`` (regression, boosting),
+    else the exponents of :func:`exponents_from_top` for the channel
+    maxima ``tops`` and ``n_rows``, the most rows one sum can take."""
+    if not fixed and integral and float(np.max(sums, initial=0.0)) \
+            < FLOAT32_EXACT:
+        return None
+    return exponents_from_top(np.asarray(tops, np.float64)[None],
+                              n_rows)[0]
 
 
 def exponents_from_top(top: np.ndarray, n_rows: int) -> list:

@@ -8,7 +8,8 @@ nothing. The public layout is the JAX package's ``(S, F, C, B)``.
 
 Every function runs the Hopper kernels on CUDA tensors and their plain
 version on CPU tensors (``ops/hist_kernel.py``). A fit picks one of two
-routes once, from its payload (:func:`payload_scale`):
+routes once, from its payload (:func:`payload_scale`; over the shards of
+a data mesh, ``parallel/collective.payload_scale``):
 
 - **integer**: class counts and integer weights, float32 sums below 2**24,
   exact and order-independent in float32; the histogram is float32;
@@ -38,9 +39,9 @@ from __future__ import annotations
 import torch
 
 from mpitree_tpu_torch.ops.hist_kernel import (
-    fixed_point_exponents,
-    float32_exact,
     histogram,
+    payload_stats,
+    scale_from_stats,
 )
 
 __all__ = ["class_histogram", "class_payload", "gbdt_payload", "histogram",
@@ -81,12 +82,16 @@ def gbdt_payload(g: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
 
 def payload_scale(payload: torch.Tensor):
     """The route of a fit, chosen once from its ``(N, C)`` payload: None
-    (the integer route) when ``hist_kernel.float32_exact`` accepts it,
-    else the fixed-point exponents (``hist_kernel.fixed_point_exponents``;
-    raises on a non-finite value). One device-to-host copy."""
-    if float32_exact(payload):
-        return None
-    return fixed_point_exponents(payload)
+    (the integer route) when every value is an integer and every
+    channel's ``|v|`` sums below 2**24 (``hist_kernel.float32_exact``'s
+    rule), else the fixed-point exponents
+    (``hist_kernel.fixed_point_exponents``; raises on a non-finite
+    value). The one-payload case of ``parallel/collective.payload_scale``,
+    from the same statistics (``hist_kernel.payload_stats``)."""
+    stats = payload_stats(payload)
+    return scale_from_stats(bool((stats[0] > 0).all()),
+                            stats[1].cpu().numpy(), stats[2].cpu().numpy(),
+                            n_rows=payload.shape[0], fixed=False)
 
 
 def class_histogram(x_binned: torch.Tensor, y: torch.Tensor,

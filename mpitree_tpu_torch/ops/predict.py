@@ -6,7 +6,12 @@ tree. Rows parked on a leaf keep their node id, so ``n_steps`` steps land
 every row on its leaf. Comparisons stay in float32 (``x <= threshold``
 with float32 raw values and float32 thresholds), as in the reference.
 Ensembles descend all their trees at once over the flat serving table
-(:func:`stacked_leaf_ids`).
+(:func:`stacked_leaf_ids`). A tree fitted on a data mesh predicts with
+its rows split over the mesh's local shards (:func:`predict_leaf_ids`
+with ``mesh``), the counterpart of ``predict_mesh``'s sharded descent;
+unlike it (``mpitree_tpu/ops/predict.py:109-118``) nothing here drops to
+one device when the mesh cannot be had: the caller's mesh resolution
+raises.
 """
 
 from __future__ import annotations
@@ -37,19 +42,29 @@ def descend(X: torch.Tensor, feature: torch.Tensor, threshold: torch.Tensor,
 
 
 def predict_leaf_ids(X: np.ndarray, tree: TreeArrays,
-                     device: torch.device) -> np.ndarray:
+                     device: torch.device, mesh=None) -> np.ndarray:
     """(N, F) float32 host rows -> (N,) int64 leaf ids, descended on
-    ``device``."""
-    def put(a, dtype):
-        return torch.from_numpy(np.asarray(a)).to(device=device, dtype=dtype)
+    ``device``; with a data ``mesh`` (``parallel/mesh.Mesh``) the rows
+    split into one contiguous block per local shard, each descended on its
+    shard's device, and the ids come back in row order. Across processes
+    every process answers all of its caller's rows on its own shards, with
+    no collective."""
+    X = np.ascontiguousarray(X, np.float32)
+    devices = [device] if mesh is None else list(mesh.devices)
+    bounds = np.linspace(0, X.shape[0], len(devices) + 1).astype(np.int64)
+    out = []
+    for dev, a, b in zip(devices, bounds[:-1], bounds[1:]):
+        def put(v, dtype, dev=dev):
+            return torch.from_numpy(np.asarray(v)).to(device=dev,
+                                                      dtype=dtype)
 
-    ids = descend(
-        put(np.ascontiguousarray(X, np.float32), torch.float32),
-        put(tree.feature, torch.int64), put(tree.threshold, torch.float32),
-        put(tree.left, torch.int64), put(tree.right, torch.int64),
-        n_steps=max(tree.max_depth, 1),
-    )
-    return ids.cpu().numpy()
+        out.append(descend(
+            put(X[a:b], torch.float32),
+            put(tree.feature, torch.int64), put(tree.threshold, torch.float32),
+            put(tree.left, torch.int64), put(tree.right, torch.int64),
+            n_steps=max(tree.max_depth, 1),
+        ))
+    return torch.cat([ids.cpu() for ids in out]).numpy()
 
 
 def stacked_leaf_ids(trees, X: np.ndarray,

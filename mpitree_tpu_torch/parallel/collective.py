@@ -1,50 +1,165 @@
-"""Single-device level steps: split search, terminal counts, row reroute.
+"""Level steps and their reductions over the data mesh: split search,
+terminal counts, row reroute.
 
-Counterpart of the one-device case of ``mpitree_tpu/parallel/collective.py``.
-With one GPU the histogram ``psum`` over the data axis is the identity, so
-no mesh code is ported; each step is a plain function on tensors that live
-on the fit's device:
+Counterpart of ``mpitree_tpu/parallel/collective.py``. The JAX package
+runs each step as one ``shard_map`` program whose ``lax.psum`` over the
+``data`` axis makes every device's histogram the global one; here each
+step is a plain function on tensors that live on one shard's device, and
+the reductions between them are explicit (:func:`psum`, on the
+``parallel/mesh.Mesh`` of the fit): the local shards are summed in fixed
+shard order onto the lead shard, then ``dist.all_reduce`` crosses the
+processes. Only ``all_reduce`` (SUM, MIN, MAX) is used, which gloo offers
+for CUDA tensors as NCCL does. Every reduced value is an integer-valued
+float32 below 2**24, an int64 or a minimum or maximum, so any summation
+order gives the same bits, and a tree is identical at every shard count.
+With one shard and no process group a reduction is the identity. The
+reduction sites, JAX's psums:
 
-- :func:`split_step` (``make_split_fn``, ``:268``; regression
-  ``:470-502``; boosting's Newton rounds ``:419-469``): the frontier
-  chunk's ``(S, F, C, B)`` histogram (the Hopper kernel on CUDA tensors,
-  ``ops/hist_kernel.py``) followed by the split sweep, packed into one
-  buffer so a level costs one device-to-host copy: float32 on the integer
-  route, float64 on the fixed-point route, whose node statistics are
-  exact sums. Its two stages, :func:`split_hist` and :func:`split_sweep`,
-  are public so that sibling subtraction can rebuild the histogram
-  between them (the JAX fused engine's ``chunk_stats``,
-  ``mpitree_tpu/core/fused_builder.py:302-360``);
-- :func:`node_sums` (``node_counts_local``, ``:81``): per-slot payload
-  sums (class counts, regression moments or boosting's ``(count, G, H)``)
-  for terminal levels, an O(N)
-  scatter instead of the O(N*F) histogram, exact in int64 on both routes;
-- :func:`y_range` (``regression_y_range``, ``:117``): the per-slot
-  ``max(y) - min(y)`` that regression's purity stop reads;
-- :func:`update_node_id` (``make_update_fn``, ``:752``): rows of splitting
-  nodes move to a child by ``bin(x[:, feat]) <= bin`` (left) or not
-  (right); every other row keeps its node id;
-- the leaf-wise frontier's unit of work (``core/leafwise_builder.py``):
-  :func:`reroute_leaf` moves the rows of the one leaf being expanded, and
-  :func:`pair_split_stats` (``:555``) builds and sweeps the histogram of
-  the new sibling pair; :func:`expand_step` (``make_expand_fn``,
-  ``:653``) is the two together. The node ids and the split come as
-  tensors on the device, so an expansion needs no host integer.
+- the split histogram (``:412``, ``:428``, ``:459``, ``:490``): each
+  shard's :func:`split_hist` (the Hopper kernel family on CUDA,
+  ``ops/hist_kernel.py``), reduced before :func:`split_sweep` (which
+  runs on the lead shard, the split search of ``make_split_fn``,
+  ``:268``; regression ``:470-502``; boosting's Newton rounds
+  ``:419-469``) and, under sibling subtraction, before the larger sibling
+  is rebuilt against the reduced carry
+  (``core/builder.FrontierHistograms``);
+- :func:`node_sums` (``node_counts_local``, ``:81``, psum ``:113``):
+  per-slot payload sums (class counts, regression moments or boosting's
+  ``(count, G, H)``) for terminal levels, an O(N) scatter instead of the
+  O(N*F) histogram, exact in int64 on both routes;
+- :func:`y_range` (``regression_y_range``, ``:117``, pmin/pmax ``:136``):
+  the per-slot ``max(y) - min(y)`` of rows of positive weight that
+  regression's purity stop reads;
+- :func:`payload_scale` (no JAX site: the port's fixed-point route): the
+  route and exponents of a fit, from every shard's payload (one
+  payload without a mesh);
+- :func:`pair_split_stats` (``:555``, psums ``:603-643``), the leaf-wise
+  frontier's unit of work, reduces its pair histogram over a mesh of one
+  local shard per process (leaf-wise growth on a mesh is refused by the
+  estimators until ``ROADMAP.md`` item 14c).
 
-The reroute and the counts are XLA code outside any Pallas kernel in the
-JAX package, and stay plain torch operations here.
+:func:`update_node_id` (``make_update_fn``, ``:752``) moves each shard's
+rows of splitting nodes to a child by ``bin(x[:, feat]) <= bin`` with the
+split tables copied to the shard (:func:`to_shards`); rows never move
+between shards. :func:`reroute_leaf` and :func:`expand_step`
+(``make_expand_fn``, ``:653``) are the leaf-wise reroute. The reroute and
+the counts are XLA code outside any Pallas kernel in the JAX package, and
+stay plain torch operations here.
+
+:func:`split_psum_bytes` and :func:`counts_psum_bytes` (``:59-79``) give
+a reduction's logical payload; the mesh's ``stats`` count every
+reduction's calls, bytes and seconds for ``fit_stats_``. Not here
+(``ROADMAP.md`` item 14): the tree axis, and the 2-D mesh's
+``select_global`` and ``route_psum``.
 """
 
 from __future__ import annotations
 
 import math
+import time
 
 import numpy as np
 import torch
 
+from mpitree_tpu_torch.ops import hist_kernel
 from mpitree_tpu_torch.ops import histogram as hist_ops
 from mpitree_tpu_torch.ops import impurity as imp_ops
 from mpitree_tpu_torch.ops.hist_kernel import dequantize
+
+_REDUCE_OPS = ("sum", "min", "max")
+
+
+def split_psum_bytes(*, n_slots: int, n_features: int, n_bins: int,
+                     n_channels: int, itemsize: int = 4) -> int:
+    """Logical payload of one split-histogram reduction (bytes): the
+    (n_slots, n_features, n_channels, n_bins) chunk, 4-byte cells on the
+    integer route, 8-byte on the fixed-point one (``:59-73``)."""
+    return n_slots * n_features * n_channels * n_bins * itemsize
+
+
+def counts_psum_bytes(*, n_slots: int, n_channels: int,
+                      itemsize: int = 4) -> int:
+    """Logical payload of one terminal-sums reduction (bytes,
+    ``:76-79``); the port's sums are int64 (``itemsize=8``)."""
+    return n_slots * n_channels * itemsize
+
+
+def to_shards(t: torch.Tensor, mesh) -> list:
+    """``t`` (on the lead shard) on every local shard of ``mesh``, in
+    shard order: the split tables a reroute reads. No copy where a shard
+    shares the lead's device (CPU shards); ``[t]`` without a mesh."""
+    if mesh is None:
+        return [t]
+    return [t if t.device == d else t.to(d) for d in mesh.devices]
+
+
+def _parts(x) -> list:
+    return list(x) if isinstance(x, (list, tuple)) else [x]
+
+
+def psum(parts, mesh, op: str = "sum") -> torch.Tensor:
+    """The reduction of one tensor per local shard (``parts``, in shard
+    order) over ``mesh``, on the lead shard's device: the local shards
+    summed (or their minimum or maximum taken) in shard order, then
+    ``dist.all_reduce`` over the processes. A single part stands for the
+    local shards already combined. The first part may be reduced in
+    place. The identity with one shard and no process group (or no
+    mesh). Records the call, its logical bytes and its seconds (ended
+    when the devices are idle) in ``mesh.stats``."""
+    if op not in _REDUCE_OPS:
+        raise ValueError(f"unknown reduction {op!r}; one of {_REDUCE_OPS}")
+    parts = _parts(parts)
+    n_local = 1 if mesh is None else mesh.n_local
+    if len(parts) not in (1, n_local):
+        raise ValueError(f"{len(parts)} parts for {n_local} shards")
+    if mesh is None or not mesh.reduces or (
+            len(parts) == 1 and mesh.group is None):
+        return parts[0]
+    import torch.distributed as dist
+
+    def idle():
+        for d in dict.fromkeys(p.device for p in parts):
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+
+    idle()
+    t0 = time.perf_counter()
+    acc = parts[0].contiguous()
+    for p in parts[1:]:
+        p = p.to(acc.device)
+        acc = (acc + p if op == "sum" else torch.minimum(acc, p)
+               if op == "min" else torch.maximum(acc, p))
+    if mesh.group is not None:
+        dist.all_reduce(acc, op=getattr(dist.ReduceOp, op.upper()),
+                        group=mesh.group)
+    idle()
+    st = mesh.stats
+    st["allreduce_calls"] += 1
+    st["allreduce_bytes"] += acc.numel() * acc.element_size()
+    st["allreduce_seconds"] += time.perf_counter() - t0
+    return acc
+
+
+def payload_scale(payloads, mesh, *, fixed: bool, n_rows: int):
+    """The histogram route of a fit over ``mesh`` from every shard's
+    ``(n, C)`` payload (``payloads``, one per local shard): None (the
+    float32 integer route) when every value of every shard is an integer
+    and every channel's ``|v|`` sums below 2**24 over all of them, else
+    the fixed-point exponents of the channel maxima over all shards and
+    the global row count ``n_rows``; ``fixed`` (regression, boosting)
+    always takes exponents. The flags reduce with MIN, the sums with SUM
+    and the maxima with MAX, so every shard and process takes the route
+    and exponents one shard holding every row would
+    (``hist_kernel.float32_exact``, ``fixed_point_exponents``). Raises on
+    a non-finite value. Two device-to-host copies."""
+    stats = [hist_kernel.payload_stats(p) for p in _parts(payloads)]
+    sums = psum([s[1].clone() for s in stats], mesh)
+    flag_top = psum([torch.stack([-s[0], s[2]]) for s in stats], mesh,
+                    "max")
+    integral = bool((flag_top[0] <= -1.0).all())
+    return hist_kernel.scale_from_stats(
+        integral, sums.cpu().numpy(), flag_top[1].cpu().numpy(),
+        n_rows=n_rows, fixed=fixed)
 
 
 def pack_decision(dec: imp_ops.SplitDecision,
@@ -126,10 +241,12 @@ def split_sweep(hist: torch.Tensor, cand_mask: torch.Tensor,
                 mono_lo: torch.Tensor | None = None,
                 mono_hi: torch.Tensor | None = None,
                 reg_lambda: float = 0.0,
-                min_leaf_rows: float = 0.0) -> torch.Tensor:
+                min_leaf_rows: float = 0.0,
+                yr: torch.Tensor | None = None) -> torch.Tensor:
     """The sweep stage of :func:`split_step`: the packed decision buffer
     of the chunk whose histogram is ``hist``. Regression also reads
-    ``y``, ``payload`` and ``node_id`` for its purity signal."""
+    ``y``, ``payload`` and ``node_id`` for its purity signal, or takes it
+    as ``yr`` (:func:`y_range` over a mesh)."""
     n_slots = hist.shape[0]
     if task == "gbdt":
         dec = imp_ops.best_split_newton(
@@ -144,8 +261,10 @@ def split_sweep(hist: torch.Tensor, cand_mask: torch.Tensor,
             forced_draw=draws, mono_cst=mono_cst, mono_lo=mono_lo,
             mono_hi=mono_hi,
         )
-        dec = dec._replace(y_range=y_range(
-            y, node_id, payload[:, 0], chunk_lo, n_slots=n_slots))
+        if yr is None:
+            yr = y_range(y, node_id, payload[:, 0], chunk_lo,
+                         n_slots=n_slots)
+        dec = dec._replace(y_range=yr)
     else:
         dec = imp_ops.best_split_classification(
             hist, cand_mask, criterion=criterion,
@@ -209,41 +328,56 @@ def split_step(x_binned: torch.Tensor, payload: torch.Tensor,
         reg_lambda=reg_lambda, min_leaf_rows=min_leaf_rows)
 
 
-def node_sums(q: torch.Tensor, node_id: torch.Tensor, chunk_lo: int, *,
-              n_slots: int, scale_exp) -> torch.Tensor:
+def node_sums(q, node_id, chunk_lo: int, *, n_slots: int, scale_exp,
+              mesh=None) -> torch.Tensor:
     """(n_slots, C) float64 per-slot payload sums for terminal levels:
     ``q`` is the fit's (N, C) int64 quantized payload
     (``hist_kernel.quantize``; exponents 0 on the integer route, whose
     values are integers already), summed exactly in int64 (so in any
     order), then scaled by ``2**-k[c]``; rows outside ``[chunk_lo,
     chunk_lo + n_slots)`` add to a spare row that is dropped. Class counts
-    or regression moments, the counterpart of ``node_counts_local``."""
-    slot = node_id.to(torch.int64) - chunk_lo
-    valid = (slot >= 0) & (slot < n_slots)
-    h = torch.zeros((n_slots + 1, q.shape[1]), dtype=torch.int64,
-                    device=q.device)
-    h.index_add_(0, torch.where(valid, slot, n_slots), q)
-    return dequantize(h[:n_slots], scale_exp, dim=1)
+    or regression moments, the counterpart of ``node_counts_local``. On a
+    ``mesh``, ``q`` and ``node_id`` are lists (one per local shard) and
+    the int64 sums reduce (:func:`psum`) before the scale, on the lead
+    shard."""
+    parts = []
+    for qi, ni in zip(_parts(q), _parts(node_id)):
+        slot = ni.to(torch.int64) - chunk_lo
+        valid = (slot >= 0) & (slot < n_slots)
+        h = torch.zeros((n_slots + 1, qi.shape[1]), dtype=torch.int64,
+                        device=qi.device)
+        h.index_add_(0, torch.where(valid, slot, n_slots), qi)
+        parts.append(h[:n_slots])
+    return dequantize(psum(parts, mesh), scale_exp, dim=1)
 
 
-def y_range(y: torch.Tensor, node_id: torch.Tensor, w: torch.Tensor,
-            chunk_lo: int, *, n_slots: int) -> torch.Tensor:
+def y_range(y, node_id, w, chunk_lo, *, n_slots: int,
+            mesh=None) -> torch.Tensor:
     """(n_slots,) float32 ``max(y) - min(y)`` per slot over rows of
     positive weight (0 for a slot with none): ``regression_y_range``
     (``mpitree_tpu/parallel/collective.py:117``). The float32 moment
     variance cannot resolve near-zero spreads, so regression's purity stop
-    reads this instead. min and max do not depend on the order."""
-    slot = node_id.to(torch.int64) - chunk_lo
-    valid = (slot >= 0) & (slot < n_slots) & (w > 0)
-    # rows outside go to a spare slot, dropped: no boolean indexing, so
-    # no device-to-host synchronisation
-    s = torch.where(valid, slot, n_slots)
-    yv = y.to(torch.float32)
-    lo = torch.full((n_slots + 1,), math.inf, dtype=torch.float32,
-                    device=y.device).scatter_reduce(0, s, yv, "amin")
-    hi = torch.full((n_slots + 1,), -math.inf, dtype=torch.float32,
-                    device=y.device).scatter_reduce(0, s, yv, "amax")
-    lo, hi = lo[:n_slots], hi[:n_slots]
+    reads this instead. min and max do not depend on the order. On a
+    ``mesh``, ``y``, ``node_id`` and ``w`` are lists (one per local
+    shard): padding rows (weight 0, node -1) count nowhere, and the
+    minima and maxima reduce (:func:`psum`, MIN) before the difference,
+    on the lead shard."""
+    parts = []
+    for yi, ni, wi in zip(_parts(y), _parts(node_id), _parts(w)):
+        slot = ni.to(torch.int64) - chunk_lo
+        valid = (slot >= 0) & (slot < n_slots) & (wi > 0)
+        # rows outside go to a spare slot, dropped: no boolean indexing,
+        # so no device-to-host synchronisation
+        s = torch.where(valid, slot, n_slots)
+        yv = yi.to(torch.float32)
+        lo = torch.full((n_slots + 1,), math.inf, dtype=torch.float32,
+                        device=yi.device).scatter_reduce(0, s, yv, "amin")
+        hi = torch.full((n_slots + 1,), -math.inf, dtype=torch.float32,
+                        device=yi.device).scatter_reduce(0, s, yv, "amax")
+        # one MIN reduction for both: (min y, -max y)
+        parts.append(torch.stack([lo[:n_slots], -hi[:n_slots]]))
+    lo_hi = psum(parts, mesh, "min")
+    lo, hi = lo_hi[0], -lo_hi[1]
     return torch.where(hi >= lo, hi - lo, torch.zeros_like(hi))
 
 
@@ -291,7 +425,7 @@ def pair_split_stats(x_binned: torch.Tensor, payload: torch.Tensor,
                      task: str, y: torch.Tensor,
                      packed: torch.Tensor | None = None, feat_bins=None,
                      reg_lambda: float = 0.0, min_leaf_rows: float = 0.0,
-                     subtraction: bool = False) -> tuple:
+                     subtraction: bool = False, mesh=None) -> tuple:
     """Histogram and sweep of ONE sibling pair, nodes ``(left_id,
     left_id + 1)`` (``pair_split_stats``,
     ``mpitree_tpu/parallel/collective.py:555``): returns ``(decisions,
@@ -308,7 +442,13 @@ def pair_split_stats(x_binned: torch.Tensor, payload: torch.Tensor,
     resident (1, F, C, B) histogram (``histogram.sibling_reconstruct_pair``):
     exact on both routes, so the pair is the same. Regression's purity
     reads :func:`y_range` over the pair (``regression_y_range(...,
-    n_slots=2)``)."""
+    n_slots=2)``). On a ``mesh`` of one local shard per process the pair
+    histogram and the range reduce over the processes before the
+    reconstruction and the sweep (``:603-643``)."""
+    if mesh is not None and mesh.n_local != 1:
+        raise NotImplementedError(
+            "pair_split_stats takes one local shard per process; leaf-wise "
+            "growth on a mesh is ROADMAP.md Queue 1 item 14c")
     if subtraction:
         slot = hist_ops.sibling_accumulate_slots(node_id, left_id, is_small,
                                                  n_slots=2)
@@ -319,12 +459,17 @@ def pair_split_stats(x_binned: torch.Tensor, payload: torch.Tensor,
     hist = split_hist(x_binned, payload, None, 0, n_slots=n_acc,
                       n_bins=n_bins, packed=packed, feat_bins=feat_bins,
                       scale_exp=scale_exp, slot=slot.contiguous())
+    hist = psum([hist], mesh)
     if subtraction:
         hist = hist_ops.sibling_reconstruct_pair(hist, parent_hist, is_small)
+    yr = None
+    if mesh is not None and task == "regression":
+        yr = y_range(y, node_id, payload[:, 0], left_id, n_slots=2,
+                     mesh=mesh)
     dec = split_sweep(hist, cand_mask, node_id, left_id, criterion=criterion,
                       min_child_weight=min_child_weight, scale_exp=scale_exp,
                       task=task, y=y, payload=payload, reg_lambda=reg_lambda,
-                      min_leaf_rows=min_leaf_rows)
+                      min_leaf_rows=min_leaf_rows, yr=yr)
     return dec, (hist if subtraction else None)
 
 

@@ -1,16 +1,20 @@
 """Public import boundary, as in ``mpitree_tpu.tree``.
 
 ``from mpitree_tpu_torch.tree import DecisionTreeClassifier,
-DecisionTreeRegressor, RandomForestClassifier, RandomForestRegressor,
-ExtraTreesClassifier, ExtraTreesRegressor, GradientBoostingClassifier,
-GradientBoostingRegressor``.
+ParallelDecisionTreeClassifier, DecisionTreeRegressor,
+RandomForestClassifier, RandomForestRegressor, ExtraTreesClassifier,
+ExtraTreesRegressor, GradientBoostingClassifier,
+GradientBoostingRegressor`` (``mpitree_tpu/tree/__init__.py:13``).
 """
 
 from mpitree_tpu_torch.boosting import (
     GradientBoostingClassifier,
     GradientBoostingRegressor,
 )
-from mpitree_tpu_torch.models.classifier import DecisionTreeClassifier
+from mpitree_tpu_torch.models.classifier import (
+    DecisionTreeClassifier,
+    ParallelDecisionTreeClassifier,
+)
 from mpitree_tpu_torch.models.forest import (
     ExtraTreesClassifier,
     ExtraTreesRegressor,
@@ -22,4 +26,5 @@ from mpitree_tpu_torch.models.regressor import DecisionTreeRegressor
 __all__ = ["DecisionTreeClassifier", "DecisionTreeRegressor",
            "ExtraTreesClassifier", "ExtraTreesRegressor",
            "GradientBoostingClassifier", "GradientBoostingRegressor",
-           "RandomForestClassifier", "RandomForestRegressor"]
+           "ParallelDecisionTreeClassifier", "RandomForestClassifier",
+           "RandomForestRegressor"]

@@ -20,12 +20,14 @@ Two differences, both about parameters:
 - a file's parameter the port's constructor does not know raises
   ``ValueError`` naming it; none is dropped. Parameters the port knows
   are kept as they are (``max_leaf_nodes`` included: a loaded estimator
-  refits with its budget); those it does not fit yet (``n_devices > 1``,
-  ``checkpoint``) load all the same: the loaded trees predict and serve,
-  and ``fit`` refuses them, naming their ``ROADMAP.md`` items.
+  refits with its budget); those it does not fit yet (a forest's or a
+  boosted ensemble's ``n_devices > 1``, ``checkpoint``) load all the same:
+  the loaded trees predict and serve, and ``fit`` refuses them, naming
+  their ``ROADMAP.md`` items.
 
-Files of the JAX package's ``ParallelDecisionTreeClassifier`` raise
-``NotImplementedError`` naming the items that port it.
+``ParallelDecisionTreeClassifier`` files go both ways too (the JAX
+package writes them, ``:31``); a loaded one keeps its ``n_devices``, so
+it predicts on the mesh that names.
 """
 
 from __future__ import annotations
@@ -42,9 +44,10 @@ from mpitree_tpu_torch.core.tree_struct import TreeArrays
 FORMAT = "mpitree_tpu-model"
 VERSION = 1
 _TREE_FIELDS = [f.name for f in dataclasses.fields(TreeArrays)]
-# The estimators of the JAX format the port fits; the others refuse.
+# The estimators of the JAX format (``:29-39``), all of which the port fits.
 _PORTED = (
     "DecisionTreeClassifier",
+    "ParallelDecisionTreeClassifier",
     "DecisionTreeRegressor",
     "RandomForestClassifier",
     "RandomForestRegressor",
@@ -55,10 +58,6 @@ _PORTED = (
 )
 # Classes whose fitted trees live in ``trees_`` (``:41``).
 _ENSEMBLE_PREFIXES = ("RandomForest", "ExtraTrees", "GradientBoosting")
-_LATER = {
-    "ParallelDecisionTreeClassifier":
-        "A5 (ParallelDecisionTreeClassifier, with multi-GPU item 14)",
-}
 # Scalar fitted attributes carried in the header (``:46-49``), written
 # and read when the estimator has them.
 _SCALAR_ATTRS = (
@@ -158,10 +157,6 @@ def load_model(path, *, device=None):
                 f"{path!r}: model file version {header.get('version')!r}, "
                 f"this package reads version {VERSION}")
         name = header["class"]
-        if name in _LATER:
-            raise NotImplementedError(
-                f"{name} model files are not ported yet "
-                f"(ROADMAP.md {_LATER[name]})")
         classes = _classes()
         if name not in classes:
             raise ValueError(f"unknown estimator class {name!r}")

@@ -3,6 +3,7 @@ or sklearn (the machine with the card has none of them)."""
 
 from __future__ import annotations
 
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -78,3 +79,30 @@ def test_serving_tier_imports_with_jax_blocked():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == ["4096", "True", "2"]
+
+
+_MESH_BLOCKED = """
+import sys
+for name in ("jax", "jaxlib", "mpitree_tpu", "sklearn"):
+    sys.modules[name] = None  # any import of them raises ImportError
+from mpitree_tpu_torch.parallel import collective, distributed, mesh, partition
+from mpitree_tpu_torch.utils import profiling
+from mpitree_tpu_torch.tree import ParallelDecisionTreeClassifier
+mesh.set_cpu_shards(3)
+m = mesh.resolve_mesh(device="cpu", n_devices="all")
+print(m.size, partition.match_partition_rules("x_binned"),
+      distributed.process_info(device="cpu")["global_devices"],
+      profiling.debug_checks_enabled(),
+      ParallelDecisionTreeClassifier().n_devices)
+"""
+
+
+def test_mesh_modules_import_with_jax_blocked():
+    out = subprocess.run(
+        [sys.executable, "-c", _MESH_BLOCKED], cwd=REPO, capture_output=True,
+        text=True, timeout=120,
+        env={k: v for k, v in os.environ.items()
+             if k != "MPITREE_TPU_DEBUG"},
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["3", "row", "3", "False", "all"]

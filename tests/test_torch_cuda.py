@@ -1080,3 +1080,66 @@ def test_quantized_regression_tree_on_the_card_equals_cpu(cuda):
         got = card.raw(Xq[:n])
         assert got.dtype == np.float32
         np.testing.assert_array_equal(got, cpu.raw(Xq[:n]))
+
+
+@pytest.mark.parametrize("task", ["classification", "weighted",
+                                  "regression"])
+def test_in_process_mesh_on_the_card_equals_one_device(cuda, task):
+    """Every visible card as the local shards of one process (one card:
+    one shard through the mesh code): the tree equals the one-device fit
+    on the card and the 4-shard fit with device="cpu", field for field,
+    and sharded predict equals one-device predict."""
+    from mpitree_tpu_torch.parallel import mesh as M
+    from mpitree_tpu_torch.tree import (DecisionTreeRegressor,
+                                        ParallelDecisionTreeClassifier)
+    from mpitree_tpu_torch.utils.datasets import california_like, covtype_like
+
+    if task == "regression":
+        X, y = california_like(20_000, seed=3)
+        make = DecisionTreeRegressor
+        kw, fit_kw = dict(max_depth=12, refine_depth=None), {}
+    else:
+        X, y = covtype_like(20_000, seed=3)
+        make = ParallelDecisionTreeClassifier
+        kw = dict(max_depth=12, refine_depth=None)
+        fit_kw = {} if task == "classification" else dict(
+            sample_weight=np.random.default_rng(3).uniform(
+                0.5, 2, len(y)).astype(np.float32))
+    one = make(n_devices=None, device="cuda", **kw).fit(X, y, **fit_kw)
+    par = make(n_devices="all", device="cuda", **kw).fit(X, y, **fit_kw)
+    assert par.fit_stats_["n_shards"] == torch.cuda.device_count()
+    prev = M.set_cpu_shards(4)
+    try:
+        cpu = make(n_devices="all", device="cpu", **kw).fit(X, y, **fit_kw)
+    finally:
+        M.set_cpu_shards(prev)
+    _same_trees(par.tree_, one.tree_, "mesh vs one card")
+    _same_trees(par.tree_, cpu.tree_, "card mesh vs 4 CPU shards")
+    np.testing.assert_array_equal(par.predict(X[:5_000]),
+                                  one.predict(X[:5_000]))
+
+
+def test_global_exponents_on_the_card_equal_the_cpu(cuda):
+    """The route statistics reduce on the card to the CPU's route and
+    exponents, at one shard and at 4 CPU shards."""
+    from mpitree_tpu_torch.core.builder import BuildConfig, FitInputs
+    from mpitree_tpu_torch.ops.binning import bin_for_engine
+    from mpitree_tpu_torch.parallel import mesh as M
+    from mpitree_tpu_torch.utils.datasets import california_like
+
+    X, y = california_like(20_000, seed=3)
+    y = (y - y.mean()).astype(np.float32)
+    y[17] = 500.0  # the maximum in one shard only
+    cfg = BuildConfig(task="regression", criterion="mse", max_depth=4)
+    exps = []
+    prev = M.set_cpu_shards(4)
+    try:
+        for dev in ("cuda", "cpu"):
+            binned = bin_for_engine(X, max_bins=256, binning="auto",
+                                    device=torch.device(dev))
+            mesh = M.resolve_mesh(device=dev, n_devices="all")
+            exps.append(FitInputs(binned, y, cfg, mesh=mesh).scale_exp)
+            exps.append(FitInputs(binned, y, cfg).scale_exp)
+    finally:
+        M.set_cpu_shards(prev)
+    assert all(e == exps[0] for e in exps), exps

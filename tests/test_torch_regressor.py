@@ -172,7 +172,9 @@ def test_options_now_ported_equal_jax(data, param, value):
 
 
 @pytest.mark.parametrize("param,value", [
-    ("n_devices", 2),
+    # the 2-D (data, feature) mesh: n_devices=2 is a 1-D mesh since the
+    # data mesh was ported, so the case keeps its id on the one refused
+    pytest.param("n_devices", (2, 2), id="n_devices-2"),
 ])
 def test_options_off_this_slice_raise(param, value):
     X, y = california_like(100, seed=0)

@@ -5,9 +5,9 @@ A file that ``mpitree_tpu.save_model`` writes loads with
 ``mpitree_tpu_torch.load_model`` and predicts bit for bit as the JAX
 estimator, and a file the port writes loads in the JAX package and
 predicts bit for bit as the port's estimator, for the six tree and forest
-classes; a loaded forest compiles and serves. ``ParallelDecisionTreeClassifier``
-files are refused, naming their item (gradient-boosted files cross both
-ways: ``tests/test_torch_boosting_serve.py``).
+classes and ``ParallelDecisionTreeClassifier``; a loaded forest compiles
+and serves (gradient-boosted files cross both ways:
+``tests/test_torch_boosting_serve.py``).
 The JAX fits run its host tier (``backend="host"``) on 300 rows, so no
 XLA program is compiled for them.
 """
@@ -168,9 +168,27 @@ def _retagged(tmp_path, data, cls_name, params=None):
     ("ParallelDecisionTreeClassifier", "A5"),
 ])
 def test_later_estimator_files_are_refused(tmp_path, data, cls_name, item):
-    path = _retagged(tmp_path, data, cls_name, params={})
-    with pytest.raises(NotImplementedError, match=item):
-        P.load_model(path, device="cpu")
+    """Once refused naming its item, now ported: the class's files cross
+    both ways with the JAX package, trees and answers bit for bit, and
+    keep ``n_devices``."""
+    import mpitree_tpu as J
+
+    X, y, _ = data
+    ref = getattr(J, cls_name)(backend="host", max_depth=5).fit(X, y)
+    J.save_model(ref, tmp_path / "j")
+    est = P.load_model(tmp_path / "j.npz", device="cpu")
+    assert type(est) is getattr(P, cls_name), item
+    _same_trees(_trees(est), _trees(ref), cls_name)
+    _same_answers(_answers(est, X), _answers(ref, X), cls_name)
+    got = est.get_params()
+    assert got.pop("device") == "cpu"
+    assert got == ref.get_params() and got["n_devices"] == "all"
+    port = getattr(P, cls_name)(device="cpu", max_depth=5).fit(X, y)
+    P.save_model(port, tmp_path / "p.npz")
+    back = J.load_model(tmp_path / "p.npz")
+    assert type(back).__name__ == cls_name
+    _same_trees(_trees(back), _trees(port), f"{cls_name} port")
+    _same_answers(_answers(back, X), _answers(port, X), f"{cls_name} port")
 
 
 def test_bad_files_are_refused(tmp_path, data):
