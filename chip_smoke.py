@@ -259,6 +259,28 @@ Phase 28 drives the data mesh (``parallel/``) through
     phase 1 built and refuses to build them. The launch counters are set
     to 0 before each fit and read after it, in each process.
 
+Phase 29 drives the rest of the mesh (item 14 of ``ROADMAP.md``) in one
+pair of gloo processes on ``cuda:0`` (``--mesh-worker ... ensembles``),
+each fit compared field for field, in both ranks, with its one-process
+twin from this run:
+
+29. mesh ensembles: (a) phase 5's forest (config 5) with ``n_devices=2``:
+    a (2, 1) tree mesh, 25 trees a process, then the tree exchange; equal
+    to phase 5's forest; (b) the same forest at 2 trees with
+    ``MPITREE_TPU_FOREST_HBM_BUDGET=1``: the (1, 2) ``(tree, data)``
+    mesh, each tree's histograms reduced over both processes; equal to a
+    one-process 2-tree forest; (c) phase 26's
+    ``GradientBoostingRegressor()`` at ``rounds_per_dispatch`` 1 and 8 on
+    the data mesh: trees and held-out margins equal to phase 26's bit
+    for bit; the fused loop's ``graph`` choice recorded; (d) phase 25
+    (b)'s 255-leaf tree on the data mesh; (e) phase 3's tree on the
+    ``(1, 2)`` ``(data, feature)`` mesh (27 features a process), with
+    subtraction off and on, and (c)'s K = 1 ensemble on it; (f) (a)'s
+    forest served through K4 (float64) and K5 (int8), equal to phase 5's
+    forest served alike. Walls, launches, reductions, winner gathers, row
+    routes and the exchange (calls, bytes, seconds) per rank; two
+    processes on one card measure invariance, not scaling.
+
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the card's name and power limit, JSON lines of per-shape kernel timings
 (``kernel_shapes``, ``serve_kernel_shapes``, ``fixed_kernel_shapes``), of
@@ -267,8 +289,8 @@ of phases 13 and 15 (``regression``, ``weights``), of phases 16-18
 (``subspace_forests``, ``regression_forests``, ``regression_serving``),
 of phases 19-20 (``constrained``, ``persistence``), of phases 21-23
 (``boosting``), of phase 24 (``engines``), of phases 25-26
-(``leafwise``, ``fused_rounds``), of phase 27 (``serve_tier``), of phase
-28 (``mesh``) and one ``kernels`` line (with each
+(``leafwise``, ``fused_rounds``), of phase 27 (``serve_tier``), of phases
+28-29 (``mesh``, ``mesh_ensembles``) and one ``kernels`` line (with each
 route's launches per engine, and the stream routes at S = 2 of the
 leaf-wise pair) come before it.
 Without CUDA the script exits 1 and prints no result.
@@ -388,7 +410,9 @@ SCHED_CLOSED = 10_000
 SCHED_OPEN = 20_000
 SCHED_LOADS = (0.5, 0.9)
 # Phase 28: two processes on the one card; (b)'s depth, cut here (never
-# its width) if its gloo run outgrows its share of the time limit
+# its width) if its gloo run outgrows its share of the time limit. Phase
+# 29 reuses MESH_RANKS and phase 3's depth for (e), uncut: the whole phase
+# fits its 180 s share (PERF.md, phase 29)
 MESH_RANKS = 2
 MESH_DEPTH = DEPTH
 MESH_WORKER_TIMEOUT = 420
@@ -2482,7 +2506,7 @@ def phase_leafwise(X, y, Xh, yh, Xc, yc, Xch, ych) -> dict:
     finally:
         _set_engine("auto", "auto")
     out["seconds"] = seconds
-    return out
+    return out, trees["off"]
 
 
 def _margins(est, X, what: str) -> np.ndarray:
@@ -2559,7 +2583,8 @@ def phase_fused_rounds(X, y, Xh, yh, Xc, yc, Xch, ych) -> dict:
     K=1| on held-out rows (within 2e-4, or else
     :func:`_boost_divergence`), held-out R^2 / accuracy. The K=8
     ensembles are served as ``margin`` through K4 (bit for bit) and K5
-    (within its report)."""
+    (within its report). Returns the record and the regressor's
+    ensembles by K."""
     from mpitree_tpu_torch.boosting import fused_rounds
     from mpitree_tpu_torch.ops import hist_kernel
     from mpitree_tpu_torch.serving import compile_model, quantize, serve_kernel
@@ -2646,13 +2671,15 @@ def phase_fused_rounds(X, y, Xh, yh, Xc, yc, Xch, ych) -> dict:
             kernels=_served_kernel_rows(cm, cm8, Xq, f"fused {what}",
                                         agg="percls"))
         out[what] = res
+        if what == "regressor":
+            reg_ests = dict(ests)
         log(f"fused rounds {what}: K=1 {res[1]['wall_s']:.3f} s, K="
             f"{FUSED_K} {res[FUSED_K]['wall_s']:.3f} s (x"
             f"{res['speedup_k8']:.3f}); max |margin delta| {delta:.3e}; "
             f"held-out {res[1]['heldout']:.6f} / "
             f"{res[FUSED_K]['heldout']:.6f}; " + json.dumps(
                 {k: v for k, v in res.items() if k != "serving"}))
-    return out
+    return out, reg_ests
 
 
 class _HeldModel:
@@ -3301,6 +3328,234 @@ def phase_mesh(X, y, Xh, yh, fit_tree, hybrid_tree) -> dict:
     return out
 
 
+# Phase 29's fits in the two worker processes: (part, estimator class,
+# parameters, data); "cov" is phase 3's matrix, "cov200k" phase 5's rows,
+# "cal" phase 13's. Nothing is cut: each is the configuration of the
+# one-process fit it must equal.
+ENSEMBLE_FITS = (
+    ("a", "RandomForestClassifier", dict(FOREST, **DEVICE_ONLY,
+                                         n_devices=MESH_RANKS), "cov200k"),
+    ("b", "RandomForestClassifier", dict(FOREST, **DEVICE_ONLY,
+                                         n_estimators=2,
+                                         n_devices=MESH_RANKS), "cov200k"),
+    ("c1", "GradientBoostingRegressor",
+     dict(rounds_per_dispatch=1, max_iter=BOOST_ROUNDS,
+          n_devices=MESH_RANKS), "cal"),
+    ("c8", "GradientBoostingRegressor",
+     dict(rounds_per_dispatch=FUSED_K, max_iter=BOOST_ROUNDS,
+          n_devices=MESH_RANKS), "cal"),
+    ("d", "DecisionTreeClassifier",
+     dict(max_leaf_nodes=LEAF_BUDGET, max_bins=256, n_devices=MESH_RANKS),
+     "cov"),
+    ("e", "DecisionTreeClassifier",
+     dict(_mesh_fit_kw("tree"), n_devices=(1, MESH_RANKS)), "cov"),
+    ("e_sub", "DecisionTreeClassifier",
+     dict(_mesh_fit_kw("tree"), n_devices=(1, MESH_RANKS)), "cov"),
+    ("e_gbdt", "GradientBoostingRegressor",
+     dict(rounds_per_dispatch=1, max_iter=BOOST_ROUNDS,
+          n_devices=(1, MESH_RANKS)), "cal"),
+)
+# (b)'s (tree, data) shape: a one-byte budget trades the tree axis for
+# rows, as tests/test_forest_mesh.py's test_hbm_guard_forces_data_axis
+ENSEMBLE_ENV = {"b": {"MPITREE_TPU_FOREST_HBM_BUDGET": "1"},
+                "e_sub": {"MPITREE_TPU_HIST_SUBTRACTION": "on"}}
+ENSEMBLE_TIMEOUT = 900
+
+
+def ensembles_worker(rank: int, port: int, out: str) -> int:
+    """One process of phase 29: join the gloo group of ``MESH_RANKS``
+    processes, then every fit of :data:`ENSEMBLE_FITS` in turn on
+    ``cuda:0``, each with the launch counters set to 0 just before it and
+    read just after; each model is saved (``save_model``) to
+    ``out<part>.npz`` and the walls, launches and ``fit_stats_`` go to
+    ``out.json``. Loads the kernels phase 1 built."""
+    import mpitree_tpu_torch.tree as T
+    from mpitree_tpu_torch import _build, native
+    from mpitree_tpu_torch.ops import hist_kernel
+    from mpitree_tpu_torch.parallel import distributed
+    from mpitree_tpu_torch.utils.datasets import california_like, covtype_like
+    from mpitree_tpu_torch.utils.serialize import save_model
+
+    built = [_build._library_path(n) for n in ("histogram", "traverse")]
+    built.append(native.library_path())
+    missing = [str(p) for p in built if not p.exists()]
+    if missing:
+        raise RuntimeError(f"ensembles worker: phase 1's libraries are "
+                           f"missing ({missing}); it does not build them")
+    distributed.initialize(f"localhost:{port}", MESH_RANKS, rank,
+                           backend="gloo", timeout=ENSEMBLE_TIMEOUT)
+    try:
+        X, y = covtype_like(ROWS, seed=0)
+        Xc, yc = california_like(CAL_ROWS, seed=0)
+        data = {"cov": (X, y), "cov200k": (X[:FOREST_ROWS], y[:FOREST_ROWS]),
+                "cal": (Xc, yc)}
+        recs = {}
+        for part, cls, kw, what in ENSEMBLE_FITS:
+            env = ENSEMBLE_ENV.get(part, {})
+            os.environ.update(env)
+            try:
+                est = getattr(T, cls)(**kw)
+                for k in hist_kernel.launches:
+                    hist_kernel.launches[k] = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                est.fit(*data[what])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = dict(hist_kernel.launches)
+            finally:
+                for k in env:
+                    os.environ.pop(k)
+            save_model(est, f"{out}{part}.npz")
+            st = est.fit_stats_
+            recs[part] = dict(
+                wall_s=wall, launches=launches,
+                **{k: v for k, v in st.items()
+                   if isinstance(v, (int, float, str, list))
+                   and not isinstance(v, bool) or k == "graph"})
+            log(f"rank {rank} ({part}): {wall:.3f} s")
+        Path(out + ".json").write_text(json.dumps(dict(rank=rank, **recs)))
+    finally:
+        distributed.shutdown()
+    return 0
+
+
+def _ensemble_launches(ens: dict, route: str) -> dict:
+    """A route's launches in each part of phase 29, per rank."""
+    return {part: [r["launches"][route] for r in ens["ranks"][part]]
+            for part in ens["ranks"]}
+
+
+def _same_trees(got: list, want: list) -> list:
+    """The (tree, fields) where two tree lists differ (their lengths
+    too)."""
+    if len(got) != len(want):
+        return [("n_trees", len(got), len(want))]
+    return [(i, bad) for i, (a, b) in enumerate(zip(got, want))
+            if (bad := _differing(a, b))]
+
+
+def phase_mesh_ensembles(X, y, Xh, Xc, yc, Xch, forest, fit_tree,
+                         leaf_tree, boost_regs) -> dict:
+    """Phase 29: one pair of gloo processes on ``cuda:0`` fits every part
+    of :data:`ENSEMBLE_FITS` (``ensembles_worker``); every model of both
+    ranks must equal its one-process twin field for field: (a) phase 5's
+    forest on the (2, 1) tree mesh; (b) a 2-tree forest on the (1, 2)
+    (tree, data) mesh, the one-process 2-tree forest fitted here; (c)
+    phase 26's regressor ensembles at K = 1 and 8 (trees and held-out
+    margins bit for bit); (d) phase 25 (b)'s tree; (e) phase 3's tree on
+    the (1, 2) (data, feature) mesh, with subtraction off and on, and the
+    K = 1 ensemble on it. (f) rank 0's (a) forest served through K4
+    (float64) and K5 (int8) equal to phase 5's forest served alike, bit
+    for bit. Two processes on one card: invariance, not scaling."""
+    from mpitree_tpu_torch.serving import compile_model, serve_kernel
+    from mpitree_tpu_torch.tree import RandomForestClassifier
+    from mpitree_tpu_torch.utils.serialize import load_model
+
+    Xf, yf = X[:FOREST_ROWS], y[:FOREST_ROWS]
+    want_b = RandomForestClassifier(**dict(FOREST, **DEVICE_ONLY,
+                                           n_estimators=2)).fit(Xf, yf)
+    out_dir = Path("build") / "chip_smoke_mesh"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    port = _free_port()
+    env = dict(os.environ, MPITREE_TPU_DEBUG="1", GLOO_SOCKET_IFNAME="lo")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--mesh-worker",
+         str(r), str(port), "ensembles", str(out_dir / f"ens{r}_")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env) for r in range(MESH_RANKS)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=ENSEMBLE_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"mesh ensembles rank {r} failed (exit "
+                                 f"{p.returncode}):\n{text[-4000:]}")
+    wants = {"a": list(forest.trees_), "b": list(want_b.trees_),
+             "c1": list(boost_regs[1].trees_),
+             "c8": list(boost_regs[FUSED_K].trees_), "d": [leaf_tree],
+             "e": [fit_tree], "e_sub": [fit_tree],
+             "e_gbdt": list(boost_regs[1].trees_)}
+    margins = {"c1": 1, "c8": FUSED_K, "e_gbdt": 1}
+    ranks, models = {}, {}
+    for r in range(MESH_RANKS):
+        rec = json.loads((out_dir / f"ens{r}_.json").read_text())
+        for part, _, _, _ in ENSEMBLE_FITS:
+            est = load_model(out_dir / f"ens{r}_{part}.npz", device="cuda")
+            est.n_devices = None  # this process holds one shard of one card
+            got = (list(est.trees_) if hasattr(est, "trees_")
+                   else [est.tree_])
+            bad = _same_trees(got, wants[part])
+            if bad:
+                raise AssertionError(f"mesh ensembles ({part}) rank {r}: "
+                                     f"differs from its one-process twin "
+                                     f"in {bad[:3]}")
+            if part in margins and not np.array_equal(
+                    est.predict(Xch), boost_regs[margins[part]].predict(
+                        Xch)):
+                raise AssertionError(f"mesh ensembles ({part}) rank {r}: "
+                                     "margins differ")
+            st = rec[part]
+            if not any(st["launches"].values()):
+                raise AssertionError(f"mesh ensembles ({part}) rank {r}: "
+                                     f"no histogram launch: {st}")
+            ranks.setdefault(part, []).append(st)
+            models.setdefault(part, est)
+    # what each part must have moved: the tree exchange, the (1, 2) data
+    # reductions, the feature axis's winner gathers and row routes
+    for part, keys in (("a", ("exchange_calls",)),
+                       ("b", ("allreduce_calls", "exchange_calls")),
+                       ("c1", ("allreduce_calls",)),
+                       ("c8", ("allreduce_calls",)),
+                       ("d", ("allreduce_calls",)),
+                       ("e", ("gather_calls", "route_calls")),
+                       ("e_gbdt", ("gather_calls", "route_calls"))):
+        for st in ranks[part]:
+            if not all(st.get(k, 0) > 0 for k in keys):
+                raise AssertionError(f"mesh ensembles ({part}): {keys} "
+                                     f"not all counted: {st}")
+    if [st["forest_mesh"] for st in ranks["a"]] != [[2, 1]] * MESH_RANKS \
+            or [st["forest_mesh"] for st in ranks["b"]] != [[1, 2]] * \
+            MESH_RANKS:
+        raise AssertionError("mesh ensembles: forest meshes "
+                             f"{ranks['a'][0]['forest_mesh']}, "
+                             f"{ranks['b'][0]['forest_mesh']}")
+    for k in serve_kernel.launches:
+        serve_kernel.launches[k] = 0
+    served = {}
+    for name, kw in (("float64", {}), ("int8", dict(quantize="int8"))):
+        got = compile_model(models["a"], **kw).raw(Xh)
+        if not np.array_equal(got, compile_model(forest, **kw).raw(Xh)):
+            raise AssertionError(f"mesh ensembles (f): the mesh forest "
+                                 f"served {name} differs from phase 5's")
+        served[name] = got.shape
+    launches = dict(serve_kernel.launches)
+    if not (launches["traverse"] and launches["traverse_q"]):
+        raise AssertionError(f"mesh ensembles (f): launches {launches}")
+    out = dict(processes_wall_s=wall, ranks=ranks,
+               f=dict(rows=len(Xh), launches=launches))
+    log("mesh ensembles (two gloo processes on one card: invariance, not "
+        f"scaling): processes {wall:.3f} s; " + "; ".join(
+            f"({part}) {[round(st['wall_s'], 3) for st in sts]} s, "
+            + ", ".join(f"{k} {sts[0][k]}" for k in (
+                "forest_mesh", "allreduce_calls", "allreduce_bytes",
+                "gather_calls", "gather_bytes", "route_calls",
+                "route_bytes", "exchange_calls", "exchange_bytes",
+                "graph") if k in sts[0])
+            for part, sts in ranks.items())
+        + "; every model equal to its one-process twin in both ranks; "
+        f"(f) served K4/K5 bit for bit: {launches}")
+    return out
+
+
 def phase_profile(name: str, work, out_dir: Path) -> None:
     """Run ``work()`` once more under torch.profiler: device time by kernel
     and the device's busy share of the wall-clock; the table goes to
@@ -3390,7 +3645,7 @@ def main() -> int:
                     "depth-2 stage pass; tables and the trace go to DIR")
     ap.add_argument("--mesh-worker", nargs=4,
                     metavar=("RANK", "PORT", "WHAT", "OUT"),
-                    help=argparse.SUPPRESS)  # phase 28's worker processes
+                    help=argparse.SUPPRESS)  # phases 28-29's workers
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -3399,6 +3654,8 @@ def main() -> int:
         return 1
     if args.mesh_worker:
         rank, port, what, out = args.mesh_worker
+        if what == "ensembles":
+            return ensembles_worker(int(rank), int(port), out)
         return mesh_worker(int(rank), int(port), what, out)
     import mpitree_tpu_torch  # noqa: F401  (fails outside a checkout)
     from mpitree_tpu_torch.core.builder import BuildConfig, _chunk_size
@@ -3518,15 +3775,18 @@ def main() -> int:
                           trees=[reg_tree]),
     })
     mark("24 engines")
-    leafwise = phase_leafwise(X, y, Xh, yh, Xc, yc, Xch, ych)
+    leafwise, leaf_tree = phase_leafwise(X, y, Xh, yh, Xc, yc, Xch, ych)
     mark("25 leafwise")
-    fused = phase_fused_rounds(X, y, Xh, yh, Xc, yc, Xch, ych)
+    fused, boost_regs = phase_fused_rounds(X, y, Xh, yh, Xc, yc, Xch, ych)
     mark("26 fused rounds")
     tier = phase_serve_tier(forest, reg_tree, Xbig, Xh, Xch, args.profile)
     mark("27 serve tier")
     del Xbig
     mesh = phase_mesh(X, y, Xh, yh, fit_tree, hybrid_tree)
     mark("28 mesh")
+    ensembles = phase_mesh_ensembles(X, y, Xh, Xc, yc, Xch, forest,
+                                     fit_tree, leaf_tree, boost_regs)
+    mark("29 mesh ensembles")
     if args.profile:
         profile_all(X, y, forest, Xh, args.profile)
 
@@ -3563,6 +3823,7 @@ def main() -> int:
                 mesh[part] else [r["launches"][route]
                                  for r in mesh[part]["ranks"]]
                 for part in ("a", "b", "c", "d")},
+            mesh_ensemble_launches=_ensemble_launches(ensembles, route),
         ))
     for form, (agg, chan) in SERVE_LINE.items():
         row = next(r for r in serve_shapes if r["kernel"] == form
@@ -3589,6 +3850,7 @@ def main() -> int:
             constrained_forest_values=constrained["forest"]["kernels"][form],
             serve_tier_launches={k: v[form]
                                  for k, v in tier["launches"].items()},
+            mesh_forest_serve_launches=ensembles["f"]["launches"][form],
         ))
     for key, S in FIXED_LINE.items():
         route = key[:-len("_fixed")]
@@ -3623,6 +3885,7 @@ def main() -> int:
                 f"{what} K={K}": fused[what][K]["launches"][key]
                 for what in ("regressor", "classifier")
                 for K in (1, FUSED_K)},
+            mesh_ensemble_launches=_ensemble_launches(ensembles, key),
         ))
     for form in SERVE_LINE:
         for what in ("classifier", "regressor"):
@@ -3656,6 +3919,7 @@ def main() -> int:
                 leafwise["regressor"]["launches"][key]),
             launches_of=("phase 25 (b), subtraction off" if payload is None
                          else "phase 25 (c)"),
+            mesh_ensemble_launches=_ensemble_launches(ensembles, key),
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
@@ -3682,6 +3946,7 @@ def main() -> int:
     log(json.dumps({"fused_rounds": fused}))
     log(json.dumps({"serve_tier": tier}))
     log(json.dumps({"mesh": mesh}))
+    log(json.dumps({"mesh_ensembles": ensembles}))
     log(json.dumps({"phase_end_s": clock}))
     log(card)
     log(json.dumps({"kernels": kernels}))

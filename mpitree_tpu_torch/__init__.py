@@ -15,12 +15,14 @@ Ported so far: ``DecisionTreeClassifier`` and ``DecisionTreeRegressor``
 (levelwise device engine, host tier, refine tail, ``ccp_alpha``,
 ``sample_weight``/``class_weight``, ``max_features``/``splitter``,
 ``monotonic_cst``, ``decision_path``, ``export_text``/``export_dot``,
-``nodes_``, ``n_devices`` on a data mesh over devices and processes),
-``ParallelDecisionTreeClassifier``, ``RandomForestClassifier``, ``RandomForestRegressor``,
+``nodes_``, ``n_devices`` on a data mesh over devices and processes, or
+a ``(data, feature)`` mesh), ``ParallelDecisionTreeClassifier``,
+``RandomForestClassifier``, ``RandomForestRegressor``,
 ``ExtraTreesClassifier`` and ``ExtraTreesRegressor`` (with OOB scores,
-warm start and ``monotonic_cst``), ``GradientBoostingClassifier`` and
-``GradientBoostingRegressor`` (the host round loop over Newton trees
-built on the card), ``save_model``/``load_model`` in the JAX package's
+warm start, ``monotonic_cst`` and ``n_devices`` on a ``(tree, data)``
+mesh), ``GradientBoostingClassifier`` and ``GradientBoostingRegressor``
+(the host round loop over Newton trees built on the card, and the fused
+rounds; ``n_devices`` on any mesh), ``save_model``/``load_model`` in the JAX package's
 file format, and serving (``compile_model``, ``ModelRegistry``; boosted
 margins through the traversal kernel); ``ROADMAP.md`` lists what comes
 next.

@@ -39,7 +39,9 @@ card's float32 division bit for bit (:func:`_finalize_round_tree`), so
 Eligibility (:func:`resolve_rounds_per_dispatch`, ``:82-240``): one tree
 a round (binary logistic or squared error), no early stopping, no
 ``colsample_bytree``, a leaf pool within :data:`FUSED_POOL_CEILING` and
-the histogram budget. Not here (``ROADMAP.md`` items 17–18): checkpoints,
+the histogram budget, and no feature axis. On a data mesh every shard
+keeps its rows' margins and the leaf loop steps without a CUDA graph
+(:func:`run_fused_rounds`). Not here (``ROADMAP.md`` items 17–18): checkpoints,
 the retry slots, the OOM rescue and the advisor.
 """
 
@@ -68,6 +70,11 @@ FUSED_POOL_CEILING = 4096
 # "auto".
 ROUNDS_AUTO = {"cuda": DEFAULT_ROUNDS_PER_DISPATCH, "cpu": 1}
 ROUNDS_ENV = "MPITREE_TPU_ROUNDS_PER_DISPATCH"
+# JAX's refusal of the fused rounds on a feature axis (``:146-155``)
+MESH2D_BLOCKER = (
+    "(data, feature) mesh: the fused-rounds leaf pool has no feature-axis "
+    "winner merge (mesh2d_unsupported) — use a 1-D data mesh or "
+    "rounds_per_dispatch=1")
 # Device-to-host copies of the fused rounds, counted here: the dispatches'
 # residual reads and result copies.
 copies = 0
@@ -85,11 +92,12 @@ def resolve_rounds_per_dispatch(param, *, device_type: str, loss_kind,
                                 loss_K: int, early_stopping: bool,
                                 colsample: float, max_depth, max_leaf_nodes,
                                 n_samples=None, n_features=None, n_bins=None,
-                                hist_budget_bytes=None) -> tuple:
+                                hist_budget_bytes=None,
+                                feature_shards: int = 1) -> tuple:
     """``(K, reason)`` for the estimator's ``rounds_per_dispatch``
-    (``:82-240``, without the advisor and the feature mesh): the
-    environment steers ``"auto"`` only; an explicit integer wins, and
-    raises where a blocker forbids it. ``"auto"`` is
+    (``:82-240``, without the advisor): the environment steers ``"auto"``
+    only; an explicit integer wins, and raises where a blocker forbids it
+    (a ``(data, feature)`` mesh among them, ``:146-155``). ``"auto"`` is
     :data:`ROUNDS_AUTO` for ``device_type`` when nothing blocks."""
     blockers = []
     if n_samples is not None:
@@ -125,6 +133,8 @@ def resolve_rounds_per_dispatch(param, *, device_type: str, loss_kind,
             "unbounded trees: the in-program leaf pool needs a static "
             "budget (set max_depth or max_leaf_nodes)"
         )
+    if int(feature_shards) > 1:
+        blockers.append(MESH2D_BLOCKER)
     flag = "auto" if param in (None, "auto") else param
     from_env = False
     env_note = ""
@@ -245,24 +255,30 @@ def run_fused_rounds(*, binned, packed, y_tr: np.ndarray, sw_tr, raw_tr,
                      trees: list, train_scores: list, max_iter: int,
                      cfg: BuildConfig, seed: int, lr: float, loss_kind: str,
                      rounds_per_dispatch: int, subsample: float,
-                     verbose: bool = False) -> dict:
+                     verbose: bool = False, mesh=None) -> dict:
     """Drive a fit in dispatches of ``rounds_per_dispatch`` rounds
     (``run_fused_rounds``, ``:412``, without checkpoints, the retry slots
     and the OOM rescue). Appends the trees and the training scores to
     ``trees``/``train_scores``, writes the float32 margins back into
-    ``raw_tr[:, 0]``, and returns the dispatch count and the copies.
-    Raises ``FloatingPointError`` on a non-finite round, as the host loop
-    does, and ``RuntimeError`` if a payload passed its dispatch's bounds
-    (which would make the fixed-point sums inexact)."""
+    ``raw_tr[:, 0]``, and returns the dispatch count, the copies and the
+    leaf loop's ``graph`` choice. Raises ``FloatingPointError`` on a
+    non-finite round, as the host loop does, and ``RuntimeError`` if a
+    payload passed its dispatch's bounds (which would make the
+    fixed-point sums inexact).
+
+    On a data ``mesh`` (``:260-360``, ``:413-565``) every shard keeps its
+    rows' margins, targets, weights and row masks; the leaf loop grows
+    each tree over the shards (its pair histograms reduced over the
+    mesh, no CUDA graph), every leaf's exact (G, H) sums reduce over it,
+    and the dispatch's residual bound is the maximum over it (MAX), so
+    the exponents, the trees and the margins are the one-device ones bit
+    for bit. The training losses sum per shard, then over the mesh: equal
+    to the one-device loss up to float64 summation order."""
     global copies
-    dev = binned.x_binned.device
+    dev = binned.x_binned.device if mesh is None else mesh.lead
     N = binned.n_samples
     sw = np.ones(N, np.float32) if sw_tr is None else np.asarray(
         sw_tr, np.float32)
-    y32 = torch.as_tensor(np.asarray(y_tr, np.float32), device=dev)
-    y64 = y32.to(torch.float64)
-    w32 = torch.as_tensor(sw, device=dev)
-    w64 = w32.to(torch.float64)
     max_w, y_top = float(sw.max(initial=0.0)), float(
         np.abs(np.asarray(y_tr, np.float32)).max(initial=0.0))
     total_w = float(np.sum(sw, dtype=np.float64))
@@ -273,15 +289,26 @@ def run_fused_rounds(*, binned, packed, y_tr: np.ndarray, sw_tr, raw_tr,
     M = 2 * pool - 1
     lam32 = torch.tensor(np.float32(cfg.reg_lambda), device=dev)
     eps32 = torch.tensor(np.float32(1e-12), device=dev)
-    lr32 = torch.tensor(np.float32(lr), device=dev)
-    raw = torch.as_tensor(np.ascontiguousarray(raw_tr[:, 0], np.float32),
-                          device=dev)
     # one fit, one leaf loop: every round copies its (count, g, h) into the
-    # same payload tensor, so the loop's captured step serves every round
+    # same payload tensors, so the loop's captured step serves every round
     # of a dispatch (a dispatch's new exponents are a new capture)
-    zeros = torch.zeros(N, dtype=torch.float32, device=dev)
-    fit = FitInputs(binned, zeros, cfg, sample_weight=zeros, packed=packed,
-                    scale_exp=(0, 0, 0), candidate_mask=cand)
+    zeros = np.zeros(N, np.float32)
+    fit = FitInputs(binned, zeros if mesh is not None else
+                    torch.as_tensor(zeros, device=dev), cfg,
+                    sample_weight=zeros, packed=packed, scale_exp=(0, 0, 0),
+                    candidate_mask=cand, mesh=mesh)
+
+    def rows(a):
+        return fit.row_parts(torch.as_tensor(a, device=dev))
+
+    y32 = rows(np.asarray(y_tr, np.float32))
+    y64 = [v.to(torch.float64) for v in y32]
+    w32 = rows(sw)
+    w64 = [v.to(torch.float64) for v in w32]
+    raw = rows(np.ascontiguousarray(raw_tr[:, 0], np.float32))
+    # padding rows keep margin 0 (target 0, weight 0): they touch no bound
+    real = [nid >= 0 for nid in fit.root_nids()]
+    lr32 = [torch.tensor(np.float32(lr), device=sh.dev) for sh in fit.shards]
     loop = leafwise._LeafLoop(fit, cfg, pool=pool,
                               use_sub=leafwise.leafwise_subtraction(
                                   fit, cfg, pool))
@@ -291,34 +318,50 @@ def run_fused_rounds(*, binned, packed, y_tr: np.ndarray, sw_tr, raw_tr,
         k = min(int(rounds_per_dispatch), max_iter - r)
         residual = 0.0
         if loss_kind == "squared_error":
-            residual = float((raw - y32).abs().max())  # a dispatch's read
+            residual = float(collective.psum(
+                [(a - b).abs().max().view(1) for a, b in zip(raw, y32)],
+                mesh, "max")[0])  # a dispatch's read
             copies += 1
         tops = _payload_tops(loss_kind, max_w, residual, y_top, lr, k)
         exps = hist_kernel.exponents_from_top(tops[None], N)[0]
         fit.scale_exp = exps
         loop.recapture()
-        tops_d = torch.as_tensor(tops, dtype=torch.float64, device=dev)
         over = torch.zeros((), dtype=torch.bool, device=dev)
         ints, floats, scalars = [], [], []
         for i in range(k):
-            g, h = _grad_hess(loss_kind, raw, y32)
-            g, h = g * w32, h * w32
+            masks = None
             if subsample < 1.0:
-                m = row_subsample_mask_dev(seed, r + i, N, subsample,
-                                           dev).to(torch.float32)
-                g, h = g * m, h * m
-            fit.payload.copy_(gbdt_payload(g, h))
-            over = over | (fit.payload.abs().amax(dim=0).to(torch.float64)
-                           > tops_d).any()
+                masks = rows(row_subsample_mask_dev(
+                    seed, r + i, N, subsample, dev).to(torch.float32))
+            gh = []
+            for s, sh in enumerate(fit.shards):
+                g, h = _grad_hess(loss_kind, raw[s], y32[s])
+                g, h = g * w32[s], h * w32[s]
+                if masks is not None:
+                    g, h = g * masks[s], h * masks[s]
+                sh.payload.copy_(gbdt_payload(g, h))
+                tops_d = torch.as_tensor(tops, dtype=torch.float64,
+                                         device=sh.dev)
+                over = over | (sh.payload.abs().amax(dim=0).to(
+                    torch.float64) > tops_d).any().to(dev)
+                # every leaf's (G, H), summed exactly
+                gh.append(hist_kernel.quantize(torch.stack([g, h], dim=1),
+                                               exps[1:]))
             grown = loop.grow(check_every=None)
-            # every leaf's (G, H), summed exactly and rounded to float32
-            gh = hist_kernel.quantize(torch.stack([g, h], dim=1), exps[1:])
             GH = collective.node_sums(gh, grown.nid, 0, n_slots=M + 2,
-                                      scale_exp=exps[1:]).to(torch.float32)
+                                      scale_exp=exps[1:], mesh=mesh).to(
+                                          torch.float32)
             vals = -GH[:, 0] / torch.maximum(GH[:, 1] + lam32, eps32)
-            raw = raw + lr32 * vals.index_select(0, grown.nid.to(torch.int64))
-            loss = (w64 * _loss_rows(loss_kind, raw.to(torch.float64),
-                                     y64)).sum()
+            loss = []
+            for s, nid in enumerate(grown.nid):
+                step = vals.to(nid.device).index_select(
+                    0, nid.clamp(min=0).to(torch.int64))
+                raw[s] = raw[s] + lr32[s] * torch.where(
+                    real[s], step, torch.zeros_like(step))
+                loss.append((w64[s] * _loss_rows(
+                    loss_kind, raw[s].to(torch.float64), y64[s])).sum()
+                    .view(1))
+            loss = collective.psum(loss, mesh)[0]
             ints.append(grown.ints.clone())
             floats.append(torch.cat([grown.counts, GH.to(torch.float64)],
                                     dim=1))
@@ -360,8 +403,8 @@ def run_fused_rounds(*, binned, packed, y_tr: np.ndarray, sw_tr, raw_tr,
         if verbose:
             print(f"[gbdt] rounds {r - k + 1}..{r}/{max_iter} (fused "
                   f"dispatch) train_loss={-train_scores[-1]:.6f}")
-    raw_tr[:, 0] = raw.cpu().numpy()
+    raw_tr[:, 0] = collective.gather_rows(raw, mesh, N).cpu().numpy()
     copies += 1
     return {"dispatches": dispatches, "pool": pool,
-            "hist_subtraction": loop.use_sub}
-
+            "hist_subtraction": loop.use_sub, "graph": loop.use_graph,
+            "graph_reason": loop.graph_reason}

@@ -52,11 +52,19 @@ losses; ``build_seconds``, the tree builds, or the fused dispatches;
 ``dispatches``, ``pool`` and ``hist_subtraction``; a leaf-wise round
 adds its ``engine``, ``frontier`` and ``expansions``.
 
+``n_devices`` (``:391-393``, ``:542``) runs every round on a mesh: the
+host loop's trees on the data mesh (or a ``(dr, df)`` mesh's feature
+slabs) through ``build_tree``, whose int64 fixed-point sums are exact
+and whose exponents come from every row, so each tree, refit and margin
+is the one-device ensemble's bit for bit; the fused rounds on a data
+mesh (``fused_rounds.run_fused_rounds``). ``predict`` splits its rows
+over the local shards. ``fit_stats_`` then holds ``n_shards`` and the
+collectives' counts.
+
 Options off this path raise ``NotImplementedError`` naming their
-``ROADMAP.md`` item: ``checkpoint`` (item 17), ``fit(dataset=...)``
-(item 16) and ``n_devices > 1`` (item 14c). ``backend="host"`` raises
-``ValueError``: boosting rounds run the device engine only, as in the
-JAX package.
+``ROADMAP.md`` item: ``checkpoint`` (item 17) and ``fit(dataset=...)``
+(item 16). ``backend="host"`` raises ``ValueError``: boosting rounds run
+the device engine only, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -69,12 +77,19 @@ import torch
 from mpitree_tpu_torch._device import resolve_device
 from mpitree_tpu_torch.boosting import fused_rounds
 from mpitree_tpu_torch.boosting.losses import loss_for
-from mpitree_tpu_torch.core.builder import BuildConfig, build_tree, pack_for_fit
+from mpitree_tpu_torch.core.builder import (
+    BuildConfig,
+    build_tree,
+    pack_for_fit,
+    shard_matrix,
+)
 from mpitree_tpu_torch.models.classifier import (
     ClassifierBase,
     EstimatorBase,
     FitClock,
     host_tier,
+    fit_mesh,
+    predict_mesh,
     refuse_later,
 )
 from mpitree_tpu_torch.models.regressor import RegressorBase
@@ -86,6 +101,7 @@ from mpitree_tpu_torch.ops.sampling import (
     row_subsample_mask,
     seed_from,
 )
+from mpitree_tpu_torch.parallel.mesh import feature_shards
 from mpitree_tpu_torch.serving.tables import TreeList
 from mpitree_tpu_torch.utils.validation import (
     resolve_min_samples_leaf,
@@ -98,7 +114,6 @@ from mpitree_tpu_torch.utils.validation import (
 # (parameter, value the slice supports, ROADMAP.md item that ports it)
 _LATER = (
     ("checkpoint", None, "Queue 1 item 17 (resilience/checkpoint.py)"),
-    ("n_devices", 1, "Queue 1 item 14c, boosting on a data mesh"),
 )
 
 
@@ -257,6 +272,13 @@ class _BaseGradientBoosting(EstimatorBase):
                     "rounds_per_dispatch must be an integer >= 1 or "
                     f"'auto', got {rpd!r}"
                 )
+            nd = self.n_devices
+            if (int(rpd) > 1 and isinstance(nd, (tuple, list))
+                    and len(nd) == 2 and int(nd[1]) > 1):
+                # the request names a feature axis: refuse before any
+                # sharding, as validate_max_leaf_nodes does
+                raise ValueError(f"rounds_per_dispatch={rpd} cannot apply: "
+                                 + fused_rounds.MESH2D_BLOCKER)
         if dataset is not None:
             raise NotImplementedError(
                 "fit(dataset=...) is not ported yet (ROADMAP.md Queue 1 "
@@ -267,7 +289,8 @@ class _BaseGradientBoosting(EstimatorBase):
     def _fit(self, X, y, sample_weight, *, task, dataset=None):
         self._validate_params_(dataset)
         mln = validate_max_leaf_nodes(self)
-        device = resolve_device(self.device)
+        mesh = fit_mesh(self, False)
+        device = resolve_device(self.device) if mesh is None else mesh.lead
         X, y_t, classes = validate_fit_data(X, y, task=task)
         sw = validate_sample_weight(sample_weight, X.shape[0])
         self.n_features_ = X.shape[1]
@@ -355,7 +378,8 @@ class _BaseGradientBoosting(EstimatorBase):
             early_stopping=bool(self.early_stopping), colsample=colsample,
             max_depth=self.max_depth, max_leaf_nodes=mln,
             n_samples=binned.n_samples, n_features=binned.n_features,
-            n_bins=binned.n_bins, hist_budget_bytes=cfg.hist_budget_bytes)
+            n_bins=binned.n_bins, hist_budget_bytes=cfg.hist_budget_bytes,
+            feature_shards=1 if mesh is None else feature_shards(mesh))
         stats["rounds_per_dispatch"] = {"value": int(k_dispatch),
                                         "reason": reason}
         stats["loss_seconds"] += clock.lap()
@@ -365,9 +389,14 @@ class _BaseGradientBoosting(EstimatorBase):
                 raw_tr=raw_tr, trees=trees, train_scores=train_scores,
                 max_iter=int(self.max_iter), cfg=cfg, seed=seed, lr=lr,
                 loss_kind=loss.kind, rounds_per_dispatch=int(k_dispatch),
-                subsample=subsample, verbose=bool(self.verbose)))
+                subsample=subsample, verbose=bool(self.verbose),
+                mesh=mesh))
             n_iter = int(self.max_iter)
             stats["build_seconds"] += clock.lap()
+        # the bins' shards, placed once for every round that keeps all
+        # features
+        x_shards = (None if mesh is None or n_iter >= int(self.max_iter)
+                    else shard_matrix(binned, mesh))
         for r in range(n_iter, int(self.max_iter)):
             mask = row_subsample_mask(seed, r, n_tr, subsample)
             if colsample < 1.0:
@@ -404,6 +433,8 @@ class _BaseGradientBoosting(EstimatorBase):
                     config=cfg,
                     sample_weight=np.ascontiguousarray(h[:, k], np.float32),
                     packed=packed_r, return_leaf_ids=True, stats=stats,
+                    mesh=mesh, x_shards=None if kept is not None
+                    else x_shards,
                 )
                 stats["build_seconds"] += clock.lap()
                 if kept is not None:
@@ -435,6 +466,8 @@ class _BaseGradientBoosting(EstimatorBase):
                 break
         stats["n_rounds"] = n_iter
         stats["early_stop"] = stopped_early
+        if mesh is not None:
+            stats.update(n_shards=mesh.size, **mesh.stats)
         self.trees_ = TreeList(trees)
         self.n_iter_ = n_iter
         self.train_score_ = np.asarray(train_scores)
@@ -466,7 +499,10 @@ class _BaseGradientBoosting(EstimatorBase):
         self._check_fitted()
         X = validate_predict_data(X, self)
         K = self.n_trees_per_iteration_
-        ids = stacked_leaf_ids(self.trees_, X, resolve_device(self.device))
+        mesh = predict_mesh(self)
+        ids = stacked_leaf_ids(
+            self.trees_, X, resolve_device(self.device) if mesh is None
+            else mesh.lead, mesh=mesh)
         raw = np.tile(self._baseline_raw, (X.shape[0], 1))
         lr = float(self.learning_rate)
         for r in range(len(self.trees_) // K):

@@ -3,9 +3,10 @@
 Counterpart of ``mpitree_tpu/config/knobs.py``, with the same registry
 mechanism (:class:`Knob`, :data:`REGISTRY`, :func:`value`, :func:`raw`)
 and, for each knob registered here, the JAX package's name, default,
-parse rule and choices. Only the knobs of the serving tier are registered
-so far: table quantization, the scheduler's QoS classes and window, and
-the metrics exemplar ring. The rest, and the README table generator,
+parse rule and choices. Registered so far: the serving tier's knobs
+(table quantization, the scheduler's QoS classes and window, the metrics
+exemplar ring) and the forests' ``MPITREE_TPU_FOREST_HBM_BUDGET``, whose
+default alone differs (:data:`DEVICE_DEFAULTS`). The rest, and the README table generator,
 come with ``ROADMAP.md`` Queue 1 item 18; the port's other env reads
 (``core/builder.py``, ``boosting/fused_rounds.py``,
 ``utils/profiling.py``) stay where they are until then.
@@ -70,6 +71,13 @@ KNOBS: tuple = (
     Knob("MPITREE_TPU_SERVING_WAIT_MS", "float", 2.0,
          "max batching window the scheduler holds a non-full bucket open",
          parse=float),
+    # -- forests -----------------------------------------------------------
+    # The JAX package's default, 8 GiB, is half a TPU v5e chip's 16 GiB;
+    # the port's None keeps the rule, not the number: half the device's
+    # memory (parallel/mesh.forest_hbm_budget).
+    Knob("MPITREE_TPU_FOREST_HBM_BUDGET", "int", None,
+         "per-device budget (bytes) for the replicated binned matrix in"
+         " tree-sharded forest builds", parse=int),
     # -- observability ----------------------------------------------------
     Knob("MPITREE_TPU_METRICS_EXEMPLARS", "int", 0,
          "per-bucket exemplar reservoir size K for obs.metrics"
@@ -78,6 +86,12 @@ KNOBS: tuple = (
 )
 
 REGISTRY: dict = {k.name: k for k in KNOBS}
+# knob -> the JAX package's default and the rule the port's None keeps:
+# JAX's value is a TPU number, the port's comes from the device it runs on
+DEVICE_DEFAULTS = {
+    "MPITREE_TPU_FOREST_HBM_BUDGET": (
+        8 << 30, "half the device's memory (a TPU v5e chip has 16 GiB)"),
+}
 
 
 def _lookup(name: str) -> Knob:

@@ -79,7 +79,13 @@ its own copy of the reduced histograms; ``BuildConfig.debug`` holds their
 decisions to the same bits every level (``utils/profiling``). The
 port's ``backend=None`` is always the device engine, so a multi-device
 mesh needs no rule of its own to force it
-(``mpitree_tpu/core/builder.py:179-191``).
+(``mpitree_tpu/core/builder.py:179-191``). On a ``(data, feature)`` mesh
+(``:816-850``) each shard holds its rows of one feature slab:
+:class:`SlabHistograms` builds and reduces each slab's histograms over
+its data axis, :meth:`FitInputs.sweep` sweeps each slab and merges the
+winners over the feature axis, and :meth:`FitInputs.reroute` routes the
+rows by the owner broadcast; both engines, with and without sibling
+subtraction, grow the one-device tree.
 """
 
 from __future__ import annotations
@@ -370,15 +376,49 @@ class FrontierHistograms:
         return h
 
 
+class SlabHistograms:
+    """:class:`FrontierHistograms` on a ``(data, feature)`` mesh: one per
+    local feature slab (``fit.slabs``), each over its slab's columns and
+    reduced over its data axis only; :meth:`chunk` gives the slabs'
+    histograms in slab order and ``kept`` their resident ones, so every
+    shard subtracts against its own slab (JAX's ``parent_hist`` spec,
+    ``(None, feature, None, None)``)."""
+
+    def __init__(self, fit, nids: list, flo: int, fsz: int, S: int,
+                 *, carry: SubtractionCarry | None, keep: bool):
+        self.parts = [
+            FrontierHistograms(
+                sl, [nids[j] for j in sl.mesh.local], flo, fsz, S,
+                carry=None if carry is None else carry._replace(
+                    hist=carry.hist[k]), keep=keep)
+            for k, sl in enumerate(fit.slabs)]
+
+    def chunk(self, c: int) -> list:
+        return [p.chunk(c) for p in self.parts]
+
+    @property
+    def kept(self) -> list:
+        return [p.kept for p in self.parts]
+
+
+def level_histograms(fit, nids: list, flo: int, fsz: int, S: int, *,
+                     carry: SubtractionCarry | None, keep: bool):
+    """A level's chunk histograms: :class:`SlabHistograms` on a feature
+    axis, else :class:`FrontierHistograms`."""
+    cls = FrontierHistograms if fit.slabs is None else SlabHistograms
+    return cls(fit, nids, flo, fsz, S, carry=carry, keep=keep)
+
+
 def keep_level(fit, cfg: BuildConfig, use_sub: bool, S: int,
                n_chunks: int) -> bool:
     """Whether a level keeps its histograms for the next level's
     subtraction: on, a width that holds sibling pairs, and every chunk's
     histogram within ``cfg.hist_budget_bytes``
-    (``mpitree_tpu/core/builder.py:1185-1264``)."""
+    (``mpitree_tpu/core/builder.py:1185-1264``); on a feature axis each
+    shard keeps its slab's."""
     cell = 8 if fit.fixed else 4
     return (use_sub and S >= 2 and S % 2 == 0
-            and n_chunks * S * fit.F * fit.C * fit.B * cell
+            and n_chunks * S * fit.f_local * fit.C * fit.B * cell
             <= cfg.hist_budget_bytes)
 
 
@@ -430,14 +470,34 @@ class FitInputs:
     ``shards``, one per local shard, and the route comes from every
     shard's payload (``collective.payload_scale``); ``N``, ``K`` and
     ``U`` are the global row count's, so every shard and process chunks
-    alike. Without one, ``shards`` holds the one device's rows. The
-    attributes ``xb``, ``packed``, ``y``, ``payload`` and ``dev`` are the
-    first (lead) shard's."""
+    alike. ``x_shards`` (a forest's, :func:`shard_matrix`) hands in the
+    shards' bins already placed. Without a mesh, ``shards`` holds the one
+    device's rows. The attributes ``xb``, ``packed``, ``y``, ``payload``
+    and ``dev`` are the first (lead) shard's.
+
+    On a ``(data, feature)`` mesh each shard holds its rows of one
+    ``f_local``-column slab (the features padded to a multiple of the
+    feature axis, padding columns without candidates), and ``slabs``
+    holds one view per local slab: a FitInputs over the slab's columns,
+    its shards and its data-axis sub-mesh, whose histograms, terminal
+    sums, ranges and leaf ids reduce over that axis only. ``fmesh`` is
+    the feature axis through the lead shard, over which
+    :meth:`sweep` merges the slabs' winners
+    (``collective.select_global``) and :meth:`reroute` routes the rows
+    (``collective.route_psum``). ``K`` is sized from the slab width, as
+    the JAX builder sizes it per device (``:816-850``)."""
 
     def __init__(self, binned: BinnedData, y, cfg: BuildConfig, *,
                  n_classes=None, sample_weight=None, packed=None,
                  feature_mask=None, scale_exp="auto", candidate_mask=None,
-                 mesh=None):
+                 mesh=None, x_shards=None):
+        from mpitree_tpu_torch.parallel.mesh import (
+            DATA_AXIS,
+            FEATURE_AXIS,
+            feature_shards,
+            shard_build_inputs,
+        )
+
         xb = binned.x_binned
         if not isinstance(xb, torch.Tensor):
             raise TypeError(
@@ -448,6 +508,16 @@ class FitInputs:
         self.B = binned.n_bins
         self.feat_bins = [int(v) + 1 for v in binned.n_cand]
         self.C = 3 if task in ("regression", "gbdt") else int(n_classes)
+        df = 1 if mesh is None else feature_shards(mesh)
+        self.f_local = -(-self.F // df)
+        if candidate_mask is None:
+            cand = binned.candidate_mask()
+            if feature_mask is not None:
+                cand = cand & np.asarray(feature_mask, bool)[:, None]
+            candidate_mask = torch.from_numpy(cand).to(
+                xb.device if mesh is None else mesh.lead)
+        self.cand_mask = candidate_mask
+        self.slabs = self.fmesh = None
         if mesh is None:
             dev = xb.device
             xb = xb.to(torch.int32).contiguous()
@@ -464,24 +534,38 @@ class FitInputs:
                 y_d, payload)]
             self._nid0 = [torch.zeros(self.N, dtype=torch.int32,
                                       device=dev)]
+            data = None
         else:
-            from mpitree_tpu_torch.parallel.mesh import shard_build_inputs
-
+            if isinstance(sample_weight, torch.Tensor):
+                sample_weight = sample_weight.cpu().numpy()
+            if isinstance(y, torch.Tensor):
+                y = y.cpu().numpy()
+            parts = shard_build_inputs(
+                mesh, xb if x_shards is None else None, y, sample_weight,
+                cand_mask=candidate_mask.cpu().numpy() if df > 1 else None)
             self.shards, self._nid0 = [], []
-            for part, dev in zip(shard_build_inputs(
-                    mesh, xb, y, sample_weight), mesh.devices):
-                x_i = part["x_binned"].to(torch.int32).contiguous()
+            for i, (part, dev) in enumerate(zip(parts, mesh.devices)):
+                if x_shards is None:
+                    x_i = part["x_binned"].to(torch.int32).contiguous()
+                    p_i = (hist_kernel.pack_bins(x_i, self.B)
+                           if self.B <= 256 else None)
+                else:
+                    x_i, p_i = x_shards[i]
                 # weighted by the padded weights (1, or 0 on padding rows,
                 # which then add to nothing, not even the route's stats)
                 y_d, payload = _task_payload(
                     task, part["y"], torch.as_tensor(part["weight"],
                                                      device=dev),
                     n_classes, dev)
-                self.shards.append(_Shard(
-                    dev, x_i, hist_kernel.pack_bins(x_i, self.B)
-                    if self.B <= 256 else None, y_d, payload))
+                self.shards.append(_Shard(dev, x_i, p_i, y_d, payload))
                 self._nid0.append(torch.as_tensor(part["node_id"],
                                                   device=dev))
+            # the route's statistics count every row once: over the data
+            # axis through the lead (a feature axis repeats the rows)
+            data = mesh.axis_mesh(DATA_AXIS, 0)
+            if df > 1:
+                self.fmesh = mesh.axis_mesh(FEATURE_AXIS, 0)
+                self._slab_cand = [p["cand_mask"] for p in parts]
         lead = self.shards[0]
         self.dev, self.xb, self.packed = lead.dev, lead.xb, lead.packed
         self.y, self.payload = lead.y, lead.payload
@@ -490,7 +574,8 @@ class FitInputs:
         # every tree); a forest decides every tree's at once
         if isinstance(scale_exp, str):
             scale_exp = collective.payload_scale(
-                [sh.payload for sh in self.shards], mesh,
+                [self.shards[j].payload for j in
+                 (data.local if data is not None else [0])], data,
                 fixed=task in ("regression", "gbdt"), n_rows=self.N)
         self.scale_exp = scale_exp
         self.fixed = scale_exp is not None
@@ -499,16 +584,38 @@ class FitInputs:
         # integers already
         self.sum_exp = scale_exp if self.fixed else (0,) * self.C
         self._q = None
-        if candidate_mask is None:
-            cand = binned.candidate_mask()
-            if feature_mask is not None:
-                cand = cand & np.asarray(feature_mask, bool)[:, None]
-            candidate_mask = torch.from_numpy(cand).to(self.dev)
-        self.cand_mask = candidate_mask
-        self.K = _chunk_size(self.N, self.F, self.B, self.C, cfg,
+        self.K = _chunk_size(self.N, self.f_local, self.B, self.C, cfg,
                              cell_bytes=8 if self.fixed else 4)
         self.U = _table_slots(self.N, cfg)
         self.tiers = valid_tiers(cfg.frontier_tiers, self.K)
+        if df > 1:
+            self.slabs = [self._slab(sub)
+                          for sub in mesh.axis_groups(DATA_AXIS)]
+
+    def _slab(self, sub) -> "FitInputs":
+        """The view of one local feature slab: its shards (``sub.local``
+        on the mesh) over its data-axis sub-mesh ``sub``, its columns'
+        bin counts (1 for padding columns) and its candidate slab."""
+        from mpitree_tpu_torch.parallel.mesh import FEATURE_AXIS
+
+        view = object.__new__(FitInputs)
+        view.__dict__.update(self.__dict__)
+        j = sub.local[0]
+        fi = self.mesh.coords(j)[self.mesh.axis_names.index(FEATURE_AXIS)]
+        lo = fi * self.f_local
+        view.mesh, view.slabs, view.fmesh = sub, None, None
+        view.block, view.F = fi, self.f_local
+        view.shards = [self.shards[i] for i in sub.local]
+        view._nid0 = [self._nid0[i] for i in sub.local]
+        view.feat_bins = [self.feat_bins[f] if f < self.F else 1
+                          for f in range(lo, lo + self.f_local)]
+        view.cand_mask = torch.as_tensor(self._slab_cand[j],
+                                         device=self.shards[j].dev)
+        head = view.shards[0]
+        view.dev, view.xb, view.packed = head.dev, head.xb, head.packed
+        view.y, view.payload = head.y, head.payload
+        view._q = None
+        return view
 
     def width(self, frontier_size: int) -> int:
         """The level's histogram width: the narrowest tier that holds the
@@ -524,32 +631,66 @@ class FitInputs:
         """A table on the lead shard, on every shard (``collective.to_shards``)."""
         return collective.to_shards(t, self.mesh)
 
+    def _rows(self, nids: list) -> tuple:
+        """The view that counts every row once (the lead slab on a
+        feature axis, else this) and its shards' node ids."""
+        if self.slabs is None:
+            return self, nids
+        sl = self.slabs[0]
+        return sl, [nids[j] for j in sl.mesh.local]
+
+    def sweep(self, hist, lo: int, **kw) -> torch.Tensor:
+        """The packed decisions of a chunk from its reduced histogram
+        (``collective.split_sweep``, ``kw`` its keywords); on a feature
+        axis ``hist`` holds the slabs' histograms, each swept over its
+        candidate slab, and the winners merge over the feature axis
+        (``collective.select_global``) before packing."""
+        if self.slabs is None:
+            return collective.split_sweep(hist, self.cand_mask, None, lo,
+                                          scale_exp=self.scale_exp, **kw)
+        decs = [collective.sweep_decision(
+            h, sl.cand_mask, None, lo, scale_exp=self.scale_exp, **kw)
+            for h, sl in zip(hist, self.slabs)]
+        dec = collective.select_global(decs, self.fmesh, self.f_local,
+                                       [sl.block for sl in self.slabs])
+        return collective.pack_decision(
+            dec, torch.float32 if self.scale_exp is None else torch.float64)
+
     def node_sums(self, nids, lo: int, hi: int) -> torch.Tensor:
         """(hi - lo, C) float64 payload sums of frontier nodes [lo, hi)
         for a terminal level, one U-slot table at a time, reduced over the
-        mesh; ``nids`` every shard's node ids (a tensor for one shard)."""
-        if self._q is None:
-            self._q = [hist_kernel.quantize(sh.payload, self.sum_exp)
-                       for sh in self.shards]
-        U = self.U
+        mesh's data axis; ``nids`` every shard's node ids (a tensor for
+        one shard)."""
+        fit, nids = self._rows(collective._parts(nids))
+        if fit._q is None:
+            fit._q = [hist_kernel.quantize(sh.payload, fit.sum_exp)
+                      for sh in fit.shards]
+        U = fit.U
         return torch.cat([
-            collective.node_sums(self._q, nids, a, n_slots=U,
-                                 scale_exp=self.sum_exp,
-                                 mesh=self.mesh)[: min(U, hi - a)]
+            collective.node_sums(fit._q, nids, a, n_slots=U,
+                                 scale_exp=fit.sum_exp,
+                                 mesh=fit.mesh)[: min(U, hi - a)]
             for a in range(lo, hi, U)
-        ])
+        ]).to(self.dev)
 
     def y_range(self, nids: list, lo: int, n_slots: int) -> torch.Tensor:
         """Regression's purity signal of the ``n_slots`` nodes from ``lo``
         over every shard's rows (``collective.y_range``), on the lead."""
+        fit, nids = self._rows(nids)
         return collective.y_range(
-            [sh.y for sh in self.shards], nids,
-            [sh.payload[:, 0] for sh in self.shards], lo, n_slots=n_slots,
-            mesh=self.mesh)
+            [sh.y for sh in fit.shards], nids,
+            [sh.payload[:, 0] for sh in fit.shards], lo, n_slots=n_slots,
+            mesh=fit.mesh).to(self.dev)
 
     def reroute(self, nids: list, lo: int, *tables) -> list:
         """Every shard's rows through one level's split tables (on the
-        lead shard, copied to each shard): ``collective.update_node_id``."""
+        lead shard, copied to each shard): ``collective.update_node_id``,
+        or on a feature axis the owner broadcast
+        (``collective.route_psum``)."""
+        if self.slabs is not None:
+            return collective.route_psum(
+                nids, [sh.xb for sh in self.shards], self.mesh, lo,
+                *tables, f_local=self.f_local)
         per = [self.to_shards(t) for t in tables]
         return [collective.update_node_id(nid, sh.xb, lo,
                                           *(p[i] for p in per))
@@ -557,18 +698,41 @@ class FitInputs:
 
     def leaf_ids(self, nids: list) -> np.ndarray:
         """Every row's node as an (N,) int32 numpy array in the caller's
-        row order: the local shards' ids in shard order, padding dropped;
-        across processes one all-reduce of an N-row vector in which each
-        process fills its own rows."""
-        local = torch.cat([n.to(self.dev) for n in nids])
-        mesh = self.mesh
-        if mesh is None or mesh.group is None:
-            return local[:self.N].cpu().numpy()
-        full = torch.zeros(mesh.n_procs * local.shape[0],
-                           dtype=torch.int32, device=self.dev)
-        a = mesh.rank * local.shape[0]
-        full[a:a + local.shape[0]] = local
-        return collective.psum([full], mesh)[:self.N].cpu().numpy()
+        row order (``collective.gather_rows``: the local shards' ids in
+        shard order, padding dropped, across processes one all-reduce)."""
+        fit, nids = self._rows(nids)
+        return collective.gather_rows(nids, fit.mesh, self.N).cpu().numpy()
+
+    def row_parts(self, full: torch.Tensor) -> list:
+        """A per-row tensor of every row (``(N, ...)`` on the lead) cut
+        into the shards' rows of a 1-D mesh, padding rows 0
+        (``collective.gather_rows``'s inverse)."""
+        if self.mesh is None:
+            return [full]
+        per = self.shards[0].y.shape[0]
+        padded = torch.cat([full, full.new_zeros(
+            (per * self.mesh.size - self.N,) + full.shape[1:])])
+        return [padded[self.mesh.shard_index(k) * per:
+                       (self.mesh.shard_index(k) + 1) * per].to(sh.dev)
+                for k, sh in enumerate(self.shards)]
+
+
+def shard_matrix(binned: BinnedData, mesh) -> list:
+    """The ``x_shards`` of a :class:`FitInputs` on ``mesh``: per local
+    shard its rows' int32 bins (its feature slab on a feature axis) and
+    their byte-wide copy, made once for every tree a forest or a boosted
+    ensemble grows on that mesh."""
+    from mpitree_tpu_torch.parallel.mesh import shard_build_inputs
+
+    n, F = (int(v) for v in binned.x_binned.shape)
+    out = []
+    for part in shard_build_inputs(mesh, binned.x_binned,
+                                   np.zeros(n, np.int32), None,
+                                   cand_mask=np.zeros((F, 1), bool)):
+        x_i = part["x_binned"].to(torch.int32).contiguous()
+        out.append((x_i, hist_kernel.pack_bins(x_i, binned.n_bins)
+                    if binned.n_bins <= 256 else None))
+    return out
 
 
 def refit_regression_values(tree: TreeArrays, nid_host: np.ndarray,
@@ -703,7 +867,7 @@ def build_tree(binned: BinnedData, y: np.ndarray, *, config: BuildConfig,
                feature_sampler=None,
                feature_mask: np.ndarray | None = None,
                mono_cst: np.ndarray | None = None,
-               stats: dict | None = None, mesh=None):
+               stats: dict | None = None, mesh=None, x_shards=None):
     """Grow one tree on the device that holds ``binned.x_binned``, or on
     the data ``mesh`` (``parallel/mesh.Mesh``) whose lead shard holds it;
     returns the host struct-of-arrays tree. The engine comes from
@@ -734,11 +898,14 @@ def build_tree(binned: BinnedData, y: np.ndarray, *, config: BuildConfig,
     frontier and expansions in ``stats``.
 
     On a ``mesh`` the rows shard over its shards and processes
-    (``FitInputs``), each level's histograms reduce over them, and the
-    tree is the one-device tree field for field; ``return_leaf_ids``
+    (``FitInputs``; ``x_shards``, :func:`shard_matrix` of ``binned`` on
+    ``mesh``, hands in the bins already placed), each level's histograms
+    reduce over them, and the tree is the one-device tree field for field; ``return_leaf_ids``
     then gives every row's node in the caller's row order. Every process
-    of the mesh passes the same ``binned``, ``y`` and weights. Leaf-wise
-    growth on a mesh is ``ROADMAP.md`` item 14c.
+    of the mesh passes the same ``binned``, ``y`` and weights. On a
+    ``(data, feature)`` mesh each shard sweeps its feature slab and the
+    winners merge over the feature axis; ``monotonic_cst``, per-node
+    sampling and leaf-wise growth raise there, as in the JAX package.
     """
     cfg = config
     check_task(cfg)
@@ -747,10 +914,6 @@ def build_tree(binned: BinnedData, y: np.ndarray, *, config: BuildConfig,
             raise ValueError(
                 f"max_leaf_nodes must be >= 2 or None, got "
                 f"{cfg.max_leaf_nodes!r}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "max_leaf_nodes on a data mesh is not ported yet "
-                "(ROADMAP.md Queue 1 item 14c)")
         from mpitree_tpu_torch.core.leafwise_builder import (
             build_tree_leafwise,
         )
@@ -760,11 +923,25 @@ def build_tree(binned: BinnedData, y: np.ndarray, *, config: BuildConfig,
             sample_weight=sample_weight, packed=packed,
             return_leaf_ids=return_leaf_ids, refit_targets=refit_targets,
             feature_sampler=feature_sampler, feature_mask=feature_mask,
-            mono_cst=mono_cst, stats=stats)
+            mono_cst=mono_cst, stats=stats, mesh=mesh, x_shards=x_shards)
+    if mesh is not None:
+        from mpitree_tpu_torch.parallel.mesh import feature_shards
+
+        if feature_shards(mesh) > 1:
+            # the JAX package's refusals (:837-850): the slabs would need
+            # mask-aware merges
+            if mono_cst is not None and bool(np.any(
+                    np.asarray(mono_cst) != 0)):
+                raise ValueError("monotonic_cst is not supported on a "
+                                 "(data, feature) mesh")
+            if feature_sampler is not None and feature_sampler.active:
+                raise ValueError("per-node feature sampling is not "
+                                 "supported on a (data, feature) mesh")
     kw = dict(config=cfg, n_classes=n_classes, sample_weight=sample_weight,
               packed=packed, return_leaf_ids=return_leaf_ids,
               refit_targets=refit_targets, feature_sampler=feature_sampler,
-              feature_mask=feature_mask, mono_cst=mono_cst, mesh=mesh)
+              feature_mask=feature_mask, mono_cst=mono_cst, mesh=mesh,
+              x_shards=x_shards)
     if resolve_engine(cfg) == "fused":
         from mpitree_tpu_torch.core.fused_builder import build_tree_fused
 
@@ -775,14 +952,14 @@ def build_tree(binned: BinnedData, y: np.ndarray, *, config: BuildConfig,
 def _build_levelwise(binned: BinnedData, y: np.ndarray, *,
                      config: BuildConfig, n_classes, sample_weight, packed,
                      return_leaf_ids, refit_targets, feature_sampler,
-                     feature_mask, mono_cst, mesh=None):
+                     feature_mask, mono_cst, mesh=None, x_shards=None):
     """The levelwise engine: one host round trip a level."""
     cfg = config
     regression = cfg.task == "regression"
     gbdt = cfg.task == "gbdt"
     fit = FitInputs(binned, y, cfg, n_classes=n_classes,
                     sample_weight=sample_weight, packed=packed,
-                    feature_mask=feature_mask, mesh=mesh)
+                    feature_mask=feature_mask, mesh=mesh, x_shards=x_shards)
     dev, N, F, C = fit.dev, fit.N, fit.F, fit.C
     fixed, scale_exp, U = fit.fixed, fit.scale_exp, fit.U
     nids = fit.root_nids()
@@ -837,14 +1014,12 @@ def _build_levelwise(binned: BinnedData, y: np.ndarray, *,
             S = fit.width(frontier_size)
             n_chunks = -(-frontier_size // S)
             keep = keep_level(fit, cfg, use_sub, S, n_chunks)
-            level = FrontierHistograms(fit, nids, frontier_lo, frontier_size,
-                                       S, carry=carry_in, keep=keep)
+            level = level_histograms(fit, nids, frontier_lo, frontier_size,
+                                     S, carry=carry_in, keep=keep)
             decisions = torch.cat([
-                collective.split_sweep(
-                    level.chunk(c), fit.cand_mask, None, lo,
-                    criterion=cfg.criterion,
-                    min_child_weight=cfg.min_child_weight,
-                    scale_exp=scale_exp, task=cfg.task,
+                fit.sweep(
+                    level.chunk(c), lo, criterion=cfg.criterion,
+                    min_child_weight=cfg.min_child_weight, task=cfg.task,
                     reg_lambda=cfg.reg_lambda,
                     min_leaf_rows=cfg.min_leaf_rows,
                     yr=fit.y_range(nids, lo, S) if regression else None,

@@ -37,15 +37,19 @@ A level (``level_body``, ``:385-653``):
 :func:`build_forest_fused` (``:1094``) grows T trees in sequence in one
 call on one device from stacked (T, N) weights and (T, F, B) candidate
 masks, decides every tree's histogram route with one copy, and copies the
-finished trees to the host once. :func:`build_tree_fused` also grows a
-tree on a data mesh (``_make_fused_fn`` with ``psum_axis=DATA_AXIS``,
-``:699-756``): the tree state stays on the lead shard, each shard keeps
-its rows' node ids, every chunk's histogram reduces over the mesh
+finished trees to the host once; on a mesh it shards the trees over a
+``(tree, data)`` mesh and exchanges them (``_make_forest_fn``,
+``:758-860``). :func:`build_tree_fused` also grows a tree on a data mesh
+(``_make_fused_fn`` with ``psum_axis=DATA_AXIS``, ``:699-756``): the tree
+state stays on the lead shard, each shard keeps its rows' node ids, every
+chunk's histogram reduces over the mesh
 (``core/builder.FrontierHistograms``) and the reroute's split tables are
 copied to the shards; still one frontier read a level in each process.
-Not here (``ROADMAP.md``): the JAX package's ``(tree, data)`` mesh for
-forests (item 14b); ``task="gbdt"`` runs the levelwise engine (the fused
-boosting rounds grow best-first trees, ``boosting/fused_rounds.py``).
+On a ``(data, feature)`` mesh each shard sweeps its slab, the winners
+merge over the feature axis and the rows route by the owner broadcast
+(``core/builder.FitInputs.sweep``/``reroute``). ``task="gbdt"`` runs the
+levelwise engine (the fused boosting rounds grow best-first trees,
+``boosting/fused_rounds.py``).
 """
 
 from __future__ import annotations
@@ -60,11 +64,11 @@ import torch
 from mpitree_tpu_torch.core.builder import (
     BuildConfig,
     FitInputs,
-    FrontierHistograms,
     SubtractionCarry,
     check_task,
     integer_weights,
     keep_level,
+    level_histograms,
     pack_for_fit,
     refit_regression_values,
     resolve_hist_subtraction,
@@ -219,8 +223,8 @@ def _grow(fit: FitInputs, cfg: BuildConfig, *, use_sub: bool,
             break
         S = fit.width(fsz)
         keep = keep_level(fit, cfg, use_sub, S, -(-fsz // S))
-        level = FrontierHistograms(fit, nids, flo, fsz, S, carry=carry,
-                                   keep=keep)
+        level = level_histograms(fit, nids, flo, fsz, S, carry=carry,
+                                 keep=keep)
         bufs = []
         for c, lo in enumerate(range(flo, hi, S)):
             extra = {}
@@ -234,11 +238,9 @@ def _grow(fit: FitInputs, cfg: BuildConfig, *, use_sub: bool,
             if mono:
                 extra.update(mono_cst=cst_d, mono_lo=lo_a[lo:lo + S],
                              mono_hi=hi_a[lo:lo + S])
-            bufs.append(collective.split_sweep(
-                level.chunk(c), fit.cand_mask, None, lo,
-                criterion=cfg.criterion,
-                min_child_weight=cfg.min_child_weight,
-                scale_exp=fit.scale_exp, task=cfg.task,
+            bufs.append(fit.sweep(
+                level.chunk(c), lo, criterion=cfg.criterion,
+                min_child_weight=cfg.min_child_weight, task=cfg.task,
                 yr=fit.y_range(nids, lo, S) if regression else None,
                 **extra,
             )[: min(S, hi - lo)])
@@ -311,24 +313,18 @@ def _grow(fit: FitInputs, cfg: BuildConfig, *, use_sub: bool,
 
 
 def _finalize_tree(binned, task: str, criterion: str, n_nodes: int,
-                   ints: np.ndarray, counts: np.ndarray, levels: list | None,
-                   count_dtype, depth: np.ndarray | None = None
-                   ) -> TreeArrays:
+                   ints: np.ndarray, counts: np.ndarray, depth: np.ndarray,
+                   count_dtype) -> TreeArrays:
     """Device build arrays (host copies) -> the TreeArrays the levelwise
     engine's node store finalizes (``:1041``): the same dtypes, values
-    and impurities from the same counts. Node depths come from the
-    ``levels`` (first node, size) of a level-by-level build, or as
-    ``depth`` (the leaf-wise engines)."""
+    and impurities from the same counts, and every node's ``depth``
+    (:func:`_level_depths` of a level-by-level build)."""
     feature, bins, left, parent = (a[:n_nodes] for a in ints)
     counts = counts[:n_nodes]
     threshold = np.full(n_nodes, np.nan, np.float32)
     interior = feature >= 0
     threshold[interior] = binned.thresholds[feature[interior],
                                             bins[interior]]
-    if depth is None:
-        depth = np.zeros(n_nodes, np.int32)
-        for d, (lo, size) in enumerate(levels):
-            depth[lo:lo + size] = d
     if task == "classification":
         n = counts.sum(axis=1)
         value = counts.argmax(axis=1).astype(np.int32)
@@ -375,7 +371,8 @@ def build_tree_fused(binned, y: np.ndarray, *, config: BuildConfig,
                      refit_targets: np.ndarray | None = None,
                      feature_sampler=None,
                      feature_mask: np.ndarray | None = None,
-                     mono_cst: np.ndarray | None = None, mesh=None):
+                     mono_cst: np.ndarray | None = None, mesh=None,
+                     x_shards=None):
     """``core/builder.build_tree``'s contract on the fused engine
     (``mpitree_tpu/core/fused_builder.py:862``): the same tree as the
     levelwise engine, with one frontier-size read a level. With
@@ -388,12 +385,13 @@ def build_tree_fused(binned, y: np.ndarray, *, config: BuildConfig,
     _check_fused(cfg)
     fit = FitInputs(binned, y, cfg, n_classes=n_classes,
                     sample_weight=sample_weight, packed=packed,
-                    feature_mask=feature_mask, mesh=mesh)
+                    feature_mask=feature_mask, mesh=mesh, x_shards=x_shards)
     g = _grow(fit, cfg, use_sub=resolve_hist_subtraction(cfg, fit.dev),
               sampler=feature_sampler, mono_cst=mono_cst)
     tree = _finalize_tree(binned, cfg.task, cfg.criterion, g.n_nodes,
                           g.ints.cpu().numpy(), g.counts.cpu().numpy(),
-                          g.levels, _count_dtype(cfg.task, sample_weight))
+                          _level_depths(g.levels, g.n_nodes),
+                          _count_dtype(cfg.task, sample_weight))
     leaf_ids = None
     if cfg.task == "regression" and refit_targets is not None:
         leaf_ids = fit.leaf_ids(g.nids)
@@ -446,22 +444,36 @@ def build_forest_fused(binned, y: np.ndarray, *, config: BuildConfig,
                        min_child_weights: np.ndarray | None = None,
                        min_decrease_scaleds: np.ndarray | None = None,
                        samplers: list | None = None,
-                       mono_cst: np.ndarray | None = None) -> list:
-    """T trees in sequence in one call on one device
-    (``mpitree_tpu/core/fused_builder.py:1094``): ``weights`` (T, N) each
-    tree's composed bootstrap x user weights, ``cand_masks`` (T, F, B)
-    each tree's candidate mask (its subspace), per-tree leaf floors and
-    decrease gates (``min_child_weights``, ``min_decrease_scaleds``) and
-    node samplers (``samplers``, None entries for none). Each tree is the
-    one :func:`build_tree_fused` grows from the same inputs; the finished
+                       mono_cst: np.ndarray | None = None, mesh=None,
+                       stats: dict | None = None) -> list:
+    """T trees in sequence in one call (``mpitree_tpu/core/
+    fused_builder.py:1094``): ``weights`` (T, N) each tree's composed
+    bootstrap x user weights, ``cand_masks`` (T, F, B) each tree's
+    candidate mask (its subspace), per-tree leaf floors and decrease gates
+    (``min_child_weights``, ``min_decrease_scaleds``) and node samplers
+    (``samplers``, None entries for none). Each tree is the one
+    :func:`build_tree_fused` grows from the same inputs; the finished
     trees come to the host in one copy per array kind, with the (T, N)
-    leaf ids under ``return_leaf_ids``."""
+    leaf ids under ``return_leaf_ids``.
+
+    On a ``mesh`` the trees shard over a ``(tree, data)`` mesh of its
+    shards (``_make_forest_fn``, ``:758-860``) whose shape
+    ``parallel/mesh.tree_data_shape`` picks: the trees pad to a multiple
+    of the tree axis and each tree group grows its contiguous block of
+    them in sequence, on its shards, its rows sharded over the data axis
+    and its histograms reduced over that axis's sub-mesh only. Every
+    tree's route and exponents come from all of its rows
+    (:func:`_forest_routes`: every process holds every row, so these are
+    the global statistics, and the shards' int64 sums add exactly). The
+    finished trees then go to every process (:func:`_exchange`) and are
+    finalized there as on one device. ``stats`` receives ``forest_mesh``
+    (the ``(tree, data)`` shape)."""
     cfg = config
     _check_fused(cfg)
     T = weights.shape[0]
     task = cfg.task
     dev = binned.x_binned.device
-    if packed is None:
+    if packed is None and mesh is None:
         packed = pack_for_fit(binned)
     ws = torch.as_tensor(np.asarray(weights, np.float32), device=dev)
     cms = torch.as_tensor(np.asarray(cand_masks, bool), device=dev)
@@ -470,31 +482,48 @@ def build_forest_fused(binned, y: np.ndarray, *, config: BuildConfig,
         device=dev)
     routes = _forest_routes(task, y_d, ws, n_classes)
     use_sub = resolve_hist_subtraction(cfg, dev)
-    grown = []
-    for t in range(T):
-        tcfg = cfg
-        if min_child_weights is not None:
-            tcfg = dataclasses.replace(
-                cfg, min_child_weight=float(min_child_weights[t]),
-                min_decrease_scaled=float(min_decrease_scaleds[t]))
-        fit = FitInputs(binned, y, tcfg, n_classes=n_classes,
-                        sample_weight=ws[t], packed=packed,
-                        scale_exp=routes[t], candidate_mask=cms[t])
-        grown.append(_grow(fit, tcfg, use_sub=use_sub,
-                           sampler=None if samplers is None else samplers[t],
-                           mono_cst=mono_cst))
-    ints = torch.cat([g.ints for g in grown], dim=1).cpu().numpy()
-    counts = torch.cat([g.counts for g in grown]).cpu().numpy()
-    nids = (torch.stack([g.nids[0] for g in grown]).cpu().numpy()
-            if return_leaf_ids or (task == "regression"
-                                   and refit_targets is not None) else None)
-    trees, at = [], 0
-    for t, g in enumerate(grown):
+    need_ids = return_leaf_ids or (task == "regression"
+                                   and refit_targets is not None)
+
+    def tree_cfg(t):
+        if min_child_weights is None:
+            return cfg
+        return dataclasses.replace(
+            cfg, min_child_weight=float(min_child_weights[t]),
+            min_decrease_scaled=float(min_decrease_scaleds[t]))
+
+    def sampler(t):
+        return None if samplers is None else samplers[t]
+
+    if mesh is None:
+        grown = []
+        for t in range(T):
+            fit = FitInputs(binned, y, tree_cfg(t), n_classes=n_classes,
+                            sample_weight=ws[t], packed=packed,
+                            scale_exp=routes[t], candidate_mask=cms[t])
+            grown.append(_grow(fit, tree_cfg(t), use_sub=use_sub,
+                               sampler=sampler(t), mono_cst=mono_cst))
+        ints = torch.cat([g.ints for g in grown], dim=1).cpu().numpy()
+        counts = torch.cat([g.counts for g in grown]).cpu().numpy()
+        nids = (torch.stack([g.nids[0] for g in grown]).cpu().numpy()
+                if need_ids else None)
+        parts, at = [], 0
+        for g in grown:
+            parts.append((ints[:, at:at + g.n_nodes],
+                          counts[at:at + g.n_nodes],
+                          _level_depths(g.levels, g.n_nodes)))
+            at += g.n_nodes
+    else:
+        parts, nids = _grow_sharded(
+            binned, y, mesh, T, routes=routes, cms=cms, weights=weights,
+            n_classes=n_classes, tree_cfg=tree_cfg, sampler=sampler,
+            use_sub=use_sub, mono_cst=mono_cst, need_ids=need_ids,
+            stats=stats)
+    trees = []
+    for t, (ints_t, counts_t, depth_t) in enumerate(parts):
         tree = _finalize_tree(
-            binned, task, cfg.criterion, g.n_nodes,
-            ints[:, at:at + g.n_nodes], counts[at:at + g.n_nodes], g.levels,
-            _count_dtype(task, weights[t]))
-        at += g.n_nodes
+            binned, task, cfg.criterion, len(depth_t), ints_t, counts_t,
+            depth_t, _count_dtype(task, weights[t]))
         if task == "regression" and refit_targets is not None:
             refit_regression_values(tree, nids[t],
                                     weights[t].astype(np.float64),
@@ -503,3 +532,105 @@ def build_forest_fused(binned, y: np.ndarray, *, config: BuildConfig,
     if return_leaf_ids:
         return trees, nids
     return trees
+
+
+def _level_depths(levels: list, n_nodes: int) -> np.ndarray:
+    """Every node's depth from a level-by-level build's (first node,
+    size) levels."""
+    depth = np.zeros(n_nodes, np.int32)
+    for d, (lo, size) in enumerate(levels):
+        depth[lo:lo + size] = d
+    return depth
+
+
+def _grow_sharded(binned, y, mesh, T: int, *, routes, cms, weights,
+                  n_classes, tree_cfg, sampler, use_sub: bool, mono_cst,
+                  need_ids: bool, stats) -> tuple:
+    """The trees of :func:`build_forest_fused` on ``mesh``: the
+    ``(tree, data)`` shape, then this process's tree groups in order (a
+    group spanning processes runs in each of them), then the exchange.
+    Returns every tree's host ``(ints, counts, depth)`` and, with
+    ``need_ids``, the (T, N) leaf ids."""
+    from mpitree_tpu_torch.core.builder import shard_matrix
+    from mpitree_tpu_torch.parallel import mesh as mesh_lib
+
+    xb = binned.x_binned
+    Dt, Dd = mesh_lib.tree_data_shape(
+        mesh.size, T, dataset_bytes=xb.numel() * xb.element_size(),
+        hbm_budget=mesh_lib.forest_hbm_budget(mesh.lead))
+    if stats is not None:
+        stats["forest_mesh"] = [Dt, Dd]
+    tmesh = mesh_lib.as_tree_data_mesh(mesh, (Dt, Dd))
+    per = -(-T // Dt)  # T_pad / Dt: each tree group's block
+    mine = {}
+    for sub in tmesh.axis_groups(mesh_lib.DATA_AXIS):
+        j = tmesh.coords(sub.local[0])[0]
+        block = range(j * per, min((j + 1) * per, T))
+        if not len(block):
+            continue  # a group of padding trees only
+        x_sh = shard_matrix(binned, sub)
+        for t in block:
+            cfg_t = tree_cfg(t)
+            fit = FitInputs(binned, y, cfg_t, n_classes=n_classes,
+                            sample_weight=weights[t], scale_exp=routes[t],
+                            candidate_mask=cms[t].to(sub.lead), mesh=sub,
+                            x_shards=x_sh)
+            g = _grow(fit, cfg_t, use_sub=use_sub, sampler=sampler(t),
+                      mono_cst=mono_cst)
+            ids = fit.leaf_ids(g.nids) if need_ids else None
+            if sub.rank == 0:  # the group's first process sends it
+                mine[t] = (g.ints.cpu().numpy(), g.counts.cpu().numpy(),
+                           _level_depths(g.levels, g.n_nodes), ids)
+    return _exchange(mine, mesh, T, int(binned.x_binned.shape[0]),
+                     need_ids)
+
+
+def _exchange(mine: dict, mesh, T: int, n_rows: int,
+              need_ids: bool) -> tuple:
+    """Every tree on every process: the trees this process sends
+    (``mine``: tree -> host ``(ints (4, n), counts (n, C), depth (n,),
+    leaf ids or None)``) and the others' through two all-reduces (SUM) of
+    integer buffers over the whole mesh, each tree filled by one process
+    only: first the node counts, then every tree's structure, depths and
+    counts' float64 bits (int64), and the leaf ids (int32) when needed.
+    Bit for bit, since a sum with zeros keeps every word.
+    ``utils/profiling.assert_replicated`` then holds the forest to the
+    same bits on every process."""
+    from mpitree_tpu_torch.utils.profiling import assert_replicated
+
+    dev = mesh.lead
+    sizes = torch.zeros(T, dtype=torch.int64, device=dev)
+    C = next(iter(mine.values()))[1].shape[1] if mine else 0
+    for t, (_, counts, _, _) in mine.items():
+        sizes[t] = counts.shape[0]
+    head = torch.cat([sizes, torch.tensor([C], dtype=torch.int64,
+                                          device=dev)])
+    head = collective.psum([head], mesh, "max", kind="exchange").cpu()
+    sizes, C = head[:T].numpy(), int(head[T])
+    stride = 5 + C
+    offs = np.concatenate([[0], np.cumsum(sizes * stride)])
+    buf = np.zeros(int(offs[-1]), np.int64)
+    ids = np.zeros((T, n_rows), np.int32) if need_ids else None
+    for t, (ints, counts, depth, leaf) in mine.items():
+        n = int(sizes[t])
+        seg = buf[offs[t]:offs[t + 1]].reshape(stride, n)
+        seg[:4] = ints
+        seg[4] = depth
+        seg[5:] = np.ascontiguousarray(counts.T).view(np.int64)
+        if need_ids:
+            ids[t] = leaf
+    full = collective.psum([torch.from_numpy(buf).to(dev)], mesh,
+                           kind="exchange")
+    assert_replicated(full, mesh, what="forest exchange")
+    full = full.cpu().numpy()
+    if need_ids:
+        ids = collective.psum([torch.from_numpy(ids).to(dev)], mesh,
+                              kind="exchange").cpu().numpy()
+    parts = []
+    for t in range(T):
+        n = int(sizes[t])
+        seg = full[offs[t]:offs[t + 1]].reshape(stride, n)
+        parts.append((seg[:4].astype(np.int32),
+                      np.ascontiguousarray(seg[5:]).view(np.float64).T,
+                      seg[4].astype(np.int32)))
+    return parts, ids

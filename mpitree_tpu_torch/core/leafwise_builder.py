@@ -39,8 +39,14 @@ level-by-level engines run them (float32 on the integer route, float64
 on the fixed-point route), so that identity holds on every route; only
 the priority is float32, from the buffer's float32-rounded fields, as
 JAX ranks. Per-node feature sampling and ``monotonic_cst`` are refused
-with the JAX package's messages. Not here (``ROADMAP.md`` items 17–18):
-the obs rows, chaos seams and snapshot slots.
+with the JAX package's messages. On a data mesh (``_make_leafwise_fn``,
+``:348-372``) both engines shard the rows and reduce every pair histogram
+over the mesh; the fused loop then launches each expansion eagerly
+(:func:`graph_choice`: a reduction synchronises and crosses processes,
+which no CUDA graph captures) and says so in ``fit_stats_``. A
+``(data, feature)`` mesh raises, as in the JAX package. Not here
+(``ROADMAP.md`` items 17–18): the obs rows, chaos seams and snapshot
+slots.
 """
 
 from __future__ import annotations
@@ -203,8 +209,7 @@ def _finalize_leafwise(binned, task: str, criterion: str, n_nodes: int,
     ints = np.stack([scatter(feat), scatter(bins), scatter(left_v),
                      scatter(parent_v)]).astype(np.int32)
     tree = _finalize_tree(binned, task, criterion, int(n_nodes), ints,
-                          scatter(counts), None, count_dtype,
-                          depth=scatter(depth))
+                          scatter(counts), scatter(depth), count_dtype)
     return tree, perm
 
 
@@ -216,16 +221,39 @@ class _LeafGrown(NamedTuple):
     n_nodes: torch.Tensor  # 0-d int64
     ints: torch.Tensor  # (5, M + 2) int32: feature, bin, left, parent, depth
     counts: torch.Tensor  # (M + 2, C) float64
-    nid: torch.Tensor  # (N,) int32 final node of every row
+    nid: list  # every shard's (n,) int32 final node of each row
 
 
 def _pair_kw(fit: FitInputs, cfg: BuildConfig, use_sub: bool) -> dict:
     return dict(n_bins=fit.B, criterion=cfg.criterion,
                 min_child_weight=cfg.min_child_weight,
-                scale_exp=fit.scale_exp, task=cfg.task, y=fit.y,
-                packed=fit.packed, feat_bins=fit.feat_bins,
-                reg_lambda=cfg.reg_lambda, min_leaf_rows=cfg.min_leaf_rows,
-                subtraction=use_sub)
+                scale_exp=fit.scale_exp, task=cfg.task,
+                y=[sh.y for sh in fit.shards],
+                packed=[sh.packed for sh in fit.shards],
+                feat_bins=fit.feat_bins, reg_lambda=cfg.reg_lambda,
+                min_leaf_rows=cfg.min_leaf_rows, subtraction=use_sub,
+                mesh=fit.mesh)
+
+
+def _rows(fit: FitInputs) -> tuple:
+    """Every shard's bins and payload, the pair op's row operands."""
+    return [sh.xb for sh in fit.shards], [sh.payload for sh in fit.shards]
+
+
+def graph_choice(fit: FitInputs) -> tuple:
+    """``(graph, reason)``: whether the fused loop replays one CUDA graph
+    per expansion. Not on the CPU, and not on a mesh that reduces: a
+    reduction waits for the devices and crosses processes (gloo or NCCL),
+    and neither can be captured, so each expansion is launched eagerly
+    (its launches and reductions as in the graph)."""
+    if fit.dev.type != "cuda":
+        return False, "cpu: no CUDA graphs"
+    if fit.mesh is not None and fit.mesh.reduces:
+        return False, (
+            f"mesh of {fit.mesh.size} shards: a reduction synchronises and "
+            "crosses processes, which a CUDA graph cannot capture; "
+            "expansions launch eagerly")
+    return True, "one CUDA graph replay per expansion"
 
 
 class _LeafLoop:
@@ -243,7 +271,12 @@ class _LeafLoop:
     counts, as the wrapper would. :meth:`start` resets the state and
     decides the root, so one loop grows tree after tree (the fused
     boosting rounds), on ``fit``'s payload as it then is; a new
-    ``fit.scale_exp`` needs :meth:`recapture`."""
+    ``fit.scale_exp`` needs :meth:`recapture`.
+
+    On a data mesh (``_make_leafwise_fn``, ``:348-372``) every shard keeps
+    its rows' node ids, each expansion reroutes every shard and its pair
+    histogram reduces over the mesh; the pool stays on the lead. Such a
+    loop steps without a graph (:func:`graph_choice`, ``graph_reason``)."""
 
     def __init__(self, fit: FitInputs, cfg: BuildConfig, *, pool: int,
                  use_sub: bool):
@@ -271,7 +304,7 @@ class _LeafLoop:
             self.pool_hist = torch.zeros(
                 (Pn + 1, fit.F, C, fit.B), device=dev,
                 dtype=i64 if fit.fixed else torch.float32)
-        self.nid = arr(i32, fit.N)
+        self.nids = [n.clone() for n in fit.root_nids()]
         self.n_nodes = arr(i64, 1)[0]
         self.n_leaves = arr(i64, 1)[0]
         self.dump = torch.tensor([M, M + 1], dtype=i64, device=dev)
@@ -280,7 +313,7 @@ class _LeafLoop:
         self.zero = torch.zeros((), dtype=i64, device=dev)
         self.graph = None
         self.graph_launches = None
-        self.use_graph = dev.type == "cuda"
+        self.use_graph, self.graph_reason = graph_choice(fit)
 
     def start(self) -> None:
         """Reset the state and decide the root: every row at node 0 puts
@@ -296,11 +329,12 @@ class _LeafLoop:
         for a in (self.pool_node, self.pool_feat, self.pool_bin,
                   self.pool_nl):
             a.zero_()
-        self.nid.zero_()
+        for nid, nid0 in zip(self.nids, self.fit.root_nids()):
+            nid.copy_(nid0)
         self.n_nodes.fill_(1)
         self.n_leaves.fill_(1)
         dec, keep = collective.pair_split_stats(
-            fit.xb, fit.payload, self.nid, fit.cand_mask, self.zero,
+            *_rows(fit), self.nids, fit.cand_mask, self.zero,
             self.root_small,
             None if self.pool_hist is None else self.pool_hist[self.Pn:],
             **_pair_kw(fit, cfg, self.use_sub))
@@ -343,9 +377,10 @@ class _LeafLoop:
         parent_a.index_put_((kids,), enode.to(i32).expand(2))
         child_depth = at(depth_a, enode) + 1
         depth_a.index_put_((kids,), child_depth.expand(2))
-        self.nid.copy_(collective.reroute_leaf(
-            self.nid, fit.xb, torch.where(active, enode, self.no_node), f,
-            b, l_id))
+        e_r = torch.where(active, enode, self.no_node)
+        for nid, x in zip(self.nids, _rows(fit)[0]):
+            nid.copy_(collective.reroute_leaf(
+                nid, x, *(t.to(nid.device) for t in (e_r, f, b, l_id))))
         # the smaller child accumulates; ties go left (the level-by-level
         # carry's rule)
         small_left = at(self.pool_nl, p) * 2.0 <= at(self.n, enode)
@@ -353,7 +388,7 @@ class _LeafLoop:
         phist = None if self.pool_hist is None else \
             self.pool_hist.index_select(0, p.view(1))
         dec, keep = collective.pair_split_stats(
-            fit.xb, fit.payload, self.nid, fit.cand_mask, l_id, is_small,
+            *_rows(fit), self.nids, fit.cand_mask, l_id, is_small,
             phist, **_pair_kw(fit, cfg, self.use_sub))
         n2, _, gain2 = _stop_and_gain(dec, child_depth, cfg=cfg,
                                       fixed=fit.fixed)
@@ -415,7 +450,7 @@ class _LeafLoop:
                 done_reads += 1
                 if not bool(self.active()):  # the 1-byte read
                     break
-        return _LeafGrown(self.n_nodes, self.ints, self.counts, self.nid)
+        return _LeafGrown(self.n_nodes, self.ints, self.counts, self.nids)
 
 
 def _build_leafwise_stepped(fit: FitInputs, cfg: BuildConfig, *, pool: int,
@@ -425,8 +460,8 @@ def _build_leafwise_stepped(fit: FitInputs, cfg: BuildConfig, *, pool: int,
     and one copy of its (2, ...) decisions; under subtraction each open
     leaf's pair histogram stays on the device and comes back as the
     parent operand when the leaf is expanded. Returns expansion-ordered
-    host arrays ``(n_nodes, ints (5, M), counts (M, C))`` and the rows'
-    device node ids."""
+    host arrays ``(n_nodes, ints (5, M), counts (M, C))`` and every
+    shard's device node ids."""
     dev, C = fit.dev, fit.C
     Pn = int(pool)
     M = 2 * Pn - 1
@@ -452,14 +487,14 @@ def _build_leafwise_stepped(fit: FitInputs, cfg: BuildConfig, *, pool: int,
     def dispatch(e_node, f, b, l_id, small_left, phist):
         is_small = torch.tensor([small_left, not small_left], device=dev)
         nid_out, dec, keep = collective.expand_step(
-            fit.xb, fit.payload, nid, fit.cand_mask, scalar(e_node),
+            *_rows(fit), nid, fit.cand_mask, scalar(e_node),
             scalar(f, torch.int32), scalar(b, torch.int32), scalar(l_id),
             is_small, phist, **kw)
         return nid_out, dec.cpu().numpy(), keep  # the expansion's one copy
 
     # root: the sentinel -2 reroutes nothing, left_id 0 puts every row in
-    # slot 0 of the pair
-    nid = torch.zeros(fit.N, dtype=torch.int32, device=dev)
+    # slot 0 of the pair (padding rows of a mesh stay at -1)
+    nid = fit.root_nids()
     zeros_ph = (torch.zeros((1, fit.F, C, fit.B), device=dev,
                             dtype=torch.int64 if fit.fixed
                             else torch.float32) if use_sub else None)
@@ -525,7 +560,8 @@ def build_tree_leafwise(binned, y: np.ndarray, *, config: BuildConfig,
                         feature_sampler=None,
                         feature_mask: np.ndarray | None = None,
                         mono_cst: np.ndarray | None = None,
-                        stats: dict | None = None):
+                        stats: dict | None = None, mesh=None,
+                        x_shards=None):
     """Grow one tree best-first; ``core/builder.build_tree``'s contract
     (``build_tree_leafwise``, ``:437``), which routes here whenever
     ``cfg.max_leaf_nodes`` is set. The engine comes from
@@ -533,7 +569,12 @@ def build_tree_leafwise(binned, y: np.ndarray, *, config: BuildConfig,
     exactly from the rows' final nodes (``refit_regression_values``);
     ``return_leaf_ids`` gives those nodes in the finished tree's ids.
     ``stats`` (a dict, optional) receives ``engine``, ``frontier``
-    (``"leafwise"``) and ``expansions``."""
+    (``"leafwise"``), ``expansions`` and, for the fused engine, ``graph``
+    with its ``graph_reason``. On a data ``mesh`` the rows shard over it
+    and every pair histogram reduces over it (``_make_leafwise_fn``,
+    ``:348-372``): the tree is the one-device tree field for field. A
+    ``(data, feature)`` mesh raises, as in the JAX package
+    (``:481-505``)."""
     cfg = config
     if feature_sampler is not None and feature_sampler.active:
         raise ValueError(
@@ -542,14 +583,25 @@ def build_tree_leafwise(binned, y: np.ndarray, *, config: BuildConfig,
         )
     if mono_cst is not None and bool(np.any(np.asarray(mono_cst) != 0)):
         raise ValueError("max_leaf_nodes does not support monotonic_cst yet")
+    if mesh is not None:
+        from mpitree_tpu_torch.parallel.mesh import feature_shards
+
+        if feature_shards(mesh) > 1:
+            raise ValueError(
+                "max_leaf_nodes supports 1-D data meshes only "
+                "(mesh2d_unsupported: the best-first frontier has no "
+                "feature-axis select_global twin)")
     engine = resolve_engine(cfg)
     fit = FitInputs(binned, y, cfg, n_classes=n_classes,
                     sample_weight=sample_weight, packed=packed,
-                    feature_mask=feature_mask)
+                    feature_mask=feature_mask, mesh=mesh, x_shards=x_shards)
     pool = _pool_capacity(cfg.max_leaf_nodes, cfg.max_depth, fit.N)
     use_sub = leafwise_subtraction(fit, cfg, pool)
+    graph = None
     if engine == "fused":
-        g = _LeafLoop(fit, cfg, pool=pool, use_sub=use_sub).grow()
+        loop = _LeafLoop(fit, cfg, pool=pool, use_sub=use_sub)
+        graph = (loop.use_graph, loop.graph_reason)
+        g = loop.grow()
         flat = torch.cat([g.ints.flatten(), g.n_nodes.view(1).to(torch.int32)])
         flat = flat.cpu().numpy()  # one copy of the structure
         n_nodes = int(flat[-1])
@@ -565,10 +617,14 @@ def build_tree_leafwise(binned, y: np.ndarray, *, config: BuildConfig,
     if stats is not None:
         stats.update(engine=engine, frontier="leafwise",
                      expansions=(n_nodes - 1) // 2)
+        if graph is not None:
+            stats.update(graph=graph[0], graph_reason=graph[1])
+        if mesh is not None:
+            stats.update(n_shards=mesh.size, **mesh.stats)
     leaf_ids = None
     if return_leaf_ids or (cfg.task == "regression"
                            and refit_targets is not None):
-        leaf_ids = perm[nid.cpu().numpy()].astype(np.int32)
+        leaf_ids = perm[fit.leaf_ids(nid)].astype(np.int32)
     if cfg.task == "regression" and refit_targets is not None:
         w64 = (np.ones(fit.N) if sample_weight is None
                else np.asarray(sample_weight)).astype(np.float64)

@@ -73,13 +73,17 @@ and ``expansions``.
 processes that ``parallel/distributed.initialize`` joined): the rows
 shard over the devices, every level's histograms reduce over them, and
 the tree equals the one-device tree field for field; ``predict`` shards
-its rows over this process's devices. ``fit_stats_`` then also holds
-``n_shards`` and the reductions' ``allreduce_calls``,
-``allreduce_bytes``, ``allreduce_seconds`` and ``replication_checks``.
+its rows over this process's devices. ``n_devices=(dr, df)`` shards the
+rows over ``dr`` and the features over ``df`` (the 2-D ``(data,
+feature)`` mesh): each shard sweeps its feature slab and the winners
+merge over the feature axis, still the one-device tree;
+``monotonic_cst``, ``max_features`` sampling and ``max_leaf_nodes``
+raise there, as in the JAX package. ``max_leaf_nodes`` works on a data
+mesh. ``fit_stats_`` then also holds ``n_shards`` and the collectives'
+counts (``allreduce_*``, the feature axis's ``gather_*`` and
+``route_*``: calls, bytes, seconds) and ``replication_checks``.
 :class:`ParallelDecisionTreeClassifier` is the reference's MPI class,
-``n_devices="all"`` by default. ``max_leaf_nodes`` on a mesh (item 14c)
-and a 2-D ``(dr, df)`` mesh (item 14d) raise ``NotImplementedError``
-naming their ``ROADMAP.md`` items; ``backend="host"`` ignores
+``n_devices="all"`` by default; ``backend="host"`` ignores
 ``n_devices``, as the JAX package's host tier does.
 """
 
@@ -249,16 +253,12 @@ def refuse_later(est, later) -> None:
 
 
 def fit_mesh(est, host: bool):
-    """The data mesh of a tree fit (``parallel/mesh.resolve_mesh``), or
-    None for one device and for the host tier, which ignores
-    ``n_devices`` as the JAX package's does. Leaf-wise growth on a mesh
-    raises (``ROADMAP.md`` item 14c)."""
+    """The mesh of a tree fit (``parallel/mesh.resolve_mesh``: a data
+    mesh, or ``(dr, df)``'s ``(data, feature)`` mesh), or None for one
+    device and for the host tier, which ignores ``n_devices`` as the JAX
+    package's does."""
     if host or est.n_devices in (None, 1):
         return None
-    if est.max_leaf_nodes is not None:
-        raise NotImplementedError(
-            f"max_leaf_nodes with n_devices={est.n_devices!r} is not ported "
-            "yet (ROADMAP.md Queue 1 item 14c, leaf-wise growth on a mesh)")
     return resolve_mesh(device=est.device, n_devices=est.n_devices)
 
 

@@ -54,9 +54,20 @@ which carries the flat table that predict and ``compile_model`` share.
 ``fit_stats_`` sums the phase seconds and tail counts over the trees and
 names the ``engine`` (see ``models/classifier.py``).
 
+``n_devices`` shards the forest (``:330-360``, ``:700-760``): the
+batched path grows the trees on a ``(tree, data)`` mesh of the devices
+(``core/fused_builder.build_forest_fused``: tree groups, each growing its
+block of trees with its rows sharded over its data axis, the trees then
+exchanged so every process holds the forest), the per-tree path grows
+each tree on the data mesh (``grow_tree``); either way every tree is the
+one-device tree field for field, and the refine tail, ``oob_score`` and
+``warm_start`` (whose new trees alone shape the mesh) run as on one
+device. ``fit_stats_`` then holds ``n_shards``, ``forest_mesh`` and the
+collectives' counts. ``predict`` splits its rows over the local shards.
+
 Options off this path raise ``NotImplementedError`` naming their
-``ROADMAP.md`` item: ``checkpoint``, ``checkpoint_compact_every``,
-``n_devices > 1`` and ``dataset=``.
+``ROADMAP.md`` item: ``checkpoint``, ``checkpoint_compact_every`` and
+``dataset=``.
 """
 
 from __future__ import annotations
@@ -81,6 +92,8 @@ from mpitree_tpu_torch.models.classifier import (
     finish_tree,
     grow_tree,
     host_tier,
+    fit_mesh,
+    predict_mesh,
     refuse_later,
 )
 from mpitree_tpu_torch.models.regressor import RegressorBase
@@ -112,8 +125,6 @@ _LATER = (
     ("checkpoint", None, "Queue 1 item 17 (resilience/checkpoint.py)"),
     ("checkpoint_compact_every", None,
      "Queue 1 item 17 (resilience/checkpoint.py)"),
-    ("n_devices", 1,
-     "Queue 1 item 14b, the forests' tree and (tree, data) meshes"),
 )
 
 
@@ -175,7 +186,8 @@ class _BaseForest(EstimatorBase):
         the per-tree out-of-bag masks that :meth:`_pop_oob_masks` takes."""
         prev = self._warm_start_trees()
         host = host_tier(self.backend)
-        device = resolve_device(self.device)
+        mesh = fit_mesh(self, host)
+        device = resolve_device(self.device) if mesh is None else mesh.lead
         n, F = X.shape
         clock = FitClock(device)
         if host:
@@ -258,7 +270,7 @@ class _BaseForest(EstimatorBase):
                     ccp_alpha=self.ccp_alpha, clock=clock, stats=stats,
                     packed=packed, refit_targets=refit_targets,
                     feature_sampler=tree_sampler[i],
-                    feature_mask=tree_mask[i], mono_cst=mono,
+                    feature_mask=tree_mask[i], mono_cst=mono, mesh=mesh,
                 )
                 for i in idxs
             ])
@@ -278,9 +290,12 @@ class _BaseForest(EstimatorBase):
             min_child_weights=[c.min_child_weight for c in cfgs],
             min_decrease_scaleds=[c.min_decrease_scaled for c in cfgs],
             samplers=[tree_sampler[i] for i in idxs], mono_cst=mono,
+            mesh=mesh, stats=stats,
         )
         trees, leaf_ids = res if refine else (res, [None] * len(cfgs))
         stats["engine"] = "fused"
+        if mesh is not None:
+            stats.update(n_shards=mesh.size, **mesh.stats)
         stats["crown_seconds"] = stats.get("crown_seconds", 0.0) \
             + clock.lap()
         return TreeList((prev or []) + [
@@ -325,8 +340,12 @@ class _BaseForest(EstimatorBase):
             raise self._not_fitted()
 
     def _leaf_ids(self, X) -> np.ndarray:
-        """(T, N) per-tree leaf ids of validated rows."""
-        return stacked_leaf_ids(self.trees_, X, resolve_device(self.device))
+        """(T, N) per-tree leaf ids of validated rows, their rows split
+        over the fit's local shards on a mesh."""
+        mesh = predict_mesh(self)
+        return stacked_leaf_ids(
+            self.trees_, X, resolve_device(self.device) if mesh is None
+            else mesh.lead, mesh=mesh)
 
     @property
     def feature_importances_(self) -> np.ndarray:

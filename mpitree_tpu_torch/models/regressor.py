@@ -29,10 +29,11 @@ classifier.
 
 ``max_leaf_nodes`` grows the tree best-first (``core/leafwise_builder.py``)
 in one engine with no refine tail; ``backend="host"`` refuses it.
-``n_devices`` builds on a data mesh as in the classifier: the moments
-take the fixed-point route with exponents from every shard's payload and
-the global row count, so the int64 sums add across shards and processes
-and the tree equals the one-device tree field for field.
+``n_devices`` builds on a data mesh, or a ``(dr, df)`` ``(data,
+feature)`` mesh, as in the classifier: the moments take the fixed-point
+route with exponents from every row's payload and the global row count,
+so the int64 sums add across shards and processes and the tree equals
+the one-device tree field for field.
 """
 
 from __future__ import annotations

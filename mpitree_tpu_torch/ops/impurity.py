@@ -82,7 +82,10 @@ class SplitDecision(NamedTuple):
     (regression only, else None) is the node's ``max(y) - min(y)`` over
     rows of positive weight, its purity signal. ``v_left``/``v_right``
     (float32, only under ``mono_cst``, else None) are the winner's child
-    values, from which the builder bounds the children.
+    values, from which the builder bounds the children. ``cost_lo``
+    (classification; None is 0) is the winner's low float32 half of its
+    ``(hi, lo)`` rank, which a merge of winners across feature shards
+    (``parallel/collective.select_global``) compares as the sweep did.
     """
 
     feature: torch.Tensor
@@ -96,6 +99,7 @@ class SplitDecision(NamedTuple):
     y_range: torch.Tensor | None = None
     v_left: torch.Tensor | None = None
     v_right: torch.Tensor | None = None
+    cost_lo: torch.Tensor | None = None
 
 
 def _log2(x: torch.Tensor) -> torch.Tensor:
@@ -407,6 +411,7 @@ def best_split_classification(
         counts=parent_counts,
         constant=constant,
         n_left=n_left,
+        cost_lo=torch.gather(best_lo_f, 1, best_feature[:, None])[:, 0],
         **_winner_values(v_l_all, v_r_all, best_feature, best_bin),
     )
 

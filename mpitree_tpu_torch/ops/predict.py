@@ -67,23 +67,30 @@ def predict_leaf_ids(X: np.ndarray, tree: TreeArrays,
     return torch.cat([ids.cpu() for ids in out]).numpy()
 
 
-def stacked_leaf_ids(trees, X: np.ndarray,
-                     device: torch.device) -> np.ndarray:
+def stacked_leaf_ids(trees, X: np.ndarray, device: torch.device,
+                     mesh=None) -> np.ndarray:
     """(T, N) int32 per-tree leaf ids for an ensemble: one descent over the
     depth-packed flat table (``serving.traversal.flat_leaf_ids``) instead
-    of a loop over trees. Counterpart of ``mpitree_tpu/ops/predict.py:169``.
-    A single-table ensemble keeps its device copy on the table, so a warm
-    predict uploads only ``X``; an ensemble past the tables' byte budget
-    (``serving.tables.TABLE_GROUP_BYTES``) splits into several tables,
-    uploaded one at a time."""
+    of a loop over trees. Counterpart of ``mpitree_tpu/ops/predict.py:169``
+    (``:101-211``). A single-table ensemble keeps its device copy on the
+    table, so a warm predict uploads only ``X``; an ensemble past the
+    tables' byte budget (``serving.tables.TABLE_GROUP_BYTES``) splits into
+    several tables, uploaded one at a time. With a ``mesh`` (a fit's on
+    several devices) the rows split into one contiguous block per local
+    shard, each descended on its shard's device, as
+    :func:`predict_leaf_ids` splits a tree's."""
     tables = tables_for(trees)
-    X_d = torch.from_numpy(np.ascontiguousarray(X, np.float32)).to(device)
+    devices = [device] if mesh is None else list(mesh.devices)
+    bounds = np.linspace(0, X.shape[0], len(devices) + 1).astype(np.int64)
+    X = np.ascontiguousarray(X, np.float32)
     ids = np.empty((len(trees), X.shape[0]), np.int32)
-    t0 = 0
-    for tb in tables:
-        rel = flat_leaf_ids(X_d, *tb.dev_arrays(device,
-                                                 cache=len(tables) == 1),
-                            n_steps=tb.n_steps)
-        ids[t0:t0 + tb.n_trees] = rel.T.cpu().numpy()
-        t0 += tb.n_trees
+    for dev, a, b in zip(devices, bounds[:-1], bounds[1:]):
+        X_d = torch.from_numpy(X[a:b]).to(dev)
+        t0 = 0
+        for tb in tables:
+            rel = flat_leaf_ids(X_d, *tb.dev_arrays(dev,
+                                                     cache=len(tables) == 1),
+                                n_steps=tb.n_steps)
+            ids[t0:t0 + tb.n_trees, a:b] = rel.T.cpu().numpy()
+            t0 += tb.n_trees
     return ids

@@ -34,9 +34,19 @@ reduction sites, JAX's psums:
   route and exponents of a fit, from every shard's payload (one
   payload without a mesh);
 - :func:`pair_split_stats` (``:555``, psums ``:603-643``), the leaf-wise
-  frontier's unit of work, reduces its pair histogram over a mesh of one
-  local shard per process (leaf-wise growth on a mesh is refused by the
-  estimators until ``ROADMAP.md`` item 14c).
+  frontier's unit of work, reduces every shard's pair histogram over the
+  data mesh.
+
+On a ``(data, feature)`` mesh the histograms reduce over the data axis
+only (each feature slab's sub-mesh, ``Mesh.axis_mesh``), and two hops
+cross the feature axis: :func:`select_global` (``:140-193``) merges the
+slabs' split winners (the local slabs, then one stacked all-gather of
+``(K, 7)`` float64 records over the axis's processes, through host
+memory under gloo), and :func:`route_psum` (``:752-805``) routes the
+rows by the owner broadcast. :func:`gather_rows` brings a row-sharded
+tensor to every process bit for bit (the leaf ids, the fused rounds'
+margins); the forests' tree exchange (``core/fused_builder._exchange``)
+and the route sums count in ``mesh.stats`` under their own kinds.
 
 :func:`update_node_id` (``make_update_fn``, ``:752``) moves each shard's
 rows of splitting nodes to a child by ``bin(x[:, feat]) <= bin`` with the
@@ -48,9 +58,7 @@ stay plain torch operations here.
 
 :func:`split_psum_bytes` and :func:`counts_psum_bytes` (``:59-79``) give
 a reduction's logical payload; the mesh's ``stats`` count every
-reduction's calls, bytes and seconds for ``fit_stats_``. Not here
-(``ROADMAP.md`` item 14): the tree axis, and the 2-D mesh's
-``select_global`` and ``route_psum``.
+reduction's calls, bytes and seconds for ``fit_stats_``.
 """
 
 from __future__ import annotations
@@ -97,7 +105,8 @@ def _parts(x) -> list:
     return list(x) if isinstance(x, (list, tuple)) else [x]
 
 
-def psum(parts, mesh, op: str = "sum") -> torch.Tensor:
+def psum(parts, mesh, op: str = "sum", *,
+         kind: str = "allreduce") -> torch.Tensor:
     """The reduction of one tensor per local shard (``parts``, in shard
     order) over ``mesh``, on the lead shard's device: the local shards
     summed (or their minimum or maximum taken) in shard order, then
@@ -105,7 +114,8 @@ def psum(parts, mesh, op: str = "sum") -> torch.Tensor:
     local shards already combined. The first part may be reduced in
     place. The identity with one shard and no process group (or no
     mesh). Records the call, its logical bytes and its seconds (ended
-    when the devices are idle) in ``mesh.stats``."""
+    when the devices are idle) in ``mesh.stats`` under ``kind``
+    (``allreduce``, ``route`` or ``exchange``)."""
     if op not in _REDUCE_OPS:
         raise ValueError(f"unknown reduction {op!r}; one of {_REDUCE_OPS}")
     parts = _parts(parts)
@@ -133,11 +143,123 @@ def psum(parts, mesh, op: str = "sum") -> torch.Tensor:
         dist.all_reduce(acc, op=getattr(dist.ReduceOp, op.upper()),
                         group=mesh.group)
     idle()
-    st = mesh.stats
-    st["allreduce_calls"] += 1
-    st["allreduce_bytes"] += acc.numel() * acc.element_size()
-    st["allreduce_seconds"] += time.perf_counter() - t0
+    _count(mesh, kind, acc.numel() * acc.element_size(),
+           time.perf_counter() - t0)
     return acc
+
+
+def _count(mesh, kind: str, n_bytes: int, seconds: float) -> None:
+    st = mesh.stats
+    st[f"{kind}_calls"] += 1
+    st[f"{kind}_bytes"] += int(n_bytes)
+    st[f"{kind}_seconds"] += seconds
+
+
+def gather_rows(parts, mesh, n_rows: int) -> torch.Tensor:
+    """Every row of a row-sharded tensor (``parts``, one per local shard
+    of the 1-D data ``mesh``, padded rows last) on the lead shard, first
+    ``n_rows`` rows, bit for bit: the local shards in order, then across
+    processes one all-reduce (SUM) of the whole vector's integer bits in
+    which each process fills its own rows. The counterpart of a
+    ``jax.device_get`` of a data-sharded array."""
+    parts = _parts(parts)
+    lead = parts[0].device
+    local = torch.cat([p.to(lead) for p in parts])
+    if mesh is None or mesh.group is None:
+        return local[:n_rows]
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    bits = local.contiguous().view(ints[local.element_size()])
+    full = torch.zeros((mesh.n_procs * bits.shape[0],) + bits.shape[1:],
+                       dtype=bits.dtype, device=lead)
+    a = mesh.rank * bits.shape[0]
+    full[a:a + bits.shape[0]] = bits
+    return psum([full], mesh)[:n_rows].view(local.dtype)
+
+
+def _all_gather(t: torch.Tensor, group) -> torch.Tensor:
+    """``(n_procs,) + t.shape``: every process's ``t`` in rank order.
+    gloo gathers host tensors only, so under gloo ``t`` is staged through
+    host memory (the payloads here are a few KiB); NCCL gathers on the
+    card."""
+    import torch.distributed as dist
+
+    n = dist.get_world_size(group)
+    host = dist.get_backend(group) != "nccl"
+    src = t.cpu() if host else t
+    out = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(out, src.contiguous(), group=group)
+    return torch.stack(out).to(t.device)
+
+
+# the columns of a winner record: rank (hi, lo), cost, global feature,
+# bin, left weight, "has a non-constant feature"
+_HI, _LO, _COST, _FEAT, _BIN, _NLEFT, _NONCONST = range(7)
+
+
+def _first_min(recs: list) -> torch.Tensor:
+    """The (K, 7) winner records of several feature blocks (in block
+    order) merged: per slot the lexicographic ``(hi, lo)`` minimum, the
+    earliest block on an exact tie, so the lowest global feature wins as
+    in one feature-complete sweep; ``nonconst`` is their maximum."""
+    best = recs[0]
+    for r in recs[1:]:
+        better = (r[:, _HI] < best[:, _HI]) | (
+            (r[:, _HI] == best[:, _HI]) & (r[:, _LO] < best[:, _LO]))
+        nonconst = torch.maximum(best[:, _NONCONST], r[:, _NONCONST])
+        best = torch.where(better[:, None], r, best)
+        best[:, _NONCONST] = nonconst
+    return best
+
+
+def select_global(decs: list, fmesh, f_local: int, blocks: list):
+    """Merge per-feature-block split winners into the global decision
+    (``select_global``, ``mpitree_tpu/parallel/collective.py:140-193``).
+    ``decs`` are this process's blocks' SplitDecisions (block ``blocks[k]``
+    of width ``f_local``, in block order), ``fmesh`` the feature axis's
+    sub-mesh through the lead shard. Each block's winner becomes a record
+    (rank, cost, global feature ``f + block * f_local``, bin, left weight,
+    non-constant flag); the local blocks merge by a first minimum, then
+    the processes of the feature axis gather theirs in one stacked
+    all-gather (``(procs, K, 7)`` float64, every value exact) and merge in
+    rank order, so the lowest global feature wins a tie. The node-level
+    fields (counts, n, impurity, y_range) are every block's own, since
+    every row adds to every feature's histogram; the result is on the
+    first block's device."""
+    lead = decs[0].feature.device
+    f64 = torch.float64
+    recs = []
+    for d, blk in zip(decs, blocks):
+        cost = d.cost.to(lead)
+        hi = cost.to(torch.float32)
+        if d.cost_lo is not None:
+            lo = d.cost_lo.to(lead).to(f64)
+        elif cost.dtype == f64:
+            lo = torch.where(torch.isinf(cost), torch.zeros_like(cost),
+                             (cost - hi.to(f64)).to(torch.float32).to(f64))
+        else:
+            lo = torch.zeros_like(cost, dtype=f64)
+        recs.append(torch.stack([
+            hi.to(f64), lo, cost.to(f64),
+            (d.feature.to(lead).to(torch.int64) + blk * f_local).to(f64),
+            d.bin.to(lead).to(f64), d.n_left.to(lead).to(f64),
+            (~d.constant.to(lead)).to(f64)], dim=1))
+    best = _first_min(recs)
+    if fmesh is not None and fmesh.group is not None:
+        if lead.type == "cuda":
+            torch.cuda.synchronize(lead)
+        t0 = time.perf_counter()
+        gathered = _all_gather(best, fmesh.group)
+        best = _first_min(list(gathered))
+        _count(fmesh, "gather", best.numel() * best.element_size(),
+               time.perf_counter() - t0)
+    d0 = decs[0]
+    return d0._replace(
+        feature=best[:, _FEAT].to(torch.int32),
+        bin=best[:, _BIN].to(torch.int32),
+        cost=best[:, _COST].to(d0.cost.dtype),
+        n_left=best[:, _NLEFT].to(d0.n_left.dtype),
+        constant=best[:, _NONCONST] == 0,
+        cost_lo=None)
 
 
 def payload_scale(payloads, mesh, *, fixed: bool, n_rows: int):
@@ -229,7 +351,7 @@ def split_hist(x_binned: torch.Tensor, payload: torch.Tensor,
                               scale_exp=scale_exp)
 
 
-def split_sweep(hist: torch.Tensor, cand_mask: torch.Tensor,
+def sweep_decision(hist: torch.Tensor, cand_mask: torch.Tensor,
                 node_id: torch.Tensor, chunk_lo: int, *, criterion: str,
                 min_child_weight: float, scale_exp=None,
                 task: str = "classification",
@@ -242,11 +364,11 @@ def split_sweep(hist: torch.Tensor, cand_mask: torch.Tensor,
                 mono_hi: torch.Tensor | None = None,
                 reg_lambda: float = 0.0,
                 min_leaf_rows: float = 0.0,
-                yr: torch.Tensor | None = None) -> torch.Tensor:
-    """The sweep stage of :func:`split_step`: the packed decision buffer
-    of the chunk whose histogram is ``hist``. Regression also reads
-    ``y``, ``payload`` and ``node_id`` for its purity signal, or takes it
-    as ``yr`` (:func:`y_range` over a mesh)."""
+                yr: torch.Tensor | None = None) -> imp_ops.SplitDecision:
+    """The sweep stage of :func:`split_step`: the SplitDecision of the
+    chunk whose histogram is ``hist``. Regression also reads ``y``,
+    ``payload`` and ``node_id`` for its purity signal, or takes it as
+    ``yr`` (:func:`y_range` over a mesh)."""
     n_slots = hist.shape[0]
     if task == "gbdt":
         dec = imp_ops.best_split_newton(
@@ -264,7 +386,7 @@ def split_sweep(hist: torch.Tensor, cand_mask: torch.Tensor,
         if yr is None:
             yr = y_range(y, node_id, payload[:, 0], chunk_lo,
                          n_slots=n_slots)
-        dec = dec._replace(y_range=yr)
+        return dec._replace(y_range=yr)
     else:
         dec = imp_ops.best_split_classification(
             hist, cand_mask, criterion=criterion,
@@ -272,8 +394,19 @@ def split_sweep(hist: torch.Tensor, cand_mask: torch.Tensor,
             node_mask=node_mask, forced_draw=draws, mono_cst=mono_cst,
             mono_lo=mono_lo, mono_hi=mono_hi,
         )
+    return dec
+
+
+def split_sweep(hist: torch.Tensor, cand_mask: torch.Tensor,
+                node_id, chunk_lo: int, *, scale_exp=None, **kw
+                ) -> torch.Tensor:
+    """:func:`sweep_decision` packed (:func:`pack_decision`): the
+    buffer's float32 on the integer route, float64 on the fixed-point
+    one."""
     return pack_decision(
-        dec, torch.float32 if scale_exp is None else torch.float64)
+        sweep_decision(hist, cand_mask, node_id, chunk_lo,
+                       scale_exp=scale_exp, **kw),
+        torch.float32 if scale_exp is None else torch.float64)
 
 
 def split_step(x_binned: torch.Tensor, payload: torch.Tensor,
@@ -404,6 +537,47 @@ def update_node_id(node_id: torch.Tensor, x_binned: torch.Tensor,
     return torch.where(active, nxt, node_id)
 
 
+def route_psum(nids: list, xs: list, mesh, chunk_lo: int, is_split,
+               feat, bin_, left_id, right_id, *, f_local: int) -> list:
+    """:func:`update_node_id` on a ``(data, feature)`` mesh, the owner
+    broadcast of ``make_update_fn`` (``mpitree_tpu/parallel/
+    collective.py:752-805``): ``nids`` and ``xs`` are every local shard's
+    node ids and ``(rows, f_local)`` feature slab, the split tables (on
+    the lead) name global features. Only the shard whose slab holds a
+    node's split feature reads the column and puts the child id in its
+    rows; a sum over the feature axis (the local shards of the same rows,
+    then the axis's processes) gives every shard of those rows the child,
+    since each moving row has exactly one owner. Returns the new ids."""
+    from mpitree_tpu_torch.parallel.mesh import FEATURE_AXIS
+
+    tables = (is_split, feat, bin_, left_id, right_id)
+    active, contrib = [], []
+    for i, (nid, x) in enumerate(zip(nids, xs)):
+        split, f, b, lid, rid = (t.to(nid.device) for t in tables)
+        U = split.shape[0]
+        slot = nid.to(torch.int64) - chunk_lo
+        s = slot.clamp(0, U - 1)
+        act = (slot >= 0) & (slot < U) & split[s]
+        fl = f[s].to(torch.int64) - mesh.coords(i)[1] * f_local
+        owner = (fl >= 0) & (fl < x.shape[1])
+        xf = torch.gather(x, 1, fl.clamp(0, x.shape[1] - 1)[:, None])[:, 0]
+        child = torch.where(xf <= b[s], lid[s], rid[s]).to(torch.int32)
+        active.append(act)
+        contrib.append(torch.where(act & owner, child, 0).to(torch.int32))
+    out = list(nids)
+    done = set()
+    for i in range(len(nids)):
+        if i in done:
+            continue
+        row = mesh.axis_mesh(FEATURE_AXIS, i)
+        total = psum([contrib[j] for j in row.local], row, kind="route")
+        for j in row.local:
+            out[j] = torch.where(active[j], total.to(nids[j].device),
+                                 nids[j])
+            done.add(j)
+    return out
+
+
 def reroute_leaf(node_id: torch.Tensor, x_binned: torch.Tensor,
                  e_node: torch.Tensor, feat: torch.Tensor, bin_: torch.Tensor,
                  left_id: torch.Tensor) -> torch.Tensor:
@@ -417,13 +591,11 @@ def reroute_leaf(node_id: torch.Tensor, x_binned: torch.Tensor,
     return torch.where(node_id == e_node, child, node_id)
 
 
-def pair_split_stats(x_binned: torch.Tensor, payload: torch.Tensor,
-                     node_id: torch.Tensor, cand_mask: torch.Tensor,
+def pair_split_stats(x_binned, payload, node_id, cand_mask: torch.Tensor,
                      left_id: torch.Tensor, is_small: torch.Tensor,
                      parent_hist: torch.Tensor | None, *, n_bins: int,
                      criterion: str, min_child_weight: float, scale_exp,
-                     task: str, y: torch.Tensor,
-                     packed: torch.Tensor | None = None, feat_bins=None,
+                     task: str, y, packed=None, feat_bins=None,
                      reg_lambda: float = 0.0, min_leaf_rows: float = 0.0,
                      subtraction: bool = False, mesh=None) -> tuple:
     """Histogram and sweep of ONE sibling pair, nodes ``(left_id,
@@ -442,48 +614,55 @@ def pair_split_stats(x_binned: torch.Tensor, payload: torch.Tensor,
     resident (1, F, C, B) histogram (``histogram.sibling_reconstruct_pair``):
     exact on both routes, so the pair is the same. Regression's purity
     reads :func:`y_range` over the pair (``regression_y_range(...,
-    n_slots=2)``). On a ``mesh`` of one local shard per process the pair
-    histogram and the range reduce over the processes before the
-    reconstruction and the sweep (``:603-643``)."""
-    if mesh is not None and mesh.n_local != 1:
-        raise NotImplementedError(
-            "pair_split_stats takes one local shard per process; leaf-wise "
-            "growth on a mesh is ROADMAP.md Queue 1 item 14c")
-    if subtraction:
-        slot = hist_ops.sibling_accumulate_slots(node_id, left_id, is_small,
-                                                 n_slots=2)
-        n_acc = 1
-    else:
-        slot = (node_id - left_id).to(torch.int32)
-        n_acc = 2
-    hist = split_hist(x_binned, payload, None, 0, n_slots=n_acc,
-                      n_bins=n_bins, packed=packed, feat_bins=feat_bins,
-                      scale_exp=scale_exp, slot=slot.contiguous())
-    hist = psum([hist], mesh)
+    n_slots=2)``). On a data ``mesh`` ``x_binned``, ``payload``,
+    ``node_id``, ``y`` and ``packed`` are lists, one per local shard: each
+    shard's pair histogram, then the sum over the mesh (``:603-643``)
+    before the reconstruction and the sweep, which run on the lead."""
+    xs, qs, nids = _parts(x_binned), _parts(payload), _parts(node_id)
+    ys, pk = _parts(y), _parts(packed)
+    parts = []
+    for i, (x, q, nid) in enumerate(zip(xs, qs, nids)):
+        lid = left_id.to(nid.device)
+        if subtraction:
+            slot = hist_ops.sibling_accumulate_slots(
+                nid, lid, is_small.to(nid.device), n_slots=2)
+            n_acc = 1
+        else:
+            slot = (nid - lid).to(torch.int32)
+            n_acc = 2
+        parts.append(split_hist(
+            x, q, None, 0, n_slots=n_acc, n_bins=n_bins,
+            packed=pk[i] if i < len(pk) else None, feat_bins=feat_bins,
+            scale_exp=scale_exp, slot=slot.contiguous()))
+    hist = psum(parts, mesh)
     if subtraction:
         hist = hist_ops.sibling_reconstruct_pair(hist, parent_hist, is_small)
     yr = None
     if mesh is not None and task == "regression":
-        yr = y_range(y, node_id, payload[:, 0], left_id, n_slots=2,
+        yr = y_range(ys, nids, [q[:, 0] for q in qs], left_id, n_slots=2,
                      mesh=mesh)
-    dec = split_sweep(hist, cand_mask, node_id, left_id, criterion=criterion,
+    dec = split_sweep(hist, cand_mask, nids[0], left_id, criterion=criterion,
                       min_child_weight=min_child_weight, scale_exp=scale_exp,
-                      task=task, y=y, payload=payload, reg_lambda=reg_lambda,
-                      min_leaf_rows=min_leaf_rows, yr=yr)
+                      task=task, y=ys[0], payload=qs[0],
+                      reg_lambda=reg_lambda, min_leaf_rows=min_leaf_rows,
+                      yr=yr)
     return dec, (hist if subtraction else None)
 
 
-def expand_step(x_binned: torch.Tensor, payload: torch.Tensor,
-                node_id: torch.Tensor, cand_mask: torch.Tensor,
+def expand_step(x_binned, payload, node_id, cand_mask: torch.Tensor,
                 e_node: torch.Tensor, feat: torch.Tensor, bin_: torch.Tensor,
                 left_id: torch.Tensor, is_small: torch.Tensor,
                 parent_hist: torch.Tensor | None, **kw) -> tuple:
     """One best-first expansion (``make_expand_fn``, ``:653``): reroute the
     rows of leaf ``e_node`` through its split ``(feat, bin_)`` into
-    ``(left_id, left_id + 1)`` (:func:`reroute_leaf`), then
-    :func:`pair_split_stats` of the new pair (``kw`` its keywords).
-    Returns ``(node_id, decisions, keep)``."""
-    node_id = reroute_leaf(node_id, x_binned, e_node, feat, bin_, left_id)
-    dec, keep = pair_split_stats(x_binned, payload, node_id, cand_mask,
+    ``(left_id, left_id + 1)`` (:func:`reroute_leaf`, on every shard of a
+    mesh), then :func:`pair_split_stats` of the new pair (``kw`` its
+    keywords). Returns ``(node_id, decisions, keep)``; ``node_id`` a list
+    where it came as one."""
+    nids = [reroute_leaf(nid, x, *(t.to(nid.device)
+                                   for t in (e_node, feat, bin_, left_id)))
+            for nid, x in zip(_parts(node_id), _parts(x_binned))]
+    dec, keep = pair_split_stats(x_binned, payload, nids, cand_mask,
                                  left_id, is_small, parent_hist, **kw)
-    return node_id, dec, keep
+    return (nids if isinstance(node_id, (list, tuple)) else nids[0],
+            dec, keep)

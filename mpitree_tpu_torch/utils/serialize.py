@@ -20,14 +20,16 @@ Two differences, both about parameters:
 - a file's parameter the port's constructor does not know raises
   ``ValueError`` naming it; none is dropped. Parameters the port knows
   are kept as they are (``max_leaf_nodes`` included: a loaded estimator
-  refits with its budget); those it does not fit yet (a forest's or a
-  boosted ensemble's ``n_devices > 1``, ``checkpoint``) load all the same:
-  the loaded trees predict and serve, and ``fit`` refuses them, naming
-  their ``ROADMAP.md`` items.
+  refits with its budget); those it does not fit yet (``checkpoint``)
+  load all the same: the loaded trees predict and serve, and ``fit``
+  refuses them, naming their ``ROADMAP.md`` items.
 
 ``ParallelDecisionTreeClassifier`` files go both ways too (the JAX
-package writes them, ``:31``); a loaded one keeps its ``n_devices``, so
-it predicts on the mesh that names.
+package writes them, ``:31``). A loaded estimator keeps its
+``n_devices`` (a ``(dr, df)`` mesh as the JSON list ``[dr, df]``, which
+the port's mesh resolver reads as the tuple), so it predicts on the mesh
+that names; the trees of an estimator fitted on any mesh save as the
+one-device fit's do.
 """
 
 from __future__ import annotations

@@ -102,7 +102,8 @@ def validate_fit_targets(y, *, task: str = "classification"):
 def validate_max_leaf_nodes(est):
     """An estimator's ``max_leaf_nodes`` -> an int budget or None
     (``mpitree_tpu/utils/validation.py:327``): sklearn's grammar (None or
-    an int > 1); ``backend="host"`` cannot grow best-first and raises."""
+    an int > 1); ``backend="host"`` cannot grow best-first and raises, as
+    does a ``(dr, df)`` mesh request with ``df > 1`` (``:349-359``)."""
     mln = getattr(est, "max_leaf_nodes", None)
     if mln is None:
         return None
@@ -115,6 +116,14 @@ def validate_max_leaf_nodes(est):
         raise ValueError(
             "max_leaf_nodes requires a device engine (the host tier grows "
             "level-wise only); drop backend='host'"
+        )
+    nd = getattr(est, "n_devices", None)
+    if isinstance(nd, (tuple, list)) and len(nd) == 2 and int(nd[1]) > 1:
+        raise ValueError(
+            "max_leaf_nodes supports 1-D data meshes only "
+            f"(mesh2d_unsupported: n_devices={tuple(nd)!r} requests "
+            f"{int(nd[1])} feature shards, and the best-first frontier "
+            "has no feature-axis select_global twin)"
         )
     return mln
 

@@ -443,7 +443,12 @@ def test_fit_stats_staged_surfaces_and_params(fits):
     (dict(rounds_per_dispatch=0), ValueError, "rounds_per_dispatch"),
     (dict(rounds_per_dispatch=2.0), ValueError, "rounds_per_dispatch"),
     (dict(checkpoint="ck"), NotImplementedError, "item 17"),
-    (dict(n_devices=2), NotImplementedError, "item 14"),
+    # item 14 is ported: boosting takes n_devices, and what stays refused
+    # there is the JAX package's own refusal, the fused rounds on a
+    # (data, feature) mesh; the case keeps its id
+    pytest.param(dict(n_devices=(4, 2), rounds_per_dispatch=4), ValueError,
+                 "mesh2d_unsupported",
+                 id="kw6-NotImplementedError-item 14"),
     (dict(backend="host"), ValueError, "device engine only"),
     (dict(backend="tpu"), ValueError, "device="),
     (dict(learning_rate=0.0), ValueError, "learning_rate"),

@@ -183,6 +183,18 @@ def test_options_now_ported_equal_jax(param, value):
     pytest.param("n_devices", (2, 2), id="n_devices-2"),
 ])
 def test_options_off_this_slice_raise(param, value):
+    """The last option this slice refused, the (data, feature) mesh (item
+    14d), is ported: it fits the one-device tree field for field."""
+    from mpitree_tpu_torch.parallel import mesh
+
     X, y = covtype_like(100, seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DecisionTreeClassifier(device="cpu", **{param: value}).fit(X, y)
+    prev = mesh.set_cpu_shards(4)
+    try:
+        par = DecisionTreeClassifier(device="cpu", **{param: value}).fit(X, y)
+    finally:
+        mesh.set_cpu_shards(prev)
+    one = DecisionTreeClassifier(device="cpu").fit(X, y)
+    for k in ("feature", "threshold", "left", "right", "count",
+              "n_node_samples", "impurity", "value"):
+        np.testing.assert_array_equal(getattr(par.tree_, k),
+                                      getattr(one.tree_, k), err_msg=k)

@@ -1143,3 +1143,50 @@ def test_global_exponents_on_the_card_equal_the_cpu(cuda):
     finally:
         M.set_cpu_shards(prev)
     assert all(e == exps[0] for e in exps), exps
+
+
+@pytest.mark.parametrize("S", [1, 8, 64, 512, 2048])
+@pytest.mark.parametrize("df", [2, 4])
+def test_feature_slab_equals_full_histogram_columns(cuda, S, df):
+    """A (data, feature) mesh hands each shard an ``F/df``-column slab of
+    the bins (padded to a multiple of ``df`` with bin-0 columns): every
+    route, on the slab's own byte-wide copy and bin counts, gives the same
+    columns of the full-F histogram, bit for bit, on both payload
+    routes."""
+    xb, payload, slot, feat_bins = _hist_inputs(cuda, 20 + S, S)
+    B, F = 256, xb.shape[1]
+    fl = -(-F // df)
+    full = hist_kernel.histogram_reference(xb, payload, slot, n_slots=S,
+                                           n_bins=B)
+    pad = torch.zeros((xb.shape[0], fl * df - F), dtype=torch.int32,
+                      device=cuda)
+    xp = torch.cat([xb, pad], dim=1)
+    fb_pad = list(feat_bins) + [1] * (fl * df - F)
+    ran = set()
+    for fi in range(df):
+        x_s = xp[:, fi * fl:(fi + 1) * fl].contiguous()
+        fb = fb_pad[fi * fl:(fi + 1) * fl]
+        packed = hist_kernel.pack_bins(x_s, B)
+        lo, hi = fi * fl, min((fi + 1) * fl, F)
+        for route in hist_kernel.ROUTES:
+            try:
+                hist_kernel.plan(S, fl, payload.shape[1], B, route,
+                                 feat_bins=fb)
+            except ValueError:
+                continue
+            got = hist_kernel.histogram_cuda(
+                x_s, payload, slot, n_slots=S, n_bins=B, packed=packed,
+                feat_bins=fb, _variant=route)
+            assert torch.equal(got[:, :hi - lo], full[:, lo:hi]), (route, fi)
+            # padding columns hold every row in bin 0
+            assert torch.equal(got[:, hi - lo:, :, 1:],
+                               torch.zeros_like(got[:, hi - lo:, :, 1:]))
+            ran.add(route)
+        exp = hist_kernel.fixed_point_exponents(payload)
+        got = hist_kernel.histogram_cuda(
+            x_s, payload, slot, n_slots=S, n_bins=B, packed=packed,
+            feat_bins=fb, scale_exp=exp)
+        want = hist_kernel.histogram_reference(
+            xb, payload, slot, n_slots=S, n_bins=B, scale_exp=exp)
+        assert torch.equal(got[:, :hi - lo], want[:, lo:hi]), ("fixed", fi)
+    assert ran

@@ -191,7 +191,26 @@ def test_options_now_ported_equal_jax(param, value):
     ("n_devices", 2),
 ])
 def test_options_off_this_slice_raise(param, value):
+    """Options not ported raise naming their ROADMAP item; ``n_devices``,
+    refused until item 14b, now fits the one-device forest."""
     X, y = covtype_like(100, seed=0)
+    if param == "n_devices":
+        from mpitree_tpu_torch.parallel import mesh
+
+        prev = mesh.set_cpu_shards(value)
+        try:
+            par = RandomForestClassifier(n_estimators=2, device="cpu",
+                                         random_state=0,
+                                         **{param: value}).fit(X, y)
+        finally:
+            mesh.set_cpu_shards(prev)
+        one = RandomForestClassifier(n_estimators=2, device="cpu",
+                                     random_state=0).fit(X, y)
+        for got, want in zip(par.trees_, one.trees_, strict=True):
+            for k in FIELDS:
+                np.testing.assert_array_equal(getattr(got, k),
+                                              getattr(want, k), err_msg=k)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         RandomForestClassifier(n_estimators=2, device="cpu",
                                **{param: value}).fit(X, y)

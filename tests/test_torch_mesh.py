@@ -74,12 +74,19 @@ def test_resolve_mesh_errors_equal_jax(n_devices):
 
 @pytest.mark.parametrize("n_devices", [(2, 2), (4, 2), (1, 8), (2, 4)])
 def test_two_d_mesh_is_refused_naming_its_item(n_devices):
-    """The JAX package builds a (data, feature) mesh here; the port refuses
-    it until item 14d."""
-    assert jax_mesh.feature_shards(jax_mesh.resolve_mesh(
-        n_devices=n_devices)) > 1
-    with pytest.raises(NotImplementedError, match="item 14d"):
-        _mesh(n_devices)
+    """The (data, feature) mesh the JAX package builds here, refused by
+    the port until item 14d, now resolves to JAX's axes and widths, its
+    shards row-major on (data, feature)."""
+    ref = jax_mesh.resolve_mesh(n_devices=n_devices)
+    got = _mesh(n_devices)
+    assert got.axis_names == tuple(ref.axis_names) == (M.DATA_AXIS,
+                                                        M.FEATURE_AXIS)
+    assert got.shape == tuple(ref.devices.shape) == n_devices
+    assert M.data_shards(got) == jax_mesh.data_shards(ref)
+    assert M.feature_shards(got) == jax_mesh.feature_shards(ref) > 1
+    dr, df = n_devices
+    assert [got.coords(i) for i in range(got.n_local)] == [
+        (g // df, g % df) for g in range(dr * df)]
 
 
 def test_cpu_shard_count_and_cuda_without_card():
@@ -349,34 +356,62 @@ def test_debug_knob_reads_as_jax(monkeypatch):
     ("leafwise_build", "item 14c"), ("pair_split_stats", "item 14c"),
 ])
 def test_what_stays_refused_on_a_mesh_names_its_item(what, item):
-    """Forests, boosting and leaf-wise growth on a mesh wait for the later
-    parts of item 14; each refusal names its sub-item."""
+    """Forests, boosting and leaf-wise growth on a mesh, refused until
+    the later parts of item 14 (``item``), now run there and give the
+    one-device result field for field."""
     import mpitree_tpu_torch as P
     from mpitree_tpu_torch.core.builder import build_tree
 
     X, y = covtype_like(200, seed=0)
-    with pytest.raises(NotImplementedError, match=item):
-        if what == "forest":
-            P.RandomForestClassifier(n_estimators=2, n_devices=2,
-                                     device="cpu").fit(X, y)
-        elif what == "extra_trees":
-            P.ExtraTreesRegressor(n_estimators=2, n_devices="all",
-                                  device="cpu").fit(X, y.astype(float))
-        elif what == "boosting":
-            P.GradientBoostingClassifier(max_iter=2, n_devices=2,
-                                         device="cpu").fit(X, y)
-        elif what == "leafwise":
-            P.DecisionTreeClassifier(max_leaf_nodes=8, n_devices=2,
-                                     device="cpu").fit(X, y)
-        else:
-            binned = bin_for_engine(X, max_bins=32, binning="auto",
-                                    device=CPU)
-            if what == "leafwise_build":
-                build_tree(binned, y, config=BuildConfig(max_leaf_nodes=8),
-                           n_classes=7, mesh=_mesh(2))
-            else:
-                collective.pair_split_stats(
-                    binned.x_binned, None, None, None, None, None, None,
-                    n_bins=32, criterion="entropy", min_child_weight=0.0,
-                    scale_exp=None, task="classification", y=None,
-                    mesh=_mesh(2))
+
+    def same(a, b):
+        for k in ("feature", "threshold", "left", "right", "count",
+                  "n_node_samples", "impurity", "value"):
+            np.testing.assert_array_equal(getattr(a, k), getattr(b, k),
+                                          err_msg=f"{what} ({item}) {k}")
+
+    if what in ("forest", "extra_trees", "boosting", "leafwise"):
+        cls, kw, yy = {
+            "forest": (P.RandomForestClassifier, dict(n_estimators=2), y),
+            "extra_trees": (P.ExtraTreesRegressor, dict(n_estimators=2),
+                            y.astype(float)),
+            "boosting": (P.GradientBoostingClassifier, dict(max_iter=2), y),
+            "leafwise": (P.DecisionTreeClassifier, dict(max_leaf_nodes=8),
+                         y),
+        }[what]
+        nd = "all" if what == "extra_trees" else 2
+        par = cls(n_devices=nd, device="cpu", random_state=0, **kw).fit(X, yy)
+        one = cls(device="cpu", random_state=0, **kw).fit(X, yy)
+        pairs = (zip(par.trees_, one.trees_) if hasattr(par, "trees_")
+                 else [(par.tree_, one.tree_)])
+        for a, b in pairs:
+            same(a, b)
+        return
+    binned = bin_for_engine(X, max_bins=32, binning="auto", device=CPU)
+    if what == "leafwise_build":
+        cfg = BuildConfig(max_leaf_nodes=8)
+        same(build_tree(binned, y, config=cfg, n_classes=7, mesh=_mesh(2)),
+             build_tree(binned, y, config=cfg, n_classes=7))
+        return
+    # one pair's histogram and sweep over two shards' rows: the one-shard
+    # pair's decisions, bit for bit
+    fit = FitInputs(binned, y, BuildConfig(), n_classes=7)
+    mesh = _mesh(2)
+    sharded = FitInputs(binned, y, BuildConfig(), n_classes=7, mesh=mesh)
+    zero = torch.zeros((), dtype=torch.int64)
+    small = torch.tensor([True, False])
+    kw = dict(n_bins=binned.n_bins, criterion="entropy",
+              min_child_weight=0.0, scale_exp=None, task="classification",
+              feat_bins=fit.feat_bins)
+    calls = mesh.stats["allreduce_calls"]  # the route's two, so far
+    want, _ = collective.pair_split_stats(
+        fit.xb, fit.payload, fit.root_nids()[0], fit.cand_mask, zero, small,
+        None, y=fit.y, packed=fit.packed, **kw)
+    got, _ = collective.pair_split_stats(
+        [sh.xb for sh in sharded.shards],
+        [sh.payload for sh in sharded.shards], sharded.root_nids(),
+        sharded.cand_mask, zero, small, None,
+        y=[sh.y for sh in sharded.shards],
+        packed=[sh.packed for sh in sharded.shards], mesh=mesh, **kw)
+    assert torch.equal(got, want)
+    assert mesh.stats["allreduce_calls"] == calls + 1
