@@ -3528,18 +3528,24 @@ def phase_mesh_ensembles(X, y, Xh, Xc, yc, Xch, forest, fit_tree,
         raise AssertionError("mesh ensembles: forest meshes "
                              f"{ranks['a'][0]['forest_mesh']}, "
                              f"{ranks['b'][0]['forest_mesh']}")
-    for k in serve_kernel.launches:
-        serve_kernel.launches[k] = 0
-    served = {}
-    for name, kw in (("float64", {}), ("int8", dict(quantize="int8"))):
-        got = compile_model(models["a"], **kw).raw(Xh)
-        if not np.array_equal(got, compile_model(forest, **kw).raw(Xh)):
+    # phase 5's answers first; the counts then cover the mesh forest alone
+    launches = {}
+    for form, kw in (("traverse", {}), ("traverse_q",
+                                        dict(quantize="int8"))):
+        want = compile_model(forest, **kw).raw(Xh)
+        served = compile_model(models["a"], **kw)
+        chunks = -(-len(Xh) // served._bucket(len(Xh)))
+        for k in serve_kernel.launches:
+            serve_kernel.launches[k] = 0
+        got = served.raw(Xh)
+        counts = dict(serve_kernel.launches)
+        if not np.array_equal(got, want):
             raise AssertionError(f"mesh ensembles (f): the mesh forest "
-                                 f"served {name} differs from phase 5's")
-        served[name] = got.shape
-    launches = dict(serve_kernel.launches)
-    if not (launches["traverse"] and launches["traverse_q"]):
-        raise AssertionError(f"mesh ensembles (f): launches {launches}")
+                                 f"served by {form} differs from phase 5's")
+        if counts[form] != chunks or sum(counts.values()) != chunks:
+            raise AssertionError(f"mesh ensembles (f): {form} launches "
+                                 f"{counts}, want {chunks} ({len(Xh)} rows)")
+        launches[form] = counts[form]
     out = dict(processes_wall_s=wall, ranks=ranks,
                f=dict(rows=len(Xh), launches=launches))
     log("mesh ensembles (two gloo processes on one card: invariance, not "

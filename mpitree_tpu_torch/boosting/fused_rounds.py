@@ -367,6 +367,9 @@ def run_fused_rounds(*, binned, packed, y_tr: np.ndarray, sw_tr, raw_tr,
                                     dim=1))
             scalars.append(torch.stack([grown.n_nodes.to(torch.float64),
                                         loss]))
+        # a bound passed on any process is passed on all: they raise together
+        over = collective.psum([over.to(torch.int32).view(1)], mesh,
+                               "max")[0] > 0
         # the dispatch's results: three copies
         ints_h = torch.stack(ints).cpu().numpy()
         floats_h = torch.stack(floats).cpu().numpy()

@@ -272,13 +272,6 @@ class _BaseGradientBoosting(EstimatorBase):
                     "rounds_per_dispatch must be an integer >= 1 or "
                     f"'auto', got {rpd!r}"
                 )
-            nd = self.n_devices
-            if (int(rpd) > 1 and isinstance(nd, (tuple, list))
-                    and len(nd) == 2 and int(nd[1]) > 1):
-                # the request names a feature axis: refuse before any
-                # sharding, as validate_max_leaf_nodes does
-                raise ValueError(f"rounds_per_dispatch={rpd} cannot apply: "
-                                 + fused_rounds.MESH2D_BLOCKER)
         if dataset is not None:
             raise NotImplementedError(
                 "fit(dataset=...) is not ported yet (ROADMAP.md Queue 1 "

@@ -6,7 +6,7 @@ and, for each knob registered here, the JAX package's name, default,
 parse rule and choices. Registered so far: the serving tier's knobs
 (table quantization, the scheduler's QoS classes and window, the metrics
 exemplar ring) and the forests' ``MPITREE_TPU_FOREST_HBM_BUDGET``, whose
-default alone differs (:data:`DEVICE_DEFAULTS`). The rest, and the README table generator,
+default alone differs (see its entry). The rest, and the README table generator,
 come with ``ROADMAP.md`` Queue 1 item 18; the port's other env reads
 (``core/builder.py``, ``boosting/fused_rounds.py``,
 ``utils/profiling.py``) stay where they are until then.
@@ -86,12 +86,6 @@ KNOBS: tuple = (
 )
 
 REGISTRY: dict = {k.name: k for k in KNOBS}
-# knob -> the JAX package's default and the rule the port's None keeps:
-# JAX's value is a TPU number, the port's comes from the device it runs on
-DEVICE_DEFAULTS = {
-    "MPITREE_TPU_FOREST_HBM_BUDGET": (
-        8 << 30, "half the device's memory (a TPU v5e chip has 16 GiB)"),
-}
 
 
 def _lookup(name: str) -> Knob:

@@ -69,7 +69,6 @@ from mpitree_tpu_torch.core.builder import (
     integer_weights,
     keep_level,
     level_histograms,
-    pack_for_fit,
     refit_regression_values,
     resolve_hist_subtraction,
 )
@@ -81,6 +80,7 @@ from mpitree_tpu_torch.ops.sampling import (
     node_masks_dev,
 )
 from mpitree_tpu_torch.parallel import collective
+from mpitree_tpu_torch.parallel.mesh import Mesh
 from mpitree_tpu_torch.utils.importances import (
     class_node_impurity,
     moment_node_impurity,
@@ -439,7 +439,6 @@ def build_forest_fused(binned, y: np.ndarray, *, config: BuildConfig,
                        weights: np.ndarray, cand_masks: np.ndarray,
                        n_classes: int | None = None,
                        refit_targets: np.ndarray | None = None,
-                       packed: torch.Tensor | None = None,
                        return_leaf_ids: bool = False,
                        min_child_weights: np.ndarray | None = None,
                        min_decrease_scaleds: np.ndarray | None = None,
@@ -453,11 +452,11 @@ def build_forest_fused(binned, y: np.ndarray, *, config: BuildConfig,
     (``min_child_weights``, ``min_decrease_scaleds``) and node samplers
     (``samplers``, None entries for none). Each tree is the one
     :func:`build_tree_fused` grows from the same inputs; the finished
-    trees come to the host in one copy per array kind, with the (T, N)
-    leaf ids under ``return_leaf_ids``.
+    trees come to the host, with the (T, N) leaf ids under
+    ``return_leaf_ids``.
 
-    On a ``mesh`` the trees shard over a ``(tree, data)`` mesh of its
-    shards (``_make_forest_fn``, ``:758-860``) whose shape
+    One device is a mesh of one shard (``mesh`` None). The trees shard
+    over a ``(tree, data)`` mesh of the mesh's shards (``_make_forest_fn``, ``:758-860``) whose shape
     ``parallel/mesh.tree_data_shape`` picks: the trees pad to a multiple
     of the tree axis and each tree group grows its contiguous block of
     them in sequence, on its shards, its rows sharded over the data axis
@@ -473,8 +472,6 @@ def build_forest_fused(binned, y: np.ndarray, *, config: BuildConfig,
     T = weights.shape[0]
     task = cfg.task
     dev = binned.x_binned.device
-    if packed is None and mesh is None:
-        packed = pack_for_fit(binned)
     ws = torch.as_tensor(np.asarray(weights, np.float32), device=dev)
     cms = torch.as_tensor(np.asarray(cand_masks, bool), device=dev)
     y_d = torch.as_tensor(
@@ -495,30 +492,11 @@ def build_forest_fused(binned, y: np.ndarray, *, config: BuildConfig,
     def sampler(t):
         return None if samplers is None else samplers[t]
 
-    if mesh is None:
-        grown = []
-        for t in range(T):
-            fit = FitInputs(binned, y, tree_cfg(t), n_classes=n_classes,
-                            sample_weight=ws[t], packed=packed,
-                            scale_exp=routes[t], candidate_mask=cms[t])
-            grown.append(_grow(fit, tree_cfg(t), use_sub=use_sub,
-                               sampler=sampler(t), mono_cst=mono_cst))
-        ints = torch.cat([g.ints for g in grown], dim=1).cpu().numpy()
-        counts = torch.cat([g.counts for g in grown]).cpu().numpy()
-        nids = (torch.stack([g.nids[0] for g in grown]).cpu().numpy()
-                if need_ids else None)
-        parts, at = [], 0
-        for g in grown:
-            parts.append((ints[:, at:at + g.n_nodes],
-                          counts[at:at + g.n_nodes],
-                          _level_depths(g.levels, g.n_nodes)))
-            at += g.n_nodes
-    else:
-        parts, nids = _grow_sharded(
-            binned, y, mesh, T, routes=routes, cms=cms, weights=weights,
-            n_classes=n_classes, tree_cfg=tree_cfg, sampler=sampler,
-            use_sub=use_sub, mono_cst=mono_cst, need_ids=need_ids,
-            stats=stats)
+    parts, nids = _grow_sharded(
+        binned, y, Mesh([dev]) if mesh is None else mesh, T, routes=routes,
+        cms=cms, weights=weights, n_classes=n_classes, tree_cfg=tree_cfg,
+        sampler=sampler, use_sub=use_sub, mono_cst=mono_cst,
+        need_ids=need_ids, stats=stats)
     trees = []
     for t, (ints_t, counts_t, depth_t) in enumerate(parts):
         tree = _finalize_tree(
@@ -598,7 +576,8 @@ def _exchange(mine: dict, mesh, T: int, n_rows: int,
     same bits on every process."""
     from mpitree_tpu_torch.utils.profiling import assert_replicated
 
-    dev = mesh.lead
+    # without a process group the reductions are the identity: no copies
+    dev = mesh.lead if mesh.group is not None else torch.device("cpu")
     sizes = torch.zeros(T, dtype=torch.int64, device=dev)
     C = next(iter(mine.values()))[1].shape[1] if mine else 0
     for t, (_, counts, _, _) in mine.items():

@@ -193,11 +193,9 @@ class _BaseForest(EstimatorBase):
         if host:
             binned = bin_dataset(X, max_bins=self.max_bins,
                                  binning=self.binning)
-            packed = None
         else:
             binned = bin_for_engine(X, max_bins=self.max_bins,
                                     binning=self.binning, device=device)
-            packed = pack_for_fit(binned)  # once, next to the one binning
         stats = {"bin_seconds": clock.lap()}
         rd, refine, crown_depth = resolve_refine(
             self.max_depth, self.refine_depth,
@@ -262,6 +260,8 @@ class _BaseForest(EstimatorBase):
         stats["ensemble_path"] = ("host" if host else
                                   "batched-fused" if batched else "per-tree")
         if not batched or not idxs:
+            # packed once for every tree
+            packed = None if host or not idxs else pack_for_fit(binned)
             return TreeList((prev or []) + [
                 grow_tree(
                     binned, X, y, host=host, cfg=tree_cfg(tree_w[i]),
@@ -285,8 +285,7 @@ class _BaseForest(EstimatorBase):
             cand_masks=np.stack([
                 cand if tree_mask[i] is None
                 else cand & tree_mask[i][:, None] for i in idxs]),
-            refit_targets=refit_targets, packed=packed,
-            return_leaf_ids=refine,
+            refit_targets=refit_targets, return_leaf_ids=refine,
             min_child_weights=[c.min_child_weight for c in cfgs],
             min_decrease_scaleds=[c.min_decrease_scaled for c in cfgs],
             samplers=[tree_sampler[i] for i in idxs], mono_cst=mono,

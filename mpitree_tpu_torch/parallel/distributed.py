@@ -66,11 +66,15 @@ def initialize(coordinator_address: str | None = None,
 
 
 def shutdown() -> None:
-    """Leave the process group (a no-op when none was joined)."""
+    """Leave the process group (a no-op when none was joined) and forget
+    the mesh axes' subgroups of its world, which die with it."""
     import torch.distributed as dist
+
+    from mpitree_tpu_torch.parallel import mesh
 
     if dist.is_initialized():
         dist.destroy_process_group()
+    mesh._subgroups.clear()
 
 
 def process_info(device=None) -> dict:

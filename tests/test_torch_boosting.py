@@ -458,10 +458,18 @@ def test_fit_stats_staged_surfaces_and_params(fits):
     (dict(checkpoint_every=0), ValueError, "checkpoint_every"),
 ])
 def test_refusals(data, kw, err, match):
+    """8 CPU shards, so that kw6's (4, 2) mesh is built and the fused
+    rounds refuse it (``fused_rounds.resolve_rounds_per_dispatch``)."""
+    from mpitree_tpu_torch.parallel import mesh
+
     X, y = data["binary"]
-    with pytest.raises(err, match=match):
-        P.GradientBoostingClassifier(max_iter=1, device="cpu", **kw).fit(
-            X[:100], y[:100])
+    prev = mesh.set_cpu_shards(8)
+    try:
+        with pytest.raises(err, match=match):
+            P.GradientBoostingClassifier(max_iter=1, device="cpu", **kw).fit(
+                X[:100], y[:100])
+    finally:
+        mesh.set_cpu_shards(prev)
 
 
 def test_refusals_of_data_and_devices(data):

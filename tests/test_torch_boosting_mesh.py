@@ -283,3 +283,56 @@ def test_two_gloo_processes_boost_the_one_device_ensembles(tmp_path):
     for pid, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"proc {pid}:\n{out[-3000:]}"
         assert f"PROC{pid} OK" in out
+
+
+_OVER_WORKER = """
+import sys
+sys.path.insert(0, {repo!r})
+import torch
+torch.set_num_threads(1)
+port, pid = sys.argv[1], int(sys.argv[2])
+from mpitree_tpu_torch.parallel import distributed, mesh
+mesh.set_cpu_shards(2)
+distributed.initialize(f"localhost:{{port}}", 2, pid, backend="gloo",
+                       timeout=60)
+from mpitree_tpu_torch.boosting import fused_rounds
+from mpitree_tpu_torch.tree import GradientBoostingRegressor
+from mpitree_tpu_torch.utils.datasets import california_like
+
+if pid == 0:  # this process's count channel passes its bound of 1
+    payload = fused_rounds.gbdt_payload
+    fused_rounds.gbdt_payload = lambda g, h: payload(g, h) * torch.tensor(
+        [2.0, 1.0, 1.0])
+X, y = california_like(1_200, seed=3)
+try:
+    GradientBoostingRegressor(max_iter=8, max_depth=3, random_state=0,
+                              rounds_per_dispatch=4, n_devices="all",
+                              device="cpu").fit(X, y)
+except RuntimeError as e:
+    assert "passed its dispatch's bounds" in str(e), e
+    print(f"PROC{{pid}} RAISED", flush=True)
+distributed.shutdown()
+"""
+
+
+def test_payload_bound_passed_on_one_process_raises_on_both(tmp_path):
+    """A fused dispatch whose payload passes its bounds on one process
+    only raises the same error in both processes, and neither waits on
+    the other's next collective."""
+    worker = tmp_path / "worker.py"
+    worker.write_text(_OVER_WORKER.format(repo=_REPO))
+    port = _free_port()
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, str(worker), str(port), str(pid)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env, cwd=str(tmp_path)) for pid in (0, 1)]
+    try:
+        outs = [p.communicate(timeout=120)[0] for p in procs]
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        pytest.fail("a process waited on its peer after the bound passed")
+    for pid, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"proc {pid}:\n{out[-3000:]}"
+        assert f"PROC{pid} RAISED" in out, f"proc {pid}:\n{out[-3000:]}"

@@ -212,3 +212,52 @@ def test_peer_death_after_join_is_bounded(tmp_path):
     assert rc0 == 4 and "CLEAN_MIDFIT_FAILURE" in out0, out0[-2000:]
     assert "UNEXPECTED_FIT_SUCCESS" not in out0
     assert took < 120, f"detection took {took:.0f}s"
+
+
+_REJOIN = """
+import sys
+sys.path.insert(0, {repo!r})
+import torch
+torch.set_num_threads(1)
+
+ports, pid = sys.argv[1].split(","), int(sys.argv[2])
+from mpitree_tpu_torch.parallel import collective, distributed, mesh
+mesh.set_cpu_shards(1)
+for port in ports:
+    distributed.initialize(f"localhost:{{port}}", 4, pid, backend="gloo",
+                           timeout=60)
+    m = mesh.as_tree_data_mesh(
+        mesh.resolve_mesh(device="cpu", n_devices="all"), (2, 2))
+    # the data axis pairs processes (0, 1) and (2, 3): partial subgroups
+    got = collective.psum([torch.tensor([float(pid)])],
+                          m.axis_mesh(mesh.DATA_AXIS))
+    assert got.item() == (1.0 if pid < 2 else 5.0), got
+    distributed.shutdown()
+print(f"PROC{{pid}} OK", flush=True)
+"""
+
+
+def test_rejoined_world_gets_its_own_subgroups(tmp_path):
+    """Four processes join, reduce over a (2, 2) mesh's data axis (two
+    partial subgroups), leave, and join a new world: the second world's
+    reductions run in its own subgroups, not the first world's."""
+    worker = tmp_path / "worker.py"
+    worker.write_text(_REJOIN.format(repo=_REPO))
+    ports = f"{_free_port()},{_free_port()}"
+    procs = [
+        subprocess.Popen(
+            [sys.executable, str(worker), ports, str(pid)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=_env(), cwd=str(tmp_path),
+        )
+        for pid in range(4)
+    ]
+    try:
+        outs = [p.communicate(timeout=120)[0] for p in procs]
+    except subprocess.TimeoutExpired:
+        for q in procs:
+            q.kill()
+        pytest.fail("the rejoined world hung")
+    for pid, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0 and f"PROC{pid} OK" in out, \
+            f"proc {pid}:\n{out[-3000:]}"

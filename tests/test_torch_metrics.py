@@ -166,12 +166,13 @@ def test_module_level_exposition_is_the_default_registry():
 
 @pytest.mark.parametrize("name", sorted(knobs.REGISTRY))
 def test_knob_registered_as_in_jax(name):
-    """Every field as in JAX, but a device-derived default
-    (``knobs.DEVICE_DEFAULTS``), which must be JAX's number there."""
+    """Every field as in JAX, but the forests' budget, whose default
+    comes from the device (None) where JAX's is 8 GiB, half a TPU v5e
+    chip."""
     got = dataclasses.asdict(knobs.REGISTRY[name])
     want = dataclasses.asdict(jax_knobs.REGISTRY[name])
-    if name in knobs.DEVICE_DEFAULTS:
-        assert want.pop("default") == knobs.DEVICE_DEFAULTS[name][0]
+    if name == "MPITREE_TPU_FOREST_HBM_BUDGET":
+        assert want.pop("default") == 8 << 30
         assert got.pop("default") is None
     assert got == want
 
