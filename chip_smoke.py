@@ -281,6 +281,32 @@ twin from this run:
     routes and the exchange (calls, bytes, seconds) per rank; two
     processes on one card measure invariance, not scaling.
 
+Phase 30 drives the streaming ingest (item 16 of ``ROADMAP.md``): phase
+3's matrix written to 8 ``.npy`` shards of X and 8 of y in a temporary
+directory, then ``fit(dataset=StreamedDataset...)``, whose chunks are
+sketched, binned and copied into their shards on the card:
+
+30. stream: (a) phase 3's fit from ``StreamedDataset.from_npy(...,
+    chunk_rows=65_536)``, twice: the tree equal to phase 3's field for
+    field, the second fit launching what phase 3's did; ``ingest_stats_``,
+    both walls, the device's peak memory and the host's resident-set
+    growth over the fit (sampled every 2 ms) beside the 125.5 MB raw
+    matrix; (b) the default fit streamed: the refine tail gathers its
+    rows by replaying the shards, and the tree equals phase 8's; (c)
+    phase 5's forest streamed and its in-memory twin under
+    ``MPITREE_TPU_KEYED_BOOTSTRAP=1``: the same trees, both served
+    through K4 (float64) and K5 (int8) on 4,096 held-out rows, bit for
+    bit; (d) phase 26's ``GradientBoostingRegressor()`` at
+    ``rounds_per_dispatch=8`` streamed from phase 13's matrix: margins
+    equal to phase 26's K = 8 ensemble bit for bit; (e) a one-shot
+    generator of 50,000 rows under ``MPITREE_TPU_SPILL_DIR``: the tree
+    of the same rows from ``from_arrays``, ``spill_bytes`` printed; (f)
+    two gloo processes on ``cuda:0`` (``--mesh-worker R PORT stream
+    OUT``), each streaming its half of the shards (``shard_for_process``,
+    290,506 rows) for (a)'s fit on the 2-shard data mesh: both trees equal
+    to phase 3's. The launch counters are set to 0 just before each
+    measured fit or serve and read just after.
+
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the card's name and power limit, JSON lines of per-shape kernel timings
 (``kernel_shapes``, ``serve_kernel_shapes``, ``fixed_kernel_shapes``), of
@@ -290,7 +316,8 @@ of phases 13 and 15 (``regression``, ``weights``), of phases 16-18
 of phases 19-20 (``constrained``, ``persistence``), of phases 21-23
 (``boosting``), of phase 24 (``engines``), of phases 25-26
 (``leafwise``, ``fused_rounds``), of phase 27 (``serve_tier``), of phases
-28-29 (``mesh``, ``mesh_ensembles``) and one ``kernels`` line (with each
+28-29 (``mesh``, ``mesh_ensembles``), of phase 30 (``stream``) and one
+``kernels`` line (with each
 route's launches per engine, and the stream routes at S = 2 of the
 leaf-wise pair) come before it.
 Without CUDA the script exits 1 and prints no result.
@@ -416,6 +443,9 @@ SCHED_LOADS = (0.5, 0.9)
 MESH_RANKS = 2
 MESH_DEPTH = DEPTH
 MESH_WORKER_TIMEOUT = 420
+STREAM_SHARDS = 8  # .npy shards of X (and of y): half a process in (f)
+STREAM_CHUNK = 65_536
+SPILL_ROWS = 50_000
 TREE_FIELDS = ("feature", "threshold", "left", "right", "parent", "depth",
                "value", "count", "n_node_samples", "impurity")
 
@@ -3153,7 +3183,9 @@ def _mesh_fit_kw(what: str) -> dict:
 
 
 def mesh_worker(rank: int, port: int, what: str, out: str) -> int:
-    """One process of phase 28 (b) or (d): join the gloo group of
+    """One process of phase 28 (b) or (d), or of phase 30 (f)
+    (``what="stream"``: this process's half of the ``.npy`` shards in
+    ``CHIP_SMOKE_SHARDS``, streamed): join the gloo group of
     ``MESH_RANKS`` processes at ``localhost:port``, fit phase 3's matrix
     on ``cuda:0`` with ``n_devices="all"`` (this process's shard of the
     rows), and write the tree (``out.npz``) and the fit's wall, stats and
@@ -3174,16 +3206,32 @@ def mesh_worker(rank: int, port: int, what: str, out: str) -> int:
     distributed.initialize(f"localhost:{port}", MESH_RANKS, rank,
                            backend="gloo", timeout=MESH_WORKER_TIMEOUT)
     try:
-        X, y = covtype_like(ROWS, seed=0)
         kw = _mesh_fit_kw(what)
-        if what == "tree":
+        if what == "stream":
+            # phase 30 (f): this process streams only its half of the shards
+            from mpitree_tpu_torch.ingest import (
+                StreamedDataset,
+                shard_for_process,
+            )
+
+            shards = Path(os.environ["CHIP_SMOKE_SHARDS"])
+            data = StreamedDataset.from_npy(
+                shard_for_process(sorted(map(str, shards.glob("x*.npy")))),
+                shard_for_process(sorted(map(str, shards.glob("y*.npy")))),
+                chunk_rows=STREAM_CHUNK)
+        else:
+            data = covtype_like(ROWS, seed=0)
+        if what in ("tree", "stream"):
             kw["max_depth"] = MESH_DEPTH
         clf = ParallelDecisionTreeClassifier(**kw)
         for k in hist_kernel.launches:
             hist_kernel.launches[k] = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        clf.fit(X, y)
+        if what == "stream":
+            clf.fit(data)
+        else:
+            clf.fit(*data)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(hist_kernel.launches)
@@ -3196,13 +3244,14 @@ def mesh_worker(rank: int, port: int, what: str, out: str) -> int:
             **{k: st[k] for k in MESH_STATS + (
                 "bin_seconds", "crown_seconds") if k in st},
             **{k: st[k] for k in ("crown_depth", "tail_seconds",
-                                  "refine_nodes_added") if k in st})))
+                                  "refine_nodes_added") if k in st},
+            **({"ingest": clf.ingest_stats_} if what == "stream" else {}))))
     finally:
         distributed.shutdown()
     return 0
 
 
-def _mesh_pair(what: str, want) -> dict:
+def _mesh_pair(what: str, want, env: dict | None = None) -> dict:
     """Phase 28 (b) or (d): ``MESH_RANKS`` worker processes
     (:func:`mesh_worker`) on this card; every rank's tree must equal
     ``want``. Returns the processes' wall (start to last exit) and each
@@ -3210,7 +3259,8 @@ def _mesh_pair(what: str, want) -> dict:
     out_dir = Path("build") / "chip_smoke_mesh"
     out_dir.mkdir(parents=True, exist_ok=True)
     port = _free_port()
-    env = dict(os.environ, MPITREE_TPU_DEBUG="1", GLOO_SOCKET_IFNAME="lo")
+    env = dict(os.environ, MPITREE_TPU_DEBUG="1", GLOO_SOCKET_IFNAME="lo",
+               **(env or {}))
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
         [sys.executable, str(Path(__file__).resolve()), "--mesh-worker",
@@ -3562,6 +3612,250 @@ def phase_mesh_ensembles(X, y, Xh, Xc, yc, Xch, forest, fit_tree,
     return out
 
 
+def _rss_growth(work) -> tuple:
+    """``work()``'s result and the growth of this process's resident set
+    over it: its peak (sampled every 2 ms by a thread) less the set
+    before."""
+    from mpitree_tpu_torch.obs.memory import host_rss_bytes
+
+    base = host_rss_bytes()
+    peak = [base]
+    done = threading.Event()
+
+    def sample():
+        while not done.wait(0.002):
+            peak[0] = max(peak[0], host_rss_bytes())
+
+    t = threading.Thread(target=sample, daemon=True)
+    t.start()
+    try:
+        out = work()
+    finally:
+        done.set()
+        t.join()
+    return out, max(peak[0], host_rss_bytes()) - base
+
+
+def _write_shards(X, y, where: Path) -> tuple:
+    """X and y as ``STREAM_SHARDS`` ``.npy`` shards each, cut so that each
+    of ``MESH_RANKS`` processes' contiguous share holds exactly its half of
+    the rows (phase 30 (f)'s row blocks)."""
+    xs, ys = [], []
+    per = STREAM_SHARDS // MESH_RANKS
+    for r, idx in enumerate(np.array_split(np.arange(len(X)), MESH_RANKS)):
+        for j, part in enumerate(np.array_split(idx, per)):
+            i = r * per + j
+            xs.append(str(where / f"x{i:02d}.npy"))
+            ys.append(str(where / f"y{i:02d}.npy"))
+            np.save(xs[-1], X[part[0]:part[-1] + 1])
+            np.save(ys[-1], y[part[0]:part[-1] + 1])
+    return xs, ys
+
+
+def phase_stream(X, y, Xh, fit_tree, fit_launches, hybrid_tree, Xc, yc, Xch,
+                 boost_reg8) -> dict:
+    """Phase 30: the streaming ingest on the card, (a) to (f) of the
+    module docstring."""
+    import tempfile
+
+    from mpitree_tpu_torch.ops import hist_kernel
+    from mpitree_tpu_torch.serving import compile_model, serve_kernel
+    from mpitree_tpu_torch.tree import (
+        DecisionTreeClassifier,
+        GradientBoostingRegressor,
+        RandomForestClassifier,
+        StreamedDataset,
+    )
+
+    def zero():
+        for c in (hist_kernel.launches, serve_kernel.launches):
+            for k in c:
+                c[k] = 0
+        torch.cuda.synchronize()
+
+    def same(tree, want, what):
+        bad = _differing(tree, want)
+        if bad:
+            raise AssertionError(f"stream ({what}): tree differs in {bad}")
+
+    out = {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_stream-") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        xs, ys = _write_shards(X, y, tmp)
+        out["write_shards_s"] = time.perf_counter() - t0
+
+        def shards():
+            return StreamedDataset.from_npy(xs, ys, chunk_rows=STREAM_CHUNK)
+
+        # (a) phase 3's fit, streamed, twice
+        clf = DecisionTreeClassifier(criterion="entropy", max_depth=DEPTH,
+                                     max_bins=256, **DEVICE_ONLY)
+        t0 = time.perf_counter()
+        clf.fit(shards())
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        same(clf.tree_, fit_tree, "a, first fit")
+        torch.cuda.reset_peak_memory_stats()
+        zero()
+        t0 = time.perf_counter()
+        _, rss = _rss_growth(lambda: clf.fit(shards()))
+        torch.cuda.synchronize()
+        second = time.perf_counter() - t0
+        launches = dict(hist_kernel.launches)
+        same(clf.tree_, fit_tree, "a")
+        if launches != fit_launches:
+            raise AssertionError(f"stream (a): launches {launches}, phase "
+                                 f"3's {fit_launches}")
+        raw_mb = X.nbytes / 1e6
+        out["a"] = dict(first_s=first, second_s=second, launches=launches,
+                        ingest=clf.ingest_stats_, fit_stats=clf.fit_stats_,
+                        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                        host_rss_growth_mb=rss / 1e6, raw_matrix_mb=raw_mb)
+        log(f"stream (a): phase 3's fit from {len(xs)} .npy shards, chunks "
+            f"of {STREAM_CHUNK}: first {first:.3f} s, second {second:.3f} s "
+            f"(ingest: sketch {clf.ingest_stats_['sketch_s']} s, bin+place "
+            f"{clf.ingest_stats_['bin_place_s']} s, "
+            f"{clf.ingest_stats_['rows_per_s_host']} rows/s on the host); "
+            f"tree == phase 3's; launches {launches} == phase 3's; peak "
+            f"device memory {out['a']['peak_gib']:.3f} GiB; host RSS growth "
+            f"{rss / 1e6:.1f} MB against the {raw_mb:.1f} MB raw matrix; "
+            f"ingest_stats_ {json.dumps(clf.ingest_stats_)}")
+
+        # (b) the default fit, streamed: the tail replays the shards
+        dflt = DecisionTreeClassifier(criterion="entropy", max_depth=DEPTH,
+                                      max_bins=256)
+        zero()
+        t0 = time.perf_counter()
+        dflt.fit(shards())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = dict(dflt.fit_stats_)
+        same(dflt.tree_, hybrid_tree, "b")
+        if not (st.get("crown_depth") == HYBRID_CROWN
+                and st.get("refine_nodes_added", 0) > 0):
+            raise AssertionError(f"stream (b): the tail did not engage: {st}")
+        out["b"] = dict(wall_s=wall, launches=dict(hist_kernel.launches),
+                        fit_stats=st, ingest=dflt.ingest_stats_)
+        log(f"stream (b): default fit streamed {wall:.3f} s (crown "
+            f"{st['crown_seconds']:.3f} s, tail {st['tail_seconds']:.3f} s, "
+            f"{st['refine_nodes_added']} nodes added); tree == phase 8's")
+
+        # (c) phase 5's forest, streamed, and its keyed in-memory twin
+        Xf, yf = X[:FOREST_ROWS], y[:FOREST_ROWS]
+        kw = dict(FOREST, **DEVICE_ONLY)
+        zero()
+        t0 = time.perf_counter()
+        forest = RandomForestClassifier(**kw).fit(
+            StreamedDataset.from_arrays(Xf, yf, chunk_rows=STREAM_CHUNK))
+        torch.cuda.synchronize()
+        forest_s = time.perf_counter() - t0
+        forest_launches = dict(hist_kernel.launches)
+        os.environ["MPITREE_TPU_KEYED_BOOTSTRAP"] = "1"
+        try:
+            t0 = time.perf_counter()
+            twin = RandomForestClassifier(**kw).fit(Xf, yf)
+            torch.cuda.synchronize()
+            twin_s = time.perf_counter() - t0
+        finally:
+            del os.environ["MPITREE_TPU_KEYED_BOOTSTRAP"]
+        for i, (a, b) in enumerate(zip(forest.trees_, twin.trees_)):
+            same(a, b, f"c, tree {i}")
+        if len(forest.trees_) != FOREST["n_estimators"] or not all(
+                forest_launches[k] for k in hist_kernel.ROUTES):
+            raise AssertionError(f"stream (c): {len(forest.trees_)} trees, "
+                                 f"launches {forest_launches}")
+        Xq = Xh[:4_096]
+        served = {}
+        for quant in (None, "int8"):
+            cm_twin = compile_model(twin, quantize=quant)
+            cm = compile_model(forest, quantize=quant)
+            want = cm_twin.raw(Xq)
+            zero()
+            got = cm.raw(Xq)
+            torch.cuda.synchronize()
+            served[quant or "float64"] = dict(serve_kernel.launches)
+            if not np.array_equal(got, want):
+                raise AssertionError(f"stream (c): served {quant} answers "
+                                     "differ from the twin's")
+        serve_launches = {"traverse": served["float64"]["traverse"],
+                          "traverse_q": served["int8"]["traverse_q"]}
+        if not all(serve_launches.values()):
+            raise AssertionError(f"stream (c): serving launches {served}")
+        out["c"] = dict(wall_s=forest_s, twin_wall_s=twin_s,
+                        launches=forest_launches,
+                        serve_launches=serve_launches,
+                        ingest=forest.ingest_stats_)
+        log(f"stream (c): phase 5's forest streamed {forest_s:.3f} s, keyed "
+            f"in-memory twin {twin_s:.3f} s: {len(forest.trees_)} trees "
+            f"equal; launches {forest_launches}; served through K4/K5 bit "
+            f"for bit to the twin's on {len(Xq)} rows, launches "
+            f"{serve_launches}")
+
+        # (d) phase 26's K = 8 regressor, streamed
+        zero()
+        t0 = time.perf_counter()
+        breg = GradientBoostingRegressor(
+            rounds_per_dispatch=FUSED_K, max_iter=BOOST_ROUNDS).fit(
+            StreamedDataset.from_arrays(Xc, yc, chunk_rows=STREAM_CHUNK))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if breg.fit_stats_["rounds_per_dispatch"]["value"] != FUSED_K:
+            raise AssertionError("stream (d): K not taken")
+        if not np.array_equal(breg.predict(Xch), boost_reg8.predict(Xch)):
+            raise AssertionError("stream (d): margins differ from phase "
+                                 "26's K = 8 ensemble")
+        out["d"] = dict(wall_s=wall, launches=dict(hist_kernel.launches),
+                        ingest=breg.ingest_stats_)
+        log(f"stream (d): GradientBoostingRegressor K={FUSED_K} streamed "
+            f"{wall:.3f} s; held-out margins == phase 26's bit for bit; "
+            f"launches {out['d']['launches']}")
+
+        # (e) a one-shot generator through the spill rung
+        Xs, ys_ = X[:SPILL_ROWS], y[:SPILL_ROWS]
+
+        def gen():
+            for lo in range(0, SPILL_ROWS, 8_192):
+                yield Xs[lo:lo + 8_192], ys_[lo:lo + 8_192]
+
+        spill_dir = tmp / "spill"
+        spill_dir.mkdir()
+        os.environ["MPITREE_TPU_SPILL_DIR"] = str(spill_dir)
+        try:
+            one = DecisionTreeClassifier(criterion="entropy",
+                                         max_depth=DEPTH, max_bins=256,
+                                         **DEVICE_ONLY).fit(
+                StreamedDataset.from_chunks(gen()))
+        finally:
+            del os.environ["MPITREE_TPU_SPILL_DIR"]
+        ref = DecisionTreeClassifier(criterion="entropy", max_depth=DEPTH,
+                                     max_bins=256, **DEVICE_ONLY).fit(
+            StreamedDataset.from_arrays(Xs, ys_, chunk_rows=8_192))
+        same(one.tree_, ref.tree_, "e")
+        out["e"] = dict(spill_bytes=one.ingest_stats_["spill_bytes"],
+                        spill_chunks=one.ingest_stats_["spill_chunks"])
+        log(f"stream (e): one-shot generator of {SPILL_ROWS} rows spilled "
+            f"{out['e']['spill_bytes']} bytes in {out['e']['spill_chunks']} "
+            "chunks; tree == from_arrays's")
+
+        # (f) two gloo processes, each streaming its half of the shards
+        out["f"] = _mesh_pair("stream", fit_tree,
+                              env={"CHIP_SMOKE_SHARDS": str(tmp)})
+        for r in out["f"]["ranks"]:
+            if r["ingest"]["rows_local"] != ROWS // MESH_RANKS:
+                raise AssertionError(f"stream (f): rank {r['rank']} "
+                                     f"streamed {r['ingest']}")
+        log(f"stream (f): {MESH_RANKS} gloo processes on one card, each "
+            f"streaming {ROWS // MESH_RANKS} rows: processes "
+            f"{out['f']['processes_wall_s']:.3f} s, fits "
+            f"{[round(r['wall_s'], 3) for r in out['f']['ranks']]} s; both "
+            f"trees == phase 3's; launches "
+            f"{[r['launches'] for r in out['f']['ranks']]}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def phase_profile(name: str, work, out_dir: Path) -> None:
     """Run ``work()`` once more under torch.profiler: device time by kernel
     and the device's busy share of the wall-clock; the table goes to
@@ -3793,6 +4087,9 @@ def main() -> int:
     ensembles = phase_mesh_ensembles(X, y, Xh, Xc, yc, Xch, forest,
                                      fit_tree, leaf_tree, boost_regs)
     mark("29 mesh ensembles")
+    stream = phase_stream(X, y, Xh, fit_tree, launches, hybrid_tree, Xc, yc,
+                          Xch, boost_regs[FUSED_K])
+    mark("30 stream")
     if args.profile:
         profile_all(X, y, forest, Xh, args.profile)
 
@@ -3830,6 +4127,8 @@ def main() -> int:
                                  for r in mesh[part]["ranks"]]
                 for part in ("a", "b", "c", "d")},
             mesh_ensemble_launches=_ensemble_launches(ensembles, route),
+            stream_launches={part: stream[part]["launches"][route]
+                             for part in ("a", "b", "c")},
         ))
     for form, (agg, chan) in SERVE_LINE.items():
         row = next(r for r in serve_shapes if r["kernel"] == form
@@ -3857,6 +4156,8 @@ def main() -> int:
             serve_tier_launches={k: v[form]
                                  for k, v in tier["launches"].items()},
             mesh_forest_serve_launches=ensembles["f"]["launches"][form],
+            stream_forest_serve_launches=stream["c"]["serve_launches"][
+                form],
         ))
     for key, S in FIXED_LINE.items():
         route = key[:-len("_fixed")]
@@ -3892,6 +4193,7 @@ def main() -> int:
                 for what in ("regressor", "classifier")
                 for K in (1, FUSED_K)},
             mesh_ensemble_launches=_ensemble_launches(ensembles, key),
+            stream_launches=stream["d"]["launches"][key],
         ))
     for form in SERVE_LINE:
         for what in ("classifier", "regressor"):
@@ -3953,6 +4255,7 @@ def main() -> int:
     log(json.dumps({"serve_tier": tier}))
     log(json.dumps({"mesh": mesh}))
     log(json.dumps({"mesh_ensembles": ensembles}))
+    log(json.dumps({"stream": stream}))
     log(json.dumps({"phase_end_s": clock}))
     log(card)
     log(json.dumps({"kernels": kernels}))

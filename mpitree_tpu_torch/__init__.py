@@ -32,6 +32,7 @@ from mpitree_tpu_torch.boosting import (
     GradientBoostingClassifier,
     GradientBoostingRegressor,
 )
+from mpitree_tpu_torch.ingest import StreamedDataset
 from mpitree_tpu_torch.models.classifier import (
     DecisionTreeClassifier,
     ParallelDecisionTreeClassifier,
@@ -57,6 +58,7 @@ __all__ = [
     "ParallelDecisionTreeClassifier",
     "RandomForestClassifier",
     "RandomForestRegressor",
+    "StreamedDataset",
     "compile_model",
     "load_model",
     "save_model",

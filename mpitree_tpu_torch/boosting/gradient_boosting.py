@@ -61,10 +61,18 @@ mesh (``fused_rounds.run_fused_rounds``). ``predict`` splits its rows
 over the local shards. ``fit_stats_`` then holds ``n_shards`` and the
 collectives' counts.
 
+``fit(dataset=StreamedDataset...)`` (or the dataset as ``X``) boosts
+from a chunk stream (``mpitree_tpu_torch.ingest``; ``:253-360``), on the
+host loop and the fused rounds alike: the matrix is placed once on the
+mesh (one shard for one device) and every round reads it there; the
+subsample's row masks are keyed by the global row, so the rounds are the
+in-memory fit's. ``early_stopping`` and ``colsample_bytree < 1`` raise
+there, as in the JAX package.
+
 Options off this path raise ``NotImplementedError`` naming their
-``ROADMAP.md`` item: ``checkpoint`` (item 17) and ``fit(dataset=...)``
-(item 16). ``backend="host"`` raises ``ValueError``: boosting rounds run
-the device engine only, as in the JAX package.
+``ROADMAP.md`` item: ``checkpoint`` (item 17). ``backend="host"`` raises
+``ValueError``: boosting rounds run the device engine only, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -82,6 +90,12 @@ from mpitree_tpu_torch.core.builder import (
     build_tree,
     pack_for_fit,
     shard_matrix,
+)
+from mpitree_tpu_torch.models._streamed import (
+    ingest_for,
+    is_streamed,
+    stream_of,
+    stream_weight,
 )
 from mpitree_tpu_torch.models.classifier import (
     ClassifierBase,
@@ -106,6 +120,7 @@ from mpitree_tpu_torch.serving.tables import TreeList
 from mpitree_tpu_torch.utils.validation import (
     resolve_min_samples_leaf,
     validate_fit_data,
+    validate_fit_targets,
     validate_max_leaf_nodes,
     validate_predict_data,
     validate_sample_weight,
@@ -226,7 +241,7 @@ class _BaseGradientBoosting(EstimatorBase):
         self.device = device
 
     # -- fit ---------------------------------------------------------------
-    def _validate_params_(self, dataset) -> None:
+    def _validate_params_(self) -> None:
         """The JAX package's parameter checks (``:208-251``), then the
         options this slice refuses."""
         if not self.learning_rate > 0:
@@ -272,22 +287,51 @@ class _BaseGradientBoosting(EstimatorBase):
                     "rounds_per_dispatch must be an integer >= 1 or "
                     f"'auto', got {rpd!r}"
                 )
-        if dataset is not None:
-            raise NotImplementedError(
-                "fit(dataset=...) is not ported yet (ROADMAP.md Queue 1 "
-                "item 16, streaming)"
-            )
         refuse_later(self, _LATER)
 
+    def _streamed_refusals_(self, X, y, dataset):
+        """The combinations a streamed round loop cannot honour
+        (``:253-280``), refused with the JAX package's words."""
+        stream_of(X, dataset, y)
+        if self.early_stopping:
+            raise ValueError(
+                "early_stopping scores a held-out raw-feature slice by "
+                "host descent every round; a streamed fit never "
+                "materializes raw rows — disable early_stopping or fit "
+                "in memory"
+            )
+        if float(self.colsample_bytree) < 1.0:
+            raise ValueError(
+                "colsample_bytree < 1 re-slices the binned matrix on "
+                "host every round; the streamed matrix lives sharded on "
+                "device — use subsample (keyed row masks stay streamed) "
+                "or fit in memory"
+            )
+
     def _fit(self, X, y, sample_weight, *, task, dataset=None):
-        self._validate_params_(dataset)
+        self._validate_params_()
         mln = validate_max_leaf_nodes(self)
-        mesh = fit_mesh(self, False)
-        device = resolve_device(self.device) if mesh is None else mesh.lead
-        X, y_t, classes = validate_fit_data(X, y, task=task)
-        sw = validate_sample_weight(sample_weight, X.shape[0])
-        self.n_features_ = X.shape[1]
-        self.n_features_in_ = X.shape[1]
+        streamed = is_streamed(X, dataset)
+        if streamed:
+            # the mesh first: the chunks land on it as they are binned
+            self._streamed_refusals_(None if dataset is None else X, y,
+                                     dataset)
+            res, mesh, clock, stats = ingest_for(
+                self, X if dataset is None else dataset)
+            binned = res.binned
+            device = clock.device
+            y_t, classes = validate_fit_targets(res.y, task=task)
+            sw = stream_weight(res, sample_weight)
+            F = binned.n_features
+        else:
+            mesh = fit_mesh(self, False)
+            device = (resolve_device(self.device) if mesh is None
+                      else mesh.lead)
+            X, y_t, classes = validate_fit_data(X, y, task=task)
+            sw = validate_sample_weight(sample_weight, X.shape[0])
+            F = X.shape[1]
+        self.n_features_ = F
+        self.n_features_in_ = F
         self.n_outputs_ = 1
         if task == "classification":
             if len(classes) < 2:
@@ -305,7 +349,11 @@ class _BaseGradientBoosting(EstimatorBase):
 
         # Held-out rows come off a keyed permutation before binning, so
         # they reach neither the bin edges nor the trees.
-        if self.early_stopping:
+        if streamed:
+            # early_stopping was refused: every row trains
+            X_tr, y_tr, sw_tr = None, y_t, sw
+            X_val = y_val = sw_val = None
+        elif self.early_stopping:
             if not 0.0 < float(self.validation_fraction) < 1.0:
                 raise ValueError(
                     "validation_fraction must be in (0, 1), got "
@@ -323,15 +371,17 @@ class _BaseGradientBoosting(EstimatorBase):
         else:
             X_tr, y_tr, sw_tr = X, y_t, sw
             X_val = y_val = sw_val = None
-        n_tr = X_tr.shape[0]
-
-        clock = FitClock(device)
-        binned = bin_for_engine(X_tr, max_bins=self.max_bins,
-                                binning=self.binning, device=device)
-        packed = pack_for_fit(binned)
-        stats = {"bin_seconds": clock.lap(),
-                 "loss_seconds": 0.0, "build_seconds": 0.0,
-                 "refit_seconds": 0.0}
+        if streamed:
+            n_tr = binned.n_samples
+        else:
+            n_tr = X_tr.shape[0]
+            clock = FitClock(device)
+            binned = bin_for_engine(X_tr, max_bins=self.max_bins,
+                                    binning=self.binning, device=device)
+            stats = {"bin_seconds": clock.lap()}
+        # a mesh's shards pack their own bins (FitInputs, shard_matrix)
+        packed = pack_for_fit(binned) if mesh is None else None
+        stats.update(loss_seconds=0.0, build_seconds=0.0, refit_seconds=0.0)
         cfg = BuildConfig(
             task="gbdt",
             max_depth=self.max_depth,
@@ -468,6 +518,8 @@ class _BaseGradientBoosting(EstimatorBase):
                                   if val_scores is not None else None)
         self._loss_obj = loss
         self.fit_stats_ = stats
+        if streamed:
+            res.close()  # the spill store, if the ingest opened one
         return self
 
     # -- predict -----------------------------------------------------------
@@ -548,7 +600,7 @@ class GradientBoostingRegressor(RegressorBase, _BaseGradientBoosting):
             checkpoint_compact_every=checkpoint_compact_every, device=device,
         )
 
-    def fit(self, X, y, sample_weight=None, *, dataset=None):
+    def fit(self, X=None, y=None, sample_weight=None, *, dataset=None):
         return self._fit(X, y, sample_weight, task="regression",
                          dataset=dataset)
 
@@ -600,7 +652,7 @@ class GradientBoostingClassifier(ClassifierBase, _BaseGradientBoosting):
             checkpoint_compact_every=checkpoint_compact_every, device=device,
         )
 
-    def fit(self, X, y, sample_weight=None, *, dataset=None):
+    def fit(self, X=None, y=None, sample_weight=None, *, dataset=None):
         return self._fit(X, y, sample_weight, task="classification",
                          dataset=dataset)
 

@@ -5,8 +5,10 @@ mechanism (:class:`Knob`, :data:`REGISTRY`, :func:`value`, :func:`raw`)
 and, for each knob registered here, the JAX package's name, default,
 parse rule and choices. Registered so far: the serving tier's knobs
 (table quantization, the scheduler's QoS classes and window, the metrics
-exemplar ring) and the forests' ``MPITREE_TPU_FOREST_HBM_BUDGET``, whose
-default alone differs (see its entry). The rest, and the README table generator,
+exemplar ring), the forests' ``MPITREE_TPU_FOREST_HBM_BUDGET``, whose
+default alone differs (see its entry), and the streaming ingest's five
+(host budget, sketch capacity, spill directory and cap, keyed bootstrap).
+The rest, and the README table generator,
 come with ``ROADMAP.md`` Queue 1 item 18; the port's other env reads
 (``core/builder.py``, ``boosting/fused_rounds.py``,
 ``utils/profiling.py``) stay where they are until then.
@@ -26,6 +28,11 @@ from __future__ import annotations
 import dataclasses
 import os
 from typing import Any, Callable
+
+
+def _one(raw: str) -> bool:
+    """Strict opt-in: only the literal "1" enables."""
+    return raw == "1"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,6 +85,25 @@ KNOBS: tuple = (
     Knob("MPITREE_TPU_FOREST_HBM_BUDGET", "int", None,
          "per-device budget (bytes) for the replicated binned matrix in"
          " tree-sharded forest builds", parse=int),
+    # -- ingest ------------------------------------------------------------
+    Knob("MPITREE_TPU_HOST_BYTES", "int", 1 << 30,
+         "host-RAM budget streamed-ingest chunk sizing derives from",
+         parse=int),
+    Knob("MPITREE_TPU_SKETCH_CAPACITY", "int", 1 << 20,
+         "per-feature unique-value cap before the quantile sketch"
+         " compacts", parse=int),
+    Knob("MPITREE_TPU_SPILL_DIR", "path", None,
+         "spill rung for one-shot chunk iterators: the first ingest pass"
+         " tees every chunk here (atomic files, manifest-last commit) so"
+         " later passes replay from disk; unset = one-shot sources are"
+         " refused"),
+    Knob("MPITREE_TPU_SPILL_BYTES", "int", 16 << 30,
+         "spill-store size cap in bytes; a stream that would exceed it"
+         " raises before the offending chunk is kept", parse=int),
+    Knob("MPITREE_TPU_KEYED_BOOTSTRAP", "bool", False,
+         "`1` switches in-memory forest bootstrap/feature draws to the"
+         " keyed counter-based sampler streamed forests always use —"
+         " the fingerprint twin of a streamed forest fit", parse=_one),
     # -- observability ----------------------------------------------------
     Knob("MPITREE_TPU_METRICS_EXEMPLARS", "int", 0,
          "per-bucket exemplar reservoir size K for obs.metrics"

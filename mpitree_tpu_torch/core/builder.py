@@ -100,7 +100,7 @@ import torch
 
 from mpitree_tpu_torch.core.tree_struct import TreeArrays
 from mpitree_tpu_torch.ops import hist_kernel
-from mpitree_tpu_torch.ops.binning import BinnedData
+from mpitree_tpu_torch.ops.binning import BinnedData, StreamedBinnedData
 from mpitree_tpu_torch.ops.histogram import (
     class_payload,
     gbdt_payload,
@@ -471,7 +471,8 @@ class FitInputs:
     shard's payload (``collective.payload_scale``); ``N``, ``K`` and
     ``U`` are the global row count's, so every shard and process chunks
     alike. ``x_shards`` (a forest's, :func:`shard_matrix`) hands in the
-    shards' bins already placed. Without a mesh, ``shards`` holds the one
+    shards' bins already placed, as a ``StreamedBinnedData`` on ``mesh``
+    does (the local shards the streaming ingest placed). Without a mesh, ``shards`` holds the one
     device's rows. The attributes ``xb``, ``packed``, ``y``, ``payload``
     and ``dev`` are the first (lead) shard's.
 
@@ -498,13 +499,18 @@ class FitInputs:
             shard_build_inputs,
         )
 
+        if isinstance(binned, StreamedBinnedData) and x_shards is None:
+            # a stream placed its shards on the mesh already
+            x_shards = shard_matrix(binned, mesh)
         xb = binned.x_binned
-        if not isinstance(xb, torch.Tensor):
+        if x_shards is None and not isinstance(xb, torch.Tensor):
             raise TypeError(
                 "build_tree needs BinnedData with a tensor x_binned")
         task = cfg.task
         self.mesh = mesh
-        self.N, self.F = int(xb.shape[0]), int(xb.shape[1])
+        # real extents from the dataclass: a streamed matrix's shards
+        # carry the mesh's padding
+        self.N, self.F = binned.n_samples, binned.n_features
         self.B = binned.n_bins
         self.feat_bins = [int(v) + 1 for v in binned.n_cand]
         self.C = 3 if task in ("regression", "gbdt") else int(n_classes)
@@ -721,17 +727,28 @@ def shard_matrix(binned: BinnedData, mesh) -> list:
     """The ``x_shards`` of a :class:`FitInputs` on ``mesh``: per local
     shard its rows' int32 bins (its feature slab on a feature axis) and
     their byte-wide copy, made once for every tree a forest or a boosted
-    ensemble grows on that mesh."""
-    from mpitree_tpu_torch.parallel.mesh import shard_build_inputs
+    ensemble grows on that mesh. A ``StreamedBinnedData`` brings its
+    shards placed already (``parallel/mesh.check_placed`` holds them to
+    ``mesh``); only their byte-wide copies are made here."""
+    from mpitree_tpu_torch.parallel.mesh import (
+        check_placed,
+        shard_build_inputs,
+    )
 
-    n, F = (int(v) for v in binned.x_binned.shape)
+    def packed(x_i):
+        return (hist_kernel.pack_bins(x_i, binned.n_bins)
+                if binned.n_bins <= 256 else None)
+
+    if isinstance(binned, StreamedBinnedData):
+        check_placed(binned, mesh)
+        return [(x_i, packed(x_i)) for x_i in binned.x_binned]
+    n, F = binned.n_samples, binned.n_features
     out = []
     for part in shard_build_inputs(mesh, binned.x_binned,
                                    np.zeros(n, np.int32), None,
                                    cand_mask=np.zeros((F, 1), bool)):
         x_i = part["x_binned"].to(torch.int32).contiguous()
-        out.append((x_i, hist_kernel.pack_bins(x_i, binned.n_bins)
-                    if binned.n_bins <= 256 else None))
+        out.append((x_i, packed(x_i)))
     return out
 
 

@@ -73,7 +73,9 @@ from mpitree_tpu_torch.core.builder import (
     resolve_hist_subtraction,
 )
 from mpitree_tpu_torch.core.tree_struct import TreeArrays
+from mpitree_tpu_torch.ingest.place import gather_matrix
 from mpitree_tpu_torch.ops import hist_kernel
+from mpitree_tpu_torch.ops.binning import BinnedData, StreamedBinnedData
 from mpitree_tpu_torch.ops.sampling import (
     child_keys_dev,
     node_draws_dev,
@@ -465,12 +467,24 @@ def build_forest_fused(binned, y: np.ndarray, *, config: BuildConfig,
     (:func:`_forest_routes`: every process holds every row, so these are
     the global statistics, and the shards' int64 sums add exactly). The
     finished trees then go to every process (:func:`_exchange`) and are
-    finalized there as on one device. ``stats`` receives ``forest_mesh``
+    finalized there as on one device. A ``StreamedBinnedData`` (whose
+    shards lie on the ingest's data mesh, not the groups') becomes the
+    whole matrix on the lead first, once per fit
+    (``ingest/place.gather_matrix``). ``stats`` receives ``forest_mesh``
     (the ``(tree, data)`` shape)."""
     cfg = config
     _check_fused(cfg)
     T = weights.shape[0]
     task = cfg.task
+    if isinstance(binned, StreamedBinnedData):
+        # the tree groups need other row blocks than the stream's shards
+        # hold: the whole matrix on the lead, once per fit (one all-reduce
+        # across processes), which each group then slices as it slices an
+        # in-memory matrix
+        binned = BinnedData(
+            x_binned=gather_matrix(binned, mesh),
+            thresholds=binned.thresholds, n_cand=binned.n_cand,
+            n_bins=binned.n_bins, quantized=binned.quantized)
     dev = binned.x_binned.device
     ws = torch.as_tensor(np.asarray(weights, np.float32), device=dev)
     cms = torch.as_tensor(np.asarray(cand_masks, bool), device=dev)
@@ -532,9 +546,8 @@ def _grow_sharded(binned, y, mesh, T: int, *, routes, cms, weights,
     from mpitree_tpu_torch.core.builder import shard_matrix
     from mpitree_tpu_torch.parallel import mesh as mesh_lib
 
-    xb = binned.x_binned
     Dt, Dd = mesh_lib.tree_data_shape(
-        mesh.size, T, dataset_bytes=xb.numel() * xb.element_size(),
+        mesh.size, T, dataset_bytes=4 * binned.n_samples * binned.n_features,
         hbm_budget=mesh_lib.forest_hbm_budget(mesh.lead))
     if stats is not None:
         stats["forest_mesh"] = [Dt, Dd]
@@ -559,8 +572,7 @@ def _grow_sharded(binned, y, mesh, T: int, *, routes, cms, weights,
             if sub.rank == 0:  # the group's first process sends it
                 mine[t] = (g.ints.cpu().numpy(), g.counts.cpu().numpy(),
                            _level_depths(g.levels, g.n_nodes), ids)
-    return _exchange(mine, mesh, T, int(binned.x_binned.shape[0]),
-                     need_ids)
+    return _exchange(mine, mesh, T, binned.n_samples, need_ids)
 
 
 def _exchange(mine: dict, mesh, T: int, n_rows: int,

@@ -42,8 +42,12 @@ A regression tail sweeps the moments with the C++ regression sweep and
 refits its subtrees' values exactly from their rows
 (``core/builder.refit_regression_values``), as the JAX package does.
 
-Not here (``ROADMAP.md``): the streamed row gather (item 16) and
-fingerprints (item 18).
+A streamed fit has no raw matrix: its ``X`` is a row provider
+(``ingest/stream.StreamRowProvider``), and the tail replays the chunk
+stream once for the sorted union of its candidates' rows
+(:class:`_GatheredRows`), so it refines exactly as an in-memory fit does.
+
+Not here (``ROADMAP.md`` item 18): fingerprints.
 """
 
 from __future__ import annotations
@@ -334,6 +338,22 @@ def _graft_batched(top: TreeArrays, bt: TreeArrays, attach,
     return ext
 
 
+class _GatheredRows:
+    """A gathered block of raw rows standing in for the training matrix
+    (``mpitree_tpu/core/hybrid_builder.py:47-65``). The tail engines only
+    index ``X`` by arrays of training rows (``X[rows_all]``, ``X[rows]``),
+    so one replay of the chunk stream for the sorted union of every
+    candidate's rows serves them; the candidates' row sets are disjoint,
+    so the block is exactly the tail's working set."""
+
+    def __init__(self, rows: np.ndarray, block: np.ndarray):
+        self._rows = rows          # sorted global row ids
+        self._block = block        # (len(rows), F) float32
+
+    def __getitem__(self, idx):
+        return self._block[np.searchsorted(self._rows, idx)]
+
+
 def refine_deep_subtrees(tree: TreeArrays, X: np.ndarray, y_enc: np.ndarray,
                          leaf_ids: np.ndarray, *, config, refine_depth: int,
                          n_classes: int | None = None,
@@ -355,7 +375,8 @@ def refine_deep_subtrees(tree: TreeArrays, X: np.ndarray, y_enc: np.ndarray,
     regression tail (``config.task``) takes ``y_enc`` as the float32
     centred targets and ``refit_targets`` as the float64 ones.
     ``feature_mask`` (F,) bool keeps a forest tree's subspace;
-    ``feature_sampler`` continues the crown's per-node sampling.
+    ``feature_sampler`` continues the crown's per-node sampling. ``X``
+    may be a streamed fit's row provider (anything with ``gather``).
     """
     cfg = config
     if cfg.max_depth is not None and int(cfg.max_depth) <= refine_depth:
@@ -379,6 +400,12 @@ def refine_deep_subtrees(tree: TreeArrays, X: np.ndarray, y_enc: np.ndarray,
     if not keep.any():
         return tree
     candidates, starts, ends = candidates[keep], starts[keep], ends[keep]
+    if hasattr(X, "gather"):
+        # a streamed fit: one replay of the chunk stream for the sorted
+        # union of the candidates' rows, which both tail engines index
+        needed = np.sort(
+            np.concatenate([order[s:e] for s, e in zip(starts, ends)]))
+        X = _GatheredRows(needed, X.gather(needed))
     sampling = feature_sampler is not None and feature_sampler.active
     batched = native.lib() is not None and not (
         feature_sampler is not None and feature_sampler.random_split)

@@ -68,6 +68,12 @@ refine tail (``:249-252``); ``backend="host"`` refuses it, as the JAX
 package does. ``fit_stats_`` then also holds ``frontier`` (``"leafwise"``)
 and ``expansions``.
 
+``fit(dataset=StreamedDataset...)`` (or the dataset as ``X``) fits from
+a chunk stream (``mpitree_tpu_torch.ingest``, ``models/_streamed.py``):
+the raw matrix never exists on the host, the binned one only on the
+devices, and the tree equals the in-memory fit's while the sketch is
+exact; ``ingest_stats_`` holds the ingest's counts and seconds.
+
 ``n_devices`` (None or 1: one device) builds on a data mesh
 (``parallel/mesh.resolve_mesh``: ``"all"``, -1 or an int; across the
 processes that ``parallel/distributed.initialize`` joined): the rows
@@ -104,6 +110,7 @@ from mpitree_tpu_torch.core.builder import (
 from mpitree_tpu_torch.core.host_builder import build_tree_host
 from mpitree_tpu_torch.core.hybrid_builder import apply_refine
 from mpitree_tpu_torch.core.tree_struct import TreeArrays
+from mpitree_tpu_torch.models._streamed import is_streamed, streamed_fit
 from mpitree_tpu_torch.ops.binning import bin_dataset, bin_for_engine
 from mpitree_tpu_torch.ops.predict import predict_leaf_ids
 from mpitree_tpu_torch.ops.sampling import sampler_for
@@ -374,7 +381,9 @@ class DecisionTreeClassifier(ClassifierBase):
             )
 
     # -- fitting -----------------------------------------------------------
-    def fit(self, X, y, sample_weight=None):
+    def fit(self, X=None, y=None, sample_weight=None, *, dataset=None):
+        if is_streamed(X, dataset):
+            return streamed_fit(self, X, dataset, y, sample_weight)
         self._check_slice()
         host = host_tier(self.backend)
         mesh = fit_mesh(self, host)

@@ -65,9 +65,19 @@ one-device tree field for field, and the refine tail, ``oob_score`` and
 device. ``fit_stats_`` then holds ``n_shards``, ``forest_mesh`` and the
 collectives' counts. ``predict`` splits its rows over the local shards.
 
+``fit(dataset=StreamedDataset...)`` (or the dataset as ``X``) fits from
+a chunk stream (``mpitree_tpu_torch.ingest``; ``:204-260``): the draws of
+phase A are then keyed by (seed, tree, row or feature)
+(``ops/sampling.bootstrap_weights``, ``tree_seed``, ``feature_subset``),
+every tree grows to its full depth on the device (no tail), and
+``oob_score`` and ``backend="host"`` raise. An in-memory fit under
+``MPITREE_TPU_KEYED_BOOTSTRAP=1`` draws the same and grows the streamed
+forest's trees. A stream placed on a data mesh reaches the ``(tree,
+data)`` mesh as the whole matrix on the lead device, once per fit (one
+all-reduce across processes; ``core/fused_builder.build_forest_fused``).
+
 Options off this path raise ``NotImplementedError`` naming their
-``ROADMAP.md`` item: ``checkpoint``, ``checkpoint_compact_every`` and
-``dataset=``.
+``ROADMAP.md`` item: ``checkpoint`` and ``checkpoint_compact_every``.
 """
 
 from __future__ import annotations
@@ -79,12 +89,20 @@ import warnings
 import numpy as np
 
 from mpitree_tpu_torch._device import resolve_device
+from mpitree_tpu_torch.config import knobs
 from mpitree_tpu_torch.core.builder import (
     BuildConfig,
     pack_for_fit,
     resolve_engine,
 )
 from mpitree_tpu_torch.core.fused_builder import build_forest_fused
+from mpitree_tpu_torch.models._streamed import (
+    ingest_for,
+    is_streamed,
+    refuse_host,
+    stream_of,
+    stream_weight,
+)
 from mpitree_tpu_torch.models.classifier import (
     ClassifierBase,
     EstimatorBase,
@@ -101,7 +119,11 @@ from mpitree_tpu_torch.ops.binning import bin_dataset, bin_for_engine
 from mpitree_tpu_torch.ops.predict import stacked_leaf_ids
 from mpitree_tpu_torch.ops.sampling import (
     NodeFeatureSampler,
+    bootstrap_weights,
+    feature_subset,
     n_subspace_features,
+    seed_from,
+    tree_seed,
 )
 from mpitree_tpu_torch.serving.tables import TreeList
 from mpitree_tpu_torch.utils.carry import forest_from_reference
@@ -116,6 +138,7 @@ from mpitree_tpu_torch.utils.validation import (
     min_decrease_scaled,
     resolve_refine,
     validate_fit_data,
+    validate_fit_targets,
     validate_predict_data,
     validate_sample_weight,
 )
@@ -132,12 +155,7 @@ class _BaseForest(EstimatorBase):
     """The forests' shared fit: parameter checks, phase A's draws, the
     per-tree builds, warm start and the OOB masks."""
 
-    def _check_slice(self, dataset) -> None:
-        if dataset is not None:
-            raise NotImplementedError(
-                "fit(dataset=...) is not ported yet (ROADMAP.md Queue 1 "
-                "item 16, streaming)"
-            )
+    def _check_slice(self) -> None:
         refuse_later(self, _LATER)
         if self.max_features_mode not in ("node", "tree"):
             raise ValueError(
@@ -180,27 +198,72 @@ class _BaseForest(EstimatorBase):
             )
         return prev
 
+    def _open_stream(self, X, dataset, y) -> tuple:
+        """A streamed fit's preamble (``:206-247``): the refusals, then the
+        ingest on the mesh resolved first. Returns what
+        :meth:`_fit_forest` takes as ``stream``: ``(IngestResult, build
+        mesh or None, FitClock, stats)``."""
+        ds = stream_of(X, dataset, y)
+        if self.oob_score:
+            raise ValueError(
+                "oob_score=True needs a raw-X descent over the training "
+                "rows, which a streamed fit never materializes — score "
+                "on a held-out stream instead"
+            )
+        refuse_host(self)
+        return ingest_for(self, ds)
+
     def _fit_forest(self, X, y, *, task, criterion, n_classes=None,
-                    refit_targets=None, sample_weight=None) -> TreeList:
+                    refit_targets=None, sample_weight=None,
+                    stream=None) -> TreeList:
         """Grow the forest; sets ``fit_stats_`` and, with ``oob_score``,
-        the per-tree out-of-bag masks that :meth:`_pop_oob_masks` takes."""
+        the per-tree out-of-bag masks that :meth:`_pop_oob_masks` takes.
+        ``stream`` (:meth:`_open_stream`'s) makes it a streamed fit from
+        the placed matrix (``X`` None)."""
         prev = self._warm_start_trees()
-        host = host_tier(self.backend)
-        mesh = fit_mesh(self, host)
-        device = resolve_device(self.device) if mesh is None else mesh.lead
-        n, F = X.shape
-        clock = FitClock(device)
-        if host:
-            binned = bin_dataset(X, max_bins=self.max_bins,
-                                 binning=self.binning)
+        streamed = stream is not None
+        if streamed:
+            res, mesh, clock, stats = stream
+            host = False
+            binned = res.binned
+            n, F = binned.n_samples, binned.n_features
         else:
-            binned = bin_for_engine(X, max_bins=self.max_bins,
-                                    binning=self.binning, device=device)
-        stats = {"bin_seconds": clock.lap()}
-        rd, refine, crown_depth = resolve_refine(
-            self.max_depth, self.refine_depth,
-            n_rows=n, quantized=binned.quantized,
-        )
+            host = host_tier(self.backend)
+            mesh = fit_mesh(self, host)
+            device = (resolve_device(self.device) if mesh is None
+                      else mesh.lead)
+            n, F = X.shape
+            clock = FitClock(device)
+            if host:
+                binned = bin_dataset(X, max_bins=self.max_bins,
+                                     binning=self.binning)
+            else:
+                binned = bin_for_engine(X, max_bins=self.max_bins,
+                                        binning=self.binning, device=device)
+            stats = {"bin_seconds": clock.lap()}
+        # keyed draws (ops/sampling): always for a stream, whose rows a
+        # host RNG cannot replay in order; opt-in in memory, which makes
+        # the in-memory forest the streamed one's twin
+        keyed = streamed or bool(knobs.value("MPITREE_TPU_KEYED_BOOTSTRAP"))
+        if keyed:
+            if self.random_state is not None and not isinstance(
+                    self.random_state, numbers.Integral):
+                raise ValueError(
+                    "keyed bootstrap draws (streamed fits and "
+                    "MPITREE_TPU_KEYED_BOOTSTRAP=1) are a pure function "
+                    "of (seed, tree, row); random_state must be None or "
+                    "an int"
+                )
+            kseed = seed_from(self.random_state)
+        if streamed:
+            # T tails would each replay the chunk stream: a streamed
+            # forest grows every tree to its full depth on the device
+            rd, refine, crown_depth = None, False, self.max_depth
+        else:
+            rd, refine, crown_depth = resolve_refine(
+                self.max_depth, self.refine_depth,
+                n_rows=n, quantized=binned.quantized,
+            )
         mono = validate_monotonic_cst(self.monotonic_cst, F, task=task,
                                       n_classes=n_classes)
         if mono is not None:  # one engine for each tree's whole depth
@@ -230,11 +293,12 @@ class _BaseForest(EstimatorBase):
         rng = np.random.default_rng(self.random_state)
         tree_w, tree_mask, tree_sampler = [], [], []
         self._oob_masks = [] if self.oob_score else None
-        for _ in range(int(self.n_estimators)):
+        for i in range(int(self.n_estimators)):
             w = sample_weight
             if self.bootstrap:
-                boot = rng.multinomial(n, np.full(n, 1.0 / n)).astype(
-                    np.float32)
+                boot = (bootstrap_weights(kseed, i, n) if keyed
+                        else rng.multinomial(n, np.full(n, 1.0 / n))
+                        .astype(np.float32))
                 if self._oob_masks is not None:
                     self._oob_masks.append(boot == 0)
                 w = boot if w is None else boot * w
@@ -244,11 +308,14 @@ class _BaseForest(EstimatorBase):
                 # only carries the bin draws
                 sampler = NodeFeatureSampler(
                     k=k if node_sampling else F, n_features=F,
-                    seed=int(rng.integers(2**32)), random_split=rand_split,
+                    seed=(tree_seed(kseed, i) if keyed
+                          else int(rng.integers(2**32))),
+                    random_split=rand_split,
                 )
             if not node_sampling and k < F:
                 fmask = np.zeros(F, bool)
-                fmask[np.sort(rng.choice(F, size=k, replace=False))] = True
+                fmask[feature_subset(kseed, i, F, k) if keyed else
+                      np.sort(rng.choice(F, size=k, replace=False))] = True
             tree_w.append(w)
             tree_mask.append(fmask)
             tree_sampler.append(sampler)
@@ -260,8 +327,9 @@ class _BaseForest(EstimatorBase):
         stats["ensemble_path"] = ("host" if host else
                                   "batched-fused" if batched else "per-tree")
         if not batched or not idxs:
-            # packed once for every tree
-            packed = None if host or not idxs else pack_for_fit(binned)
+            # packed once for every tree (a mesh's shards pack their own)
+            packed = (None if host or not idxs or mesh is not None
+                      else pack_for_fit(binned))
             return TreeList((prev or []) + [
                 grow_tree(
                     binned, X, y, host=host, cfg=tree_cfg(tree_w[i]),
@@ -410,12 +478,26 @@ class RandomForestClassifier(ClassifierBase, _BaseForest):
         self.device = device
 
     # -- fitting -----------------------------------------------------------
-    def fit(self, X, y, sample_weight=None, *, dataset=None):
-        self._check_slice(dataset)
+    def fit(self, X=None, y=None, sample_weight=None, *, dataset=None):
+        self._check_slice()
         if self.criterion not in ("entropy", "gini"):
             raise ValueError(
                 f"unknown classification criterion: {self.criterion!r}"
             )
+        if is_streamed(X, dataset):
+            stream = self._open_stream(X, dataset, y)
+            res = stream[0]
+            y_enc, classes = validate_fit_targets(res.y)
+            sw = apply_class_weight(self.class_weight, y_enc, classes,
+                                    stream_weight(res, sample_weight))
+            self.trees_ = self._fit_forest(
+                None, y_enc, task="classification", criterion=self.criterion,
+                n_classes=len(classes), sample_weight=sw, stream=stream,
+            )
+            self._mono_p0 = None
+            self._set_fitted(classes, res.binned.n_features)
+            res.close()
+            return self
         X, y_enc, classes = validate_fit_data(X, y)
         sw = apply_class_weight(
             self.class_weight, y_enc, classes,
@@ -548,8 +630,22 @@ class RandomForestRegressor(RegressorBase, _BaseForest):
         self.warm_start = warm_start
         self.device = device
 
-    def fit(self, X, y, sample_weight=None, *, dataset=None):
-        self._check_slice(dataset)
+    def fit(self, X=None, y=None, sample_weight=None, *, dataset=None):
+        self._check_slice()
+        if is_streamed(X, dataset):
+            stream = self._open_stream(X, dataset, y)
+            res = stream[0]
+            y64, _ = validate_fit_targets(res.y, task="regression")
+            self._y_mean = float(y64.mean()) if len(y64) else 0.0
+            self.trees_ = self._fit_forest(
+                None, (y64 - self._y_mean).astype(np.float32),
+                task="regression", criterion="mse", refit_targets=y64,
+                sample_weight=stream_weight(res, sample_weight),
+                stream=stream,
+            )
+            self._set_fitted(res.binned.n_features)
+            res.close()
+            return self
         X, y64, _ = validate_fit_data(X, y, task="regression")
         sw = validate_sample_weight(sample_weight, X.shape[0])
         self._y_mean = float(y64.mean()) if len(y64) else 0.0

@@ -33,7 +33,8 @@ in one engine with no refine tail; ``backend="host"`` refuses it.
 feature)`` mesh, as in the classifier: the moments take the fixed-point
 route with exponents from every row's payload and the global row count,
 so the int64 sums add across shards and processes and the tree equals
-the one-device tree field for field.
+the one-device tree field for field. ``fit(dataset=StreamedDataset...)``
+fits from a chunk stream as the classifier does (``models/_streamed.py``).
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ import numpy as np
 from mpitree_tpu_torch._device import resolve_device
 from mpitree_tpu_torch.core.builder import BuildConfig
 from mpitree_tpu_torch.core.tree_struct import TreeArrays
+from mpitree_tpu_torch.models._streamed import is_streamed, streamed_fit
 from mpitree_tpu_torch.models.classifier import (
     EstimatorBase,
     FitClock,
@@ -139,7 +141,9 @@ class DecisionTreeRegressor(RegressorBase):
         self.device = device
 
     # -- fitting -----------------------------------------------------------
-    def fit(self, X, y, sample_weight=None):
+    def fit(self, X=None, y=None, sample_weight=None, *, dataset=None):
+        if is_streamed(X, dataset):
+            return streamed_fit(self, X, dataset, y, sample_weight)
         if self.criterion not in ("squared_error", "mse"):
             raise ValueError(
                 f"unknown regression criterion: {self.criterion!r}")

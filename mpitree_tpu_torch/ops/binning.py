@@ -59,6 +59,51 @@ class BinnedData:
         return np.arange(B)[None, :] < self.n_cand[:, None]
 
 
+@dataclasses.dataclass(frozen=True)
+class StreamedBinnedData(BinnedData):
+    """BinnedData whose matrix was assembled chunk by chunk on the fit's
+    devices (``ingest/place.assemble_binned``); the raw matrix never
+    existed on any host.
+
+    ``x_binned`` is a list of this process's local shards, in the mesh's
+    local order: each an ``(shard_rows, shard_cols)`` int32 tensor on its
+    shard's device, row block ``di`` of feature block ``fi`` of the
+    ``(rows_pad, feat_pad)`` matrix ``parallel/partition.layout`` lays out
+    (the counterpart of the JAX package's one global array,
+    ``mpitree_tpu/ops/binning.py:86-117``). Padding rows and columns hold
+    bin 0 and are inert (``node_id = -1``, no candidate). ``n_rows`` is
+    the real row count and ``chunk_rows`` the chunk size the stream used;
+    ``n_samples`` and ``n_features`` are the real extents, never the
+    buffers'.
+    """
+
+    n_rows: int = 0
+    chunk_rows: int = 0
+    rows_pad: int = 0
+    feat_pad: int = 0
+
+    @property
+    def n_samples(self) -> int:
+        return self.n_rows
+
+    @property
+    def n_features(self) -> int:
+        return self.thresholds.shape[0]
+
+    def single(self) -> BinnedData:
+        """The plain ``BinnedData`` of a one-shard stream (one device: no
+        padding), which every one-device consumer takes."""
+        if len(self.x_binned) != 1 or self.rows_pad != self.n_rows \
+                or self.feat_pad != self.n_features:
+            raise ValueError(
+                f"a stream of {len(self.x_binned)} shards padded to "
+                f"({self.rows_pad}, {self.feat_pad}) is not one device's "
+                "matrix; build on the mesh it was placed for")
+        return BinnedData(
+            x_binned=self.x_binned[0], thresholds=self.thresholds,
+            n_cand=self.n_cand, n_bins=self.n_bins, quantized=self.quantized)
+
+
 def _exact_edges(col: np.ndarray) -> np.ndarray:
     return np.unique(col)[:-1]
 

@@ -33,8 +33,12 @@ draws the same subsample; :func:`row_subsample_mask_dev` draws the row
 mask on the card for the fused boosting rounds (``row_subsample_mask_jnp``
 ``:286``).
 
-Not here (``ROADMAP.md`` item 16): the keyed forest draws
-``bootstrap_weights``, ``tree_seed`` and ``feature_subset``.
+The forests' keyed draws (``bootstrap_weights``, ``tree_seed`` and
+``feature_subset``, ``:198-275``) are keyed by (seed, tree, row or
+feature) the same way: a streamed forest always draws them (a host RNG
+has no defined order over a chunk stream), an in-memory one under
+``MPITREE_TPU_KEYED_BOOTSTRAP=1``, which makes it the streamed forest's
+twin.
 """
 
 from __future__ import annotations
@@ -121,6 +125,7 @@ _FEAT_SALT = np.uint32(0x85EBCA6B)
 _DRAW_SALT = np.uint32(0x27D4EB2F)  # random-split bin draws (ExtraTrees)
 _ROW_SALT = np.uint32(0x51ED270B)  # per-round row subsampling (boosting)
 _COL_SALT = np.uint32(0x6C62272E)  # per-round feature subsampling (boosting)
+_BOOT_SALT = np.uint32(0x94D049BB)  # per-tree bootstrap draws (forests)
 
 
 def pcg_hash(x: np.ndarray) -> np.ndarray:
@@ -244,6 +249,65 @@ def feature_subsample_mask(seed: int, round_idx: int, n_features: int,
     mask = np.zeros(n_features, bool)
     mask[np.argsort(scores, kind="stable")[:k]] = True
     return mask
+
+
+def _poisson1_cutoffs() -> np.ndarray:
+    """uint32 inverse-CDF cutoffs of Poisson(1) multiplicities
+    (``:198-215``): ``cutoffs[k] = round(CDF(k) * 2**32)``, and a uniform
+    uint32 ``u`` draws ``searchsorted(cutoffs, u, side="right")``; the
+    tail past 12 carries < 1e-12 of the mass."""
+    pmf = np.empty(13, np.float64)
+    pmf[0] = np.exp(-1.0)
+    for k in range(1, 13):
+        pmf[k] = pmf[k - 1] / k
+    return np.minimum(
+        np.round(np.cumsum(pmf) * 4294967296.0), 4294967296.0 - 1
+    ).astype(np.uint64)
+
+
+_POISSON1_CUTOFFS = _poisson1_cutoffs()
+
+
+def bootstrap_weights(seed: int, tree_idx: int, n_rows: int) -> np.ndarray:
+    """(n_rows,) float32 keyed bootstrap multiplicities of one forest tree
+    (``:221-244``): each row's in-bag count a Poisson(1) draw keyed by
+    (seed, tree, row), online bagging's stand-in for the multinomial
+    draw, and a pure function of the global row index, so any chunking,
+    mesh or process split draws the same bootstrap."""
+    with np.errstate(over="ignore"):
+        base = np.uint32(
+            pcg_hash(np.uint32(seed))
+            ^ pcg_hash((np.uint32(tree_idx) + _BOOT_SALT).astype(np.uint32))
+        )
+        keys = pcg_hash(base + np.arange(n_rows, dtype=np.uint32))
+    return np.searchsorted(
+        _POISSON1_CUTOFFS, keys.astype(np.uint64), side="right"
+    ).astype(np.float32)
+
+
+def tree_seed(seed: int, tree_idx: int) -> int:
+    """One forest tree's uint32 sampler seed under keyed draws
+    (``:247-260``): a pure function of (forest seed, tree)."""
+    with np.errstate(over="ignore"):
+        return int(pcg_hash(
+            pcg_hash(np.uint32(seed))
+            ^ ((np.uint32(tree_idx) + np.uint32(1)) * _BOOT_SALT)
+            .astype(np.uint32)
+        ))
+
+
+def feature_subset(seed: int, tree_idx: int, n_features: int,
+                   k: int) -> np.ndarray:
+    """The sorted ``k``-feature subspace of one tree under keyed draws
+    (``max_features_mode="tree"``, ``:263-275``): the lowest ``k`` of a
+    stable argsort of per-(seed, tree, feature) hash scores."""
+    with np.errstate(over="ignore"):
+        base = np.uint32(
+            pcg_hash(np.uint32(seed))
+            ^ pcg_hash((np.uint32(tree_idx) + _FEAT_SALT).astype(np.uint32))
+        )
+        scores = pcg_hash(base + np.arange(n_features, dtype=np.uint32))
+    return np.sort(np.argsort(scores, kind="stable")[:k])
 
 
 def subsample_threshold_u32(fraction: float) -> np.uint32:

@@ -490,6 +490,26 @@ def pad_features(xb, cand: np.ndarray, n_shards: int) -> tuple:
     return xb, np.concatenate([cand, np.zeros((fpad, cand.shape[1]), bool)])
 
 
+def check_placed(binned, mesh: Mesh) -> None:
+    """Hold a ``StreamedBinnedData``'s shards to ``mesh``
+    (``mpitree_tpu/parallel/mesh.py:327-336``): its padded extents must be
+    the ones this mesh pads its real extents to, with one shard per local
+    device of the mesh's block shape, on that device."""
+    N, F = binned.n_samples, binned.n_features
+    dr, df = data_shards(mesh), feature_shards(mesh)
+    want = (N + pad_rows(N, dr), F + (-F) % df)
+    have = (binned.rows_pad, binned.feat_pad)
+    block = (want[0] // dr, want[1] // df)
+    if have != want or len(binned.x_binned) != mesh.n_local or any(
+            tuple(x.shape) != block or x.device != torch.device(d)
+            for x, d in zip(binned.x_binned, mesh.devices)):
+        raise ValueError(
+            f"pre-placed x_binned has shape {have}; this mesh pads "
+            f"({N}, {F}) to {want} — the ingest assembly and the build "
+            "must use the same mesh"
+        )
+
+
 def shard_build_inputs(mesh: Mesh, x_binned, y: np.ndarray, sample_weight,
                        cand_mask=None) -> list:
     """This process's shards of a build: the rows padded to the data axis

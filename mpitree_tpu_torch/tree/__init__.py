@@ -4,13 +4,15 @@
 ParallelDecisionTreeClassifier, DecisionTreeRegressor,
 RandomForestClassifier, RandomForestRegressor, ExtraTreesClassifier,
 ExtraTreesRegressor, GradientBoostingClassifier,
-GradientBoostingRegressor`` (``mpitree_tpu/tree/__init__.py:13``).
+GradientBoostingRegressor`` (``mpitree_tpu/tree/__init__.py:13``), and
+``StreamedDataset`` for ``fit(dataset=...)`` (``mpitree_tpu/__init__.py:35``).
 """
 
 from mpitree_tpu_torch.boosting import (
     GradientBoostingClassifier,
     GradientBoostingRegressor,
 )
+from mpitree_tpu_torch.ingest import StreamedDataset
 from mpitree_tpu_torch.models.classifier import (
     DecisionTreeClassifier,
     ParallelDecisionTreeClassifier,
@@ -27,4 +29,4 @@ __all__ = ["DecisionTreeClassifier", "DecisionTreeRegressor",
            "ExtraTreesClassifier", "ExtraTreesRegressor",
            "GradientBoostingClassifier", "GradientBoostingRegressor",
            "ParallelDecisionTreeClassifier", "RandomForestClassifier",
-           "RandomForestRegressor"]
+           "RandomForestRegressor", "StreamedDataset"]

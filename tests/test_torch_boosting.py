@@ -474,7 +474,8 @@ def test_refusals(data, kw, err, match):
 
 def test_refusals_of_data_and_devices(data):
     X, y = data["binary"]
-    with pytest.raises(NotImplementedError, match="item 16"):
+    # streaming is ported (item 16): dataset= takes a StreamedDataset only
+    with pytest.raises(TypeError, match="must be a .*StreamedDataset"):
         P.GradientBoostingRegressor(max_iter=1, device="cpu").fit(
             X[:50], y[:50], dataset=object())
     with pytest.raises(ValueError, match="at least 2 classes"):

@@ -1190,3 +1190,62 @@ def test_feature_slab_equals_full_histogram_columns(cuda, S, df):
             xb, payload, slot, n_slots=S, n_bins=B, scale_exp=exp)
         assert torch.equal(got[:, :hi - lo], want[:, lo:hi]), ("fixed", fi)
     assert ran
+
+
+@pytest.mark.parametrize("chunk", [1_000, 4_096, 7_777, 20_000])
+def test_assemble_binned_on_the_card_equals_the_cpu(cuda, chunk):
+    """The streaming placement on the card (one pinned staging buffer,
+    ``non_blocking`` copies, an event before each reuse) fills its shard
+    exactly as the CPU assembly does, at every chunk size."""
+    from mpitree_tpu_torch.ingest import StreamedDataset, ingest_dataset
+    from mpitree_tpu_torch.parallel import mesh as M
+    from mpitree_tpu_torch.utils.datasets import covtype_like
+
+    X, y = covtype_like(20_000, seed=6)
+    ds = StreamedDataset.from_arrays(X, y, chunk_rows=chunk)
+    got = ingest_dataset(ds, mesh=M.resolve_mesh(), max_bins=256).binned
+    want = ingest_dataset(ds, mesh=M.resolve_mesh(device="cpu"),
+                          max_bins=256).binned
+    assert len(got.x_binned) == 1 and got.x_binned[0].is_cuda
+    assert torch.equal(got.x_binned[0].cpu(), want.x_binned[0])
+    np.testing.assert_array_equal(got.thresholds, want.thresholds)
+
+
+@pytest.mark.parametrize("kind", ["tree", "forest", "boosted"])
+def test_streamed_fits_on_the_card_equal_in_memory(cuda, kind):
+    """A streamed fit on the card equals the card's in-memory fit (the
+    forest's keyed twin) and the CPU's streamed fit field for field."""
+    import os
+
+    from mpitree_tpu_torch import (
+        DecisionTreeClassifier,
+        GradientBoostingRegressor,
+        RandomForestClassifier,
+        StreamedDataset,
+    )
+    from mpitree_tpu_torch.utils.datasets import covtype_like
+
+    X, y = covtype_like(20_000, seed=7)
+    if kind == "tree":
+        make = lambda d: DecisionTreeClassifier(  # noqa: E731
+            max_depth=10, refine_depth=None, device=d)
+    elif kind == "forest":
+        make = lambda d: RandomForestClassifier(  # noqa: E731
+            n_estimators=3, max_depth=8, random_state=1, refine_depth=None,
+            device=d)
+    else:
+        y = (y == 1).astype(np.float64)
+        make = lambda d: GradientBoostingRegressor(  # noqa: E731
+            max_iter=5, rounds_per_dispatch=1, device=d)
+    ds = StreamedDataset.from_arrays(X, y, chunk_rows=3_000)
+    card, cpu = make(None).fit(ds), make("cpu").fit(ds)
+    os.environ["MPITREE_TPU_KEYED_BOOTSTRAP"] = "1"
+    try:
+        mem = make(None).fit(X, y)
+    finally:
+        del os.environ["MPITREE_TPU_KEYED_BOOTSTRAP"]
+    trees = (lambda e: e.trees_ if hasattr(e, "trees_") else [e.tree_])
+    for a, b, c in zip(trees(card), trees(mem), trees(cpu)):
+        for k in ("feature", "threshold", "left", "right", "count"):
+            np.testing.assert_array_equal(getattr(a, k), getattr(b, k))
+            np.testing.assert_array_equal(getattr(a, k), getattr(c, k))

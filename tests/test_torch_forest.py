@@ -217,7 +217,14 @@ def test_options_off_this_slice_raise(param, value):
 
 
 def test_streamed_dataset_refused():
+    """Streaming is ported (item 16): what ``dataset=`` refuses now is
+    anything but a StreamedDataset, and X beside one."""
+    from mpitree_tpu_torch import StreamedDataset
+
     X, y = covtype_like(100, seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="must be a .*StreamedDataset"):
         RandomForestClassifier(n_estimators=2, device="cpu").fit(
             X, y, dataset=object())
+    with pytest.raises(ValueError, match="not both"):
+        RandomForestClassifier(n_estimators=2, device="cpu").fit(
+            X, dataset=StreamedDataset.from_arrays(X, y))

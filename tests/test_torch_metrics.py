@@ -168,12 +168,18 @@ def test_module_level_exposition_is_the_default_registry():
 def test_knob_registered_as_in_jax(name):
     """Every field as in JAX, but the forests' budget, whose default
     comes from the device (None) where JAX's is 8 GiB, half a TPU v5e
-    chip."""
+    chip. A parse rule of the package's own (the strict ``_one`` of a
+    boolean knob) is the port's copy: the same name, the same answers."""
     got = dataclasses.asdict(knobs.REGISTRY[name])
     want = dataclasses.asdict(jax_knobs.REGISTRY[name])
     if name == "MPITREE_TPU_FOREST_HBM_BUDGET":
         assert want.pop("default") == 8 << 30
         assert got.pop("default") is None
+    if got["parse"] is knobs._one:
+        assert want.pop("parse") is jax_knobs._one
+        got.pop("parse")
+        for raw in ("1", "0", "true", "", " 1"):
+            assert knobs._one(raw) == jax_knobs._one(raw)
     assert got == want
 
 
@@ -200,6 +206,16 @@ def _read(mod, name):
     ("MPITREE_TPU_SERVING_WAIT_MS", "1e-3"),
     ("MPITREE_TPU_METRICS_EXEMPLARS", "4"),
     ("MPITREE_TPU_METRICS_EXEMPLARS", "four"),
+    ("MPITREE_TPU_HOST_BYTES", None),
+    ("MPITREE_TPU_HOST_BYTES", "4194304"),
+    ("MPITREE_TPU_HOST_BYTES", "4MiB"),
+    ("MPITREE_TPU_SKETCH_CAPACITY", "64"),
+    ("MPITREE_TPU_SPILL_DIR", None),
+    ("MPITREE_TPU_SPILL_DIR", "/tmp/spill"),
+    ("MPITREE_TPU_SPILL_BYTES", "1000"),
+    ("MPITREE_TPU_KEYED_BOOTSTRAP", None),
+    ("MPITREE_TPU_KEYED_BOOTSTRAP", "1"),
+    ("MPITREE_TPU_KEYED_BOOTSTRAP", "true"),
 ])
 def test_knob_values_and_errors_equal_jax(monkeypatch, name, raw):
     if raw is None:
