@@ -307,6 +307,48 @@ sketched, binned and copied into their shards on the card:
     to phase 3's. The launch counters are set to 0 just before each
     measured fit or serve and read just after.
 
+Phase 31 drives resilience (item 17 of ``ROADMAP.md``) on the card: the
+ladder of ``mpitree_tpu_torch/resilience/`` through real and injected
+faults, and the checkpoints. Every part sets the launch counters to 0
+just before it and reads them just after; a part catches only the
+``ChaosKilled`` of its own plan and checks that it fired. The host rung
+runs only where a part sets ``MPITREE_TPU_ELASTIC=1`` ((c) and (d)):
+the script clears the knob at its start and turns the host rung's
+warning into an error everywhere else, and every measured fit of phases
+1-30 checks that it stayed on the card (no ``device_failovers``, engine
+not ``host``):
+
+31. resilience: (a) phase 3's fit under
+    ``MPITREE_TPU_CHAOS=dispatch:1:unavailable``: one device retry, the
+    tree equal to phase 3's; (b) the levelwise engine with a transient
+    fault at level 12: one level retry, levels 12 and on run once more
+    and none before, the same tree; (c) phase 4's 50,000-row depth-10
+    fit with the caching allocator capped (after binning would fit,
+    below the build's peak): a real ``torch.OutOfMemoryError`` classed
+    OOM, terminal, raised to the caller under the port's default, and
+    with ``MPITREE_TPU_ELASTIC=1`` the host rung grows the card's tree;
+    the cap lifted, the card fits it again; (d) the same fit in a child process
+    (``--mesh-worker 0 0 sticky OUT``) whose device build first launches
+    a Triton kernel reading 4 TiB past a buffer, a real sticky illegal
+    memory access: classed terminal, the host rung finishes the fit with
+    no further CUDA call, the context stays dead, the child exits 0 with
+    the card's tree; (e) phase 5's forest checkpointed and killed at its
+    third group's dispatch (``dispatch:3:kill``), then fitted again: it
+    resumes after 16 trees, and its 50 trees equal phase 5's and serve
+    through K4 bit for bit; shard count and bytes printed; (f) phase
+    26's K = 8 regressor checkpointed and killed at round 40
+    (``fused_rounds:6:kill``), then fitted again: margins equal phase
+    26's bit for bit; (g) ``serving_dispatch:1:unavailable`` on phase
+    7's ``rf``: answers bit for bit, ``mpitree_serving_retries_total``
+    1; (h) a ``sched_dispatch`` blip requeues the first batch once and
+    every answer equals a direct ``raw``; (i) F7 on the card: two gloo
+    processes (``--mesh-worker R PORT stream_forest OUT``) stream their
+    halves of phase 3's matrix into phase 29 (b)'s 2-tree forest on the
+    (1, 2) ``(tree, data)`` mesh: both equal the in-memory keyed twin,
+    ``exchange_bytes`` 0 a rank, and each rank's peak device memory is
+    printed beside the whole matrix's bytes and phase 29 (b)'s peak.
+    Every rung count is printed.
+
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the card's name and power limit, JSON lines of per-shape kernel timings
 (``kernel_shapes``, ``serve_kernel_shapes``, ``fixed_kernel_shapes``), of
@@ -316,7 +358,8 @@ of phases 13 and 15 (``regression``, ``weights``), of phases 16-18
 of phases 19-20 (``constrained``, ``persistence``), of phases 21-23
 (``boosting``), of phase 24 (``engines``), of phases 25-26
 (``leafwise``, ``fused_rounds``), of phase 27 (``serve_tier``), of phases
-28-29 (``mesh``, ``mesh_ensembles``), of phase 30 (``stream``) and one
+28-29 (``mesh``, ``mesh_ensembles``), of phase 30 (``stream``), of
+phase 31 (``resilience``) and one
 ``kernels`` line (with each
 route's launches per engine, and the stream routes at S = 2 of the
 leaf-wise pair) come before it.
@@ -326,6 +369,7 @@ Without CUDA the script exits 1 and prints no result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import os
@@ -335,6 +379,7 @@ import subprocess
 import sys
 import threading
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -665,6 +710,21 @@ def phase_kernels(xb, y_d, B: int, K: int, feat_bins: list) -> list:
     return rows
 
 
+# resilience/retry.device_failover's warning, and only its: an error in
+# this process outside phase 31 (c)
+HOST_RUNG_WARNING = "device failure during"
+
+
+def _on_card(est, what: str = "") -> None:
+    """A fit measured as the card's stayed on the card: no host rung ran."""
+    st = getattr(est, "fit_stats_", {})
+    if st.get("device_failovers", 0) or st.get("engine") == "host":
+        raise AssertionError(
+            f"{what or type(est).__name__}: the fit left the card "
+            f"(device_failovers {st.get('device_failovers', 0)}, engine "
+            f"{st.get('engine')})")
+
+
 def _fit_twice(est, X, y, *, sample_weight=None, routes=None,
                first: list | None = None):
     """Fit twice; the launch counters are set to 0 just before the second
@@ -678,6 +738,7 @@ def _fit_twice(est, X, y, *, sample_weight=None, routes=None,
     est.fit(X, y, sample_weight=sample_weight)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
+    _on_card(est)
     if first is not None:
         first.append(est.trees_ if hasattr(est, "trees_") else est.tree_)
 
@@ -688,6 +749,7 @@ def _fit_twice(est, X, y, *, sample_weight=None, routes=None,
     est.fit(X, y, sample_weight=sample_weight)
     torch.cuda.synchronize()
     second = time.perf_counter() - t0
+    _on_card(est)
     launches = dict(hist_kernel.launches)
     missing = [k for k in routes or hist_kernel.ROUTES if launches[k] == 0]
     if missing:
@@ -711,6 +773,7 @@ def _fit_once(est, X, y, *, routes=None):
     est.fit(X, y)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    _on_card(est)
     launches = dict(hist_kernel.launches)
     missing = [k for k in routes or hist_kernel.ROUTES if launches[k] == 0]
     if missing:
@@ -721,8 +784,9 @@ def _fit_once(est, X, y, *, routes=None):
 
 
 def _check_fit(clf, X, y, Xh, yh, depth: int):
-    """Raw-count predict_proba and a plausible tree; returns (train acc,
-    held-out acc, predict seconds)."""
+    """Raw-count predict_proba and a plausible tree grown on the card;
+    returns (train acc, held-out acc, predict seconds)."""
+    _on_card(clf)
     t0 = time.perf_counter()
     proba = clf.predict_proba(Xh)
     predict_s = time.perf_counter() - t0
@@ -910,8 +974,9 @@ def phase_parity(depth: int = 10, hybrid: bool = False) -> None:
 
 
 def _check_forest(forest, n_trees: int, Xh, yh):
-    """A plausible forest; returns (held-out acc, predict_proba s, nodes
-    per tree, deepest tree)."""
+    """A plausible forest grown on the card; returns (held-out acc,
+    predict_proba s, nodes per tree, deepest tree)."""
+    _on_card(forest)
     t0 = time.perf_counter()
     proba = forest.predict_proba(Xh)
     predict_s = time.perf_counter() - t0
@@ -1982,6 +2047,7 @@ def _boosted_fit(cls, X, y, Xh, yh, what: str, kw: dict) -> tuple:
     est = cls(**kw).fit(X, y)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    _on_card(est, what)
     launches = dict(hist_kernel.launches)
     host_loop = est.fit_stats_["rounds_per_dispatch"]["value"] == 1
     if not (launches["stream_fixed"] and (launches["sorted_fixed"]
@@ -3448,18 +3514,20 @@ def ensembles_worker(rank: int, port: int, out: str) -> int:
                 for k in hist_kernel.launches:
                     hist_kernel.launches[k] = 0
                 torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
                 t0 = time.perf_counter()
                 est.fit(*data[what])
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
                 launches = dict(hist_kernel.launches)
+                peak = torch.cuda.max_memory_allocated()
             finally:
                 for k in env:
                     os.environ.pop(k)
             save_model(est, f"{out}{part}.npz")
             st = est.fit_stats_
             recs[part] = dict(
-                wall_s=wall, launches=launches,
+                wall_s=wall, launches=launches, peak_bytes=peak,
                 **{k: v for k, v in st.items()
                    if isinstance(v, (int, float, str, list))
                    and not isinstance(v, bool) or k == "graph"})
@@ -3561,8 +3629,8 @@ def phase_mesh_ensembles(X, y, Xh, Xc, yc, Xch, forest, fit_tree,
             models.setdefault(part, est)
     # what each part must have moved: the tree exchange, the (1, 2) data
     # reductions, the feature axis's winner gathers and row routes
-    for part, keys in (("a", ("exchange_calls",)),
-                       ("b", ("allreduce_calls", "exchange_calls")),
+    for part, keys in (("a", ("tree_exchange_calls",)),
+                       ("b", ("allreduce_calls", "tree_exchange_calls")),
                        ("c1", ("allreduce_calls",)),
                        ("c8", ("allreduce_calls",)),
                        ("d", ("allreduce_calls",)),
@@ -3604,8 +3672,8 @@ def phase_mesh_ensembles(X, y, Xh, Xc, yc, Xch, forest, fit_tree,
             + ", ".join(f"{k} {sts[0][k]}" for k in (
                 "forest_mesh", "allreduce_calls", "allreduce_bytes",
                 "gather_calls", "gather_bytes", "route_calls",
-                "route_bytes", "exchange_calls", "exchange_bytes",
-                "graph") if k in sts[0])
+                "route_bytes", "tree_exchange_calls",
+                "tree_exchange_bytes", "graph") if k in sts[0])
             for part, sts in ranks.items())
         + "; every model equal to its one-process twin in both ranks; "
         f"(f) served K4/K5 bit for bit: {launches}")
@@ -3856,6 +3924,579 @@ def phase_stream(X, y, Xh, fit_tree, fit_launches, hybrid_tree, Xc, yc, Xch,
     return out
 
 
+# Phase 31: resilience on the card. (c)'s and (d)'s fit is phase 4's
+# (covtype_like(50_000, seed=2), depth 10, the device engine alone); (i)
+# is phase 29 (b)'s 2-tree forest on phase 3's matrix, streamed by two
+# processes; the rest reuse earlier phases' models.
+RESILIENCE_FIT = dict(criterion="entropy", max_depth=10, max_bins=256,
+                      **DEVICE_ONLY)
+RESILIENCE_ROWS, RESILIENCE_SEED = 50_000, 2
+LEVEL_FAULT = 12  # (b)'s faulted level
+KILL_GROUP = 2    # (e): the forest is killed after its second group
+KILL_ROUND = 40   # (f): the K = 8 regressor is killed at round 40
+SERVE_ROWS = 4_096
+SCHED_ROWS = 64
+WORKER_TIMEOUT = 300
+RUNG_KEYS = ("device_retries", "level_retries", "device_failovers")
+
+
+def _rungs(st: dict) -> dict:
+    return {k: st.get(k, 0) for k in RUNG_KEYS}
+
+
+def _libraries_built(what: str) -> None:
+    """A worker process loads the kernels phase 1 built; it never builds
+    them."""
+    from mpitree_tpu_torch import _build, native
+
+    built = [_build._library_path(n) for n in ("histogram", "traverse")]
+    built.append(native.library_path())
+    missing = [str(p) for p in built if not p.exists()]
+    if missing:
+        raise RuntimeError(f"{what}: phase 1's libraries are missing "
+                           f"({missing}); it does not build them")
+
+
+def sticky_worker(out: str) -> int:
+    """Phase 31 (d), in a process of its own: phase 4's fit on the card,
+    whose device build first launches a kernel that reads 4 TiB past a
+    buffer (Triton), a real illegal memory access that kills the
+    process's CUDA context. The ladder must class the error terminal and,
+    with ``MPITREE_TPU_ELASTIC=1`` (set by the parent), finish the fit on
+    the host tier with no further CUDA call (any would
+    raise on the dead context, and none is caught there), so the fit
+    completing proves it; then ``torch.cuda.synchronize()`` must still
+    raise (the error was sticky). Writes the tree (``out.npz``) and the
+    record (``out.json``), then exits 0."""
+    import triton
+    import triton.language as tl
+
+    from mpitree_tpu_torch.models import classifier as clf_mod
+    from mpitree_tpu_torch.resilience import failure
+    from mpitree_tpu_torch.tree import DecisionTreeClassifier
+    from mpitree_tpu_torch.utils.datasets import covtype_like
+
+    _libraries_built("sticky worker")
+
+    @triton.jit
+    def read_far(src, dst, far):
+        offs = tl.arange(0, 128).to(tl.int64)
+        tl.store(dst + offs, tl.load(src + far + offs))
+
+    X, y = covtype_like(RESILIENCE_ROWS, seed=RESILIENCE_SEED)
+    seen = []
+    real_build = clf_mod.build_tree
+
+    def faulting(*a, **k):
+        buf = torch.zeros(128, dtype=torch.float32, device=DEV)
+        read_far[(1,)](buf, buf, 1 << 40)
+        try:
+            return real_build(*a, **k)
+        except Exception as e:
+            seen.append(e)
+            raise
+
+    clf_mod.build_tree = faulting
+    t0 = time.perf_counter()
+    clf = DecisionTreeClassifier(**RESILIENCE_FIT).fit(X, y)
+    wall = time.perf_counter() - t0
+    try:
+        torch.cuda.synchronize()
+        sticky = False
+    except Exception:  # noqa: BLE001 — the dead context's error, expected
+        sticky = True
+    e = seen[0] if seen else None
+    np.savez(out + ".npz", **{k: getattr(clf.tree_, k) for k in TREE_FIELDS})
+    Path(out + ".json").write_text(json.dumps(dict(
+        wall_s=wall, sticky=sticky,
+        error=None if e is None else
+        f"{type(e).__name__}: {str(e).splitlines()[0][:200]}",
+        error_type=None if e is None else type(e).__name__,
+        device_failure=e is not None and failure.is_device_failure(e),
+        transient=e is not None and failure.is_transient_failure(e),
+        oom=e is not None and failure.is_oom_failure(e),
+        rungs=_rungs(clf.fit_stats_), engine=clf.fit_stats_["engine"])))
+    print(f"sticky worker: {wall:.3f} s; error {e!r:.200}", flush=True)
+    return 0
+
+
+def stream_forest_worker(rank: int, port: int, out: str) -> int:
+    """One process of phase 31 (i): join the gloo group of ``MESH_RANKS``
+    processes, stream this process's half of the ``.npy`` shards in
+    ``CHIP_SMOKE_SHARDS`` and fit phase 29 (b)'s 2-tree forest on the
+    (1, 2) ``(tree, data)`` mesh (``MPITREE_TPU_FOREST_HBM_BUDGET=1``, set
+    by the parent), with the launch counters and the peak memory reset
+    just before; save the model (``out.npz``) and the record
+    (``out.json``)."""
+    from mpitree_tpu_torch.ingest import StreamedDataset, shard_for_process
+    from mpitree_tpu_torch.ops import hist_kernel
+    from mpitree_tpu_torch.parallel import distributed
+    from mpitree_tpu_torch.tree import RandomForestClassifier
+    from mpitree_tpu_torch.utils.serialize import save_model
+
+    _libraries_built("stream forest worker")
+    distributed.initialize(f"localhost:{port}", MESH_RANKS, rank,
+                           backend="gloo", timeout=MESH_WORKER_TIMEOUT)
+    try:
+        shards = Path(os.environ["CHIP_SMOKE_SHARDS"])
+        data = StreamedDataset.from_npy(
+            shard_for_process(sorted(map(str, shards.glob("x*.npy")))),
+            shard_for_process(sorted(map(str, shards.glob("y*.npy")))),
+            chunk_rows=STREAM_CHUNK)
+        est = RandomForestClassifier(**dict(FOREST, **DEVICE_ONLY,
+                                            n_estimators=2,
+                                            n_devices=MESH_RANKS))
+        for k in hist_kernel.launches:
+            hist_kernel.launches[k] = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        est.fit(dataset=data)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = est.fit_stats_
+        save_model(est, out + ".npz")
+        Path(out + ".json").write_text(json.dumps(dict(
+            rank=rank, wall_s=wall, launches=dict(hist_kernel.launches),
+            peak_bytes=torch.cuda.max_memory_allocated(),
+            rows_local=est.ingest_stats_["rows_local"],
+            **{k: st[k] for k in ("forest_mesh", "exchange_calls",
+                                  "exchange_bytes", "exchange_seconds",
+                                  "tree_exchange_calls",
+                                  "tree_exchange_bytes", "allreduce_calls")
+               if k in st})))
+    finally:
+        distributed.shutdown()
+    return 0
+
+
+def _worker_pair(what: str, out_stem: str, env: dict) -> tuple:
+    """``MESH_RANKS`` ``--mesh-worker R PORT what OUT`` processes; every
+    one is stopped before this returns. Returns (wall, logs) or raises
+    with a failed rank's output."""
+    port = _free_port()
+    env = dict(os.environ, MPITREE_TPU_DEBUG="1", GLOO_SOCKET_IFNAME="lo",
+               **env)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--mesh-worker",
+         str(r), str(port), what, f"{out_stem}{r}"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env) for r in range(MESH_RANKS)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=WORKER_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"{what} rank {r} failed (exit "
+                                 f"{p.returncode}):\n{text[-4000:]}")
+    return time.perf_counter() - t0, logs
+
+
+def phase_resilience(X, y, Xh, fit_tree, forest, Xc, yc, Xch, boost_reg8,
+                     ens_b_peaks: list) -> dict:
+    """Phase 31: resilience on the card, (a) to (i) of the module
+    docstring. Every part resets the launch counters just before it and
+    reads them just after; a part catches only the ``ChaosKilled`` of its
+    own plan and checks that it fired."""
+    import tempfile
+
+    from mpitree_tpu_torch.models import classifier as clf_mod
+    from mpitree_tpu_torch.ops import hist_kernel
+    from mpitree_tpu_torch.resilience import chaos, failure
+    from mpitree_tpu_torch.serving import (
+        ModelRegistry,
+        Scheduler,
+        compile_model,
+        serve_kernel,
+    )
+    from mpitree_tpu_torch.tree import (
+        DecisionTreeClassifier,
+        GradientBoostingRegressor,
+        RandomForestClassifier,
+    )
+    from mpitree_tpu_torch.utils.datasets import covtype_like
+    from mpitree_tpu_torch.utils.serialize import load_model
+
+    def zero():
+        for c in (hist_kernel.launches, serve_kernel.launches):
+            for k in c:
+                c[k] = 0
+        torch.cuda.synchronize()
+
+    def launches():
+        return {k: v for c in (hist_kernel.launches, serve_kernel.launches)
+                for k, v in c.items()}
+
+    def same(tree, want, what):
+        bad = _differing(tree, want)
+        if bad:
+            raise AssertionError(f"resilience ({what}): tree differs in "
+                                 f"{bad}")
+
+    def same_forest(got, want, what):
+        if len(got) != len(want):
+            raise AssertionError(f"resilience ({what}): {len(got)} trees, "
+                                 f"want {len(want)}")
+        for i, (a, b) in enumerate(zip(got, want)):
+            same(a, b, f"{what}, tree {i}")
+
+    def killed(plan, fit, site, what):
+        """``fit()`` must die of this plan's kill at ``site``."""
+        try:
+            fit()
+        except chaos.ChaosKilled:
+            if not any(f[0] == site and f[2] == "kill" for f in plan.fired):
+                raise
+        else:
+            raise AssertionError(f"resilience ({what}): the kill never "
+                                 "fired")
+        chaos.clear()
+
+    out = {}
+    t_phase = time.perf_counter()
+    tree_kw = dict(criterion="entropy", max_depth=DEPTH, max_bins=256,
+                   **DEVICE_ONLY)
+
+    # (a) a transient fault at the first dispatch, through the env plan
+    zero()
+    os.environ["MPITREE_TPU_CHAOS"] = "dispatch:1:unavailable"
+    try:
+        t0 = time.perf_counter()
+        clf = DecisionTreeClassifier(**tree_kw).fit(X, y)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        del os.environ["MPITREE_TPU_CHAOS"]
+        chaos.clear()
+    same(clf.tree_, fit_tree, "a")
+    st = clf.fit_stats_
+    if _rungs(st) != dict(device_retries=1, level_retries=0,
+                          device_failovers=0) or st["engine"] != "fused":
+        raise AssertionError(f"resilience (a): rungs {_rungs(st)}, engine "
+                             f"{st['engine']}")
+    out["a"] = dict(wall_s=wall, rungs=_rungs(st), launches=launches())
+    log(f"resilience (a): dispatch:1:unavailable (DistNetworkError): "
+        f"{wall:.3f} s, rungs {_rungs(st)}; tree == phase 3's; launches "
+        f"{out['a']['launches']}")
+
+    # (b) the levelwise engine, a transient fault at level 12
+    zero()
+    os.environ["MPITREE_TPU_ENGINE"] = "levelwise"
+    plan = chaos.install([chaos.Fault("level", 1, "unavailable",
+                                      at_level=LEVEL_FAULT)])
+    try:
+        t0 = time.perf_counter()
+        clf = DecisionTreeClassifier(**tree_kw).fit(X, y)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        del os.environ["MPITREE_TPU_ENGINE"]
+        chaos.clear()
+    same(clf.tree_, fit_tree, "b")
+    st = clf.fit_stats_
+    levels = int(fit_tree.max_depth) + 1
+    if (_rungs(st) != dict(device_retries=0, level_retries=1,
+                           device_failovers=0)
+            or st["level_dispatches"] != levels + 1
+            or plan.fired != [("level", LEVEL_FAULT + 1, "unavailable")]):
+        raise AssertionError(f"resilience (b): rungs {_rungs(st)}, levels "
+                             f"{st['level_dispatches']} (want {levels} + "
+                             f"1), fired {plan.fired}")
+    out["b"] = dict(wall_s=wall, rungs=_rungs(st), levels=levels,
+                    level_dispatches=st["level_dispatches"],
+                    launches=launches())
+    log(f"resilience (b): levelwise, level:1:unavailable:at_level="
+        f"{LEVEL_FAULT}: {wall:.3f} s, rungs {_rungs(st)}; "
+        f"{st['level_dispatches']} level dispatches for {levels} levels "
+        f"(levels >= {LEVEL_FAULT} once more, none before); tree == phase "
+        f"3's; launches {out['b']['launches']}")
+
+    # (c) a real OOM: the caching allocator capped below phase 4's build
+    Xp, yp = covtype_like(RESILIENCE_ROWS, seed=RESILIENCE_SEED)
+    card = DecisionTreeClassifier(**RESILIENCE_FIT)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    card.fit(Xp, yp)
+    torch.cuda.synchronize()
+    _on_card(card, "resilience (c), the uncapped fit")
+    fit_peak = torch.cuda.max_memory_reserved() - base
+    from mpitree_tpu_torch.ops.binning import bin_for_engine
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    binned = bin_for_engine(Xp, max_bins=256, binning="auto", device=DEV)
+    torch.cuda.synchronize()
+    bin_peak = torch.cuda.max_memory_reserved() - base
+    del binned
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(0).total_memory
+    cap = base + (bin_peak + fit_peak) // 2
+    seen = []  # each failed build's error, classed (no card tensor kept)
+    real_build = clf_mod.build_tree
+
+    def watched(*a, **k):
+        try:
+            return real_build(*a, **k)
+        except Exception as e:
+            seen.append(dict(
+                oom_type=isinstance(e, torch.OutOfMemoryError),
+                oom=failure.is_oom_failure(e),
+                transient=failure.is_transient_failure(e),
+                text=f"{type(e).__name__}: {str(e)[:160]}"))
+            raise
+
+    zero()
+    clf_mod.build_tree = watched
+    torch.cuda.set_per_process_memory_fraction(cap / total)
+    try:
+        # the port's default: the classified error reaches the caller
+        try:
+            DecisionTreeClassifier(**RESILIENCE_FIT).fit(Xp, yp)
+            raised = None
+        except torch.OutOfMemoryError as e:
+            raised = type(e).__name__
+        gc.collect()  # the failed fit's frames, before the next one
+        torch.cuda.empty_cache()
+        # asked for: the host rung
+        os.environ["MPITREE_TPU_ELASTIC"] = "1"
+        with warnings.catch_warnings():
+            warnings.filterwarnings("default", message=HOST_RUNG_WARNING)
+            t0 = time.perf_counter()
+            oom = DecisionTreeClassifier(**RESILIENCE_FIT).fit(Xp, yp)
+            wall = time.perf_counter() - t0
+    finally:
+        del os.environ["MPITREE_TPU_ELASTIC"]
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        clf_mod.build_tree = real_build
+        torch.cuda.empty_cache()
+    st = oom.fit_stats_
+    if not (raised == "OutOfMemoryError" and len(seen) == 2
+            and all(r["oom_type"] and r["oom"] and not r["transient"]
+                    for r in seen)
+            and _rungs(st) == dict(device_retries=0, level_retries=0,
+                                   device_failovers=1)
+            and st["engine"] == "host"):
+        raise AssertionError(f"resilience (c): default raised {raised}, "
+                             f"errors {seen}, rungs {_rungs(st)}, engine "
+                             f"{st['engine']}")
+    same(oom.tree_, card.tree_, "c, host rung vs the card")
+    again = DecisionTreeClassifier(**RESILIENCE_FIT).fit(Xp, yp)
+    same(again.tree_, card.tree_, "c, the card after the cap")
+    _on_card(again, "resilience (c), the card after the cap")
+    out["c"] = dict(wall_s=wall, rungs=_rungs(st), cap_bytes=cap - base,
+                    bin_peak_bytes=bin_peak, fit_peak_bytes=fit_peak,
+                    default_raised=raised, error=seen[1]["text"],
+                    launches=launches())
+    log(f"resilience (c): allocator capped at {(cap - base) / 2**20:.1f} "
+        f"MiB over the live {base / 2**20:.1f} MiB (binning peak "
+        f"{bin_peak / 2**20:.1f}, fit peak {fit_peak / 2**20:.1f}): "
+        f"OutOfMemoryError classed OOM, terminal: raised to the caller "
+        f"by default; with MPITREE_TPU_ELASTIC=1 the host rung "
+        f"{wall:.3f} s, rungs {_rungs(st)}; tree == the card's; the "
+        f"uncapped card fits again, the same tree")
+
+    # (d) a real sticky error, in a process of its own
+    stem = str(Path("build") / "chip_smoke_sticky")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--mesh-worker",
+         "0", "0", "sticky", stem], capture_output=True, text=True,
+        timeout=WORKER_TIMEOUT,
+        env=dict(os.environ, MPITREE_TPU_ELASTIC="1"))
+    child_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"resilience (d): the child exited "
+                             f"{proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    rec = json.loads(Path(stem + ".json").read_text())
+    if not (rec["sticky"] and rec["device_failure"]
+            and not rec["transient"] and rec["engine"] == "host"
+            and rec["rungs"] == dict(device_retries=0, level_retries=0,
+                                     device_failovers=1)):
+        raise AssertionError(f"resilience (d): {rec}")
+    with np.load(stem + ".npz") as z:
+        bad = _differing({k: z[k] for k in TREE_FIELDS}, card.tree_)
+    if bad:
+        raise AssertionError(f"resilience (d): tree differs in {bad}")
+    out["d"] = dict(child_s=child_s, **rec)
+    log(f"resilience (d): child process {child_s:.3f} s: {rec['error']} "
+        f"classed terminal; host rung fit {rec['wall_s']:.3f} s with no "
+        f"further CUDA call (the context stayed dead: "
+        f"synchronize raised), rungs {rec['rungs']}; exit 0, tree == the "
+        f"card's")
+
+    # (e) config 5's forest checkpointed, killed after its second group
+    Xf, yf = X[:FOREST_ROWS], y[:FOREST_ROWS]
+    Xq = Xh[:SERVE_ROWS]
+    served = compile_model(forest).raw(Xq)  # the reference, not counted
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt-") as tmp:
+        path = str(Path(tmp) / "forest.ckpt")
+        zero()
+        plan = chaos.install([chaos.Fault("dispatch", KILL_GROUP + 1,
+                                          "kill")])
+        t0 = time.perf_counter()
+        killed(plan, lambda: RandomForestClassifier(
+            **FOREST, **DEVICE_ONLY, checkpoint=path).fit(Xf, yf),
+            "dispatch", "e")
+        killed_s = time.perf_counter() - t0
+        files = sorted(Path(tmp).iterdir())
+        manifest = json.loads(Path(path).read_text())
+        ck_bytes = sum(f.stat().st_size for f in files)
+        t0 = time.perf_counter()
+        resumed = RandomForestClassifier(**FOREST, **DEVICE_ONLY,
+                                         checkpoint=path).fit(Xf, yf)
+        torch.cuda.synchronize()
+        resumed_s = time.perf_counter() - t0
+        left = list(Path(tmp).iterdir())
+    if manifest["n_items"] != 8 * KILL_GROUP or left:
+        raise AssertionError(f"resilience (e): {manifest['n_items']} trees "
+                             f"flushed, files left {left}")
+    same_forest(resumed.trees_, forest.trees_, "e")
+    if not np.array_equal(compile_model(resumed).raw(Xq), served):
+        raise AssertionError("resilience (e): served answers differ")
+    out["e"] = dict(killed_s=killed_s, resumed_s=resumed_s,
+                    flushed_trees=manifest["n_items"],
+                    shards=len(manifest["shards"]), files=len(files),
+                    checkpoint_bytes=ck_bytes, launches=launches())
+    log(f"resilience (e): forest killed after {KILL_GROUP} groups "
+        f"({killed_s:.3f} s; {manifest['n_items']} trees in "
+        f"{len(manifest['shards'])} shards, {ck_bytes} bytes on disk), "
+        f"resumed {resumed_s:.3f} s: 50 trees == phase 5's, served through "
+        f"K4 bit for bit; launches {out['e']['launches']}")
+
+    # (f) phase 26's K = 8 regressor checkpointed, killed at round 40
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt-") as tmp:
+        path = str(Path(tmp) / "gbdt.ckpt")
+        kw = dict(rounds_per_dispatch=FUSED_K, max_iter=BOOST_ROUNDS,
+                  checkpoint=path)
+        zero()
+        plan = chaos.install([chaos.Fault(
+            "fused_rounds", KILL_ROUND // FUSED_K + 1, "kill")])
+        t0 = time.perf_counter()
+        killed(plan, lambda: GradientBoostingRegressor(**kw).fit(Xc, yc),
+               "fused_rounds", "f")
+        killed_s = time.perf_counter() - t0
+        flushed = json.loads(Path(path).read_text())["n_items"]
+        t0 = time.perf_counter()
+        reg = GradientBoostingRegressor(**kw).fit(Xc, yc)
+        torch.cuda.synchronize()
+        resumed_s = time.perf_counter() - t0
+    st = reg.fit_stats_
+    if flushed != KILL_ROUND or st.get("resumed_rounds") != KILL_ROUND:
+        raise AssertionError(f"resilience (f): flushed {flushed}, resumed "
+                             f"{st.get('resumed_rounds')}")
+    if not np.array_equal(reg.predict(Xch), boost_reg8.predict(Xch)):
+        raise AssertionError("resilience (f): margins differ from phase "
+                             "26's K = 8 ensemble")
+    same_forest(reg.trees_, boost_reg8.trees_, "f")
+    out["f"] = dict(killed_s=killed_s, resumed_s=resumed_s,
+                    flushed_rounds=flushed, dispatches=st["dispatches"],
+                    launches=launches())
+    log(f"resilience (f): K={FUSED_K} regressor killed at round "
+        f"{KILL_ROUND} ({killed_s:.3f} s, {flushed} rounds flushed), "
+        f"resumed {resumed_s:.3f} s ({st['dispatches']} dispatches): "
+        f"held-out margins == phase 26's bit for bit")
+
+    # (g) a serving blip on phase 7's rf
+    cm = compile_model(forest)
+    want = cm.raw(Xq)
+    zero()
+    chaos.install("serving_dispatch:1:unavailable")
+    try:
+        got = cm.raw(Xq)
+    finally:
+        chaos.clear()
+    retries = cm.metrics.counter("mpitree_serving_retries_total").value
+    if not (np.array_equal(got, want) and retries == 1
+            and "mpitree_serving_retries_total 1" in cm.metrics_text()):
+        raise AssertionError(f"resilience (g): retries {retries}")
+    out["g"] = dict(retries_total=retries, launches=launches())
+    log(f"resilience (g): serving_dispatch:1:unavailable on rf: "
+        f"{len(Xq)} rows bit for bit, mpitree_serving_retries_total "
+        f"{retries}; launches {out['g']['launches']}")
+
+    # (h) a scheduler blip requeues once
+    reg_s = ModelRegistry()
+    reg_s.publish("rf", forest)
+    want = reg_s.raw("rf", Xq[:SCHED_ROWS])
+    zero()
+    chaos.install("sched_dispatch:1:unavailable")
+    try:
+        with Scheduler(reg_s, qos="q:30000:256", shed_depth=256,
+                       margin_ms=5, wait_ms=2) as s:
+            futs = [s.submit("rf", Xq[i]) for i in range(SCHED_ROWS)]
+            got = np.stack([f.result(timeout=60) for f in futs])
+            sst = s.stats()
+    finally:
+        chaos.clear()
+    out["h"] = dict(requeues=sst["requeues"], dispatches=sst["dispatches"],
+                    launches=launches())
+    if not (np.array_equal(got, want) and 1 <= sst["requeues"] <= SCHED_ROWS):
+        raise AssertionError(f"resilience (h): {sst}")
+    log(f"resilience (h): sched_dispatch:1:unavailable: {SCHED_ROWS} "
+        f"requests, {sst['requeues']} requeued once, every answer == a "
+        f"direct raw")
+
+    # (i) F7: the streamed 2-tree forest on the (1, 2) mesh, two processes
+    twin_env = os.environ.get("MPITREE_TPU_KEYED_BOOTSTRAP")
+    os.environ["MPITREE_TPU_KEYED_BOOTSTRAP"] = "1"
+    try:
+        twin = RandomForestClassifier(**dict(FOREST, **DEVICE_ONLY,
+                                             n_estimators=2)).fit(X, y)
+    finally:
+        if twin_env is None:
+            del os.environ["MPITREE_TPU_KEYED_BOOTSTRAP"]
+        else:
+            os.environ["MPITREE_TPU_KEYED_BOOTSTRAP"] = twin_env
+    out_dir = Path("build") / "chip_smoke_mesh"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_stream-") as tmp:
+        _write_shards(X, y, Path(tmp))
+        wall, _ = _worker_pair(
+            "stream_forest", str(out_dir / "sf"),
+            {"CHIP_SMOKE_SHARDS": tmp,
+             "MPITREE_TPU_FOREST_HBM_BUDGET": "1"})
+    ranks = []
+    for r in range(MESH_RANKS):
+        rec = json.loads((out_dir / f"sf{r}.json").read_text())
+        est = load_model(str(out_dir / f"sf{r}.npz"))
+        same_forest(est.trees_, twin.trees_, f"i, rank {r}")
+        if not (rec["forest_mesh"] == [1, MESH_RANKS]
+                and rec["exchange_bytes"] == 0
+                and rec["rows_local"] == ROWS // MESH_RANKS
+                and all(rec["launches"][k] for k in ("stream", "sorted"))):
+            raise AssertionError(f"resilience (i): rank {r}: {rec}")
+        ranks.append(rec)
+    matrix = ROWS * X.shape[1] * 4
+    out["i"] = dict(processes_wall_s=wall, ranks=ranks,
+                    matrix_bytes=matrix,
+                    phase29b_peak_bytes=ens_b_peaks)
+    log(f"resilience (i): {MESH_RANKS} gloo processes stream their halves "
+        f"into the (1, {MESH_RANKS}) forest: processes {wall:.3f} s; "
+        + "; ".join(
+            f"rank {r['rank']}: exchange_bytes {r['exchange_bytes']}, peak "
+            f"{r['peak_bytes'] / 2**20:.1f} MiB, fit {r['wall_s']:.3f} s"
+            for r in ranks)
+        + f" (the whole int32 matrix: {matrix / 2**20:.1f} MiB; phase 29 "
+        f"(b)'s in-memory 200,000-row fit peaked at "
+        f"{[round(p / 2**20, 1) for p in ens_b_peaks]} MiB); 2 trees == "
+        "the in-memory keyed twin's in both ranks")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log("resilience rungs: " + json.dumps(
+        {k: v["rungs"] for k, v in out.items()
+         if isinstance(v, dict) and "rungs" in v}))
+    return out
+
+
 def phase_profile(name: str, work, out_dir: Path) -> None:
     """Run ``work()`` once more under torch.profiler: device time by kernel
     and the device's busy share of the wall-clock; the table goes to
@@ -3956,6 +4597,10 @@ def main() -> int:
         rank, port, what, out = args.mesh_worker
         if what == "ensembles":
             return ensembles_worker(int(rank), int(port), out)
+        if what == "sticky":
+            return sticky_worker(out)
+        if what == "stream_forest":
+            return stream_forest_worker(int(rank), int(port), out)
         return mesh_worker(int(rank), int(port), what, out)
     import mpitree_tpu_torch  # noqa: F401  (fails outside a checkout)
     from mpitree_tpu_torch.core.builder import BuildConfig, _chunk_size
@@ -3966,6 +4611,9 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the host rung runs only where phase 31 (c) and (d) ask for it
+    os.environ.pop("MPITREE_TPU_ELASTIC", None)
+    warnings.filterwarnings("error", message=HOST_RUNG_WARNING)
     t_start = time.perf_counter()
     clock = {}
 
@@ -4090,6 +4738,10 @@ def main() -> int:
     stream = phase_stream(X, y, Xh, fit_tree, launches, hybrid_tree, Xc, yc,
                           Xch, boost_regs[FUSED_K])
     mark("30 stream")
+    resilience = phase_resilience(
+        X, y, Xh, fit_tree, forest, Xc, yc, Xch, boost_regs[FUSED_K],
+        [r["peak_bytes"] for r in ensembles["ranks"]["b"]])
+    mark("31 resilience")
     if args.profile:
         profile_all(X, y, forest, Xh, args.profile)
 
@@ -4129,6 +4781,10 @@ def main() -> int:
             mesh_ensemble_launches=_ensemble_launches(ensembles, route),
             stream_launches={part: stream[part]["launches"][route]
                              for part in ("a", "b", "c")},
+            resilience_launches=dict(
+                {part: resilience[part]["launches"][route]
+                 for part in ("a", "b", "c", "e")},
+                i=[r["launches"][route] for r in resilience["i"]["ranks"]]),
         ))
     for form, (agg, chan) in SERVE_LINE.items():
         row = next(r for r in serve_shapes if r["kernel"] == form
@@ -4158,6 +4814,9 @@ def main() -> int:
             mesh_forest_serve_launches=ensembles["f"]["launches"][form],
             stream_forest_serve_launches=stream["c"]["serve_launches"][
                 form],
+            resilience_serve_launches={
+                part: resilience[part]["launches"][form]
+                for part in ("e", "g", "h")},
         ))
     for key, S in FIXED_LINE.items():
         route = key[:-len("_fixed")]
@@ -4194,6 +4853,7 @@ def main() -> int:
                 for K in (1, FUSED_K)},
             mesh_ensemble_launches=_ensemble_launches(ensembles, key),
             stream_launches=stream["d"]["launches"][key],
+            resilience_launches={"f": resilience["f"]["launches"][key]},
         ))
     for form in SERVE_LINE:
         for what in ("classifier", "regressor"):
@@ -4256,6 +4916,7 @@ def main() -> int:
     log(json.dumps({"mesh": mesh}))
     log(json.dumps({"mesh_ensembles": ensembles}))
     log(json.dumps({"stream": stream}))
+    log(json.dumps({"resilience": resilience}))
     log(json.dumps({"phase_end_s": clock}))
     log(card)
     log(json.dumps({"kernels": kernels}))

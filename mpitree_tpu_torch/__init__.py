@@ -23,9 +23,11 @@ warm start, ``monotonic_cst`` and ``n_devices`` on a ``(tree, data)``
 mesh), ``GradientBoostingClassifier`` and ``GradientBoostingRegressor``
 (the host round loop over Newton trees built on the card, and the fused
 rounds; ``n_devices`` on any mesh), ``save_model``/``load_model`` in the JAX package's
-file format, and serving (``compile_model``, ``ModelRegistry``; boosted
-margins through the traversal kernel); ``ROADMAP.md`` lists what comes
-next.
+file format, serving (``compile_model``, ``ModelRegistry``; boosted
+margins through the traversal kernel), streaming (``StreamedDataset``)
+and resilience (``mpitree_tpu_torch.resilience``: the retry and
+host-failover ladder, level and expansion resume, forest and boosting
+``checkpoint=``, chaos seams); ``ROADMAP.md`` lists what comes next.
 """
 
 from mpitree_tpu_torch.boosting import (

@@ -41,8 +41,24 @@ a round (binary logistic or squared error), no early stopping, no
 ``colsample_bytree``, a leaf pool within :data:`FUSED_POOL_CEILING` and
 the histogram budget, and no feature axis. On a data mesh every shard
 keeps its rows' margins and the leaf loop steps without a CUDA graph
-(:func:`run_fused_rounds`). Not here (``ROADMAP.md`` items 17–18): checkpoints,
-the retry slots, the OOM rescue and the advisor.
+(:func:`run_fused_rounds`).
+
+Resilience (``:552-590``, ``:666-678``): each dispatch runs inside the
+retry ladder (``resilience.retry_device``), so a transient failure
+re-runs that dispatch only, from the margins it started from, and counts
+one ``device_retries`` (the JAX package saves an empty dispatch snapshot
+for this and counts the same retry under ``level_retries``; the
+closure's own start is the resume point here, with one budget a
+dispatch all the same). The carried margins are replaced, never written
+in place, and every attempt captures the leaf loop's CUDA graph anew, so
+no graph whose launches failed is replayed); the ``fused_rounds`` chaos
+seam is inside the retried closure and ``grad_hess`` corrupts the
+margins it starts from, which the non-finite guard then refuses. A
+``BoostCheckpoint`` flushes after each dispatch that crosses a multiple
+of ``checkpoint_every`` rounds, so a resumed fit starts at a dispatch
+boundary of the uninterrupted one and dispatches as it did: the same
+exponents, trees and margins bit for bit. Not here (``ROADMAP.md`` item
+18): the OOM rescue and the advisor.
 """
 
 from __future__ import annotations
@@ -58,6 +74,8 @@ from mpitree_tpu_torch.ops import hist_kernel
 from mpitree_tpu_torch.ops.histogram import gbdt_payload
 from mpitree_tpu_torch.ops.sampling import row_subsample_mask_dev
 from mpitree_tpu_torch.parallel import collective
+from mpitree_tpu_torch.resilience import chaos
+from mpitree_tpu_torch.resilience.retry import retry_device
 
 DEFAULT_ROUNDS_PER_DISPATCH = 8
 # Leaf-pool ceiling: every open leaf is one sequential expansion of a
@@ -255,16 +273,22 @@ def run_fused_rounds(*, binned, packed, y_tr: np.ndarray, sw_tr, raw_tr,
                      trees: list, train_scores: list, max_iter: int,
                      cfg: BuildConfig, seed: int, lr: float, loss_kind: str,
                      rounds_per_dispatch: int, subsample: float,
-                     verbose: bool = False, mesh=None) -> dict:
+                     verbose: bool = False, mesh=None, start_round: int = 0,
+                     ck=None, checkpoint_every: int = 10,
+                     checkpoint_compact_every=None,
+                     stats: dict | None = None) -> dict:
     """Drive a fit in dispatches of ``rounds_per_dispatch`` rounds
-    (``run_fused_rounds``, ``:412``, without checkpoints, the retry slots
-    and the OOM rescue). Appends the trees and the training scores to
-    ``trees``/``train_scores``, writes the float32 margins back into
-    ``raw_tr[:, 0]``, and returns the dispatch count, the copies and the
-    leaf loop's ``graph`` choice. Raises ``FloatingPointError`` on a
-    non-finite round, as the host loop does, and ``RuntimeError`` if a
-    payload passed its dispatch's bounds (which would make the
-    fixed-point sums inexact).
+    (``run_fused_rounds``, ``:412``, without the OOM rescue) from round
+    ``start_round`` (a resumed checkpoint's). Appends the trees and the
+    training scores to ``trees``/``train_scores``, writes the float32
+    margins back into ``raw_tr[:, 0]``, and returns the dispatch count,
+    the copies and the leaf loop's ``graph`` choice. Raises
+    ``FloatingPointError`` on a non-finite round, as the host loop does,
+    and ``RuntimeError`` if a payload passed its dispatch's bounds (which
+    would make the fixed-point sums inexact). Each dispatch runs through
+    ``retry_device`` (``stats`` takes the ladder's counters); ``ck`` (a
+    ``BoostCheckpoint``) flushes
+    the trees and the margins as the module docstring says.
 
     On a data ``mesh`` (``:260-360``, ``:413-565``) every shard keeps its
     rows' margins, targets, weights and row masks; the leaf loop grows
@@ -312,16 +336,28 @@ def run_fused_rounds(*, binned, packed, y_tr: np.ndarray, sw_tr, raw_tr,
     loop = leafwise._LeafLoop(fit, cfg, pool=pool,
                               use_sub=leafwise.leafwise_subtraction(
                                   fit, cfg, pool))
-    dispatches = 0
-    r = 0
-    while r < max_iter:
-        k = min(int(rounds_per_dispatch), max_iter - r)
+
+    def dispatch(r: int, k: int, raw_in: list) -> tuple:
+        """Rounds ``r .. r + k - 1`` from the margins ``raw_in`` (left as
+        they are): the new margins and the dispatch's three host copies."""
+        global copies
+        chaos.step("fused_rounds")
+        raw = chaos.corrupt("grad_hess", *raw_in)
+        raw = list(raw) if len(raw_in) > 1 else [raw]
         residual = 0.0
         if loss_kind == "squared_error":
             residual = float(collective.psum(
                 [(a - b).abs().max().view(1) for a, b in zip(raw, y32)],
                 mesh, "max")[0])  # a dispatch's read
             copies += 1
+            if not np.isfinite(residual):
+                raise FloatingPointError(
+                    f"non-finite margins at boosting round {r} (max |raw - "
+                    f"y| = {residual}, at the start of a fused "
+                    f"rounds_per_dispatch={rounds_per_dispatch} dispatch): "
+                    "lower learning_rate, rescale targets/sample_weight, or "
+                    "set rounds_per_dispatch=1 for the f64-margin host loop "
+                    "— refusing to fit garbage rounds")
         tops = _payload_tops(loss_kind, max_w, residual, y_top, lr, k)
         exps = hist_kernel.exponents_from_top(tops[None], N)[0]
         fit.scale_exp = exps
@@ -370,12 +406,23 @@ def run_fused_rounds(*, binned, packed, y_tr: np.ndarray, sw_tr, raw_tr,
         # a bound passed on any process is passed on all: they raise together
         over = collective.psum([over.to(torch.int32).view(1)], mesh,
                                "max")[0] > 0
-        # the dispatch's results: three copies
+        # the dispatch's results: three copies (which wait for the card)
         ints_h = torch.stack(ints).cpu().numpy()
         floats_h = torch.stack(floats).cpu().numpy()
         scal_h = torch.cat([torch.stack(scalars).flatten(),
                             over.to(torch.float64).view(1)]).cpu().numpy()
         copies += 3
+        return raw, ints_h, floats_h, scal_h
+
+    dispatches = 0
+    r = start_round
+    while r < max_iter:
+        k = min(int(rounds_per_dispatch), max_iter - r)
+        # the margins carry every round before r: a retry re-runs this
+        # dispatch only
+        raw, ints_h, floats_h, scal_h = retry_device(
+            lambda: dispatch(r, k, raw),
+            what=f"gbdt fused rounds {r}..{r + k - 1}", obs=stats)
         dispatches += 1
         if scal_h[-1]:
             raise RuntimeError(
@@ -402,12 +449,24 @@ def run_fused_rounds(*, binned, packed, y_tr: np.ndarray, sw_tr, raw_tr,
                 binned, n_nodes, ints_h[i], floats_h[i, :, :3], G32, H32,
                 float(cfg.reg_lambda)))
             train_scores.append(-float(scal_h[i, 1]) / max(total_w, 1e-300))
-        r += k
+        new_r = r + k
         if verbose:
-            print(f"[gbdt] rounds {r - k + 1}..{r}/{max_iter} (fused "
+            print(f"[gbdt] rounds {r + 1}..{new_r}/{max_iter} (fused "
                   f"dispatch) train_loss={-train_scores[-1]:.6f}")
-    raw_tr[:, 0] = collective.gather_rows(raw, mesh, N).cpu().numpy()
-    copies += 1
+        if ck is not None and (new_r // int(checkpoint_every)
+                               > r // int(checkpoint_every)):
+            raw_tr[:, 0] = collective.gather_rows(raw, mesh, N).cpu().numpy()
+            copies += 1
+            ck.append(trees[len(ck.trees):], {
+                "raw_tr": raw_tr,
+                "train_scores": np.asarray(train_scores, np.float64)})
+            ck.maybe_compact(checkpoint_compact_every, stats)
+        r = new_r
+    if dispatches:
+        # nothing dispatched (a resumed fit that had finished): the
+        # float64 margins stay as they are
+        raw_tr[:, 0] = collective.gather_rows(raw, mesh, N).cpu().numpy()
+        copies += 1
     return {"dispatches": dispatches, "pool": pool,
             "hist_subtraction": loop.use_sub, "graph": loop.use_graph,
             "graph_reason": loop.graph_reason}

@@ -69,15 +69,29 @@ subsample's row masks are keyed by the global row, so the rounds are the
 in-memory fit's. ``early_stopping`` and ``colsample_bytree < 1`` raise
 there, as in the JAX package.
 
-Options off this path raise ``NotImplementedError`` naming their
-``ROADMAP.md`` item: ``checkpoint`` (item 17). ``backend="host"`` raises
-``ValueError``: boosting rounds run the device engine only, as in the JAX
-package.
+Resilience (``:594-660``; ``mpitree_tpu_torch.resilience``): every
+round's tree build runs through ``retry_device`` (boosting has no host
+twin; below the retries the rung is the round checkpoint), resuming a
+transient failure of a levelwise build from its failed level; each fused
+dispatch retries likewise (``fused_rounds.py``). The chaos seams
+``round`` (each round of the host loop) and ``grad_hess`` (its (g, h),
+which the non-finite guard then refuses) are the JAX package's.
+``checkpoint=path`` keeps a ``BoostCheckpoint``: every
+``checkpoint_every`` rounds (for fused rounds, after the dispatch that
+crosses the multiple) the new trees and the resume state (the float64
+margins, the score history, the early-stopping counters) are flushed,
+``checkpoint_compact_every`` merges the shards, and a fit killed and run
+again with the same inputs resumes there and ends with the same
+ensemble, margins bit for bit. A ``random_state`` that is a numpy
+generator would draw other masks on the rerun: the checkpoint is then
+disabled with a warning. ``backend="host"`` raises ``ValueError``:
+boosting rounds run the device engine only, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import numbers
+import warnings
 
 import numpy as np
 import torch
@@ -104,7 +118,6 @@ from mpitree_tpu_torch.models.classifier import (
     host_tier,
     fit_mesh,
     predict_mesh,
-    refuse_later,
 )
 from mpitree_tpu_torch.models.regressor import RegressorBase
 from mpitree_tpu_torch.ops.binning import BinnedData, bin_for_engine
@@ -116,6 +129,10 @@ from mpitree_tpu_torch.ops.sampling import (
     seed_from,
 )
 from mpitree_tpu_torch.parallel.mesh import feature_shards
+from mpitree_tpu_torch.resilience import chaos
+from mpitree_tpu_torch.resilience.checkpoint import BoostCheckpoint
+from mpitree_tpu_torch.resilience.recovery import SnapshotSlot
+from mpitree_tpu_torch.resilience.retry import retry_device, sync
 from mpitree_tpu_torch.serving.tables import TreeList
 from mpitree_tpu_torch.utils.validation import (
     resolve_min_samples_leaf,
@@ -125,12 +142,6 @@ from mpitree_tpu_torch.utils.validation import (
     validate_predict_data,
     validate_sample_weight,
 )
-
-# (parameter, value the slice supports, ROADMAP.md item that ports it)
-_LATER = (
-    ("checkpoint", None, "Queue 1 item 17 (resilience/checkpoint.py)"),
-)
-
 
 def _newton_refit(tree, leaf_ids: np.ndarray, g64: np.ndarray,
                   h64: np.ndarray, reg_lambda: float) -> np.ndarray:
@@ -242,8 +253,7 @@ class _BaseGradientBoosting(EstimatorBase):
 
     # -- fit ---------------------------------------------------------------
     def _validate_params_(self) -> None:
-        """The JAX package's parameter checks (``:208-251``), then the
-        options this slice refuses."""
+        """The JAX package's parameter checks (``:208-251``)."""
         if not self.learning_rate > 0:
             raise ValueError(
                 f"learning_rate must be > 0, got {self.learning_rate!r}"
@@ -287,7 +297,6 @@ class _BaseGradientBoosting(EstimatorBase):
                     "rounds_per_dispatch must be an integer >= 1 or "
                     f"'auto', got {rpd!r}"
                 )
-        refuse_later(self, _LATER)
 
     def _streamed_refusals_(self, X, y, dataset):
         """The combinations a streamed round loop cannot honour
@@ -395,6 +404,8 @@ class _BaseGradientBoosting(EstimatorBase):
             ),
         )
 
+        ck = self._open_checkpoint(
+            task, None if streamed else X, binned, y_t, sw)
         baseline = loss.init_raw(y_tr, sw_tr)  # (K,) float64
         self._baseline_raw = np.asarray(baseline, np.float64)
         raw_tr = np.tile(baseline, (n_tr, 1))
@@ -411,6 +422,48 @@ class _BaseGradientBoosting(EstimatorBase):
         stale = 0
         n_iter = 0
         stopped_early = False
+        start_round = 0
+        if ck is not None and ck.trees:
+            # resume (:470-520): the completed rounds' trees, the exact
+            # float64 margins and the score and early-stopping state they
+            # left; every later round re-derives from the keyed masks
+            st = ck.state or {}
+            n_done, rem = divmod(len(ck.trees), K)
+            rt, ts = st.get("raw_tr"), st.get("train_scores")
+            resumable = (
+                rem == 0
+                and rt is not None and rt.shape == raw_tr.shape
+                and ts is not None and len(ts) == n_done + 1
+                and (X_val is None) == ("raw_val" not in st)
+                and (X_val is None or (
+                    st["raw_val"].shape == raw_val.shape
+                    and all(k in st for k in
+                            ("val_scores", "best_val", "stale")))))
+            if not resumable:
+                warnings.warn(
+                    f"boosting checkpoint at {self.checkpoint} carries "
+                    "inconsistent round state (crash inside a flush "
+                    "window, or tampering); starting fresh",
+                    stacklevel=3,
+                )
+                ck = BoostCheckpoint(self.checkpoint, ck.fingerprint)
+            else:
+                trees = list(ck.trees)
+                raw_tr[:] = rt
+                train_scores = [float(v) for v in ts]
+                if X_val is not None:
+                    raw_val[:] = st["raw_val"]
+                    val_scores = [float(v) for v in st["val_scores"]]
+                    best_val = float(st["best_val"])
+                    stale = int(st["stale"])
+                    # a kill between the flush of the stopping round and
+                    # the checkpoint's removal: stop again, train nothing
+                    stopped_early = stale >= int(self.n_iter_no_change)
+                start_round = n_iter = n_done
+                stats["resumed_rounds"] = n_done
+        # one slot a fit: a round's levelwise build resumes from its failed
+        # level
+        slot = SnapshotSlot()
         # K rounds per dispatch on the card (boosting/fused_rounds.py),
         # resolved as the JAX package's :524-590: "auto" where measured
         # faster, an explicit K forces it or raises on a blocker; K == 1
@@ -433,7 +486,10 @@ class _BaseGradientBoosting(EstimatorBase):
                 max_iter=int(self.max_iter), cfg=cfg, seed=seed, lr=lr,
                 loss_kind=loss.kind, rounds_per_dispatch=int(k_dispatch),
                 subsample=subsample, verbose=bool(self.verbose),
-                mesh=mesh))
+                mesh=mesh, start_round=start_round, ck=ck,
+                checkpoint_every=int(self.checkpoint_every),
+                checkpoint_compact_every=self.checkpoint_compact_every,
+                stats=stats))
             n_iter = int(self.max_iter)
             stats["build_seconds"] += clock.lap()
         # the bins' shards, placed once for every round that keeps all
@@ -441,6 +497,9 @@ class _BaseGradientBoosting(EstimatorBase):
         x_shards = (None if mesh is None or n_iter >= int(self.max_iter)
                     else shard_matrix(binned, mesh))
         for r in range(n_iter, int(self.max_iter)):
+            if stopped_early:
+                break  # resumed at (or past) the early-stopping round
+            chaos.step("round")
             mask = row_subsample_mask(seed, r, n_tr, subsample)
             if colsample < 1.0:
                 kept = np.flatnonzero(feature_subsample_mask(
@@ -459,6 +518,7 @@ class _BaseGradientBoosting(EstimatorBase):
                 h = h * mask[:, None]
             # one poisoned row would poison every histogram total and
             # every split after it: refuse before building
+            g, h = chaos.corrupt("grad_hess", g, h)
             g_total, h_total = float(np.sum(g)), float(np.sum(h))
             if not (np.isfinite(g_total) and np.isfinite(h_total)):
                 raise FloatingPointError(
@@ -471,14 +531,20 @@ class _BaseGradientBoosting(EstimatorBase):
                 )
             stats["loss_seconds"] += clock.lap()
             for k in range(K):
-                tree, leaf_ids = build_tree(
-                    binned_r, np.ascontiguousarray(g[:, k], np.float32),
-                    config=cfg,
-                    sample_weight=np.ascontiguousarray(h[:, k], np.float32),
-                    packed=packed_r, return_leaf_ids=True, stats=stats,
-                    mesh=mesh, x_shards=None if kept is not None
-                    else x_shards,
-                )
+                def round_build(binned_r=binned_r, packed_r=packed_r,
+                                g32=np.ascontiguousarray(g[:, k], np.float32),
+                                h32=np.ascontiguousarray(h[:, k], np.float32),
+                                xs=None if kept is not None else x_shards):
+                    out = build_tree(
+                        binned_r, g32, config=cfg, sample_weight=h32,
+                        packed=packed_r, return_leaf_ids=True, stats=stats,
+                        mesh=mesh, x_shards=xs, snapshot_slot=slot)
+                    sync(device)
+                    return out
+
+                tree, leaf_ids = retry_device(
+                    round_build, what=f"gbdt round {r} tree build",
+                    obs=stats, resume=slot)
                 stats["build_seconds"] += clock.lap()
                 if kept is not None:
                     # back to the full matrix's feature ids
@@ -504,9 +570,24 @@ class _BaseGradientBoosting(EstimatorBase):
                 else:
                     stale += 1
                     stopped_early = stale >= int(self.n_iter_no_change)
+            if ck is not None and (r + 1) % int(self.checkpoint_every) == 0:
+                # this round group's trees as one shard, then the state
+                state = {"raw_tr": raw_tr,
+                         "train_scores": np.asarray(train_scores,
+                                                    np.float64)}
+                if val_scores is not None:
+                    state.update(
+                        raw_val=raw_val,
+                        val_scores=np.asarray(val_scores, np.float64),
+                        best_val=np.float64(best_val),
+                        stale=np.int64(stale))
+                ck.append(trees[len(ck.trees):], state)
+                ck.maybe_compact(self.checkpoint_compact_every, stats)
             stats["loss_seconds"] += clock.lap()
             if stopped_early:
                 break
+        if ck is not None:
+            ck.done()
         stats["n_rounds"] = n_iter
         stats["early_stop"] = stopped_early
         if mesh is not None:
@@ -521,6 +602,35 @@ class _BaseGradientBoosting(EstimatorBase):
         if streamed:
             res.close()  # the spill store, if the ingest opened one
         return self
+
+    def _open_checkpoint(self, task, X, binned, y, sample_weight):
+        """The fit's :class:`BoostCheckpoint` (``:411-445``), or None
+        when ``checkpoint`` is unset or, with a warning, when the
+        ``random_state`` would not replay the masks. Its fingerprint
+        covers every parameter but ``checkpoint``, ``checkpoint_every``
+        and ``device``, the task, and the validated raw rows (or a
+        streamed fit's bin table and row count), targets and weights."""
+        if not self.checkpoint:
+            return None
+        if isinstance(self.random_state,
+                      (np.random.Generator, np.random.RandomState)):
+            warnings.warn(
+                "boosting checkpointing requires a reproducible "
+                "random_state (None or a fixed integer) so a resumed "
+                "fit replays the same subsample/validation draws; "
+                "checkpoint disabled",
+                stacklevel=4,
+            )
+            return None
+        params = {k: v for k, v in self.get_params().items()
+                  if k not in ("checkpoint", "checkpoint_every", "device")}
+        params["task"] = task
+        if X is None:
+            params["streamed_rows"] = int(binned.n_samples)
+            params["streamed_n_cand"] = np.asarray(binned.n_cand).tolist()
+            X = np.ascontiguousarray(binned.thresholds)
+        return BoostCheckpoint.open(self.checkpoint, params, X, y,
+                                    sample_weight)
 
     # -- predict -----------------------------------------------------------
     def _check_fitted(self) -> None:

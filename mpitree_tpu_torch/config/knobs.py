@@ -5,9 +5,12 @@ mechanism (:class:`Knob`, :data:`REGISTRY`, :func:`value`, :func:`raw`)
 and, for each knob registered here, the JAX package's name, default,
 parse rule and choices. Registered so far: the serving tier's knobs
 (table quantization, the scheduler's QoS classes and window, the metrics
-exemplar ring), the forests' ``MPITREE_TPU_FOREST_HBM_BUDGET``, whose
-default alone differs (see its entry), and the streaming ingest's five
-(host budget, sketch capacity, spill directory and cap, keyed bootstrap).
+exemplar ring), the forests' ``MPITREE_TPU_FOREST_HBM_BUDGET`` and the
+ladder's ``MPITREE_TPU_ELASTIC``, whose defaults alone differ (see their
+entries), the streaming ingest's five
+(host budget, sketch capacity, spill directory and cap, keyed bootstrap)
+and the resilience ladder's five (``ELASTIC``, ``RETRIES``,
+``BACKOFF_S``, ``LEVEL_RETRY``, ``CHAOS``; ``resilience/``).
 The rest, and the README table generator,
 come with ``ROADMAP.md`` Queue 1 item 18; the port's other env reads
 (``core/builder.py``, ``boosting/fused_rounds.py``,
@@ -28,6 +31,11 @@ from __future__ import annotations
 import dataclasses
 import os
 from typing import Any, Callable
+
+
+def _flag(raw: str) -> bool:
+    """The package's boolean convention: everything but "0" enables."""
+    return raw != "0"
 
 
 def _one(raw: str) -> bool:
@@ -109,6 +117,26 @@ KNOBS: tuple = (
          "per-bucket exemplar reservoir size K for obs.metrics"
          " histograms (surfaced as `metrics_text()` comments; 0 = off,"
          " zero cost)", parse=int),
+    # -- resilience -------------------------------------------------------
+    # The JAX package's default, True, takes the whole ladder, host rung
+    # included. The port's None keeps the retry rungs and leaves the host
+    # rung to an explicit `1`: a fit asked for on the card stays there, or
+    # raises its classified error (resilience/config.host_failover_enabled).
+    Knob("MPITREE_TPU_ELASTIC", "bool", None,
+         "`0` turns the whole resilience ladder off — device failures"
+         " raise", parse=_flag),
+    Knob("MPITREE_TPU_RETRIES", "int", 2,
+         "transient re-dispatch budget (also the per-position level-retry"
+         " budget)", parse=int),
+    Knob("MPITREE_TPU_BACKOFF_S", "float", 0.5,
+         "retry backoff base seconds (exponential, deterministic jitter)",
+         parse=float),
+    Knob("MPITREE_TPU_LEVEL_RETRY", "str", "auto",
+         "snapshot the loop carry per level/expansion and resume there on"
+         " a blip (`auto` = on)", choices=("auto", "on", "off")),
+    Knob("MPITREE_TPU_CHAOS", "str", None,
+         "fault-injection plan spec"
+         " (`site:at:kind[:arg][:key=value...];...`)"),
 )
 
 REGISTRY: dict = {k.name: k for k in KNOBS}

@@ -64,8 +64,22 @@ pair, rebuilding the larger as ``parent - small`` (``:1636-1655``). Both
 histogram routes subtract exactly, so it never changes a tree.
 
 A ``max_leaf_nodes`` budget sends :func:`build_tree` to the leaf-wise
-engines (``core/leafwise_builder.py``). Not here (see ``ROADMAP.md``): the
-resilience snapshot and the observability layer.
+engines (``core/leafwise_builder.py``). Not here (see ``ROADMAP.md``
+item 18): the observability layer.
+
+Resilience (``mpitree_tpu_torch.resilience``, the JAX package's
+``:716-726``, ``:980-1001``, ``:1199-1207``, ``:1272-1289``): given a
+``snapshot_slot`` the levelwise engine saves its loop carry at every
+level (the FitInputs, every shard's node ids, the node buffer and its
+length, the key and bound stores, the frontier), and a call with a
+pending snapshot resumes at that level, so a transient failure at level
+17 re-runs levels 17 and on only. The resumed level rebuilds its
+histograms directly (the subtraction carry is dropped: subtraction never
+changes a tree). Its chaos seams: ``level`` (each level, reporting its
+depth), ``split_dispatch`` (each chunk's split search),
+``counts_dispatch`` (a terminal level's sums) and ``update_dispatch``
+(each reroute table). ``stats["level_dispatches"]`` counts the levels
+run, re-runs included. The fused engine takes no snapshot, as in JAX.
 
 On a data mesh (``mesh=``, ``parallel/mesh.py``; the JAX package's
 ``shard_map`` over ``DATA_AXIS``) both engines keep the tree state, the
@@ -109,6 +123,8 @@ from mpitree_tpu_torch.ops.histogram import (
     sibling_reconstruct,
 )
 from mpitree_tpu_torch.parallel import collective
+from mpitree_tpu_torch.resilience import chaos
+from mpitree_tpu_torch.resilience.recovery import resolve_level_retry
 from mpitree_tpu_torch.utils.importances import (
     class_node_impurity,
     moment_node_impurity,
@@ -884,7 +900,8 @@ def build_tree(binned: BinnedData, y: np.ndarray, *, config: BuildConfig,
                feature_sampler=None,
                feature_mask: np.ndarray | None = None,
                mono_cst: np.ndarray | None = None,
-               stats: dict | None = None, mesh=None, x_shards=None):
+               stats: dict | None = None, mesh=None, x_shards=None,
+               snapshot_slot=None):
     """Grow one tree on the device that holds ``binned.x_binned``, or on
     the data ``mesh`` (``parallel/mesh.Mesh``) whose lead shard holds it;
     returns the host struct-of-arrays tree. The engine comes from
@@ -923,6 +940,11 @@ def build_tree(binned: BinnedData, y: np.ndarray, *, config: BuildConfig,
     ``(data, feature)`` mesh each shard sweeps its feature slab and the
     winners merge over the feature axis; ``monotonic_cst``, per-node
     sampling and leaf-wise growth raise there, as in the JAX package.
+
+    ``snapshot_slot`` (``resilience.recovery.SnapshotSlot``): the retry
+    ladder's handle, which the levelwise engine and the host-stepped
+    best-first engine snapshot into and resume from (see the module
+    docstring); the fused engines ignore it.
     """
     cfg = config
     check_task(cfg)
@@ -940,7 +962,8 @@ def build_tree(binned: BinnedData, y: np.ndarray, *, config: BuildConfig,
             sample_weight=sample_weight, packed=packed,
             return_leaf_ids=return_leaf_ids, refit_targets=refit_targets,
             feature_sampler=feature_sampler, feature_mask=feature_mask,
-            mono_cst=mono_cst, stats=stats, mesh=mesh, x_shards=x_shards)
+            mono_cst=mono_cst, stats=stats, mesh=mesh, x_shards=x_shards,
+            snapshot_slot=snapshot_slot)
     if mesh is not None:
         from mpitree_tpu_torch.parallel.mesh import feature_shards
 
@@ -963,35 +986,52 @@ def build_tree(binned: BinnedData, y: np.ndarray, *, config: BuildConfig,
         from mpitree_tpu_torch.core.fused_builder import build_tree_fused
 
         return build_tree_fused(binned, y, **kw)
-    return _build_levelwise(binned, y, **kw)
+    return _build_levelwise(binned, y, stats=stats,
+                            snapshot_slot=snapshot_slot, **kw)
 
 
 def _build_levelwise(binned: BinnedData, y: np.ndarray, *,
                      config: BuildConfig, n_classes, sample_weight, packed,
                      return_leaf_ids, refit_targets, feature_sampler,
-                     feature_mask, mono_cst, mesh=None, x_shards=None):
-    """The levelwise engine: one host round trip a level."""
+                     feature_mask, mono_cst, mesh=None, x_shards=None,
+                     stats=None, snapshot_slot=None):
+    """The levelwise engine: one host round trip a level; snapshots its
+    carry into ``snapshot_slot`` at every level and resumes from a
+    pending one (module docstring)."""
     cfg = config
     regression = cfg.task == "regression"
     gbdt = cfg.task == "gbdt"
-    fit = FitInputs(binned, y, cfg, n_classes=n_classes,
-                    sample_weight=sample_weight, packed=packed,
-                    feature_mask=feature_mask, mesh=mesh, x_shards=x_shards)
+    lr_on = snapshot_slot is not None and resolve_level_retry()
+    resume = snapshot_slot.take("level") if lr_on else None
+    sampling = feature_sampler is not None and feature_sampler.active
+    mono = mono_cst is not None and bool(np.any(np.asarray(mono_cst) != 0))
+    if resume is None:
+        fit = FitInputs(binned, y, cfg, n_classes=n_classes,
+                        sample_weight=sample_weight, packed=packed,
+                        feature_mask=feature_mask, mesh=mesh,
+                        x_shards=x_shards)
+        nids = fit.root_nids()
+        keys = feature_sampler.key_store() if sampling else None
+        bounds = BoundsStore() if mono else None
+        tree = new_tree_buffer(cfg.task, fit.C, sample_weight)
+        tree.ensure(1)
+        tree.n = 1
+        frontier_lo, frontier_size, depth = 0, 1, 0
+    else:
+        # the level's node writes are rewritten with the same values, and
+        # tree.n un-allocates the failed level's children
+        fit, nids, keys, bounds = (resume["fit"], resume["nids"],
+                                   resume["keys"], resume["bounds"])
+        tree = resume["tree"]
+        tree.n = resume["tree_n"]
+        frontier_lo, frontier_size, depth = resume["frontier"]
     dev, N, F, C = fit.dev, fit.N, fit.F, fit.C
     fixed, scale_exp, U = fit.fixed, fit.scale_exp, fit.U
-    nids = fit.root_nids()
-    sampling = feature_sampler is not None and feature_sampler.active
-    keys = feature_sampler.key_store() if sampling else None
-    mono = mono_cst is not None and bool(np.any(np.asarray(mono_cst) != 0))
     if mono:
         cst32 = np.ascontiguousarray(mono_cst, np.int32)
         cst_d = torch.from_numpy(cst32).to(dev)
-        bounds = BoundsStore()
     use_sub = resolve_hist_subtraction(cfg, dev)
     carry = None
-    tree = new_tree_buffer(cfg.task, C, sample_weight)
-    tree.ensure(1)
-    tree.n = 1
 
     def to_dev(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(dev)
@@ -1020,12 +1060,19 @@ def _build_levelwise(binned: BinnedData, y: np.ndarray, *,
         return {"mono_cst": cst_d, "mono_lo": to_dev(lo_w),
                 "mono_hi": to_dev(hi_w)}
 
-    frontier_lo, frontier_size, depth = 0, 1, 0
     while frontier_size > 0:
+        if lr_on:
+            snapshot_slot.save("level", depth, dict(
+                fit=fit, nids=nids, keys=keys, bounds=bounds, tree=tree,
+                tree_n=tree.n, frontier=(frontier_lo, frontier_size, depth)))
+        if stats is not None:
+            stats["level_dispatches"] = stats.get("level_dispatches", 0) + 1
+        chaos.step("level", level=depth)
         terminal = cfg.max_depth is not None and depth == cfg.max_depth
         hi = frontier_lo + frontier_size
         carry_in, carry = carry, None
         if terminal:
+            chaos.step("counts_dispatch")
             dec = {"counts": fit.node_sums(nids, frontier_lo, hi).cpu().numpy()}
         else:
             S = fit.width(frontier_size)
@@ -1033,8 +1080,10 @@ def _build_levelwise(binned: BinnedData, y: np.ndarray, *,
             keep = keep_level(fit, cfg, use_sub, S, n_chunks)
             level = level_histograms(fit, nids, frontier_lo, frontier_size,
                                      S, carry=carry_in, keep=keep)
-            decisions = torch.cat([
-                fit.sweep(
+
+            def split_chunk(c, lo):
+                chaos.step("split_dispatch")
+                return fit.sweep(
                     level.chunk(c), lo, criterion=cfg.criterion,
                     min_child_weight=cfg.min_child_weight, task=cfg.task,
                     reg_lambda=cfg.reg_lambda,
@@ -1043,6 +1092,9 @@ def _build_levelwise(binned: BinnedData, y: np.ndarray, *,
                     **sample_args(lo, min(S, hi - lo), S),
                     **mono_args(lo, min(S, hi - lo), S),
                 )[: min(S, hi - lo)]
+
+            decisions = torch.cat([
+                split_chunk(c, lo)
                 for c, lo in enumerate(range(frontier_lo, hi, S))
             ])
             if cfg.debug:
@@ -1161,6 +1213,7 @@ def _build_levelwise(binned: BinnedData, y: np.ndarray, *,
                 bin_t[:take] = np.where(is_split_full[sl], dec["bin"][sl], 0)
                 left_t[:take] = lr[sl]
                 right_t[:take] = rr[sl]
+                chaos.step("update_dispatch")
                 nids = fit.reroute(
                     nids, lo, to_dev(is_split), to_dev(feat_t),
                     to_dev(bin_t), to_dev(left_t), to_dev(right_t),
@@ -1170,6 +1223,10 @@ def _build_levelwise(binned: BinnedData, y: np.ndarray, *,
         frontier_size = 2 * len(split_ids)
         depth += 1
 
+    if lr_on:
+        # built: a later failure restarts rather than resuming a finished
+        # build (and the snapshot's device tensors are released)
+        snapshot_slot.clear()
     out = tree.finalize()
     leaf_ids = None
     if regression and refit_targets is not None:

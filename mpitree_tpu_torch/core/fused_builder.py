@@ -73,9 +73,8 @@ from mpitree_tpu_torch.core.builder import (
     resolve_hist_subtraction,
 )
 from mpitree_tpu_torch.core.tree_struct import TreeArrays
-from mpitree_tpu_torch.ingest.place import gather_matrix
 from mpitree_tpu_torch.ops import hist_kernel
-from mpitree_tpu_torch.ops.binning import BinnedData, StreamedBinnedData
+from mpitree_tpu_torch.ops.binning import StreamedBinnedData
 from mpitree_tpu_torch.ops.sampling import (
     child_keys_dev,
     node_draws_dev,
@@ -468,24 +467,19 @@ def build_forest_fused(binned, y: np.ndarray, *, config: BuildConfig,
     the global statistics, and the shards' int64 sums add exactly). The
     finished trees then go to every process (:func:`_exchange`) and are
     finalized there as on one device. A ``StreamedBinnedData`` (whose
-    shards lie on the ingest's data mesh, not the groups') becomes the
-    whole matrix on the lead first, once per fit
-    (``ingest/place.gather_matrix``). ``stats`` receives ``forest_mesh``
-    (the ``(tree, data)`` shape)."""
+    shards lie on the ingest's data mesh) gives each tree group's shards
+    the row blocks they take, at the ingest's width, from this process's
+    shards and, for rows another process placed, only those rows
+    (``ingest/place.regroup_matrix``, counted under ``exchange``): where
+    the forest's data axis is the ingest's, nothing crosses a process,
+    and no device holds more than its group's blocks. ``stats`` receives
+    ``forest_mesh`` (the ``(tree, data)`` shape)."""
     cfg = config
     _check_fused(cfg)
     T = weights.shape[0]
     task = cfg.task
-    if isinstance(binned, StreamedBinnedData):
-        # the tree groups need other row blocks than the stream's shards
-        # hold: the whole matrix on the lead, once per fit (one all-reduce
-        # across processes), which each group then slices as it slices an
-        # in-memory matrix
-        binned = BinnedData(
-            x_binned=gather_matrix(binned, mesh),
-            thresholds=binned.thresholds, n_cand=binned.n_cand,
-            n_bins=binned.n_bins, quantized=binned.quantized)
-    dev = binned.x_binned.device
+    dev = (mesh.lead if isinstance(binned, StreamedBinnedData)
+           else binned.x_binned.device)
     ws = torch.as_tensor(np.asarray(weights, np.float32), device=dev)
     cms = torch.as_tensor(np.asarray(cand_masks, bool), device=dev)
     y_d = torch.as_tensor(
@@ -553,13 +547,26 @@ def _grow_sharded(binned, y, mesh, T: int, *, routes, cms, weights,
         stats["forest_mesh"] = [Dt, Dd]
     tmesh = mesh_lib.as_tree_data_mesh(mesh, (Dt, Dd))
     per = -(-T // Dt)  # T_pad / Dt: each tree group's block
+    regrouped = None
+    if isinstance(binned, StreamedBinnedData):
+        # a local shard's block depends on the data axis alone: regrouped
+        # once a fit for each width, whatever the calls' tree counts
+        regrouped = binned.blocks.get(Dd)
+        if regrouped is None:
+            from mpitree_tpu_torch.ingest.place import regroup_matrix
+
+            regrouped = binned.blocks[Dd] = [
+                (x, hist_kernel.pack_bins(x, binned.n_bins)
+                 if binned.n_bins <= 256 else None)
+                for x in regroup_matrix(binned, mesh, tmesh)]
     mine = {}
     for sub in tmesh.axis_groups(mesh_lib.DATA_AXIS):
         j = tmesh.coords(sub.local[0])[0]
         block = range(j * per, min((j + 1) * per, T))
         if not len(block):
             continue  # a group of padding trees only
-        x_sh = shard_matrix(binned, sub)
+        x_sh = (shard_matrix(binned, sub) if regrouped is None
+                else [regrouped[i] for i in sub.local])
         for t in block:
             cfg_t = tree_cfg(t)
             fit = FitInputs(binned, y, cfg_t, n_classes=n_classes,
@@ -596,7 +603,7 @@ def _exchange(mine: dict, mesh, T: int, n_rows: int,
         sizes[t] = counts.shape[0]
     head = torch.cat([sizes, torch.tensor([C], dtype=torch.int64,
                                           device=dev)])
-    head = collective.psum([head], mesh, "max", kind="exchange").cpu()
+    head = collective.psum([head], mesh, "max", kind="tree_exchange").cpu()
     sizes, C = head[:T].numpy(), int(head[T])
     stride = 5 + C
     offs = np.concatenate([[0], np.cumsum(sizes * stride)])
@@ -611,12 +618,12 @@ def _exchange(mine: dict, mesh, T: int, n_rows: int,
         if need_ids:
             ids[t] = leaf
     full = collective.psum([torch.from_numpy(buf).to(dev)], mesh,
-                           kind="exchange")
+                           kind="tree_exchange")
     assert_replicated(full, mesh, what="forest exchange")
     full = full.cpu().numpy()
     if need_ids:
         ids = collective.psum([torch.from_numpy(ids).to(dev)], mesh,
-                              kind="exchange").cpu().numpy()
+                              kind="tree_exchange").cpu().numpy()
     parts = []
     for t in range(T):
         n = int(sizes[t])

@@ -44,9 +44,19 @@ with the JAX package's messages. On a data mesh (``_make_leafwise_fn``,
 over the mesh; the fused loop then launches each expansion eagerly
 (:func:`graph_choice`: a reduction synchronises and crosses processes,
 which no CUDA graph captures) and says so in ``fit_stats_``. A
-``(data, feature)`` mesh raises, as in the JAX package. Not here
-(``ROADMAP.md`` items 17–18): the obs rows, chaos seams and snapshot
-slots.
+``(data, feature)`` mesh raises, as in the JAX package.
+
+Resilience (``mpitree_tpu/core/leafwise_builder.py:450-455``, ``:617``,
+``:640``, ``:820``): the ``leafwise_build`` chaos seam precedes the fused
+loop, which takes no snapshot (a call again builds a new loop and
+captures a new CUDA graph, so no graph that held a failed launch is
+replayed); the host-stepped engine saves its carry into the
+``snapshot_slot`` at every expansion and resumes from a pending one, so
+a transient failure at expansion e re-runs expansions e and on only. Its
+seams are ``expansion`` (each step, reporting its 1-based ordinal) and
+``expand_dispatch`` (each pair dispatch); ``stats["expansion_dispatches"]``
+counts the steps run, re-runs included. Not here (``ROADMAP.md`` item
+18): the obs rows.
 """
 
 from __future__ import annotations
@@ -73,6 +83,8 @@ from mpitree_tpu_torch.core.fused_builder import (
 from mpitree_tpu_torch.ops import hist_kernel
 from mpitree_tpu_torch.ops import impurity as imp_ops
 from mpitree_tpu_torch.parallel import collective
+from mpitree_tpu_torch.resilience import chaos
+from mpitree_tpu_torch.resilience.recovery import resolve_level_retry
 from mpitree_tpu_torch.utils.importances import class_node_impurity
 
 # Expansions between the fused engine's reads of its 1-byte "active" flag
@@ -454,37 +466,34 @@ class _LeafLoop:
 
 
 def _build_leafwise_stepped(fit: FitInputs, cfg: BuildConfig, *, pool: int,
-                            use_sub: bool) -> tuple:
+                            use_sub: bool, snapshot_slot=None,
+                            resume: dict | None = None,
+                            stats: dict | None = None) -> tuple:
     """The host-stepped engine (``_build_leafwise_stepped``, ``:692``):
     the pool on the host, one :func:`collective.expand_step` per expansion
     and one copy of its (2, ...) decisions; under subtraction each open
     leaf's pair histogram stays on the device and comes back as the
     parent operand when the leaf is expanded. Returns expansion-ordered
     host arrays ``(n_nodes, ints (5, M), counts (M, C))`` and every
-    shard's device node ids."""
+    shard's device node ids.
+
+    With ``snapshot_slot`` the carry is saved before every expansion, by
+    reference (``:692-760``): the node buffers' writes before the
+    dispatch are the same values again on a re-run, the pool changes only
+    after the dispatch's copy succeeded, and the node ids are replaced,
+    never written in place; ``resume`` (a pending snapshot's state)
+    continues from one."""
     dev, C = fit.dev, fit.C
     Pn = int(pool)
     M = 2 * Pn - 1
     kw = _pair_kw(fit, cfg, use_sub)
     head = _n_head(cfg.task)
-    feat = np.full(M, -1, np.int32)
-    bins = np.zeros(M, np.int32)
-    left = np.full(M, -1, np.int32)
-    parent = np.full(M, -1, np.int32)
-    depth = np.zeros(M, np.int32)
-    counts = np.zeros((M, C), np.float64)
-    nvec = np.zeros(M, np.float64)
-    pool_gain = np.full(Pn, -np.inf, np.float32)
-    pool_node = np.zeros(Pn, np.int64)
-    pool_feat = np.zeros(Pn, np.int32)
-    pool_bin = np.zeros(Pn, np.int32)
-    pool_nl = np.zeros(Pn, np.float64)
-    pool_hist: list = [None] * Pn  # (pair histogram, 0 | 1)
 
     def scalar(v, dtype=torch.int64):
         return torch.tensor(v, dtype=dtype, device=dev)
 
     def dispatch(e_node, f, b, l_id, small_left, phist):
+        chaos.step("expand_dispatch")
         is_small = torch.tensor([small_left, not small_left], device=dev)
         nid_out, dec, keep = collective.expand_step(
             *_rows(fit), nid, fit.cand_mask, scalar(e_node),
@@ -492,23 +501,53 @@ def _build_leafwise_stepped(fit: FitInputs, cfg: BuildConfig, *, pool: int,
             is_small, phist, **kw)
         return nid_out, dec.cpu().numpy(), keep  # the expansion's one copy
 
-    # root: the sentinel -2 reroutes nothing, left_id 0 puts every row in
-    # slot 0 of the pair (padding rows of a mesh stay at -1)
-    nid = fit.root_nids()
-    zeros_ph = (torch.zeros((1, fit.F, C, fit.B), device=dev,
-                            dtype=torch.int64 if fit.fixed
-                            else torch.float32) if use_sub else None)
-    nid, dec, keep = dispatch(-2, 0, 0, 0, True, zeros_ph)
-    n0, _, gain0 = _stop_and_gain_np(dec, 0, cfg=cfg, fixed=fit.fixed)
-    counts[0] = dec[0, head:]
-    nvec[0] = n0[0]
-    pool_gain[0] = gain0[0]
-    pool_feat[0], pool_bin[0] = dec[0, 0], dec[0, 1]
-    pool_nl[0] = dec[0, 6]
-    if use_sub:
-        pool_hist[0] = (keep, 0)
-    n_nodes, n_leaves = 1, 1
+    if resume is not None:
+        feat, bins, left, parent, depth, counts, nvec = resume["bufs"]
+        (pool_gain, pool_node, pool_feat, pool_bin, pool_nl,
+         pool_hist) = resume["pool"]
+        nid = resume["nid"]
+        n_nodes, n_leaves = resume["n"]
+    else:
+        feat = np.full(M, -1, np.int32)
+        bins = np.zeros(M, np.int32)
+        left = np.full(M, -1, np.int32)
+        parent = np.full(M, -1, np.int32)
+        depth = np.zeros(M, np.int32)
+        counts = np.zeros((M, C), np.float64)
+        nvec = np.zeros(M, np.float64)
+        pool_gain = np.full(Pn, -np.inf, np.float32)
+        pool_node = np.zeros(Pn, np.int64)
+        pool_feat = np.zeros(Pn, np.int32)
+        pool_bin = np.zeros(Pn, np.int32)
+        pool_nl = np.zeros(Pn, np.float64)
+        pool_hist: list = [None] * Pn  # (pair histogram, 0 | 1)
+        # root: the sentinel -2 reroutes nothing, left_id 0 puts every row
+        # in slot 0 of the pair (padding rows of a mesh stay at -1)
+        nid = fit.root_nids()
+        zeros_ph = (torch.zeros((1, fit.F, C, fit.B), device=dev,
+                                dtype=torch.int64 if fit.fixed
+                                else torch.float32) if use_sub else None)
+        nid, dec, keep = dispatch(-2, 0, 0, 0, True, zeros_ph)
+        n0, _, gain0 = _stop_and_gain_np(dec, 0, cfg=cfg, fixed=fit.fixed)
+        counts[0] = dec[0, head:]
+        nvec[0] = n0[0]
+        pool_gain[0] = gain0[0]
+        pool_feat[0], pool_bin[0] = dec[0, 0], dec[0, 1]
+        pool_nl[0] = dec[0, 6]
+        if use_sub:
+            pool_hist[0] = (keep, 0)
+        n_nodes, n_leaves = 1, 1
     while n_leaves < Pn and pool_gain.max() > -np.inf:
+        if snapshot_slot is not None:
+            snapshot_slot.save("expansion", n_leaves, dict(
+                fit=fit, nid=nid, n=(n_nodes, n_leaves),
+                bufs=(feat, bins, left, parent, depth, counts, nvec),
+                pool=(pool_gain, pool_node, pool_feat, pool_bin, pool_nl,
+                      pool_hist)))
+        if stats is not None:
+            stats["expansion_dispatches"] = stats.get(
+                "expansion_dispatches", 0) + 1
+        chaos.step("expansion", level=n_leaves)
         p = imp_ops.best_leaf_slot_np(pool_gain, pool_node)
         enode = int(pool_node[p])
         f, b = int(pool_feat[p]), int(pool_bin[p])
@@ -561,7 +600,7 @@ def build_tree_leafwise(binned, y: np.ndarray, *, config: BuildConfig,
                         feature_mask: np.ndarray | None = None,
                         mono_cst: np.ndarray | None = None,
                         stats: dict | None = None, mesh=None,
-                        x_shards=None):
+                        x_shards=None, snapshot_slot=None):
     """Grow one tree best-first; ``core/builder.build_tree``'s contract
     (``build_tree_leafwise``, ``:437``), which routes here whenever
     ``cfg.max_leaf_nodes`` is set. The engine comes from
@@ -592,15 +631,20 @@ def build_tree_leafwise(binned, y: np.ndarray, *, config: BuildConfig,
                 "(mesh2d_unsupported: the best-first frontier has no "
                 "feature-axis select_global twin)")
     engine = resolve_engine(cfg)
-    fit = FitInputs(binned, y, cfg, n_classes=n_classes,
-                    sample_weight=sample_weight, packed=packed,
-                    feature_mask=feature_mask, mesh=mesh, x_shards=x_shards)
+    slot = (snapshot_slot if engine != "fused" and snapshot_slot is not None
+            and resolve_level_retry() else None)
+    resume = None if slot is None else slot.take("expansion")
+    fit = resume["fit"] if resume is not None else FitInputs(
+        binned, y, cfg, n_classes=n_classes, sample_weight=sample_weight,
+        packed=packed, feature_mask=feature_mask, mesh=mesh,
+        x_shards=x_shards)
     pool = _pool_capacity(cfg.max_leaf_nodes, cfg.max_depth, fit.N)
     use_sub = leafwise_subtraction(fit, cfg, pool)
     graph = None
     if engine == "fused":
         loop = _LeafLoop(fit, cfg, pool=pool, use_sub=use_sub)
         graph = (loop.use_graph, loop.graph_reason)
+        chaos.step("leafwise_build")
         g = loop.grow()
         flat = torch.cat([g.ints.flatten(), g.n_nodes.view(1).to(torch.int32)])
         flat = flat.cpu().numpy()  # one copy of the structure
@@ -610,7 +654,10 @@ def build_tree_leafwise(binned, y: np.ndarray, *, config: BuildConfig,
         nid = g.nid
     else:
         n_nodes, ints, counts, nid = _build_leafwise_stepped(
-            fit, cfg, pool=pool, use_sub=use_sub)
+            fit, cfg, pool=pool, use_sub=use_sub, snapshot_slot=slot,
+            resume=resume, stats=stats)
+        if slot is not None:
+            slot.clear()
     tree, perm = _finalize_leafwise(
         binned, cfg.task, cfg.criterion, n_nodes, *ints[:2], counts,
         ints[2], ints[3], ints[4], _count_dtype(cfg.task, sample_weight))

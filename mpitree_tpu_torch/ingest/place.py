@@ -20,13 +20,21 @@ shards (``ops/binning.StreamedBinnedData``), laid out by
   own, starting at its global ``row_offset``; its rows must cover exactly
   those blocks, else the assembly raises (it never drops rows).
 
-:func:`gather_matrix` is the forests' one move of the placed matrix: the
-whole ``(N, F)`` matrix on the lead device, once per fit, which the
-``(tree, data)`` mesh then re-slices per tree group as it slices an
-in-memory matrix.
+:func:`regroup_matrix` is the forests' one move of the placed matrix
+(the JAX package pads the stream's global array for the forest mesh and
+reshards it, ``mpitree_tpu/core/fused_builder.py:1276-1324``): each
+shard of a ``(tree, data)`` mesh gets the row block its tree group's
+data axis gives it, at the ingest's width (int32). Rows this process
+placed are copied on the device; rows another process placed come from
+that process, only those, each interval once, by a broadcast between
+the two (counted under ``exchange`` in ``mesh.stats``). Where the
+forest's data axis lines up with the ingest's, nothing crosses a
+process.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -129,21 +137,130 @@ def assemble_binned(mesh, binned_chunks, *, n_rows: int, n_features: int,
     return shards, lay
 
 
-def gather_matrix(binned, mesh) -> torch.Tensor:
-    """The whole ``(N, F)`` int32 matrix of a ``StreamedBinnedData``
-    placed on ``mesh``, on ``mesh.lead``: the local shards copied into
-    their blocks on the device and, across processes, one sum all-reduce
-    over the mesh's process group (each block filled by one process;
-    counted under ``exchange`` in ``mesh.stats``)."""
-    from mpitree_tpu_torch.parallel import collective
+def _overlap(a: int, b: int, c: int, d: int):
+    lo, hi = max(a, c), min(b, d)
+    return (lo, hi) if lo < hi else None
 
-    lead = mesh.lead
-    sr = binned.rows_pad // data_shards(mesh)
-    sc = binned.feat_pad // feature_shards(mesh)
-    full = torch.zeros((binned.rows_pad, binned.feat_pad),
-                       dtype=torch.int32, device=lead)
-    for (di, fi), shard in zip(shard_blocks(mesh), binned.x_binned):
-        full[di * sr:(di + 1) * sr, fi * sc:(fi + 1) * sc] = shard.to(lead)
-    if mesh.group is not None:
-        full = collective.psum([full], mesh, kind="exchange")
-    return full[:binned.n_samples, :binned.n_features].contiguous()
+
+def _merged(spans: list) -> list:
+    """Sorted disjoint ``(lo, hi)`` intervals covering ``spans``."""
+    out: list = []
+    for lo, hi in sorted(spans):
+        if out and lo <= out[-1][1]:
+            out[-1] = (out[-1][0], max(out[-1][1], hi))
+        else:
+            out.append((lo, hi))
+    return out
+
+
+def regroup_matrix(binned, src, dst) -> list:
+    """The int32 row blocks of a ``StreamedBinnedData`` placed on the 1-D
+    data mesh ``src`` that the local shards of ``dst`` (the same shards
+    as a ``(tree, data)`` mesh, ``parallel/mesh.as_tree_data_mesh``)
+    take, in ``dst``'s local order: shard ``g`` of tree group
+    ``g // Dd`` holds rows ``[d * p, (d + 1) * p)``, ``d = g % Dd`` and
+    ``p`` the rows padded to ``Dd`` over ``Dd``, zero past the real rows
+    (padding rows, which the build keeps at ``node_id = -1``, weight 0).
+
+    Every process computes the same plan: for each process, the rows its
+    shards need that another process placed, as merged intervals per
+    owner. Each interval is broadcast by its owner within the pair of
+    processes (``mesh._subgroup``, made by every process in plan order),
+    so a process receives exactly the rows it lacks, once; the received
+    bytes and seconds count under ``exchange``. Nothing else crosses a
+    process, and no device holds more than its shards' blocks and the
+    received intervals."""
+    import torch.distributed as dist
+
+    from mpitree_tpu_torch.parallel.mesh import _subgroup, pad_rows
+
+    if feature_shards(src) != 1 or src.n_local != dst.n_local:
+        raise ValueError("a forest regroups a stream placed on a 1-D data "
+                         "mesh of its own shards")
+    N, F = binned.n_samples, binned.n_features
+    n_local = src.n_local
+    sr = binned.rows_pad // data_shards(src)     # an ingest block's rows
+    Dd = data_shards(dst)
+    per = (N + pad_rows(N, Dd)) // Dd           # a forest shard's rows
+    P = src.n_procs
+
+    def need(g):  # global forest shard g's real rows
+        d = g % Dd
+        return _overlap(d * per, (d + 1) * per, 0, N)
+
+    def held(q):  # the real rows process q placed (contiguous blocks)
+        return _overlap(q * n_local * sr, (q + 1) * n_local * sr, 0, N)
+
+    plan = []  # (needer, owner, lo, hi), the same on every process
+    for p in range(P):
+        spans = [need(g) for g in range(p * n_local, (p + 1) * n_local)]
+        for lo, hi in _merged([sp for sp in spans if sp is not None]):
+            for q in range(P):
+                part = None if q == p or held(q) is None else _overlap(
+                    lo, hi, *held(q))
+                if part is not None:
+                    plan.append((p, q) + part)
+
+    me, lead = src.rank, src.lead
+    ranks = (list(range(P)) if src.group is None
+             else dist.get_process_group_ranks(src.group))
+    got = []  # (lo, hi, tensor) received by this process
+    for d in dict.fromkeys(sh.device for sh in binned.x_binned):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+    t0 = time.perf_counter()
+    n_bytes = calls = 0
+    for p, q, lo, hi in plan:
+        group = _subgroup(tuple(sorted((ranks[p], ranks[q]))))
+        if me == q:
+            buf = _local_rows(binned, src, lo, hi, sr, lead)
+        elif me == p:
+            buf = torch.empty((hi - lo, F), dtype=torch.int32, device=lead)
+        else:
+            continue
+        dist.broadcast(buf, src=ranks[q], group=group)
+        if me == p:
+            got.append((lo, hi, buf))
+            n_bytes += buf.numel() * buf.element_size()
+            calls += 1
+    if calls:
+        if lead.type == "cuda":
+            torch.cuda.synchronize(lead)
+        st = src.stats
+        st["exchange_calls"] += calls
+        st["exchange_bytes"] += n_bytes
+        st["exchange_seconds"] += time.perf_counter() - t0
+
+    out = []
+    for i, dev in enumerate(dst.devices):
+        g = dst.shard_index(i)
+        x = torch.zeros((per, F), dtype=torch.int32, device=dev)
+        span = need(g)
+        if span is not None:
+            base = (g % Dd) * per
+            for lo, hi, buf in got:
+                part = _overlap(*span, lo, hi)
+                if part is not None:
+                    x[part[0] - base:part[1] - base] = buf[
+                        part[0] - lo:part[1] - lo].to(dev)
+            if held(me) is not None:
+                part = _overlap(*span, *held(me))
+                if part is not None:
+                    x[part[0] - base:part[1] - base] = _local_rows(
+                        binned, src, *part, sr, dev)
+        out.append(x)
+    return out
+
+
+def _local_rows(binned, src, lo: int, hi: int, sr: int,
+                dev) -> torch.Tensor:
+    """Rows ``[lo, hi)`` of the matrix from this process's own shards of
+    the 1-D mesh ``src`` (its blocks of ``sr`` rows), on ``dev``."""
+    parts = []
+    for i, shard in enumerate(binned.x_binned):
+        b = src.shard_index(i)
+        part = _overlap(lo, hi, b * sr, (b + 1) * sr)
+        if part is not None:
+            parts.append(shard[part[0] - b * sr:part[1] - b * sr,
+                               :binned.n_features].to(dev))
+    return torch.cat(parts) if len(parts) > 1 else parts[0].contiguous()

@@ -17,9 +17,12 @@ How a streamed fit differs from an in-memory one:
 - the refine tail gathers its candidates' raw rows by replaying the chunk
   stream once (``ingest/stream.StreamRowProvider``); fits across several
   processes stay crown-only (each process streams only its shard);
-- the JAX package's retry and out-of-memory ladder around the build
-  (``retry_device``, ``OomRescue``) is ``ROADMAP.md`` Queue 1 item 17: a
-  failed build raises.
+- the build runs inside the retry rungs of the resilience ladder
+  (``resilience.retry_device``, the JAX package's ``:199``): a transient
+  failure retries on the card (the levelwise engine from its last
+  level), but there is no host rung: the host tier would need the
+  host-resident matrix a stream never builds, so a terminal failure
+  raises. The JAX package's OOM rescue waits for ``ROADMAP.md`` item 18e.
 """
 
 from __future__ import annotations
@@ -186,7 +189,7 @@ def streamed_fit(est, X, dataset, y=None, sample_weight=None):
         refit_targets=refit,
         feature_sampler=sampler_for(est.max_features, est.random_state, F,
                                     splitter=est.splitter),
-        mono_cst=mono, mesh=mesh,
+        mono_cst=mono, mesh=mesh, what=f"{type(est).__name__}.fit streamed",
     )
     est.fit_stats_ = stats
     if task == "classification":

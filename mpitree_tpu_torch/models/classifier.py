@@ -116,6 +116,12 @@ from mpitree_tpu_torch.ops.predict import predict_leaf_ids
 from mpitree_tpu_torch.ops.sampling import sampler_for
 from mpitree_tpu_torch.parallel.distributed import process_info
 from mpitree_tpu_torch.parallel.mesh import resolve_mesh
+from mpitree_tpu_torch.resilience.recovery import SnapshotSlot
+from mpitree_tpu_torch.resilience.retry import (
+    device_failover,
+    retry_device,
+    sync,
+)
 from mpitree_tpu_torch.utils.carry import tree_from_reference
 from mpitree_tpu_torch.utils.export import (
     export_tree_dot,
@@ -164,7 +170,8 @@ def grow_tree(binned, X, y, *, host: bool, cfg: BuildConfig, max_depth, rd,
               refine: bool, n_classes, sample_weight, ccp_alpha,
               clock, stats: dict, packed=None,
               refit_targets=None, feature_sampler=None,
-              feature_mask=None, mono_cst=None, mesh=None) -> TreeArrays:
+              feature_mask=None, mono_cst=None, mesh=None,
+              host_binned=None, what: str = "fit") -> TreeArrays:
     """One tree in the JAX package's order: the build to the crown depth
     ``cfg.max_depth`` (the host tier when ``host``, else the device engine
     on ``binned``'s device, fused or levelwise as ``resolve_engine``
@@ -178,18 +185,60 @@ def grow_tree(binned, X, y, *, host: bool, cfg: BuildConfig, max_depth, rd,
     signs, or None) goes to both tiers, which then grow the whole depth
     (the caller passes ``refine=False``). A data ``mesh`` goes to the
     device engine, whose leaf ids then hold every row, so every process
-    runs the same tail; its reductions are added to ``stats``."""
+    runs the same tail; its reductions are added to ``stats``.
+
+    The device build runs inside the resilience ladder
+    (``resilience/retry.py``; the JAX package's
+    ``mpitree_tpu/models/classifier.py:316-351``): a transient failure
+    retries on the card, the levelwise engine from its last level, and a
+    terminal one (or a spent budget) raises, or, with
+    ``MPITREE_TPU_ELASTIC=1``, rebuilds on the host tier when
+    ``host_binned`` is given: a callable returning the host-binned matrix
+    (``ops/binning.bin_dataset`` of the raw rows, bit-identical to the
+    card's binning), which never reads a card tensor back, since after a
+    sticky CUDA error there is no card to read. The rest of the fit then
+    makes no CUDA call (``clock`` moves to the CPU). Without
+    ``host_binned`` (a streamed fit), for a best-first build, which has
+    no host twin, and on a mesh across processes, only the retry rungs
+    run: a process that left for its host tier would leave its peers
+    waiting in their next collective, so there the failure raises in
+    every process, within the group's timeout. ``what`` names the fit in
+    the ladder's warnings; its counters land in ``stats``."""
     kw = dict(config=cfg, n_classes=n_classes, sample_weight=sample_weight,
               return_leaf_ids=refine, refit_targets=refit_targets,
               feature_sampler=feature_sampler, feature_mask=feature_mask,
               mono_cst=mono_cst)
-    res = (build_tree_host(binned, y, **kw) if host
-           else build_tree(binned, y, packed=packed, stats=stats, mesh=mesh,
-                           **kw))
+    engine = "host" if host else resolve_engine(cfg)
+    if host:
+        res = build_tree_host(binned, y, **kw)
+    else:
+        slot = SnapshotSlot()
+
+        def device_build():
+            out = build_tree(binned, y, packed=packed, stats=stats,
+                             mesh=mesh, snapshot_slot=slot, **kw)
+            sync(clock.device)  # a fault of this build raises here
+            return out
+
+        if (host_binned is None or cfg.max_leaf_nodes is not None
+                or (mesh is not None and mesh.n_procs > 1)):
+            res = retry_device(
+                device_build, obs=stats, resume=slot,
+                what=f"{what} " + ("leaf-wise build" if cfg.max_leaf_nodes
+                                   is not None else "device build"))
+        else:
+            def host_build():
+                nonlocal engine
+                engine = "host"
+                clock.device = torch.device("cpu")
+                return build_tree_host(host_binned(), y, **kw)
+
+            res = device_failover(device_build, host_build, obs=stats,
+                                  resume=slot, what=f"{what} device build")
     if mesh is not None:
         stats.update(n_shards=mesh.size, **mesh.stats)
     tree, leaf_ids = res if refine else (res, None)
-    stats["engine"] = "host" if host else resolve_engine(cfg)
+    stats["engine"] = engine
     stats["crown_seconds"] = stats.get("crown_seconds", 0.0) + clock.lap()
     return finish_tree(
         tree, leaf_ids, X, y, cfg=cfg, max_depth=max_depth, rd=rd,
@@ -241,22 +290,6 @@ class FitClock:
         now = time.perf_counter()
         dt, self.t = now - self.t, now
         return dt
-
-
-def refuse_later(est, later) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item for the first
-    ``(parameter, supported value, item)`` of ``later`` that ``est`` sets
-    to anything else (``None`` supported means "must be None"; ``1`` for
-    ``n_devices`` also takes None, one device)."""
-    for name, supported, item in later:
-        value = getattr(est, name)
-        if name == "n_devices" and value in (None, 1):
-            continue
-        if (value is not None) if supported is None else (
-                value != supported):
-            raise NotImplementedError(
-                f"{name}={value!r} is not ported yet (ROADMAP.md {item})"
-            )
 
 
 def fit_mesh(est, host: bool):
@@ -374,7 +407,6 @@ class DecisionTreeClassifier(ClassifierBase):
         self.device = device
 
     def _check_slice(self) -> None:
-        refuse_later(self, ())
         if self.criterion not in ("entropy", "gini"):
             raise ValueError(
                 f"unknown classification criterion: {self.criterion!r}"
@@ -432,7 +464,9 @@ class DecisionTreeClassifier(ClassifierBase):
             ccp_alpha=self.ccp_alpha, clock=clock, stats=stats,
             feature_sampler=sampler_for(self.max_features, self.random_state,
                                         X.shape[1], splitter=self.splitter),
-            mono_cst=mono, mesh=mesh,
+            mono_cst=mono, mesh=mesh, what=f"{type(self).__name__}.fit",
+            host_binned=lambda: bin_dataset(X, max_bins=self.max_bins,
+                                            binning=self.binning),
         )
         self.fit_stats_ = stats
         self._set_fitted(classes, X.shape[1])

@@ -73,11 +73,28 @@ every tree grows to its full depth on the device (no tail), and
 ``oob_score`` and ``backend="host"`` raise. An in-memory fit under
 ``MPITREE_TPU_KEYED_BOOTSTRAP=1`` draws the same and grows the streamed
 forest's trees. A stream placed on a data mesh reaches the ``(tree,
-data)`` mesh as the whole matrix on the lead device, once per fit (one
-all-reduce across processes; ``core/fused_builder.build_forest_fused``).
+data)`` mesh block by block: each tree group's shards take the row
+blocks they grow from, and only rows another process placed cross
+between processes (``ingest/place.regroup_matrix``, counted under
+``exchange``; none where the forest's data axis is the ingest's).
 
-Options off this path raise ``NotImplementedError`` naming their
-``ROADMAP.md`` item: ``checkpoint`` and ``checkpoint_compact_every``.
+Resilience (``:494-770``; ``mpitree_tpu_torch.resilience``): the trees
+grow in groups, each through the ladder. A batched group is one call of
+the fused engine: a transient failure runs it again, a terminal one
+raises, or, with ``MPITREE_TPU_ELASTIC=1``, rebuilds its trees one by
+one on the host tier from the re-binned raw rows (``device_failover``;
+a streamed forest and one on a mesh across
+processes have no host rung, ``retry_device`` only); a per-tree build
+runs ``grow_tree``'s ladder.
+``checkpoint=path`` (with a fixed integer ``random_state``, or keyed
+draws: otherwise it warns and is disabled; never with ``warm_start``)
+flushes each group's finished trees as it lands, in groups of the tree
+axis's width, at least :data:`CHECKPOINT_GROUP_FLOOR`, and a fit of the
+same inputs that was killed resumes after the last group and ends with
+the forest an uninterrupted fit grows; ``checkpoint_compact_every``
+merges the shard files. The counters (``device_retries``,
+``device_failovers``, ``checkpoint_compactions``) land in
+``fit_stats_``.
 """
 
 from __future__ import annotations
@@ -87,6 +104,7 @@ import numbers
 import warnings
 
 import numpy as np
+import torch
 
 from mpitree_tpu_torch._device import resolve_device
 from mpitree_tpu_torch.config import knobs
@@ -96,6 +114,7 @@ from mpitree_tpu_torch.core.builder import (
     resolve_engine,
 )
 from mpitree_tpu_torch.core.fused_builder import build_forest_fused
+from mpitree_tpu_torch.core.host_builder import build_tree_host
 from mpitree_tpu_torch.models._streamed import (
     ingest_for,
     is_streamed,
@@ -112,7 +131,6 @@ from mpitree_tpu_torch.models.classifier import (
     host_tier,
     fit_mesh,
     predict_mesh,
-    refuse_later,
 )
 from mpitree_tpu_torch.models.regressor import RegressorBase
 from mpitree_tpu_torch.ops.binning import bin_dataset, bin_for_engine
@@ -124,6 +142,16 @@ from mpitree_tpu_torch.ops.sampling import (
     n_subspace_features,
     seed_from,
     tree_seed,
+)
+from mpitree_tpu_torch.parallel.mesh import (
+    forest_hbm_budget,
+    tree_data_shape,
+)
+from mpitree_tpu_torch.resilience.checkpoint import ForestCheckpoint
+from mpitree_tpu_torch.resilience.retry import (
+    device_failover,
+    retry_device,
+    sync,
 )
 from mpitree_tpu_torch.serving.tables import TreeList
 from mpitree_tpu_torch.utils.carry import forest_from_reference
@@ -143,20 +171,23 @@ from mpitree_tpu_torch.utils.validation import (
     validate_sample_weight,
 )
 
-# (parameter, value the slice supports, ROADMAP.md item that ports it)
-_LATER = (
-    ("checkpoint", None, "Queue 1 item 17 (resilience/checkpoint.py)"),
-    ("checkpoint_compact_every", None,
-     "Queue 1 item 17 (resilience/checkpoint.py)"),
-)
+# A checkpointed forest flushes at least this many trees at a time
+# (mpitree_tpu/models/forest.py:711-728).
+CHECKPOINT_GROUP_FLOOR = 8
 
 
 class _BaseForest(EstimatorBase):
     """The forests' shared fit: parameter checks, phase A's draws, the
-    per-tree builds, warm start and the OOB masks."""
+    tree builds in groups with their failover and checkpoints, warm start
+    and the OOB masks."""
 
     def _check_slice(self) -> None:
-        refuse_later(self, _LATER)
+        cce = self.checkpoint_compact_every
+        if cce is not None and int(cce) < 2:
+            raise ValueError(
+                "checkpoint_compact_every must be >= 2 shards or None, "
+                f"got {cce!r}"
+            )
         if self.max_features_mode not in ("node", "tree"):
             raise ValueError(
                 f"max_features_mode must be 'node' or 'tree', "
@@ -175,6 +206,12 @@ class _BaseForest(EstimatorBase):
 
     def _warm_start_trees(self):
         """The fitted trees a ``warm_start`` fit keeps, or None."""
+        if self.warm_start and self.checkpoint:
+            # both say where a fit resumes from: refused on the first fit
+            raise ValueError(
+                "warm_start and checkpoint are mutually exclusive: both "
+                "define where a fit resumes from"
+            )
         if not self.warm_start or not isinstance(
                 getattr(self, "trees_", None), TreeList):
             return None
@@ -320,62 +357,164 @@ class _BaseForest(EstimatorBase):
             tree_mask.append(fmask)
             tree_sampler.append(sampler)
 
-        start = 0 if prev is None else len(prev)
+        trees = list(prev or [])
         self.fit_stats_ = stats
-        idxs = range(start, int(self.n_estimators))
+        ck = self._open_checkpoint(
+            task, keyed, X if not streamed else None, binned, y,
+            sample_weight)
+        if ck is not None:
+            trees = list(ck.trees[:int(self.n_estimators)])
+        idxs = list(range(len(trees), int(self.n_estimators)))
         batched = not host and resolve_engine(cfg) == "fused"
         stats["ensemble_path"] = ("host" if host else
                                   "batched-fused" if batched else "per-tree")
-        if not batched or not idxs:
-            # packed once for every tree (a mesh's shards pack their own)
-            packed = (None if host or not idxs or mesh is not None
-                      else pack_for_fit(binned))
-            return TreeList((prev or []) + [
-                grow_tree(
-                    binned, X, y, host=host, cfg=tree_cfg(tree_w[i]),
-                    max_depth=self.max_depth, rd=rd, refine=refine,
-                    n_classes=n_classes, sample_weight=tree_w[i],
-                    ccp_alpha=self.ccp_alpha, clock=clock, stats=stats,
-                    packed=packed, refit_targets=refit_targets,
-                    feature_sampler=tree_sampler[i],
-                    feature_mask=tree_mask[i], mono_cst=mono, mesh=mesh,
-                )
-                for i in idxs
-            ])
-        # one call grows every tree on the card (build_group, :578-620)
-        cand = binned.candidate_mask()
-        cfgs = [tree_cfg(tree_w[i]) for i in idxs]
-        res = build_forest_fused(
-            binned, y, config=cfg, n_classes=n_classes,
-            weights=np.stack([np.ones(n, np.float32) if tree_w[i] is None
-                              else np.asarray(tree_w[i], np.float32)
-                              for i in idxs]),
-            cand_masks=np.stack([
-                cand if tree_mask[i] is None
-                else cand & tree_mask[i][:, None] for i in idxs]),
-            refit_targets=refit_targets, return_leaf_ids=refine,
-            min_child_weights=[c.min_child_weight for c in cfgs],
-            min_decrease_scaleds=[c.min_decrease_scaled for c in cfgs],
-            samplers=[tree_sampler[i] for i in idxs], mono_cst=mono,
-            mesh=mesh, stats=stats,
-        )
-        trees, leaf_ids = res if refine else (res, [None] * len(cfgs))
-        stats["engine"] = "fused"
-        if mesh is not None:
-            stats.update(n_shards=mesh.size, **mesh.stats)
-        stats["crown_seconds"] = stats.get("crown_seconds", 0.0) \
-            + clock.lap()
-        return TreeList((prev or []) + [
-            finish_tree(
-                t, ids, X, y, cfg=c, max_depth=self.max_depth, rd=rd,
-                refine=refine, n_classes=n_classes, sample_weight=tree_w[i],
+        # the host rung re-bins the raw rows
+        host_bins: list = []
+
+        def host_binned():
+            if not host_bins:
+                host_bins.append(bin_dataset(X, max_bins=self.max_bins,
+                                             binning=self.binning))
+            return host_bins[0]
+
+        if host or streamed or (mesh is not None and mesh.n_procs > 1):
+            host_binned = None  # no host rung (see grow_tree)
+        # packed once for every tree (a mesh's shards pack their own)
+        packed = (None if host or batched or not idxs or mesh is not None
+                  else pack_for_fit(binned))
+
+        def finish(i, t, ids):
+            return finish_tree(
+                t, ids, X, y, cfg=tree_cfg(tree_w[i]),
+                max_depth=self.max_depth, rd=rd, refine=refine,
+                n_classes=n_classes, sample_weight=tree_w[i],
                 ccp_alpha=self.ccp_alpha, clock=clock, stats=stats,
                 refit_targets=refit_targets,
                 feature_sampler=tree_sampler[i], feature_mask=tree_mask[i],
-                mono_cst=mono,
+                mono_cst=mono)
+
+        def host_raw(i, hb):
+            """Tree ``i`` on the host tier from host bins ``hb``: (tree,
+            leaf ids or None)."""
+            res = build_tree_host(
+                hb, y, config=tree_cfg(tree_w[i]), n_classes=n_classes,
+                sample_weight=tree_w[i], return_leaf_ids=refine,
+                refit_targets=refit_targets,
+                feature_sampler=tree_sampler[i], feature_mask=tree_mask[i],
+                mono_cst=mono)
+            return res if refine else (res, None)
+
+        def build_one(i):
+            return grow_tree(
+                binned, X, y, host=host, cfg=tree_cfg(tree_w[i]),
+                max_depth=self.max_depth, rd=rd, refine=refine,
+                n_classes=n_classes, sample_weight=tree_w[i],
+                ccp_alpha=self.ccp_alpha, clock=clock, stats=stats,
+                packed=packed, refit_targets=refit_targets,
+                feature_sampler=tree_sampler[i],
+                feature_mask=tree_mask[i], mono_cst=mono, mesh=mesh,
+                host_binned=host_binned, what=f"forest tree {i}")
+
+        def build_group(grp):
+            """One call grows the group's trees on the card
+            (``build_group``, ``:578-620``), inside the ladder: a terminal
+            failure raises, or, with ``MPITREE_TPU_ELASTIC=1``, rebuilds
+            the group tree by tree on the host tier."""
+            cand = binned.candidate_mask()
+            cfgs = [tree_cfg(tree_w[i]) for i in grp]
+
+            def dev():
+                out = build_forest_fused(
+                    binned, y, config=cfg, n_classes=n_classes,
+                    weights=np.stack([
+                        np.ones(n, np.float32) if tree_w[i] is None
+                        else np.asarray(tree_w[i], np.float32)
+                        for i in grp]),
+                    cand_masks=np.stack([
+                        cand if tree_mask[i] is None
+                        else cand & tree_mask[i][:, None] for i in grp]),
+                    refit_targets=refit_targets, return_leaf_ids=refine,
+                    min_child_weights=[c.min_child_weight for c in cfgs],
+                    min_decrease_scaleds=[c.min_decrease_scaled
+                                          for c in cfgs],
+                    samplers=[tree_sampler[i] for i in grp], mono_cst=mono,
+                    mesh=mesh, stats=stats,
+                )
+                sync(clock.device)
+                gt, ids = out if refine else (out, [None] * len(grp))
+                return [(t, g) for t, g in zip(gt, ids)], "fused"
+
+            def host_fn():
+                clock.device = torch.device("cpu")
+                hb = host_binned()
+                return [host_raw(i, hb) for i in grp], "host"
+
+            if host_binned is None:
+                built, engine = retry_device(
+                    dev, what="forest group streamed device build",
+                    obs=stats)
+            else:
+                built, engine = device_failover(
+                    dev, host_fn, what="forest group device build",
+                    obs=stats)
+            stats["engine"] = engine
+            if mesh is not None:
+                stats.update(n_shards=mesh.size, **mesh.stats)
+            stats["crown_seconds"] = stats.get("crown_seconds", 0.0) \
+                + clock.lap()
+            return [finish(i, t, ids) for i, (t, ids) in zip(grp, built)]
+
+        if ck is None:
+            groups = [idxs] if idxs else []
+        else:
+            # a group is one card program, flushed as it lands
+            # (:711-728): the tree axis's width, at least the floor
+            g = CHECKPOINT_GROUP_FLOOR
+            if batched:
+                g = max(g, tree_data_shape(
+                    1 if mesh is None else mesh.size, int(self.n_estimators),
+                    dataset_bytes=4 * n * F,
+                    hbm_budget=forest_hbm_budget(clock.device))[0])
+            groups = [idxs[j:j + g] for j in range(0, len(idxs), g)]
+        for grp in groups:
+            new = (build_group(grp) if batched
+                   else [build_one(i) for i in grp])
+            trees.extend(new)
+            if ck is not None:
+                ck.append(new)
+                ck.maybe_compact(self.checkpoint_compact_every, stats)
+        if ck is not None:
+            ck.done()
+        return TreeList(trees)
+
+    def _open_checkpoint(self, task, keyed, X, binned, y, sample_weight):
+        """The fit's :class:`ForestCheckpoint` (``:679-707``), or None when
+        ``checkpoint`` is unset, or, with a warning, when the draws would
+        not replay (a forest drawn from a host RNG needs a fixed integer
+        ``random_state``). Its fingerprint covers every parameter but
+        ``checkpoint`` and ``device``, the task, and the raw rows, or a
+        streamed fit's bin table and row count (no raw matrix exists),
+        the targets and the weights."""
+        if not self.checkpoint:
+            return None
+        if not keyed and not isinstance(self.random_state,
+                                        numbers.Integral):
+            warnings.warn(
+                "forest checkpointing requires a fixed integer "
+                "random_state so a resumed fit replays the same "
+                "bootstrap/feature draws; checkpoint disabled",
+                stacklevel=4,
             )
-            for i, t, ids, c in zip(idxs, trees, leaf_ids, cfgs)
-        ])
+            return None
+        params = {k: v for k, v in self.get_params().items()
+                  if k not in ("checkpoint", "device")}
+        params["task"] = task
+        if X is None:
+            params["streamed_rows"] = int(binned.n_samples)
+            params["streamed_n_cand"] = np.asarray(binned.n_cand).tolist()
+            X = np.ascontiguousarray(binned.thresholds)
+        return ForestCheckpoint.open(self.checkpoint, params, X, y,
+                                     sample_weight)
 
     def _pop_oob_masks(self) -> list:
         """The fit's out-of-bag masks, dropped from the model (they would

@@ -195,7 +195,9 @@ class DecisionTreeRegressor(RegressorBase):
             refit_targets=y64,
             feature_sampler=sampler_for(self.max_features, self.random_state,
                                         X.shape[1], splitter=self.splitter),
-            mono_cst=mono, mesh=mesh,
+            mono_cst=mono, mesh=mesh, what=f"{type(self).__name__}.fit",
+            host_binned=lambda: bin_dataset(X, max_bins=self.max_bins,
+                                            binning=self.binning),
         )
         self.fit_stats_ = stats
         self._set_fitted(X.shape[1])

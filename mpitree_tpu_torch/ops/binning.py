@@ -81,6 +81,11 @@ class StreamedBinnedData(BinnedData):
     chunk_rows: int = 0
     rows_pad: int = 0
     feat_pad: int = 0
+    # a forest's regrouped shard blocks and their packed bins, by the
+    # width of its data axis (core/fused_builder._grow_sharded): every
+    # tree group of a fit, a checkpoint's too, grows from one exchange
+    blocks: dict = dataclasses.field(default_factory=dict, repr=False,
+                                     compare=False)
 
     @property
     def n_samples(self) -> int:

@@ -48,6 +48,14 @@ tensor to every process bit for bit (the leaf ids, the fused rounds'
 margins); the forests' tree exchange (``core/fused_builder._exchange``)
 and the route sums count in ``mesh.stats`` under their own kinds.
 
+The levelwise engines' dispatches carry the JAX package's chaos seams
+(``mpitree_tpu/parallel/collective.py:35-50``: ``split_dispatch``,
+``counts_dispatch``, ``update_dispatch``, ``expand_dispatch``;
+``resilience/chaos.py``), stepped once per dispatch by their callers in
+``core/builder.py`` and ``core/leafwise_builder.py``, so the fused
+engines, which share these functions, step none, as JAX's single-program
+engines do.
+
 :func:`update_node_id` (``make_update_fn``, ``:752``) moves each shard's
 rows of splitting nodes to a child by ``bin(x[:, feat]) <= bin`` with the
 split tables copied to the shard (:func:`to_shards`); rows never move
@@ -115,7 +123,7 @@ def psum(parts, mesh, op: str = "sum", *,
     place. The identity with one shard and no process group (or no
     mesh). Records the call, its logical bytes and its seconds (ended
     when the devices are idle) in ``mesh.stats`` under ``kind``
-    (``allreduce``, ``route`` or ``exchange``)."""
+    (``allreduce``, ``route`` or ``tree_exchange``)."""
     if op not in _REDUCE_OPS:
         raise ValueError(f"unknown reduction {op!r}; one of {_REDUCE_OPS}")
     parts = _parts(parts)

@@ -110,10 +110,13 @@ def local_devices(device: torch.device) -> list:
 def new_stats() -> dict:
     """A mesh's counters: every reduction (``allreduce_*``), the feature
     axis's winner gathers (``gather_*``, ``collective.select_global``) and
-    row-route sums (``route_*``, ``collective.route_psum``), the forests'
-    tree exchange (``exchange_*``) and the replication checks."""
+    row-route sums (``route_*``, ``collective.route_psum``), the streamed
+    matrix's rows a forest's tree groups receive from other processes
+    (``exchange_*``, ``ingest/place.regroup_matrix``), the forests' tree
+    exchange (``tree_exchange_*``) and the replication checks."""
     st = {"replication_checks": 0}
-    for kind in ("allreduce", "gather", "route", "exchange"):
+    for kind in ("allreduce", "gather", "route", "exchange",
+                 "tree_exchange"):
         st.update({f"{kind}_calls": 0, f"{kind}_bytes": 0,
                    f"{kind}_seconds": 0.0})
     return st

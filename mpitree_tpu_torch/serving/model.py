@@ -61,11 +61,21 @@ the card raises.
 Metrics (``obs.metrics``, the JAX package's families and labels):
 per-bucket request latency histograms (``bucket="oversize"`` for a
 chunked batch), request, row, clocked-row and deadline-miss counters,
-and the retry and fallback counters, which stay 0 (the port has no
-retry rung yet, ``ROADMAP.md`` Queue 1 item 17, and no fallback).
+the retry counter ``mpitree_serving_retries_total`` and the fallback
+counter, which stays 0 (there is no fallback).
 ``serve_report_`` is a plain dict: kind, exactness, the dispatch, the
 quantization report, buckets, requests and rows served, and the latency
-summary. Chaos seams and fingerprints are not ported (items 17-18).
+summary. Fingerprints are not ported (``ROADMAP.md`` item 18).
+
+Every traversal's launch runs through the retry rung of the resilience
+ladder (``resilience.retry_device``; the JAX package's ``:286-326``)
+behind the ``serving_dispatch`` chaos seam: a transient failure launches
+it again, and each retry adds one to ``mpitree_serving_retries_total``.
+The closure does not wait for the card (so that a staged caller keeps
+two batches in flight), so the rung covers the failures raised on the
+host at launch and the injected ones; an asynchronous CUDA fault of the
+kernel surfaces at the answer's copy, outside the rung, and raises to
+the caller, as a terminal failure does.
 """
 
 from __future__ import annotations
@@ -79,6 +89,8 @@ import torch
 from mpitree_tpu_torch._device import resolve_device
 from mpitree_tpu_torch.config import knobs
 from mpitree_tpu_torch.obs.metrics import MetricsRegistry
+from mpitree_tpu_torch.resilience import chaos
+from mpitree_tpu_torch.resilience.retry import retry_device
 from mpitree_tpu_torch.serving import quantize as quantize_lib
 from mpitree_tpu_torch.serving import serve_kernel, traversal
 from mpitree_tpu_torch.serving.tables import table_notes, tables_for
@@ -97,6 +109,18 @@ def _pad_rows(X: np.ndarray, b: int) -> np.ndarray:
     if k == b:
         return X
     return np.concatenate([X, np.zeros((b - k, X.shape[1]), np.float32)])
+
+
+class _RetrySink:
+    """The retry rung's counter sink: its ``device_retries`` go to the
+    model's ``mpitree_serving_retries_total``."""
+
+    def __init__(self, counter):
+        self._counter = counter
+
+    def counter(self, name: str, n: int = 1) -> None:
+        if name == "device_retries":
+            self._counter.inc(n)
 
 
 class _Slot:
@@ -192,9 +216,10 @@ class CompiledModel:
             "mpitree_serving_latency_rows_total")
         self._m_deadline = self.metrics.counter(
             "mpitree_serving_deadline_misses_total")
-        # the JAX package's retry and fallback families: no retry rung
-        # yet (ROADMAP.md Queue 1 item 17) and no fallback, so both 0
-        self.metrics.counter("mpitree_serving_retries_total")
+        # the JAX package's retry and fallback families: the retry rung
+        # counts here (_RetrySink); there is no fallback, so 0
+        self._retries = _RetrySink(
+            self.metrics.counter("mpitree_serving_retries_total"))
         self.metrics.counter("mpitree_serving_fallbacks_total")
         if device.type == "cuda":
             self._copy_stream = torch.cuda.Stream(device)
@@ -272,6 +297,18 @@ class CompiledModel:
                 return b
         return self.buckets[-1]
 
+    def _serve(self, X: torch.Tensor) -> torch.Tensor:
+        """:meth:`_compute`'s launch through the retry rung, behind the
+        ``serving_dispatch`` seam (module docstring: the launch does not
+        wait for the card, so a fault of the kernel raises later, at the
+        copy)."""
+        def dev():
+            chaos.step("serving_dispatch")
+            return self._compute(X)
+
+        return retry_device(dev, what="serving traversal dispatch",
+                            obs=self._retries)
+
     def _compute(self, X: torch.Tensor) -> torch.Tensor:
         """One bucket-shaped batch on the model's device -> its answer
         there, on the current stream."""
@@ -304,7 +341,7 @@ class CompiledModel:
         """The request in chunks of at most ``b`` rows, each zero-padded
         to ``b``, on the CPU: [(answer tensor, rows)]."""
         n = X.shape[0]
-        return [(self._compute(torch.from_numpy(_pad_rows(X[lo:lo + b], b))),
+        return [(self._serve(torch.from_numpy(_pad_rows(X[lo:lo + b], b))),
                  min(b, n - lo)) for lo in range(0, max(n, 1), b)]
 
     def _dispatch_cuda(self, X: np.ndarray, b: int) -> list:
@@ -332,7 +369,7 @@ class CompiledModel:
             compute.wait_event(src.event)
             self._slots.give(src)
             Xd.record_stream(compute)
-            out = self._compute(Xd)
+            out = self._serve(Xd)
             dst = self._slots.take(tuple(out.shape), out.dtype)
             dst.tensor[:k].copy_(out[:k], non_blocking=True)
             outs.append((dst, k))

@@ -48,6 +48,7 @@ from concurrent.futures import InvalidStateError
 import numpy as np
 
 from mpitree_tpu_torch.config import knobs
+from mpitree_tpu_torch.resilience import chaos
 from mpitree_tpu_torch.obs.metrics import MetricsRegistry, render_text
 
 REJECT_REASONS = (
@@ -352,7 +353,11 @@ class Scheduler:
         compiled = self.registry.get(model)
         t0 = time.perf_counter()
         try:
-            # the sched_dispatch chaos seam comes with ROADMAP.md item 17
+            # chaos seam: a blip here requeues the batch once; a hang
+            # stalls this worker, so the backlog grows and admissions
+            # shed. The model's own serving_dispatch seam and retry rung
+            # guard the traversal inside.
+            chaos.step("sched_dispatch")
             out = compiled.raw(np.stack([r.row for r in batch]))
         except Exception as e:
             fresh = [r for r in batch if not r.retried]

@@ -19,10 +19,8 @@ Two differences, both about parameters:
   :func:`load_model` takes it as an argument;
 - a file's parameter the port's constructor does not know raises
   ``ValueError`` naming it; none is dropped. Parameters the port knows
-  are kept as they are (``max_leaf_nodes`` included: a loaded estimator
-  refits with its budget); those it does not fit yet (``checkpoint``)
-  load all the same: the loaded trees predict and serve, and ``fit``
-  refuses them, naming their ``ROADMAP.md`` items.
+  are kept as they are (``max_leaf_nodes`` and ``checkpoint`` included:
+  a loaded estimator refits with its budget and its checkpoint path).
 
 ``ParallelDecisionTreeClassifier`` files go both ways too (the JAX
 package writes them, ``:31``). A loaded estimator keeps its

@@ -442,7 +442,12 @@ def test_fit_stats_staged_surfaces_and_params(fits):
      "cannot apply"),
     (dict(rounds_per_dispatch=0), ValueError, "rounds_per_dispatch"),
     (dict(rounds_per_dispatch=2.0), ValueError, "rounds_per_dispatch"),
-    (dict(checkpoint="ck"), NotImplementedError, "item 17"),
+    # item 17 is ported: boosting takes checkpoint=, and what stays
+    # refused is the JAX package's own refusal, a compaction threshold
+    # below two shards; the case keeps its id
+    pytest.param(dict(checkpoint="ck", checkpoint_compact_every=1),
+                 ValueError, "checkpoint_compact_every",
+                 id="kw5-NotImplementedError-item 17"),
     # item 14 is ported: boosting takes n_devices, and what stays refused
     # there is the JAX package's own refusal, the fused rounds on a
     # (data, feature) mesh; the case keeps its id

@@ -1249,3 +1249,89 @@ def test_streamed_fits_on_the_card_equal_in_memory(cuda, kind):
         for k in ("feature", "threshold", "left", "right", "count"):
             np.testing.assert_array_equal(getattr(a, k), getattr(b, k))
             np.testing.assert_array_equal(getattr(a, k), getattr(c, k))
+
+
+def test_real_oom_on_the_card_fails_over_to_the_cpu_tree(cuda, monkeypatch):
+    """A real ``torch.OutOfMemoryError`` inside the card's build (the
+    caching allocator capped below the build's need after binning) is
+    classed OOM, terminal. With ``MPITREE_TPU_ELASTIC`` unset (the
+    port's default) it raises to the caller; with ``1`` the host rung
+    grows the host tier's tree (the card's up to an exact cost tie,
+    ``ROADMAP.md`` R3: this data has one, at depth 8); the cap lifted,
+    the card fits again."""
+    from mpitree_tpu_torch import DecisionTreeClassifier
+    from mpitree_tpu_torch.models import classifier as clf_mod
+    from mpitree_tpu_torch.resilience import is_oom_failure
+    from mpitree_tpu_torch.utils.datasets import covtype_like
+
+    monkeypatch.setenv("MPITREE_TPU_BACKOFF_S", "0")
+    X, y = covtype_like(20_000, seed=3)
+    kw = dict(max_depth=8, refine_depth=None)
+    want = DecisionTreeClassifier(**kw).fit(X, y)
+    seen = []
+    real_build = clf_mod.build_tree
+
+    def starved(*a, **k):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        used = torch.cuda.memory_reserved()
+        total = torch.cuda.get_device_properties(0).total_memory
+        torch.cuda.set_per_process_memory_fraction(
+            (used + (2 << 20)) / total)
+        try:
+            return real_build(*a, **k)
+        except Exception as e:
+            seen.append(e)
+            raise
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0)
+
+    monkeypatch.setattr(clf_mod, "build_tree", starved)
+    monkeypatch.delenv("MPITREE_TPU_ELASTIC", raising=False)
+    with pytest.raises(torch.OutOfMemoryError):
+        DecisionTreeClassifier(**kw).fit(X, y)
+    assert len(seen) == 1 and is_oom_failure(seen[0])
+    monkeypatch.setenv("MPITREE_TPU_ELASTIC", "1")
+    with pytest.warns(UserWarning, match="rebuilding on the host tier"):
+        got = DecisionTreeClassifier(**kw).fit(X, y)
+    monkeypatch.setattr(clf_mod, "build_tree", real_build)
+    assert len(seen) == 2 and isinstance(seen[1], torch.OutOfMemoryError)
+    assert is_oom_failure(seen[1])
+    assert got.fit_stats_["device_failovers"] == 1
+    assert got.fit_stats_["engine"] == "host"
+    host = DecisionTreeClassifier(backend="host", device="cpu",
+                                  **kw).fit(X, y)
+    for k in ("feature", "threshold", "left", "right", "count"):
+        np.testing.assert_array_equal(getattr(got.tree_, k),
+                                      getattr(host.tree_, k))
+    again = DecisionTreeClassifier(**kw).fit(X, y)
+    np.testing.assert_array_equal(again.tree_.feature, want.tree_.feature)
+
+
+@pytest.mark.parametrize("spec,rung", [
+    ("dispatch:1:unavailable", "device_retries"),
+    ("level:1:deadline:at_level=3", "level_retries")])
+def test_retry_on_the_card_grows_the_same_tree(cuda, monkeypatch, spec,
+                                               rung):
+    """A transient fault retries on the card (the levelwise engine from
+    its level): the tree of an uninterrupted card fit."""
+    from mpitree_tpu_torch import DecisionTreeClassifier
+    from mpitree_tpu_torch.resilience import chaos
+    from mpitree_tpu_torch.utils.datasets import covtype_like
+
+    monkeypatch.setenv("MPITREE_TPU_BACKOFF_S", "0")
+    monkeypatch.setenv("MPITREE_TPU_ENGINE", "levelwise")
+    monkeypatch.delenv("MPITREE_TPU_ELASTIC", raising=False)
+    X, y = covtype_like(20_000, seed=4)
+    kw = dict(max_depth=8, refine_depth=None)
+    want = DecisionTreeClassifier(**kw).fit(X, y)
+    chaos.install(spec)
+    try:
+        with pytest.warns(UserWarning):
+            got = DecisionTreeClassifier(**kw).fit(X, y)
+    finally:
+        chaos.clear()
+    assert got.fit_stats_[rung] == 1 and got.fit_stats_["engine"] != "host"
+    for k in ("feature", "threshold", "left", "right", "count"):
+        np.testing.assert_array_equal(getattr(got.tree_, k),
+                                      getattr(want.tree_, k))

@@ -190,30 +190,44 @@ def test_options_now_ported_equal_jax(param, value):
     ("checkpoint", "ck"), ("checkpoint_compact_every", 4),
     ("n_devices", 2),
 ])
-def test_options_off_this_slice_raise(param, value):
-    """Options not ported raise naming their ROADMAP item; ``n_devices``,
-    refused until item 14b, now fits the one-device forest."""
+def test_options_off_this_slice_raise(param, value, tmp_path):
+    """Options once refused: ``n_devices`` (item 14b) now fits the
+    one-device forest; ``checkpoint`` and ``checkpoint_compact_every``
+    (item 17) fit the forest an uncheckpointed fit grows (the checkpoint
+    removed at the end), and a compaction threshold below two shards
+    raises, as in the JAX package."""
     X, y = covtype_like(100, seed=0)
-    if param == "n_devices":
-        from mpitree_tpu_torch.parallel import mesh
-
-        prev = mesh.set_cpu_shards(value)
-        try:
-            par = RandomForestClassifier(n_estimators=2, device="cpu",
-                                         random_state=0,
-                                         **{param: value}).fit(X, y)
-        finally:
-            mesh.set_cpu_shards(prev)
+    if param != "n_devices":
+        kw = {param: str(tmp_path / value) if param == "checkpoint"
+              else value}
+        ck = RandomForestClassifier(n_estimators=2, device="cpu",
+                                    random_state=0, **kw).fit(X, y)
         one = RandomForestClassifier(n_estimators=2, device="cpu",
                                      random_state=0).fit(X, y)
-        for got, want in zip(par.trees_, one.trees_, strict=True):
+        for got, want in zip(ck.trees_, one.trees_, strict=True):
             for k in FIELDS:
                 np.testing.assert_array_equal(getattr(got, k),
                                               getattr(want, k), err_msg=k)
+        assert not any(tmp_path.iterdir())
+        with pytest.raises(ValueError, match="checkpoint_compact_every"):
+            RandomForestClassifier(n_estimators=2, device="cpu",
+                                   checkpoint_compact_every=1).fit(X, y)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RandomForestClassifier(n_estimators=2, device="cpu",
-                               **{param: value}).fit(X, y)
+    from mpitree_tpu_torch.parallel import mesh
+
+    prev = mesh.set_cpu_shards(value)
+    try:
+        par = RandomForestClassifier(n_estimators=2, device="cpu",
+                                     random_state=0,
+                                     **{param: value}).fit(X, y)
+    finally:
+        mesh.set_cpu_shards(prev)
+    one = RandomForestClassifier(n_estimators=2, device="cpu",
+                                 random_state=0).fit(X, y)
+    for got, want in zip(par.trees_, one.trees_, strict=True):
+        for k in FIELDS:
+            np.testing.assert_array_equal(getattr(got, k),
+                                          getattr(want, k), err_msg=k)
 
 
 def test_streamed_dataset_refused():

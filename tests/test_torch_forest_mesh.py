@@ -275,7 +275,7 @@ def test_config5_forest_tree_sharded(cov):
                                      **kw).fit(X, y)
     # one process holds every tree group: no exchange to make
     assert sharded.fit_stats_["forest_mesh"] == [8, 1]
-    assert sharded.fit_stats_["exchange_calls"] == 0
+    assert sharded.fit_stats_["tree_exchange_calls"] == 0
     one = RandomForestClassifier(device="cpu", **kw).fit(X, y)
     _same_forest(sharded.trees_, one.trees_, "sharded vs one")
     ref = JaxRF(n_devices=8, backend="cpu", **kw).fit(X, y)
@@ -378,7 +378,7 @@ for T, cls, XX, yy, extra in ((1, RandomForestClassifier, X, y, {{}}),
             assert np.array_equal(getattr(a, k), getattr(b, k),
                                   equal_nan=True), (T, k)
     st = par.fit_stats_
-    assert st["n_shards"] == 4 and st["exchange_calls"] > 0, st
+    assert st["n_shards"] == 4 and st["tree_exchange_calls"] > 0, st
     assert st["replication_checks"] > 0, st
     print(pid, T, st["forest_mesh"], flush=True)
 print(f"PROC{{pid}} OK", flush=True)

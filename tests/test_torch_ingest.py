@@ -11,8 +11,9 @@
   and ``ingest_chunk_rows`` equal JAX's;
 - the placement (``ingest/place.assemble_binned``) fills each CPU shard
   with its block of ``bin_dataset``'s matrix, zeros in the padding, and
-  refuses a stream that does not cover its blocks; ``gather_matrix``
-  gives the matrix back whole, ``check_placed`` refuses another mesh;
+  refuses a stream that does not cover its blocks; ``regroup_matrix``
+  gives a 1-D mesh's matrix back whole to each tree group of one shard,
+  ``check_placed`` refuses another mesh;
 - the refusals: an empty stream, a NaN chunk, mixed weighted and
   unweighted chunks, a one-shot source with no spill directory, a width
   change.
@@ -337,8 +338,10 @@ def test_assemble_binned_fills_each_shard_with_its_block(data, n_devices, n,
         assert shard.dtype == torch.int32
         np.testing.assert_array_equal(
             shard.numpy(), full[di * sr:(di + 1) * sr, fi * sc:(fi + 1) * sc])
-    np.testing.assert_array_equal(place.gather_matrix(b, mesh).numpy(),
-                                  ref.x_binned)
+    if df == 1:  # a forest's (tree, data) mesh regroups a 1-D stream
+        tmesh = M.as_tree_data_mesh(mesh, (mesh.size, 1))
+        for x in place.regroup_matrix(b, mesh, tmesh):
+            np.testing.assert_array_equal(x.numpy(), ref.x_binned)
     M.check_placed(b, mesh)
     np.testing.assert_array_equal(res.y, y)
     assert res.stats["rows"] == n and res.stats["chunk_rows"] == chunk

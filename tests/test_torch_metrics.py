@@ -168,18 +168,26 @@ def test_module_level_exposition_is_the_default_registry():
 def test_knob_registered_as_in_jax(name):
     """Every field as in JAX, but the forests' budget, whose default
     comes from the device (None) where JAX's is 8 GiB, half a TPU v5e
-    chip. A parse rule of the package's own (the strict ``_one`` of a
-    boolean knob) is the port's copy: the same name, the same answers."""
+    chip, and ``MPITREE_TPU_ELASTIC``, whose unset None keeps the host
+    rung off where JAX's True runs it. A parse rule of the package's own
+    (the strict ``_one`` and the everything-but-"0" ``_flag`` of the
+    boolean knobs) is the port's copy: the same name, the same
+    answers."""
     got = dataclasses.asdict(knobs.REGISTRY[name])
     want = dataclasses.asdict(jax_knobs.REGISTRY[name])
     if name == "MPITREE_TPU_FOREST_HBM_BUDGET":
         assert want.pop("default") == 8 << 30
         assert got.pop("default") is None
-    if got["parse"] is knobs._one:
-        assert want.pop("parse") is jax_knobs._one
-        got.pop("parse")
-        for raw in ("1", "0", "true", "", " 1"):
-            assert knobs._one(raw) == jax_knobs._one(raw)
+    if name == "MPITREE_TPU_ELASTIC":
+        assert want.pop("default") is True
+        assert got.pop("default") is None
+    for own in ("_one", "_flag"):
+        if got.get("parse") is getattr(knobs, own):
+            assert want.pop("parse") is getattr(jax_knobs, own)
+            got.pop("parse")
+            for raw in ("1", "0", "true", "", " 1"):
+                assert getattr(knobs, own)(raw) == getattr(jax_knobs,
+                                                           own)(raw)
     assert got == want
 
 
