@@ -349,6 +349,23 @@ not ``host``):
     printed beside the whole matrix's bytes and phase 29 (b)'s peak.
     Every rung count is printed.
 
+Phase 32 drives the observability layer (items 18a, 18b and 18d's
+fingerprints of ``ROADMAP.md``) on the card:
+
+32. obs: (a) phase 3's fit with ``MPITREE_TPU_PROFILE`` unset, set, and
+    set with ``trace_to=`` a file, twice each in turn: trees and K1-K3
+    launches equal to phase 3's; ``fit_stats_`` None, then the phase
+    summary; ``fit_report_`` with the fused engine, one replayed level
+    row a level and the fingerprints; the trace valid; ``dump_report``
+    round-tripped; the walls and each mode's overhead over profiling
+    off; (b) phase 4's fit on the card and the CPU: equal
+    ``fingerprints["fit"]`` (or the exact tie's level first); (c) a
+    10-tree phase 5 forest and phase 26's K = 8 regressor in one shared
+    ``TraceSink``, the forest served into it through K4 and K5: fit,
+    level, round and ``serving`` tracks, valid; (d) phase 31 (a)'s blip
+    as one ``device_retry`` event beside its counter; (e)
+    ``utils.profiling.trace`` leaves a ``torch.profiler`` file.
+
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the card's name and power limit, JSON lines of per-shape kernel timings
 (``kernel_shapes``, ``serve_kernel_shapes``, ``fixed_kernel_shapes``), of
@@ -359,7 +376,7 @@ of phases 19-20 (``constrained``, ``persistence``), of phases 21-23
 (``boosting``), of phase 24 (``engines``), of phases 25-26
 (``leafwise``, ``fused_rounds``), of phase 27 (``serve_tier``), of phases
 28-29 (``mesh``, ``mesh_ensembles``), of phase 30 (``stream``), of
-phase 31 (``resilience``) and one
+phase 31 (``resilience``), of phase 32 (``obs``) and one
 ``kernels`` line (with each
 route's launches per engine, and the stream routes at S = 2 of the
 leaf-wise pair) come before it.
@@ -369,6 +386,7 @@ Without CUDA the script exits 1 and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import math
@@ -715,9 +733,34 @@ def phase_kernels(xb, y_d, B: int, K: int, feat_bins: list) -> list:
 HOST_RUNG_WARNING = "device failure during"
 
 
+def _stats(est) -> dict:
+    """The fit's counts under the keys its ``fit_stats_`` held before it
+    took the JAX package's contract (a dict of ``obs.stats_view`` of
+    ``fit_report_``; timing keys only from a :func:`_profiled` fit)."""
+    from mpitree_tpu_torch.obs import stats_view
+
+    return dict(stats_view(getattr(est, "fit_report_", {})))
+
+
+@contextlib.contextmanager
+def _profiled():
+    """``MPITREE_TPU_PROFILE=1`` for the block: the fit's phase spans
+    (each ending when the card is idle) are timed, as the laps the log
+    lines print."""
+    old = os.environ.get("MPITREE_TPU_PROFILE")
+    os.environ["MPITREE_TPU_PROFILE"] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["MPITREE_TPU_PROFILE"]
+        else:
+            os.environ["MPITREE_TPU_PROFILE"] = old
+
+
 def _on_card(est, what: str = "") -> None:
     """A fit measured as the card's stayed on the card: no host rung ran."""
-    st = getattr(est, "fit_stats_", {})
+    st = _stats(est)
     if st.get("device_failovers", 0) or st.get("engine") == "host":
         raise AssertionError(
             f"{what or type(est).__name__}: the fit left the card "
@@ -826,7 +869,7 @@ def phase_fit(X, y, Xh, yh, depth: int):
         f"{test_acc:.6f} ({len(Xh)} rows, predict {predict_s:.3f} s); "
         f"n_nodes {clf.tree_.n_nodes}, depth {clf.get_depth()}, leaves "
         f"{clf.get_n_leaves()}; peak device memory {peak_gib:.3f} GiB; "
-        f"launches {launches}; engine {clf.fit_stats_['engine']}")
+        f"launches {launches}; engine {_stats(clf)['engine']}")
     return launches, second, test_acc, clf.tree_
 
 
@@ -837,8 +880,9 @@ def phase_hybrid(X, y, Xh, yh, depth: int, device_acc: float) -> dict:
 
     clf = DecisionTreeClassifier(criterion="entropy", max_depth=depth,
                                  max_bins=256)
-    first, second, launches, peak_gib = _fit_twice(clf, X, y)
-    st = dict(clf.fit_stats_)
+    with _profiled():  # the crown and tail laps the log line prints
+        first, second, launches, peak_gib = _fit_twice(clf, X, y)
+    st = dict(_stats(clf))
     if not (st.get("crown_depth") == HYBRID_CROWN
             and st.get("refine_engine") == "batched-native"
             and st.get("refine_nodes_added", 0) > 0):
@@ -960,11 +1004,11 @@ def phase_parity(depth: int = 10, hybrid: bool = False) -> None:
     t1 = time.perf_counter()
     cpu = DecisionTreeClassifier(device="cpu", **kw).fit(X, y)
     t2 = time.perf_counter()
-    crown = cpu.fit_stats_.get("crown_depth", depth)
-    if hybrid and not (crown == gpu.fit_stats_.get("crown_depth") == 5
-                       and cpu.fit_stats_["refine_nodes_added"] > 0):
+    crown = _stats(cpu).get("crown_depth", depth)
+    if hybrid and not (crown == _stats(gpu).get("crown_depth") == 5
+                       and _stats(cpu)["refine_nodes_added"] > 0):
         raise AssertionError(f"hybrid parity: refine did not engage: "
-                             f"{gpu.fit_stats_} / {cpu.fit_stats_}")
+                             f"{_stats(gpu)} / {_stats(cpu)}")
     _check_parity(
         gpu.tree_, cpu.tree_, X, y, tie_depth=crown,
         what=f"{'hybrid parity' if hybrid else 'parity'}: {len(X)} rows "
@@ -1006,7 +1050,7 @@ def phase_forest(X, y, Xh, yh):
         f"{depth}: first {first:.3f} s, second {second:.3f} s; nodes total "
         f"{int(nodes.sum())}, mean {float(nodes.mean())}; held-out acc "
         f"{test_acc:.6f} ({len(Xh)} rows, predict_proba {predict_s:.3f} s); "
-        f"launches {launches}; {forest.fit_stats_['ensemble_path']}")
+        f"launches {launches}; {_stats(forest)['ensemble_path']}")
     return forest, launches, test_acc, second
 
 
@@ -1022,14 +1066,15 @@ def phase_default_forest(X, y, Xh, yh, device_acc: float) -> dict:
     for k in hist_kernel.launches:
         hist_kernel.launches[k] = 0
     t0 = time.perf_counter()
-    forest.fit(Xf, yf)
+    with _profiled():  # the crown and tail laps the log line prints
+        forest.fit(Xf, yf)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(hist_kernel.launches)
     missing = [k for k in hist_kernel.ROUTES if launches[k] == 0]
     if missing:
         raise AssertionError(f"default forest never launched {missing}")
-    st = dict(forest.fit_stats_)
+    st = dict(_stats(forest))
     if not (st.get("crown_depth") == 7 and st["refine_nodes_added"] > 0):
         raise AssertionError(f"default forest: refine did not engage: {st}")
     test_acc, predict_s, nodes, depth = _check_forest(forest, n_trees, Xh,
@@ -1062,10 +1107,10 @@ def phase_forest_parity(hybrid: bool = False) -> None:
               **({} if hybrid else DEVICE_ONLY))
     gpu = RandomForestClassifier(device="cuda", **kw).fit(X, y)
     cpu = RandomForestClassifier(device="cpu", **kw).fit(X, y)
-    if hybrid and not (gpu.fit_stats_.get("crown_depth") == 3
-                       and gpu.fit_stats_["refine_nodes_added"] > 0):
+    if hybrid and not (_stats(gpu).get("crown_depth") == 3
+                       and _stats(gpu)["refine_nodes_added"] > 0):
         raise AssertionError(f"hybrid forest parity: refine did not "
-                             f"engage: {gpu.fit_stats_}")
+                             f"engage: {_stats(gpu)}")
     fields = ("feature", "threshold", "left", "right", "count",
               "n_node_samples")
     for i, (a, b) in enumerate(zip(gpu.trees_, cpu.trees_, strict=True)):
@@ -1476,7 +1521,7 @@ def phase_regression(Xc, yc, Xch, ych) -> dict:
         pred = reg.predict(Xch)
         predict_s = time.perf_counter() - t0
         r2, train_r2 = _r2(ych, pred), reg.score(Xc, yc)
-        st = dict(reg.fit_stats_)
+        st = dict(_stats(reg))
         tree = reg.tree_
         if not (st["engine"] == "fused" and np.isfinite(pred).all()
                 and pred.shape == ych.shape
@@ -1529,7 +1574,7 @@ def phase_regression_parity() -> None:
         log(f"regression parity: california_like({n}, seed={seed}) {kw}: "
             f"cuda tree == cpu tree ({gpu.tree_.n_nodes} nodes, depth "
             f"{gpu.get_depth()}); cuda {t1 - t0:.3f} s, cpu "
-            f"{t2 - t1:.3f} s; {gpu.fit_stats_}")
+            f"{t2 - t1:.3f} s; {_stats(gpu)}")
 
 
 def phase_weights(X, y, Xh, yh, device_acc: float) -> dict:
@@ -1550,10 +1595,10 @@ def phase_weights(X, y, Xh, yh, device_acc: float) -> dict:
                                         routes=hist_kernel.FIXED_ROUTES)
     if not _same_fields(first[0], clf.tree_, PARITY_FIELDS + ("impurity",)):
         raise AssertionError("weighted fit: two fits differ")
-    if clf.fit_stats_["engine"] != "fused" or any(
+    if _stats(clf)["engine"] != "fused" or any(
             launches[k] for k in hist_kernel.ROUTES):
         raise AssertionError(f"weighted fit left the fixed-point route: "
-                             f"{clf.fit_stats_}, {launches}")
+                             f"{_stats(clf)}, {launches}")
     acc = float(np.mean(clf.predict(Xh) == yh))
     out = dict(first_s=f1, second_s=f2, heldout_acc=acc,
                n_nodes=clf.tree_.n_nodes, peak_gib=peak, launches=launches,
@@ -1589,10 +1634,10 @@ def phase_weights(X, y, Xh, yh, device_acc: float) -> dict:
                  for c in np.unique(yh)}
     out.update(balanced_s=bal_s, balanced_heldout_acc=bal_acc,
                balanced_per_class_recall=per_class,
-               balanced_stats=dict(bal.fit_stats_))
+               balanced_stats=dict(_stats(bal)))
     log(f"weights: class_weight='balanced' at defaults: {bal_s:.3f} s, "
         f"held-out acc {bal_acc:.6f}, per-class recall {per_class}; "
-        f"{bal.fit_stats_}")
+        f"{_stats(bal)}")
     return out
 
 
@@ -1844,9 +1889,9 @@ def _constrained_parity(make, X, y, what: str, fields) -> int:
     t1 = time.perf_counter()
     cpu = make("cpu").fit(X, y)
     t2 = time.perf_counter()
-    if gpu.fit_stats_["engine"] != "fused" or "crown_depth" in gpu.fit_stats_:
+    if _stats(gpu)["engine"] != "fused" or "crown_depth" in _stats(gpu):
         raise AssertionError(f"{what}: not one device-engine build: "
-                             f"{gpu.fit_stats_}")
+                             f"{_stats(gpu)}")
     if hasattr(gpu, "classes_"):
         _check_parity(gpu.tree_, cpu.tree_, X, y, tie_depth=DEPTH,
                       fields=fields,
@@ -1905,7 +1950,7 @@ def phase_constrained(X, y, Xh, yh, Xc, yc, Xch, ych, reg_r2: float):
         depth=clf.get_depth(), heldout_acc=acc, unconstrained_heldout_acc=
         plain_acc, unconstrained_n_nodes=plain.tree_.n_nodes,
         peak_gib=peak, launches=launches, monotone_anchors=8,
-        monotone_grid=GRID, parity_nodes=parity, **clf.fit_stats_)
+        monotone_grid=GRID, parity_nodes=parity, **_stats(clf))
     log(f"constrained classifier: {len(X)} x {X.shape[1]} (class {top} vs "
         f"rest), monotonic_cst +1 on column 0, -1 on column 5, depth "
         f"{DEPTH}: first {f1:.3f} s, second {f2:.3f} s; n_nodes "
@@ -1931,7 +1976,7 @@ def phase_constrained(X, y, Xh, yh, Xc, yc, Xch, ych, reg_r2: float):
         first_s=f1, second_s=f2, n_nodes=reg.tree_.n_nodes,
         depth=reg.get_depth(), heldout_r2=r2, unconstrained_heldout_r2=reg_r2,
         peak_gib=peak, launches=rlaunches, parity_nodes=parity,
-        **reg.fit_stats_)
+        **_stats(reg))
     log(f"constrained regressor: {len(Xc)} x {Xc.shape[1]}, monotonic_cst "
         f"+1 on MedInc, depth {DEPTH}: first {f1:.3f} s, second {f2:.3f} s; "
         f"n_nodes {reg.tree_.n_nodes}; held-out R2 {r2:.6f} (unconstrained, "
@@ -2044,12 +2089,13 @@ def _boosted_fit(cls, X, y, Xh, yh, what: str, kw: dict) -> tuple:
     for k in hist_kernel.launches:
         hist_kernel.launches[k] = 0
     t0 = time.perf_counter()
-    est = cls(**kw).fit(X, y)
+    with _profiled():  # the bin, loss, build and refit laps
+        est = cls(**kw).fit(X, y)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     _on_card(est, what)
     launches = dict(hist_kernel.launches)
-    host_loop = est.fit_stats_["rounds_per_dispatch"]["value"] == 1
+    host_loop = _stats(est)["rounds_per_dispatch"]["value"] == 1
     if not (launches["stream_fixed"] and (launches["sorted_fixed"]
                                           or not host_loop)) or (
             launches["stream"] or launches["sorted"]):
@@ -2064,7 +2110,7 @@ def _boosted_fit(cls, X, y, Xh, yh, what: str, kw: dict) -> tuple:
             est.train_score_[-1] > est.train_score_[0]):
         raise AssertionError(f"{what}: training loss did not fall: "
                              f"{est.train_score_[[0, -1]]}")
-    out = dict(wall_s=wall, fit_stats=est.fit_stats_, launches=launches,
+    out = dict(wall_s=wall, fit_stats=_stats(est), launches=launches,
                trees=len(est.trees_), nodes_total=nodes,
                heldout=score, predict_s=predict_s,
                train_loss=[-float(est.train_score_[0]),
@@ -2074,7 +2120,7 @@ def _boosted_fit(cls, X, y, Xh, yh, what: str, kw: dict) -> tuple:
                    ("max_iter", 100), ("max_depth", 6),
                    ("learning_rate", 0.1), ("min_samples_leaf", 20),
                    ("max_bins", 256))})
-    st = est.fit_stats_
+    st = _stats(est)
     log(f"boosting {what}: {len(X)} x {X.shape[1]}, {len(est.trees_)} "
         f"trees ({nodes} nodes): fit {wall:.3f} s = bin "
         f"{st['bin_seconds']:.3f} + loss {st['loss_seconds']:.3f} + build "
@@ -2358,7 +2404,7 @@ def phase_engines(X, y, Xc, yc, fused: dict) -> dict:
                 res[f"{engine}/{sub}"] = dict(
                     wall_s=wall, launches=launches,
                     frontier_reads=fused_builder.frontier_reads - reads0,
-                    engine=est.fit_stats_["engine"])
+                    engine=_stats(est)["engine"])
             levels = sum(int(t.depth.max()) + 1 for t in want)
             for key, r in res.items():
                 if key.startswith("fused") and r.get(
@@ -2477,9 +2523,9 @@ def phase_leafwise(X, y, Xh, yh, Xc, yc, Xch, ych) -> dict:
                     f"{LEAF_IDENTITY['max_leaf_nodes']} != the depth-"
                     f"{LEAF_IDENTITY['max_depth']} level-wise tree")
             ident[engine] = dict(wall_s=wall,
-                                 expansions=est.fit_stats_["expansions"],
+                                 expansions=_stats(est)["expansions"],
                                  flag_reads=lw.done_reads - reads0,
-                                 engine=est.fit_stats_["engine"])
+                                 engine=_stats(est)["engine"])
         _set_engine("auto", "off")
         binned = bin_for_engine(X, max_bins=256, binning="auto",
                                 device=DEV)
@@ -2507,9 +2553,9 @@ def phase_leafwise(X, y, Xh, yh, Xc, yc, Xch, ych) -> dict:
             acc = float(np.mean(est.predict(Xh) == yh))
             budget[sub] = dict(
                 first_s=f1, second_s=f2, launches=launches, peak_gib=peak,
-                expansions=est.fit_stats_["expansions"],
+                expansions=_stats(est)["expansions"],
                 leaves=est.get_n_leaves(), depth=est.get_depth(),
-                flag_reads=reads, heldout_acc=acc, fit_stats=est.fit_stats_)
+                flag_reads=reads, heldout_acc=acc, fit_stats=_stats(est))
             if sub == "off":
                 copies, pwall, busy = _d2h_copies(
                     lambda: DecisionTreeClassifier(
@@ -2548,7 +2594,7 @@ def phase_leafwise(X, y, Xh, yh, Xc, yc, Xch, ych) -> dict:
         r2 = _r2(ych, reg.predict(Xch))
         out["regressor"] = dict(
             first_s=f1, second_s=f2, launches=launches, peak_gib=peak,
-            heldout_r2=r2, expansions=reg.fit_stats_["expansions"],
+            heldout_r2=r2, expansions=_stats(reg)["expansions"],
             leaves=reg.get_n_leaves())
         log(f"leafwise regressor: " + json.dumps(out["regressor"]))
         seconds["regressor"] = time.perf_counter() - t0
@@ -2708,7 +2754,7 @@ def phase_fused_rounds(X, y, Xh, yh, Xc, yc, Xch, ych) -> dict:
             est = cls(**kk).fit(Xd, yd)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            st = est.fit_stats_
+            st = _stats(est)
             if not hist_kernel.launches["stream_fixed"]:
                 raise AssertionError(f"fused rounds {what} K={K}: no "
                                      "stream_fixed launch")
@@ -3303,7 +3349,7 @@ def mesh_worker(rank: int, port: int, what: str, out: str) -> int:
         launches = dict(hist_kernel.launches)
         np.savez(out + ".npz",
                  **{k: getattr(clf.tree_, k) for k in TREE_FIELDS})
-        st = clf.fit_stats_
+        st = _stats(clf)
         Path(out + ".json").write_text(json.dumps(dict(
             rank=rank, wall_s=wall, launches=launches,
             shard_rows=-(-ROWS // st["n_shards"]),
@@ -3389,7 +3435,7 @@ def phase_mesh(X, y, Xh, yh, fit_tree, hybrid_tree) -> dict:
         if bad:
             raise AssertionError(f"mesh ({what}): tree differs from phase "
                                  f"3's in {bad}")
-        st = par.fit_stats_
+        st = _stats(par)
         if st["n_shards"] != torch.cuda.device_count():
             raise AssertionError(f"mesh ({what}): {st['n_shards']} shards")
         return par, dict(wall_s=wall, launches=launches,
@@ -3525,7 +3571,7 @@ def ensembles_worker(rank: int, port: int, out: str) -> int:
                 for k in env:
                     os.environ.pop(k)
             save_model(est, f"{out}{part}.npz")
-            st = est.fit_stats_
+            st = _stats(est)
             recs[part] = dict(
                 wall_s=wall, launches=launches, peak_bytes=peak,
                 **{k: v for k, v in st.items()
@@ -3778,7 +3824,7 @@ def phase_stream(X, y, Xh, fit_tree, fit_launches, hybrid_tree, Xc, yc, Xch,
                                  f"3's {fit_launches}")
         raw_mb = X.nbytes / 1e6
         out["a"] = dict(first_s=first, second_s=second, launches=launches,
-                        ingest=clf.ingest_stats_, fit_stats=clf.fit_stats_,
+                        ingest=clf.ingest_stats_, fit_stats=_stats(clf),
                         peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                         host_rss_growth_mb=rss / 1e6, raw_matrix_mb=raw_mb)
         log(f"stream (a): phase 3's fit from {len(xs)} .npy shards, chunks "
@@ -3796,10 +3842,11 @@ def phase_stream(X, y, Xh, fit_tree, fit_launches, hybrid_tree, Xc, yc, Xch,
                                       max_bins=256)
         zero()
         t0 = time.perf_counter()
-        dflt.fit(shards())
+        with _profiled():  # the crown and tail laps the log line prints
+            dflt.fit(shards())
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        st = dict(dflt.fit_stats_)
+        st = dict(_stats(dflt))
         same(dflt.tree_, hybrid_tree, "b")
         if not (st.get("crown_depth") == HYBRID_CROWN
                 and st.get("refine_nodes_added", 0) > 0):
@@ -3869,7 +3916,7 @@ def phase_stream(X, y, Xh, fit_tree, fit_launches, hybrid_tree, Xc, yc, Xch,
             StreamedDataset.from_arrays(Xc, yc, chunk_rows=STREAM_CHUNK))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        if breg.fit_stats_["rounds_per_dispatch"]["value"] != FUSED_K:
+        if _stats(breg)["rounds_per_dispatch"]["value"] != FUSED_K:
             raise AssertionError("stream (d): K not taken")
         if not np.array_equal(breg.predict(Xch), boost_reg8.predict(Xch)):
             raise AssertionError("stream (d): margins differ from phase "
@@ -4015,7 +4062,7 @@ def sticky_worker(out: str) -> int:
         device_failure=e is not None and failure.is_device_failure(e),
         transient=e is not None and failure.is_transient_failure(e),
         oom=e is not None and failure.is_oom_failure(e),
-        rungs=_rungs(clf.fit_stats_), engine=clf.fit_stats_["engine"])))
+        rungs=_rungs(_stats(clf)), engine=_stats(clf)["engine"])))
     print(f"sticky worker: {wall:.3f} s; error {e!r:.200}", flush=True)
     return 0
 
@@ -4054,7 +4101,7 @@ def stream_forest_worker(rank: int, port: int, out: str) -> int:
         est.fit(dataset=data)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        st = est.fit_stats_
+        st = _stats(est)
         save_model(est, out + ".npz")
         Path(out + ".json").write_text(json.dumps(dict(
             rank=rank, wall_s=wall, launches=dict(hist_kernel.launches),
@@ -4176,12 +4223,15 @@ def phase_resilience(X, y, Xh, fit_tree, forest, Xc, yc, Xch, boost_reg8,
         del os.environ["MPITREE_TPU_CHAOS"]
         chaos.clear()
     same(clf.tree_, fit_tree, "a")
-    st = clf.fit_stats_
+    st = _stats(clf)
     if _rungs(st) != dict(device_retries=1, level_retries=0,
                           device_failovers=0) or st["engine"] != "fused":
         raise AssertionError(f"resilience (a): rungs {_rungs(st)}, engine "
                              f"{st['engine']}")
-    out["a"] = dict(wall_s=wall, rungs=_rungs(st), launches=launches())
+    out["a"] = dict(wall_s=wall, rungs=_rungs(st), launches=launches(),
+                    events=[e["kind"] for e in clf.fit_report_["events"]],
+                    device_retries=clf.fit_report_["counters"].get(
+                        "device_retries", 0))
     log(f"resilience (a): dispatch:1:unavailable (DistNetworkError): "
         f"{wall:.3f} s, rungs {_rungs(st)}; tree == phase 3's; launches "
         f"{out['a']['launches']}")
@@ -4200,7 +4250,7 @@ def phase_resilience(X, y, Xh, fit_tree, forest, Xc, yc, Xch, boost_reg8,
         del os.environ["MPITREE_TPU_ENGINE"]
         chaos.clear()
     same(clf.tree_, fit_tree, "b")
-    st = clf.fit_stats_
+    st = _stats(clf)
     levels = int(fit_tree.max_depth) + 1
     if (_rungs(st) != dict(device_retries=0, level_retries=1,
                            device_failovers=0)
@@ -4278,7 +4328,7 @@ def phase_resilience(X, y, Xh, fit_tree, forest, Xc, yc, Xch, boost_reg8,
         torch.cuda.set_per_process_memory_fraction(1.0)
         clf_mod.build_tree = real_build
         torch.cuda.empty_cache()
-    st = oom.fit_stats_
+    st = _stats(oom)
     if not (raised == "OutOfMemoryError" and len(seen) == 2
             and all(r["oom_type"] and r["oom"] and not r["transient"]
                     for r in seen)
@@ -4390,7 +4440,7 @@ def phase_resilience(X, y, Xh, fit_tree, forest, Xc, yc, Xch, boost_reg8,
         reg = GradientBoostingRegressor(**kw).fit(Xc, yc)
         torch.cuda.synchronize()
         resumed_s = time.perf_counter() - t0
-    st = reg.fit_stats_
+    st = _stats(reg)
     if flushed != KILL_ROUND or st.get("resumed_rounds") != KILL_ROUND:
         raise AssertionError(f"resilience (f): flushed {flushed}, resumed "
                              f"{st.get('resumed_rounds')}")
@@ -4494,6 +4544,248 @@ def phase_resilience(X, y, Xh, fit_tree, forest, Xc, yc, Xch, boost_reg8,
     log("resilience rungs: " + json.dumps(
         {k: v["rungs"] for k, v in out.items()
          if isinstance(v, dict) and "rungs" in v}))
+    return out
+
+
+def _first_divergent_level(a: dict, b: dict):
+    """The first (tree, level) whose fingerprint rows differ between two
+    records' ``fingerprints`` (the JAX package's ``obs.diff.
+    localize_divergence`` order: trees, then levels), or None."""
+    for t, (ra, rb) in enumerate(zip(a.get("trees") or [],
+                                     b.get("trees") or [])):
+        la = {r["level"]: r for r in ra}
+        lb = {r["level"]: r for r in rb}
+        for lvl in sorted(set(la) | set(lb)):
+            if la.get(lvl) != lb.get(lvl):
+                return t, lvl
+    return None
+
+
+def phase_obs(X, y, fit_tree, fit_launches, resilience) -> dict:
+    """Phase 32 (the observability layer, item 18a/18b and the
+    fingerprints of 18d): (a) phase 3's fit with ``MPITREE_TPU_PROFILE``
+    unset, set, and set with ``trace_to=`` a file, twice each in turn:
+    trees and K1-K3 launches equal to phase 3's, ``fit_stats_`` None then
+    the phase summary, ``fit_report_`` with the fused engine, one
+    replayed level row per level and the fingerprints; the trace
+    validates (``obs.trace.validate_trace``), ``dump_report`` round-trips
+    through ``json.load``; walls and the overhead of each mode over the
+    first; (b) phase 4's 50,000-row depth-10 fit on the card and the CPU:
+    equal ``fingerprints["fit"]``, or, where phase 4 allows its exact-tie
+    residual, the first divergent level the tie's; (c) a 10-tree phase 5
+    forest and phase 26's K = 8 regressor fitted into one shared
+    ``TraceSink``, phase 5's forest served into it through K4 and, as
+    int8, K5 (``compile_model(...).trace_to(sink)``): fit, level, round
+    and ``serving`` tracks, valid; (d) phase 31 (a)'s blip: one
+    ``device_retry`` event beside ``counters["device_retries"] == 1``;
+    (e) ``utils.profiling.trace(dir)`` around a fit leaves a
+    ``torch.profiler`` trace file in ``dir``."""
+    import tempfile
+
+    from mpitree_tpu_torch.obs import TraceSink, validate_trace
+    from mpitree_tpu_torch.ops import hist_kernel
+    from mpitree_tpu_torch.serving import compile_model
+    from mpitree_tpu_torch.tree import (
+        DecisionTreeClassifier,
+        GradientBoostingRegressor,
+        RandomForestClassifier,
+    )
+    from mpitree_tpu_torch.utils import profiling
+    from mpitree_tpu_torch.utils.datasets import (
+        california_like,
+        covtype_like,
+    )
+
+    out = {}
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_obs_"))
+    kw = dict(criterion="entropy", max_depth=DEPTH, max_bins=256,
+              **DEVICE_ONLY)
+    levels = int(fit_tree.max_depth) + 1
+
+    # (a) the three modes, twice each, interleaved
+    walls = {"off": [], "profile": [], "trace": []}
+    for rep in range(2):
+        for mode in ("off", "profile", "trace"):
+            for k in hist_kernel.launches:
+                hist_kernel.launches[k] = 0
+            path = tmp / f"fit_{mode}_{rep}.trace.json"
+            with _profiled() if mode != "off" else contextlib.nullcontext():
+                t0 = time.perf_counter()
+                clf = DecisionTreeClassifier(**kw).fit(
+                    X, y, trace_to=path if mode == "trace" else None)
+                torch.cuda.synchronize()
+                walls[mode].append(time.perf_counter() - t0)
+            _on_card(clf, f"obs (a) {mode}")
+            bad = _differing(clf.tree_, fit_tree)
+            if bad:
+                raise AssertionError(f"obs (a) {mode}: tree differs from "
+                                     f"phase 3's in {bad}")
+            got = dict(hist_kernel.launches)
+            if got != fit_launches:
+                raise AssertionError(f"obs (a) {mode}: launches {got}, "
+                                     f"phase 3's {fit_launches}")
+            rep_ = clf.fit_report_
+            rows = rep_["levels"]
+            fps = rep_["fingerprints"]
+            if (rep_["engine"].get("value") != "fused"
+                    or len(fps.get("trees", [])) != 1
+                    or len(fps["trees"][0]) != levels
+                    or not fps.get("fit")):
+                raise AssertionError(f"obs (a) {mode}: engine "
+                                     f"{rep_['engine']}, fingerprints "
+                                     f"{fps.get('fit')}")
+            if mode == "off":
+                if clf.fit_stats_ is not None or rows or rep_["phases"]:
+                    raise AssertionError(
+                        f"obs (a) off: fit_stats_ {clf.fit_stats_}, "
+                        f"{len(rows)} level rows")
+            else:
+                st = clf.fit_stats_
+                if (not st or set(st) != {"bin", "shard", "fused_build",
+                                          "host_finalize"}
+                        or [r["level"] for r in rows]
+                        != list(range(levels))):
+                    raise AssertionError(
+                        f"obs (a) {mode}: fit_stats_ {st}, level rows "
+                        f"{[r['level'] for r in rows]}")
+            if mode == "trace":
+                tr = json.load(open(path))
+                problems = validate_trace(tr)
+                names = {e["name"] for e in tr["traceEvents"]}
+                if problems or "fused_build" not in names or not any(
+                        n.startswith("level ") for n in names):
+                    raise AssertionError(f"obs (a) trace: {problems[:5]}, "
+                                         f"spans {sorted(names)[:20]}")
+                out["trace_events"] = len(tr["traceEvents"])
+            dump = tmp / f"report_{mode}_{rep}.json"
+            if clf.dump_report(dump) != str(dump) or json.load(
+                    open(dump)) != clf.fit_report_:
+                raise AssertionError(f"obs (a) {mode}: dump_report did not "
+                                     "round-trip")
+    best = {m: min(v) for m, v in walls.items()}
+    out["a"] = dict(
+        walls_s=walls, best_s=best,
+        overhead_pct={m: round(100.0 * (best[m] / best["off"] - 1.0), 3)
+                      for m in ("profile", "trace")},
+        phases=clf.fit_stats_, fingerprint=clf.fit_report_[
+            "fingerprints"]["fit"], level_rows=levels)
+    log(f"obs (a): phase 3's fit, best of 2: profiling off "
+        f"{best['off']:.3f} s, MPITREE_TPU_PROFILE=1 "
+        f"{best['profile']:.3f} s "
+        f"({out['a']['overhead_pct']['profile']:+.2f}%), with trace_to "
+        f"{best['trace']:.3f} s ({out['a']['overhead_pct']['trace']:+.2f}%);"
+        f" all {walls}; trees and launches == phase 3's; {levels} level "
+        f"rows; fingerprint {out['a']['fingerprint']}; phases "
+        f"{clf.fit_stats_}")
+
+    # (b) card vs CPU fingerprints on phase 4's fit
+    Xp, yp = covtype_like(50_000, seed=2)
+    pkw = dict(criterion="entropy", max_depth=10, max_bins=256,
+               **DEVICE_ONLY)
+    gpu = DecisionTreeClassifier(device="cuda", **pkw).fit(Xp, yp)
+    cpu = DecisionTreeClassifier(device="cpu", **pkw).fit(Xp, yp)
+    fg, fc = gpu.fit_report_["fingerprints"], cpu.fit_report_["fingerprints"]
+    first = _first_divergent_level(fg, fc)
+    if _same_fields(gpu.tree_, cpu.tree_):
+        if fg["fit"] != fc["fit"] or first is not None:
+            raise AssertionError(f"obs (b): equal trees, fingerprints "
+                                 f"{fg['fit']} / {fc['fit']}")
+        out["b"] = dict(fingerprint=fg["fit"], equal=True)
+    else:
+        # phase 4's exact-tie residual: _check_parity holds the tie, and
+        # the fingerprints must first part at its level
+        _check_parity(gpu.tree_, cpu.tree_, Xp, yp, what="obs (b)",
+                      tie_depth=10)
+        n = min(gpu.tree_.n_nodes, cpu.tree_.n_nodes)
+        node = next(i for i in range(n) if not all(np.array_equal(
+            getattr(gpu.tree_, k)[i], getattr(cpu.tree_, k)[i],
+            equal_nan=True) for k in PARITY_FIELDS))
+        if first is None or first[1] != int(cpu.tree_.depth[node]):
+            raise AssertionError(f"obs (b): first divergent level {first}, "
+                                 f"the tie's node {node} at depth "
+                                 f"{int(cpu.tree_.depth[node])}")
+        out["b"] = dict(equal=False, first_divergent_level=first[1])
+    log(f"obs (b): phase 4's fit, card vs CPU fingerprints: "
+        f"{fg['fit']} / {fc['fit']} ({out['b']})")
+
+    # (c) one shared sink: a forest, a fused-rounds regressor, serving
+    sink = TraceSink(str(tmp / "shared.trace.json"))
+    Xf, yf = X[:FOREST_ROWS], y[:FOREST_ROWS]
+    t0 = time.perf_counter()
+    forest = RandomForestClassifier(**dict(FOREST, n_estimators=10),
+                                    **DEVICE_ONLY).fit(Xf, yf,
+                                                       trace_to=sink)
+    Xc, yc = california_like(CAL_ROWS, seed=0)
+    reg = GradientBoostingRegressor(rounds_per_dispatch=FUSED_K,
+                                    max_iter=BOOST_ROUNDS).fit(
+        Xc, yc, trace_to=sink)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    for est in (forest, reg):
+        _on_card(est, "obs (c)")
+    served = {}
+    for form, quant in (("K4", None), ("K5", "int8")):
+        cm = compile_model(forest, quantize=quant)
+        cm.trace_to(sink)
+        got = cm.raw(X[:4_096])
+        if not np.isfinite(got).all():
+            raise AssertionError(f"obs (c) {form}: non-finite answers")
+        sr = cm.serve_report_
+        served[form] = dict(dispatch=cm.dispatch,
+                            requests=sr["counters"]["serving_requests"],
+                            dispatches=sr["counters"]["serving_dispatches"],
+                            fingerprint=sr["fingerprints"]["fit"])
+    path = sink.write()
+    tr = json.load(open(path))
+    problems = validate_trace(tr)
+    tracks = sorted({e["args"]["name"] for e in tr["traceEvents"]
+                     if e["ph"] == "M" and e["name"] == "thread_name"})
+    names = {e["name"] for e in tr["traceEvents"]}
+    want = ("forest_build" in names and "fused_rounds" in names
+            and "serving_dispatch" in names and "serving" in tracks
+            and any(t.endswith(":levels") for t in tracks)
+            and any(t.endswith(":rounds") for t in tracks))
+    if problems or not want:
+        raise AssertionError(f"obs (c): problems {problems[:5]}, tracks "
+                             f"{tracks}")
+    out["c"] = dict(fit_s=fit_s, tracks=tracks, served=served,
+                    events=len(tr["traceEvents"]),
+                    bytes=os.path.getsize(path))
+    log(f"obs (c): 10-tree forest and K = {FUSED_K} regressor fitted into "
+        f"one sink ({fit_s:.3f} s), the forest served through K4 and K5 "
+        f"into it: {len(tr['traceEvents'])} events, tracks {tracks}; "
+        f"served {served}")
+
+    # (d) phase 31 (a)'s blip, typed
+    a = resilience["a"]
+    if a["events"] != ["device_retry"] or a["device_retries"] != 1:
+        raise AssertionError(f"obs (d): events {a['events']}, "
+                             f"device_retries {a['device_retries']}")
+    out["d"] = dict(events=a["events"], device_retries=a["device_retries"])
+    log(f"obs (d): phase 31 (a)'s blip: events {a['events']}, "
+        f"counters device_retries {a['device_retries']}")
+
+    # (e) a torch.profiler trace around a fit
+    pdir = tmp / "profiler"
+    events = []
+    with profiling.trace(str(pdir), on_event=lambda k, m: events.append(
+            (k, m))):
+        DecisionTreeClassifier(device="cuda", **pkw).fit(Xp, yp)
+        torch.cuda.synchronize()
+    files = sorted(pdir.glob("*.pt.trace.json"))
+    if events or len(files) != 1:
+        raise AssertionError(f"obs (e): events {events}, files {files}")
+    ptr = json.load(open(files[0]))
+    cats = sorted({e.get("cat", "") for e in ptr.get("traceEvents", [])})
+    out["e"] = dict(file_bytes=files[0].stat().st_size,
+                    events=len(ptr.get("traceEvents", [])), cats=cats)
+    log(f"obs (e): utils.profiling.trace around phase 4's fit: "
+        f"{files[0].name}, {out['e']['file_bytes']} bytes, "
+        f"{out['e']['events']} events, categories {cats}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"obs: {out['seconds']:.3f} s")
     return out
 
 
@@ -4742,6 +5034,8 @@ def main() -> int:
         X, y, Xh, fit_tree, forest, Xc, yc, Xch, boost_regs[FUSED_K],
         [r["peak_bytes"] for r in ensembles["ranks"]["b"]])
     mark("31 resilience")
+    observability = phase_obs(X, y, fit_tree, launches, resilience)
+    mark("32 obs")
     if args.profile:
         profile_all(X, y, forest, Xh, args.profile)
 
@@ -4917,6 +5211,7 @@ def main() -> int:
     log(json.dumps({"mesh_ensembles": ensembles}))
     log(json.dumps({"stream": stream}))
     log(json.dumps({"resilience": resilience}))
+    log(json.dumps({"obs": observability}))
     log(json.dumps({"phase_end_s": clock}))
     log(card)
     log(json.dumps({"kernels": kernels}))

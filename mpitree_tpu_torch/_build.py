@@ -108,6 +108,11 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            path = _finish(name, *_start(name))
-            lib = _libs[name] = ctypes.CDLL(str(path))
+            # the extension's first build or load in this process: a cold
+            # event of the fit it happens in (obs/observer.cold_event)
+            from mpitree_tpu_torch.obs.observer import cold_event
+
+            with cold_event(f"ext:{name}", name):
+                path = _finish(name, *_start(name))
+                lib = _libs[name] = ctypes.CDLL(str(path))
         return lib

@@ -69,13 +69,18 @@ import numpy as np
 import torch
 
 from mpitree_tpu_torch.core import leafwise_builder as leafwise
-from mpitree_tpu_torch.core.builder import BuildConfig, FitInputs
+from mpitree_tpu_torch.core.builder import (
+    BuildConfig,
+    FitInputs,
+    note_subtraction,
+)
 from mpitree_tpu_torch.ops import hist_kernel
 from mpitree_tpu_torch.ops.histogram import gbdt_payload
 from mpitree_tpu_torch.ops.sampling import row_subsample_mask_dev
 from mpitree_tpu_torch.parallel import collective
 from mpitree_tpu_torch.resilience import chaos
 from mpitree_tpu_torch.resilience.retry import retry_device
+from mpitree_tpu_torch.utils.profiling import PhaseTimer
 
 DEFAULT_ROUNDS_PER_DISPATCH = 8
 # Leaf-pool ceiling: every open leaf is one sequential expansion of a
@@ -276,17 +281,24 @@ def run_fused_rounds(*, binned, packed, y_tr: np.ndarray, sw_tr, raw_tr,
                      verbose: bool = False, mesh=None, start_round: int = 0,
                      ck=None, checkpoint_every: int = 10,
                      checkpoint_compact_every=None,
-                     stats: dict | None = None) -> dict:
+                     obs=None) -> int:
     """Drive a fit in dispatches of ``rounds_per_dispatch`` rounds
     (``run_fused_rounds``, ``:412``, without the OOM rescue) from round
     ``start_round`` (a resumed checkpoint's). Appends the trees and the
     training scores to ``trees``/``train_scores``, writes the float32
-    margins back into ``raw_tr[:, 0]``, and returns the dispatch count,
-    the copies and the leaf loop's ``graph`` choice. Raises
+    margins back into ``raw_tr[:, 0]``, and returns the dispatch count.
+    ``obs`` (the fit's observer) gets the JAX package's record of fused
+    rounds (``:505-670``): the ``engine`` decision (``"fused_rounds"``),
+    the leaf loop's ``frontier`` (with its CUDA-graph choice) and
+    ``hist_subtraction``, the spans ``shard`` and ``fused_rounds``, one
+    round row a round, the ``fused_round_dispatches`` and
+    ``rounds_fused`` counters, and each round tree's level rows, scan
+    counters and fingerprint rows replayed from the finished tree (never
+    recorded inside the graph). Raises
     ``FloatingPointError`` on a non-finite round, as the host loop does,
     and ``RuntimeError`` if a payload passed its dispatch's bounds (which
     would make the fixed-point sums inexact). Each dispatch runs through
-    ``retry_device`` (``stats`` takes the ladder's counters); ``ck`` (a
+    ``retry_device`` (``obs`` takes the ladder's counters); ``ck`` (a
     ``BoostCheckpoint``) flushes
     the trees and the margins as the module docstring says.
 
@@ -299,6 +311,7 @@ def run_fused_rounds(*, binned, packed, y_tr: np.ndarray, sw_tr, raw_tr,
     for bit. The training losses sum per shard, then over the mesh: equal
     to the one-device loss up to float64 summation order."""
     global copies
+    obs = PhaseTimer(enabled=False) if obs is None else obs
     dev = binned.x_binned.device if mesh is None else mesh.lead
     N = binned.n_samples
     sw = np.ones(N, np.float32) if sw_tr is None else np.asarray(
@@ -317,10 +330,11 @@ def run_fused_rounds(*, binned, packed, y_tr: np.ndarray, sw_tr, raw_tr,
     # same payload tensors, so the loop's captured step serves every round
     # of a dispatch (a dispatch's new exponents are a new capture)
     zeros = np.zeros(N, np.float32)
-    fit = FitInputs(binned, zeros if mesh is not None else
-                    torch.as_tensor(zeros, device=dev), cfg,
-                    sample_weight=zeros, packed=packed, scale_exp=(0, 0, 0),
-                    candidate_mask=cand, mesh=mesh)
+    with obs.span("shard"):
+        fit = FitInputs(binned, zeros if mesh is not None else
+                        torch.as_tensor(zeros, device=dev), cfg,
+                        sample_weight=zeros, packed=packed,
+                        scale_exp=(0, 0, 0), candidate_mask=cand, mesh=mesh)
 
     def rows(a):
         return fit.row_parts(torch.as_tensor(a, device=dev))
@@ -335,7 +349,20 @@ def run_fused_rounds(*, binned, packed, y_tr: np.ndarray, sw_tr, raw_tr,
     lr32 = [torch.tensor(np.float32(lr), device=sh.dev) for sh in fit.shards]
     loop = leafwise._LeafLoop(fit, cfg, pool=pool,
                               use_sub=leafwise.leafwise_subtraction(
-                                  fit, cfg, pool))
+                                  fit, cfg, pool),
+                              entry="cuda_graph:fused_rounds")
+    obs.decision(
+        "engine", "fused_rounds",
+        reason=(f"rounds_per_dispatch={rounds_per_dispatch}: K full "
+                "boosting rounds (grad/hess, leaf-wise build, leaf refit, "
+                "margin update) per dispatch, the margins on the device"),
+        rounds_per_dispatch=int(rounds_per_dispatch), pool=int(pool))
+    obs.decision(
+        "frontier", "leafwise",
+        reason=f"fused rounds: best-first pool of {pool} open leaves",
+        max_leaf_nodes=cfg.max_leaf_nodes, pool=int(pool),
+        graph=loop.use_graph, graph_reason=loop.graph_reason)
+    note_subtraction(obs, loop.use_sub, leafwise=True)
 
     def dispatch(r: int, k: int, raw_in: list) -> tuple:
         """Rounds ``r .. r + k - 1`` from the margins ``raw_in`` (left as
@@ -348,7 +375,7 @@ def run_fused_rounds(*, binned, packed, y_tr: np.ndarray, sw_tr, raw_tr,
         if loss_kind == "squared_error":
             residual = float(collective.psum(
                 [(a - b).abs().max().view(1) for a, b in zip(raw, y32)],
-                mesh, "max")[0])  # a dispatch's read
+                mesh, "max", site="gbdt_residual_pmax")[0])  # a dispatch's read
             copies += 1
             if not np.isfinite(residual):
                 raise FloatingPointError(
@@ -397,7 +424,7 @@ def run_fused_rounds(*, binned, packed, y_tr: np.ndarray, sw_tr, raw_tr,
                 loss.append((w64[s] * _loss_rows(
                     loss_kind, raw[s].to(torch.float64), y64[s])).sum()
                     .view(1))
-            loss = collective.psum(loss, mesh)[0]
+            loss = collective.psum(loss, mesh, site="gbdt_leaf_psum")[0]
             ints.append(grown.ints.clone())
             floats.append(torch.cat([grown.counts, GH.to(torch.float64)],
                                     dim=1))
@@ -405,7 +432,7 @@ def run_fused_rounds(*, binned, packed, y_tr: np.ndarray, sw_tr, raw_tr,
                                         loss]))
         # a bound passed on any process is passed on all: they raise together
         over = collective.psum([over.to(torch.int32).view(1)], mesh,
-                               "max")[0] > 0
+                               "max", site="gbdt_bound_pmax")[0] > 0
         # the dispatch's results: three copies (which wait for the card)
         ints_h = torch.stack(ints).cpu().numpy()
         floats_h = torch.stack(floats).cpu().numpy()
@@ -420,9 +447,10 @@ def run_fused_rounds(*, binned, packed, y_tr: np.ndarray, sw_tr, raw_tr,
         k = min(int(rounds_per_dispatch), max_iter - r)
         # the margins carry every round before r: a retry re-runs this
         # dispatch only
-        raw, ints_h, floats_h, scal_h = retry_device(
-            lambda: dispatch(r, k, raw),
-            what=f"gbdt fused rounds {r}..{r + k - 1}", obs=stats)
+        with obs.span("fused_rounds"):
+            raw, ints_h, floats_h, scal_h = retry_device(
+                lambda: dispatch(r, k, raw),
+                what=f"gbdt fused rounds {r}..{r + k - 1}", obs=obs)
         dispatches += 1
         if scal_h[-1]:
             raise RuntimeError(
@@ -435,7 +463,7 @@ def run_fused_rounds(*, binned, packed, y_tr: np.ndarray, sw_tr, raw_tr,
             gt, ht = float(np.sum(G32)), float(np.sum(H32))
             if not (np.isfinite(gt) and np.isfinite(ht)
                     and np.isfinite(scal_h[i, 1])):
-                raise FloatingPointError(
+                err = (
                     f"non-finite gradient/hessian totals at boosting round "
                     f"{r + i} (G_total={gt}, H_total={ht}, in a fused "
                     f"rounds_per_dispatch={rounds_per_dispatch} dispatch): "
@@ -445,28 +473,42 @@ def run_fused_rounds(*, binned, packed, y_tr: np.ndarray, sw_tr, raw_tr,
                     "for the f64-margin host loop — refusing to fit "
                     "garbage rounds"
                 )
-            trees.append(_finalize_round_tree(
+                obs.event("nonfinite_grad", err)
+                raise FloatingPointError(err)
+            tree = _finalize_round_tree(
                 binned, n_nodes, ints_h[i], floats_h[i, :, :3], G32, H32,
-                float(cfg.reg_lambda)))
-            train_scores.append(-float(scal_h[i, 1]) / max(total_w, 1e-300))
+                float(cfg.reg_lambda))
+            trees.append(tree)
+            mean_loss = float(scal_h[i, 1]) / max(total_w, 1e-300)
+            train_scores.append(-mean_loss)
+            # the round tree's record, replayed after the dispatch
+            leafwise.replay_leafwise(obs, tree, fit, cfg, loop.use_sub,
+                                     level_rows=True)
+            obs.round(
+                round=r + i, trees=1, subsample=float(subsample),
+                colsample=1.0, train_loss=mean_loss, val_loss=None,
+                stale=None, early_stop=False, seconds=None,
+                rounds_per_dispatch=int(rounds_per_dispatch))
+        obs.counter("fused_round_dispatches")
+        obs.counter("rounds_fused", k)
         new_r = r + k
         if verbose:
             print(f"[gbdt] rounds {r + 1}..{new_r}/{max_iter} (fused "
                   f"dispatch) train_loss={-train_scores[-1]:.6f}")
         if ck is not None and (new_r // int(checkpoint_every)
                                > r // int(checkpoint_every)):
-            raw_tr[:, 0] = collective.gather_rows(raw, mesh, N).cpu().numpy()
-            copies += 1
-            ck.append(trees[len(ck.trees):], {
-                "raw_tr": raw_tr,
-                "train_scores": np.asarray(train_scores, np.float64)})
-            ck.maybe_compact(checkpoint_compact_every, stats)
+            with obs.span("checkpoint_flush"):
+                raw_tr[:, 0] = collective.gather_rows(raw, mesh,
+                                                      N).cpu().numpy()
+                copies += 1
+                ck.append(trees[len(ck.trees):], {
+                    "raw_tr": raw_tr,
+                    "train_scores": np.asarray(train_scores, np.float64)})
+                ck.maybe_compact(checkpoint_compact_every, obs)
         r = new_r
     if dispatches:
         # nothing dispatched (a resumed fit that had finished): the
         # float64 margins stay as they are
         raw_tr[:, 0] = collective.gather_rows(raw, mesh, N).cpu().numpy()
         copies += 1
-    return {"dispatches": dispatches, "pool": pool,
-            "hist_subtraction": loop.use_sub, "graph": loop.use_graph,
-            "graph_reason": loop.graph_reason}
+    return dispatches

@@ -44,13 +44,18 @@ early stopping or ``colsample_bytree``; ``"auto"`` engages it where
 measured faster (K = 8 on the card, the host loop on the CPU), an
 explicit K raises on a blocker.
 
-``fit_stats_`` holds the phase seconds, each ending when the card is idle
-(``bin_seconds``; ``loss_seconds``, the host's masks, (g, h), guards and
-losses; ``build_seconds``, the tree builds, or the fused dispatches;
-``refit_seconds``, the leaf refits and margin updates), ``n_rounds``, the
-``rounds_per_dispatch`` decision with its reason, and for fused rounds
-``dispatches``, ``pool`` and ``hist_subtraction``; a leaf-wise round
-adds its ``engine``, ``frontier`` and ``expansions``.
+``fit_report_`` holds the JAX package's boosting record: one ``rounds``
+row a round (train and validation loss, subsample, early-stopping
+state; under ``MPITREE_TPU_PROFILE=1`` its ``seconds`` and the port's
+split of them, ``loss_seconds``, the host's masks, (g, h), guards and
+losses, ``build_seconds``, the tree builds, and ``refit_seconds``, the
+leaf refits and margin updates, each ending when the card is idle), the
+``rounds_per_dispatch`` and ``early_stop`` decisions with their reasons,
+each round tree's fingerprint rows, the ``nonfinite_grad`` event that
+precedes a non-finite round's raise, and for fused rounds the
+``fused_round_dispatches`` and ``rounds_fused`` counters and the
+``frontier`` decision (pool, CUDA-graph choice). ``fit_stats_`` is the
+phase summary under ``MPITREE_TPU_PROFILE=1`` and None otherwise.
 
 ``n_devices`` (``:391-393``, ``:542``) runs every round on a mesh: the
 host loop's trees on the data mesh (or a ``(dr, df)`` mesh's feature
@@ -58,8 +63,8 @@ slabs) through ``build_tree``, whose int64 fixed-point sums are exact
 and whose exponents come from every row, so each tree, refit and margin
 is the one-device ensemble's bit for bit; the fused rounds on a data
 mesh (``fused_rounds.run_fused_rounds``). ``predict`` splits its rows
-over the local shards. ``fit_stats_`` then holds ``n_shards`` and the
-collectives' counts.
+over the local shards. ``fit_report_`` then holds the mesh and the
+reductions per site.
 
 ``fit(dataset=StreamedDataset...)`` (or the dataset as ``X``) boosts
 from a chunk stream (``mpitree_tpu_torch.ingest``; ``:253-360``), on the
@@ -91,6 +96,7 @@ boosting rounds run the device engine only, as in the JAX package.
 from __future__ import annotations
 
 import numbers
+import time
 import warnings
 
 import numpy as np
@@ -114,11 +120,13 @@ from mpitree_tpu_torch.models._streamed import (
 from mpitree_tpu_torch.models.classifier import (
     ClassifierBase,
     EstimatorBase,
-    FitClock,
+    finish_report,
+    fit_observer,
     host_tier,
     fit_mesh,
     predict_mesh,
 )
+from mpitree_tpu_torch.obs.observer import observing, warn_event
 from mpitree_tpu_torch.models.regressor import RegressorBase
 from mpitree_tpu_torch.ops.binning import BinnedData, bin_for_engine
 from mpitree_tpu_torch.ops.hist_kernel import LANE_FEATURES
@@ -207,6 +215,26 @@ def _column_slice(binned: BinnedData, packed: torch.Tensor | None,
                       device=xb.device)
     out[:, :len(kept)] = packed.index_select(1, idx)
     return sliced, out
+
+
+class RoundClock:
+    """Seconds of the laps of a boosting fit's rounds, each ending when
+    ``device`` is idle; only while ``enabled`` (a timed fit: no
+    synchronisation otherwise, and every lap is 0.0)."""
+
+    def __init__(self, device: torch.device, enabled: bool = True):
+        self.device = device
+        self.enabled = enabled
+        self.t = time.perf_counter()
+
+    def lap(self) -> float:
+        if not self.enabled:
+            return 0.0
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        dt, self.t = now - self.t, now
+        return dt
 
 
 class _BaseGradientBoosting(EstimatorBase):
@@ -317,7 +345,8 @@ class _BaseGradientBoosting(EstimatorBase):
                 "or fit in memory"
             )
 
-    def _fit(self, X, y, sample_weight, *, task, dataset=None):
+    def _fit(self, X, y, sample_weight, *, task, dataset=None,
+             trace_to=None):
         self._validate_params_()
         mln = validate_max_leaf_nodes(self)
         streamed = is_streamed(X, dataset)
@@ -325,10 +354,10 @@ class _BaseGradientBoosting(EstimatorBase):
             # the mesh first: the chunks land on it as they are binned
             self._streamed_refusals_(None if dataset is None else X, y,
                                      dataset)
-            res, mesh, clock, stats = ingest_for(
-                self, X if dataset is None else dataset)
+            res, mesh, obs = ingest_for(
+                self, X if dataset is None else dataset, trace_to)
             binned = res.binned
-            device = clock.device
+            device = obs.device
             y_t, classes = validate_fit_targets(res.y, task=task)
             sw = stream_weight(res, sample_weight)
             F = binned.n_features
@@ -384,13 +413,15 @@ class _BaseGradientBoosting(EstimatorBase):
             n_tr = binned.n_samples
         else:
             n_tr = X_tr.shape[0]
-            clock = FitClock(device)
-            binned = bin_for_engine(X_tr, max_bins=self.max_bins,
-                                    binning=self.binning, device=device)
-            stats = {"bin_seconds": clock.lap()}
+            obs = fit_observer(device, trace_to)
+            with obs.phase("bin"):
+                binned = bin_for_engine(X_tr, max_bins=self.max_bins,
+                                        binning=self.binning, device=device)
+        obs.set_mesh(mesh, device=device)
+        # the round rows' loss, build and refit laps: timed fits only
+        clock = RoundClock(device, enabled=obs.enabled)
         # a mesh's shards pack their own bins (FitInputs, shard_matrix)
         packed = pack_for_fit(binned) if mesh is None else None
-        stats.update(loss_seconds=0.0, build_seconds=0.0, refit_seconds=0.0)
         cfg = BuildConfig(
             task="gbdt",
             max_depth=self.max_depth,
@@ -405,7 +436,7 @@ class _BaseGradientBoosting(EstimatorBase):
         )
 
         ck = self._open_checkpoint(
-            task, None if streamed else X, binned, y_t, sw)
+            task, None if streamed else X, binned, y_t, sw, obs)
         baseline = loss.init_raw(y_tr, sw_tr)  # (K,) float64
         self._baseline_raw = np.asarray(baseline, np.float64)
         raw_tr = np.tile(baseline, (n_tr, 1))
@@ -460,7 +491,12 @@ class _BaseGradientBoosting(EstimatorBase):
                     # the checkpoint's removal: stop again, train nothing
                     stopped_early = stale >= int(self.n_iter_no_change)
                 start_round = n_iter = n_done
-                stats["resumed_rounds"] = n_done
+                obs.counter("resumed_rounds", n_done)
+                obs.event(
+                    "checkpoint_resume",
+                    f"resumed {n_done} completed boosting rounds "
+                    f"({len(trees)} trees) from {self.checkpoint}",
+                    rounds=n_done)
         # one slot a fit: a round's levelwise build resumes from its failed
         # level
         slot = SnapshotSlot()
@@ -476,22 +512,22 @@ class _BaseGradientBoosting(EstimatorBase):
             n_samples=binned.n_samples, n_features=binned.n_features,
             n_bins=binned.n_bins, hist_budget_bytes=cfg.hist_budget_bytes,
             feature_shards=1 if mesh is None else feature_shards(mesh))
-        stats["rounds_per_dispatch"] = {"value": int(k_dispatch),
-                                        "reason": reason}
-        stats["loss_seconds"] += clock.lap()
+        obs.decision("rounds_per_dispatch", int(k_dispatch), reason=reason)
+        loss_s = clock.lap()  # the first round's row takes the set-up
         if k_dispatch > 1:
-            stats.update(fused_rounds.run_fused_rounds(
-                binned=binned, packed=packed, y_tr=y_tr, sw_tr=sw_tr,
-                raw_tr=raw_tr, trees=trees, train_scores=train_scores,
-                max_iter=int(self.max_iter), cfg=cfg, seed=seed, lr=lr,
-                loss_kind=loss.kind, rounds_per_dispatch=int(k_dispatch),
-                subsample=subsample, verbose=bool(self.verbose),
-                mesh=mesh, start_round=start_round, ck=ck,
-                checkpoint_every=int(self.checkpoint_every),
-                checkpoint_compact_every=self.checkpoint_compact_every,
-                stats=stats))
+            with observing(obs):
+                fused_rounds.run_fused_rounds(
+                    binned=binned, packed=packed, y_tr=y_tr, sw_tr=sw_tr,
+                    raw_tr=raw_tr, trees=trees, train_scores=train_scores,
+                    max_iter=int(self.max_iter), cfg=cfg, seed=seed, lr=lr,
+                    loss_kind=loss.kind,
+                    rounds_per_dispatch=int(k_dispatch),
+                    subsample=subsample, verbose=bool(self.verbose),
+                    mesh=mesh, start_round=start_round, ck=ck,
+                    checkpoint_every=int(self.checkpoint_every),
+                    checkpoint_compact_every=self.checkpoint_compact_every,
+                    obs=obs)
             n_iter = int(self.max_iter)
-            stats["build_seconds"] += clock.lap()
         # the bins' shards, placed once for every round that keeps all
         # features
         x_shards = (None if mesh is None or n_iter >= int(self.max_iter)
@@ -521,7 +557,7 @@ class _BaseGradientBoosting(EstimatorBase):
             g, h = chaos.corrupt("grad_hess", g, h)
             g_total, h_total = float(np.sum(g)), float(np.sum(h))
             if not (np.isfinite(g_total) and np.isfinite(h_total)):
-                raise FloatingPointError(
+                msg = (
                     f"non-finite gradient/hessian totals at boosting round "
                     f"{r} (G_total={g_total}, H_total={h_total}): the raw "
                     "predictions have overflowed or the inputs carry "
@@ -529,7 +565,12 @@ class _BaseGradientBoosting(EstimatorBase):
                     "targets/sample_weight, or enable early_stopping — "
                     "refusing to fit garbage rounds"
                 )
-            stats["loss_seconds"] += clock.lap()
+                obs.event("nonfinite_grad", msg)
+                # the record outlives the raise: the typed event with it
+                self.fit_report_ = obs.report(trees=trees)
+                raise FloatingPointError(msg)
+            loss_s += clock.lap()
+            build_s = refit_s = 0.0
             for k in range(K):
                 def round_build(binned_r=binned_r, packed_r=packed_r,
                                 g32=np.ascontiguousarray(g[:, k], np.float32),
@@ -537,15 +578,16 @@ class _BaseGradientBoosting(EstimatorBase):
                                 xs=None if kept is not None else x_shards):
                     out = build_tree(
                         binned_r, g32, config=cfg, sample_weight=h32,
-                        packed=packed_r, return_leaf_ids=True, stats=stats,
+                        packed=packed_r, return_leaf_ids=True, timer=obs,
                         mesh=mesh, x_shards=xs, snapshot_slot=slot)
                     sync(device)
                     return out
 
-                tree, leaf_ids = retry_device(
-                    round_build, what=f"gbdt round {r} tree build",
-                    obs=stats, resume=slot)
-                stats["build_seconds"] += clock.lap()
+                with observing(obs):
+                    tree, leaf_ids = retry_device(
+                        round_build, what=f"gbdt round {r} tree build",
+                        obs=obs, resume=slot)
+                build_s += clock.lap()
                 if kept is not None:
                     # back to the full matrix's feature ids
                     interior = tree.feature >= 0
@@ -556,7 +598,7 @@ class _BaseGradientBoosting(EstimatorBase):
                 if X_val is not None:
                     raw_val[:, k] += lr * vals[_host_leaf_ids(tree, X_val)]
                 trees.append(tree)
-                stats["refit_seconds"] += clock.lap()
+                refit_s += clock.lap()
             n_iter = r + 1
             train_scores.append(-loss.loss(raw_tr, y_tr, sw_tr))
             if self.verbose and (r % 10 == 0 or r + 1 == int(self.max_iter)):
@@ -581,31 +623,56 @@ class _BaseGradientBoosting(EstimatorBase):
                         val_scores=np.asarray(val_scores, np.float64),
                         best_val=np.float64(best_val),
                         stale=np.int64(stale))
-                ck.append(trees[len(ck.trees):], state)
-                ck.maybe_compact(self.checkpoint_compact_every, stats)
-            stats["loss_seconds"] += clock.lap()
+                with obs.span("checkpoint_flush"):
+                    ck.append(trees[len(ck.trees):], state)
+                    ck.maybe_compact(self.checkpoint_compact_every, obs)
+            loss_s += clock.lap()
+            timed = obs.enabled
+            obs.round(
+                round=r, trees=K, subsample=subsample, colsample=colsample,
+                train_loss=float(-train_scores[-1]),
+                val_loss=(float(-val_scores[-1]) if val_scores is not None
+                          else None),
+                stale=int(stale) if val_scores is not None else None,
+                early_stop=stopped_early,
+                seconds=(round(loss_s + build_s + refit_s, 6) if timed
+                         else None),
+                # the port's split of the round's seconds (timed fits)
+                loss_seconds=round(loss_s, 6) if timed else None,
+                build_seconds=round(build_s, 6) if timed else None,
+                refit_seconds=round(refit_s, 6) if timed else None)
+            loss_s = 0.0
             if stopped_early:
                 break
         if ck is not None:
             ck.done()
-        stats["n_rounds"] = n_iter
-        stats["early_stop"] = stopped_early
-        if mesh is not None:
-            stats.update(n_shards=mesh.size, **mesh.stats)
+        obs.decision(
+            "early_stop", stopped_early,
+            reason=(
+                f"held-out loss stale for {stale} rounds "
+                f"(n_iter_no_change={self.n_iter_no_change})"
+                if stopped_early else
+                "ran the full max_iter budget" if val_scores is not None
+                else "early_stopping disabled"
+            ),
+            n_iter=int(n_iter),
+        )
         self.trees_ = TreeList(trees)
         self.n_iter_ = n_iter
         self.train_score_ = np.asarray(train_scores)
         self.validation_score_ = (np.asarray(val_scores)
                                   if val_scores is not None else None)
         self._loss_obj = loss
-        self.fit_stats_ = stats
+        finish_report(self, obs, trees=self.trees_)
         if streamed:
             res.close()  # the spill store, if the ingest opened one
         return self
 
-    def _open_checkpoint(self, task, X, binned, y, sample_weight):
+    def _open_checkpoint(self, task, X, binned, y, sample_weight,
+                         obs=None):
         """The fit's :class:`BoostCheckpoint` (``:411-445``), or None
-        when ``checkpoint`` is unset or, with a warning, when the
+        when ``checkpoint`` is unset or, with a warning and a
+        ``checkpoint_disabled`` event in ``obs``, when the
         ``random_state`` would not replay the masks. Its fingerprint
         covers every parameter but ``checkpoint``, ``checkpoint_every``
         and ``device``, the task, and the validated raw rows (or a
@@ -614,7 +681,8 @@ class _BaseGradientBoosting(EstimatorBase):
             return None
         if isinstance(self.random_state,
                       (np.random.Generator, np.random.RandomState)):
-            warnings.warn(
+            warn_event(
+                obs, "checkpoint_disabled",
                 "boosting checkpointing requires a reproducible "
                 "random_state (None or a fixed integer) so a resumed "
                 "fit replays the same subsample/validation draws; "
@@ -710,9 +778,10 @@ class GradientBoostingRegressor(RegressorBase, _BaseGradientBoosting):
             checkpoint_compact_every=checkpoint_compact_every, device=device,
         )
 
-    def fit(self, X=None, y=None, sample_weight=None, *, dataset=None):
+    def fit(self, X=None, y=None, sample_weight=None, *, trace_to=None,
+            dataset=None):
         return self._fit(X, y, sample_weight, task="regression",
-                         dataset=dataset)
+                         dataset=dataset, trace_to=trace_to)
 
     def predict(self, X):
         return self._raw_predict(X)[:, 0]
@@ -762,9 +831,10 @@ class GradientBoostingClassifier(ClassifierBase, _BaseGradientBoosting):
             checkpoint_compact_every=checkpoint_compact_every, device=device,
         )
 
-    def fit(self, X=None, y=None, sample_weight=None, *, dataset=None):
+    def fit(self, X=None, y=None, sample_weight=None, *, trace_to=None,
+            dataset=None):
         return self._fit(X, y, sample_weight, task="classification",
-                         dataset=dataset)
+                         dataset=dataset, trace_to=trace_to)
 
     def decision_function(self, X):
         raw = self._raw_predict(X)

@@ -8,13 +8,15 @@ parse rule and choices. Registered so far: the serving tier's knobs
 exemplar ring), the forests' ``MPITREE_TPU_FOREST_HBM_BUDGET`` and the
 ladder's ``MPITREE_TPU_ELASTIC``, whose defaults alone differ (see their
 entries), the streaming ingest's five
-(host budget, sketch capacity, spill directory and cap, keyed bootstrap)
-and the resilience ladder's five (``ELASTIC``, ``RETRIES``,
-``BACKOFF_S``, ``LEVEL_RETRY``, ``CHAOS``; ``resilience/``).
+(host budget, sketch capacity, spill directory and cap, keyed bootstrap),
+the resilience ladder's five (``ELASTIC``, ``RETRIES``,
+``BACKOFF_S``, ``LEVEL_RETRY``, ``CHAOS``; ``resilience/``) and the
+build records' four (``PROFILE``, ``DEBUG``, ``TRACE_DIR``,
+``OBS_STREAM_DIR``; ``obs/``, ``utils/profiling.py``).
 The rest, and the README table generator,
-come with ``ROADMAP.md`` Queue 1 item 18; the port's other env reads
-(``core/builder.py``, ``boosting/fused_rounds.py``,
-``utils/profiling.py``) stay where they are until then.
+come with ``ROADMAP.md`` Queue 1 item 18c; the port's other env reads
+(``core/builder.py``, ``boosting/fused_rounds.py``) stay where they are
+until then.
 
 Two read paths:
 
@@ -113,6 +115,16 @@ KNOBS: tuple = (
          " keyed counter-based sampler streamed forests always use —"
          " the fingerprint twin of a streamed forest fit", parse=_one),
     # -- observability ----------------------------------------------------
+    Knob("MPITREE_TPU_PROFILE", "bool", False,
+         "per-phase timing spans + per-level rows (`fit_stats_`)",
+         parse=_flag),
+    Knob("MPITREE_TPU_DEBUG", "bool", False,
+         "on-device determinism assertions + debug checks", parse=_flag),
+    Knob("MPITREE_TPU_TRACE_DIR", "path", None,
+         "ambient Chrome-trace capture: every observer traces to a unique"
+         " file in this directory"),
+    Knob("MPITREE_TPU_OBS_STREAM_DIR", "path", None,
+         "spill directory for long-run level-row streaming"),
     Knob("MPITREE_TPU_METRICS_EXEMPLARS", "int", 0,
          "per-bucket exemplar reservoir size K for obs.metrics"
          " histograms (surfaced as `metrics_text()` comments; 0 = off,"

@@ -64,8 +64,18 @@ pair, rebuilding the larger as ``parent - small`` (``:1636-1655``). Both
 histogram routes subtract exactly, so it never changes a tree.
 
 A ``max_leaf_nodes`` budget sends :func:`build_tree` to the leaf-wise
-engines (``core/leafwise_builder.py``). Not here (see ``ROADMAP.md``
-item 18): the observability layer.
+engines (``core/leafwise_builder.py``).
+
+Observability (``mpitree_tpu_torch.obs``; the JAX package's sites): the
+``timer`` of :func:`build_tree` (a ``utils/profiling.PhaseTimer`` or an
+``obs.BuildObserver``) gets the ``engine`` and ``hist_subtraction``
+decisions and the mesh; the levelwise engine's spans ``shard`` (the
+inputs' placement), ``split`` (a level's histograms, sweeps and the
+decisions' copy), ``counts`` (a terminal level's sums) and ``update``
+(the reroute), one level row a level (timing-gated), the
+``level_dispatches``, ``rows_scanned`` and ``rows_frontier`` counters
+and each level's fingerprint row, hashed live from the host node buffer
+(``obs/fingerprint.level_fingerprint``). None of it reads the device.
 
 Resilience (``mpitree_tpu_torch.resilience``, the JAX package's
 ``:716-726``, ``:980-1001``, ``:1199-1207``, ``:1272-1289``): given a
@@ -78,8 +88,8 @@ histograms directly (the subtraction carry is dropped: subtraction never
 changes a tree). Its chaos seams: ``level`` (each level, reporting its
 depth), ``split_dispatch`` (each chunk's split search),
 ``counts_dispatch`` (a terminal level's sums) and ``update_dispatch``
-(each reroute table). ``stats["level_dispatches"]`` counts the levels
-run, re-runs included. The fused engine takes no snapshot, as in JAX.
+(each reroute table). The ``level_dispatches`` counter counts the
+levels run, re-runs included. The fused engine takes no snapshot, as in JAX.
 
 On a data mesh (``mesh=``, ``parallel/mesh.py``; the JAX package's
 ``shard_map`` over ``DATA_AXIS``) both engines keep the tree state, the
@@ -107,12 +117,14 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
+import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from mpitree_tpu_torch.core.tree_struct import TreeArrays
+from mpitree_tpu_torch.obs.fingerprint import level_fingerprint
 from mpitree_tpu_torch.ops import hist_kernel
 from mpitree_tpu_torch.ops.binning import BinnedData, StreamedBinnedData
 from mpitree_tpu_torch.ops.histogram import (
@@ -130,7 +142,7 @@ from mpitree_tpu_torch.utils.importances import (
     moment_node_impurity,
 )
 from mpitree_tpu_torch.utils.monotonic import BoundsStore
-from mpitree_tpu_torch.utils.profiling import assert_replicated
+from mpitree_tpu_torch.utils.profiling import PhaseTimer, assert_replicated
 
 TASKS = ("classification", "regression", "gbdt")
 
@@ -256,6 +268,11 @@ def _env_flag(name: str, choices: tuple) -> str:
 
 
 def resolve_engine(cfg: BuildConfig) -> str:
+    """``"fused"`` or ``"levelwise"`` (:func:`engine_decision`)."""
+    return engine_decision(cfg)[0]
+
+
+def engine_decision(cfg: BuildConfig) -> tuple:
     """``"fused"`` or ``"levelwise"``, as ``mpitree_tpu/core/builder.py``
     resolves it (``:808-990``, without the advisor and the leaf-wise
     reroute) and ``mpitree_tpu/core/leafwise_builder.py:527-545`` for a
@@ -263,20 +280,28 @@ def resolve_engine(cfg: BuildConfig) -> str:
     ``MPITREE_TPU_ENGINE`` steers ``"auto"``, and ``"auto"`` is fused. A
     level-by-level ``task="gbdt"`` build runs levelwise, and asking for
     the fused engine there raises; the leaf-wise engines take every
-    task."""
+    task. Returns ``(engine, reason)``, the reason the record keeps."""
     engine = cfg.engine
     if engine not in ENGINES:
         raise ValueError(f"unknown build engine {engine!r}")
-    if engine == "auto":
+    if engine != "auto":
+        reason = f"explicit BuildConfig(engine={engine!r})"
+    else:
         engine = _env_flag(ENGINE_ENV, ENGINES)
+        reason = (f"{ENGINE_ENV}={engine}" if engine != "auto" else
+                  "auto: the fused engine keeps the tree on the device "
+                  "and reads one frontier size a level (chip_smoke.py "
+                  "phase 24 measured it against the levelwise engine)")
     if cfg.task == "gbdt" and cfg.max_leaf_nodes is None:
         if cfg.engine == "fused":
             raise ValueError(
                 "the fused engine does not implement task='gbdt'; use "
                 "engine='auto' or 'levelwise'"
             )
-        return "levelwise"
-    return "levelwise" if engine == "levelwise" else "fused"
+        return "levelwise", (
+            "task='gbdt': Newton rounds run the levelwise engine only "
+            "(the boosting outer loop is host-sequential per round)")
+    return ("levelwise" if engine == "levelwise" else "fused"), reason
 
 
 def resolve_hist_subtraction(cfg: BuildConfig, device: torch.device) -> bool:
@@ -379,7 +404,7 @@ class FrontierHistograms:
                 scale_exp=fit.scale_exp, slot=key - c * a)
             for sh, key, order, seg in zip(fit.shards, self.keys,
                                            self.orders, self.segs)],
-            fit.mesh)
+            fit.mesh, site="split_hist_psum")
         if self.carry is not None:
             sl = slice(c * S, (c + 1) * S)
             h = sibling_reconstruct(h, self.carry.hist, self.pslot[sl],
@@ -900,7 +925,7 @@ def build_tree(binned: BinnedData, y: np.ndarray, *, config: BuildConfig,
                feature_sampler=None,
                feature_mask: np.ndarray | None = None,
                mono_cst: np.ndarray | None = None,
-               stats: dict | None = None, mesh=None, x_shards=None,
+               timer=None, mesh=None, x_shards=None,
                snapshot_slot=None):
     """Grow one tree on the device that holds ``binned.x_binned``, or on
     the data ``mesh`` (``parallel/mesh.Mesh``) whose lead shard holds it;
@@ -929,7 +954,9 @@ def build_tree(binned: BinnedData, y: np.ndarray, *, config: BuildConfig,
     A ``cfg.max_leaf_nodes`` budget (at least 2) grows the tree best-first
     instead (``core/leafwise_builder.build_tree_leafwise``, the dispatch of
     ``mpitree_tpu/core/builder.py:757-780``), which records its engine,
-    frontier and expansions in ``stats``.
+    frontier and expansions. ``timer`` (a ``utils/profiling.PhaseTimer``
+    or an ``obs.BuildObserver``) receives the build's spans, decisions,
+    counters, level rows and fingerprints (the module docstring).
 
     On a ``mesh`` the rows shard over its shards and processes
     (``FitInputs``; ``x_shards``, :func:`shard_matrix` of ``binned`` on
@@ -948,6 +975,7 @@ def build_tree(binned: BinnedData, y: np.ndarray, *, config: BuildConfig,
     """
     cfg = config
     check_task(cfg)
+    timer = timer if timer is not None else PhaseTimer(enabled=False)
     if cfg.max_leaf_nodes is not None:
         if int(cfg.max_leaf_nodes) < 2:
             raise ValueError(
@@ -962,7 +990,7 @@ def build_tree(binned: BinnedData, y: np.ndarray, *, config: BuildConfig,
             sample_weight=sample_weight, packed=packed,
             return_leaf_ids=return_leaf_ids, refit_targets=refit_targets,
             feature_sampler=feature_sampler, feature_mask=feature_mask,
-            mono_cst=mono_cst, stats=stats, mesh=mesh, x_shards=x_shards,
+            mono_cst=mono_cst, timer=timer, mesh=mesh, x_shards=x_shards,
             snapshot_slot=snapshot_slot)
     if mesh is not None:
         from mpitree_tpu_torch.parallel.mesh import feature_shards
@@ -981,20 +1009,127 @@ def build_tree(binned: BinnedData, y: np.ndarray, *, config: BuildConfig,
               packed=packed, return_leaf_ids=return_leaf_ids,
               refit_targets=refit_targets, feature_sampler=feature_sampler,
               feature_mask=feature_mask, mono_cst=mono_cst, mesh=mesh,
-              x_shards=x_shards)
-    if resolve_engine(cfg) == "fused":
+              x_shards=x_shards, timer=timer)
+    engine, reason = engine_decision(cfg)
+    timer.decision(
+        "engine", engine, reason=reason, rows=int(binned.n_samples),
+        features=int(binned.n_features), bins=int(binned.n_bins),
+        max_depth=cfg.max_depth, task=cfg.task, debug=bool(cfg.debug))
+    if engine == "fused":
         from mpitree_tpu_torch.core.fused_builder import build_tree_fused
 
         return build_tree_fused(binned, y, **kw)
-    return _build_levelwise(binned, y, stats=stats,
-                            snapshot_slot=snapshot_slot, **kw)
+    return _build_levelwise(binned, y, snapshot_slot=snapshot_slot, **kw)
+
+
+def note_subtraction(timer, use_sub: bool, *, leafwise: bool = False) -> None:
+    """The ``hist_subtraction`` decision, with the JAX package's
+    reasons (``:1096-1107``, the leaf-wise engine's pair form)."""
+    if use_sub:
+        reason = ("sibling-subtraction frontier: accumulate the smaller "
+                  "child, derive the larger as parent - small after the "
+                  "reduction")
+    else:
+        reason = (("direct pair accumulation" if leafwise else
+                   "direct accumulation")
+                  + " (resolve_hist_subtraction: config/env off, or "
+                  "'auto' off on this device type)")
+    timer.decision("hist_subtraction", "on" if use_sub else "off",
+                   reason=reason)
+
+
+def level_bytes(fit, S: int, n_chunks: int, *, sub: bool, terminal: bool,
+                regression: bool) -> tuple:
+    """``(hist_bytes, psum_bytes)`` of one level's reductions as the
+    record's level row counts them: the (S, F, C, B) histogram chunks
+    (half-width under sibling subtraction) and regression's y range, or
+    a terminal level's sums."""
+    item = 8 if fit.fixed else 4
+    if terminal:
+        b = n_chunks * collective.counts_psum_bytes(
+            n_slots=fit.K, n_channels=fit.C, itemsize=8)
+        return 0, b
+    h = n_chunks * collective.split_psum_bytes(
+        n_slots=S // 2 if sub else S, n_features=fit.F, n_bins=fit.B,
+        n_channels=fit.C, itemsize=item)
+    return h, h + (n_chunks * 2 * S * 4 if regression else 0)
+
+
+def _reroute_level(fit, nids: list, dec: dict, stop, lefts, rights,
+                   frontier_lo: int, hi: int, U: int, to_dev) -> list:
+    """The levelwise engine's reroute: one full-row pass per U-slot
+    table of the level's splits (normally one); returns the new ids."""
+    frontier_size = hi - frontier_lo
+    is_split_full = ~stop
+    lr = np.zeros(frontier_size, np.int32)
+    rr = np.zeros(frontier_size, np.int32)
+    lr[is_split_full] = lefts
+    rr[is_split_full] = rights
+    for lo in range(frontier_lo, hi, U):
+        take = min(U, hi - lo)
+        sl = slice(lo - frontier_lo, lo - frontier_lo + take)
+        if not is_split_full[sl].any():
+            continue
+        is_split = np.zeros(U, bool)
+        feat_t = np.zeros(U, np.int64)
+        bin_t = np.zeros(U, np.int32)
+        left_t = np.zeros(U, np.int32)
+        right_t = np.zeros(U, np.int32)
+        is_split[:take] = is_split_full[sl]
+        feat_t[:take] = np.where(is_split_full[sl], dec["feature"][sl], 0)
+        bin_t[:take] = np.where(is_split_full[sl], dec["bin"][sl], 0)
+        left_t[:take] = lr[sl]
+        right_t[:take] = rr[sl]
+        chaos.step("update_dispatch")
+        nids = fit.reroute(
+            nids, lo, to_dev(is_split), to_dev(feat_t),
+            to_dev(bin_t), to_dev(left_t), to_dev(right_t),
+        )
+    return nids
+
+
+def split_level(fit, cfg: BuildConfig, nids: list, frontier_lo: int,
+                frontier_size: int, S: int, carry_in, keep: bool,
+                depth: int, sample_args, mono_args, mono: bool) -> dict:
+    """One non-terminal level of the levelwise engine: its histograms
+    (``level_histograms``), every chunk's sweep and the decisions' one
+    copy to the host, unpacked (``collective.unpack_decision``); the
+    level's histograms ride along under ``"_level"``."""
+    regression = cfg.task == "regression"
+    hi = frontier_lo + frontier_size
+    level = level_histograms(fit, nids, frontier_lo, frontier_size, S,
+                             carry=carry_in, keep=keep)
+
+    def split_chunk(c, lo):
+        chaos.step("split_dispatch")
+        return fit.sweep(
+            level.chunk(c), lo, criterion=cfg.criterion,
+            min_child_weight=cfg.min_child_weight, task=cfg.task,
+            reg_lambda=cfg.reg_lambda,
+            min_leaf_rows=cfg.min_leaf_rows,
+            yr=fit.y_range(nids, lo, S) if regression else None,
+            **sample_args(lo, min(S, hi - lo), S),
+            **mono_args(lo, min(S, hi - lo), S),
+        )[: min(S, hi - lo)]
+
+    decisions = torch.cat([
+        split_chunk(c, lo)
+        for c, lo in enumerate(range(frontier_lo, hi, S))
+    ])
+    if cfg.debug:
+        assert_replicated(decisions, fit.mesh, what=f"depth {depth}")
+    dec = collective.unpack_decision(
+        decisions.cpu().numpy(), n_counts=fit.C, y_range=regression,
+        mono=mono)
+    dec["_level"] = level
+    return dec
 
 
 def _build_levelwise(binned: BinnedData, y: np.ndarray, *,
                      config: BuildConfig, n_classes, sample_weight, packed,
                      return_leaf_ids, refit_targets, feature_sampler,
-                     feature_mask, mono_cst, mesh=None, x_shards=None,
-                     stats=None, snapshot_slot=None):
+                     feature_mask, mono_cst, timer, mesh=None,
+                     x_shards=None, snapshot_slot=None):
     """The levelwise engine: one host round trip a level; snapshots its
     carry into ``snapshot_slot`` at every level and resumes from a
     pending one (module docstring)."""
@@ -1006,11 +1141,13 @@ def _build_levelwise(binned: BinnedData, y: np.ndarray, *,
     sampling = feature_sampler is not None and feature_sampler.active
     mono = mono_cst is not None and bool(np.any(np.asarray(mono_cst) != 0))
     if resume is None:
-        fit = FitInputs(binned, y, cfg, n_classes=n_classes,
-                        sample_weight=sample_weight, packed=packed,
-                        feature_mask=feature_mask, mesh=mesh,
-                        x_shards=x_shards)
+        with timer.phase("shard"):
+            fit = FitInputs(binned, y, cfg, n_classes=n_classes,
+                            sample_weight=sample_weight, packed=packed,
+                            feature_mask=feature_mask, mesh=mesh,
+                            x_shards=x_shards)
         nids = fit.root_nids()
+        fp_rows = []
         keys = feature_sampler.key_store() if sampling else None
         bounds = BoundsStore() if mono else None
         tree = new_tree_buffer(cfg.task, fit.C, sample_weight)
@@ -1025,13 +1162,16 @@ def _build_levelwise(binned: BinnedData, y: np.ndarray, *,
         tree = resume["tree"]
         tree.n = resume["tree_n"]
         frontier_lo, frontier_size, depth = resume["frontier"]
+        fp_rows = list(resume["fp"])
     dev, N, F, C = fit.dev, fit.N, fit.F, fit.C
     fixed, scale_exp, U = fit.fixed, fit.scale_exp, fit.U
     if mono:
         cst32 = np.ascontiguousarray(mono_cst, np.int32)
         cst_d = torch.from_numpy(cst32).to(dev)
     use_sub = resolve_hist_subtraction(cfg, dev)
-    carry = None
+    timer.set_mesh(mesh, device=dev)
+    note_subtraction(timer, use_sub)
+    carry = small_host = None
 
     def to_dev(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(dev)
@@ -1064,44 +1204,36 @@ def _build_levelwise(binned: BinnedData, y: np.ndarray, *,
         if lr_on:
             snapshot_slot.save("level", depth, dict(
                 fit=fit, nids=nids, keys=keys, bounds=bounds, tree=tree,
-                tree_n=tree.n, frontier=(frontier_lo, frontier_size, depth)))
-        if stats is not None:
-            stats["level_dispatches"] = stats.get("level_dispatches", 0) + 1
+                tree_n=tree.n, frontier=(frontier_lo, frontier_size, depth),
+                fp=list(fp_rows)))
+        timer.counter("level_dispatches")
+        t_level = time.perf_counter() if timer.enabled else 0.0
         chaos.step("level", level=depth)
         terminal = cfg.max_depth is not None and depth == cfg.max_depth
         hi = frontier_lo + frontier_size
         carry_in, carry = carry, None
+        small_in, small_host = small_host, None
         if terminal:
             chaos.step("counts_dispatch")
-            dec = {"counts": fit.node_sums(nids, frontier_lo, hi).cpu().numpy()}
+            with timer.phase("counts"):
+                dec = {"counts": fit.node_sums(nids, frontier_lo,
+                                               hi).cpu().numpy()}
+            hist_b, psum_b = level_bytes(
+                fit, fit.K, -(-frontier_size // fit.K), sub=False,
+                terminal=True, regression=regression)
         else:
             S = fit.width(frontier_size)
             n_chunks = -(-frontier_size // S)
             keep = keep_level(fit, cfg, use_sub, S, n_chunks)
-            level = level_histograms(fit, nids, frontier_lo, frontier_size,
-                                     S, carry=carry_in, keep=keep)
-
-            def split_chunk(c, lo):
-                chaos.step("split_dispatch")
-                return fit.sweep(
-                    level.chunk(c), lo, criterion=cfg.criterion,
-                    min_child_weight=cfg.min_child_weight, task=cfg.task,
-                    reg_lambda=cfg.reg_lambda,
-                    min_leaf_rows=cfg.min_leaf_rows,
-                    yr=fit.y_range(nids, lo, S) if regression else None,
-                    **sample_args(lo, min(S, hi - lo), S),
-                    **mono_args(lo, min(S, hi - lo), S),
-                )[: min(S, hi - lo)]
-
-            decisions = torch.cat([
-                split_chunk(c, lo)
-                for c, lo in enumerate(range(frontier_lo, hi, S))
-            ])
-            if cfg.debug:
-                assert_replicated(decisions, fit.mesh, what=f"depth {depth}")
-            dec = collective.unpack_decision(
-                decisions.cpu().numpy(), n_counts=C, y_range=regression,
-                mono=mono)
+            hist_b, psum_b = level_bytes(fit, S, n_chunks,
+                                         sub=carry_in is not None,
+                                         terminal=False,
+                                         regression=regression)
+            with timer.phase("split"):
+                dec = split_level(fit, cfg, nids, frontier_lo,
+                                  frontier_size, S, carry_in, keep, depth,
+                                  sample_args, mono_args, mono)
+            level = dec.pop("_level")
 
         ids = frontier_lo + np.arange(frontier_size)
         # (frontier, C) class counts, integer-valued f32 from the integer
@@ -1190,35 +1322,40 @@ def _build_levelwise(binned: BinnedData, y: np.ndarray, *,
                 carry = child_carry(
                     level.kept, to_dev(dec["n_left"][~stop]),
                     to_dev(n[~stop]), to_dev(split_ids - frontier_lo))
+                # the same smaller-sibling flags on the host, for the
+                # record's rows_scanned (ties go left)
+                left_small = dec["n_left"][~stop] * 2.0 <= n[~stop]
+                small_host = np.empty(2 * len(split_ids), bool)
+                small_host[0::2] = left_small
+                small_host[1::2] = ~left_small
 
             # Reroute: one full-row pass per U-slot table (normally one).
-            is_split_full = ~stop
-            lr = np.zeros(frontier_size, np.int32)
-            rr = np.zeros(frontier_size, np.int32)
-            lr[is_split_full] = lefts
-            rr[is_split_full] = rights
-            for lo in range(frontier_lo, hi, U):
-                take = min(U, hi - lo)
-                sl = slice(lo - frontier_lo, lo - frontier_lo + take)
-                if not is_split_full[sl].any():
-                    continue
-                is_split = np.zeros(U, bool)
-                feat_t = np.zeros(U, np.int64)
-                bin_t = np.zeros(U, np.int32)
-                left_t = np.zeros(U, np.int32)
-                right_t = np.zeros(U, np.int32)
-                is_split[:take] = is_split_full[sl]
-                feat_t[:take] = np.where(is_split_full[sl],
-                                         dec["feature"][sl], 0)
-                bin_t[:take] = np.where(is_split_full[sl], dec["bin"][sl], 0)
-                left_t[:take] = lr[sl]
-                right_t[:take] = rr[sl]
-                chaos.step("update_dispatch")
-                nids = fit.reroute(
-                    nids, lo, to_dev(is_split), to_dev(feat_t),
-                    to_dev(bin_t), to_dev(left_t), to_dev(right_t),
-                )
+            with timer.phase("update"):
+                nids = _reroute_level(fit, nids, dec, stop, lefts, rights,
+                                      frontier_lo, hi, U, to_dev)
 
+        scanned = frontier_w = small_frac = None
+        if not terminal:
+            frontier_w = float(np.sum(n))
+            scanned = (float(np.sum(n[small_in])) if small_in is not None
+                       else frontier_w)
+            small_frac = round(scanned / frontier_w, 6) if frontier_w \
+                else None
+            timer.counter("rows_scanned", int(round(scanned)))
+            timer.counter("rows_frontier", int(round(frontier_w)))
+        timer.level(
+            level=depth, frontier=frontier_size, splits=len(split_ids),
+            hist_bytes=hist_b, psum_bytes=psum_b, rows_scanned=scanned,
+            small_child_fraction=small_frac,
+            seconds=(round(time.perf_counter() - t_level, 6)
+                     if timer.enabled else None),
+            new_lowerings=0)
+        if timer.wants_fingerprints:
+            # the level's nodes are decided: hash the node buffer's slices
+            # the replay re-slices from the finished tree
+            fp_rows.append(level_fingerprint(
+                depth, tree.n_node_samples[ids], tree.feature[ids],
+                tree.threshold[ids], tree.left[ids], tree.right[ids]))
         frontier_lo = hi
         frontier_size = 2 * len(split_ids)
         depth += 1
@@ -1228,6 +1365,8 @@ def _build_levelwise(binned: BinnedData, y: np.ndarray, *,
         # build (and the snapshot's device tensors are released)
         snapshot_slot.clear()
     out = tree.finalize()
+    if timer.wants_fingerprints:
+        timer.fingerprint_tree(fp_rows)
     leaf_ids = None
     if regression and refit_targets is not None:
         leaf_ids = fit.leaf_ids(nids)

@@ -69,10 +69,12 @@ from mpitree_tpu_torch.core.builder import (
     integer_weights,
     keep_level,
     level_histograms,
+    note_subtraction,
     refit_regression_values,
     resolve_hist_subtraction,
 )
 from mpitree_tpu_torch.core.tree_struct import TreeArrays
+from mpitree_tpu_torch.obs import accounting as obs_acct
 from mpitree_tpu_torch.ops import hist_kernel
 from mpitree_tpu_torch.ops.binning import StreamedBinnedData
 from mpitree_tpu_torch.ops.sampling import (
@@ -87,7 +89,7 @@ from mpitree_tpu_torch.utils.importances import (
     moment_node_impurity,
 )
 from mpitree_tpu_torch.utils.monotonic import child_bounds_dev
-from mpitree_tpu_torch.utils.profiling import assert_replicated
+from mpitree_tpu_torch.utils.profiling import PhaseTimer, assert_replicated
 
 # One per level of every fused build: the host's reads of the frontier
 # size, the engine's only device-to-host copies before its results.
@@ -373,7 +375,7 @@ def build_tree_fused(binned, y: np.ndarray, *, config: BuildConfig,
                      feature_sampler=None,
                      feature_mask: np.ndarray | None = None,
                      mono_cst: np.ndarray | None = None, mesh=None,
-                     x_shards=None):
+                     x_shards=None, timer=None):
     """``core/builder.build_tree``'s contract on the fused engine
     (``mpitree_tpu/core/fused_builder.py:862``): the same tree as the
     levelwise engine, with one frontier-size read a level. With
@@ -381,18 +383,35 @@ def build_tree_fused(binned, y: np.ndarray, *, config: BuildConfig,
     On a data ``mesh`` (``_make_fused_fn`` with ``psum_axis=DATA_AXIS``,
     ``:699-756``) the tree state stays on the lead shard and the rows'
     node ids on their shards; still one frontier read a level in each
-    process."""
+    process.
+
+    ``timer`` (``core/builder.build_tree``'s) gets the JAX package's
+    record of a fused build (``:933-1022``): the spans ``shard``,
+    ``fused_build`` and ``host_finalize``, the ``fused_builds`` counter,
+    and, replayed from the finished tree (``obs/accounting``), the level
+    rows, ``rows_scanned``/``rows_frontier`` and the fingerprint rows;
+    nothing of it is read inside the level loop."""
     cfg = config
     _check_fused(cfg)
-    fit = FitInputs(binned, y, cfg, n_classes=n_classes,
-                    sample_weight=sample_weight, packed=packed,
-                    feature_mask=feature_mask, mesh=mesh, x_shards=x_shards)
-    g = _grow(fit, cfg, use_sub=resolve_hist_subtraction(cfg, fit.dev),
-              sampler=feature_sampler, mono_cst=mono_cst)
-    tree = _finalize_tree(binned, cfg.task, cfg.criterion, g.n_nodes,
-                          g.ints.cpu().numpy(), g.counts.cpu().numpy(),
-                          _level_depths(g.levels, g.n_nodes),
-                          _count_dtype(cfg.task, sample_weight))
+    timer = timer if timer is not None else PhaseTimer(enabled=False)
+    with timer.phase("shard"):
+        fit = FitInputs(binned, y, cfg, n_classes=n_classes,
+                        sample_weight=sample_weight, packed=packed,
+                        feature_mask=feature_mask, mesh=mesh,
+                        x_shards=x_shards)
+    use_sub = resolve_hist_subtraction(cfg, fit.dev)
+    timer.set_mesh(mesh, device=fit.dev)
+    note_subtraction(timer, use_sub)
+    with timer.phase("fused_build"):
+        g = _grow(fit, cfg, use_sub=use_sub, sampler=feature_sampler,
+                  mono_cst=mono_cst)
+    with timer.phase("host_finalize"):
+        tree = _finalize_tree(binned, cfg.task, cfg.criterion, g.n_nodes,
+                              g.ints.cpu().numpy(), g.counts.cpu().numpy(),
+                              _level_depths(g.levels, g.n_nodes),
+                              _count_dtype(cfg.task, sample_weight))
+    timer.counter("fused_builds")
+    replay_record(timer, tree, fit, cfg, use_sub)
     leaf_ids = None
     if cfg.task == "regression" and refit_targets is not None:
         leaf_ids = fit.leaf_ids(g.nids)
@@ -403,6 +422,25 @@ def build_tree_fused(binned, y: np.ndarray, *, config: BuildConfig,
     if return_leaf_ids:
         return tree, fit.leaf_ids(g.nids) if leaf_ids is None else leaf_ids
     return tree
+
+
+def replay_record(timer, tree: TreeArrays, fit: FitInputs, cfg: BuildConfig,
+                  use_sub: bool) -> None:
+    """A fused build's level rows, scan counters and fingerprint rows,
+    replayed from its finished ``tree`` (``obs/accounting.
+    fused_scan_rows``, ``replay_fingerprints``) into ``timer``."""
+    rows, _, counters = obs_acct.fused_scan_rows(
+        tree, n_slots=fit.K, tiers=tuple(fit.tiers), n_features=fit.F,
+        n_bins=fit.B, n_channels=fit.C, counts_channels=fit.C,
+        max_depth=-1 if cfg.max_depth is None else int(cfg.max_depth),
+        task=cfg.task, n_rows=fit.N, subtraction=use_sub,
+        itemsize=8 if fit.fixed else 4)
+    for name, v in counters.items():
+        timer.counter(name, v)
+    for r in rows:
+        timer.level(**r)
+    if timer.wants_fingerprints:
+        timer.fingerprint_tree(obs_acct.replay_fingerprints(tree))
 
 
 def _forest_routes(task: str, y_d: torch.Tensor, ws: torch.Tensor,
@@ -445,7 +483,7 @@ def build_forest_fused(binned, y: np.ndarray, *, config: BuildConfig,
                        min_decrease_scaleds: np.ndarray | None = None,
                        samplers: list | None = None,
                        mono_cst: np.ndarray | None = None, mesh=None,
-                       stats: dict | None = None) -> list:
+                       timer=None) -> list:
     """T trees in sequence in one call (``mpitree_tpu/core/
     fused_builder.py:1094``): ``weights`` (T, N) each tree's composed
     bootstrap x user weights, ``cand_masks`` (T, F, B) each tree's
@@ -472,21 +510,28 @@ def build_forest_fused(binned, y: np.ndarray, *, config: BuildConfig,
     shards and, for rows another process placed, only those rows
     (``ingest/place.regroup_matrix``, counted under ``exchange``): where
     the forest's data axis is the ingest's, nothing crosses a process,
-    and no device holds more than its group's blocks. ``stats`` receives
-    ``forest_mesh`` (the ``(tree, data)`` shape)."""
+    and no device holds more than its group's blocks. ``timer`` gets the
+    JAX package's record of a batched forest (``:1187-1380``): the
+    ``(tree, data)`` mesh, the ``hist_subtraction`` decision, the spans
+    ``shard``, ``forest_build`` and ``host_finalize``, the
+    ``forest_fused_builds`` and ``trees_built`` counters and every
+    tree's fingerprint rows, replayed from the finished trees."""
     cfg = config
     _check_fused(cfg)
+    timer = timer if timer is not None else PhaseTimer(enabled=False)
     T = weights.shape[0]
     task = cfg.task
     dev = (mesh.lead if isinstance(binned, StreamedBinnedData)
            else binned.x_binned.device)
-    ws = torch.as_tensor(np.asarray(weights, np.float32), device=dev)
-    cms = torch.as_tensor(np.asarray(cand_masks, bool), device=dev)
-    y_d = torch.as_tensor(
-        np.asarray(y, np.int64 if task == "classification" else np.float32),
-        device=dev)
-    routes = _forest_routes(task, y_d, ws, n_classes)
+    with timer.phase("shard"):
+        ws = torch.as_tensor(np.asarray(weights, np.float32), device=dev)
+        cms = torch.as_tensor(np.asarray(cand_masks, bool), device=dev)
+        y_d = torch.as_tensor(
+            np.asarray(y, np.int64 if task == "classification"
+                       else np.float32), device=dev)
+        routes = _forest_routes(task, y_d, ws, n_classes)
     use_sub = resolve_hist_subtraction(cfg, dev)
+    note_subtraction(timer, use_sub)
     need_ids = return_leaf_ids or (task == "regression"
                                    and refit_targets is not None)
 
@@ -500,21 +545,28 @@ def build_forest_fused(binned, y: np.ndarray, *, config: BuildConfig,
     def sampler(t):
         return None if samplers is None else samplers[t]
 
-    parts, nids = _grow_sharded(
-        binned, y, Mesh([dev]) if mesh is None else mesh, T, routes=routes,
-        cms=cms, weights=weights, n_classes=n_classes, tree_cfg=tree_cfg,
-        sampler=sampler, use_sub=use_sub, mono_cst=mono_cst,
-        need_ids=need_ids, stats=stats)
+    with timer.phase("forest_build"):
+        parts, nids = _grow_sharded(
+            binned, y, Mesh([dev]) if mesh is None else mesh, T,
+            routes=routes, cms=cms, weights=weights, n_classes=n_classes,
+            tree_cfg=tree_cfg, sampler=sampler, use_sub=use_sub,
+            mono_cst=mono_cst, need_ids=need_ids, timer=timer)
     trees = []
-    for t, (ints_t, counts_t, depth_t) in enumerate(parts):
-        tree = _finalize_tree(
-            binned, task, cfg.criterion, len(depth_t), ints_t, counts_t,
-            depth_t, _count_dtype(task, weights[t]))
-        if task == "regression" and refit_targets is not None:
-            refit_regression_values(tree, nids[t],
-                                    weights[t].astype(np.float64),
-                                    np.asarray(refit_targets, np.float64))
-        trees.append(tree)
+    with timer.phase("host_finalize"):
+        for t, (ints_t, counts_t, depth_t) in enumerate(parts):
+            tree = _finalize_tree(
+                binned, task, cfg.criterion, len(depth_t), ints_t, counts_t,
+                depth_t, _count_dtype(task, weights[t]))
+            if task == "regression" and refit_targets is not None:
+                refit_regression_values(
+                    tree, nids[t], weights[t].astype(np.float64),
+                    np.asarray(refit_targets, np.float64))
+            trees.append(tree)
+    timer.counter("forest_fused_builds")
+    timer.counter("trees_built", T)
+    if timer.wants_fingerprints:
+        for tree in trees:
+            timer.fingerprint_tree(obs_acct.replay_fingerprints(tree))
     if return_leaf_ids:
         return trees, nids
     return trees
@@ -531,7 +583,7 @@ def _level_depths(levels: list, n_nodes: int) -> np.ndarray:
 
 def _grow_sharded(binned, y, mesh, T: int, *, routes, cms, weights,
                   n_classes, tree_cfg, sampler, use_sub: bool, mono_cst,
-                  need_ids: bool, stats) -> tuple:
+                  need_ids: bool, timer) -> tuple:
     """The trees of :func:`build_forest_fused` on ``mesh``: the
     ``(tree, data)`` shape, then this process's tree groups in order (a
     group spanning processes runs in each of them), then the exchange.
@@ -543,9 +595,8 @@ def _grow_sharded(binned, y, mesh, T: int, *, routes, cms, weights,
     Dt, Dd = mesh_lib.tree_data_shape(
         mesh.size, T, dataset_bytes=4 * binned.n_samples * binned.n_features,
         hbm_budget=mesh_lib.forest_hbm_budget(mesh.lead))
-    if stats is not None:
-        stats["forest_mesh"] = [Dt, Dd]
     tmesh = mesh_lib.as_tree_data_mesh(mesh, (Dt, Dd))
+    timer.set_mesh(tmesh)
     per = -(-T // Dt)  # T_pad / Dt: each tree group's block
     regrouped = None
     if isinstance(binned, StreamedBinnedData):
@@ -603,7 +654,8 @@ def _exchange(mine: dict, mesh, T: int, n_rows: int,
         sizes[t] = counts.shape[0]
     head = torch.cat([sizes, torch.tensor([C], dtype=torch.int64,
                                           device=dev)])
-    head = collective.psum([head], mesh, "max", kind="tree_exchange").cpu()
+    head = collective.psum([head], mesh, "max", kind="tree_exchange",
+                           site="tree_exchange").cpu()
     sizes, C = head[:T].numpy(), int(head[T])
     stride = 5 + C
     offs = np.concatenate([[0], np.cumsum(sizes * stride)])
@@ -618,12 +670,14 @@ def _exchange(mine: dict, mesh, T: int, n_rows: int,
         if need_ids:
             ids[t] = leaf
     full = collective.psum([torch.from_numpy(buf).to(dev)], mesh,
-                           kind="tree_exchange")
+                           kind="tree_exchange",
+                           site="tree_exchange")
     assert_replicated(full, mesh, what="forest exchange")
     full = full.cpu().numpy()
     if need_ids:
         ids = collective.psum([torch.from_numpy(ids).to(dev)], mesh,
-                              kind="tree_exchange").cpu().numpy()
+                              kind="tree_exchange",
+                              site="tree_exchange").cpu().numpy()
     parts = []
     for t in range(T):
         n = int(sizes[t])

@@ -41,18 +41,22 @@ them its trees, are the device engine's bit for bit; the JAX package's
 float32 moment sums equal them wherever they are exact. A ``BoundsStore``
 carries the node bounds from level to level.
 
-Not here (``ROADMAP.md``): the build fingerprints and phase timer
-(item 18).
+``timer`` (a ``utils/profiling.PhaseTimer`` or ``obs.BuildObserver``)
+receives the JAX host tier's record (``:270-345,559-565``): the
+``host_builds`` counter, one level row a level (timing-gated) and the
+finished tree's fingerprint rows.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
 
 from mpitree_tpu_torch import native
+from mpitree_tpu_torch.obs.fingerprint import tree_fingerprints
 from mpitree_tpu_torch.core.builder import (
     check_task,
     integer_weights,
@@ -67,6 +71,7 @@ from mpitree_tpu_torch.utils.importances import (
     moment_node_impurity,
 )
 from mpitree_tpu_torch.utils.monotonic import BoundsStore
+from mpitree_tpu_torch.utils.profiling import PhaseTimer
 
 
 def _child_impurity_class(hist, criterion: str):
@@ -413,16 +418,18 @@ def build_tree_host(binned, y: np.ndarray, *, config,
                     refit_targets: np.ndarray | None = None,
                     feature_sampler=None,
                     feature_mask: np.ndarray | None = None,
-                    mono_cst: np.ndarray | None = None):
+                    mono_cst: np.ndarray | None = None, timer=None):
     """Grow one tree on the host; the contract of ``core.builder.build_tree``
     on a host ``BinnedData`` (numpy ``x_binned``): ``y`` class indices, or
     float32 centred targets with ``config.task == "regression"``, whose
     ``refit_targets`` (float64) give the exact leaf values. With
     ``return_leaf_ids`` returns ``(tree, leaf_ids)``, ``leaf_ids`` every
     row's final node as an (N,) int32 array. ``feature_sampler``,
-    ``feature_mask`` and ``mono_cst`` as in ``build_tree``."""
+    ``feature_mask``, ``mono_cst`` and ``timer`` as in ``build_tree``."""
     cfg = config
     check_task(cfg)
+    timer = timer if timer is not None else PhaseTimer(enabled=False)
+    timer.counter("host_builds")
     if feature_mask is not None:
         binned = dataclasses.replace(binned, n_cand=np.where(
             np.asarray(feature_mask, bool), binned.n_cand, 0).astype(
@@ -453,7 +460,17 @@ def build_tree_host(binned, y: np.ndarray, *, config,
 
     nid = np.zeros(N, np.int32)
     frontier_lo, frontier_size, depth = 0, 1, 0
+    def note_level(d, S, splits, t0):
+        timer.level(
+            level=d, frontier=int(S), splits=int(splits), hist_bytes=0,
+            psum_bytes=0,
+            seconds=(round(time.perf_counter() - t0, 6)
+                     if timer.enabled else None),
+            new_lowerings=0,
+        )
+
     while frontier_size > 0:
+        t_level = time.perf_counter() if timer.enabled else 0.0
         S = frontier_size
         terminal = cfg.max_depth is not None and depth == cfg.max_depth
         slot = nid - frontier_lo  # rows are in the frontier or parked (< 0)
@@ -466,6 +483,7 @@ def build_tree_host(binned, y: np.ndarray, *, config,
             )
             _record_level(tree, ids, S, True, None, None, value, n, counts,
                           node_imp)
+            note_level(depth, S, 0, t_level)
             break
         nmask = keys.masks(frontier_lo, frontier_lo + S) if sampling \
             else None
@@ -497,6 +515,7 @@ def build_tree_host(binned, y: np.ndarray, *, config,
             slot, live, S, frontier_lo, depth,
         )
         split_ids = ids[~stop]
+        note_level(depth - 1, S, len(split_ids), t_level)
         if sampling and len(split_ids):
             keys.assign_children(split_ids, tree.left[split_ids],
                                  tree.right[split_ids], tree.n)
@@ -512,4 +531,6 @@ def build_tree_host(binned, y: np.ndarray, *, config,
     if regression and refit_targets is not None:
         refit_regression_values(out, nid, w,
                                 np.asarray(refit_targets, np.float64))
+    if timer.wants_fingerprints:
+        timer.fingerprint_tree(tree_fingerprints(out))
     return (out, nid) if return_leaf_ids else out

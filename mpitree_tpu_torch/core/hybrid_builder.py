@@ -47,7 +47,10 @@ A streamed fit has no raw matrix: its ``X`` is a row provider
 stream once for the sorted union of its candidates' rows
 (:class:`_GatheredRows`), so it refines exactly as an in-memory fit does.
 
-Not here (``ROADMAP.md`` item 18): fingerprints.
+The tail runs in its observer's ``refine`` span and commits each refined
+subtree's fingerprint rows under the ``refine`` channel, its node ids in
+local rank order, as the JAX package's two tail engines do
+(``mpitree_tpu/core/hybrid_builder.py:336-353,580-590``).
 """
 
 from __future__ import annotations
@@ -70,7 +73,9 @@ from mpitree_tpu_torch.core.host_builder import (
     build_tree_host,
 )
 from mpitree_tpu_torch.core.tree_struct import TreeArrays
+from mpitree_tpu_torch.obs.fingerprint import subtree_fingerprints
 from mpitree_tpu_torch.ops.binning import bin_dataset
+from mpitree_tpu_torch.utils.profiling import PhaseTimer
 
 
 def _alloc_extended(top: TreeArrays, n_total: int) -> TreeArrays:
@@ -165,17 +170,19 @@ def _bin_per_root(Xr: np.ndarray, starts: np.ndarray, ends: np.ndarray):
 
 def _refine_batched(top: TreeArrays, X, y_enc, candidates, rows_per, *,
                     cfg_sub, max_depth_total, root_depth, n_classes,
-                    sample_weight, stats: dict,
+                    sample_weight, obs,
                     refit_targets=None, feature_mask=None,
                     feature_sampler=None, root_keys=None) -> TreeArrays:
     """Grow every deep subtree together in one multi-root host frontier.
 
     ``root_depth[i]`` is candidate ``i``'s depth in the crown: candidates
     need not share a depth, so each root has its own budget of
-    ``max_depth_total - root_depth[i]`` further levels. ``stats`` receives
-    the seconds of the exact per-root binning (``tail_bin_seconds``) and
-    of the C++ sweeps (``tail_sweep_seconds``). ``root_keys`` are the
-    candidates' sampling keys when ``feature_sampler`` is active.
+    ``max_depth_total - root_depth[i]`` further levels. ``obs`` (a
+    PhaseTimer) keeps the seconds of the exact per-root binning and of the
+    C++ sweeps beside its ``refine`` phase (``bin_seconds``,
+    ``sweep_seconds``) and each subtree's fingerprint rows. ``root_keys``
+    are the candidates' sampling keys when ``feature_sampler`` is
+    active.
     """
     R = len(candidates)
     sizes = np.array([len(r) for r in rows_per], np.int64)
@@ -189,7 +196,7 @@ def _refine_batched(top: TreeArrays, X, y_enc, candidates, rows_per, *,
     Xr = np.ascontiguousarray(X[rows_all], np.float32)
     xb, ncand, off, thr_flat = _bin_per_root(Xr, starts, ends)
     del Xr
-    stats["tail_bin_seconds"] = time.perf_counter() - t0
+    bin_s = time.perf_counter() - t0
     sweep_s = 0.0
     # sized before the subspace mask zeroes candidates: masked features'
     # bins still reach the sweep (JAX hybrid_builder.py:212-217)
@@ -289,12 +296,21 @@ def _refine_batched(top: TreeArrays, X, y_enc, candidates, rows_per, *,
                 keys.assign_children(split_ids, buf.left[split_ids],
                                      buf.right[split_ids], buf.n)
 
-    stats["tail_sweep_seconds"] = sweep_s
+    obs.add_phase("refine", bin_seconds=bin_s, sweep_seconds=sweep_s)
     bt = buf.finalize()
     if regression and refit_targets is not None:
         refit_regression_values(
             bt, nid, w_dense, np.asarray(refit_targets, np.float64)[rows_all]
         )
+    if obs.wants_fingerprints:
+        # each subtree's rows, its ids in local rank order: what the
+        # per-subtree engine commits for the same subtree
+        for r in range(R):
+            ids = np.flatnonzero(root_of == r)
+            if len(ids) > 1:
+                obs.fingerprint_tree(subtree_fingerprints(
+                    bt.depth, bt.n_node_samples, bt.feature, bt.threshold,
+                    bt.left, bt.right, ids=ids))
     return _graft_batched(top, bt, candidates, root_depth[root_of])
 
 
@@ -358,7 +374,7 @@ def refine_deep_subtrees(tree: TreeArrays, X: np.ndarray, y_enc: np.ndarray,
                          leaf_ids: np.ndarray, *, config, refine_depth: int,
                          n_classes: int | None = None,
                          sample_weight: np.ndarray | None = None,
-                         stats: dict | None = None,
+                         obs=None,
                          refit_targets: np.ndarray | None = None,
                          feature_mask: np.ndarray | None = None,
                          feature_sampler=None) -> TreeArrays:
@@ -370,8 +386,11 @@ def refine_deep_subtrees(tree: TreeArrays, X: np.ndarray, y_enc: np.ndarray,
     <= ``refine_depth`` with impurity > 0 and enough samples. Rows of
     weight 0 (a bootstrap's undrawn rows) stay with their leaf: they add to
     no count but their values are among its exact candidates, as in the
-    JAX package. ``stats`` (a dict) receives ``refine_candidates``,
-    ``refine_engine`` and, from the batched engine, its seconds. A
+    JAX package. ``obs`` (a PhaseTimer or ``obs.BuildObserver``) receives
+    the ``refine_candidates`` counter, the ``refine_tail`` decision, each
+    refined subtree's fingerprint rows (``obs/fingerprint.
+    subtree_fingerprints``, the JAX package's commits) and, from the
+    batched engine, its seconds. A
     regression tail (``config.task``) takes ``y_enc`` as the float32
     centred targets and ``refit_targets`` as the float64 ones.
     ``feature_mask`` (F,) bool keeps a forest tree's subspace;
@@ -411,9 +430,16 @@ def refine_deep_subtrees(tree: TreeArrays, X: np.ndarray, y_enc: np.ndarray,
         feature_sampler is not None and feature_sampler.random_split)
     root_keys = (feature_sampler.keys_for_tree(tree)[candidates]
                  if sampling else None)
-    stats = {} if stats is None else stats
-    stats["refine_candidates"] = len(candidates)
-    stats["refine_engine"] = "batched-native" if batched else "per-subtree"
+    obs = PhaseTimer(enabled=False) if obs is None else obs
+    obs.counter("refine_candidates", len(candidates))
+    obs.decision(
+        "refine_tail", "batched-native" if batched else "per-subtree",
+        reason=("C++ kernel available: all subtrees grow in one multi-root "
+                "frontier" if batched else
+                "no native kernel (or splitter='random'): per-subtree "
+                "host builds"),
+        refine_depth=int(refine_depth),
+    )
 
     if batched:
         return _refine_batched(
@@ -421,7 +447,7 @@ def refine_deep_subtrees(tree: TreeArrays, X: np.ndarray, y_enc: np.ndarray,
             [order[s:e] for s, e in zip(starts, ends)],
             cfg_sub=cfg, max_depth_total=cfg.max_depth,
             root_depth=tree.depth[candidates], n_classes=n_classes,
-            sample_weight=sample_weight, stats=stats,
+            sample_weight=sample_weight, obs=obs,
             refit_targets=refit_targets, feature_mask=feature_mask,
             feature_sampler=feature_sampler, root_keys=root_keys,
         )
@@ -453,23 +479,29 @@ def refine_deep_subtrees(tree: TreeArrays, X: np.ndarray, y_enc: np.ndarray,
             attach.append(int(leaf))
     if not subtrees:
         return tree
+    if obs.wants_fingerprints:
+        for st in subtrees:
+            obs.fingerprint_tree(subtree_fingerprints(
+                st.depth, st.n_node_samples, st.feature, st.threshold,
+                st.left, st.right))
     return _concat_trees(tree, subtrees, attach)
 
 
-def apply_refine(tree, leaf_ids, X, y, *, cfg, max_depth, rd,
-                 n_classes=None, sample_weight=None,
-                 stats: dict | None = None, refit_targets=None,
+def apply_refine(tree, leaf_ids, X, y, *, cfg, max_depth, rd, timer,
+                 n_classes=None, sample_weight=None, refit_targets=None,
                  feature_mask=None, feature_sampler=None):
     """The estimators' entry: the refine tail of a crown built with
     ``cfg`` (whose ``max_depth`` is the crown depth ``rd``) down to
-    ``max_depth``. ``stats`` also receives ``refine_nodes_added``."""
-    out = refine_deep_subtrees(
-        tree, X, y, leaf_ids,
-        config=dataclasses.replace(cfg, max_depth=max_depth),
-        refine_depth=rd, n_classes=n_classes, sample_weight=sample_weight,
-        stats=stats, refit_targets=refit_targets, feature_mask=feature_mask,
-        feature_sampler=feature_sampler,
-    )
-    if stats is not None:
-        stats["refine_nodes_added"] = int(out.n_nodes - tree.n_nodes)
+    ``max_depth``, in ``timer``'s ``refine`` span; ``timer`` also counts
+    ``refine_nodes_added`` (``mpitree_tpu/core/hybrid_builder.py:405``)."""
+    with timer.phase("refine"):
+        out = refine_deep_subtrees(
+            tree, X, y, leaf_ids,
+            config=dataclasses.replace(cfg, max_depth=max_depth),
+            refine_depth=rd, n_classes=n_classes,
+            sample_weight=sample_weight, obs=timer,
+            refit_targets=refit_targets, feature_mask=feature_mask,
+            feature_sampler=feature_sampler,
+        )
+    timer.counter("refine_nodes_added", int(out.n_nodes - tree.n_nodes))
     return out

@@ -43,7 +43,8 @@ with the JAX package's messages. On a data mesh (``_make_leafwise_fn``,
 ``:348-372``) both engines shard the rows and reduce every pair histogram
 over the mesh; the fused loop then launches each expansion eagerly
 (:func:`graph_choice`: a reduction synchronises and crosses processes,
-which no CUDA graph captures) and says so in ``fit_stats_``. A
+which no CUDA graph captures) and says so in the ``frontier`` decision's
+``graph``/``graph_reason``. A
 ``(data, feature)`` mesh raises, as in the JAX package.
 
 Resilience (``mpitree_tpu/core/leafwise_builder.py:450-455``, ``:617``,
@@ -54,14 +55,15 @@ replayed); the host-stepped engine saves its carry into the
 ``snapshot_slot`` at every expansion and resumes from a pending one, so
 a transient failure at expansion e re-runs expansions e and on only. Its
 seams are ``expansion`` (each step, reporting its 1-based ordinal) and
-``expand_dispatch`` (each pair dispatch); ``stats["expansion_dispatches"]``
-counts the steps run, re-runs included. Not here (``ROADMAP.md`` item
-18): the obs rows.
+``expand_dispatch`` (each pair dispatch); the ``expansion_dispatches``
+counter counts the steps run, re-runs included.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -70,8 +72,9 @@ import torch
 from mpitree_tpu_torch.core.builder import (
     BuildConfig,
     FitInputs,
+    engine_decision,
+    note_subtraction,
     refit_regression_values,
-    resolve_engine,
     resolve_hist_subtraction,
 )
 from mpitree_tpu_torch.core.fused_builder import (
@@ -80,12 +83,15 @@ from mpitree_tpu_torch.core.fused_builder import (
     _finalize_tree,
     _row_sum,
 )
+from mpitree_tpu_torch.obs import accounting as obs_acct
+from mpitree_tpu_torch.obs.observer import cold_event
 from mpitree_tpu_torch.ops import hist_kernel
 from mpitree_tpu_torch.ops import impurity as imp_ops
 from mpitree_tpu_torch.parallel import collective
 from mpitree_tpu_torch.resilience import chaos
 from mpitree_tpu_torch.resilience.recovery import resolve_level_retry
 from mpitree_tpu_torch.utils.importances import class_node_impurity
+from mpitree_tpu_torch.utils.profiling import PhaseTimer
 
 # Expansions between the fused engine's reads of its 1-byte "active" flag
 # (chip_smoke.py phase 25 measures it against the fixed trip count).
@@ -252,6 +258,10 @@ def _rows(fit: FitInputs) -> tuple:
     return [sh.xb for sh in fit.shards], [sh.payload for sh in fit.shards]
 
 
+# captures made in this process (a capture's key is never warm)
+_CAPTURES = itertools.count()
+
+
 def graph_choice(fit: FitInputs) -> tuple:
     """``(graph, reason)``: whether the fused loop replays one CUDA graph
     per expansion. Not on the CPU, and not on a mesh that reduces: a
@@ -291,8 +301,9 @@ class _LeafLoop:
     loop steps without a graph (:func:`graph_choice`, ``graph_reason``)."""
 
     def __init__(self, fit: FitInputs, cfg: BuildConfig, *, pool: int,
-                 use_sub: bool):
+                 use_sub: bool, entry: str = "cuda_graph:leafwise"):
         self.fit, self.cfg, self.use_sub = fit, cfg, use_sub
+        self.entry = entry  # the capture's name in the compile record
         self.Pn = Pn = int(pool)
         self.M = M = 2 * Pn - 1
         dev, C = fit.dev, fit.C
@@ -434,8 +445,13 @@ class _LeafLoop:
             self.expand()
             before = dict(hist_kernel.launches)
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                self.expand()
+            # every capture is a cold event: its static key, made unique
+            with cold_event(self.entry, (self.Pn, self.fit.F, self.fit.C,
+                                         self.fit.B, self.cfg.task,
+                                         self.use_sub, next(_CAPTURES)),
+                            churn=False):
+                with torch.cuda.graph(graph):
+                    self.expand()
             # a capture launches nothing: its counts move to the replays
             self.graph_launches = {k: hist_kernel.launches[k] - before[k]
                                    for k in before}
@@ -468,7 +484,7 @@ class _LeafLoop:
 def _build_leafwise_stepped(fit: FitInputs, cfg: BuildConfig, *, pool: int,
                             use_sub: bool, snapshot_slot=None,
                             resume: dict | None = None,
-                            stats: dict | None = None) -> tuple:
+                            timer=None) -> tuple:
     """The host-stepped engine (``_build_leafwise_stepped``, ``:692``):
     the pool on the host, one :func:`collective.expand_step` per expansion
     and one copy of its (2, ...) decisions; under subtraction each open
@@ -544,9 +560,8 @@ def _build_leafwise_stepped(fit: FitInputs, cfg: BuildConfig, *, pool: int,
                 bufs=(feat, bins, left, parent, depth, counts, nvec),
                 pool=(pool_gain, pool_node, pool_feat, pool_bin, pool_nl,
                       pool_hist)))
-        if stats is not None:
-            stats["expansion_dispatches"] = stats.get(
-                "expansion_dispatches", 0) + 1
+        timer.counter("expansion_dispatches")
+        t_exp = time.perf_counter() if timer.enabled else 0.0
         chaos.step("expansion", level=n_leaves)
         p = imp_ops.best_leaf_slot_np(pool_gain, pool_node)
         enode = int(pool_node[p])
@@ -574,9 +589,40 @@ def _build_leafwise_stepped(fit: FitInputs, cfg: BuildConfig, *, pool: int,
         pool_nl[p], pool_nl[q] = dec[:, 6]
         if use_sub:
             pool_hist[p], pool_hist[q] = (keep, 0), (keep, 1)
+        timer.level(
+            level=d_child, frontier=2, splits=int(np.sum(gain2 > -np.inf)),
+            hist_bytes=collective.split_psum_bytes(
+                n_slots=1 if use_sub else 2, n_features=fit.F,
+                n_bins=fit.B, n_channels=fit.C,
+                itemsize=8 if fit.fixed else 4),
+            psum_bytes=None,
+            rows_scanned=float(n2[0] if small_left else n2[1])
+            if use_sub else float(n2.sum()),
+            small_child_fraction=None,
+            seconds=(round(time.perf_counter() - t_exp, 6)
+                     if timer.enabled else None),
+            new_lowerings=0)
         n_nodes += 2
         n_leaves += 1
     return n_nodes, np.stack([feat, bins, left, parent, depth]), counts, nid
+
+
+def replay_leafwise(timer, tree, fit: FitInputs, cfg: BuildConfig,
+                    use_sub: bool, *, level_rows: bool) -> None:
+    """A leaf-wise build's scan counters, per-depth rows (the fused
+    loop's, ``level_rows``) and fingerprint rows, replayed from the
+    finished ``tree`` into ``timer``."""
+    rows, _, counters = obs_acct.leafwise_scan_rows(
+        tree, n_features=fit.F, n_bins=fit.B, n_channels=fit.C,
+        task=cfg.task, subtraction=use_sub,
+        itemsize=8 if fit.fixed else 4)
+    for name, v in counters.items():
+        timer.counter(name, v)
+    if level_rows:
+        for r in rows:
+            timer.level(**r)
+    if timer.wants_fingerprints:
+        timer.fingerprint_tree(obs_acct.replay_fingerprints(tree))
 
 
 def leafwise_subtraction(fit: FitInputs, cfg: BuildConfig, pool: int) -> bool:
@@ -599,7 +645,7 @@ def build_tree_leafwise(binned, y: np.ndarray, *, config: BuildConfig,
                         feature_sampler=None,
                         feature_mask: np.ndarray | None = None,
                         mono_cst: np.ndarray | None = None,
-                        stats: dict | None = None, mesh=None,
+                        timer=None, mesh=None,
                         x_shards=None, snapshot_slot=None):
     """Grow one tree best-first; ``core/builder.build_tree``'s contract
     (``build_tree_leafwise``, ``:437``), which routes here whenever
@@ -607,9 +653,17 @@ def build_tree_leafwise(binned, y: np.ndarray, *, config: BuildConfig,
     ``builder.resolve_engine`` (``"auto"`` is fused for every task). Regression refits its node values
     exactly from the rows' final nodes (``refit_regression_values``);
     ``return_leaf_ids`` gives those nodes in the finished tree's ids.
-    ``stats`` (a dict, optional) receives ``engine``, ``frontier``
-    (``"leafwise"``), ``expansions`` and, for the fused engine, ``graph``
-    with its ``graph_reason``. On a data ``mesh`` the rows shard over it
+    ``timer`` (``builder.build_tree``'s) receives the JAX package's
+    record (``:560-672``): the ``engine``, ``frontier`` (``"leafwise"``,
+    with the pool and, for the fused engine, the CUDA-graph choice
+    ``graph``/``graph_reason`` among its inputs) and ``hist_subtraction``
+    decisions, the spans ``shard``, ``leafwise_build`` and
+    ``host_finalize``, the ``expansions``, ``rows_scanned`` and
+    ``rows_frontier`` counters and the fingerprint rows replayed from the
+    finished tree (``obs/accounting.leafwise_scan_rows``); the fused
+    engine's per-depth rows are replayed too, never recorded inside the
+    graph, and the stepped engine writes one row an expansion live. On a
+    data ``mesh`` the rows shard over it
     and every pair histogram reduces over it (``_make_leafwise_fn``,
     ``:348-372``): the tree is the one-device tree field for field. A
     ``(data, feature)`` mesh raises, as in the JAX package
@@ -630,44 +684,70 @@ def build_tree_leafwise(binned, y: np.ndarray, *, config: BuildConfig,
                 "max_leaf_nodes supports 1-D data meshes only "
                 "(mesh2d_unsupported: the best-first frontier has no "
                 "feature-axis select_global twin)")
-    engine = resolve_engine(cfg)
+    timer = timer if timer is not None else PhaseTimer(enabled=False)
+    engine, reason = engine_decision(cfg)
+    if cfg.engine == "auto" and engine == "fused":
+        reason = ("auto: the best-first loop runs one expansion per step; "
+                  "per-expansion host dispatch would put O(max_leaf_nodes) "
+                  "round trips on the critical path, so the fused loop "
+                  "(one CUDA graph replay an expansion on the card) is the "
+                  "default")
     slot = (snapshot_slot if engine != "fused" and snapshot_slot is not None
             and resolve_level_retry() else None)
     resume = None if slot is None else slot.take("expansion")
-    fit = resume["fit"] if resume is not None else FitInputs(
-        binned, y, cfg, n_classes=n_classes, sample_weight=sample_weight,
-        packed=packed, feature_mask=feature_mask, mesh=mesh,
-        x_shards=x_shards)
+    if resume is not None:
+        fit = resume["fit"]
+    else:
+        with timer.phase("shard"):
+            fit = FitInputs(
+                binned, y, cfg, n_classes=n_classes,
+                sample_weight=sample_weight, packed=packed,
+                feature_mask=feature_mask, mesh=mesh, x_shards=x_shards)
     pool = _pool_capacity(cfg.max_leaf_nodes, cfg.max_depth, fit.N)
     use_sub = leafwise_subtraction(fit, cfg, pool)
-    graph = None
+    timer.set_mesh(mesh, device=fit.dev)
+    timer.decision("engine", engine, reason=reason, rows=int(fit.N),
+                   features=int(fit.F), bins=int(fit.B), task=cfg.task)
+    frontier_in = dict(max_leaf_nodes=int(cfg.max_leaf_nodes),
+                       pool=int(pool))
     if engine == "fused":
         loop = _LeafLoop(fit, cfg, pool=pool, use_sub=use_sub)
-        graph = (loop.use_graph, loop.graph_reason)
+        frontier_in.update(graph=loop.use_graph,
+                           graph_reason=loop.graph_reason)
+    timer.decision(
+        "frontier", "leafwise",
+        reason=(f"max_leaf_nodes={cfg.max_leaf_nodes}: best-first priority "
+                f"pool of {pool} open leaves; each expansion pays one "
+                "sibling-pair histogram"
+                + (" (smaller child only, larger = parent - small)"
+                   if use_sub else "")),
+        **frontier_in)
+    note_subtraction(timer, use_sub, leafwise=True)
+    if engine == "fused":
         chaos.step("leafwise_build")
-        g = loop.grow()
-        flat = torch.cat([g.ints.flatten(), g.n_nodes.view(1).to(torch.int32)])
-        flat = flat.cpu().numpy()  # one copy of the structure
+        with timer.phase("leafwise_build"):
+            g = loop.grow()
+            flat = torch.cat([g.ints.flatten(),
+                              g.n_nodes.view(1).to(torch.int32)])
+            flat = flat.cpu().numpy()  # one copy of the structure
         n_nodes = int(flat[-1])
         ints = flat[:-1].reshape(5, -1)
         counts = g.counts.cpu().numpy()
         nid = g.nid
+        timer.counter("leafwise_fused_builds")
     else:
         n_nodes, ints, counts, nid = _build_leafwise_stepped(
             fit, cfg, pool=pool, use_sub=use_sub, snapshot_slot=slot,
-            resume=resume, stats=stats)
+            resume=resume, timer=timer)
         if slot is not None:
             slot.clear()
-    tree, perm = _finalize_leafwise(
-        binned, cfg.task, cfg.criterion, n_nodes, *ints[:2], counts,
-        ints[2], ints[3], ints[4], _count_dtype(cfg.task, sample_weight))
-    if stats is not None:
-        stats.update(engine=engine, frontier="leafwise",
-                     expansions=(n_nodes - 1) // 2)
-        if graph is not None:
-            stats.update(graph=graph[0], graph_reason=graph[1])
-        if mesh is not None:
-            stats.update(n_shards=mesh.size, **mesh.stats)
+        timer.counter("leafwise_stepped_builds")
+    with timer.phase("host_finalize"):
+        tree, perm = _finalize_leafwise(
+            binned, cfg.task, cfg.criterion, n_nodes, *ints[:2], counts,
+            ints[2], ints[3], ints[4], _count_dtype(cfg.task, sample_weight))
+    replay_leafwise(timer, tree, fit, cfg, use_sub,
+                    level_rows=engine == "fused")
     leaf_ids = None
     if return_leaf_ids or (cfg.task == "regression"
                            and refit_targets is not None):

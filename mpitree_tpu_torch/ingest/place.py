@@ -39,7 +39,7 @@ import time
 import numpy as np
 import torch
 
-from mpitree_tpu_torch.parallel import partition
+from mpitree_tpu_torch.parallel import collective, partition
 from mpitree_tpu_torch.parallel.mesh import (
     DATA_AXIS,
     FEATURE_AXIS,
@@ -226,10 +226,9 @@ def regroup_matrix(binned, src, dst) -> list:
     if calls:
         if lead.type == "cuda":
             torch.cuda.synchronize(lead)
-        st = src.stats
-        st["exchange_calls"] += calls
-        st["exchange_bytes"] += n_bytes
-        st["exchange_seconds"] += time.perf_counter() - t0
+        collective._count(src, "exchange", n_bytes,
+                          time.perf_counter() - t0, site="row_exchange",
+                          calls=calls)
 
     out = []
     for i, dev in enumerate(dst.devices):

@@ -284,9 +284,10 @@ class IngestResult:
 
 
 def ingest_dataset(ds: StreamedDataset, *, mesh, max_bins: int = 256,
-                   binning: str = "auto") -> IngestResult:
+                   binning: str = "auto", obs=None) -> IngestResult:
     """Run both passes and place the binned matrix in ``mesh``'s shards
-    (``parallel/mesh.Mesh``: a one-shard mesh for one device).
+    (``parallel/mesh.Mesh``: a one-shard mesh for one device). ``obs``
+    (a fit's observer) gets the JAX package's ``ingest`` decision.
 
     Across processes each streams its own shard (``ds`` built from
     ``shard_for_process``-dealt paths); its global row offset comes from
@@ -360,8 +361,19 @@ def ingest_dataset(ds: StreamedDataset, *, mesh, max_bins: int = 256,
             if sketch_s + place_s > 0 else None
         ),
     }
-    # The JAX package records an ``ingest`` decision on the observer here
-    # (ROADMAP.md Queue 1 item 18 for the port).
+    if obs is not None:
+        obs.decision(
+            "ingest", "streamed",
+            reason=(
+                "fit(dataset=...): chunked sketch+bin ingest — the raw "
+                "matrix never materializes on host; chunk size derived "
+                f"from the {memory_lib.HOST_BUDGET_ENV} planner budget"
+            ),
+            **{k: stats[k] for k in (
+                "rows", "features", "chunk_rows", "quantized",
+                "sketch_exact",
+            )},
+        )
     host_rss = memory_lib.host_rss_bytes()
     if host_rss:
         stats["host_rss_bytes"] = int(host_rss)

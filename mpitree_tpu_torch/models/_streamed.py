@@ -87,25 +87,26 @@ def refuse_host(est) -> None:
         )
 
 
-def ingest_for(est, ds):
+def ingest_for(est, ds, trace_to=None):
     """Ingest ``ds`` for ``est``: the mesh the chunks land on (resolved
     first: placement needs it before binning; one shard for one device),
-    then both passes. Returns ``(IngestResult, build mesh or None for one
-    device, FitClock, stats)``; sets ``est.ingest_stats_``. For one device
-    ``res.binned`` is its one shard as a plain ``BinnedData``, which the
-    one-device builds take; on a mesh it stays the placed shards."""
+    then both passes, in the fit observer's ``bin`` span. Returns
+    ``(IngestResult, build mesh or None for one device, observer)``;
+    sets ``est.ingest_stats_``. For one device ``res.binned`` is its one
+    shard as a plain ``BinnedData``, which the one-device builds take; on
+    a mesh it stays the placed shards."""
     from mpitree_tpu_torch.ingest import ingest_dataset
-    from mpitree_tpu_torch.models.classifier import FitClock
+    from mpitree_tpu_torch.models.classifier import fit_observer
 
     mesh = resolve_mesh(device=est.device, n_devices=est.n_devices)
-    clock = FitClock(mesh.lead)
-    res = ingest_dataset(ds, mesh=mesh, max_bins=est.max_bins,
-                         binning=est.binning)
-    stats = {"bin_seconds": clock.lap()}
+    obs = fit_observer(mesh.lead, trace_to)
+    with obs.phase("bin"):
+        res = ingest_dataset(ds, mesh=mesh, max_bins=est.max_bins,
+                             binning=est.binning, obs=obs)
     est.ingest_stats_ = res.stats
     if est.n_devices in (None, 1):
         res.binned, mesh = res.binned.single(), None
-    return res, mesh, clock, stats
+    return res, mesh, obs
 
 
 def stream_weight(res, sample_weight):
@@ -122,10 +123,12 @@ def stream_weight(res, sample_weight):
     )
 
 
-def streamed_fit(est, X, dataset, y=None, sample_weight=None):
+def streamed_fit(est, X, dataset, y=None, sample_weight=None, *,
+                 trace_to=None):
     """Fit the tree estimator ``est`` from a StreamedDataset; returns
-    ``est``."""
-    from mpitree_tpu_torch.models.classifier import grow_tree
+    ``est``. ``trace_to`` as in the in-memory fit."""
+    from mpitree_tpu_torch.models.classifier import finish_report, grow_tree
+    from mpitree_tpu_torch.obs.observer import note_build_path, note_refine
     from mpitree_tpu_torch.ops.sampling import sampler_for
     from mpitree_tpu_torch.utils.monotonic import validate_monotonic_cst
     from mpitree_tpu_torch.utils.profiling import debug_checks_enabled
@@ -142,9 +145,11 @@ def streamed_fit(est, X, dataset, y=None, sample_weight=None):
         est._check_slice()
     refuse_host(est)
     mln = validate_max_leaf_nodes(est)
-    res, mesh, clock, stats = ingest_for(est, ds)
+    res, mesh, obs = ingest_for(est, ds, trace_to)
     binned = res.binned
     N, F = binned.n_samples, binned.n_features
+    note_build_path(obs, host=False, backend=est.backend, n_rows=N,
+                    n_features=F)
     y_enc, classes = validate_fit_targets(res.y, task=task)
     sw = stream_weight(res, sample_weight)
     if task == "classification":
@@ -162,6 +167,10 @@ def streamed_fit(est, X, dataset, y=None, sample_weight=None):
     )
     if multihost or mono is not None or mln is not None:
         rd, refine, crown_depth = None, False, est.max_depth
+    note_refine(obs, refine=refine, rd=rd, crown_depth=crown_depth,
+                refine_depth_param=est.refine_depth,
+                constrained=mono is not None, leafwise=mln is not None,
+                streamed=multihost)
     cfg = BuildConfig(
         task=task,
         criterion=est.criterion if task == "classification" else "mse",
@@ -185,13 +194,13 @@ def streamed_fit(est, X, dataset, y=None, sample_weight=None):
     est.tree_ = grow_tree(
         binned, res.row_provider(), y_build, host=False, cfg=cfg,
         max_depth=est.max_depth, rd=rd, refine=refine, n_classes=n_classes,
-        sample_weight=sw, ccp_alpha=est.ccp_alpha, clock=clock, stats=stats,
+        sample_weight=sw, ccp_alpha=est.ccp_alpha, obs=obs,
         refit_targets=refit,
         feature_sampler=sampler_for(est.max_features, est.random_state, F,
                                     splitter=est.splitter),
         mono_cst=mono, mesh=mesh, what=f"{type(est).__name__}.fit streamed",
     )
-    est.fit_stats_ = stats
+    finish_report(est, obs, tree=est.tree_)
     if task == "classification":
         est._set_fitted(classes, F)
     else:

@@ -37,12 +37,19 @@ sklearn is not a dependency: ``get_params``/``set_params`` read the
 ``class_weight`` (``"balanced"`` or a dict) multiplies ``sample_weight``
 as the JAX package's ``apply_class_weight`` does (``:239-240``).
 
-``fit_stats_`` holds the fit's ``engine`` (``"fused"`` or ``"levelwise"``
-on the device, as ``core/builder.resolve_engine`` picks it, or ``"host"``),
-its phase seconds (``bin_seconds``, ``crown_seconds``, ``tail_seconds``,
-``prune_seconds``, each ending when the card is idle) and, when the tail
-ran, its ``crown_depth``, ``refine_candidates``, ``refine_engine`` and
-``refine_nodes_added``.
+Every fit writes into a ``obs.BuildObserver`` (:func:`fit_observer`) and
+keeps its record as ``fit_report_`` (the JAX package's schema 9: the
+``engine`` that ran, ``"fused"`` or ``"levelwise"`` on the device as
+``core/builder.resolve_engine`` picks it, or ``"host"``, with its reason;
+the ``build_path``, ``refine`` and ``refine_tail`` decisions; counters,
+level rows, events and fingerprints); ``dump_report(path)`` writes it.
+``fit_stats_`` is, as in the JAX package, the phase summary (``bin``,
+``shard``, ``fused_build``, ``host_finalize``, ``refine``, ``prune``,
+...; each span ending when the card is idle) under
+``MPITREE_TPU_PROFILE=1`` or a ``trace_to`` sink, and None otherwise.
+``fit(..., trace_to=path_or_sink)`` renders the fit as a Chrome trace
+(``obs/trace.py``). ``obs.record.STATS_MOVES`` lists where each key the
+port's ``fit_stats_`` held before lives in ``fit_report_``.
 
 ``max_features`` samples a fresh feature subset at every node and
 ``splitter="random"`` draws each feature's split bin among its valid ones
@@ -65,8 +72,8 @@ or walk the fitted tree as the JAX package's do (``utils/export.py``,
 ``max_leaf_nodes`` grows the tree best-first on the device engine
 (``core/leafwise_builder.py``), the whole depth in one engine with no
 refine tail (``:249-252``); ``backend="host"`` refuses it, as the JAX
-package does. ``fit_stats_`` then also holds ``frontier`` (``"leafwise"``)
-and ``expansions``.
+package does. ``fit_report_`` then also holds the ``frontier`` decision
+(``"leafwise"``) and the ``expansions`` counter.
 
 ``fit(dataset=StreamedDataset...)`` (or the dataset as ``X``) fits from
 a chunk stream (``mpitree_tpu_torch.ingest``, ``models/_streamed.py``):
@@ -85,9 +92,10 @@ feature)`` mesh): each shard sweeps its feature slab and the winners
 merge over the feature axis, still the one-device tree;
 ``monotonic_cst``, ``max_features`` sampling and ``max_leaf_nodes``
 raise there, as in the JAX package. ``max_leaf_nodes`` works on a data
-mesh. ``fit_stats_`` then also holds ``n_shards`` and the collectives'
-counts (``allreduce_*``, the feature axis's ``gather_*`` and
-``route_*``: calls, bytes, seconds) and ``replication_checks``.
+mesh. ``fit_report_`` then also holds the mesh and the reductions that
+ran, per site under the JAX package's names (``split_hist_psum``,
+``counts_psum``, the feature axis's ``feature_merge_all_gather`` and
+``route_psum``, ``replication_check``: calls, bytes, seconds).
 :class:`ParallelDecisionTreeClassifier` is the reference's MPI class,
 ``n_devices="all"`` by default; ``backend="host"`` ignores
 ``n_devices``, as the JAX package's host tier does.
@@ -96,21 +104,23 @@ counts (``allreduce_*``, the feature axis's ``gather_*`` and
 from __future__ import annotations
 
 import inspect
-import time
 
 import numpy as np
 import torch
 
 from mpitree_tpu_torch._device import resolve_device
-from mpitree_tpu_torch.core.builder import (
-    BuildConfig,
-    build_tree,
-    resolve_engine,
-)
+from mpitree_tpu_torch.core.builder import BuildConfig, build_tree
 from mpitree_tpu_torch.core.host_builder import build_tree_host
 from mpitree_tpu_torch.core.hybrid_builder import apply_refine
 from mpitree_tpu_torch.core.tree_struct import TreeArrays
 from mpitree_tpu_torch.models._streamed import is_streamed, streamed_fit
+from mpitree_tpu_torch.obs.observer import (
+    BuildObserver,
+    note_build_path,
+    note_refine,
+    observing,
+)
+from mpitree_tpu_torch.obs.record import ReportMixin
 from mpitree_tpu_torch.ops.binning import bin_dataset, bin_for_engine
 from mpitree_tpu_torch.ops.predict import predict_leaf_ids
 from mpitree_tpu_torch.ops.sampling import sampler_for
@@ -122,6 +132,7 @@ from mpitree_tpu_torch.resilience.retry import (
     retry_device,
     sync,
 )
+from mpitree_tpu_torch.serving.tables import note_serving
 from mpitree_tpu_torch.utils.carry import tree_from_reference
 from mpitree_tpu_torch.utils.export import (
     export_tree_dot,
@@ -168,24 +179,26 @@ def host_tier(backend) -> bool:
 
 def grow_tree(binned, X, y, *, host: bool, cfg: BuildConfig, max_depth, rd,
               refine: bool, n_classes, sample_weight, ccp_alpha,
-              clock, stats: dict, packed=None,
+              obs, packed=None,
               refit_targets=None, feature_sampler=None,
               feature_mask=None, mono_cst=None, mesh=None,
               host_binned=None, what: str = "fit") -> TreeArrays:
     """One tree in the JAX package's order: the build to the crown depth
-    ``cfg.max_depth`` (the host tier when ``host``, else the device engine
-    on ``binned``'s device, fused or levelwise as ``resolve_engine``
-    says), then :func:`finish_tree`. ``y`` is what the builders take
-    (class indices, or regression's float32 centred targets, whose float64
-    ``refit_targets`` give the leaf values). Adds the engine that ran
-    (``"fused"``, ``"levelwise"`` or ``"host"``), the phase seconds and
-    the tail's counts to ``stats``. ``feature_sampler``
+    ``cfg.max_depth`` (the host tier when ``host``, in the ``host_build``
+    span, else the device engine on ``binned``'s device, fused or
+    levelwise as ``resolve_engine`` says), then :func:`finish_tree`. ``y``
+    is what the builders take (class indices, or regression's float32
+    centred targets, whose float64 ``refit_targets`` give the leaf
+    values). ``obs`` (the fit's ``obs.BuildObserver``, whose ``device``
+    is the fit's) receives the build's record: the engine that ran
+    (``"fused"``, ``"levelwise"`` or ``"host"``), spans, counters, level
+    rows, fingerprints and the tail's. ``feature_sampler``
     (``ops/sampling.py``) and ``feature_mask`` (a forest tree's subspace)
     go to both tiers and to the tail. ``mono_cst`` (the validated internal
     signs, or None) goes to both tiers, which then grow the whole depth
     (the caller passes ``refine=False``). A data ``mesh`` goes to the
     device engine, whose leaf ids then hold every row, so every process
-    runs the same tail; its reductions are added to ``stats``.
+    runs the same tail; its reductions join the record.
 
     The device build runs inside the resilience ladder
     (``resilience/retry.py``; the JAX package's
@@ -197,99 +210,104 @@ def grow_tree(binned, X, y, *, host: bool, cfg: BuildConfig, max_depth, rd,
     (``ops/binning.bin_dataset`` of the raw rows, bit-identical to the
     card's binning), which never reads a card tensor back, since after a
     sticky CUDA error there is no card to read. The rest of the fit then
-    makes no CUDA call (``clock`` moves to the CPU). Without
+    makes no CUDA call (``obs.device`` moves to the CPU). Without
     ``host_binned`` (a streamed fit), for a best-first build, which has
     no host twin, and on a mesh across processes, only the retry rungs
     run: a process that left for its host tier would leave its peers
     waiting in their next collective, so there the failure raises in
     every process, within the group's timeout. ``what`` names the fit in
-    the ladder's warnings; its counters land in ``stats``."""
+    the ladder's warnings; its counters and events land in ``obs``."""
     kw = dict(config=cfg, n_classes=n_classes, sample_weight=sample_weight,
               return_leaf_ids=refine, refit_targets=refit_targets,
               feature_sampler=feature_sampler, feature_mask=feature_mask,
-              mono_cst=mono_cst)
-    engine = "host" if host else resolve_engine(cfg)
-    if host:
-        res = build_tree_host(binned, y, **kw)
-    else:
-        slot = SnapshotSlot()
-
-        def device_build():
-            out = build_tree(binned, y, packed=packed, stats=stats,
-                             mesh=mesh, snapshot_slot=slot, **kw)
-            sync(clock.device)  # a fault of this build raises here
-            return out
-
-        if (host_binned is None or cfg.max_leaf_nodes is not None
-                or (mesh is not None and mesh.n_procs > 1)):
-            res = retry_device(
-                device_build, obs=stats, resume=slot,
-                what=f"{what} " + ("leaf-wise build" if cfg.max_leaf_nodes
-                                   is not None else "device build"))
+              mono_cst=mono_cst, timer=obs)
+    with observing(obs):
+        if host:
+            with obs.phase("host_build"):
+                res = build_tree_host(binned, y, **kw)
+            obs.decision("engine", "host",
+                         reason=obs.record.decisions["build_path"]["reason"])
         else:
-            def host_build():
-                nonlocal engine
-                engine = "host"
-                clock.device = torch.device("cpu")
-                return build_tree_host(host_binned(), y, **kw)
+            slot = SnapshotSlot()
 
-            res = device_failover(device_build, host_build, obs=stats,
-                                  resume=slot, what=f"{what} device build")
-    if mesh is not None:
-        stats.update(n_shards=mesh.size, **mesh.stats)
-    tree, leaf_ids = res if refine else (res, None)
-    stats["engine"] = engine
-    stats["crown_seconds"] = stats.get("crown_seconds", 0.0) + clock.lap()
-    return finish_tree(
-        tree, leaf_ids, X, y, cfg=cfg, max_depth=max_depth, rd=rd,
-        refine=refine, n_classes=n_classes, sample_weight=sample_weight,
-        ccp_alpha=ccp_alpha, clock=clock, stats=stats,
-        refit_targets=refit_targets, feature_sampler=feature_sampler,
-        feature_mask=feature_mask, mono_cst=mono_cst)
+            def device_build():
+                out = build_tree(binned, y, packed=packed, mesh=mesh,
+                                 snapshot_slot=slot, **kw)
+                sync(obs.device)  # a fault of this build raises here
+                return out
+
+            if (host_binned is None or cfg.max_leaf_nodes is not None
+                    or (mesh is not None and mesh.n_procs > 1)):
+                res = retry_device(
+                    device_build, obs=obs, resume=slot,
+                    what=f"{what} " + ("leaf-wise build"
+                                       if cfg.max_leaf_nodes is not None
+                                       else "device build"))
+            else:
+                def host_build():
+                    obs.device = torch.device("cpu")
+                    with obs.phase("host_build"):
+                        out = build_tree_host(host_binned(), y, **kw)
+                    obs.decision(
+                        "engine", "host",
+                        reason="device build failed; rebuilt on the host "
+                        "tier (MPITREE_TPU_ELASTIC=1)")
+                    return out
+
+                res = device_failover(device_build, host_build, obs=obs,
+                                      resume=slot,
+                                      what=f"{what} device build")
+        tree, leaf_ids = res if refine else (res, None)
+        return finish_tree(
+            tree, leaf_ids, X, y, cfg=cfg, max_depth=max_depth, rd=rd,
+            refine=refine, n_classes=n_classes, sample_weight=sample_weight,
+            ccp_alpha=ccp_alpha, obs=obs,
+            refit_targets=refit_targets, feature_sampler=feature_sampler,
+            feature_mask=feature_mask, mono_cst=mono_cst)
 
 
 def finish_tree(tree, leaf_ids, X, y, *, cfg: BuildConfig, max_depth, rd,
-                refine: bool, n_classes, sample_weight, ccp_alpha, clock,
-                stats: dict, refit_targets=None, feature_sampler=None,
+                refine: bool, n_classes, sample_weight, ccp_alpha, obs,
+                refit_targets=None, feature_sampler=None,
                 feature_mask=None, mono_cst=None) -> TreeArrays:
     """A built crown finished as the JAX package's ``finish`` does it
     (``mpitree_tpu/models/forest.py:495-517``): the refine tail down to
-    ``max_depth`` from the rows' ``leaf_ids`` when ``refine``, then
-    ``ccp_alpha`` pruning, then the clipped values of a constrained tree
-    (``clip_tree_values``)."""
+    ``max_depth`` from the rows' ``leaf_ids`` when ``refine`` (the
+    ``refine`` span), then ``ccp_alpha`` pruning (``prune``), then the
+    clipped values of a constrained tree (``clip_tree_values``)."""
     if refine:
-        tail = {}
         tree = apply_refine(
             tree, leaf_ids, X, y, cfg=cfg, max_depth=max_depth, rd=rd,
-            n_classes=n_classes, sample_weight=sample_weight, stats=tail,
+            timer=obs, n_classes=n_classes, sample_weight=sample_weight,
             refit_targets=refit_targets, feature_mask=feature_mask,
             feature_sampler=feature_sampler,
         )
-        tail["tail_seconds"] = clock.lap()
-        stats["crown_depth"] = rd
-        for k, v in tail.items():
-            stats[k] = v if isinstance(v, str) else stats.get(k, 0) + v
     if ccp_alpha:
-        tree = ccp_prune(tree, ccp_alpha, task=cfg.task)
-        stats["prune_seconds"] = stats.get("prune_seconds", 0.0) + clock.lap()
+        with obs.phase("prune"):
+            tree = ccp_prune(tree, ccp_alpha, task=cfg.task)
     if mono_cst is not None:
         clip_tree_values(tree, mono_cst, cfg.task)
     return tree
 
 
-class FitClock:
-    """Seconds per phase of a fit, each ending when ``device`` is idle."""
+def fit_observer(device, trace_to=None) -> BuildObserver:
+    """A fit's observer: spans end when ``device`` is idle (when timing
+    is on), and ``trace_to`` (a path or a shared ``obs.TraceSink``)
+    renders the fit as a Chrome trace."""
+    obs = BuildObserver()
+    obs.device = device
+    if trace_to is not None:
+        obs.trace_to(trace_to)
+    return obs
 
-    def __init__(self, device: torch.device):
-        self.device = device
-        self.t = time.perf_counter()
 
-    def lap(self) -> float:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        dt, self.t = now - self.t, now
-        return dt
+def finish_report(est, obs, *, tree=None, trees=None) -> None:
+    """The fitted record, as the JAX package sets it: ``fit_stats_`` the
+    phase summary under ``MPITREE_TPU_PROFILE=1`` (or a trace sink) and
+    None otherwise, the serving-table note, then ``fit_report_``."""
+    est.fit_stats_ = obs.summary() if obs.enabled else None
+    note_serving(obs, [tree] if trees is None else trees)
+    est.fit_report_ = obs.report(tree=tree, trees=trees)
 
 
 def fit_mesh(est, host: bool):
@@ -313,9 +331,10 @@ def predict_mesh(est):
     return resolve_mesh(device=est.device, n_devices=est.n_devices)
 
 
-class EstimatorBase:
+class EstimatorBase(ReportMixin):
     """The estimators' shared surface without sklearn: ``get_params`` and
-    ``set_params`` read the ``__init__`` signature."""
+    ``set_params`` read the ``__init__`` signature; ``dump_report`` writes
+    ``fit_report_`` (``obs/record.ReportMixin``)."""
 
     @classmethod
     def _param_names(cls) -> list:
@@ -413,9 +432,11 @@ class DecisionTreeClassifier(ClassifierBase):
             )
 
     # -- fitting -----------------------------------------------------------
-    def fit(self, X=None, y=None, sample_weight=None, *, dataset=None):
+    def fit(self, X=None, y=None, sample_weight=None, *, trace_to=None,
+            dataset=None):
         if is_streamed(X, dataset):
-            return streamed_fit(self, X, dataset, y, sample_weight)
+            return streamed_fit(self, X, dataset, y, sample_weight,
+                                trace_to=trace_to)
         self._check_slice()
         host = host_tier(self.backend)
         mesh = fit_mesh(self, host)
@@ -427,15 +448,17 @@ class DecisionTreeClassifier(ClassifierBase):
         mln = validate_max_leaf_nodes(self)
         sw = validate_sample_weight(sample_weight, X.shape[0])
         sw = apply_class_weight(self.class_weight, y_enc, classes, sw)
-        clock = FitClock(device)
-        binned = (
-            bin_dataset(X, max_bins=self.max_bins, binning=self.binning)
-            if host else bin_for_engine(
-                X, max_bins=self.max_bins, binning=self.binning,
-                device=device,
+        obs = fit_observer(device, trace_to)
+        note_build_path(obs, host=host, backend=self.backend,
+                        n_rows=X.shape[0], n_features=X.shape[1])
+        with obs.phase("bin"):
+            binned = (
+                bin_dataset(X, max_bins=self.max_bins, binning=self.binning)
+                if host else bin_for_engine(
+                    X, max_bins=self.max_bins, binning=self.binning,
+                    device=device,
+                )
             )
-        )
-        stats = {"bin_seconds": clock.lap()}
         rd, refine, crown_depth = resolve_refine(
             self.max_depth, self.refine_depth,
             n_rows=X.shape[0], quantized=binned.quantized,
@@ -444,6 +467,9 @@ class DecisionTreeClassifier(ClassifierBase):
             # one engine for the whole depth: a tail would grow past the
             # leaf budget
             rd, refine, crown_depth = None, False, self.max_depth
+        note_refine(obs, refine=refine, rd=rd, crown_depth=crown_depth,
+                    refine_depth_param=self.refine_depth,
+                    constrained=mono is not None, leafwise=mln is not None)
         cfg = BuildConfig(
             criterion=self.criterion,
             max_depth=crown_depth,
@@ -461,14 +487,14 @@ class DecisionTreeClassifier(ClassifierBase):
         self.tree_ = grow_tree(
             binned, X, y_enc, host=host, cfg=cfg, max_depth=self.max_depth,
             rd=rd, refine=refine, n_classes=len(classes), sample_weight=sw,
-            ccp_alpha=self.ccp_alpha, clock=clock, stats=stats,
+            ccp_alpha=self.ccp_alpha, obs=obs,
             feature_sampler=sampler_for(self.max_features, self.random_state,
                                         X.shape[1], splitter=self.splitter),
             mono_cst=mono, mesh=mesh, what=f"{type(self).__name__}.fit",
             host_binned=lambda: bin_dataset(X, max_bins=self.max_bins,
                                             binning=self.binning),
         )
-        self.fit_stats_ = stats
+        finish_report(self, obs, tree=self.tree_)
         self._set_fitted(classes, X.shape[1])
         return self
 

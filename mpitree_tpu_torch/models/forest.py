@@ -11,8 +11,8 @@ Counterpart of ``mpitree_tpu/models/forest.py`` on its per-tree route
   in one call of the fused engine (``core/fused_builder.build_forest_fused``,
   the JAX package's batched path, ``:578-620``, ``:696-775``), under
   ``MPITREE_TPU_ENGINE=levelwise`` one levelwise build a tree
-  (``core/builder.build_tree``); ``fit_stats_["ensemble_path"]`` says
-  which (``"batched-fused"``, ``"per-tree"`` or ``"host"``), and the trees
+  (``core/builder.build_tree``); the ``ensemble_path`` decision of
+  ``fit_report_`` says which (``"batched-fused"``, ``"per-tree"`` or ``"host"``), and the trees
   are the same; ``backend="host"`` builds every tree on the host tier
   from one host binning (``host_raw``, ``:519-528``);
 - phase A draws every per-tree random number up front, in the JAX
@@ -51,8 +51,11 @@ fit, which is what makes the average monotone.
 
 ``trees_`` is a :class:`~mpitree_tpu_torch.serving.tables.TreeList`,
 which carries the flat table that predict and ``compile_model`` share.
-``fit_stats_`` sums the phase seconds and tail counts over the trees and
-names the ``engine`` (see ``models/classifier.py``).
+``fit_report_`` keeps the forest's record (``trees`` per member,
+``result``, the ``bootstrap`` and ``ensemble_path`` decisions, the
+out-of-bag events, every tree's fingerprint rows) and ``fit_stats_`` its
+phase summary under ``MPITREE_TPU_PROFILE=1`` (see
+``models/classifier.py``).
 
 ``n_devices`` shards the forest (``:330-360``, ``:700-760``): the
 batched path grows the trees on a ``(tree, data)`` mesh of the devices
@@ -62,8 +65,8 @@ exchanged so every process holds the forest), the per-tree path grows
 each tree on the data mesh (``grow_tree``); either way every tree is the
 one-device tree field for field, and the refine tail, ``oob_score`` and
 ``warm_start`` (whose new trees alone shape the mesh) run as on one
-device. ``fit_stats_`` then holds ``n_shards``, ``forest_mesh`` and the
-collectives' counts. ``predict`` splits its rows over the local shards.
+device. ``fit_report_`` then holds the ``(tree, data)`` mesh and the
+reductions, the row and tree exchanges among them. ``predict`` splits its rows over the local shards.
 
 ``fit(dataset=StreamedDataset...)`` (or the dataset as ``X``) fits from
 a chunk stream (``mpitree_tpu_torch.ingest``; ``:204-260``): the draws of
@@ -93,8 +96,8 @@ axis's width, at least :data:`CHECKPOINT_GROUP_FLOOR`, and a fit of the
 same inputs that was killed resumes after the last group and ends with
 the forest an uninterrupted fit grows; ``checkpoint_compact_every``
 merges the shard files. The counters (``device_retries``,
-``device_failovers``, ``checkpoint_compactions``) land in
-``fit_stats_``.
+``device_failovers``, ``checkpoint_compactions``) and their typed events
+land in ``fit_report_``.
 """
 
 from __future__ import annotations
@@ -125,12 +128,19 @@ from mpitree_tpu_torch.models._streamed import (
 from mpitree_tpu_torch.models.classifier import (
     ClassifierBase,
     EstimatorBase,
-    FitClock,
+    finish_report,
+    fit_observer,
     finish_tree,
     grow_tree,
     host_tier,
     fit_mesh,
     predict_mesh,
+)
+from mpitree_tpu_torch.obs.observer import (
+    note_build_path,
+    note_refine,
+    observing,
+    warn_event,
 )
 from mpitree_tpu_torch.models.regressor import RegressorBase
 from mpitree_tpu_torch.ops.binning import bin_dataset, bin_for_engine
@@ -235,11 +245,11 @@ class _BaseForest(EstimatorBase):
             )
         return prev
 
-    def _open_stream(self, X, dataset, y) -> tuple:
+    def _open_stream(self, X, dataset, y, trace_to=None) -> tuple:
         """A streamed fit's preamble (``:206-247``): the refusals, then the
         ingest on the mesh resolved first. Returns what
         :meth:`_fit_forest` takes as ``stream``: ``(IngestResult, build
-        mesh or None, FitClock, stats)``."""
+        mesh or None, observer)``."""
         ds = stream_of(X, dataset, y)
         if self.oob_score:
             raise ValueError(
@@ -248,19 +258,21 @@ class _BaseForest(EstimatorBase):
                 "on a held-out stream instead"
             )
         refuse_host(self)
-        return ingest_for(self, ds)
+        return ingest_for(self, ds, trace_to)
 
     def _fit_forest(self, X, y, *, task, criterion, n_classes=None,
                     refit_targets=None, sample_weight=None,
-                    stream=None) -> TreeList:
-        """Grow the forest; sets ``fit_stats_`` and, with ``oob_score``,
-        the per-tree out-of-bag masks that :meth:`_pop_oob_masks` takes.
-        ``stream`` (:meth:`_open_stream`'s) makes it a streamed fit from
-        the placed matrix (``X`` None)."""
+                    stream=None, trace_to=None) -> TreeList:
+        """Grow the forest into the fit's observer (``self._fit_obs``,
+        which :meth:`_finish_fit` turns into ``fit_report_`` after the
+        out-of-bag score) and, with ``oob_score``, the per-tree
+        out-of-bag masks that :meth:`_pop_oob_masks` takes. ``stream``
+        (:meth:`_open_stream`'s) makes it a streamed fit from the placed
+        matrix (``X`` None)."""
         prev = self._warm_start_trees()
         streamed = stream is not None
         if streamed:
-            res, mesh, clock, stats = stream
+            res, mesh, obs = stream
             host = False
             binned = res.binned
             n, F = binned.n_samples, binned.n_features
@@ -270,14 +282,18 @@ class _BaseForest(EstimatorBase):
             device = (resolve_device(self.device) if mesh is None
                       else mesh.lead)
             n, F = X.shape
-            clock = FitClock(device)
-            if host:
-                binned = bin_dataset(X, max_bins=self.max_bins,
-                                     binning=self.binning)
-            else:
-                binned = bin_for_engine(X, max_bins=self.max_bins,
-                                        binning=self.binning, device=device)
-            stats = {"bin_seconds": clock.lap()}
+            obs = fit_observer(device, trace_to)
+            with obs.phase("bin"):
+                if host:
+                    binned = bin_dataset(X, max_bins=self.max_bins,
+                                         binning=self.binning)
+                else:
+                    binned = bin_for_engine(X, max_bins=self.max_bins,
+                                            binning=self.binning,
+                                            device=device)
+        self._fit_obs = obs
+        note_build_path(obs, host=host, backend=self.backend, n_rows=n,
+                        n_features=F)
         # keyed draws (ops/sampling): always for a stream, whose rows a
         # host RNG cannot replay in order; opt-in in memory, which makes
         # the in-memory forest the streamed one's twin
@@ -305,6 +321,22 @@ class _BaseForest(EstimatorBase):
                                       n_classes=n_classes)
         if mono is not None:  # one engine for each tree's whole depth
             rd, refine, crown_depth = None, False, self.max_depth
+        note_refine(obs, refine=refine, rd=rd, crown_depth=crown_depth,
+                    refine_depth_param=self.refine_depth,
+                    constrained=mono is not None, streamed=streamed)
+        if self.bootstrap:
+            obs.decision(
+                "bootstrap", "keyed" if keyed else "host-rng",
+                reason=(
+                    "Poisson(1) multiplicities keyed by (seed, tree, row) "
+                    "— pure counter draws that any chunking, mesh, or "
+                    "resume replays identically (Oza–Russell online "
+                    "bagging)" if keyed else
+                    "host-RNG multinomial draw (the in-memory default; "
+                    "MPITREE_TPU_KEYED_BOOTSTRAP=1 opts into the keyed "
+                    "scheme streamed fits always use)"
+                ),
+            )
         cfg = BuildConfig(task=task, criterion=criterion,
                           max_depth=crown_depth,
                           min_samples_split=self.min_samples_split)
@@ -358,16 +390,27 @@ class _BaseForest(EstimatorBase):
             tree_sampler.append(sampler)
 
         trees = list(prev or [])
-        self.fit_stats_ = stats
         ck = self._open_checkpoint(
             task, keyed, X if not streamed else None, binned, y,
-            sample_weight)
+            sample_weight, obs)
         if ck is not None:
             trees = list(ck.trees[:int(self.n_estimators)])
+            if trees:
+                obs.event(
+                    "checkpoint_resume",
+                    f"resumed {len(trees)} completed trees from "
+                    f"{self.checkpoint}", trees=len(trees))
         idxs = list(range(len(trees), int(self.n_estimators)))
         batched = not host and resolve_engine(cfg) == "fused"
-        stats["ensemble_path"] = ("host" if host else
-                                  "batched-fused" if batched else "per-tree")
+        obs.decision(
+            "ensemble_path",
+            "host" if host else "batched-fused" if batched else "per-tree",
+            reason=(
+                obs.record.decisions["build_path"]["reason"] if host
+                else "trees batch into one fused build per group" if batched
+                else "MPITREE_TPU_ENGINE=levelwise: per-tree builds keep "
+                     "the levelwise engine's record"),
+            n_estimators=int(self.n_estimators))
         # the host rung re-bins the raw rows
         host_bins: list = []
 
@@ -388,7 +431,7 @@ class _BaseForest(EstimatorBase):
                 t, ids, X, y, cfg=tree_cfg(tree_w[i]),
                 max_depth=self.max_depth, rd=rd, refine=refine,
                 n_classes=n_classes, sample_weight=tree_w[i],
-                ccp_alpha=self.ccp_alpha, clock=clock, stats=stats,
+                ccp_alpha=self.ccp_alpha, obs=obs,
                 refit_targets=refit_targets,
                 feature_sampler=tree_sampler[i], feature_mask=tree_mask[i],
                 mono_cst=mono)
@@ -396,12 +439,13 @@ class _BaseForest(EstimatorBase):
         def host_raw(i, hb):
             """Tree ``i`` on the host tier from host bins ``hb``: (tree,
             leaf ids or None)."""
-            res = build_tree_host(
-                hb, y, config=tree_cfg(tree_w[i]), n_classes=n_classes,
-                sample_weight=tree_w[i], return_leaf_ids=refine,
-                refit_targets=refit_targets,
-                feature_sampler=tree_sampler[i], feature_mask=tree_mask[i],
-                mono_cst=mono)
+            with obs.phase("host_build"):
+                res = build_tree_host(
+                    hb, y, config=tree_cfg(tree_w[i]), n_classes=n_classes,
+                    sample_weight=tree_w[i], return_leaf_ids=refine,
+                    refit_targets=refit_targets,
+                    feature_sampler=tree_sampler[i],
+                    feature_mask=tree_mask[i], mono_cst=mono, timer=obs)
             return res if refine else (res, None)
 
         def build_one(i):
@@ -409,7 +453,7 @@ class _BaseForest(EstimatorBase):
                 binned, X, y, host=host, cfg=tree_cfg(tree_w[i]),
                 max_depth=self.max_depth, rd=rd, refine=refine,
                 n_classes=n_classes, sample_weight=tree_w[i],
-                ccp_alpha=self.ccp_alpha, clock=clock, stats=stats,
+                ccp_alpha=self.ccp_alpha, obs=obs,
                 packed=packed, refit_targets=refit_targets,
                 feature_sampler=tree_sampler[i],
                 feature_mask=tree_mask[i], mono_cst=mono, mesh=mesh,
@@ -438,31 +482,34 @@ class _BaseForest(EstimatorBase):
                     min_decrease_scaleds=[c.min_decrease_scaled
                                           for c in cfgs],
                     samplers=[tree_sampler[i] for i in grp], mono_cst=mono,
-                    mesh=mesh, stats=stats,
+                    mesh=mesh, timer=obs,
                 )
-                sync(clock.device)
+                sync(obs.device)
                 gt, ids = out if refine else (out, [None] * len(grp))
                 return [(t, g) for t, g in zip(gt, ids)], "fused"
 
             def host_fn():
-                clock.device = torch.device("cpu")
+                obs.device = torch.device("cpu")
                 hb = host_binned()
                 return [host_raw(i, hb) for i in grp], "host"
 
-            if host_binned is None:
-                built, engine = retry_device(
-                    dev, what="forest group streamed device build",
-                    obs=stats)
-            else:
-                built, engine = device_failover(
-                    dev, host_fn, what="forest group device build",
-                    obs=stats)
-            stats["engine"] = engine
-            if mesh is not None:
-                stats.update(n_shards=mesh.size, **mesh.stats)
-            stats["crown_seconds"] = stats.get("crown_seconds", 0.0) \
-                + clock.lap()
-            return [finish(i, t, ids) for i, (t, ids) in zip(grp, built)]
+            with observing(obs):
+                if host_binned is None:
+                    built, engine = retry_device(
+                        dev, what="forest group streamed device build",
+                        obs=obs)
+                else:
+                    built, engine = device_failover(
+                        dev, host_fn, what="forest group device build",
+                        obs=obs)
+                obs.decision(
+                    "engine", engine,
+                    reason=("trees batch into one fused build per group"
+                            if engine == "fused" else
+                            "device build failed; rebuilt on the host "
+                            "tier (MPITREE_TPU_ELASTIC=1)"))
+                return [finish(i, t, ids)
+                        for i, (t, ids) in zip(grp, built)]
 
         if ck is None:
             groups = [idxs] if idxs else []
@@ -474,22 +521,25 @@ class _BaseForest(EstimatorBase):
                 g = max(g, tree_data_shape(
                     1 if mesh is None else mesh.size, int(self.n_estimators),
                     dataset_bytes=4 * n * F,
-                    hbm_budget=forest_hbm_budget(clock.device))[0])
+                    hbm_budget=forest_hbm_budget(obs.device))[0])
             groups = [idxs[j:j + g] for j in range(0, len(idxs), g)]
         for grp in groups:
             new = (build_group(grp) if batched
                    else [build_one(i) for i in grp])
             trees.extend(new)
             if ck is not None:
-                ck.append(new)
-                ck.maybe_compact(self.checkpoint_compact_every, stats)
+                with obs.span("checkpoint_flush"):
+                    ck.append(new)
+                    ck.maybe_compact(self.checkpoint_compact_every, obs)
         if ck is not None:
             ck.done()
         return TreeList(trees)
 
-    def _open_checkpoint(self, task, keyed, X, binned, y, sample_weight):
+    def _open_checkpoint(self, task, keyed, X, binned, y, sample_weight,
+                         obs=None):
         """The fit's :class:`ForestCheckpoint` (``:679-707``), or None when
-        ``checkpoint`` is unset, or, with a warning, when the draws would
+        ``checkpoint`` is unset, or, with a warning and a
+        ``checkpoint_disabled`` event in ``obs``, when the draws would
         not replay (a forest drawn from a host RNG needs a fixed integer
         ``random_state``). Its fingerprint covers every parameter but
         ``checkpoint`` and ``device``, the task, and the raw rows, or a
@@ -499,7 +549,8 @@ class _BaseForest(EstimatorBase):
             return None
         if not keyed and not isinstance(self.random_state,
                                         numbers.Integral):
-            warnings.warn(
+            warn_event(
+                obs, "checkpoint_disabled",
                 "forest checkpointing requires a fixed integer "
                 "random_state so a resumed fit replays the same "
                 "bootstrap/feature draws; checkpoint disabled",
@@ -523,22 +574,30 @@ class _BaseForest(EstimatorBase):
         del self._oob_masks
         return masks
 
-    @staticmethod
-    def _warn_partial_oob(seen) -> None:
+    def _warn_partial_oob(self, seen) -> None:
         if not seen.all():
-            warnings.warn(
+            warn_event(
+                self._fit_obs, "oob_partial",
                 "Some inputs do not have OOB scores (too few trees); their "
                 "OOB estimates are NaN",
                 stacklevel=3,
             )
 
-    @staticmethod
-    def _warn_no_oob() -> float:
-        warnings.warn(
+    def _warn_no_oob(self) -> float:
+        warn_event(
+            self._fit_obs, "oob_empty",
             "no out-of-bag rows (too few trees); oob_score_ is nan",
             stacklevel=3,
         )
         return float("nan")
+
+    def _finish_fit(self) -> None:
+        """``fit_stats_`` and ``fit_report_`` from the fit's observer,
+        after the out-of-bag score (whose events it carries), with the
+        per-member summaries (``trees=``)."""
+        obs = self._fit_obs
+        del self._fit_obs
+        finish_report(self, obs, trees=self.trees_)
 
     # -- inference ---------------------------------------------------------
     def _check_fitted(self) -> None:
@@ -617,14 +676,15 @@ class RandomForestClassifier(ClassifierBase, _BaseForest):
         self.device = device
 
     # -- fitting -----------------------------------------------------------
-    def fit(self, X=None, y=None, sample_weight=None, *, dataset=None):
+    def fit(self, X=None, y=None, sample_weight=None, *, trace_to=None,
+            dataset=None):
         self._check_slice()
         if self.criterion not in ("entropy", "gini"):
             raise ValueError(
                 f"unknown classification criterion: {self.criterion!r}"
             )
         if is_streamed(X, dataset):
-            stream = self._open_stream(X, dataset, y)
+            stream = self._open_stream(X, dataset, y, trace_to)
             res = stream[0]
             y_enc, classes = validate_fit_targets(res.y)
             sw = apply_class_weight(self.class_weight, y_enc, classes,
@@ -635,6 +695,7 @@ class RandomForestClassifier(ClassifierBase, _BaseForest):
             )
             self._mono_p0 = None
             self._set_fitted(classes, res.binned.n_features)
+            self._finish_fit()
             res.close()
             return self
         X, y_enc, classes = validate_fit_data(X, y)
@@ -644,12 +705,13 @@ class RandomForestClassifier(ClassifierBase, _BaseForest):
         )
         self.trees_ = self._fit_forest(
             X, y_enc, task="classification", criterion=self.criterion,
-            n_classes=len(classes), sample_weight=sw,
+            n_classes=len(classes), sample_weight=sw, trace_to=trace_to,
         )
         self._mono_p0 = None  # predict_proba's clipped-fraction cache
         self._set_fitted(classes, X.shape[1])
         if self.oob_score:
             self._oob(X, y_enc, len(classes))
+        self._finish_fit()
         return self
 
     def _oob(self, X, y_enc, C: int) -> None:
@@ -769,10 +831,11 @@ class RandomForestRegressor(RegressorBase, _BaseForest):
         self.warm_start = warm_start
         self.device = device
 
-    def fit(self, X=None, y=None, sample_weight=None, *, dataset=None):
+    def fit(self, X=None, y=None, sample_weight=None, *, trace_to=None,
+            dataset=None):
         self._check_slice()
         if is_streamed(X, dataset):
-            stream = self._open_stream(X, dataset, y)
+            stream = self._open_stream(X, dataset, y, trace_to)
             res = stream[0]
             y64, _ = validate_fit_targets(res.y, task="regression")
             self._y_mean = float(y64.mean()) if len(y64) else 0.0
@@ -783,6 +846,7 @@ class RandomForestRegressor(RegressorBase, _BaseForest):
                 stream=stream,
             )
             self._set_fitted(res.binned.n_features)
+            self._finish_fit()
             res.close()
             return self
         X, y64, _ = validate_fit_data(X, y, task="regression")
@@ -791,10 +855,12 @@ class RandomForestRegressor(RegressorBase, _BaseForest):
         self.trees_ = self._fit_forest(
             X, (y64 - self._y_mean).astype(np.float32), task="regression",
             criterion="mse", refit_targets=y64, sample_weight=sw,
+            trace_to=trace_to,
         )
         self._set_fitted(X.shape[1])
         if self.oob_score:
             self._oob(X, y64)
+        self._finish_fit()
         return self
 
     def _oob(self, X, y64) -> None:

@@ -47,12 +47,14 @@ from mpitree_tpu_torch.core.tree_struct import TreeArrays
 from mpitree_tpu_torch.models._streamed import is_streamed, streamed_fit
 from mpitree_tpu_torch.models.classifier import (
     EstimatorBase,
-    FitClock,
+    finish_report,
     fit_mesh,
+    fit_observer,
     grow_tree,
     host_tier,
     predict_mesh,
 )
+from mpitree_tpu_torch.obs.observer import note_build_path, note_refine
 from mpitree_tpu_torch.ops.binning import bin_dataset, bin_for_engine
 from mpitree_tpu_torch.ops.predict import predict_leaf_ids
 from mpitree_tpu_torch.ops.sampling import sampler_for
@@ -141,9 +143,11 @@ class DecisionTreeRegressor(RegressorBase):
         self.device = device
 
     # -- fitting -----------------------------------------------------------
-    def fit(self, X=None, y=None, sample_weight=None, *, dataset=None):
+    def fit(self, X=None, y=None, sample_weight=None, *, trace_to=None,
+            dataset=None):
         if is_streamed(X, dataset):
-            return streamed_fit(self, X, dataset, y, sample_weight)
+            return streamed_fit(self, X, dataset, y, sample_weight,
+                                trace_to=trace_to)
         if self.criterion not in ("squared_error", "mse"):
             raise ValueError(
                 f"unknown regression criterion: {self.criterion!r}")
@@ -156,15 +160,17 @@ class DecisionTreeRegressor(RegressorBase):
         mln = validate_max_leaf_nodes(self)
         sw = validate_sample_weight(sample_weight, X.shape[0])
         self._y_mean = float(y64.mean())
-        clock = FitClock(device)
-        binned = (
-            bin_dataset(X, max_bins=self.max_bins, binning=self.binning)
-            if host else bin_for_engine(
-                X, max_bins=self.max_bins, binning=self.binning,
-                device=device,
+        obs = fit_observer(device, trace_to)
+        note_build_path(obs, host=host, backend=self.backend,
+                        n_rows=X.shape[0], n_features=X.shape[1])
+        with obs.phase("bin"):
+            binned = (
+                bin_dataset(X, max_bins=self.max_bins, binning=self.binning)
+                if host else bin_for_engine(
+                    X, max_bins=self.max_bins, binning=self.binning,
+                    device=device,
+                )
             )
-        )
-        stats = {"bin_seconds": clock.lap()}
         rd, refine, crown_depth = resolve_refine(
             self.max_depth, self.refine_depth,
             n_rows=X.shape[0], quantized=binned.quantized,
@@ -172,6 +178,9 @@ class DecisionTreeRegressor(RegressorBase):
         if mono is not None or mln is not None:
             # one engine for the whole depth (no tail past the leaf budget)
             rd, refine, crown_depth = None, False, self.max_depth
+        note_refine(obs, refine=refine, rd=rd, crown_depth=crown_depth,
+                    refine_depth_param=self.refine_depth,
+                    constrained=mono is not None, leafwise=mln is not None)
         cfg = BuildConfig(
             task="regression",
             criterion="mse",
@@ -191,7 +200,7 @@ class DecisionTreeRegressor(RegressorBase):
         self.tree_ = grow_tree(
             binned, X, y_c, host=host, cfg=cfg, max_depth=self.max_depth,
             rd=rd, refine=refine, n_classes=None, sample_weight=sw,
-            ccp_alpha=self.ccp_alpha, clock=clock, stats=stats,
+            ccp_alpha=self.ccp_alpha, obs=obs,
             refit_targets=y64,
             feature_sampler=sampler_for(self.max_features, self.random_state,
                                         X.shape[1], splitter=self.splitter),
@@ -199,7 +208,7 @@ class DecisionTreeRegressor(RegressorBase):
             host_binned=lambda: bin_dataset(X, max_bins=self.max_bins,
                                             binning=self.binning),
         )
-        self.fit_stats_ = stats
+        finish_report(self, obs, tree=self.tree_)
         self._set_fitted(X.shape[1])
         return self
 

@@ -35,6 +35,8 @@ from pathlib import Path
 
 import numpy as np
 
+from mpitree_tpu_torch.obs.observer import cold_event
+
 SRC = Path(__file__).resolve().parent / "split_kernel.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-march=native",
@@ -114,7 +116,10 @@ def lib():
         gxx = shutil.which("g++")
         if gxx is None:
             return None
-        cdll = ctypes.CDLL(str(_build(gxx)))
+        # its build (or a cached library's load): a cold event of the
+        # fit it happens in (obs/observer.cold_event)
+        with cold_event("native:split_kernel", "split_kernel"):
+            cdll = ctypes.CDLL(str(_build(gxx)))
         cdll.best_splits_classification.argtypes = [
             _i32p, _i32p, _i32p, ctypes.c_void_p, ctypes.c_int64,
             ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,

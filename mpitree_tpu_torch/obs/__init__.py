@@ -1,4 +1,75 @@
-"""Observability, counterpart of ``mpitree_tpu.obs``: so far the serving
-metrics registry (``obs.metrics``) and the streaming ingest's host
-arithmetic (``obs.memory``); the build records, traces, the memory
-planner and the rest come with ``ROADMAP.md`` Queue 1 item 18."""
+"""Observability, counterpart of ``mpitree_tpu.obs``.
+
+Every estimator writes its fit into a :class:`BuildObserver` and exposes
+the finalized :class:`BuildRecord` as ``fit_report_`` (the JAX package's
+schema 9 and top-level fields) and ``dump_report(path)``;
+``fit(trace_to=...)`` and ``CompiledModel.trace_to(...)`` render spans,
+events and replayed level rows as Chrome-trace timelines
+(:class:`TraceSink`); ``obs.fingerprint`` stamps every fit with per-level
+build-state fingerprints equal to the JAX package's on equal trees;
+``obs.metrics`` is the serving metrics registry and ``obs.memory`` the
+streaming ingest's host arithmetic. The memory planner, the cost ledger,
+the flight store, ``obs.diff`` and the advisor are ``ROADMAP.md`` item 18
+(18d-18f).
+"""
+
+from mpitree_tpu_torch.obs.fingerprint import (
+    FINGERPRINT_VERSION,
+    ensemble_fingerprint,
+    tree_fingerprints,
+)
+from mpitree_tpu_torch.obs.metrics import MetricsRegistry, metrics_text
+from mpitree_tpu_torch.obs.observer import (
+    REGISTRY,
+    BuildObserver,
+    CompileRegistry,
+    mesh_info,
+    note_build_path,
+    note_refine,
+    warn_event,
+)
+from mpitree_tpu_torch.obs.record import (
+    SCHEMA_VERSION,
+    STATS_MOVES,
+    TOP_LEVEL_FIELDS,
+    BuildRecord,
+    ReportMixin,
+    digest,
+    moved_stat,
+    stats_view,
+    wire_estimate,
+)
+from mpitree_tpu_torch.obs.trace import (
+    TRACE_DIR_ENV,
+    TraceSink,
+    merge_trace_files,
+    validate_trace,
+)
+
+__all__ = [
+    "FINGERPRINT_VERSION",
+    "SCHEMA_VERSION",
+    "STATS_MOVES",
+    "TOP_LEVEL_FIELDS",
+    "TRACE_DIR_ENV",
+    "BuildRecord",
+    "BuildObserver",
+    "CompileRegistry",
+    "MetricsRegistry",
+    "REGISTRY",
+    "ReportMixin",
+    "TraceSink",
+    "digest",
+    "ensemble_fingerprint",
+    "merge_trace_files",
+    "mesh_info",
+    "metrics_text",
+    "moved_stat",
+    "note_build_path",
+    "note_refine",
+    "stats_view",
+    "tree_fingerprints",
+    "validate_trace",
+    "warn_event",
+    "wire_estimate",
+]

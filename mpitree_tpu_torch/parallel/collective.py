@@ -65,8 +65,9 @@ the counts are XLA code outside any Pallas kernel in the JAX package, and
 stay plain torch operations here.
 
 :func:`split_psum_bytes` and :func:`counts_psum_bytes` (``:59-79``) give
-a reduction's logical payload; the mesh's ``stats`` count every
-reduction's calls, bytes and seconds for ``fit_stats_``.
+a reduction's logical payload (``:59-79``, ``:195-216``); the mesh's
+``stats`` count every reduction's calls, bytes and seconds, by kind and
+by site, for the fit's ``fit_report_["collectives"]``.
 """
 
 from __future__ import annotations
@@ -100,6 +101,28 @@ def counts_psum_bytes(*, n_slots: int, n_channels: int,
     return n_slots * n_channels * itemsize
 
 
+def select_global_bytes(*, n_slots: int) -> int:
+    """Logical payload of one winner merge over the feature axis
+    (``:195-202``): the JAX package's (4, K) f32 winner pack plus its
+    (K,) f32 non-constant sum. The port gathers (K, 7) float64 records
+    (:func:`select_global`); its measured bytes are in the record's
+    ``collectives["feature_merge_all_gather"]``."""
+    return 5 * n_slots * 4
+
+
+def gbdt_leaf_psum_bytes(*, n_slots: int, itemsize: int = 4) -> int:
+    """Logical payload of one fused-rounds leaf refit and loss reduction
+    (``:205-211``): the (M,) leaf G and H sums plus two f32 loss terms."""
+    return 2 * n_slots * itemsize + 2 * 4
+
+
+def replication_check_bytes() -> int:
+    """Logical payload of one replication probe
+    (``utils/profiling.assert_replicated``): the int64 fingerprint and
+    its negation, one MAX all-reduce."""
+    return 2 * 8
+
+
 def to_shards(t: torch.Tensor, mesh) -> list:
     """``t`` (on the lead shard) on every local shard of ``mesh``, in
     shard order: the split tables a reroute reads. No copy where a shard
@@ -114,7 +137,7 @@ def _parts(x) -> list:
 
 
 def psum(parts, mesh, op: str = "sum", *,
-         kind: str = "allreduce") -> torch.Tensor:
+         kind: str = "allreduce", site: str = "psum") -> torch.Tensor:
     """The reduction of one tensor per local shard (``parts``, in shard
     order) over ``mesh``, on the lead shard's device: the local shards
     summed (or their minimum or maximum taken) in shard order, then
@@ -123,7 +146,10 @@ def psum(parts, mesh, op: str = "sum", *,
     place. The identity with one shard and no process group (or no
     mesh). Records the call, its logical bytes and its seconds (ended
     when the devices are idle) in ``mesh.stats`` under ``kind``
-    (``allreduce``, ``route`` or ``tree_exchange``)."""
+    (``allreduce``, ``route`` or ``tree_exchange``) and, per call site,
+    under ``mesh.stats["sites"][site]`` (the JAX package's site names,
+    ``split_hist_psum``, ``counts_psum``, ...; the record's
+    ``collectives``)."""
     if op not in _REDUCE_OPS:
         raise ValueError(f"unknown reduction {op!r}; one of {_REDUCE_OPS}")
     parts = _parts(parts)
@@ -152,15 +178,23 @@ def psum(parts, mesh, op: str = "sum", *,
                         group=mesh.group)
     idle()
     _count(mesh, kind, acc.numel() * acc.element_size(),
-           time.perf_counter() - t0)
+           time.perf_counter() - t0, site=site)
     return acc
 
 
-def _count(mesh, kind: str, n_bytes: int, seconds: float) -> None:
+def _count(mesh, kind: str, n_bytes: int, seconds: float, *,
+           site: str, calls: int = 1) -> None:
+    """One collective into ``mesh.stats``: its kind's totals and its
+    site's ``{"calls", "bytes", "seconds"}``."""
     st = mesh.stats
-    st[f"{kind}_calls"] += 1
+    st[f"{kind}_calls"] += calls
     st[f"{kind}_bytes"] += int(n_bytes)
     st[f"{kind}_seconds"] += seconds
+    entry = st.setdefault("sites", {}).setdefault(
+        site, {"calls": 0, "bytes": 0, "seconds": 0.0})
+    entry["calls"] += calls
+    entry["bytes"] += int(n_bytes)
+    entry["seconds"] += seconds
 
 
 def gather_rows(parts, mesh, n_rows: int) -> torch.Tensor:
@@ -181,7 +215,8 @@ def gather_rows(parts, mesh, n_rows: int) -> torch.Tensor:
                        dtype=bits.dtype, device=lead)
     a = mesh.rank * bits.shape[0]
     full[a:a + bits.shape[0]] = bits
-    return psum([full], mesh)[:n_rows].view(local.dtype)
+    return psum([full], mesh, site="rows_gather")[:n_rows].view(
+        local.dtype)
 
 
 def _all_gather(t: torch.Tensor, group) -> torch.Tensor:
@@ -259,7 +294,7 @@ def select_global(decs: list, fmesh, f_local: int, blocks: list):
         gathered = _all_gather(best, fmesh.group)
         best = _first_min(list(gathered))
         _count(fmesh, "gather", best.numel() * best.element_size(),
-               time.perf_counter() - t0)
+               time.perf_counter() - t0, site="feature_merge_all_gather")
     d0 = decs[0]
     return d0._replace(
         feature=best[:, _FEAT].to(torch.int32),
@@ -283,9 +318,10 @@ def payload_scale(payloads, mesh, *, fixed: bool, n_rows: int):
     (``hist_kernel.float32_exact``, ``fixed_point_exponents``). Raises on
     a non-finite value. Two device-to-host copies."""
     stats = [hist_kernel.payload_stats(p) for p in _parts(payloads)]
-    sums = psum([s[1].clone() for s in stats], mesh)
+    sums = psum([s[1].clone() for s in stats], mesh,
+                site="payload_scale_psum")
     flag_top = psum([torch.stack([-s[0], s[2]]) for s in stats], mesh,
-                    "max")
+                    "max", site="payload_scale_pmax")
     integral = bool((flag_top[0] <= -1.0).all())
     return hist_kernel.scale_from_stats(
         integral, sums.cpu().numpy(), flag_top[1].cpu().numpy(),
@@ -489,7 +525,8 @@ def node_sums(q, node_id, chunk_lo: int, *, n_slots: int, scale_exp,
                         device=qi.device)
         h.index_add_(0, torch.where(valid, slot, n_slots), qi)
         parts.append(h[:n_slots])
-    return dequantize(psum(parts, mesh), scale_exp, dim=1)
+    return dequantize(psum(parts, mesh, site="counts_psum"), scale_exp,
+                      dim=1)
 
 
 def y_range(y, node_id, w, chunk_lo, *, n_slots: int,
@@ -517,7 +554,7 @@ def y_range(y, node_id, w, chunk_lo, *, n_slots: int,
                         device=yi.device).scatter_reduce(0, s, yv, "amax")
         # one MIN reduction for both: (min y, -max y)
         parts.append(torch.stack([lo[:n_slots], -hi[:n_slots]]))
-    lo_hi = psum(parts, mesh, "min")
+    lo_hi = psum(parts, mesh, "min", site="y_range_pminmax")
     lo, hi = lo_hi[0], -lo_hi[1]
     return torch.where(hi >= lo, hi - lo, torch.zeros_like(hi))
 
@@ -578,7 +615,8 @@ def route_psum(nids: list, xs: list, mesh, chunk_lo: int, is_split,
         if i in done:
             continue
         row = mesh.axis_mesh(FEATURE_AXIS, i)
-        total = psum([contrib[j] for j in row.local], row, kind="route")
+        total = psum([contrib[j] for j in row.local], row, kind="route",
+                     site="route_psum")
         for j in row.local:
             out[j] = torch.where(active[j], total.to(nids[j].device),
                                  nids[j])
@@ -642,7 +680,7 @@ def pair_split_stats(x_binned, payload, node_id, cand_mask: torch.Tensor,
             x, q, None, 0, n_slots=n_acc, n_bins=n_bins,
             packed=pk[i] if i < len(pk) else None, feat_bins=feat_bins,
             scale_exp=scale_exp, slot=slot.contiguous()))
-    hist = psum(parts, mesh)
+    hist = psum(parts, mesh, site="split_hist_psum")
     if subtraction:
         hist = hist_ops.sibling_reconstruct_pair(hist, parent_hist, is_small)
     yr = None

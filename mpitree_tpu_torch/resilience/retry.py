@@ -29,9 +29,11 @@ its warning texts:
    the JAX package's is on), the classified error raises instead, so a
    fit asked for on the card finishes there or fails.
 
-``obs`` is the fit's stats sink: a dict (``fit_stats_``, whose counters
-take the JAX package's names) or anything with ``counter(name)``. The
-JAX package's typed events come with ``ROADMAP.md`` item 18a. User errors
+``obs`` is the fit's observer (``obs.BuildObserver``; any PhaseTimer, or
+None): each rung adds to its counter and records the JAX package's typed
+event beside it (``device_retry``, ``level_retry``, ``device_failover``,
+with their data fields), whose kinds ``obs/events.py`` registers; a
+serving model passes an object with ``counter`` only. User errors
 re-raise from every rung, and ``MPITREE_TPU_ELASTIC=0`` turns the ladder
 off. The budgets are read from the knobs (``ResilienceConfig.from_env``)
 once per ladder. A ``chaos.ChaosKilled`` (a ``BaseException``) passes every rung.
@@ -64,14 +66,17 @@ from mpitree_tpu_torch.resilience.failure import (
 
 
 def count(obs, name: str, n: int = 1) -> None:
-    """Add ``n`` to counter ``name`` of the sink ``obs`` (a dict, an
-    object with ``counter``, or None)."""
-    if obs is None:
-        return
-    if isinstance(obs, dict):
-        obs[name] = obs.get(name, 0) + n
-    else:
+    """Add ``n`` to counter ``name`` of the sink ``obs`` (an object with
+    ``counter``, or None)."""
+    if obs is not None:
         obs.counter(name, n)
+
+
+def event(obs, kind: str, message: str, **data) -> None:
+    """The typed event ``kind`` into ``obs`` (one with ``event``; a
+    counter-only sink or None takes none)."""
+    if obs is not None and hasattr(obs, "event"):
+        obs.event(kind, message, **data)
 
 
 def sync(device) -> None:
@@ -92,6 +97,11 @@ def _transient_retry(e: BaseException, attempt: int, cfg: ResilienceConfig,
     delay = backoff_delay(cfg, attempt, salt=what)
     n = attempt + 1
     count(obs, "device_retries")
+    event(obs, "device_retry",
+          f"transient device failure during {what} "
+          f"({type(e).__name__}: {str(e)[:160]}); retry "
+          f"{n}/{cfg.max_retries} on the device tier",
+          attempt=n, delay_s=round(delay, 3))
     warnings.warn(
         f"transient device failure during {what} "
         f"({type(e).__name__}: {str(e)[:160]}); retrying on the device "
@@ -117,6 +127,14 @@ def _subbuild_retry(e: BaseException, resume, cfg: ResilienceConfig,
         return False
     delay = backoff_delay(cfg, resume.retries - 1, salt=f"{what}#sub")
     count(obs, "level_retries")
+    event(obs, "level_retry",
+          f"transient device failure during {what} "
+          f"({type(e).__name__}: {str(e)[:160]}); re-dispatching from "
+          f"the last completed {snap.kind} ({snap.position}) instead "
+          f"of restarting the build "
+          f"(retry {resume.retries}/{cfg.max_retries} at this position)",
+          granularity=snap.kind, resume_at=int(snap.position),
+          attempt=resume.retries, delay_s=round(delay, 3))
     warnings.warn(
         f"transient device failure during {what} "
         f"({type(e).__name__}: {str(e)[:160]}); resuming from "
@@ -184,6 +202,9 @@ def device_failover(device_fn, host_fn, *, what: str, obs=None,
             if not host_failover_enabled():
                 raise
             count(obs, "device_failovers")
+            event(obs, "device_failover",
+                  f"device failure during {what} ({type(e).__name__}: "
+                  f"{str(e)[:160]}); rebuilding on the host tier")
             warnings.warn(
                 f"device failure during {what} ({type(e).__name__}: "
                 f"{str(e)[:200]}); rebuilding on the host tier"

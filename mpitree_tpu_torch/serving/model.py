@@ -63,9 +63,18 @@ per-bucket request latency histograms (``bucket="oversize"`` for a
 chunked batch), request, row, clocked-row and deadline-miss counters,
 the retry counter ``mpitree_serving_retries_total`` and the fallback
 counter, which stays 0 (there is no fallback).
-``serve_report_`` is a plain dict: kind, exactness, the dispatch, the
-quantization report, buckets, requests and rows served, and the latency
-summary. Fingerprints are not ported (``ROADMAP.md`` item 18).
+``serve_report_`` is the model's observer record (``obs.BuildObserver``,
+the JAX package's ``:79,318-323,431,534-538``: the ``serving_dispatches``,
+``serving_requests`` and ``serving_rows`` counters, the retry rung's
+counters and events, and the whole model's fingerprint,
+``obs/fingerprint.ensemble_fingerprint``, as ``fingerprints["fit"]``)
+plus kind, exactness, the dispatch, the quantization report, buckets,
+requests and rows served, and the latency summary.
+:meth:`CompiledModel.trace_to` renders each dispatch as a
+``serving_dispatch`` span on the ``serving`` track of a trace sink,
+shared with fits. A span times the launch: the request path never waits
+for the card inside a dispatch (the latency histograms time requests end
+to end). The serving memory plan is ``ROADMAP.md`` item 18e.
 
 Every traversal's launch runs through the retry rung of the resilience
 ladder (``resilience.retry_device``; the JAX package's ``:286-326``)
@@ -88,7 +97,12 @@ import torch
 
 from mpitree_tpu_torch._device import resolve_device
 from mpitree_tpu_torch.config import knobs
+from mpitree_tpu_torch.obs.fingerprint import (
+    FINGERPRINT_VERSION,
+    ensemble_fingerprint,
+)
 from mpitree_tpu_torch.obs.metrics import MetricsRegistry
+from mpitree_tpu_torch.obs.observer import BuildObserver
 from mpitree_tpu_torch.resilience import chaos
 from mpitree_tpu_torch.resilience.retry import retry_device
 from mpitree_tpu_torch.serving import quantize as quantize_lib
@@ -112,15 +126,22 @@ def _pad_rows(X: np.ndarray, b: int) -> np.ndarray:
 
 
 class _RetrySink:
-    """The retry rung's counter sink: its ``device_retries`` go to the
-    model's ``mpitree_serving_retries_total``."""
+    """The retry rung's sink: its counters and typed events go to the
+    model's observer, and its ``device_retries`` also to the model's
+    ``mpitree_serving_retries_total``."""
 
-    def __init__(self, counter):
-        self._counter = counter
+    def __init__(self, counter, obs, lock):
+        self._counter, self._obs, self._lock = counter, obs, lock
 
     def counter(self, name: str, n: int = 1) -> None:
         if name == "device_retries":
             self._counter.inc(n)
+        with self._lock:
+            self._obs.counter(name, n)
+
+    def event(self, kind: str, message: str, **data) -> None:
+        with self._lock:
+            self._obs.event(kind, message, **data)
 
 
 class _Slot:
@@ -218,8 +239,14 @@ class CompiledModel:
             "mpitree_serving_deadline_misses_total")
         # the JAX package's retry and fallback families: the retry rung
         # counts here (_RetrySink); there is no fallback, so 0
+        self._state_lock = threading.Lock()
+        self._obs = BuildObserver()
+        self._obs.record.fingerprints = {
+            "version": FINGERPRINT_VERSION, "trees": [],
+            "fit": ensemble_fingerprint(self.trees)}
         self._retries = _RetrySink(
-            self.metrics.counter("mpitree_serving_retries_total"))
+            self.metrics.counter("mpitree_serving_retries_total"),
+            self._obs, self._state_lock)
         self.metrics.counter("mpitree_serving_fallbacks_total")
         if device.type == "cuda":
             self._copy_stream = torch.cuda.Stream(device)
@@ -306,8 +333,11 @@ class CompiledModel:
             chaos.step("serving_dispatch")
             return self._compute(X)
 
-        return retry_device(dev, what="serving traversal dispatch",
-                            obs=self._retries)
+        with self._state_lock:
+            self._obs.counter("serving_dispatches")
+        with self._obs.span("serving_dispatch"):
+            return retry_device(dev, what="serving traversal dispatch",
+                                obs=self._retries)
 
     def _compute(self, X: torch.Tensor) -> torch.Tensor:
         """One bucket-shaped batch on the model's device -> its answer
@@ -389,6 +419,9 @@ class CompiledModel:
                 f"{X.shape}"
             )
         n = X.shape[0]
+        with self._state_lock:
+            self._obs.counter("serving_requests")
+            self._obs.counter("serving_rows", n)
         self._m_requests.inc()
         self._m_rows.inc(n)
         b = self._bucket(n)
@@ -509,9 +542,19 @@ class CompiledModel:
         ``ModelRegistry`` merges under one ``# TYPE`` line per family."""
         return self.metrics.render_families(extra_labels)
 
+    def trace_to(self, sink, *, track: str = "serving") -> None:
+        """Route this model's dispatch spans and events into a Chrome
+        trace sink (a path, or an ``obs.TraceSink`` shared with fits: one
+        fit and serve timeline); a path sink is written at each
+        :attr:`serve_report_`."""
+        self._obs.trace_to(sink, track=track)
+
     @property
     def serve_report_(self) -> dict:
+        with self._state_lock:
+            rep = self._obs.report()
         return {
+            **rep,
             "kind": self.kind,
             "exact": bool(self.exact),
             "device": str(self.device),

@@ -225,3 +225,19 @@ def table_notes(trees) -> dict:
         "n_steps": n_steps,
         "flat_fill": round(total / stacked_cells, 4) if stacked_cells else 1.0,
     }
+
+
+def note_serving(obs, trees) -> None:
+    """Record the serving-table plan on a fit's observer (the JAX
+    package's ``note_serving``, ``mpitree_tpu/serving/tables.py:258``):
+    what ``compile_model`` will flatten the fitted trees into."""
+    notes = table_notes(trees)
+    obs.decision(
+        "serving", "flat-table",
+        reason=(
+            f"depth-packed node table: {notes['n_nodes']} nodes, "
+            f"{notes['n_steps']} descent steps (true ensemble depth), "
+            f"{notes['flat_fill']:.0%} of the padded stacked grid"
+        ),
+        **notes,
+    )

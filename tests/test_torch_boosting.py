@@ -38,6 +38,7 @@ pytest.importorskip("sklearn")
 
 import mpitree_tpu_torch as P  # noqa: E402
 from mpitree_tpu_torch.boosting import losses as plosses  # noqa: E402
+from mpitree_tpu_torch.obs import stats_view  # noqa: E402
 from mpitree_tpu_torch.ops import impurity as pimp  # noqa: E402
 from mpitree_tpu_torch.ops import sampling as psamp  # noqa: E402
 from mpitree_tpu_torch.utils.datasets import (  # noqa: E402
@@ -308,7 +309,7 @@ def test_ensemble_equals_jax(fits, name):
 
 def test_early_stopping_stops_where_jax_does(fits):
     p, j, *_ = fits["binary_early_stop"]
-    assert p.n_iter_ < p.max_iter and p.fit_stats_["early_stop"]
+    assert p.n_iter_ < p.max_iter and stats_view(p.fit_report_)["early_stop"]
     assert len(p.validation_score_) == p.n_iter_ + 1
 
 
@@ -405,12 +406,27 @@ def test_refit_is_bit_for_bit(fits):
 
 # -- the estimator surface ------------------------------------------------------
 
-def test_fit_stats_staged_surfaces_and_params(fits):
+def test_fit_stats_staged_surfaces_and_params(fits, monkeypatch):
     p, _, X, y, _ = fits["multi"]
-    st = p.fit_stats_
+    st = stats_view(p.fit_report_)
+    assert [r["round"] for r in p.fit_report_["rounds"]] == list(
+        range(p.n_iter_))
+    # the laps are timed only under MPITREE_TPU_PROFILE=1 (F8): without
+    # it fit_stats_ is None and every round row's seconds too; with it the
+    # phase summary and the rows' laps, which the old keys read back
+    small = dict(max_iter=2, max_depth=3, device="cpu")
+    monkeypatch.delenv("MPITREE_TPU_PROFILE", raising=False)
+    off = P.GradientBoostingClassifier(**small).fit(X[:600], y[:600])
+    assert off.fit_stats_ is None
+    for k in ("seconds", "loss_seconds", "build_seconds", "refit_seconds"):
+        assert all(r[k] is None for r in off.fit_report_["rounds"]), k
+    monkeypatch.setenv("MPITREE_TPU_PROFILE", "1")
+    on = P.GradientBoostingClassifier(**small).fit(X[:600], y[:600])
+    lap = stats_view(on.fit_report_)
     for k in ("bin_seconds", "loss_seconds", "build_seconds",
               "refit_seconds"):
-        assert st[k] >= 0.0, k
+        assert lap[k] >= 0.0, k
+    assert {"bin", "split"} <= set(on.fit_stats_)
     assert st["n_rounds"] == p.n_iter_ == MULTI["max_iter"]
     # a multiclass loss blocks the fused rounds: "auto" stays on the host
     # loop and says why

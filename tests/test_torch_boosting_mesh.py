@@ -28,6 +28,7 @@ import torch
 pytest.importorskip("jax")
 
 from mpitree_tpu_torch.boosting import fused_rounds  # noqa: E402
+from mpitree_tpu_torch.obs import stats_view  # noqa: E402
 from mpitree_tpu_torch.parallel import mesh as M  # noqa: E402
 from mpitree_tpu_torch.tree import (  # noqa: E402
     GradientBoostingClassifier,
@@ -106,8 +107,8 @@ def test_sharded_fit_bit_identical(binary, port_clf, jax_clf, n_devices):
     X, y = binary
     many = GradientBoostingClassifier(device="cpu", n_devices=n_devices,
                                       **CLF_KW).fit(X, y)
-    assert many.fit_stats_["n_shards"] == n_devices
-    assert many.fit_stats_["allreduce_calls"] > 0
+    assert stats_view(many.fit_report_)["n_shards"] == n_devices
+    assert stats_view(many.fit_report_)["allreduce_calls"] > 0
     _same_ensemble(many, port_clf, f"{n_devices} shards vs one")
     _same_ensemble(many, jax_clf, f"{n_devices} shards vs JAX")
     np.testing.assert_array_equal(many.predict_proba(X),
@@ -162,7 +163,7 @@ def test_fused_rounds_mesh_invariant(fused_one, n_devices):
     other = GradientBoostingRegressor(
         device="cpu", n_devices=n_devices, rounds_per_dispatch=4,
         **GBF_KW).fit(X, y)
-    st = other.fit_stats_
+    st = stats_view(other.fit_report_)
     assert st["rounds_per_dispatch"]["value"] == 4
     assert st["dispatches"] == 3
     assert st["graph"] is False and st["graph_reason"]
@@ -238,6 +239,7 @@ import torch
 torch.set_num_threads(1)
 port, pid = sys.argv[1], int(sys.argv[2])
 from mpitree_tpu_torch.parallel import distributed, mesh
+from mpitree_tpu_torch.obs import stats_view
 mesh.set_cpu_shards(2)
 distributed.initialize(f"localhost:{{port}}", 2, pid, backend="gloo",
                        timeout=60)
@@ -256,8 +258,8 @@ for k in (1, 4):
         for f in ("feature", "threshold", "left", "count", "value"):
             assert np.array_equal(getattr(a, f), getattr(b, f),
                                   equal_nan=True), (k, f)
-    assert par.fit_stats_["n_shards"] == 4, par.fit_stats_
-    assert par.fit_stats_["allreduce_calls"] > 0
+    assert stats_view(par.fit_report_)["n_shards"] == 4, stats_view(par.fit_report_)
+    assert stats_view(par.fit_report_)["allreduce_calls"] > 0
 print(f"PROC{{pid}} OK", flush=True)
 distributed.shutdown()
 """

@@ -39,6 +39,7 @@ from mpitree_tpu_torch import (  # noqa: E402
     GradientBoostingRegressor,
     RandomForestClassifier,
 )
+from mpitree_tpu_torch.obs import stats_view  # noqa: E402
 from mpitree_tpu_torch.resilience import (  # noqa: E402
     BoostCheckpoint,
     BuildCheckpoint,
@@ -295,7 +296,7 @@ def test_checkpointed_equals_uncheckpointed(tmp_path, monkeypatch, engine):
     ck = RandomForestClassifier(checkpoint=str(tmp_path / "c.npz"),
                                 **kw).fit(X, y)
     _same_trees(ck.trees_, plain.trees_)
-    assert ck.fit_stats_["ensemble_path"] == (
+    assert stats_view(ck.fit_report_)["ensemble_path"] == (
         "batched-fused" if engine == "fused" else "per-tree")
 
 
@@ -306,7 +307,7 @@ def test_forest_checkpoint_compact_every(tmp_path):
     path = str(tmp_path / "forest.ckpt")
     clf = RandomForestClassifier(checkpoint=path, checkpoint_compact_every=2,
                                  **kw).fit(X, y)
-    assert clf.fit_stats_.get("checkpoint_compactions", 0) >= 1
+    assert stats_view(clf.fit_report_).get("checkpoint_compactions", 0) >= 1
     assert not os.path.exists(path)
     np.testing.assert_array_equal(clf.predict(X), ref.predict(X))
 
@@ -344,7 +345,7 @@ def test_gbdt_resume_bit_identical(tmp_path, gb_ref, kill_round):
                                          **GB_KW).fit(X, y)
     assert not os.path.exists(path)
     assert resumed.n_iter_ == ref.n_iter_
-    assert resumed.fit_stats_.get("resumed_rounds", 0) == (
+    assert stats_view(resumed.fit_report_).get("resumed_rounds", 0) == (
         kill_round // 2 * 2)
     for a, b in zip(resumed.staged_predict_proba(X),
                     ref.staged_predict_proba(X)):
@@ -477,15 +478,15 @@ def test_fused_rounds_resume_bit_identical(tmp_path, kill_dispatch):
               random_state=0, subsample=0.8, checkpoint_every=4,
               device="cpu")
     ref = GradientBoostingRegressor(**kw).fit(X, yr)
-    assert ref.fit_stats_["dispatches"] == 3
+    assert stats_view(ref.fit_report_)["dispatches"] == 3
     path = str(tmp_path / "fused.ckpt")
     chaos.install([Fault("fused_rounds", kill_dispatch, "kill")])
     with pytest.raises(ChaosKilled):
         GradientBoostingRegressor(checkpoint=path, **kw).fit(X, yr)
     chaos.clear()
     resumed = GradientBoostingRegressor(checkpoint=path, **kw).fit(X, yr)
-    assert resumed.fit_stats_["resumed_rounds"] == 4 * (kill_dispatch - 1)
-    assert resumed.fit_stats_["dispatches"] == 4 - kill_dispatch
+    assert stats_view(resumed.fit_report_)["resumed_rounds"] == 4 * (kill_dispatch - 1)
+    assert stats_view(resumed.fit_report_)["dispatches"] == 4 - kill_dispatch
     for a, b in zip(resumed.staged_predict(X), ref.staged_predict(X)):
         np.testing.assert_array_equal(a, b)
     np.testing.assert_array_equal(resumed.train_score_, ref.train_score_)

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from mpitree_tpu_torch.ops import hist_kernel
+from mpitree_tpu_torch.obs import stats_view
 
 pytestmark = pytest.mark.cuda
 
@@ -276,7 +277,7 @@ def test_fractional_weight_and_regression_fits_on_the_card(cuda):
         assert hist_kernel.launches["sorted_fixed"] > before["sorted_fixed"]
         assert hist_kernel.launches["stream_fixed"] > before["stream_fixed"]
         cpu = est("cpu").fit(*data[:2], sample_weight=data[2])
-        assert gpu.fit_stats_["engine"] == "fused"
+        assert stats_view(gpu.fit_report_)["engine"] == "fused"
         for k in fields:
             np.testing.assert_array_equal(getattr(gpu.tree_, k),
                                           getattr(cpu.tree_, k), err_msg=k)
@@ -309,8 +310,8 @@ def test_crown_leaf_ids_and_default_fit_on_the_card(cuda):
 
     fits = [DecisionTreeClassifier(max_depth=14, device=d).fit(
         X, y, sample_weight=w) for d in ("cuda", "cpu")]
-    assert fits[0].fit_stats_["crown_depth"] == 4
-    assert fits[0].fit_stats_["refine_nodes_added"] > 0
+    assert stats_view(fits[0].fit_report_)["crown_depth"] == 4
+    assert stats_view(fits[0].fit_report_)["refine_nodes_added"] > 0
     for k in ("feature", "threshold", "left", "right", "count",
               "n_node_samples", "impurity"):
         np.testing.assert_array_equal(getattr(fits[0].tree_, k),
@@ -833,8 +834,8 @@ def test_fused_forest_on_the_card_equals_cpu(cuda):
         lw = ExtraTreesClassifier(device="cuda", **kw).fit(X, y)
     finally:
         del os.environ["MPITREE_TPU_ENGINE"]
-    assert gpu.fit_stats_["ensemble_path"] == "batched-fused"
-    assert lw.fit_stats_["ensemble_path"] == "per-tree"
+    assert stats_view(gpu.fit_report_)["ensemble_path"] == "batched-fused"
+    assert stats_view(lw.fit_report_)["ensemble_path"] == "per-tree"
     for i, (a, b, c) in enumerate(zip(gpu.trees_, cpu.trees_, lw.trees_)):
         _same_trees(a, b, f"tree {i} cpu")
         _same_trees(a, c, f"tree {i} levelwise")
@@ -943,7 +944,7 @@ def test_fused_rounds_on_the_card_equal_cpu(cuda, what):
     for key, m in fits.items():
         np.testing.assert_allclose(margins(m), ref, rtol=2e-4, atol=2e-4,
                                    err_msg=str(key))
-    assert fits[("cuda", 4)].fit_stats_["dispatches"] == 3
+    assert stats_view(fits[("cuda", 4)].fit_report_)["dispatches"] == 3
 
 
 # ---------------------------------------------------------------------------
@@ -1107,7 +1108,7 @@ def test_in_process_mesh_on_the_card_equals_one_device(cuda, task):
                 0.5, 2, len(y)).astype(np.float32))
     one = make(n_devices=None, device="cuda", **kw).fit(X, y, **fit_kw)
     par = make(n_devices="all", device="cuda", **kw).fit(X, y, **fit_kw)
-    assert par.fit_stats_["n_shards"] == torch.cuda.device_count()
+    assert stats_view(par.fit_report_)["n_shards"] == torch.cuda.device_count()
     prev = M.set_cpu_shards(4)
     try:
         cpu = make(n_devices="all", device="cpu", **kw).fit(X, y, **fit_kw)
@@ -1297,8 +1298,8 @@ def test_real_oom_on_the_card_fails_over_to_the_cpu_tree(cuda, monkeypatch):
     monkeypatch.setattr(clf_mod, "build_tree", real_build)
     assert len(seen) == 2 and isinstance(seen[1], torch.OutOfMemoryError)
     assert is_oom_failure(seen[1])
-    assert got.fit_stats_["device_failovers"] == 1
-    assert got.fit_stats_["engine"] == "host"
+    assert stats_view(got.fit_report_)["device_failovers"] == 1
+    assert stats_view(got.fit_report_)["engine"] == "host"
     host = DecisionTreeClassifier(backend="host", device="cpu",
                                   **kw).fit(X, y)
     for k in ("feature", "threshold", "left", "right", "count"):
@@ -1331,7 +1332,7 @@ def test_retry_on_the_card_grows_the_same_tree(cuda, monkeypatch, spec,
             got = DecisionTreeClassifier(**kw).fit(X, y)
     finally:
         chaos.clear()
-    assert got.fit_stats_[rung] == 1 and got.fit_stats_["engine"] != "host"
+    assert stats_view(got.fit_report_)[rung] == 1 and stats_view(got.fit_report_)["engine"] != "host"
     for k in ("feature", "threshold", "left", "right", "count"):
         np.testing.assert_array_equal(getattr(got.tree_, k),
                                       getattr(want.tree_, k))

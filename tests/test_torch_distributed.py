@@ -72,6 +72,7 @@ torch.set_num_threads(1)
 
 port, pid = sys.argv[1], int(sys.argv[2])
 from mpitree_tpu_torch.parallel import distributed, mesh
+from mpitree_tpu_torch.obs import stats_view
 mesh.set_cpu_shards(2)
 distributed.initialize(f"localhost:{{port}}", 2, pid, backend="gloo",
                        timeout=60)
@@ -96,7 +97,7 @@ dist = ParallelDecisionTreeClassifier(max_depth=4, device="cpu").fit(X, y)
 host = DecisionTreeClassifier(max_depth=4, backend="host",
                               device="cpu").fit(X, y)
 assert dist.export_text() == host.export_text(), "distributed tree differs"
-st = dist.fit_stats_
+st = stats_view(dist.fit_report_)
 assert st["n_shards"] == 4 and st["allreduce_calls"] > 0, st
 assert st["replication_checks"] > 0, st
 assert (dist.predict_proba(X) == host.predict_proba(X)).all()
@@ -112,7 +113,7 @@ assert reg.export_text() == href.export_text(), "regression tree differs"
 # same host tail in both processes
 Xc, yc = covtype_like(6_000, seed=5)
 dflt = ParallelDecisionTreeClassifier(device="cpu").fit(Xc, yc)
-assert dflt.fit_stats_["refine_nodes_added"] > 0
+assert stats_view(dflt.fit_report_)["refine_nodes_added"] > 0
 one = DecisionTreeClassifier(device="cpu").fit(Xc, yc)
 for k in ("feature", "threshold", "left", "right", "count",
           "n_node_samples", "impurity", "value"):

@@ -35,6 +35,7 @@ from mpitree_tpu_torch.tree import (  # noqa: E402
     ExtraTreesClassifier,
     RandomForestClassifier,
 )
+from mpitree_tpu_torch.obs import stats_view  # noqa: E402
 from mpitree_tpu_torch.utils.datasets import covtype_like  # noqa: E402
 
 @pytest.fixture(scope="module", autouse=True)
@@ -86,7 +87,7 @@ def sqrt_forests(request, data):
 
 def test_sqrt_forest_trees_equal_jax(sqrt_forests):
     mode, ref, port = sqrt_forests
-    assert port.fit_stats_["refine_nodes_added"] > 0
+    assert stats_view(port.fit_report_)["refine_nodes_added"] > 0
     _same_forest(port, ref)
     used = {int(f) for t in port.trees_ for f in t.feature[t.feature >= 0]}
     if mode == "tree":  # each tree keeps to its 7 features
@@ -131,8 +132,8 @@ def test_extra_trees_defaults_equal_jax():
     kw = dict(n_estimators=2, max_depth=6, random_state=1)
     ref = JaxET(**kw).fit(X, y)
     port = ExtraTreesClassifier(device="cpu", **kw).fit(X, y)
-    assert port.fit_stats_["refine_engine"] == "per-subtree"
-    assert port.fit_stats_["refine_nodes_added"] > 0
+    assert stats_view(port.fit_report_)["refine_engine"] == "per-subtree"
+    assert stats_view(port.fit_report_)["refine_nodes_added"] > 0
     _same_forest(port, ref)
 
 

@@ -33,6 +33,7 @@ from mpitree_tpu.parallel import mesh as jax_mesh  # noqa: E402
 from mpitree_tpu.parallel import partition as jax_partition  # noqa: E402
 
 from mpitree_tpu_torch.core.builder import BuildConfig, build_tree  # noqa: E402
+from mpitree_tpu_torch.obs import stats_view  # noqa: E402
 from mpitree_tpu_torch.ops import impurity as imp_ops  # noqa: E402
 from mpitree_tpu_torch.ops.binning import bin_for_engine  # noqa: E402
 from mpitree_tpu_torch.parallel import collective  # noqa: E402
@@ -102,7 +103,7 @@ def test_classifier_identical_across_mesh_shapes(base_clf, jax_clf, shape):
     _same_tree(meshed.tree_, jax_clf.tree_, f"{shape} vs JAX (4, 2)")
     assert meshed.export_text() == jax_clf.export_text()
     if shape[1] > 1:
-        assert meshed.fit_stats_["route_calls"] > 0
+        assert stats_view(meshed.fit_report_)["route_calls"] > 0
 
 
 @pytest.mark.parametrize("shape", [(4, 2), (2, 4)])
@@ -337,6 +338,7 @@ import torch
 torch.set_num_threads(1)
 port, pid, nloc = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
 from mpitree_tpu_torch.parallel import distributed, mesh
+from mpitree_tpu_torch.obs import stats_view
 mesh.set_cpu_shards(nloc)
 distributed.initialize(f"localhost:{{port}}", 2, pid, backend="gloo",
                        timeout=60)
@@ -362,7 +364,7 @@ for shape in shapes:
                                   getattr(one.tree_, k),
                                   equal_nan=True), (shape, engine, k)
     os.environ.pop("MPITREE_TPU_ENGINE")
-    st = par.fit_stats_
+    st = stats_view(par.fit_report_)
     assert st["route_calls"] > 0, st
     if shape[1] > nloc:  # the feature axis spans the processes
         assert st["gather_calls"] > 0 and st["replication_checks"] > 0, st

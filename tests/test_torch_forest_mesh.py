@@ -31,6 +31,7 @@ pytest.importorskip("jax")
 from mpitree_tpu.parallel import mesh as jax_mesh  # noqa: E402
 
 from mpitree_tpu_torch.core.builder import BuildConfig  # noqa: E402
+from mpitree_tpu_torch.obs import BuildObserver, stats_view  # noqa: E402
 from mpitree_tpu_torch.core.fused_builder import build_forest_fused  # noqa: E402
 from mpitree_tpu_torch.ops.binning import bin_for_engine  # noqa: E402
 from mpitree_tpu_torch.parallel import mesh as M  # noqa: E402
@@ -179,10 +180,11 @@ def test_data_sharded_forest_matches_single_device(trees):
     cfg_kw = dict(task="classification", criterion="entropy", max_depth=6)
     mesh8 = M.resolve_mesh(device="cpu", n_devices="all")
     assert M.tree_data_shape(mesh8.size, trees)[1] > 1
-    stats = {}
+    obs = BuildObserver()
     sharded = build_forest_fused(
         binned, y, config=BuildConfig(**cfg_kw), mesh=mesh8,
-        weights=weights, cand_masks=masks, n_classes=4, stats=stats)
+        weights=weights, cand_masks=masks, n_classes=4, timer=obs)
+    stats = stats_view(obs.report())
     single = build_forest_fused(
         binned, y, config=BuildConfig(**cfg_kw), weights=weights,
         cand_masks=masks, n_classes=4)
@@ -220,14 +222,16 @@ def test_hbm_guard_forces_data_axis(monkeypatch):
     cfg = BuildConfig(max_depth=4)
     mesh8 = M.resolve_mesh(device="cpu", n_devices="all")
     monkeypatch.setenv(M.FOREST_HBM_BUDGET_ENV, "1")
-    st_g, st_p = {}, {}
+    obs_g, obs_p = BuildObserver(), BuildObserver()
     guarded = build_forest_fused(binned, y, config=cfg, mesh=mesh8,
                                  weights=weights, cand_masks=masks,
-                                 n_classes=4, stats=st_g)
+                                 n_classes=4, timer=obs_g)
     monkeypatch.setenv(M.FOREST_HBM_BUDGET_ENV, str(8 << 30))
     plain = build_forest_fused(binned, y, config=cfg, mesh=mesh8,
                                weights=weights, cand_masks=masks,
-                               n_classes=4, stats=st_p)
+                               n_classes=4, timer=obs_p)
+    st_g = stats_view(obs_g.report())
+    st_p = stats_view(obs_p.report())
     assert (st_g["forest_mesh"], st_p["forest_mesh"]) == ([1, 8], [8, 1])
     _same_forest(guarded, plain, "guarded vs plain")
 
@@ -254,8 +258,8 @@ def test_forest_estimator_on_wide_mesh_small_ensemble(cov, jax_wide):
     kw = dict(n_estimators=3, max_depth=6, random_state=0, device="cpu")
     wide = RandomForestClassifier(n_devices="all", **kw).fit(X, y)
     one = RandomForestClassifier(**kw).fit(X, y)
-    assert wide.fit_stats_["forest_mesh"] == [2, 4]
-    assert wide.fit_stats_["n_shards"] == 8
+    assert stats_view(wide.fit_report_)["forest_mesh"] == [2, 4]
+    assert stats_view(wide.fit_report_)["n_shards"] == 8
     _same_forest(wide.trees_, one.trees_, "wide vs one")
     _same_forest(wide.trees_, jax_wide.trees_, "wide vs JAX")
     np.testing.assert_array_equal(wide.predict(X), one.predict(X))
@@ -274,8 +278,8 @@ def test_config5_forest_tree_sharded(cov):
     sharded = RandomForestClassifier(n_devices=8, device="cpu",
                                      **kw).fit(X, y)
     # one process holds every tree group: no exchange to make
-    assert sharded.fit_stats_["forest_mesh"] == [8, 1]
-    assert sharded.fit_stats_["tree_exchange_calls"] == 0
+    assert stats_view(sharded.fit_report_)["forest_mesh"] == [8, 1]
+    assert stats_view(sharded.fit_report_)["tree_exchange_calls"] == 0
     one = RandomForestClassifier(device="cpu", **kw).fit(X, y)
     _same_forest(sharded.trees_, one.trees_, "sharded vs one")
     ref = JaxRF(n_devices=8, backend="cpu", **kw).fit(X, y)
@@ -309,7 +313,7 @@ def test_forest_estimators_equal_one_device(cov, name, n_devices):
     if name == "oob":
         assert par.oob_score_ == one.oob_score_
     if name == "defaults":
-        assert par.fit_stats_["refine_nodes_added"] > 0
+        assert stats_view(par.fit_report_)["refine_nodes_added"] > 0
 
 
 def test_warm_start_shapes_the_mesh_for_the_new_trees(cov):
@@ -323,7 +327,7 @@ def test_warm_start_shapes_the_mesh_for_the_new_trees(cov):
     kept = list(par.trees_)
     par.set_params(n_estimators=5).fit(X, y)
     one.set_params(n_estimators=5).fit(X, y)
-    assert par.fit_stats_["forest_mesh"] == [2, 4]
+    assert stats_view(par.fit_report_)["forest_mesh"] == [2, 4]
     assert all(a is b for a, b in zip(par.trees_[:3], kept))
     _same_forest(par.trees_, one.trees_, "warm")
 
@@ -336,8 +340,8 @@ def test_levelwise_forest_builds_each_tree_on_the_data_mesh(cov,
     monkeypatch.setenv("MPITREE_TPU_ENGINE", "levelwise")
     kw = dict(n_estimators=2, max_depth=6, random_state=1, device="cpu")
     par = RandomForestClassifier(n_devices=8, **kw).fit(X, y)
-    assert par.fit_stats_["ensemble_path"] == "per-tree"
-    assert par.fit_stats_["n_shards"] == 8
+    assert stats_view(par.fit_report_)["ensemble_path"] == "per-tree"
+    assert stats_view(par.fit_report_)["n_shards"] == 8
     _same_forest(par.trees_, RandomForestClassifier(**kw).fit(X, y).trees_)
 
 
@@ -354,6 +358,7 @@ import torch
 torch.set_num_threads(1)
 port, pid = sys.argv[1], int(sys.argv[2])
 from mpitree_tpu_torch.parallel import distributed, mesh
+from mpitree_tpu_torch.obs import stats_view
 mesh.set_cpu_shards(2)
 distributed.initialize(f"localhost:{{port}}", 2, pid, backend="gloo",
                        timeout=60)
@@ -377,7 +382,7 @@ for T, cls, XX, yy, extra in ((1, RandomForestClassifier, X, y, {{}}),
                   "n_node_samples", "impurity"):
             assert np.array_equal(getattr(a, k), getattr(b, k),
                                   equal_nan=True), (T, k)
-    st = par.fit_stats_
+    st = stats_view(par.fit_report_)
     assert st["n_shards"] == 4 and st["tree_exchange_calls"] > 0, st
     assert st["replication_checks"] > 0, st
     print(pid, T, st["forest_mesh"], flush=True)

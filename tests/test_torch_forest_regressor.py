@@ -33,6 +33,7 @@ import torch
 pytest.importorskip("jax")
 
 from mpitree_tpu_torch.serving import compile_model, quantize  # noqa: E402
+from mpitree_tpu_torch.obs import stats_view  # noqa: E402
 from mpitree_tpu_torch.tree import (  # noqa: E402
     DecisionTreeRegressor,
     ExtraTreesRegressor,
@@ -96,8 +97,8 @@ def defaults(request, data):
 def test_defaults_equal_jax_field_for_field(defaults, data):
     name, ref, port = defaults
     *_, Xh, yh = data
-    assert port.fit_stats_["engine"] == "fused"
-    assert port.fit_stats_["refine_nodes_added"] > 0
+    assert stats_view(port.fit_report_)["engine"] == "fused"
+    assert stats_view(port.fit_report_)["refine_nodes_added"] > 0
     _same_forest(port, ref)
     got = port.predict(Xh)
     np.testing.assert_array_equal(got, ref.predict(Xh))
@@ -105,7 +106,7 @@ def test_defaults_equal_jax_field_for_field(defaults, data):
     np.testing.assert_allclose(port.feature_importances_,
                                ref.feature_importances_, rtol=1e-12)
     if name == "ExtraTreesRegressor":
-        assert port.fit_stats_["refine_engine"] == "per-subtree"
+        assert stats_view(port.fit_report_)["refine_engine"] == "per-subtree"
         assert port.get_params()["bootstrap"] is False
         assert port.get_params()["max_features"] == 1.0
 

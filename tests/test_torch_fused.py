@@ -28,6 +28,7 @@ import torch
 pytest.importorskip("jax")
 
 from mpitree_tpu_torch.core import builder as pbuilder  # noqa: E402
+from mpitree_tpu_torch.obs import stats_view  # noqa: E402
 from mpitree_tpu_torch.core import fused_builder as pfused  # noqa: E402
 from mpitree_tpu_torch.core.builder import BuildConfig, build_tree  # noqa: E402
 from mpitree_tpu_torch.ops import sampling as psamp  # noqa: E402
@@ -272,8 +273,8 @@ def test_default_fit_fused_crown_equals_jax_default(cls_data):
     kw = dict(max_depth=10, max_bins=32, refine_depth=2)
     ref = JaxTree(**kw).fit(X, y)
     est = DecisionTreeClassifier(device="cpu", **kw).fit(X, y)
-    assert est.fit_stats_["engine"] == "fused"
-    assert est.fit_stats_["refine_nodes_added"] > 0
+    assert stats_view(est.fit_report_)["engine"] == "fused"
+    assert stats_view(est.fit_report_)["refine_nodes_added"] > 0
     _same_tree(est.tree_, ref.tree_)
 
 
@@ -293,11 +294,11 @@ def test_engine_resolution_and_steering(cls_data, monkeypatch):
     # the knob steers "auto" only
     assert pbuilder.resolve_engine(BuildConfig(engine="fused")) == "fused"
     lw = DecisionTreeClassifier(**kw).fit(X, y)
-    assert (fused.fit_stats_["engine"], lw.fit_stats_["engine"]) == (
+    assert (stats_view(fused.fit_report_)["engine"], stats_view(lw.fit_report_)["engine"]) == (
         "fused", "levelwise")
     _same_tree(fused.tree_, lw.tree_)
     reg = DecisionTreeRegressor(**kw).fit(*california_like(500, seed=1))
-    assert reg.fit_stats_["engine"] == "levelwise"
+    assert stats_view(reg.fit_report_)["engine"] == "levelwise"
     monkeypatch.setenv(pbuilder.ENGINE_ENV, "bogus")
     with pytest.raises(ValueError, match="MPITREE_TPU_ENGINE"):
         pbuilder.resolve_engine(BuildConfig())

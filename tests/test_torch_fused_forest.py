@@ -21,6 +21,7 @@ import torch
 pytest.importorskip("jax")
 
 from mpitree_tpu_torch.core import builder as pbuilder  # noqa: E402
+from mpitree_tpu_torch.obs import stats_view  # noqa: E402
 from mpitree_tpu_torch.core.builder import BuildConfig, build_tree  # noqa: E402
 from mpitree_tpu_torch.core.fused_builder import build_forest_fused  # noqa: E402
 from mpitree_tpu_torch.ops.binning import bin_for_engine  # noqa: E402
@@ -132,9 +133,9 @@ def test_batched_forest_equals_per_tree_and_jax(data, name, monkeypatch):
     batched = cls(device="cpu", **kw).fit(X, y)
     monkeypatch.setenv(pbuilder.ENGINE_ENV, "levelwise")
     per_tree = cls(device="cpu", **kw).fit(X, y)
-    assert batched.fit_stats_["ensemble_path"] == "batched-fused"
-    assert per_tree.fit_stats_["ensemble_path"] == "per-tree"
-    assert (batched.fit_stats_["engine"], per_tree.fit_stats_["engine"]) \
+    assert stats_view(batched.fit_report_)["ensemble_path"] == "batched-fused"
+    assert stats_view(per_tree.fit_report_)["ensemble_path"] == "per-tree"
+    assert (stats_view(batched.fit_report_)["engine"], stats_view(per_tree.fit_report_)["engine"]) \
         == ("fused", "levelwise")
     for i, (a, b, c) in enumerate(zip(batched.trees_, per_tree.trees_,
                                       ref.trees_)):
@@ -167,4 +168,4 @@ def test_batched_regression_and_default_forests_equal_per_tree(
             _same_tree(a, b, f"{cls.__name__} tree {i}")
         np.testing.assert_array_equal(batched.predict(Xa[:300]),
                                       per_tree.predict(Xa[:300]))
-    assert batched.fit_stats_["refine_nodes_added"] > 0
+    assert stats_view(batched.fit_report_)["refine_nodes_added"] > 0

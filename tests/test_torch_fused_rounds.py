@@ -28,6 +28,7 @@ pytest.importorskip("jax")
 
 import mpitree_tpu_torch as P  # noqa: E402
 from mpitree_tpu_torch.boosting import fused_rounds as pfr  # noqa: E402
+from mpitree_tpu_torch.obs import stats_view  # noqa: E402
 from mpitree_tpu_torch.ops import sampling as psamp  # noqa: E402
 from mpitree_tpu_torch.utils.datasets import (  # noqa: E402
     california_like,
@@ -184,7 +185,7 @@ def _margins(m, X):
 @pytest.mark.parametrize("name", ["reg", "reg_sub", "bin", "bin_sub"])
 def test_k4_close_to_host_loop(fits, name):
     X, y, fused, host = fits[name]
-    st = fused.fit_stats_
+    st = stats_view(fused.fit_report_)
     assert st["rounds_per_dispatch"] == {
         "value": 4, "reason": "explicit rounds_per_dispatch=4"}
     assert st["dispatches"] == 3  # ceil(9 / 4)
@@ -242,7 +243,7 @@ def test_fused_rounds_with_leafwise_budget():
         max_iter=6, max_depth=None, max_leaf_nodes=8, random_state=0,
         rounds_per_dispatch=3, device="cpu").fit(X, y)
     assert m.score(X, y) > 0.85
-    assert m.fit_stats_["dispatches"] == 2
+    assert stats_view(m.fit_report_)["dispatches"] == 2
     for t in m.trees_:
         assert int((t.left < 0).sum()) <= 8
 
@@ -283,5 +284,5 @@ def test_payload_bounds_cover_the_rounds():
     m = P.GradientBoostingRegressor(max_iter=16, max_depth=4,
                                     learning_rate=1.0, rounds_per_dispatch=8,
                                     device="cpu").fit(X, y)
-    assert m.fit_stats_["dispatches"] == 2
+    assert stats_view(m.fit_report_)["dispatches"] == 2
     assert np.isfinite(m.train_score_).all()

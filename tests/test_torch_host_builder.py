@@ -20,6 +20,7 @@ import pytest
 pytest.importorskip("jax")
 
 from mpitree_tpu_torch import native  # noqa: E402
+from mpitree_tpu_torch.obs import stats_view  # noqa: E402
 from mpitree_tpu_torch.core.builder import BuildConfig  # noqa: E402
 from mpitree_tpu_torch.core.host_builder import build_tree_host  # noqa: E402
 from mpitree_tpu_torch.ops.binning import bin_dataset  # noqa: E402
@@ -113,16 +114,21 @@ def test_backend_host_identical_to_jax(case):
                                   ref.predict_proba(Xh))
 
 
-def test_backend_host_equals_the_device_engine():
+def test_backend_host_equals_the_device_engine(monkeypatch):
     """The tiers grow the same trees (``backend=None`` is not routed to
     the host tier by size, as the JAX package does)."""
+    monkeypatch.delenv("MPITREE_TPU_PROFILE", raising=False)
     X, y = covtype_like(4_000, seed=13)
     for kw in (dict(max_depth=10), dict(max_depth=5, refine_depth=None)):
         host = DecisionTreeClassifier(backend="host", device="cpu",
                                       **kw).fit(X, y)
         dev = DecisionTreeClassifier(device="cpu", **kw).fit(X, y)
         assert_same_tree(host.tree_, dev.tree_)
-        assert host.fit_stats_.keys() == dev.fit_stats_.keys()
+        # both tiers keep the same record (F8: fit_stats_ is the phase
+        # summary under MPITREE_TPU_PROFILE=1 only)
+        assert host.fit_stats_ is None and dev.fit_stats_ is None
+        assert host.fit_report_.keys() == dev.fit_report_.keys()
+        assert stats_view(host.fit_report_)["engine"] == "host"
 
 
 def test_forest_backend_host_identical_to_jax():
@@ -135,7 +141,7 @@ def test_forest_backend_host_identical_to_jax():
         X, y)
     for a, b in zip(ours.trees_, ref.trees_, strict=True):
         assert_same_tree(a, b)
-    assert ours.fit_stats_["refine_nodes_added"] > 0
+    assert stats_view(ours.fit_report_)["refine_nodes_added"] > 0
 
 
 @pytest.mark.parametrize("backend", ["cpu", "tpu", "gpu", "HOST"])

@@ -21,6 +21,7 @@ import torch
 pytest.importorskip("jax")
 
 from mpitree_tpu_torch import native  # noqa: E402
+from mpitree_tpu_torch.obs import stats_view  # noqa: E402
 from mpitree_tpu_torch.core.builder import BuildConfig, build_tree  # noqa: E402
 from mpitree_tpu_torch.ops.binning import bin_for_engine  # noqa: E402
 from mpitree_tpu_torch.tree import (  # noqa: E402
@@ -174,7 +175,7 @@ def test_default_fit_identical_to_jax(with_native, case):
         X, y, sample_weight=w)
     assert_same_tree(ours.tree_, ref.tree_)
     check_valid(ours.tree_)
-    st = ours.fit_stats_
+    st = stats_view(ours.fit_report_)
     assert st["refine_engine"] == "batched-native"
     assert st["crown_depth"] == params.get("refine_depth", max(
         1, round(np.log2(n / 2048))))
@@ -193,8 +194,8 @@ def test_the_tail_changes_the_default_tree(with_native):
     single = DecisionTreeClassifier(max_depth=9, refine_depth=None,
                                     device="cpu").fit(X, y)
     assert hybrid.tree_.n_nodes != single.tree_.n_nodes
-    assert "crown_depth" not in single.fit_stats_
-    assert hybrid.fit_stats_["crown_depth"] == 2
+    assert "crown_depth" not in stats_view(single.fit_report_)
+    assert stats_view(hybrid.fit_report_)["crown_depth"] == 2
 
 
 def test_auto_without_native_is_one_engine(no_native):
@@ -208,7 +209,7 @@ def test_auto_without_native_is_one_engine(no_native):
                                     device="cpu").fit(X, y)
     assert_same_tree(ours.tree_, ref.tree_)
     assert_same_tree(ours.tree_, single.tree_)
-    assert "crown_depth" not in ours.fit_stats_
+    assert "crown_depth" not in stats_view(ours.fit_report_)
 
 
 # -- forests ------------------------------------------------------------------
@@ -242,7 +243,7 @@ def test_forest_proba_identical_to_jax(forests):
     Xh, _ = covtype_like(3_000, seed=1)
     np.testing.assert_array_equal(ours.predict_proba(Xh),
                                   ref.predict_proba(Xh))
-    st = ours.fit_stats_
+    st = stats_view(ours.fit_report_)
     assert st["crown_depth"] == 3 and st["refine_nodes_added"] > 0
 
 
@@ -296,7 +297,7 @@ def test_per_subtree_tail_identical_to_jax(no_native, case):
     kw = TAIL_CASES[case]
     ref = JaxTree(backend="cpu", **kw).fit(X, y)
     ours = DecisionTreeClassifier(device="cpu", **kw).fit(X, y)
-    assert ours.fit_stats_["refine_engine"] == "per-subtree"
+    assert stats_view(ours.fit_report_)["refine_engine"] == "per-subtree"
     assert_same_tree(ours.tree_, ref.tree_)
     check_valid(ours.tree_)
 
@@ -312,8 +313,8 @@ def test_per_subtree_tail_equals_batched_tail(monkeypatch, with_native,
     batched = DecisionTreeClassifier(device="cpu", **kw).fit(X, y)
     monkeypatch.setattr(native, "lib", lambda: None)
     per = DecisionTreeClassifier(device="cpu", **kw).fit(X, y)
-    assert batched.fit_stats_["refine_engine"] == "batched-native"
-    assert per.fit_stats_["refine_engine"] == "per-subtree"
+    assert stats_view(batched.fit_report_)["refine_engine"] == "batched-native"
+    assert stats_view(per.fit_report_)["refine_engine"] == "per-subtree"
     a, b = batched.tree_, per.tree_
     assert a.n_nodes == b.n_nodes
     pa, pb = _preorder(a), _preorder(b)
@@ -391,7 +392,7 @@ def test_hybrid_respects_max_depth_and_noop_cases(with_native):
     p = _both(dict(max_depth=4, max_bins=8, refine_depth=4), X, y)
     q = _both(dict(max_depth=4, max_bins=8, refine_depth=None), X, y)
     assert_same_tree(p.tree_, q.tree_)
-    assert "crown_depth" not in p.fit_stats_
+    assert "crown_depth" not in stats_view(p.fit_report_)
 
 
 def test_refine_reaches_leaves_stopped_constant_above_refine_depth(

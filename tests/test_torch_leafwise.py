@@ -32,6 +32,7 @@ pytest.importorskip("jax")
 
 import mpitree_tpu_torch as P  # noqa: E402
 from mpitree_tpu_torch.core import leafwise_builder as plw  # noqa: E402
+from mpitree_tpu_torch.obs import stats_view  # noqa: E402
 from mpitree_tpu_torch.core.builder import BuildConfig, build_tree  # noqa: E402
 from mpitree_tpu_torch.ops import impurity as pimp  # noqa: E402
 from mpitree_tpu_torch.ops.binning import bin_dataset  # noqa: E402
@@ -166,8 +167,8 @@ def test_classifier_identity_at_node_budget(cls_identity, engine, sub,
     _env(monkeypatch, engine, sub)
     lw = P.DecisionTreeClassifier(max_depth=4, max_leaf_nodes=16,
                                   device="cpu").fit(X, y)
-    assert lw.fit_stats_["engine"] == engine
-    assert lw.fit_stats_["frontier"] == "leafwise"
+    assert stats_view(lw.fit_report_)["engine"] == engine
+    assert stats_view(lw.fit_report_)["frontier"] == "leafwise"
     _same_tree(lw.tree_, base, f"{engine}/{sub} vs level-wise")
     _same_tree(lw.tree_, ref, f"{engine}/{sub} vs JAX", JAX_FIELDS)
 
@@ -206,7 +207,7 @@ def test_gbdt_trees_identity_at_node_budget(engine, monkeypatch):
                                       **kw).fit(X, y)
     ref = J.GradientBoostingClassifier(max_leaf_nodes=8, n_devices=1,
                                        **kw).fit(X, y)
-    assert lw.fit_stats_["frontier"] == "leafwise"
+    assert stats_view(lw.fit_report_)["frontier"] == "leafwise"
     for i, (a, b, c) in enumerate(zip(lw.trees_, base.trees_, ref.trees_)):
         _same_tree(a, b, f"tree {i} vs level-wise")
         _same_tree(a, c, f"tree {i} vs JAX", JAX_FIELDS + ("count",))
@@ -272,7 +273,7 @@ def test_binding_budget_equals_jax(covtype4k, budget, criterion):
     _same_tree(got.tree_, ref.tree_, "", JAX_FIELDS + (
         "count", "parent", "depth", "impurity"))
     assert got.get_n_leaves() == budget
-    assert got.fit_stats_["expansions"] == budget - 1
+    assert stats_view(got.fit_report_)["expansions"] == budget - 1
 
 
 def _engines(X, y, cfg, **kw):
@@ -378,7 +379,7 @@ def test_expansions_count(engine, monkeypatch):
     _env(monkeypatch, engine)
     lw = P.DecisionTreeClassifier(max_depth=8, max_leaf_nodes=15,
                                   device="cpu").fit(X, y)
-    assert lw.fit_stats_["expansions"] == 14
+    assert stats_view(lw.fit_report_)["expansions"] == 14
     assert lw.get_n_leaves() == 15
 
 
@@ -386,7 +387,7 @@ def test_fused_engine_reads_the_flag_once_per_check():
     X, y = covtype_like(3_000, seed=5)
     before = plw.done_reads
     m = P.DecisionTreeClassifier(max_leaf_nodes=40, device="cpu").fit(X, y)
-    assert m.fit_stats_["expansions"] == 39
+    assert stats_view(m.fit_report_)["expansions"] == 39
     assert plw.done_reads - before == (39 - 1) // plw.CHECK_EVERY
 
 
@@ -471,4 +472,4 @@ def test_engine_env_and_explicit_config(monkeypatch):
         resolve_engine(dataclasses.replace(cfg, engine="x"))
     m = P.DecisionTreeClassifier(max_leaf_nodes=5, ccp_alpha=0.01,
                                  device="cpu").fit(X, y)
-    assert "crown_depth" not in m.fit_stats_  # one engine, no refine tail
+    assert "crown_depth" not in stats_view(m.fit_report_)  # one engine, no refine tail

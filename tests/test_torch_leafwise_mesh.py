@@ -27,6 +27,7 @@ import torch
 pytest.importorskip("jax")
 
 from mpitree_tpu_torch.core.builder import BuildConfig, build_tree  # noqa: E402
+from mpitree_tpu_torch.obs import BuildObserver, stats_view  # noqa: E402
 from mpitree_tpu_torch.ops.binning import bin_for_engine  # noqa: E402
 from mpitree_tpu_torch.parallel import mesh as M  # noqa: E402
 from mpitree_tpu_torch.tree import (  # noqa: E402
@@ -89,7 +90,7 @@ def test_regressor_identity_mesh(reg_level8, n_devices):
     lw = DecisionTreeRegressor(max_depth=4, max_leaf_nodes=16, device="cpu",
                                n_devices=n_devices).fit(X, y)
     _same_tree(lw.tree_, reg_level8, f"mesh={n_devices}")
-    assert lw.fit_stats_["frontier"] == "leafwise"
+    assert stats_view(lw.fit_report_)["frontier"] == "leafwise"
 
 
 @pytest.fixture(scope="module")
@@ -111,10 +112,11 @@ def test_binding_budget_on_mesh_equals_one_device(cov, engine, sub,
     cfg = BuildConfig(max_leaf_nodes=31, hist_subtraction=sub)
     one, ids1 = build_tree(binned, y, config=cfg, n_classes=7,
                            return_leaf_ids=True)
-    stats = {}
+    obs = BuildObserver()
     mesh = M.resolve_mesh(device="cpu", n_devices=n_devices)
     par, ids = build_tree(binned, y, config=cfg, n_classes=7,
-                          return_leaf_ids=True, mesh=mesh, stats=stats)
+                          return_leaf_ids=True, mesh=mesh, timer=obs)
+    stats = stats_view(obs.report())
     _same_tree(par, one, f"{engine}/{sub}/{n_devices}")
     np.testing.assert_array_equal(ids, ids1)
     assert stats["engine"] == engine and stats["n_shards"] == n_devices
@@ -137,7 +139,7 @@ def test_binding_budget_on_mesh_equals_jax(cov, jax_budget):
     X, y = cov
     par = ParallelDecisionTreeClassifier(max_leaf_nodes=31, max_bins=64,
                                          device="cpu").fit(X, y)
-    assert par.fit_stats_["n_shards"] == 8
+    assert stats_view(par.fit_report_)["n_shards"] == 8
     _same_tree(par.tree_, jax_budget, "vs JAX on 8 devices")
 
 
@@ -193,6 +195,7 @@ import torch
 torch.set_num_threads(1)
 port, pid = sys.argv[1], int(sys.argv[2])
 from mpitree_tpu_torch.parallel import distributed, mesh
+from mpitree_tpu_torch.obs import stats_view
 mesh.set_cpu_shards(2)
 distributed.initialize(f"localhost:{{port}}", 2, pid, backend="gloo",
                        timeout=60)
@@ -210,7 +213,7 @@ for engine in ("fused", "levelwise"):
               "n_node_samples", "impurity", "value"):
         assert np.array_equal(getattr(par.tree_, k), getattr(one.tree_, k),
                               equal_nan=True), (engine, k)
-    st = par.fit_stats_
+    st = stats_view(par.fit_report_)
     assert st["n_shards"] == 4 and st["allreduce_calls"] > 0, st
 print(f"PROC{{pid}} OK", flush=True)
 distributed.shutdown()

@@ -28,6 +28,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from mpitree_tpu_torch.core.builder import BuildConfig, build_tree  # noqa: E402
+from mpitree_tpu_torch.obs import stats_view  # noqa: E402
 from mpitree_tpu_torch.core.host_builder import build_tree_host  # noqa: E402
 from mpitree_tpu_torch.ops import impurity as pimp  # noqa: E402
 from mpitree_tpu_torch.ops.binning import bin_dataset  # noqa: E402
@@ -334,8 +335,8 @@ def test_classifier_equals_jax_field_for_field(jax_clf_trees, data,
     included; ``predict`` reads them, ``predict_proba`` the raw counts."""
     X, y, kw, ref = jax_clf_trees[data]
     est = DecisionTreeClassifier(device="cpu", backend=backend, **kw).fit(X, y)
-    assert est.fit_stats_["engine"] == ("host" if backend else "fused")
-    assert "crown_depth" not in est.fit_stats_  # no refine tail
+    assert stats_view(est.fit_report_)["engine"] == ("host" if backend else "fused")
+    assert "crown_depth" not in stats_view(est.fit_report_)  # no refine tail
     _same_tree(est.tree_, ref.tree_, msg=f"{data}/{backend}")
     np.testing.assert_array_equal(est.predict(X), ref.predict(X))
     np.testing.assert_array_equal(est.predict_proba(X), ref.predict_proba(X))

@@ -194,12 +194,13 @@ def test_concurrent_first_builds_all_load(gxx, tmp_path):
 
 _FIT = """
 import sys
+from mpitree_tpu_torch.obs import stats_view
 from mpitree_tpu_torch.tree import DecisionTreeClassifier
 from mpitree_tpu_torch.utils.datasets import covtype_like
 X, y = covtype_like(6_000, seed=3)
 clf = DecisionTreeClassifier(max_depth=12, max_bins=16, backend="host",
                              device="cpu").fit(X, y)
-assert clf.fit_stats_["refine_engine"] == "batched-native"
+assert stats_view(clf.fit_report_)["refine_engine"] == "batched-native"
 sys.stdout.write(clf.export_text())
 """
 

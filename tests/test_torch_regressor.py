@@ -33,6 +33,7 @@ pytest.importorskip("jax")
 pytest.importorskip("sklearn")
 
 from mpitree_tpu_torch.tree import DecisionTreeRegressor  # noqa: E402
+from mpitree_tpu_torch.obs import stats_view  # noqa: E402
 from mpitree_tpu_torch.utils.datasets import california_like  # noqa: E402
 
 FIELDS = ("feature", "threshold", "left", "right", "parent", "depth",
@@ -68,7 +69,7 @@ def test_device_engine_against_jax_device_engine(data, weighted):
     ref = _jax(backend="cpu", **kw).fit(X, y, sample_weight=sw)
     est = DecisionTreeRegressor(device="cpu", **kw).fit(X, y,
                                                         sample_weight=sw)
-    assert est.fit_stats_["engine"] == "fused"
+    assert stats_view(est.fit_report_)["engine"] == "fused"
     assert est.tree_.n_nodes == ref.tree_.n_nodes
     agree = np.mean(est.tree_.feature == ref.tree_.feature)
     assert agree >= 0.9, f"only {agree:.0%} of nodes agree"
@@ -101,7 +102,7 @@ def test_host_tier_equals_jax_host_tier(data, kw):
         ref = _jax(backend="host", **kw).fit(X, y, sample_weight=sw)
         est = DecisionTreeRegressor(backend="host", device="cpu", **kw).fit(
             X, y, sample_weight=sw)
-        assert est.fit_stats_["engine"] == "host"
+        assert stats_view(est.fit_report_)["engine"] == "host"
         _same_tree(est.tree_, ref.tree_)
 
 
@@ -109,8 +110,8 @@ def test_default_equals_jax_default(data):
     X, y, _ = data
     ref = _jax().fit(X, y)
     est = DecisionTreeRegressor(device="cpu").fit(X, y)
-    assert est.fit_stats_["engine"] == "fused"
-    assert est.fit_stats_["refine_nodes_added"] > 0
+    assert stats_view(est.fit_report_)["engine"] == "fused"
+    assert stats_view(est.fit_report_)["refine_nodes_added"] > 0
     _same_tree(est.tree_, ref.tree_)
     # unbounded, the tree memorizes; a leaf may keep several rows of the
     # clipped target (0.15 or 5.0), whose float64 mean is within an ulp

@@ -55,6 +55,7 @@ from mpitree_tpu_torch import (  # noqa: E402
     RandomForestClassifier,
     compile_model,
 )
+from mpitree_tpu_torch.obs import stats_view  # noqa: E402
 from mpitree_tpu_torch.config import knobs  # noqa: E402
 from mpitree_tpu_torch.parallel import mesh as mesh_lib  # noqa: E402
 from mpitree_tpu_torch.resilience import (  # noqa: E402
@@ -419,8 +420,8 @@ def test_single_tree_ladder_equals_jax(tree_ref, spec, rungs, engine):
                                                   **TREE_KW).fit(X, y))
     _same_tree(p.tree_, healthy.tree_, spec)
     _same_tree(p.tree_, j.tree_, spec)
-    assert _rungs(p.fit_stats_) == _jax_rungs(j) == dict(zip(RUNGS, rungs))
-    assert p.fit_stats_["engine"] == engine
+    assert _rungs(stats_view(p.fit_report_)) == _jax_rungs(j) == dict(zip(RUNGS, rungs))
+    assert stats_view(p.fit_report_)["engine"] == engine
 
 
 def test_single_tree_failover_regressor(tree_ref):
@@ -436,8 +437,8 @@ def test_single_tree_failover_regressor(tree_ref):
                                                  **kw).fit(X, yr))
     np.testing.assert_array_equal(p.predict(X), healthy.predict(X))
     np.testing.assert_array_equal(p.predict(X), j.predict(X))
-    assert _rungs(p.fit_stats_) == _jax_rungs(j)
-    assert p.fit_stats_["engine"] == "host"
+    assert _rungs(stats_view(p.fit_report_)) == _jax_rungs(j)
+    assert stats_view(p.fit_report_)["engine"] == "host"
 
 
 def test_retries_env_and_elastic_off(tree_ref, monkeypatch):
@@ -448,7 +449,7 @@ def test_retries_env_and_elastic_off(tree_ref, monkeypatch):
                                                 **TREE_KW).fit(X, y),
                  lambda: J.DecisionTreeClassifier(backend="cpu",
                                                   **TREE_KW).fit(X, y))
-    assert _rungs(p.fit_stats_) == _jax_rungs(j) == dict(
+    assert _rungs(stats_view(p.fit_report_)) == _jax_rungs(j) == dict(
         device_retries=0, level_retries=0, device_failovers=1)
     _same_tree(p.tree_, healthy.tree_)
     monkeypatch.delenv("MPITREE_TPU_RETRIES")
@@ -497,9 +498,9 @@ def test_default_ladder_retries_on_the_device(tree_ref, monkeypatch):
     with pytest.warns(UserWarning, match="retrying on the device tier"):
         clf = DecisionTreeClassifier(device="cpu", **TREE_KW).fit(X, y)
     _same_tree(clf.tree_, healthy.tree_)
-    assert _rungs(clf.fit_stats_) == dict(device_retries=1, level_retries=0,
+    assert _rungs(stats_view(clf.fit_report_)) == dict(device_retries=1, level_retries=0,
                                           device_failovers=0)
-    assert clf.fit_stats_["engine"] != "host"
+    assert stats_view(clf.fit_report_)["engine"] != "host"
 
 
 def test_forest_group_failover_equals_jax():
@@ -517,9 +518,9 @@ def test_forest_group_failover_equals_jax():
         _same_tree(a, b, "vs healthy")
         np.testing.assert_array_equal(a.feature, c.feature)
         np.testing.assert_allclose(a.count, c.count, rtol=1e-6)
-    assert _rungs(p.fit_stats_) == _jax_rungs(j)
-    assert p.fit_stats_["device_failovers"] == 1
-    assert p.fit_stats_["engine"] == "host"
+    assert _rungs(stats_view(p.fit_report_)) == _jax_rungs(j)
+    assert stats_view(p.fit_report_)["device_failovers"] == 1
+    assert stats_view(p.fit_report_)["engine"] == "host"
 
 
 def test_forest_per_tree_ladder(monkeypatch):
@@ -534,7 +535,7 @@ def test_forest_per_tree_ladder(monkeypatch):
         rf = RandomForestClassifier(**kw).fit(X, y)
     for a, b in zip(rf.trees_, healthy.trees_):
         _same_tree(a, b)
-    assert _rungs(rf.fit_stats_) == dict(device_retries=0, level_retries=1,
+    assert _rungs(stats_view(rf.fit_report_)) == dict(device_retries=0, level_retries=1,
                                          device_failovers=0)
 
 
@@ -555,7 +556,7 @@ def test_collective_seam_blip_recovers():
         del os.environ["MPITREE_TPU_ENGINE"]
     _same_tree(p.tree_, healthy.tree_)
     _same_tree(p.tree_, j.tree_)
-    assert _rungs(p.fit_stats_) == _jax_rungs(j) == dict(
+    assert _rungs(stats_view(p.fit_report_)) == _jax_rungs(j) == dict(
         device_retries=0, level_retries=1, device_failovers=0)
 
 
@@ -569,7 +570,7 @@ def test_other_levelwise_seams_resume(site, monkeypatch):
     with pytest.warns(UserWarning, match="resuming from level"):
         clf = DecisionTreeClassifier(**kw).fit(X, y)
     _same_tree(clf.tree_, healthy.tree_)
-    assert clf.fit_stats_["level_retries"] == 1
+    assert stats_view(clf.fit_report_)["level_retries"] == 1
 
 
 @pytest.fixture(scope="module")
@@ -606,12 +607,12 @@ def test_levelwise_resumes_from_killed_level(monkeypatch, shards8, level_refs,
     kw = dict(max_depth=5, refine_depth=None, n_devices=n_devices,
               device="cpu")
     healthy = DecisionTreeClassifier(**kw).fit(X, y)
-    assert healthy.fit_stats_["level_dispatches"] == levels
+    assert stats_view(healthy.fit_report_)["level_dispatches"] == levels
     k = levels - 1 if kill_level == "last" else kill_level
     chaos.install([Fault("level", 1, "unavailable", at_level=k)])
     with pytest.warns(UserWarning, match=f"resuming from level {k}"):
         clf = DecisionTreeClassifier(**kw).fit(X, y)
-    st = clf.fit_stats_
+    st = stats_view(clf.fit_report_)
     assert _rungs(st) == dict(device_retries=0, level_retries=1,
                               device_failovers=0)
     assert st["level_dispatches"] == levels + 1
@@ -628,12 +629,12 @@ def test_leafwise_stepped_resumes_from_killed_expansion(
     kw = dict(max_leaf_nodes=16, refine_depth=None, n_devices=8,
               device="cpu")
     healthy = DecisionTreeClassifier(**kw).fit(X, y)
-    assert healthy.fit_stats_["expansion_dispatches"] == exps
+    assert stats_view(healthy.fit_report_)["expansion_dispatches"] == exps
     k = exps - 1 if kill_expansion == "last" else kill_expansion
     chaos.install([Fault("expansion", 1, "unavailable", at_level=k)])
     with pytest.warns(UserWarning, match=f"resuming from expansion {k}"):
         clf = DecisionTreeClassifier(**kw).fit(X, y)
-    st = clf.fit_stats_
+    st = stats_view(clf.fit_report_)
     assert st["level_retries"] == 1 and "device_retries" not in st
     assert st["expansion_dispatches"] == exps + 1
     _same_tree(clf.tree_, jax_tree.tree_, "vs JAX")
@@ -645,11 +646,11 @@ def test_level_retry_off_restores_whole_build_retry(monkeypatch):
     X, y = _noise(seed=3)
     kw = dict(max_depth=4, refine_depth=None, device="cpu")
     healthy = DecisionTreeClassifier(**kw).fit(X, y)
-    levels = healthy.fit_stats_["level_dispatches"]
+    levels = stats_view(healthy.fit_report_)["level_dispatches"]
     chaos.install([Fault("level", 1, "unavailable", at_level=2)])
     with pytest.warns(UserWarning, match="retrying on the device tier"):
         clf = DecisionTreeClassifier(**kw).fit(X, y)
-    st = clf.fit_stats_
+    st = stats_view(clf.fit_report_)
     assert st["device_retries"] == 1 and "level_retries" not in st
     assert st["level_dispatches"] == levels + 3
     _same_tree(clf.tree_, healthy.tree_)
@@ -665,7 +666,7 @@ def test_leafwise_fused_build_retries_whole(tree_ref):
     with pytest.warns(UserWarning, match="leaf-wise build"):
         clf = DecisionTreeClassifier(**kw).fit(X, y)
     _same_tree(clf.tree_, healthy.tree_)
-    assert _rungs(clf.fit_stats_) == dict(device_retries=1, level_retries=0,
+    assert _rungs(stats_view(clf.fit_report_)) == dict(device_retries=1, level_retries=0,
                                           device_failovers=0)
     chaos.install("leafwise_build:1:internal")
     with pytest.raises(AcceleratorError):  # no host twin: it raises
@@ -688,7 +689,7 @@ def test_gbdt_host_loop_resumes_round_build_at_level(monkeypatch):
                                                    **kw).fit(X, yr),
                  lambda: J.GradientBoostingRegressor(backend="cpu",
                                                      **kw).fit(X, yr))
-    assert _rungs(p.fit_stats_) == _jax_rungs(j) == dict(
+    assert _rungs(stats_view(p.fit_report_)) == _jax_rungs(j) == dict(
         device_retries=0, level_retries=1, device_failovers=0)
     np.testing.assert_array_equal(p.predict(X), ref.predict(X))
     np.testing.assert_array_equal(p.predict(X), j.predict(X))
@@ -705,7 +706,7 @@ def test_gbdt_round_blip_retries():
                                                     **kw).fit(X, yb),
                  lambda: J.GradientBoostingClassifier(backend="cpu",
                                                       **kw).fit(X, yb))
-    assert _rungs(p.fit_stats_) == _jax_rungs(j)
+    assert _rungs(stats_view(p.fit_report_)) == _jax_rungs(j)
     np.testing.assert_array_equal(p.predict_proba(X), ref.predict_proba(X))
     for a, b in zip(p.trees_, j.trees_):
         _same_tree(a, b, "vs JAX")
@@ -728,7 +729,7 @@ def test_fused_rounds_retry_at_dispatch_boundary():
     with pytest.warns(UserWarning, match=r"(?s)fused rounds 4\.\.7.*retrying "
                       "on the device tier"):
         gb = GradientBoostingRegressor(**kw).fit(X, yr)
-    st = gb.fit_stats_
+    st = stats_view(gb.fit_report_)
     assert _rungs(st) == dict(device_retries=1, level_retries=0,
                               device_failovers=0)
     assert st["dispatches"] == 2

@@ -29,6 +29,7 @@ pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from mpitree_tpu_torch.ops import hist_kernel  # noqa: E402
+from mpitree_tpu_torch.obs import stats_view  # noqa: E402
 from mpitree_tpu_torch.ops import histogram as ph  # noqa: E402
 from mpitree_tpu_torch.ops import impurity as pimp  # noqa: E402
 from mpitree_tpu_torch.ops import sampling as psamp  # noqa: E402
@@ -291,8 +292,8 @@ def test_classifier_sampled_tree_equals_jax(cls_data, kw, backend):
     est = DecisionTreeClassifier(backend=backend, device="cpu",
                                  **params).fit(X, y)
     if backend is None:  # the tail engaged below a one-level crown
-        assert est.fit_stats_["crown_depth"] == 1
-        assert est.fit_stats_["refine_nodes_added"] > 0
+        assert stats_view(est.fit_report_)["crown_depth"] == 1
+        assert stats_view(est.fit_report_)["refine_nodes_added"] > 0
     _same_tree(est.tree_, ref.tree_)
     np.testing.assert_allclose(est.feature_importances_,
                                ref.feature_importances_, rtol=1e-12)
@@ -309,7 +310,7 @@ def test_regressor_sampled_tree_equals_jax(reg_data, kw, backend):
     est = DecisionTreeRegressor(backend=backend, device="cpu",
                                 **params).fit(X, y)
     if backend is None:
-        assert est.fit_stats_["refine_nodes_added"] > 0
+        assert stats_view(est.fit_report_)["refine_nodes_added"] > 0
     _same_tree(est.tree_, ref.tree_)
     np.testing.assert_allclose(est.feature_importances_,
                                ref.feature_importances_, rtol=1e-12)
@@ -325,7 +326,7 @@ def test_device_engine_sampled_tree_equals_jax_host_tier(cls_data):
                   random_state=5, refine_depth=None)
     ref = JaxTree(backend="host", **params).fit(X, y)
     est = DecisionTreeClassifier(device="cpu", **params).fit(X, y)
-    assert est.fit_stats_["engine"] == "fused"
+    assert stats_view(est.fit_report_)["engine"] == "fused"
     _same_tree(est.tree_, ref.tree_)
 
 

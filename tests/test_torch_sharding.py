@@ -34,6 +34,7 @@ from mpitree_tpu_torch import (  # noqa: E402
     DecisionTreeRegressor,
     ParallelDecisionTreeClassifier,
 )
+from mpitree_tpu_torch.obs import stats_view  # noqa: E402
 from mpitree_tpu_torch.models.classifier import predict_mesh  # noqa: E402
 from mpitree_tpu_torch.parallel import mesh as M  # noqa: E402
 from mpitree_tpu_torch.utils.datasets import (  # noqa: E402
@@ -95,8 +96,8 @@ def test_tree_identical_across_shard_counts(iris2, n_devices):
     par = DecisionTreeClassifier(n_devices=n_devices, **kw).fit(X, y)
     _same_tree(par.tree_, seq.tree_)
     if n_devices > 1:
-        assert par.fit_stats_["n_shards"] == n_devices
-        assert par.fit_stats_["allreduce_calls"] > 0
+        assert stats_view(par.fit_report_)["n_shards"] == n_devices
+        assert stats_view(par.fit_report_)["allreduce_calls"] > 0
     ref = _jax("DecisionTreeClassifier", max_depth=5, binning="exact",
                n_devices=8).fit(X, y)
     _same_tree(par.tree_, ref.tree_, "vs JAX on 8 devices")
@@ -106,7 +107,7 @@ def test_parallel_class_equals_jax_on_8_devices(iris2):
     X, y, _ = iris2
     par = ParallelDecisionTreeClassifier(max_depth=3, binning="exact",
                                          device="cpu").fit(X, y)
-    assert par.n_devices == "all" and par.fit_stats_["n_shards"] == 8
+    assert par.n_devices == "all" and stats_view(par.fit_report_)["n_shards"] == 8
     ref = _jax("ParallelDecisionTreeClassifier", max_depth=3,
                binning="exact").fit(X, y)
     _same_tree(par.tree_, ref.tree_)
@@ -264,7 +265,7 @@ def test_both_engines_with_and_without_subtraction(
     for n in (2, 8):
         par = DecisionTreeClassifier(max_depth=8, refine_depth=None,
                                      n_devices=n, device="cpu").fit(X, y)
-        assert par.fit_stats_["engine"] == engine
+        assert stats_view(par.fit_report_)["engine"] == engine
         _same_tree(par.tree_, jax_cov_default, f"{engine} {sub} {n}")
 
 
@@ -278,7 +279,7 @@ def test_debug_fit_runs_the_replication_path(monkeypatch, cov,
     par = ParallelDecisionTreeClassifier(max_depth=8, refine_depth=None,
                                          device="cpu").fit(X, y)
     _same_tree(par.tree_, jax_cov_default)
-    assert par.fit_stats_["replication_checks"] == 0
+    assert stats_view(par.fit_report_)["replication_checks"] == 0
 
 
 @pytest.fixture(scope="module")
@@ -292,8 +293,8 @@ def test_default_refine_tail_on_a_sharded_crown(cov20k):
     single-shard fit and JAX's 8-device fit, field for field."""
     X, y = cov20k
     par = ParallelDecisionTreeClassifier(device="cpu").fit(X, y)
-    assert par.fit_stats_["crown_depth"] == 3
-    assert par.fit_stats_["refine_nodes_added"] > 0
+    assert stats_view(par.fit_report_)["crown_depth"] == 3
+    assert stats_view(par.fit_report_)["refine_nodes_added"] > 0
     seq = DecisionTreeClassifier(device="cpu").fit(X, y)
     _same_tree(par.tree_, seq.tree_)
     ref = _jax("ParallelDecisionTreeClassifier").fit(X, y)
@@ -301,7 +302,7 @@ def test_default_refine_tail_on_a_sharded_crown(cov20k):
     Xc, yc = california_like(20_000, seed=3)
     r8 = DecisionTreeRegressor(device="cpu", n_devices=8).fit(Xc, yc)
     r1 = DecisionTreeRegressor(device="cpu").fit(Xc, yc)
-    assert r8.fit_stats_["refine_nodes_added"] > 0
+    assert stats_view(r8.fit_report_)["refine_nodes_added"] > 0
     _same_tree(r8.tree_, r1.tree_, "regressor at defaults")
 
 

@@ -69,6 +69,7 @@ torch.set_num_threads(1)
 
 port, pid = sys.argv[1], int(sys.argv[2])
 from mpitree_tpu_torch.parallel import distributed, mesh
+from mpitree_tpu_torch.obs import stats_view
 mesh.set_cpu_shards(2)
 distributed.initialize(f"localhost:{{port}}", 2, pid, backend="gloo",
                        timeout=60)
@@ -115,7 +116,7 @@ one = DecisionTreeClassifier(**kw).fit(X, y)
 same(par.tree_, one.tree_, "tree")
 st = par.ingest_stats_
 assert st["rows"] == N and st["rows_local"] == N // 2, st
-assert par.fit_stats_["n_shards"] == 4
+assert stats_view(par.fit_report_)["n_shards"] == 4
 
 rf = dict(n_estimators=4, max_depth=4, max_bins=32, random_state=3,
           device="cpu", refine_depth=None)
@@ -126,7 +127,7 @@ twin = RandomForestClassifier(**rf).fit(X, y)
 del os.environ["MPITREE_TPU_KEYED_BOOTSTRAP"]
 for i, (a, b) in enumerate(zip(forest.trees_, twin.trees_)):
     same(a, b, f"forest tree {{i}}")
-assert forest.fit_stats_["exchange_calls"] > 0
+assert stats_view(forest.fit_report_)["exchange_calls"] > 0
 print("OK", pid)
 """
 

@@ -35,6 +35,7 @@ from mpitree_tpu_torch import (  # noqa: E402
     RandomForestRegressor,
     StreamedDataset,
 )
+from mpitree_tpu_torch.obs import stats_view  # noqa: E402
 from mpitree_tpu_torch.ops import sampling  # noqa: E402
 from mpitree_tpu_torch.parallel import mesh as M  # noqa: E402
 
@@ -155,7 +156,7 @@ def test_streamed_forest_identity(data, jax_rf, engine, n_devices,
     np.testing.assert_array_equal(clf.predict_proba(X),
                                   jax_rf.predict_proba(X))
     if engine == "fused" and n_devices == 8:
-        assert clf.fit_stats_["forest_mesh"] == [4, 2]
+        assert stats_view(clf.fit_report_)["forest_mesh"] == [4, 2]
 
 
 def test_streamed_forest_on_the_guards_data_axis(data, monkeypatch):
@@ -167,7 +168,7 @@ def test_streamed_forest_on_the_guards_data_axis(data, monkeypatch):
     ref = _keyed(RandomForestClassifier, X, y, monkeypatch, **kw)
     clf = RandomForestClassifier(**kw).fit(
         StreamedDataset.from_arrays(X, y, chunk_rows=1111))
-    assert clf.fit_stats_["forest_mesh"] == [1, 8]
+    assert stats_view(clf.fit_report_)["forest_mesh"] == [1, 8]
     _same_trees(clf.trees_, ref.trees_)
 
 
@@ -309,7 +310,7 @@ def test_streamed_gbdt_fused_rounds_identity(data, yr, n_devices):
         ref = cls(**kw).fit(X, target)
         got = cls(**kw).fit(
             dataset=StreamedDataset.from_arrays(X, target, chunk_rows=600))
-        assert got.fit_stats_["rounds_per_dispatch"]["value"] == 8
+        assert stats_view(got.fit_report_)["rounds_per_dispatch"]["value"] == 8
         _same_ensembles(got, ref, X)
 
 
@@ -360,7 +361,7 @@ def test_padded_extents_ensembles(data, yr, monkeypatch):
     ref = _keyed(RandomForestClassifier, Xp, yp, monkeypatch, **kw)
     clf = RandomForestClassifier(**kw).fit(
         StreamedDataset.from_arrays(Xp, yp, chunk_rows=700))
-    assert clf.fit_stats_["forest_mesh"] == [4, 2]
+    assert stats_view(clf.fit_report_)["forest_mesh"] == [4, 2]
     _same_trees(clf.trees_, ref.trees_)
     gb = dict(rounds_per_dispatch=8, device="cpu", n_devices=8,
               **dict(GB_KW, max_iter=8))

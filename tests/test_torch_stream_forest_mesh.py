@@ -46,6 +46,7 @@ torch.set_num_threads(1)
 
 port, pid, shards = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
 from mpitree_tpu_torch.parallel import distributed, mesh
+from mpitree_tpu_torch.obs import stats_view
 mesh.set_cpu_shards(shards)
 distributed.initialize(f"localhost:{{port}}", 2, pid, backend="gloo",
                        timeout=60)
@@ -100,7 +101,7 @@ for case, budget, n_trees in cases:
     want = twin10 if case == "checkpoint" else twin
     same = all(np.array_equal(getattr(a, k), getattr(b, k), equal_nan=True)
                for a, b in zip(forest.trees_, want.trees_) for k in FIELDS)
-    st = forest.fit_stats_
+    st = stats_view(forest.fit_report_)
     print("RESULT " + json.dumps(dict(
         case=case, pid=pid, shards=shards, same=bool(same),
         n_trees=len(forest.trees_), forest_mesh=st["forest_mesh"],

@@ -31,6 +31,7 @@ from mpitree_tpu_torch import (  # noqa: E402
     ParallelDecisionTreeClassifier,
     StreamedDataset,
 )
+from mpitree_tpu_torch.obs import stats_view  # noqa: E402
 from mpitree_tpu_torch.parallel import mesh as M  # noqa: E402
 
 FIELDS = ("feature", "threshold", "left", "right", "parent", "depth",
@@ -124,7 +125,7 @@ def test_streamed_fit_identity_meshes(data, jax_tree, port_tree, n_devices,
     st = clf.ingest_stats_
     assert st["rows"] == st["rows_local"] == len(X) and st["sketch_exact"]
     assert st["chunk_rows"] == chunk and st["features"] == X.shape[1]
-    assert clf.fit_stats_["crown_depth"] == 1  # the tail replayed the stream
+    assert stats_view(clf.fit_report_)["crown_depth"] == 1  # the tail replayed the stream
 
 
 @pytest.mark.parametrize("engine", ["fused", "levelwise"])
@@ -138,7 +139,7 @@ def test_streamed_fit_identity_engines(data, engine, binning, monkeypatch):
     clf = DecisionTreeClassifier(**kw).fit(
         StreamedDataset.from_arrays(X, y, chunk_rows=777))
     _same_tree(clf.tree_, ref.tree_)
-    assert clf.fit_stats_["engine"] == engine
+    assert stats_view(clf.fit_report_)["engine"] == engine
 
 
 @pytest.mark.parametrize("n_devices", [None, 8])
@@ -239,8 +240,8 @@ def test_streamed_refine_identity(data):
     clf = DecisionTreeClassifier(device="cpu", n_devices=8, **REFINE).fit(
         StreamedDataset.from_arrays(X, y, chunk_rows=251))
     _same_tree(clf.tree_, ref.tree_)
-    assert clf.fit_stats_["crown_depth"] == 3
-    assert clf.fit_stats_["refine_nodes_added"] > 0
+    assert stats_view(clf.fit_report_)["crown_depth"] == 3
+    assert stats_view(clf.fit_report_)["refine_nodes_added"] > 0
     want = _jax_streamed("DecisionTreeClassifier", X, y, 251, **REFINE)
     _same_tree(clf.tree_, want.tree_, "vs JAX streamed")
 
@@ -255,7 +256,7 @@ def test_streamed_refine_per_subtree_identity(data, yr):
     reg = DecisionTreeRegressor(**kw).fit(
         StreamedDataset.from_arrays(X, yr, chunk_rows=777))
     _same_tree(reg.tree_, ref.tree_)
-    assert reg.fit_stats_["refine_engine"] == "per-subtree"
+    assert stats_view(reg.fit_report_)["refine_engine"] == "per-subtree"
 
 
 @pytest.mark.parametrize("n_devices", [8, (4, 2)])
@@ -289,7 +290,7 @@ def test_parallel_classifier_streamed(data, port_tree):
     X, y = data
     par = ParallelDecisionTreeClassifier(device="cpu", **TREE).fit(
         StreamedDataset.from_arrays(X, y, chunk_rows=600))
-    assert par.fit_stats_["n_shards"] == 8
+    assert stats_view(par.fit_report_)["n_shards"] == 8
     _same_tree(par.tree_, port_tree.tree_)
 
 

@@ -34,6 +34,7 @@ from mpitree_tpu_torch.tree import (  # noqa: E402
     DecisionTreeClassifier,
     RandomForestClassifier,
 )
+from mpitree_tpu_torch.obs import stats_view  # noqa: E402
 from mpitree_tpu_torch.utils.datasets import covtype_like  # noqa: E402
 
 from test_torch_weights import (  # noqa: E402
@@ -127,7 +128,7 @@ def test_random_tree_host_tiers_equal(random_tree):
 def test_random_tree_default_equal_up_to_an_exact_tie(random_tree):
     X, y, fits = random_tree
     port, ref = fits["port_default"], fits["jax_default"]
-    assert port.fit_stats_["engine"] == "fused"
+    assert stats_view(port.fit_report_)["engine"] == "fused"
     node = _same_up_to_a_tie(X, y, np.ones(len(y), np.float32), port.tree_,
                              ref.tree_)
     # the probe's node (depth 8): the pin holds it, not a later one

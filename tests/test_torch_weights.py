@@ -39,6 +39,7 @@ pytest.importorskip("jax")
 pytest.importorskip("sklearn")
 
 from mpitree_tpu_torch.ops import hist_kernel  # noqa: E402
+from mpitree_tpu_torch.obs import stats_view  # noqa: E402
 from mpitree_tpu_torch.ops import histogram as ph  # noqa: E402
 from mpitree_tpu_torch.ops import impurity as pimp  # noqa: E402
 from mpitree_tpu_torch.ops.binning import bin_dataset  # noqa: E402
@@ -137,14 +138,14 @@ def test_f1_port_default_equals_jax_default(f1_data, refine_depth):
     ref = JaxTree(**kw).fit(X, y, sample_weight=w).tree_
     est = DecisionTreeClassifier(device="cpu", **kw).fit(X, y,
                                                          sample_weight=w)
-    assert est.fit_stats_["engine"] == "fused"
+    assert stats_view(est.fit_report_)["engine"] == "fused"
     port = est.tree_
     assert port.count.dtype == ref.count.dtype == np.float64
     _assert_same_or_tie(X, y, w, port, ref)
     # the host tier is the same tree
     host = DecisionTreeClassifier(device="cpu", backend="host", **kw).fit(
         X, y, sample_weight=w)
-    assert host.fit_stats_["engine"] == "host"
+    assert stats_view(host.fit_report_)["engine"] == "host"
     for k in FIELDS:
         np.testing.assert_array_equal(getattr(host.tree_, k),
                                       getattr(ref, k), err_msg=k)
@@ -263,5 +264,5 @@ def test_balanced_class_weight_fit_against_jax(f2_data):
     kw = dict(max_depth=14, class_weight="balanced")
     ref = JaxTree(backend="cpu", **kw).fit(X, y).tree_
     est = DecisionTreeClassifier(device="cpu", **kw).fit(X, y)
-    assert est.fit_stats_["engine"] == "fused"
+    assert stats_view(est.fit_report_)["engine"] == "fused"
     _assert_f2(est.tree_, ref)
