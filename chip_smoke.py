@@ -323,11 +323,14 @@ not ``host``):
     tree equal to phase 3's; (b) the levelwise engine with a transient
     fault at level 12: one level retry, levels 12 and on run once more
     and none before, the same tree; (c) phase 4's 50,000-row depth-10
-    fit with the caching allocator capped (after binning would fit,
-    below the build's peak): a real ``torch.OutOfMemoryError`` classed
-    OOM, terminal, raised to the caller under the port's default, and
-    with ``MPITREE_TPU_ELASTIC=1`` the host rung grows the card's tree;
-    the cap lifted, the card fits it again; (d) the same fit in a child process
+    fit with the caching allocator capped, once it has binned, just
+    above what it holds then (below the build's resident arrays, which
+    no shrink clears): a real ``torch.OutOfMemoryError`` classed OOM,
+    the OOM rescue's three shrinks each failing again, one
+    ``oom_postmortem`` event, the error raised to the caller under the
+    port's default, and with ``MPITREE_TPU_ELASTIC=1`` the host rung
+    grows the card's tree; the cap lifted, the card fits it again (a
+    cap the rescue clears is phase 33 (c)); (d) the same fit in a child process
     (``--mesh-worker 0 0 sticky OUT``) whose device build first launches
     a Triton kernel reading 4 TiB past a buffer, a real sticky illegal
     memory access: classed terminal, the host rung finishes the fit with
@@ -366,6 +369,27 @@ fingerprints of ``ROADMAP.md``) on the card:
     as one ``device_retry`` event beside its counter; (e)
     ``utils.profiling.trace`` leaves a ``torch.profiler`` file.
 
+Phase 33 drives the memory and compute ledgers and the OOM rescue
+(items 18c and 18e of ``ROADMAP.md``) on the card:
+
+33. memory: (a) under ``MPITREE_TPU_MEM_SAMPLE=1``, phase 3's fit,
+    phase 5's 50-tree forest, phase 25's 255-leaf fit, phase 26's K = 8
+    regressor and the served ``rf``: each record's planned peak
+    (``record.memory["hbm_peak_bytes"]``), its peak phase and binding
+    array beside the caching allocator's peak over the fit less its
+    baseline, and their ratio; no ``mem_estimate_drift`` event, every
+    model equal to its phase's; a CUDA graph's private pool checked
+    against ``torch.cuda.memory_allocated``; (b) ``MPITREE_TPU_HBM_BYTES``
+    at half of phase 3's planned peak: ``MemoryPlanError`` with an
+    ``oom_predicted`` event naming the binding array, no kernel launched;
+    (c) phase 31 (c)'s first cap (between the binning's peak and the
+    build's) on phase 4's fit under the port's default: the OOM rescue
+    shrinks ``max_frontier_chunk`` on the card (``oom_rescue`` events,
+    ``oom_rescues`` >= 1, no ``device_failovers``) and grows the uncapped
+    tree; (d) phase 3's ``fit_report_["compute"]``: every entry's floor,
+    utilisation and roofline verdict against the card's row of
+    ``obs/cost.PEAK_TABLE``.
+
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the card's name and power limit, JSON lines of per-shape kernel timings
 (``kernel_shapes``, ``serve_kernel_shapes``, ``fixed_kernel_shapes``), of
@@ -376,7 +400,8 @@ of phases 19-20 (``constrained``, ``persistence``), of phases 21-23
 (``boosting``), of phase 24 (``engines``), of phases 25-26
 (``leafwise``, ``fused_rounds``), of phase 27 (``serve_tier``), of phases
 28-29 (``mesh``, ``mesh_ensembles``), of phase 30 (``stream``), of
-phase 31 (``resilience``), of phase 32 (``obs``) and one
+phase 31 (``resilience``), of phase 32 (``obs``), of phase 33
+(``memory``) and one
 ``kernels`` line (with each
 route's launches per engine, and the stream routes at S = 2 of the
 leaf-wise pair) come before it.
@@ -4268,7 +4293,8 @@ def phase_resilience(X, y, Xh, fit_tree, forest, Xc, yc, Xch, boost_reg8,
         f"(levels >= {LEVEL_FAULT} once more, none before); tree == phase "
         f"3's; launches {out['b']['launches']}")
 
-    # (c) a real OOM: the caching allocator capped below phase 4's build
+    # (c) a real OOM no shrink clears: the caching allocator capped, once
+    # the fit has binned, just above what the process holds then
     Xp, yp = covtype_like(RESILIENCE_ROWS, seed=RESILIENCE_SEED)
     card = DecisionTreeClassifier(**RESILIENCE_FIT)
     torch.cuda.synchronize()
@@ -4289,11 +4315,19 @@ def phase_resilience(X, y, Xh, fit_tree, forest, Xc, yc, Xch, boost_reg8,
     del binned
     torch.cuda.empty_cache()
     total = torch.cuda.get_device_properties(0).total_memory
-    cap = base + (bin_peak + fit_peak) // 2
     seen = []  # each failed build's error, classed (no card tensor kept)
-    real_build = clf_mod.build_tree
+    caps = []  # the cap each fit's first build set
+    made = []  # each fit's observer: the raised fit's record lives there
+    real_build, real_observer = clf_mod.build_tree, clf_mod.fit_observer
 
     def watched(*a, **k):
+        if not caps or caps[-1][0] != len(made):
+            # the fit's first build: cap the allocator at what it holds
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            cap = torch.cuda.memory_reserved() + (1 << 20)
+            caps.append((len(made), cap))
+            torch.cuda.set_per_process_memory_fraction(cap / total)
         try:
             return real_build(*a, **k)
         except Exception as e:
@@ -4304,19 +4338,23 @@ def phase_resilience(X, y, Xh, fit_tree, forest, Xc, yc, Xch, boost_reg8,
                 text=f"{type(e).__name__}: {str(e)[:160]}"))
             raise
 
+    def observer(*a, **k):
+        made.append(real_observer(*a, **k))
+        return made[-1]
+
     zero()
-    clf_mod.build_tree = watched
-    torch.cuda.set_per_process_memory_fraction(cap / total)
+    clf_mod.build_tree, clf_mod.fit_observer = watched, observer
     try:
-        # the port's default: the classified error reaches the caller
+        # the port's default: three shrinks, the postmortem, the raise
         try:
             DecisionTreeClassifier(**RESILIENCE_FIT).fit(Xp, yp)
             raised = None
         except torch.OutOfMemoryError as e:
             raised = type(e).__name__
+        torch.cuda.set_per_process_memory_fraction(1.0)
         gc.collect()  # the failed fit's frames, before the next one
         torch.cuda.empty_cache()
-        # asked for: the host rung
+        # asked for: the host rung, after the same three shrinks
         os.environ["MPITREE_TPU_ELASTIC"] = "1"
         with warnings.catch_warnings():
             warnings.filterwarnings("default", message=HOST_RUNG_WARNING)
@@ -4324,34 +4362,49 @@ def phase_resilience(X, y, Xh, fit_tree, forest, Xc, yc, Xch, boost_reg8,
             oom = DecisionTreeClassifier(**RESILIENCE_FIT).fit(Xp, yp)
             wall = time.perf_counter() - t0
     finally:
-        del os.environ["MPITREE_TPU_ELASTIC"]
+        os.environ.pop("MPITREE_TPU_ELASTIC", None)
         torch.cuda.set_per_process_memory_fraction(1.0)
-        clf_mod.build_tree = real_build
+        clf_mod.build_tree, clf_mod.fit_observer = real_build, real_observer
         torch.cuda.empty_cache()
     st = _stats(oom)
-    if not (raised == "OutOfMemoryError" and len(seen) == 2
+    raised_kinds = [e["kind"] for e in made[0].record.events]
+    host_kinds = [e["kind"] for e in oom.fit_report_["events"]]
+    want_kinds = ["oom_rescue"] * 3 + ["oom_postmortem"]
+    if not (raised == "OutOfMemoryError" and len(seen) == 8
             and all(r["oom_type"] and r["oom"] and not r["transient"]
                     for r in seen)
+            and raised_kinds == want_kinds
+            and host_kinds[:4] == want_kinds
+            and made[0].record.counters.get("oom_rescues") == 3
             and _rungs(st) == dict(device_retries=0, level_retries=0,
                                    device_failovers=1)
             and st["engine"] == "host"):
         raise AssertionError(f"resilience (c): default raised {raised}, "
-                             f"errors {seen}, rungs {_rungs(st)}, engine "
+                             f"errors {seen}, events {raised_kinds} then "
+                             f"{host_kinds}, rungs {_rungs(st)}, engine "
                              f"{st['engine']}")
+    post = next(e for e in made[0].record.events
+                if e["kind"] == "oom_postmortem")
     same(oom.tree_, card.tree_, "c, host rung vs the card")
     again = DecisionTreeClassifier(**RESILIENCE_FIT).fit(Xp, yp)
     same(again.tree_, card.tree_, "c, the card after the cap")
     _on_card(again, "resilience (c), the card after the cap")
-    out["c"] = dict(wall_s=wall, rungs=_rungs(st), cap_bytes=cap - base,
+    out["c"] = dict(wall_s=wall, rungs=_rungs(st),
+                    cap_bytes=[c - base for _, c in caps],
                     bin_peak_bytes=bin_peak, fit_peak_bytes=fit_peak,
-                    default_raised=raised, error=seen[1]["text"],
+                    base_bytes=base, default_raised=raised,
+                    error=seen[-1]["text"], postmortem_top=post["top"],
+                    shrinks=[e.get("new_value") for e in made[0].record.events
+                             if e["kind"] == "oom_rescue"],
                     launches=launches())
-    log(f"resilience (c): allocator capped at {(cap - base) / 2**20:.1f} "
-        f"MiB over the live {base / 2**20:.1f} MiB (binning peak "
-        f"{bin_peak / 2**20:.1f}, fit peak {fit_peak / 2**20:.1f}): "
-        f"OutOfMemoryError classed OOM, terminal: raised to the caller "
-        f"by default; with MPITREE_TPU_ELASTIC=1 the host rung "
-        f"{wall:.3f} s, rungs {_rungs(st)}; tree == the card's; the "
+    log(f"resilience (c): allocator capped after binning at "
+        f"{[round((c - base) / 2**20, 1) for _, c in caps]} MiB over the "
+        f"live {base / 2**20:.1f} MiB (binning peak {bin_peak / 2**20:.1f}, "
+        f"fit peak {fit_peak / 2**20:.1f}): OutOfMemoryError classed OOM; "
+        f"the rescue shrank max_frontier_chunk to {out['c']['shrinks']}, "
+        f"each OOM again; oom_postmortem (top {post['top'][:2]}); raised "
+        f"to the caller by default; with MPITREE_TPU_ELASTIC=1 the host "
+        f"rung {wall:.3f} s, rungs {_rungs(st)}; tree == the card's; the "
         f"uncapped card fits again, the same tree")
 
     # (d) a real sticky error, in a process of its own
@@ -4789,6 +4842,298 @@ def phase_obs(X, y, fit_tree, fit_launches, resilience) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def _env(**kv):
+    """Environment knobs set (a value) or cleared (None) for the block."""
+    old = {k: os.environ.get(k) for k in kv}
+    for k, v in kv.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = str(v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _graph_pool_probe() -> dict:
+    """What ``torch.cuda.memory_allocated`` (the live watermark's source)
+    and ``memory_reserved`` say of a CUDA graph's private pool: a 64 MiB
+    tensor allocated during a capture, while it is held and after it is
+    released, and one replay."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    a0, r0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    x = torch.ones(1024, device=DEV)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        (x * 2).sum()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    n = 16 << 20  # float32: 64 MiB
+    with torch.cuda.graph(g):
+        tmp = torch.empty(n, device=DEV)
+        tmp.fill_(1.0)
+        total = tmp.sum() + x.sum()
+    torch.cuda.synchronize()
+    held = (torch.cuda.memory_allocated() - a0,
+            torch.cuda.memory_reserved() - r0)
+    del tmp
+    torch.cuda.synchronize()
+    freed = (torch.cuda.memory_allocated() - a0,
+             torch.cuda.memory_reserved() - r0)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    g.replay()
+    torch.cuda.synchronize()
+    replay_peak = torch.cuda.max_memory_allocated() - base
+    ok = float(total.item()) == float(n + 1024)
+    del g, total, x
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return dict(tensor_bytes=n * 4, held_allocated=held[0],
+                held_reserved=held[1], released_allocated=freed[0],
+                released_reserved=freed[1], replay_peak=replay_peak,
+                replay_ok=ok)
+
+
+def phase_memory(X, y, Xh, fit_tree, forest, leaf_tree, boost_reg8, Xc, yc,
+                 Xch, resilience) -> dict:
+    """Phase 33 (items 18c and 18e): (a) the memory ledger against the
+    caching allocator under ``MPITREE_TPU_MEM_SAMPLE=1`` for five
+    models, and a CUDA graph's private pool; (b) the preflight's
+    refusal; (c) an OOM the rescue clears on the card; (d) phase 3's
+    compute ledger. Every part sets the launch counters to 0 just before
+    it and reads them just after."""
+    import tempfile
+
+    from mpitree_tpu_torch.models import classifier as clf_mod
+    from mpitree_tpu_torch.obs import MemoryPlanError
+    from mpitree_tpu_torch.ops import hist_kernel
+    from mpitree_tpu_torch.serving import ModelRegistry, serve_kernel
+    from mpitree_tpu_torch.tree import (
+        DecisionTreeClassifier,
+        GradientBoostingRegressor,
+        RandomForestClassifier,
+    )
+    from mpitree_tpu_torch.utils.datasets import covtype_like
+    from mpitree_tpu_torch.utils.serialize import load_model, save_model
+
+    def zero():
+        for c in (hist_kernel.launches, serve_kernel.launches):
+            for k in c:
+                c[k] = 0
+        torch.cuda.synchronize()
+
+    def launches():
+        return {**{k: v for k, v in hist_kernel.launches.items() if v},
+                **{k: v for k, v in serve_kernel.launches.items() if v}}
+
+    def same(tree, want, what):
+        bad = _differing(tree, want)
+        if bad:
+            raise AssertionError(f"memory ({what}): tree differs in {bad}")
+
+    card = card_line()
+    out = {"card": card}
+    t_phase = time.perf_counter()
+    fit_kw = dict(criterion="entropy", max_depth=DEPTH, max_bins=256,
+                  **DEVICE_ONLY)
+
+    def ledger(rep: dict, what: str) -> dict:
+        mem = rep["memory"]
+        live = mem["live"]
+        plan = mem.get("aggregate") or mem
+        drift = [e for e in rep["events"]
+                 if e["kind"] == "mem_estimate_drift"]
+        binding = max(
+            (a for a in mem.get("arrays", [])
+             if a["phase"] in ("resident", mem.get("peak_phase"))),
+            key=lambda a: a["bytes_per_device"], default={"name": None})
+        row = dict(
+            planned_peak_bytes=int(plan["hbm_peak_bytes"]),
+            peak_phase=plan.get("peak_phase"),
+            binding_array=binding["name"],
+            allocator_peak_bytes=int(live["hbm_peak_delta_bytes"]),
+            ratio=(plan["hbm_peak_bytes"] / live["hbm_peak_delta_bytes"]
+                   if live["hbm_peak_delta_bytes"] else None),
+            source=live["source"], samples=live["samples"],
+            span_peaks=live.get("span_peaks"),
+            phases=mem.get("phases"), drift=drift, launches=launches())
+        log(f"memory (a) {what}: planned peak "
+            f"{row['planned_peak_bytes'] / 2**20:.1f} MiB (phase "
+            f"{row['peak_phase']}, binding {row['binding_array']}), "
+            f"allocator peak over the fit less its baseline "
+            f"{row['allocator_peak_bytes'] / 2**20:.1f} MiB, ratio "
+            f"{row['ratio']:.3f}; span peaks (MiB) "
+            f"{ {k: round(v / 2**20, 1) for k, v in row['span_peaks'].items()} }"
+            f"; launches {row['launches']} | {card}")
+        if drift:
+            raise AssertionError(f"memory (a) {what}: {drift}")
+        return row
+
+    # (a) the ledger against the allocator
+    a = {}
+    with _env(MPITREE_TPU_MEM_SAMPLE="1"):
+        zero()
+        clf = DecisionTreeClassifier(**fit_kw).fit(X, y)
+        torch.cuda.synchronize()
+        _on_card(clf, "memory (a) tree")
+        same(clf.tree_, fit_tree, "a, phase 3's fit")
+        a["tree"] = ledger(clf.fit_report_, "phase 3's fit")
+        compute = clf.fit_report_["compute"]
+        zero()
+        rf = RandomForestClassifier(**FOREST, **DEVICE_ONLY).fit(
+            X[:FOREST_ROWS], y[:FOREST_ROWS])
+        torch.cuda.synchronize()
+        _on_card(rf, "memory (a) forest")
+        if not _same_forests(rf.trees_, forest.trees_):
+            raise AssertionError("memory (a): forest != phase 5's")
+        a["forest"] = ledger(rf.fit_report_, "phase 5's forest")
+        zero()
+        lw = DecisionTreeClassifier(max_leaf_nodes=LEAF_BUDGET,
+                                    max_bins=256).fit(X, y)
+        torch.cuda.synchronize()
+        _on_card(lw, "memory (a) leaf-wise")
+        same(lw.tree_, leaf_tree, "a, phase 25's 255-leaf fit")
+        a["leafwise"] = ledger(lw.fit_report_, "phase 25's 255-leaf fit")
+        zero()
+        gb = GradientBoostingRegressor(rounds_per_dispatch=FUSED_K,
+                                       max_iter=BOOST_ROUNDS).fit(Xc, yc)
+        torch.cuda.synchronize()
+        _on_card(gb, "memory (a) fused rounds")
+        if not _same_ensembles(gb, boost_reg8):
+            raise AssertionError("memory (a): K = 8 regressor != phase 26's")
+        a["fused_rounds"] = ledger(gb.fit_report_,
+                                   "phase 26's K = 8 regressor")
+        # a fresh copy of phase 5's forest: the original's tables have
+        # lain on the card since phase 7, and a publish would upload nothing
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_mem-") as tmp:
+            save_model(forest, Path(tmp) / "rf.npz")
+            fresh = load_model(Path(tmp) / "rf.npz", device="cuda")
+        zero()
+        reg = ModelRegistry()
+        reg.publish("rf", fresh)
+        got = reg.predict_proba("rf", Xh[:SERVE_ROWS])
+        if not np.array_equal(got, forest.predict_proba(Xh[:SERVE_ROWS])):
+            raise AssertionError("memory (a): served rf != predict_proba")
+        a["served_rf"] = ledger(reg.get("rf").serve_report_, "served rf")
+        del reg, fresh
+    a["graph_pool"] = _graph_pool_probe()
+    log(f"memory (a) CUDA graph private pool: {a['graph_pool']}")
+    if not a["graph_pool"]["replay_ok"]:
+        raise AssertionError("memory (a): the graph probe's replay")
+    out["a"] = a
+    del clf, rf, lw, gb
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the preflight refuses before any launch
+    budget = a["tree"]["planned_peak_bytes"] // 2
+    made = []
+    real_observer = clf_mod.fit_observer
+
+    def observer(*args, **kw):
+        made.append(real_observer(*args, **kw))
+        return made[-1]
+
+    zero()
+    clf_mod.fit_observer = observer
+    try:
+        with _env(MPITREE_TPU_HBM_BYTES=budget):
+            DecisionTreeClassifier(**fit_kw).fit(X, y)
+        raise AssertionError("memory (b): the fit was not refused")
+    except MemoryPlanError as e:
+        refusal = e
+    finally:
+        clf_mod.fit_observer = real_observer
+    refused = launches()
+    ev = [e for e in made[-1].record.events if e["kind"] == "oom_predicted"]
+    if refused or len(ev) != 1 or \
+            ev[0]["binding_array"] != refusal.binding_array:
+        raise AssertionError(f"memory (b): launches {refused}, events {ev}")
+    out["b"] = dict(budget_bytes=budget,
+                    binding_array=refusal.binding_array,
+                    hbm_peak_bytes=ev[0]["hbm_peak_bytes"],
+                    top=ev[0]["top"], suggestion=refusal.suggestion,
+                    launches=refused)
+    log(f"memory (b): MPITREE_TPU_HBM_BYTES={budget} (half the planned "
+        f"peak): MemoryPlanError before any launch (launches {refused}); "
+        f"oom_predicted names {refusal.binding_array!r}; "
+        f"{refusal.suggestion}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) a real OOM, rescued on the card: phase 31 (c)'s first cap
+    Xp, yp = covtype_like(RESILIENCE_ROWS, seed=RESILIENCE_SEED)
+    uncapped = DecisionTreeClassifier(**RESILIENCE_FIT).fit(Xp, yp)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved()
+    rc = resilience["c"]
+    cap = base + (rc["bin_peak_bytes"] + rc["fit_peak_bytes"]) // 2
+    total = torch.cuda.get_device_properties(0).total_memory
+    zero()
+    torch.cuda.set_per_process_memory_fraction(cap / total)
+    try:
+        t0 = time.perf_counter()
+        rescued = DecisionTreeClassifier(**RESILIENCE_FIT).fit(Xp, yp)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        torch.cuda.empty_cache()
+    rep = rescued.fit_report_
+    evs = [e for e in rep["events"] if e["kind"] == "oom_rescue"]
+    st = _stats(rescued)
+    _on_card(rescued, "memory (c)")
+    if not (evs and rep["counters"].get("oom_rescues", 0) >= 1
+            and not st.get("device_failovers")
+            and all({"knob", "new_value", "binding_array"} <= set(e)
+                    for e in evs)):
+        raise AssertionError(f"memory (c): events {evs}, counters "
+                             f"{rep['counters']}")
+    same(rescued.tree_, uncapped.tree_, "c, rescued vs uncapped")
+    out["c"] = dict(
+        cap_bytes=cap - base, wall_s=wall,
+        oom_rescues=rep["counters"]["oom_rescues"],
+        device_failovers=st.get("device_failovers", 0),
+        rescues=[{k: e[k] for k in ("knob", "new_value", "binding_array",
+                                    "old_bytes", "new_bytes")}
+                 for e in evs],
+        chunk_slots=rep["memory"]["inputs"]["chunk_slots"],
+        launches=launches())
+    log(f"memory (c): allocator capped at {(cap - base) / 2**20:.1f} MiB "
+        f"over the live {base / 2**20:.1f} MiB: {len(evs)} oom_rescue "
+        f"({[(e['knob'], e['new_value'], e['binding_array']) for e in evs]})"
+        f", device_failovers {out['c']['device_failovers']}, {wall:.3f} s on "
+        f"the card; the tree == the uncapped fit's; launches "
+        f"{out['c']['launches']} | {card}")
+
+    # (d) phase 3's compute ledger against the card's row
+    peak = compute.get("peak") or {}
+    if peak.get("source") != "table" or not compute.get("entries"):
+        raise AssertionError(f"memory (d): compute {compute}")
+    out["d"] = compute
+    for name, e in compute["entries"].items():
+        log(f"memory (d) compute {name}: floor {e['optimal_s']} s a "
+            f"dispatch x {e['dispatches']} vs {e['measured_s']} s measured,"
+            f" util {e['util_pct']} %, bound {e['bound']} ({e['flops']:.4g} "
+            f"flop, {e['bytes']:.4g} B a dispatch)")
+    log(f"memory (d): roofline {compute['roofline']}, util "
+        f"{compute['util_pct']} % against {peak.get('device_kind')!r} "
+        f"(obs/cost.PEAK_TABLE row: {peak.get('flops')} flop/s, "
+        f"{peak.get('hbm_gbps')} GB/s) | {card}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def phase_profile(name: str, work, out_dir: Path) -> None:
     """Run ``work()`` once more under torch.profiler: device time by kernel
     and the device's busy share of the wall-clock; the table goes to
@@ -5036,6 +5381,9 @@ def main() -> int:
     mark("31 resilience")
     observability = phase_obs(X, y, fit_tree, launches, resilience)
     mark("32 obs")
+    memory = phase_memory(X, y, Xh, fit_tree, forest, leaf_tree,
+                          boost_regs[FUSED_K], Xc, yc, Xch, resilience)
+    mark("33 memory")
     if args.profile:
         profile_all(X, y, forest, Xh, args.profile)
 
@@ -5079,6 +5427,11 @@ def main() -> int:
                 {part: resilience[part]["launches"][route]
                  for part in ("a", "b", "c", "e")},
                 i=[r["launches"][route] for r in resilience["i"]["ranks"]]),
+            memory_launches=dict(
+                {f"a {part}": memory["a"][part]["launches"].get(route, 0)
+                 for part in ("tree", "forest", "leafwise")},
+                b=memory["b"]["launches"].get(route, 0),
+                c=memory["c"]["launches"].get(route, 0)),
         ))
     for form, (agg, chan) in SERVE_LINE.items():
         row = next(r for r in serve_shapes if r["kernel"] == form
@@ -5111,6 +5464,8 @@ def main() -> int:
             resilience_serve_launches={
                 part: resilience[part]["launches"][form]
                 for part in ("e", "g", "h")},
+            memory_serve_launches=memory["a"]["served_rf"]["launches"].get(
+                form, 0),
         ))
     for key, S in FIXED_LINE.items():
         route = key[:-len("_fixed")]
@@ -5148,6 +5503,8 @@ def main() -> int:
             mesh_ensemble_launches=_ensemble_launches(ensembles, key),
             stream_launches=stream["d"]["launches"][key],
             resilience_launches={"f": resilience["f"]["launches"][key]},
+            memory_launches=memory["a"]["fused_rounds"]["launches"].get(
+                key, 0),
         ))
     for form in SERVE_LINE:
         for what in ("classifier", "regressor"):
@@ -5212,6 +5569,7 @@ def main() -> int:
     log(json.dumps({"stream": stream}))
     log(json.dumps({"resilience": resilience}))
     log(json.dumps({"obs": observability}))
+    log(json.dumps({"memory": memory}))
     log(json.dumps({"phase_end_s": clock}))
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -49,7 +49,11 @@ from mpitree_tpu_torch.models.regressor import DecisionTreeRegressor
 from mpitree_tpu_torch.serving import ModelRegistry, compile_model
 from mpitree_tpu_torch.utils.serialize import load_model, save_model
 
+# the JAX package's version: the port ports that release
+__version__ = "0.1.0"
+
 __all__ = [
+    "__version__",
     "DecisionTreeClassifier",
     "DecisionTreeRegressor",
     "ExtraTreesClassifier",

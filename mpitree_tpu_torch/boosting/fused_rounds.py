@@ -63,22 +63,26 @@ exponents, trees and margins bit for bit. Not here (``ROADMAP.md`` item
 
 from __future__ import annotations
 
-import os
-
 import numpy as np
 import torch
 
+from mpitree_tpu_torch.config import knobs
 from mpitree_tpu_torch.core import leafwise_builder as leafwise
 from mpitree_tpu_torch.core.builder import (
     BuildConfig,
     FitInputs,
     note_subtraction,
+    resolve_hist_subtraction,
 )
+from mpitree_tpu_torch.obs import accounting as obs_acct
+from mpitree_tpu_torch.obs import memory as memory_lib
 from mpitree_tpu_torch.ops import hist_kernel
 from mpitree_tpu_torch.ops.histogram import gbdt_payload
 from mpitree_tpu_torch.ops.sampling import row_subsample_mask_dev
 from mpitree_tpu_torch.parallel import collective
 from mpitree_tpu_torch.resilience import chaos
+from mpitree_tpu_torch.resilience.config import elastic_enabled
+from mpitree_tpu_torch.resilience.failure import is_oom_failure
 from mpitree_tpu_torch.resilience.retry import retry_device
 from mpitree_tpu_torch.utils.profiling import PhaseTimer
 
@@ -103,14 +107,6 @@ MESH2D_BLOCKER = (
 copies = 0
 
 
-def pool_hist_bytes(pool_slots: int, n_features: int, n_bins: int) -> int:
-    """The pool's (P, F, 3, B) float32 histograms, the JAX package's
-    pricing (``mpitree_tpu/obs/memory.py:125``), which the pool guard of
-    :func:`resolve_rounds_per_dispatch` reads."""
-    return int(pool_slots) * max(int(n_features), 1) * 3 * max(
-        int(n_bins), 1) * 4
-
-
 def resolve_rounds_per_dispatch(param, *, device_type: str, loss_kind,
                                 loss_K: int, early_stopping: bool,
                                 colsample: float, max_depth, max_leaf_nodes,
@@ -124,11 +120,11 @@ def resolve_rounds_per_dispatch(param, *, device_type: str, loss_kind,
     :data:`ROUNDS_AUTO` for ``device_type`` when nothing blocks."""
     blockers = []
     if n_samples is not None:
-        pn = leafwise._pool_capacity(
+        pn = memory_lib.pool_capacity(
             max_leaf_nodes if max_leaf_nodes is not None else 1 << 30,
             max_depth, int(n_samples))
-        pool_bytes = pool_hist_bytes(pn, int(n_features or 1),
-                                     int(n_bins or 256))
+        pool_bytes = memory_lib.pool_hist_bytes(pn, int(n_features or 1),
+                                                int(n_bins or 256))
         budget = int(hist_budget_bytes) if hist_budget_bytes else 4 << 30
         if pn > FUSED_POOL_CEILING or pool_bytes > budget:
             blockers.append(
@@ -162,7 +158,7 @@ def resolve_rounds_per_dispatch(param, *, device_type: str, loss_kind,
     from_env = False
     env_note = ""
     if flag == "auto":
-        env = os.environ.get(ROUNDS_ENV, "auto").strip().lower() or "auto"
+        env = (knobs.raw(ROUNDS_ENV) or "auto").strip().lower() or "auto"
         if env != "auto":
             try:
                 ek = int(env)
@@ -281,12 +277,19 @@ def run_fused_rounds(*, binned, packed, y_tr: np.ndarray, sw_tr, raw_tr,
                      verbose: bool = False, mesh=None, start_round: int = 0,
                      ck=None, checkpoint_every: int = 10,
                      checkpoint_compact_every=None,
-                     obs=None) -> int:
+                     obs=None, rescue=None) -> int:
     """Drive a fit in dispatches of ``rounds_per_dispatch`` rounds
-    (``run_fused_rounds``, ``:412``, without the OOM rescue) from round
-    ``start_round`` (a resumed checkpoint's). Appends the trees and the
-    training scores to ``trees``/``train_scores``, writes the float32
-    margins back into ``raw_tr[:, 0]``, and returns the dispatch count.
+    (``run_fused_rounds``, ``:412``) from round ``start_round`` (a resumed
+    checkpoint's). Appends the trees and the training scores to
+    ``trees``/``train_scores``, writes the float32 margins of the
+    dispatched rounds back into ``raw_tr[:, 0]``, and returns the round
+    it reached: ``max_iter``, or earlier when an OOM ``rescue``
+    (``resilience.recovery.OomRescue``) degraded ``rounds_per_dispatch``
+    to 1, and the caller's host round loop takes the remaining rounds.
+    The fit's memory ledger (``obs/memory.plan_fit`` of the pool, the
+    margins and the (g, h) of the dispatch) is recorded and preflighted
+    before anything is placed, and each dispatch is priced for the
+    compute ledger (``fused_rounds_fn``).
     ``obs`` (the fit's observer) gets the JAX package's record of fused
     rounds (``:505-670``): the ``engine`` decision (``"fused_rounds"``),
     the leaf loop's ``frontier`` (with its CUDA-graph choice) and
@@ -330,6 +333,19 @@ def run_fused_rounds(*, binned, packed, y_tr: np.ndarray, sw_tr, raw_tr,
     # same payload tensors, so the loop's captured step serves every round
     # of a dispatch (a dispatch's new exponents are a new capture)
     zeros = np.zeros(N, np.float32)
+    plan = obs_acct.build_memory_plan(
+        mesh=mesh, rows=int(N), features=int(binned.n_features), classes=2,
+        bins=int(binned.n_bins), task="gbdt", max_depth=cfg.max_depth,
+        max_leaf_nodes=int(pool), fixed=True,
+        subtraction=resolve_hist_subtraction(cfg, dev),
+        hist_budget_bytes=cfg.hist_budget_bytes,
+        max_frontier_chunk=cfg.max_frontier_chunk,
+        max_table_slots=cfg.max_table_slots,
+        rounds_per_dispatch=int(rounds_per_dispatch), engine="fused_rounds",
+        device_bin=isinstance(binned.x_binned, torch.Tensor))
+    obs.memory_plan(plan.to_dict())
+    memory_lib.preflight(plan, obs=obs, what="fused-rounds dispatch",
+                         device=dev)
     with obs.span("shard"):
         fit = FitInputs(binned, zeros if mesh is not None else
                         torch.as_tensor(zeros, device=dev), cfg,
@@ -444,13 +460,29 @@ def run_fused_rounds(*, binned, packed, y_tr: np.ndarray, sw_tr, raw_tr,
     dispatches = 0
     r = start_round
     while r < max_iter:
+        if rescue is not None and rescue.rounds_per_dispatch:
+            # an OOM rescue named the pool or the margins: none of them
+            # scales with the dispatch width, so the remaining rounds go
+            # to the host round loop (the caller), whose levelwise builds
+            # hold the chunked split working set instead
+            break
         k = min(int(rounds_per_dispatch), max_iter - r)
         # the margins carry every round before r: a retry re-runs this
         # dispatch only
         with obs.span("fused_rounds"):
-            raw, ints_h, floats_h, scal_h = retry_device(
-                lambda: dispatch(r, k, raw),
-                what=f"gbdt fused rounds {r}..{r + k - 1}", obs=obs)
+            try:
+                raw, ints_h, floats_h, scal_h = retry_device(
+                    lambda: dispatch(r, k, raw),
+                    what=f"gbdt fused rounds {r}..{r + k - 1}", obs=obs)
+            except Exception as e:  # noqa: BLE001 — the OOM-rescue seam
+                # the shrink changes the program, so the rescue cannot
+                # re-run this closure: the loop's check above exits
+                if not (rescue is not None and elastic_enabled()
+                        and is_oom_failure(e)
+                        and rescue.attempt(
+                            e, what=f"gbdt fused rounds {r}..{r + k - 1}")):
+                    raise
+                continue
         dispatches += 1
         if scal_h[-1]:
             raise RuntimeError(
@@ -491,6 +523,15 @@ def run_fused_rounds(*, binned, packed, y_tr: np.ndarray, sw_tr, raw_tr,
                 rounds_per_dispatch=int(rounds_per_dispatch))
         obs.counter("fused_round_dispatches")
         obs.counter("rounds_fused", k)
+        fresh = trees[-k:]
+        obs_acct.price_leafwise(
+            obs, "fused_rounds_fn", fit,
+            {"rows_scanned": sum(obs_acct.leafwise_scan_rows(
+                t, n_features=fit.F, n_bins=fit.B, n_channels=fit.C,
+                task="gbdt", subtraction=loop.use_sub)[2]["rows_scanned"]
+                for t in fresh)},
+            expansions=sum(int(np.sum(t.left >= 0)) for t in fresh),
+            subtraction=loop.use_sub, trees=k)
         new_r = r + k
         if verbose:
             print(f"[gbdt] rounds {r + 1}..{new_r}/{max_iter} (fused "
@@ -507,8 +548,8 @@ def run_fused_rounds(*, binned, packed, y_tr: np.ndarray, sw_tr, raw_tr,
                 ck.maybe_compact(checkpoint_compact_every, obs)
         r = new_r
     if dispatches:
-        # nothing dispatched (a resumed fit that had finished): the
-        # float64 margins stay as they are
+        # nothing dispatched (a resumed fit that had finished, or a rescue
+        # before the first dispatch): the float64 margins stay as they are
         raw_tr[:, 0] = collective.gather_rows(raw, mesh, N).cpu().numpy()
         copies += 1
-    return dispatches
+    return r

@@ -139,7 +139,7 @@ from mpitree_tpu_torch.ops.sampling import (
 from mpitree_tpu_torch.parallel.mesh import feature_shards
 from mpitree_tpu_torch.resilience import chaos
 from mpitree_tpu_torch.resilience.checkpoint import BoostCheckpoint
-from mpitree_tpu_torch.resilience.recovery import SnapshotSlot
+from mpitree_tpu_torch.resilience.recovery import OomRescue, SnapshotSlot
 from mpitree_tpu_torch.resilience.retry import retry_device, sync
 from mpitree_tpu_torch.serving.tables import TreeList
 from mpitree_tpu_torch.utils.validation import (
@@ -500,6 +500,8 @@ class _BaseGradientBoosting(EstimatorBase):
         # one slot a fit: a round's levelwise build resumes from its failed
         # level
         slot = SnapshotSlot()
+        # one OOM rescue a fit: its shrinks hold for every later round
+        rescue = OomRescue(obs=obs, snapshot_slot=slot)
         # K rounds per dispatch on the card (boosting/fused_rounds.py),
         # resolved as the JAX package's :524-590: "auto" where measured
         # faster, an explicit K forces it or raises on a blocker; K == 1
@@ -516,7 +518,7 @@ class _BaseGradientBoosting(EstimatorBase):
         loss_s = clock.lap()  # the first round's row takes the set-up
         if k_dispatch > 1:
             with observing(obs):
-                fused_rounds.run_fused_rounds(
+                n_iter = fused_rounds.run_fused_rounds(
                     binned=binned, packed=packed, y_tr=y_tr, sw_tr=sw_tr,
                     raw_tr=raw_tr, trees=trees, train_scores=train_scores,
                     max_iter=int(self.max_iter), cfg=cfg, seed=seed, lr=lr,
@@ -526,8 +528,10 @@ class _BaseGradientBoosting(EstimatorBase):
                     mesh=mesh, start_round=start_round, ck=ck,
                     checkpoint_every=int(self.checkpoint_every),
                     checkpoint_compact_every=self.checkpoint_compact_every,
-                    obs=obs)
-            n_iter = int(self.max_iter)
+                    obs=obs, rescue=rescue)
+            # short of max_iter when a rescue degraded rounds_per_dispatch
+            # to 1: the host round loop below takes the remaining rounds
+            n_iter = int(n_iter)
         # the bins' shards, placed once for every round that keeps all
         # features
         x_shards = (None if mesh is None or n_iter >= int(self.max_iter)
@@ -577,7 +581,8 @@ class _BaseGradientBoosting(EstimatorBase):
                                 h32=np.ascontiguousarray(h[:, k], np.float32),
                                 xs=None if kept is not None else x_shards):
                     out = build_tree(
-                        binned_r, g32, config=cfg, sample_weight=h32,
+                        binned_r, g32, config=rescue.apply(cfg),
+                        sample_weight=h32,
                         packed=packed_r, return_leaf_ids=True, timer=obs,
                         mesh=mesh, x_shards=xs, snapshot_slot=slot)
                     sync(device)
@@ -586,7 +591,7 @@ class _BaseGradientBoosting(EstimatorBase):
                 with observing(obs):
                     tree, leaf_ids = retry_device(
                         round_build, what=f"gbdt round {r} tree build",
-                        obs=obs, resume=slot)
+                        obs=obs, resume=slot, rescue=rescue)
                 build_s += clock.lap()
                 if kept is not None:
                     # back to the full matrix's feature ids

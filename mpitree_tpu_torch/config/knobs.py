@@ -1,29 +1,27 @@
 """Typed registry of the ``MPITREE_TPU_*`` environment knobs the port reads.
 
 Counterpart of ``mpitree_tpu/config/knobs.py``, with the same registry
-mechanism (:class:`Knob`, :data:`REGISTRY`, :func:`value`, :func:`raw`)
-and, for each knob registered here, the JAX package's name, default,
-parse rule and choices. Registered so far: the serving tier's knobs
-(table quantization, the scheduler's QoS classes and window, the metrics
-exemplar ring), the forests' ``MPITREE_TPU_FOREST_HBM_BUDGET`` and the
-ladder's ``MPITREE_TPU_ELASTIC``, whose defaults alone differ (see their
-entries), the streaming ingest's five
-(host budget, sketch capacity, spill directory and cap, keyed bootstrap),
-the resilience ladder's five (``ELASTIC``, ``RETRIES``,
-``BACKOFF_S``, ``LEVEL_RETRY``, ``CHAOS``; ``resilience/``) and the
-build records' four (``PROFILE``, ``DEBUG``, ``TRACE_DIR``,
-``OBS_STREAM_DIR``; ``obs/``, ``utils/profiling.py``).
-The rest, and the README table generator,
-come with ``ROADMAP.md`` Queue 1 item 18c; the port's other env reads
-(``core/builder.py``, ``boosting/fused_rounds.py``) stay where they are
-until then.
+mechanism (:class:`Knob`, :data:`REGISTRY`, :func:`value`, :func:`raw`,
+:func:`markdown_table`) and, for each knob registered here, the JAX
+package's name, kind, default, parse rule, choices and doc line. It is
+the port's one read path for its knobs: no module of the port reads an
+``MPITREE_TPU_*`` name from ``os.environ`` itself. Two defaults differ on
+purpose, each with its reason at its entry: ``MPITREE_TPU_FOREST_HBM_BUDGET``
+and ``MPITREE_TPU_ELASTIC``.
+
+The JAX package's other knobs, and why the port has none of them:
+:data:`NOT_ON_THE_CARD` (TPU/XLA choices without a counterpart here) and
+:data:`NEXT_SLICE` (knobs whose reader the port does not have yet).
+``python -m mpitree_tpu_torch.config`` renders :data:`KNOBS` as the
+README's port knob table (between its own markers).
 
 Two read paths:
 
 - :func:`value` — the typed read: an unset or empty raw value resolves to
   the default; anything else goes through the knob's parse rule (whose
   errors propagate: a typo'd knob fails loudly);
-- :func:`raw` — the raw string (or None) of a registered knob.
+- :func:`raw` — the raw string (or None) of a registered knob, for the
+  sites whose parsing is site policy (``auto``-steering forces).
 
 Reading a name that is not registered raises ``KeyError``. Stdlib only.
 """
@@ -66,6 +64,16 @@ class Knob:
 
 
 KNOBS: tuple = (
+    # -- engine policy ------------------------------------------------------
+    Knob("MPITREE_TPU_ENGINE", "str", "auto",
+         "build engine when `BuildConfig(engine='auto')`",
+         choices=("auto", "fused", "levelwise")),
+    Knob("MPITREE_TPU_HIST_SUBTRACTION", "str", "auto",
+         "sibling-subtraction histogram carry override",
+         choices=("auto", "on", "off")),
+    Knob("MPITREE_TPU_ROUNDS_PER_DISPATCH", "str", "auto",
+         "boosting rounds fused per dispatch; an integer K forces, `auto`"
+         " prices from the memory planner"),
     # -- serving: scheduler + quantization --------------------------------
     Knob("MPITREE_TPU_SERVING_QUANTIZE", "str", "off",
          "default table form for `compile_model`/`publish` when the"
@@ -123,8 +131,25 @@ KNOBS: tuple = (
     Knob("MPITREE_TPU_TRACE_DIR", "path", None,
          "ambient Chrome-trace capture: every observer traces to a unique"
          " file in this directory"),
+    Knob("MPITREE_TPU_MEM_SAMPLE", "bool", False,
+         "`1` samples live memory watermarks at span boundaries",
+         parse=_one),
+    Knob("MPITREE_TPU_MEM_DRIFT_TOL", "float", 8.0,
+         "ledger-vs-live drift-event threshold (x)", parse=float),
+    Knob("MPITREE_TPU_HBM_BYTES", "int", None,
+         "per-device HBM preflight budget (wins over the backend's"
+         " reported `bytes_limit`)", parse=int),
     Knob("MPITREE_TPU_OBS_STREAM_DIR", "path", None,
          "spill directory for long-run level-row streaming"),
+    Knob("MPITREE_TPU_PEAK_FLOPS", "float", None,
+         "per-device peak f32 FLOP/s the compute ledger prices"
+         " optimal-seconds floors from (overrides the obs.cost platform"
+         " table; unset + unknown platform = honest `None` floors)",
+         parse=float),
+    Knob("MPITREE_TPU_PEAK_HBM_GBPS", "float", None,
+         "per-device peak HBM bandwidth (GB/s) for the compute ledger's"
+         " memory-bound floor (overrides the obs.cost platform table)",
+         parse=float),
     Knob("MPITREE_TPU_METRICS_EXEMPLARS", "int", 0,
          "per-bucket exemplar reservoir size K for obs.metrics"
          " histograms (surfaced as `metrics_text()` comments; 0 = off,"
@@ -149,7 +174,60 @@ KNOBS: tuple = (
     Knob("MPITREE_TPU_CHAOS", "str", None,
          "fault-injection plan spec"
          " (`site:at:kind[:arg][:key=value...];...`)"),
+    # -- native -------------------------------------------------------------
+    Knob("MPITREE_TPU_NO_NATIVE", "bool", False,
+         "disable the C++ host split kernel (numpy fallback)",
+         parse=_flag),
 )
+
+# The JAX package's knobs that choose among TPU or XLA implementations
+# the port does not have: name -> why there is nothing to steer on the
+# card. None of them may come back as a switch from a hand-written kernel
+# to its plain version.
+NOT_ON_THE_CARD: dict = {
+    "MPITREE_TPU_HIST_KERNEL":
+        "picks XLA or Pallas for the histogram; the port has one"
+        " histogram, the CUDA kernel (csrc/histogram.cu), and its plain"
+        " version only on CPU tensors",
+    "MPITREE_TPU_WIDE_HIST":
+        "forces or disables the TPU's sorted window-packed wide tier; the"
+        " CUDA kernel's sorted route serves every width, picked by its"
+        " planner (ops/hist_kernel.py)",
+    "MPITREE_TPU_WIDE_KERNEL":
+        "picks the Pallas or XLA-scan wide kernel; there is one wide"
+        " route on the card, the same CUDA kernel",
+    "MPITREE_TPU_SERVING_KERNEL":
+        "picks the Pallas traversal or the XLA gather loop; the card"
+        " always serves through csrc/traverse.cu",
+    "MPITREE_TPU_DEVICE_BIN":
+        "gates on-device binning on real TPUs only; the port bins on the"
+        " fit's device always (ops/binning.bin_for_engine)",
+    "MPITREE_TPU_EXACT_TIES":
+        "CPU-mesh float64 tie sweep escape hatch; the port's split sweep"
+        " is always float64",
+    "MPITREE_TPU_GBDT_X64":
+        "CPU-mesh float64 gradient accumulation escape hatch; the port's"
+        " gradients always sum exactly in int64 fixed point",
+    "MPITREE_TPU_COMPILE_CACHE":
+        "the persistent XLA executable cache; the port compiles no XLA"
+        " (its kernels build once per checkout under build/)",
+    "MPITREE_TPU_NATIVE_CACHE":
+        "steers the JAX package's native build directory; the port builds"
+        " its native sweep into the checkout's build/native/, named by a"
+        " hash of source, flags and host CPU, and steers no directory",
+}
+
+# The JAX package's knobs whose reader the port does not have yet: they
+# are registered with it (ROADMAP.md Queue 1: the flight store, 18d, and
+# the advisor, 18f).
+NEXT_SLICE: dict = {
+    "MPITREE_TPU_RUN_DIR": "the flight store (obs/flight.py), item 18d",
+    "MPITREE_TPU_RUN_MAX_BYTES": "the flight store's size cap, item 18d",
+    "MPITREE_TPU_RUN_KEEP": "the flight store's rotation tail, item 18d",
+    "MPITREE_TPU_POLICY_EVIDENCE":
+        "the advisor's evidence-driven auto policies (obs/advisor.py),"
+        " item 18f",
+}
 
 REGISTRY: dict = {k.name: k for k in KNOBS}
 
@@ -173,3 +251,26 @@ def value(name: str):
 def raw(name: str) -> str | None:
     """Raw environ string (or None) for a registered knob."""
     return os.environ.get(_lookup(name).name)
+
+
+def markdown_table() -> str:
+    """The README's port knob table, generated from the registry (the
+    JAX package's rendering)."""
+    lines = [
+        "| knob | type | default | effect |",
+        "|---|---|---|---|",
+    ]
+    for k in KNOBS:
+        if k.default is None:
+            default = "unset"
+        elif k.default is True:
+            default = "on"
+        elif k.default is False:
+            default = "off"
+        else:
+            default = f"`{k.default}`"
+        doc = k.doc
+        if k.choices:
+            doc = f"{doc} (one of {', '.join(f'`{c}`' for c in k.choices)})"
+        lines.append(f"| `{k.name}` | {k.kind} | {default} | {doc} |")
+    return "\n".join(lines) + "\n"

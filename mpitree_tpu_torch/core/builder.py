@@ -77,6 +77,13 @@ decisions' copy), ``counts`` (a terminal level's sums) and ``update``
 and each level's fingerprint row, hashed live from the host node buffer
 (``obs/fingerprint.level_fingerprint``). None of it reads the device.
 
+Memory (``obs/memory.py``): :func:`build_tree` records the build's
+memory ledger and refuses a plan over the card's budget before either
+engine's first launch (:func:`ledger_and_preflight`, the JAX package's
+``:529``); each engine prices its launches for the compute ledger
+(``obs/accounting.price_levels``: ``split_fn`` here, ``fused_fn`` in the
+fused engine).
+
 Resilience (``mpitree_tpu_torch.resilience``, the JAX package's
 ``:716-726``, ``:980-1001``, ``:1199-1207``, ``:1272-1289``): given a
 ``snapshot_slot`` the levelwise engine saves its loop carry at every
@@ -115,16 +122,20 @@ subtraction, grow the one-device tree.
 from __future__ import annotations
 
 import dataclasses
-import math
-import os
 import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from mpitree_tpu_torch.config import knobs
 from mpitree_tpu_torch.core.tree_struct import TreeArrays
 from mpitree_tpu_torch.obs.fingerprint import level_fingerprint
+from mpitree_tpu_torch.obs.memory import (  # noqa: F401 — re-exported
+    chunk_bytes_per_slot,
+    default_chunk_slots,
+    default_table_slots,
+)
 from mpitree_tpu_torch.ops import hist_kernel
 from mpitree_tpu_torch.ops.binning import BinnedData, StreamedBinnedData
 from mpitree_tpu_torch.ops.histogram import (
@@ -158,7 +169,7 @@ FRONTIER_TIERS = (1, 8, 64, 128, 512)
 ENGINES = ("auto", "fused", "levelwise")
 SUBTRACTION_FLAGS = ("auto", "on", "off")
 # Environment knobs that steer the "auto" settings only, read at call time
-# (mpitree_tpu/config/knobs.py:68-87).
+# through the registry (config/knobs.py, the JAX package's entries).
 ENGINE_ENV = "MPITREE_TPU_ENGINE"
 SUBTRACTION_ENV = "MPITREE_TPU_HIST_SUBTRACTION"
 # What hist_subtraction="auto" resolves to, per device type, in every
@@ -212,39 +223,24 @@ class BuildConfig:
     debug: bool = False
 
 
-def chunk_bytes_per_slot(n_feat: int, n_bins: int, n_chan: int,
-                         cell_bytes: int = 4) -> int:
-    """Live device bytes per frontier slot: the (F, C, B) histogram
-    (float32 cells, or the fixed-point route's 8-byte int64 ones) plus ~8
-    (F, B) float64 accumulators of the f64 cost sweep."""
-    return n_feat * n_bins * (n_chan * cell_bytes + 8 * 8)
-
-
-def _widest_frontier(n_samples: int, cfg: BuildConfig) -> int:
-    widest = n_samples
-    if cfg.max_depth is not None and cfg.max_depth < 31:
-        widest = min(widest, 2 ** cfg.max_depth)
-    return max(widest, 1)
-
-
 def _chunk_size(n_samples: int, n_feat: int, n_bins: int, n_chan: int,
                 cfg: BuildConfig, cell_bytes: int = 4) -> int:
     """Frontier-chunk slot count K, a power of two fixed for the whole
     build: bounded by the histogram budget, the widest possible frontier
-    (``2**max_depth``, or ``n_samples`` when unbounded) and a hard cap."""
-    per_node = chunk_bytes_per_slot(n_feat, n_bins, n_chan, cell_bytes)
-    cap = max(1, cfg.hist_budget_bytes // max(per_node, 1))
-    cap = min(cap, cfg.max_frontier_chunk)
-    widest = _widest_frontier(n_samples, cfg)
-    want = 1 << max(0, math.ceil(math.log2(max(widest, 1))))
-    return min(want, 1 << int(math.log2(cap)))
+    (``2**max_depth``, or ``n_samples`` when unbounded) and a hard cap
+    (``obs/memory.default_chunk_slots``, the one copy the ledger prices)."""
+    return default_chunk_slots(
+        n_samples, n_feat, n_bins, n_chan,
+        hist_budget_bytes=cfg.hist_budget_bytes,
+        max_frontier_chunk=cfg.max_frontier_chunk,
+        max_depth=cfg.max_depth, cell_bytes=cell_bytes)
 
 
 def _table_slots(n_samples: int, cfg: BuildConfig) -> int:
     """Per-level table width for the reroute and the terminal counts: one
     table serves a whole level in one row pass up to ``max_table_slots``."""
-    widest = min(_widest_frontier(n_samples, cfg), cfg.max_table_slots)
-    return 1 << max(0, math.ceil(math.log2(widest)))
+    return default_table_slots(n_samples, cfg.max_depth,
+                               cfg.max_table_slots)
 
 
 def valid_tiers(tiers, n_slots: int) -> tuple:
@@ -260,11 +256,84 @@ def integer_weights(sample_weight) -> bool:
 
 
 def _env_flag(name: str, choices: tuple) -> str:
-    """An "auto"-steering environment knob, read at call time."""
-    value = os.environ.get(name, "auto").strip().lower() or "auto"
+    """An "auto"-steering knob of the registry (``config/knobs.py``),
+    read at call time."""
+    value = (knobs.raw(name) or "auto").strip().lower() or "auto"
     if value not in choices:
         raise ValueError(f"{name}={value!r}; one of {choices}")
     return value
+
+
+def fixed_route(task: str, y, sample_weight, n_classes) -> bool:
+    """Whether a build's histograms take the int64 fixed-point route, from
+    the host's targets and weights: always for regression and boosting;
+    for class counts when a float32 weight is not an integer or a class's
+    weight reaches 2**24 (``parallel/collective.payload_scale``'s verdict,
+    before anything is placed)."""
+    if task != "classification":
+        return True
+    if y is None:
+        return False
+    yy = (y.cpu().numpy() if isinstance(y, torch.Tensor)
+          else np.asarray(y)).astype(np.int64).reshape(-1)
+    if sample_weight is None:
+        w = None
+    else:
+        w = (sample_weight.cpu().numpy()
+             if isinstance(sample_weight, torch.Tensor)
+             else np.asarray(sample_weight)).astype(np.float32)
+        if not np.array_equal(w, np.round(w)):
+            return True
+        w = np.abs(w).astype(np.float64)
+    sums = np.bincount(yy, weights=w, minlength=int(n_classes or 1))
+    return float(sums.max(initial=0.0)) >= hist_kernel.FLOAT32_EXACT
+
+
+def ledger_and_preflight(*, binned, mesh, cfg: BuildConfig, y,
+                         n_classes, sample_weight, timer, engine: str,
+                         device) -> dict:
+    """Record the memory ledger of one build (``obs/memory.plan_fit``) and
+    refuse it when its predicted peak exceeds the card's budget, before
+    any launch (the JAX package's ``:529``). Prices the statics the engine
+    is about to resolve: the chunk width and route
+    (:func:`fixed_route`), subtraction (:func:`resolve_hist_subtraction`),
+    the mesh's widths, and the device binning's transient for a matrix
+    binned on the card. Returns the plan's dict (also recorded through
+    ``timer.memory_plan``); raises ``obs.memory.MemoryPlanError`` (after
+    a typed ``oom_predicted`` event) on a predicted OOM."""
+    from mpitree_tpu_torch.obs import accounting as obs_acct
+    from mpitree_tpu_torch.obs import memory as memory_lib
+
+    # a streamed fit: its matrix, or the ingest plan (or a streamed plan)
+    # this fit recorded before (one device builds on the plain matrix)
+    prior = getattr(getattr(timer, "record", None), "memory", None) or {}
+    chunk_rows = getattr(binned, "chunk_rows", 0) or (
+        (prior.get("inputs") or {}).get("chunk_rows")
+        if prior.get("kind") == "ingest" else None)
+    streamed = (isinstance(binned, StreamedBinnedData)
+                or prior.get("kind") == "ingest"
+                or bool((prior.get("inputs") or {}).get("streamed")))
+    task = cfg.task
+    plan = obs_acct.build_memory_plan(
+        mesh=mesh, rows=int(binned.n_samples),
+        features=int(binned.n_features), classes=int(n_classes or 2),
+        bins=int(binned.n_bins), task=task, max_depth=cfg.max_depth,
+        max_leaf_nodes=cfg.max_leaf_nodes,
+        fixed=fixed_route(task, y, sample_weight, n_classes),
+        subtraction=resolve_hist_subtraction(cfg, device),
+        hist_budget_bytes=cfg.hist_budget_bytes,
+        max_frontier_chunk=cfg.max_frontier_chunk,
+        max_table_slots=cfg.max_table_slots, engine=engine,
+        device_bin=(not streamed and engine != "host"
+                    and isinstance(binned.x_binned, torch.Tensor)),
+        streamed=streamed,
+        streamed_chunk_rows=(chunk_rows or None) if streamed else None,
+    )
+    d = plan.to_dict()
+    timer.memory_plan(d)
+    memory_lib.preflight(plan, obs=timer, what=f"{engine} build",
+                         device=device)
+    return d
 
 
 def resolve_engine(cfg: BuildConfig) -> str:
@@ -985,6 +1054,10 @@ def build_tree(binned: BinnedData, y: np.ndarray, *, config: BuildConfig,
             build_tree_leafwise,
         )
 
+        ledger_and_preflight(
+            binned=binned, mesh=mesh, cfg=cfg, y=y, n_classes=n_classes,
+            sample_weight=sample_weight, timer=timer, engine="leafwise",
+            device=_build_device(binned, mesh))
         return build_tree_leafwise(
             binned, y, config=cfg, n_classes=n_classes,
             sample_weight=sample_weight, packed=packed,
@@ -1015,11 +1088,26 @@ def build_tree(binned: BinnedData, y: np.ndarray, *, config: BuildConfig,
         "engine", engine, reason=reason, rows=int(binned.n_samples),
         features=int(binned.n_features), bins=int(binned.n_bins),
         max_depth=cfg.max_depth, task=cfg.task, debug=bool(cfg.debug))
+    # the memory ledger and the preflight, before either engine's first
+    # launch
+    ledger_and_preflight(
+        binned=binned, mesh=mesh, cfg=cfg, y=y, n_classes=n_classes,
+        sample_weight=sample_weight, timer=timer, engine=engine,
+        device=_build_device(binned, mesh))
     if engine == "fused":
         from mpitree_tpu_torch.core.fused_builder import build_tree_fused
 
         return build_tree_fused(binned, y, **kw)
     return _build_levelwise(binned, y, snapshot_slot=snapshot_slot, **kw)
+
+
+def _build_device(binned, mesh) -> torch.device:
+    """The device a build runs on: the mesh's lead shard, else the one
+    that holds the bins."""
+    if mesh is not None:
+        return mesh.lead
+    xb = binned.x_binned
+    return (xb[0] if isinstance(xb, (list, tuple)) else xb).device
 
 
 def note_subtraction(timer, use_sub: bool, *, leafwise: bool = False) -> None:
@@ -1172,6 +1260,7 @@ def _build_levelwise(binned: BinnedData, y: np.ndarray, *,
     timer.set_mesh(mesh, device=dev)
     note_subtraction(timer, use_sub)
     carry = small_host = None
+    cost_rows = []  # the compute ledger's view of this run's levels
 
     def to_dev(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(dev)
@@ -1343,6 +1432,10 @@ def _build_levelwise(binned: BinnedData, y: np.ndarray, *,
                 else None
             timer.counter("rows_scanned", int(round(scanned)))
             timer.counter("rows_frontier", int(round(frontier_w)))
+        if not terminal:
+            cost_rows.append({"frontier": frontier_size,
+                              "hist_bytes": hist_b,
+                              "rows_scanned": scanned})
         timer.level(
             level=depth, frontier=frontier_size, splits=len(split_ids),
             hist_bytes=hist_b, psum_bytes=psum_b, rows_scanned=scanned,
@@ -1364,6 +1457,11 @@ def _build_levelwise(binned: BinnedData, y: np.ndarray, *,
         # built: a later failure restarts rather than resuming a finished
         # build (and the snapshot's device tensors are released)
         snapshot_slot.clear()
+    if cost_rows:
+        from mpitree_tpu_torch.obs import accounting as obs_acct
+
+        obs_acct.price_levels(timer, "split_fn", fit, cost_rows,
+                              dispatches=len(cost_rows))
     out = tree.finalize()
     if timer.wants_fingerprints:
         timer.fingerprint_tree(fp_rows)

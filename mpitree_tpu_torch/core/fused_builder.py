@@ -439,6 +439,7 @@ def replay_record(timer, tree: TreeArrays, fit: FitInputs, cfg: BuildConfig,
         timer.counter(name, v)
     for r in rows:
         timer.level(**r)
+    obs_acct.price_levels(timer, "fused_fn", fit, rows)
     if timer.wants_fingerprints:
         timer.fingerprint_tree(obs_acct.replay_fingerprints(tree))
 
@@ -523,6 +524,8 @@ def build_forest_fused(binned, y: np.ndarray, *, config: BuildConfig,
     task = cfg.task
     dev = (mesh.lead if isinstance(binned, StreamedBinnedData)
            else binned.x_binned.device)
+    price = _forest_ledger(binned, y, cfg, weights, n_classes, mesh, dev,
+                           timer)
     with timer.phase("shard"):
         ws = torch.as_tensor(np.asarray(weights, np.float32), device=dev)
         cms = torch.as_tensor(np.asarray(cand_masks, bool), device=dev)
@@ -564,12 +567,71 @@ def build_forest_fused(binned, y: np.ndarray, *, config: BuildConfig,
             trees.append(tree)
     timer.counter("forest_fused_builds")
     timer.counter("trees_built", T)
+    price(trees)
     if timer.wants_fingerprints:
         for tree in trees:
             timer.fingerprint_tree(obs_acct.replay_fingerprints(tree))
     if return_leaf_ids:
         return trees, nids
     return trees
+
+
+def _forest_ledger(binned, y, cfg: BuildConfig, weights, n_classes, mesh,
+                   dev, timer):
+    """The batched forest's memory ledger (``obs/memory.plan_forest``, on
+    the ``(tree, data)`` shape :func:`_grow_sharded` takes), recorded and
+    preflighted before anything is placed; returns the closure that
+    prices the build's ``forest_fn`` dispatch from the finished trees."""
+    from types import SimpleNamespace
+
+    from mpitree_tpu_torch.core.builder import (
+        _chunk_size,
+        fixed_route,
+        valid_tiers,
+    )
+    from mpitree_tpu_torch.obs import memory as memory_lib
+    from mpitree_tpu_torch.parallel import mesh as mesh_lib
+
+    task, T = cfg.task, weights.shape[0]
+    N, F, B = binned.n_samples, binned.n_features, binned.n_bins
+    C = 3 if task in ("regression", "gbdt") else int(n_classes)
+    Dt = Dd = 1
+    if mesh is not None:
+        Dt, Dd = mesh_lib.tree_data_shape(
+            mesh.size, T, dataset_bytes=4 * N * F,
+            hbm_budget=mesh_lib.forest_hbm_budget(mesh.lead))
+    fixed = any(fixed_route(task, y, weights[t], n_classes)
+                for t in range(T))
+    sub = resolve_hist_subtraction(cfg, dev)
+    K = _chunk_size(N, F, B, C, cfg, cell_bytes=8 if fixed else 4)
+    plan = memory_lib.plan_forest(
+        n_trees=T, rows=N, features=F, classes=int(n_classes or 2),
+        bins=B, task=task, max_depth=cfg.max_depth, tree_shards=Dt,
+        data_shards=Dd, subtraction=sub, fixed=fixed, chunk_slots=K,
+        hist_budget_bytes=cfg.hist_budget_bytes,
+        max_frontier_chunk=cfg.max_frontier_chunk,
+        device_bin=(not isinstance(binned, StreamedBinnedData)
+                    and isinstance(binned.x_binned, torch.Tensor)))
+    timer.memory_plan(plan)
+    memory_lib.preflight(plan, obs=timer, what="forest build", device=dev)
+
+    def price(trees) -> None:
+        view = SimpleNamespace(
+            N=N, f_local=F, C=C, B=B, fixed=fixed, K=K,
+            tiers=valid_tiers(cfg.frontier_tiers, K),
+            packed_width=-(-F // hist_kernel.LANE_FEATURES)
+            * hist_kernel.LANE_FEATURES if B <= 256 else 4 * F)
+        rows = []
+        for tree in trees:
+            rows += obs_acct.fused_scan_rows(
+                tree, n_slots=K, tiers=tuple(view.tiers), n_features=F,
+                n_bins=B, n_channels=C, counts_channels=C,
+                max_depth=-1 if cfg.max_depth is None
+                else int(cfg.max_depth), task=task, n_rows=N,
+                subtraction=sub, itemsize=8 if fixed else 4)[0]
+        obs_acct.price_levels(timer, "forest_fn", view, rows)
+
+    return price
 
 
 def _level_depths(levels: list, n_nodes: int) -> np.ndarray:

@@ -430,6 +430,18 @@ def build_tree_host(binned, y: np.ndarray, *, config,
     check_task(cfg)
     timer = timer if timer is not None else PhaseTimer(enabled=False)
     timer.counter("host_builds")
+    # the memory ledger of the host tier: nothing on the card, the host
+    # side priced (the raw and binned matrix and the per-row state)
+    from mpitree_tpu_torch.obs import accounting as obs_acct
+
+    timer.memory_plan(obs_acct.build_memory_plan(
+        mesh_axes=1, rows=int(binned.n_samples),
+        features=int(binned.n_features), classes=int(n_classes or 2),
+        bins=int(binned.n_bins), task=cfg.task, max_depth=cfg.max_depth,
+        max_leaf_nodes=cfg.max_leaf_nodes,
+        hist_budget_bytes=cfg.hist_budget_bytes,
+        max_frontier_chunk=cfg.max_frontier_chunk,
+        max_table_slots=cfg.max_table_slots, engine="host"))
     if feature_mask is not None:
         binned = dataclasses.replace(binned, n_cand=np.where(
             np.asarray(feature_mask, bool), binned.n_cand, 0).astype(

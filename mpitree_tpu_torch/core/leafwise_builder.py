@@ -84,6 +84,7 @@ from mpitree_tpu_torch.core.fused_builder import (
     _row_sum,
 )
 from mpitree_tpu_torch.obs import accounting as obs_acct
+from mpitree_tpu_torch.obs.memory import pool_capacity
 from mpitree_tpu_torch.obs.observer import cold_event
 from mpitree_tpu_torch.ops import hist_kernel
 from mpitree_tpu_torch.ops import impurity as imp_ops
@@ -101,13 +102,9 @@ done_reads = 0
 
 
 def _pool_capacity(max_leaf_nodes: int, max_depth, n_samples: int) -> int:
-    """Open-leaf pool width ``P`` (``:66``): the budget, cut to ``2**d``
-    leaves of a depth-``d`` tree and to ``N`` non-empty ones; the node
-    capacity is ``2P - 1``."""
-    p = int(max_leaf_nodes)
-    if max_depth is not None and max_depth < 31:
-        p = min(p, 2 ** max(int(max_depth), 0))
-    return max(min(p, max(n_samples, 1)), 1)
+    """Open-leaf pool width ``P`` (``:66``;
+    ``obs/memory.pool_capacity``, the one copy the ledger prices)."""
+    return pool_capacity(max_leaf_nodes, max_depth, n_samples)
 
 
 def _n_head(task: str) -> int:
@@ -608,10 +605,13 @@ def _build_leafwise_stepped(fit: FitInputs, cfg: BuildConfig, *, pool: int,
 
 
 def replay_leafwise(timer, tree, fit: FitInputs, cfg: BuildConfig,
-                    use_sub: bool, *, level_rows: bool) -> None:
+                    use_sub: bool, *, level_rows: bool,
+                    price: str | None = None) -> None:
     """A leaf-wise build's scan counters, per-depth rows (the fused
     loop's, ``level_rows``) and fingerprint rows, replayed from the
-    finished ``tree`` into ``timer``."""
+    finished ``tree`` into ``timer``; ``price`` names the compute-ledger
+    entry the build's launches are priced under (``leafwise_fn`` for the
+    fused loop, ``expand_fn`` a host-stepped expansion)."""
     rows, _, counters = obs_acct.leafwise_scan_rows(
         tree, n_features=fit.F, n_bins=fit.B, n_channels=fit.C,
         task=cfg.task, subtraction=use_sub,
@@ -621,6 +621,12 @@ def replay_leafwise(timer, tree, fit: FitInputs, cfg: BuildConfig,
     if level_rows:
         for r in rows:
             timer.level(**r)
+    if price is not None:
+        n_exp = int(np.sum(tree.left >= 0))
+        obs_acct.price_leafwise(
+            timer, price, fit, counters, expansions=n_exp,
+            subtraction=use_sub,
+            dispatches=n_exp if price == "expand_fn" else 1)
     if timer.wants_fingerprints:
         timer.fingerprint_tree(obs_acct.replay_fingerprints(tree))
 
@@ -747,7 +753,8 @@ def build_tree_leafwise(binned, y: np.ndarray, *, config: BuildConfig,
             binned, cfg.task, cfg.criterion, n_nodes, *ints[:2], counts,
             ints[2], ints[3], ints[4], _count_dtype(cfg.task, sample_weight))
     replay_leafwise(timer, tree, fit, cfg, use_sub,
-                    level_rows=engine == "fused")
+                    level_rows=engine == "fused",
+                    price="leafwise_fn" if engine == "fused" else "expand_fn")
     leaf_ids = None
     if return_leaf_ids or (cfg.task == "regression"
                            and refit_targets is not None):

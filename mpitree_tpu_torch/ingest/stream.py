@@ -322,9 +322,19 @@ def ingest_dataset(ds: StreamedDataset, *, mesh, max_bins: int = 256,
     )
     F = sketches.n_features
     chunk_rows = ds.resolve_chunk_rows() or memory_lib.ingest_chunk_rows(F)
-    # The JAX package prices the ingest here (``plan_ingest``) and records
-    # it on the fit's observer; the port's memory planner and run records
-    # are ROADMAP.md Queue 1 item 18.
+    # the ingest's ledger (the JAX package's :287-300), on the fit's
+    # observer; the build records its own plan after it
+    from mpitree_tpu_torch.parallel.mesh import data_shards, feature_shards
+
+    plan = memory_lib.plan_ingest(
+        rows=n_rows, features=F, chunk_rows=chunk_rows,
+        sketch_capacity=ds.sketch_capacity,
+        mesh_axes={"data": data_shards(mesh),
+                   "feature": feature_shards(mesh)},
+        max_bins=max_bins,
+        spill_bytes=None if spill_store is None else int(spill_store.bytes))
+    if obs is not None:
+        obs.memory_plan(plan)
 
     t1 = time.perf_counter()
     # validate=False: the sketch pass already proved every row finite

@@ -22,7 +22,8 @@ How a streamed fit differs from an in-memory one:
   failure retries on the card (the levelwise engine from its last
   level), but there is no host rung: the host tier would need the
   host-resident matrix a stream never builds, so a terminal failure
-  raises. The JAX package's OOM rescue waits for ``ROADMAP.md`` item 18e.
+  raises. An OOM the memory ledger can shrink is rescued on the card
+  (``resilience.OomRescue``, the JAX package's ``:185``).
 """
 
 from __future__ import annotations

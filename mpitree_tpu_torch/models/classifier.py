@@ -126,7 +126,7 @@ from mpitree_tpu_torch.ops.predict import predict_leaf_ids
 from mpitree_tpu_torch.ops.sampling import sampler_for
 from mpitree_tpu_torch.parallel.distributed import process_info
 from mpitree_tpu_torch.parallel.mesh import resolve_mesh
-from mpitree_tpu_torch.resilience.recovery import SnapshotSlot
+from mpitree_tpu_torch.resilience.recovery import OomRescue, SnapshotSlot
 from mpitree_tpu_torch.resilience.retry import (
     device_failover,
     retry_device,
@@ -203,7 +203,9 @@ def grow_tree(binned, X, y, *, host: bool, cfg: BuildConfig, max_depth, rd,
     The device build runs inside the resilience ladder
     (``resilience/retry.py``; the JAX package's
     ``mpitree_tpu/models/classifier.py:316-351``): a transient failure
-    retries on the card, the levelwise engine from its last level, and a
+    retries on the card, the levelwise engine from its last level, an
+    OOM the memory ledger can shrink runs again on the card under the
+    shrunk plan (``resilience.OomRescue``, at most three shrinks), and a
     terminal one (or a spent budget) raises, or, with
     ``MPITREE_TPU_ELASTIC=1``, rebuilds on the host tier when
     ``host_binned`` is given: a callable returning the host-binned matrix
@@ -229,17 +231,21 @@ def grow_tree(binned, X, y, *, host: bool, cfg: BuildConfig, max_depth, rd,
                          reason=obs.record.decisions["build_path"]["reason"])
         else:
             slot = SnapshotSlot()
+            # an OOM the ledger can shrink runs again on the card: each
+            # dispatch takes the rescue's shrinks so far
+            rescue = OomRescue(obs=obs, snapshot_slot=slot)
 
             def device_build():
                 out = build_tree(binned, y, packed=packed, mesh=mesh,
-                                 snapshot_slot=slot, **kw)
+                                 snapshot_slot=slot,
+                                 **dict(kw, config=rescue.apply(cfg)))
                 sync(obs.device)  # a fault of this build raises here
                 return out
 
             if (host_binned is None or cfg.max_leaf_nodes is not None
                     or (mesh is not None and mesh.n_procs > 1)):
                 res = retry_device(
-                    device_build, obs=obs, resume=slot,
+                    device_build, obs=obs, resume=slot, rescue=rescue,
                     what=f"{what} " + ("leaf-wise build"
                                        if cfg.max_leaf_nodes is not None
                                        else "device build"))
@@ -255,7 +261,7 @@ def grow_tree(binned, X, y, *, host: bool, cfg: BuildConfig, max_depth, rd,
                     return out
 
                 res = device_failover(device_build, host_build, obs=obs,
-                                      resume=slot,
+                                      resume=slot, rescue=rescue,
                                       what=f"{what} device build")
         tree, leaf_ids = res if refine else (res, None)
         return finish_tree(

@@ -158,6 +158,7 @@ from mpitree_tpu_torch.parallel.mesh import (
     tree_data_shape,
 )
 from mpitree_tpu_torch.resilience.checkpoint import ForestCheckpoint
+from mpitree_tpu_torch.resilience.recovery import OomRescue
 from mpitree_tpu_torch.resilience.retry import (
     device_failover,
     retry_device,
@@ -448,6 +449,10 @@ class _BaseForest(EstimatorBase):
                     feature_mask=tree_mask[i], mono_cst=mono, timer=obs)
             return res if refine else (res, None)
 
+        # the batched groups' OOM rescue: a shrink holds for every later
+        # group of the fit (a per-tree build's is grow_tree's)
+        rescue = OomRescue(obs=obs)
+
         def build_one(i):
             return grow_tree(
                 binned, X, y, host=host, cfg=tree_cfg(tree_w[i]),
@@ -469,7 +474,8 @@ class _BaseForest(EstimatorBase):
 
             def dev():
                 out = build_forest_fused(
-                    binned, y, config=cfg, n_classes=n_classes,
+                    binned, y, config=rescue.apply(cfg),
+                    n_classes=n_classes,
                     weights=np.stack([
                         np.ones(n, np.float32) if tree_w[i] is None
                         else np.asarray(tree_w[i], np.float32)
@@ -497,11 +503,11 @@ class _BaseForest(EstimatorBase):
                 if host_binned is None:
                     built, engine = retry_device(
                         dev, what="forest group streamed device build",
-                        obs=obs)
+                        obs=obs, rescue=rescue)
                 else:
                     built, engine = device_failover(
                         dev, host_fn, what="forest group device build",
-                        obs=obs)
+                        obs=obs, rescue=rescue)
                 obs.decision(
                     "engine", engine,
                     reason=("trees batch into one fused build per group"

@@ -35,6 +35,7 @@ from pathlib import Path
 
 import numpy as np
 
+from mpitree_tpu_torch.config import knobs
 from mpitree_tpu_torch.obs.observer import cold_event
 
 SRC = Path(__file__).resolve().parent / "split_kernel.cpp"
@@ -54,8 +55,7 @@ _u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
 def disabled() -> bool:
     """``MPITREE_TPU_NO_NATIVE`` set to anything but ``""`` or ``"0"``
     (the JAX package's boolean knob convention)."""
-    raw = os.environ.get("MPITREE_TPU_NO_NATIVE")
-    return bool(raw) and raw != "0"
+    return bool(knobs.value("MPITREE_TPU_NO_NATIVE"))
 
 
 def _host_tag() -> str:

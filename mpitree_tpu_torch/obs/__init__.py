@@ -7,16 +7,30 @@ schema 9 and top-level fields) and ``dump_report(path)``;
 events and replayed level rows as Chrome-trace timelines
 (:class:`TraceSink`); ``obs.fingerprint`` stamps every fit with per-level
 build-state fingerprints equal to the JAX package's on equal trees;
-``obs.metrics`` is the serving metrics registry and ``obs.memory`` the
-streaming ingest's host arithmetic. The memory planner, the cost ledger,
-the flight store, ``obs.diff`` and the advisor are ``ROADMAP.md`` item 18
-(18d-18f).
+``obs.metrics`` is the serving metrics registry; ``obs.memory`` the
+memory ledger and preflight (``MemoryPlan``, ``plan_fit``, ``MemWatch``)
+and ``obs.cost`` the compute ledger against the card's peaks. The flight
+store, ``obs.diff`` and the advisor are ``ROADMAP.md`` Queue 1 (18d,
+18f).
 """
 
 from mpitree_tpu_torch.obs.fingerprint import (
     FINGERPRINT_VERSION,
     ensemble_fingerprint,
     tree_fingerprints,
+)
+from mpitree_tpu_torch.obs.memory import (
+    MEMORY_SCHEMA,
+    MemoryPlan,
+    MemoryPlanError,
+    MemWatch,
+    aggregate_plans,
+    drift_check,
+    plan_fit,
+    plan_forest,
+    plan_ingest,
+    plan_serve,
+    preflight,
 )
 from mpitree_tpu_torch.obs.metrics import MetricsRegistry, metrics_text
 from mpitree_tpu_torch.obs.observer import (
@@ -48,6 +62,7 @@ from mpitree_tpu_torch.obs.trace import (
 
 __all__ = [
     "FINGERPRINT_VERSION",
+    "MEMORY_SCHEMA",
     "SCHEMA_VERSION",
     "STATS_MOVES",
     "TOP_LEVEL_FIELDS",
@@ -55,11 +70,16 @@ __all__ = [
     "BuildRecord",
     "BuildObserver",
     "CompileRegistry",
+    "MemWatch",
+    "MemoryPlan",
+    "MemoryPlanError",
     "MetricsRegistry",
     "REGISTRY",
     "ReportMixin",
     "TraceSink",
+    "aggregate_plans",
     "digest",
+    "drift_check",
     "ensemble_fingerprint",
     "merge_trace_files",
     "mesh_info",
@@ -67,6 +87,11 @@ __all__ = [
     "moved_stat",
     "note_build_path",
     "note_refine",
+    "plan_fit",
+    "plan_forest",
+    "plan_ingest",
+    "plan_serve",
+    "preflight",
     "stats_view",
     "tree_fingerprints",
     "validate_trace",

@@ -1,8 +1,7 @@
 """Static-shape accounting: reduction payloads and replayed level rows.
 
-Counterpart of ``mpitree_tpu/obs/accounting.py:31-343`` without the
-memory planner (``build_memory_plan``, ``ROADMAP.md`` item 18e).
-Everything here is host arithmetic on static shapes and the finished
+Counterpart of ``mpitree_tpu/obs/accounting.py:31-343``, with the
+memory ledger's assembly point (:func:`build_memory_plan`). Everything here is host arithmetic on static shapes and the finished
 tree's host arrays: no device work. The levelwise engines account live
 (they own a host loop); the fused engines, which read one frontier size
 a level, and the CUDA-graph leaf loop, whose expansions run inside a
@@ -24,6 +23,7 @@ import math
 import numpy as np
 
 from mpitree_tpu_torch.obs import fingerprint as fingerprint_mod
+from mpitree_tpu_torch.obs import memory as memory_mod
 from mpitree_tpu_torch.parallel.collective import (
     counts_psum_bytes,
     gbdt_leaf_psum_bytes,
@@ -37,6 +37,89 @@ def replay_fingerprints(tree) -> list:
     tree: the fused engines' twin of the levelwise loop's live hashing.
     Both hash the same bytes from the same host arrays."""
     return fingerprint_mod.tree_fingerprints(tree)
+
+
+def build_memory_plan(*, mesh=None, mesh_axes=None,
+                      **statics) -> memory_mod.MemoryPlan:
+    """The memory ledger of one build (``mpitree_tpu/obs/accounting.py:41``):
+    the fused engines and the CUDA-graph leaf loops run their levels and
+    expansions with no per-phase host view, so their per-phase watermarks
+    are replayed from the same statics the levelwise loop prices (the
+    memory twin of :func:`fused_level_rows`): one assembly point, so the
+    engines cannot drift in what they price. ``mesh``: a
+    ``parallel/mesh.Mesh`` (its data and feature widths are read off it);
+    ``mesh_axes`` the normalized alternative; the rest goes to
+    ``obs.memory.plan_fit``."""
+    if mesh is not None and mesh_axes is None:
+        from mpitree_tpu_torch.parallel.mesh import (
+            data_shards,
+            feature_shards,
+        )
+
+        mesh_axes = {"data": data_shards(mesh),
+                     "feature": feature_shards(mesh)}
+    return memory_mod.plan_fit(mesh_axes=mesh_axes, **statics)
+
+
+def _fit_statics(fit) -> dict:
+    """The shapes a build's launches read (a ``core/builder.FitInputs``):
+    per-shard rows are the global rows over the record's shard count."""
+    packed = getattr(fit, "packed", None)
+    pw = getattr(fit, "packed_width", None)
+    if pw is None:
+        pw = (int(packed.shape[1]) if packed is not None
+              else 4 * int(fit.f_local))
+    return dict(
+        n_rows=int(fit.N), n_features=int(fit.f_local),
+        n_channels=int(fit.C), n_bins=int(fit.B),
+        cell=8 if fit.fixed else 4, packed_width=int(pw))
+
+
+def price_levels(timer, entry: str, fit, levels: list, *,
+                 dispatches: int = 1) -> None:
+    """Price ``entry``'s dispatch from a level-by-level build's rows
+    (``obs/cost.levels_cost`` of its histogram launches and sweeps, split
+    evenly over ``dispatches``), once per static key of the build."""
+    from mpitree_tpu_torch.obs import cost as cost_mod
+    from mpitree_tpu_torch.ops import hist_kernel
+
+    st = _fit_statics(fit)
+    key = (tuple(sorted(st.items())), int(fit.K), tuple(fit.tiers))
+
+    def count():
+        c = cost_mod.levels_cost(
+            levels, tiers=tuple(fit.tiers), n_slots=int(fit.K),
+            stream_max_slots=hist_kernel.STREAM_MAX_SLOTS, **st)
+        n = max(int(dispatches), 1)
+        return {"flops": c["flops"] / n, "bytes": c["bytes"] / n,
+                "note": cost_mod.SWEEP_NOTE}
+
+    timer.price_dispatch(entry, key, count)
+
+
+def price_leafwise(timer, entry: str, fit, counters: dict, *,
+                   expansions: int, subtraction: bool,
+                   dispatches: int = 1, trees: int = 1) -> None:
+    """Price ``entry``'s dispatch from best-first builds' replayed
+    counters (``obs/cost.leafwise_cost``): ``trees`` builds of
+    ``expansions`` in all, split evenly over ``dispatches``."""
+    from mpitree_tpu_torch.obs import cost as cost_mod
+
+    st = _fit_statics(fit)
+    key = (tuple(sorted(st.items())), bool(subtraction))
+
+    def count():
+        c = cost_mod.leafwise_cost(
+            expansions=int(expansions),
+            rows_scanned=float(counters.get("rows_scanned", st["n_rows"])),
+            subtraction=subtraction, **st)
+        # each tree's root launch past the first
+        c["bytes"] += (int(trees) - 1) * st["n_rows"] * 4
+        n = max(int(dispatches), 1)
+        return {"flops": c["flops"] / n, "bytes": c["bytes"] / n,
+                "note": cost_mod.SWEEP_NOTE}
+
+    timer.price_dispatch(entry, key, count)
 
 
 def effective_tiers(tiers: tuple, max_depth: int) -> tuple:

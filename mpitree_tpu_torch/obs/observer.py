@@ -37,11 +37,26 @@ CUDA-graph capture of the leaf loop's step by its static key
 the observer of the fit it happens in (:func:`observing`,
 :func:`cold_event`).
 
-Not ported yet (``ROADMAP.md`` item 18): the memory ledger
-(``memory_plan``, ``watch_memory``, the drift check; 18e), the compute
-ledger (``price_compile`` and ``compute``; 18e) and the flight store
-(``MPITREE_TPU_RUN_DIR``; 18d). Their record fields stay ``{}`` and their
-methods are no-ops with the JAX package's signatures.
+The memory ledger (``obs/memory.py``): every engine records its plan
+(:meth:`BuildObserver.memory_plan`, before its first launch) into
+``record.memory``; ``MPITREE_TPU_MEM_SAMPLE=1`` (or
+:meth:`BuildObserver.watch_memory`) samples the live watermark at every
+span close (on the card the caching allocator's peak since the last
+sample), renders it as the trace's ``mem`` counter track, and checks the
+ledger against it at :meth:`BuildObserver.report` (typed
+``mem_estimate_drift``). A fit of several plans (the host boosting loop's
+rounds) is checked against their aggregate.
+
+The compute ledger (``obs/cost.py``): each engine notes its dispatches
+(:meth:`BuildObserver.price_dispatch`), priced once per static key from
+the port's own count (:meth:`BuildObserver.price_compile`, kept in
+:data:`REGISTRY` for later fits), and :meth:`BuildObserver.report` joins
+them with the span walls and the card's peak row into
+``record.compute``; the CPU prices to None, and an unknown card to None
+with one typed ``cost_unavailable`` event per entry.
+
+Not ported yet (``ROADMAP.md`` Queue 1): the flight store
+(``MPITREE_TPU_RUN_DIR``; 18d).
 """
 
 from __future__ import annotations
@@ -57,7 +72,9 @@ import warnings
 from collections import OrderedDict
 
 from mpitree_tpu_torch.config import knobs
+from mpitree_tpu_torch.obs import cost as cost_mod
 from mpitree_tpu_torch.obs import fingerprint as fingerprint_mod
+from mpitree_tpu_torch.obs import memory as memory_mod
 from mpitree_tpu_torch.obs import trace as trace_mod
 from mpitree_tpu_torch.obs.record import BuildRecord, _jsonable, wire_estimate
 from mpitree_tpu_torch.utils.profiling import PhaseTimer, profiling_enabled
@@ -85,6 +102,9 @@ class CompileRegistry:
         self._seconds: dict = {}
         self._lock = threading.Lock()
         self._warned: set = set()
+        # the compute ledger's captures: per entry, an LRU of static key ->
+        # {flops, bytes[, note]}
+        self._costs: dict = {}
 
     def note(self, entry: str, key, cache_size: int = 64, *,
              churn: bool = True) -> bool:
@@ -127,6 +147,25 @@ class CompileRegistry:
     def seconds(self, entry: str) -> float:
         with self._lock:
             return self._seconds.get(entry, 0.0)
+
+    def price(self, entry: str, info: dict, key=None,
+              cache_size: int = 64) -> None:
+        """Store ``entry``'s per-dispatch count at static ``key``."""
+        with self._lock:
+            lru = self._costs.setdefault(entry, OrderedDict())
+            lru[key] = dict(info)
+            lru.move_to_end(key)
+            while len(lru) > cache_size:
+                lru.popitem(last=False)
+
+    def cost(self, entry: str, key=None) -> dict | None:
+        """``entry``'s count at ``key`` (a copy, with ``variants``: the
+        keys priced), or None when that key has none."""
+        with self._lock:
+            lru = self._costs.get(entry)
+            if not lru or key not in lru:
+                return None
+            return dict(lru[key], variants=len(lru))
 
 
 REGISTRY = CompileRegistry()
@@ -309,18 +348,86 @@ class BuildObserver(PhaseTimer):
         self._meshes: dict = {}  # id -> Mesh whose stats the report reads
         self._notes: dict = {}  # collective() notes, by site
         self._phase_extra: dict = {}  # add_phase fields, by phase
+        # every plan recorded (a host round loop records one a round)
+        self._fit_plans: list = []
+        # compute ledger: the entries this fit dispatched, and those whose
+        # cost_unavailable event is out
+        self._dispatched: dict = {}  # entry -> its latest static key
+        self._cost_unavailable: set = set()
+        self._memwatch: memory_mod.MemWatch | None = None
+        if knobs.value(memory_mod.MEM_SAMPLE_ENV):
+            self.watch_memory()
 
-    # -- not ported yet (ROADMAP.md item 18e / 18d) -------------------------
+    # ``device`` (PhaseTimer's): where the fit runs. A memory watch that
+    # has taken only its baseline moves there (the estimator sets the
+    # device right after making the observer); a later move (the host
+    # rung's) leaves the card's watermark as it is.
+    @property
+    def device(self):
+        return self._device
+
+    @device.setter
+    def device(self, dev) -> None:
+        self._device = dev
+        mw = getattr(self, "_memwatch", None)
+        if (mw is not None and dev is not None and mw.samples <= 1
+                and mw.device != dev):
+            self._memwatch = memory_mod.MemWatch(dev)
+            self._memwatch.sample()
+
+    # -- the memory ledger ----------------------------------------------------
     def watch_memory(self, watch=None) -> None:
-        """No-op: live memory watermarks come with the memory ledger
-        (``ROADMAP.md`` item 18e); ``record.memory`` stays ``{}``."""
+        """Sample live memory at every span close (the ambient form is
+        ``MPITREE_TPU_MEM_SAMPLE=1``); implies timing. The first sample is
+        the baseline: what the process held before the fit."""
+        dev = getattr(self, "_device", None)
+        self._memwatch = (watch if watch is not None
+                          else memory_mod.MemWatch(dev))
+        if self._memwatch.device is None and dev is not None:
+            self._memwatch.device = dev
+        self._memwatch.sample()
+        self.enabled = True
+
+    @property
+    def watching_memory(self) -> bool:
+        return self._memwatch is not None
 
     def memory_plan(self, plan) -> None:
-        """No-op: the analytical memory ledger is item 18e."""
+        """Record the analytical ledger (a ``obs.memory.MemoryPlan`` or its
+        dict) under ``record.memory``, before the first launch; every plan
+        is kept for the whole-fit aggregate."""
+        d = plan if isinstance(plan, dict) else plan.to_dict()
+        self._fit_plans.append(d)
+        live = self.record.memory.get("live")
+        self.record.memory = dict(d)
+        if live is not None:
+            self.record.memory["live"] = live
 
-    def price_compile(self, entry: str, lower) -> None:
-        """No-op: the compute ledger is item 18e; ``record.compute``
-        stays ``{}``."""
+    # -- the compute ledger ---------------------------------------------------
+    def price_compile(self, entry: str, lower, key=None) -> None:
+        """Store ``lower()``'s count (``{"flops", "bytes"}``) as ``entry``'s
+        per-dispatch cost at static ``key``; a count that fails degrades
+        to one typed ``cost_unavailable`` event per entry, never a crash."""
+        info = cost_mod.capture(lower)
+        if info is None:
+            self._cost_unavailable_event(
+                entry, f"the port's count for entry {entry!r} failed; its "
+                "compute-ledger floors stay None")
+            return
+        REGISTRY.price(entry, info, key)
+
+    def price_dispatch(self, entry: str, key, cost_fn) -> None:
+        """Note that this fit dispatched ``entry`` at static ``key``, and
+        price it (:meth:`price_compile` of ``cost_fn``) when the process
+        has no count for that key yet; the record joins this key's."""
+        self._dispatched[entry] = key
+        if REGISTRY.cost(entry, key) is None:
+            self.price_compile(entry, cost_fn, key)
+
+    def _cost_unavailable_event(self, entry: str, message: str) -> None:
+        if entry not in self._cost_unavailable:
+            self._cost_unavailable.add(entry)
+            self.event("cost_unavailable", message, entry=entry)
 
     # -- build-state fingerprints ------------------------------------------
     wants_fingerprints = True
@@ -414,7 +521,8 @@ class BuildObserver(PhaseTimer):
     @contextlib.contextmanager
     def phase(self, name: str):
         tr = self._trace
-        if not self.enabled and tr is None:
+        mw = self._memwatch
+        if not self.enabled and tr is None and mw is None:
             yield
             return
         t0 = time.perf_counter()
@@ -429,6 +537,16 @@ class BuildObserver(PhaseTimer):
             if self.enabled:
                 self.seconds[name] += dt
                 self.calls[name] += 1
+            if mw is not None and ok:
+                # a span-close sample (never inside a launch sequence),
+                # drawn as the trace's mem counter track: current bytes,
+                # so the track shows memory being released too
+                mw.sample(name)
+                if tr is not None:
+                    tr.counter(
+                        "mem", "mem_hbm_bytes", time.perf_counter(),
+                        {"hbm": mw.hbm_last, "host": mw.host_last},
+                    )
             if tr is not None:
                 tr.complete(self._trace_track, name, t0, dt)
                 w = self._trace_window
@@ -588,6 +706,71 @@ class BuildObserver(PhaseTimer):
                 e["bytes"] += 16 * n
         return out
 
+    def _compute(self, rec) -> None:
+        """``record.compute``: the priced entries this fit dispatched,
+        joined with its spans and the card's peak row, plus the host
+        tier's counted, unpriced rows (idempotent)."""
+        captures = {}
+        for entry, key in sorted(self._dispatched.items()):
+            cap = REGISTRY.cost(entry, key)
+            if cap:
+                captures[entry] = cap
+        if captures:
+            # a served model prices its card without timing on it
+            dev = getattr(self, "cost_device", None) or self.device
+            peaks = cost_mod.platform_peaks(cost_mod.device_kind(
+                dev if dev is not None and str(dev).startswith("cuda")
+                else "cpu"))
+            # a card without a peak row says so; the CPU prices to None
+            # silently, as the JAX package's CPU backend does
+            if peaks["device_kind"] and not cost_mod.priceable(peaks):
+                for entry in captures:
+                    self._cost_unavailable_event(
+                        entry,
+                        f"no peak row for device {peaks['device_kind']!r} "
+                        f"(obs.cost.PEAK_TABLE; {cost_mod.PEAK_FLOPS_ENV}/"
+                        f"{cost_mod.PEAK_HBM_ENV} unset): entry {entry!r}'s "
+                        "compute-ledger floors stay None")
+            rec.compute = cost_mod.compute_section(
+                {"phases": rec.phases, "collectives": rec.collectives,
+                 "counters": rec.counters, "levels": rec.levels,
+                 "wire": rec.wire, "mesh": rec.mesh}, captures, peaks)
+        host_rows = cost_mod.host_entries(
+            {"phases": rec.phases, "counters": rec.counters})
+        if host_rows:
+            if rec.compute:
+                rec.compute["entries"].update(host_rows)
+            else:
+                rec.compute = cost_mod.host_only_section(host_rows)
+
+    def _memory_live(self, rec) -> None:
+        """The whole-fit aggregate of a multi-plan fit, the final live
+        sample and the ledger-against-live verdict."""
+        agg = None
+        if len(self._fit_plans) > 1:
+            agg = memory_mod.aggregate_plans(self._fit_plans)
+            rec.memory["aggregate"] = agg
+        if self._memwatch is None:
+            return
+        self._memwatch.sample()
+        live = self._memwatch.summary()
+        rec.memory["live"] = live
+        estimate = (agg["hbm_peak_bytes"] if agg is not None
+                    else rec.memory.get("hbm_peak_bytes"))
+        drift = memory_mod.drift_check(
+            estimate, live.get("hbm_peak_delta_bytes"),
+            live.get("source", "none"))
+        if drift is not None and not any(
+                e.get("kind") == "mem_estimate_drift" for e in rec.events):
+            self.event(
+                "mem_estimate_drift",
+                "analytical memory ledger and live watermark diverge: "
+                f"estimate {drift['estimate_bytes']} B vs live delta "
+                f"{drift['live_delta_bytes']} B ({drift['direction']}, "
+                f"ratio {drift['ratio']}; tolerance {drift['tolerance']}x)",
+                **drift,
+            )
+
     def report(self, *, tree=None, trees=None) -> dict:
         """Finalize into a plain JSON-able dict (the ``fit_report_``
         value). ``tree``: a fitted TreeArrays (fills ``result``);
@@ -619,8 +802,10 @@ class BuildObserver(PhaseTimer):
             rec.collectives,
             rec.mesh.get("axes") or rec.mesh.get("n_devices"),
         )
+        self._compute(rec)
         if self._fp_hash is not None:
             rec.fingerprints["fit"] = self._fp_hash.hexdigest()
+        self._memory_live(rec)
         out = rec.to_dict()
         if self._trace is not None:
             build = [

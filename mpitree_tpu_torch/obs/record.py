@@ -11,8 +11,8 @@ contract), so a port record reads like a JAX record.
   collective accounting are always on (host dict updates); wall-clock
   spans and per-level rows only exist under ``MPITREE_TPU_PROFILE=1``.
 
-Sections the port does not fill yet stay ``{}`` (``memory``: the planner,
-``compute``: the cost ledger, both ``ROADMAP.md`` item 18e).
+``memory`` is the memory ledger (``obs/memory.py``) and ``compute`` the
+compute ledger (``obs/cost.py``), each ``{}`` until a fit records one.
 
 :data:`STATS_MOVES` is the table of where each key that the port's
 ``fit_stats_`` held before it took the JAX package's contract lives in
@@ -350,8 +350,7 @@ def digest(report: dict) -> dict:
         # The compute ledger's headline pair (v9, obs/cost.py): achieved
         # utilization of the optimal-seconds floor and the roofline
         # verdict naming which resource that floor sits on. None where
-        # the platform/wheel could not be priced — the port has no cost
-        # ledger yet (item 18e), so None.
+        # the card could not be priced (the CPU, an unknown part).
         "util_pct": (report.get("compute") or {}).get("util_pct"),
         "roofline": (report.get("compute") or {}).get("roofline"),
         "wall_s": round(wall, 3),

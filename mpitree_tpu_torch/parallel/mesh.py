@@ -43,6 +43,13 @@ import os
 import numpy as np
 import torch
 
+# the pricing formulas of the shape policies: obs/memory.py, their one copy
+from mpitree_tpu_torch.obs.memory import (  # noqa: F401 — re-exported
+    feature_shards_for_budget,
+    slab_bytes,
+    tree_shards_for_budget,
+)
+
 DATA_AXIS = "data"
 TREE_AXIS = "tree"
 FEATURE_AXIS = "feature"
@@ -273,42 +280,6 @@ def as_tree_data_mesh(mesh: Mesh, shape: tuple) -> Mesh:
     shard ``g`` is tree group ``g // shape[1]``, data index
     ``g % shape[1]`` (JAX's row-major reshape)."""
     return _shaped(mesh, tuple(shape), (TREE_AXIS, DATA_AXIS))
-
-
-def slab_bytes(n_slots: int, n_features: int, n_channels: int,
-               n_bins: int, *, itemsize: int = 4) -> int:
-    """One resident (S, F, C, B) histogram slab in bytes
-    (``mpitree_tpu/obs/memory.py:116-122``): the feature policy's unit."""
-    return (int(n_slots) * int(n_features) * int(n_channels)
-            * int(n_bins) * int(itemsize))
-
-
-def feature_shards_for_budget(hist_bytes: int, hist_budget,
-                              usable: list) -> int:
-    """The 2-D policy's feature-shard count
-    (``mpitree_tpu/obs/memory.py:322-334``): the narrowest usable divisor
-    whose slab ``hist_bytes / f`` fits ``hist_budget``, else the widest
-    (it degrades, never refuses)."""
-    f = 1
-    if hist_budget:
-        while f < max(usable) and int(hist_bytes) > int(hist_budget) * f:
-            f = min(k for k in usable if k > f)
-    return f
-
-
-def tree_shards_for_budget(tree_shards: int, dataset_bytes: int,
-                           hbm_budget, divisors: list,
-                           n_devices: int) -> int:
-    """The forest policy's memory guard
-    (``mpitree_tpu/obs/memory.py:337-350``): trade tree-axis width for row
-    sharding while one device's share of the binned matrix exceeds the
-    budget."""
-    t = int(tree_shards)
-    if hbm_budget:
-        while t > 1 and int(dataset_bytes) > int(hbm_budget) * (
-                int(n_devices) // t):
-            t = max(k for k in divisors if k < t)
-    return t
 
 
 def tree_data_shape(n_devices: int, n_trees: int, *, dataset_bytes: int = 0,

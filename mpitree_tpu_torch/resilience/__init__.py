@@ -1,17 +1,20 @@
 """mpitree_tpu_torch.resilience: the failure-handling subsystem on the card.
 
-Counterpart of ``mpitree_tpu/resilience/``, with its public names (less
-``OomRescue``, which waits for the memory ledger of ``ROADMAP.md`` item
-18e). The ladder:
+Counterpart of ``mpitree_tpu/resilience/``, with its public names. The
+ladder:
 
 1. **retry in place**: a transient failure (a lost peer, a timed-out
    collective) runs the build or dispatch again on the card, with
    bounded exponential backoff, from the last completed level or
    expansion where the engine snapshotted one (``retry``, ``recovery``);
-2. **checkpoint at natural barriers**: forest tree groups and boosting
+2. **shrink on the card**: an OOM whose memory ledger names a
+   chunk-scaled array runs again under a shrunk, re-preflighted plan,
+   bounded at three shrinks (``recovery.OomRescue``); one that nothing
+   clears leaves an ``oom_postmortem`` event (``retry``);
+3. **checkpoint at natural barriers**: forest tree groups and boosting
    round groups persist as they complete and resume to the same model
    (``checkpoint``);
-3. **degrade last, when asked**: with ``MPITREE_TPU_ELASTIC=1``, a
+4. **degrade last, when asked**: with ``MPITREE_TPU_ELASTIC=1``, a
    terminal failure (a sticky CUDA error, an aborted communicator, OOM)
    or a spent retry budget rebuilds on the host tier, which grows the
    same tree (up to an exact cost tie, ``ROADMAP.md`` R3) from host
@@ -45,17 +48,26 @@ from mpitree_tpu_torch.resilience.failure import (
     is_transient_failure,
 )
 from mpitree_tpu_torch.resilience.recovery import (
+    MAX_SHRINKS,
+    OomRescue,
     SnapshotSlot,
     resolve_level_retry,
 )
-from mpitree_tpu_torch.resilience.retry import device_failover, retry_device
+from mpitree_tpu_torch.resilience.retry import (
+    _oom_postmortem,
+    device_failover,
+    retry_device,
+)
 
 __all__ = [
     "BoostCheckpoint",
     "BuildCheckpoint",
     "ForestCheckpoint",
+    "MAX_SHRINKS",
+    "OomRescue",
     "ResilienceConfig",
     "SnapshotSlot",
+    "_oom_postmortem",
     "backoff_delay",
     "chaos",
     "device_failover",

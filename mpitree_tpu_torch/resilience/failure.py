@@ -42,9 +42,10 @@ Why the rows differ from the JAX package's:
   fails (the context is lost), so a retry on the card cannot succeed;
   the host rung must run on host copies made before the dispatch.
 - **OOM is terminal,** as in JAX: the same program on the same live state
-  fails the same way. The JAX package's OOM rescue reads a memory ledger
-  the port does not have yet (``ROADMAP.md`` item 18e), so an OOM goes to
-  the host rung, or raises where there is no host twin.
+  fails the same way, so no retry rung runs it again as it was. The OOM
+  rescue (``recovery.OomRescue``) runs a shrunk plan instead where the
+  memory ledger names a chunk-scaled array; otherwise an OOM goes to the
+  host rung, or raises where there is none.
 - **A device-side assert is not a device failure.** It is what an
   out-of-range index does: a program bug, which must re-raise like any
   other (it is sticky all the same). So are CUDA errors of a bad launch

@@ -1,9 +1,7 @@
-"""Sub-build recovery state: level and expansion snapshots.
+"""Sub-build recovery state: level and expansion snapshots, and the OOM
+rescue.
 
-Counterpart of ``mpitree_tpu/resilience/recovery.py`` without its
-``OomRescue`` (which reads the memory ledger a failed build recorded; the
-port has no such ledger before ``ROADMAP.md`` item 18e, so an OOM goes to
-the host rung, as the JAX rescue does when it finds no ledger).
+Counterpart of ``mpitree_tpu/resilience/recovery.py``.
 
 :class:`SnapshotSlot` is the handle an engine shares with the retry
 ladder (``resilience/retry.py``): the engine saves a
@@ -20,6 +18,22 @@ one costs a dict.
 ``MPITREE_TPU_LEVEL_RETRY`` (``auto``, the default, and ``on`` take the
 snapshots; ``off`` leaves a blip to the whole-build retry) gates them
 (:func:`resolve_level_retry`).
+
+:class:`OomRescue` is the rung between "retry on the card" and "the
+host": when a launch runs the card out of memory
+(``torch.OutOfMemoryError``) and the memory ledger the build recorded
+(``obs/memory.py``, ``record.memory``) names a chunk-scaled array among
+its largest, it shrinks the knob that array scales with (halve
+``max_frontier_chunk``; ``hist_subtraction`` -> ``"off"``;
+``rounds_per_dispatch`` -> 1) and the build runs again on the card,
+bounded at :data:`MAX_SHRINKS` shrinks, each a typed ``oom_rescue`` event
+naming the knob and the bytes. The build applies the shrinks to its
+``BuildConfig`` on every (re-)dispatch (:meth:`OomRescue.apply`), so the
+engine's own ``ledger_and_preflight`` re-prices the shrunk plan, and
+re-refuses it if it still cannot fit, before its first launch. Neither
+knob changes a tree: the chunk width is batching, and subtraction is
+exact on both histogram routes. A resident-array OOM (the bins, the
+per-row state) has no shrink: only a wider mesh or the host rung helps.
 """
 
 from __future__ import annotations
@@ -29,6 +43,8 @@ import dataclasses
 from mpitree_tpu_torch.config import knobs
 
 LEVEL_RETRY_ENV = "MPITREE_TPU_LEVEL_RETRY"
+# The OOM rescue's bound: shrinks per fit, across its re-dispatches.
+MAX_SHRINKS = 3
 
 
 def resolve_level_retry() -> bool:
@@ -95,4 +111,109 @@ class SnapshotSlot:
             return False
         self.retries += 1
         self.total_retries += 1
+        return True
+
+
+class OomRescue:
+    """The bounded shrink ladder between "retry on the card" and "the
+    host" (the JAX package's ``:141-257``); built per fit by the
+    estimator, consulted by ``retry.py`` when ``is_oom_failure`` fires.
+
+    :meth:`attempt` reads the ledger the failed build recorded
+    (``obs.record.memory``), maps the first chunk-scaled array among its
+    five largest to its knob (``obs/memory.shrink_knob``), records the
+    shrink in :attr:`overrides` and a typed ``oom_rescue`` event. The
+    build closure applies :meth:`apply` to its config on every dispatch.
+    ``snapshot_slot`` is cleared on every rescue: a snapshot holds
+    tensors shaped by the old plan, so a rescued build starts over."""
+
+    def __init__(self, obs=None, snapshot_slot: SnapshotSlot | None = None,
+                 max_shrinks: int = MAX_SHRINKS):
+        self.obs = obs
+        self.slot = snapshot_slot
+        self.max_shrinks = int(max_shrinks)
+        self.shrinks = 0
+        self.overrides: dict = {}
+
+    # -- the build closure's side ------------------------------------------
+    def apply(self, cfg):
+        """``cfg`` with the shrinks so far (``BuildConfig`` fields only;
+        ``rounds_per_dispatch`` is the fused boosting loop's, read from
+        :attr:`rounds_per_dispatch`)."""
+        kw = {k: v for k, v in self.overrides.items()
+              if k in ("max_frontier_chunk", "hist_subtraction")}
+        return dataclasses.replace(cfg, **kw) if kw else cfg
+
+    @property
+    def rounds_per_dispatch(self) -> int | None:
+        return self.overrides.get("rounds_per_dispatch")
+
+    # -- the ladder's side --------------------------------------------------
+    def attempt(self, exc: BaseException, *, what: str) -> bool:
+        """Propose and record one shrink; True means "run the build again
+        on the card". False when the ladder is spent, no plan was
+        recorded, or no chunk-scaled array is among the largest (a
+        resident-array OOM)."""
+        from mpitree_tpu_torch.obs import memory as memory_lib
+
+        if self.shrinks >= self.max_shrinks:
+            return False
+        rec = getattr(self.obs, "record", None)
+        mem = getattr(rec, "memory", None) or {}
+        arrays = mem.get("arrays") or []
+        if not arrays:
+            return False
+        top = sorted(arrays,
+                     key=lambda a: -int(a.get("bytes_per_device", 0)))[:5]
+        inputs = mem.get("inputs") or {}
+        engine = inputs.get("engine")
+        pick = None
+        for a in top:
+            knob = memory_lib.shrink_knob(str(a.get("name")), engine=engine)
+            if knob is None:
+                continue
+            old_bytes = int(a.get("bytes_per_device", 0))
+            if knob == "max_frontier_chunk":
+                cur = self.overrides.get("max_frontier_chunk",
+                                         inputs.get("chunk_slots"))
+                cur = int(cur) if cur else 0
+                if cur <= 1:
+                    continue  # nothing left to halve
+                pick = (knob, a, old_bytes, max(cur // 2, 1),
+                        old_bytes // 2)
+            elif knob == "hist_subtraction":
+                if self.overrides.get("hist_subtraction") == "off":
+                    continue
+                pick = (knob, a, old_bytes, "off", 0)
+            else:  # rounds_per_dispatch -> 1
+                if self.overrides.get("rounds_per_dispatch") == 1:
+                    continue
+                pick = (knob, a, old_bytes, 1, None)
+            break
+        if pick is None:
+            return False
+        knob, arr, old_bytes, new_value, new_bytes = pick
+        self.overrides[knob] = new_value
+        self.shrinks += 1
+        if self.slot is not None:
+            self.slot.clear()
+        if self.obs is not None:
+            self.obs.counter("oom_rescues")
+            self.obs.event(
+                "oom_rescue",
+                f"device OOM during {what} ({type(exc).__name__}: "
+                f"{str(exc)[:160]}); the memory ledger prices "
+                f"{arr.get('name')!r} as the binding chunk-scaled array — "
+                f"shrinking {knob} to {new_value!r} and re-dispatching "
+                f"on-device (rung {self.shrinks}/{self.max_shrinks}; "
+                "preflight re-prices the shrunk plan before the next "
+                "dispatch commits)",
+                knob=knob,
+                new_value=new_value,
+                binding_array=arr.get("name"),
+                old_bytes=old_bytes,
+                new_bytes=new_bytes,
+                shrink=self.shrinks,
+                hbm_peak_bytes=mem.get("hbm_peak_bytes"),
+            )
         return True

@@ -15,10 +15,13 @@ its warning texts:
    collective) runs the closure again after exponential backoff with
    deterministic jitter, up to ``ResilienceConfig.max_retries`` times.
    Counter: ``device_retries``.
-3. **OOM rescue** (``rescue=``): the JAX package's on-device shrink
-   ladder. It reads a memory ledger the port does not have yet
-   (``ROADMAP.md`` item 18e); the parameter stays so that item only
-   plugs a rescue in. With None an OOM falls through.
+3. **OOM rescue** (``rescue=``, a
+   :class:`~mpitree_tpu_torch.resilience.recovery.OomRescue`): an OOM
+   whose recorded memory ledger names a chunk-scaled array runs the
+   build again on the card under a shrunk, re-preflighted plan, bounded
+   at 3 shrinks. Counter: ``oom_rescues``. An OOM that no rung clears
+   leaves one ``oom_postmortem`` event (the ledger's largest arrays)
+   before it raises or takes the host rung.
 4. **Host failover** (the last rung of :func:`device_failover`), only
    with ``MPITREE_TPU_ELASTIC=1`` (``config.host_failover_enabled``):
    every budget spent, or a terminal failure (a sticky CUDA error, an
@@ -146,6 +149,34 @@ def _subbuild_retry(e: BaseException, resume, cfg: ResilienceConfig,
     return True
 
 
+def _oom_postmortem(e: BaseException, what: str, obs) -> None:
+    """Attach the memory ledger's largest arrays to the record when a
+    launch ran the card out of memory and no rung cleared it (the JAX
+    package's ``:66-100``): the ``device_ooms`` counter and one
+    ``oom_postmortem`` event a record, naming what to shrink."""
+    if obs is None or not is_oom_failure(e):
+        return
+    rec = getattr(obs, "record", None)
+    if rec is None or any(
+            ev.get("kind") == "oom_postmortem" for ev in rec.events):
+        return
+    mem = rec.memory or {}
+    top = sorted(mem.get("arrays", []),
+                 key=lambda a: -int(a.get("bytes_per_device", 0)))[:5]
+    obs.counter("device_ooms")
+    obs.event(
+        "oom_postmortem",
+        f"device OOM during {what} ({type(e).__name__}: "
+        f"{str(e)[:160]}); terminal — not retried. The memory ledger's "
+        "largest per-device arrays are attached (top); shrink the "
+        "binding one or widen the data axis.",
+        hbm_peak_bytes=mem.get("hbm_peak_bytes"),
+        peak_phase=mem.get("peak_phase"),
+        top=[{"name": a.get("name"),
+              "bytes": int(a.get("bytes_per_device", 0))} for a in top],
+    )
+
+
 def _oom_rescue(e: BaseException, rescue, what: str) -> bool:
     if rescue is None or not (elastic_enabled() and is_oom_failure(e)):
         return False
@@ -172,6 +203,7 @@ def retry_device(device_fn, *, what: str, obs=None, resume=None,
                 continue
             if _oom_rescue(e, rescue, what):
                 continue
+            _oom_postmortem(e, what, obs)
             raise
 
 
@@ -191,6 +223,7 @@ def device_failover(device_fn, host_fn, *, what: str, obs=None,
             return device_fn()
         except Exception as e:  # noqa: BLE001 — classified, not swallowed
             if not (elastic_enabled() and is_device_failure(e)):
+                _oom_postmortem(e, what, obs)
                 raise
             if _subbuild_retry(e, resume, cfg, what, obs):
                 continue
@@ -199,6 +232,7 @@ def device_failover(device_fn, host_fn, *, what: str, obs=None,
                 continue
             if _oom_rescue(e, rescue, what):
                 continue
+            _oom_postmortem(e, what, obs)
             if not host_failover_enabled():
                 raise
             count(obs, "device_failovers")

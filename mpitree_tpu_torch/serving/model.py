@@ -74,7 +74,10 @@ requests and rows served, and the latency summary.
 ``serving_dispatch`` span on the ``serving`` track of a trace sink,
 shared with fits. A span times the launch: the request path never waits
 for the card inside a dispatch (the latency histograms time requests end
-to end). The serving memory plan is ``ROADMAP.md`` item 18e.
+to end). The model's card residency is priced at publish
+(``obs/memory.plan_serve``, ``serve_report_["memory"]``), and each
+bucket's first batch prices the traversal for the compute ledger
+(``serving_traverse``).
 
 Every traversal's launch runs through the retry rung of the resilience
 ladder (``resilience.retry_device``; the JAX package's ``:286-326``)
@@ -101,6 +104,8 @@ from mpitree_tpu_torch.obs.fingerprint import (
     FINGERPRINT_VERSION,
     ensemble_fingerprint,
 )
+from mpitree_tpu_torch.obs import cost as cost_lib
+from mpitree_tpu_torch.obs import memory as memory_lib
 from mpitree_tpu_torch.obs.metrics import MetricsRegistry
 from mpitree_tpu_torch.obs.observer import BuildObserver
 from mpitree_tpu_torch.resilience import chaos
@@ -241,6 +246,12 @@ class CompiledModel:
         # counts here (_RetrySink); there is no fallback, so 0
         self._state_lock = threading.Lock()
         self._obs = BuildObserver()
+        self._obs.cost_device = device
+        if self._obs.watching_memory:
+            # MPITREE_TPU_MEM_SAMPLE=1: the watermark of the model's card
+            # (its spans stay unsynchronised: the device is not the
+            # observer's)
+            self._obs.watch_memory(memory_lib.MemWatch(device))
         self._obs.record.fingerprints = {
             "version": FINGERPRINT_VERSION, "trees": [],
             "fit": ensemble_fingerprint(self.trees)}
@@ -305,6 +316,23 @@ class CompiledModel:
             if device.type == "cuda" and self._agg is not None:
                 self._record = self.table.dev_record(device)
         kernel = "traverse_q" if qmode else "traverse"
+        # the model's card residency (obs/memory.plan_serve, the JAX
+        # package's :245): the flat table, its leaf values, the kernel's
+        # packed records, the largest bucket's working set
+        kv = max(int(np.prod(np.asarray(values_fn(self.trees[0])).shape[1:],
+                             dtype=np.int64)), 1)
+        self._obs.memory_plan(memory_lib.plan_serve(
+            n_trees=len(self.trees),
+            n_nodes_total=sum(int(t.n_nodes) for t in self.trees),
+            n_nodes_max=max(int(t.n_nodes) for t in self.trees),
+            n_features=self.n_features, value_channels=kv,
+            n_out=self.n_out, buckets=self.buckets,
+            x64=np.dtype(value_dtype).itemsize == 8,
+            kernel=device.type == "cuda" and self._agg is not None
+            and kind not in traversal.GATHER_KINDS,
+            quantized=qmode is not None,
+            normalized=traversal.ACC_AGG.get(kind) == "norm"))
+        self._priced_buckets: set = set()
         if kind in traversal.GATHER_KINDS:
             self.dispatch = "plain gather"
         elif device.type == "cuda":
@@ -335,6 +363,20 @@ class CompiledModel:
 
         with self._state_lock:
             self._obs.counter("serving_dispatches")
+            fresh = X.shape[0] not in self._priced_buckets
+            if fresh:
+                self._priced_buckets.add(X.shape[0])
+        if fresh:
+            # the compute ledger prices a bucket's first batch, once
+            # (the JAX package's serving/traversal.py:278-290)
+            vbytes = 1 if self._quant is not None else 8
+            self._obs.price_dispatch(
+                "serving_traverse", (id(self), X.shape[0]),
+                lambda: cost_lib.traverse_cost(
+                    n_rows=X.shape[0], n_trees=len(self.trees),
+                    n_steps=self.table.n_steps,
+                    n_features=self.n_features, n_out=self.n_out,
+                    value_bytes=vbytes))
         with self._obs.span("serving_dispatch"):
             return retry_device(dev, what="serving traversal dispatch",
                                 obs=self._retries)

@@ -41,6 +41,7 @@ import math
 import torch
 
 from mpitree_tpu_torch._device import sm_count
+from mpitree_tpu_torch.obs.memory import serve_smem_bytes
 from mpitree_tpu_torch.serving import traversal
 
 THREADS = 256  # threads per block the planner fills with (row, tree) pairs
@@ -81,17 +82,9 @@ def _library():
     return _lib
 
 
-def _smem_bytes(rows: int, chunk: int, n_out: int, n_features: int,
-                acc_bytes: int, norm: bool, stage_x: bool) -> int:
-    """Dynamic shared memory of one block; ``smem_bytes`` in
-    ``csrc/traverse.cu`` computes the same sum (each array rounded up to
-    16 bytes): accumulators, norm's per-pair divisors, leaf ids, X rows."""
-    def a16(b):
-        return -(-b // 16) * 16
-    return (a16(rows * n_out * acc_bytes) + (a16(rows * chunk * 8) if norm
-                                             else 0)
-            + a16(rows * chunk * 4)
-            + (a16(rows * n_features * 4) if stage_x else 0))
+# one block's dynamic shared memory: obs/memory.serve_smem_bytes, the
+# formula the memory ledger prices the served model's tile with
+_smem_bytes = serve_smem_bytes
 
 
 def plan(form: str, n_rows: int, n_trees: int, n_out: int, *,

@@ -118,6 +118,9 @@ class PhaseTimer:
     def memory_plan(self, plan) -> None:
         """No-op twin of BuildObserver.memory_plan."""
 
+    def price_dispatch(self, entry: str, key, cost_fn) -> None:
+        """No-op twin of BuildObserver.price_dispatch."""
+
     # Engines compute per-level state fingerprints (obs/fingerprint.py)
     # only when the timer wants them; a plain PhaseTimer doesn't.
     wants_fingerprints = False

@@ -1254,9 +1254,11 @@ def test_streamed_fits_on_the_card_equal_in_memory(cuda, kind):
 
 def test_real_oom_on_the_card_fails_over_to_the_cpu_tree(cuda, monkeypatch):
     """A real ``torch.OutOfMemoryError`` inside the card's build (the
-    caching allocator capped below the build's need after binning) is
-    classed OOM, terminal. With ``MPITREE_TPU_ELASTIC`` unset (the
-    port's default) it raises to the caller; with ``1`` the host rung
+    caching allocator capped below the build's need after binning, at
+    every build, so no shrink clears it) is classed OOM: the OOM
+    rescue's three shrinks each fail again, then the postmortem. With
+    ``MPITREE_TPU_ELASTIC`` unset (the port's default) it raises to the
+    caller; with ``1`` the host rung
     grows the host tier's tree (the card's up to an exact cost tie,
     ``ROADMAP.md`` R3: this data has one, at depth 8); the cap lifted,
     the card fits again."""
@@ -1291,13 +1293,16 @@ def test_real_oom_on_the_card_fails_over_to_the_cpu_tree(cuda, monkeypatch):
     monkeypatch.delenv("MPITREE_TPU_ELASTIC", raising=False)
     with pytest.raises(torch.OutOfMemoryError):
         DecisionTreeClassifier(**kw).fit(X, y)
-    assert len(seen) == 1 and is_oom_failure(seen[0])
+    assert len(seen) == 4 and all(is_oom_failure(e) for e in seen)
     monkeypatch.setenv("MPITREE_TPU_ELASTIC", "1")
     with pytest.warns(UserWarning, match="rebuilding on the host tier"):
         got = DecisionTreeClassifier(**kw).fit(X, y)
     monkeypatch.setattr(clf_mod, "build_tree", real_build)
-    assert len(seen) == 2 and isinstance(seen[1], torch.OutOfMemoryError)
-    assert is_oom_failure(seen[1])
+    assert len(seen) == 8 and isinstance(seen[4], torch.OutOfMemoryError)
+    assert is_oom_failure(seen[4])
+    kinds = [e["kind"] for e in got.fit_report_["events"]]
+    assert kinds[:4] == ["oom_rescue"] * 3 + ["oom_postmortem"]
+    assert got.fit_report_["counters"]["oom_rescues"] == 3
     assert stats_view(got.fit_report_)["device_failovers"] == 1
     assert stats_view(got.fit_report_)["engine"] == "host"
     host = DecisionTreeClassifier(backend="host", device="cpu",
@@ -1333,6 +1338,74 @@ def test_retry_on_the_card_grows_the_same_tree(cuda, monkeypatch, spec,
     finally:
         chaos.clear()
     assert stats_view(got.fit_report_)[rung] == 1 and stats_view(got.fit_report_)["engine"] != "host"
+    for k in ("feature", "threshold", "left", "right", "count"):
+        np.testing.assert_array_equal(getattr(got.tree_, k),
+                                      getattr(want.tree_, k))
+
+
+def test_planned_peak_brackets_the_allocator_peak(cuda, monkeypatch):
+    """A 50,000-row fit under ``MPITREE_TPU_MEM_SAMPLE=1``: the live
+    watermark is the caching allocator's (exact), its peak over the fit
+    less its baseline within the drift bounds of the planned peak (no
+    ``mem_estimate_drift``), and the tree the unsampled fit's."""
+    from mpitree_tpu_torch import DecisionTreeClassifier
+    from mpitree_tpu_torch.obs import memory
+    from mpitree_tpu_torch.utils.datasets import covtype_like
+
+    X, y = covtype_like(50_000, seed=2)
+    kw = dict(max_depth=10, refine_depth=None)
+    want = DecisionTreeClassifier(**kw).fit(X, y)
+    monkeypatch.setenv("MPITREE_TPU_MEM_SAMPLE", "1")
+    got = DecisionTreeClassifier(**kw).fit(X, y)
+    mem = got.fit_report_["memory"]
+    live = mem["live"]
+    assert live["source"] == memory.ALLOCATOR_SOURCE
+    ratio = mem["hbm_peak_bytes"] / live["hbm_peak_delta_bytes"]
+    assert 0.8 <= ratio <= memory.drift_tolerance(), ratio
+    assert not [e for e in got.fit_report_["events"]
+                if e["kind"] == "mem_estimate_drift"]
+    np.testing.assert_array_equal(got.tree_.feature, want.tree_.feature)
+
+
+def test_capped_allocator_fit_is_rescued_on_the_card(cuda, monkeypatch):
+    """The caching allocator capped between the binning's peak and the
+    build's: the OOM rescue shrinks the chunk on the card (no host rung
+    under the port's default) and the tree is the uncapped one."""
+    from mpitree_tpu_torch import DecisionTreeClassifier
+    from mpitree_tpu_torch.ops.binning import bin_for_engine
+    from mpitree_tpu_torch.utils.datasets import covtype_like
+
+    monkeypatch.setenv("MPITREE_TPU_BACKOFF_S", "0")
+    monkeypatch.delenv("MPITREE_TPU_ELASTIC", raising=False)
+    X, y = covtype_like(50_000, seed=2)
+    kw = dict(max_depth=10, refine_depth=None)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    want = DecisionTreeClassifier(**kw).fit(X, y)
+    torch.cuda.synchronize()
+    fit_peak = torch.cuda.max_memory_reserved() - base
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    binned = bin_for_engine(X, max_bins=256, binning="auto", device=cuda)
+    torch.cuda.synchronize()
+    bin_peak = torch.cuda.max_memory_reserved() - base
+    del binned
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(0).total_memory
+    torch.cuda.set_per_process_memory_fraction(
+        (base + (bin_peak + fit_peak) // 2) / total)
+    try:
+        got = DecisionTreeClassifier(**kw).fit(X, y)
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        torch.cuda.empty_cache()
+    rep = got.fit_report_
+    assert rep["counters"]["oom_rescues"] >= 1
+    assert stats_view(rep).get("device_failovers", 0) == 0
+    ev = [e for e in rep["events"] if e["kind"] == "oom_rescue"]
+    assert ev and ev[0]["knob"] == "max_frontier_chunk"
     for k in ("feature", "threshold", "left", "right", "count"):
         np.testing.assert_array_equal(getattr(got.tree_, k),
                                       getattr(want.tree_, k))

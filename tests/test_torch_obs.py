@@ -151,7 +151,7 @@ def test_schema_and_top_level_fields_equal_jax():
     assert tuple(f.name for f in dataclasses.fields(obs.BuildRecord)) \
         == jax_obs.TOP_LEVEL_FIELDS
     assert rep["schema"] == 9
-    # the parts of 18 not ported keep their fields, empty
+    # a record with no plan and no priced dispatch keeps both ledgers empty
     assert rep["memory"] == {} and rep["compute"] == {}
 
 
