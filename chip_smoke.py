@@ -390,6 +390,31 @@ Phase 33 drives the memory and compute ledgers and the OOM rescue
     utilisation and roofline verdict against the card's row of
     ``obs/cost.PEAK_TABLE``.
 
+Phase 34 drives the flight store, record diffing and the advisor (items
+18d and 18f of ``ROADMAP.md``) on the card:
+
+34. flight: (a) phase 3's fit twice and one 4,096-row request to a fresh
+    copy of phase 7's ``rf`` under ``MPITREE_TPU_RUN_DIR``: two ``fit``
+    envelopes in one lineage on ``cuda`` and one ``serve`` envelope;
+    trees and launches equal to phase 3's; the walls beside phase 3's
+    unset second fit; (b) ``python -m mpitree_tpu_torch.obs.benchdiff``
+    over the store (fingerprints match), ``--cross-platform cpu`` on
+    phase 4's fit fitted on the card and the CPU (a match, or the
+    parting at phase 4's exact tie), and two reports whose labels differ
+    in a slice of rows (exit 1, the first divergent tree, level and
+    channel); (c) ``MPITREE_TPU_RUN_MAX_BYTES`` under the store's size
+    and ``MPITREE_TPU_RUN_KEEP=2``: one more append keeps each lineage's
+    newest 2; (d) three measured repetitions of ``subtraction_ab``
+    (phase 3's fit), ``leafwise_ab`` (phase 25's depth-12 identity pair)
+    and ``gbdt_fusedK`` (phase 26's regressor, cut to
+    ``FLIGHT_AB_ROUNDS`` rounds) appended as ``kind="bench"`` envelopes;
+    the three fits then routed by that evidence (each decision as the
+    noise gate makes of the medians) and by a second store whose evidence
+    flips every static policy (subtraction on, the leaf-wise engine at
+    budget ``2**12``, K = 1), each equal to its static twin;
+    ``MPITREE_TPU_POLICY_EVIDENCE=off`` records no ``advisor_*``
+    decision.
+
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the card's name and power limit, JSON lines of per-shape kernel timings
 (``kernel_shapes``, ``serve_kernel_shapes``, ``fixed_kernel_shapes``), of
@@ -401,7 +426,7 @@ of phases 19-20 (``constrained``, ``persistence``), of phases 21-23
 (``leafwise``, ``fused_rounds``), of phase 27 (``serve_tier``), of phases
 28-29 (``mesh``, ``mesh_ensembles``), of phase 30 (``stream``), of
 phase 31 (``resilience``), of phase 32 (``obs``), of phase 33
-(``memory``) and one
+(``memory``), of phase 34 (``flight``) and one
 ``kernels`` line (with each
 route's launches per engine, and the stream routes at S = 2 of the
 leaf-wise pair) come before it.
@@ -536,6 +561,12 @@ STREAM_CHUNK = 65_536
 SPILL_ROWS = 50_000
 TREE_FIELDS = ("feature", "threshold", "left", "right", "parent", "depth",
                "value", "count", "n_node_samples", "impurity")
+# Phase 34: each A/B of (d) measured this many times (the advisor's
+# MIN_HISTORY); phase 26's regressor cut from BOOST_ROUNDS to
+# FLIGHT_AB_ROUNDS rounds for its A/B and routed fits, to keep the phase
+# near 90 s (printed in its log line)
+FLIGHT_REPS = 3
+FLIGHT_AB_ROUNDS = 40
 
 
 def log(msg: str) -> None:
@@ -5134,6 +5165,482 @@ def phase_memory(X, y, Xh, fit_tree, forest, leaf_tree, boost_reg8, Xc, yc,
     return out
 
 
+def _benchdiff(*args) -> tuple:
+    """``python -m mpitree_tpu_torch.obs.benchdiff ARGS --json`` from the
+    checkout's root: (exit code, verdict line, the diff dict or None)."""
+    r = subprocess.run(
+        [sys.executable, "-m", "mpitree_tpu_torch.obs.benchdiff", *args,
+         "--json"], capture_output=True, text=True, timeout=300,
+        cwd=str(Path(__file__).resolve().parent))
+    verdict = next((ln for ln in r.stdout.splitlines()
+                    if ln.startswith("verdict=")), "")
+    at = r.stdout.find("\n{")
+    d = (json.JSONDecoder().raw_decode(r.stdout[at + 1:])[0]
+         if at >= 0 else None)
+    if r.returncode not in (0, 1, 2) or (r.returncode < 2 and d is None):
+        raise AssertionError(f"benchdiff {args}: exit {r.returncode}\n"
+                             f"{r.stdout[-2000:]}\n{r.stderr[-2000:]}")
+    return r.returncode, verdict, d
+
+
+def _advice_of(est, policy: str) -> dict:
+    """The ``advisor_<policy>`` decision of a fit, flattened."""
+    d = est.fit_report_["decisions"].get(f"advisor_{policy}")
+    if d is None:
+        raise AssertionError(f"flight (d): no advisor_{policy} decision")
+    return dict(value=d["value"], **{k: d["inputs"].get(k) for k in (
+        "evidence_n", "median", "margin", "gate", "fallback")})
+
+
+def _expected_verdict(vals: list, hi, lo):
+    """What the advisor's noise gate makes of ``vals`` (a B-over-A
+    speedup each): ``hi`` past 1 + gate, ``lo`` under 1 - gate, else None
+    (the static policy), with the median and the gate."""
+    med = statistics.median(vals)
+    mad = statistics.median([abs(v - med) for v in vals])
+    gate = max(0.05, 3.0 * 1.4826 * mad / abs(med))
+    value = hi if med > 1 + gate else lo if med < 1 - gate else None
+    return value, med, gate
+
+
+def phase_flight(X, y, fit_tree, fit_launches, fit_s, forest, Xc, yc,
+                 card: str) -> dict:
+    """Phase 34 (items 18d and 18f): the flight store, record diffing and
+    the advisor on the card. (a) phase 3's fit twice and one 4,096-row
+    request to a fresh copy of phase 7's ``rf`` under
+    ``MPITREE_TPU_RUN_DIR``; (b) ``python -m mpitree_tpu_torch.obs.
+    benchdiff`` over the store, across platforms on phase 4's fit, and on
+    two reports whose labels differ; (c) the store's rotation; (d) three
+    measured repetitions of each A/B appended as ``kind="bench"``
+    envelopes, the fits the evidence then routes, and a second store whose
+    evidence flips each static policy. Every part sets the launch counters
+    to 0 just before it and reads them just after."""
+    import tempfile
+
+    from mpitree_tpu_torch.boosting import fused_rounds
+    from mpitree_tpu_torch.core import builder as builder_mod
+    from mpitree_tpu_torch.obs import flight
+    from mpitree_tpu_torch.obs.diff import localize_divergence
+    from mpitree_tpu_torch.obs.record import digest
+    from mpitree_tpu_torch.ops import hist_kernel
+    from mpitree_tpu_torch.serving import compile_model, serve_kernel
+    from mpitree_tpu_torch.tree import (
+        DecisionTreeClassifier,
+        GradientBoostingRegressor,
+    )
+    from mpitree_tpu_torch.utils.datasets import covtype_like
+    from mpitree_tpu_torch.utils.serialize import load_model, save_model
+
+    def zero():
+        for c in (hist_kernel.launches, serve_kernel.launches):
+            for k in c:
+                c[k] = 0
+        torch.cuda.synchronize()
+
+    def launches():
+        return {**{k: v for k, v in hist_kernel.launches.items() if v},
+                **{k: v for k, v in serve_kernel.launches.items() if v}}
+
+    def timed(make, Xd, yd):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        est = make().fit(Xd, yd)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        _on_card(est, "flight")
+        return est, wall
+
+    out = {}
+    t_phase = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_flight_"))
+    store_dir = root / "ambient"
+    kw3 = dict(criterion="entropy", max_depth=DEPTH, max_bins=256,
+               **DEVICE_ONLY)
+    clear = dict(MPITREE_TPU_ENGINE=None, MPITREE_TPU_HIST_SUBTRACTION=None,
+                 MPITREE_TPU_ROUNDS_PER_DISPATCH=None,
+                 MPITREE_TPU_POLICY_EVIDENCE=None, MPITREE_TPU_RUN_DIR=None,
+                 MPITREE_TPU_RUN_MAX_BYTES=None, MPITREE_TPU_RUN_KEEP=None)
+    with _env(**clear):
+        # (a) the ambient store at full width
+        walls, fits = [], []
+        with _env(MPITREE_TPU_RUN_DIR=store_dir):
+            for i in range(2):
+                zero()
+                clf, wall = timed(lambda: DecisionTreeClassifier(**kw3), X,
+                                  y)
+                got = launches()
+                if got != {k: v for k, v in fit_launches.items() if v}:
+                    raise AssertionError(f"flight (a) fit {i}: launches "
+                                         f"{got}, phase 3's {fit_launches}")
+                bad = _differing(clf.tree_, fit_tree)
+                if bad:
+                    raise AssertionError(f"flight (a) fit {i}: tree differs"
+                                         f" from phase 3's in {bad}")
+                walls.append(wall)
+                fits.append(clf)
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_fl-") as tmp:
+                save_model(forest, Path(tmp) / "rf.npz")
+                fresh = load_model(Path(tmp) / "rf.npz", device="cuda")
+            zero()
+            cm = compile_model(fresh)
+            got = cm.predict_proba(X[:STAGE_BATCH])
+            if not np.array_equal(got, forest.predict_proba(
+                    X[:STAGE_BATCH])):
+                raise AssertionError("flight (a): served rf != predict_proba")
+            served = cm.serve_report_
+            serve_launches = launches()
+            del cm, fresh
+        store = flight.FlightStore(str(store_dir))
+        envs = store.entries()
+        fit_envs = [e for e in envs if e["kind"] == "fit"]
+        serve_envs = [e for e in envs if e["kind"] == "serve"]
+        if (len(fit_envs) != 2 or len(serve_envs) != 1
+                or any(e["platform"] != "cuda" for e in fit_envs)
+                or fit_envs[0]["config_digest"]
+                != fit_envs[1]["config_digest"]
+                or store.lineage(fit_envs[1]) != fit_envs
+                or store.baseline_for(fit_envs[1]) != fit_envs[0]
+                or fit_envs[1]["digest"]["fingerprint"]
+                != fits[1].fit_report_["fingerprints"]["fit"]
+                or serve_envs[0]["digest"]["fingerprint"]
+                != served["fingerprints"]["fit"]):
+            held = [(e["kind"], e["platform"], e["config_digest"])
+                    for e in envs]
+            raise AssertionError(f"flight (a): store holds {held}")
+        out["a"] = dict(
+            walls_s=walls, phase3_second_s=fit_s,
+            fit_stats=fits[1].fit_stats_, launches=fit_launches,
+            serve_launches=serve_launches,
+            config_digest=fit_envs[0]["config_digest"],
+            serve_config_digest=serve_envs[0]["config_digest"],
+            store_bytes=os.path.getsize(store.path),
+            envelope_bytes=[len(json.dumps(e, sort_keys=True)) for e in envs])
+        log(f"flight (a): phase 3's fit twice under MPITREE_TPU_RUN_DIR: "
+            f"{walls[0]:.3f} / {walls[1]:.3f} s (spans timed; phase 3's "
+            f"unset second fit {fit_s:.3f} s); trees and launches == phase "
+            f"3's ({fit_launches}); 2 fit envelopes in lineage "
+            f"{fit_envs[0]['config_digest']} on cuda, 1 serve envelope "
+            f"({serve_launches}); store {out['a']['store_bytes']} bytes | "
+            f"{card}")
+
+        # (b) diff and bisection
+        rc, verdict, d = _benchdiff("--store", str(store_dir), "--kind",
+                                    "fit")
+        if rc == 2 or d["fingerprint"]["match"] is not True \
+                or rc != (1 if d["verdict"] in ("regression", "diverged")
+                          else 0):
+            raise AssertionError(f"flight (b) --store: exit {rc}, {verdict}")
+        out["b"] = dict(store=dict(exit=rc, verdict=d["verdict"],
+                                   line=verdict))
+        log(f"flight (b) benchdiff --store: exit {rc}: {verdict}")
+        Xp, yp = covtype_like(50_000, seed=2)
+        pkw = dict(criterion="entropy", max_depth=10, max_bins=256,
+                   **DEVICE_ONLY)
+        with _env(MPITREE_TPU_RUN_DIR=store_dir):
+            cpu = DecisionTreeClassifier(device="cpu", **pkw).fit(Xp, yp)
+            zero()
+            gpu = DecisionTreeClassifier(device="cuda", **pkw).fit(Xp, yp)
+            torch.cuda.synchronize()
+            _on_card(gpu, "flight (b)")
+        rc, verdict, d = _benchdiff("--store", str(store_dir), "--kind",
+                                    "fit", "--cross-platform", "cpu")
+        if rc != 0:
+            raise AssertionError(f"flight (b) --cross-platform: exit {rc}")
+        dv = d["fingerprint"]["divergence"]
+        if _same_fields(gpu.tree_, cpu.tree_):
+            if d["fingerprint"]["match"] is not True:
+                raise AssertionError(f"flight (b): equal trees, {verdict}")
+        else:
+            # phase 4's exact-tie residual (R3): the tie, and the parting
+            # localized at its level
+            _check_parity(gpu.tree_, cpu.tree_, Xp, yp,
+                          what="flight (b)", tie_depth=10)
+            n = min(gpu.tree_.n_nodes, cpu.tree_.n_nodes)
+            node = next(i for i in range(n) if not all(np.array_equal(
+                getattr(gpu.tree_, k)[i], getattr(cpu.tree_, k)[i],
+                equal_nan=True) for k in PARITY_FIELDS))
+            if (dv is None or dv["tree"] != 0
+                    or dv["level"] != int(cpu.tree_.depth[node])):
+                raise AssertionError(f"flight (b): divergence {dv}, the "
+                                     f"tie's node {node}")
+        out["b"]["cross_platform"] = dict(exit=rc, verdict=d["verdict"],
+                                          divergence=dv, line=verdict)
+        log(f"flight (b) benchdiff --cross-platform cpu (phase 4's fit): "
+            f"{verdict}; divergence {dv}")
+        y2 = yp.copy()
+        sl = slice(10_000, 20_000)
+        y2[sl] = np.where(y2[sl] == 1, 2, np.where(y2[sl] == 2, 1, y2[sl]))
+        with _env(MPITREE_TPU_RUN_DIR=store_dir):
+            swapped = DecisionTreeClassifier(device="cuda", **pkw).fit(Xp, y2)
+            torch.cuda.synchronize()
+        out["b"]["launches"] = launches()
+        pa, pb = root / "phase4.json", root / "swapped.json"
+        gpu.dump_report(pa)
+        swapped.dump_report(pb)
+        rc, verdict, d = _benchdiff(str(pa), str(pb))
+        dv = d["fingerprint"]["divergence"]
+        want = localize_divergence(gpu.fit_report_["fingerprints"],
+                                   swapped.fit_report_["fingerprints"])
+        first = _first_divergent_level(gpu.fit_report_["fingerprints"],
+                                       swapped.fit_report_["fingerprints"])
+        if (rc != 1 or d["verdict"] != "diverged" or dv is None
+                or dv != want or (dv["tree"], dv["level"]) != first
+                or dv["channel"] not in ("hist", "winner", "alloc")):
+            raise AssertionError(f"flight (b) reports: exit {rc}, {verdict},"
+                                 f" divergence {dv}, first parting {first}")
+        out["b"]["reports"] = dict(exit=rc, divergence=dv, line=verdict)
+        log(f"flight (b) benchdiff on two reports (labels 1 and 2 swapped in "
+            f"rows 10,000-20,000): exit {rc}, diverged at tree "
+            f"{dv['tree']} level {dv['level']} channel {dv['channel']} "
+            f"(all {dv['channels']})")
+
+        # (c) rotation
+        for _ in range(2):  # two more entries in phase 4's card lineage
+            store.append(kind="fit", record=gpu.fit_report_,
+                         digest=digest(gpu.fit_report_))
+        before = store.entries()
+        size = os.path.getsize(store.path)
+        with _env(MPITREE_TPU_RUN_DIR=store_dir,
+                  MPITREE_TPU_RUN_MAX_BYTES=size - 1,
+                  MPITREE_TPU_RUN_KEEP=2):
+            zero()
+            last = DecisionTreeClassifier(device="cuda", **pkw).fit(Xp, yp)
+            torch.cuda.synchronize()
+        after = store.entries()
+        per: dict = {}
+        for e in before:
+            per.setdefault(tuple(e.get(k) for k in flight.LINEAGE_KEYS),
+                           []).append(e["ts"])
+        kept: dict = {}
+        for e in after:
+            kept.setdefault(tuple(e.get(k) for k in flight.LINEAGE_KEYS),
+                            []).append(e["ts"])
+        newest = store.latest(kind="fit")
+        lineage4 = tuple(newest.get(k) for k in flight.LINEAGE_KEYS)
+        expect = {k: v[-2:] for k, v in per.items()}
+        expect[lineage4] = (per.get(lineage4, []) + [newest["ts"]])[-2:]
+        if (kept != expect or flight._ROTATION_STUCK
+                or os.path.getsize(store.path) > size - 1
+                or newest["digest"]["fingerprint"]
+                != last.fit_report_["fingerprints"]["fit"]):
+            raise AssertionError(f"flight (c): lineages {kept}, expected "
+                                 f"{expect}")
+        out["c"] = dict(bytes_before=size, cap=size - 1,
+                        bytes_after=os.path.getsize(store.path),
+                        entries_before=len(before) + 1,
+                        entries_after=len(after),
+                        per_lineage=sorted(len(v) for v in kept.values()))
+        log(f"flight (c): cap {size - 1} B, keep 2: one more append took "
+            f"{len(before) + 1} entries in {len(per)} lineages to "
+            f"{len(after)} ({out['c']['bytes_after']} B), the newest read "
+            f"back")
+
+        # (d) the advisor on the card: measured A/Bs, then routed fits
+        fields = PARITY_FIELDS + ("parent", "depth", "value", "impurity")
+        shape3 = {"n_samples": int(X.shape[0]), "n_features": int(
+            X.shape[1]), "n_bins": int(fits[0].fit_report_["engine"][
+                "inputs"]["bins"])}
+        shape12 = dict(shape3, max_depth=LEAF_IDENTITY["max_depth"])
+        kw12 = dict(max_depth=LEAF_IDENTITY["max_depth"], max_bins=256,
+                    **DEVICE_ONLY)
+        kwb = dict(max_iter=FLIGHT_AB_ROUNDS)
+        shape_b = {"n_samples": int(Xc.shape[0]),
+                   "n_features": int(Xc.shape[1]), "n_bins": 256,
+                   "max_iter": FLIGHT_AB_ROUNDS}
+        ab = {"subtraction_ab": [], "leafwise_ab": [], "gbdt_fusedK": []}
+        ab_walls = {k: [] for k in ab}
+        twins = {}
+        with _env(MPITREE_TPU_POLICY_EVIDENCE="off"):
+            for rep in range(FLIGHT_REPS):
+                with _env(MPITREE_TPU_HIST_SUBTRACTION="off"):
+                    off, w_off = timed(lambda: DecisionTreeClassifier(**kw3),
+                                       X, y)
+                with _env(MPITREE_TPU_HIST_SUBTRACTION="on"):
+                    on, w_on = timed(lambda: DecisionTreeClassifier(**kw3),
+                                     X, y)
+                for est in (off, on):
+                    if _differing(est.tree_, fit_tree):
+                        raise AssertionError("flight (d) subtraction A/B: a"
+                                             " tree differs from phase 3's")
+                ab["subtraction_ab"].append(w_off / w_on)
+                ab_walls["subtraction_ab"].append((w_off, w_on))
+                lvl, w_lvl = timed(lambda: DecisionTreeClassifier(**kw12),
+                                   X, y)
+                leaf, w_leaf = timed(lambda: DecisionTreeClassifier(
+                    max_bins=256, **LEAF_IDENTITY), X, y)
+                if not _same_fields(leaf.tree_, lvl.tree_, fields):
+                    raise AssertionError("flight (d) leafwise A/B: the "
+                                         "budgeted tree != the level-wise "
+                                         "tree")
+                ab["leafwise_ab"].append(w_lvl / w_leaf)
+                ab_walls["leafwise_ab"].append((w_lvl, w_leaf))
+                host, w_host = timed(lambda: GradientBoostingRegressor(
+                    rounds_per_dispatch=1, **kwb), Xc, yc)
+                fused, w_fused = timed(lambda: GradientBoostingRegressor(
+                    rounds_per_dispatch=FUSED_K, **kwb), Xc, yc)
+                ab["gbdt_fusedK"].append(w_host / w_fused)
+                ab_walls["gbdt_fusedK"].append((w_host, w_fused))
+                if rep == 0:
+                    twins = {"depth12": lvl.tree_, 1: host, FUSED_K: fused}
+                    delta = float(np.abs(fused.predict(Xc[:50_000])
+                                         - host.predict(Xc[:50_000])).max())
+                    contract = dict(max_margin_delta=delta)
+                    if delta > 2e-4:
+                        contract["divergence"] = _boost_divergence(
+                            fused, host, Xc, yc, "flight (d)")
+                else:
+                    for K, est in ((1, host), (FUSED_K, fused)):
+                        if not _same_ensembles(est, twins[K]):
+                            raise AssertionError(f"flight (d): K={K} "
+                                                 "regressor not repeatable")
+        bench_dir = root / "measured"
+        bench = flight.FlightStore(str(bench_dir))
+        metric = {"subtraction_ab": "warm_speedup_on_vs_off",
+                  "leafwise_ab": "warm_speedup_x",
+                  "gbdt_fusedK": "fit_speedup_x"}
+        shapes = {"subtraction_ab": shape3, "leafwise_ab": shape12,
+                  "gbdt_fusedK": dict(shape_b, K=FUSED_K)}
+        for section, vals in ab.items():
+            for v in vals:
+                bench.append(kind="bench", section=section, platform="cuda",
+                             metrics={metric[section]: round(v, 4),
+                                      **shapes[section]},
+                             config={"section": section})
+        expect = {
+            "subtraction_ab": _expected_verdict(
+                [round(v, 4) for v in ab["subtraction_ab"]], "on", "off"),
+            "leafwise_ab": _expected_verdict(
+                [round(v, 4) for v in ab["leafwise_ab"]], "leafwise",
+                "levelwise"),
+            "gbdt_fusedK": _expected_verdict(
+                [round(v, 4) for v in ab["gbdt_fusedK"]], "fused", "host"),
+        }
+
+        def routed(store_root, what: str) -> dict:
+            """Phase 34 (d)'s three fits under ``store_root``'s evidence,
+            each held against its static twin."""
+            res = {}
+            with _env(MPITREE_TPU_RUN_DIR=store_root):
+                zero()
+                sub, wall = timed(lambda: DecisionTreeClassifier(**kw3), X, y)
+                adv = _advice_of(sub, "hist_subtraction")
+                resolved = sub.fit_report_["decisions"]["hist_subtraction"][
+                    "value"]
+                if _differing(sub.tree_, fit_tree):
+                    raise AssertionError(f"flight (d) {what}: subtraction-"
+                                         "routed tree != phase 3's")
+                res["subtraction"] = dict(advice=adv, resolved=resolved,
+                                          wall_s=wall, launches=launches())
+                zero()
+                eng, wall = timed(lambda: DecisionTreeClassifier(**kw12), X,
+                                  y)
+                adv = _advice_of(eng, "engine")
+                frontier = (eng.fit_report_["decisions"].get("frontier")
+                            or {}).get("value")
+                if not _same_fields(eng.tree_, twins["depth12"], fields):
+                    raise AssertionError(f"flight (d) {what}: engine-routed "
+                                         "tree != the level-wise tree")
+                res["engine"] = dict(advice=adv, frontier=frontier,
+                                     engine=_stats(eng)["engine"],
+                                     expansions=_stats(eng).get(
+                                         "expansions"),
+                                     wall_s=wall, launches=launches())
+                zero()
+                gb, wall = timed(lambda: GradientBoostingRegressor(**kwb),
+                                 Xc, yc)
+                adv = _advice_of(gb, "rounds_per_dispatch")
+                k = int(gb.fit_report_["decisions"]["rounds_per_dispatch"][
+                    "value"])
+                if k not in twins or not _same_ensembles(gb, twins[k]):
+                    raise AssertionError(f"flight (d) {what}: K={k} routed "
+                                         "regressor != its measured twin")
+                res["rounds"] = dict(advice=adv, K=k, wall_s=wall,
+                                     launches=launches())
+            return res
+
+        measured = routed(bench_dir, "measured")
+        checks = (("subtraction_ab", measured["subtraction"]["advice"],
+                   measured["subtraction"]["resolved"],
+                   lambda v: v or ("on" if builder_mod.SUBTRACTION_AUTO[
+                       "cuda"] else "off")),
+                  ("leafwise_ab", measured["engine"]["advice"],
+                   measured["engine"]["frontier"],
+                   lambda v: "leafwise" if v == "leafwise" else None),
+                  ("gbdt_fusedK", measured["rounds"]["advice"],
+                   measured["rounds"]["K"],
+                   lambda v: 1 if v == "host" else FUSED_K if v == "fused"
+                   else fused_rounds.ROUNDS_AUTO["cuda"]))
+        for section, adv, resolved, follow in checks:
+            value, med, gate = expect[section]
+            if (adv["evidence_n"] != FLIGHT_REPS
+                    or (adv["value"] if adv["value"] != "static" else None)
+                    != value or abs(adv["median"] - med) > 1e-3
+                    or (value is None) != (adv["fallback"] == "noise_gate")
+                    or resolved != follow(value)):
+                raise AssertionError(f"flight (d) {section}: advice {adv}, "
+                                     f"resolved {resolved}; measured "
+                                     f"{ab[section]} (median {med}, gate "
+                                     f"{gate}) -> {value}")
+        forced_dir = root / "forced"
+        forced = flight.FlightStore(str(forced_dir))
+        for section, v in (("subtraction_ab", 1.5), ("leafwise_ab", 1.5),
+                           ("gbdt_fusedK", 0.5)):
+            for _ in range(FLIGHT_REPS):
+                forced.append(kind="bench", section=section,
+                              platform="cuda",
+                              metrics={metric[section]: v,
+                                       **shapes[section]},
+                              config={"section": section})
+        flipped = routed(forced_dir, "forced")
+        if (flipped["subtraction"]["resolved"] != "on"
+                or flipped["engine"]["frontier"] != "leafwise"
+                or not flipped["engine"]["launches"].get("stream")
+                or flipped["rounds"]["K"] != 1):
+            raise AssertionError(f"flight (d) forced: {flipped}")
+        with _env(MPITREE_TPU_RUN_DIR=forced_dir,
+                  MPITREE_TPU_POLICY_EVIDENCE="off"):
+            zero()
+            off, _ = timed(lambda: DecisionTreeClassifier(**kw3), X, y)
+        leaked = [k for k in off.fit_report_["decisions"]
+                  if k.startswith("advisor_")]
+        if leaked or off.fit_report_["decisions"]["hist_subtraction"][
+                "value"] != "off" or _differing(off.tree_, fit_tree):
+            raise AssertionError(f"flight (d): POLICY_EVIDENCE=off recorded "
+                                 f"{leaked}")
+        out["d"] = dict(
+            ratios=ab, walls_s=ab_walls, rounds_cut=dict(
+                ab=FLIGHT_AB_ROUNDS, phase26=BOOST_ROUNDS),
+            expected={k: dict(value=v[0], median=v[1], gate=v[2])
+                      for k, v in expect.items()},
+            measured=measured, forced=flipped, contract=contract)
+        for section, key in (("subtraction_ab", "subtraction"),
+                             ("leafwise_ab", "engine"),
+                             ("gbdt_fusedK", "rounds")):
+            log(f"flight (d) {section}: ratios "
+                f"{[round(v, 4) for v in ab[section]]} (walls "
+                f"{ab_walls[section]}); advisor {measured[key]['advice']}; "
+                f"forced evidence: {flipped[key]['advice']} | {card}")
+        log(f"flight (d): measured routes: hist_subtraction "
+            f"{measured['subtraction']['resolved']}, frontier "
+            f"{measured['engine']['frontier']}, rounds_per_dispatch "
+            f"{measured['rounds']['K']}; forced routes: hist_subtraction on "
+            f"(tree == phase 3's), leaf-wise at budget "
+            f"{2 ** LEAF_IDENTITY['max_depth']} "
+            f"({flipped['engine']['expansions']} expansions, launches "
+            f"{flipped['engine']['launches']}; tree == the depth-"
+            f"{LEAF_IDENTITY['max_depth']} tree), K = 1 (== the "
+            f"host twin); K = {FUSED_K} vs 1 "
+            f"margins {contract}; phase 26's regressor cut from "
+            f"{BOOST_ROUNDS} to {FLIGHT_AB_ROUNDS} rounds for these A/Bs; "
+            f"MPITREE_TPU_POLICY_EVIDENCE=off: no advisor_* decision; "
+            f"advise_mesh_2d needs two devices: held on the CPU mesh only "
+            f"(tests/test_torch_advisor.py)")
+    shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"flight: {out['seconds']:.3f} s")
+    return out
+
+
 def phase_profile(name: str, work, out_dir: Path) -> None:
     """Run ``work()`` once more under torch.profiler: device time by kernel
     and the device's busy share of the wall-clock; the table goes to
@@ -5384,6 +5891,9 @@ def main() -> int:
     memory = phase_memory(X, y, Xh, fit_tree, forest, leaf_tree,
                           boost_regs[FUSED_K], Xc, yc, Xch, resilience)
     mark("33 memory")
+    flight = phase_flight(X, y, fit_tree, launches, fit_s, forest, Xc, yc,
+                          card)
+    mark("34 flight")
     if args.profile:
         profile_all(X, y, forest, Xh, args.profile)
 
@@ -5432,6 +5942,10 @@ def main() -> int:
                  for part in ("tree", "forest", "leafwise")},
                 b=memory["b"]["launches"].get(route, 0),
                 c=memory["c"]["launches"].get(route, 0)),
+            flight_launches={
+                "a fit": launches[route],
+                "d leaf-wise routed": flight["d"]["forced"]["engine"][
+                    "launches"].get(route, 0)},
         ))
     for form, (agg, chan) in SERVE_LINE.items():
         row = next(r for r in serve_shapes if r["kernel"] == form
@@ -5466,6 +5980,7 @@ def main() -> int:
                 for part in ("e", "g", "h")},
             memory_serve_launches=memory["a"]["served_rf"]["launches"].get(
                 form, 0),
+            flight_serve_launches=flight["a"]["serve_launches"].get(form, 0),
         ))
     for key, S in FIXED_LINE.items():
         route = key[:-len("_fixed")]
@@ -5505,6 +6020,10 @@ def main() -> int:
             resilience_launches={"f": resilience["f"]["launches"][key]},
             memory_launches=memory["a"]["fused_rounds"]["launches"].get(
                 key, 0),
+            flight_launches={
+                f"d {part} K={flight['d'][part]['rounds']['K']}":
+                    flight["d"][part]["rounds"]["launches"].get(key, 0)
+                for part in ("measured", "forced")},
         ))
     for form in SERVE_LINE:
         for what in ("classifier", "regressor"):
@@ -5538,6 +6057,8 @@ def main() -> int:
                 leafwise["regressor"]["launches"][key]),
             launches_of=("phase 25 (b), subtraction off" if payload is None
                          else "phase 25 (c)"),
+            flight_launches=(flight["d"]["forced"]["engine"]["launches"].get(
+                key, 0) if payload is None else None),
             mesh_ensemble_launches=_ensemble_launches(ensembles, key),
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
@@ -5570,6 +6091,7 @@ def main() -> int:
     log(json.dumps({"resilience": resilience}))
     log(json.dumps({"obs": observability}))
     log(json.dumps({"memory": memory}))
+    log(json.dumps({"flight": flight}, default=str))
     log(json.dumps({"phase_end_s": clock}))
     log(card)
     log(json.dumps({"kernels": kernels}))

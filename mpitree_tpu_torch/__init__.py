@@ -27,7 +27,11 @@ file format, serving (``compile_model``, ``ModelRegistry``; boosted
 margins through the traversal kernel), streaming (``StreamedDataset``)
 and resilience (``mpitree_tpu_torch.resilience``: the retry and
 host-failover ladder, level and expansion resume, forest and boosting
-``checkpoint=``, chaos seams); ``ROADMAP.md`` lists what comes next.
+``checkpoint=``, chaos seams) and observability
+(``mpitree_tpu_torch.obs``: ``fit_report_``, traces, the memory and
+compute ledgers, the flight store under ``MPITREE_TPU_RUN_DIR``, record
+diffs and the evidence-driven ``"auto"`` policies); ``ROADMAP.md`` lists
+what comes next.
 """
 
 from mpitree_tpu_torch.boosting import (

@@ -57,8 +57,13 @@ margins it starts from, which the non-finite guard then refuses. A
 ``BoostCheckpoint`` flushes after each dispatch that crosses a multiple
 of ``checkpoint_every`` rounds, so a resumed fit starts at a dispatch
 boundary of the uninterrupted one and dispatches as it did: the same
-exponents, trees and margins bit for bit. Not here (``ROADMAP.md`` item
-18): the OOM rescue and the advisor.
+exponents, trees and margins bit for bit.
+
+Evidence (``obs/advisor.advise_rounds_per_dispatch``, ``:176-205``):
+``"auto"`` consults the flight store's ``gbdt_fusedK`` A/Bs on this
+device type after the blockers, which no measurement overrides: a
+measured "host" gives K = 1, a measured "fused" the K it was measured
+at, and no verdict leaves :data:`ROUNDS_AUTO`.
 """
 
 from __future__ import annotations
@@ -71,10 +76,12 @@ from mpitree_tpu_torch.core import leafwise_builder as leafwise
 from mpitree_tpu_torch.core.builder import (
     BuildConfig,
     FitInputs,
+    evidence_shape,
     note_subtraction,
     resolve_hist_subtraction,
 )
 from mpitree_tpu_torch.obs import accounting as obs_acct
+from mpitree_tpu_torch.obs import advisor
 from mpitree_tpu_torch.obs import memory as memory_lib
 from mpitree_tpu_torch.ops import hist_kernel
 from mpitree_tpu_torch.ops.histogram import gbdt_payload
@@ -112,12 +119,17 @@ def resolve_rounds_per_dispatch(param, *, device_type: str, loss_kind,
                                 colsample: float, max_depth, max_leaf_nodes,
                                 n_samples=None, n_features=None, n_bins=None,
                                 hist_budget_bytes=None,
-                                feature_shards: int = 1) -> tuple:
+                                feature_shards: int = 1,
+                                policy_evidence: str = "auto",
+                                obs=None) -> tuple:
     """``(K, reason)`` for the estimator's ``rounds_per_dispatch``
-    (``:82-240``, without the advisor): the environment steers ``"auto"``
-    only; an explicit integer wins, and raises where a blocker forbids it
-    (a ``(data, feature)`` mesh among them, ``:146-155``). ``"auto"`` is
-    :data:`ROUNDS_AUTO` for ``device_type`` when nothing blocks."""
+    (``:82-240``): the environment steers ``"auto"`` only; an explicit
+    integer wins, and raises where a blocker forbids it (a ``(data,
+    feature)`` mesh among them, ``:146-155``). When nothing blocks,
+    ``"auto"`` follows the stored evidence (the module docstring;
+    ``policy_evidence`` gates it, ``obs`` records the
+    ``advisor_rounds_per_dispatch`` decision), else :data:`ROUNDS_AUTO`
+    for ``device_type``."""
     blockers = []
     if n_samples is not None:
         pn = memory_lib.pool_capacity(
@@ -174,6 +186,23 @@ def resolve_rounds_per_dispatch(param, *, device_type: str, loss_kind,
     if flag == "auto":
         if blockers:
             return 1, env_note + "auto: " + "; ".join(blockers)
+        adv = advisor.advise_rounds_per_dispatch(
+            platform=device_type, policy_evidence=policy_evidence,
+            shape={k: int(v) for k, v in (
+                ("n_samples", n_samples), ("n_features", n_features),
+                ("n_bins", n_bins)) if v is not None})
+        advisor.record_advice(obs, adv)
+        if adv is not None and adv["value"] == "host":
+            return 1, env_note + (
+                "evidence: the host per-round loop measured faster on "
+                f"{device_type} (gbdt_fusedK history, n="
+                f"{adv['evidence_n']}, median speedup {adv['median']}x)")
+        if adv is not None and adv["value"] == "fused":
+            k_ev = int(adv.get("K") or DEFAULT_ROUNDS_PER_DISPATCH)
+            return k_ev, env_note + (
+                f"evidence: K={k_ev} fused rounds measured "
+                f"{adv['median']}x faster than the host loop "
+                f"(gbdt_fusedK history, n={adv['evidence_n']})")
         k = ROUNDS_AUTO.get(device_type, 1)
         if k == 1:
             return 1, env_note + (
@@ -337,7 +366,9 @@ def run_fused_rounds(*, binned, packed, y_tr: np.ndarray, sw_tr, raw_tr,
         mesh=mesh, rows=int(N), features=int(binned.n_features), classes=2,
         bins=int(binned.n_bins), task="gbdt", max_depth=cfg.max_depth,
         max_leaf_nodes=int(pool), fixed=True,
-        subtraction=resolve_hist_subtraction(cfg, dev),
+        subtraction=resolve_hist_subtraction(
+            cfg, dev, shape=evidence_shape(N, binned.n_features,
+                                           binned.n_bins)),
         hist_budget_bytes=cfg.hist_budget_bytes,
         max_frontier_chunk=cfg.max_frontier_chunk,
         max_table_slots=cfg.max_table_slots,
@@ -365,7 +396,7 @@ def run_fused_rounds(*, binned, packed, y_tr: np.ndarray, sw_tr, raw_tr,
     lr32 = [torch.tensor(np.float32(lr), device=sh.dev) for sh in fit.shards]
     loop = leafwise._LeafLoop(fit, cfg, pool=pool,
                               use_sub=leafwise.leafwise_subtraction(
-                                  fit, cfg, pool),
+                                  fit, cfg, pool, obs=obs),
                               entry="cuda_graph:fused_rounds")
     obs.decision(
         "engine", "fused_rounds",

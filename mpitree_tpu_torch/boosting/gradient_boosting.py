@@ -513,7 +513,8 @@ class _BaseGradientBoosting(EstimatorBase):
             max_depth=self.max_depth, max_leaf_nodes=mln,
             n_samples=binned.n_samples, n_features=binned.n_features,
             n_bins=binned.n_bins, hist_budget_bytes=cfg.hist_budget_bytes,
-            feature_shards=1 if mesh is None else feature_shards(mesh))
+            feature_shards=1 if mesh is None else feature_shards(mesh),
+            policy_evidence=cfg.policy_evidence, obs=obs)
         obs.decision("rounds_per_dispatch", int(k_dispatch), reason=reason)
         loss_s = clock.lap()  # the first round's row takes the set-up
         if k_dispatch > 1:

@@ -10,8 +10,9 @@ purpose, each with its reason at its entry: ``MPITREE_TPU_FOREST_HBM_BUDGET``
 and ``MPITREE_TPU_ELASTIC``.
 
 The JAX package's other knobs, and why the port has none of them:
-:data:`NOT_ON_THE_CARD` (TPU/XLA choices without a counterpart here) and
-:data:`NEXT_SLICE` (knobs whose reader the port does not have yet).
+:data:`NOT_ON_THE_CARD` (TPU/XLA choices without a counterpart here);
+:data:`NEXT_SLICE` (knobs whose reader the port does not have yet) is
+empty.
 ``python -m mpitree_tpu_torch.config`` renders :data:`KNOBS` as the
 README's port knob table (between its own markers).
 
@@ -141,6 +142,15 @@ KNOBS: tuple = (
          " reported `bytes_limit`)", parse=int),
     Knob("MPITREE_TPU_OBS_STREAM_DIR", "path", None,
          "spill directory for long-run level-row streaming"),
+    Knob("MPITREE_TPU_RUN_DIR", "path", None,
+         "ambient flight store: every fit/serve record appends an"
+         " envelope"),
+    Knob("MPITREE_TPU_RUN_MAX_BYTES", "int", 0,
+         "flight-store size cap in bytes (0/unset = unbounded)",
+         parse=int),
+    Knob("MPITREE_TPU_RUN_KEEP", "int", 16,
+         "per-lineage record tail length kept when the store rotates",
+         parse=int),
     Knob("MPITREE_TPU_PEAK_FLOPS", "float", None,
          "per-device peak f32 FLOP/s the compute ledger prices"
          " optimal-seconds floors from (overrides the obs.cost platform"
@@ -150,6 +160,11 @@ KNOBS: tuple = (
          "per-device peak HBM bandwidth (GB/s) for the compute ledger's"
          " memory-bound floor (overrides the obs.cost platform table)",
          parse=float),
+    Knob("MPITREE_TPU_POLICY_EVIDENCE", "str", "auto",
+         "evidence-driven `resolve_*` auto policies (obs.advisor): `auto`"
+         " consults the ambient flight store's A/B lineage history when"
+         " one exists, `off` keeps every static policy",
+         choices=("auto", "off")),
     Knob("MPITREE_TPU_METRICS_EXEMPLARS", "int", 0,
          "per-bucket exemplar reservoir size K for obs.metrics"
          " histograms (surfaced as `metrics_text()` comments; 0 = off,"
@@ -217,17 +232,10 @@ NOT_ON_THE_CARD: dict = {
         " hash of source, flags and host CPU, and steers no directory",
 }
 
-# The JAX package's knobs whose reader the port does not have yet: they
-# are registered with it (ROADMAP.md Queue 1: the flight store, 18d, and
-# the advisor, 18f).
-NEXT_SLICE: dict = {
-    "MPITREE_TPU_RUN_DIR": "the flight store (obs/flight.py), item 18d",
-    "MPITREE_TPU_RUN_MAX_BYTES": "the flight store's size cap, item 18d",
-    "MPITREE_TPU_RUN_KEEP": "the flight store's rotation tail, item 18d",
-    "MPITREE_TPU_POLICY_EVIDENCE":
-        "the advisor's evidence-driven auto policies (obs/advisor.py),"
-        " item 18f",
-}
+# The JAX package's knobs whose reader the port does not have yet: none
+# (the port reads every knob of the JAX package it does not list in
+# NOT_ON_THE_CARD).
+NEXT_SLICE: dict = {}
 
 REGISTRY: dict = {k.name: k for k in KNOBS}
 

@@ -3,10 +3,10 @@ data mesh.
 
 Counterpart of ``mpitree_tpu/core/builder.py`` (``build_tree``, ``:703``).
 :func:`build_tree` runs one of two engines (:func:`resolve_engine`,
-``:808-990`` without the advisor and the leaf-wise reroute): the fused
-engine (``core/fused_builder.py``), which keeps the tree on the device,
-or the levelwise engine below (its loop from ``:980``), which grows each
-level with a few device steps and one host round trip:
+``:808-990``): the fused engine (``core/fused_builder.py``), which
+keeps the tree on the device, or the levelwise engine below (its loop
+from ``:980``), which grows each level with a few device steps and one
+host round trip:
 
 1. the rows are ordered by node once (:class:`FrontierHistograms`), and
    for every frontier chunk :func:`collective.split_hist` builds the
@@ -64,7 +64,12 @@ pair, rebuilding the larger as ``parent - small`` (``:1636-1655``). Both
 histogram routes subtract exactly, so it never changes a tree.
 
 A ``max_leaf_nodes`` budget sends :func:`build_tree` to the leaf-wise
-engines (``core/leafwise_builder.py``).
+engines (``core/leafwise_builder.py``), and so may the flight store's
+evidence (``obs/advisor.py``): under ``policy_evidence="auto"`` a stored
+``leafwise_ab`` winner sends an ``"auto"`` depth-bounded build there at
+the budget ``2**max_depth`` (:func:`leafwise_reroute_budget`), where it
+grows the same tree; ``subtraction_ab`` evidence steers
+:func:`resolve_hist_subtraction` likewise.
 
 Observability (``mpitree_tpu_torch.obs``; the JAX package's sites): the
 ``timer`` of :func:`build_tree` (a ``utils/profiling.PhaseTimer`` or an
@@ -130,6 +135,7 @@ import torch
 
 from mpitree_tpu_torch.config import knobs
 from mpitree_tpu_torch.core.tree_struct import TreeArrays
+from mpitree_tpu_torch.obs import advisor
 from mpitree_tpu_torch.obs.fingerprint import level_fingerprint
 from mpitree_tpu_torch.obs.memory import (  # noqa: F401 — re-exported
     chunk_bytes_per_slot,
@@ -221,6 +227,12 @@ class BuildConfig:
     # On a mesh of several processes, hold every level's decisions to the
     # same bits on every process (utils/profiling.assert_replicated).
     debug: bool = False
+    # Evidence-driven auto policies (obs/advisor.py): "auto" lets an
+    # auto-mode resolver consult the flight store's recorded A/B history
+    # and pick the measured winner (noise-gated; the static policy on
+    # thin or inconclusive history); "off" pins every resolution to the
+    # static one. Ambient twin: MPITREE_TPU_POLICY_EVIDENCE.
+    policy_evidence: str = "auto"
 
 
 def _chunk_size(n_samples: int, n_feat: int, n_bins: int, n_chan: int,
@@ -320,7 +332,9 @@ def ledger_and_preflight(*, binned, mesh, cfg: BuildConfig, y,
         bins=int(binned.n_bins), task=task, max_depth=cfg.max_depth,
         max_leaf_nodes=cfg.max_leaf_nodes,
         fixed=fixed_route(task, y, sample_weight, n_classes),
-        subtraction=resolve_hist_subtraction(cfg, device),
+        subtraction=resolve_hist_subtraction(
+            cfg, device, shape=evidence_shape(
+                binned.n_samples, binned.n_features, binned.n_bins)),
         hist_budget_bytes=cfg.hist_budget_bytes,
         max_frontier_chunk=cfg.max_frontier_chunk,
         max_table_slots=cfg.max_table_slots, engine=engine,
@@ -343,8 +357,9 @@ def resolve_engine(cfg: BuildConfig) -> str:
 
 def engine_decision(cfg: BuildConfig) -> tuple:
     """``"fused"`` or ``"levelwise"``, as ``mpitree_tpu/core/builder.py``
-    resolves it (``:808-990``, without the advisor and the leaf-wise
-    reroute) and ``mpitree_tpu/core/leafwise_builder.py:527-545`` for a
+    resolves it (``:808-990``; its evidence-driven leaf-wise reroute,
+    ``:873-916``, is :func:`build_tree`'s, :func:`leafwise_reroute_budget`)
+    and ``mpitree_tpu/core/leafwise_builder.py:527-545`` for a
     ``max_leaf_nodes`` budget: an explicit ``cfg.engine`` wins,
     ``MPITREE_TPU_ENGINE`` steers ``"auto"``, and ``"auto"`` is fused. A
     level-by-level ``task="gbdt"`` build runs levelwise, and asking for
@@ -373,21 +388,40 @@ def engine_decision(cfg: BuildConfig) -> tuple:
     return ("levelwise" if engine == "levelwise" else "fused"), reason
 
 
-def resolve_hist_subtraction(cfg: BuildConfig, device: torch.device) -> bool:
+def evidence_shape(n_samples, n_features, n_bins) -> dict:
+    """The workload shape an evidence consultation matches stored A/Bs
+    on (``obs/advisor.SHAPE_KEYS``), the keys the JAX package passes."""
+    return {"n_samples": int(n_samples), "n_features": int(n_features),
+            "n_bins": int(n_bins)}
+
+
+def resolve_hist_subtraction(cfg: BuildConfig, device: torch.device, *,
+                             obs=None, shape: dict | None = None) -> bool:
     """Whether the engines build the larger sibling's histogram as
     ``parent - small``. An explicit ``cfg.hist_subtraction`` wins,
-    ``MPITREE_TPU_HIST_SUBTRACTION`` steers ``"auto"``, and ``"auto"`` is
-    :data:`SUBTRACTION_AUTO` for the device type. Unlike the JAX package's
-    resolution (``:419-506``) exactness needs no check: both histogram
-    routes subtract exactly (``ops/histogram.py``), so every task and
-    every weight may take it."""
+    ``MPITREE_TPU_HIST_SUBTRACTION`` steers ``"auto"``, and ``"auto"``
+    first consults the flight store's ``subtraction_ab`` evidence on this
+    device type (``obs/advisor.advise_hist_subtraction``, the JAX
+    package's ``:472-490``; ``shape`` matches it, ``obs`` records the
+    ``advisor_hist_subtraction`` decision): a measured winner ("on") or
+    loser ("off") decides, else :data:`SUBTRACTION_AUTO` for the device
+    type. Unlike the JAX package's resolution (``:419-506``) exactness
+    needs no check: both histogram routes subtract exactly
+    (``ops/histogram.py``), so every task and every weight may take it."""
     flag = cfg.hist_subtraction
     if flag not in SUBTRACTION_FLAGS:
         raise ValueError(f"unknown hist_subtraction {flag!r}")
     if flag == "auto":
         flag = _env_flag(SUBTRACTION_ENV, SUBTRACTION_FLAGS)
     if flag == "auto":
-        return SUBTRACTION_AUTO.get(torch.device(device).type, False)
+        kind = torch.device(device).type
+        adv = advisor.advise_hist_subtraction(
+            platform=kind, shape=shape,
+            policy_evidence=cfg.policy_evidence)
+        advisor.record_advice(obs, adv)
+        if adv is not None and adv["value"] is not None:
+            return adv["value"] == "on"
+        return SUBTRACTION_AUTO.get(kind, False)
     return flag == "on"
 
 
@@ -1023,9 +1057,13 @@ def build_tree(binned: BinnedData, y: np.ndarray, *, config: BuildConfig,
     A ``cfg.max_leaf_nodes`` budget (at least 2) grows the tree best-first
     instead (``core/leafwise_builder.build_tree_leafwise``, the dispatch of
     ``mpitree_tpu/core/builder.py:757-780``), which records its engine,
-    frontier and expansions. ``timer`` (a ``utils/profiling.PhaseTimer``
-    or an ``obs.BuildObserver``) receives the build's spans, decisions,
-    counters, level rows and fingerprints (the module docstring).
+    frontier and expansions. So does an ``"auto"`` build that stored
+    ``leafwise_ab`` evidence sends there, at the budget
+    :func:`leafwise_reroute_budget` gives (the ``advisor_engine``
+    decision records the consultation). ``timer`` (a
+    ``utils/profiling.PhaseTimer`` or an ``obs.BuildObserver``) receives
+    the build's spans, decisions, counters, level rows and fingerprints
+    (the module docstring).
 
     On a ``mesh`` the rows shard over its shards and processes
     (``FitInputs``; ``x_shards``, :func:`shard_matrix` of ``binned`` on
@@ -1045,6 +1083,22 @@ def build_tree(binned: BinnedData, y: np.ndarray, *, config: BuildConfig,
     cfg = config
     check_task(cfg)
     timer = timer if timer is not None else PhaseTimer(enabled=False)
+    budget = leafwise_reroute_budget(cfg, mesh=mesh, mono_cst=mono_cst,
+                                     feature_sampler=feature_sampler)
+    if budget is not None:
+        adv = advisor.advise_engine(
+            platform=_build_device(binned, mesh).type,
+            shape={"n_samples": int(binned.n_samples),
+                   "n_features": int(binned.n_features),
+                   "n_bins": int(binned.n_bins),
+                   "max_depth": int(cfg.max_depth)},
+            policy_evidence=cfg.policy_evidence)
+        advisor.record_advice(timer, adv)
+        if adv is not None and adv["value"] == "leafwise":
+            # the best-first engine records its own engine and frontier
+            # decisions; advisor_engine carries the evidence that sent the
+            # build there
+            cfg = dataclasses.replace(cfg, max_leaf_nodes=budget)
     if cfg.max_leaf_nodes is not None:
         if int(cfg.max_leaf_nodes) < 2:
             raise ValueError(
@@ -1099,6 +1153,35 @@ def build_tree(binned: BinnedData, y: np.ndarray, *, config: BuildConfig,
 
         return build_tree_fused(binned, y, **kw)
     return _build_levelwise(binned, y, snapshot_slot=snapshot_slot, **kw)
+
+
+def leafwise_reroute_budget(cfg: BuildConfig, *, mesh=None, mono_cst=None,
+                            feature_sampler=None) -> int | None:
+    """The leaf budget under which stored ``leafwise_ab`` evidence may
+    send a level-bounded build to the best-first engine
+    (``mpitree_tpu/core/builder.py:873-916``), or None where it may not.
+    The budget is the level-wise node bound ``2**max_depth``, so the
+    finished tree is the same field for field and only the wall clock is
+    at stake. Hard constraints no evidence overrides: the ``"auto"``
+    engine (neither ``cfg.engine`` nor ``MPITREE_TPU_ENGINE`` names one),
+    no ``debug``, no leaf budget already, ``task != "gbdt"``,
+    ``1 <= max_depth <= 12``, no feature axis, no monotonic constraints
+    and no per-node sampling."""
+    if (cfg.engine != "auto" or _env_flag(ENGINE_ENV, ENGINES) != "auto"
+            or cfg.debug or cfg.max_leaf_nodes is not None
+            or cfg.task == "gbdt" or cfg.max_depth is None
+            or not 1 <= int(cfg.max_depth) <= 12):
+        return None
+    if mesh is not None:
+        from mpitree_tpu_torch.parallel.mesh import feature_shards
+
+        if feature_shards(mesh) > 1:
+            return None
+    if mono_cst is not None and bool(np.any(np.asarray(mono_cst) != 0)):
+        return None
+    if feature_sampler is not None and feature_sampler.active:
+        return None
+    return 2 ** int(cfg.max_depth)
 
 
 def _build_device(binned, mesh) -> torch.device:
@@ -1256,7 +1339,8 @@ def _build_levelwise(binned: BinnedData, y: np.ndarray, *,
     if mono:
         cst32 = np.ascontiguousarray(mono_cst, np.int32)
         cst_d = torch.from_numpy(cst32).to(dev)
-    use_sub = resolve_hist_subtraction(cfg, dev)
+    use_sub = resolve_hist_subtraction(
+        cfg, dev, obs=timer, shape=evidence_shape(N, F, fit.B))
     timer.set_mesh(mesh, device=dev)
     note_subtraction(timer, use_sub)
     carry = small_host = None

@@ -66,6 +66,7 @@ from mpitree_tpu_torch.core.builder import (
     FitInputs,
     SubtractionCarry,
     check_task,
+    evidence_shape,
     integer_weights,
     keep_level,
     level_histograms,
@@ -399,7 +400,9 @@ def build_tree_fused(binned, y: np.ndarray, *, config: BuildConfig,
                         sample_weight=sample_weight, packed=packed,
                         feature_mask=feature_mask, mesh=mesh,
                         x_shards=x_shards)
-    use_sub = resolve_hist_subtraction(cfg, fit.dev)
+    use_sub = resolve_hist_subtraction(
+        cfg, fit.dev, obs=timer,
+        shape=evidence_shape(fit.N, fit.F, fit.B))
     timer.set_mesh(mesh, device=fit.dev)
     note_subtraction(timer, use_sub)
     with timer.phase("fused_build"):
@@ -533,7 +536,9 @@ def build_forest_fused(binned, y: np.ndarray, *, config: BuildConfig,
             np.asarray(y, np.int64 if task == "classification"
                        else np.float32), device=dev)
         routes = _forest_routes(task, y_d, ws, n_classes)
-    use_sub = resolve_hist_subtraction(cfg, dev)
+    use_sub = resolve_hist_subtraction(
+        cfg, dev, obs=timer, shape=evidence_shape(
+            binned.n_samples, binned.n_features, binned.n_bins))
     note_subtraction(timer, use_sub)
     need_ids = return_leaf_ids or (task == "regression"
                                    and refit_targets is not None)
@@ -602,7 +607,8 @@ def _forest_ledger(binned, y, cfg: BuildConfig, weights, n_classes, mesh,
             hbm_budget=mesh_lib.forest_hbm_budget(mesh.lead))
     fixed = any(fixed_route(task, y, weights[t], n_classes)
                 for t in range(T))
-    sub = resolve_hist_subtraction(cfg, dev)
+    sub = resolve_hist_subtraction(cfg, dev,
+                                   shape=evidence_shape(N, F, B))
     K = _chunk_size(N, F, B, C, cfg, cell_bytes=8 if fixed else 4)
     plan = memory_lib.plan_forest(
         n_trees=T, rows=N, features=F, classes=int(n_classes or 2),

@@ -73,6 +73,7 @@ from mpitree_tpu_torch.core.builder import (
     BuildConfig,
     FitInputs,
     engine_decision,
+    evidence_shape,
     note_subtraction,
     refit_regression_values,
     resolve_hist_subtraction,
@@ -631,13 +632,17 @@ def replay_leafwise(timer, tree, fit: FitInputs, cfg: BuildConfig,
         timer.fingerprint_tree(obs_acct.replay_fingerprints(tree))
 
 
-def leafwise_subtraction(fit: FitInputs, cfg: BuildConfig, pool: int) -> bool:
+def leafwise_subtraction(fit: FitInputs, cfg: BuildConfig, pool: int,
+                         obs=None) -> bool:
     """Sibling subtraction for a leaf-wise build: as
-    ``builder.resolve_hist_subtraction`` says, while the pool's resident
-    histograms ((P + 1) x F x C x B cells, 8 bytes on the fixed-point
-    route) fit ``cfg.hist_budget_bytes``."""
+    ``builder.resolve_hist_subtraction`` says (``obs`` records its
+    evidence consultation), while the pool's resident histograms
+    ((P + 1) x F x C x B cells, 8 bytes on the fixed-point route) fit
+    ``cfg.hist_budget_bytes``."""
     cell = 8 if fit.fixed else 4
-    return (resolve_hist_subtraction(cfg, fit.dev)
+    return (resolve_hist_subtraction(
+                cfg, fit.dev, obs=obs,
+                shape=evidence_shape(fit.N, fit.F, fit.B))
             and (pool + 1) * fit.F * fit.C * fit.B * cell
             <= cfg.hist_budget_bytes)
 
@@ -710,7 +715,7 @@ def build_tree_leafwise(binned, y: np.ndarray, *, config: BuildConfig,
                 sample_weight=sample_weight, packed=packed,
                 feature_mask=feature_mask, mesh=mesh, x_shards=x_shards)
     pool = _pool_capacity(cfg.max_leaf_nodes, cfg.max_depth, fit.N)
-    use_sub = leafwise_subtraction(fit, cfg, pool)
+    use_sub = leafwise_subtraction(fit, cfg, pool, obs=timer)
     timer.set_mesh(mesh, device=fit.dev)
     timer.decision("engine", engine, reason=reason, rows=int(fit.N),
                    features=int(fit.F), bins=int(fit.B), task=cfg.task)

@@ -148,12 +148,13 @@ class SpillTee:
         self.store.commit()
 
 
-def resolve_spill(source):
+def resolve_spill(source, *, obs=None):
     """Gate a one-shot source through the spill rung.
 
     Re-iterable sources pass through untouched. A one-shot source needs
     ``MPITREE_TPU_SPILL_DIR``; with it set, the source is wrapped in a
-    :class:`SpillTee` over a fresh store directory under it. Returns
+    :class:`SpillTee` over a fresh store directory under it, and ``obs``
+    (a fit's observer) gets the typed ``ingest_spill`` decision. Returns
     ``(source, store or None)``."""
     if not getattr(source, "one_shot", False):
         return source, None
@@ -170,7 +171,14 @@ def resolve_spill(source):
     store = SpillStore(
         tempfile.mkdtemp(prefix="spill-", dir=str(spill_dir))
     )
-    # The JAX package records the rung as an ``ingest_spill`` decision on
-    # the fit's observer here; the port's run records are ROADMAP.md
-    # Queue 1 item 18.
+    if obs is not None:
+        obs.decision(
+            "ingest_spill", "spill",
+            reason=(
+                "one-shot chunk iterator: first pass tees every chunk to "
+                "disk (atomic chunk files, manifest-last commit) so the "
+                "bin+place and refine passes replay from the spill"
+            ),
+            dir=store.dir, cap_bytes=int(store.cap_bytes),
+        )
     return SpillTee(source, store), store

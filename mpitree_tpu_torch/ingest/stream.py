@@ -287,7 +287,8 @@ def ingest_dataset(ds: StreamedDataset, *, mesh, max_bins: int = 256,
                    binning: str = "auto", obs=None) -> IngestResult:
     """Run both passes and place the binned matrix in ``mesh``'s shards
     (``parallel/mesh.Mesh``: a one-shard mesh for one device). ``obs``
-    (a fit's observer) gets the JAX package's ``ingest`` decision.
+    (a fit's observer) gets the JAX package's ``ingest`` decision (and
+    ``ingest_spill`` where a one-shot source spills).
 
     Across processes each streams its own shard (``ds`` built from
     ``shard_for_process``-dealt paths); its global row offset comes from
@@ -297,7 +298,7 @@ def ingest_dataset(ds: StreamedDataset, *, mesh, max_bins: int = 256,
         raise ValueError(f"unknown binning mode: {binning!r}")
     # a one-shot source rides the spill rung (or is refused, the knob
     # named) before the first pass consumes it
-    ds.source, spill_store = spill_mod.resolve_spill(ds.source)
+    ds.source, spill_store = spill_mod.resolve_spill(ds.source, obs=obs)
     t0 = time.perf_counter()
     sketches, y_local, w_local = sketch_dataset(ds)
     sketch_s = time.perf_counter() - t0

@@ -55,8 +55,12 @@ them with the span walls and the card's peak row into
 ``record.compute``; the CPU prices to None, and an unknown card to None
 with one typed ``cost_unavailable`` event per entry.
 
-Not ported yet (``ROADMAP.md`` Queue 1): the flight store
-(``MPITREE_TPU_RUN_DIR``; 18d).
+The flight recorder (``obs/flight.py``): under ``MPITREE_TPU_RUN_DIR``
+the first :meth:`BuildObserver.report` of a fit appends the finalized
+record to the run store, once (``flight_kind`` labels it: ``"fit"``, or
+``"serve"`` for a served model's observer). A set ``RUN_DIR`` turns span
+timing on, as a trace sink does: the sentinel's headline metric is the
+digest's ``wall_s``, which untimed spans would leave at 0.
 """
 
 from __future__ import annotations
@@ -74,9 +78,15 @@ from collections import OrderedDict
 from mpitree_tpu_torch.config import knobs
 from mpitree_tpu_torch.obs import cost as cost_mod
 from mpitree_tpu_torch.obs import fingerprint as fingerprint_mod
+from mpitree_tpu_torch.obs import flight as flight_mod
 from mpitree_tpu_torch.obs import memory as memory_mod
 from mpitree_tpu_torch.obs import trace as trace_mod
-from mpitree_tpu_torch.obs.record import BuildRecord, _jsonable, wire_estimate
+from mpitree_tpu_torch.obs.record import (
+    BuildRecord,
+    _jsonable,
+    wire_estimate,
+)
+from mpitree_tpu_torch.obs.record import digest as record_digest
 from mpitree_tpu_torch.utils.profiling import PhaseTimer, profiling_enabled
 
 # Per-process spill-file and trace sequences: distinguish observers
@@ -357,6 +367,11 @@ class BuildObserver(PhaseTimer):
         self._memwatch: memory_mod.MemWatch | None = None
         if knobs.value(memory_mod.MEM_SAMPLE_ENV):
             self.watch_memory()
+        # the flight recorder: one append at the first report()
+        self._flight_logged = False
+        self.flight_kind = "fit"
+        if flight_mod.enabled():
+            self.enabled = True
 
     # ``device`` (PhaseTimer's): where the fit runs. A memory watch that
     # has taken only its baseline moves there (the estimator sets the
@@ -832,4 +847,10 @@ class BuildObserver(PhaseTimer):
                         path=self._trace.path,
                     )
                     out = rec.to_dict()
+        if not self._flight_logged and flight_mod.enabled():
+            # once per fit: repeated report() calls refresh `out` but
+            # append nothing; an unwritable store warns in flight.append
+            self._flight_logged = True
+            flight_mod.append_record(
+                out, kind=self.flight_kind, digest=record_digest(out))
         return out

@@ -333,21 +333,40 @@ def resolve_mesh_2d(*, n_features: int, hist_bytes: int = 0,
                     hist_budget: int | None = None, device=None,
                     n_devices=None, chunk_slots: int | None = None,
                     n_classes: int | None = None,
-                    n_bins: int | None = None) -> Mesh:
+                    n_bins: int | None = None,
+                    policy_evidence: str = "auto", obs=None) -> Mesh:
     """The ``(data, feature)`` mesh with :func:`data_feature_shape`'s
     split of ``n_devices`` (:func:`resolve_mesh`'s grammar for a total;
     an explicit ``(dr, df)`` bypasses the policy). ``chunk_slots``,
     ``n_classes`` and ``n_bins`` price ``hist_bytes`` by
-    :func:`slab_bytes` when it is not given. JAX's resolver first asks
-    its advisor for stored A/B evidence (``:206-226``, ``ROADMAP.md``
-    item 18); with none stored it returns None there and the policy split
-    stands, which is what this does."""
+    :func:`slab_bytes` when it is not given. On more than one device the
+    flight store's ``mesh2d_ab`` evidence on this device type comes first
+    (``obs/advisor.advise_mesh_2d``, JAX's ``:206-226``;
+    ``policy_evidence`` gates it, ``obs`` records the ``advisor_mesh_2d``
+    decision): a measured 1-D winner gives ``(n, 1)``, a measured 2-D
+    winner the shape it was measured at, ``(n // 2, 2)`` (with ``n``
+    even and at least two features); with no verdict the policy split
+    stands."""
+    from mpitree_tpu_torch._device import resolve_device
+    from mpitree_tpu_torch.obs import advisor
+
     if isinstance(n_devices, (tuple, list)):
         return resolve_mesh(device=device, n_devices=n_devices)
     if not hist_bytes and chunk_slots and n_bins:
         hist_bytes = slab_bytes(chunk_slots, n_features, n_classes or 2,
                                 n_bins)
     n = resolve_mesh(device=device, n_devices=n_devices).size
+    if n > 1:
+        adv = advisor.advise_mesh_2d(
+            platform=resolve_device(device).type,
+            policy_evidence=policy_evidence,
+            shape={"n_features": int(n_features), "n_devices": int(n)})
+        advisor.record_advice(obs, adv)
+        if adv is not None and adv["value"] == "1d":
+            return resolve_mesh(device=device, n_devices=(n, 1))
+        if (adv is not None and adv["value"] == "2d"
+                and n % 2 == 0 and n_features >= 2):
+            return resolve_mesh(device=device, n_devices=(n // 2, 2))
     shape = data_feature_shape(n, n_features, hist_bytes=hist_bytes,
                                hist_budget=hist_budget)
     return resolve_mesh(device=device, n_devices=shape)

@@ -69,8 +69,10 @@ the JAX package's ``:79,318-323,431,534-538``: the ``serving_dispatches``,
 counters and events, and the whole model's fingerprint,
 ``obs/fingerprint.ensemble_fingerprint``, as ``fingerprints["fit"]``)
 plus kind, exactness, the dispatch, the quantization report, buckets,
-requests and rows served, and the latency summary.
-:meth:`CompiledModel.trace_to` renders each dispatch as a
+requests and rows served, and the latency summary. Under
+``MPITREE_TPU_RUN_DIR`` the first ``serve_report_`` appends the record
+to the flight store as a ``serve`` envelope (``obs/flight.py``), as the
+JAX package's does. :meth:`CompiledModel.trace_to` renders each dispatch as a
 ``serving_dispatch`` span on the ``serving`` track of a trace sink,
 shared with fits. A span times the launch: the request path never waits
 for the card inside a dispatch (the latency histograms time requests end
@@ -255,6 +257,8 @@ class CompiledModel:
         self._obs.record.fingerprints = {
             "version": FINGERPRINT_VERSION, "trees": [],
             "fit": ensemble_fingerprint(self.trees)}
+        # its flight-store envelopes are serve records, not fits
+        self._obs.flight_kind = "serve"
         self._retries = _RetrySink(
             self.metrics.counter("mpitree_serving_retries_total"),
             self._obs, self._state_lock)

@@ -17,13 +17,12 @@ Two gloo processes fit the same ensembles.
 from __future__ import annotations
 
 import os
-import socket
-import subprocess
 import sys
 
 import numpy as np
 import pytest
 import torch
+from _torch_twoproc import run_procs
 
 pytest.importorskip("jax")
 
@@ -226,11 +225,6 @@ def test_fused_rounds_refuse_a_feature_mesh():
                                   device="cpu").fit(X, y)
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
 
 _WORKER = """
 import sys
@@ -270,20 +264,15 @@ def test_two_gloo_processes_boost_the_one_device_ensembles(tmp_path):
     the one-device ensembles in both processes."""
     worker = tmp_path / "worker.py"
     worker.write_text(_WORKER.format(repo=_REPO))
-    port = _free_port()
     env = dict(os.environ, OMP_NUM_THREADS="1")
-    procs = [subprocess.Popen(
-        [sys.executable, str(worker), str(port), str(pid)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        env=env, cwd=str(tmp_path)) for pid in (0, 1)]
-    try:
-        outs = [p.communicate(timeout=300)[0] for p in procs]
-    except subprocess.TimeoutExpired:
-        for p in procs:
-            p.kill()
+    results, _ = run_procs(
+        lambda ports, pid: [sys.executable, str(worker), str(ports[0]),
+                            str(pid)],
+        2, timeout=300, env=env, cwd=str(tmp_path))
+    if results is None:
         pytest.fail("two-process boosting hung")
-    for pid, (p, out) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"proc {pid}:\n{out[-3000:]}"
+    for pid, (rc, out) in enumerate(results):
+        assert rc == 0, f"proc {pid}:\n{out[-3000:]}"
         assert f"PROC{pid} OK" in out
 
 
@@ -323,18 +312,13 @@ def test_payload_bound_passed_on_one_process_raises_on_both(tmp_path):
     the other's next collective."""
     worker = tmp_path / "worker.py"
     worker.write_text(_OVER_WORKER.format(repo=_REPO))
-    port = _free_port()
     env = dict(os.environ, OMP_NUM_THREADS="1")
-    procs = [subprocess.Popen(
-        [sys.executable, str(worker), str(port), str(pid)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        env=env, cwd=str(tmp_path)) for pid in (0, 1)]
-    try:
-        outs = [p.communicate(timeout=120)[0] for p in procs]
-    except subprocess.TimeoutExpired:
-        for p in procs:
-            p.kill()
+    results, _ = run_procs(
+        lambda ports, pid: [sys.executable, str(worker), str(ports[0]),
+                            str(pid)],
+        2, timeout=120, env=env, cwd=str(tmp_path))
+    if results is None:
         pytest.fail("a process waited on its peer after the bound passed")
-    for pid, (p, out) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"proc {pid}:\n{out[-3000:]}"
+    for pid, (rc, out) in enumerate(results):
+        assert rc == 0, f"proc {pid}:\n{out[-3000:]}"
         assert f"PROC{pid} RAISED" in out, f"proc {pid}:\n{out[-3000:]}"

@@ -3,6 +3,7 @@ or sklearn (the machine with the card has none of them)."""
 
 from __future__ import annotations
 
+import json
 import os
 import subprocess
 import sys
@@ -106,3 +107,31 @@ def test_mesh_modules_import_with_jax_blocked():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == ["3", "row", "3", "False", "all"]
+
+
+def test_flight_diff_advisor_and_benchdiff_pull_none_of_them():
+    assert _probe("from mpitree_tpu_torch.obs import (advisor, benchdiff, "
+                  "diff, flight)") == ""
+
+
+_BENCHDIFF_BLOCKED = """
+import sys
+for name in ("jax", "jaxlib", "mpitree_tpu", "sklearn"):
+    sys.modules[name] = None
+from mpitree_tpu_torch.obs import benchdiff
+sys.exit(benchdiff.main(["--store", sys.argv[1]]))
+"""
+
+
+def test_benchdiff_runs_with_jax_blocked(tmp_path):
+    env = {"schema": 1, "kind": "fit", "section": None, "platform": "cpu",
+           "config_digest": "c", "ts": 1.0, "metrics": {},
+           "digest": {"n_nodes": 3, "fingerprint": "aa"}}
+    line = json.dumps(env) + "\n"
+    (tmp_path / "flight.jsonl").write_text(line + line)
+    out = subprocess.run(
+        [sys.executable, "-c", _BENCHDIFF_BLOCKED, str(tmp_path)], cwd=REPO,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "verdict=ok" in out.stdout

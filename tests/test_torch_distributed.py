@@ -11,26 +11,21 @@ refine tail included (every process gathers every row's leaf id), with the
 replication check on. The failures are bounded: a peer that never arrives
 fails ``initialize`` within its timeout, and a peer that dies after
 joining fails the survivor's next collective; neither hangs. Every
-subprocess has a timeout of its own.
+subprocess has a timeout of its own; the ports and the launches come
+from ``tests/_torch_twoproc.py``.
 """
 
 from __future__ import annotations
 
 import os
-import socket
 import subprocess
 import sys
 import time
 
 import pytest
+from _torch_twoproc import free_port, run_procs
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
 
 
 def _env() -> dict:
@@ -42,26 +37,18 @@ def _env() -> dict:
 
 
 def _run_pair(tmp_path, source: str, timeout: float) -> list:
+    """Both processes' ``(returncode, output)``; the pair runs once more
+    on a fresh port if its rendezvous port was taken (``_torch_twoproc``).
+    """
     worker = tmp_path / "worker.py"
     worker.write_text(source.format(repo=_REPO))
-    port = _free_port()
-    procs = [
-        subprocess.Popen(
-            [sys.executable, str(worker), str(port), str(pid)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-            env=_env(), cwd=str(tmp_path),
-        )
-        for pid in (0, 1)
-    ]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=timeout)[0])
-    except subprocess.TimeoutExpired:
-        for q in procs:
-            q.kill()
+    results, _ = run_procs(
+        lambda ports, pid: [sys.executable, str(worker), str(ports[0]),
+                            str(pid)],
+        2, timeout=timeout, env=_env(), cwd=str(tmp_path))
+    if results is None:
         pytest.fail("two-process run hung")
-    return [(p.returncode, out) for p, out in zip(procs, outs)]
+    return results
 
 
 _WORKER = """
@@ -162,7 +149,7 @@ def test_missing_peer_fails_init_within_bound(tmp_path):
     worker.write_text(_LONE_WORKER.format(repo=_REPO))
     t0 = time.monotonic()
     out = subprocess.run(
-        [sys.executable, str(worker), str(_free_port())],
+        [sys.executable, str(worker), str(free_port())],
         capture_output=True, text=True, timeout=120, cwd=str(tmp_path),
         env=_env(),
     )
@@ -244,21 +231,12 @@ def test_rejoined_world_gets_its_own_subgroups(tmp_path):
     reductions run in its own subgroups, not the first world's."""
     worker = tmp_path / "worker.py"
     worker.write_text(_REJOIN.format(repo=_REPO))
-    ports = f"{_free_port()},{_free_port()}"
-    procs = [
-        subprocess.Popen(
-            [sys.executable, str(worker), ports, str(pid)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-            env=_env(), cwd=str(tmp_path),
-        )
-        for pid in range(4)
-    ]
-    try:
-        outs = [p.communicate(timeout=120)[0] for p in procs]
-    except subprocess.TimeoutExpired:
-        for q in procs:
-            q.kill()
+    results, _ = run_procs(
+        lambda ports, pid: [sys.executable, str(worker),
+                            ",".join(map(str, ports)), str(pid)],
+        4, timeout=120, env=_env(), cwd=str(tmp_path), n_ports=2)
+    if results is None:
         pytest.fail("the rejoined world hung")
-    for pid, (p, out) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0 and f"PROC{pid} OK" in out, \
+    for pid, (rc, out) in enumerate(results):
+        assert rc == 0 and f"PROC{pid} OK" in out, \
             f"proc {pid}:\n{out[-3000:]}"

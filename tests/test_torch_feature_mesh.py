@@ -19,13 +19,12 @@ gloo processes fit on (1, 2), (1, 4) and (2, 2) meshes.
 from __future__ import annotations
 
 import os
-import socket
-import subprocess
 import sys
 
 import numpy as np
 import pytest
 import torch
+from _torch_twoproc import run_procs
 
 pytest.importorskip("jax")
 
@@ -324,11 +323,6 @@ def test_select_global_is_the_feature_complete_first_minimum():
                                                                      k)
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
 
 _WORKER = """
 import sys
@@ -385,20 +379,15 @@ def test_two_gloo_processes_on_a_feature_mesh(tmp_path, n_local):
     and ensemble in both, with the replication check on."""
     worker = tmp_path / "worker.py"
     worker.write_text(_WORKER.format(repo=_REPO))
-    port = _free_port()
     env = dict(os.environ, OMP_NUM_THREADS="1", MPITREE_TPU_DEBUG="1")
-    procs = [subprocess.Popen(
-        [sys.executable, str(worker), str(port), str(pid), str(n_local)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        env=env, cwd=str(tmp_path)) for pid in (0, 1)]
-    try:
-        outs = [p.communicate(timeout=300)[0] for p in procs]
-    except subprocess.TimeoutExpired:
-        for p in procs:
-            p.kill()
+    results, _ = run_procs(
+        lambda ports, pid: [sys.executable, str(worker), str(ports[0]),
+                            str(pid), str(n_local)],
+        2, timeout=300, env=env, cwd=str(tmp_path))
+    if results is None:
         pytest.fail("two-process feature mesh hung")
-    for pid, (p, out) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"proc {pid}:\n{out[-3000:]}"
+    for pid, (rc, out) in enumerate(results):
+        assert rc == 0, f"proc {pid}:\n{out[-3000:]}"
         assert f"PROC{pid} OK" in out
 
 

@@ -18,13 +18,12 @@ and the regression forests are held to the port's one-device forest.
 from __future__ import annotations
 
 import os
-import socket
-import subprocess
 import sys
 
 import numpy as np
 import pytest
 import torch
+from _torch_twoproc import run_procs
 
 pytest.importorskip("jax")
 
@@ -345,11 +344,6 @@ def test_levelwise_forest_builds_each_tree_on_the_data_mesh(cov,
     _same_forest(par.trees_, RandomForestClassifier(**kw).fit(X, y).trees_)
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
 
 _WORKER = """
 import sys
@@ -397,20 +391,15 @@ def test_two_gloo_processes_fit_the_one_device_forests(tmp_path):
     forest in both processes, the exchanged forest checked replicated."""
     worker = tmp_path / "worker.py"
     worker.write_text(_WORKER.format(repo=_REPO))
-    port = _free_port()
     env = dict(os.environ, OMP_NUM_THREADS="1")
-    procs = [subprocess.Popen(
-        [sys.executable, str(worker), str(port), str(pid)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        env=env, cwd=str(tmp_path)) for pid in (0, 1)]
-    try:
-        outs = [p.communicate(timeout=300)[0] for p in procs]
-    except subprocess.TimeoutExpired:
-        for p in procs:
-            p.kill()
+    results, _ = run_procs(
+        lambda ports, pid: [sys.executable, str(worker), str(ports[0]),
+                            str(pid)],
+        2, timeout=300, env=env, cwd=str(tmp_path))
+    if results is None:
         pytest.fail("two-process forests hung")
-    for pid, (p, out) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"proc {pid}:\n{out[-3000:]}"
+    for pid, (rc, out) in enumerate(results):
+        assert rc == 0, f"proc {pid}:\n{out[-3000:]}"
         assert f"PROC{pid} OK" in out
         assert f"{pid} 1 [1, 4]" in out and f"{pid} 2 [2, 2]" in out
         assert f"{pid} 5 [4, 1]" in out

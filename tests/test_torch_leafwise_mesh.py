@@ -16,13 +16,12 @@ processes grow the same trees.
 from __future__ import annotations
 
 import os
-import socket
-import subprocess
 import sys
 
 import numpy as np
 import pytest
 import torch
+from _torch_twoproc import run_procs
 
 pytest.importorskip("jax")
 
@@ -181,11 +180,6 @@ def test_leafwise_refuses_a_feature_mesh_as_jax():
                    mesh=M.resolve_mesh(device="cpu", n_devices=(4, 2)))
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
 
 _WORKER = """
 import sys
@@ -223,18 +217,13 @@ distributed.shutdown()
 def test_two_gloo_processes_grow_the_one_device_leafwise_tree(tmp_path):
     worker = tmp_path / "worker.py"
     worker.write_text(_WORKER.format(repo=_REPO))
-    port = _free_port()
     env = dict(os.environ, OMP_NUM_THREADS="1")
-    procs = [subprocess.Popen(
-        [sys.executable, str(worker), str(port), str(pid)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        env=env, cwd=str(tmp_path)) for pid in (0, 1)]
-    try:
-        outs = [p.communicate(timeout=300)[0] for p in procs]
-    except subprocess.TimeoutExpired:
-        for p in procs:
-            p.kill()
+    results, _ = run_procs(
+        lambda ports, pid: [sys.executable, str(worker), str(ports[0]),
+                            str(pid)],
+        2, timeout=300, env=env, cwd=str(tmp_path))
+    if results is None:
         pytest.fail("two-process leaf-wise fit hung")
-    for pid, (p, out) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"proc {pid}:\n{out[-3000:]}"
+    for pid, (rc, out) in enumerate(results):
+        assert rc == 0, f"proc {pid}:\n{out[-3000:]}"
         assert f"PROC{pid} OK" in out

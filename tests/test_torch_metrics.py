@@ -237,4 +237,5 @@ def test_unregistered_knob_is_refused():
     with pytest.raises(KeyError, match="unregistered env knob"):
         knobs.value("MPITREE_TPU_NO_SUCH_KNOB")
     with pytest.raises(KeyError, match="unregistered env knob"):
-        knobs.raw("MPITREE_TPU_RUN_DIR")  # JAX's, not the port's yet
+        # JAX's, never the port's (config/knobs.NOT_ON_THE_CARD)
+        knobs.raw("MPITREE_TPU_HIST_KERNEL")

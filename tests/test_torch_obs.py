@@ -12,8 +12,9 @@ file holds:
   keys) and the event and decision registries;
 - ``engine.value``, every decision's value, ``result``, the level rows'
   ``level``/``frontier``/``splits`` and the fingerprints (``trees`` and
-  ``fit``, with ``mpitree_tpu.obs.diff.localize_divergence`` finding no
-  divergence) for the fused, levelwise, host, hybrid, leaf-wise and
+  ``fit``, with the port's ``obs.diff.localize_divergence`` finding no
+  divergence, and agreeing with the JAX package's on a perturbed copy)
+  for the fused, levelwise, host, hybrid, leaf-wise and
   regression engines, a forest and a boosted ensemble;
 - boosting's ``rounds`` rows against the JAX host round loop;
 - F8: ``fit_stats_`` is None with ``MPITREE_TPU_PROFILE`` unset and the
@@ -43,7 +44,9 @@ import mpitree_tpu as J  # noqa: E402
 from mpitree_tpu import obs as jax_obs  # noqa: E402
 from mpitree_tpu.config import knobs as jax_knobs  # noqa: E402
 from mpitree_tpu.obs import events as jax_events  # noqa: E402
-from mpitree_tpu.obs.diff import localize_divergence  # noqa: E402
+from mpitree_tpu.obs.diff import (  # noqa: E402
+    localize_divergence as jax_localize_divergence,
+)
 from mpitree_tpu.resilience import chaos as jax_chaos  # noqa: E402
 from mpitree_tpu_torch import (  # noqa: E402
     DecisionTreeClassifier,
@@ -54,6 +57,7 @@ from mpitree_tpu_torch import (  # noqa: E402
 from mpitree_tpu_torch import obs  # noqa: E402
 from mpitree_tpu_torch.config import knobs  # noqa: E402
 from mpitree_tpu_torch.obs import accounting, events, fingerprint  # noqa: E402
+from mpitree_tpu_torch.obs.diff import localize_divergence  # noqa: E402
 from mpitree_tpu_torch.resilience import chaos  # noqa: E402
 from mpitree_tpu_torch.utils.datasets import covtype_like  # noqa: E402
 
@@ -220,6 +224,23 @@ def test_fingerprints_equal_jax(pairs, name, profile):
     assert p["trees"] == j["trees"]
     assert p["fit"] == j["fit"]
     assert localize_divergence(p, j) is None
+
+
+def test_localize_divergence_agrees_with_jax(pairs):
+    """The port's bisection and the JAX package's name the same first
+    divergent (tree, level, channel) on a perturbed copy of a fit's
+    rows, and both find none on the equal pair."""
+    import copy
+
+    p = pairs["hybrid"][False][0].fit_report_["fingerprints"]
+    j = pairs["hybrid"][False][1].fit_report_["fingerprints"]
+    assert localize_divergence(p, j) is None
+    assert jax_localize_divergence(p, j) is None
+    bad = copy.deepcopy(p)
+    bad["trees"][0][2]["winner"] = "0" * 16
+    got = localize_divergence(p, bad)
+    assert got == jax_localize_divergence(p, bad)
+    assert (got["tree"], got["level"], got["channel"]) == (0, 2, "winner")
 
 
 def test_counters_of_the_fused_engine_equal_jax(pairs):

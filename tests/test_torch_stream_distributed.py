@@ -12,52 +12,38 @@ are all-gathered, and each process places only its row blocks:
   goes on;
 - non-numeric labels across processes raise in both.
 
-Every subprocess has a timeout of its own.
+Every subprocess has a timeout of its own; the ports and the launches
+come from ``tests/_torch_twoproc.py``.
 """
 
 from __future__ import annotations
 
 import os
-import socket
-import subprocess
 import sys
 
 import pytest
+from _torch_twoproc import run_procs
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def _run_pair(tmp_path, source: str, timeout: float) -> list:
+    """Both processes' ``(returncode, output)``; the pair runs once more
+    on a fresh port if its rendezvous port was taken (``_torch_twoproc``).
+    """
     worker = tmp_path / "worker.py"
     worker.write_text(source.format(repo=_REPO))
-    port = _free_port()
     env = dict(os.environ, OMP_NUM_THREADS="1", MPITREE_TPU_DEBUG="1")
     env.pop("MASTER_ADDR", None)
     env.pop("MASTER_PORT", None)
     env.pop("MPITREE_TPU_KEYED_BOOTSTRAP", None)
-    procs = [
-        subprocess.Popen(
-            [sys.executable, str(worker), str(port), str(pid)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-            env=env, cwd=str(tmp_path),
-        )
-        for pid in (0, 1)
-    ]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=timeout)[0])
-    except subprocess.TimeoutExpired:
-        for q in procs:
-            q.kill()
+    results, _ = run_procs(
+        lambda ports, pid: [sys.executable, str(worker), str(ports[0]),
+                            str(pid)],
+        2, timeout=timeout, env=env, cwd=str(tmp_path))
+    if results is None:
         pytest.fail("two-process run hung")
-    return [(p.returncode, out) for p, out in zip(procs, outs)]
+    return results
 
 
 _HEAD = """

@@ -21,18 +21,18 @@ padding row). Three forests:
 
 Each forest equals its in-memory keyed twin field for field in both
 processes, and no ``x_binned`` a shard grows from has more rows than its
-block (padded). Every subprocess has a timeout of its own.
+block (padded). Every subprocess has a timeout of its own; the ports
+and the launches come from ``tests/_torch_twoproc.py``.
 """
 
 from __future__ import annotations
 
 import json
 import os
-import socket
-import subprocess
 import sys
 
 import pytest
+from _torch_twoproc import run_procs
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N, F = 3001, 7
@@ -114,41 +114,25 @@ distributed.shutdown()
 """
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def _run_pair(tmp_path, shards: int) -> list:
     worker = tmp_path / f"worker{shards}.py"
     worker.write_text(_WORKER.format(repo=_REPO, n=N, f=F))
-    port = _free_port()
     env = dict(os.environ, OMP_NUM_THREADS="1", MPITREE_TPU_DEBUG="1")
     for k in ("MASTER_ADDR", "MASTER_PORT", "MPITREE_TPU_KEYED_BOOTSTRAP",
               "MPITREE_TPU_FOREST_HBM_BUDGET", "MPITREE_TPU_ENGINE"):
         env.pop(k, None)
-    procs = [
-        subprocess.Popen(
-            [sys.executable, str(worker), str(port), str(pid), str(shards)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-            env=env, cwd=str(tmp_path))
-        for pid in (0, 1)
-    ]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=240)[0])
-    except subprocess.TimeoutExpired:
-        for q in procs:
-            q.kill()
+    runs, _ = run_procs(
+        lambda ports, pid: [sys.executable, str(worker), str(ports[0]),
+                            str(pid), str(shards)],
+        2, timeout=240, env=env, cwd=str(tmp_path))
+    if runs is None:
         pytest.fail("two-process run hung")
     results = []
-    for p, out in zip(procs, outs):
-        assert p.returncode == 0, out
+    for rc, out in runs:
+        assert rc == 0, out
         results += [json.loads(line[len("RESULT "):])
                     for line in out.splitlines() if line.startswith("RESULT ")]
-    assert len(results) == (6 if shards == 1 else 4), outs
+    assert len(results) == (6 if shards == 1 else 4), [o for _, o in runs]
     return results
 
 

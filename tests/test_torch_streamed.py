@@ -204,7 +204,8 @@ def test_streamed_npy_shards_identity(data, port_tree, tmp_path):
 
 def test_streamed_generator_factory_and_spill(data, tmp_path, monkeypatch):
     """A factory streams; a bare generator needs the spill rung, and then
-    fits the same tree from the replay."""
+    fits the same tree from the replay, its ``ingest_spill`` decision
+    recorded."""
     X, y = data
 
     def factory():
@@ -226,6 +227,10 @@ def test_streamed_generator_factory_and_spill(data, tmp_path, monkeypatch):
     assert spilled.ingest_stats_["spill_bytes"] > 0
     assert spilled.ingest_stats_["spill_chunks"] == 4
     assert list(tmp_path.iterdir()) == []  # the store closed
+    # the rung is the JAX package's typed decision; a factory takes none
+    dec = spilled.fit_report_["decisions"]["ingest_spill"]
+    assert dec["value"] == "spill" and dec["inputs"]["cap_bytes"] > 0
+    assert "ingest_spill" not in clf.fit_report_["decisions"]
 
 
 REFINE = dict(max_depth=8, max_bins=16, refine_depth=3)
