@@ -18,8 +18,10 @@ host's cores. Every phase runs the default engine, which is the fused one
 for boosting; phase 24 runs the levelwise engine beside it:
 
 1. build: compile every ``mpitree_tpu_torch/csrc/*.cu`` (``histogram.cu``,
-   ``traverse.cu``) with ``nvcc`` for ``sm_90a`` into ``build/``, one
-   ``nvcc`` per source, started together; then the native split sweep
+   ``fixed_hist.cu``, ``traverse.cu``) with ``nvcc`` for ``sm_90a`` into
+   ``build/``, one ``nvcc`` per source, started together, and check in
+   their SASS that the fixed-point tiles add with native ``ATOMS.ADD`` and
+   no compare-and-swap loop; then the native split sweep
    (``mpitree_tpu_torch/native/split_kernel.cpp``) with ``g++`` into
    ``build/native/``.
 2. kernels: bin ``covtype_like(581_012, seed=0)`` (256 bins) on the card;
@@ -93,10 +95,14 @@ non-integer payload takes (int64 sums, exact and order-independent):
 12. fixed-point kernels: three payloads, the moments of
     ``california_like(581_012, seed=0)`` (8 features, 256 bins), the class
     payload of the covtype matrix with weights ``default_rng(2).uniform(
-    0.5, 2)``, and a GBDT ``(count, g, h)`` payload; at S in {1, 2, 8, 64,
-    128, 512, K} every route that fits, int32 and byte-wide bins: two
-    launches ``torch.equal`` to each other and to the plain version; timed
-    beside the plain version, one float32 ``index_put_`` and the bound.
+    0.5, 2)``, and a GBDT ``(count, g, h)`` payload, at S in {1, 2, 8, 64,
+    128, 512, K}; GBDT on the covtype matrix (54 features) at S in {1, 2,
+    4, 8, 16, 32}, the host loop's widths; and the leaf-wise sibling pair
+    (S = 2, one row in eight live) of both GBDT payloads. Every route that
+    fits, int32 and byte-wide bins (the fixed-point body,
+    ``csrc/fixed_hist.cu``): two launches ``torch.equal`` to each other and
+    to the plain version; timed beside the plain version, one float32
+    ``index_put_`` and the bound.
 13. regression fit: ``DecisionTreeRegressor(max_depth=20, max_bins=256)``
     on that matrix, device engine alone and then at the defaults (crown to
     depth 8 on the card, tail on the host), twice each: identical fits,
@@ -463,8 +469,11 @@ ROWS, DEPTH = 581_012, 20  # covtype's rows; the BASELINE fit's depth
 # root level) and sorted at S=K, the width of the deep levels.
 REPRESENTATIVE = {"stream": 1, "sorted": None}
 # Device kernels of a profiled run, grouped by what they serve (first match).
+# The histogram bodies' tile kernels: integer (csrc/histogram.cu) and
+# fixed-point (csrc/fixed_hist.cu); one launch each a histogram.
+HIST_TILE_KERNELS = ("hist_tile_kernel", "fixed_tile_kernel")
 PROFILE_KINDS = (
-    ("histogram kernels", ("hist_tile_kernel", "hist_zero_split_kernel")),
+    ("histogram kernels", HIST_TILE_KERNELS + ("hist_zero_split_kernel",)),
     ("traversal kernels", ("traverse_kernel",)),
     ("copies", ("Memcpy", "memcpy", "Memset")),
     ("sort/search (binning, level order)",
@@ -499,9 +508,27 @@ PARITY_FIELDS = ("feature", "threshold", "left", "right", "count",
 # covtype's row count (20,640 rows, the published size, would give the
 # card no real work; phase 14 runs that size too), and phase 3's fit with
 # fractional weights. The fixed-point route's "kernels" line shows the
-# regression fit's payload: stream at S=1, sorted at S=K.
+# regression fit's payload: stream at S=1, sorted at S=K. Phase 12 times
+# the three payloads at SLOT_TIERS and S=K, GBDT's (count, g, h) on
+# covtype's 54 features at the host loop's widths (depth 6: S = 1..32,
+# GradientBoostingClassifier()), and a leaf-wise sibling pair (S = 2, one
+# row in PAIR_SHARE live) for GBDT on both matrices (the fused rounds of
+# GradientBoostingRegressor() and GradientBoostingClassifier(
+# max_leaf_nodes=31)).
 FIXED_PAYLOADS = ("moments", "class", "gbdt")
+GBDT54_WIDTHS = (1, 2, 4, 8, 16, 32)
+PAIR_SHARE = 8
+# Phase 12's cases: (payload, widths (None: SLOT_TIERS and K), one row in
+# `share` live): the three payloads, GBDT on covtype's 54 features at the
+# host loop's widths, and both GBDT payloads' leaf-wise sibling pair.
+FIXED_CASES = tuple((name, None, 1) for name in FIXED_PAYLOADS) + (
+    ("gbdt54", GBDT54_WIDTHS, 1), ("gbdt", (2,), PAIR_SHARE),
+    ("gbdt54", (2,), PAIR_SHARE))
 FIXED_LINE = {"stream_fixed": 1, "sorted_fixed": None}
+# The limb cells' entries: GBDT on covtype's 54 features, the payload of
+# phase 21's GradientBoostingClassifier(), whose every width plans limbs.
+FIXED_LIMB_LINE = {"stream_fixed": 1, "sorted_fixed": 32}
+FIXED_SOURCE = "mpitree_tpu_torch/csrc/fixed_hist.cu"
 CAL_ROWS = 581_012
 WEIGHT_LOW, WEIGHT_HIGH = 0.5, 2.0  # default_rng(2).uniform, float32
 # Phase 17's regression forests on phase 13's matrix
@@ -606,38 +633,50 @@ def card_line() -> str:
 
 
 def sass_atomics() -> dict:
-    """Shared- and global-memory atomics in the built histogram library's
-    SASS (``cuobjdump -sass``), per ``hist_tile_kernel`` instantiation
-    ``<bins>/<sorted>/<fixed>``. The fixed-point tiles must add with native
-    ``ATOMS.ADD`` and no compare-and-swap loop."""
+    """Shared- and global-memory atomics in the built histogram libraries'
+    SASS (``cuobjdump -sass``), per instantiation: ``hist_tile_kernel``
+    ``<bins>/<sorted>`` (csrc/histogram.cu, the integer routes) and
+    ``fixed_tile_kernel`` ``<bins>/<sorted>/fixed<chan>/<adds>``
+    (csrc/fixed_hist.cu). The fixed-point tiles must add with native
+    ``ATOMS.ADD`` and no compare-and-swap loop (``ATOMS.CAS*``, and
+    ``ATOMS.CAST.SPIN*``, the loop a 64-bit shared add compiles to)."""
     import collections
     import re
 
     from mpitree_tpu_torch import _build
+    from mpitree_tpu_torch.ops import hist_kernel
 
     tool = Path(_build.nvcc_path()).parent / "cuobjdump"
-    sass = subprocess.run(
-        [str(tool), "-sass", str(_build._library_path("histogram"))],
-        capture_output=True, text=True, timeout=300, check=True).stdout
     out, cur = {}, None
-    for line in sass.splitlines():
-        m = re.search(r"Function : \S*hist_tile_kernelI(\w)Lb([01])ELb([01])E",
-                      line)
-        if m or "Function :" in line:
-            cur = None
-            if m:
-                cur = "/".join((
-                    "uint8" if m.group(1) == "h" else "int32",
-                    "sorted" if m.group(2) == "1" else "stream",
-                    "fixed" if m.group(3) == "1" else "float"))
-                out[cur] = collections.Counter()
-            continue
-        m = re.search(r"\s((?:ATOMS|ATOMG|ATOM|REDG|RED)\.[A-Z0-9.]+)", line)
-        if m and cur:
-            out[cur][m.group(1)] += 1
-    fixed = {k: v for k, v in out.items() if k.endswith("/fixed")}
-    if len(fixed) != 4 or any(
-            any(op.startswith("ATOMS.CAS") for op in v)
+    for lib in ("histogram", "fixed_hist"):
+        sass = subprocess.run(
+            [str(tool), "-sass", str(_build._library_path(lib))],
+            capture_output=True, text=True, timeout=300, check=True).stdout
+        for line in sass.splitlines():
+            m = re.search(r"Function : \S*hist_tile_kernelI(\w)Lb([01])EE",
+                          line)
+            mf = re.search(r"Function : \S*fixed_tile_kernelI(\w)Lb([01])"
+                           r"ELi(\d)ELb([01])EE", line)
+            if m or mf or "Function :" in line:
+                cur = None
+                g = m or mf
+                if g:
+                    cur = "/".join((
+                        "uint8" if g.group(1) == "h" else "int32",
+                        "sorted" if g.group(2) == "1" else "stream"))
+                    cur += (f"/fixed{mf.group(3)}/"
+                            f"{'limbs' if mf.group(4) == '1' else 'carry'}"
+                            if mf else "/float")
+                    out[cur] = collections.Counter()
+                continue
+            m = re.search(r"\s((?:ATOMS|ATOMG|ATOM|REDG|RED)\.[A-Z0-9.]+)",
+                          line)
+            if m and cur:
+                out[cur][m.group(1)] += 1
+    fixed = {k: v for k, v in out.items() if "/fixed" in k}
+    n_fixed = 8 * len(hist_kernel.FIXED_ADDS)  # bins x route x chan x adds
+    if len(fixed) != n_fixed or len(out) != n_fixed + 4 or any(
+            any(op.startswith(("ATOMS.CAS", "ATOMS.CAST")) for op in v)
             or not any(op.startswith("ATOMS.ADD") for op in v)
             for v in fixed.values()):
         raise AssertionError(f"fixed-point tiles do not add with native "
@@ -663,12 +702,15 @@ def phase_build() -> None:
         f"{native.library_path()}")
 
 
-def _slots(rng, N: int, S: int) -> np.ndarray:
+def _slots(rng, N: int, S: int, share: int = 1) -> np.ndarray:
     """Rows spread over S slots, about 1/8 of the slots left empty and 10%
-    of the rows parked at -1."""
+    of the rows parked at -1; with ``share`` > 1 only about one row in
+    ``share`` stays live (a leaf-wise expansion's sibling pair)."""
     live = np.sort(rng.choice(S, size=max(1, S - S // 8), replace=False))
     slot = live[rng.integers(0, len(live), N)].astype(np.int32)
     slot[rng.random(N) < 0.1] = -1
+    if share > 1:
+        slot[rng.random(N) >= 1.0 / share] = -1
     return slot
 
 
@@ -1412,38 +1454,70 @@ def weights(n: int) -> np.ndarray:
         WEIGHT_LOW, WEIGHT_HIGH, n).astype(np.float32)
 
 
-def phase_fixed_kernels(cov_binned, y_cov, cal_binned, y_cal) -> list:
-    """Phase 12: the fixed-point route at every width, for three payloads:
-    regression moments (California-shaped, 8 features), fractional class
-    weights (covtype, 54 features) and GBDT ``(count, g, h)`` (8 features,
-    a fifth of the rows out of the round's sample). Every route whose tile
-    fits, with int32 and byte-wide bins: two launches ``torch.equal`` to
-    each other and to the plain version; timed as phase 2 times the
-    integer routes, beside the plain version, one ``index_put_(...,
-    accumulate=True)`` in float32 and the byte bound."""
-    from mpitree_tpu_torch.core.builder import BuildConfig, _chunk_size
-    from mpitree_tpu_torch.ops import hist_kernel
+def fixed_payloads(cov_binned, y_cov, cal_binned, y_cal, rng) -> dict:
+    """Phase 12's payloads, name -> (binned matrix, (N, C) payload):
+    regression moments on the California-shaped matrix, fractional class
+    weights on covtype, GBDT ``(count, g, h)`` on both (``gbdt``: from
+    ``rng``, a fifth of the rows out of the round's sample; ``gbdt54``:
+    from ``default_rng(54)``)."""
     from mpitree_tpu_torch.ops import histogram as ph
 
-    rng = np.random.default_rng(12)
+    def gbdt(r, n):
+        g = r.standard_normal(n).astype(np.float32)
+        h = np.where(r.random(n) < 0.2, 0.0,
+                     r.uniform(0.05, 0.25, n)).astype(np.float32)
+        return ph.gbdt_payload(torch.from_numpy(g).to(y_cal.device),
+                               torch.from_numpy(h).to(y_cal.device))
+
     n_cov = y_cov.shape[0]
     cases = {
         "moments": (cal_binned, ph.moment_payload(
             y_cal, torch.ones_like(y_cal))),
         "class": (cov_binned, ph.class_payload(y_cov, torch.from_numpy(
-            weights(n_cov)).to(DEV), 7)),
-        "gbdt": (cal_binned, ph.gbdt_payload(
-            torch.from_numpy(rng.standard_normal(
-                y_cal.shape[0]).astype(np.float32)).to(DEV),
-            torch.from_numpy(np.where(
-                rng.random(y_cal.shape[0]) < 0.2, 0.0,
-                rng.uniform(0.05, 0.25, y_cal.shape[0])).astype(
-                np.float32)).to(DEV))),
+            weights(n_cov)).to(y_cov.device), 7)),
+        "gbdt": (cal_binned, gbdt(rng, y_cal.shape[0])),
+        "gbdt54": (cov_binned, gbdt(np.random.default_rng(54), n_cov)),
     }
+    return {k: (m, v.contiguous()) for k, (m, v) in cases.items()}
+
+
+def fixed_widths(widths, K: int) -> list:
+    """A ``FIXED_CASES`` entry's widths: its own, or ``SLOT_TIERS`` and
+    the chunk width ``K`` of a depth-20 fit."""
+    return list(widths or sorted(set(SLOT_TIERS + (K,))))
+
+
+def fixed_bytes(N: int, n_in: int, row_bytes: int, C: int, S: int, F: int,
+                B: int, route: str) -> int:
+    """Bytes a fixed-point histogram must move: the slot vector, a padded
+    byte row of bins and the payload of every row in range, the sorted
+    route's order and segment offsets, the int64 output once."""
+    n_bytes = N * 4 + n_in * (row_bytes + C * 4) + S * F * C * B * 8
+    if route == "sorted":
+        n_bytes += n_in * 4 + (S + 1) * 4
+    return n_bytes
+
+
+def phase_fixed_kernels(cov_binned, y_cov, cal_binned, y_cal) -> list:
+    """Phase 12: the fixed-point route at every width, for three payloads:
+    regression moments (California-shaped, 8 features), fractional class
+    weights (covtype, 54 features) and GBDT ``(count, g, h)`` (8 features,
+    a fifth of the rows out of the round's sample); then GBDT on covtype's
+    54 features (``gbdt54``) at ``GBDT54_WIDTHS``, and the leaf-wise
+    sibling pair of both GBDT payloads (S = 2, one row in ``PAIR_SHARE``
+    live). Every route whose tile fits, with int32 and byte-wide bins (and
+    each of the body's cells, ``FIXED_ADDS``, on byte-wide bins): two
+    launches ``torch.equal`` to each other and to the plain version; timed
+    as phase 2 times the integer routes, beside the plain version, one
+    ``index_put_(..., accumulate=True)`` in float32 and the byte bound."""
+    from mpitree_tpu_torch.core.builder import BuildConfig, _chunk_size
+    from mpitree_tpu_torch.ops import hist_kernel
+
+    rng = np.random.default_rng(12)
+    cases = fixed_payloads(cov_binned, y_cov, cal_binned, y_cal, rng)
     rows = []
-    for name in FIXED_PAYLOADS:
+    for name, widths, share in FIXED_CASES:
         binned, payload = cases[name]
-        payload = payload.contiguous()
         xb = binned.x_binned
         N, F = xb.shape
         B, C = binned.n_bins, payload.shape[1]
@@ -1453,10 +1527,11 @@ def phase_fixed_kernels(cov_binned, y_cov, cal_binned, y_cal) -> list:
         K = _chunk_size(N, F, B, C, BuildConfig(max_depth=DEPTH),
                         cell_bytes=8)
         feat = torch.arange(F, device=DEV, dtype=torch.int64)
-        for S in sorted(set(SLOT_TIERS + (K,))):
-            slot = torch.from_numpy(_slots(rng, N, S)).to(DEV)
-            planned = hist_kernel.plan(S, F, C, B, feat_bins=feat_bins,
-                                       n_rows=N, fixed=True)["route"]
+        for S in fixed_widths(widths, K):
+            slot = torch.from_numpy(_slots(rng, N, S, share)).to(DEV)
+            planned_plan = hist_kernel.plan(S, F, C, B, feat_bins=feat_bins,
+                                            n_rows=N, fixed=True)
+            planned = planned_plan["route"]
             want = hist_kernel.histogram_reference(
                 xb, payload, slot, n_slots=S, n_bins=B, scale_exp=se)
             order, seg = hist_kernel.slot_segments(slot, S)
@@ -1471,16 +1546,27 @@ def phase_fixed_kernels(cov_binned, y_cov, cal_binned, y_cal) -> list:
                 except ValueError:
                     continue
                 for bins, pk in (("int32", None), ("uint8", packed)):
-                    variants = {f"{route}/{bins}": {}}
+                    variants = {f"{route}/{bins}": ({}, None)}
                     if route == "sorted":
-                        variants[f"{route}/{bins}/presorted"] = dict(
-                            order=order, seg_start=seg)
-                    for vname, pre in variants.items():
-                        def run(route=route, pk=pk, pre=pre):
+                        variants[f"{route}/{bins}/presorted"] = (dict(
+                            order=order, seg_start=seg), None)
+                    if pk is not None:  # each cell whose tile fits
+                        for adds in hist_kernel.FIXED_ADDS:
+                            try:
+                                hist_kernel.plan(
+                                    S, F, C, B, route, feat_bins=feat_bins,
+                                    n_rows=N, fixed=True, adds=adds)
+                            except ValueError:
+                                continue
+                            variants[f"{route}/{bins}/{adds}"] = (
+                                {}, dict(adds=adds))
+                    for vname, (pre, tune) in variants.items():
+                        def run(route=route, pk=pk, pre=pre, tune=tune):
                             return hist_kernel.histogram_cuda(
                                 xb, payload, slot, n_slots=S, n_bins=B,
                                 packed=pk, feat_bins=feat_bins,
-                                scale_exp=se, _variant=route, **pre)
+                                scale_exp=se, _variant=route, _tune=tune,
+                                **pre)
                         got, again = run(), run()
                         torch.cuda.synchronize()
                         diff = int((got - want).abs().max())
@@ -1517,20 +1603,16 @@ def phase_fixed_kernels(cov_binned, y_cov, cal_binned, y_cal) -> list:
             library_ms = cuda_ms(library, reps=3)
             del ids, vals, r, c, want
 
-            # bytes the planned route must move: the slot vector, a padded
-            # byte row of bins and the payload of every row in range, the
-            # sorted route's order and segment offsets, the int64 output
-            # once; operations: one add per (nonzero value, feature)
-            n_bytes = (N * 4 + n_in * (packed.shape[1] + C * 4)
-                       + S * F * C * B * 8)
-            if planned == "sorted":
-                n_bytes += n_in * 4 + (S + 1) * 4
-            t_bytes = n_bytes / HBM_BYTES_PER_S
+            # bytes the planned route must move (fixed_bytes); operations:
+            # one add per (nonzero value, feature)
+            t_bytes = fixed_bytes(N, n_in, packed.shape[1], C, S, F, B,
+                                  planned) / HBM_BYTES_PER_S
             t_ops = n_nonzero * F / FP32_FLOPS
             ms = route_ms[f"{planned}/uint8"]
             rows.append(dict(
-                payload=name, S=S, K=K, route=planned, scale_exp=list(se),
-                rows_in_range=n_in, ms=ms,
+                payload=name, S=S, K=K, route=planned,
+                adds=planned_plan["adds"], scale_exp=list(se),
+                live_share=share, rows_in_range=n_in, ms=ms,
                 kernel_ms=route_ms.get(f"{planned}/uint8/presorted", ms),
                 sort_ms=sort_ms if planned == "sorted" else 0.0,
                 plain_ms=plain_ms, library_ms=library_ms,
@@ -1538,7 +1620,10 @@ def phase_fixed_kernels(cov_binned, y_cov, cal_binned, y_cal) -> list:
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 max_abs_err=err, route_ms=route_ms,
             ))
-            log(f"fixed kernels: {name} S={S} {planned}: route {ms:.4f} ms "
+            log(f"fixed kernels: {name} S={S}"
+                f"{f' (1/{share} live)' if share > 1 else ''} {planned} "
+                f"({planned_plan['adds']}): "
+                f"route {ms:.4f} ms "
                 f"(kernel {rows[-1]['kernel_ms']:.4f}, sort {sort_ms:.4f}), "
                 f"plain {plain_ms:.4f} ms, index_put_ {library_ms:.4f} ms, "
                 f"bound {rows[-1]['bound_ms']:.4f} ms "
@@ -5671,7 +5756,8 @@ def phase_profile(name: str, work, out_dir: Path) -> None:
         "wall_s": wall, "device_busy_s": busy_us / 1e6,
         "device_busy_share": busy_us / 1e6 / wall if wall else None,
         "device_kernels": len(events),
-        "hist_launches": sum("hist_tile_kernel" in e.name for e in events),
+        "hist_launches": sum(any(k in e.name for k in HIST_TILE_KERNELS)
+                             for e in events),
         "d2h_copies": sum("DtoH" in e.name for e in events),
         "device_ms_by_kind": {k: v / 1e3 for k, v in by_kind.items()},
         "top_device_ms": {k[:90]: v / 1e3 for k, v in top},
@@ -5988,7 +6074,7 @@ def main() -> int:
                    and r["route"] == route and r["S"] == (S or r["K"]))
         kernels.append(dict(
             name=f"hist_{key}[S={row['S']}]", route="cuda",
-            source="mpitree_tpu_torch/csrc/histogram.cu",
+            source=FIXED_SOURCE,
             replaces=REPLACES[route],
             payloads="mpitree_tpu/ops/pallas_hist.py:245-266",
             launches=regression["device"]["launches"][key],
@@ -5996,7 +6082,7 @@ def main() -> int:
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             kernel_ms=row["kernel_ms"], sort_ms=row["sort_ms"],
-            payload="moments (regression fit, phase 13)",
+            adds=row["adds"], payload="moments (regression fit, phase 13)",
             weighted_fit_launches=weighted["launches"][key],
             regression_forest_launches={
                 k: v["launches"][key] for k, v in reg_forests.items()},
@@ -6025,6 +6111,25 @@ def main() -> int:
                     flight["d"][part]["rounds"]["launches"].get(key, 0)
                 for part in ("measured", "forced")},
         ))
+    for key, S in FIXED_LIMB_LINE.items():
+        route = key[:-len("_fixed")]
+        row = next(r for r in fixed_shapes if r["payload"] == "gbdt54"
+                   and r["live_share"] == 1 and r["S"] == S)
+        if (row["route"], row["adds"]) != (route, "limbs"):
+            raise AssertionError(f"gbdt54 S={S} planned {row['route']} "
+                                 f"with {row['adds']}, not {key} limbs")
+        kernels.append(dict(
+            name=f"hist_{key}[S={S}, limbs]", route="cuda",
+            source=FIXED_SOURCE, replaces=REPLACES[route],
+            payloads="mpitree_tpu/ops/pallas_hist.py:245-266",
+            launches=boosting["classifier"]["launches"][key],
+            launches_of="phase 21, GradientBoostingClassifier()",
+            max_abs_err=row["max_abs_err"], ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=row["library_ms"],
+            kernel_ms=row["kernel_ms"], sort_ms=row["sort_ms"],
+            adds="limbs", payload="GBDT (count, g, h), 54 features",
+        ))
     for form in SERVE_LINE:
         for what in ("classifier", "regressor"):
             sv = boosting["serving"][what]
@@ -6045,12 +6150,14 @@ def main() -> int:
     for key, payload in (("stream", None), ("stream_fixed", "moments")):
         route = key.split("_")[0]
         row = next(r for r in (shapes if payload is None else fixed_shapes)
-                   if r["S"] == 2 and r.get("payload") == payload)
+                   if r["S"] == 2 and r.get("payload") == payload
+                   and r.get("live_share", 1) == 1)
         if row["route"] != route:
             raise AssertionError(f"S=2 planned {row['route']}, not {route}")
         kernels.append(dict(
             name=f"hist_{key}[S=2, leaf-wise pair]", route="cuda",
-            source="mpitree_tpu_torch/csrc/histogram.cu",
+            source=("mpitree_tpu_torch/csrc/histogram.cu" if payload is None
+                    else FIXED_SOURCE),
             replaces=REPLACES[route], launches=(
                 leafwise["budget"]["off"]["launches"][key]
                 if payload is None else

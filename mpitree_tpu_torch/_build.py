@@ -1,10 +1,10 @@
 """Build and load the package's CUDA kernels (nvcc -> shared library -> ctypes).
 
-Every ``csrc/*.cu`` file is a self-contained source with a plain C
-interface (no PyTorch headers), compiled for Hopper (``sm_90a``) into
+Every ``csrc/*.cu`` file is a source with a plain C interface (no
+PyTorch headers; it may include the package's ``csrc/*.cuh``), compiled for Hopper (``sm_90a``) into
 ``build/torch_kernels/`` at the root of the checkout on first use, and
-loaded with ``ctypes``. The library name carries a hash of the source
-and the flags, so an edited source rebuilds and a stale library is never
+loaded with ``ctypes``. The library name carries a hash of the source,
+the headers and the flags, so an edited source rebuilds and a stale library is never
 loaded. Nothing here runs at import time: the first launch on a CUDA
 tensor triggers the build of its source, and :func:`build_all` builds
 every source at once, one ``nvcc`` process each, in parallel.
@@ -49,9 +49,12 @@ def nvcc_path() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
+    """The library of ``csrc/<name>.cu``, named by a hash of the source,
+    the headers it may include (``csrc/*.cuh``) and the flags."""
+    parts = [(CSRC_DIR / f"{name}.cu").read_bytes()]
+    parts += [h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh"))]
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        b"".join(parts) + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

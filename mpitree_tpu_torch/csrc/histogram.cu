@@ -16,9 +16,8 @@
 // Layouts (row-major, contiguous): xb (N, row_stride) bin ids, either int32
 // (row_stride = F) or uint8 with rows padded to a multiple of 16 bytes
 // (ops/hist_kernel.pack_bins); payload (N, C) float32; slot (N,) int32; out
-// (S, F, C, B) float32, or int64 in fixed-point mode (below). Rows whose slot
-// lies outside [0, S) add nothing; bin ids at or above a feature's bin count
-// add nothing.
+// (S, F, C, B) float32. Rows whose slot lies outside [0, S) add nothing; bin
+// ids at or above a feature's bin count add nothing.
 //
 // What bounds the function on an H100: bytes. A pass must read each row's
 // bins and payload once and write the S*F*C*B*4-byte output once (0.79 GB at
@@ -73,39 +72,19 @@
 // of the atomics and is bit-identical to the plain version. Output offsets
 // are 64-bit; element ids are 32-bit, N * F < 2^31 (checked by the wrapper).
 //
-// Fixed-point mode (kFixed; every non-integer payload: fractional weights,
-// regression moments, GBDT (count, g, h)). Float atomics add in an order
-// that changes from run to run, so a float sum of fractions, and with it a
-// near-tie split, could too. In this mode every value becomes a signed
-// 64-bit integer q = rint(v * 2^k[c]) (round half to even, in float64,
-// where the product of a float32 v and a power of two is exact), and the
-// tile and the output hold int64 sums. Shared memory has no native 64-bit
-// integer add on sm_90 (atomicAdd on an unsigned long long there compiles
-// to a compare-and-swap loop, as a float add in shared memory does), so a
-// tile cell is two 32-bit words added with two native 32-bit atomics and
-// the low word's carry (add_fixed); device memory has a native 64-bit
-// add, which the split slots' flush uses. Integer addition is associative,
-// so every launch, every route and the plain version give the same bits. The wrapper passes scale[c] = 2^k[c], fixed once per fit from
-// the channel's largest |v| and the row count so that no partial sum can
-// reach 2^63 (ops/hist_kernel.fixed_point_exponents). The sums are exact
-// whenever every value is a multiple of 2^-k[c]: float32 weights within a
-// ratio of about 2^17 of each other at covtype's row count are. They stop
-// being exact for the tiny values of a channel whose largest value is far
-// larger, such as w*y^2 for targets near the mean: such a value is rounded
-// to the nearest multiple of 2^-k[c] (an absolute error below 2^-(k[c]+1)
-// a row), deterministically. The cells double to 8 bytes, so covtype's
-// 74 KB tile becomes 148 KB and one block runs per SM.
-//
+// Payloads that are not small integers (fractional weights, regression
+// moments, GBDT (count, g, h)) take the fixed-point body of
+// csrc/fixed_hist.cu, which adds int64 sums; the kernels here take the
+// integer payloads float32_exact accepts (ops/hist_kernel.py).
+
 // The launch functions return cudaGetLastError() after the launch and
 // allocate nothing; the caller passes the stream.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hist_tiles.cuh"
 
 namespace {
 
 constexpr int kMaxThreads = 512;
-constexpr int kLaneFeat = 16;  // features of a row one thread takes
 
 // A row's code in shared memory: channel in the low byte (kNone: nothing to
 // add; kSeveral: more than one nonzero channel, or a channel id that does not
@@ -113,61 +92,10 @@ constexpr int kLaneFeat = 16;  // features of a row one thread takes
 constexpr int kNone = 255;
 constexpr int kSeveral = 254;
 
-// Size of a group's (tile offset, bin count) table, 16-byte rounded.
-__host__ __device__ constexpr int feat_bytes(int n)
-{
-    return (n * 8 + 15) & ~15;
-}
-
-// Adds the int64 q (as two's complement) to the fixed-point tile cell at c:
-// its low word c[0], its high word c[1]. Two native 32-bit shared atomics;
-// the high word also takes the low word's carry, read off the value the
-// low add returns. Each add of a low word below 2^32 wraps it at most once,
-// so the carries count its wraps exactly, whatever the order of the adds:
-// the cell ends with the exact sum mod 2^64.
-__device__ __forceinline__ void add_fixed(unsigned* c, unsigned long long q)
-{
-    const unsigned lo = (unsigned)q;
-    unsigned hi = (unsigned)(q >> 32);
-    if (lo) {
-        const unsigned old = atomicAdd(c, lo);
-        hi += (unsigned)(old + lo < old);  // the low word wrapped
-    }
-    if (hi) atomicAdd(c + 1, hi);
-}
-
-// A thread's 16 bin ids of one row, in registers.
-template <typename BinT> struct RowBins;
-
-template <> struct RowBins<uint8_t> {
-    uint4 w;
-    __device__ __forceinline__ void load(const uint8_t* row, int f_lo, int) {
-        w = __ldg(reinterpret_cast<const uint4*>(row + f_lo));
-    }
-    __device__ __forceinline__ unsigned get(int j) const {
-        const unsigned v = j < 4 ? w.x : j < 8 ? w.y : j < 12 ? w.z : w.w;
-        return (v >> ((j & 3) * 8)) & 0xffu;
-    }
-};
-
-template <> struct RowBins<int32_t> {
-    int32_t v[kLaneFeat];
-    __device__ __forceinline__ void load(const int32_t* row, int f_lo,
-                                         int n_feat) {
-#pragma unroll
-        for (int j = 0; j < kLaneFeat; ++j)
-            v[j] = f_lo + j < n_feat ? __ldg(row + f_lo + j) : -1;
-    }
-    __device__ __forceinline__ unsigned get(int j) const {
-        return (unsigned)v[j];
-    }
-};
-
 // layout (int32): [0, G] feature-group starts; [G+1, 2G] cells of one
 // slot's tile per group (C channel rows); then per feature (offset within
-// a channel row of its group, bin count). out_raw is float32, or int64 in
-// fixed-point mode (kFixed), the only mode that reads scale.
-template <typename BinT, bool kSorted, bool kFixed>
+// a channel row of its group, bin count). out_raw is float32.
+template <typename BinT, bool kSorted>
 __global__ void __launch_bounds__(kMaxThreads)
 hist_tile_kernel(const BinT* __restrict__ xb,
                  const float* __restrict__ payload,
@@ -175,7 +103,6 @@ hist_tile_kernel(const BinT* __restrict__ xb,
                  const int32_t* __restrict__ order,
                  const int32_t* __restrict__ seg,
                  const int32_t* __restrict__ layout,
-                 const double* __restrict__ scale,
                  void* __restrict__ out_raw,
                  int n_rows, int row_stride, int n_feat, int n_chan,
                  int n_bins, int n_slots, int n_groups, int piece_rows)
@@ -191,40 +118,15 @@ hist_tile_kernel(const BinT* __restrict__ xb,
     int2* feat = reinterpret_cast<int2*>(smem);
     int2* code = reinterpret_cast<int2*>(smem + feat_bytes(fc));
     float* tile = reinterpret_cast<float*>(code + piece_rows);
-    unsigned* qtile = reinterpret_cast<unsigned*>(code + piece_rows);
-    const int cell_bytes = kFixed ? 8 : 4;
 
-    // Which rows this block takes: positions [a, b) of `order` (sorted) or
-    // of the rows themselves (stream). Sorted: block v < S takes the first
-    // piece_rows rows of slot v and owns the slot when it has no more; a
-    // further piece of slot s starts at q = seg[s] + k * piece_rows (k >= 1,
-    // q < seg[s + 1]) and is taken by block S + (q - seg[0]) / piece_rows:
-    // at most one such q falls into any stretch of piece_rows positions,
-    // because a slot has one only when it is longer than that.
+    // Which rows this block takes: positions [a, b) of `order` (sorted:
+    // sorted_piece) or of the rows themselves (stream).
     int own = 0, a, b;
     bool owned = false;
     if (kSorted) {
-        const int v = blockIdx.x;
-        if (v < n_slots) {
-            own = v;
-            a = seg[v];
-            const int end = seg[v + 1];
-            owned = end - a <= piece_rows;
-            b = owned ? end : a + piece_rows;
-        } else {
-            const int pos = seg[0] + (v - n_slots) * piece_rows;
-            if (pos >= seg[n_slots]) return;
-            int lo = 0, hi = n_slots;  // last s with seg[s] <= pos
-            while (hi - lo > 1) {
-                const int mid = (lo + hi) >> 1;
-                if (seg[mid] <= pos) lo = mid; else hi = mid;
-            }
-            const int k = (pos - seg[lo] + piece_rows - 1) / piece_rows;
-            a = seg[lo] + k * piece_rows;
-            if (k == 0 || a >= seg[lo + 1]) return;
-            own = lo;
-            b = min(a + piece_rows, seg[lo + 1]);
-        }
+        if (!sorted_piece(seg, n_slots, piece_rows, blockIdx.x, own, a, b,
+                          owned))
+            return;
     } else {
         a = blockIdx.x * piece_rows;
         b = min(n_rows, a + piece_rows);
@@ -238,7 +140,7 @@ hist_tile_kernel(const BinT* __restrict__ xb,
     {
         uint4* t4 = reinterpret_cast<uint4*>(tile);
         // the tile is padded to 16 bytes
-        const int n4 = (tile_slots * gcells * cell_bytes + 15) >> 4;
+        const int n4 = (tile_slots * gcells * 4 + 15) >> 4;
         for (int i = threadIdx.x; i < n4; i += blockDim.x)
             t4[i] = make_uint4(0u, 0u, 0u, 0u);
     }
@@ -248,7 +150,7 @@ hist_tile_kernel(const BinT* __restrict__ xb,
     // its slot, for the threads that take the row's features. The same
     // scan decides the block's mode: if every value is a small integer the
     // block adds integers (piece_rows * 65536 cannot wrap) and converts at
-    // the flush, else it adds floats. Fixed-point mode always adds int64.
+    // the flush, else it adds floats.
     bool ok = true;
     for (int i = threadIdx.x; i < b - a; i += blockDim.x) {
         const int r = kSorted ? __ldg(order + a + i) : a + i;
@@ -269,7 +171,7 @@ hist_tile_kernel(const BinT* __restrict__ xb,
         code[i] = make_int2((s << 8) | ch, __float_as_int(val));
     }
     const bool fractional = __syncthreads_or(!ok);  // also the barrier
-    const bool int_mode = !kFixed && !fractional;
+    const bool int_mode = !fractional;
     int* itile = reinterpret_cast<int*>(tile);
 
     // A thread keeps one 16-feature lane of the rows it takes, so its 16
@@ -308,25 +210,11 @@ hist_tile_kernel(const BinT* __restrict__ xb,
                 for (int c = 0; c < n_chan; ++c) {
                     const float v = __ldg(p + c);
                     if (v == 0.0f) continue;
-                    if (kFixed)
-                        add_fixed(qtile + 2 * (cell + c * rowcells),
-                                  (unsigned long long)__double2ll_rn(
-                                      (double)v * __ldg(scale + c)));
-                    else if (int_mode)
+                    if (int_mode)
                         atomicAdd(itile + cell + c * rowcells,
                                   __float2int_rn(v));
                     else atomicAdd(tile + cell + c * rowcells, v);
                 }
-            }
-        } else if (kFixed) {
-            unsigned* t = qtile + 2 * (tb + ch * rowcells);
-            const unsigned long long q = (unsigned long long)__double2ll_rn(
-                (double)val * __ldg(scale + ch));
-#pragma unroll
-            for (int j = 0; j < kLaneFeat; ++j) {
-                const unsigned bin = bins.get(j);
-                if (bin < (ft[j] & 0xffffu))
-                    add_fixed(t + 2 * ((ft[j] >> 16) + bin), q);
             }
         } else if (int_mode) {
             int* t = itile + tb + ch * rowcells;
@@ -356,49 +244,6 @@ hist_tile_kernel(const BinT* __restrict__ xb,
     const int lane = threadIdx.x & 31;
     const int n_warps = blockDim.x >> 5;
     const int n_trows = fc * n_chan;  // (feature, channel) rows of a tile
-    if (kFixed) {
-        long long* out = reinterpret_cast<long long*>(out_raw);
-        const long long* qt = reinterpret_cast<const long long*>(qtile);
-        if (owned) {
-            long long* o = out + own * slot_cells + goff;
-            // a warp writes one (feature, channel) row of B bins at a time
-            for (int r = threadIdx.x >> 5; r < n_trows; r += n_warps) {
-                const int fl = r / n_chan;
-                const int2 fo = feat[fl];
-                const long long* t = qt + (r - fl * n_chan) * rowcells + fo.x;
-                long long* orow = o + (int64_t)r * n_bins;
-                if ((n_bins & 1) == 0) {
-                    for (int bin = lane * 2; bin < n_bins; bin += 64) {
-                        longlong2 v;
-                        v.x = bin < fo.y ? t[bin] : 0ll;
-                        v.y = bin + 1 < fo.y ? t[bin + 1] : 0ll;
-                        *reinterpret_cast<longlong2*>(orow + bin) = v;
-                    }
-                } else {
-                    for (int bin = lane; bin < n_bins; bin += 32)
-                        orow[bin] = bin < fo.y ? t[bin] : 0ll;
-                }
-            }
-            return;
-        }
-        for (int sl = 0; sl < tile_slots; ++sl) {
-            const int s = kSorted ? own : sl;
-            unsigned long long* o = reinterpret_cast<unsigned long long*>(
-                out + s * slot_cells + goff);
-            const long long* ts = qt + sl * gcells;
-            for (int r = threadIdx.x >> 5; r < n_trows; r += n_warps) {
-                const int fl = r / n_chan;
-                const int2 fo = feat[fl];
-                const long long* t = ts + (r - fl * n_chan) * rowcells + fo.x;
-                unsigned long long* orow = o + (int64_t)r * n_bins;
-                for (int bin = lane; bin < fo.y; bin += 32) {
-                    const long long v = t[bin];
-                    if (v != 0) atomicAdd(orow + bin, (unsigned long long)v);
-                }
-            }
-        }
-        return;
-    }
     float* out = reinterpret_cast<float*>(out_raw);
     auto cell = [int_mode](const float* t) {
         return int_mode ? (float)*reinterpret_cast<const int*>(t) : *t;
@@ -444,47 +289,25 @@ hist_tile_kernel(const BinT* __restrict__ xb,
     }
 }
 
-// Zeroes out[s] (slot_bytes bytes a slot) for every slot that the sorted
-// route splits into pieces.
-__global__ void
-hist_zero_split_kernel(const int32_t* __restrict__ seg,
-                       unsigned char* __restrict__ out, int piece_rows,
-                       int64_t slot_bytes)
-{
-    const int s = blockIdx.x;
-    if (seg[s + 1] - seg[s] <= piece_rows) return;
-    unsigned char* o = out + s * slot_bytes;
-    const int64_t step = (int64_t)gridDim.y * blockDim.x;
-    const int64_t first = (int64_t)blockIdx.y * blockDim.x + threadIdx.x;
-    if ((slot_bytes & 15) == 0) {
-        uint4* o4 = reinterpret_cast<uint4*>(o);
-        for (int64_t i = first; i < (slot_bytes >> 4); i += step)
-            o4[i] = make_uint4(0u, 0u, 0u, 0u);
-    } else {  // 4-byte cells, slot_cells not a multiple of 4
-        unsigned* o1 = reinterpret_cast<unsigned*>(o);
-        for (int64_t i = first; i < (slot_bytes >> 2); i += step) o1[i] = 0u;
-    }
-}
-
-template <typename BinT, bool kSorted, bool kFixed>
+template <typename BinT, bool kSorted>
 int launch_tile(const void* xb, const void* payload, const void* slot,
                 const void* order, const void* seg, const void* layout,
-                const void* scale, void* out, int n_rows, int row_stride,
+                void* out, int n_rows, int row_stride,
                 int n_feat, int n_chan, int n_bins, int n_slots,
                 int n_groups, int piece_rows, int n_blocks, int threads,
                 int smem_bytes, cudaStream_t stream)
 {
     // the opt-in above 48 KB of dynamic shared memory is per instantiation
     cudaError_t e = cudaFuncSetAttribute(
-        hist_tile_kernel<BinT, kSorted, kFixed>,
+        hist_tile_kernel<BinT, kSorted>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (e != cudaSuccess) return (int)e;
-    hist_tile_kernel<BinT, kSorted, kFixed>
+    hist_tile_kernel<BinT, kSorted>
         <<<dim3(n_blocks, n_groups), threads, smem_bytes, stream>>>(
         (const BinT*)xb, (const float*)payload, (const int32_t*)slot,
         (const int32_t*)order, (const int32_t*)seg, (const int32_t*)layout,
-        (const double*)scale, out, n_rows, row_stride, n_feat, n_chan,
-        n_bins, n_slots, n_groups, piece_rows);
+        out, n_rows, row_stride, n_feat, n_chan, n_bins, n_slots,
+        n_groups, piece_rows);
     return (int)cudaGetLastError();
 }
 
@@ -494,43 +317,31 @@ extern "C" {
 
 // bin_bytes 1 (uint8 rows of row_stride bytes) or 4 (int32); sorted != 0
 // takes order/seg and writes every cell of `out`; sorted == 0 reads slot
-// and adds into a zeroed `out`. fixed != 0: fixed-point mode, `scale` holds
-// n_chan float64 scales 2^k[c] and `out` is int64, else `out` is float32
-// and `scale` is not read.
+// and adds into a zeroed `out` (float32).
 int mpt_hist_tile(const void* xb, const void* payload, const void* slot,
                   const void* order, const void* seg, const void* layout,
-                  const void* scale, void* out, int n_rows, int row_stride,
-                  int n_feat, int n_chan, int n_bins, int n_slots,
-                  int n_groups, int piece_rows, int n_blocks, int threads,
-                  int smem_bytes, int bin_bytes, int sorted, int fixed,
-                  void* stream)
+                  void* out, int n_rows, int row_stride, int n_feat,
+                  int n_chan, int n_bins, int n_slots, int n_groups,
+                  int piece_rows, int n_blocks, int threads, int smem_bytes,
+                  int bin_bytes, int sorted, void* stream)
 {
     cudaStream_t st = (cudaStream_t)stream;
     if (sorted) {
-        hist_zero_split_kernel<<<dim3(n_slots, 8), 256, 0, st>>>(
-            (const int32_t*)seg, (unsigned char*)out, piece_rows,
-            (int64_t)n_feat * n_chan * n_bins * (fixed ? 8 : 4));
-        cudaError_t e = cudaGetLastError();
+        const cudaError_t e = zero_split_slots(
+            seg, out, n_slots, piece_rows,
+            (int64_t)n_feat * n_chan * n_bins * 4, st);
         if (e != cudaSuccess) return (int)e;
     }
-#define MPT_TILE(BinT, kSorted, kFixed) \
-    launch_tile<BinT, kSorted, kFixed>(xb, payload, slot, order, seg, \
-        layout, scale, out, n_rows, row_stride, n_feat, n_chan, n_bins, \
-        n_slots, n_groups, piece_rows, n_blocks, threads, smem_bytes, st)
+#define MPT_TILE(BinT, kSorted) \
+    launch_tile<BinT, kSorted>(xb, payload, slot, order, seg, layout, out, \
+        n_rows, row_stride, n_feat, n_chan, n_bins, n_slots, n_groups, \
+        piece_rows, n_blocks, threads, smem_bytes, st)
 #define MPT_ROUTE(BinT) \
-    (fixed ? (sorted ? MPT_TILE(BinT, true, true) \
-                     : MPT_TILE(BinT, false, true)) \
-           : (sorted ? MPT_TILE(BinT, true, false) \
-                     : MPT_TILE(BinT, false, false)))
+    (sorted ? MPT_TILE(BinT, true) : MPT_TILE(BinT, false))
     if (bin_bytes == 1) return MPT_ROUTE(uint8_t);
     return MPT_ROUTE(int32_t);
 #undef MPT_ROUTE
 #undef MPT_TILE
-}
-
-const char* mpt_error_string(int code)
-{
-    return cudaGetErrorString((cudaError_t)code);
 }
 
 }  // extern "C"

@@ -52,11 +52,13 @@ the **fixed-point** route: given ``scale_exp`` (one exponent ``k[c]`` per
 channel, :func:`fixed_point_exponents`, fixed once per fit), every value
 becomes the int64 ``round_half_even(v * 2**k[c])`` and the histogram is
 their int64 sum. Integer addition does not depend on the order, so the
-kernels (routes ``stream_fixed`` and ``sorted_fixed``: the same tile
-machinery with 8-byte cells) equal the plain version bit for bit, and a
-fit on the card equals the same fit on the CPU. The sums are exact where
-every value is a multiple of ``2**-k[c]`` (csrc/histogram.cu says where
-they stop being).
+kernels (routes ``stream_fixed`` and ``sorted_fixed``: the fixed-point
+body of ``csrc/fixed_hist.cu``, its own tile machinery with 8-byte carry
+cells or 12-byte limb cells, rows quantized once and staged in batches;
+planned by :func:`_fixed_plan`) equal the plain version bit for bit, and
+a fit on the card equals the same fit on the CPU. The sums are exact
+where every value is a multiple of ``2**-k[c]`` (csrc/fixed_hist.cu says
+where they stop being).
 
 On a data mesh every shard must add on one scale: the route and the
 exponents come from every shard's :func:`payload_stats` reduced over the
@@ -96,6 +98,24 @@ MAX_PIECE_ROWS = 4096  # 8 bytes of shared memory a row; keeps int sums small
 # 512 threads of 60 registers: the register file holds two blocks
 MAX_BLOCKS_PER_SM = 2
 MAX_GROUP_FEATURES = 256  # a row's lanes (16 features each) within a warp
+# The fixed-point body (csrc/fixed_hist.cu): (blocks an SM, threads a
+# block) per route in the planner's order of preference (measured: PERF.md),
+# and its shared memory beside the tile and the staging (8 bytes of (row,
+# tile base) and 8 a q value a thread): the feature table, two counters.
+FIXED_SHAPES = {"stream": ((1, 1024), (2, 512), (1, 512)),
+                "sorted": ((2, 512), (1, 1024), (1, 512))}
+FIXED_COUNTER_BYTES = 16
+# How the fixed-point body adds a q into a tile cell: "carry", two 32-bit
+# words and the low word's carry (8 bytes a cell), or "limbs", three
+# 32-bit planes of independent adds (12 bytes a cell; at most
+# LIMB_MAX_ROWS rows a block, so the two 16-bit limbs' sums stay exact).
+FIXED_ADDS = {"carry": 8, "limbs": 12}
+LIMB_MAX_ROWS = 65_536
+# The planner takes limbs when at least half the features have at most
+# this many bins (many rows' adds meet in few cells, where the carry's
+# dependent add waits longest) and the limb tile takes no more feature
+# groups; carry otherwise (measured on an H100: PERF.md).
+LIMBS_FEW_BINS = 16
 ROUTES = ("stream", "sorted")
 FIXED_ROUTES = tuple(f"{r}_fixed" for r in ROUTES)
 # Bits a fixed-point histogram cell may use: no partial sum of N values,
@@ -334,14 +354,13 @@ def _feat_bytes(n: int) -> int:
     return (n * 8 + 15) & ~15
 
 
-def _smem_bytes(groups, cells, tile_slots: int, piece_rows: int,
-                cell_bytes: int = 4) -> int:
-    """Largest group's dynamic shared memory: the feature table, one
-    8-byte code per row of a piece, and the tile of ``cell_bytes`` cells
-    rounded to 16 bytes."""
+def _smem_bytes(groups, cells, tile_slots: int, piece_rows: int) -> int:
+    """Largest group's dynamic shared memory in the integer body: the
+    feature table, one 8-byte code per row of a piece, and the tile of
+    4-byte cells rounded to 16 bytes."""
     return max(
         _feat_bytes(f1 - f0) + 8 * piece_rows
-        + -(-tile_slots * sum(cells[f0:f1]) * cell_bytes // 16) * 16
+        + -(-tile_slots * sum(cells[f0:f1]) * 4 // 16) * 16
         for f0, f1 in groups
     )
 
@@ -358,7 +377,8 @@ def plan(n_slots: int, n_features: int, n_channels: int, n_bins: int,
          variant: str | None = None, *, feat_bins=None,
          n_rows: int = 1 << 20, n_sms: int = N_SMS,
          smem_bytes: int = SMEM_BYTES,
-         piece_rows: int | None = None, fixed: bool = False) -> dict:
+         piece_rows: int | None = None, fixed: bool = False,
+         threads: int | None = None, adds: str | None = None) -> dict:
     """Route and tiling for one launch (host arithmetic, no device).
 
     ``feat_bins[f]`` is feature ``f``'s bin count (default ``n_bins``
@@ -371,18 +391,113 @@ def plan(n_slots: int, n_features: int, n_channels: int, n_bins: int,
     ``piece_rows`` names the size. ``smem_bytes`` is the shared memory one
     block may use. ``variant=None`` picks ``stream`` up to
     ``STREAM_MAX_SLOTS`` slots and ``sorted`` beyond; a named route gets
-    its tiling, or ``ValueError`` when its tile cannot fit. ``fixed``
-    prices the fixed-point route's 8-byte cells. Plans are remembered: a
-    fit asks for the same few on every level."""
+    its tiling, or ``ValueError`` when its tile cannot fit. Plans are
+    remembered: a fit asks for the same few on every level.
+
+    ``fixed`` plans the fixed-point body (csrc/fixed_hist.cu,
+    :func:`_fixed_plan`); ``threads`` forces its block size and ``adds``
+    its cells (``FIXED_ADDS``; by default ``LIMBS_FEW_BINS`` decides)."""
     return _plan(n_slots, n_features, n_channels, n_bins, variant,
                  None if feat_bins is None else tuple(
                      int(v) for v in feat_bins),
-                 n_rows, n_sms, smem_bytes, piece_rows, bool(fixed))
+                 n_rows, n_sms, smem_bytes, piece_rows, bool(fixed),
+                 threads, adds)
+
+
+def _fixed_smem(groups, cells, tile_slots: int, threads: int,
+                chan: int, adds: str = "carry") -> int:
+    """Largest group's dynamic shared memory in the fixed-point body: the
+    feature table, the batch's staging (8 + 8 * chan bytes a thread), the
+    tile (:func:`_fixed_tile_bytes`) and the two counters."""
+    return max(
+        _feat_bytes(f1 - f0) + threads * 8 * (1 + chan)
+        + _fixed_tile_bytes(tile_slots * sum(cells[f0:f1]), adds)
+        + FIXED_COUNTER_BYTES
+        for f0, f1 in groups
+    )
+
+
+def _fixed_tile_bytes(n_cells: int, adds: str) -> int:
+    """A fixed-point tile of ``n_cells`` cells as the body lays it out:
+    "carry", two words a cell rounded to 16 bytes; "limbs", three planes
+    of one word a cell, each rounded to 16 bytes."""
+    if adds == "limbs":
+        return 3 * -(-n_cells // 4) * 16
+    return -(-2 * n_cells // 4) * 16
+
+
+def stream_grid(n_rows: int, resident: int) -> tuple:
+    """The fixed stream route's grid: ``(blocks, rows a block)`` for
+    ``n_rows`` rows over one wave of ``resident`` blocks; a block takes at
+    least ``MIN_PIECE_ROWS`` rows, a multiple of 32."""
+    rows = max(MIN_PIECE_ROWS, -(-max(n_rows, 1) // max(resident, 1)))
+    rows = -(-rows // 32) * 32
+    return -(-max(n_rows, 1) // rows), rows
+
+
+def _fixed_plan(variant, n_features, n_channels, cells, tile_slots, n_rows,
+                n_sms, smem_bytes, piece_rows, threads, adds) -> dict:
+    """The fixed-point body's tiling: for each (blocks an SM, threads) of
+    ``FIXED_SHAPES[variant]`` (or the forced ``threads``) the fewest
+    feature groups whose tiles fit beside the staging; the fewest groups
+    win, then (sorted) the most resident threads, then the order of
+    ``FIXED_SHAPES``. Stream: one wave of blocks over the rows for each
+    feature group (:func:`stream_grid`); sorted: pieces of
+    :func:`_piece_rows` and the integer body's decode (the wrapper adds
+    the S owner blocks). ``adds`` (default "carry") sets the cells
+    (``FIXED_ADDS``); "limbs" caps a block's rows at ``LIMB_MAX_ROWS``."""
+    adds = adds or "carry"
+    if adds not in FIXED_ADDS:
+        raise ValueError(f"unknown fixed-point adds {adds!r}; expected one "
+                         f"of {tuple(FIXED_ADDS)}")
+    cb = FIXED_ADDS[adds]
+    # the body's instance: three dense channels (moments, GBDT), or one
+    # nonzero channel a row (class payloads of any C)
+    chan = 3 if n_channels == 3 else 1
+    best = None
+    for rank, (bps, nt) in enumerate(FIXED_SHAPES[variant]):
+        if threads is not None and nt != threads:
+            continue
+        room = min(smem_bytes, SMEM_PER_SM // bps - 1024)
+        fixed_part = (_feat_bytes(n_features) + nt * 8 * (1 + chan)
+                      + FIXED_COUNTER_BYTES)
+        pad = 48 if adds == "limbs" else 0  # three planes' rounding
+        groups = _feature_groups(cells, (room - fixed_part - pad)
+                                 // (cb * tile_slots))
+        if not groups or _fixed_smem(groups, cells, tile_slots, nt,
+                                     chan, adds) > room:
+            continue
+        key = (len(groups), 0 if variant == "stream" else -bps * nt, rank)
+        if best is None or key < best[0]:
+            best = (key, groups, bps, nt)
+    if best is None:
+        raise ValueError(
+            f"route {variant!r} does not fit S={tile_slots} C={n_channels} "
+            f"({cb}-byte cells) in {smem_bytes} bytes of shared memory")
+    _, groups, bps, nt = best
+    blocks = None
+    if variant == "stream":  # one wave of blocks a group (measured)
+        blocks, rows = stream_grid(n_rows, n_sms * bps)
+        if adds == "limbs":
+            rows = min(rows, LIMB_MAX_ROWS)
+        if piece_rows:
+            rows = piece_rows
+        blocks = -(-n_rows // rows)
+    else:
+        rows = piece_rows or _piece_rows(
+            n_rows, max(1, n_sms * bps // len(groups)))
+    if adds == "limbs" and rows > LIMB_MAX_ROWS:
+        raise ValueError(f"limbs take at most {LIMB_MAX_ROWS} rows a block, "
+                         f"got piece_rows={rows}")
+    return dict(groups=groups, blocks_per_sm=bps, threads=nt, chan=chan,
+                adds=adds, n_blocks=blocks, piece_rows=rows,
+                smem=_fixed_smem(groups, cells, tile_slots, nt, chan, adds))
 
 
 @functools.lru_cache(maxsize=256)
 def _plan(n_slots, n_features, n_channels, n_bins, variant, feat_bins,
-          n_rows, n_sms, smem_bytes, piece_rows, fixed) -> dict:
+          n_rows, n_sms, smem_bytes, piece_rows, fixed, threads,
+          adds) -> dict:
     if variant is None:
         variant = "stream" if n_slots <= STREAM_MAX_SLOTS else "sorted"
     if variant not in ROUTES:
@@ -394,7 +509,24 @@ def _plan(n_slots, n_features, n_channels, n_bins, variant, feat_bins,
             f"feat_bins has {len(nb)} entries for {n_features} features")
     cells = [n_channels * (v | 1) for v in nb]
     tile_slots = n_slots if variant == "stream" else 1
-    cell_bytes = 8 if fixed else 4
+    if fixed:
+        args = (variant, n_features, n_channels, cells, tile_slots, n_rows,
+                n_sms, smem_bytes, piece_rows, threads)
+        got = _fixed_plan(*args, adds or "carry")
+        if adds is None and 2 * sum(v <= LIMBS_FEW_BINS for v in nb) \
+                >= len(nb):
+            # mostly few-bin features: limbs, where they take no more
+            # feature groups (measured: PERF.md)
+            try:
+                limbs = _fixed_plan(*args, "limbs")
+            except ValueError:  # no room, or a forced piece too long
+                limbs = None
+            if limbs is not None and len(limbs["groups"]) <= len(
+                    got["groups"]):
+                got = limbs
+        return dict(got, **_layout_of(variant, got["groups"], nb,
+                                      n_channels, tile_slots),
+                    cell_bytes=FIXED_ADDS[got["adds"]])
 
     def tiling(blocks_per_sm):
         """(groups, piece rows) with as few groups as fit, or None."""
@@ -403,10 +535,10 @@ def _plan(n_slots, n_features, n_channels, n_bins, variant, feat_bins,
             rows = piece_rows or _piece_rows(
                 n_rows, max(1, n_sms * blocks_per_sm // n_groups))
             budget = (room - _feat_bytes(n_features) - 8 * rows) \
-                // (cell_bytes * tile_slots)
+                // (4 * tile_slots)
             groups = _feature_groups(cells, budget)
             if groups and len(groups) <= n_groups and _smem_bytes(
-                    groups, cells, tile_slots, rows, cell_bytes) <= room:
+                    groups, cells, tile_slots, rows) <= room:
                 return groups, rows
         return None
 
@@ -414,14 +546,25 @@ def _plan(n_slots, n_features, n_channels, n_bins, variant, feat_bins,
     if best is None:
         raise ValueError(
             f"route {variant!r} does not fit S={n_slots} C={n_channels} "
-            f"B={n_bins} ({cell_bytes}-byte cells) in {smem_bytes} bytes "
-            f"of shared memory"
+            f"B={n_bins} in {smem_bytes} bytes of shared memory"
         )
     blocks_per_sm = 1
     two = tiling(MAX_BLOCKS_PER_SM)
     if two is not None and len(two[0]) == len(best[0]):
         best, blocks_per_sm = two, MAX_BLOCKS_PER_SM
     groups, rows = best
+    return dict(
+        _layout_of(variant, groups, nb, n_channels, tile_slots),
+        smem=_smem_bytes(groups, cells, tile_slots, rows),
+        blocks_per_sm=blocks_per_sm, threads=MAX_THREADS, piece_rows=rows,
+        cell_bytes=4,
+    )
+
+
+def _layout_of(variant, groups, nb, n_channels, tile_slots) -> dict:
+    """The tile layout of ``groups``: each feature's offset in its
+    group's channel row (``nb[f] | 1`` cells each), each group's cells,
+    and the int32 ``layout`` the kernels read."""
     foff, group_cells = [], []  # channel-major: C rows of a group's bins
     for f0, f1 in groups:
         off = 0
@@ -434,11 +577,8 @@ def _plan(n_slots, n_features, n_channels, n_bins, variant, feat_bins,
         feat_bins=nb, feat_offset=foff, tile_slots=tile_slots,
         # as the kernel reads it: group starts, cells per group, then
         # (offset in a channel row, bin count) per feature
-        layout=tuple([g[0] for g in groups] + [n_features] + group_cells
+        layout=tuple([g[0] for g in groups] + [len(nb)] + group_cells
                      + [v for pair in zip(foff, nb) for v in pair]),
-        smem=_smem_bytes(groups, cells, tile_slots, rows, cell_bytes),
-        blocks_per_sm=blocks_per_sm, threads=MAX_THREADS, piece_rows=rows,
-        cell_bytes=cell_bytes,
     )
 
 
@@ -489,32 +629,34 @@ def histogram_reference(x_binned: torch.Tensor, payload: torch.Tensor,
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "mpt_hist_tile": [_PTR] * 8 + [_INT] * 14 + [_PTR],
+    "histogram": {"mpt_hist_tile": [_PTR] * 7 + [_INT] * 13 + [_PTR]},
+    "fixed_hist": {"mpt_fixed_tile": [_PTR] * 8 + [_INT] * 15 + [_PTR]},
 }
-_lib = None
+_libs: dict = {}
 _layouts: dict = {}
 _scales: dict = {}
 
 
-def _library():
-    global _lib
-    if _lib is None:
+def _library(name: str = "histogram"):
+    """The built ``csrc/<name>.cu`` (``histogram``: the integer body;
+    ``fixed_hist``: the fixed-point body), its functions typed."""
+    if name not in _libs:
         from mpitree_tpu_torch import _build
 
-        lib = _build.load("histogram")
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
+        lib = _build.load(name)
+        for fname, argtypes in _SIGNATURES[name].items():
+            fn = getattr(lib, fname)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         lib.mpt_error_string.argtypes = [ctypes.c_int]
         lib.mpt_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+        _libs[name] = lib
+    return _libs[name]
 
 
-def _check(code: int, what: str) -> None:
+def _check(code: int, what: str, lib: str = "histogram") -> None:
     if code != 0:
-        msg = _library().mpt_error_string(code).decode()
+        msg = _library(lib).mpt_error_string(code).decode()
         raise RuntimeError(f"{what} launch failed: CUDA error {code} ({msg})")
 
 
@@ -564,9 +706,11 @@ def histogram_cuda(x_binned: torch.Tensor, payload: torch.Tensor,
     when the sorted route runs without them), ``feat_bins`` the per-feature
     bin counts: a bin id at or above its feature's count adds nothing.
     ``_variant`` forces a route and ``_tune`` names :func:`plan`'s
-    ``piece_rows``; only ``chip_smoke.py`` and the card tests pass them, to
-    time the routes against each other at one width and to drive small
-    pieces."""
+    ``piece_rows`` (and, for the fixed-point body, ``threads`` and
+    ``adds``); only
+    ``chip_smoke.py``, the card tests and ``fixed_hist_ab.py`` pass them,
+    to time the routes and candidates against each other at one width and
+    to drive small pieces."""
     if not (x_binned.is_cuda and payload.is_cuda and slot.is_cuda):
         raise ValueError("histogram_cuda needs CUDA tensors")
     if not (x_binned.device == payload.device == slot.device):
@@ -641,26 +785,40 @@ def histogram_cuda(x_binned: torch.Tensor, payload: torch.Tensor,
                 dtype=torch.int64 if fixed else torch.float32)
     if N == 0:
         return out
-    lib = _library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     is_sorted = route == "sorted"
     if is_sorted and order is None:
         order, seg_start = slot_segments(slot, n_slots)
     bins = x_binned if packed is None else packed
+    if fixed:
+        n_blocks = p["n_blocks"] or math.ceil(N / p["piece_rows"]) + n_slots
+        with torch.cuda.device(dev):
+            _check(_library("fixed_hist").mpt_fixed_tile(
+                bins.data_ptr(), payload.data_ptr(), slot.data_ptr(),
+                order.data_ptr() if is_sorted else None,
+                seg_start.data_ptr() if is_sorted else None,
+                _layout(p, dev).data_ptr(), scale.data_ptr(),
+                out.data_ptr(), N, bins.shape[1], F, C, n_bins, n_slots,
+                len(p["groups"]), p["piece_rows"], n_blocks, p["threads"],
+                p["smem"], bins.element_size(), p["chan"], int(is_sorted),
+                int(p["adds"] == "limbs"), stream,
+            ), f"fixed_tile[{route}_fixed]", "fixed_hist")
+        launches[f"{route}_fixed"] += 1
+        return out
+    lib = _library()
     n_pieces = math.ceil(N / p["piece_rows"])
     with torch.cuda.device(dev):
         _check(lib.mpt_hist_tile(
             bins.data_ptr(), payload.data_ptr(), slot.data_ptr(),
             order.data_ptr() if is_sorted else None,
             seg_start.data_ptr() if is_sorted else None,
-            _layout(p, dev).data_ptr(),
-            scale.data_ptr() if fixed else None, out.data_ptr(), N,
+            _layout(p, dev).data_ptr(), out.data_ptr(), N,
             bins.shape[1], F, C, n_bins, n_slots, len(p["groups"]),
             p["piece_rows"], n_pieces + (n_slots if is_sorted else 0),
             p["threads"], p["smem"], bins.element_size(),
-            int(is_sorted), int(fixed), stream,
-        ), f"hist_tile[{route}{'_fixed' if fixed else ''}]")
-    launches[f"{route}_fixed" if fixed else route] += 1
+            int(is_sorted), stream,
+        ), f"hist_tile[{route}]")
+    launches[route] += 1
     return out
 
 

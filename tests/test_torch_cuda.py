@@ -236,6 +236,140 @@ def test_fixed_point_route_with_a_skewed_frontier_and_small_pieces(cuda):
             assert torch.equal(got, want), (name, piece_rows)
 
 
+def _gbdt54(cuda, rng, N, *, top=None):
+    """GBDT (count, g, h) on covtype-shaped rows, negative g and h == 0
+    rows included; with ``top`` every live |g| is 2**top (the largest
+    |q| the exponents allow)."""
+    from mpitree_tpu_torch.ops import histogram as ph
+
+    g = rng.standard_normal(N).astype(np.float32) * 3
+    if top is not None:
+        g = np.where(rng.random(N) < 0.5, -1.0, 1.0).astype(
+            np.float32) * np.float32(2.0 ** top)
+    h = np.where(rng.random(N) < 0.2, 0.0, rng.uniform(0.05, 0.25, N))
+    return ph.gbdt_payload(torch.from_numpy(g).to(cuda), torch.from_numpy(
+        h.astype(np.float32)).to(cuda)).contiguous()
+
+
+# (name, S, one row in `share` live, input options): the shapes that carry
+# a boosted fit's launches (chip_smoke.py phase 12) and the hard cases
+FIXED_CASES = [
+    ("gbdt54", 1, 1, {}), ("gbdt54", 2, 1, {}), ("gbdt54", 4, 1, {}),
+    ("gbdt54", 16, 1, {}), ("gbdt54", 32, 1, {}),
+    ("pair", 2, 8, {}), ("largest-q", 2, 1, dict(top=7)),
+    ("one-bin", 1, 1, dict(one_bin=True)),
+    ("one-bin-sorted", 8, 1, dict(one_bin=True)),
+    ("skewed", 40, 1, dict(skew=True)),
+]
+
+
+@pytest.mark.parametrize("case", FIXED_CASES, ids=lambda c: c[0] + str(c[1]))
+def test_fixed_body_at_the_launch_carrying_shapes(cuda, case):
+    """The fixed-point body (csrc/fixed_hist.cu) at both block sizes, both
+    cells (carry and limbs), the planned shape, and (stream) a grid of
+    more and of fewer blocks than the wave the planner takes: bit for bit
+    the plain version and its own second launch, on 54 covtype-shaped
+    features."""
+    name, S, share, opts = case
+    xb, _, slot, feat_bins = _hist_inputs(cuda, S, S, N=50_000,
+                                          skew=opts.get("skew", False))
+    if opts.get("one_bin"):
+        xb = torch.ones_like(xb)
+    rng = np.random.default_rng(S + share)
+    if share > 1:
+        dead = torch.from_numpy(rng.random(xb.shape[0]) >= 1 / share)
+        slot = slot.masked_fill(dead.to(cuda), -1)
+    payload = _gbdt54(cuda, rng, xb.shape[0], top=opts.get("top"))
+    se = hist_kernel.fixed_point_exponents(payload)
+    want = hist_kernel.histogram_reference(xb, payload, slot, n_slots=S,
+                                           n_bins=256, scale_exp=se)
+    packed = hist_kernel.pack_bins(xb, 256)
+    p = hist_kernel.plan(S, 54, 3, 256, feat_bins=feat_bins,
+                         n_rows=xb.shape[0], fixed=True)
+    tunes = [None, dict(threads=512), dict(threads=1024),
+             dict(adds="carry"), dict(adds="limbs")]
+    if p["route"] == "stream":
+        tunes += [dict(piece_rows=256), dict(piece_rows=-(-xb.shape[0] // 8)),
+                  dict(piece_rows=256, adds="limbs")]
+    for tune in tunes:
+        for pk in (None, packed):
+            runs = [hist_kernel.histogram_cuda(
+                xb, payload, slot, n_slots=S, n_bins=256, packed=pk,
+                feat_bins=feat_bins, scale_exp=se, _tune=tune)
+                for _ in range(2)]
+            torch.cuda.synchronize()
+            assert torch.equal(runs[0], want), (name, tune)
+            assert torch.equal(runs[1], runs[0]), (name, tune)
+
+
+def test_fixed_stream_launch_replays_from_a_cuda_graph(cuda):
+    """The leaf-wise loop replays stream_fixed from a captured CUDA graph:
+    the captured launch (fresh output, new slots and payload copied into
+    the captured inputs) equals the eager one and the plain version."""
+    S, N = 2, 30_000
+    xb, _, slot, feat_bins = _hist_inputs(cuda, 9, S, N=N)
+    rng = np.random.default_rng(9)
+    payload = _gbdt54(cuda, rng, N)
+    se = hist_kernel.fixed_point_exponents(payload)
+
+    def launch():
+        return hist_kernel.histogram_cuda(xb, payload, slot, n_slots=S,
+                                          n_bins=256, feat_bins=feat_bins,
+                                          scale_exp=se)
+
+    eager = launch()  # builds and sets the kernel up before the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = hist_kernel.launches["stream_fixed"]
+    with torch.cuda.graph(graph):
+        captured = launch()
+    assert hist_kernel.launches["stream_fixed"] == before + 1
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
+    slot.copy_(torch.from_numpy(rng.integers(-1, S + 1, N).astype(
+        np.int32)).to(cuda))
+    payload.copy_(_gbdt54(cuda, rng, N) / 2)  # within the same exponents
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, hist_kernel.histogram_reference(
+        xb, payload, slot, n_slots=S, n_bins=256, scale_exp=se))
+    assert torch.equal(captured, launch())
+
+
+@pytest.mark.parametrize("what", ["leafwise-regressor", "rounds-k8"])
+def test_fixed_route_fits_on_the_card_equal_their_twins(cuda, what):
+    """A 255-leaf regressor (phase 25 (c)'s) on the card equals the CPU's
+    tree field for field; K = 8 fused rounds of a regressor (phase 26's)
+    equal the CPU's K = 8 and the card's host loop within 2e-4 (the card's
+    float32 loss may differ in its last bit)."""
+    from mpitree_tpu_torch.tree import (
+        DecisionTreeRegressor,
+        GradientBoostingRegressor,
+    )
+    from mpitree_tpu_torch.utils.datasets import california_like
+
+    X, y = california_like(30_000, seed=7)
+    before = dict(hist_kernel.launches)
+    if what == "leafwise-regressor":
+        gpu = DecisionTreeRegressor(max_leaf_nodes=255, max_bins=256,
+                                    device="cuda").fit(X, y)
+        assert hist_kernel.launches["stream_fixed"] > before["stream_fixed"]
+        cpu = DecisionTreeRegressor(max_leaf_nodes=255, max_bins=256,
+                                    device="cpu").fit(X, y)
+        assert int((cpu.tree_.left < 0).sum()) == 255
+        _same_trees(gpu.tree_, cpu.tree_, what)
+        return
+    fits = {(dev, K): GradientBoostingRegressor(
+        max_iter=16, rounds_per_dispatch=K, device=dev, random_state=0).fit(
+        X, y) for dev, K in (("cuda", 8), ("cpu", 8), ("cuda", 1))}
+    assert hist_kernel.launches["stream_fixed"] > before["stream_fixed"]
+    ref = fits[("cpu", 8)].predict(X)
+    for key, m in fits.items():
+        np.testing.assert_allclose(m.predict(X), ref, rtol=2e-4, atol=2e-4,
+                                   err_msg=str(key))
+
+
 def test_float32_route_refuses_an_inexact_payload(cuda):
     """Without scale_exp the kernel adds float32 in an unordered way, so a
     payload whose sums would depend on that order is refused before the

@@ -212,20 +212,23 @@ def test_plan_refuses_unknown_route_and_wrong_feat_bins():
 
 
 def test_ctypes_signatures_match_the_c_source():
-    """Every argument ctypes declares matches the extern "C" launch
-    function's parameter list in csrc/histogram.cu: a pointer for each
-    pointer (ctypes would cut an undeclared one to 32 bits), an int for
-    each int."""
+    """Every argument ctypes declares matches the extern "C" function's
+    parameter list in its source (csrc/histogram.cu, csrc/fixed_hist.cu):
+    a pointer for each pointer (ctypes would cut an undeclared one to 32
+    bits), an int for each int."""
     import re
     from pathlib import Path
 
-    src = (Path(hist_kernel.__file__).parents[1] / "csrc" /
-           "histogram.cu").read_text()
-    for name, argtypes in hist_kernel._SIGNATURES.items():
-        params = re.search(name + r"\(([^)]*)\)", src).group(1).split(",")
-        kinds = ["ptr" if "*" in q else "int" for q in params]
-        want = ["ptr" if t is ctypes.c_void_p else "int" for t in argtypes]
-        assert kinds == want, name
+    for lib, functions in hist_kernel._SIGNATURES.items():
+        src = (Path(hist_kernel.__file__).parents[1] / "csrc" /
+               f"{lib}.cu").read_text()
+        for name, argtypes in functions.items():
+            params = re.search(name + r"\(([^)]*)\)",
+                               src).group(1).split(",")
+            kinds = ["ptr" if "*" in q else "int" for q in params]
+            want = ["ptr" if t is ctypes.c_void_p else "int"
+                    for t in argtypes]
+            assert kinds == want, name
 
 
 def test_cuda_entry_refuses_cpu_tensors():
