@@ -421,6 +421,25 @@ Phase 34 drives the flight store, record diffing and the advisor (items
     ``MPITREE_TPU_POLICY_EVIDENCE=off`` records no ``advisor_*``
     decision.
 
+Phase 35 drives the scikit-learn estimator contract on the card (the
+card's machine has no sklearn and no pandas; the port needs neither):
+
+35. sklearn surface: (a) phase 3's fit through a named frame (``Frame``:
+    column names and ``__array__``), the counters around it: the tree
+    equal to phase 3's field for field, ``feature_names_in_`` the 54
+    names, ``max_features_`` 54, ``predict`` on the frame equal to
+    ``predict`` on the bare array, which warns once with sklearn's
+    wording, and reordered columns refused; (b) ``save_model`` and
+    ``load_model`` keep the names and ``max_features_``; the reloaded
+    tree's ``compile_model`` equals ``predict`` and ``predict_proba``, and
+    its count channel through K4 ``sum`` equals ``predict_proba`` bit for
+    bit; (c) a ``scipy.sparse`` CSR matrix, complex data, 1-D ``X`` and
+    ``y=None`` refused with sklearn's types and wording, device memory
+    and every launch count unchanged; (d) all nine estimators, small
+    (``SURFACE_FITS``): ``__sklearn_is_fitted__`` False then True, the
+    JAX package's ``repr``, ``max_features_``, and a pickle round trip
+    predicting equally on the card.
+
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the card's name and power limit, JSON lines of per-shape kernel timings
 (``kernel_shapes``, ``serve_kernel_shapes``, ``fixed_kernel_shapes``), of
@@ -432,7 +451,8 @@ of phases 19-20 (``constrained``, ``persistence``), of phases 21-23
 (``leafwise``, ``fused_rounds``), of phase 27 (``serve_tier``), of phases
 28-29 (``mesh``, ``mesh_ensembles``), of phase 30 (``stream``), of
 phase 31 (``resilience``), of phase 32 (``obs``), of phase 33
-(``memory``), of phase 34 (``flight``) and one
+(``memory``), of phase 34 (``flight``), of phase 35
+(``sklearn_surface``) and one
 ``kernels`` line (with each
 route's launches per engine, and the stream routes at S = 2 of the
 leaf-wise pair) come before it.
@@ -594,6 +614,43 @@ TREE_FIELDS = ("feature", "threshold", "left", "right", "parent", "depth",
 # near 90 s (printed in its log line)
 FLIGHT_REPS = 3
 FLIGHT_AB_ROUNDS = 40
+# Phase 35 (d): every estimator, small, on SURFACE_ROWS rows of covtype
+# (classifiers) or California (regressors): (class, parameters, its repr
+# (the JAX package's, as tests/test_torch_sklearn_surface.py holds the
+# CPU's), max_features_ (None: no max_features parameter, as in JAX)).
+SURFACE_ROWS = 20_000
+SURFACE_FITS = (
+    ("DecisionTreeClassifier",
+     dict(max_depth=6, max_features="sqrt", random_state=0),
+     "DecisionTreeClassifier(max_depth=6, max_features='sqrt', "
+     "random_state=0)", 7),
+    ("ParallelDecisionTreeClassifier", dict(max_depth=6),
+     "ParallelDecisionTreeClassifier(max_depth=6)", 54),
+    ("DecisionTreeRegressor", dict(max_depth=6),
+     "DecisionTreeRegressor(max_depth=6)", 8),
+    ("RandomForestClassifier",
+     dict(n_estimators=4, max_depth=6, random_state=0),
+     "RandomForestClassifier(max_depth=6, n_estimators=4, random_state=0)",
+     54),
+    ("RandomForestRegressor",
+     dict(n_estimators=4, max_depth=6, max_features=0.5, random_state=0),
+     "RandomForestRegressor(max_depth=6, max_features=0.5, n_estimators=4,"
+     "\n                      random_state=0)", 4),
+    ("ExtraTreesClassifier",
+     dict(n_estimators=4, max_depth=6, random_state=0),
+     "ExtraTreesClassifier(max_depth=6, n_estimators=4, random_state=0)", 7),
+    ("ExtraTreesRegressor",
+     dict(n_estimators=4, max_depth=6, random_state=0),
+     "ExtraTreesRegressor(max_depth=6, n_estimators=4, random_state=0)", 8),
+    ("GradientBoostingClassifier",
+     dict(max_iter=5, max_depth=3, random_state=0),
+     "GradientBoostingClassifier(max_depth=3, max_iter=5, random_state=0)",
+     None),
+    ("GradientBoostingRegressor",
+     dict(max_iter=5, max_depth=3, random_state=0),
+     "GradientBoostingRegressor(max_depth=3, max_iter=5, random_state=0)",
+     None),
+)
 
 
 def log(msg: str) -> None:
@@ -5726,6 +5783,228 @@ def phase_flight(X, y, fit_tree, fit_launches, fit_s, forest, Xc, yc,
     return out
 
 
+class Frame:
+    """A DataFrame as the estimators read one (the card's machine has no
+    pandas): column names and the array protocol."""
+
+    def __init__(self, values: np.ndarray, columns):
+        self.values = values
+        self.columns = list(columns)
+
+    def __array__(self, dtype=None, copy=None):
+        return self.values if dtype is None else self.values.astype(dtype)
+
+
+def _refused(what: str, call, typ, wording: str) -> dict:
+    """``call()`` must raise ``typ`` with ``wording`` and leave the card
+    untouched: device memory and every kernel's launch count as before."""
+    from mpitree_tpu_torch.ops import hist_kernel
+    from mpitree_tpu_torch.serving import serve_kernel
+
+    for counts in (hist_kernel.launches, serve_kernel.launches):
+        for k in counts:
+            counts[k] = 0
+    gc.collect()  # no earlier tensor may be freed during the call
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    try:
+        call()
+    except typ as e:
+        if wording not in str(e):
+            raise AssertionError(
+                f"sklearn surface (c) {what}: {type(e).__name__} without "
+                f"{wording!r}: {e}") from e
+        err = type(e).__name__
+    else:
+        raise AssertionError(f"sklearn surface (c) {what}: not refused")
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    launched = sum(hist_kernel.launches.values()) + sum(
+        serve_kernel.launches.values())
+    if after != before or launched:
+        raise AssertionError(
+            f"sklearn surface (c) {what}: the card was touched (memory "
+            f"{before} -> {after} B, {launched} launches)")
+    return dict(error=err, allocated_bytes=after)
+
+
+def phase_sklearn_surface(X, y, Xh, fit_tree) -> dict:
+    """Phase 35: the scikit-learn estimator contract on the card. (a)
+    phase 3's fit through a named frame (feature names and
+    ``max_features_`` recorded, the tree equal to phase 3's, predict-time
+    name checks); (b) its model file keeps the names and
+    ``max_features_``, and the reloaded tree served through K4 equals
+    ``predict``; (c) sparse, complex, 1-D and ``y=None`` input refused
+    before the card is touched; (d) all nine estimators, small:
+    ``__sklearn_is_fitted__``, ``repr``, ``max_features_`` and a pickle
+    round trip that predicts equally on the card."""
+    import pickle
+
+    from scipy import sparse
+
+    import mpitree_tpu_torch.tree as est_classes
+    from mpitree_tpu_torch import compile_model, load_model, save_model
+    from mpitree_tpu_torch.serving import serve_kernel
+    from mpitree_tpu_torch.utils.datasets import california_like, covtype_like
+
+    t_phase = time.perf_counter()
+    out = {}
+    names = [f"f{i:02d}" for i in range(X.shape[1])]
+    # (a) the north-star fit through a named frame
+    clf = est_classes.DecisionTreeClassifier(
+        criterion="entropy", max_depth=DEPTH, max_bins=256, **DEVICE_ONLY)
+    if clf.__sklearn_is_fitted__():
+        raise AssertionError("sklearn surface (a): fitted before fit")
+    wall, launches = _fit_once(clf, Frame(X, names), y)
+    diff = _differing(clf.tree_, fit_tree)
+    if diff:
+        raise AssertionError(
+            f"sklearn surface (a): the frame's tree differs from phase 3's "
+            f"in {diff}")
+    if not (clf.__sklearn_is_fitted__()
+            and clf.feature_names_in_.dtype == object
+            and list(clf.feature_names_in_) == names
+            and clf.max_features_ == X.shape[1] and clf.n_outputs_ == 1
+            and clf.n_classes_ == 7 and clf.n_features_in_ == X.shape[1]):
+        raise AssertionError("sklearn surface (a): fitted attributes "
+                             f"{clf.feature_names_in_[:3]}..., "
+                             f"max_features_ {clf.max_features_}")
+    t0 = time.perf_counter()
+    by_frame = clf.predict(Frame(Xh, names))
+    frame_s = time.perf_counter() - t0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        by_array = clf.predict(Xh)
+    wording = ("X does not have valid feature names, but "
+               "DecisionTreeClassifier was fitted with feature names")
+    if [(w.category, str(w.message)) for w in caught] != [
+            (UserWarning, wording)]:
+        raise AssertionError(
+            f"sklearn surface (a): the bare array warned "
+            f"{[str(w.message) for w in caught]}")
+    if not np.array_equal(by_frame, by_array):
+        raise AssertionError("sklearn surface (a): predict on the frame "
+                             "differs from predict on the array")
+    try:
+        clf.predict(Frame(Xh[:, ::-1], names[::-1]))
+    except ValueError as e:
+        if "feature names should match" not in str(e):
+            raise
+    else:
+        raise AssertionError("sklearn surface (a): reordered columns were "
+                             "not refused")
+    out["a"] = dict(second_s=wall, launches=launches, predict_frame_s=frame_s,
+                    n_nodes=int(clf.tree_.n_nodes),
+                    max_features_=int(clf.max_features_))
+    log(f"sklearn surface (a): phase 3's fit through a {len(names)}-column "
+        f"frame in {wall:.3f} s, tree == phase 3's field for field; "
+        f"launches {launches}; feature_names_in_ {names[0]}..{names[-1]}, "
+        f"max_features_ {clf.max_features_}; predict(frame) == "
+        f"predict(array) on {len(Xh)} rows ({frame_s:.3f} s); the array "
+        f"warned once; reordered columns refused")
+
+    # (b) the model file, reloaded and served through K4
+    out_dir = Path("build") / "chip_smoke_models"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / "sklearn_surface.npz"
+    save_model(clf, path)
+    back = load_model(path)
+    if not (list(back.feature_names_in_) == names
+            and back.feature_names_in_.dtype == object
+            and back.max_features_ == clf.max_features_
+            and not _differing(back.tree_, fit_tree)):
+        raise AssertionError("sklearn surface (b): the reloaded model lost "
+                             "its names, max_features_ or tree")
+    # a single tree serves by the plain gather (as in the JAX package);
+    # its table's count channel goes through K4 ``sum``, as in phase 25 (e)
+    Xq = Xh[:SERVE_SHAPES[2]]
+    for k in serve_kernel.launches:
+        serve_kernel.launches[k] = 0
+    cm = compile_model(back)
+    proba = back.predict_proba(Frame(Xq, names))
+    if not (np.array_equal(cm.predict(Xq), back.predict(Frame(Xq, names)))
+            and np.array_equal(cm.predict_proba(Xq), proba)):
+        raise AssertionError("sklearn surface (b): served answers differ "
+                             "from predict")
+    cols = cm.table.dev_arrays(DEV)[:5]
+    Xd = torch.from_numpy(np.ascontiguousarray(Xq)).to(DEV)
+    kw = dict(n_steps=cm.table.n_steps, agg="sum", n_out=proba.shape[1])
+    got = serve_kernel.traverse(Xd, *cols, cm._values.to(torch.float64),
+                                n_features=Xq.shape[1], **kw)
+    serve_launches = dict(serve_kernel.launches)
+    if serve_launches["traverse"] == 0:
+        raise AssertionError("sklearn surface (b): K4 never launched")
+    if not np.array_equal(got.cpu().numpy(), proba.astype(np.float64)):
+        raise AssertionError("sklearn surface (b): K4 != predict_proba")
+    out["b"] = dict(bytes=path.stat().st_size, serve_launches=serve_launches,
+                    dispatch=cm.dispatch)
+    log(f"sklearn surface (b): {path.stat().st_size} B file keeps "
+        f"feature_names_in_ and max_features_; the reloaded tree's "
+        f"compile_model ({cm.dispatch}) == predict and predict_proba, and "
+        f"its count channel through K4 sum == predict_proba at {len(Xq)} "
+        f"rows, bit for bit (launches {serve_launches})")
+    del cm, back, Xd, got
+
+    # (c) refusals before the card is touched
+    sub, ysub = Xh[:1_000], y[:1_000]
+    refuse = est_classes.DecisionTreeClassifier(max_depth=4)
+    out["c"] = {
+        "sparse": _refused(
+            "csr_matrix", lambda: refuse.fit(sparse.csr_matrix(sub), ysub),
+            TypeError, "Sparse data was passed for X, but dense data is "
+            "required"),
+        "complex": _refused("complex", lambda: refuse.fit(sub + 1j, ysub),
+                            ValueError, "Complex data not supported"),
+        "1d": _refused("1-D X", lambda: refuse.fit(sub[:, 0], ysub),
+                       ValueError, "Reshape your data"),
+        "y_none": _refused("y=None", lambda: refuse.fit(sub, None),
+                           ValueError, "requires y to be passed, but the "
+                           "target y is None"),
+    }
+    log(f"sklearn surface (c): refused with sklearn's types and wording, "
+        f"device memory and launches unchanged: "
+        f"{ {k: v['error'] for k, v in out['c'].items()} }")
+
+    # (d) all nine estimators, small, on the card
+    Xs, ys = covtype_like(SURFACE_ROWS, seed=4)
+    Xr, yr = california_like(SURFACE_ROWS, seed=4)
+    out["d"] = {}
+    for name, params, want_repr, want_mf in SURFACE_FITS:
+        Xd, yd = (Xr, yr) if "Regressor" in name else (Xs, ys)
+        est = getattr(est_classes, name)(**params)
+        if est.__sklearn_is_fitted__() or repr(est) != want_repr:
+            raise AssertionError(
+                f"sklearn surface (d) {name}: fitted before fit, or repr "
+                f"{repr(est)!r}")
+        t0 = time.perf_counter()
+        est.fit(Xd, yd)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        _on_card(est, name)
+        mf = getattr(est, "max_features_", None)
+        if not (est.__sklearn_is_fitted__() and mf == want_mf
+                and est.n_outputs_ == 1
+                and not hasattr(est, "feature_names_in_")):
+            raise AssertionError(
+                f"sklearn surface (d) {name}: fitted attributes "
+                f"(max_features_ {mf}, want {want_mf})")
+        again = pickle.loads(pickle.dumps(est))
+        got, want = again.predict(Xd[:SERVE_SHAPES[2]]), est.predict(
+            Xd[:SERVE_SHAPES[2]])
+        if got.dtype != want.dtype or not np.array_equal(got, want):
+            raise AssertionError(
+                f"sklearn surface (d) {name}: the unpickled estimator "
+                "predicts otherwise")
+        out["d"][name] = dict(fit_s=fit_s, max_features_=mf)
+    log(f"sklearn surface (d): nine estimators fitted on the card, "
+        f"__sklearn_is_fitted__ False -> True, repr, max_features_ and a "
+        f"pickle round trip as on the CPU; fit seconds "
+        f"{ {k: round(v['fit_s'], 3) for k, v in out['d'].items()} }")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"sklearn surface: {out['seconds']:.3f} s")
+    return out
+
+
 def phase_profile(name: str, work, out_dir: Path) -> None:
     """Run ``work()`` once more under torch.profiler: device time by kernel
     and the device's busy share of the wall-clock; the table goes to
@@ -5980,6 +6259,8 @@ def main() -> int:
     flight = phase_flight(X, y, fit_tree, launches, fit_s, forest, Xc, yc,
                           card)
     mark("34 flight")
+    surface = phase_sklearn_surface(X, y, Xh, fit_tree)
+    mark("35 sklearn surface")
     if args.profile:
         profile_all(X, y, forest, Xh, args.profile)
 
@@ -6032,6 +6313,7 @@ def main() -> int:
                 "a fit": launches[route],
                 "d leaf-wise routed": flight["d"]["forced"]["engine"][
                     "launches"].get(route, 0)},
+            sklearn_surface_launches=surface["a"]["launches"][route],
         ))
     for form, (agg, chan) in SERVE_LINE.items():
         row = next(r for r in serve_shapes if r["kernel"] == form
@@ -6067,6 +6349,8 @@ def main() -> int:
             memory_serve_launches=memory["a"]["served_rf"]["launches"].get(
                 form, 0),
             flight_serve_launches=flight["a"]["serve_launches"].get(form, 0),
+            sklearn_surface_serve_launches=surface["b"][
+                "serve_launches"][form],
         ))
     for key, S in FIXED_LINE.items():
         route = key[:-len("_fixed")]
@@ -6199,6 +6483,7 @@ def main() -> int:
     log(json.dumps({"obs": observability}))
     log(json.dumps({"memory": memory}))
     log(json.dumps({"flight": flight}, default=str))
+    log(json.dumps({"sklearn_surface": surface}))
     log(json.dumps({"phase_end_s": clock}))
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -143,6 +143,8 @@ from mpitree_tpu_torch.resilience.recovery import OomRescue, SnapshotSlot
 from mpitree_tpu_torch.resilience.retry import retry_device, sync
 from mpitree_tpu_torch.serving.tables import TreeList
 from mpitree_tpu_torch.utils.validation import (
+    feature_names_of,
+    record_sklearn_attributes,
     resolve_min_samples_leaf,
     validate_fit_data,
     validate_fit_targets,
@@ -360,17 +362,18 @@ class _BaseGradientBoosting(EstimatorBase):
             device = obs.device
             y_t, classes = validate_fit_targets(res.y, task=task)
             sw = stream_weight(res, sample_weight)
-            F = binned.n_features
+            F, names = binned.n_features, None
         else:
             mesh = fit_mesh(self, False)
             device = (resolve_device(self.device) if mesh is None
                       else mesh.lead)
+            names = feature_names_of(X)
             X, y_t, classes = validate_fit_data(X, y, task=task)
             sw = validate_sample_weight(sample_weight, X.shape[0])
             F = X.shape[1]
         self.n_features_ = F
         self.n_features_in_ = F
-        self.n_outputs_ = 1
+        record_sklearn_attributes(self, names, F)
         if task == "classification":
             if len(classes) < 2:
                 raise ValueError(
@@ -847,10 +850,12 @@ class GradientBoostingClassifier(ClassifierBase, _BaseGradientBoosting):
         return raw[:, 0] if raw.shape[1] == 1 else raw
 
     def predict_proba(self, X):
-        return self._loss().proba(self._raw_predict(X))
+        raw = self._raw_predict(X)  # raises first when not fitted
+        return self._loss().proba(raw)
 
     def predict(self, X):
-        return self.classes_[self.predict_proba(X).argmax(axis=1)]
+        proba = self.predict_proba(X)  # raises first when not fitted
+        return self.classes_[proba.argmax(axis=1)]
 
     def staged_predict_proba(self, X):
         loss = self._loss()

@@ -202,6 +202,7 @@ def streamed_fit(est, X, dataset, y=None, sample_weight=None, *,
         mono_cst=mono, mesh=mesh, what=f"{type(est).__name__}.fit streamed",
     )
     finish_report(est, obs, tree=est.tree_)
+    # no feature names: a stream has no columns (any earlier ones go)
     if task == "classification":
         est._set_fitted(classes, F)
     else:

@@ -147,19 +147,19 @@ from mpitree_tpu_torch.utils.monotonic import (
 from mpitree_tpu_torch.utils.profiling import debug_checks_enabled
 from mpitree_tpu_torch.utils.pruning import ccp_prune, pruning_path_for
 from mpitree_tpu_torch.utils.validation import (
+    NotFittedError,
     apply_class_weight,
+    feature_names_of,
     min_child_weight,
     min_decrease_scaled,
+    record_sklearn_attributes,
     resolve_refine,
+    sklearn_flavoured,
     validate_fit_data,
     validate_max_leaf_nodes,
     validate_predict_data,
     validate_sample_weight,
 )
-
-
-class NotFittedError(ValueError, AttributeError):
-    """Raised by predict-time methods before ``fit`` (sklearn's contract)."""
 
 
 def host_tier(backend) -> bool:
@@ -337,16 +337,98 @@ def predict_mesh(est):
     return resolve_mesh(device=est.device, n_devices=est.n_devices)
 
 
+def _value_repr(v) -> str:
+    """A parameter's value as sklearn's estimator printer writes it: dict
+    items sorted by key, lists and tuples item by item, else ``repr``."""
+    if isinstance(v, dict):
+        items = sorted(v.items(), key=lambda kv: repr(kv[0]))
+        return "{" + ", ".join(f"{_value_repr(k)}: {_value_repr(x)}"
+                               for k, x in items) + "}"
+    if isinstance(v, (list, tuple)):
+        body = ", ".join(_value_repr(x) for x in v)
+        if isinstance(v, list):
+            return f"[{body}]"
+        return f"({body},)" if len(v) == 1 else f"({body})"
+    return repr(v)
+
+
 class EstimatorBase(ReportMixin):
-    """The estimators' shared surface without sklearn: ``get_params`` and
-    ``set_params`` read the ``__init__`` signature; ``dump_report`` writes
-    ``fit_report_`` (``obs/record.ReportMixin``)."""
+    """The estimators' shared surface, sklearn's estimator protocol without
+    sklearn: ``get_params`` and ``set_params`` read the ``__init__``
+    signature; ``__sklearn_tags__`` (imports ``sklearn.utils``, which only
+    sklearn calls), ``_estimator_type`` (older sklearn),
+    ``__sklearn_is_fitted__`` and sklearn's ``repr``; ``dump_report`` writes
+    ``fit_report_`` (``obs/record.ReportMixin``). ``_repr_html_`` and
+    metadata routing (``set_fit_request``) are not part of it."""
 
     @classmethod
     def _param_names(cls) -> list:
         sig = inspect.signature(cls.__init__)
         return sorted(p.name for p in sig.parameters.values()
                       if p.name != "self")
+
+    @property
+    def _estimator_type(self) -> str:
+        return {"classification": "classifier",
+                "regression": "regressor"}[self._task]
+
+    def __sklearn_tags__(self):
+        """sklearn's tags of the JAX counterpart (``BaseEstimator`` with
+        ``ClassifierMixin`` or ``RegressorMixin``): a supervised estimator
+        of dense 2-D numeric X and one 1-D target."""
+        from sklearn.utils import (
+            ClassifierTags,
+            InputTags,
+            RegressorTags,
+            Tags,
+            TargetTags,
+        )
+
+        classifier = self._estimator_type == "classifier"
+        return Tags(
+            estimator_type=self._estimator_type,
+            target_tags=TargetTags(required=True),
+            classifier_tags=ClassifierTags() if classifier else None,
+            regressor_tags=None if classifier else RegressorTags(),
+            input_tags=InputTags(),
+        )
+
+    def __sklearn_is_fitted__(self) -> bool:
+        try:
+            self._check_fitted()
+        except NotFittedError:
+            return False
+        return True
+
+    def __repr__(self) -> str:
+        """sklearn's ``Name(param=value, ...)``: the parameters that differ
+        from the constructor's defaults, sorted, on one line up to 80
+        characters, else wrapped as sklearn's compact printer wraps them
+        (``sklearn/utils/_pprint.py``)."""
+        name = type(self).__name__
+        defaults = {p.name: p.default for p in inspect.signature(
+            type(self).__init__).parameters.values()}
+        reps = [f"{k}={_value_repr(v)}" for k, v in self.get_params().items()
+                if repr(v) != repr(defaults[k])]
+        line = f"{name}({', '.join(reps)})"
+        if len(line) <= 80:
+            return line
+        indent = len(name) + 1
+        out, delim, delimnl = [name, "("], "", ",\n" + " " * indent
+        width = max_width = 80 - indent + 1
+        for i, rep in enumerate(reps):
+            if i == len(reps) - 1:  # room for the closing parenthesis
+                width, max_width = width - 1, max_width - 1
+            w = len(rep) + 2
+            if width < w:
+                width = max_width
+                delim = delimnl if delim else delim
+            out += [delim, rep]
+            if width >= w:
+                width, delim = width - w, ", "
+            else:  # longer than a line: the next one starts a line
+                delim = delimnl
+        return "".join(out) + ")"
 
     def get_params(self, deep=True) -> dict:
         return {k: getattr(self, k) for k in self._param_names()}
@@ -364,7 +446,7 @@ class EstimatorBase(ReportMixin):
         return self
 
     def _not_fitted(self):
-        return NotFittedError(
+        return sklearn_flavoured(NotFittedError)(
             f"This {type(self).__name__} instance is not fitted yet. "
             "Call 'fit' with appropriate arguments before using this "
             "estimator."
@@ -384,12 +466,15 @@ class ClassifierBase(EstimatorBase):
             return float(hit.mean())
         return float(np.average(hit, weights=np.asarray(sample_weight)))
 
-    def _set_fitted(self, classes, n_features: int) -> None:
+    def _set_fitted(self, classes, n_features: int, names=None) -> None:
+        """The fitted surface: ``classes_``, the feature counts and
+        :func:`record_sklearn_attributes`' (``names``: the fit's
+        ``feature_names_in_``, None for a fit without names)."""
         self.classes_ = np.asarray(classes)
-        self.n_classes_ = len(self.classes_)
         self.n_features_ = int(n_features)
         self.n_features_in_ = int(n_features)
-        self.n_outputs_ = 1
+        record_sklearn_attributes(self, names, n_features,
+                                  n_classes=len(self.classes_))
 
 
 class DecisionTreeClassifier(ClassifierBase):
@@ -447,6 +532,7 @@ class DecisionTreeClassifier(ClassifierBase):
         host = host_tier(self.backend)
         mesh = fit_mesh(self, host)
         device = resolve_device(self.device) if mesh is None else mesh.lead
+        names = feature_names_of(X)
         X, y_enc, classes = validate_fit_data(X, y)
         mono = validate_monotonic_cst(
             self.monotonic_cst, X.shape[1], task="classification",
@@ -501,7 +587,7 @@ class DecisionTreeClassifier(ClassifierBase):
                                             binning=self.binning),
         )
         finish_report(self, obs, tree=self.tree_)
-        self._set_fitted(classes, X.shape[1])
+        self._set_fitted(classes, X.shape[1], names)
         return self
 
     def cost_complexity_pruning_path(self, X, y, sample_weight=None):

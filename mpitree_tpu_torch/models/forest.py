@@ -173,6 +173,7 @@ from mpitree_tpu_torch.utils.monotonic import (
 )
 from mpitree_tpu_torch.utils.validation import (
     apply_class_weight,
+    feature_names_of,
     min_child_weight,
     min_decrease_scaled,
     resolve_refine,
@@ -704,6 +705,7 @@ class RandomForestClassifier(ClassifierBase, _BaseForest):
             self._finish_fit()
             res.close()
             return self
+        names = feature_names_of(X)
         X, y_enc, classes = validate_fit_data(X, y)
         sw = apply_class_weight(
             self.class_weight, y_enc, classes,
@@ -714,7 +716,7 @@ class RandomForestClassifier(ClassifierBase, _BaseForest):
             n_classes=len(classes), sample_weight=sw, trace_to=trace_to,
         )
         self._mono_p0 = None  # predict_proba's clipped-fraction cache
-        self._set_fitted(classes, X.shape[1])
+        self._set_fitted(classes, X.shape[1], names)
         if self.oob_score:
             self._oob(X, y_enc, len(classes))
         self._finish_fit()
@@ -855,6 +857,7 @@ class RandomForestRegressor(RegressorBase, _BaseForest):
             self._finish_fit()
             res.close()
             return self
+        names = feature_names_of(X)
         X, y64, _ = validate_fit_data(X, y, task="regression")
         sw = validate_sample_weight(sample_weight, X.shape[0])
         self._y_mean = float(y64.mean()) if len(y64) else 0.0
@@ -863,7 +866,7 @@ class RandomForestRegressor(RegressorBase, _BaseForest):
             criterion="mse", refit_targets=y64, sample_weight=sw,
             trace_to=trace_to,
         )
-        self._set_fitted(X.shape[1])
+        self._set_fitted(X.shape[1], names)
         if self.oob_score:
             self._oob(X, y64)
         self._finish_fit()

@@ -69,8 +69,10 @@ from mpitree_tpu_torch.utils.monotonic import validate_monotonic_cst
 from mpitree_tpu_torch.utils.profiling import debug_checks_enabled
 from mpitree_tpu_torch.utils.pruning import pruning_path_for
 from mpitree_tpu_torch.utils.validation import (
+    feature_names_of,
     min_child_weight,
     min_decrease_scaled,
+    record_sklearn_attributes,
     resolve_refine,
     validate_fit_data,
     validate_max_leaf_nodes,
@@ -98,10 +100,12 @@ class RegressorBase(EstimatorBase):
             return 1.0 if resid == 0.0 else 0.0
         return 1.0 - resid / total
 
-    def _set_fitted(self, n_features: int) -> None:
+    def _set_fitted(self, n_features: int, names=None) -> None:
+        """The feature counts and :func:`record_sklearn_attributes`'
+        (``names``: the fit's ``feature_names_in_``, or None)."""
         self.n_features_ = int(n_features)
         self.n_features_in_ = int(n_features)
-        self.n_outputs_ = 1
+        record_sklearn_attributes(self, names, n_features)
 
 
 class DecisionTreeRegressor(RegressorBase):
@@ -154,6 +158,7 @@ class DecisionTreeRegressor(RegressorBase):
         host = host_tier(self.backend)
         mesh = fit_mesh(self, host)
         device = resolve_device(self.device) if mesh is None else mesh.lead
+        names = feature_names_of(X)
         X, y64, _ = validate_fit_data(X, y, task="regression")
         mono = validate_monotonic_cst(self.monotonic_cst, X.shape[1],
                                       task="regression")
@@ -209,7 +214,7 @@ class DecisionTreeRegressor(RegressorBase):
                                             binning=self.binning),
         )
         finish_report(self, obs, tree=self.tree_)
-        self._set_fitted(X.shape[1])
+        self._set_fitted(X.shape[1], names)
         return self
 
     def cost_complexity_pruning_path(self, X, y, sample_weight=None):

@@ -4,7 +4,8 @@ in the JAX package's format.
 Counterpart of ``mpitree_tpu/utils/serialize.py``, writing and reading the
 same file: a JSON ``__header__`` (``"format": "mpitree_tpu-model"``,
 ``"version": 1``, the class name, the constructor parameters, the scalar
-fitted attributes of ``_SCALAR_ATTRS`` and ``n_trees``), the arrays
+fitted attributes of ``_SCALAR_ATTRS``, ``feature_names_in_`` of a fit
+with feature names, and ``n_trees``), the arrays
 ``tree{i}/<field>`` of every ``TreeArrays`` field, ``classes_`` and, for a
 gradient-boosted ensemble, its baseline margins ``_baseline_raw``
 (``:121-122``). A file
@@ -119,6 +120,9 @@ def save_model(estimator, path) -> None:
         "attrs": {a: getattr(estimator, a) for a in _SCALAR_ATTRS
                   if hasattr(estimator, a)},
     }
+    if hasattr(estimator, "feature_names_in_"):  # :114-117
+        header["attrs"]["feature_names_in_"] = [
+            str(c) for c in estimator.feature_names_in_]
     arrays: dict = {}
     if hasattr(estimator, "classes_"):
         arrays["classes_"] = np.asarray(estimator.classes_)

@@ -1,36 +1,142 @@
 """Input validation for the estimators, without sklearn.
 
-Counterpart of the subset of ``mpitree_tpu/utils/validation.py`` the
-estimators use. The JAX package validates with sklearn's ``check_X_y``/
-``check_array`` and weighs classes with sklearn's
-``compute_sample_weight``; the port runs where sklearn is not installed, so
-what it needs is written here: numeric 2-D X with at least one row and
-one feature, finite values, 1-D y of matching length with discrete labels,
-encoded against ``classes_`` (for ``0..C-1`` integer labels the encoding is
-the identity, as in the reference), or finite float64 regression targets;
-``class_weight`` as sklearn computes it.
+Counterpart of ``mpitree_tpu/utils/validation.py``. The JAX package
+validates with sklearn's ``check_X_y``/``check_array`` and weighs classes
+with sklearn's ``compute_sample_weight``; the port runs where sklearn is
+not installed, so what it needs is written here, with sklearn's wording
+and exception types: numeric 2-D X with at least one row and one
+feature, finite values (sparse and complex input refused, 1-D X told to
+reshape), 1-D y of matching length (a column vector is raveled with a
+``DataConversionWarning``) with discrete labels, encoded against
+``classes_`` (for ``0..C-1`` integer labels the encoding is the identity,
+as in the reference), or finite float64 regression targets;
+``class_weight`` as sklearn computes it; the fitted attributes
+``feature_names_in_``, ``n_outputs_``, ``n_classes_`` and
+``max_features_`` (:func:`record_sklearn_attributes`) and the predict-time
+feature-name checks.
+
+:class:`NotFittedError` and :class:`DataConversionWarning` are the port's
+own. Where the caller has imported sklearn, :func:`sklearn_flavoured`
+raises or warns with a subclass of both the port's class and sklearn's, so
+sklearn's checks recognise it; the port never imports sklearn itself.
 """
 
 from __future__ import annotations
 
 import numbers
+import sys
+import warnings
 
 import numpy as np
 
 from mpitree_tpu_torch import native
+from mpitree_tpu_torch.ops.sampling import n_subspace_features
+
+
+class NotFittedError(ValueError, AttributeError):
+    """Raised by predict-time methods before ``fit`` (sklearn's contract)."""
+
+
+class DataConversionWarning(UserWarning):
+    """Warns that input data was converted: a column-vector ``y``."""
+
+
+_FLAVOURED: dict = {}
+
+
+def sklearn_flavoured(cls):
+    """``cls``, or, when ``sklearn.exceptions`` is already imported, one
+    subclass of both ``cls`` and sklearn's class of its name (made once,
+    then cached), so that sklearn's ``except`` clauses and warning filters
+    recognise what the port raises. Never imports sklearn."""
+    base = getattr(sys.modules.get("sklearn.exceptions"), cls.__name__,
+                   None)
+    if not isinstance(base, type) or issubclass(cls, base):
+        return cls
+    key = (cls, base)
+    if key not in _FLAVOURED:
+        _FLAVOURED[key] = type(cls.__name__, (cls, base), {
+            "__module__": cls.__module__, "__doc__": cls.__doc__})
+    return _FLAVOURED[key]
+
+
+def feature_names_of(X):
+    """sklearn's ``feature_names_in_`` source, duck-typed on ``.columns``
+    (a DataFrame's): all-string column names as an object array, None
+    otherwise; mixed string and non-string names raise sklearn's
+    TypeError."""
+    cols = getattr(X, "columns", None)
+    if cols is None:
+        return None
+    names = np.asarray(cols, dtype=object)
+    str_mask = [isinstance(c, str) for c in names]
+    if all(str_mask):
+        return names
+    if any(str_mask):
+        raise TypeError(
+            "Feature names are only supported if all input features have "
+            "string names, but your input has mixed types."
+        )
+    return None
+
+
+def record_sklearn_attributes(est, names, n_features, *,
+                              n_classes=None) -> None:
+    """The sklearn fitted attributes, as the JAX package's
+    ``record_sklearn_attributes`` (``:73``) sets them: ``feature_names_in_``
+    on a fit with names, deleted on one without; ``n_outputs_`` (always
+    1); ``n_classes_`` (classifiers); and, for estimators with a
+    ``max_features`` parameter, ``max_features_``, its grammar resolved to
+    a count (``ops/sampling.n_subspace_features``)."""
+    if names is not None:
+        est.feature_names_in_ = names
+    elif hasattr(est, "feature_names_in_"):
+        del est.feature_names_in_
+    est.n_outputs_ = 1
+    if n_classes is not None:
+        est.n_classes_ = n_classes
+    if hasattr(est, "max_features"):
+        est.max_features_ = n_subspace_features(est.max_features, n_features)
+
+
+def _is_sparse(X) -> bool:
+    """A scipy sparse matrix or array, known by its methods (scipy is not
+    imported)."""
+    return (isinstance(getattr(X, "format", None), str)
+            and callable(getattr(X, "toarray", None))
+            and callable(getattr(X, "tocsr", None)))
 
 
 def _as_float_matrix(X, what: str = "X") -> np.ndarray:
+    if _is_sparse(X):
+        raise TypeError(
+            "Sparse data was passed for X, but dense data is required. "
+            "Use '.toarray()' to convert to a dense numpy array."
+        )
     arr = np.asarray(X)
+    if arr.dtype.kind == "c":
+        raise ValueError(f"Complex data not supported\n{arr}\n")
     if arr.dtype == object or arr.dtype.kind in "USV":
         try:
             arr = arr.astype(np.float64)
-        except (TypeError, ValueError) as e:
+        except ValueError as e:
             raise ValueError(
+                f"{what} must be numeric; got dtype {arr.dtype} ({e})"
+            ) from e
+        except TypeError as e:  # a cell float() refuses: sklearn's type
+            raise TypeError(
                 f"{what} must be numeric; got dtype {arr.dtype} ({e})"
             ) from e
     elif arr.dtype.kind not in "biuf":
         raise ValueError(f"{what} must be numeric; got dtype {arr.dtype}")
+    if arr.ndim in (0, 1):
+        raise ValueError(
+            f"Expected 2D array, got "
+            f"{'scalar' if arr.ndim == 0 else '1D'} array instead:\n"
+            f"array={arr}.\nReshape your data either using "
+            "array.reshape(-1, 1) if your data has a single feature or "
+            "array.reshape(1, -1) if it contains a single sample."
+        )
     if arr.ndim != 2:
         raise ValueError(
             f"Expected 2D array, got {arr.ndim}D array instead: {what} has "
@@ -53,12 +159,30 @@ def _as_float_matrix(X, what: str = "X") -> np.ndarray:
 
 def validate_fit_data(X, y, *, task: str = "classification"):
     """Returns (X float32 (N, F), y, classes_): y encoded int32 (N,) and
-    the classes, or for ``task="regression"`` float64 targets and None."""
+    the classes, or for ``task="regression"`` float64 targets and None.
+    ``y=None`` raises, and a column vector ``(N, 1)`` is raveled with a
+    ``DataConversionWarning``, as sklearn's ``check_X_y`` does."""
+    if y is None:
+        raise ValueError(
+            "estimator requires y to be passed, but the target y is None"
+        )
     X = _as_float_matrix(X)
     y = np.asarray(y)
     if y.ndim == 2 and y.shape[1] == 1:
+        warnings.warn(
+            sklearn_flavoured(DataConversionWarning)(
+                "A column-vector y was passed when a 1d array was "
+                "expected. Please change the shape of y to (n_samples, ), "
+                "for example using ravel()."),
+            stacklevel=3,
+        )
         y = y[:, 0]
-    if y.ndim == 1 and y.shape[0] != X.shape[0]:
+    if y.ndim != 1:
+        raise ValueError(
+            f"y should be a 1d array, got an array of shape {y.shape} "
+            "instead."
+        )
+    if y.shape[0] != X.shape[0]:
         raise ValueError(
             "Found input variables with inconsistent numbers of samples: "
             f"[{X.shape[0]}, {y.shape[0]}]"
@@ -256,12 +380,38 @@ def min_decrease_scaled(min_impurity_decrease, sample_weight, n_samples):
 
 
 def validate_predict_data(X, estimator):
-    """Numeric finite (N, F) float32 with the fitted feature count."""
+    """Numeric finite (N, F) float32 with the fitted feature count, after
+    sklearn's feature-name checks (``mpitree_tpu/utils/validation.py:
+    210-257``): names on both sides that differ raise ValueError, names on
+    one side only warn (UserWarning), mixed-type names raise TypeError."""
+    name = type(estimator).__name__
+    fitted_names = getattr(estimator, "feature_names_in_", None)
+    pred_names = feature_names_of(X)
+    if fitted_names is not None and pred_names is not None:
+        if list(pred_names) != list(fitted_names):
+            raise ValueError(
+                "The feature names should match those that were passed "
+                "during fit.\n"
+                f"Feature names seen at fit time: {list(fitted_names)}\n"
+                f"Feature names seen now: {list(pred_names)}"
+            )
+    elif fitted_names is not None:
+        warnings.warn(
+            f"X does not have valid feature names, but {name} was fitted "
+            "with feature names",
+            stacklevel=2,
+        )
+    elif pred_names is not None:
+        warnings.warn(
+            f"X has feature names, but {name} was fitted without feature "
+            "names",
+            stacklevel=2,
+        )
     X = _as_float_matrix(X)
     n_features = estimator.n_features_
     if X.shape[1] != n_features:
         raise ValueError(
-            f"X has {X.shape[1]} features, but {type(estimator).__name__} "
+            f"X has {X.shape[1]} features, but {name} "
             f"is expecting {n_features} features as input."
         )
     return X
