@@ -18,10 +18,11 @@ host's cores. Every phase runs the default engine, which is the fused one
 for boosting; phase 24 runs the levelwise engine beside it:
 
 1. build: compile every ``mpitree_tpu_torch/csrc/*.cu`` (``histogram.cu``,
-   ``fixed_hist.cu``, ``traverse.cu``) with ``nvcc`` for ``sm_90a`` into
-   ``build/``, one ``nvcc`` per source, started together, and check in
-   their SASS that the fixed-point tiles add with native ``ATOMS.ADD`` and
-   no compare-and-swap loop; then the native split sweep
+   ``fixed_hist.cu``, ``traverse.cu``, ``margin.cu``) with ``nvcc`` for
+   ``sm_90a`` into ``build/``, one ``nvcc`` per source, started together,
+   and check in their SASS that the fixed-point tiles add with native
+   ``ATOMS.ADD`` and no compare-and-swap loop; print ``nvcc -Xptxas -v``'s
+   registers, stack and spills of the margin body; then the native split sweep
    (``mpitree_tpu_torch/native/split_kernel.cpp``) with ``g++`` into
    ``build/native/``.
 2. kernels: bin ``covtype_like(581_012, seed=0)`` (256 bins) on the card;
@@ -54,7 +55,9 @@ for boosting; phase 24 runs the levelwise engine beside it:
 6. serve kernels: on that forest's flat table, the traversal kernel K4 in
    ``sum`` over the served channel (per-leaf normalized counts), ``norm``
    (counts), ``sum`` (7 and 12 non-integer float64 channels) and
-   ``percls`` (7 and 3 columns; 3 does not divide the 50 trees), and the
+   ``percls`` (7 and 3 columns; 3 does not divide the 50 trees; a pack
+   made once, which these large trees leave to the general body, and the
+   margin body of ``csrc/margin.cu`` forced and timed beside it), and the
    quantized kernel K5 in ``sum`` and ``percls`` are held ``torch.equal``
    to their plain versions at 1, 64, 4,096 and 500,000 rows of
    ``covtype_like(500_000, seed=3)``, and timed beside their bound and
@@ -177,11 +180,17 @@ trees on the card through the fixed-point routes) and its serving:
     20_000, seed=4)``: two card fits and one ``device="cpu"`` fit,
     identical trees and bit-for-bit margins.
 23. boosted serving and files: ``compile_model`` of phase 21's two models
-    (kind ``margin``): K4 ``percls`` from the baseline row equals
-    ``decision_function`` / ``predict`` bit for bit at 1, 64 and 4,096
-    rows, K5 (``quantize="int8"``) within its report; both kernels alone
-    at 4,096 rows equal their plain versions, timed beside their bound;
-    ``save_model``/``load_model`` of both, answers bit for bit.
+    (kind ``margin``): K4 ``percls`` from the baseline row, through the
+    margin body (``csrc/margin.cu``; its counters must launch, the general
+    body's not), equals ``decision_function`` / ``predict`` bit for bit at
+    1, 64 and 4,096 rows, K5 (``quantize="int8"``) within its report; both
+    kernels alone at 1, 64, 4,096 and 500,000 rows (``covtype_like(
+    500_000, seed=3)``, phase 13's matrix) equal their plain versions in
+    the margin body and in the general one, the two timed in turns beside
+    the bound; the classifier's 700 trees into one column (several chunks)
+    and boosted regressors of depth 8 to 12 (``SWEEP_TREES``) in both
+    bodies at 4,096 and 500,000 rows, where ``MARGIN_MEAN_NODES`` splits
+    them; ``save_model``/``load_model`` of both, answers bit for bit.
 
 Phase 24 compares the engines:
 
@@ -223,7 +232,9 @@ boosting rounds:
     K = 8 within 2e-4 of K = 1's, or else the first divergent node a
     near tie of the host loop's own Newton costs (2**-18 relative) with
     the margins before it within 2e-4; the K = 8 ensembles served as
-    ``margin`` through K4 (bit for bit) and K5 (within its report).
+    ``margin`` through K4 (bit for bit) and K5 (within its report), in the
+    margin body, which is timed in turns beside the general body at 4,096
+    rows.
 27. serve tier: (a) phase 5's forest as ``rf`` and ``rf8``; phase 7's
     500,000 rows in 4,096-row batches through ``StreamStage`` at depths
     1, 2 and 4 and a loop of synchronous ``raw`` (wall, rows/s): ``rf``
@@ -522,6 +533,12 @@ REQUESTS = ((1, 300), (64, 150), (4_096, 30))
 # the serving kernels' kernels-line entries: launch counter -> (mode,
 # channel) the served path runs, at the 4,096-row bucket
 SERVE_LINE = {"traverse": ("sum", "proba"), "traverse_q": ("sum", "qproba")}
+# each form's margin body (csrc/margin.cu): its launch counter
+MARGIN_LINE = {"traverse": "margin", "traverse_q": "margin_q"}
+# phase 23's forced margin tilings, beside the planner's
+MARGIN_TILINGS = (dict(stage=False), dict(stage=True),
+                  dict(rows_per_block=64), dict(rows_per_block=128),
+                  dict(rows_per_block=256))
 PARITY_FIELDS = ("feature", "threshold", "left", "right", "count",
                  "n_node_samples")
 # Phases 12-15: BASELINE config 4's regressor on California-shaped data at
@@ -581,6 +598,9 @@ LEAF_BUDGET = 255
 NEAR_TIE = 2.0 ** -18
 LEAF_IDENTITY = dict(max_depth=12, max_leaf_nodes=4096)
 BOOST_LEAVES = 31
+# phase 23's depth sweep: (max_depth, max_leaf_nodes) of boosted
+# regressors past phase 21's depth 6, the last one deep but narrow
+SWEEP_TREES = ((8, None), (10, None), (12, None), (12, BOOST_LEAVES))
 FUSED_K = 8
 # Phase 27: phase 7's 500,000 rows in the 4,096-row bucket's batches
 # through StreamStage; the scheduler's traffic: single-row requests, 80%
@@ -741,12 +761,57 @@ def sass_atomics() -> dict:
     return {k: dict(v) for k, v in out.items()}
 
 
-def phase_build() -> None:
+def margin_ptxas() -> dict:
+    """``nvcc -Xptxas -v`` of ``csrc/margin.cu`` (the build's own flags),
+    per instantiation: ``K4`` (``margin_kernel<double, double>``) and
+    ``K5`` (``<signed char, int>``) -> registers, stack frame, spill
+    stores and loads, static shared memory (bytes) and barriers."""
+    import re
+
+    from mpitree_tpu_torch import _build
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so = _build.BUILD_DIR / f"margin-ptxas.{os.getpid()}.so"
+    try:
+        out = subprocess.run(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+             str(so), str(_build.CSRC_DIR / "margin.cu")],
+            capture_output=True, text=True, timeout=600, check=True)
+    finally:
+        so.unlink(missing_ok=True)
+    info, cur = {}, None
+    for line in (out.stdout + out.stderr).splitlines():
+        m = re.search(r"Compiling entry function '\S*margin_kernelI(\w)", line)
+        if m:
+            cur = {"d": "K4", "a": "K5"}.get(m.group(1))
+            info[cur] = {}
+            continue
+        if cur is None:
+            continue
+        for key, pat in (("stack_bytes", r"(\d+) bytes stack frame"),
+                         ("spill_stores", r"(\d+) bytes spill stores"),
+                         ("spill_loads", r"(\d+) bytes spill loads"),
+                         ("registers", r"Used (\d+) registers"),
+                         ("smem_static", r"(\d+) bytes smem"),
+                         ("barriers", r"used (\d+) barriers")):
+            g = re.search(pat, line)
+            if g:
+                info[cur][key] = int(g.group(1))
+    if set(info) != {"K4", "K5"} or any(
+            "registers" not in v for v in info.values()):
+        raise AssertionError(f"ptxas -v of csrc/margin.cu not read: {info}")
+    return info
+
+
+def phase_build() -> dict:
     from mpitree_tpu_torch import _build, native
 
     t0 = time.perf_counter()
     names = _build.build_all()
     log(f"sass atomics: {json.dumps(sass_atomics())}")
+    ptxas = margin_ptxas()
+    log(f"ptxas -v, csrc/margin.cu (the margin body; dynamic shared "
+        f"memory is the planner's): {json.dumps(ptxas)}")
     t1 = time.perf_counter()
     if native.lib() is None:
         raise AssertionError(
@@ -757,6 +822,7 @@ def phase_build() -> None:
         f"{_build.nvcc_path()}); native split sweep in "
         f"{time.perf_counter() - t1:.3f} s ({shutil.which('g++')}), loaded "
         f"{native.library_path()}")
+    return ptxas
 
 
 def _slots(rng, N: int, S: int, share: int = 1) -> np.ndarray:
@@ -1336,6 +1402,13 @@ def phase_serve_kernels(forest, Xbig) -> list:
         ("traverse_q", "sum", "qproba", C),
         ("traverse_q", "percls", "qproba", 3),
     ]
+    # percls passes a pack made once, as a compiled model makes it: the
+    # margin body (csrc/margin.cu) runs where the pack serves (small
+    # trees), else the general body; both bodies are timed
+    packs = {(form, chan, n_out): serve_kernel.pack_margin(
+        *(k4 if form == "traverse" else k5)[0],
+        state.qvals if chan == "qproba" else channels[chan], n_out=n_out,
+        form=form) for form, agg, chan, n_out in cases if agg == "percls"}
     rows = []
     for N in SERVE_SHAPES:
         X = torch.from_numpy(np.ascontiguousarray(Xbig[:N])).to(dev)
@@ -1352,9 +1425,11 @@ def phase_serve_kernels(forest, Xbig) -> list:
             else:
                 ref = serve_kernel.traverse_q_reference
                 run = serve_kernel.traverse_q
+            pack = packs.get((form, chan, n_out))
+            margin = pack is not None and pack.serves
             want = ref(X, *tcols, values, **kw)
             got = run(X, *tcols, values, n_features=X.shape[1], record=rec,
-                      **kw)
+                      pack=pack, **kw)
             torch.cuda.synchronize()
             err = float((got - want).abs().max().item())
             if not torch.equal(got, want):
@@ -1364,20 +1439,27 @@ def phase_serve_kernels(forest, Xbig) -> list:
                 )
             del got
             ms = cuda_ms(lambda: run(X, *tcols, values, n_features=X.shape[1],
-                                     record=rec, **kw),
+                                     record=rec, pack=pack, **kw),
                          reps=5, inner=inner, hold=True)
             plain_ms = cuda_ms(lambda: ref(X, *tcols, values, **kw),
                                reps=3 if N > 4_096 else 5)
-            p = serve_kernel.plan(form, N, T, n_out, n_features=X.shape[1],
-                                  agg=agg, n_sms=sm_count(dev))
+            if not margin:
+                p = serve_kernel.plan(form, N, T, n_out,
+                                      n_features=X.shape[1], agg=agg,
+                                      n_sms=sm_count(dev))
+            else:
+                p = serve_kernel.plan_margin(
+                    form, N, n_out, n_features=X.shape[1],
+                    table_bytes=pack.table_bytes,
+                    chunk_trees=pack.chunk_trees, n_sms=sm_count(dev))
             tiling_ms = {}
             if chan in ("proba", "qproba"):  # the served path
                 # every forced tiling equal to plain, and timed
-                for R in SERVE_TILINGS:
+                for R in SERVE_TILINGS:  # the general body's R
                     def forced(R=R):
                         return serve_kernel._launch(
                             form, X, tcols, values, rec, **kw,
-                            _rows_per_block=R)
+                            _rows_per_block=R, _body="traverse")
                     if not torch.equal(forced(), want):
                         raise AssertionError(
                             f"{form}[{chan}] at {R} rows per block != plain "
@@ -1385,6 +1467,23 @@ def phase_serve_kernels(forest, Xbig) -> list:
                         )
                     tiling_ms[R] = cuda_ms(forced, reps=5, inner=inner,
                                            hold=True)
+            if pack is not None:  # the margin body at its plan and its
+                # tilings, and the general body's percls
+                for tiling in ({},) + MARGIN_TILINGS + (None,):
+                    def forced(tiling=tiling):
+                        return serve_kernel._launch(
+                            form, X, tcols, values, rec, **kw, pack=pack,
+                            _tiling=tiling,
+                            _body="traverse" if tiling is None else None)
+                    name = ("general body" if tiling is None else
+                            ",".join(f"{k}={v}" for k, v in tiling.items())
+                            or "margin body")
+                    if not torch.equal(forced(), want):
+                        raise AssertionError(
+                            f"{form}[{agg}, {chan}] at {name} != plain "
+                            f"version at N={N}")
+                    tiling_ms[name] = cuda_ms(forced, reps=3, inner=inner,
+                                              hold=True)
             del want
             # each input read once, the output written once; of the table
             # only the nodes on this batch's paths and the leaves it reaches
@@ -1398,17 +1497,23 @@ def phase_serve_kernels(forest, Xbig) -> list:
                 bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
                 bytes=n_bytes, visited_nodes=visited, leaves=leaves,
                 table_nodes=M, max_abs_err=err, launches_timed=inner,
-                plan={k: p[k] for k in ("rows_per_block", "trees_per_chunk",
-                                        "threads", "blocks", "smem")},
+                body="margin" if margin else "traverse",
+                margin_pack=None if pack is None else dict(
+                    serves=pack.serves, depth=pack.depth,
+                    chunks=pack.chunk_tree.numel() - 1,
+                    table_bytes=pack.table_bytes),
+                plan={k: p[k] for k in (
+                    "rows_per_block", "trees_per_chunk", "threads_per_row",
+                    "row_groups", "threads", "blocks", "smem") if k in p},
                 tiling_ms=tiling_ms,
             ))
             log(f"serve kernels: {form}[{agg}, {chan}, n_out={n_out}] N={N}: "
-                f"kernel {ms:.6f} ms, plain {plain_ms:.4f} ms, bound "
-                f"{rows[-1]['bound_ms']:.6f} ms (bytes; {visited} of {M} "
-                f"nodes, {leaves} leaves); R={p['rows_per_block']} "
-                f"Tc={p['trees_per_chunk']} blocks={p['blocks']}; equal to "
-                f"plain" + (f"; rows per block -> ms {tiling_ms}"
-                            if tiling_ms else ""))
+                f"{rows[-1]['body']} body {ms:.6f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {rows[-1]['bound_ms']:.6f} ms "
+                f"(bytes; {visited} of {M} nodes, {leaves} leaves); plan "
+                f"{rows[-1]['plan']}; equal to plain"
+                + (f"; forced tilings -> ms {tiling_ms}" if tiling_ms
+                   else ""))
         del X
     return rows
 
@@ -1467,7 +1572,7 @@ def phase_serve(forest, Xh, Xbig) -> tuple:
             f"{stats[name]['rows_per_s']:.1f} rows/s (repeated: "
             f"{stats[name]['repeat_rows_per_s']:.1f} rows/s)")
     launches = dict(serve_kernel.launches)
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in SERVE_LINE if launches[k] == 0]
     if missing:
         raise AssertionError(f"serving never launched {missing}")
 
@@ -1965,7 +2070,10 @@ def _served_kernel_rows(cm, cm8, Xq, what: str, agg: str = "sum") -> dict:
     """K4 (``cm``'s float64 channel) and K5 (``cm8``'s int8 one) in
     ``agg`` mode (``sum``; ``percls`` for a boosted model's margins, K4
     from its baseline row) at 4,096 rows of ``Xq``, each equal to its
-    plain version, timed beside its bound and its plain version."""
+    plain version, timed beside its bound and its plain version. In
+    ``percls`` the body the model takes (the margin body where its pack
+    serves) and the other one are timed in turns (taken, other, other,
+    taken), each equal to the plain version."""
     from mpitree_tpu_torch.serving import serve_kernel
 
     N = SERVE_SHAPES[2]
@@ -1974,26 +2082,27 @@ def _served_kernel_rows(cm, cm8, Xq, what: str, agg: str = "sum") -> dict:
     cols = table.dev_arrays(DEV)[:5]
     visited, leaves = _touched(table, cols, X)
     T = table.n_trees
+    q = cm8._quant
+    qcols = (q.feature, q.threshold, q.left, q.right, q.root)
     rows = {}
-    for form, tcols, values, rec, node_bytes, acc_bytes in (
+    for form, tcols, values, rec, pack, node_bytes, acc_bytes in (
             ("traverse", cols, cm._values, table.dev_record(DEV),
-             16, 8),
-            ("traverse_q", (cm8._quant.feature, cm8._quant.threshold,
-                            cm8._quant.left, cm8._quant.right,
-                            cm8._quant.root), cm8._quant.qvals,
-             cm8._quant.record, 12, 4)):
+             cm._margin, 16, 8),
+            ("traverse_q", qcols, q.qvals,
+             q.record if q.record is not None
+             else serve_kernel.pack_nodes(*qcols[:4]), q.margin, 12, 4)):
         n_out = cm.n_out if agg == "percls" else values.shape[1]
         kw = dict(n_steps=table.n_steps, agg=agg, n_out=n_out)
         if form == "traverse" and cm._baseline is not None:
             kw["baseline"] = cm._baseline
-        run = getattr(serve_kernel, form)
         ref = getattr(serve_kernel, f"{form}_reference")
         want = ref(X, *tcols, values, **kw)
-        got = run(X, *tcols, values, n_features=X.shape[1], record=rec, **kw)
+        run = getattr(serve_kernel, form)
+        own = dict(kw, n_features=X.shape[1], record=rec, pack=pack)
+        got = run(X, *tcols, values, **own)
         if not torch.equal(got, want):
             raise AssertionError(f"{form}[{agg}, {what}] != plain version")
-        ms = cuda_ms(lambda: run(X, *tcols, values, n_features=X.shape[1],
-                                 record=rec, **kw),
+        ms = cuda_ms(lambda: run(X, *tcols, values, **own),
                      reps=5, inner=SERVE_INNER[N], hold=True)
         plain_ms = cuda_ms(lambda: ref(X, *tcols, values, **kw), reps=5)
         n_bytes = (X.numel() * 4 + visited * node_bytes + T * 4
@@ -2004,9 +2113,37 @@ def _served_kernel_rows(cm, cm8, Xq, what: str, agg: str = "sum") -> dict:
                           bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3,
                           bound_by="bytes", bytes=n_bytes,
                           max_abs_err=float((got - want).abs().max().item()))
+        if agg == "percls":  # both bodies, in turns
+            if pack is None:
+                raise AssertionError(f"{what}: {form} has no margin pack")
+            bodies = {b: (lambda b=b: serve_kernel._launch(
+                form, X, tcols, values, rec, pack=pack, _body=b, **kw))
+                for b in ("margin", "traverse")}
+            for b, fn in bodies.items():
+                if not torch.equal(fn(), want):
+                    raise AssertionError(f"{what}: {form}[percls] in the "
+                                         f"{b} body != plain version")
+            taken = "margin" if pack.serves else "traverse"
+            other = "traverse" if pack.serves else "margin"
+            turns = [cuda_ms(bodies[b], reps=5, inner=SERVE_INNER[N],
+                             hold=True)
+                     for b in (taken, other, other, taken)]
+            rows[form].update(
+                body=taken, turns_ms=turns,
+                margin_ms=statistics.mean(
+                    turns[0::3] if pack.serves else turns[1:3]),
+                general_ms=statistics.mean(
+                    turns[1:3] if pack.serves else turns[0::3]),
+                pack=dict(serves=pack.serves, depth=pack.depth,
+                          chunks=pack.chunk_tree.numel() - 1,
+                          table_bytes=pack.table_bytes))
         log(f"serve {what}: {form}[{agg}, n_out={n_out}] N={N}: kernel "
             f"{ms:.6f} ms, plain {plain_ms:.4f} ms, bound "
-            f"{rows[form]['bound_ms']:.6f} ms; equal to plain")
+            f"{rows[form]['bound_ms']:.6f} ms; equal to plain"
+            + (f"; margin body {rows[form]['margin_ms']:.6f} ms, general "
+               f"body {rows[form]['general_ms']:.6f} ms (turns "
+               f"{rows[form]['turns_ms']}, pack {rows[form]['pack']})"
+               if agg == "percls" else ""))
     return rows
 
 
@@ -2398,14 +2535,217 @@ def phase_boosting_parity() -> dict:
     return out
 
 
-def phase_boosting_serving(clf, reg, Xh, Xch) -> dict:
+def _margin_kernel_rows(cm, cm8, Xbig, what: str) -> dict:
+    """Phase 23's kernels: the margin body (``csrc/margin.cu``) of K4
+    (``cm``'s float64 channel from its baseline row) and K5 (``cm8``'s
+    int8 tables) at every bucket of ``SERVE_SHAPES`` (the first rows of
+    ``Xbig``), each ``torch.equal`` to the plain version, as is the
+    general body of ``csrc/traverse.cu`` in ``percls``
+    (``serve_kernel._launch(..., _body="traverse")``, the body that served
+    margins before); the two timed in turns in this call (general, margin,
+    margin, general; CUDA events behind the device-side hold) beside the
+    plain version and the bound: the bytes of the batch, of the margin
+    pack's 8-byte records on the batch's paths and K4's 8-byte leaf values
+    it reaches (``_touched``'s nodes; ``bound_ms_touched`` keeps the
+    general body's 16- and 12-byte records beside it). ``visits`` counts
+    the (row, tree, step) record reads the batch needs: each row's depth
+    of the leaf it reaches in each tree. Returns form -> rows -> row."""
+    from mpitree_tpu_torch._device import sm_count
+    from mpitree_tpu_torch.serving import serve_kernel, traversal
+
+    table = cm.table
+    cols = table.dev_arrays(DEV)[:5]
+    q = cm8._quant
+    T, K = table.n_trees, cm.n_out
+    qcols = (q.feature, q.threshold, q.left, q.right, q.root)
+    forms = (  # the general body's records made once, for its turns
+        ("traverse", cols, cm._values, table.dev_record(DEV), cm._margin,
+         dict(baseline=cm._baseline), 16, 8),
+        ("traverse_q", qcols, q.qvals, serve_kernel.pack_nodes(*qcols[:4]),
+         q.margin, {}, 12, 4))
+    depth = torch.from_numpy(np.repeat(
+        np.arange(len(table.level_off) - 1),
+        np.diff(table.level_off))).to(DEV)
+    out = {form: {} for form, *_ in forms}
+    for N in SERVE_SHAPES:
+        X = torch.from_numpy(np.ascontiguousarray(Xbig[:N])).to(DEV)
+        visits = int(depth[traversal.descend(X, *cols, table.n_steps)].sum())
+        visited, leaves = _touched(table, cols, X)
+        inner = SERVE_INNER[N]
+        for form, tcols, values, rec, pack, extra, node_bytes, acc_bytes in \
+                forms:
+            if pack is None or not pack.serves:
+                raise AssertionError(f"boosted {what}: {form} has no margin "
+                                     "pack that serves it")
+            kw = dict(n_steps=table.n_steps, agg="percls", n_out=K, **extra)
+            ref = getattr(serve_kernel, f"{form}_reference")
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            want = ref(X, *tcols, values, **kw)
+            b.record()
+            b.synchronize()
+            plain_ms = a.elapsed_time(b)  # warm: phase 23's earlier calls
+
+            def margin():
+                return serve_kernel._launch(form, X, tcols, values, rec,
+                                            pack=pack, **kw)
+
+            def general():
+                return serve_kernel._launch(form, X, tcols, values, rec,
+                                            _body="traverse", **kw)
+
+            got = margin()
+            torch.cuda.synchronize()
+            err = float((got.double() - want.double()).abs().max().item())
+            if not (torch.equal(got, want) and torch.equal(general(), want)):
+                raise AssertionError(f"boosted {what}: {form}[percls] at "
+                                     f"N={N} != plain version (margin body "
+                                     f"max |diff| {err})")
+            del got
+            turns = [cuda_ms(fn, reps=5, inner=inner, hold=True)
+                     for fn in (general, margin, margin, general)]
+            tiling_ms = {}  # the planner's alternatives, each equal too
+            for tiling in MARGIN_TILINGS:
+                def forced(tiling=tiling):
+                    return serve_kernel._launch(
+                        form, X, tcols, values, rec, pack=pack,
+                        _tiling=tiling, **kw)
+                name = ",".join(f"{k}={v}" for k, v in tiling.items())
+                if not torch.equal(forced(), want):
+                    raise AssertionError(f"boosted {what}: {form} at "
+                                         f"{name} != plain version, N={N}")
+                tiling_ms[name] = cuda_ms(forced, reps=3, inner=inner,
+                                          hold=True)
+            p = serve_kernel.plan_margin(
+                form, N, K, n_features=X.shape[1],
+                table_bytes=pack.table_bytes, chunk_trees=pack.chunk_trees,
+                n_sms=sm_count(DEV))
+            n_bytes, touched = (
+                X.numel() * 4 + visited * nb + T * 4 + leaves * vb
+                + N * K * acc_bytes
+                for nb, vb in ((8, 8 if form == "traverse" else 0),
+                               (node_bytes, values.element_size())))
+            row = out[form][N] = dict(
+                rows=N, n_out=K, trees=T, agg="percls",
+                ms=statistics.mean(turns[1:3]), general_ms=statistics.mean(
+                    (turns[0], turns[3])), turns_ms=turns,
+                plain_ms=plain_ms, bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3,
+                bound_by="bytes", bytes=n_bytes,
+                bound_ms_touched=touched / HBM_BYTES_PER_S * 1e3,
+                visits=visits, pack_depth=pack.depth,
+                visited_nodes=visited, leaves=leaves, max_abs_err=err,
+                pack_bytes=pack.nbytes, launches_timed=inner,
+                tiling_ms=tiling_ms,
+                plan={k: p[k] for k in (
+                    "rows_per_block", "threads_per_row", "row_groups",
+                    "threads", "blocks", "trees_per_pass", "stage",
+                    "stage_x", "smem")})
+            log(f"serve margin {what}: {form}[percls, n_out={K}] N={N}: "
+                f"margin body {row['ms']:.6f} ms, general body (traverse.cu) "
+                f"{row['general_ms']:.6f} ms (turns {turns}), plain "
+                f"{plain_ms:.4f} ms, bound {row['bound_ms']:.6f} ms; "
+                f"{visits} record visits; plan {row['plan']}; forced "
+                f"tilings -> ms {tiling_ms}; all equal to plain")
+            del want
+        del X
+    return out
+
+
+def _bodies_in_turns(what: str, table, values, pack, Xbig,
+                     baseline=None) -> dict:
+    """K4 ``percls`` over ``table`` into ``pack.n_out`` columns, both
+    bodies forced (the margin body over ``pack``, the general one over the
+    table's records), each equal to the plain version, timed in turns
+    (general, margin, margin, general) at 4,096 and 500,000 rows of
+    ``Xbig``."""
+    from mpitree_tpu_torch.serving import serve_kernel
+
+    cols = table.dev_arrays(DEV)[:5]
+    rec = table.dev_record(DEV)
+    kw = dict(n_steps=table.n_steps, agg="percls", n_out=pack.n_out,
+              baseline=baseline)
+    out = dict(trees=table.n_trees, nodes=table.n_nodes, n_out=pack.n_out,
+               depth=pack.depth, chunks=pack.chunk_tree.numel() - 1,
+               serves=pack.serves)
+    for N in SERVE_SHAPES[2:]:
+        X = torch.from_numpy(np.ascontiguousarray(Xbig[:N])).to(DEV)
+        want = serve_kernel.traverse_reference(X, *cols, values, **kw)
+        bodies = [lambda b=b: serve_kernel._launch(
+            "traverse", X, cols, values, rec, pack=pack, _body=b, **kw)
+            for b in ("traverse", "margin")]
+        if not all(torch.equal(fn(), want) for fn in bodies):
+            raise AssertionError(f"{what}, N={N}: a body != plain version")
+        turns = [cuda_ms(bodies[b], reps=3, inner=SERVE_INNER[N], hold=True)
+                 for b in (0, 1, 1, 0)]
+        out[N] = dict(ms=statistics.mean(turns[1:3]),
+                      general_ms=statistics.mean((turns[0], turns[3])),
+                      turns_ms=turns)
+        log(f"serve margin {what} ({out['trees']} trees, {out['nodes']} "
+            f"nodes into {pack.n_out} columns, depth {pack.depth}, "
+            f"{out['chunks']} chunks, serves {pack.serves}) N={N}: margin "
+            f"body {out[N]['ms']:.6f} ms, general body "
+            f"{out[N]['general_ms']:.6f} ms (turns {turns}); both equal "
+            "to plain")
+        del X, want
+    return out
+
+
+def _one_column_rows(cm, Xbig) -> dict:
+    """The classifier's 700 trees all into one column (K4 ``percls``, no
+    baseline): small trees whose one column spans several chunks, in
+    both bodies (:func:`_bodies_in_turns`)."""
+    from mpitree_tpu_torch.serving import serve_kernel
+
+    pack = serve_kernel.pack_margin(*cm.table.dev_arrays(DEV)[:5],
+                                    cm._values, n_out=1, form="traverse")
+    return _bodies_in_turns("classifier, 700 trees into one column",
+                            cm.table, cm._values, pack, Xbig)
+
+
+def _depth_sweep_rows(Xc, yc, Xcbig) -> list:
+    """Boosted regressors deeper than phase 21's (``SWEEP_TREES``: 50
+    rounds on the first 100,000 rows of phase 13's matrix), compiled, in
+    both bodies (:func:`_bodies_in_turns`): where the margin body's rule
+    (``serve_kernel.MarginPack.serves``) stands against the measured
+    crossover in depth."""
+    from mpitree_tpu_torch.serving import compile_model, serve_kernel
+    from mpitree_tpu_torch.tree import GradientBoostingRegressor
+
+    rows = []
+    for depth, leaves in SWEEP_TREES:
+        est = GradientBoostingRegressor(
+            max_depth=depth, max_leaf_nodes=leaves, max_iter=50).fit(
+                Xc[:100_000], yc[:100_000])
+        cm = compile_model(est)
+        pack = serve_kernel.pack_margin(*cm._dev_table, cm._values,
+                                        n_out=1, form="traverse")
+        if (cm._margin is not None) != pack.serves:
+            raise AssertionError(f"depth {depth}: the compiled model's "
+                                 "body is not the pack's rule")
+        rows.append({"max_depth": depth, "max_leaf_nodes": leaves,
+                     **_bodies_in_turns(
+                         f"regressor max_depth={depth}, max_leaf_nodes="
+                         f"{leaves}", cm.table, cm._values, pack, Xcbig,
+                         baseline=cm._baseline)})
+        del est, cm, pack
+    return rows
+
+
+def phase_boosting_serving(clf, reg, Xh, Xch, Xbig, Xcbig, Xcfit,
+                           ycfit) -> dict:
     """Phase 23: ``compile_model`` of phase 21's classifier and regressor
-    (kind ``margin``): K4 ``percls`` from the baseline row equals
-    ``decision_function`` / ``predict`` bit for bit at 1, 64 and 4,096
-    rows, K5 (``quantize="int8"``) stays within its report on its
-    calibration batch; the traversal counters are set to 0 just before
-    and both kernels must launch; both kernels alone at 4,096 rows equal
-    their plain versions, timed beside their bound. Then
+    (kind ``margin``): K4 ``percls`` from the baseline row (the margin
+    body, ``csrc/margin.cu``) equals ``decision_function`` / ``predict``
+    bit for bit at 1, 64 and 4,096 rows, K5 (``quantize="int8"``) stays
+    within its report on its calibration batch; the traversal counters
+    are set to 0 just before, both forms of the margin body must launch
+    and the general body never. Then both bodies of both kernels alone at
+    1, 64, 4,096 and 500,000 rows (``Xbig`` for the classifier, ``Xcbig``
+    for the regressor): equal to their plain versions, timed in turns
+    beside their bound (:func:`_margin_kernel_rows`), the classifier's
+    trees into one column (:func:`_one_column_rows`) and deeper regressors
+    fitted on ``Xcfit``, ``ycfit`` (:func:`_depth_sweep_rows`). Then
     ``save_model``/``load_model`` of both: answers bit for bit."""
     from mpitree_tpu_torch import load_model, save_model
     from mpitree_tpu_torch.serving import compile_model, quantize, serve_kernel
@@ -2438,14 +2778,21 @@ def phase_boosting_serving(clf, reg, Xh, Xch) -> dict:
         cal = quantize.synthesize_calibration(cm8.table, Xq.shape[1])
         cal_delta = float(np.abs(cm8.raw(cal) - cm.raw(cal)).max())
         launches = dict(serve_kernel.launches)
-        if not (launches["traverse"] and launches["traverse_q"]):
+        if not (launches["margin"] and launches["margin_q"]) or (
+                launches["traverse"] or launches["traverse_q"]):
             raise AssertionError(f"boosted {what} serving launches "
-                                 f"{launches}")
+                                 f"{launches}: the margin body must serve "
+                                 "every request")
         if not (rep["ok"] and cal_delta <= rep["max_abs_delta"] + 1e-6):
             raise AssertionError(f"int8 boosted {what} outside its report: "
                                  f"delta {cal_delta}, report {rep}")
-        rows = _served_kernel_rows(cm, cm8, Xq, f"margin {what}",
-                                   agg="percls")
+        by_rows = _margin_kernel_rows(
+            cm, cm8, Xbig if what == "classifier" else Xcbig, what)
+        rows = {form: r[SERVE_SHAPES[2]] for form, r in by_rows.items()}
+        one_column = (_one_column_rows(cm, Xbig) if what == "classifier"
+                      else None)
+        sweep = (_depth_sweep_rows(Xcfit, ycfit, Xcbig)
+                 if what == "regressor" else None)
         out_dir = Path("build") / "chip_smoke_models"
         out_dir.mkdir(parents=True, exist_ok=True)
         path = out_dir / f"boosted_{what}.npz"
@@ -2464,7 +2811,10 @@ def phase_boosting_serving(clf, reg, Xh, Xch) -> dict:
                                      "differs")
         out[what] = dict(trees=cm.table.n_trees, n_out=cm.n_out,
                          compile_s=compile_s, served_ms=served,
-                         launches=launches, kernels=rows, quantization=rep,
+                         launches=launches, kernels=rows,
+                         kernels_by_rows=by_rows, one_column=one_column,
+                         depth_sweep=sweep,
+                         quantization=rep,
                          calibration_delta=cal_delta,
                          file=dict(bytes=path.stat().st_size, save_s=save_s,
                                    load_s=load_s))
@@ -3000,9 +3350,11 @@ def phase_fused_rounds(X, y, Xh, yh, Xc, yc, Xch, ych) -> dict:
         cal = quantize.synthesize_calibration(cm8.table, Xq.shape[1])
         cal_delta = float(np.abs(cm8.raw(cal) - cm.raw(cal)).max())
         launches = dict(serve_kernel.launches)
-        if not (launches["traverse"] and launches["traverse_q"]):
+        if not (launches["margin"] and launches["margin_q"]) or (
+                launches["traverse"] or launches["traverse_q"]):
             raise AssertionError(f"fused rounds {what}: serving launches "
-                                 f"{launches}")
+                                 f"{launches}: the margin body must serve "
+                                 "every request")
         if not (rep["ok"] and cal_delta <= rep["max_abs_delta"] + 1e-6):
             raise AssertionError(f"fused rounds {what}: int8 outside its "
                                  f"report: delta {cal_delta}, report {rep}")
@@ -3055,9 +3407,9 @@ class _HeldRegistry:
 
 
 def _require_launches(what: str, launches: dict) -> dict:
-    """``launches`` (a copy of the traversal counters) if both kernels
-    launched, else raise."""
-    if not all(launches.values()):
+    """``launches`` (a copy of the traversal counters) if both forest
+    kernels (K4's and K5's general body) launched, else raise."""
+    if not all(launches.get(k) for k in SERVE_LINE):
         raise AssertionError(f"{what} launched {launches}")
     return launches
 
@@ -6135,7 +6487,7 @@ def main() -> int:
     log(f"card: {kind} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | python {sys.version.split()[0]}")
 
-    phase_build()
+    ptxas = phase_build()
 
     mark("1 build")
     X, y = covtype_like(ROWS, seed=0)
@@ -6219,8 +6571,8 @@ def main() -> int:
     mark("21 boosting")
     boosting["parity"] = phase_boosting_parity()
     mark("22 boosting parity")
-    boosting["serving"] = phase_boosting_serving(boost_clf, boost_reg, Xh,
-                                                 Xch)
+    boosting["serving"] = phase_boosting_serving(
+        boost_clf, boost_reg, Xh, Xch, Xbig, Xc[:SERVE_SHAPES[-1]], Xc, yc)
     mark("23 boosted serving")
     del boost_clf, boost_reg
     engines = phase_engines(X, y, Xc, yc, {
@@ -6414,21 +6766,39 @@ def main() -> int:
             kernel_ms=row["kernel_ms"], sort_ms=row["sort_ms"],
             adds="limbs", payload="GBDT (count, g, h), 54 features",
         ))
-    for form in SERVE_LINE:
+    for form, key in MARGIN_LINE.items():
         for what in ("classifier", "regressor"):
             sv = boosting["serving"][what]
             row = sv["kernels"][form]
             kernels.append(dict(
                 name=f"serve_{form}[agg=percls, margin, {what}]",
-                route="cuda", source="mpitree_tpu_torch/csrc/traverse.cu",
-                replaces="mpitree_tpu/serving/pallas_serve.py:49",
-                launches=sv["launches"][form],
+                route="cuda", source="mpitree_tpu_torch/csrc/margin.cu",
+                replaces="mpitree_tpu/serving/pallas_serve.py:49 "
+                         "(percls, :133-140)",
+                launches=sv["launches"][key],
+                launches_of="phase 23's served requests",
                 max_abs_err=row["max_abs_err"], ms=row["ms"],
                 plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                 bound_by=row["bound_by"], library_ms=None,
                 library="none: no single PyTorch call computes an "
                         "ensemble traversal",
+                general_ms=row["general_ms"],
+                general_body="mpitree_tpu_torch/csrc/traverse.cu, percls",
                 rows=row["rows"], n_out=row["n_out"], trees=sv["trees"],
+                plan=row["plan"], visits=row["visits"],
+                by_rows={n: {k: r[k] for k in (
+                    "ms", "general_ms", "plain_ms", "bound_ms",
+                    "bound_ms_touched", "max_abs_err", "visits", "plan")}
+                    for n, r in sv["kernels_by_rows"][form].items()},
+                ptxas=ptxas["K4" if form == "traverse" else "K5"],
+                bound_ms_touched=row["bound_ms_touched"],
+                one_column=sv["one_column"] if form == "traverse" else None,
+                depth_sweep=sv["depth_sweep"] if form == "traverse" else None,
+                fused_rounds_launches=fused[what]["serving"]["launches"][
+                    key],
+                fused_rounds_bodies={k: fused[what]["serving"]["kernels"][
+                    form][k] for k in ("body", "margin_ms", "general_ms",
+                                       "pack")},
             ))
     # the leaf-wise frontier's sibling pair: the stream routes at S = 2
     for key, payload in (("stream", None), ("stream_fixed", "moments")):
@@ -6456,7 +6826,8 @@ def main() -> int:
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             payload=payload or "class counts"))
     if (set(hist_kernel.launches) != set(REPRESENTATIVE) | set(FIXED_LINE)
-            or set(serve_kernel.launches) != set(SERVE_LINE)):
+            or set(serve_kernel.launches)
+            != set(SERVE_LINE) | set(MARGIN_LINE.values())):
         raise AssertionError("kernels line does not cover every kernel")
     log(f"total: {time.perf_counter() - t_start:.3f} s")
     log(json.dumps({"kernel_shapes": shapes}))

@@ -213,7 +213,8 @@ NOT_ON_THE_CARD: dict = {
         " route on the card, the same CUDA kernel",
     "MPITREE_TPU_SERVING_KERNEL":
         "picks the Pallas traversal or the XLA gather loop; the card"
-        " always serves through csrc/traverse.cu",
+        " always serves through csrc/traverse.cu (boosted margins through"
+        " csrc/margin.cu where their pack serves)",
     "MPITREE_TPU_DEVICE_BIN":
         "gates on-device binning on real TPUs only; the port bins on the"
         " fit's device always (ops/binning.bin_for_engine)",

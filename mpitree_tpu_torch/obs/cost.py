@@ -9,7 +9,8 @@ cannot be priced is ``None``, with the reason recorded). What differs is
 the capture: the port has no XLA cost model, so each entry's per-dispatch
 ``{"flops", "bytes"}`` is the port's own count from the shapes
 (:func:`hist_launch_cost`, :func:`levels_cost`, :func:`leafwise_cost`,
-:func:`traverse_cost`), taken once per static key of the entry
+:func:`traverse_cost`, :func:`margin_cost`), taken once per static key of
+the entry
 (``BuildObserver.price_dispatch``) and reused by later fits with the same
 key, as the JAX package reuses one lowering's analysis.
 
@@ -167,6 +168,25 @@ def traverse_cost(*, n_rows: int, n_trees: int, n_steps: int,
     nbytes = (n_rows * n_features * 4 + visits * (int(n_steps) * 16
                                                   + int(value_bytes))
               + n_rows * max(int(n_out), 1) * 8)
+    return {"flops": float(visits * int(n_steps)), "bytes": float(nbytes)}
+
+
+def margin_cost(*, n_rows: int, n_trees: int, n_steps: int,
+                n_features: int, n_out: int, value_bytes: int,
+                acc_bytes: int, pack_bytes: int, row_groups: int,
+                staged: bool) -> dict:
+    """One served batch through the boosted-margin body
+    (``serving/serve_kernel.plan_margin``): every output column's blocks
+    read all the query rows (``n_out`` reads of the batch); a staging
+    block reads its column's share of the margin pack's records and
+    values (``pack_bytes`` in all, once per row group), else each (row,
+    tree) descent reads at most ``n_steps`` + 1 8-byte records and one
+    leaf value; the output is written once. One compare per step."""
+    visits = int(n_rows) * int(n_trees)
+    table = (int(row_groups) * int(pack_bytes) if staged
+             else visits * ((int(n_steps) + 1) * 8 + int(value_bytes)))
+    nbytes = (int(n_rows) * int(n_features) * 4 * max(int(n_out), 1)
+              + table + int(n_rows) * max(int(n_out), 1) * int(acc_bytes))
     return {"flops": float(visits * int(n_steps)), "bytes": float(nbytes)}
 
 

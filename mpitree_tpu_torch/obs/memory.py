@@ -32,9 +32,9 @@ width (``core/builder._chunk_size`` reads :func:`chunk_bytes_per_slot`
 and :func:`widest_frontier`), the fused rounds' leaf-pool guard
 (:func:`pool_capacity`, :func:`pool_hist_bytes`), the mesh shape policy
 (:func:`feature_shards_for_budget`, :func:`tree_shards_for_budget`,
-:func:`slab_bytes`) and the serving tile's shared memory
-(:func:`serve_smem_bytes`); ``tests/test_torch_memory.py`` pins each
-decision. It also keeps the streaming ingest's host arithmetic
+:func:`slab_bytes`) and the serving tiles' shared memory
+(:func:`serve_smem_bytes`, :func:`margin_smem_bytes`);
+``tests/test_torch_memory.py`` pins each decision. It also keeps the streaming ingest's host arithmetic
 (:func:`ingest_chunk_rows` and its budget), with the JAX formulas.
 
 Import cost: stdlib and the knob registry at module level; torch and the
@@ -225,6 +225,21 @@ def serve_smem_bytes(rows: int, chunk: int, n_out: int, n_features: int,
                                              else 0)
             + a16(rows * chunk * 4)
             + (a16(rows * n_features * 4) if stage_x else 0))
+
+
+def margin_smem_bytes(rows: int, trees_per_pass: int, table_bytes: int,
+                      x_stride: int, acc_bytes: int, stage_x: bool) -> int:
+    """Dynamic shared memory of one block of the boosted-margin body
+    (``serving/serve_kernel.plan_margin``; ``smem_bytes`` in
+    ``csrc/margin.cu`` computes the same sum, each region rounded up to 16
+    bytes): a staged chunk of the margin pack, then K4's float64 terms of
+    one pass (``rows x trees_per_pass``) or K5's int32 row sums, then the
+    X rows at ``x_stride`` floats a row."""
+    def a16(b):
+        return -(-b // 16) * 16
+    terms = rows * trees_per_pass * 8 if acc_bytes == 8 else rows * 4
+    return (a16(table_bytes) + a16(terms)
+            + (a16(rows * x_stride * 4) if stage_x else 0))
 
 
 def table_bytes(n_slots: int, n_channels: int) -> int:
@@ -852,7 +867,7 @@ def plan_serve(*, n_trees: int, n_nodes_total: int, n_nodes_max: int,
                n_features: int, value_channels: int, n_out: int,
                buckets=(1, 64, 4096), x64: bool = True,
                kernel: bool = False, quantized: bool = False,
-               normalized: bool = False) -> MemoryPlan:
+               normalized: bool = False, margin=None) -> MemoryPlan:
     """Price a served model's card residency: the flat node table's five
     columns and its leaf values (from publish on), the traversal kernel's
     packed 16-byte node records (``kernel``), and the largest bucket's
@@ -860,8 +875,13 @@ def plan_serve(*, n_trees: int, n_nodes_total: int, n_nodes_max: int,
     ``normalized`` value channel (a forest's per-tree class fractions) is
     uploaded, then divided into a second copy: both live in the
     ``publish`` phase. Each array is priced in the caching allocator's
-    blocks (:func:`_block`). ``inputs`` keep the kernel's tiling of the
-    largest bucket (``serving/serve_kernel.plan``)."""
+    blocks (:func:`_block`). A boosted model the margin body serves
+    passes its ``margin`` pack (``serving/serve_kernel.pack_margin``,
+    made when the model compiles): each of the pack's tensors is priced as
+    allocated in place of the general body's records, and the tile is
+    the margin body's, planned from the pack's own chunks
+    (``serve_kernel.plan_margin``). ``inputs`` keep the kernel's tiling
+    of the largest bucket (``serving/serve_kernel.plan``)."""
     val_item = 8 if x64 else 4
     bmax = max(int(b) for b in buckets) if buckets else 1
     kv = max(int(value_channels), 1)
@@ -894,18 +914,33 @@ def plan_serve(*, n_trees: int, n_nodes_total: int, n_nodes_max: int,
                        "bytes_per_device": value_bytes})
     tile = None
     if kernel:
-        arrays.append({"name": "kernel_tables", "shape": [M, 4],
-                       "itemsize": 4, "phase": RESIDENT,
-                       "bytes_per_device": M * 16})
         from mpitree_tpu_torch.serving import serve_kernel
 
+        form = "traverse_q" if quantized else "traverse"
+        K = max(int(n_out), 1)
+        if margin is None:
+            arrays.append({"name": "kernel_tables", "shape": [M, 4],
+                           "itemsize": 4, "phase": RESIDENT,
+                           "bytes_per_device": M * 16})
+        else:
+            for name, t in margin.tensors().items():
+                arrays.append({
+                    "name": name, "shape": list(t.shape),
+                    "itemsize": t.element_size(), "phase": RESIDENT,
+                    "bytes_per_device": t.numel() * t.element_size()})
         try:
-            p = serve_kernel.plan(
-                "traverse_q" if quantized else "traverse", bmax,
-                int(n_trees), max(int(n_out), 1),
-                n_features=int(n_features))
+            if margin is None:
+                p = serve_kernel.plan(form, bmax, int(n_trees), K,
+                                      n_features=int(n_features))
+            else:
+                p = serve_kernel.plan_margin(
+                    form, bmax, K, n_features=int(n_features),
+                    table_bytes=margin.table_bytes,
+                    chunk_trees=margin.chunk_trees)
             tile = {"rows_per_block": int(p["rows_per_block"]),
                     "smem": int(p["smem"]), "stage_x": bool(p["stage_x"])}
+            if margin is not None:
+                tile["body"] = "margin"
         except ValueError:
             tile = None
     for a in arrays:
@@ -927,6 +962,7 @@ def plan_serve(*, n_trees: int, n_nodes_total: int, n_nodes_max: int,
             "x64": bool(x64), "kernel": bool(kernel),
             "quantized": bool(quantized),
             "normalized": bool(normalized),
+            "margin_body": margin is not None,
             "kernel_tile": tile,
         },
     )

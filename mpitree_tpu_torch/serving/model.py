@@ -31,7 +31,10 @@ serving handle:
   by the learning rate in host float64, tree ``t`` into class column ``t
   mod K``, each row's accumulator starting at the baseline margins: the
   estimator's ``decision_function`` (``predict`` for a regressor) bit for
-  bit; ``quantize="int8"`` serves it by K5 in ``percls`` mode. A single
+  bit; ``quantize="int8"`` serves it by K5 in ``percls`` mode. On the card
+  both take the margin body (``csrc/margin.cu``) over a pack made here
+  once, where the trees are small (``serve_kernel.MARGIN_MEAN_NODES``),
+  else the general body (``serve_kernel._takes_margin``). A single
   classification tree (kind
   ``gather_counts``, int32 counts; with ``monotonic_cst``
   ``gather_value`` over its int32 clipped labels, ``:710-720``) or
@@ -100,7 +103,7 @@ import time
 import numpy as np
 import torch
 
-from mpitree_tpu_torch._device import resolve_device
+from mpitree_tpu_torch._device import resolve_device, sm_count
 from mpitree_tpu_torch.config import knobs
 from mpitree_tpu_torch.obs.fingerprint import (
     FINGERPRINT_VERSION,
@@ -290,6 +293,7 @@ class CompiledModel:
         self._quant = None
         self._values = None
         self._record = None
+        self._margin = None
         self._agg = traversal.ACC_AGG.get(kind)
         if qmode is not None:
             flat = _channel(self.trees, values_fn, self.table, np.float64)
@@ -317,7 +321,17 @@ class CompiledModel:
             )
             if normalize:
                 self._agg = "sum"
-            if device.type == "cuda" and self._agg is not None:
+            if device.type == "cuda" and self._agg == "percls":
+                # the margin body's pack, once per model, kept where the
+                # margin body serves the model
+                pack = serve_kernel.pack_margin(
+                    *self._dev_table, self._values, n_out=self.n_out,
+                    form="traverse")
+                self._margin = pack if pack is not None and pack.serves \
+                    else None
+            if device.type == "cuda" and self._agg is not None \
+                    and self._margin is None:
+                # the general body's records
                 self._record = self.table.dev_record(device)
         kernel = "traverse_q" if qmode else "traverse"
         # the model's card residency (obs/memory.plan_serve, the JAX
@@ -335,7 +349,9 @@ class CompiledModel:
             kernel=device.type == "cuda" and self._agg is not None
             and kind not in traversal.GATHER_KINDS,
             quantized=qmode is not None,
-            normalized=traversal.ACC_AGG.get(kind) == "norm"))
+            normalized=traversal.ACC_AGG.get(kind) == "norm",
+            margin=(self._margin if self._quant is None
+                    else self._quant.margin)))
         self._priced_buckets: set = set()
         if kind in traversal.GATHER_KINDS:
             self.dispatch = "plain gather"
@@ -373,17 +389,32 @@ class CompiledModel:
         if fresh:
             # the compute ledger prices a bucket's first batch, once
             # (the JAX package's serving/traversal.py:278-290)
-            vbytes = 1 if self._quant is not None else 8
             self._obs.price_dispatch(
                 "serving_traverse", (id(self), X.shape[0]),
-                lambda: cost_lib.traverse_cost(
-                    n_rows=X.shape[0], n_trees=len(self.trees),
-                    n_steps=self.table.n_steps,
-                    n_features=self.n_features, n_out=self.n_out,
-                    value_bytes=vbytes))
+                lambda: self._dispatch_cost(X.shape[0]))
         with self._obs.span("serving_dispatch"):
             return retry_device(dev, what="serving traversal dispatch",
                                 obs=self._retries)
+
+    def _dispatch_cost(self, n: int) -> dict:
+        """The compute ledger's count of one ``n``-row batch: the margin
+        body's (``cost.margin_cost``, at the tiling it takes) where the
+        model has a margin pack, else the general body's."""
+        vbytes = 1 if self._quant is not None else 8
+        pack = self._margin if self._quant is None else self._quant.margin
+        kw = dict(n_rows=n, n_trees=len(self.trees),
+                  n_steps=self.table.n_steps, n_features=self.n_features,
+                  n_out=self.n_out, value_bytes=vbytes)
+        if pack is None:
+            return cost_lib.traverse_cost(**kw)
+        p = serve_kernel.plan_margin(
+            pack.form, n, self.n_out, n_features=self.n_features,
+            table_bytes=pack.table_bytes, chunk_trees=pack.chunk_trees,
+            n_sms=sm_count(self.device))
+        return cost_lib.margin_cost(
+            **kw, acc_bytes=4 if self._quant is not None else 8,
+            pack_bytes=pack.staged_bytes, row_groups=p["row_groups"],
+            staged=p["stage"])
 
     def _compute(self, X: torch.Tensor) -> torch.Tensor:
         """One bucket-shaped batch on the model's device -> its answer
@@ -409,7 +440,7 @@ class CompiledModel:
         out = serve_kernel.traverse(
             X, *self._dev_table, self._values, n_steps=n_steps,
             agg=self._agg, n_out=self.n_out, n_features=self.n_features,
-            record=self._record, baseline=self._baseline,
+            record=self._record, baseline=self._baseline, pack=self._margin,
         )
         return traversal.finish(out, self.kind, self.scale)
 

@@ -150,13 +150,16 @@ class QuantizedState:
     left: torch.Tensor       # (M,) int32 (the table's own device copy)
     right: torch.Tensor      # (M,) int32
     root: torch.Tensor       # (T,) int32
-    record: torch.Tensor     # (M, 4) int32: serve_kernel.pack_nodes
+    record: torch.Tensor | None  # (M, 4) int32: serve_kernel.pack_nodes
     qvals: torch.Tensor      # (M, K) int8
     qscale: torch.Tensor     # (K,) float32: the affine's scale
     # (K,) trees per column x the affine's base: float32, float64 for a
     # margin
     qbase: torch.Tensor
     report: dict             # the exactness report (serve_report_)
+    # a margin's serve_kernel.pack_margin on the card where the margin
+    # body serves it (its tables), else None
+    margin: serve_kernel.MarginPack | None = None
 
 
 def build_state(table, prepared: np.ndarray, *, kind: str, scale,
@@ -191,11 +194,21 @@ def build_state(table, prepared: np.ndarray, *, kind: str, scale,
     _f, _t, left, right, root, _o = table.dev_arrays(device)
     feature = torch.from_numpy(table.feature.astype(np.int16)).to(device)
     threshold = quantize_thresholds(table.threshold).to(device)
+    qvals = torch.from_numpy(np.ascontiguousarray(q)).to(device)
+    margin = None
+    if kind == "margin" and device.type == "cuda":
+        margin = serve_kernel.pack_margin(
+            feature, threshold, left, right, root, qvals, n_out=int(n_out),
+            form="traverse_q")
+        if margin is not None and not margin.serves:
+            margin = None
     return QuantizedState(
         feature=feature, threshold=threshold, left=left, right=right,
         root=root,
-        record=serve_kernel.pack_nodes(feature, threshold, left, right),
-        qvals=torch.from_numpy(np.ascontiguousarray(q)).to(device),
+        # the general body's records, where the margin body does not serve
+        record=(serve_kernel.pack_nodes(feature, threshold, left, right)
+                if margin is None else None),
+        qvals=qvals, margin=margin,
         qscale=torch.from_numpy(vscale).to(device),
         qbase=torch.from_numpy(
             (table.n_trees // int(n_out)) * vbase.astype(np.float64)
@@ -225,7 +238,7 @@ def q_traverse_accumulate(X: torch.Tensor, state: QuantizedState, *,
         state.root, state.qvals, n_steps=n_steps,
         agg="percls" if margin else "sum",
         n_out=baseline.shape[0] if margin else state.qvals.shape[1],
-        n_features=n_features, record=state.record,
+        n_features=n_features, record=state.record, pack=state.margin,
     )
     if margin:
         return (out.to(torch.float64) * state.qscale.to(torch.float64)

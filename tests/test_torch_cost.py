@@ -8,7 +8,8 @@ the JAX package's (``mpitree_tpu/obs/cost.py``).
   so does a count that fails;
 - with ``MPITREE_TPU_PEAK_FLOPS``/``_PEAK_HBM_GBPS`` set, every engine's
   entry is priced: floor, dispatches, measured wall, utilisation, bound;
-- a tiny fit's bytes and flops equal a count by hand;
+- a tiny fit's bytes and flops equal a count by hand, and so does a
+  batch through the boosted-margin body;
 - the H100 rows match the names ``torch.cuda.get_device_name()`` returns
   for SXM and PCIe parts.
 """
@@ -224,6 +225,25 @@ def test_served_model_prices_each_bucket_once(data, monkeypatch):
     e = m.serve_report_["compute"]["entries"]["serving_traverse"]
     assert e["variants"] == len(m.buckets)  # one count a bucket
     assert e["optimal_s"] is not None and e["dispatches"] is None
+
+
+@pytest.mark.parametrize("staged", [True, False])
+def test_margin_cost_equals_a_hand_count(staged):
+    """The margin body's count at phase 23's classifier shape: every
+    column's blocks read the batch, a staging row group reads the pack
+    once (else each descent reads its records and leaf value), the
+    output is written once; staged, it moves a small part of what the
+    general body's count (:func:`cost.traverse_cost`) charges."""
+    kw = dict(n_rows=4_096, n_trees=700, n_steps=6, n_features=54, n_out=7,
+              value_bytes=8)
+    c = cost.margin_cost(**kw, acc_bytes=8, pack_bytes=952_872,
+                         row_groups=18, staged=staged)
+    table = 18 * 952_872 if staged else 4_096 * 700 * (7 * 8 + 8)
+    assert c == {"flops": float(4_096 * 700 * 6),
+                 "bytes": float(4_096 * 54 * 4 * 7 + table
+                                + 4_096 * 7 * 8)}
+    if staged:
+        assert c["bytes"] < cost.traverse_cost(**kw)["bytes"] / 4
 
 
 def test_tiny_fit_bytes_equal_a_hand_count(monkeypatch):

@@ -880,17 +880,241 @@ def test_boosted_fits_and_margins_on_the_card(cuda):
         before = dict(serve_kernel.launches)
         for n in (1, 64, 4_096):
             np.testing.assert_array_equal(served(Xd[:n]), margins(Xd[:n]))
-        assert serve_kernel.launches["traverse"] > before["traverse"]
+        # the margin body served every request, the general body none,
+        # and the model keeps the pack and not the general body's records
+        assert serve_kernel.launches["margin"] > before["margin"]
+        assert serve_kernel.launches["traverse"] == before["traverse"]
+        assert cm._margin.serves and cm._record is None
         cm8 = compile_model(gpu, quantize="int8", quantize_tol=1.0)
         q = cm8._quant
         Xq = torch.from_numpy(Xd[:4_096]).to(cuda)
         cols = (q.feature, q.threshold, q.left, q.right, q.root)
         args = dict(n_steps=cm8.table.n_steps, agg="percls",
                     n_out=cm8.n_out)
+        assert q.margin is not None and q.record is None
         assert torch.equal(
             serve_kernel.traverse_q(Xq, *cols, q.qvals, record=q.record,
-                                    n_features=Xd.shape[1], **args),
+                                    pack=q.margin, n_features=Xd.shape[1],
+                                    **args),
             serve_kernel.traverse_q_reference(Xq, *cols, q.qvals, **args))
+
+
+# ---------------------------------------------------------------------------
+# the boosted-margin body (csrc/margin.cu), K4 and K5 in percls
+# ---------------------------------------------------------------------------
+
+def _random_trees(rng, X, n_trees, depth, p_split=0.9):
+    """Random binary trees to ``depth``, split on ``X``'s own values."""
+    from types import SimpleNamespace
+
+    trees = []
+    for _ in range(n_trees):
+        feat, thr, left, right, dep = [], [], [], [], []
+
+        def add(d):
+            i = len(feat)
+            feat.append(-1)
+            thr.append(np.nan)
+            left.append(-1)
+            right.append(-1)
+            dep.append(d)
+            if d < depth and (d == 0 or rng.random() < p_split):
+                f = int(rng.integers(X.shape[1]))
+                feat[i], thr[i] = f, float(X[rng.integers(len(X)), f])
+                lo = add(d + 1)
+                hi = add(d + 1)
+                left[i], right[i] = lo, hi
+            return i
+
+        add(0)
+        trees.append(SimpleNamespace(
+            n_nodes=len(feat), depth=np.array(dep),
+            feature=np.array(feat, np.int32),
+            threshold=np.array(thr, np.float32), left=np.array(left),
+            right=np.array(right)))
+    return trees
+
+
+@pytest.fixture(scope="module")
+def margin_tables():
+    """(trees, columns) -> (flat table, 4,096 covtype rows): 700 depth-3
+    trees into 7 columns and 100 into 1 (phase 23's shapes, cut to
+    depth 3), on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from mpitree_tpu_torch.serving.tables import tables_for
+    from mpitree_tpu_torch.utils.datasets import covtype_like
+
+    X = covtype_like(4_096, seed=5)[0]
+    out = {}
+    for T, K in ((700, 7), (100, 1)):
+        rng = np.random.default_rng(T + K)
+        [table] = tables_for(_random_trees(rng, X, T, 3), group_bytes=None)
+        out[T, K] = table, X
+    return out
+
+
+@pytest.mark.parametrize("N", [1, 63, 64, 3_000, 4_096])
+@pytest.mark.parametrize("baseline", [False, True],
+                         ids=["zeros", "baseline"])
+@pytest.mark.parametrize("shape", [(700, 7), (100, 1)],
+                         ids=["T700-K7", "T100-K1"])
+def test_margin_body_equals_plain_version(margin_tables, shape, baseline,
+                                          N):
+    """K4 (float64, from zeros or a baseline row) and K5 (int8 into
+    int32) through the margin body, bit for bit against the plain
+    versions, over a pack made once, and at forced tilings of both modes,
+    staged and not; without a pack the launch takes the general body."""
+    from mpitree_tpu_torch.serving import quantize, serve_kernel
+
+    table, Xh = margin_tables[shape]
+    T, K = shape
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(N + K)
+    cols = table.dev_arrays(dev)[:5]
+    vals = torch.from_numpy(rng.normal(size=(table.n_nodes, 1))).to(dev)
+    base = (torch.from_numpy(rng.normal(size=K)).to(dev) if baseline
+            else None)
+    X = torch.from_numpy(Xh[:N]).to(dev)
+    kw = dict(n_steps=table.n_steps, agg="percls", n_out=K)
+    pack = serve_kernel.pack_margin(*cols, vals, n_out=K, form="traverse")
+    want = serve_kernel.traverse_reference(X, *cols, vals, baseline=base,
+                                           **kw)
+    before = dict(serve_kernel.launches)
+    got = serve_kernel.traverse(X, *cols, vals, n_features=X.shape[1],
+                                baseline=base, pack=pack, **kw)
+    torch.cuda.synchronize()
+    assert serve_kernel.launches["margin"] == before["margin"] + 1
+    assert serve_kernel.launches["traverse"] == before["traverse"]
+    assert got.dtype == torch.float64 and torch.equal(got, want)
+    assert pack.serves  # one chunk a column
+    before = dict(serve_kernel.launches)
+    assert torch.equal(serve_kernel.traverse(
+        X, *cols, vals, n_features=X.shape[1], baseline=base, **kw), want)
+    assert serve_kernel.launches["traverse"] == before["traverse"] + 1
+    assert serve_kernel.launches["margin"] == before["margin"]
+    for tiling in (dict(stage=True), dict(stage=False),
+                   dict(rows_per_block=8, threads_per_row=4),
+                   dict(rows_per_block=16, threads_per_row=48),
+                   dict(rows_per_block=100, threads_per_row=7),
+                   dict(rows_per_block=64, row_groups=3, stage=True)):
+        assert torch.equal(serve_kernel._launch(
+            "traverse", X, cols, vals, None, baseline=base, pack=pack,
+            _tiling=tiling, **kw), want), tiling
+    # the general body, which served percls before, agrees too
+    assert torch.equal(serve_kernel._launch(
+        "traverse", X, cols, vals, None, baseline=base, _body="traverse",
+        **kw), want)
+    if baseline:
+        return
+    qcols = (cols[0].to(torch.int16),
+             quantize.quantize_thresholds(table.threshold).to(dev),
+             *cols[2:])
+    qv = torch.from_numpy(rng.integers(
+        -127, 128, size=(table.n_nodes, 1)).astype(np.int8)).to(dev)
+    qpack = serve_kernel.pack_margin(*qcols, qv, n_out=K, form="traverse_q")
+    qwant = serve_kernel.traverse_q_reference(X, *qcols, qv, **kw)
+    before = serve_kernel.launches["margin_q"]
+    qgot = serve_kernel.traverse_q(X, *qcols, qv, n_features=X.shape[1],
+                                   pack=qpack, **kw)
+    torch.cuda.synchronize()
+    assert serve_kernel.launches["margin_q"] == before + 1
+    assert qgot.dtype == torch.int32 and torch.equal(qgot, qwant)
+    for tiling in (dict(stage=False), dict(rows_per_block=16,
+                                           threads_per_row=48)):
+        assert torch.equal(serve_kernel._launch(
+            "traverse_q", X, qcols, qv, None, pack=qpack, _tiling=tiling,
+            **kw), qwant), tiling
+
+
+def test_margin_wrapper_refuses_what_the_body_does_not_take(margin_tables):
+    from mpitree_tpu_torch.serving import serve_kernel
+
+    table, Xh = margin_tables[100, 1]
+    dev = torch.device("cuda")
+    cols = table.dev_arrays(dev)[:5]
+    vals = torch.ones((table.n_nodes, 1), dtype=torch.float64, device=dev)
+    X = torch.from_numpy(Xh[:64]).to(dev)
+    kw = dict(n_steps=table.n_steps, agg="percls", n_features=54)
+    pack = serve_kernel.pack_margin(*cols, vals, n_out=1, form="traverse")
+    cpu_pack = serve_kernel.pack_margin(*table.dev_arrays(torch.device(
+        "cpu"))[:5], vals.cpu(), n_out=1, form="traverse")
+    with pytest.raises(ValueError, match="margin pack"):  # columns
+        serve_kernel.traverse(X, *cols, vals, n_out=2, pack=pack, **kw)
+    with pytest.raises(ValueError, match="margin pack"):  # steps
+        serve_kernel.traverse(X, *cols, vals, n_out=1, pack=pack,
+                              **dict(kw, n_steps=table.n_steps - 1))
+    with pytest.raises(ValueError, match="margin pack"):  # device
+        serve_kernel.traverse(X, *cols, vals, n_out=1, pack=cpu_pack, **kw)
+    with pytest.raises(ValueError, match="margin pack"):  # form
+        serve_kernel.traverse_q(
+            X, cols[0].to(torch.int16), cols[1].to(torch.bfloat16),
+            *cols[2:], vals.to(torch.int8), n_out=1, pack=pack, **kw)
+    with pytest.raises(ValueError, match="float64"):
+        serve_kernel.traverse(X, *cols, vals.float(), n_out=1, pack=pack,
+                              **kw)
+    with pytest.raises(ValueError, match="threads_per_row"):
+        serve_kernel._launch("traverse", X, cols, vals, None, pack=pack,
+                             n_steps=table.n_steps, agg="percls", n_out=1,
+                             _tiling=dict(rows_per_block=64,
+                                          threads_per_row=32))
+    # a feature id past 16 bits has no pack: forcing the body refuses, the
+    # default takes the general body
+    wide = cols[0].clone()
+    wide[wide >= 0] += 70_000
+    Xw = torch.zeros((64, 70_054), device=dev)
+    Xw[:, 70_000:] = X
+    assert serve_kernel.pack_margin(wide, *cols[1:], vals, n_out=1,
+                                    form="traverse") is None
+    with pytest.raises(ValueError, match="margin pack"):
+        serve_kernel._launch("traverse", Xw, (wide, *cols[1:]), vals, None,
+                             n_steps=table.n_steps, agg="percls", n_out=1,
+                             _body="margin")
+    before = dict(serve_kernel.launches)
+    got = serve_kernel.traverse(Xw, wide, *cols[1:], vals, n_out=1,
+                                **dict(kw, n_features=70_054))
+    assert serve_kernel.launches["traverse"] == before["traverse"] + 1
+    assert serve_kernel.launches["margin"] == before["margin"]
+    assert torch.equal(got, serve_kernel.traverse_reference(
+        X, *cols, vals, n_steps=table.n_steps, agg="percls", n_out=1))
+
+
+def test_deep_boosted_model_keeps_the_general_body(cuda):
+    """A boosted regressor of depth-12 trees, past ``MARGIN_MEAN_NODES``
+    nodes a tree: its compiled model keeps no margin pack, serves through
+    the general body from its 16-byte records, and its margins equal
+    ``predict`` bit for bit (K5 too takes the general body); forced, the
+    margin body over the model's pack agrees with the plain version."""
+    from mpitree_tpu_torch.serving import compile_model, serve_kernel
+    from mpitree_tpu_torch.tree import GradientBoostingRegressor
+    from mpitree_tpu_torch.utils.datasets import california_like
+
+    X, y = california_like(20_000, seed=6)
+    est = GradientBoostingRegressor(max_iter=30, max_depth=12,
+                                    device="cuda").fit(X, y)
+    cm = compile_model(est)
+    assert cm.table.n_nodes > serve_kernel.MARGIN_MEAN_NODES * 30
+    assert cm._margin is None and cm._record is not None
+    before = dict(serve_kernel.launches)
+    for n in (1, 64, 4_096):
+        np.testing.assert_array_equal(cm.predict(X[:n]), est.predict(X[:n]))
+    assert serve_kernel.launches["traverse"] > before["traverse"]
+    assert serve_kernel.launches["margin"] == before["margin"]
+    cm8 = compile_model(est, quantize="int8", quantize_tol=float("inf"))
+    assert cm8._quant.margin is None and cm8._quant.record is not None
+    cm8.raw(X[:64])
+    assert serve_kernel.launches["margin_q"] == before["margin_q"]
+    pack = serve_kernel.pack_margin(*cm._dev_table, cm._values, n_out=1,
+                                    form="traverse")
+    assert not pack.serves
+    Xd = torch.from_numpy(X[:3_000]).to(cuda)
+    kw = dict(n_steps=cm.table.n_steps, agg="percls", n_out=1,
+              baseline=cm._baseline)
+    assert torch.equal(
+        serve_kernel._launch("traverse", Xd, cm._dev_table, cm._values,
+                             None, pack=pack, _body="margin", **kw),
+        serve_kernel.traverse_reference(Xd, *cm._dev_table, cm._values,
+                                        **kw))
 
 
 _TREE_FIELDS = ("feature", "threshold", "left", "right", "parent", "depth",

@@ -237,6 +237,59 @@ def test_serving_tile_pinned(case):
     assert serve_kernel._smem_bytes is memory.serve_smem_bytes
 
 
+@pytest.mark.parametrize("quantized", [False, True], ids=["k4", "k5"])
+def test_margin_pack_priced_as_allocated(quantized):
+    """A boosted model's margin pack (``serve_kernel.pack_margin``), passed
+    as ``plan_serve(margin=...)``: each of its tensors is priced at its
+    own shape and item size in place of the general body's 16-byte
+    records, and the tile is the margin body's plan from the pack's own
+    chunks; without it the plan prices the records and no margin array
+    (the JAX ledger's names)."""
+    from mpitree_tpu_torch.serving import compile_model, quantize
+
+    X, y = covtype_like(1_500, seed=7)
+    est = GradientBoostingClassifier(max_iter=4, max_depth=3, device="cpu",
+                                     random_state=3).fit(X, y)
+    cm = compile_model(est)
+    T, M, K = cm.table.n_trees, cm.table.n_nodes, cm.n_out
+    if quantized:
+        q = quantize.build_state(
+            cm.table, quantize.prepare_channel(
+                "margin", cm._values.numpy()), kind="margin", scale=1.0,
+            n_steps=cm.table.n_steps, tol=math.inf,
+            device=torch.device("cpu"), n_features=54, n_out=K)
+        pack = serve_kernel.pack_margin(q.feature, q.threshold, q.left,
+                                        q.right, q.root, q.qvals, n_out=K,
+                                        form="traverse_q")
+    else:
+        pack = serve_kernel.pack_margin(*cm._dev_table, cm._values,
+                                        n_out=K, form="traverse")
+    assert pack.serves
+    kw = dict(n_trees=T, n_nodes_total=M, n_nodes_max=M, n_features=54,
+              value_channels=1, n_out=K, kernel=True, quantized=quantized)
+    plan = memory.plan_serve(**kw, margin=pack)
+    arrays = {a["name"]: a for a in plan.arrays}
+    held = pack.tensors()
+    assert ("margin_leaf_values" in held) != quantized
+    for name, t in held.items():
+        a = arrays[name]
+        assert (a["shape"], a["itemsize"]) == (list(t.shape),
+                                               t.element_size()), name
+        assert a["bytes_per_device"] == memory._block(
+            t.numel() * t.element_size())
+    assert "kernel_tables" not in arrays and plan.inputs["margin_body"]
+    p = serve_kernel.plan_margin(
+        "traverse_q" if quantized else "traverse", 4_096, K, n_features=54,
+        table_bytes=pack.table_bytes, chunk_trees=pack.chunk_trees)
+    assert plan.inputs["kernel_tile"] == {
+        "rows_per_block": p["rows_per_block"], "smem": p["smem"],
+        "stage_x": p["stage_x"], "body": "margin"}
+    plain = memory.plan_serve(**kw)
+    names = {a["name"] for a in plain.arrays}
+    assert "kernel_tables" in names and not names & set(held)
+    assert not plain.inputs["margin_body"]
+
+
 # -- the same ledger as JAX -----------------------------------------------------
 
 def _names(plan) -> dict:
