@@ -451,6 +451,19 @@ card's machine has no sklearn and no pandas; the port needs neither):
     JAX package's ``repr``, ``max_features_``, and a pickle round trip
     predicting equally on the card.
 
+Phase 36 publishes compiled models as they are:
+
+36. published: phase 5's forest and phase 26's K = 8 boosted regressor,
+    each compiled float and ``quantize="int8"``, published with
+    ``warm=False`` (no compile, no launch) and serving one 4,096-row
+    request through ``ModelRegistry.get(name).raw``: each launches its
+    ``serving_kernel`` decision's body (``traverse``, ``traverse_q``,
+    ``margin``, ``margin_q``) once, answers ``torch.equal`` to its answer
+    before publishing, records the JAX package's serving decision keys
+    and lands in a serve lineage of its own; ``metrics.snapshot()``
+    counts the publishes and ``load_covtype`` returns ``covtype_like``
+    (``phase_published``).
+
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the card's name and power limit, JSON lines of per-shape kernel timings
 (``kernel_shapes``, ``serve_kernel_shapes``, ``fixed_kernel_shapes``), of
@@ -463,7 +476,7 @@ of phases 19-20 (``constrained``, ``persistence``), of phases 21-23
 28-29 (``mesh``, ``mesh_ensembles``), of phase 30 (``stream``), of
 phase 31 (``resilience``), of phase 32 (``obs``), of phase 33
 (``memory``), of phase 34 (``flight``), of phase 35
-(``sklearn_surface``) and one
+(``sklearn_surface``), of phase 36 (``published``) and one
 ``kernels`` line (with each
 route's launches per engine, and the stream routes at S = 2 of the
 leaf-wise pair) come before it.
@@ -6357,6 +6370,117 @@ def phase_sklearn_surface(X, y, Xh, fit_tree) -> dict:
     return out
 
 
+# the decision keys of the JAX package's serve record for a model compiled
+# and then published (mpitree_tpu/serving/model.py:136-239,
+# registry.py:79); the int8 tier adds serving_quantize
+SERVE_DECISIONS = ("serving_compile", "serving_kernel", "registry_publish")
+
+
+def phase_published(forest, boost, Xh, Xch) -> dict:
+    """Phase 36: compiled models published as they are. Phase 5's forest
+    and phase 26's K = 8 boosted regressor, each compiled float and with
+    ``quantize="int8"`` (the regressor at ``quantize_tol=inf``, as phase 26
+    compiles it), answer one 4,096-row request before they are published;
+    then each is published with ``warm=False`` (the slot holds the same
+    object: no new compile, and no launch) and serves one 4,096-row
+    request through ``ModelRegistry.get(name).raw``, launching the body
+    its ``serving_kernel`` decision names (``traverse``, ``traverse_q``,
+    ``margin``, ``margin_q``) once and nothing else, ``torch.equal`` to
+    its answer before publishing (the float forest also to
+    ``predict_proba``, the float regressor to ``predict``). Each serve
+    record has the JAX package's decision keys (``SERVE_DECISIONS``),
+    the four land in four serve lineages of a temporary flight store, the
+    registry's ``metrics.snapshot()`` counts four publishes, and
+    ``load_covtype`` returns ``covtype_like``'s data under that name."""
+    import tempfile
+
+    from mpitree_tpu_torch.obs import FlightStore
+    from mpitree_tpu_torch.serving import ModelRegistry, compile_model
+    from mpitree_tpu_torch.serving import serve_kernel
+    from mpitree_tpu_torch.utils.datasets import covtype_like, load_covtype
+
+    t_phase = time.perf_counter()
+    n = SERVE_SHAPES[2]
+    specs = {"rf": (forest, {}, Xh[:n]),
+             "rf8": (forest, dict(quantize="int8"), Xh[:n]),
+             "gbr": (boost, {}, Xch[:n]),
+             "gbr8": (boost, dict(quantize="int8", quantize_tol=math.inf),
+                      Xch[:n])}
+    out: dict = {"rows": n, "models": {}}
+    with tempfile.TemporaryDirectory() as run_dir, \
+            _env(MPITREE_TPU_RUN_DIR=run_dir):
+        reg = ModelRegistry()
+        compiled, before = {}, {}
+        for name, (est, kw, Xq) in specs.items():
+            compiled[name] = compile_model(est, **kw)
+            before[name] = torch.from_numpy(compiled[name].raw(Xq))
+        for k in serve_kernel.launches:
+            serve_kernel.launches[k] = 0
+        for name, cm in compiled.items():
+            if reg.publish(name, cm, warm=False) is not cm \
+                    or reg.get(name) is not cm:
+                raise AssertionError(f"published {name}: not the compiled "
+                                     "model itself")
+        if any(serve_kernel.launches.values()):
+            raise AssertionError(f"published: warm=False launched "
+                                 f"{serve_kernel.launches}")
+        for name, (est, kw, Xq) in specs.items():
+            for k in serve_kernel.launches:
+                serve_kernel.launches[k] = 0
+            got = torch.from_numpy(reg.get(name).raw(Xq))
+            launches = dict(serve_kernel.launches)
+            rep = compiled[name].serve_report_
+            body = rep["decisions"]["serving_kernel"]["value"]
+            want_keys = set(SERVE_DECISIONS) | (
+                {"serving_quantize"} if kw else set())
+            if set(rep["decisions"]) != want_keys:
+                raise AssertionError(
+                    f"published {name}: decisions {sorted(rep['decisions'])}"
+                    f", the JAX package's are {sorted(want_keys)}")
+            if launches != {k: int(k == body) for k in launches}:
+                raise AssertionError(f"published {name}: launched "
+                                     f"{launches}, serving_kernel {body}")
+            if not torch.equal(got, before[name]):
+                raise AssertionError(f"published {name}: the answer "
+                                     "differs from before publishing")
+            if name == "rf" and not np.array_equal(
+                    got.numpy(), est.predict_proba(Xq)):
+                raise AssertionError("published rf: != predict_proba")
+            if name == "gbr" and not np.array_equal(
+                    got.numpy()[:, 0], est.predict(Xq)):
+                raise AssertionError("published gbr: != predict")
+            out["models"][name] = dict(
+                body=body, launches=launches,
+                decisions=sorted(rep["decisions"]),
+                x64=rep["memory"]["inputs"]["x64"],
+                warm_s=reg.models()[name]["warm_s"])
+        envs = FlightStore(run_dir).entries()
+        lineages = {e["config_digest"] for e in envs
+                    if e["kind"] == "serve"}
+        if len(envs) != len(specs) or len(lineages) != len(specs):
+            raise AssertionError(f"published: {len(envs)} envelopes in "
+                                 f"{len(lineages)} serve lineages")
+        snap = reg.metrics.snapshot()
+        published = snap["mpitree_registry_publish_total"]
+        if published != {f'{{model="{k}"}}': 1.0 for k in specs}:
+            raise AssertionError(f"published: snapshot counts {published}")
+    out["lineages"] = sorted(lineages)
+    out["publishes"] = sum(published.values())
+    Xl, yl, name = load_covtype(100_000)
+    Xs, ys = covtype_like(100_000, seed=0)
+    if name != "covtype_like" or not (np.array_equal(Xl, Xs)
+                                      and np.array_equal(yl, ys)):
+        raise AssertionError(f"load_covtype gave {name!r}, not "
+                             "covtype_like's data")
+    out["load_covtype"] = name
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"published: bodies "
+        f"{ {k: v['body'] for k, v in out['models'].items()} }, one "
+        f"launch each, every answer as before publishing; four serve "
+        f"lineages; load_covtype -> {name}; {out['seconds']:.3f} s")
+    return out
+
+
 def phase_profile(name: str, work, out_dir: Path) -> None:
     """Run ``work()`` once more under torch.profiler: device time by kernel
     and the device's busy share of the wall-clock; the table goes to
@@ -6613,6 +6737,8 @@ def main() -> int:
     mark("34 flight")
     surface = phase_sklearn_surface(X, y, Xh, fit_tree)
     mark("35 sklearn surface")
+    published = phase_published(forest, boost_regs[FUSED_K], Xh, Xch)
+    mark("36 published")
     if args.profile:
         profile_all(X, y, forest, Xh, args.profile)
 
@@ -6703,6 +6829,8 @@ def main() -> int:
             flight_serve_launches=flight["a"]["serve_launches"].get(form, 0),
             sklearn_surface_serve_launches=surface["b"][
                 "serve_launches"][form],
+            published_launches=published["models"][
+                "rf" if form == "traverse" else "rf8"]["launches"][form],
         ))
     for key, S in FIXED_LINE.items():
         route = key[:-len("_fixed")]
@@ -6799,6 +6927,9 @@ def main() -> int:
                 fused_rounds_bodies={k: fused[what]["serving"]["kernels"][
                     form][k] for k in ("body", "margin_ms", "general_ms",
                                        "pack")},
+                published_launches=(published["models"][
+                    "gbr" if form == "traverse" else "gbr8"]["launches"][key]
+                    if what == "regressor" else None),
             ))
     # the leaf-wise frontier's sibling pair: the stream routes at S = 2
     for key, payload in (("stream", None), ("stream_fixed", "moments")):
@@ -6855,6 +6986,7 @@ def main() -> int:
     log(json.dumps({"memory": memory}))
     log(json.dumps({"flight": flight}, default=str))
     log(json.dumps({"sklearn_surface": surface}))
+    log(json.dumps({"published": published}))
     log(json.dumps({"phase_end_s": clock}))
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -48,9 +48,11 @@ evidence when it exists. The platform is the device type: ``"cuda"`` on
 the card, ``"cpu"`` on the CPU.
 
 :func:`advise_serving_kernel` is kept so that a store read by both
-packages gives one answer, but nothing in the port calls it: the card
-has one serving kernel (``csrc/traverse.cu``), so there is no choice
-for evidence to make (``MPITREE_TPU_SERVING_KERNEL`` is in
+packages gives one answer, but nothing in the port calls it: the body a
+served model's launches take (``csrc/traverse.cu``, or ``csrc/margin.cu``
+for a boosted model of small trees) follows from the model alone, so
+there is no choice for evidence to make and a served model records no
+``advisor_serving_kernel`` decision (``MPITREE_TPU_SERVING_KERNEL`` is in
 ``config/knobs.NOT_ON_THE_CARD``).
 
 Stdlib only.

@@ -169,8 +169,10 @@ DECISIONS: tuple = (
              "serving tier compiled for a published model (XLA vs Pallas"
              " kernel, bucket widths)"),
     Decision("serving_kernel",
-             "per-dispatch serving kernel pick (Pallas traversal vs XLA"
-             " gather loop)"),
+             "the body a served model's launches take, by its launch"
+             " counter's name (traverse, traverse_q, margin, margin_q;"
+             " plain where no kernel launches: on the CPU, a single"
+             " tree's gather)"),
     Decision("serving_quantize",
              "quantized serving tables on/off and the calibration"
              " tolerance verdict"),

@@ -953,7 +953,9 @@ def plan_serve(*, n_trees: int, n_nodes_total: int, n_nodes_max: int,
         phases=phases,
         hbm_peak_bytes=int(phases[peak_phase]),
         peak_phase=peak_phase,
-        host_peak_bytes=int(M) * (5 * 4 + kv * val_item),
+        # the int8 tier quantizes a float64 host channel
+        host_peak_bytes=int(M) * (5 * 4 + kv * (8 if quantized
+                                                else val_item)),
         inputs={
             "n_trees": int(n_trees), "n_nodes_total": M,
             "n_nodes_max": int(n_nodes_max),

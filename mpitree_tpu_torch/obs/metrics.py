@@ -303,6 +303,25 @@ class MetricsRegistry:
         """
         return render_text([self.render_families(extra_labels)])
 
+    def snapshot(self) -> dict:
+        """Plain-dict view:
+        {name: {label_str: value-or-histogram-snapshot}}."""
+        with self._lock:
+            families = {
+                name: (cls, dict(children))
+                for name, (cls, children) in self._families.items()
+            }
+        out: dict = {}
+        for name, (cls, children) in families.items():
+            fam: dict = {}
+            for key, metric in children.items():
+                label = _label_str(dict(key)) or ""
+                fam[label] = (
+                    metric.snapshot() if cls is Histogram else metric.value
+                )
+            out[name] = fam
+        return out
+
 
 def render_text(family_maps: list) -> str:
     """Merge ``render_families`` maps into one exposition: one ``# TYPE``

@@ -21,6 +21,12 @@ Failures are bounded, as the JAX package's are
 fails every present process's :func:`initialize` within ``timeout``
 seconds, and a collective with a peer that died raises in the survivors
 (gloo: when the connection drops, at the latest after ``timeout``).
+:func:`initialize` also takes the JAX package's names for the two bounds
+(``jax.distributed.initialize``'s ``initialization_timeout`` for the join
+and ``heartbeat_timeout_seconds`` for the collectives) and refuses any
+other keyword with a ``TypeError``. The join is torch's own rendezvous
+(``env://`` or ``tcp://``, so a ``torchrun`` agent's store is joined as a
+client), bounded by the first.
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ def initialize(coordinator_address: str | None = None,
                num_processes: int | None = None,
                process_id: int | None = None, *,
                backend: str | None = None,
-               timeout: float = 300.0) -> None:
+               timeout: float = 300.0, **timeouts) -> None:
     """Join the job's process group (idempotent).
 
     ``coordinator_address`` ``"host:port"`` (process 0 listens there),
@@ -44,9 +50,21 @@ def initialize(coordinator_address: str | None = None,
     (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``, as
     ``torchrun`` sets it) is read; on a single process with neither this
     is a no-op. ``backend`` None is NCCL when CUDA is available, else
-    gloo. ``timeout`` (seconds) bounds the join and every collective."""
+    gloo. ``timeout`` (seconds) bounds the join and every collective.
+    ``timeouts`` are ``jax.distributed.initialize``'s names for the two
+    bounds: ``heartbeat_timeout_seconds`` is ``timeout``, and
+    ``initialization_timeout`` bounds the join alone; any other name
+    raises ``TypeError``."""
     import torch.distributed as dist
 
+    timeout = float(timeouts.pop("heartbeat_timeout_seconds", timeout))
+    join = float(timeouts.pop("initialization_timeout", timeout))
+    if timeouts:
+        raise TypeError(
+            f"initialize() got unexpected keyword argument(s) "
+            f"{', '.join(map(repr, sorted(timeouts)))}: of jax.distributed."
+            f"initialize's timeouts the port reads initialization_timeout "
+            f"and heartbeat_timeout_seconds")
     if dist.is_initialized():
         return
     env = os.environ.get("MASTER_ADDR") and os.environ.get("MASTER_PORT")
@@ -55,14 +73,19 @@ def initialize(coordinator_address: str | None = None,
         return  # one process, nothing to join
     if backend is None:
         backend = "nccl" if torch.cuda.is_available() else "gloo"
-    kw = {"backend": backend,
-          "timeout": datetime.timedelta(seconds=float(timeout))}
     if coordinator_address is None:
-        kw["init_method"] = "env://"
+        url, rank, world = "env://", -1, -1
     else:
-        kw.update(init_method=f"tcp://{coordinator_address}",
-                  world_size=int(num_processes), rank=int(process_id))
-    dist.init_process_group(**kw)
+        url = f"tcp://{coordinator_address}"
+        rank, world = int(process_id), int(num_processes)
+    # what init_process_group(init_method=url) does, with the join bounded
+    # by ``join`` and the store then by ``timeout``
+    store, rank, world = next(dist.rendezvous(
+        url, rank, world, timeout=datetime.timedelta(seconds=join)))
+    store.set_timeout(datetime.timedelta(seconds=timeout))
+    dist.init_process_group(
+        backend, store=dist.PrefixStore("default_pg", store), rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=timeout))
 
 
 def shutdown() -> None:

@@ -34,7 +34,7 @@ serving handle:
   bit; ``quantize="int8"`` serves it by K5 in ``percls`` mode. On the card
   both take the margin body (``csrc/margin.cu``) over a pack made here
   once, where the trees are small (``serve_kernel.MARGIN_MEAN_NODES``),
-  else the general body (``serve_kernel._takes_margin``). A single
+  else the general body (``serve_kernel.body_for``). A single
   classification tree (kind
   ``gather_counts``, int32 counts; with ``monotonic_cst``
   ``gather_value`` over its int32 clipped labels, ``:710-720``) or
@@ -282,7 +282,11 @@ class CompiledModel:
             else quantize)
         # An integer channel (single-tree counts) is exact and minimal
         # already: an int8 affine could only add error.
-        if int_channel:
+        if qmode is not None and int_channel:
+            self._obs.decision(
+                "serving_quantize", "skip",
+                reason="integer leaf channel is exact and minimal "
+                       "already; serving it unquantized")
             qmode = None
         self.quantize = qmode
         self.exact = qmode is None
@@ -297,16 +301,22 @@ class CompiledModel:
         self._agg = traversal.ACC_AGG.get(kind)
         if qmode is not None:
             flat = _channel(self.trees, values_fn, self.table, np.float64)
+            tol = float(knobs.value("MPITREE_TPU_SERVING_QUANTIZE_TOL")
+                        if quantize_tol is None else quantize_tol)
             self._quant = quantize_lib.build_state(
                 self.table, quantize_lib.prepare_channel(kind, flat),
                 kind=kind, scale=scale, n_steps=self.table.n_steps,
-                tol=float(
-                    knobs.value("MPITREE_TPU_SERVING_QUANTIZE_TOL")
-                    if quantize_tol is None else quantize_tol),
-                device=device, calibration=calibration,
+                tol=tol, device=device, calibration=calibration,
                 n_features=self.n_features,
                 n_out=self.n_out if kind == "margin" else None,
             )
+            rep = self._quant.report
+            self._obs.decision(
+                "serving_quantize", qmode,
+                reason=("bf16 thresholds / int16 feature ids / int8-delta "
+                        f"values; max calibration prediction delta "
+                        f"{rep['max_abs_delta']:.2e} <= tol {tol:.2e}"),
+                **rep)
         else:
             # norm's per-tree row division, taken once per leaf here: the
             # kernel then only adds (sum mode), to the same bits.
@@ -334,6 +344,22 @@ class CompiledModel:
                 # the general body's records
                 self._record = self.table.dev_record(device)
         kernel = "traverse_q" if qmode else "traverse"
+        pack = self._margin if self._quant is None else self._quant.margin
+        # the body this model's launches take, by the launch's own rule;
+        # "plain" where no kernel launches
+        body = "plain" if kind in traversal.GATHER_KINDS else \
+            serve_kernel.body_for(kernel, self._agg, pack, device)
+        precision = ("int-exact gather" if int_channel
+                     else "f64-exact" if self.exact else qmode)
+        self._obs.decision(
+            "serving_compile", kind,
+            reason=f"{precision} traversal, buckets {self.buckets}",
+            exact=bool(self.exact), n_out=self.n_out,
+            **table_notes(self.trees))
+        self._obs.decision(
+            "serving_kernel", body,
+            reason=("plain PyTorch traversal" if body == "plain" else
+                    f"Hopper kernel {body} (serve_kernel.launches[{body!r}])"))
         # the model's card residency (obs/memory.plan_serve, the JAX
         # package's :245): the flat table, its leaf values, the kernel's
         # packed records, the largest bucket's working set
@@ -345,13 +371,14 @@ class CompiledModel:
             n_nodes_max=max(int(t.n_nodes) for t in self.trees),
             n_features=self.n_features, value_channels=kv,
             n_out=self.n_out, buckets=self.buckets,
-            x64=np.dtype(value_dtype).itemsize == 8,
+            # the leaf values on the device are float64; the int8 tier's
+            # are int8, summed in int32 by K5
+            x64=qmode is None and np.dtype(value_dtype).itemsize == 8,
             kernel=device.type == "cuda" and self._agg is not None
             and kind not in traversal.GATHER_KINDS,
             quantized=qmode is not None,
             normalized=traversal.ACC_AGG.get(kind) == "norm",
-            margin=(self._margin if self._quant is None
-                    else self._quant.margin)))
+            margin=pack))
         self._priced_buckets: set = set()
         if kind in traversal.GATHER_KINDS:
             self.dispatch = "plain gather"

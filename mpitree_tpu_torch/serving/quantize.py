@@ -156,10 +156,43 @@ class QuantizedState:
     # (K,) trees per column x the affine's base: float32, float64 for a
     # margin
     qbase: torch.Tensor
+    vscale: np.ndarray       # (K,) float32: the affine's scale, on the host
+    vbase: np.ndarray        # (K,) float32: the affine's base, on the host
     report: dict             # the exactness report (serve_report_)
     # a margin's serve_kernel.pack_margin on the card where the margin
     # body serves it (its tables), else None
     margin: serve_kernel.MarginPack | None = None
+
+    @property
+    def q_host(self) -> np.ndarray:
+        """(M, K) int8 lattice in flat-table order: a host copy of
+        ``qvals``, made on each call (none is kept)."""
+        return self.qvals.cpu().numpy()
+
+    @property
+    def rows_host(self) -> np.ndarray:
+        """(M, K) float32 dequantized values in flat-table order, made
+        from :attr:`q_host` on each call."""
+        return dequantize(self.q_host, self.vscale, self.vbase)
+
+    def _per_tree(self, flat: np.ndarray, trees, table) -> dict:
+        """Invert the flat table's depth-pack scatter: ``id(tree) ->
+        (n_nodes, K)`` rows in the tree's node order."""
+        concat = np.empty_like(flat)
+        concat[table.scatter_order()] = flat
+        offs = np.cumsum([0] + [t.n_nodes for t in trees])
+        return {id(t): concat[offs[i]:offs[i + 1]]
+                for i, t in enumerate(trees)}
+
+    def rows_per_tree(self, trees, table) -> dict:
+        """Dequantized float32 value rows per tree (``id(tree) -> rows``):
+        what the int8 tier serves, before the sum over trees."""
+        return self._per_tree(self.rows_host, trees, table)
+
+    def q_rows_per_tree(self, trees, table) -> dict:
+        """Raw int8 lattice rows per tree: what K5 sums in int32 before
+        the affine."""
+        return self._per_tree(self.q_host, trees, table)
 
 
 def build_state(table, prepared: np.ndarray, *, kind: str, scale,
@@ -210,6 +243,7 @@ def build_state(table, prepared: np.ndarray, *, kind: str, scale,
                 if margin is None else None),
         qvals=qvals, margin=margin,
         qscale=torch.from_numpy(vscale).to(device),
+        vscale=vscale, vbase=vbase,
         qbase=torch.from_numpy(
             (table.n_trees // int(n_out)) * vbase.astype(np.float64)
             if kind == "margin"
@@ -229,10 +263,9 @@ def q_traverse_accumulate(X: torch.Tensor, state: QuantizedState, *,
     the float64 ``baseline``). The affine is linear across the ensemble
     sum, so this serves the int8-affine values the exactness report
     covers."""
-    margin = kind == "margin"
-    if not margin and kind not in ("forest_proba", "forest_mean",
-                                   "forest_values"):
+    if kind not in traversal.ACC_KINDS:
         raise ValueError(f"unknown quantized accumulate kind {kind!r}")
+    margin = kind == "margin"
     out = serve_kernel.traverse_q(
         X, state.feature, state.threshold, state.left, state.right,
         state.root, state.qvals, n_steps=n_steps,

@@ -1,14 +1,18 @@
 """ModelRegistry: named model slots, swapped only once the new model is warm.
 
-Counterpart of ``mpitree_tpu/serving/registry.py``. ``publish`` compiles
-(``compile_model``) and warms a new model entirely before it flips the
-slot under a lock, so requests racing a publish keep hitting the old
-model; a quantization refusal (``QuantizationError``) raises before the
-flip and leaves the old model serving. The dispatch itself runs outside
-the lock. ``metrics_text`` is one Prometheus exposition of the registry's
-publish metrics and every published model's families, each stamped
-``model=<slot>``, under one ``# TYPE`` line per family; the scheduler
-(``serving/scheduler.py``) merges its own families into the same text.
+Counterpart of ``mpitree_tpu/serving/registry.py``. ``publish`` takes a
+fitted estimator, which it compiles (``compile_model``), or a
+:class:`CompiledModel` as it is, and warms it (``warm=False`` skips that)
+entirely before it flips the slot under a lock, so requests racing a
+publish keep hitting the old model; a quantization refusal
+(``QuantizationError``) raises before the flip and leaves the old model
+serving. Each publish records the ``registry_publish`` decision (its
+generation and ``warm``) on the model's ``serve_report_``. The dispatch
+itself runs outside the lock. ``metrics_text`` is one Prometheus
+exposition of the registry's publish metrics and every published model's
+families, each stamped ``model=<slot>``, under one ``# TYPE`` line per
+family; the scheduler (``serving/scheduler.py``) merges its own families
+into the same text.
 """
 
 from __future__ import annotations
@@ -35,17 +39,23 @@ class ModelRegistry:
         # the registry's own metrics: publish counts and warm seconds
         self.metrics = MetricsRegistry()
 
-    def publish(self, name: str, estimator, *, quantize=None,
-                quantize_tol=None, calibration=None) -> CompiledModel:
-        """Compile (``compile_model``; ``quantize=None`` follows the
-        ``MPITREE_TPU_SERVING_QUANTIZE`` knob) and warm a fitted
-        estimator, then swap it into slot ``name``."""
-        model = compile_model(
-            estimator, buckets=self.buckets, quantize=quantize,
-            quantize_tol=quantize_tol, calibration=calibration,
-        )
+    def publish(self, name: str, model, *, warm: bool = True,
+                quantize=None, quantize_tol=None,
+                calibration=None) -> CompiledModel:
+        """Compile a fitted estimator (``compile_model``, with
+        ``quantize``, ``quantize_tol`` and ``calibration``;
+        ``quantize=None`` follows the ``MPITREE_TPU_SERVING_QUANTIZE``
+        knob), or take a :class:`CompiledModel` as it is, warm it
+        (``warm=True``: every bucket once), then swap it into slot
+        ``name``."""
+        if not isinstance(model, CompiledModel):
+            model = compile_model(
+                model, buckets=self.buckets, quantize=quantize,
+                quantize_tol=quantize_tol, calibration=calibration,
+            )
         t0 = time.perf_counter()
-        model.warmup()
+        if warm:
+            model.warmup()
         warm_s = time.perf_counter() - t0
         self.metrics.counter(
             "mpitree_registry_publish_total", model=name).inc()
@@ -56,10 +66,15 @@ class ModelRegistry:
             self._slots[name] = model
             self._meta[name] = {
                 "generation": generation,
-                "warm_s": warm_s,
+                "warm_s": round(warm_s, 3),
                 "buckets": model.buckets,
                 "kind": model.kind,
             }
+        with model._state_lock:
+            model._obs.decision(
+                "registry_publish", name,
+                reason=f"generation {generation}, warmed in {warm_s:.3f}s",
+                warm=bool(warm))
         return model
 
     def get(self, name: str) -> CompiledModel:

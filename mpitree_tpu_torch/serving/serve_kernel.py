@@ -240,7 +240,7 @@ class MarginPack:
     table_bytes : the largest chunk's staged bytes within the budget.
     chunk_trees : the most trees in one chunk.
     serves : the trees average at most ``MARGIN_MEAN_NODES`` nodes: the
-        margin body serves the model (see :func:`_takes_margin`).
+        margin body serves the model (see :func:`body_for`).
     """
 
     form: str
@@ -574,13 +574,28 @@ def _takes_margin(form: str, agg: str, pack, body: str | None) -> bool:
         body == "margin" or (body is None and pack.serves))
 
 
+def body_for(form: str, agg: str | None, pack, device, *,
+             _body: str | None = None) -> str:
+    """The body a launch of ``form`` (``"traverse"``/``"traverse_q"``) in
+    ``agg`` over ``pack`` on ``device`` takes, under its launch counter's
+    name (:data:`launches`): ``"margin"``/``"margin_q"`` where
+    :func:`_takes_margin`, else ``form``; ``"plain"`` off CUDA, where the
+    plain version runs. The one routing rule: :func:`_launch` routes by
+    it, and a compiled model records it (``serving_kernel``). ``_body``
+    forces a body as :func:`_launch`'s does. Host arithmetic, no device."""
+    if torch.device(device).type != "cuda":
+        return "plain"
+    return _MARGIN[form][1] if _takes_margin(form, agg, pack, _body) \
+        else form
+
+
 def _launch(form: str, X, table, values, record, *, n_steps: int, agg: str,
             n_out: int, baseline=None, pack=None,
             _rows_per_block: int | None = None, _body: str | None = None,
             _tiling: dict | None = None) -> torch.Tensor:
     """Allocate the (N, n_out) output and launch one kernel once on the
     current stream, without synchronising: the margin body for ``percls``
-    where ``pack`` is given and ``pack.serves`` (:func:`_takes_margin`),
+    where ``pack`` is given and ``pack.serves`` (:func:`body_for`),
     else the general one (packing ``record`` when None).
     Only ``chip_smoke.py`` and the card's tests pass the private
     arguments, to time and check alternatives against each other:
@@ -595,9 +610,9 @@ def _launch(form: str, X, table, values, record, *, n_steps: int, agg: str,
     if N == 0 or T == 0:
         out = torch.zeros((N, n_out), dtype=acc_t, device=X.device)
         return out if baseline is None else out + baseline
-    if _takes_margin(form, agg, pack,
-                     "margin" if _tiling is not None and _body is None
-                     else _body):
+    if body_for(form, agg, pack, X.device,
+                _body="margin" if _tiling is not None and _body is None
+                else _body) != form:
         return _launch_margin(form, X, pack, n_steps=n_steps, n_out=n_out,
                               baseline=baseline, tiling=_tiling)
     if record is None:

@@ -12,10 +12,11 @@ Host arrays are numpy and are built once per ensemble: a forest's
 ``trees_`` is a :class:`TreeList`, which carries its tables. Device
 copies are torch tensors, made once per device and kept on the table
 (:meth:`NodeTable.dev_arrays`, :meth:`NodeTable.dev_values`,
-:meth:`NodeTable.dev_record`), so the request path uploads nothing but the
-query batch. The kernels (``serving/serve_kernel.py``) descend the packed
-node records (16 bytes a node), the plain versions the columns; a
-published model holds one copy of each on the card.
+:meth:`NodeTable.dev_record`; the host value channels,
+:meth:`NodeTable.values`, are kept too), so the request path uploads
+nothing but the query batch. The kernels (``serving/serve_kernel.py``)
+descend the packed node records (16 bytes a node), the plain versions
+the columns; a published model holds one copy of each on the card.
 """
 
 from __future__ import annotations
@@ -74,6 +75,7 @@ class NodeTable:
 
     def __post_init__(self):
         self._dev: dict = {}
+        self._values: dict = {}
         self._dev_values: dict = {}
         self._dev_record: dict = {}
 
@@ -114,15 +116,23 @@ class NodeTable:
                 *self.dev_arrays(device)[:4])
         return rec
 
+    def values(self, channel: str, build) -> np.ndarray:
+        """Host value channel ``channel``, built once as ``build(self)``."""
+        v = self._values.get(channel)
+        if v is None:
+            v = self._values[channel] = build(self)
+        return v
+
     def dev_values(self, channel: str, build, *, dtype: np.dtype,
                    device: torch.device, prepare=None) -> torch.Tensor:
-        """Value channel ``channel`` (host array ``build(self)``) on
-        ``device`` at ``dtype``, built and uploaded once; ``prepare``, if
-        given, maps the uploaded tensor on the device before it is kept."""
+        """Value channel ``channel`` (the host array :meth:`values`) on
+        ``device`` at ``dtype``, uploaded once; ``prepare``, if given,
+        maps the uploaded tensor on the device before it is kept."""
         key = (channel, np.dtype(dtype).str, str(device))
         d = self._dev_values.get(key)
         if d is None:
-            host = np.ascontiguousarray(build(self), dtype=dtype)
+            host = np.ascontiguousarray(self.values(channel, build),
+                                        dtype=dtype)
             d = torch.from_numpy(host).to(device)
             self._dev_values[key] = d = prepare(d) if prepare else d
         return d

@@ -41,6 +41,7 @@ ACC_AGG = {
     "margin": "percls",
     "forest_values": "sum",
 }
+ACC_KINDS = tuple(ACC_AGG)  # the kinds served by the accumulate kernels
 
 
 def descend(X: torch.Tensor, feature: torch.Tensor, threshold: torch.Tensor,

@@ -5,13 +5,16 @@ ParallelDecisionTreeClassifier, DecisionTreeRegressor,
 RandomForestClassifier, RandomForestRegressor, ExtraTreesClassifier,
 ExtraTreesRegressor, GradientBoostingClassifier,
 GradientBoostingRegressor`` (``mpitree_tpu/tree/__init__.py:13``), and
-``StreamedDataset`` for ``fit(dataset=...)`` (``mpitree_tpu/__init__.py:35``).
+``StreamedDataset`` for ``fit(dataset=...)`` (``mpitree_tpu/__init__.py:35``),
+and the fitted tree's types ``BranchType``, ``Node`` and ``TreeArrays``
+(``mpitree_tpu/tree/__init__.py:10``).
 """
 
 from mpitree_tpu_torch.boosting import (
     GradientBoostingClassifier,
     GradientBoostingRegressor,
 )
+from mpitree_tpu_torch.core.tree_struct import BranchType, Node, TreeArrays
 from mpitree_tpu_torch.ingest import StreamedDataset
 from mpitree_tpu_torch.models.classifier import (
     DecisionTreeClassifier,
@@ -25,8 +28,9 @@ from mpitree_tpu_torch.models.forest import (
 )
 from mpitree_tpu_torch.models.regressor import DecisionTreeRegressor
 
-__all__ = ["DecisionTreeClassifier", "DecisionTreeRegressor",
+__all__ = ["BranchType", "DecisionTreeClassifier", "DecisionTreeRegressor",
            "ExtraTreesClassifier", "ExtraTreesRegressor",
            "GradientBoostingClassifier", "GradientBoostingRegressor",
-           "ParallelDecisionTreeClassifier", "RandomForestClassifier",
-           "RandomForestRegressor", "StreamedDataset"]
+           "Node", "ParallelDecisionTreeClassifier",
+           "RandomForestClassifier", "RandomForestRegressor",
+           "StreamedDataset", "TreeArrays"]

@@ -9,6 +9,12 @@ columns and a smooth noisy target (``BASELINE.json`` config 4,
 ``DecisionTreeRegressor``). Same seed, same arrays as the JAX package's
 generators. Both are synthetic: the machine with the card has no network,
 so this is the full-size data there.
+
+``load_covtype`` and ``load_california`` (``:105-146``) prefer the real
+datasets where scikit-learn has a cached copy (``download_if_missing=
+False``: they never download; ``sklearn.datasets`` is imported inside the
+call only) and otherwise return the generators' data, under the names
+``covtype_like`` and ``california_like``.
 """
 
 from __future__ import annotations
@@ -88,3 +94,46 @@ def california_like(n_samples: int = 20640, seed: int = 0):
         + rng.normal(0, 0.35, n)
     )
     return X, np.clip(y, 0.15, 5.0).astype(np.float64)
+
+
+def _subsample(X, y, n_samples, seed):
+    if n_samples is not None and len(X) > n_samples:
+        idx = np.random.default_rng(seed).permutation(len(X))[:n_samples]
+        X, y = X[idx], y[idx]
+    return X, y
+
+
+def load_california(n_samples: int | None = None, seed: int = 0):
+    """Real California housing when cached; california_like otherwise.
+
+    Returns (X, y, name).
+    """
+    try:
+        from sklearn.datasets import fetch_california_housing
+
+        d = fetch_california_housing(download_if_missing=False)
+        X = d.data.astype(np.float32)
+        y = d.target.astype(np.float64)
+        name = "california_housing"
+    except Exception:
+        X, y = california_like(20640 if n_samples is None else n_samples, seed)
+        name = "california_like"
+    return (*_subsample(X, y, n_samples, seed), name)
+
+
+def load_covtype(n_samples: int | None = None, seed: int = 0):
+    """Real covtype when a cached copy exists; covtype_like otherwise.
+
+    Returns (X, y, name) with y relabelled to 0..6.
+    """
+    try:
+        from sklearn.datasets import fetch_covtype
+
+        d = fetch_covtype(download_if_missing=False)
+        X = d.data.astype(np.float32)
+        y = (d.target - 1).astype(np.int64)
+        name = "covtype"
+    except Exception:
+        X, y = covtype_like(581012 if n_samples is None else n_samples, seed)
+        name = "covtype_like"
+    return (*_subsample(X, y, n_samples, seed), name)

@@ -145,6 +145,42 @@ def test_serve_envelope_and_its_digest_equal_jax(small, tmp_path,
     assert sorted(ref["fingerprints"]) == sorted(rep["fingerprints"])
 
 
+def test_serve_records_of_one_model_and_its_int8_twin_equal_jax(
+        small, tmp_path, monkeypatch):
+    """The same forest (the JAX package's fit, carried into the port by its
+    model file), compiled float and ``quantize="int8"`` in both packages:
+    each of the port's serve envelopes has the decision keys of the JAX
+    package's envelope for the same model, and the float and int8
+    envelopes lie in two lineages in each store, as in the JAX package
+    (the serve lineage key reads ``serving_compile``, ``serving_kernel``
+    and ``memory.inputs.x64``). With a store, the JAX package also asks
+    its advisor which serving tier to take (``advisor_serving_kernel``);
+    the port's body follows from the model alone and consults no evidence
+    (``obs/advisor.py``), so that record is the one key it lacks."""
+    X, y = small
+    ref = J.RandomForestClassifier(n_estimators=3, max_depth=4,
+                                   random_state=0).fit(X, y)
+    J.save_model(ref, tmp_path / "rf")
+    est = P.load_model(tmp_path / "rf.npz", device="cpu")
+    envs = {}
+    for side, compile_, model in (("port", P.compile_model, est),
+                                  ("jax", jax_compile, ref)):
+        monkeypatch.setenv(RUN_DIR, str(tmp_path / side))
+        for q in (None, "int8"):
+            compile_(model, quantize=q, quantize_tol=1.0).serve_report_  # noqa: B018
+        envs[side] = flight.FlightStore(str(tmp_path / side)).entries()
+    for p, j in zip(envs["port"], envs["jax"]):
+        assert p["kind"] == j["kind"] == "serve"
+        jkeys = set(j["record"]["decisions"])
+        assert set(p["record"]["decisions"]) == jkeys - {
+            "advisor_serving_kernel"}
+        assert "advisor_serving_kernel" in jkeys
+        assert p["config_digest"] == flight.config_digest_from_record(
+            p["record"], kind="serve")
+    for side in ("port", "jax"):
+        assert len({e["config_digest"] for e in envs[side]}) == 2, side
+
+
 ESTIMATORS = {
     "tree": lambda X, y: P.DecisionTreeClassifier(
         max_depth=4, device="cpu").fit(X, y),

@@ -169,11 +169,24 @@ def test_digest_keys_equal_jax(pairs):
 
 
 def test_event_and_decision_registries_equal_jax():
+    """The JAX package's catalog, but for ``serving_kernel``'s text,
+    which names the port's values (the body a served model's launches
+    take) where JAX's names its TPU tiers."""
     assert events.EVENTS == tuple(
         events.Event(e.kind, e.severity, e.doc) for e in jax_events.EVENTS)
-    assert events.DECISIONS == tuple(
-        events.Decision(d.key, d.doc) for d in jax_events.DECISIONS)
-    assert events.markdown_table() == jax_events.markdown_table()
+    own = {"serving_kernel"}
+    assert [d.key for d in events.DECISIONS] == [
+        d.key for d in jax_events.DECISIONS]
+    assert tuple(d for d in events.DECISIONS if d.key not in own) == tuple(
+        events.Decision(d.key, d.doc) for d in jax_events.DECISIONS
+        if d.key not in own)
+    doc = events.DECISION_KEYS["serving_kernel"].doc
+    for body in ("traverse", "traverse_q", "margin", "margin_q", "plain"):
+        assert body in doc
+    differ = [(a, b) for a, b in zip(
+        events.markdown_table().splitlines(),
+        jax_events.markdown_table().splitlines()) if a != b]
+    assert [a.split("|")[1].strip() for a, _ in differ] == ["`serving_kernel`"]
 
 
 @pytest.mark.parametrize("name", ["MPITREE_TPU_PROFILE",
